@@ -7,14 +7,20 @@ on a machine with the card but without JAX:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
 
 K1 forward is built without FMA contraction and must agree with its plain
-version bit for bit on coordinates and masks; the Lu penalty sums within
-1e-5 (acosf rounding, measured <= 2e-6 on an H100).
+version bit for bit on coordinates and masks; the Lu and full penalty sums
+within 1e-5 (acosf rounding, measured <= 2e-6 on an H100). K1 backward must
+agree with its plain version bit for bit on the per-ray cotangents, and its
+parameter sums (float32 block and column sums against the plain version's
+float64 sums) within 1e-5 of their largest magnitude; two launches on the
+same inputs agree bit for bit.
 """
+
+import math
 
 import pytest
 import torch
 
-from torchoptics_tpu_torch import simulator, zoo
+from torchoptics_tpu_torch import LensOptimizer, simulator, zoo
 from torchoptics_tpu_torch.ops import fused_trace
 
 pytestmark = pytest.mark.cuda
@@ -22,6 +28,9 @@ pytestmark = pytest.mark.cuda
 CONFIG = dict(n_sampled_fields=16, n_pupil_rings=96, pupil_sampling="circular",
               n_ray_aiming_iter=1)
 MODES = [(True, True), (True, False), (False, True), (False, False)]
+PENALTY_MODES = [False, True, "full"]
+# Tight bounds, so that the path and angle hinges fire.
+LOWER, UPPER, THR = (0.5, 1.5, 12.0), (None, 3.0, 40.0), math.cos(math.radians(30.0)) ** 2
 
 
 @pytest.fixture
@@ -72,9 +81,14 @@ def test_k1_forward_refuses_bad_inputs(cuda):
                                     False, True, 4)
         with pytest.raises(ValueError, match="is on"):
             fused_trace.trace_fused(x, x, x, z0.cpu(), c, c, mu, False, True, 4)
+    # A CUDA tensor that requires grad goes through K1 backward.
     c_grad = c.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fused_trace.trace_fused(x, x, x, z0, c_grad, c, mu, False, True, 4)
+    before = fused_trace.K1_BWD_LAUNCHES
+    outs = fused_trace.trace_fused(x, x, x, z0, c_grad, c, mu, False, True, 4)
+    (grad,) = torch.autograd.grad(outs[1].sum(), c_grad)
+    torch.cuda.synchronize()
+    assert fused_trace.K1_BWD_LAUNCHES == before + 1
+    assert grad.shape == c.shape and bool(torch.isfinite(grad).all())
 
 
 def test_fused_loss_on_gpu_matches_cpu(cuda):
@@ -85,3 +99,87 @@ def test_fused_loss_on_gpu_matches_cpu(cuda):
         _, want = simulator.do_ray_tracing(specs.to("cpu"), lens.to("cpu"), cfg)
     for key, rtol in (("loss_unsup", 1e-5), ("penalty", 1e-5), ("rms", 2e-4)):
         assert abs(float(loss[key]) - float(want[key])) <= rtol * abs(float(want[key])), key
+
+
+def _k1_inputs(device, c_scale):
+    cfg = simulator.SimulatorConfig(**CONFIG).trace_config()
+    specs, lens = zoo.build("double_gauss", device=device)
+    lens = lens.replace(c=lens.c * c_scale)
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, _) = fused_trace.prepare_fused_inputs(specs, lens, cfg)
+    t = lens.t[0].detach()
+    vertex_z = torch.cumsum(t, 0)
+    ref_z = torch.cat((vertex_z, vertex_z[-1:]))
+    bounds = fused_trace._path_bounds(lens.structure, LOWER, UPPER)
+    return (xp, yp, cyb, z0, lens.c[0].detach(), t, mu, ref_z), F * P, bounds
+
+
+@pytest.mark.parametrize("c_scale", [1.0, 3.0])
+@pytest.mark.parametrize("allow_backward", [True, False])
+def test_k1_forward_full_mode_matches_plain_version(cuda, c_scale, allow_backward):
+    inputs, n_per_w, bounds = _k1_inputs(cuda, c_scale)
+    before = fused_trace.K1_FWD_LAUNCHES
+    got = fused_trace._launch_k1_fwd(inputs, "full", allow_backward, n_per_w, bounds, THR)
+    want = fused_trace.trace_fused_reference(*inputs[:7], "full", allow_backward, n_per_w,
+                                             inputs[7], bounds, THR)
+    torch.cuda.synchronize()
+    assert fused_trace.K1_FWD_LAUNCHES == before + 1
+    assert len(got) == len(want) == 11
+    for a, b in zip(got[:6], want[:6]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[6:], want[6:]):
+        assert float((a - b).abs().max()) <= 1e-5
+    assert float(got[9].mean()) > 0 and float(got[10].mean()) > 0
+
+
+@pytest.mark.parametrize("c_scale", [1.0, 3.0])
+@pytest.mark.parametrize("allow_backward", [True, False])
+@pytest.mark.parametrize("penalties", PENALTY_MODES)
+def test_k1_backward_matches_plain_version(cuda, c_scale, allow_backward, penalties):
+    inputs, n_per_w, bounds = _k1_inputs(cuda, c_scale)
+    if penalties != "full":
+        inputs = inputs[:7]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n_cot = {False: 4, True: 7, "full": 9}[penalties]
+    cot = [torch.randn(inputs[0].shape[0], device=cuda, generator=gen) for _ in range(n_cot)]
+    before = fused_trace.K1_BWD_LAUNCHES
+    got = fused_trace._launch_k1_bwd(inputs, cot, penalties, allow_backward, n_per_w, bounds,
+                                     THR)
+    again = fused_trace._launch_k1_bwd(inputs, cot, penalties, allow_backward, n_per_w, bounds,
+                                       THR)
+    want = fused_trace.trace_fused_backward_reference(inputs, cot, penalties, allow_backward,
+                                                      n_per_w, bounds, THR)
+    torch.cuda.synchronize()
+    assert fused_trace.K1_BWD_LAUNCHES == before + 2
+    assert len(got) == len(want) == (8 if penalties == "full" else 7)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "two launches differ"
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[3:], want[3:]):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("use_full_loss", [False, True])
+def test_optimizer_step_on_gpu_matches_cpu(cuda, use_full_loss):
+    """One LensOptimizer step at the entry width on the card and on the CPU:
+    one K1 forward and one K1 backward launch, the same loss and the same
+    parameters after the step."""
+    after = {}
+    for device in (cuda, torch.device("cpu")):
+        cfg = simulator.SimulatorConfig(n_sampled_fields=5, n_pupil_rings=16,
+                                        pupil_sampling="circular", trace_engine="fused")
+        specs, lens = zoo.build("double_gauss", device=device)
+        lens = lens.replace(nd=lens.nd + 2e-3)
+        opt = LensOptimizer(specs=specs, config=cfg, learning_rate=1e-4,
+                            use_full_loss=use_full_loss, efl_target=float(lens.efl[0]))
+        state = opt.init(lens)
+        fwd, bwd = fused_trace.K1_FWD_LAUNCHES, fused_trace.K1_BWD_LAUNCHES
+        state, total, _ = opt.step(state)
+        launches = (fused_trace.K1_FWD_LAUNCHES - fwd, fused_trace.K1_BWD_LAUNCHES - bwd)
+        after[device.type] = (float(total), {k: v.detach().cpu() for k, v in state.params.items()},
+                              launches)
+    assert after["cuda"][2] == (1, 1) and after["cpu"][2] == (0, 0)
+    assert abs(after["cuda"][0] - after["cpu"][0]) <= 1e-5 * abs(after["cpu"][0])
+    for k, v in after["cpu"][1].items():
+        assert float((after["cuda"][1][k] - v).abs().max()) <= 1e-6, k

@@ -24,7 +24,7 @@ def _port_lens(jlens):
     st = jlens.structure
     return convert.lens_from_numpy(st.stop_idx, st.sequence, np.asarray(jlens.c),
                                    np.asarray(jlens.t), np.asarray(jlens.nd),
-                                   np.asarray(jlens.v))
+                                   np.asarray(jlens.v), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -147,8 +147,8 @@ def test_glass_whitening_matches_jax():
 
 
 def test_import_is_jax_and_triton_free():
-    """Importing the port pulls in neither JAX nor Triton, and a trace on CPU
-    tensors neither builds nor launches a kernel."""
+    """Importing the port pulls in neither JAX nor Triton, and a trace and
+    its gradient on CPU tensors neither build nor launch a kernel."""
     code = (
         "import sys\n"
         "sys.modules['triton'] = None\n"
@@ -157,10 +157,13 @@ def test_import_is_jax_and_triton_free():
         "specs, lens = tt.zoo.build('cooke', device='cpu')\n"
         "cfg = tt.SimulatorConfig(n_sampled_fields=2, n_pupil_rings=4,\n"
         "    pupil_sampling='circular', trace_engine='fused')\n"
-        "tt.simulator.do_ray_tracing(specs, lens, cfg)\n"
+        "c = lens.c.clone().requires_grad_(True)\n"
+        "_, loss = tt.simulator.do_ray_tracing(specs, lens.replace(c=c), cfg)\n"
+        "torch.autograd.grad(loss['loss_unsup'], c)\n"
         "assert 'jax' not in sys.modules and 'triton' not in [\n"
         "    m for m in sys.modules if sys.modules[m] is not None]\n"
         "assert fused_trace.K1_FWD_LAUNCHES == 0\n"
+        "assert fused_trace.K1_BWD_LAUNCHES == 0\n"
         "assert _kernels.load.cache_info().currsize == 0\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

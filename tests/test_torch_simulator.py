@@ -49,10 +49,10 @@ def port_lens(jax_side):
     jspecs, jlens = jax_side["specs"], jax_side["lens"]
     st = jlens.structure
     specs = convert.specs_from_numpy(st.stop_idx, st.sequence, np.asarray(jspecs.epd),
-                                     np.asarray(jspecs.hfov))
+                                     np.asarray(jspecs.hfov), device="cpu")
     lens = convert.lens_from_numpy(st.stop_idx, st.sequence, np.asarray(jlens.c),
                                    np.asarray(jlens.t), np.asarray(jlens.nd),
-                                   np.asarray(jlens.v))
+                                   np.asarray(jlens.v), device="cpu")
     return specs, lens
 
 
@@ -92,8 +92,9 @@ def test_unsupervised_loss_fused_matches_do_ray_tracing(port_lens):
 
 
 def test_fused_loss_gradient_on_cpu_matches_unroll(port_lens):
-    """On CPU tensors the fused path runs the plain version, which autograd
-    differentiates; its d Lu/d(c, t) equals the unroll engine's."""
+    """On CPU tensors the fused path runs the plain versions of K1 forward
+    and backward (the hand adjoint); its d Lu/d(c, t) equals the unroll
+    engine's autograd gradient."""
     specs, lens = port_lens
 
     def grads(engine):
@@ -127,7 +128,8 @@ def test_fused_engine_refuses_batches_and_aspheres(port_lens):
     cfg = simulator.SimulatorConfig(**CONFIG, trace_engine="fused")
     batch = convert.lens_from_numpy((5, 5), ("GAGGAAGGAGA",) * 2,
                                     lens.c.repeat(2, 1).numpy(), lens.t.repeat(2, 1).numpy(),
-                                    lens.nd.repeat(2, 1).numpy(), lens.v.repeat(2, 1).numpy())
+                                    lens.nd.repeat(2, 1).numpy(), lens.v.repeat(2, 1).numpy(),
+                                    device="cpu")
     with pytest.raises(NotImplementedError, match="K2"):
         simulator.do_ray_tracing(specs, batch, cfg)
     asph_specs, asph_lens = zoo.build("double_gauss_asph", device="cpu")

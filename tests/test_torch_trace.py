@@ -41,9 +41,9 @@ def _port(jspecs, jlens):
     st = jlens.structure
     lens = convert.lens_from_numpy(st.stop_idx, st.sequence, np.asarray(jlens.c),
                                    np.asarray(jlens.t), np.asarray(jlens.nd),
-                                   np.asarray(jlens.v))
+                                   np.asarray(jlens.v), device="cpu")
     specs = convert.specs_from_numpy(st.stop_idx, st.sequence, np.asarray(jspecs.epd),
-                                     np.asarray(jspecs.hfov))
+                                     np.asarray(jspecs.hfov), device="cpu")
     return specs, lens
 
 

@@ -1,31 +1,35 @@
 """torchoptics_tpu_torch: the PyTorch / CUDA port of torchoptics_tpu.
 
 The JAX package ``torchoptics_tpu`` stays the reference; this package
-evaluates the same lenses with PyTorch, and its hot kernel (K1 forward, the
-fused spherical trace) is hand-written CUDA for Hopper (``csrc/``), built
-with ``nvcc`` on first use. It imports neither JAX nor Triton, and builds
-nothing at import time.
+evaluates and optimizes the same lenses with PyTorch, and its hot kernel
+(K1, the fused spherical trace, forward and backward) is hand-written CUDA
+for Hopper (``csrc/``), built with ``nvcc`` on first use. It imports neither
+JAX nor Triton, and builds nothing at import time. Its entry points put
+tensors on the GPU unless the caller asks for the CPU.
 
 Quick start::
 
     import torch
-    from torchoptics_tpu_torch import zoo, trace, metrics
+    from torchoptics_tpu_torch import LensOptimizer, SimulatorConfig, zoo
 
-    specs, lens = zoo.build("cooke", device="cpu")
-    cfg = trace.TraceConfig(mode="circular", n_rays=(8, 8),
-                            rel_fields=(0.0, 0.707, 1.0),
-                            wavelengths=("C", "d", "F"),
-                            n_ray_aiming_iter=1)
-    res = trace.trace_rays(specs, lens, cfg)
-    rms = metrics.compute_rms2d(res.x, res.y, res.ray_ok)
+    specs, lens = zoo.build("double_gauss")          # on "cuda"
+    cfg = SimulatorConfig(n_sampled_fields=5, n_pupil_rings=16,
+                          pupil_sampling="circular", trace_engine="fused")
+    opt = LensOptimizer(specs=specs, config=cfg, learning_rate=1e-4)
+    state = opt.init(lens)
+    state, loss, loss_dict = opt.step(state)      # one K1 fwd + one K1 bwd
+
+On a machine without a GPU, pass ``device="cpu"`` to ``zoo.build``: the
+wrappers then run the kernels' plain PyTorch versions.
 """
 
 from torchoptics_tpu_torch.models.structure import Lens, Specs, Structure  # noqa: F401
-from torchoptics_tpu_torch.models import convert, glass, zoo  # noqa: F401
+from torchoptics_tpu_torch.models import catalog, convert, glass, zoo  # noqa: F401
 from torchoptics_tpu_torch.ops import (  # noqa: F401
     abcd, aiming, fused_trace, metrics, pupil, surfaces, trace)
 from torchoptics_tpu_torch.ops.trace import TraceConfig, TraceResult, trace_rays  # noqa: F401
-from torchoptics_tpu_torch import simulator  # noqa: F401
+from torchoptics_tpu_torch import optimize, simulator  # noqa: F401
+from torchoptics_tpu_torch.optimize import LensOptimizer  # noqa: F401
 from torchoptics_tpu_torch.simulator import SimulatorConfig  # noqa: F401
 
 __version__ = "0.1.0"

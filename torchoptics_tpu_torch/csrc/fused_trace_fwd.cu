@@ -1,7 +1,7 @@
 // K1 forward: fused spherical ray trace of one lens system on a flat ray block.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
-// torchoptics_tpu/ops/pallas_trace.py (plain and Lu modes). The plain
+// torchoptics_tpu/ops/pallas_trace.py (plain, Lu and full modes). The plain
 // PyTorch version of the same function is
 // torchoptics_tpu_torch/ops/fused_trace.py:trace_fused_reference; the two
 // must agree bit for bit on the failure masks.
@@ -10,16 +10,31 @@
 // intersection, the miss mask (cos2 - EPS < 0), Snell's law with the TIR and
 // cz^2 masks, zeroing of failed lanes, backward-ray bookkeeping (or removal
 // when backward rays are not allowed), and in Lu mode the per-ray sums of
-// theta_norm(cos2), theta_norm(cos2') and relu(z). Finally the transfer to
-// the image plane and the last backward test.
+// theta_norm(cos2), theta_norm(cos2') and relu(z). Full mode adds two
+// per-ray sums: the angle hinge max(thr - cos2, 0) + max(thr - cos2', 0) on
+// the raw cos2 of every surface, and the ray-path hinge of each gap's
+// absolute z step, (z_k + ref_z[k]) - (z_{k-1} + ref_z[k-1]) on the post-kill
+// z, against the gap's (lo, hi) bounds (+-inf switches a side off); the last
+// gap runs to ref_z[S]. Finally the transfer to the image plane and the last
+// backward test.
 //
 // What bounds it on an H100: per ray it reads 12 B (xp, yp, cy) and writes
-// 18 B (plain: x, y, cx, cy, ray_ok, ray_backward) or 30 B (Lu: plus three
-// penalty sums), while it does about 11 x 70 FP32 operations, including per
-// surface 3 IEEE square roots and 1 IEEE division (plus 2 acosf in Lu mode).
-// At the flagship's 2.46M rays that is ~100 MB of traffic against ~2 GFLOP
-// with multi-instruction sqrt/div sequences, so the kernel is bound by the
-// ALU and SFU issue rate well before HBM bandwidth.
+// 18 B (plain: x, y, cx, cy, ray_ok, ray_backward), 30 B (Lu: plus three
+// penalty sums) or 38 B (full: plus two more). Counting FP32 arithmetic only
+// (adds, multiplies, min/max, each sqrt, division and acosf as one; compares
+// and selects not counted), plain mode does 55 operations per ray-surface
+// (3 of them square roots, 1 a division) and 8 per ray for the launch and
+// the image transfer; Lu adds two theta_norm (sqrt, clip, acosf, division)
+// and the three sums, 14 per surface; full adds the angle hinges (6 per
+// surface), the path deltas and sum (4 per gap) and 3 per finite side of a
+// path bound (18 sides on the flagship with the tight bounds). At the
+// flagship's 2.46M rays x 11 surfaces that is 1.51 / 1.89 / 2.29 GFLOP,
+// 22.5 / 28.1 / 34.1 us at the H100's 67 TFLOP/s FP32 peak, against
+// 74 / 103 / 123 MB of traffic, 22.0 / 30.8 / 36.7 us at 3.35 TB/s:
+// operations bound plain mode and bytes bound Lu and full mode, narrowly
+// each time. The measured times (6-8x the bound) say the real limit is the
+// issue rate of the multi-instruction IEEE sqrt, division and acosf
+// sequences, which that count takes as one operation each.
 //
 // Design: one thread per ray, a runtime loop over surfaces (at most
 // MAX_SURF), the per-surface tables c, t and mu read once per block into
@@ -28,8 +43,8 @@
 // tail masked by i < n. Ray i has wavelength min(i / n_per_w, W - 1): the
 // wavelength-outer flat order of the front-end.
 //
-// Left for later work: the backward (adjoint) kernel, the "full" and "opl"
-// penalty modes, the population and asphere variants, and any tuning
+// Left for later work: the "opl" penalty mode, the population and asphere
+// variants, and any tuning
 // (several rays per thread, vectorized 16-byte loads, fast-math variants that
 // keep the masks identical).
 //
@@ -66,24 +81,48 @@ __device__ __forceinline__ float theta_norm(float cos2, bool ok) {
   return ok ? theta : 1.0f;
 }
 
-template <bool LU, bool ALLOW_BACKWARD>
+// Path-bound hinge max(lo - d, 0) + max(d - hi, 0), a side switched off by
+// an infinite bound; the same sums as the plain version.
+__device__ __forceinline__ float hinge(float d, float lo, float hi) {
+  float pen = 0.0f;
+  if (lo != -INFINITY) pen = pen + fmaxf(lo - d, 0.0f);
+  if (hi != INFINITY) pen = pen + fmaxf(d - hi, 0.0f);
+  return pen;
+}
+
+// MODE: 0 plain, 1 Lu, 2 full.
+template <int MODE, bool ALLOW_BACKWARD>
 __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
     const float* __restrict__ cy_in, const float* __restrict__ z0,
     const float* __restrict__ c, const float* __restrict__ t,
-    const float* __restrict__ mu, int n, int n_surf, int n_w, int n_per_w,
+    const float* __restrict__ mu, const float* __restrict__ ref_z,
+    const float* __restrict__ lo, const float* __restrict__ hi, float angle_thr,
+    int n, int n_surf, int n_w, int n_per_w,
     float* __restrict__ x_out, float* __restrict__ y_out,
     float* __restrict__ cx_out, float* __restrict__ cy_out,
     bool* __restrict__ ok_out, bool* __restrict__ bw_out,
     float* __restrict__ pen_theta, float* __restrict__ pen_theta_p,
-    float* __restrict__ pen_zrelu) {
+    float* __restrict__ pen_zrelu, float* __restrict__ pen_path_out,
+    float* __restrict__ pen_ang_out) {
+  constexpr bool LU = MODE >= 1;
+  constexpr bool FULL = MODE == 2;
   __shared__ float s_c[MAX_SURF];
   __shared__ float s_t[MAX_SURF];
   __shared__ float s_mu[MAX_SURF * MAX_W];
+  __shared__ float s_ref[FULL ? MAX_SURF + 1 : 1];
+  __shared__ float s_lo[FULL ? MAX_SURF : 1];
+  __shared__ float s_hi[FULL ? MAX_SURF : 1];
   for (int j = threadIdx.x; j < n_surf; j += blockDim.x) {
     s_c[j] = c[j];
     s_t[j] = t[j];
+    if (FULL) {
+      s_lo[j] = lo[j];
+      s_hi[j] = hi[j];
+    }
   }
+  if (FULL)
+    for (int j = threadIdx.x; j <= n_surf; j += blockDim.x) s_ref[j] = ref_z[j];
   for (int j = threadIdx.x; j < n_surf * n_w; j += blockDim.x) s_mu[j] = mu[j];
   __syncthreads();
 
@@ -99,7 +138,8 @@ __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
   float cz = sqrtf(1.0f - cy * cy);
   bool ok = true;
   bool bw = false;
-  float pth = 0.0f, ptp = 0.0f, pz = 0.0f;
+  float pth = 0.0f, ptp = 0.0f, pz = 0.0f, ppath = 0.0f, pang = 0.0f;
+  float z_prev = 0.0f;
 
   for (int k = 0; k < n_surf; ++k) {
     const float ck = s_c[k];
@@ -164,6 +204,19 @@ __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
       ptp = ptp + theta_norm(cos2p, ok);
       pz = pz + fmaxf(z, 0.0f);
     }
+    if (FULL) {
+      pang = pang + fmaxf(angle_thr - cos2, 0.0f) + fmaxf(angle_thr - cos2p, 0.0f);
+      if (k > 0) {
+        const float delta = (z + s_ref[k]) - (z_prev + s_ref[k - 1]);
+        ppath = ppath + hinge(delta, s_lo[k - 1], s_hi[k - 1]);
+      }
+      z_prev = z;
+    }
+  }
+  if (FULL) {
+    // The image-plane entry: ref_z[S] repeats the last vertex.
+    const float delta = s_ref[n_surf] - (z_prev + s_ref[n_surf - 1]);
+    ppath = ppath + hinge(delta, s_lo[n_surf - 1], s_hi[n_surf - 1]);
   }
 
   // Transfer to the image plane.
@@ -189,66 +242,69 @@ __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
     pen_theta_p[i] = ptp;
     pen_zrelu[i] = pz;
   }
+  if (FULL) {
+    pen_path_out[i] = ppath;
+    pen_ang_out[i] = pang;
+  }
 }
 
-template <bool LU, bool ALLOW_BACKWARD>
+template <int MODE, bool ALLOW_BACKWARD>
 void launch(const float* xp, const float* yp, const float* cy, const float* z0,
-            const float* c, const float* t, const float* mu, int n, int n_surf,
-            int n_w, int n_per_w, float* x_out, float* y_out, float* cx_out,
-            float* cy_out, bool* ok_out, bool* bw_out, float* pen_theta,
-            float* pen_theta_p, float* pen_zrelu, cudaStream_t stream) {
+            const float* c, const float* t, const float* mu, const float* ref_z,
+            const float* lo, const float* hi, float angle_thr, int n, int n_surf,
+            int n_w, int n_per_w, float* const* outs, bool* ok_out,
+            bool* bw_out, float* const* pens, cudaStream_t stream) {
   const int grid = (n + BLOCK - 1) / BLOCK;
-  k1_fwd_kernel<LU, ALLOW_BACKWARD><<<grid, BLOCK, 0, stream>>>(
-      xp, yp, cy, z0, c, t, mu, n, n_surf, n_w, n_per_w, x_out, y_out, cx_out,
-      cy_out, ok_out, bw_out, pen_theta, pen_theta_p, pen_zrelu);
+  k1_fwd_kernel<MODE, ALLOW_BACKWARD><<<grid, BLOCK, 0, stream>>>(
+      xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, angle_thr, n, n_surf, n_w,
+      n_per_w, outs[0], outs[1], outs[2], outs[3], ok_out, bw_out, pens[0],
+      pens[1], pens[2], pens[3], pens[4]);
 }
 
 }  // namespace
 
 extern "C" {
 
-int k1_fwd_max_surf() { return MAX_SURF; }
+int k1_max_surf() { return MAX_SURF; }
 
-int k1_fwd_max_w() { return MAX_W; }
+int k1_max_w() { return MAX_W; }
 
 // Launches K1 forward on `stream` and returns cudaGetLastError() (0 on
-// success). The penalty outputs are read only when `penalties` is nonzero.
+// success). mode: 0 plain, 1 Lu (pen_theta, pen_theta_p, pen_zrelu), 2 full
+// (those plus pen_path, pen_ang; reads ref_z (S+1), lo, hi (S) and
+// angle_thr). Pointers a mode does not use may be null.
 int k1_fwd_launch(const float* xp, const float* yp, const float* cy,
                   const float* z0, const float* c, const float* t,
-                  const float* mu, int n, int n_surf, int n_w, int n_per_w,
-                  int penalties, int allow_backward, float* x_out,
+                  const float* mu, const float* ref_z, const float* lo,
+                  const float* hi, float angle_thr, int n, int n_surf, int n_w,
+                  int n_per_w, int mode, int allow_backward, float* x_out,
                   float* y_out, float* cx_out, float* cy_out, bool* ok_out,
                   bool* bw_out, float* pen_theta, float* pen_theta_p,
-                  float* pen_zrelu, void* stream) {
+                  float* pen_zrelu, float* pen_path, float* pen_ang,
+                  void* stream) {
   if (n_surf < 1 || n_surf > MAX_SURF || n_w < 1 || n_w > MAX_W ||
-      n_per_w < 1 || n < 0) {
+      n_per_w < 1 || n < 0 || mode < 0 || mode > 2) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (penalties) {
-    if (allow_backward)
-      launch<true, true>(xp, yp, cy, z0, c, t, mu, n, n_surf, n_w, n_per_w,
-                         x_out, y_out, cx_out, cy_out, ok_out, bw_out,
-                         pen_theta, pen_theta_p, pen_zrelu, s);
-    else
-      launch<true, false>(xp, yp, cy, z0, c, t, mu, n, n_surf, n_w, n_per_w,
-                          x_out, y_out, cx_out, cy_out, ok_out, bw_out,
-                          pen_theta, pen_theta_p, pen_zrelu, s);
+  float* const outs[4] = {x_out, y_out, cx_out, cy_out};
+  float* const pens[5] = {pen_theta, pen_theta_p, pen_zrelu, pen_path, pen_ang};
+#define K1_FWD_LAUNCH(M, AB)                                                  \
+  launch<M, AB>(xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, angle_thr, n, n_surf, \
+                n_w, n_per_w, outs, ok_out, bw_out, pens, s)
+  if (mode == 0) {
+    if (allow_backward) K1_FWD_LAUNCH(0, true); else K1_FWD_LAUNCH(0, false);
+  } else if (mode == 1) {
+    if (allow_backward) K1_FWD_LAUNCH(1, true); else K1_FWD_LAUNCH(1, false);
   } else {
-    if (allow_backward)
-      launch<false, true>(xp, yp, cy, z0, c, t, mu, n, n_surf, n_w, n_per_w,
-                          x_out, y_out, cx_out, cy_out, ok_out, bw_out,
-                          nullptr, nullptr, nullptr, s);
-    else
-      launch<false, false>(xp, yp, cy, z0, c, t, mu, n, n_surf, n_w, n_per_w,
-                           x_out, y_out, cx_out, cy_out, ok_out, bw_out,
-                           nullptr, nullptr, nullptr, s);
+    if (allow_backward) K1_FWD_LAUNCH(2, true); else K1_FWD_LAUNCH(2, false);
   }
+#undef K1_FWD_LAUNCH
   return (int)cudaGetLastError();
 }
 
-const char* k1_fwd_error_string(int code) {
+const char* k1_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

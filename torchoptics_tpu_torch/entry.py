@@ -1,8 +1,9 @@
-"""The port's main entry point: the flagship evaluation step.
+"""The port's main entry point: the flagship lens-design objective.
 
 Twin of ``__graft_entry__.entry()``: the unsupervised lens-design loss of
 the 6-element double-Gauss (trace through 11 surfaces + spot RMS +
-penalties), here on the fused engine (kernel K1 on a GPU).
+penalties), here on the fused engine (kernels K1 forward and backward on a
+GPU).
 """
 
 from __future__ import annotations
@@ -19,11 +20,9 @@ CONFIG = sim_mod.SimulatorConfig(
 )
 
 
-def entry(device):
-    """Return ``(fn, (c, t))`` on ``device`` with ``fn(c, t) -> loss_unsup``.
-
-    On a GPU the fused engine has no backward kernel yet: call ``fn`` under
-    ``torch.no_grad()``."""
+def entry(device="cuda"):
+    """Return ``(fn, (c, t))`` on ``device`` with ``fn(c, t) -> loss_unsup``,
+    differentiable in ``c`` and ``t``."""
     specs, lens = zoo.build("double_gauss", device=device)
 
     def fn(c, t):

@@ -1,9 +1,10 @@
 """Glass parameterization and chromatic dispersion.
 
-PyTorch counterpart of ``torchoptics_tpu.models.glass``, holding what
-``Lens.get_refractive_indices`` needs: the named-wavelength table, the
-(n_d, V_d) whitening map, the two-parameter Cauchy model and the 3-line
-linear-partial-dispersion model. The glass catalogs come with the optimizer.
+PyTorch counterpart of ``torchoptics_tpu.models.glass``: the
+named-wavelength table, the invertible (n_d, V_d) whitening map, the
+two-parameter Cauchy model, the 3-line linear-partial-dispersion model, and
+the glass catalogs with the straight-through snap of quantized-continuous
+glass variables.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from torchoptics_tpu_torch.models.catalog import OHARA_GLASSES
 
 # Fraunhofer line wavelengths [nm]
 WAVELENGTH_NAMES = {"C": 656.3, "d": 587.6, "F": 486.1}
@@ -23,6 +26,9 @@ _G_W = np.array(
     [[-7.497527849096219, -7.49752916467739],
      [0.07842101471405442, -0.07842100095362642]], dtype=np.float64)
 _G_MEAN = np.array([[1.6426209211349487, 48.8505973815918]], dtype=np.float64)
+_NV_W = np.array(
+    [[-0.06668863644654068, 6.3758429552417315],
+     [-0.0666886481483064, -6.375841836481304]], dtype=np.float64)
 
 
 def resolve_wavelengths(wavelengths) -> Tuple[float, ...]:
@@ -39,6 +45,59 @@ def g_from_n_v(n: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     g0 = dn * _G_W[0, 0] + dv * _G_W[1, 0]
     g1 = dn * _G_W[0, 1] + dv * _G_W[1, 1]
     return torch.stack((g0, g1), dim=-1)
+
+
+def n_v_from_g(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, 2) normalized glass variables -> ((N,) n_d, (N,) V_d), elementwise
+    like ``g_from_n_v``."""
+    g0, g1 = g[..., 0], g[..., 1]
+    n = g0 * _NV_W[0, 0] + g1 * _NV_W[1, 0] + _G_MEAN[0, 0]
+    v = g0 * _NV_W[0, 1] + g1 * _NV_W[1, 1] + _G_MEAN[0, 1]
+    return n, v
+
+
+def catalog_distances(g: torch.Tensor, catalog_g: torch.Tensor) -> torch.Tensor:
+    """(N, M) L2 distances of each glass variable to each catalog glass, as
+    sqrt(sum(d * d)): the JAX package's ``jnp.linalg.norm``, whose gradient
+    is NaN at a zero distance (``torch.linalg.norm`` would give 0 there)."""
+    d = g[:, None, :] - catalog_g[None, :, :]
+    return torch.sqrt(torch.sum(d * d, dim=-1))
+
+
+def catalog_glass_indices(g: torch.Tensor, catalog_g: torch.Tensor) -> torch.Tensor:
+    """Index of the closest catalog glass for each glass variable (the first
+    one on a tie)."""
+    return torch.argmin(catalog_distances(g, catalog_g), dim=1)
+
+
+def map_glass_to_closest(g: torch.Tensor, catalog_g: torch.Tensor) -> torch.Tensor:
+    """Snap each continuous glass variable to its nearest catalog glass (L2)."""
+    return catalog_g[catalog_glass_indices(g, catalog_g)]
+
+
+def quantize_glass_st(g: torch.Tensor, catalog_g: torch.Tensor) -> torch.Tensor:
+    """Quantized-continuous glass with a straight-through gradient: the
+    forward snaps to the catalog, the backward is the identity."""
+    snapped = map_glass_to_closest(g, catalog_g)
+    return g + (snapped - g).detach()
+
+
+def _catalog_g(raw: np.ndarray, device, dtype) -> torch.Tensor:
+    n = torch.tensor(raw[:, 0], dtype=dtype, device=device)
+    v = torch.tensor(raw[:, 1], dtype=dtype, device=device)
+    return g_from_n_v(n, v).reshape(-1, 2)
+
+
+def load_catalog(path: str, device="cuda", dtype=torch.float32) -> torch.Tensor:
+    """Load a headerless CSV glass catalog of (n_d, V_d) rows and return the
+    normalized ``g`` coordinates, shape (N, 2)."""
+    return _catalog_g(np.loadtxt(path, delimiter=",", dtype=np.float32).reshape(-1, 2),
+                      device, dtype)
+
+
+def default_catalog_g(device="cuda", dtype=torch.float32) -> torch.Tensor:
+    """Normalized ``g`` coordinates of the built-in Ohara glass catalog."""
+    return _catalog_g(np.asarray(OHARA_GLASSES, dtype=np.float32), device, dtype)
 
 
 def refractive_indices(nd: torch.Tensor, v: torch.Tensor, mask_G: np.ndarray,

@@ -54,6 +54,14 @@ def mask_scatter(mask: np.ndarray, flat: torch.Tensor, fill) -> torch.Tensor:
     return out.index_put(index, flat)
 
 
+def mask_gather(mask: np.ndarray, padded: torch.Tensor) -> torch.Tensor:
+    """Gather the True positions of a static mask out of a padded 2-D tensor
+    (row-major)."""
+    rows, cols = np.nonzero(mask)
+    return padded[torch.as_tensor(rows, device=padded.device),
+                  torch.as_tensor(cols, device=padded.device)]
+
+
 @dataclass(frozen=True)
 class Structure:
     """Batched lens topology: where the glass is and where the stop sits.
@@ -128,6 +136,14 @@ class Structure:
         return Structure(self.stop_idx, seqs, pad_to=max_len)
 
 
+def find_valid_curvatures(structure: Structure) -> np.ndarray:
+    """Mask of optimizable curvatures: excludes air-air interfaces and the
+    last curvature (solved analytically)."""
+    mask_G = structure.mask_G
+    previous = np.concatenate((np.zeros_like(mask_G[:, 0:1]), mask_G[:, :-1]), axis=1)
+    return (mask_G | previous) & structure.mask_except_last & structure.mask
+
+
 def _as_param(values, device, dtype) -> torch.Tensor:
     if isinstance(values, torch.Tensor):
         return values if device is None else values.to(device)
@@ -176,6 +192,10 @@ class Specs:
 
     def replace(self, **kw) -> "Specs":
         return dataclasses.replace(self, **kw)
+
+    def scale(self, factor) -> "Specs":
+        """Scale the entrance pupil diameter (the only length) by ``factor``."""
+        return self.replace(epd=self.epd * factor)
 
     def up_to_stop(self) -> "Specs":
         return self.replace(structure=self.structure.up_to_stop())
@@ -242,6 +262,54 @@ class Lens:
 
     def replace(self, **kw) -> "Lens":
         return dataclasses.replace(self, **kw)
+
+    def scale(self, factor) -> "Lens":
+        """Scale all lengths by ``factor`` (a scalar or one per system).
+        The asphere coefficient of r^(2k+4) scales by factor^-(2k+3)."""
+        factor = torch.as_tensor(factor, dtype=self.dtype, device=self.device)
+        f = factor.reshape(-1, 1) if factor.ndim else factor
+        asph = None
+        if self.asph is not None:
+            k = torch.arange(self.asph.shape[-1], dtype=self.dtype, device=self.device)
+            fa = factor.reshape(-1, 1, 1) if factor.ndim else factor
+            asph = self.asph * fa ** -(2.0 * k + 3.0)
+        return Lens(self.structure, self.c / f, self.t * f, self.nd, self.v,
+                    kappa=self.kappa, asph=asph)
+
+    @property
+    def flat_c(self) -> torch.Tensor:
+        return mask_gather(self.structure.mask, self.c)
+
+    @property
+    def flat_t(self) -> torch.Tensor:
+        return mask_gather(self.structure.mask, self.t)
+
+    @property
+    def flat_nd(self) -> torch.Tensor:
+        return mask_gather(self.structure.mask_G, self.nd)
+
+    @property
+    def flat_v(self) -> torch.Tensor:
+        return mask_gather(self.structure.mask_G, self.v)
+
+    @property
+    def flat_c_but_last(self) -> torch.Tensor:
+        """All valid curvatures except the last one of each system."""
+        m = self.structure.mask.copy()
+        m[np.arange(len(self)), self.structure.n_surfaces - 1] = False
+        return mask_gather(m, self.c)
+
+    def with_flat_c(self, c) -> "Lens":
+        return self.replace(c=mask_scatter(self.structure.mask, c, 0.0))
+
+    def with_flat_t(self, t) -> "Lens":
+        return self.replace(t=mask_scatter(self.structure.mask, t, 0.0))
+
+    def with_flat_nd(self, nd) -> "Lens":
+        return self.replace(nd=mask_scatter(self.structure.mask_G, nd, 1.0))
+
+    def with_flat_v(self, v) -> "Lens":
+        return self.replace(v=mask_scatter(self.structure.mask_G, v, 1.0))
 
     def detach(self) -> "Lens":
         return self.to(detach=True)

@@ -158,9 +158,10 @@ def get_prescription(name: str) -> dict:
     return copy.deepcopy(ZOO[name])
 
 
-def build(prescription, device=None, dtype=torch.float32) -> Tuple[Specs, Lens]:
-    """Construct (Specs, Lens) on ``device`` from a prescription dict or a
-    ``ZOO`` name. EPD is derived as EFL / f_number unless given."""
+def build(prescription, device="cuda", dtype=torch.float32) -> Tuple[Specs, Lens]:
+    """Construct (Specs, Lens) on ``device`` (the GPU unless the caller asks
+    for another) from a prescription dict or a ``ZOO`` name. EPD is derived
+    as EFL / f_number unless given."""
     if isinstance(prescription, str):
         prescription = get_prescription(prescription)
     p = prescription

@@ -1,12 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources under ``torchoptics_tpu_torch/csrc/`` are compiled on first use
-with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
-interface, which is loaded with ``ctypes``. The library goes into
-``build/kernels/`` beside the package, under a file name keyed by a hash of
-the sources and flags, so a changed source is rebuilt and an unchanged one is
-reused. Nothing here runs at import time: the package imports where there is
-no ``nvcc`` and no GPU.
+Each source under ``torchoptics_tpu_torch/csrc/`` is compiled on first use
+with ``nvcc`` for ``sm_90a``, all of them at once, one process each; the
+objects are then linked into one shared library with a plain C interface,
+which is loaded with ``ctypes``. The library goes into ``build/kernels/``
+beside the package, under a file name keyed by a hash of the sources and
+flags, so a changed source is rebuilt and an unchanged one is reused; the
+compiler's ``-Xptxas -v`` report (registers, spills, local and shared memory
+per kernel) is kept beside it as ``<library>.log``. Nothing here runs at
+import time: the package imports where there is no ``nvcc`` and no GPU.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # c x 3 double-Gauss; uncontracted, plain mode is bit-identical at the same
 # kernel time).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
+PTXAS_REPORT = ("-Xptxas", "-v")
 
 
 def _sources() -> list:
@@ -55,6 +58,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtorchoptics_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmd, what):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> Path:
     """Compile the sources unless the library for them already exists.
     Raises with nvcc's output when it fails."""
@@ -65,35 +76,46 @@ def build() -> Path:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a temporary name and rename, so a concurrent or interrupted
-    # build never leaves a half-written library under the final name.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    # Build in a temporary directory and rename, so a concurrent or
+    # interrupted build never leaves a half-written library under the final
+    # name.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [Path(tmp) / f"{src.stem}.o" for src in sources]
+        procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, *PTXAS_REPORT, "-c", "-o", str(obj),
+                                    str(src)], stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True), src)
+                 for src, obj in zip(sources, objects)]
+        report, failed = [], []
+        for proc, src in procs:
+            text = proc.communicate()[0]
+            report.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(report))
+        lib = Path(tmp) / out.name
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objects)], "nvcc link")
+        Path(tmp, "report.log").write_text("".join(report))
+        os.replace(Path(tmp, "report.log"), out.with_suffix(".log"))
+        os.replace(lib, out)
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare the C signatures."""
+    """Build if needed, load once per process, and declare the C signatures:
+    a pointer or the stream is ``c_void_p``, an ``int`` is ``c_int`` and a
+    ``float`` is ``c_float``."""
     lib = ctypes.CDLL(str(build()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.k1_fwd_launch.argtypes = [p] * 7 + [i] * 6 + [p] * 9 + [p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.k1_fwd_launch.argtypes = [p] * 10 + [f] + [i] * 6 + [p] * 11 + [p]
     lib.k1_fwd_launch.restype = i
-    lib.k1_fwd_error_string.argtypes = [i]
-    lib.k1_fwd_error_string.restype = ctypes.c_char_p
-    lib.k1_fwd_max_surf.argtypes = []
-    lib.k1_fwd_max_surf.restype = i
-    lib.k1_fwd_max_w.argtypes = []
-    lib.k1_fwd_max_w.restype = i
+    lib.k1_bwd_launch.argtypes = [p] * 10 + [f] + [p] * 9 + [i] * 6 + [p] * 5 + [p]
+    lib.k1_bwd_launch.restype = i
+    lib.k1_error_string.argtypes = [i]
+    lib.k1_error_string.restype = ctypes.c_char_p
+    for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
     return lib

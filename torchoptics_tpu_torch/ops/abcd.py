@@ -12,7 +12,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from torchoptics_tpu_torch.models.structure import Lens
+from torchoptics_tpu_torch.models.structure import (
+    Lens, Structure, mask_gather, mask_scatter)
 
 
 def _matmul2x2(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -90,3 +91,52 @@ def compute_magnification(lens: Lens) -> torch.Tensor:
     """First-order magnification = A element of the full system ABCD, (B,)."""
     abcd = reduce_abcd(interface_propagation_abcd(lens.c, lens.t, _with_air(lens.nd)))
     return abcd[:, 0, 0]
+
+
+def compute_last_curvature(structure: Structure, c: torch.Tensor, t: torch.Tensor,
+                           nd: torch.Tensor) -> torch.Tensor:
+    """Solve the last optical curvature so each system has EFL == 1.
+
+    Algebraic inversion of the system ABCD: with the last refracting
+    interface excluded, c_last = -(1 + n·C) / (A·(n - 1)) where n is the
+    index before that interface; systems whose last two gaps are both air
+    solve at the second-to-last surface instead.
+
+    Args:
+      structure: static topology.
+      c: flat curvatures *excluding* each system's last curvature (packed
+        row-major over ``mask`` minus that slot).
+      t: flat thicknesses over ``mask``.
+      nd: flat d-line indices over ``mask_G``.
+
+    Returns:
+      Flat curvatures over ``mask`` with the solved curvature spliced in.
+    """
+    mask = structure.mask
+    rows = np.arange(mask.shape[0])
+    seq_length = structure.n_surfaces
+    # A trailing air-air gap puts the last optical curvature one surface
+    # earlier.
+    air_air = ~structure.mask_G[rows, seq_length - 2]
+    last_c_idx = seq_length - 1 - air_air.astype(np.int64)
+
+    c_mask = mask.copy()
+    c_mask[rows, seq_length - 1] = False
+    c2d = mask_scatter(c_mask, c, 0.0)
+    t2d = mask_scatter(mask, t, 0.0)
+    n2d = _with_air(mask_scatter(structure.mask_G, nd, 1.0))
+
+    # Exclude the solved-for surface itself from the ABCD product.
+    selection = c_mask.copy()
+    selection[rows, last_c_idx] = False
+    abcd = interface_propagation_abcd(c2d, t2d, n2d)
+    eye = torch.eye(2, dtype=abcd.dtype, device=abcd.device)
+    abcd = torch.where(torch.as_tensor(selection, device=abcd.device)[..., None, None],
+                       abcd, eye)
+    abcd = reduce_abcd(abcd)
+
+    index = (torch.as_tensor(rows, device=c2d.device),
+             torch.as_tensor(last_c_idx, device=c2d.device))
+    last_n = n2d[index]  # index *before* the last interface
+    last_c = -(1.0 + last_n * abcd[:, 1, 0]) / (abcd[:, 0, 0] * (last_n - 1.0))
+    return mask_gather(mask, c2d.index_put(index, last_c))

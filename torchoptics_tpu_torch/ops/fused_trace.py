@@ -1,14 +1,20 @@
-"""The fused spherical trace of one lens system: front-end, kernel, reductions.
+"""The fused spherical trace of one lens system: front-end, kernels, losses.
 
 PyTorch counterpart of ``torchoptics_tpu.ops.pallas_trace``. The Pallas TPU
-kernel ``_fwd_kernel`` there becomes kernel K1 forward, hand-written in CUDA
-C++ (``csrc/fused_trace_fwd.cu``) and reached through :func:`trace_fused`:
+kernels there become kernel K1, hand-written in CUDA C++:
 
-* on a CUDA tensor the wrapper checks its inputs and launches the kernel, or
-  raises; it never falls back;
-* on a CPU tensor it runs :func:`trace_fused_reference`, the plain PyTorch
-  version of the same function (differentiable by autograd). On the GPU it
-  is the version the kernel is checked against.
+* K1 forward (``_fwd_kernel``) in ``csrc/fused_trace_fwd.cu``, in plain, Lu
+  and full penalty modes;
+* K1 backward (``_bwd_kernel``), the hand adjoint with a forward recompute,
+  in ``csrc/fused_trace_bwd.cu``, in the same three modes.
+
+Both are reached through one ``torch.autograd.Function`` behind
+:func:`trace_fused` and :func:`trace_fused_full`. It saves only its inputs
+for the backward pass. On CUDA tensors it checks them and launches the
+kernels, or raises; it never falls back. On CPU tensors it runs the plain
+versions of both passes, :func:`trace_fused_reference` and
+:func:`trace_fused_backward_reference`; on the GPU these are what the
+kernels are checked against.
 
 The front-end keeps one ray order, wavelength-outer: the flat ray block is a
 (W, F, P) block, so ray i has wavelength ``min(i // n_per_w, W - 1)`` with
@@ -16,40 +22,76 @@ The front-end keeps one ray order, wavelength-outer: the flat ray block is a
 are affine in the pupil coordinates; the front-end evaluates that chain on
 two (1, F, 1, W) probes and applies the coefficients once while building the
 block. The spot reductions run on that flat layout too.
-
-The K1 backward kernel is not ported yet: a CUDA tensor that requires grad
-under grad mode raises, so the fused path serves under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from torchoptics_tpu_torch.models.structure import Lens, Structure
 from torchoptics_tpu_torch.ops import abcd as abcd_mod
 from torchoptics_tpu_torch.ops import pupil as pupil_mod
 from torchoptics_tpu_torch.ops import trace as trace_mod
 
-#: Launches of the K1 forward CUDA kernel in this process. The wrapper adds
-#: one per launch; reset it to 0 to count the launches of one run.
+#: Launches of the K1 forward and backward CUDA kernels in this process. The
+#: wrappers add one per launch; reset them to 0 to count the launches of one
+#: run.
 K1_FWD_LAUNCHES = 0
+K1_BWD_LAUNCHES = 0
+
+_EPS_CLIP = 1e-7
+_HALF_PI = math.pi / 2.0
+
+
+def _mode(penalties) -> int:
+    """0 = plain, 1 = Lu, 2 = full (the kernels' template modes)."""
+    if penalties is False or penalties is None:
+        return 0
+    if penalties is True:
+        return 1
+    if penalties == "full":
+        return 2
+    raise ValueError(f"penalties must be False, True or 'full', got {penalties!r}")
 
 
 # ---------------------------------------------------------------------------
-# Kernel K1 forward: the plain version and the CUDA wrapper.
+# Kernel K1: the plain versions of both passes.
 # ---------------------------------------------------------------------------
 
 
-def trace_fused_reference(xp, yp, cy, z0, c, t, mu, penalties: bool,
-                          allow_backward: bool, n_per_w: int):
+def _hinge(delta, lo: float, hi: float):
+    """Path-bound hinge max(lo - d, 0) + max(d - hi, 0); ±inf disables a side."""
+    pen = torch.zeros_like(delta)
+    if lo != -math.inf:
+        pen = pen + torch.clamp(lo - delta, min=0.0)
+    if hi != math.inf:
+        pen = pen + torch.clamp(delta - hi, min=0.0)
+    return pen
+
+
+def _hinge_grad(delta, lo: float, hi: float):
+    """d(_hinge)/d(delta): -1 below lo, +1 above hi, 0 inside."""
+    g = torch.zeros_like(delta)
+    if lo != -math.inf:
+        g = g - (delta < lo).to(delta.dtype)
+    if hi != math.inf:
+        g = g + (delta > hi).to(delta.dtype)
+    return g
+
+
+def trace_fused_reference(xp, yp, cy, z0, c, t, mu, penalties, allow_backward: bool,
+                          n_per_w: int, ref_z=None, path_bounds=(), angle_thr=0.25):
     """Plain PyTorch version of kernel K1 forward: the pure-torch engine
     (``trace.trace_skew``) on the flat ray block, each ray with its own
     wavelength's index ratios. It rounds every product and sum as the kernel
     does (which is built without FMA contraction), so the two agree bit for
-    bit on coordinates and masks.
+    bit on coordinates and masks. Autograd differentiates it.
 
     Args:
       xp, yp: (N,) absolute pupil coordinates, wavelength-outer flat order.
@@ -57,37 +99,321 @@ def trace_fused_reference(xp, yp, cy, z0, c, t, mu, penalties: bool,
       z0: scalar entrance-pupil axial position.
       c, t: (S,) curvatures / thicknesses.
       mu: (S, W) index-ratio table; ray i uses column min(i // n_per_w, W-1).
-      penalties: also return the per-ray sums over surfaces of theta_norm,
-        theta_prime_norm and relu(z) (the Lu penalty terms).
+      penalties: False; True for the per-ray sums over surfaces of
+        theta_norm, theta_prime_norm and relu(z) (the Lu penalty terms);
+        "full" for those plus the ray-path hinge against ``ref_z`` (S+1,)
+        absolute vertex positions with the static per-gap ``path_bounds``
+        (lo, hi) pairs, and the angle hinge of both cos² against
+        ``angle_thr`` = cos²(threshold).
       allow_backward: False removes backward rays instead of flagging them.
 
     Returns (x, y, cx, cy, ray_ok, ray_backward[, pen_theta, pen_theta_p,
-    pen_zrelu]), each (N,).
+    pen_zrelu[, pen_path, pen_angle]]), each (N,).
     """
+    mode = _mode(penalties)
     n, n_surf = xp.shape[0], c.shape[0]
     widx = torch.clamp(torch.arange(n, device=xp.device) // n_per_w, max=mu.shape[1] - 1)
     ray = lambda a: a.reshape(1, 1, n, 1)
     surface = lambda a: a.reshape(1, 1, 1, 1, n_surf)
+    aggregate = ((trace_mod.AGG_TORCH if mode else ())
+                 + (("z", "cos2", "cos2_prime") if mode == 2 else ()))
     res = trace_mod.trace_skew(
         ray(xp), ray(yp), z0.reshape(1, 1, 1, 1), torch.zeros_like(z0).reshape(1, 1, 1, 1),
         ray(cy), surface(c), surface(t), mu[:, widx].T.reshape(1, 1, n, 1, n_surf),
         torch.ones(n_surf, dtype=torch.bool, device=xp.device).reshape(1, 1, 1, 1, n_surf),
-        aggregate=trace_mod.AGG_TORCH if penalties else (),
-        allow_backward_rays=allow_backward)
+        aggregate=aggregate, allow_backward_rays=allow_backward)
     outs = tuple(a.reshape(n) for a in res[:6])
-    for name in ("theta_norm", "theta_prime_norm", "z_RELU") if penalties else ():
+    stack = lambda name: [a.reshape(n) for a in res.stacks[name]]
+    for name in ("theta_norm", "theta_prime_norm", "z_RELU") if mode else ():
         # Surface by surface, in the kernel's order: a tree sum of the stack
         # rounds differently by ~1e-5 on sums of order 100.
         total = torch.zeros_like(xp)
-        for term in res.stacks[name]:
-            total = total + term.reshape(n)
+        for term in stack(name):
+            total = total + term
         outs += (total,)
+    if mode == 2:
+        z, cos2, cos2p = stack("z"), stack("cos2"), stack("cos2_prime")
+        pen_path = torch.zeros_like(xp)
+        pen_ang = torch.zeros_like(xp)
+        for k in range(n_surf):
+            pen_ang = (pen_ang + torch.clamp(angle_thr - cos2[k], min=0.0)
+                       + torch.clamp(angle_thr - cos2p[k], min=0.0))
+            if k > 0:
+                delta = (z[k] + ref_z[k]) - (z[k - 1] + ref_z[k - 1])
+                pen_path = pen_path + _hinge(delta, *path_bounds[k - 1])
+        # The image-plane entry: its own frame's z is 0, and ref_z[S] repeats
+        # the last vertex.
+        delta = ref_z[n_surf] - (z[n_surf - 1] + ref_z[n_surf - 1])
+        pen_path = pen_path + _hinge(delta, *path_bounds[n_surf - 1])
+        outs += (pen_path, pen_ang)
     return outs
 
 
-def _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, max_surf, max_w):
+def _fwd_surface(c, t, mu, x, y, z, cx, cy, cz, ok):
+    """One spherical surface step with the locals its adjoint needs; the same
+    operations, in the same order, as both kernels."""
+    e = -(x * cx + y * cy + z * cz)
+    mz = z + e * cz
+    m2 = x * x + y * y + z * z - e * e
+    temp = c * m2 - 2.0 * mz
+    cos2 = cz * cz - c * temp
+    fail1 = cos2 - 1e-6 < 0
+    cos = torch.sqrt(torch.where(fail1, 1.0, cos2))
+    denom = cz + cos
+    dist = e + temp / denom
+    delta_z = dist * cz
+    ok1 = ok & ~fail1
+    xB = torch.where(ok1, x + dist * cx, 0.0)
+    yB = torch.where(ok1, y + dist * cy, 0.0)
+    zB = torch.where(ok1, z + delta_z, 0.0)
+    cxB = torch.where(ok1, cx, 0.0)
+    cyB = torch.where(ok1, cy, 0.0)
+    cos2p = 1.0 - mu * mu * (1.0 - cos * cos)
+    fail2a = cos2p - 1e-6 < 0
+    cosp = torch.sqrt(torch.where(fail2a, 1.0, cos2p))
+    g = cosp - mu * cos
+    cxC = mu * cxB - g * c * xB
+    cyC = mu * cyB - g * c * yB
+    cz2 = 1.0 - (cxC * cxC + cyC * cyC)
+    fail2 = fail2a | (cz2 - 1e-6 < 0)
+    czC = torch.sqrt(torch.where(fail2, 1.0, cz2))
+    ok2 = ok1 & ~fail2
+    post = (torch.where(ok2, xB, 0.0), torch.where(ok2, yB, 0.0),
+            torch.where(ok2, zB, 0.0) - t, torch.where(ok2, cxC, 0.0),
+            torch.where(ok2, cyC, 0.0), torch.where(ok2, czC, 1.0), ok2)
+    loc = dict(delta_z=delta_z, ok1=ok1, fail1=fail1, fail2a=fail2a, fail2=fail2,
+               cos=cos, cosp=cosp, g=g, denom=denom, dist=dist, temp=temp, m2=m2,
+               e=e, xB=xB, yB=yB, cxB=cxB, cyB=cyB, cxC=cxC, cyC=cyC, czC=czC,
+               cos2=cos2, cos2p=cos2p)
+    return post, loc
+
+
+def _bwd_surface(c, mu, pre, loc, d, dcos2_extra=None, dcos2p_extra=None):
+    """Adjoint of ``_fwd_surface`` (``pallas_trace._bwd_surface``): ``pre`` is
+    the pre-surface state, ``d`` the post-surface cotangents (dx, dy, dz, dcx,
+    dcy, dcz); ``dcos2*_extra`` inject the penalty cotangents on the raw cos²
+    locals. Returns (d_pre_state, dc_ray, dt_ray, dmu_ray), per ray."""
+    x, y, z, cx, cy, cz, _ = pre
+    dxD, dyD, dzD, dcxD, dcyD, dczD = d
+    ok1 = loc["ok1"]
+    ok2 = ok1 & ~loc["fail2"]
+    cos, cosp, g = loc["cos"], loc["cosp"], loc["g"]
+    denom, dist, temp, m2, e = loc["denom"], loc["dist"], loc["temp"], loc["m2"], loc["e"]
+    xB, yB, cxB, cyB = loc["xB"], loc["yB"], loc["cxB"], loc["cyB"]
+    cxC, cyC, czC = loc["cxC"], loc["cyC"], loc["czC"]
+    where = lambda m, a: torch.where(m, a, 0.0)
+
+    dt_ray = -dzD  # z_next = zD - t
+    dczC = where(ok2, dczD)
+    dcz2 = torch.where(loc["fail2"], 0.0, dczC / (2.0 * czC))
+    dcxC = where(ok2, dcxD) - 2.0 * cxC * dcz2
+    dcyC = where(ok2, dcyD) - 2.0 * cyC * dcz2
+    dxB = where(ok2, dxD) - dcxC * g * c
+    dyB = where(ok2, dyD) - dcyC * g * c
+    dzB = where(ok2, dzD)
+    dcxB = mu * dcxC
+    dcyB = mu * dcyC
+    dg = -(dcxC * c * xB + dcyC * c * yB)
+    dc_ray = -(dcxC * g * xB + dcyC * g * yB)
+    dmu_ray = dcxC * cxB + dcyC * cyB
+    dcosp = dg
+    dmu_ray = dmu_ray - dg * cos
+    dcos = -dg * mu
+    dcos2p = torch.where(loc["fail2a"], 0.0, dcosp / (2.0 * cosp))
+    if dcos2p_extra is not None:
+        dcos2p = dcos2p + dcos2p_extra
+    dmu_ray = dmu_ray + dcos2p * (-2.0 * mu * (1.0 - cos * cos))
+    dcos = dcos + dcos2p * (2.0 * mu * mu * cos)
+
+    # reset1 adjoint (czB is dead: Snell rebuilds cz from renormalization).
+    dxA, dyA, dzA = where(ok1, dxB), where(ok1, dyB), where(ok1, dzB)
+    dcx, dcy = where(ok1, dcxB), where(ok1, dcyB)
+    # update_ray_coordinates adjoint
+    ddist = dxA * cx + dyA * cy + dzA * cz
+    dx, dy, dz = dxA, dyA, dzA
+    dcx = dcx + dxA * dist
+    dcy = dcy + dyA * dist
+    dcz = dzA * dist
+    # dist = e + temp / denom
+    de = ddist
+    dtemp = ddist / denom
+    ddenom = -ddist * temp / (denom * denom)
+    dcz = dcz + ddenom
+    dcos = dcos + ddenom
+    dcos2 = torch.where(loc["fail1"], 0.0, dcos / (2.0 * cos))
+    if dcos2_extra is not None:
+        dcos2 = dcos2 + dcos2_extra
+    # cos2 = cz^2 - c * temp
+    dcz = dcz + 2.0 * cz * dcos2
+    dc_ray = dc_ray - dcos2 * temp
+    dtemp = dtemp - c * dcos2
+    # temp = c * m2 - 2 * mz
+    dc_ray = dc_ray + dtemp * m2
+    dm2 = c * dtemp
+    dmz = -2.0 * dtemp
+    # m2 = x^2 + y^2 + z^2 - e^2
+    dx = dx + 2.0 * x * dm2
+    dy = dy + 2.0 * y * dm2
+    dz = dz + 2.0 * z * dm2
+    de = de - 2.0 * e * dm2
+    # mz = z + e * cz
+    dz = dz + dmz
+    de = de + dmz * cz
+    dcz = dcz + dmz * e
+    # e = -(x cx + y cy + z cz)
+    dx = dx - de * cx
+    dy = dy - de * cy
+    dz = dz - de * cz
+    dcx = dcx - de * x
+    dcy = dcy - de * y
+    dcz = dcz - de * z
+    return (dx, dy, dz, dcx, dcy, dcz), dc_ray, dt_ray, dmu_ray
+
+
+def _theta_norm_adjoint(cos2, ok_end, dpen):
+    """d(theta_norm)/d(cos2) * dpen, zero on pinned and clipped lanes."""
+    pos = cos2 > 0
+    u = torch.sqrt(torch.where(pos, cos2, 1.0))
+    active = ok_end & pos & (u < 1.0 - _EPS_CLIP)
+    # d theta/du = -1/sqrt(1 - u^2); du/dcos2 = 1/(2u)
+    denom = torch.sqrt(torch.where(active, 1.0 - u * u, 1.0))
+    d = -dpen / (_HALF_PI * denom * 2.0 * u)
+    return torch.where(active, d, 0.0)
+
+
+def trace_fused_backward_reference(inputs, cotangents, penalties, allow_backward: bool,
+                                   n_per_w: int, path_bounds=(), angle_thr=0.25):
+    """Plain PyTorch version of kernel K1 backward: a vectorised
+    transcription of ``pallas_trace._bwd_kernel``. It recomputes the forward
+    surface by surface, then applies the hand adjoint in reverse, one torch
+    operation per rounding as the kernel does, so the per-ray cotangents
+    agree with the kernel's bit for bit. The parameter cotangents are summed
+    over rays in float64 and returned in float32.
+
+    Args:
+      inputs: (xp, yp, cy, z0, c, t, mu[, ref_z]) as for the forward.
+      cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), each
+        (N,): the cotangents of the forward's float outputs.
+      penalties, allow_backward, n_per_w, path_bounds, angle_thr: as for the
+        forward.
+
+    Returns (dxp, dyp, dcy, dz0, dc, dt, dmu[, dref_z]).
+    """
+    mode = _mode(penalties)
+    xp, yp, cyin, z0, c, t, mu = inputs[:7]
+    ref_z = inputs[7] if mode == 2 else None
+    dx_img, dy_img, dcx_img, dcy_img = cotangents[:4]
+    if mode:
+        dpth, dptp, dpz = cotangents[4:7]
+    if mode == 2:
+        dppath, dpang = cotangents[7:9]
+    n, n_surf, n_w = xp.shape[0], c.shape[0], mu.shape[1]
+    widx = torch.clamp(torch.arange(n, device=xp.device) // n_per_w, max=n_w - 1)
+    mu_ray = mu[:, widx]                                       # (S, N)
+    total = lambda a: torch.sum(a, dtype=torch.float64)
+
+    # Forward recompute, keeping the pre-surface states and the locals.
+    x, y, cy = xp, yp, cyin
+    z = z0.reshape(1).expand(n)
+    cx = torch.zeros_like(x)
+    cz0 = torch.sqrt(1.0 - cy * cy)
+    cz = cz0
+    ok = torch.ones(n, dtype=torch.bool, device=xp.device)
+    pres, locs, kills = [], [], []
+    for k in range(n_surf):
+        pres.append((x, y, z, cx, cy, cz, ok))
+        (x, y, z, cx, cy, cz, ok), loc = _fwd_surface(c[k], t[k], mu_ray[k],
+                                                      x, y, z, cx, cy, cz, ok)
+        kill = None
+        if not allow_backward and k > 0:
+            kill = (loc["delta_z"] < 0) & loc["ok1"]
+            ok = ok & ~kill
+            x, y, cx, cy = (torch.where(kill, 0.0, a) for a in (x, y, cx, cy))
+            z = torch.where(kill, -t[k], z)
+            cz = torch.where(kill, 1.0, cz)
+        locs.append(loc)
+        kills.append(kill)
+
+    # Image-transfer adjoint.
+    dist_f = -z / cz
+    dcx = dcx_img + dx_img * dist_f
+    dcy = dcy_img + dy_img * dist_f
+    ddist = dx_img * cx + dy_img * cy
+    dz = -ddist / cz
+    dcz = ddist * (z / (cz * cz))
+    dx, dy = dx_img, dy_img
+
+    zpost = lambda m: pres[m + 1][2] if m + 1 < n_surf else z
+
+    def hinge_cot(j):
+        """dppath · d(hinge_j)/d(delta_j) for path gap j."""
+        if j == n_surf - 1:
+            delta = ref_z[n_surf] - (zpost(n_surf - 1) + ref_z[n_surf - 1])
+        else:
+            delta = (zpost(j + 1) + ref_z[j + 1]) - (zpost(j) + ref_z[j])
+        return dppath * _hinge_grad(delta, *path_bounds[j])
+
+    dc, dt = [None] * n_surf, [None] * n_surf
+    dmu = [[None] * n_w for _ in range(n_surf)]
+    dref = [torch.zeros((), dtype=torch.float64, device=xp.device)] * (n_surf + 1)
+    bounds = [(min(w * n_per_w, n), n if w == n_w - 1 else min((w + 1) * n_per_w, n))
+              for w in range(n_w)]
+    for k in range(n_surf - 1, -1, -1):
+        loc, kill = locs[k], kills[k]
+        dcos2_extra = dcos2p_extra = None
+        if mode:
+            ok_end = loc["ok1"] & ~loc["fail2"]
+            if kill is not None:
+                ok_end = ok_end & ~kill
+            # pen_z += relu(z after surface k): into the incoming z adjoint.
+            dz = dz + dpz * (zpost(k) > 0).to(dz.dtype)
+            dcos2_extra = _theta_norm_adjoint(loc["cos2"], ok_end, dpth)
+            dcos2p_extra = _theta_norm_adjoint(loc["cos2p"], ok_end, dptp)
+        if mode == 2:
+            # z after surface k enters gap k-1 (+) and gap k (-).
+            hp_k = hinge_cot(k)
+            dz = dz - hp_k
+            if k > 0:
+                dz = dz + hinge_cot(k - 1)
+            s = total(hp_k)
+            dref[k + 1] = dref[k + 1] + s
+            dref[k] = dref[k] - s
+            dcos2_extra = dcos2_extra - dpang * (loc["cos2"] < angle_thr).to(dz.dtype)
+            dcos2p_extra = dcos2p_extra - dpang * (loc["cos2p"] < angle_thr).to(dz.dtype)
+        dt_kill = 0.0
+        if kill is not None:
+            # Killed lanes got z = -t (dz flows to dt) and a zeroed state.
+            dt_kill = -total(torch.where(kill, dz, 0.0))
+            dx, dy, dz, dcx, dcy, dcz = (torch.where(kill, 0.0, a)
+                                         for a in (dx, dy, dz, dcx, dcy, dcz))
+        (dx, dy, dz, dcx, dcy, dcz), dc_ray, dt_ray, dmu_ray = _bwd_surface(
+            c[k], mu_ray[k], pres[k], loc, (dx, dy, dz, dcx, dcy, dcz),
+            dcos2_extra, dcos2p_extra)
+        dc[k] = total(dc_ray)
+        dt[k] = total(dt_ray) + dt_kill
+        for w, (lo, hi) in enumerate(bounds):
+            dmu[k][w] = total(dmu_ray[lo:hi])
+
+    # Launch adjoint: cz0 = sqrt(1 - cy^2), cx0 = 0 (a constant).
+    dcy = dcy + dcz * (-cyin / cz0)
+    f32 = lambda vals: torch.stack(vals).to(torch.float32)
+    grads = (dx.contiguous(), dy.contiguous(), dcy, total(dz).to(torch.float32).reshape(z0.shape),
+             f32(dc), f32(dt), f32([v for row in dmu for v in row]).reshape(n_surf, n_w))
+    if mode == 2:
+        grads += (f32(dref),)
+    return grads
+
+
+# ---------------------------------------------------------------------------
+# Kernel K1: the CUDA wrappers and the autograd Function.
+# ---------------------------------------------------------------------------
+
+
+def _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, max_surf, max_w, ref_z=None):
     device = xp.device
     named = dict(xp=xp, yp=yp, cy=cy, z0=z0, c=c, t=t, mu=mu)
+    if ref_z is not None:
+        named["ref_z"] = ref_z
     for name, a in named.items():
         if a.device != device:
             raise ValueError(f"{name} is on {a.device}, xp on {device}")
@@ -108,53 +434,172 @@ def _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, max_surf, max_w):
     if not 1 <= n_surf <= max_surf or not 1 <= mu.shape[1] <= max_w:
         raise ValueError(f"K1 takes 1..{max_surf} surfaces and 1..{max_w} "
                          f"wavelengths, got {n_surf} and {mu.shape[1]}")
+    if ref_z is not None and tuple(ref_z.shape) != (n_surf + 1,):
+        raise ValueError(f"ref_z must be (S+1,) = ({n_surf + 1},), got {tuple(ref_z.shape)}")
     if not 1 <= n_per_w or n >= 2 ** 31:
         raise ValueError(f"bad ray block: N={n}, n_per_w={n_per_w}")
 
 
-def _launch_k1_fwd(xp, yp, cy, z0, c, t, mu, penalties, allow_backward, n_per_w):
+@functools.lru_cache(maxsize=64)
+def _bound_tensors(path_bounds, device):
+    """The per-gap (lo, hi) hinge bounds as two (S,) device tensors, ±inf
+    where a side is off."""
+    lo = torch.tensor([b[0] for b in path_bounds], dtype=torch.float32, device=device)
+    hi = torch.tensor([b[1] for b in path_bounds], dtype=torch.float32, device=device)
+    return lo, hi
+
+
+def _full_args(mode, ref_z, path_bounds, n_surf, device):
+    if mode != 2:
+        return None, None, None
+    if len(path_bounds) != n_surf:
+        raise ValueError(f"path_bounds needs one (lo, hi) per surface gap: "
+                         f"{n_surf}, got {len(path_bounds)}")
+    return (ref_z, *_bound_tensors(tuple(path_bounds), device))
+
+
+def _raise_on_error(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.k1_error_string(err).decode()}")
+
+
+def _launch_k1_fwd(inputs, penalties, allow_backward, n_per_w, path_bounds, angle_thr):
     global K1_FWD_LAUNCHES
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
-    _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w,
-                     lib.k1_fwd_max_surf(), lib.k1_fwd_max_w())
+    mode = _mode(penalties)
+    xp, yp, cy, z0, c, t, mu = inputs[:7]
+    ref_z = inputs[7] if mode == 2 else None
+    _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, lib.k1_max_surf(),
+                     lib.k1_max_w(), ref_z)
+    ref_z, lo, hi = _full_args(mode, ref_z, path_bounds, c.shape[0], xp.device)
     n = xp.shape[0]
     new = lambda dtype: torch.empty(n, dtype=dtype, device=xp.device)
     outs = [new(torch.float32) for _ in range(4)] + [new(torch.bool) for _ in range(2)]
-    pens = [new(torch.float32) for _ in range(3)] if penalties else []
-    ptr = lambda a: a.data_ptr()
+    outs += [new(torch.float32) for _ in range((0, 3, 5)[mode])]
+    ptr = lambda a: None if a is None else a.data_ptr()
+    pens = [ptr(a) for a in outs[6:]] + [None] * (5 - len(outs[6:]))
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = lib.k1_fwd_launch(
-            ptr(xp), ptr(yp), ptr(cy), ptr(z0), ptr(c), ptr(t), ptr(mu),
-            n, c.shape[0], mu.shape[1], n_per_w, int(penalties), int(allow_backward),
-            *map(ptr, outs), *(map(ptr, pens) if penalties else (None,) * 3), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"K1 forward kernel launch failed: {lib.k1_fwd_error_string(err).decode()}")
+            *map(ptr, (xp, yp, cy, z0, c, t, mu, ref_z, lo, hi)), float(angle_thr),
+            n, c.shape[0], mu.shape[1], n_per_w, mode, int(allow_backward),
+            *map(ptr, outs[:6]), *pens, stream)
+    _raise_on_error(lib, err, "K1 forward kernel")
     K1_FWD_LAUNCHES += 1
-    return tuple(outs + pens)
+    return tuple(outs)
+
+
+def _launch_k1_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, path_bounds,
+                   angle_thr):
+    global K1_BWD_LAUNCHES
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    mode = _mode(penalties)
+    xp, yp, cy, z0, c, t, mu = inputs[:7]
+    ref_z = inputs[7] if mode == 2 else None
+    _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, lib.k1_max_surf(),
+                     lib.k1_max_w(), ref_z)
+    ref_z, lo, hi = _full_args(mode, ref_z, path_bounds, c.shape[0], xp.device)
+    n, n_surf, n_w = xp.shape[0], c.shape[0], mu.shape[1]
+    # Autograd may hand over expanded or strided cotangents.
+    cot = [a.to(torch.float32).contiguous() for a in cotangents]
+    for a in cot:
+        if a.device != xp.device or a.shape != xp.shape:
+            raise ValueError(f"cotangents must be (N,) on {xp.device}, got "
+                             f"{tuple(a.shape)} on {a.device}")
+    cot += [None] * (9 - len(cot))
+    n_params = 1 + 2 * n_surf + n_surf * n_w + (n_surf + 1 if mode == 2 else 0)
+    n_blocks = -(-n // lib.k1_bwd_block())
+    new = lambda size: torch.empty(size, dtype=torch.float32, device=xp.device)
+    dxp, dyp, dcy = new(n), new(n), new(n)
+    partials, params = new(n_params * n_blocks), new(n_params)
+    ptr = lambda a: None if a is None else a.data_ptr()
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        err = lib.k1_bwd_launch(
+            *map(ptr, (xp, yp, cy, z0, c, t, mu, ref_z, lo, hi)), float(angle_thr),
+            *map(ptr, cot), n, n_surf, n_w, n_per_w, mode, int(allow_backward),
+            *map(ptr, (dxp, dyp, dcy, partials, params)), stream)
+    _raise_on_error(lib, err, "K1 backward kernel")
+    K1_BWD_LAUNCHES += 1
+    off = np.cumsum([1, n_surf, n_surf, n_surf * n_w])
+    grads = (dxp, dyp, dcy, params[0].reshape(z0.shape), params[off[0]:off[1]],
+             params[off[1]:off[2]], params[off[2]:off[3]].reshape(n_surf, n_w))
+    if mode == 2:
+        grads += (params[off[3]:],)
+    return grads
+
+
+class _K1(torch.autograd.Function):
+    """Kernel K1 with its hand adjoint. The forward saves only the inputs;
+    the backward recomputes the trace (``pallas_trace._fused_fwd`` /
+    ``_fused_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, penalties, allow_backward, n_per_w, path_bounds, angle_thr,
+                xp, yp, cy, z0, c, t, mu, ref_z):
+        inputs = (xp, yp, cy, z0, c, t, mu) + ((ref_z,) if _mode(penalties) == 2 else ())
+        config = (penalties, allow_backward, n_per_w, path_bounds, angle_thr)
+        if xp.device.type == "cpu":
+            outs = trace_fused_reference(*inputs[:7], penalties, allow_backward, n_per_w,
+                                         ref_z, path_bounds, angle_thr)
+        else:
+            outs = _launch_k1_fwd(inputs, *config)
+        ctx.mark_non_differentiable(outs[4], outs[5])
+        ctx.save_for_backward(*inputs)
+        ctx.config = config
+        return outs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        inputs = ctx.saved_tensors
+        xp = inputs[0]
+        cot = [torch.zeros_like(xp) if g is None else g
+               for i, g in enumerate(grads) if i not in (4, 5)]
+        if xp.device.type == "cpu":
+            penalties, allow_backward, n_per_w, path_bounds, angle_thr = ctx.config
+            out = trace_fused_backward_reference(inputs, cot, penalties, allow_backward,
+                                                 n_per_w, path_bounds, angle_thr)
+        else:
+            out = _launch_k1_bwd(inputs, cot, *ctx.config)
+        return (None,) * 5 + tuple(out) + (None,) * (8 - len(out))
+
+
+def _apply_k1(inputs, penalties, allow_backward, n_per_w, path_bounds=(), angle_thr=0.25):
+    if inputs[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"K1 runs on CUDA or CPU tensors, got {inputs[0].device}")
+    ref_z = inputs[7] if len(inputs) > 7 else None
+    return _K1.apply(penalties, bool(allow_backward), int(n_per_w), tuple(path_bounds),
+                     float(angle_thr), *inputs[:7], ref_z)
 
 
 def trace_fused(xp, yp, cy, z0, c, t, mu, penalties: bool, allow_backward: bool,
                 n_per_w: int):
-    """Kernel K1 forward on a flat wavelength-outer ray block; arguments and
-    results as :func:`trace_fused_reference`.
+    """Kernel K1 on a flat wavelength-outer ray block, plain (``penalties``
+    False) or Lu (True) mode; arguments and results as
+    :func:`trace_fused_reference`. Differentiable in all seven inputs.
 
-    On CUDA tensors it launches the CUDA kernel (float32, contiguous, one
-    device; anything else raises). On CPU tensors it runs the plain version.
+    On CUDA tensors it launches the CUDA kernels (float32, contiguous, one
+    device; anything else raises). On CPU tensors it runs the plain versions.
     """
-    args = (xp, yp, cy, z0, c, t, mu)
-    if xp.device.type == "cpu":
-        return trace_fused_reference(*args, penalties, allow_backward, n_per_w)
-    if xp.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, got {xp.device}")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise NotImplementedError(
-            "the K1 backward kernel is not ported yet (ROADMAP.md); call the "
-            "fused engine under torch.no_grad(), or differentiate with "
-            "trace_engine='unroll'")
-    return _launch_k1_fwd(*args, penalties, allow_backward, n_per_w)
+    if _mode(penalties) == 2:
+        raise ValueError("the full mode needs ref_z and its bounds: use trace_fused_full")
+    return _apply_k1((xp, yp, cy, z0, c, t, mu), penalties, allow_backward, n_per_w)
+
+
+def trace_fused_full(xp, yp, cy, z0, c, t, mu, ref_z, allow_backward: bool,
+                     path_bounds, angle_thr: float, n_per_w: int):
+    """``trace_fused`` with the full weighted-loss penalty set accumulated in
+    the kernel: the Lu terms plus the ray-path hinge against ``ref_z`` (S+1,)
+    absolute vertex positions (differentiable; the caller passes cumsum(t)
+    with the last entry repeated) with static per-gap ``path_bounds`` (lo, hi)
+    pairs, and the ray-angle hinge against ``angle_thr`` = cos²(threshold).
+    Returns the 6 trace outputs plus (pen_theta, pen_theta_p, pen_zrelu,
+    pen_path, pen_angle), each (N,)."""
+    return _apply_k1((xp, yp, cy, z0, c, t, mu, ref_z), "full", allow_backward, n_per_w,
+                     path_bounds, angle_thr)
 
 
 # ---------------------------------------------------------------------------
@@ -370,3 +815,54 @@ def unsupervised_loss_fused(specs, lens: Lens, config,
     sum_q = (torch.sum(pth) + torch.sum(ptp) + torch.sum(pz)) / n_sequence
     lu = rms + config.penalty_rate * sum_q
     return lu, {"loss_unsup": lu, "rms": rms, "penalty": sum_q}
+
+
+def _path_bounds(structure: Structure, lower, upper):
+    """Static per-gap (lo, hi) hinge bounds of one compressed system: the
+    (air, glass, image) thickness bounds mapped onto its gaps, ±inf where a
+    bound is None."""
+    lo_air, lo_glass, lo_image = (-math.inf if v is None else float(v) for v in lower)
+    hi_air, hi_glass, hi_image = (math.inf if v is None else float(v) for v in upper)
+    mask_G = structure.mask_G[0]
+    n_surf = int(structure.n_surfaces[0])
+    bounds = [(lo_glass, hi_glass) if mask_G[k] else (lo_air, hi_air) for k in range(n_surf)]
+    bounds[n_surf - 1] = (lo_image, hi_image)
+    return tuple(bounds)
+
+
+def compute_losses_fused(specs, lens: Lens, config, g=None, catalog_g=None,
+                         generator: Optional[torch.Generator] = None):
+    """The full weighted loss (spot + ray-path + ray-angle + glass + Lu) of
+    one spherical system on one launch of K1's full mode; the fused form of
+    ``simulator.compute_losses``. ``config`` is a ``simulator.SimulatorConfig``.
+    Returns (total, loss_dict)."""
+    from torchoptics_tpu_torch import simulator as sim_mod
+
+    cfg = config.trace_config()
+    lens = _check_fused_lens(lens, cfg)
+    bounds = _path_bounds(lens.structure, config.ray_path_lower_thresholds,
+                          config.ray_path_upper_thresholds)
+    angle_thr = math.cos(math.radians(config.ray_angle_threshold)) ** 2
+    xp, yp, cyb, z0, mu, (_, F, P, W) = prepare_fused_inputs(specs, lens, cfg,
+                                                             generator=generator)
+    vertex_z = torch.cumsum(lens.t[0], dim=0)
+    ref_z = torch.cat((vertex_z, vertex_z[-1:]))
+    outs = trace_fused_full(xp, yp, cyb, z0, lens.c[0], lens.t[0], mu, ref_z,
+                            cfg.allow_backward_rays, bounds, angle_thr, F * P)
+    pth, ptp, pz, ppath, pang = outs[6:]
+    n_rays = F * P * W
+    rms = spot_rms_flat_wouter(outs, F, P, W, config.spot_metric)
+    n_sequence = int(lens.structure.n_surfaces[0])
+    sum_q = (torch.sum(pth) + torch.sum(ptp) + torch.sum(pz)) / n_sequence
+    lu = rms + config.penalty_rate * sum_q
+    loss_dict = {
+        "loss_unsup": lu, "rms": rms, "penalty": sum_q, "spot_size": rms,
+        # The sum over gaps of the per-ray mean is the total over n_rays.
+        "ray_path": torch.sum(ppath) / n_rays,
+        "ray_angle": torch.sum(pang) / n_rays,
+    }
+    if g is not None:
+        loss_dict["glass"] = sim_mod.compute_glass_penalty(lens.structure, g, catalog_g)
+    total = sum(loss_dict[k] * w for k, w in config.loss_weights.items()
+                if k in loss_dict and w is not None)
+    return total, loss_dict

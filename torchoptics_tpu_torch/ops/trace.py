@@ -7,8 +7,8 @@ PyTorch counterpart of ``torchoptics_tpu.ops.trace``. Two engines:
   and autograd differentiates it. It is also the engine of every internal
   sub-trace (ray aiming, the pupil radius).
 * ``engine="fused"``: a single spherical system goes through
-  ``ops.fused_trace``, whose forward is the hand-written CUDA kernel on a
-  GPU tensor.
+  ``ops.fused_trace``, whose forward and backward are hand-written CUDA
+  kernels on a GPU tensor.
 
 Failure-mask semantics are replicated exactly (miss, TIR, cz² collapse,
 backward-ray bookkeeping): they define the gradients at invalid rays.
@@ -110,9 +110,13 @@ def _agg_entry(name, ray_ok, z, cos2_theta, cos2_prime, full_shape):
         # Normalized incidence/refraction angle in [0, 1]; failed rays pinned
         # to 1. cos² <= 0 only occurs on lanes already failure-masked, so the
         # sqrt guard keeps the forward exact and the backward NaN-free.
+        # The clip to [-1 + eps, 1 - eps] has zero gradient at its upper
+        # bound, as the fused kernels' hand adjoint has (torch.clamp would
+        # pass the gradient, ~2000x amplified, on lanes sitting there).
         cos2 = cos2_theta if name == "theta_norm" else cos2_prime
         safe = _safe_sqrt(cos2)
-        theta = torch.acos(torch.clamp(safe, -1.0 + eps, 1.0 - eps)) / (0.5 * math.pi)
+        clipped = torch.where(safe < 1.0 - eps, torch.clamp(safe, min=-1.0 + eps), 1.0 - eps)
+        theta = torch.acos(clipped) / (0.5 * math.pi)
         return torch.where(ray_ok, theta, 1.0).expand(full_shape)
     raise ValueError(f"Unknown aggregate stack {name!r}; expected one of {AGG_ALL}")
 

@@ -1,26 +1,27 @@
-"""Lens simulator: configuration and the unsupervised lens-design loss.
+"""Lens simulator: configuration, the unsupervised lens-design loss and the
+full weighted loss.
 
-PyTorch counterpart of the evaluation path of ``torchoptics_tpu.simulator``:
-pure functions over (Specs, Lens, SimulatorConfig). ``do_ray_tracing``
-returns the raw trace and the loss Lu = rms + rate·ΣQ. With
-``trace_engine="fused"`` the trace and the Lu penalty sums come from kernel
-K1 (``ops.fused_trace``); with ``"unroll"`` from the pure-torch engine and
-its per-surface stacks.
-
-The fused engine has no backward kernel yet: on a GPU, call it under
-``torch.no_grad()`` (not ``torch.inference_mode()``, under which ray aiming
-cannot differentiate its stop trace).
+PyTorch counterpart of ``torchoptics_tpu.simulator``: pure functions over
+(Specs, Lens, SimulatorConfig). ``do_ray_tracing`` returns the raw trace and
+the loss Lu = rms + rate·ΣQ; ``compute_losses`` the full weighted loss
+(spot + ray-path + ray-angle + glass + Lu). With ``trace_engine="fused"``
+the trace and the penalty sums come from kernel K1 (``ops.fused_trace``),
+whose backward kernel makes them differentiable on the GPU; with
+``"unroll"`` they come from the pure-torch engine and its per-surface
+stacks.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from torchoptics_tpu_torch.models.structure import Lens, Specs
+from torchoptics_tpu_torch.models import glass as glass_mod
+from torchoptics_tpu_torch.models.structure import Lens, Specs, Structure, mask_scatter
 from torchoptics_tpu_torch.ops import metrics as metrics_mod
 from torchoptics_tpu_torch.ops import trace as trace_mod
 
@@ -28,9 +29,8 @@ from torchoptics_tpu_torch.ops import trace as trace_mod
 @dataclass(frozen=True)
 class SimulatorConfig:
     """Static simulator configuration, with the same fields and defaults as
-    ``torchoptics_tpu.simulator.SimulatorConfig``. The loss weights, PSF,
-    imaging and warp fields are carried for the later ports of the full loss
-    and the imaging path; this module reads the trace and Lu fields.
+    ``torchoptics_tpu.simulator.SimulatorConfig``. The PSF, imaging and warp
+    fields are carried for the later port of the imaging path.
     ``trace_engine`` is ``"unroll"`` (pure torch) or ``"fused"`` (kernel K1,
     the counterpart of the JAX package's ``"pallas"``)."""
 
@@ -97,6 +97,61 @@ class SimulatorConfig:
             "ray_angle": self.ray_angle_weight * self.loss_multiplier,
             "loss_unsup": self.unsup_weight,
         }
+
+
+def compute_ray_path_penalty(lens: Lens, z_stack: torch.Tensor, min_thickness,
+                             max_thickness) -> torch.Tensor:
+    """Hinge penalty on the inter-surface ray path Δz against the air, glass
+    and image thickness bounds.
+
+    Args:
+      z_stack: (S+1, B, F, P, W): per-surface z (next-vertex frame) plus the
+        image-plane entry, i.e. the trace's ``stacks['z']``.
+      min/max_thickness: (air, glass, image) bounds; None disables a bound.
+
+    Returns: scalar penalty (mean over rays, summed over gaps).
+    """
+    lo_air, lo_glass, lo_image = (-np.inf if v is None else v for v in min_thickness)
+    hi_air, hi_glass, hi_image = (np.inf if v is None else v for v in max_thickness)
+    st = lens.structure
+    rows = np.arange(len(lens))
+    # Absolute vertex positions; the image-plane entry reuses the last vertex.
+    vertex_z = torch.cumsum(lens.t, dim=1)                              # (B, S)
+    ref_z = torch.cat((vertex_z, vertex_z[:, -1:]), dim=1).T            # (S+1, B)
+    abs_z = z_stack + ref_z[:, :, None, None, None]
+    delta_z = abs_z[1:] - abs_z[:-1]                                    # (S, B, F, P, W)
+
+    def bound_map(glass_value, air_value, image_value, pad):
+        m = np.where(st.mask_G, glass_value, air_value).astype(np.float32)
+        m[rows, st.n_surfaces - 1] = image_value
+        # Padded gaps of heterogeneous batches have delta_z == 0 and must not
+        # be penalized against the air-gap bounds.
+        m = np.where(st.mask, m, pad).astype(np.float32)
+        return torch.as_tensor(m.T.copy(), device=lens.device)[:, :, None, None, None]
+
+    min_map = bound_map(lo_glass, lo_air, lo_image, -np.inf)
+    max_map = bound_map(hi_glass, hi_air, hi_image, np.inf)
+    penalty = (torch.clamp(min_map - delta_z, min=0.0)
+               + torch.clamp(delta_z - max_map, min=0.0))
+    return torch.sum(torch.mean(penalty, dim=(1, 2, 3, 4)))
+
+
+def compute_ray_angle_penalty(cos_squared: torch.Tensor,
+                              angle_threshold: float) -> torch.Tensor:
+    """Hinge penalty on cos² of the incidence and refraction angles beyond
+    the threshold angle in degrees."""
+    threshold = math.cos(math.radians(angle_threshold)) ** 2
+    return torch.sum(torch.mean(torch.clamp(threshold - cos_squared, min=0.0),
+                                dim=(1, 2, 3, 4)))
+
+
+def compute_glass_penalty(structure: Structure, g: torch.Tensor,
+                          catalog_g: Optional[torch.Tensor]) -> torch.Tensor:
+    """Squared distance of each glass variable to its nearest catalog glass."""
+    if catalog_g is None:
+        return torch.zeros((), dtype=g.dtype, device=g.device)
+    min_dist = torch.min(glass_mod.catalog_distances(g, catalog_g), dim=1).values
+    return torch.sum(mask_scatter(structure.mask_G, min_dist, 0.0) ** 2)
 
 
 def compute_loss_out(res: trace_mod.TraceResult, n_sequence,
@@ -179,3 +234,42 @@ def unsupervised_loss(specs: Specs, lens: Lens, config: SimulatorConfig,
     """Scalar Lu, the main lens-design objective."""
     _, loss_dict = do_ray_tracing(specs, lens, config, generator=generator)
     return loss_dict["loss_unsup"]
+
+
+def compute_losses(specs: Specs, lens: Lens, config: SimulatorConfig,
+                   g: Optional[torch.Tensor] = None,
+                   catalog_g: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full weighted loss: spot size + ray-path, ray-angle and glass
+    penalties + Lu, weighted by ``config.loss_weights``.
+
+    Returns (total_loss, loss_dict). ``config.trace_engine='fused'`` runs
+    one spherical system on K1's full mode (``fused_trace.compute_losses_fused``);
+    a batch or an asphere raises there."""
+    cfg = config.trace_config()
+    if cfg.engine == "fused":
+        from torchoptics_tpu_torch.ops import fused_trace
+        return fused_trace.compute_losses_fused(specs, lens, config, g=g,
+                                                catalog_g=catalog_g, generator=generator)
+    res = trace_mod.trace_rays(specs, lens, cfg, generator=generator,
+                               aggregate=("z", "cos2", "cos2_prime") + trace_mod.AGG_TORCH)
+    mask = torch.as_tensor(lens.structure.mask, device=lens.device)
+    loss_dict = compute_loss_out(res, lens.structure.n_surfaces, config.penalty_rate,
+                                 surface_mask=mask, spot_metric=config.spot_metric)
+    loss_dict["spot_size"] = torch.mean(
+        metrics_mod.compute_spot_rms(res.x, res.y, res.ray_ok, config.spot_metric))
+    loss_dict["ray_path"] = compute_ray_path_penalty(
+        lens, res.stacks["z"], config.ray_path_lower_thresholds,
+        config.ray_path_upper_thresholds)
+    # Padding surfaces of heterogeneous batches are straight-through no-ops;
+    # pin their cos² to 1 so the angle hinge never fires on them.
+    m_s = mask.T[:, :, None, None, None]
+    cos2 = torch.cat((res.stacks["cos2"], res.stacks["cos2_prime"]), dim=0)
+    cos2 = torch.where(torch.cat((m_s, m_s), dim=0), cos2, 1.0)
+    loss_dict["ray_angle"] = compute_ray_angle_penalty(cos2, config.ray_angle_threshold)
+    if g is not None:
+        loss_dict["glass"] = compute_glass_penalty(lens.structure, g, catalog_g)
+    total = sum(loss_dict[k] * w for k, w in config.loss_weights.items()
+                if k in loss_dict and w is not None)
+    return total, loss_dict
