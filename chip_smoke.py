@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Drives the port's two paths through their user entry points on the card: the
-double-Gauss lens-evaluation ("serving") path and the lens-training path
-(``LensOptimizer`` Adam steps, the main path), and checks every hand-written
-CUDA kernel on them against its plain PyTorch version:
+Drives the port's paths through their user entry points on the card: the
+double-Gauss lens-evaluation ("serving") path, the lens-training path
+(``LensOptimizer`` Adam steps) and the lens-population path (generator
+training through ``OpticalLoss``, the main path of the population slice),
+and checks every hand-written CUDA kernel on them against its plain PyTorch
+version:
 
 1. the card's name and power limit;
 2. the build of the CUDA kernels from the sources in this checkout, with
@@ -23,11 +25,26 @@ CUDA kernel on them against its plain PyTorch version:
    loss, with one K1 forward and one K1 backward launch per step and every
    step accepted (finite loss and gradients); the first step of each held
    against the same step on the CPU at the entry width (5 x 16^2 x 3);
-7. timings with CUDA events at 2,457,600 rays: the kernels against their
-   plain versions, each kernel also checked against its plain version at
-   this width (masks, coordinates and penalty sums; per-ray and parameter
-   cotangents), the fwd+bwd of ``spot_rms_fused`` and of
-   ``unsupervised_loss_fused``, and a whole ``LensOptimizer.step``.
+7. K2 forward and backward against ``trace_fused_batch_reference`` and
+   ``trace_fused_batch_backward_reference`` on two populations of 256
+   systems at the generator width (8 fields x 8^2 x 3 = 1,536 rays each):
+   perturbed Cooke triplets with c x 1.5 on every 8th (plain, Lu and full
+   modes) and 128 Cooke + 128 double-Gauss padded to 11 surfaces (plain and
+   Lu), both policies; and K2 at B = 1 against K1 on the flagship at
+   2,457,600 rays, bit for bit;
+8. both populations served by ``do_ray_tracing``, one K2 forward launch each,
+   held against the CPU on 8 systems;
+9. generator training: a 2 -> 64 -> 64 -> numout GELU MLP trained 10 Adam
+   steps on ``OpticalLoss("GAGA", spot_metric="xy").unsupervised(
+   engine="fused")`` at B = 256, one K2 forward and one K2 backward launch
+   per step, the first step held against the CPU at B = 8;
+10. the full loss of the mixed population (one K2 full-mode launch per lens
+    type), held against the CPU on 8 systems;
+11. timings with CUDA events: K1 and its plain versions at 2,457,600 rays,
+    each kernel also checked against its plain version there, the fwd+bwd
+    of ``spot_rms_fused`` and of ``unsupervised_loss_fused`` and a whole
+    ``LensOptimizer.step``; K2 and its plain versions at 393,216 rays, the
+    fwd+bwd of ``batched_unsupervised_loss`` and a generator step.
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -35,16 +52,20 @@ device; the line before it is the card's name and power limit, and the line
 before that carries the kernels' numbers.
 
     python3 chip_smoke.py             # the run described above
-    python3 chip_smoke.py --profile   # instead: a torch.profiler breakdown of
+    python3 chip_smoke.py --profile   # instead: torch.profiler breakdowns of
                                       # LensOptimizer.step at 2,457,600 rays
+                                      # and of a generator step
 """
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 FULL_WIDTH = dict(n_sampled_fields=16, n_pupil_rings=96)        # 442,368 rays
 BENCH_WIDTH = dict(n_sampled_fields=32, n_pupil_rings=160)      # 2,457,600 rays
@@ -58,6 +79,20 @@ MODE_NAME = {False: "plain", True: "lu", "full": "full"}
 # Tight bounds, so that the path and angle hinges fire on the flagship.
 TIGHT = dict(ray_path_lower_thresholds=(0.5, 1.5, 12.0),
              ray_path_upper_thresholds=(None, 3.0, 40.0), ray_angle_threshold=30.0)
+# The same with the upper glass bound at 3.5 for a comparison of the card
+# with the CPU: the Cooke's own glass gap is 3.0, and its rays near the axis
+# sit on that hinge's kink, where the card's and the CPU's roundings of
+# cumsum(t) pick different sides of it.
+TIGHT_OFF_KINK = dict(TIGHT, ray_path_upper_thresholds=(None, 3.5, 40.0))
+# The population path: 256 designs at the reference's generator-loss width,
+# 8 fields x 8x8 circular pupil x 3 wavelengths = 1,536 rays each.
+N_SYSTEMS = 256
+GEN_WIDTH = dict(n_sampled_fields=8, n_pupil_rings=8, pupil_sampling="circular",
+                 n_ray_aiming_iter=1, wavelengths=(459.0, 520.0, 640.0))
+K2_FWD_SOURCE = "torchoptics_tpu_torch/csrc/fused_batch_fwd.cu"
+K2_BWD_SOURCE = "torchoptics_tpu_torch/csrc/fused_batch_bwd.cu"
+TPU_K2_FWD = "torchoptics_tpu/ops/pallas_batch.py:66"
+TPU_K2_BWD = "torchoptics_tpu/ops/pallas_batch.py:182"
 # The H100's published float32 (non-tensor) and memory rates.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -227,8 +262,8 @@ def phase_backward(torch, zoo, simulator, fused_trace):
                 finite = all(bool(torch.isfinite(a).all()) for a in got)
                 ray_err = max(float((got[i] - want[i]).abs().max()) for i in range(3))
                 par_abs = max(float((got[i] - want[i]).abs().max()) for i in range(3, len(got)))
-                # The parameter sums differ from the plain version's float64
-                # sums by the kernel's float32 block and column sums.
+                # The kernel sums the parameter terms in double in another
+                # order than the plain version's float64 sums.
                 par_rel = max(float((got[i] - want[i]).abs().max()
                                     / want[i].abs().max().clamp(min=1e-30))
                               for i in range(3, len(got)))
@@ -355,11 +390,16 @@ def phase_train(torch, zoo, simulator, fused_trace, LensOptimizer, n_steps=5):
     return launches
 
 
-def time_ms(torch, fn, runs=25, batch=10, warmup=3):
+def time_ms(torch, fn, runs=25, batch=10, warmup=3, queue_ahead=False):
     """Milliseconds per call of ``fn`` on the card: CUDA events around
     ``batch`` back-to-back calls, divided by ``batch``; the median of
     ``runs`` such batches. Back to back, a kernel's time is not padded by the
-    host's time to enqueue it, unless the host is the slower of the two."""
+    host's time to enqueue it, unless the host is the slower of the two: a
+    kernel shorter than its Python wrapper (K2 at the generator width) is
+    timed with ``queue_ahead``, where a sleep kernel of ~20 ms holds the
+    stream while the host enqueues the batch, so the events see the device's
+    time alone (a 2 ms sleep ran out before a slow host had enqueued K2's
+    full mode)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -367,6 +407,8 @@ def time_ms(torch, fn, runs=25, batch=10, warmup=3):
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queue_ahead:
+            torch.cuda._sleep(40_000_000)
         start.record()
         for _ in range(batch):
             fn()
@@ -461,45 +503,458 @@ def phase_timing(torch, zoo, simulator, fused_trace, LensOptimizer, card):
     return ms, errs, shape
 
 
-def phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, card, n_steps=3):
-    """Where a LensOptimizer step's time goes at 2,457,600 rays: the device's
-    busy time by kernel group from torch.profiler, against the host clock."""
+def profile_steps(torch, label, step, card, n_steps=3):
+    """Where one step's time goes: the device's busy time by kernel group
+    from torch.profiler over ``n_steps`` steps (after 2 warm-up steps),
+    against the host clock."""
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - start) * 1e3 / n_steps
+    groups, n_kernels, kernels = {}, 0, []
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        name = ev.key
+        n_kernels += ev.count
+        kernels.append((dev_us / 1e3 / n_steps, ev.count / n_steps, name))
+        group = ("K1 forward" if "k1_fwd_kernel" in name else
+                 "K1 backward" if "k1_bwd_kernel" in name else
+                 "K2 forward" if "k2_fwd_kernel" in name else
+                 "K2 backward" if "k2_bwd_kernel" in name else
+                 "kernel parameter sums" if "partials_reduce" in name else
+                 "Adam" if ("adam" in name.lower() or "multi_tensor" in name) else
+                 "reductions" if "reduce" in name.lower() else "front-end and other")
+        groups[group] = groups.get(group, 0.0) + dev_us / 1e3 / n_steps
+    busy = sum(groups.values())
+    print(f"profile: {label}: host wall {wall:.3f} ms per step, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f} %), {n_kernels / n_steps:.0f} device operations per "
+          f"step; card: {card}", flush=True)
+    for group, value in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"profile:   {group}: {value:.4f} ms per step", flush=True)
+    for value, count, name in sorted(kernels, reverse=True)[:12]:
+        print(f"profile:     {value:.4f} ms, {count:.0f} launches: {name[:90]}", flush=True)
+
+
+def phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, OpticalLoss, card):
+    """A LensOptimizer step at 2,457,600 rays on each loss, and a generator
+    step at 256 x 1,536 rays, under torch.profiler."""
     for full in (False, True):
         opt, state = make_optimizer(zoo, simulator, LensOptimizer, "cuda", BENCH_WIDTH, full)
-        for _ in range(2):
-            state = opt.step(state)[0]
+        holder = [state]
+
+        def step():
+            holder[0] = opt.step(holder[0])[0]
+        profile_steps(torch, f"LensOptimizer.step on the {'full' if full else 'Lu'} loss at "
+                      "2457600 rays", step, card)
+    profile_steps(torch, f"generator step at {N_SYSTEMS} x 1536 rays",
+                  generator_step(torch, OpticalLoss), card)
+
+
+# ---------------------------------------------------------------------------
+# The population path: kernel K2 and generator training.
+# ---------------------------------------------------------------------------
+
+
+def population_inputs(torch, zoo, simulator, fused_batch, fused_trace, name):
+    """The (B, N) kernel inputs of a 256-system population at the generator
+    width: 'cooke' (c x 1.5 on every 8th system, so that rays fail) or
+    'mixed' (128 Cooke + 128 double-Gauss, padded to 11 surfaces). Returns
+    (specs, lens, inputs with ref_z, n_per_w, mask, bounds, thr)."""
+    if name == "cooke":
+        specs, lens = zoo.population("cooke", N_SYSTEMS, device="cuda")
+        scale = torch.ones(N_SYSTEMS, 1, device="cuda")
+        scale[::8] = 1.5
+        lens = lens.replace(c=lens.c * scale)
+    else:
+        specs, lens = zoo.mixed_population(N_SYSTEMS, device="cuda")
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, _) = fused_batch.prepare_fused_inputs_batch(
+            specs, lens, simulator.SimulatorConfig(**GEN_WIDTH).trace_config())
+    vertex_z = torch.cumsum(lens.t, 1)
+    ref_z = torch.cat((vertex_z, vertex_z[:, -1:]), 1)
+    bounds = fused_trace._path_bounds(lens.structure, TIGHT["ray_path_lower_thresholds"],
+                                      TIGHT["ray_path_upper_thresholds"])
+    thr = math.cos(math.radians(TIGHT["ray_angle_threshold"])) ** 2
+    inputs = (xp, yp, cyb, z0, lens.c, lens.t, mu, ref_z)
+    return (specs, lens, inputs, F * P, fused_batch._static_mask(lens.structure, "cuda"),
+            bounds, thr)
+
+
+def run_k2_fwd(fused_batch, inputs, penalties, allow_backward, n_per_w, mask, bounds, thr,
+               plain):
+    ins = inputs if penalties == "full" else inputs[:7]
+    if plain:
+        return fused_batch.trace_fused_batch_reference(*ins[:7], penalties, allow_backward,
+                                                       n_per_w, mask, inputs[7], bounds, thr)
+    return fused_batch._launch_k2_fwd(ins, penalties, allow_backward, n_per_w, mask, bounds, thr)
+
+
+def run_k2_bwd(fused_batch, inputs, cot, penalties, allow_backward, n_per_w, mask, bounds, thr,
+               plain):
+    ins = inputs if penalties == "full" else inputs[:7]
+    if plain:
+        return fused_batch.trace_fused_batch_backward_reference(
+            ins, cot, penalties, allow_backward, n_per_w, mask, bounds, thr)
+    return fused_batch._launch_k2_bwd(ins, cot, penalties, allow_backward, n_per_w, mask,
+                                      bounds, thr)
+
+
+def k2_fwd_errors(torch, got, want):
+    """(masks and coordinates bit-identical, largest penalty deviation
+    relative to each penalty's largest magnitude, largest absolute deviation
+    of any float output)."""
+    exact = all(torch.equal(got[i], want[i]) for i in range(6))
+    floats = [i for i in range(len(got)) if i not in (4, 5)]
+    pen_rel = max([float((got[i] - want[i]).abs().max() / want[i].abs().max().clamp(min=1e-30))
+                   for i in range(6, len(got))] + [0.0])
+    return exact, pen_rel, max(float((got[i] - want[i]).abs().max()) for i in floats)
+
+
+def k2_bwd_errors(torch, got, want):
+    """(per-ray deviation, largest per-system parameter deviation relative to
+    that system's largest parameter cotangent, largest absolute parameter
+    deviation)."""
+    ray = max(float((got[i] - want[i]).abs().max()) for i in range(3))
+    rows = lambda grads: torch.cat([g.reshape(g.shape[0], -1) for g in grads[3:]], 1)
+    g, w = rows(got), rows(want)
+    per_system = (g - w).abs().max(1).values / w.abs().max(1).values.clamp(min=1e-30)
+    return ray, float(per_system.max()), float((g - w).abs().max())
+
+
+def phase_k2_kernels(torch, zoo, simulator, fused_batch, fused_trace):
+    """K2 forward and backward against their plain versions on both
+    256-system populations, every mode and backward-ray policy; two backward
+    launches bit for bit. Returns the largest deviations."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = dict(fwd=0.0, fwd_full=0.0, bwd_ray=0.0, bwd_param=0.0, bwd_param_abs=0.0)
+    failed = []
+    for name, modes in (("cooke", PENALTY_MODES), ("mixed", (False, True))):
+        _, lens, inputs, n_per_w, mask, bounds, thr = population_inputs(
+            torch, zoo, simulator, fused_batch, fused_trace, name)
+        n_rays = inputs[0].numel()
+        inputs = tuple(a.detach() for a in inputs)
+        for penalties in modes:
+            for allow_backward in (True, False):
+                args = (inputs, penalties, allow_backward, n_per_w, mask, bounds, thr)
+                with torch.no_grad():
+                    got = run_k2_fwd(fused_batch, *args, plain=False)
+                    want = run_k2_fwd(fused_batch, *args, plain=True)
+                torch.cuda.synchronize()
+                exact, pen_rel, max_abs = k2_fwd_errors(torch, got, want)
+                key = "fwd_full" if penalties == "full" else "fwd"
+                worst[key] = max(worst[key], max_abs)
+                cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
+                       for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+                bargs = (inputs, cot) + args[1:]
+                g1 = run_k2_bwd(fused_batch, *bargs, plain=False)
+                g2 = run_k2_bwd(fused_batch, *bargs, plain=False)
+                gw = run_k2_bwd(fused_batch, *bargs, plain=True)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+                finite = all(bool(torch.isfinite(a).all()) for a in g1)
+                ray, param, param_abs = k2_bwd_errors(torch, g1, gw)
+                worst["bwd_ray"] = max(worst["bwd_ray"], ray)
+                worst["bwd_param"] = max(worst["bwd_param"], param)
+                worst["bwd_param_abs"] = max(worst["bwd_param_abs"], param_abs)
+                ok = exact and pen_rel <= 1e-6 and same and finite and ray == 0.0 and param <= 2e-6
+                print(f"{'ok  ' if ok else 'FAIL'} K2 vs plain, {name} population "
+                      f"({N_SYSTEMS} x {inputs[0].shape[1]} rays, {lens.c.shape[1]} surfaces"
+                      f"{', masked' if mask is not None else ''}), {MODE_NAME[penalties]} mode, "
+                      f"allow_backward={allow_backward}: forward masks and coordinates "
+                      f"bit-identical={exact}, penalty sums within {pen_rel:.2e} (limit 1e-06); "
+                      f"backward per-ray deviation {ray:.3e}, per-system parameter cotangents "
+                      f"within {param:.2e} (limit 2e-06), two launches bit-identical={same}; "
+                      f"ray_ok share {float(got[4].float().mean()):.6f}", flush=True)
+                if not ok:
+                    failed.append((name, penalties, allow_backward))
+        del inputs
+    check(not failed, f"K2 agrees with its plain versions on {n_rays} rays (failed: {failed})")
+    return worst
+
+
+def phase_k2_is_k1(torch, zoo, simulator, fused_trace, fused_batch):
+    """K2 on a population of one, the flagship at 2,457,600 rays, against K1:
+    every output of the forward and the backward, bit for bit."""
+    inputs, n_per_w, bounds, thr = kernel_inputs(torch, zoo, simulator, fused_trace,
+                                                 BENCH_WIDTH)
+    one = tuple(a.reshape(1) if i == 3 else a[None] for i, a in enumerate(inputs))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for penalties in PENALTY_MODES:
+        k1 = run_fwd(fused_trace, inputs, penalties, True, n_per_w, bounds, thr, plain=False)
+        k2 = run_k2_fwd(fused_batch, one, penalties, True, n_per_w, None, bounds, thr,
+                        plain=False)
+        cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
+               for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+        g1 = run_bwd(fused_trace, inputs, cot, penalties, True, n_per_w, bounds, thr,
+                     plain=False)
+        g2 = run_k2_bwd(fused_batch, one, [c[None] for c in cot], penalties, True, n_per_w,
+                        None, bounds, thr, plain=False)
         torch.cuda.synchronize()
-        start = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_steps):
-                state = opt.step(state)[0]
-            torch.cuda.synchronize()
-        wall = (time.perf_counter() - start) * 1e3 / n_steps
-        groups, n_kernels, kernels = {}, 0, []
-        for ev in prof.key_averages():
-            if not str(ev.device_type).endswith("CUDA"):
-                continue
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = ev.self_cuda_time_total
-            name = ev.key
-            n_kernels += ev.count
-            kernels.append((dev_us / 1e3 / n_steps, ev.count / n_steps, name))
-            group = ("K1 forward" if "k1_fwd_kernel" in name else
-                     "K1 backward" if "k1_bwd" in name else
-                     "Adam" if ("adam" in name.lower() or "multi_tensor" in name) else
-                     "reductions" if "reduce" in name.lower() else "front-end and other")
-            groups[group] = groups.get(group, 0.0) + dev_us / 1e3 / n_steps
-        busy = sum(groups.values())
-        print(f"profile: LensOptimizer.step on the {'full' if full else 'Lu'} loss at 2457600 "
-              f"rays: host wall {wall:.3f} ms per step, device busy {busy:.3f} ms "
-              f"({100 * busy / wall:.1f} %), {n_kernels / n_steps:.0f} device operations "
-              f"per step; card: {card}", flush=True)
-        for group, value in sorted(groups.items(), key=lambda kv: -kv[1]):
-            print(f"profile:   {group}: {value:.4f} ms per step", flush=True)
-        for value, count, name in sorted(kernels, reverse=True)[:12]:
-            print(f"profile:     {value:.4f} ms, {count:.0f} launches: {name[:90]}", flush=True)
+        same_f = all(torch.equal(a, b[0]) for a, b in zip(k1, k2))
+        same_b = all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(g1, g2))
+        check(same_f and same_b,
+              f"K2 at B = 1 on the flagship, {inputs[0].shape[0]} rays, "
+              f"{MODE_NAME[penalties]} mode: forward equal to K1 bit for bit={same_f}, "
+              f"backward (per-ray and parameter cotangents)={same_b}")
+
+
+def phase_population_serve(torch, zoo, simulator, fused_trace, fused_batch):
+    """``do_ray_tracing`` on the fused engine for both populations under
+    no_grad: one K2 forward launch per call and no K1 launch; each held
+    against the same call on the CPU on 8 systems (rows 0-7 of the Cooke
+    population; rows 0-3 and 252-255 of the mixed one, which keep its
+    padding). Returns the K2 forward launches of the run."""
+    cfg = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused")
+    pops = {}
+    for name in ("cooke", "mixed"):
+        specs, lens = population_inputs(torch, zoo, simulator, fused_batch, fused_trace, name)[:2]
+        pops[name] = (specs, lens.detach())
+    fused_trace.K1_FWD_LAUNCHES = 0
+    fused_batch.K2_FWD_LAUNCHES = 0
+    fused_batch.K2_BWD_LAUNCHES = 0
+    served = {}
+    with torch.no_grad():
+        for name, (specs, lens) in pops.items():
+            served[name] = simulator.do_ray_tracing(specs, lens, cfg)
+        torch.cuda.synchronize()
+    launches = fused_batch.K2_FWD_LAUNCHES
+    check(launches == 2 and fused_batch.K2_BWD_LAUNCHES == 0
+          and fused_trace.K1_FWD_LAUNCHES == 0,
+          f"population serving: K2 forward launched {launches} times for 2 calls, K2 backward "
+          f"{fused_batch.K2_BWD_LAUNCHES}, K1 {fused_trace.K1_FWD_LAUNCHES}")
+    tol = {"loss_unsup": 1e-5, "penalty": 1e-5, "rms": 2e-4}
+    for name, (specs, lens) in pops.items():
+        res, loss = served[name]
+        rows = np.arange(8) if name == "cooke" else np.r_[0:4, N_SYSTEMS - 4:N_SYSTEMS]
+        with torch.no_grad():
+            _, on_card = simulator.do_ray_tracing(specs[rows], lens[rows], cfg)
+            _, on_cpu = simulator.do_ray_tracing(specs[rows].to("cpu"), lens[rows].to("cpu"),
+                                                 cfg)
+        rel = {k: abs(float(on_card[k]) - float(on_cpu[k])) / abs(float(on_cpu[k]))
+               for k in tol}
+        shape = (N_SYSTEMS, GEN_WIDTH["n_sampled_fields"], GEN_WIDTH["n_pupil_rings"] ** 2, 3)
+        check(tuple(res.x.shape) == shape
+              and bool(torch.isfinite(res.x[res.ray_ok]).all())
+              and all(math.isfinite(float(v)) for v in loss.values())
+              and all(rel[k] <= tol[k] for k in tol),
+              f"{name} population served: {shape} result, ray_ok share "
+              f"{float(res.ray_ok.float().mean()):.6f}, loss_unsup "
+              f"{float(loss['loss_unsup']):.6f}; on 8 systems CUDA vs CPU relative gaps "
+              + ", ".join(f"{k} {rel[k]:.2e} (limit {tol[k]:.0e})" for k in tol))
+    return launches
+
+
+class Generator:
+    """The generator of ``examples/train_generator.py``: a 2 -> 64 -> 64 ->
+    numout GELU MLP from lens specs (EPD, HFOV) to design vectors, scaled by
+    0.1 about base offsets (glass at the catalog centre, curvatures 0.3,
+    thicknesses 0.2)."""
+
+    def __init__(self, torch, ol, seed, device):
+        gen = torch.Generator().manual_seed(seed)
+        sizes = (2, 64, 64, ol.numout)
+        self.params = []
+        for din, dout in zip(sizes[:-1], sizes[1:]):
+            w = torch.randn(din, dout, generator=gen) * (2.0 / din) ** 0.5
+            self.params += [w.to(device).requires_grad_(True),
+                            torch.zeros(dout, device=device, requires_grad=True)]
+        base = torch.zeros(ol.numout)
+        g, s = ol.numglass, ol.numsurf
+        base[2 * g: 2 * g + s - 1] = 0.3
+        base[2 * g + s - 1:] = 0.2
+        self.base = base.to(device)
+        self.torch = torch
+
+    def __call__(self, inputs):
+        x = inputs
+        for i in range(0, len(self.params) - 2, 2):
+            x = self.torch.nn.functional.gelu(x @ self.params[i] + self.params[i + 1])
+        return (x @ self.params[-2] + self.params[-1]) * 0.1 + self.base
+
+
+def sample_specs(torch, gen, n, device):
+    """Seeded spec draws in the generator example's ranges: EPD in
+    [0.15, 0.35], HFOV in [0.2, 0.45] rad."""
+    u = torch.rand(n, 2, generator=gen, device=device)
+    return torch.stack((0.15 + 0.2 * u[:, 0], 0.2 + 0.25 * u[:, 1]), dim=1)
+
+
+def generator_loss(ol, net, inputs):
+    return ol.unsupervised(inputs, net(inputs), stop_idx=1, engine="fused")[0]
+
+
+def generator_step(torch, OpticalLoss):
+    """A closure that runs one step of generator training at B = 256, from
+    seeded weights and seeded spec draws."""
+    ol = OpticalLoss("GAGA", spot_metric="xy")
+    net = Generator(torch, ol, 0, "cuda")
+    opt = torch.optim.Adam(net.params, lr=1e-3)
+    spec_gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def step():
+        loss = generator_loss(ol, net, sample_specs(torch, spec_gen, N_SYSTEMS, "cuda"))
+        for p, g in zip(net.params, torch.autograd.grad(loss, net.params)):
+            p.grad = g
+        opt.step()
+    return step
+
+
+def phase_generator(torch, fused_batch, OpticalLoss, n_steps=10):
+    """Generator training, the main path of this slice: 10 Adam steps at
+    B = 256, one K2 forward and one K2 backward launch per step, non-finite
+    steps skipped and counted; the first step's loss and MLP gradients held
+    against the CPU at B = 8 with the same weights. Returns the launches and
+    the step count."""
+    ol = OpticalLoss("GAGA", spot_metric="xy")
+    # The first step on the card against the CPU, B = 8, the same weights.
+    first = {}
+    for key, device in (("card", "cuda"), ("host", "cpu")):
+        net = Generator(torch, ol, 0, device)
+        inputs = sample_specs(torch, torch.Generator(device="cpu").manual_seed(1), 8, "cpu")
+        loss = generator_loss(ol, net, inputs.to(device))
+        grads = torch.autograd.grad(loss, net.params)
+        first[key] = (float(loss.detach()), [g.cpu() for g in grads])
+    rel = abs(first["card"][0] - first["host"][0]) / abs(first["host"][0])
+    grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                   for a, b in zip(first["card"][1], first["host"][1]))
+    check(rel <= 1e-5 and grad_rel <= 1e-4,
+          f"first generator step at B = 8, CUDA vs CPU: loss {first['card'][0]:.7f} vs "
+          f"{first['host'][0]:.7f} (relative gap {rel:.2e}, limit 1e-05), MLP gradients within "
+          f"{grad_rel:.2e} of their largest magnitude (limit 1e-04)")
+
+    net = Generator(torch, ol, 0, "cuda")
+    opt = torch.optim.Adam(net.params, lr=1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fused_batch.K2_FWD_LAUNCHES = 0
+    fused_batch.K2_BWD_LAUNCHES = 0
+    losses, skipped = [], 0
+    for _ in range(n_steps):
+        loss = generator_loss(ol, net, sample_specs(torch, gen, N_SYSTEMS, "cuda"))
+        grads = torch.autograd.grad(loss, net.params)
+        # As the example does: a non-finite step applies zero gradients.
+        finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                    for g in grads)
+        skipped += not finite
+        for p, g in zip(net.params, grads):
+            p.grad = g if finite else torch.zeros_like(g)
+        opt.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    fwd, bwd = fused_batch.K2_FWD_LAUNCHES, fused_batch.K2_BWD_LAUNCHES
+    check(fwd == n_steps and bwd == n_steps and skipped < n_steps,
+          f"generator training: {n_steps} Adam steps on OpticalLoss('GAGA', 'xy') at "
+          f"B = {N_SYSTEMS} ({N_SYSTEMS * 1536} rays): K2 forward launched {fwd} times, K2 "
+          f"backward {bwd} times; {n_steps - skipped} steps accepted, {skipped} skipped; losses "
+          f"{['%.5f' % v for v in losses]}")
+    return fwd, bwd
+
+
+def phase_mixed_full_loss(torch, zoo, simulator, fused_trace, fused_batch):
+    """The full loss of the mixed population on the fused engine: one K2
+    full-mode launch per lens type, forward and backward; value and
+    d/d(c, t) held against the CPU on 8 systems of both types. Returns the
+    launches."""
+    cfg = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused", **TIGHT_OFF_KINK)
+    specs, lens = population_inputs(torch, zoo, simulator, fused_batch, fused_trace, "mixed")[:2]
+    lens = lens.detach()
+
+    def value_and_grad(specs, lens):
+        c = lens.c.clone().requires_grad_(True)
+        t = lens.t.clone().requires_grad_(True)
+        total, _ = simulator.compute_losses(specs, lens.replace(c=c, t=t), cfg)
+        return float(total.detach()), torch.autograd.grad(total, (c, t))
+
+    fused_batch.K2_FWD_LAUNCHES = 0
+    fused_batch.K2_BWD_LAUNCHES = 0
+    total, grads = value_and_grad(specs, lens)
+    torch.cuda.synchronize()
+    fwd, bwd = fused_batch.K2_FWD_LAUNCHES, fused_batch.K2_BWD_LAUNCHES
+    check(fwd == 2 and bwd == 2 and math.isfinite(total)
+          and all(bool(torch.isfinite(g).all()) for g in grads),
+          f"mixed-sequence full loss of {N_SYSTEMS} systems: K2 full forward launched {fwd} "
+          f"times, backward {bwd} times (one per lens type); total {total:.6f}")
+    rows = np.r_[0:4, N_SYSTEMS - 4:N_SYSTEMS]
+    got = value_and_grad(specs[rows], lens[rows])
+    want = value_and_grad(specs[rows].to("cpu"), lens[rows].to("cpu"))
+    mask = torch.as_tensor(lens[rows].structure.mask)
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    grad_rel = max(float(torch.where(mask, (a.cpu() - b).abs(), 0.0).max()
+                         / torch.where(mask, b.abs(), 0.0).max())
+                   for a, b in zip(got[1], want[1]))
+    check(rel <= 1e-5 and grad_rel <= 1e-4,
+          f"mixed full loss on 8 systems, CUDA vs CPU: {got[0]:.7f} vs {want[0]:.7f} (relative "
+          f"gap {rel:.2e}, limit 1e-05), d/d(c, t) on real surfaces within {grad_rel:.2e} of "
+          f"the largest (limit 1e-04)")
+    return fwd, bwd
+
+
+def phase_k2_timing(torch, zoo, simulator, fused_trace, fused_batch, OpticalLoss, card):
+    """K2 and its plain versions at the generator width (256 x 1,536 =
+    393,216 rays, Cooke population), the fwd+bwd of
+    ``batched_unsupervised_loss``, and one generator step (host clock)."""
+    specs, lens, inputs, n_per_w, mask, bounds, thr = population_inputs(
+        torch, zoo, simulator, fused_batch, fused_trace, "cooke")
+    lens = lens.detach()
+    inputs = tuple(a.detach() for a in inputs)
+    n_rays, n_surf = inputs[0].numel(), inputs[4].shape[1]
+    shape = dict(n_rays=n_rays, n_surf=n_surf, n_w=inputs[6].shape[2], bounds=bounds,
+                 n_sys=N_SYSTEMS, rays_per_sys=inputs[0].shape[1])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ms = {}
+    with torch.no_grad():
+        for penalties in PENALTY_MODES:
+            mode = MODE_NAME[penalties]
+            fwd = lambda plain: run_k2_fwd(fused_batch, inputs, penalties, True, n_per_w, mask,
+                                           bounds, thr, plain)
+            ms[f"k2_fwd_{mode}"] = time_ms(torch, lambda: fwd(False), queue_ahead=True)
+            ms[f"plain_k2_fwd_{mode}"] = time_ms(torch, lambda: fwd(True), runs=5, batch=2)
+            cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
+                   for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+            bwd = lambda plain: run_k2_bwd(fused_batch, inputs, cot, penalties, True, n_per_w,
+                                           mask, bounds, thr, plain)
+            ms[f"k2_bwd_{mode}"] = time_ms(torch, lambda: bwd(False), queue_ahead=True)
+            ms[f"plain_k2_bwd_{mode}"] = time_ms(torch, lambda: bwd(True), runs=5, batch=2)
+    cfg = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused")
+
+    def fwd_bwd():
+        c = lens.c.detach().clone().requires_grad_(True)
+        t = lens.t.detach().clone().requires_grad_(True)
+        loss = fused_batch.batched_unsupervised_loss(specs, lens.replace(c=c, t=t), cfg)[0]
+        torch.autograd.grad(loss, (c, t))
+    ms["batched_unsupervised_loss_fwd_bwd"] = time_ms(torch, fwd_bwd, runs=5, batch=4)
+    ms["generator_step"] = host_ms(torch, generator_step(torch, OpticalLoss))
+    for key, value in ms.items():
+        print(f"time {key}: {value:.4f} ms per call at {n_rays} rays ({N_SYSTEMS} systems x "
+              f"1,536 rays, {n_surf} surfaces), card: {card}", flush=True)
+    return ms, shape
+
+
+def k2_bound(shape, penalties, backward):
+    """(bound_ms, bound_by) of K2 forward or backward at the timed shape: K1's
+    per-ray operations and bytes at the population's surface count, plus
+    each system's tables read once (2 S + S W + 1 floats, + S + 1 in full
+    mode) and, for the backward, its partials (one column of doubles per
+    block of 256 rays, written once and read once)."""
+    n, n_surf, n_w, n_sys = shape["n_rays"], shape["n_surf"], shape["n_w"], shape["n_sys"]
+    n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
+    ops = k1_ops(penalties, n_surf, n_sides, backward)
+    full = penalties == "full"
+    tables = 4 * (2 * n_surf + n_surf * n_w + 1 + (n_surf + 1 if full else 0))
+    if not backward:
+        return bound(n, ops, FWD_BYTES[penalties], n_sys * tables)
+    n_params = 1 + 2 * n_surf + n_surf * n_w + (n_surf + 1 if full else 0)
+    blocks = -(-shape["rays_per_sys"] // 256)
+    return bound(n, ops, BWD_BYTES[penalties], n_sys * (tables + 16 * n_params * blocks))
 
 
 def kernel_bound(shape, penalties, backward):
@@ -509,11 +964,11 @@ def kernel_bound(shape, penalties, backward):
     ops = k1_ops(penalties, n_surf, n_sides, backward)
     if not backward:
         return bound(n, ops, FWD_BYTES[penalties])
-    # Plus the partials: one column per block of 256 rays, written once and
-    # read once.
+    # Plus the partials: one column of doubles per block of 256 rays,
+    # written once and read once.
     n_params = (1 + 2 * n_surf + n_surf * shape["n_w"]
                 + (n_surf + 1 if penalties == "full" else 0))
-    return bound(n, ops, BWD_BYTES[penalties], 8 * n_params * -(-n // 256))
+    return bound(n, ops, BWD_BYTES[penalties], 16 * n_params * -(-n // 256))
 
 
 def kernel_entries(ms, errs, shape, fwd_err, bwd_err, serve_launches, train_launches):
@@ -550,16 +1005,50 @@ def kernel_entries(ms, errs, shape, fwd_err, bwd_err, serve_launches, train_laun
     ]
 
 
+def k2_entries(ms, shape, err, serve_launches, gen_launches, mixed_launches):
+    """The K2 entries of the kernels line. ``launches`` counts the main path
+    of this slice, generator training (Lu mode; the full mode's from the
+    mixed-sequence full loss); each entry's main numbers are for that mode,
+    the other modes' under their own keys. K2 backward's parameter deviation
+    is per system, relative to its largest parameter cotangent."""
+    def numbers(kind, penalties, suffix=""):
+        mode = MODE_NAME[penalties]
+        b_ms, b_by = k2_bound(shape, penalties, kind == "bwd")
+        return {f"ms{suffix}": ms[f"k2_{kind}_{mode}"],
+                f"plain_ms{suffix}": ms[f"plain_k2_{kind}_{mode}"],
+                f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by}
+    return [
+        {"name": "k2_fwd", "route": "cuda", "source": K2_FWD_SOURCE, "replaces": TPU_K2_FWD,
+         "launches": gen_launches[0], "max_abs_err": err["fwd"], **numbers("fwd", True),
+         "library_ms": None, "launches_serving": serve_launches,
+         **numbers("fwd", False, "_plain")},
+        {"name": "k2_fwd_full", "route": "cuda", "source": K2_FWD_SOURCE,
+         "replaces": TPU_K2_FWD, "launches": mixed_launches[0], "max_abs_err": err["fwd_full"],
+         **numbers("fwd", "full"), "library_ms": None},
+        {"name": "k2_bwd", "route": "cuda", "source": K2_BWD_SOURCE, "replaces": TPU_K2_BWD,
+         "launches": gen_launches[1], "max_abs_err": err["bwd_ray"], **numbers("bwd", True),
+         "library_ms": None, "launches_full_loss": mixed_launches[1],
+         "param_max_abs_err": err["bwd_param_abs"], "param_max_rel_err": err["bwd_param"],
+         **numbers("bwd", False, "_plain"),
+         **numbers("bwd", "full", "_full"),
+         "batched_unsupervised_loss_fwd_bwd_ms": ms["batched_unsupervised_loss_fwd_bwd"],
+         "generator_step_ms": ms["generator_step"]},
+    ]
+
+
 def ptxas_summary(path):
     """One line per kernel from the build's -Xptxas -v report."""
-    lines, name = [], None
+    lines, name, frame = [], None, ""
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
             raw = line.split("'")[1]
-            for short in ("k1_fwd_kernel", "k1_bwd_kernel", "k1_bwd_reduce"):
+            for short in ("k1_fwd_kernel", "k1_bwd_kernel", "k2_fwd_kernel", "k2_bwd_kernel",
+                          "partials_reduce"):
                 if short in raw:
-                    name = short + (raw[raw.index(short) + len(short):][:9]
-                                    .replace("ILi", "<").replace("ELb", ",").rstrip("E"))
+                    # The template arguments of the mangled name: I L<type><value>E ... E.
+                    args = re.match(r"I((?:L[a-z]+\d+E)+)E", raw[raw.index(short) + len(short):])
+                    name = short + ("<" + ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1)))
+                                    + ">" if args else "")
         elif name and "stack frame" in line:
             frame = line.strip()
         elif name and "Used" in line and "registers" in line:
@@ -573,8 +1062,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
         return 1
-    from torchoptics_tpu_torch import LensOptimizer, entry, simulator, zoo
-    from torchoptics_tpu_torch.ops import _kernels, fused_trace
+    from torchoptics_tpu_torch import LensOptimizer, OpticalLoss, entry, simulator, zoo
+    from torchoptics_tpu_torch.ops import _kernels, fused_batch, fused_trace
 
     card = card_line()
     print(f"card: {card} (nvidia-smi name, power.limit); "
@@ -589,7 +1078,7 @@ def main():
         print(f"ptxas: {line}", flush=True)
 
     if "--profile" in sys.argv[1:]:
-        phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, card)
+        phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, OpticalLoss, card)
         return 0
 
     with torch.no_grad():
@@ -597,9 +1086,18 @@ def main():
     bwd_err = phase_backward(torch, zoo, simulator, fused_trace)
     serve_launches = phase_serve(torch, zoo, simulator, fused_trace, entry)
     train_launches = phase_train(torch, zoo, simulator, fused_trace, LensOptimizer)
+    k2_err = phase_k2_kernels(torch, zoo, simulator, fused_batch, fused_trace)
+    phase_k2_is_k1(torch, zoo, simulator, fused_trace, fused_batch)
+    pop_serve_launches = phase_population_serve(torch, zoo, simulator, fused_trace, fused_batch)
+    gen_launches = phase_generator(torch, fused_batch, OpticalLoss)
+    mixed_launches = phase_mixed_full_loss(torch, zoo, simulator, fused_trace, fused_batch)
     ms, errs, shape = phase_timing(torch, zoo, simulator, fused_trace, LensOptimizer, card)
-    print(json.dumps({"kernels": kernel_entries(ms, errs, shape, fwd_err, bwd_err,
-                                                serve_launches, train_launches)}))
+    k2_ms, k2_shape = phase_k2_timing(torch, zoo, simulator, fused_trace, fused_batch,
+                                      OpticalLoss, card)
+    entries = kernel_entries(ms, errs, shape, fwd_err, bwd_err, serve_launches, train_launches)
+    entries += k2_entries(k2_ms, k2_shape, k2_err, pop_serve_launches, gen_launches,
+                          mixed_launches)
+    print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,11 @@ K1 forward is built without FMA contraction and must agree with its plain
 version bit for bit on coordinates and masks; the Lu and full penalty sums
 within 1e-5 (acosf rounding, measured <= 2e-6 on an H100). K1 backward must
 agree with its plain version bit for bit on the per-ray cotangents, and its
-parameter sums (float32 block and column sums against the plain version's
-float64 sums) within 1e-5 of their largest magnitude; two launches on the
-same inputs agree bit for bit.
+parameter sums (double sums in another order than the plain version's
+float64 sums, rounded to float32) within 1e-5 of their largest magnitude; two launches on the
+same inputs agree bit for bit. K2, the population kernel pair, is held to
+the same bars per system (parameter sums within 2e-6 of each system's
+largest, penalty sums within 1e-6), and at B = 1 to K1 bit for bit.
 """
 
 import math
@@ -183,3 +185,115 @@ def test_optimizer_step_on_gpu_matches_cpu(cuda, use_full_loss):
     assert abs(after["cuda"][0] - after["cpu"][0]) <= 1e-5 * abs(after["cpu"][0])
     for k, v in after["cpu"][1].items():
         assert float((after["cuda"][1][k] - v).abs().max()) <= 1e-6, k
+
+
+# ---------------------------------------------------------------------------
+# Kernel K2, the population trace.
+# ---------------------------------------------------------------------------
+
+GEN = dict(n_sampled_fields=8, n_pupil_rings=8, pupil_sampling="circular", n_ray_aiming_iter=1)
+
+
+def _k2_inputs(device, name, n_sys=32):
+    """A population's (B, N) kernel inputs at the generator width: perturbed
+    Cooke triplets with c x 1.5 on every 8th (rays fail), or Cooke and
+    double-Gauss lenses padded to 11 surfaces."""
+    from torchoptics_tpu_torch.ops import fused_batch
+    if name == "cooke":
+        specs, lens = zoo.population("cooke", n_sys, device=device)
+        scale = torch.ones(n_sys, 1, device=device)
+        scale[::8] = 1.5
+        lens = lens.replace(c=lens.c * scale)
+    else:
+        specs, lens = zoo.mixed_population(n_sys, device=device)
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, _) = fused_batch.prepare_fused_inputs_batch(
+            specs, lens, simulator.SimulatorConfig(**GEN).trace_config())
+    vertex_z = torch.cumsum(lens.t, 1)
+    ref_z = torch.cat((vertex_z, vertex_z[:, -1:]), 1)
+    bounds = fused_trace._path_bounds(lens.structure, LOWER, UPPER)
+    inputs = (xp, yp, cyb, z0, lens.c, lens.t, mu, ref_z)
+    return inputs, F * P, fused_batch._static_mask(lens.structure, device), bounds
+
+
+K2_CASES = [("cooke", p, ab) for p in PENALTY_MODES for ab in (True, False)] + [
+    ("mixed", p, ab) for p in (False, True) for ab in (True, False)]
+
+
+@pytest.mark.parametrize("name,penalties,allow_backward", K2_CASES)
+def test_k2_matches_plain_versions(cuda, name, penalties, allow_backward):
+    """K2 forward: masks and coordinates bit-identical, penalty sums within
+    1e-6 of their largest magnitude. K2 backward: per-ray cotangents
+    bit-identical, each system's parameter cotangents within 2e-6 of its
+    largest, two launches bit-identical."""
+    from torchoptics_tpu_torch.ops import fused_batch
+    inputs, n_per_w, mask, bounds = _k2_inputs(cuda, name)
+    ins = inputs if penalties == "full" else inputs[:7]
+    before = (fused_batch.K2_FWD_LAUNCHES, fused_batch.K2_BWD_LAUNCHES)
+    got = fused_batch._launch_k2_fwd(ins, penalties, allow_backward, n_per_w, mask, bounds, THR)
+    want = fused_batch.trace_fused_batch_reference(*ins[:7], penalties, allow_backward, n_per_w,
+                                                   mask, inputs[7], bounds, THR)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cot = [torch.randn(inputs[0].shape, device=cuda, generator=gen)
+           for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+    g1 = fused_batch._launch_k2_bwd(ins, cot, penalties, allow_backward, n_per_w, mask, bounds,
+                                    THR)
+    g2 = fused_batch._launch_k2_bwd(ins, cot, penalties, allow_backward, n_per_w, mask, bounds,
+                                    THR)
+    gw = fused_batch.trace_fused_batch_backward_reference(ins, cot, penalties, allow_backward,
+                                                          n_per_w, mask, bounds, THR)
+    torch.cuda.synchronize()
+    assert (fused_batch.K2_FWD_LAUNCHES, fused_batch.K2_BWD_LAUNCHES) == (before[0] + 1,
+                                                                          before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got[:6], want[:6]))
+    for a, b in zip(got[6:], want[6:]):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2)), "two launches differ"
+    assert all(torch.equal(a, b) for a, b in zip(g1[:3], gw[:3]))
+    rows = lambda grads: torch.cat([g.reshape(g.shape[0], -1) for g in grads[3:]], 1)
+    dev = (rows(g1) - rows(gw)).abs().max(1).values
+    assert bool((dev <= 2e-6 * rows(gw).abs().max(1).values).all())
+    if name == "cooke":
+        assert 0 < float(got[4].float().mean()) < 1
+
+
+def test_k2_population_of_one_is_k1(cuda):
+    """K2 at B = 1 without a mask gives K1's outputs bit for bit."""
+    from torchoptics_tpu_torch.ops import fused_batch
+    inputs, n_per_w, bounds = _k1_inputs(cuda, 3.0)
+    one = [a.reshape(1) if i == 3 else a[None] for i, a in enumerate(inputs)]
+    for penalties in PENALTY_MODES:
+        ins = inputs if penalties == "full" else inputs[:7]
+        k1 = fused_trace._launch_k1_fwd(ins, penalties, True, n_per_w, bounds, THR)
+        k2 = fused_batch._launch_k2_fwd(one if penalties == "full" else one[:7], penalties, True,
+                                        n_per_w, None, bounds, THR)
+        assert all(torch.equal(a, b[0]) for a, b in zip(k1, k2))
+
+
+def test_population_paths_on_gpu_match_cpu(cuda):
+    """``do_ray_tracing`` on a padded population (one K2 forward launch) and
+    the grouped full loss (one K2 full launch per lens type, forward and
+    backward) on the card match the CPU."""
+    from torchoptics_tpu_torch.ops import fused_batch
+    cfg = simulator.SimulatorConfig(**GEN, trace_engine="fused")
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        specs, lens = zoo.mixed_population(8, device=device)
+        before = (fused_batch.K2_FWD_LAUNCHES, fused_batch.K2_BWD_LAUNCHES)
+        with torch.no_grad():
+            _, loss = simulator.do_ray_tracing(specs, lens, cfg)
+        c = lens.c.clone().requires_grad_(True)
+        total, _ = simulator.compute_losses(specs, lens.replace(c=c), cfg)
+        (grad,) = torch.autograd.grad(total, c)
+        launches = (fused_batch.K2_FWD_LAUNCHES - before[0],
+                    fused_batch.K2_BWD_LAUNCHES - before[1])
+        out[device.type] = (loss, float(total), grad.cpu(), launches)
+    assert out["cuda"][3] == (3, 2) and out["cpu"][3] == (0, 0)
+    for key, rtol in (("loss_unsup", 1e-5), ("penalty", 1e-5), ("rms", 2e-4)):
+        got, want = float(out["cuda"][0][key]), float(out["cpu"][0][key])
+        assert abs(got - want) <= rtol * abs(want), key
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1])
+    mask = torch.as_tensor(zoo.mixed_population(8, device="cpu")[1].structure.mask)
+    want = torch.where(mask, out["cpu"][2], 0.0)
+    assert float((torch.where(mask, out["cuda"][2], 0.0) - want).abs().max()) <= (
+        1e-4 * float(want.abs().max()))

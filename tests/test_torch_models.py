@@ -162,11 +162,51 @@ def test_import_is_jax_and_triton_free():
         "torch.autograd.grad(loss['loss_unsup'], c)\n"
         "assert 'jax' not in sys.modules and 'triton' not in [\n"
         "    m for m in sys.modules if sys.modules[m] is not None]\n"
+        "pop_specs, pop = tt.zoo.mixed_population(2, device='cpu')\n"
+        "_, loss = tt.simulator.do_ray_tracing(pop_specs, pop, cfg)\n"
         "assert fused_trace.K1_FWD_LAUNCHES == 0\n"
         "assert fused_trace.K1_BWD_LAUNCHES == 0\n"
+        "assert tt.fused_batch.K2_FWD_LAUNCHES == 0\n"
         "assert _kernels.load.cache_info().currsize == 0\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("form", ["padded", "flat"])
+def test_mixed_padded_population_converts(form):
+    """A JAX population of mixed lens types, padded to its widest sequence,
+    carries across from its padded (B, S) arrays or its flat ones; selecting
+    systems by index (``__getitem__``) cuts each part to its own width, as
+    in JAX."""
+    from torchoptics_tpu.models.structure import Lens as JLens
+    from torchoptics_tpu.models.structure import Specs as JSpecs
+    rng = np.random.default_rng(0)
+    names = ("cooke", "double_gauss", "cooke")
+    ps = [jzoo.get_prescription(n) for n in names]
+    jst = JStructure(tuple(p["stop_idx"][0] for p in ps), tuple(p["sequence"][0] for p in ps))
+    flat = {k: np.concatenate([np.asarray(p[k], np.float32) for p in ps])
+            for k in ("c", "t", "nd", "v")}
+    flat["c"] = flat["c"] * (1 + 0.02 * rng.standard_normal(flat["c"].shape)).astype(np.float32)
+    jlens = JLens(jst, *(jnp.asarray(flat[k]) for k in ("c", "t", "nd", "v")))
+    jspecs = JSpecs(jst, jnp.asarray([2.0, 3.0, 4.0]), jnp.asarray([0.3, 0.2, 0.1]))
+    arrays = ({k: np.asarray(getattr(jlens, k)) for k in ("c", "t", "nd", "v")}
+              if form == "padded" else flat)
+    lens = convert.lens_from_numpy(jst.stop_idx, jst.sequence, arrays["c"], arrays["t"],
+                                   arrays["nd"], arrays["v"], device="cpu")
+    specs = convert.specs_from_numpy(jst.stop_idx, jst.sequence, np.asarray(jspecs.epd),
+                                     np.asarray(jspecs.hfov), device="cpu")
+    np.testing.assert_array_equal(lens.structure.mask, jst.mask)
+    for k in ("c", "t", "nd", "v"):
+        np.testing.assert_array_equal(getattr(lens, k).numpy(), np.asarray(getattr(jlens, k)))
+    np.testing.assert_allclose(lens.efl.numpy(), np.asarray(jabcd.get_first_order(jlens)[0]),
+                               rtol=1e-5)
+    for index in (np.array([0, 2]), np.array([1]), 1, slice(0, 2)):
+        sub, jsub = lens[index], jlens[index]
+        assert sub.structure == Structure(jsub.structure.stop_idx, jsub.structure.sequence)
+        for k in ("c", "t", "nd", "v"):
+            np.testing.assert_array_equal(getattr(sub, k).numpy(), np.asarray(getattr(jsub, k)))
+        np.testing.assert_array_equal(specs[index].epd.numpy(), np.asarray(jspecs[index].epd))
+    assert lens[np.array([0, 2])].c.shape == (2, 7)

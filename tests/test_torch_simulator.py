@@ -124,17 +124,22 @@ def test_entry_evaluates_the_flagship():
 
 
 def test_fused_engine_refuses_batches_and_aspheres(port_lens):
+    """Aspheres and custom aggregates still raise on the fused engine; a
+    population runs (on kernel K2): two copies of the flagship give the
+    flagship's loss."""
     specs, lens = port_lens
     cfg = simulator.SimulatorConfig(**CONFIG, trace_engine="fused")
-    batch = convert.lens_from_numpy((5, 5), ("GAGGAAGGAGA",) * 2,
-                                    lens.c.repeat(2, 1).numpy(), lens.t.repeat(2, 1).numpy(),
-                                    lens.nd.repeat(2, 1).numpy(), lens.v.repeat(2, 1).numpy(),
-                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="K2"):
-        simulator.do_ray_tracing(specs, batch, cfg)
+    pair = np.array([0, 0])
+    res, loss = simulator.do_ray_tracing(specs[pair], lens[pair], cfg)
+    _, want = simulator.do_ray_tracing(specs, lens, cfg)
+    assert res.x.shape == (2, 3, 64, 3) and torch.equal(res.x[0], res.x[1])
+    for key in RTOL:
+        np.testing.assert_allclose(float(loss[key]), float(want[key]), rtol=1e-6, err_msg=key)
     asph_specs, asph_lens = zoo.build("double_gauss_asph", device="cpu")
     with pytest.raises(NotImplementedError, match="K3"):
         simulator.do_ray_tracing(asph_specs, asph_lens, cfg)
+    with pytest.raises(NotImplementedError, match="K4"):
+        simulator.do_ray_tracing(asph_specs[pair], asph_lens[pair], cfg)
     with pytest.raises(NotImplementedError, match="aggregate"):
         simulator.do_ray_tracing(specs, lens, cfg, aggregate=("z",))
 

@@ -1,11 +1,12 @@
 """torchoptics_tpu_torch: the PyTorch / CUDA port of torchoptics_tpu.
 
 The JAX package ``torchoptics_tpu`` stays the reference; this package
-evaluates and optimizes the same lenses with PyTorch, and its hot kernel
-(K1, the fused spherical trace, forward and backward) is hand-written CUDA
-for Hopper (``csrc/``), built with ``nvcc`` on first use. It imports neither
-JAX nor Triton, and builds nothing at import time. Its entry points put
-tensors on the GPU unless the caller asks for the CPU.
+evaluates and optimizes the same lenses with PyTorch, and its hot kernels
+(K1 and K2, the fused spherical trace of one system and of a population,
+forward and backward) are hand-written CUDA for Hopper (``csrc/``), built
+with ``nvcc`` on first use. It imports neither JAX nor Triton, and builds
+nothing at import time. Its entry points put tensors on the GPU unless the
+caller asks for the CPU.
 
 Quick start::
 
@@ -19,6 +20,10 @@ Quick start::
     state = opt.init(lens)
     state, loss, loss_dict = opt.step(state)      # one K1 fwd + one K1 bwd
 
+A population of designs, e.g. a generator's batch, traces in one launch of
+kernel K2: ``OpticalLoss("GAGA").unsupervised(inputs, outputs, stop_idx=1,
+engine="fused")``.
+
 On a machine without a GPU, pass ``device="cpu"`` to ``zoo.build``: the
 wrappers then run the kernels' plain PyTorch versions.
 """
@@ -26,9 +31,10 @@ wrappers then run the kernels' plain PyTorch versions.
 from torchoptics_tpu_torch.models.structure import Lens, Specs, Structure  # noqa: F401
 from torchoptics_tpu_torch.models import catalog, convert, glass, zoo  # noqa: F401
 from torchoptics_tpu_torch.ops import (  # noqa: F401
-    abcd, aiming, fused_trace, metrics, pupil, surfaces, trace)
+    abcd, aiming, fused_batch, fused_trace, metrics, pupil, surfaces, trace)
 from torchoptics_tpu_torch.ops.trace import TraceConfig, TraceResult, trace_rays  # noqa: F401
-from torchoptics_tpu_torch import optimize, simulator  # noqa: F401
+from torchoptics_tpu_torch import loss, optimize, simulator  # noqa: F401
+from torchoptics_tpu_torch.loss import OpticalLoss  # noqa: F401
 from torchoptics_tpu_torch.optimize import LensOptimizer  # noqa: F401
 from torchoptics_tpu_torch.simulator import SimulatorConfig  # noqa: F401
 

@@ -41,10 +41,12 @@
 // shared memory, z0 read from device memory (the host never synchronizes),
 // the mode and the backward-ray policy as template parameters, the ragged
 // tail masked by i < n. Ray i has wavelength min(i / n_per_w, W - 1): the
-// wavelength-outer flat order of the front-end.
+// wavelength-outer flat order of the front-end. The per-ray trace itself
+// (trace_ray) and the surface math live in trace_common.cuh, shared with the
+// population kernel K2 (fused_batch_fwd.cu).
 //
-// Left for later work: the "opl" penalty mode, the population and asphere
-// variants, and any tuning
+// Left for later work: the "opl" penalty mode, the asphere variants, and any
+// tuning
 // (several rays per thread, vectorized 16-byte loads, fast-math variants that
 // keep the masks identical).
 //
@@ -56,39 +58,9 @@
 // the c x 3 double-Gauss; uncontracted, the two agree bit for bit in plain
 // mode. 29-32 registers per thread, no spills, 8.7 KB of shared memory.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "trace_common.cuh"
 
 namespace {
-
-constexpr int MAX_SURF = 64;
-constexpr int MAX_W = 32;
-constexpr int BLOCK = 256;
-constexpr float EPS = 1e-6f;
-// The same float32 values the JAX and PyTorch versions get from their
-// double constants: clip bounds 1 -/+ 1e-7 and pi / 2.
-constexpr float CLIP_LO = (float)(-1.0 + 1e-7);
-constexpr float CLIP_HI = (float)(1.0 - 1e-7);
-constexpr float HALF_PI = (float)(0.5 * 3.14159265358979323846);
-
-// Normalized incidence angle with failed lanes pinned to 1; the same guards
-// as ops.trace._agg_entry.
-__device__ __forceinline__ float theta_norm(float cos2, bool ok) {
-  const bool pos = cos2 > 0.0f;
-  const float safe = pos ? sqrtf(cos2) : 0.0f;
-  const float u = fminf(fmaxf(safe, CLIP_LO), CLIP_HI);
-  const float theta = acosf(u) / HALF_PI;
-  return ok ? theta : 1.0f;
-}
-
-// Path-bound hinge max(lo - d, 0) + max(d - hi, 0), a side switched off by
-// an infinite bound; the same sums as the plain version.
-__device__ __forceinline__ float hinge(float d, float lo, float hi) {
-  float pen = 0.0f;
-  if (lo != -INFINITY) pen = pen + fmaxf(lo - d, 0.0f);
-  if (hi != INFINITY) pen = pen + fmaxf(d - hi, 0.0f);
-  return pen;
-}
 
 // MODE: 0 plain, 1 Lu, 2 full.
 template <int MODE, bool ALLOW_BACKWARD>
@@ -105,146 +77,29 @@ __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
     float* __restrict__ pen_theta, float* __restrict__ pen_theta_p,
     float* __restrict__ pen_zrelu, float* __restrict__ pen_path_out,
     float* __restrict__ pen_ang_out) {
-  constexpr bool LU = MODE >= 1;
-  constexpr bool FULL = MODE == 2;
-  __shared__ float s_c[MAX_SURF];
-  __shared__ float s_t[MAX_SURF];
-  __shared__ float s_mu[MAX_SURF * MAX_W];
-  __shared__ float s_ref[FULL ? MAX_SURF + 1 : 1];
-  __shared__ float s_lo[FULL ? MAX_SURF : 1];
-  __shared__ float s_hi[FULL ? MAX_SURF : 1];
-  for (int j = threadIdx.x; j < n_surf; j += blockDim.x) {
-    s_c[j] = c[j];
-    s_t[j] = t[j];
-    if (FULL) {
-      s_lo[j] = lo[j];
-      s_hi[j] = hi[j];
-    }
-  }
-  if (FULL)
-    for (int j = threadIdx.x; j <= n_surf; j += blockDim.x) s_ref[j] = ref_z[j];
-  for (int j = threadIdx.x; j < n_surf * n_w; j += blockDim.x) s_mu[j] = mu[j];
+  __shared__ Tables<MODE == 2> tab;
+  tab.load(c, t, mu, ref_z, lo, hi, nullptr, n_surf, n_w);
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int w = min(i / n_per_w, n_w - 1);
-
-  float x = xp[i];
-  float y = yp[i];
-  float cy = cy_in[i];
-  float z = *z0;
-  float cx = 0.0f;
-  float cz = sqrtf(1.0f - cy * cy);
-  bool ok = true;
-  bool bw = false;
-  float pth = 0.0f, ptp = 0.0f, pz = 0.0f, ppath = 0.0f, pang = 0.0f;
-  float z_prev = 0.0f;
-
-  for (int k = 0; k < n_surf; ++k) {
-    const float ck = s_c[k];
-    const float tk = s_t[k];
-    const float muk = s_mu[k * n_w + w];
-
-    // Sphere intersection in the vertex-local frame.
-    const float e = -(x * cx + y * cy + z * cz);
-    const float mz = z + e * cz;
-    const float m2 = x * x + y * y + z * z - e * e;
-    const float temp = ck * m2 - 2.0f * mz;
-    const float cos2 = cz * cz - ck * temp;
-    const bool fail1 = cos2 - EPS < 0.0f;
-    const float cs = sqrtf(fail1 ? 1.0f : cos2);
-    const float dist = e + temp / (cz + cs);
-    const float delta_z = dist * cz;
-
-    const bool ok1 = ok && !fail1;
-    const float xB = ok1 ? x + dist * cx : 0.0f;
-    const float yB = ok1 ? y + dist * cy : 0.0f;
-    const float zB = ok1 ? z + delta_z : 0.0f;
-    const float cxB = ok1 ? cx : 0.0f;
-    const float cyB = ok1 ? cy : 0.0f;
-
-    // Snell's law with the TIR and cz^2 masks.
-    const float cos2p = 1.0f - muk * muk * (1.0f - cs * cs);
-    const bool fail2a = cos2p - EPS < 0.0f;
-    const float csp = sqrtf(fail2a ? 1.0f : cos2p);
-    const float g = csp - muk * cs;
-    const float cxC = muk * cxB - g * ck * xB;
-    const float cyC = muk * cyB - g * ck * yB;
-    const float cz2 = 1.0f - (cxC * cxC + cyC * cyC);
-    const bool fail2 = fail2a || (cz2 - EPS < 0.0f);
-    const float czC = sqrtf(fail2 ? 1.0f : cz2);
-
-    bool ok2 = ok1 && !fail2;
-    x = ok2 ? xB : 0.0f;
-    y = ok2 ? yB : 0.0f;
-    z = (ok2 ? zB : 0.0f) - tk;
-    cx = ok2 ? cxC : 0.0f;
-    cy = ok2 ? cyC : 0.0f;
-    cz = ok2 ? czC : 1.0f;
-
-    // Backward-ray bookkeeping, skipping the pupil -> first-surface leg.
-    if (k > 0) {
-      const bool went_bw = (delta_z < 0.0f) && ok1;
-      if (ALLOW_BACKWARD) {
-        bw = bw || went_bw;
-      } else if (went_bw) {
-        ok2 = false;
-        x = 0.0f;
-        y = 0.0f;
-        z = -tk;
-        cx = 0.0f;
-        cy = 0.0f;
-        cz = 1.0f;
-      }
-    }
-    ok = ok2;
-    if (LU) {
-      pth = pth + theta_norm(cos2, ok);
-      ptp = ptp + theta_norm(cos2p, ok);
-      pz = pz + fmaxf(z, 0.0f);
-    }
-    if (FULL) {
-      pang = pang + fmaxf(angle_thr - cos2, 0.0f) + fmaxf(angle_thr - cos2p, 0.0f);
-      if (k > 0) {
-        const float delta = (z + s_ref[k]) - (z_prev + s_ref[k - 1]);
-        ppath = ppath + hinge(delta, s_lo[k - 1], s_hi[k - 1]);
-      }
-      z_prev = z;
-    }
+  const RayOut r = trace_ray<MODE, ALLOW_BACKWARD, false>(tab, n_surf, n_w, w, angle_thr,
+                                                          xp[i], yp[i], cy_in[i], *z0);
+  x_out[i] = r.x;
+  y_out[i] = r.y;
+  cx_out[i] = r.cx;
+  cy_out[i] = r.cy;
+  ok_out[i] = r.ok;
+  bw_out[i] = r.bw;
+  if (MODE >= 1) {
+    pen_theta[i] = r.pth;
+    pen_theta_p[i] = r.ptp;
+    pen_zrelu[i] = r.pz;
   }
-  if (FULL) {
-    // The image-plane entry: ref_z[S] repeats the last vertex.
-    const float delta = s_ref[n_surf] - (z_prev + s_ref[n_surf - 1]);
-    ppath = ppath + hinge(delta, s_lo[n_surf - 1], s_hi[n_surf - 1]);
-  }
-
-  // Transfer to the image plane.
-  const float delta_z = -z;
-  const float dist = delta_z / cz;
-  x = x + dist * cx;
-  y = y + dist * cy;
-  const bool went_bw = (delta_z < 0.0f) && ok;
-  if (ALLOW_BACKWARD) {
-    bw = bw || went_bw;
-  } else {
-    ok = ok && !went_bw;
-  }
-
-  x_out[i] = x;
-  y_out[i] = y;
-  cx_out[i] = cx;
-  cy_out[i] = cy;
-  ok_out[i] = ok;
-  bw_out[i] = bw;
-  if (LU) {
-    pen_theta[i] = pth;
-    pen_theta_p[i] = ptp;
-    pen_zrelu[i] = pz;
-  }
-  if (FULL) {
-    pen_path_out[i] = ppath;
-    pen_ang_out[i] = pang;
+  if (MODE == 2) {
+    pen_path_out[i] = r.ppath;
+    pen_ang_out[i] = r.pang;
   }
 }
 
@@ -282,10 +137,7 @@ int k1_fwd_launch(const float* xp, const float* yp, const float* cy,
                   bool* bw_out, float* pen_theta, float* pen_theta_p,
                   float* pen_zrelu, float* pen_path, float* pen_ang,
                   void* stream) {
-  if (n_surf < 1 || n_surf > MAX_SURF || n_w < 1 || n_w > MAX_W ||
-      n_per_w < 1 || n < 0 || mode < 0 || mode > 2) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(n_surf, n_w, n_per_w, n, mode)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   float* const outs[4] = {x_out, y_out, cx_out, cy_out};

@@ -135,6 +135,22 @@ class Structure:
         seqs = tuple(s[: min(k, len(s))] for s, k in zip(self.sequence, self.stop_idx))
         return Structure(self.stop_idx, seqs, pad_to=max_len)
 
+    def __getitem__(self, index) -> "Structure":
+        """The systems at ``index`` (an int, a slice or a host-side array of
+        rows), padded to the widest of them."""
+        rows = _rows(index, len(self))
+        return Structure(tuple(self.stop_idx[i] for i in rows),
+                         tuple(self.sequence[i] for i in rows))
+
+
+def _rows(index, n: int) -> list:
+    """System rows selected by an int, a slice or a host-side index array."""
+    if isinstance(index, (int, np.integer)):
+        index = slice(int(index), int(index) + 1)
+    if isinstance(index, slice):
+        return list(range(n)[index])
+    return [int(i) for i in np.asarray(index).reshape(-1)]
+
 
 def find_valid_curvatures(structure: Structure) -> np.ndarray:
     """Mask of optimizable curvatures: excludes air-air interfaces and the
@@ -199,6 +215,12 @@ class Specs:
 
     def up_to_stop(self) -> "Specs":
         return self.replace(structure=self.structure.up_to_stop())
+
+    def __getitem__(self, index) -> "Specs":
+        """The systems at ``index`` (see ``Structure.__getitem__``)."""
+        rows = torch.as_tensor(_rows(index, len(self)), device=self.device)
+        return Specs(self.structure[index], self.epd[rows], self.hfov[rows],
+                     self.vig_up[rows], self.vig_down[rows], self.vig_x[rows])
 
     def detach(self) -> "Specs":
         return self.to(detach=True)
@@ -334,6 +356,16 @@ class Lens:
                     torch.where(m, self.t[:, :w], 0.0),
                     torch.where(mg, self.nd[:, :w], 1.0),
                     torch.where(mg, self.v[:, :w], 1.0), kappa=kappa, asph=asph)
+
+    def __getitem__(self, index) -> "Lens":
+        """The systems at ``index`` (see ``Structure.__getitem__``), cut to
+        their own widest sequence."""
+        st = self.structure[index]
+        rows = torch.as_tensor(_rows(index, len(self)), device=self.device)
+        w = st.pad_to
+        pick = lambda a: None if a is None else a[rows, :w]
+        return Lens(st, pick(self.c), pick(self.t), pick(self.nd), pick(self.v),
+                    kappa=pick(self.kappa), asph=pick(self.asph))
 
     def get_refractive_indices(self, wavelengths) -> torch.Tensor:
         """n(λ) per surface gap, shape (B, S, W). See glass.refractive_indices."""

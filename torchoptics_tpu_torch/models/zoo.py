@@ -18,6 +18,7 @@ from __future__ import annotations
 import copy
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from torchoptics_tpu_torch.models.structure import Lens, Specs, Structure
@@ -181,3 +182,45 @@ def build(prescription, device="cuda", dtype=torch.float32) -> Tuple[Specs, Lens
     else:
         epd = lens.efl / tensor(p["f_number"])
     return Specs(structure, epd, hfov), lens
+
+
+def population(name: str, n: int, seed: int = 0, device="cuda") -> Tuple[Specs, Lens]:
+    """``n`` copies of a zoo prescription with every curvature perturbed by
+    2 % (seeded numpy normal draws): the homogeneous population of the
+    generator-loss benchmark (``benchmarks/bench_generator_loss.py``
+    ``make_population``), with the same draws for the same seed."""
+    p = get_prescription(name)
+    rng = np.random.default_rng(seed)
+    c = np.tile(np.asarray(p["c"], np.float32), (n, 1))
+    c *= 1.0 + 0.02 * rng.standard_normal(c.shape).astype(np.float32)
+    base_specs, base = build(name, device=device)
+    structure = Structure(tuple(p["stop_idx"]) * n, tuple(p["sequence"]) * n)
+    lens = Lens(structure, torch.tensor(c, device=device), base.t.repeat(n, 1),
+                base.nd.repeat(n, 1), base.v.repeat(n, 1))
+    return Specs(structure, base_specs.epd.repeat(n), base_specs.hfov.repeat(n)), lens
+
+
+def mixed_population(n: int, names=("cooke", "double_gauss"), seed: int = 0,
+                     device="cuda") -> Tuple[Specs, Lens]:
+    """A population mixing lens types, padded to the widest sequence:
+    n / len(names) copies of each prescription, curvatures perturbed by 2 %
+    (``bench_generator_loss.make_mixed_population``, the same draws for the
+    same seed)."""
+    rng = np.random.default_rng(seed)
+    per = n // len(names)
+    stops, seqs, rows, specs_rows = [], [], [], []
+    for name in names:
+        p = get_prescription(name)
+        base_specs, base = build(name, device=device)
+        c0 = np.asarray(p["c"], np.float32)
+        for _ in range(per):
+            stops.append(p["stop_idx"][0])
+            seqs.append(p["sequence"][0])
+            c = c0 * (1 + 0.02 * rng.standard_normal(c0.shape)).astype(np.float32)
+            rows.append((torch.tensor(c, device=device), base.flat_t, base.flat_nd,
+                         base.flat_v))
+            specs_rows.append((base_specs.epd, base_specs.hfov))
+    structure = Structure(tuple(stops), tuple(seqs))
+    flat = [torch.cat(parts) for parts in zip(*rows)]
+    epd, hfov = (torch.cat(parts) for parts in zip(*specs_rows))
+    return Specs(structure, epd, hfov), Lens(structure, *flat)

@@ -1,14 +1,15 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source under ``torchoptics_tpu_torch/csrc/`` is compiled on first use
-with ``nvcc`` for ``sm_90a``, all of them at once, one process each; the
-objects are then linked into one shared library with a plain C interface,
-which is loaded with ``ctypes``. The library goes into ``build/kernels/``
-beside the package, under a file name keyed by a hash of the sources and
-flags, so a changed source is rebuilt and an unchanged one is reused; the
-compiler's ``-Xptxas -v`` report (registers, spills, local and shared memory
-per kernel) is kept beside it as ``<library>.log``. Nothing here runs at
-import time: the package imports where there is no ``nvcc`` and no GPU.
+Each source (``*.cu``) under ``torchoptics_tpu_torch/csrc/`` is compiled
+on first use with ``nvcc`` for ``sm_90a``, all of them at once, one process
+each; the objects are then linked into one shared library with a plain C
+interface, which is loaded with ``ctypes``. The library goes into
+``build/kernels/`` beside the package, under a file name keyed by a hash of
+the sources, the headers they share (``*.cuh``) and the flags, so a changed
+source or header is rebuilt and an unchanged one is reused; the compiler's
+``-Xptxas -v`` report (registers, spills, local and shared memory per
+kernel) is kept beside it as ``<library>.log``. Nothing here runs at import
+time: the package imports where there is no ``nvcc`` and no GPU.
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ def _sources() -> list:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _headers() -> list:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     for candidate in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
@@ -50,9 +55,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives: a
+    changed header rebuilds every source, as a changed source does."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libtorchoptics_kernels_{digest.hexdigest()[:16]}.so"
@@ -113,6 +119,10 @@ def load() -> ctypes.CDLL:
     lib.k1_fwd_launch.restype = i
     lib.k1_bwd_launch.argtypes = [p] * 10 + [f] + [p] * 9 + [i] * 6 + [p] * 5 + [p]
     lib.k1_bwd_launch.restype = i
+    lib.k2_fwd_launch.argtypes = [p] * 11 + [f] + [i] * 7 + [p] * 11 + [p]
+    lib.k2_fwd_launch.restype = i
+    lib.k2_bwd_launch.argtypes = [p] * 11 + [f] + [p] * 9 + [i] * 7 + [p] * 5 + [p]
+    lib.k2_bwd_launch.restype = i
     lib.k1_error_string.argtypes = [i]
     lib.k1_error_string.restype = ctypes.c_char_p
     for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block"):

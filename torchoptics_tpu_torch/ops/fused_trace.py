@@ -18,10 +18,9 @@ kernels are checked against.
 
 The front-end keeps one ray order, wavelength-outer: the flat ray block is a
 (W, F, P) block, so ray i has wavelength ``min(i // n_per_w, W - 1)`` with
-``n_per_w = F * P``. Vignetting, the ray-aiming correction and EPD scaling
-are affine in the pupil coordinates; the front-end evaluates that chain on
-two (1, F, 1, W) probes and applies the coefficients once while building the
-block. The spot reductions run on that flat layout too.
+``n_per_w = F * P``. It is the population front-end of ``ops.fused_batch``
+on one system (vignetting, ray aiming and EPD scaling applied as an affine
+map found with two probes). The spot reductions run on that flat layout.
 """
 
 from __future__ import annotations
@@ -35,8 +34,6 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from torchoptics_tpu_torch.models.structure import Lens, Structure
-from torchoptics_tpu_torch.ops import abcd as abcd_mod
-from torchoptics_tpu_torch.ops import pupil as pupil_mod
 from torchoptics_tpu_torch.ops import trace as trace_mod
 
 #: Launches of the K1 forward and backward CUDA kernels in this process. The
@@ -283,12 +280,14 @@ def _theta_norm_adjoint(cos2, ok_end, dpen):
 
 def trace_fused_backward_reference(inputs, cotangents, penalties, allow_backward: bool,
                                    n_per_w: int, path_bounds=(), angle_thr=0.25):
-    """Plain PyTorch version of kernel K1 backward: a vectorised
-    transcription of ``pallas_trace._bwd_kernel``. It recomputes the forward
-    surface by surface, then applies the hand adjoint in reverse, one torch
-    operation per rounding as the kernel does, so the per-ray cotangents
-    agree with the kernel's bit for bit. The parameter cotangents are summed
-    over rays in float64 and returned in float32.
+    """Plain PyTorch version of kernel K1 backward, a vectorised
+    transcription of ``pallas_trace._bwd_kernel``: the population version
+    ``fused_batch.trace_fused_batch_backward_reference`` on a population of
+    one system without padding, whose arithmetic is K1's. It recomputes the
+    forward surface by surface, then applies the hand adjoint in reverse, one
+    torch operation per rounding as the kernel does, so the per-ray
+    cotangents agree with the kernel's bit for bit. The parameter cotangents
+    are summed over rays in float64 and returned in float32.
 
     Args:
       inputs: (xp, yp, cy, z0, c, t, mu[, ref_z]) as for the forward.
@@ -299,109 +298,13 @@ def trace_fused_backward_reference(inputs, cotangents, penalties, allow_backward
 
     Returns (dxp, dyp, dcy, dz0, dc, dt, dmu[, dref_z]).
     """
-    mode = _mode(penalties)
-    xp, yp, cyin, z0, c, t, mu = inputs[:7]
-    ref_z = inputs[7] if mode == 2 else None
-    dx_img, dy_img, dcx_img, dcy_img = cotangents[:4]
-    if mode:
-        dpth, dptp, dpz = cotangents[4:7]
-    if mode == 2:
-        dppath, dpang = cotangents[7:9]
-    n, n_surf, n_w = xp.shape[0], c.shape[0], mu.shape[1]
-    widx = torch.clamp(torch.arange(n, device=xp.device) // n_per_w, max=n_w - 1)
-    mu_ray = mu[:, widx]                                       # (S, N)
-    total = lambda a: torch.sum(a, dtype=torch.float64)
-
-    # Forward recompute, keeping the pre-surface states and the locals.
-    x, y, cy = xp, yp, cyin
-    z = z0.reshape(1).expand(n)
-    cx = torch.zeros_like(x)
-    cz0 = torch.sqrt(1.0 - cy * cy)
-    cz = cz0
-    ok = torch.ones(n, dtype=torch.bool, device=xp.device)
-    pres, locs, kills = [], [], []
-    for k in range(n_surf):
-        pres.append((x, y, z, cx, cy, cz, ok))
-        (x, y, z, cx, cy, cz, ok), loc = _fwd_surface(c[k], t[k], mu_ray[k],
-                                                      x, y, z, cx, cy, cz, ok)
-        kill = None
-        if not allow_backward and k > 0:
-            kill = (loc["delta_z"] < 0) & loc["ok1"]
-            ok = ok & ~kill
-            x, y, cx, cy = (torch.where(kill, 0.0, a) for a in (x, y, cx, cy))
-            z = torch.where(kill, -t[k], z)
-            cz = torch.where(kill, 1.0, cz)
-        locs.append(loc)
-        kills.append(kill)
-
-    # Image-transfer adjoint.
-    dist_f = -z / cz
-    dcx = dcx_img + dx_img * dist_f
-    dcy = dcy_img + dy_img * dist_f
-    ddist = dx_img * cx + dy_img * cy
-    dz = -ddist / cz
-    dcz = ddist * (z / (cz * cz))
-    dx, dy = dx_img, dy_img
-
-    zpost = lambda m: pres[m + 1][2] if m + 1 < n_surf else z
-
-    def hinge_cot(j):
-        """dppath · d(hinge_j)/d(delta_j) for path gap j."""
-        if j == n_surf - 1:
-            delta = ref_z[n_surf] - (zpost(n_surf - 1) + ref_z[n_surf - 1])
-        else:
-            delta = (zpost(j + 1) + ref_z[j + 1]) - (zpost(j) + ref_z[j])
-        return dppath * _hinge_grad(delta, *path_bounds[j])
-
-    dc, dt = [None] * n_surf, [None] * n_surf
-    dmu = [[None] * n_w for _ in range(n_surf)]
-    dref = [torch.zeros((), dtype=torch.float64, device=xp.device)] * (n_surf + 1)
-    bounds = [(min(w * n_per_w, n), n if w == n_w - 1 else min((w + 1) * n_per_w, n))
-              for w in range(n_w)]
-    for k in range(n_surf - 1, -1, -1):
-        loc, kill = locs[k], kills[k]
-        dcos2_extra = dcos2p_extra = None
-        if mode:
-            ok_end = loc["ok1"] & ~loc["fail2"]
-            if kill is not None:
-                ok_end = ok_end & ~kill
-            # pen_z += relu(z after surface k): into the incoming z adjoint.
-            dz = dz + dpz * (zpost(k) > 0).to(dz.dtype)
-            dcos2_extra = _theta_norm_adjoint(loc["cos2"], ok_end, dpth)
-            dcos2p_extra = _theta_norm_adjoint(loc["cos2p"], ok_end, dptp)
-        if mode == 2:
-            # z after surface k enters gap k-1 (+) and gap k (-).
-            hp_k = hinge_cot(k)
-            dz = dz - hp_k
-            if k > 0:
-                dz = dz + hinge_cot(k - 1)
-            s = total(hp_k)
-            dref[k + 1] = dref[k + 1] + s
-            dref[k] = dref[k] - s
-            dcos2_extra = dcos2_extra - dpang * (loc["cos2"] < angle_thr).to(dz.dtype)
-            dcos2p_extra = dcos2p_extra - dpang * (loc["cos2p"] < angle_thr).to(dz.dtype)
-        dt_kill = 0.0
-        if kill is not None:
-            # Killed lanes got z = -t (dz flows to dt) and a zeroed state.
-            dt_kill = -total(torch.where(kill, dz, 0.0))
-            dx, dy, dz, dcx, dcy, dcz = (torch.where(kill, 0.0, a)
-                                         for a in (dx, dy, dz, dcx, dcy, dcz))
-        (dx, dy, dz, dcx, dcy, dcz), dc_ray, dt_ray, dmu_ray = _bwd_surface(
-            c[k], mu_ray[k], pres[k], loc, (dx, dy, dz, dcx, dcy, dcz),
-            dcos2_extra, dcos2p_extra)
-        dc[k] = total(dc_ray)
-        dt[k] = total(dt_ray) + dt_kill
-        for w, (lo, hi) in enumerate(bounds):
-            dmu[k][w] = total(dmu_ray[lo:hi])
-
-    # Launch adjoint: cz0 = sqrt(1 - cy^2), cx0 = 0 (a constant).
-    dcy = dcy + dcz * (-cyin / cz0)
-    f32 = lambda vals: torch.stack(vals).to(torch.float32)
-    grads = (dx.contiguous(), dy.contiguous(), dcy, total(dz).to(torch.float32).reshape(z0.shape),
-             f32(dc), f32(dt), f32([v for row in dmu for v in row]).reshape(n_surf, n_w))
-    if mode == 2:
-        grads += (f32(dref),)
-    return grads
+    from torchoptics_tpu_torch.ops import fused_batch
+    z0 = inputs[3]
+    one = [a.reshape(1) if i == 3 else a[None] for i, a in enumerate(inputs)]
+    grads = fused_batch.trace_fused_batch_backward_reference(
+        one, [a[None] for a in cotangents], penalties, allow_backward, n_per_w,
+        path_bounds=path_bounds, angle_thr=angle_thr)
+    return tuple(g.reshape(z0.shape) if i == 3 else g[0] for i, g in enumerate(grads))
 
 
 # ---------------------------------------------------------------------------
@@ -409,18 +312,23 @@ def trace_fused_backward_reference(inputs, cotangents, penalties, allow_backward
 # ---------------------------------------------------------------------------
 
 
-def _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, max_surf, max_w, ref_z=None):
-    device = xp.device
-    named = dict(xp=xp, yp=yp, cy=cy, z0=z0, c=c, t=t, mu=mu)
-    if ref_z is not None:
-        named["ref_z"] = ref_z
+def _check_tensors(named, device, dtypes=None):
+    """Every tensor of ``named`` on ``device``, contiguous, and float32 (or
+    the dtype ``dtypes`` names for it); raises otherwise."""
     for name, a in named.items():
+        if a is None:
+            continue
         if a.device != device:
             raise ValueError(f"{name} is on {a.device}, xp on {device}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        dtype = (dtypes or {}).get(name, torch.float32)
+        if a.dtype != dtype:
+            raise TypeError(f"{name} must be {str(dtype).split('.')[-1]}, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, max_surf, max_w, ref_z=None):
+    _check_tensors(dict(xp=xp, yp=yp, cy=cy, z0=z0, c=c, t=t, mu=mu, ref_z=ref_z), xp.device)
     n = xp.shape[0]
     if xp.ndim != 1 or yp.shape != xp.shape or cy.shape != xp.shape:
         raise ValueError(f"xp, yp, cy must be equal (N,) vectors, got "
@@ -513,7 +421,8 @@ def _launch_k1_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, path_
     n_blocks = -(-n // lib.k1_bwd_block())
     new = lambda size: torch.empty(size, dtype=torch.float32, device=xp.device)
     dxp, dyp, dcy = new(n), new(n), new(n)
-    partials, params = new(n_params * n_blocks), new(n_params)
+    params = new(n_params)
+    partials = torch.empty(n_params * n_blocks, dtype=torch.float64, device=xp.device)
     ptr = lambda a: None if a is None else a.data_ptr()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
@@ -627,9 +536,8 @@ def compress_padded_tail(lens: Lens) -> Lens:
 
 def _check_fused_lens(lens: Lens, config) -> Lens:
     if len(lens) != 1:
-        raise NotImplementedError(
-            "the fused engine traces one system; the population kernel (K2) "
-            "is not ported yet (ROADMAP.md), use trace_engine='unroll'")
+        raise ValueError("kernel K1 traces one system; a population goes through "
+                         "ops.fused_batch (kernel K2)")
     if not lens.is_spherical:
         raise NotImplementedError(
             "the fused engine traces spherical surfaces; the asphere kernels "
@@ -647,68 +555,15 @@ def prepare_fused_inputs(specs, lens: Lens, config,
                          use_vig: bool = True):
     """Front-end of the fused path: dispersion, pupil position, sampling,
     vignetting, ray aiming (pure-torch engine, treated as a constant), EPD
-    scaling, and the flat wavelength-outer (W, F, P) ray block.
+    scaling, and the flat wavelength-outer (W, F, P) ray block; the
+    population front-end ``fused_batch.prepare_fused_inputs_batch`` on one
+    system, whose arithmetic it is.
 
     Returns (xp_flat, yp_flat, cy_flat, z0, mu, (1, F, P, W))."""
-    device = lens.device
-    n = lens.get_refractive_indices(config.wavelengths)  # (1, S, W)
-    n_full = torch.cat((torch.ones_like(n[:, :1, :]), n), dim=1)
-    mu = n_full[0, :-1, :] / n_full[0, 1:, :]  # (S, W)
-    z0 = abcd_mod.compute_pupil_position(lens)[0]
-
-    if xy is None:
-        xp_rel, yp_rel = pupil_mod.sample_pupil(
-            config.mode, config.n_rays, 1, generator=generator, device=device)
-    else:
-        xp_rel, yp_rel = xy
-    if xp_rel.ndim != 4 or xp_rel.shape[0] != 1 or xp_rel.shape[1] != 1 \
-            or xp_rel.shape[3] != 1:
-        raise ValueError("the fused front-end needs plain (1, 1, P, 1) pupil "
-                         f"samples, got {tuple(xp_rel.shape)}")
-    px = xp_rel[0, 0, :, 0]
-    py = yp_rel[0, 0, :, 0]
-    F = len(config.rel_fields)
-    W = len(config.wavelengths)
-    P = px.shape[0]
-
-    aiming_fn = None
-    if config.n_ray_aiming_iter > 0:
-        from torchoptics_tpu_torch.ops import aiming
-        aiming_fn = aiming.ray_aiming(specs, lens.detach(), config, use_vig)
-
-    def chain(vx, vy):
-        if use_vig and config.vig_fn is not None and config.mode != "chief":
-            fields = torch.tensor(config.rel_fields, dtype=torch.float32,
-                                  device=device)[None, :]
-            vig_up = config.vig_fn(fields, specs.vig_up)
-            vig_down = config.vig_fn(fields, specs.vig_down)
-            vig_x = config.vig_fn(fields, specs.vig_x)
-            vy = pupil_mod.apply_vignetting(vy, vig_up, vig_down)
-            vx = pupil_mod.apply_vignetting(vx, vig_x, vig_x)
-        if aiming_fn is not None:
-            vx, vy = aiming_fn(vx, vy)
-        return vx, vy
-
-    # The chain is affine in x and in y per (field, wavelength): two probes
-    # give its offset and slope.
-    zero = torch.zeros((1, F, 1, W), dtype=torch.float32, device=device)
-    one = torch.ones((1, F, 1, W), dtype=torch.float32, device=device)
-    ox, oy = chain(zero, zero)
-    sx, sy = chain(one, one)
-    sx = sx - ox
-    sy = sy - oy
-    wf = lambda a: a.expand(1, F, 1, W)[0, :, 0, :].T[:, :, None]  # (W, F, 1)
-    xrel = px[None, None, :] * wf(sx) + wf(ox)                       # (W, F, P)
-    yrel = py[None, None, :] * wf(sy) + wf(oy)
-    if aiming_fn is not None:
-        xrel = torch.clamp(xrel, -2.0, 2.0).detach()
-        yrel = torch.clamp(yrel, -2.0, 2.0).detach()
-    half_epd = specs.epd[0] / 2.0
-    fields = torch.tensor(config.rel_fields, dtype=torch.float32, device=device)
-    u = specs.hfov[:, None] * fields[None, :]
-    cyb = torch.sin(u)[0][None, :, None].expand(W, F, P)
-    return ((xrel * half_epd).reshape(-1), (yrel * half_epd).reshape(-1),
-            cyb.reshape(-1), z0, mu, (1, F, P, W))
+    from torchoptics_tpu_torch.ops import fused_batch
+    xp, yp, cyb, z0, mu, shape = fused_batch.prepare_fused_inputs_batch(
+        specs, lens, config, generator=generator, xy=xy, use_vig=use_vig)
+    return xp[0], yp[0], cyb[0], z0[0], mu[0], shape
 
 
 def package_fused_result(outs, shape, penalties: bool):

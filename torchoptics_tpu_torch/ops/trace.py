@@ -7,7 +7,8 @@ PyTorch counterpart of ``torchoptics_tpu.ops.trace``. Two engines:
   and autograd differentiates it. It is also the engine of every internal
   sub-trace (ray aiming, the pupil radius).
 * ``engine="fused"``: a single spherical system goes through
-  ``ops.fused_trace``, whose forward and backward are hand-written CUDA
+  ``ops.fused_trace`` (kernel K1), a population through ``ops.fused_batch``
+  (kernel K2); their forward and backward passes are hand-written CUDA
   kernels on a GPU tensor.
 
 Failure-mask semantics are replicated exactly (miss, TIR, cz² collapse,
@@ -221,9 +222,10 @@ def trace_rays(specs: Specs, lens: Lens, config: TraceConfig,
     ``trace_skew``.
 
     ``config.engine='fused'`` sends a single spherical system to
-    ``fused_trace.trace_rays_fused``; what it cannot take (batches,
-    aspheres, double precision, aggregate stacks) raises instead of silently
-    running another engine. Internal sub-traces (``xy`` given, or
+    ``fused_trace.trace_rays_fused`` and a population to
+    ``fused_batch.trace_rays_fused_batch``; what they cannot take (aspheres,
+    double precision, aggregate stacks) raises instead of silently running
+    another engine. Internal sub-traces (``xy`` given, or
     ``up_to_stop``) always run the pure-torch engine.
     """
     internal = xy is not None or up_to_stop
@@ -233,6 +235,10 @@ def trace_rays(specs: Specs, lens: Lens, config: TraceConfig,
                 "engine='fused' does not materialize per-surface aggregate "
                 "stacks; the Lu loss has a fused form (simulator.do_ray_tracing "
                 "with trace_engine='fused'), otherwise use engine='unroll'")
+        if len(lens) > 1:
+            from torchoptics_tpu_torch.ops import fused_batch
+            return fused_batch.trace_rays_fused_batch(specs, lens, config,
+                                                      generator=generator, use_vig=use_vig)
         from torchoptics_tpu_torch.ops import fused_trace
         return fused_trace.trace_rays_fused(specs, lens, config,
                                             generator=generator, use_vig=use_vig)

@@ -5,8 +5,9 @@ PyTorch counterpart of ``torchoptics_tpu.simulator``: pure functions over
 (Specs, Lens, SimulatorConfig). ``do_ray_tracing`` returns the raw trace and
 the loss Lu = rms + rate·ΣQ; ``compute_losses`` the full weighted loss
 (spot + ray-path + ray-angle + glass + Lu). With ``trace_engine="fused"``
-the trace and the penalty sums come from kernel K1 (``ops.fused_trace``),
-whose backward kernel makes them differentiable on the GPU; with
+the trace and the penalty sums come from kernel K1 (``ops.fused_trace``)
+for one system and from kernel K2 (``ops.fused_batch``) for a population,
+whose backward kernels make them differentiable on the GPU; with
 ``"unroll"`` they come from the pure-torch engine and its per-surface
 stacks.
 """
@@ -188,15 +189,22 @@ def compute_loss_out(res: trace_mod.TraceResult, n_sequence,
 
 def _do_ray_tracing_fused(specs: Specs, lens: Lens, config: SimulatorConfig,
                           generator: Optional[torch.Generator]):
-    """Fused form of ``do_ray_tracing`` for one spherical system: the Lu
-    penalty terms accumulate in kernel K1, so no per-surface stack is
-    materialized."""
-    from torchoptics_tpu_torch.ops import fused_trace
-    res, (pth, ptp, pz) = fused_trace.trace_rays_fused(
-        specs, lens, config.trace_config(), generator=generator, penalties=True)
+    """Fused form of ``do_ray_tracing``: the Lu penalty terms accumulate in
+    kernel K1 (one system) or K2 (a population), so no per-surface stack is
+    materialized. Each system's Q is normalized by its own surface count."""
+    cfg = config.trace_config()
+    if len(lens) == 1:
+        from torchoptics_tpu_torch.ops import fused_trace
+        res, (pth, ptp, pz) = fused_trace.trace_rays_fused(
+            specs, lens, cfg, generator=generator, penalties=True)
+    else:
+        from torchoptics_tpu_torch.ops import fused_batch
+        res, (pth, ptp, pz) = fused_batch.trace_rays_fused_batch(
+            specs, lens, cfg, generator=generator, penalties=True)
     rms_b = metrics_mod.compute_spot_rms(res.x, res.y, res.ray_ok,
                                          config.spot_metric)         # (B,)
-    n_seq = float(lens.structure.n_surfaces[0])
+    n_seq = torch.as_tensor(lens.structure.n_surfaces, dtype=rms_b.dtype,
+                            device=rms_b.device)
     sum_q_b = (torch.sum(pth, dim=(1, 2, 3)) + torch.sum(ptp, dim=(1, 2, 3))
                + torch.sum(pz, dim=(1, 2, 3))) / n_seq
     lu_b = rms_b + config.penalty_rate * sum_q_b
@@ -210,9 +218,10 @@ def do_ray_tracing(specs: Specs, lens: Lens, config: SimulatorConfig,
                    ) -> Tuple[trace_mod.TraceResult, Dict[str, torch.Tensor]]:
     """Run the raw trace and the unsupervised loss.
 
-    With ``config.trace_engine='fused'`` the loss comes from kernel K1's
-    in-kernel penalty sums (``TraceResult.stacks`` is None); non-default
-    aggregates, batches and aspheres raise there."""
+    With ``config.trace_engine='fused'`` the loss comes from the in-kernel
+    penalty sums of kernel K1 (one system) or K2 (a population)
+    (``TraceResult.stacks`` is None); non-default aggregates and aspheres
+    raise there."""
     cfg = config.trace_config()
     if cfg.engine == "fused":
         if tuple(aggregate) != trace_mod.AGG_TORCH:
@@ -245,13 +254,22 @@ def compute_losses(specs: Specs, lens: Lens, config: SimulatorConfig,
     penalties + Lu, weighted by ``config.loss_weights``.
 
     Returns (total_loss, loss_dict). ``config.trace_engine='fused'`` runs
-    one spherical system on K1's full mode (``fused_trace.compute_losses_fused``);
-    a batch or an asphere raises there."""
+    one spherical system on K1's full mode (``fused_trace.compute_losses_fused``),
+    a population of one lens type on K2's full mode
+    (``fused_batch.batched_compute_losses_fused``) and a population of mixed
+    lens types as one K2 launch per type (``_compute_losses_fused_grouped``);
+    an asphere raises there."""
     cfg = config.trace_config()
     if cfg.engine == "fused":
-        from torchoptics_tpu_torch.ops import fused_trace
-        return fused_trace.compute_losses_fused(specs, lens, config, g=g,
-                                                catalog_g=catalog_g, generator=generator)
+        if len(lens) == 1:
+            from torchoptics_tpu_torch.ops import fused_trace
+            return fused_trace.compute_losses_fused(specs, lens, config, g=g,
+                                                    catalog_g=catalog_g, generator=generator)
+        if len(set(lens.structure.sequence)) == 1:
+            from torchoptics_tpu_torch.ops import fused_batch
+            return fused_batch.batched_compute_losses_fused(
+                specs, lens, config, g=g, catalog_g=catalog_g, generator=generator)
+        return _compute_losses_fused_grouped(specs, lens, config, g, catalog_g, generator)
     res = trace_mod.trace_rays(specs, lens, cfg, generator=generator,
                                aggregate=("z", "cos2", "cos2_prime") + trace_mod.AGG_TORCH)
     mask = torch.as_tensor(lens.structure.mask, device=lens.device)
@@ -273,3 +291,35 @@ def compute_losses(specs: Specs, lens: Lens, config: SimulatorConfig,
     total = sum(loss_dict[k] * w for k, w in config.loss_weights.items()
                 if k in loss_dict and w is not None)
     return total, loss_dict
+
+
+def _compute_losses_fused_grouped(specs: Specs, lens: Lens, config: SimulatorConfig,
+                                  g: Optional[torch.Tensor],
+                                  catalog_g: Optional[torch.Tensor],
+                                  generator: Optional[torch.Generator],
+                                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The fused full loss of a population of mixed lens types: systems
+    grouped by sequence on the host (static), one K2 launch per lens type at
+    its own surface count, recombined. Every loss entry is a mean over
+    systems or over all rays, which have the same shape in every group, so
+    group g weighs B_g / B. The glass penalty depends on ``g`` only and is
+    computed once on the whole population. The caller's generator serves
+    the groups in order."""
+    from torchoptics_tpu_torch.ops import fused_batch
+
+    groups: Dict[str, list] = {}
+    for i, seq in enumerate(lens.structure.sequence):
+        groups.setdefault(seq, []).append(i)
+    combined: Dict[str, torch.Tensor] = {}
+    for idx in groups.values():
+        idx = np.asarray(idx)
+        _, d = fused_batch.batched_compute_losses_fused(specs[idx], lens[idx], config,
+                                                        generator=generator)
+        for k in ("loss_unsup", "rms", "penalty", "spot_size", "ray_path", "ray_angle"):
+            term = d[k] * (len(idx) / len(lens))
+            combined[k] = term if k not in combined else combined[k] + term
+    if g is not None:
+        combined["glass"] = compute_glass_penalty(lens.structure, g, catalog_g)
+    total = sum(combined[k] * w for k, w in config.loss_weights.items()
+                if k in combined and w is not None)
+    return total, combined
