@@ -3,10 +3,10 @@
 
 Drives the port's paths through their user entry points on the card: the
 double-Gauss lens-evaluation ("serving") path, the lens-training path
-(``LensOptimizer`` Adam steps) and the lens-population path (generator
-training through ``OpticalLoss``, the main path of the population slice),
-and checks every hand-written CUDA kernel on them against its plain PyTorch
-version:
+(``LensOptimizer`` Adam steps), the lens-population path (generator
+training through ``OpticalLoss``) and the aspheric path (serving and
+training the aspherized double-Gauss on kernel K3), and checks every
+hand-written CUDA kernel on them against its plain PyTorch version:
 
 1. the card's name and power limit;
 2. the build of the CUDA kernels from the sources in this checkout, with
@@ -44,7 +44,25 @@ version:
     each kernel also checked against its plain version there, the fwd+bwd
     of ``spot_rms_fused`` and of ``unsupervised_loss_fused`` and a whole
     ``LensOptimizer.step``; K2 and its plain versions at 393,216 rays, the
-    fwd+bwd of ``batched_unsupervised_loss`` and a generator step.
+    fwd+bwd of ``batched_unsupervised_loss`` and a generator step;
+12. the aspheric path, on the aspherized double-Gauss (conics on 10 of 11
+    surfaces, r^4 and r^6 terms on all): K3 forward against
+    ``trace_fused_asphere_reference`` at 442,368 rays, every mode and
+    policy, on the lens and on its c x 3 variant, whose failure conditions
+    (sag-domain guard, non-convergence, ...) are counted from the plain
+    version's locals; masks and coordinates bit-identical;
+13. K3 backward against ``trace_fused_asphere_backward_reference`` on the
+    same inputs with seeded cotangents: per-ray cotangents bit-identical,
+    parameter cotangents within one float32 rounding, two launches bit for
+    bit;
+14. K3 at kappa = asph = 0 against K1 on the double-Gauss;
+15. ``do_ray_tracing`` on the aspherized lens at 3,840 and 2,457,600 rays,
+    one K3 forward launch each, the smaller held against the CPU;
+16. training: 5 ``LensOptimizer`` steps on the Lu loss and 5 on the full
+    loss at 2,457,600 rays with kappa and asph trained, one K3 forward and
+    one K3 backward launch per step, the first step held against the CPU;
+17. timings: K3 and its plain versions per mode at 2,457,600 rays, and one
+    aspheric ``LensOptimizer.step`` on each loss (host clock).
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -54,7 +72,8 @@ before that carries the kernels' numbers.
     python3 chip_smoke.py             # the run described above
     python3 chip_smoke.py --profile   # instead: torch.profiler breakdowns of
                                       # LensOptimizer.step at 2,457,600 rays
-                                      # and of a generator step
+                                      # (double-Gauss and aspherized) and of
+                                      # a generator step
 """
 
 import json
@@ -93,8 +112,13 @@ K2_FWD_SOURCE = "torchoptics_tpu_torch/csrc/fused_batch_fwd.cu"
 K2_BWD_SOURCE = "torchoptics_tpu_torch/csrc/fused_batch_bwd.cu"
 TPU_K2_FWD = "torchoptics_tpu/ops/pallas_batch.py:66"
 TPU_K2_BWD = "torchoptics_tpu/ops/pallas_batch.py:182"
+K3_FWD_SOURCE = "torchoptics_tpu_torch/csrc/fused_asphere_fwd.cu"
+K3_BWD_SOURCE = "torchoptics_tpu_torch/csrc/fused_asphere_bwd.cu"
+TPU_K3_FWD = "torchoptics_tpu/ops/pallas_asphere.py:367"
+TPU_K3_BWD = "torchoptics_tpu/ops/pallas_asphere.py:479"
 # The H100's published float32 (non-tensor) and memory rates.
 PEAK_FLOPS = 67e12
+TRAINABLE = ("c", "t", "g", "kappa", "asph")
 PEAK_BYTES = 3.35e12
 # Bytes per ray: the inputs read once and the outputs written once.
 FWD_BYTES = {False: 30, True: 42, "full": 50}
@@ -325,17 +349,20 @@ def phase_serve(torch, zoo, simulator, fused_trace, entry):
     return launches
 
 
-def make_optimizer(zoo, simulator, LensOptimizer, device, width, use_full_loss):
-    """The flagship with its glasses moved 2e-3 off the catalog (a design in
-    progress: exactly on a catalog glass the glass penalty's gradient is NaN,
-    in the JAX package too, and every full-loss step would be rejected), at
-    its own EFL."""
+def make_optimizer(zoo, simulator, LensOptimizer, device, width, use_full_loss,
+                   name="double_gauss"):
+    """The flagship (or the zoo lens ``name``) with its glasses moved 2e-3
+    off the catalog (a design in progress: exactly on a catalog glass the
+    glass penalty's gradient is NaN, in the JAX package too, and every
+    full-loss step would be rejected), at its own EFL."""
     cfg = simulator.SimulatorConfig(pupil_sampling="circular", n_ray_aiming_iter=1,
                                     trace_engine="fused", **width)
-    specs, lens = zoo.build("double_gauss", device=device)
+    specs, lens = zoo.build(name, device=device)
     lens = lens.replace(nd=lens.nd + 2e-3)
+    # Every variable the lens carries is trained (conics and asphere terms too).
     opt = LensOptimizer(specs=specs, config=cfg, learning_rate=1e-4,
-                        use_full_loss=use_full_loss, efl_target=float(lens.efl[0]))
+                        use_full_loss=use_full_loss, efl_target=float(lens.efl[0]),
+                        trainable=TRAINABLE)
     return opt, opt.init(lens)
 
 
@@ -529,6 +556,8 @@ def profile_steps(torch, label, step, card, n_steps=3):
         kernels.append((dev_us / 1e3 / n_steps, ev.count / n_steps, name))
         group = ("K1 forward" if "k1_fwd_kernel" in name else
                  "K1 backward" if "k1_bwd_kernel" in name else
+                 "K3 forward" if "k3_fwd_kernel" in name else
+                 "K3 backward" if "k3_bwd_kernel" in name else
                  "K2 forward" if "k2_fwd_kernel" in name else
                  "K2 backward" if "k2_bwd_kernel" in name else
                  "kernel parameter sums" if "partials_reduce" in name else
@@ -558,6 +587,15 @@ def phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, OpticalLoss
                       "2457600 rays", step, card)
     profile_steps(torch, f"generator step at {N_SYSTEMS} x 1536 rays",
                   generator_step(torch, OpticalLoss), card)
+    for full in (False, True):
+        opt, state = make_optimizer(zoo, simulator, LensOptimizer, "cuda", BENCH_WIDTH, full,
+                                    "double_gauss_asph")
+        holder = [state]
+
+        def step():
+            holder[0] = opt.step(holder[0])[0]
+        profile_steps(torch, f"aspheric LensOptimizer.step on the {'full' if full else 'Lu'} "
+                      "loss at 2457600 rays", step, card)
 
 
 # ---------------------------------------------------------------------------
@@ -1036,6 +1074,440 @@ def k2_entries(ms, shape, err, serve_launches, gen_launches, mixed_launches):
     ]
 
 
+# ---------------------------------------------------------------------------
+# The aspheric path: kernel K3 on the aspherized double-Gauss.
+# ---------------------------------------------------------------------------
+
+
+def k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides=0):
+    """Floating-point operations per ray that K3 forward or backward needs,
+    counted from the kernels' source notes under ``k1_ops``'s rules (FP32
+    arithmetic; a sqrt or a division as one; negations, fabsf, compares and
+    selects not counted), each value once: the surface constants
+    (1+kappa)c^2 and a_j (j+2), and in the backward c (1+kappa)c^2, c^3 and
+    a_j (j+2)(j+1), once per ray and surface, not at each of the 13 sag
+    evaluations; a power of r^2 or a local that the kernels compute twice
+    (the backward's Newton-point sag terms, its own power chains), once; a
+    result nothing reads (the sag at the hit and Snell points, the sag's
+    partials there), not at all. K = n_asph >= 1, as the kernels require.
+
+    Per surface the forward is the constants (3 + K), the sphere guess
+    (26), ``n_iter`` Newton steps and the polish (26 + 5 K each: 18 for F,
+    F' and the step, 8 + 5 K for the sag and its slope), the hit point
+    (29 + 3 K: 4 + 3 K for its slope, then the normal and cos^2) and the
+    Snell point (41 + 3 K); the backward adds the constants (3 + K), the
+    adjoint chain through Snell's law, the hit point and the polish step
+    (163), the sag partials (20 at the Newton point, 10 at each of the hit
+    and Snell points, and 2 K - 1 for the asphere terms of dg/dr^2 at each),
+    the asphere cotangents (10 K) and one add per ray for each of the 4 + K
+    parameter sums. The launch, image and penalty terms are K1's."""
+    lu, full = penalties in (True, "full"), penalties == "full"
+    k = n_asph
+    surface = 125 + 12 * k + n_iter * (26 + 5 * k)
+    if not backward:
+        return (surface * n_surf + 8 + (14 * n_surf if lu else 0)
+                + (10 * n_surf - 1 + 3 * n_sides if full else 0))
+    surface += (3 + k) + 163 + 40 + 3 * (2 * k - 1) + 10 * k + (4 + k)
+    return (surface * n_surf + 19 + (20 * n_surf if lu else 0)
+            + (12 * n_surf - 2 + n_sides if full else 0))
+
+
+def asphere_inputs(torch, zoo, simulator, fused_trace, width, c_scale=1.0, name="double_gauss_asph"):
+    """K3's inputs (xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z) on the
+    zoo lens ``name`` with c scaled, the tight bounds, n_per_w."""
+    cfg = simulator.SimulatorConfig(pupil_sampling="circular", n_ray_aiming_iter=1,
+                                    **width).trace_config()
+    specs, lens = zoo.build(name, device="cuda")
+    lens = lens.replace(c=lens.c * c_scale)
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, W) = fused_trace.prepare_fused_inputs(specs, lens, cfg)
+    ref_z, bounds, thr = full_args(torch, fused_trace, lens)
+    inputs = (xp, yp, cyb, z0, lens.c[0].detach(), lens.kappa[0].detach(), lens.t[0].detach(),
+              mu, lens.asph[0].detach(), ref_z)
+    return inputs, F * P, bounds, thr
+
+
+def run_k3_fwd(fused_asphere, inputs, penalties, allow_backward, n_per_w, bounds, thr, plain):
+    ins = inputs if penalties == "full" else inputs[:9]
+    if plain:
+        return fused_asphere.trace_fused_asphere_reference(
+            *ins[:9], penalties, allow_backward, n_per_w, 10, inputs[9], bounds, thr)
+    return fused_asphere._launch_k3_fwd(ins, penalties, allow_backward, n_per_w, 10, bounds, thr)
+
+
+def run_k3_bwd(fused_asphere, inputs, cot, penalties, allow_backward, n_per_w, bounds, thr,
+               plain):
+    ins = inputs if penalties == "full" else inputs[:9]
+    if plain:
+        return fused_asphere.trace_fused_asphere_backward_reference(
+            ins, cot, penalties, allow_backward, n_per_w, 10, bounds, thr)
+    return fused_asphere._launch_k3_bwd(ins, cot, penalties, allow_backward, n_per_w, 10, bounds,
+                                        thr)
+
+
+# A penalty sum of the card within 8 float32 roundings of its largest value;
+# a parameter cotangent within one rounding of the plain version's float64
+# sum (both relative to the largest magnitude).
+PEN_ROUNDINGS = 8 * 2.0 ** -23
+ONE_ROUNDING = 2.0 ** -23
+
+
+def k3_fwd_compare(torch, got, want):
+    """K3 forward's outputs against its plain version's: (ok, masks
+    bit-identical, coordinates bit-identical, penalty sums' deviation
+    relative to their largest value, largest absolute deviation)."""
+    masks = all(torch.equal(got[i], want[i]) for i in (4, 5))
+    coords = all(torch.equal(got[i], want[i]) for i in range(4))
+    pen_rel = max([float((got[i] - want[i]).abs().max() / want[i].abs().max().clamp(min=1e-30))
+                   for i in range(6, len(got))] + [0.0])
+    max_abs = max(float((got[i] - want[i]).abs().max())
+                  for i in range(len(got)) if i not in (4, 5))
+    return masks and coords and pen_rel <= PEN_ROUNDINGS, masks, coords, pen_rel, max_abs
+
+
+def k3_bwd_compare(torch, got, want):
+    """K3 backward's outputs against its plain version's: (ok, largest
+    per-ray deviation, largest absolute and relative parameter deviation);
+    ok asks for bit-identical per-ray cotangents, finite outputs and each
+    parameter cotangent within one float32 rounding of its largest
+    magnitude."""
+    ray = max(float((got[i] - want[i]).abs().max()) for i in range(3))
+    par_abs = max(float((got[i] - want[i]).abs().max()) for i in range(3, len(got)))
+    par_rel = max(float((got[i] - want[i]).abs().max() / want[i].abs().max().clamp(min=1e-30))
+                  for i in range(3, len(got)))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    return finite and ray == 0.0 and par_rel <= ONE_ROUNDING, ray, par_abs, par_rel
+
+
+def failure_counts(torch, fused_asphere, inputs, n_per_w):
+    """Per failure condition, the (ray, surface) pairs where it fires on a
+    ray still alive before the surface, read from the plain version's locals
+    (backward rays flagged)."""
+    counts = dict(domain_guard=0, not_converged=0, stationary=0, cos2_floor=0, tir=0,
+                  cz2_collapse=0)
+
+    def keep(k, pre, loc, kill, post):
+        alive = pre[6]
+        count = lambda m: int((m & alive).sum())
+        counts["domain_guard"] += count(loc["guard_pre"] | loc["guard2"])
+        counts["not_converged"] += count(loc["not_conv"])
+        counts["stationary"] += count(loc["stationary"])
+        counts["cos2_floor"] += count(loc["cos2"] - 1e-6 < 0)
+        counts["tir"] += count(loc["ok1"] & loc["fail2a"])
+        counts["cz2_collapse"] += count(loc["ok1"] & loc["fail2"] & ~loc["fail2a"])
+    with torch.no_grad():
+        fused_asphere._trace(*inputs[:9], True, n_per_w, 10, keep)
+    return counts
+
+
+def phase_k3_forward(torch, zoo, simulator, fused_trace, fused_asphere):
+    """K3 forward vs its plain version at 442,368 rays, every mode and
+    policy, on the aspherized double-Gauss and on its c x 3 variant with the
+    failure conditions counted. Returns the largest deviations per entry."""
+    worst = {"k3_fwd": 0.0, "k3_fwd_full": 0.0}
+    failed = []
+    for label, c_scale in (("double_gauss_asph", 1.0), ("double_gauss_asph c x 3", 3.0)):
+        inputs, n_per_w, bounds, thr = asphere_inputs(torch, zoo, simulator, fused_trace,
+                                                      FULL_WIDTH, c_scale)
+        if c_scale != 1.0:
+            counts = failure_counts(torch, fused_asphere, inputs, n_per_w)
+            check(counts["domain_guard"] > 0 and counts["not_converged"] > 0,
+                  f"K3 failure conditions on {label}, {inputs[0].shape[0]} rays x "
+                  f"{inputs[4].shape[0]} surfaces, (ray, surface) pairs on rays alive before "
+                  f"the surface, from the plain version's locals: {counts}")
+        for penalties in PENALTY_MODES:
+            for allow_backward in (True, False):
+                args = (inputs, penalties, allow_backward, n_per_w, bounds, thr)
+                with torch.no_grad():
+                    got = run_k3_fwd(fused_asphere, *args, plain=False)
+                    want = run_k3_fwd(fused_asphere, *args, plain=True)
+                ok, masks, coords, pen_rel, max_abs = k3_fwd_compare(torch, got, want)
+                key = "k3_fwd_full" if penalties == "full" else "k3_fwd"
+                worst[key] = max(worst[key], max_abs)
+                print(f"{'ok  ' if ok else 'FAIL'} K3 forward vs plain, {label}, "
+                      f"{MODE_NAME[penalties]} mode, allow_backward={allow_backward}, "
+                      f"{inputs[0].shape[0]} rays: masks bit-identical={masks}, coordinates "
+                      f"bit-identical={coords}, penalty sums within {pen_rel:.2e} of their "
+                      f"largest (limit {PEN_ROUNDINGS:.2e}); ray_ok share "
+                      f"{float(got[4].float().mean()):.6f}", flush=True)
+                if not ok:
+                    failed.append((label, penalties, allow_backward))
+        # The card against the CPU: the plain version on CPU copies of the
+        # same inputs. Lanes may differ where the CPU's and the card's
+        # elementwise operations round differently (the convergence test
+        # |F| > 1e-5 sits at float32 resolution for |s| of tens of mm);
+        # counted and reported, not required to be zero.
+        with torch.no_grad():
+            card = run_k3_fwd(fused_asphere, inputs, False, True, n_per_w, bounds, thr,
+                              plain=False)
+            host = run_k3_fwd(fused_asphere, tuple(a.cpu() for a in inputs), False, True,
+                              n_per_w, bounds, thr, plain=True)
+        differ = {name: int((card[i].cpu() != host[i]).sum())
+                  for i, name in ((4, "ray_ok"), (5, "ray_backward"))}
+        both = card[4].cpu() & host[4]
+        coord = max(float((card[i].cpu() - host[i]).abs()[both].max()) for i in range(4))
+        print(f"info K3 forward on the card vs its plain version on the CPU, {label}, plain "
+              f"mode, {inputs[0].shape[0]} rays: lanes that differ {differ}, coordinates of "
+              f"rays ok in both within {coord:.3e}", flush=True)
+    check(not failed, f"K3 forward agrees with its plain version (failed: {failed})")
+    return worst
+
+
+def phase_k3_backward(torch, zoo, simulator, fused_trace, fused_asphere):
+    """K3 backward vs its plain version on seeded cotangents, and two
+    launches bit for bit. Returns (per-ray deviation, largest absolute and
+    relative parameter deviation)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = (0.0, 0.0, 0.0)
+    failed = []
+    for label, c_scale in (("double_gauss_asph", 1.0), ("double_gauss_asph c x 3", 3.0)):
+        inputs, n_per_w, bounds, thr = asphere_inputs(torch, zoo, simulator, fused_trace,
+                                                      FULL_WIDTH, c_scale)
+        n = inputs[0].shape[0]
+        for penalties in PENALTY_MODES:
+            for allow_backward in (True, False):
+                cot = [torch.randn(n, device="cuda", generator=gen)
+                       for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+                args = (inputs, cot, penalties, allow_backward, n_per_w, bounds, thr)
+                got = run_k3_bwd(fused_asphere, *args, plain=False)
+                again = run_k3_bwd(fused_asphere, *args, plain=False)
+                want = run_k3_bwd(fused_asphere, *args, plain=True)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                close, ray, par_abs, par_rel = k3_bwd_compare(torch, got, want)
+                worst = tuple(map(max, worst, (ray, par_abs, par_rel)))
+                ok = same and close
+                print(f"{'ok  ' if ok else 'FAIL'} K3 backward vs plain, {label}, "
+                      f"{MODE_NAME[penalties]} mode, allow_backward={allow_backward}, {n} rays: "
+                      f"max per-ray deviation {ray:.3e}; parameter cotangents dz0, dc, dkappa, "
+                      f"dt, dmu, dasph{', dref_z' if penalties == 'full' else ''} within "
+                      f"{par_rel:.2e} of their largest (limit {ONE_ROUNDING:.2e}, max absolute "
+                      f"{par_abs:.3e}); two launches bit-identical={same}", flush=True)
+                if not ok:
+                    failed.append((label, penalties, allow_backward))
+    check(not failed, f"K3 backward agrees with its plain version (failed: {failed})")
+    return worst
+
+
+def phase_k3_is_k1(torch, zoo, simulator, fused_trace, fused_asphere):
+    """K3 with kappa = asph = 0 against K1 on the double-Gauss at 442,368
+    rays: masks equal, coordinates within JAX's own K3-vs-K1 bar."""
+    inputs, n_per_w, bounds, thr = kernel_inputs(torch, zoo, simulator, fused_trace, FULL_WIDTH)
+    xp, yp, cyb, z0, c, t, mu = inputs[:7]
+    with torch.no_grad():
+        k1 = run_fwd(fused_trace, inputs, False, True, n_per_w, bounds, thr, plain=False)
+        k3 = fused_asphere._launch_k3_fwd(
+            (xp, yp, cyb, z0, c, torch.zeros_like(c), t, mu,
+             torch.zeros(c.shape[0], 2, device="cuda")), False, True, n_per_w, 10, bounds, thr)
+    torch.cuda.synchronize()
+    masks = torch.equal(k1[4], k3[4]) and torch.equal(k1[5], k3[5])
+    ok = k1[4]
+    excess = max(float(((k3[i] - k1[i]).abs() - 1e-4 * k1[i].abs())[ok].max()) for i in range(4))
+    dev = max(float((k3[i] - k1[i]).abs()[ok].max()) for i in range(4))
+    check(masks and excess <= 1e-5,
+          f"K3 at kappa = asph = 0 vs K1 on the double-Gauss, {xp.shape[0]} rays: masks "
+          f"equal={masks}, coordinates within {dev:.3e} (limit 1e-05 + 1e-04 relative)")
+
+
+def phase_k3_serve(torch, zoo, simulator, fused_trace, fused_asphere):
+    """``do_ray_tracing(trace_engine="fused")`` on the aspherized
+    double-Gauss at 3,840 and at 2,457,600 rays: one K3 forward launch per
+    call, no K1 launch; the 3,840-ray call held against the CPU. Returns the
+    K3 forward launches of the run."""
+    specs, lens = zoo.build("double_gauss_asph", device="cuda")
+    configs = [simulator.SimulatorConfig(pupil_sampling="circular", n_ray_aiming_iter=1,
+                                         trace_engine="fused", **width)
+               for width in (ENTRY_WIDTH, BENCH_WIDTH)]
+    fused_asphere.K3_FWD_LAUNCHES = 0
+    fused_asphere.K3_BWD_LAUNCHES = 0
+    fused_trace.K1_FWD_LAUNCHES = 0
+    with torch.no_grad():
+        served = [simulator.do_ray_tracing(specs, lens, cfg) for cfg in configs]
+        torch.cuda.synchronize()
+    launches = fused_asphere.K3_FWD_LAUNCHES
+    check(launches == 2 and fused_asphere.K3_BWD_LAUNCHES == 0
+          and fused_trace.K1_FWD_LAUNCHES == 0,
+          f"aspheric serving: K3 forward launched {launches} times for 2 calls (3,840 and "
+          f"2,457,600 rays), K3 backward {fused_asphere.K3_BWD_LAUNCHES}, K1 "
+          f"{fused_trace.K1_FWD_LAUNCHES}")
+    for (res, loss), cfg in zip(served, configs):
+        check(bool(torch.isfinite(res.x[res.ray_ok]).all())
+              and all(math.isfinite(float(v)) for v in loss.values()),
+              f"served {tuple(res.x.shape)}: ray_ok share {float(res.ray_ok.float().mean()):.6f}, "
+              f"loss_unsup {float(loss['loss_unsup']):.7f}, rms {float(loss['rms']):.8f}")
+    with torch.no_grad():
+        _, want = simulator.do_ray_tracing(specs.to("cpu"), lens.to("cpu"), configs[0])
+    loss = served[0][1]
+    tol = {"loss_unsup": 1e-5, "penalty": 1e-5, "rms": 2e-4}
+    rel = {k: abs(float(loss[k]) - float(want[k])) / abs(float(want[k])) for k in tol}
+    check(all(rel[k] <= tol[k] for k in tol),
+          "aspheric serving at 3,840 rays, CUDA vs CPU relative gaps "
+          + ", ".join(f"{k} {rel[k]:.2e} (limit {tol[k]:.0e})" for k in tol))
+    return launches
+
+
+def phase_k3_train(torch, zoo, simulator, fused_trace, fused_asphere, LensOptimizer, n_steps=5):
+    """The aspheric training path: Adam steps at 2,457,600 rays on the Lu
+    and on the full loss with kappa and asph trained, counts set to 0 before
+    each run and read after; the first step held against the CPU at 3,840
+    rays. Returns the (forward, backward) launches of each run."""
+    launches = {}
+    for full in (False, True):
+        name = "full" if full else "Lu"
+        opt, state = make_optimizer(zoo, simulator, LensOptimizer, "cuda", BENCH_WIDTH, full,
+                                    "double_gauss_asph")
+        trained = sorted(state.params)
+        start = {k: v.detach().clone() for k, v in state.params.items()}
+        fused_asphere.K3_FWD_LAUNCHES = 0
+        fused_asphere.K3_BWD_LAUNCHES = 0
+        fused_trace.K1_FWD_LAUNCHES = 0
+        totals = []
+        for _ in range(n_steps):
+            state, total, _ = opt.step(state)
+            totals.append(float(total))
+        torch.cuda.synchronize()
+        fwd, bwd = fused_asphere.K3_FWD_LAUNCHES, fused_asphere.K3_BWD_LAUNCHES
+        adam_steps = [int(s["step"]) for s in state.opt_state.state.values()]
+        moved = {k: float((state.params[k].detach() - start[k]).abs().max()) for k in start}
+        finite = (all(math.isfinite(v) for v in totals)
+                  and all(bool(torch.isfinite(v).all()) for v in state.params.values()))
+        check(fwd == n_steps and bwd == n_steps and fused_trace.K1_FWD_LAUNCHES == 0 and finite
+              and adam_steps == [n_steps] * len(adam_steps)
+              and moved["kappa"] > 0 and moved["asph"] > 0,
+              f"{n_steps} LensOptimizer steps on the aspherized double-Gauss, {name} loss, "
+              f"2457600 rays, variables {trained}: K3 forward launched {fwd} times, K3 backward "
+              f"{bwd} times, K1 {fused_trace.K1_FWD_LAUNCHES}; all steps accepted (Adam step "
+              f"counts {adam_steps}); losses {['%.6f' % v for v in totals]}; kappa moved by "
+              f"up to {moved['kappa']:.3e}, asph by {moved['asph']:.3e}")
+        launches[name] = (fwd, bwd)
+
+        # The first step on the card and on the CPU: its loss, the gradients
+        # it takes (of the loss in each trained variable group, relative to
+        # the group's largest magnitude) and the parameters after it.
+        after = {}
+        for device in ("cuda", "cpu"):
+            opt_d, state_d = make_optimizer(zoo, simulator, LensOptimizer, device, ENTRY_WIDTH,
+                                            full, "double_gauss_asph")
+            total_d, _ = opt_d.loss(state_d.params)
+            grads = torch.autograd.grad(total_d, list(state_d.params.values()),
+                                        allow_unused=True)
+            grads = {k: (torch.zeros_like(p) if g is None else g).cpu()
+                     for (k, p), g in zip(state_d.params.items(), grads)}
+            state_d, step_total, _ = opt_d.step(state_d)
+            after[device] = (float(step_total), grads,
+                             {k: v.detach().cpu() for k, v in state_d.params.items()})
+        rel = abs(after["cuda"][0] - after["cpu"][0]) / abs(after["cpu"][0])
+        grad_rel = {k: float((after["cuda"][1][k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                    for k, g in after["cpu"][1].items()}
+        dparam = max(float((after["cuda"][2][k] - after["cpu"][2][k]).abs().max())
+                     for k in after["cpu"][2])
+        check(rel <= 1e-5 and max(grad_rel.values()) <= 1e-4 and dparam <= 1e-6,
+              f"first aspheric {name} step at 3840 rays, CUDA vs CPU: loss {after['cuda'][0]:.7f} "
+              f"vs {after['cpu'][0]:.7f} (relative gap {rel:.2e}, limit 1e-05); gradients within "
+              + ", ".join(f"{k} {v:.2e}" for k, v in sorted(grad_rel.items()))
+              + f" of their group's largest magnitude (limit 1e-04); parameters after the step "
+              f"differ by at most {dparam:.3e} (limit 1e-06)")
+    return launches
+
+
+def phase_k3_timing(torch, zoo, simulator, fused_trace, fused_asphere, LensOptimizer, card):
+    """K3 and its plain versions per mode at 2,457,600 rays, the main path's
+    width, each kernel checked against its plain version there as in the
+    442,368-ray phases; then the host clock of one aspheric LensOptimizer
+    step on each loss. Returns the times, the deviations at this width (as
+    phase_k3_forward and phase_k3_backward return theirs) and the shapes
+    that the bounds count."""
+    inputs, n_per_w, bounds, thr = asphere_inputs(torch, zoo, simulator, fused_trace, BENCH_WIDTH)
+    n, n_surf = inputs[0].shape[0], inputs[4].shape[0]
+    shape = dict(n_rays=n, n_surf=n_surf, n_w=inputs[7].shape[1], n_asph=inputs[8].shape[1],
+                 bounds=bounds)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ms = {}
+    fwd_err, bwd_err = {"k3_fwd": 0.0, "k3_fwd_full": 0.0}, (0.0, 0.0, 0.0)
+    with torch.no_grad():
+        for penalties in PENALTY_MODES:
+            mode = MODE_NAME[penalties]
+            fwd = lambda plain: run_k3_fwd(fused_asphere, inputs, penalties, True, n_per_w,
+                                           bounds, thr, plain)
+            ms[f"k3_fwd_{mode}"] = time_ms(torch, lambda: fwd(False))
+            ms[f"plain_k3_fwd_{mode}"] = time_ms(torch, lambda: fwd(True), runs=3, batch=2)
+            ok, masks, coords, pen_rel, max_abs = k3_fwd_compare(torch, fwd(False), fwd(True))
+            key = "k3_fwd_full" if penalties == "full" else "k3_fwd"
+            fwd_err[key] = max(fwd_err[key], max_abs)
+            check(ok, f"K3 forward vs plain at {n} rays, {mode} mode: masks bit-identical="
+                      f"{masks}, coordinates bit-identical={coords}, penalty sums within "
+                      f"{pen_rel:.2e} of their largest (limit {PEN_ROUNDINGS:.2e})")
+            cot = [torch.randn(n, device="cuda", generator=gen)
+                   for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+            bwd = lambda plain: run_k3_bwd(fused_asphere, inputs, cot, penalties, True, n_per_w,
+                                           bounds, thr, plain)
+            ms[f"k3_bwd_{mode}"] = time_ms(torch, lambda: bwd(False))
+            ms[f"plain_k3_bwd_{mode}"] = time_ms(torch, lambda: bwd(True), runs=3, batch=2)
+            ok, ray, par_abs, par_rel = k3_bwd_compare(torch, bwd(False), bwd(True))
+            bwd_err = tuple(map(max, bwd_err, (ray, par_abs, par_rel)))
+            check(ok, f"K3 backward vs plain at {n} rays, {mode} mode: per-ray cotangents "
+                      f"bit-identical (max deviation {ray:.3e}); parameter cotangents dz0, dc, "
+                      f"dkappa, dt, dmu, dasph{', dref_z' if mode == 'full' else ''} within "
+                      f"{par_rel:.2e} of their largest (limit {ONE_ROUNDING:.2e}; max absolute "
+                      f"deviation {par_abs:.3e})")
+    for full in (False, True):
+        opt, state = make_optimizer(zoo, simulator, LensOptimizer, "cuda", BENCH_WIDTH, full,
+                                    "double_gauss_asph")
+        holder = [state]
+
+        def step():
+            holder[0] = opt.step(holder[0])[0]
+        ms[f"asphere_optimizer_step_{'full' if full else 'lu'}"] = host_ms(torch, step)
+    for key, value in ms.items():
+        print(f"time {key}: {value:.4f} ms per call at {n} rays (aspherized double-Gauss, "
+              f"{n_surf} surfaces, K = {shape['n_asph']}, 10 Newton steps), card: {card}",
+              flush=True)
+    return ms, fwd_err, bwd_err, shape
+
+
+def k3_bound(shape, penalties, backward):
+    """(bound_ms, bound_by) of K3 forward or backward at the timed shape."""
+    n, n_surf, n_w, n_asph = shape["n_rays"], shape["n_surf"], shape["n_w"], shape["n_asph"]
+    n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
+    ops = k3_ops(penalties, n_surf, n_asph, 10, backward, n_sides)
+    if not backward:
+        return bound(n, ops, FWD_BYTES[penalties])
+    n_params = (1 + 3 * n_surf + n_surf * n_w + n_surf * n_asph
+                + (n_surf + 1 if penalties == "full" else 0))
+    return bound(n, ops, BWD_BYTES[penalties], 16 * n_params * -(-n // 256))
+
+
+def k3_entries(ms, shape, fwd_err, bwd_err, serve_launches, train_launches):
+    """The K3 entries of the kernels line: main numbers for the mode of the
+    aspheric Lu-loss training run, whose launches ``launches`` counts; the
+    other modes' and runs' numbers under their own keys. ``fwd_err`` and
+    ``bwd_err`` hold the deviations of the 442,368-ray phases and of the
+    timed width; each entry reports the largest."""
+    fwd_err = {k: max(e[k] for e in fwd_err) for k in fwd_err[0]}
+    bwd_err = tuple(map(max, *bwd_err))
+    def numbers(kind, penalties, suffix=""):
+        mode = MODE_NAME[penalties]
+        b_ms, b_by = k3_bound(shape, penalties, kind == "bwd")
+        return {f"ms{suffix}": ms[f"k3_{kind}_{mode}"],
+                f"plain_ms{suffix}": ms[f"plain_k3_{kind}_{mode}"],
+                f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by}
+    return [
+        {"name": "k3_fwd", "route": "cuda", "source": K3_FWD_SOURCE, "replaces": TPU_K3_FWD,
+         "launches": train_launches["Lu"][0], "max_abs_err": fwd_err["k3_fwd"],
+         **numbers("fwd", True), "library_ms": None, "launches_serving": serve_launches,
+         **numbers("fwd", False, "_plain")},
+        {"name": "k3_fwd_full", "route": "cuda", "source": K3_FWD_SOURCE, "replaces": TPU_K3_FWD,
+         "launches": train_launches["full"][0], "max_abs_err": fwd_err["k3_fwd_full"],
+         **numbers("fwd", "full"), "library_ms": None},
+        {"name": "k3_bwd", "route": "cuda", "source": K3_BWD_SOURCE, "replaces": TPU_K3_BWD,
+         "launches": train_launches["Lu"][1], "max_abs_err": bwd_err[0], **numbers("bwd", True),
+         "library_ms": None, "launches_full_loss": train_launches["full"][1],
+         "param_max_abs_err": bwd_err[1], "param_max_rel_err": bwd_err[2],
+         **numbers("bwd", False, "_plain"), **numbers("bwd", "full", "_full"),
+         "asphere_optimizer_step_lu_ms": ms["asphere_optimizer_step_lu"],
+         "asphere_optimizer_step_full_ms": ms["asphere_optimizer_step_full"]},
+    ]
+
+
 def ptxas_summary(path):
     """One line per kernel from the build's -Xptxas -v report."""
     lines, name, frame = [], None, ""
@@ -1043,7 +1515,7 @@ def ptxas_summary(path):
         if "Compiling entry function" in line:
             raw = line.split("'")[1]
             for short in ("k1_fwd_kernel", "k1_bwd_kernel", "k2_fwd_kernel", "k2_bwd_kernel",
-                          "partials_reduce"):
+                          "k3_fwd_kernel", "k3_bwd_kernel", "partials_reduce"):
                 if short in raw:
                     # The template arguments of the mangled name: I L<type><value>E ... E.
                     args = re.match(r"I((?:L[a-z]+\d+E)+)E", raw[raw.index(short) + len(short):])
@@ -1063,7 +1535,7 @@ def main():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
         return 1
     from torchoptics_tpu_torch import LensOptimizer, OpticalLoss, entry, simulator, zoo
-    from torchoptics_tpu_torch.ops import _kernels, fused_batch, fused_trace
+    from torchoptics_tpu_torch.ops import _kernels, fused_asphere, fused_batch, fused_trace
 
     card = card_line()
     print(f"card: {card} (nvidia-smi name, power.limit); "
@@ -1094,9 +1566,20 @@ def main():
     ms, errs, shape = phase_timing(torch, zoo, simulator, fused_trace, LensOptimizer, card)
     k2_ms, k2_shape = phase_k2_timing(torch, zoo, simulator, fused_trace, fused_batch,
                                       OpticalLoss, card)
+    with torch.no_grad():
+        k3_fwd_err = phase_k3_forward(torch, zoo, simulator, fused_trace, fused_asphere)
+    k3_bwd_err = phase_k3_backward(torch, zoo, simulator, fused_trace, fused_asphere)
+    phase_k3_is_k1(torch, zoo, simulator, fused_trace, fused_asphere)
+    k3_serve_launches = phase_k3_serve(torch, zoo, simulator, fused_trace, fused_asphere)
+    k3_train_launches = phase_k3_train(torch, zoo, simulator, fused_trace, fused_asphere,
+                                       LensOptimizer)
+    k3_ms, k3_fwd_err_bench, k3_bwd_err_bench, k3_shape = phase_k3_timing(
+        torch, zoo, simulator, fused_trace, fused_asphere, LensOptimizer, card)
     entries = kernel_entries(ms, errs, shape, fwd_err, bwd_err, serve_launches, train_launches)
     entries += k2_entries(k2_ms, k2_shape, k2_err, pop_serve_launches, gen_launches,
                           mixed_launches)
+    entries += k3_entries(k3_ms, k3_shape, (k3_fwd_err, k3_fwd_err_bench),
+                          (k3_bwd_err, k3_bwd_err_bench), k3_serve_launches, k3_train_launches)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ The CUDA kernel itself is checked against the plain version on a GPU by
 ``test_torch_kernels_cuda.py``.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -212,13 +213,23 @@ def test_trace_rays_fused_matches_unroll_engine():
 
 
 def test_fused_engine_refuses_what_it_cannot_trace():
+    """The fused engine traces the aspherized double-Gauss (kernel K3, its
+    plain version here), and still refuses aggregate stacks and double
+    precision."""
     specs, lens = zoo.build("double_gauss", device="cpu")
     cfg = simulator.SimulatorConfig(**CONFIG, trace_engine="fused").trace_config()
     with pytest.raises(NotImplementedError, match="aggregate"):
         trace.trace_rays(specs, lens, cfg, aggregate=("z",))
+    with pytest.raises(NotImplementedError, match="float32"):
+        trace.trace_rays(specs, lens, dataclasses.replace(cfg, double_precision=True))
     asph_specs, asph_lens = zoo.build("double_gauss_asph", device="cpu")
-    with pytest.raises(NotImplementedError, match="K3"):
-        trace.trace_rays(asph_specs, asph_lens, cfg)
+    res = trace.trace_rays(asph_specs, asph_lens, cfg)
+    assert res.x.shape == (1, 3, 64, 3) and res.stacks is None
+    assert bool(res.ray_ok.all()) and bool(torch.isfinite(res.y).all())
+    with pytest.raises(NotImplementedError, match="aggregate"):
+        trace.trace_rays(asph_specs, asph_lens, cfg, aggregate=("z",))
+    with pytest.raises(NotImplementedError, match="float32"):
+        trace.trace_rays(asph_specs, asph_lens, dataclasses.replace(cfg, double_precision=True))
     with pytest.raises(ValueError, match="plain"):
         fused_trace.prepare_fused_inputs(specs, lens, cfg,
                                          xy=(torch.zeros(1, 3, 4, 1), torch.zeros(1, 3, 4, 1)))

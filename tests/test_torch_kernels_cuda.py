@@ -14,7 +14,10 @@ parameter sums (double sums in another order than the plain version's
 float64 sums, rounded to float32) within 1e-5 of their largest magnitude; two launches on the
 same inputs agree bit for bit. K2, the population kernel pair, is held to
 the same bars per system (parameter sums within 2e-6 of each system's
-largest, penalty sums within 1e-6), and at B = 1 to K1 bit for bit.
+largest, penalty sums within 1e-6), and at B = 1 to K1 bit for bit. K3,
+the conic/asphere kernel pair, to the same bars on the masks, coordinates,
+penalty sums and per-ray cotangents, and its parameter sums within one
+float32 rounding of the plain version's float64 sums.
 """
 
 import math
@@ -297,3 +300,149 @@ def test_population_paths_on_gpu_match_cpu(cuda):
     want = torch.where(mask, out["cpu"][2], 0.0)
     assert float((torch.where(mask, out["cuda"][2], 0.0) - want).abs().max()) <= (
         1e-4 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# Kernel K3, the conic/asphere trace of one system.
+# ---------------------------------------------------------------------------
+
+# 8 fields x 32^2 pupil x 3 wavelengths = 24,576 rays.
+ASPH = dict(n_sampled_fields=8, n_pupil_rings=32, pupil_sampling="circular", n_ray_aiming_iter=1)
+# One float32 rounding of a parameter cotangent, relative to the largest.
+ONE_ROUNDING = 2.0 ** -23
+
+
+def _k3_inputs(device, c_scale):
+    """K3's inputs on the aspherized double-Gauss (c x 3 fails rays: the
+    sag-domain guard and non-convergence fire)."""
+    cfg = simulator.SimulatorConfig(**ASPH).trace_config()
+    specs, lens = zoo.build("double_gauss_asph", device=device)
+    lens = lens.replace(c=lens.c * c_scale)
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, _) = fused_trace.prepare_fused_inputs(specs, lens, cfg)
+    t = lens.t[0].detach()
+    vertex_z = torch.cumsum(t, 0)
+    ref_z = torch.cat((vertex_z, vertex_z[-1:]))
+    bounds = fused_trace._path_bounds(lens.structure, LOWER, UPPER)
+    return ((xp, yp, cyb, z0, lens.c[0].detach(), lens.kappa[0].detach(), t, mu,
+             lens.asph[0].detach(), ref_z), F * P, bounds)
+
+
+@pytest.mark.parametrize("c_scale", [1.0, 3.0])
+@pytest.mark.parametrize("allow_backward", [True, False])
+@pytest.mark.parametrize("penalties", PENALTY_MODES)
+def test_k3_matches_plain_versions(cuda, c_scale, allow_backward, penalties):
+    """K3 forward: masks and coordinates bit-identical, penalty sums within
+    1e-6 of their largest magnitude. K3 backward: per-ray cotangents
+    bit-identical, parameter cotangents within one float32 rounding of the
+    plain version's float64 sums, relative to each one's largest magnitude;
+    two launches bit-identical."""
+    from torchoptics_tpu_torch.ops import fused_asphere
+    inputs, n_per_w, bounds = _k3_inputs(cuda, c_scale)
+    ins = inputs if penalties == "full" else inputs[:9]
+    before = (fused_asphere.K3_FWD_LAUNCHES, fused_asphere.K3_BWD_LAUNCHES)
+    got = fused_asphere._launch_k3_fwd(ins, penalties, allow_backward, n_per_w, 10, bounds, THR)
+    want = fused_asphere.trace_fused_asphere_reference(*ins[:9], penalties, allow_backward,
+                                                       n_per_w, 10, inputs[9], bounds, THR)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cot = [torch.randn(inputs[0].shape[0], device=cuda, generator=gen)
+           for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+    g1 = fused_asphere._launch_k3_bwd(ins, cot, penalties, allow_backward, n_per_w, 10, bounds,
+                                      THR)
+    g2 = fused_asphere._launch_k3_bwd(ins, cot, penalties, allow_backward, n_per_w, 10, bounds,
+                                      THR)
+    gw = fused_asphere.trace_fused_asphere_backward_reference(
+        ins, cot, penalties, allow_backward, n_per_w, 10, bounds, THR)
+    torch.cuda.synchronize()
+    assert (fused_asphere.K3_FWD_LAUNCHES, fused_asphere.K3_BWD_LAUNCHES) == (before[0] + 1,
+                                                                              before[1] + 2)
+    assert len(got) == len(want) == {False: 6, True: 9, "full": 11}[penalties]
+    assert all(torch.equal(a, b) for a, b in zip(got[:6], want[:6]))
+    for a, b in zip(got[6:], want[6:]):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert len(g1) == len(gw) == (10 if penalties == "full" else 9)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2)), "two launches differ"
+    assert all(torch.equal(a, b) for a, b in zip(g1[:3], gw[:3]))
+    for a, b in zip(g1[3:], gw[3:]):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= ONE_ROUNDING * float(b.abs().max())
+    if c_scale == 3.0:
+        assert 0 < float(got[4].float().mean()) < 1
+
+
+def test_k3_refuses_bad_inputs(cuda):
+    from torchoptics_tpu_torch.ops import fused_asphere
+    x = torch.zeros(8, device=cuda)
+    c = torch.zeros(3, device=cuda)
+    mu = torch.ones(3, 2, device=cuda)
+    z0 = torch.zeros((), device=cuda)
+    asph = torch.zeros(3, 2, device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="asphere coefficients"):
+            fused_asphere.trace_fused_asphere(x, x, x, z0, c, c, c, mu,
+                                              torch.zeros(3, 9, device=cuda), False, True, 4)
+        with pytest.raises(ValueError, match="kappa"):
+            fused_asphere.trace_fused_asphere(x, x, x, z0, c, torch.zeros(2, device=cuda), c, mu,
+                                              asph, False, True, 4)
+        with pytest.raises(TypeError, match="float32"):
+            fused_asphere.trace_fused_asphere(x, x, x, z0, c, c.double(), c, mu, asph, False,
+                                              True, 4)
+
+
+def test_k3_without_asphere_terms_matches_k1(cuda):
+    """K3 with kappa = asph = 0 against K1 on the double-Gauss: masks
+    identical, coordinates within JAX's own K3-vs-K1 bar (1e-5 + 1e-4
+    relative)."""
+    from torchoptics_tpu_torch.ops import fused_asphere
+    inputs, n_per_w, bounds = _k1_inputs(cuda, 1.0)
+    xp, yp, cyb, z0, c, t, mu = inputs[:7]
+    k1 = fused_trace._launch_k1_fwd(inputs[:7], False, True, n_per_w, bounds, THR)
+    k3 = fused_asphere._launch_k3_fwd((xp, yp, cyb, z0, c, torch.zeros_like(c), t, mu,
+                                       torch.zeros(c.shape[0], 2, device=cuda)), False, True,
+                                      n_per_w, 10, bounds, THR)
+    torch.cuda.synchronize()
+    assert torch.equal(k1[4], k3[4]) and torch.equal(k1[5], k3[5])
+    ok = k1[4]
+    for a, b in zip(k3[:4], k1[:4]):
+        assert bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs())[ok].all())
+
+
+def test_asphere_paths_on_gpu_match_cpu(cuda):
+    """``do_ray_tracing`` (one K3 forward launch), ``compute_losses`` with
+    d/d(c, kappa, asph) (one K3 forward and one K3 backward launch) and one
+    ``LensOptimizer`` step on the aspherized double-Gauss, on the card and on
+    the CPU."""
+    from torchoptics_tpu_torch.ops import fused_asphere
+    cfg = simulator.SimulatorConfig(n_sampled_fields=5, n_pupil_rings=16,
+                                    pupil_sampling="circular", trace_engine="fused")
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        specs, lens = zoo.build("double_gauss_asph", device=device)
+        before = (fused_asphere.K3_FWD_LAUNCHES, fused_asphere.K3_BWD_LAUNCHES,
+                  fused_trace.K1_FWD_LAUNCHES)
+        with torch.no_grad():
+            _, loss = simulator.do_ray_tracing(specs, lens, cfg)
+        params = [p.clone().requires_grad_(True) for p in (lens.c, lens.kappa, lens.asph)]
+        total, _ = simulator.compute_losses(
+            specs, lens.replace(c=params[0], kappa=params[1], asph=params[2]), cfg)
+        grads = [g.cpu() for g in torch.autograd.grad(total, params)]
+        launches = (fused_asphere.K3_FWD_LAUNCHES - before[0],
+                    fused_asphere.K3_BWD_LAUNCHES - before[1],
+                    fused_trace.K1_FWD_LAUNCHES - before[2])
+        opt = LensOptimizer(specs=specs, config=cfg, learning_rate=1e-4,
+                            efl_target=float(lens.efl[0]),
+                            trainable=("c", "t", "g", "kappa", "asph"))
+        state, step_total, _ = opt.step(opt.init(lens))
+        out[device.type] = (loss, float(total.detach()), grads, launches, float(step_total),
+                            {k: v.detach().cpu() for k, v in state.params.items()})
+    assert out["cuda"][3] == (2, 1, 0) and out["cpu"][3] == (0, 0, 0)
+    for key, rtol in (("loss_unsup", 1e-5), ("penalty", 1e-5), ("rms", 2e-4)):
+        got, want = float(out["cuda"][0][key]), float(out["cpu"][0][key])
+        assert abs(got - want) <= rtol * abs(want), key
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1])
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert abs(out["cuda"][4] - out["cpu"][4]) <= 1e-5 * abs(out["cpu"][4])
+    assert {"kappa", "asph"} <= set(out["cuda"][5])
+    for k, v in out["cpu"][5].items():
+        assert float((out["cuda"][5][k] - v).abs().max()) <= 1e-6, k

@@ -240,12 +240,22 @@ def test_compute_losses_matches_jax(engine, jax_engine, jax_losses):
 
 
 def test_fused_compute_losses_refuses_batches_and_aspheres():
-    """An asphere still raises on the fused engine; a population runs (on
-    kernel K2's full mode): two copies of the flagship give its loss."""
-    cfg = simulator.SimulatorConfig(trace_engine="fused", **BASE)
+    """An asphere runs on the fused engine (kernel K3's full mode): its full
+    loss agrees with the pure-torch engine's (the two write the sag's slope
+    in forms equal in exact arithmetic) and its gradients are finite. A
+    population runs (on kernel K2's full mode): two copies of the flagship
+    give its loss."""
     specs, lens = zoo.build("double_gauss_asph", device="cpu")
-    with pytest.raises(NotImplementedError, match="K3"):
-        simulator.compute_losses(specs, lens, cfg)
+    cfg = simulator.SimulatorConfig(trace_engine="fused", **BASE)
+    kappa = lens.kappa.clone().requires_grad_(True)
+    total, loss = simulator.compute_losses(specs, lens.replace(kappa=kappa), cfg)
+    want_total, want = simulator.compute_losses(specs, lens, simulator.SimulatorConfig(**BASE))
+    assert set(loss) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(float(loss[k]), float(v), rtol=VALUE_RTOL[k], err_msg=k)
+    np.testing.assert_allclose(float(total), float(want_total), rtol=1e-5)
+    (grad,) = torch.autograd.grad(total, kappa)
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
     specs, lens = zoo.build("double_gauss", device="cpu")
     batch = convert.lens_from_numpy((5, 5), ("GAGGAAGGAGA",) * 2, lens.c.repeat(2, 1).numpy(),
                                     lens.t.repeat(2, 1).numpy(), lens.nd.repeat(2, 1).numpy(),

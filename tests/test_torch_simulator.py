@@ -124,9 +124,10 @@ def test_entry_evaluates_the_flagship():
 
 
 def test_fused_engine_refuses_batches_and_aspheres(port_lens):
-    """Aspheres and custom aggregates still raise on the fused engine; a
-    population runs (on kernel K2): two copies of the flagship give the
-    flagship's loss."""
+    """A population of aspheres and custom aggregates still raise on the
+    fused engine; one aspheric system runs (on kernel K3) and gives the
+    pure-torch engine's loss; a population runs (on kernel K2): two copies
+    of the flagship give the flagship's loss."""
     specs, lens = port_lens
     cfg = simulator.SimulatorConfig(**CONFIG, trace_engine="fused")
     pair = np.array([0, 0])
@@ -136,8 +137,12 @@ def test_fused_engine_refuses_batches_and_aspheres(port_lens):
     for key in RTOL:
         np.testing.assert_allclose(float(loss[key]), float(want[key]), rtol=1e-6, err_msg=key)
     asph_specs, asph_lens = zoo.build("double_gauss_asph", device="cpu")
-    with pytest.raises(NotImplementedError, match="K3"):
-        simulator.do_ray_tracing(asph_specs, asph_lens, cfg)
+    _, asph_loss = simulator.do_ray_tracing(asph_specs, asph_lens, cfg)
+    _, asph_want = simulator.do_ray_tracing(asph_specs, asph_lens,
+                                            dataclasses.replace(cfg, trace_engine="unroll"))
+    for key in RTOL:
+        np.testing.assert_allclose(float(asph_loss[key]), float(asph_want[key]), rtol=RTOL[key],
+                                   err_msg=key)
     with pytest.raises(NotImplementedError, match="K4"):
         simulator.do_ray_tracing(asph_specs[pair], asph_lens[pair], cfg)
     with pytest.raises(NotImplementedError, match="aggregate"):

@@ -1,0 +1,662 @@
+// Device math of the fused conic/asphere trace: K3 (one system,
+// fused_asphere_fwd.cu / fused_asphere_bwd.cu). The population kernel K4
+// will supply only its indexing, as K2 does over trace_common.cuh.
+//
+// One copy of: the asphere tables in shared memory, the sag and its slope,
+// their closed-form partials, the Newton solve (the sphere guess, then
+// n_iter steps), the rest of a surface step from the pre-polish Newton point
+// (the polish step, the failure masks, Snell's law with the true normal) and
+// its adjoint, the per-ray forward trace and the per-ray backward pass. From
+// trace_common.cuh it takes theta_norm and its adjoint, the path hinge and
+// its gradient, the warp sums in double, the block's column of the partial
+// sums and their fixed-order reduction.
+//
+// The surface math is pallas_asphere.py's (_sag_terms, _g_partials,
+// _newton_dist, _fwd_surface_a, _bwd_surface_a), with u = (1+k)c^2 r^2 and
+// w = sqrt(1 - u):
+//   sag = c r^2/(1+w) + sum_j a_j (r^2)^(j+2),  g = dsag/dr^2 = c/(2w) + ...
+// Integer powers of r^2 are chains of products, p_{j+1} = p_j r^2, and
+// rsqrt is 1/sqrtf, the same as in the plain PyTorch versions
+// (ops/fused_asphere.py); every product and sum is written out in their
+// order, and the kernels are built with -fmad=false and no fast-math, so the
+// masks (the sag-domain guard 1 - u < EPS, the convergence test
+// |F| > NEWTON_TOL among them), the coordinates and the per-ray cotangents
+// agree with them bit for bit.
+//
+// MASKED switches on the surface mask of padded populations, with the
+// semantics of trace_common.cuh: the backward-ray test at surface k gated by
+// mask[k-1] and the last one by mask[S-1], the Lu sums and the angle hinge
+// and their cotangents by mask[k]; padded surfaces are traced. With MASKED
+// false the arithmetic is K3's.
+
+#pragma once
+
+#include "trace_common.cuh"
+
+namespace {
+
+constexpr int MAX_ASPH = 8;
+constexpr float NEWTON_TOL = 1e-5f;
+
+// One system's surface tables, read once per block into shared memory.
+template <bool FULL>
+struct AsphTables {
+  float c[MAX_SURF];
+  float kappa[MAX_SURF];
+  float t[MAX_SURF];
+  float mu[MAX_SURF * MAX_W];
+  float a[MAX_SURF * MAX_ASPH];  // surface k's coefficients at a + k * n_asph
+  float ref[FULL ? MAX_SURF + 1 : 1];
+  float lo[FULL ? MAX_SURF : 1];
+  float hi[FULL ? MAX_SURF : 1];
+  bool mask[MAX_SURF];
+
+  // All threads of the block call it; the caller synchronizes after it.
+  // ref_z (S+1), the bounds lo, hi (S) and the mask (S) may be null where
+  // the mode or the population does not use them.
+  __device__ void load(const float* c_, const float* kappa_, const float* t_,
+                       const float* mu_, const float* a_, const float* ref_,
+                       const float* lo_, const float* hi_, const bool* mask_,
+                       int n_surf, int n_w, int n_asph) {
+    for (int j = threadIdx.x; j < n_surf; j += blockDim.x) {
+      c[j] = c_[j];
+      kappa[j] = kappa_[j];
+      t[j] = t_[j];
+      if (mask_) mask[j] = mask_[j];
+      if (FULL) {
+        lo[j] = lo_[j];
+        hi[j] = hi_[j];
+      }
+    }
+    if (FULL)
+      for (int j = threadIdx.x; j <= n_surf; j += blockDim.x) ref[j] = ref_[j];
+    for (int j = threadIdx.x; j < n_surf * n_w; j += blockDim.x) mu[j] = mu_[j];
+    for (int j = threadIdx.x; j < n_surf * n_asph; j += blockDim.x) a[j] = a_[j];
+  }
+};
+
+// One surface's parameters as a thread reads them.
+struct Surf {
+  float c, kappa, t, mu;
+  const float* a;
+  int n_asph;
+};
+
+// sag, g = dsag/dr^2, w, u and the domain guard at r^2.
+struct Sag {
+  float sag, g, w, u;
+  bool guard;
+};
+
+__device__ __forceinline__ Sag sag_terms(const Surf& p, float r2) {
+  Sag q;
+  const float beta = (1.0f + p.kappa) * p.c * p.c;
+  q.u = beta * r2;
+  q.guard = 1.0f - q.u < EPS;
+  q.w = sqrtf(q.guard ? 1.0f : 1.0f - q.u);
+  q.sag = p.c * r2 / (1.0f + q.w);
+  q.g = p.c / (2.0f * q.w);
+  float pw = r2;  // (r^2)^(j+1)
+#pragma unroll 1
+  for (int j = 0; j < p.n_asph; ++j) {
+    const float pw2 = pw * r2;  // (r^2)^(j+2)
+    q.sag = q.sag + p.a[j] * pw2;
+    q.g = q.g + p.a[j] * (float)(j + 2) * pw;
+    pw = pw2;
+  }
+  return q;
+}
+
+// h = dg/dr^2 and the partials of g and the sag in c and kappa at r^2; the
+// partials in a_j are powers of r^2.
+struct GPart {
+  float h, g_c, g_kap, sag_c, sag_kap;
+};
+
+__device__ __forceinline__ GPart g_partials(const Surf& p, float r2, float w, float u) {
+  GPart q;
+  const float c = p.c;
+  const float beta = (1.0f + p.kappa) * c * c;
+  const float w3 = w * w * w;
+  q.h = c * beta / (4.0f * w3);
+  q.g_c = 1.0f / (2.0f * w) + u / (2.0f * w3);
+  q.g_kap = c * c * c * r2 / (4.0f * w3);
+  const float opw = 1.0f + w;
+  q.sag_c = r2 / opw + u * r2 / (w * opw * opw);
+  q.sag_kap = c * c * c * r2 * r2 / (2.0f * w * opw * opw);
+  float pw = r2;  // (r^2)^j for j >= 1
+#pragma unroll 1
+  for (int j = 0; j < p.n_asph; ++j) {
+    const float term = p.a[j] * (float)(j + 2) * (float)(j + 1);
+    if (j == 0) {
+      q.h = q.h + term;
+    } else {
+      q.h = q.h + term * pw;
+      pw = pw * r2;
+    }
+  }
+  return q;
+}
+
+// F(s) = z(s) - sag(r^2(s)), F'(s) and the domain guard at s.
+__device__ __forceinline__ void f_fp(const Surf& p, float x, float y, float z, float cx,
+                                     float cy, float cz, float s, float& f, float& fp,
+                                     bool& guard) {
+  const float xs = x + s * cx;
+  const float ys = y + s * cy;
+  const float r2 = xs * xs + ys * ys;
+  const Sag q = sag_terms(p, r2);
+  f = (z + s * cz) - q.sag;
+  fp = cz - 2.0f * q.g * (xs * cx + ys * cy);
+  guard = q.guard;
+}
+
+// The pre-polish Newton point: the closed-form sphere guess (the vertex
+// plane where it misses), then n_iter Newton steps.
+__device__ __forceinline__ float newton_point(const Surf& p, float x, float y, float z,
+                                              float cx, float cy, float cz, int n_iter) {
+  const float e = -(x * cx + y * cy + z * cz);
+  const float mz = z + e * cz;
+  const float m2 = x * x + y * y + z * z - e * e;
+  const float temp = p.c * m2 - 2.0f * mz;
+  const float cos2_s = cz * cz - p.c * temp;
+  const bool fail_s = cos2_s - EPS < 0.0f;
+  const float cos_s = sqrtf(fail_s ? 1.0f : cos2_s);
+  const float dist_s = e + temp / (cz + cos_s);
+  const bool plane_ok = fabsf(cz) > EPS;
+  const float plane = plane_ok ? -z / cz : 0.0f;
+  float s = fail_s ? plane : dist_s;
+#pragma unroll 1
+  for (int i = 0; i < n_iter; ++i) {
+    float f, fp;
+    bool guard;
+    f_fp(p, x, y, z, cx, cy, cz, s, f, fp, guard);
+    const float fp_s = fabsf(fp) > EPS ? fp : (fp >= 0.0f ? EPS : -EPS);
+    s = s - f / fp_s;
+  }
+  return s;
+}
+
+// The locals of one surface step that its adjoint reads.
+struct LocalsA {
+  float f, fp_safe, dist, delta_z, xs, ys, r2, g, w, u, inv_norm, dots, cosr, cos2, cs;
+  float xB, yB, cxB, cyB, r2B, gB, wB, uB, inv_normB, cos2p, csp, gsn, nx, ny;
+  float cxC, cyC, czC;
+  bool stationary, fail1, ok1, fail2a, fail2;
+};
+
+// The rest of one surface step from the pre-polish point s_pre
+// (pallas_asphere._fwd_surface_a): the polish step, the failure masks, the
+// hit point, Snell's law with the true normal and the zeroing of failed
+// lanes; advances the state in place.
+__device__ __forceinline__ void surface_finish(const Surf& p, float s_pre, float& x, float& y,
+                                               float& z, float& cx, float& cy, float& cz,
+                                               bool& ok, LocalsA& L) {
+  float fp;
+  bool guard_pre;
+  f_fp(p, x, y, z, cx, cy, cz, s_pre, L.f, fp, guard_pre);
+  L.stationary = fabsf(fp) < EPS;
+  L.fp_safe = L.stationary ? 1.0f : fp;
+  L.dist = s_pre - L.f / L.fp_safe;
+  const bool not_conv = fabsf(L.f) > NEWTON_TOL;
+
+  L.xs = x + L.dist * cx;
+  L.ys = y + L.dist * cy;
+  L.delta_z = L.dist * cz;
+  const float zA = z + L.delta_z;
+  L.r2 = L.xs * L.xs + L.ys * L.ys;
+  const Sag hit = sag_terms(p, L.r2);
+  L.g = hit.g;
+  L.w = hit.w;
+  L.u = hit.u;
+  L.inv_norm = 1.0f / sqrtf(1.0f + 4.0f * L.r2 * L.g * L.g);
+  L.dots = L.xs * cx + L.ys * cy;
+  L.cosr = (cz - 2.0f * L.g * L.dots) * L.inv_norm;
+  L.cos2 = L.cosr * L.cosr;
+  L.fail1 = guard_pre || hit.guard || L.stationary || not_conv || (L.cos2 - EPS < 0.0f);
+  L.cs = sqrtf(L.fail1 ? 1.0f : L.cos2);
+
+  L.ok1 = ok && !L.fail1;
+  L.xB = L.ok1 ? L.xs : 0.0f;
+  L.yB = L.ok1 ? L.ys : 0.0f;
+  const float zB = L.ok1 ? zA : 0.0f;
+  L.cxB = L.ok1 ? cx : 0.0f;
+  L.cyB = L.ok1 ? cy : 0.0f;
+
+  L.r2B = L.xB * L.xB + L.yB * L.yB;
+  const Sag snell = sag_terms(p, L.r2B);
+  L.gB = snell.g;
+  L.wB = snell.w;
+  L.uB = snell.u;
+  L.inv_normB = 1.0f / sqrtf(1.0f + 4.0f * L.r2B * L.gB * L.gB);
+  const float muk = p.mu;
+  L.cos2p = 1.0f - muk * muk * (1.0f - L.cs * L.cs);
+  L.fail2a = L.cos2p - EPS < 0.0f;
+  L.csp = sqrtf(L.fail2a ? 1.0f : L.cos2p);
+  L.gsn = L.csp - muk * L.cs;
+  L.nx = 2.0f * L.xB * L.gB * L.inv_normB;
+  L.ny = 2.0f * L.yB * L.gB * L.inv_normB;
+  L.cxC = muk * L.cxB - L.gsn * L.nx;
+  L.cyC = muk * L.cyB - L.gsn * L.ny;
+  const float cz2 = 1.0f - (L.cxC * L.cxC + L.cyC * L.cyC);
+  L.fail2 = L.fail2a || (cz2 - EPS < 0.0f);
+  L.czC = sqrtf(L.fail2 ? 1.0f : cz2);
+
+  const bool ok2 = L.ok1 && !L.fail2;
+  x = ok2 ? L.xB : 0.0f;
+  y = ok2 ? L.yB : 0.0f;
+  z = (ok2 ? zB : 0.0f) - p.t;
+  cx = ok2 ? L.cxC : 0.0f;
+  cy = ok2 ? L.cyC : 0.0f;
+  cz = ok2 ? L.czC : 1.0f;
+  ok = ok2;
+}
+
+// The parameter terms of one ray at one surface; the a_j terms are built
+// from dgB, dg, dsag, dgp and the three radii by the caller.
+struct SurfGrad {
+  float dc, dkap, dt, dmu;
+  float dgB, dg, dsag, dgp, r2p;
+};
+
+// The adjoint of one surface step (pallas_asphere._bwd_surface_a) through
+// the polish step, with the Newton point s_pre held constant. (px .. pcz) is
+// the pre-surface state; (dx .. dcz) the post-surface cotangents on entry
+// and the pre-surface ones on return. dcos2_extra and dcos2p_extra inject
+// the penalty cotangents on the raw cos^2 locals where LU is set.
+template <bool LU>
+__device__ __forceinline__ SurfGrad surface_adjoint(const Surf& p, float s_pre, float px,
+                                                    float py, float pcx, float pcy, float pcz,
+                                                    const LocalsA& L, float dcos2_extra,
+                                                    float dcos2p_extra, float& dx, float& dy,
+                                                    float& dz, float& dcx, float& dcy,
+                                                    float& dcz) {
+  SurfGrad r;
+  const float muk = p.mu;
+  const bool ok2 = L.ok1 && !L.fail2;
+  r.dt = -dz;
+  // reset2 and the cz renormalization
+  const float dczC = ok2 ? dcz : 0.0f;
+  const float dcz2 = L.fail2 ? 0.0f : dczC / (2.0f * L.czC);
+  const float dcxC = (ok2 ? dcx : 0.0f) - 2.0f * L.cxC * dcz2;
+  const float dcyC = (ok2 ? dcy : 0.0f) - 2.0f * L.cyC * dcz2;
+  // Snell: cxC = mu cxB - gsn nx
+  float dxB = ok2 ? dx : 0.0f;
+  float dyB = ok2 ? dy : 0.0f;
+  const float dzB = ok2 ? dz : 0.0f;
+  const float dcxB = muk * dcxC;
+  const float dcyB = muk * dcyC;
+  r.dmu = dcxC * L.cxB + dcyC * L.cyB;
+  const float dgsn = -(dcxC * L.nx + dcyC * L.ny);
+  const float dnx = -dcxC * L.gsn;
+  const float dny = -dcyC * L.gsn;
+  // nx = 2 xB gB inv_normB, inv_normB = 1/sqrt(1 + 4 r2B gB^2)
+  dxB = dxB + dnx * 2.0f * L.gB * L.inv_normB;
+  dyB = dyB + dny * 2.0f * L.gB * L.inv_normB;
+  r.dgB = (dnx * L.xB + dny * L.yB) * 2.0f * L.inv_normB;
+  const float dinv_normB = (dnx * L.xB + dny * L.yB) * 2.0f * L.gB;
+  const float dnorm2B = dinv_normB * (-0.5f) * (L.inv_normB * L.inv_normB * L.inv_normB);
+  float dr2B = dnorm2B * 4.0f * L.gB * L.gB;
+  r.dgB = r.dgB + dnorm2B * 8.0f * L.r2B * L.gB;
+  // gsn = cosp - mu cos
+  const float dcosp = dgsn;
+  r.dmu = r.dmu - dgsn * L.cs;
+  float dcos = -dgsn * muk;
+  float dcos2p = L.fail2a ? 0.0f : dcosp / (2.0f * L.csp);
+  if (LU) dcos2p = dcos2p + dcos2p_extra;
+  r.dmu = r.dmu + dcos2p * (-2.0f * muk * (1.0f - L.cs * L.cs));
+  dcos = dcos + dcos2p * (2.0f * muk * muk * L.cs);
+  // gB(r2B; c, kappa, a)
+  const GPart qB = g_partials(p, L.r2B, L.wB, L.uB);
+  r.dc = r.dgB * qB.g_c;
+  r.dkap = r.dgB * qB.g_kap;
+  dr2B = dr2B + r.dgB * qB.h;
+  dxB = dxB + 2.0f * L.xB * dr2B;
+  dyB = dyB + 2.0f * L.yB * dr2B;
+
+  // reset1 (czB is dead: Snell renormalizes cz)
+  float dxs = L.ok1 ? dxB : 0.0f;
+  float dys = L.ok1 ? dyB : 0.0f;
+  const float dzA = L.ok1 ? dzB : 0.0f;
+  dcx = L.ok1 ? dcxB : 0.0f;
+  dcy = L.ok1 ? dcyB : 0.0f;
+
+  // cos = sqrt(cos2), cos2 = cosr^2, cosr = (cz - 2 g dots) inv_norm
+  float dcos2 = L.fail1 ? 0.0f : dcos / (2.0f * L.cs);
+  if (LU) dcos2 = dcos2 + dcos2_extra;
+  const float dcosr = 2.0f * L.cosr * dcos2;
+  const float dFsv = dcosr * L.inv_norm;
+  const float dinv_norm = dcosr * (pcz - 2.0f * L.g * L.dots);
+  const float dnorm2 = dinv_norm * (-0.5f) * (L.inv_norm * L.inv_norm * L.inv_norm);
+  float dr2 = dnorm2 * 4.0f * L.g * L.g;
+  r.dg = dnorm2 * 8.0f * L.r2 * L.g;
+  dcz = dFsv;
+  r.dg = r.dg - dFsv * 2.0f * L.dots;
+  const float ddots = -dFsv * 2.0f * L.g;
+  dxs = dxs + ddots * pcx;
+  dcx = dcx + ddots * L.xs;
+  dys = dys + ddots * pcy;
+  dcy = dcy + ddots * L.ys;
+  // g(r2; c, kappa, a) at the hit point
+  const GPart qh = g_partials(p, L.r2, L.w, L.u);
+  r.dc = r.dc + r.dg * qh.g_c;
+  r.dkap = r.dkap + r.dg * qh.g_kap;
+  dr2 = dr2 + r.dg * qh.h;
+  dxs = dxs + 2.0f * L.xs * dr2;
+  dys = dys + 2.0f * L.ys * dr2;
+
+  // xs = x + dist cx, zA = z + dist cz
+  const float ddist = dxs * pcx + dys * pcy + dzA * pcz;
+  dx = dxs;
+  dy = dys;
+  dz = dzA;
+  dcx = dcx + dxs * L.dist;
+  dcy = dcy + dys * L.dist;
+  dcz = dcz + dzA * L.dist;
+
+  // polish: dist = s_pre - f/fp_safe, s_pre constant
+  const float df = -ddist / L.fp_safe;
+  const float dfp = L.stationary ? 0.0f : ddist * L.f / (L.fp_safe * L.fp_safe);
+  // f and fp were evaluated at s_pre: that point's locals.
+  const float xsp = px + s_pre * pcx;
+  const float ysp = py + s_pre * pcy;
+  r.r2p = xsp * xsp + ysp * ysp;
+  const Sag qp = sag_terms(p, r.r2p);
+  const GPart gp = g_partials(p, r.r2p, qp.w, qp.u);
+  const float dotsp = xsp * pcx + ysp * pcy;
+  // f = (z + s_pre cz) - sag(r2p)
+  dz = dz + df;
+  dcz = dcz + df * s_pre;
+  r.dsag = -df;
+  r.dc = r.dc + r.dsag * gp.sag_c;
+  r.dkap = r.dkap + r.dsag * gp.sag_kap;
+  float dr2p = r.dsag * qp.g;
+  // fp = cz - 2 g_p dotsp
+  dcz = dcz + dfp;
+  r.dgp = -dfp * 2.0f * dotsp;
+  const float ddotsp = -dfp * 2.0f * qp.g;
+  r.dc = r.dc + r.dgp * gp.g_c;
+  r.dkap = r.dkap + r.dgp * gp.g_kap;
+  dr2p = dr2p + r.dgp * gp.h;
+  const float dxsp = 2.0f * xsp * dr2p + ddotsp * pcx;
+  const float dysp = 2.0f * ysp * dr2p + ddotsp * pcy;
+  dcx = dcx + ddotsp * xsp;
+  dcy = dcy + ddotsp * ysp;
+  dx = dx + dxsp;
+  dy = dy + dysp;
+  dcx = dcx + dxsp * s_pre;
+  dcy = dcy + dysp * s_pre;
+  return r;
+}
+
+template <bool FULL>
+__device__ __forceinline__ Surf surf_of(const AsphTables<FULL>& s, int k, int n_w, int w,
+                                        int n_asph) {
+  return Surf{s.c[k], s.kappa[k], s.t[k], s.mu[k * n_w + w], s.a + k * n_asph, n_asph};
+}
+
+// The forward trace of one ray of wavelength column w: launch at the
+// entrance pupil (xp, yp, cy, z0), every surface with its backward-ray
+// bookkeeping (or removal) and the penalty sums of the mode (MODE: 0 plain,
+// 1 Lu, 2 full), then the transfer to the image plane
+// (pallas_asphere._fwd_kernel_a).
+template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
+__device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE == 2>& s, int n_surf,
+                                              int n_w, int n_asph, int n_iter, int w,
+                                              float angle_thr, float x, float y, float cy,
+                                              float z) {
+  constexpr bool LU = MODE >= 1;
+  constexpr bool FULL = MODE == 2;
+  float cx = 0.0f;
+  float cz = sqrtf(1.0f - cy * cy);
+  bool ok = true;
+  bool bw = false;
+  float pth = 0.0f, ptp = 0.0f, pz = 0.0f, ppath = 0.0f, pang = 0.0f;
+  float z_prev = 0.0f;
+
+  for (int k = 0; k < n_surf; ++k) {
+    const Surf p = surf_of(s, k, n_w, w, n_asph);
+    const float s_pre = newton_point(p, x, y, z, cx, cy, cz, n_iter);
+    LocalsA L;
+    surface_finish(p, s_pre, x, y, z, cx, cy, cz, ok, L);
+
+    // Backward-ray bookkeeping, skipping the pupil -> first-surface leg and
+    // the legs that leave a padded surface.
+    if (k > 0 && (!MASKED || s.mask[k - 1])) {
+      const bool went_bw = (L.delta_z < 0.0f) && L.ok1;
+      if (ALLOW_BACKWARD) {
+        bw = bw || went_bw;
+      } else if (went_bw) {
+        ok = false;
+        x = 0.0f;
+        y = 0.0f;
+        z = -p.t;
+        cx = 0.0f;
+        cy = 0.0f;
+        cz = 1.0f;
+      }
+    }
+    const bool valid = !MASKED || s.mask[k];
+    if (LU && valid) {
+      pth = pth + theta_norm(L.cos2, ok);
+      ptp = ptp + theta_norm(L.cos2p, ok);
+      pz = pz + fmaxf(z, 0.0f);
+    }
+    if (FULL) {
+      if (valid)
+        pang = pang + fmaxf(angle_thr - L.cos2, 0.0f) + fmaxf(angle_thr - L.cos2p, 0.0f);
+      if (k > 0) {
+        const float delta = (z + s.ref[k]) - (z_prev + s.ref[k - 1]);
+        ppath = ppath + hinge(delta, s.lo[k - 1], s.hi[k - 1]);
+      }
+      z_prev = z;
+    }
+  }
+  if (FULL) {
+    // The image-plane entry: ref_z[S] repeats the last vertex.
+    const float delta = s.ref[n_surf] - (z_prev + s.ref[n_surf - 1]);
+    ppath = ppath + hinge(delta, s.lo[n_surf - 1], s.hi[n_surf - 1]);
+  }
+
+  // Transfer to the image plane.
+  const float delta_z = -z;
+  const float dist = delta_z / cz;
+  x = x + dist * cx;
+  y = y + dist * cy;
+  const bool went_bw = (delta_z < 0.0f) && ok && (!MASKED || s.mask[n_surf - 1]);
+  if (ALLOW_BACKWARD) {
+    bw = bw || went_bw;
+  } else {
+    ok = ok && !went_bw;
+  }
+  return RayOut{x, y, cx, cy, ok, bw, pth, ptp, pz, ppath, pang};
+}
+
+// Parameters of one system in the partials and the result:
+// [dz0 | dc (S) | dkappa (S) | dt (S) | dmu (S x W) | da (S x K) | dref_z (S+1,
+// full mode only)].
+__host__ __device__ __forceinline__ int n_params_a(int mode, int n_surf, int n_w, int n_asph) {
+  return 1 + 3 * n_surf + n_surf * n_w + n_surf * n_asph + (mode == 2 ? n_surf + 1 : 0);
+}
+
+// The backward pass of one ray (pallas_asphere._bwd_kernel_a): the forward
+// surface by surface, stashing the 6 pre-surface state values, the
+// pre-polish Newton point s_pre and one ok bit per surface; the
+// image-transfer adjoint; then the surfaces in reverse, each one's locals
+// recomputed from its stash by surface_finish (the Newton steps do not run
+// again: s_pre is a constant of the adjoint), the penalty cotangents
+// injected, the killed lanes cut, and surface_adjoint applied. The per-ray
+// cotangents of xp, yp, cy come back in dxp, dyp, dcyp. The parameter terms
+// are summed over the warp in double and written by lane 0 into the warp's
+// row `part` of shared memory, in the layout of n_params_a; `part` starts
+// zeroed. `active` is false on threads past the end, which trace a copy of a
+// real ray and contribute zero so that every lane takes part in the
+// shuffles; w_first and w_last are the warp's first and last wavelength
+// columns.
+template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
+__device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE == 2>& s, int n_surf, int n_w,
+                                          int n_asph, int n_iter, float angle_thr, bool active,
+                                          int w, float xp, float yp, float cy0, float z0,
+                                          const RayCot& in, double* part, int w_first,
+                                          int w_last, float& dxp, float& dyp, float& dcyp) {
+  constexpr bool LU = MODE >= 1;
+  constexpr bool FULL = MODE == 2;
+  const int lane = threadIdx.x & 31;
+  const int off_c = 1, off_kap = 1 + n_surf, off_t = 1 + 2 * n_surf;
+  const int off_mu = 1 + 3 * n_surf, off_a = off_mu + n_surf * n_w;
+  const int off_ref = off_a + n_surf * n_asph;
+  auto kills = [&](int k) { return !ALLOW_BACKWARD && k > 0 && (!MASKED || s.mask[k - 1]); };
+
+  // ---- forward, stashing the pre-surface states and Newton points ----
+  float st[MAX_SURF][7];
+  uint64_t ok_bits = 0;
+  float x = xp, y = yp, z = z0, cx = 0.0f, cy = cy0;
+  const float cz0 = sqrtf(1.0f - cy0 * cy0);
+  float cz = cz0;
+  bool ok = true;
+  for (int k = 0; k < n_surf; ++k) {
+    const Surf p = surf_of(s, k, n_w, w, n_asph);
+    st[k][0] = x;
+    st[k][1] = y;
+    st[k][2] = z;
+    st[k][3] = cx;
+    st[k][4] = cy;
+    st[k][5] = cz;
+    if (ok) ok_bits |= 1ull << k;
+    const float s_pre = newton_point(p, x, y, z, cx, cy, cz, n_iter);
+    st[k][6] = s_pre;
+    LocalsA L;
+    surface_finish(p, s_pre, x, y, z, cx, cy, cz, ok, L);
+    if (kills(k) && L.delta_z < 0.0f && L.ok1) {
+      ok = false;
+      x = 0.0f;
+      y = 0.0f;
+      z = -p.t;
+      cx = 0.0f;
+      cy = 0.0f;
+      cz = 1.0f;
+    }
+  }
+  const float z_end = z;
+
+  // ---- image-transfer adjoint ----
+  const float dist_f = -z / cz;
+  float dcx = in.dcx + in.dx * dist_f;
+  float dcy = in.dcy + in.dy * dist_f;
+  const float ddist_f = in.dx * cx + in.dy * cy;
+  float dz = -ddist_f / cz;
+  float dcz = ddist_f * (z / (cz * cz));
+  float dx = in.dx;
+  float dy = in.dy;
+
+  // z after surface m (the stash holds pre-surface states).
+  auto zpost = [&](int m) { return m + 1 < n_surf ? st[m + 1][2] : z_end; };
+  // dppath * d(hinge_j)/d(delta_j) for path gap j.
+  auto hinge_cot = [&](int j) {
+    const float delta =
+        j == n_surf - 1
+            ? s.ref[n_surf] - (zpost(n_surf - 1) + s.ref[n_surf - 1])
+            : (zpost(j + 1) + s.ref[j + 1]) - (zpost(j) + s.ref[j]);
+    return in.dppath * hinge_grad(delta, s.lo[j], s.hi[j]);
+  };
+
+  // ---- reverse surface loop ----
+  for (int k = n_surf - 1; k >= 0; --k) {
+    const Surf p = surf_of(s, k, n_w, w, n_asph);
+    const float px = st[k][0], py = st[k][1];
+    const float pcx = st[k][3], pcy = st[k][4], pcz = st[k][5];
+    const float s_pre = st[k][6];
+    LocalsA L;
+    {
+      float x1 = px, y1 = py, z1 = st[k][2], cx1 = pcx, cy1 = pcy, cz1 = pcz;
+      bool ok1 = (ok_bits >> k) & 1ull;
+      surface_finish(p, s_pre, x1, y1, z1, cx1, cy1, cz1, ok1, L);
+    }
+    const bool kill = kills(k) && L.delta_z < 0.0f && L.ok1;
+    const bool ok2 = L.ok1 && !L.fail2;
+    const bool valid = !MASKED || s.mask[k];
+
+    float dcos2_extra = 0.0f, dcos2p_extra = 0.0f, hp = 0.0f;
+    if (LU) {
+      const bool ok_end = ok2 && !kill;
+      // pen_z += relu(z after surface k): into the incoming z adjoint.
+      dz = dz + in.dpz * ((zpost(k) > 0.0f && valid) ? 1.0f : 0.0f);
+      dcos2_extra = valid ? theta_norm_adjoint(L.cos2, ok_end, in.dpth) : 0.0f;
+      dcos2p_extra = valid ? theta_norm_adjoint(L.cos2p, ok_end, in.dptp) : 0.0f;
+    }
+    if (FULL) {
+      // z after surface k enters gap k-1 (+) and gap k (-).
+      hp = hinge_cot(k);
+      dz = dz - hp;
+      if (k > 0) dz = dz + hinge_cot(k - 1);
+      dcos2_extra = dcos2_extra - (valid ? in.dpang * (L.cos2 < angle_thr ? 1.0f : 0.0f) : 0.0f);
+      dcos2p_extra =
+          dcos2p_extra - (valid ? in.dpang * (L.cos2p < angle_thr ? 1.0f : 0.0f) : 0.0f);
+    }
+    float dt_kill = 0.0f;
+    if (kill) {
+      // Killed lanes got z = -t (dz flows to dt) and a zeroed state.
+      dt_kill = -dz;
+      dx = 0.0f;
+      dy = 0.0f;
+      dz = 0.0f;
+      dcx = 0.0f;
+      dcy = 0.0f;
+      dcz = 0.0f;
+    }
+
+    const SurfGrad r = surface_adjoint<LU>(p, s_pre, px, py, pcx, pcy, pcz, L, dcos2_extra,
+                                           dcos2p_extra, dx, dy, dz, dcx, dcy, dcz);
+
+    // ---- this surface's parameter terms, reduced over the warp ----
+    const double r_c = warp_sum(active ? r.dc : 0.0f);
+    const double r_kap = warp_sum(active ? r.dkap : 0.0f);
+    const double r_t = warp_sum(active ? r.dt + dt_kill : 0.0f);
+    if (lane == 0) {
+      part[off_c + k] = r_c;
+      part[off_kap + k] = r_kap;
+      part[off_t + k] = r_t;
+    }
+    for (int wv = w_first; wv <= w_last; ++wv) {
+      const double r_mu = warp_sum(active && w == wv ? r.dmu : 0.0f);
+      if (lane == 0) part[off_mu + k * n_w + wv] = r_mu;
+    }
+    // dsag/da_j = (r^2)^(j+2), dg/da_j = (j+2) (r^2)^(j+1), at the Snell
+    // point, the hit point and the Newton point, in that order.
+    float pB = L.r2B, ph = L.r2, pp = r.r2p;  // (r^2)^(j+1)
+    for (int j = 0; j < n_asph; ++j) {
+      const float f2 = (float)(j + 2);
+      const float pp2 = pp * r.r2p;
+      const float da = r.dgB * f2 * pB + r.dg * f2 * ph + r.dsag * pp2 + r.dgp * f2 * pp;
+      const double r_a = warp_sum(active ? da : 0.0f);
+      if (lane == 0) part[off_a + k * n_asph + j] = r_a;
+      pB = pB * L.r2B;
+      ph = ph * L.r2;
+      pp = pp2;
+    }
+    if (FULL) {
+      const double r_ref = warp_sum(active ? hp : 0.0f);
+      if (lane == 0) {
+        part[off_ref + k + 1] += r_ref;
+        part[off_ref + k] -= r_ref;
+      }
+    }
+  }
+
+  // ---- launch adjoint: cz0 = sqrt(1 - cy^2), cx0 = 0 (a constant) ----
+  dcy = dcy + dcz * (-cy0 / cz0);
+  const double r_z0 = warp_sum(active ? dz : 0.0f);
+  if (lane == 0) part[0] = r_z0;
+  dxp = dx;
+  dyp = dy;
+  dcyp = dcy;
+}
+
+// The bounds every K3 launcher checks.
+inline bool bad_shape_a(int n_surf, int n_w, int n_asph, int n_per_w, int n, int n_iter,
+                        int mode) {
+  return bad_shape(n_surf, n_w, n_per_w, n, mode) || n_asph < 1 || n_asph > MAX_ASPH ||
+         n_iter < 0;
+}
+
+}  // namespace

@@ -26,12 +26,13 @@ def _tensor(a, device) -> Optional[torch.Tensor]:
 
 
 def lens_from_numpy(stop_idx: Sequence[int], sequence: Sequence[str], c, t, nd,
-                    v, device="cuda") -> Lens:
-    """Port spherical ``Lens`` from padded (B, S) or flat parameter arrays;
-    the arrays keep their dtype."""
+                    v, device="cuda", kappa=None, asph=None) -> Lens:
+    """Port ``Lens`` from padded (B, S) or flat parameter arrays, with the
+    optional conic constants ``kappa`` (B, S) and even-asphere coefficients
+    ``asph`` (B, S, K); the arrays keep their dtype."""
     return Lens(Structure(tuple(stop_idx), tuple(sequence)),
                 _tensor(c, device), _tensor(t, device), _tensor(nd, device),
-                _tensor(v, device))
+                _tensor(v, device), kappa=_tensor(kappa, device), asph=_tensor(asph, device))
 
 
 def specs_from_numpy(stop_idx: Sequence[int], sequence: Sequence[str], epd,

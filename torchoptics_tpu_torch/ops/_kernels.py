@@ -123,9 +123,13 @@ def load() -> ctypes.CDLL:
     lib.k2_fwd_launch.restype = i
     lib.k2_bwd_launch.argtypes = [p] * 11 + [f] + [p] * 9 + [i] * 7 + [p] * 5 + [p]
     lib.k2_bwd_launch.restype = i
+    lib.k3_fwd_launch.argtypes = [p] * 12 + [f] + [i] * 8 + [p] * 11 + [p]
+    lib.k3_fwd_launch.restype = i
+    lib.k3_bwd_launch.argtypes = [p] * 12 + [f] + [p] * 9 + [i] * 8 + [p] * 5 + [p]
+    lib.k3_bwd_launch.restype = i
     lib.k1_error_string.argtypes = [i]
     lib.k1_error_string.restype = ctypes.c_char_p
-    for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block"):
+    for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block", "k3_max_asph"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     return lib

@@ -481,8 +481,9 @@ def _static_mask(structure: Structure, device) -> Optional[torch.Tensor]:
 def _check_population(lens: Lens, config):
     if not lens.is_spherical:
         raise NotImplementedError(
-            "the fused engine traces spherical surfaces; the asphere population "
-            "kernel (K4) is not ported yet (ROADMAP.md)")
+            "the fused engine traces a population of spherical systems; the "
+            "asphere population kernel K4 is not ported yet (ROADMAP.md), a "
+            "single conic/asphere system goes through kernel K3")
     if config.double_precision:
         raise NotImplementedError(
             "the fused engine is float32-only; use trace_engine='unroll' for "

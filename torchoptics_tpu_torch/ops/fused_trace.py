@@ -536,12 +536,8 @@ def compress_padded_tail(lens: Lens) -> Lens:
 
 def _check_fused_lens(lens: Lens, config) -> Lens:
     if len(lens) != 1:
-        raise ValueError("kernel K1 traces one system; a population goes through "
-                         "ops.fused_batch (kernel K2)")
-    if not lens.is_spherical:
-        raise NotImplementedError(
-            "the fused engine traces spherical surfaces; the asphere kernels "
-            "(K3/K4) are not ported yet (ROADMAP.md)")
+        raise ValueError("kernels K1 and K3 trace one system; a population goes through "
+                         "ops.fused_batch (kernel K2; aspheres need K4, not ported yet)")
     if config.double_precision:
         raise NotImplementedError(
             "the fused engine is float32-only; use trace_engine='unroll' for "
@@ -578,6 +574,12 @@ def package_fused_result(outs, shape, penalties: bool):
 
 
 def _run(specs, lens, config, generator, xy, use_vig, penalties):
+    """One single-system trace on the fused engine: K1 for a spherical lens,
+    K3 (``ops.fused_asphere``) for a conic/asphere one. Returns the
+    (compressed) lens, the flat kernel outputs and (1, F, P, W)."""
+    if not lens.is_spherical:
+        from torchoptics_tpu_torch.ops import fused_asphere
+        return fused_asphere._run(specs, lens, config, generator, xy, use_vig, penalties)
     lens = _check_fused_lens(lens, config)
     xp, yp, cyb, z0, mu, shape = prepare_fused_inputs(
         specs, lens, config, generator=generator, xy=xy, use_vig=use_vig)
@@ -591,8 +593,10 @@ def trace_rays_fused(specs, lens: Lens, config,
                      generator: Optional[torch.Generator] = None,
                      xy: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                      penalties: bool = False, use_vig: bool = True):
-    """``trace_rays`` on kernel K1 (one spherical system). Returns a
-    ``TraceResult`` shaped (1, F, P, W); with ``penalties`` it returns
+    """``trace_rays`` on kernel K1 (one spherical system; a conic/asphere
+    system goes through kernel K3, absent ``kappa`` or ``asph`` terms as
+    zeros). Returns a ``TraceResult`` shaped (1, F, P, W); with ``penalties``
+    it returns
     ``(TraceResult, (pen_theta, pen_theta_p, pen_zrelu))``, each the per-ray
     sum over surfaces."""
     _, outs, shape = _run(specs, lens, config, generator, xy, use_vig, penalties)
@@ -651,17 +655,17 @@ def spot_rms_fused(specs, lens: Lens, config,
                    generator: Optional[torch.Generator] = None,
                    xy: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                    use_vig: bool = True, spot_metric: str = "y"):
-    """Mean RMS spot size of one spherical system on the fused path:
-    wavelength-outer front-end -> K1 (plain mode) -> flat reduction."""
+    """Mean RMS spot size of one system on the fused path: wavelength-outer
+    front-end -> K1 or K3 (plain mode) -> flat reduction."""
     _, outs, (_, F, P, W) = _run(specs, lens, config, generator, xy, use_vig, False)
     return spot_rms_flat_wouter(outs, F, P, W, spot_metric)
 
 
 def unsupervised_loss_fused(specs, lens: Lens, config,
                             generator: Optional[torch.Generator] = None):
-    """The unsupervised lens-design objective Lu = rms + rate·ΣQ on K1's Lu
-    mode; ``config`` is a ``simulator.SimulatorConfig``. Returns
-    (Lu, loss_dict)."""
+    """The unsupervised lens-design objective Lu = rms + rate·ΣQ on K1's (or,
+    for a conic/asphere system, K3's) Lu mode; ``config`` is a
+    ``simulator.SimulatorConfig``. Returns (Lu, loss_dict)."""
     lens, outs, (_, F, P, W) = _run(specs, lens, config.trace_config(), generator,
                                     None, True, True)
     pth, ptp, pz = outs[6:9]
@@ -689,10 +693,13 @@ def compute_losses_fused(specs, lens: Lens, config, g=None, catalog_g=None,
                          generator: Optional[torch.Generator] = None):
     """The full weighted loss (spot + ray-path + ray-angle + glass + Lu) of
     one spherical system on one launch of K1's full mode; the fused form of
-    ``simulator.compute_losses``. ``config`` is a ``simulator.SimulatorConfig``.
-    Returns (total, loss_dict)."""
-    from torchoptics_tpu_torch import simulator as sim_mod
-
+    ``simulator.compute_losses``. A conic/asphere system goes to
+    ``fused_asphere.compute_losses_fused_asphere`` (kernel K3). ``config`` is
+    a ``simulator.SimulatorConfig``. Returns (total, loss_dict)."""
+    if not lens.is_spherical:
+        from torchoptics_tpu_torch.ops import fused_asphere
+        return fused_asphere.compute_losses_fused_asphere(
+            specs, lens, config, g=g, catalog_g=catalog_g, generator=generator)
     cfg = config.trace_config()
     lens = _check_fused_lens(lens, cfg)
     bounds = _path_bounds(lens.structure, config.ray_path_lower_thresholds,
@@ -704,6 +711,16 @@ def compute_losses_fused(specs, lens: Lens, config, g=None, catalog_g=None,
     ref_z = torch.cat((vertex_z, vertex_z[-1:]))
     outs = trace_fused_full(xp, yp, cyb, z0, lens.c[0], lens.t[0], mu, ref_z,
                             cfg.allow_backward_rays, bounds, angle_thr, F * P)
+    return full_loss_terms(outs, lens, config, (F, P, W), g, catalog_g)
+
+
+def full_loss_terms(outs, lens: Lens, config, shape, g=None, catalog_g=None):
+    """(total, loss_dict) of the full weighted loss from a single system's
+    full-mode kernel outputs on the flat (W, F, P) layout; ``shape`` is
+    (F, P, W)."""
+    from torchoptics_tpu_torch import simulator as sim_mod
+
+    F, P, W = shape
     pth, ptp, pz, ppath, pang = outs[6:]
     n_rays = F * P * W
     rms = spot_rms_flat_wouter(outs, F, P, W, config.spot_metric)

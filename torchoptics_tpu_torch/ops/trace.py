@@ -7,9 +7,10 @@ PyTorch counterpart of ``torchoptics_tpu.ops.trace``. Two engines:
   and autograd differentiates it. It is also the engine of every internal
   sub-trace (ray aiming, the pupil radius).
 * ``engine="fused"``: a single spherical system goes through
-  ``ops.fused_trace`` (kernel K1), a population through ``ops.fused_batch``
-  (kernel K2); their forward and backward passes are hand-written CUDA
-  kernels on a GPU tensor.
+  ``ops.fused_trace`` (kernel K1), a single conic/asphere system through
+  ``ops.fused_asphere`` (kernel K3), a spherical population through
+  ``ops.fused_batch`` (kernel K2); their forward and backward passes are
+  hand-written CUDA kernels on a GPU tensor.
 
 Failure-mask semantics are replicated exactly (miss, TIR, cz² collapse,
 backward-ray bookkeeping): they define the gradients at invalid rays.
@@ -62,6 +63,7 @@ class TraceConfig:
     ray_aiming_mode: str = "real"
     allow_backward_rays: bool = True
     double_precision: bool = False
+    newton_iters: int = 10
     engine: str = "unroll"  # 'unroll' | 'fused'
 
     def __post_init__(self):
@@ -123,15 +125,23 @@ def _agg_entry(name, ray_ok, z, cos2_theta, cos2_prime, full_shape):
 
 
 def trace_skew(x, y, z, cx, cy, c, t, mu, mask,
+               kappa=None, asph=None,
                aggregate: Tuple[str, ...] = (),
-               allow_backward_rays: bool = True) -> TraceResult:
-    """March a batch of skew rays through every spherical surface to the
-    image plane. Inputs are broadcastable within the (B, F, P, W) layout;
-    per-surface parameters carry a trailing surface axis:
+               allow_backward_rays: bool = True,
+               newton_iters: int = 10) -> TraceResult:
+    """March a batch of skew rays through every surface to the image plane.
+    Inputs are broadcastable within the (B, F, P, W) layout; per-surface
+    parameters carry a trailing surface axis:
 
       c, t, mask: (B, 1, 1, 1, S);  mu: (B, 1, 1, W, S)
+      kappa: like c (optional);     asph: (B, 1, 1, 1, S, K) (optional)
+
+    Without ``kappa`` and ``asph`` every surface is a sphere with a
+    closed-form intersection; with either, a conic/asphere whose
+    intersection takes ``newton_iters`` Newton steps and a polish step.
     """
     n_surf = c.shape[-1]
+    spherical = kappa is None and asph is None
     full_shape = torch.broadcast_shapes(x.shape, y.shape, cx.shape, cy.shape,
                                         mu[..., 0].shape)
     ray_ok = torch.ones(full_shape, dtype=torch.bool, device=c.device)
@@ -143,13 +153,23 @@ def trace_skew(x, y, z, cx, cy, c, t, mu, mask,
 
     for k in range(n_surf):
         ck, tk, muk = c[..., k], t[..., k], mu[..., k]
-        inter = surf.find_marching_distance_spherical(ck, x, y, z, cx, cy, cz)
+        kapk = None if kappa is None else kappa[..., k]
+        asphk = None if asph is None else asph[..., k, :]
+        if spherical:
+            inter = surf.find_marching_distance_spherical(ck, x, y, z, cx, cy, cz)
+        else:
+            inter = surf.find_marching_distance_asphere(
+                ck, kapk, asphk, x, y, z, cx, cy, cz, n_iter=newton_iters)
         x, y, z, delta_z = surf.update_ray_coordinates(
             x, y, z, cx, cy, cz, inter.distance)
         ray_ok = ray_ok & ~inter.failures
         x, y, z, cx, cy, cz = surf.reset_bad_rays(ray_ok, x, y, z, cx, cy, cz)
-        failures, cx, cy, cz, cos2_prime = surf.apply_snell_spherical(
-            ck, muk, x, y, cx, cy, inter.cos_theta)
+        if spherical:
+            failures, cx, cy, cz, cos2_prime = surf.apply_snell_spherical(
+                ck, muk, x, y, cx, cy, inter.cos_theta)
+        else:
+            failures, cx, cy, cz, cos2_prime = surf.apply_snell_general(
+                ck, kapk, asphk, muk, x, y, cx, cy, cz, inter.cos_theta)
 
         # Backward-ray bookkeeping, skipping the pupil -> first-surface leg.
         if k > 0:
@@ -208,7 +228,9 @@ def _broadcast_surface_params(lens: Lens, n: torch.Tensor):
     mu = n_full[..., :-1] / n_full[..., 1:]
     mu = mu.reshape(B, 1, 1, mu.shape[1], S)
     mask = torch.as_tensor(lens.structure.mask, device=lens.device).reshape(B, 1, 1, 1, S)
-    return c, t, mu, mask
+    kappa = None if lens.kappa is None else lens.kappa.reshape(B, 1, 1, 1, S)
+    asph = None if lens.asph is None else lens.asph.reshape(B, 1, 1, 1, S, lens.asph.shape[-1])
+    return c, t, mu, mask, kappa, asph
 
 
 def trace_rays(specs: Specs, lens: Lens, config: TraceConfig,
@@ -221,12 +243,13 @@ def trace_rays(specs: Specs, lens: Lens, config: TraceConfig,
     vignetting -> ray aiming -> EPD scaling -> direction cosines ->
     ``trace_skew``.
 
-    ``config.engine='fused'`` sends a single spherical system to
-    ``fused_trace.trace_rays_fused`` and a population to
-    ``fused_batch.trace_rays_fused_batch``; what they cannot take (aspheres,
-    double precision, aggregate stacks) raises instead of silently running
-    another engine. Internal sub-traces (``xy`` given, or
-    ``up_to_stop``) always run the pure-torch engine.
+    ``config.engine='fused'`` sends a single system to
+    ``fused_trace.trace_rays_fused`` (kernel K1 for spheres, K3 for a
+    conic/asphere system) and a population to
+    ``fused_batch.trace_rays_fused_batch``; what they cannot take (a
+    population of aspheres, double precision, aggregate stacks) raises
+    instead of silently running another engine. Internal sub-traces (``xy``
+    given, or ``up_to_stop``) always run the pure-torch engine.
     """
     internal = xy is not None or up_to_stop
     if config.engine == "fused" and not internal:
@@ -242,10 +265,6 @@ def trace_rays(specs: Specs, lens: Lens, config: TraceConfig,
         from torchoptics_tpu_torch.ops import fused_trace
         return fused_trace.trace_rays_fused(specs, lens, config,
                                             generator=generator, use_vig=use_vig)
-    if not lens.is_spherical:
-        raise NotImplementedError(
-            "the port traces spherical surfaces only; the conic/asphere "
-            "surfaces come with the asphere kernels (ROADMAP.md)")
     dtype = config.dtype
     if config.double_precision:
         specs = specs.to(dtype=dtype)
@@ -283,7 +302,8 @@ def trace_rays(specs: Specs, lens: Lens, config: TraceConfig,
     cy = torch.sin(u)
     cx = torch.zeros((1, 1, 1, 1), dtype=dtype, device=device)
 
-    c, t, mu, mask = _broadcast_surface_params(lens, n)
+    c, t, mu, mask, kappa, asph = _broadcast_surface_params(lens, n)
     return trace_skew(xp.to(dtype), yp.to(dtype), z.to(dtype), cx, cy,
-                      c, t, mu, mask, aggregate=aggregate,
-                      allow_backward_rays=config.allow_backward_rays)
+                      c, t, mu, mask, kappa=kappa, asph=asph, aggregate=aggregate,
+                      allow_backward_rays=config.allow_backward_rays,
+                      newton_iters=config.newton_iters)

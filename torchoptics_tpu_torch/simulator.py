@@ -6,7 +6,9 @@ PyTorch counterpart of ``torchoptics_tpu.simulator``: pure functions over
 the loss Lu = rms + rate·ΣQ; ``compute_losses`` the full weighted loss
 (spot + ray-path + ray-angle + glass + Lu). With ``trace_engine="fused"``
 the trace and the penalty sums come from kernel K1 (``ops.fused_trace``)
-for one system and from kernel K2 (``ops.fused_batch``) for a population,
+for one spherical system, from kernel K3 (``ops.fused_asphere``) for one
+conic/asphere system and from kernel K2 (``ops.fused_batch``) for a
+population,
 whose backward kernels make them differentiable on the GPU; with
 ``"unroll"`` they come from the pure-torch engine and its per-surface
 stacks.
@@ -190,8 +192,9 @@ def compute_loss_out(res: trace_mod.TraceResult, n_sequence,
 def _do_ray_tracing_fused(specs: Specs, lens: Lens, config: SimulatorConfig,
                           generator: Optional[torch.Generator]):
     """Fused form of ``do_ray_tracing``: the Lu penalty terms accumulate in
-    kernel K1 (one system) or K2 (a population), so no per-surface stack is
-    materialized. Each system's Q is normalized by its own surface count."""
+    kernel K1 (one spherical system), K3 (one conic/asphere system) or K2 (a
+    population), so no per-surface stack is materialized. Each system's Q is
+    normalized by its own surface count."""
     cfg = config.trace_config()
     if len(lens) == 1:
         from torchoptics_tpu_torch.ops import fused_trace
@@ -219,9 +222,9 @@ def do_ray_tracing(specs: Specs, lens: Lens, config: SimulatorConfig,
     """Run the raw trace and the unsupervised loss.
 
     With ``config.trace_engine='fused'`` the loss comes from the in-kernel
-    penalty sums of kernel K1 (one system) or K2 (a population)
-    (``TraceResult.stacks`` is None); non-default aggregates and aspheres
-    raise there."""
+    penalty sums of kernel K1 (one spherical system), K3 (one conic/asphere
+    system) or K2 (a population) (``TraceResult.stacks`` is None);
+    non-default aggregates and a population of aspheres raise there."""
     cfg = config.trace_config()
     if cfg.engine == "fused":
         if tuple(aggregate) != trace_mod.AGG_TORCH:
@@ -258,7 +261,9 @@ def compute_losses(specs: Specs, lens: Lens, config: SimulatorConfig,
     a population of one lens type on K2's full mode
     (``fused_batch.batched_compute_losses_fused``) and a population of mixed
     lens types as one K2 launch per type (``_compute_losses_fused_grouped``);
-    an asphere raises there."""
+    one conic/asphere system runs on K3's full mode
+    (``fused_asphere.compute_losses_fused_asphere``), a population of
+    aspheres raises."""
     cfg = config.trace_config()
     if cfg.engine == "fused":
         if len(lens) == 1:
