@@ -4,8 +4,9 @@
 Drives the port's paths through their user entry points on the card: the
 double-Gauss lens-evaluation ("serving") path, the lens-training path
 (``LensOptimizer`` Adam steps), the lens-population path (generator
-training through ``OpticalLoss``) and the aspheric path (serving and
-training the aspherized double-Gauss on kernel K3), and checks every
+training through ``OpticalLoss``), the aspheric path (serving and training
+the aspherized double-Gauss on kernel K3) and the aspheric-population path
+(populations of conic/asphere designs on kernel K4), and checks every
 hand-written CUDA kernel on them against its plain PyTorch version:
 
 1. the card's name and power limit;
@@ -62,7 +63,26 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     loss at 2,457,600 rays with kappa and asph trained, one K3 forward and
     one K3 backward launch per step, the first step held against the CPU;
 17. timings: K3 and its plain versions per mode at 2,457,600 rays, and one
-    aspheric ``LensOptimizer.step`` on each loss (host clock).
+    aspheric ``LensOptimizer.step`` on each loss (host clock);
+18. the aspheric-population path (kernel K4), at the generator width
+    (256 x 1,536 = 393,216 rays): K4 forward and backward against
+    ``trace_fused_asphere_batch_reference`` and its backward on the aspheric
+    Cooke population (``zoo.aspheric_population``), on its c x 3 variant
+    (failure conditions counted) and on the padded mixed population (the
+    surface mask), every mode and policy: masks, coordinates and per-ray
+    cotangents bit-identical, penalty sums within ``PEN_ROUNDINGS``, each
+    system's parameter cotangents within ``ONE_ROUNDING``;
+19. K4 at B = 1 against K3 on the aspherized double-Gauss at 2,457,600 rays,
+    bit for bit, and K4 at kappa = asph = 0 against K2;
+20. the population served by ``do_ray_tracing``, one K4 forward launch,
+    held against the CPU on 8 systems;
+21. training: 10 Adam steps on the population's (c, t, kappa, asph) against
+    ``batched_unsupervised_loss``, one K4 forward and one K4 backward launch
+    per step, the first step's gradients held against the CPU on 8 systems;
+    the grouped full loss of the mixed population, one K4 full launch per
+    lens type, held against the CPU on 8 systems;
+22. timings: K4 and its plain versions per mode, the fwd+bwd of
+    ``batched_unsupervised_loss`` and one population step (host clock).
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -72,8 +92,9 @@ before that carries the kernels' numbers.
     python3 chip_smoke.py             # the run described above
     python3 chip_smoke.py --profile   # instead: torch.profiler breakdowns of
                                       # LensOptimizer.step at 2,457,600 rays
-                                      # (double-Gauss and aspherized) and of
-                                      # a generator step
+                                      # (double-Gauss and aspherized), of a
+                                      # generator step and of an aspheric
+                                      # population step
 """
 
 import json
@@ -116,6 +137,10 @@ K3_FWD_SOURCE = "torchoptics_tpu_torch/csrc/fused_asphere_fwd.cu"
 K3_BWD_SOURCE = "torchoptics_tpu_torch/csrc/fused_asphere_bwd.cu"
 TPU_K3_FWD = "torchoptics_tpu/ops/pallas_asphere.py:367"
 TPU_K3_BWD = "torchoptics_tpu/ops/pallas_asphere.py:479"
+K4_FWD_SOURCE = "torchoptics_tpu_torch/csrc/fused_asphere_batch_fwd.cu"
+K4_BWD_SOURCE = "torchoptics_tpu_torch/csrc/fused_asphere_batch_bwd.cu"
+TPU_K4_FWD = "torchoptics_tpu/ops/pallas_asphere.py:963"
+TPU_K4_BWD = "torchoptics_tpu/ops/pallas_asphere.py:1075"
 # The H100's published float32 (non-tensor) and memory rates.
 PEAK_FLOPS = 67e12
 TRAINABLE = ("c", "t", "g", "kappa", "asph")
@@ -554,7 +579,9 @@ def profile_steps(torch, label, step, card, n_steps=3):
         name = ev.key
         n_kernels += ev.count
         kernels.append((dev_us / 1e3 / n_steps, ev.count / n_steps, name))
-        group = ("K1 forward" if "k1_fwd_kernel" in name else
+        group = ("K4 forward" if "k4_fwd_kernel" in name else
+                 "K4 backward" if "k4_bwd_kernel" in name else
+                 "K1 forward" if "k1_fwd_kernel" in name else
                  "K1 backward" if "k1_bwd_kernel" in name else
                  "K3 forward" if "k3_fwd_kernel" in name else
                  "K3 backward" if "k3_bwd_kernel" in name else
@@ -575,8 +602,9 @@ def profile_steps(torch, label, step, card, n_steps=3):
 
 
 def phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, OpticalLoss, card):
-    """A LensOptimizer step at 2,457,600 rays on each loss, and a generator
-    step at 256 x 1,536 rays, under torch.profiler."""
+    """A LensOptimizer step at 2,457,600 rays on each loss (double-Gauss and
+    aspherized), a generator step and an aspheric population step at 256 x
+    1,536 rays, under torch.profiler."""
     for full in (False, True):
         opt, state = make_optimizer(zoo, simulator, LensOptimizer, "cuda", BENCH_WIDTH, full)
         holder = [state]
@@ -596,6 +624,11 @@ def phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, OpticalLoss
             holder[0] = opt.step(holder[0])[0]
         profile_steps(torch, f"aspheric LensOptimizer.step on the {'full' if full else 'Lu'} "
                       "loss at 2457600 rays", step, card)
+    from torchoptics_tpu_torch.ops import fused_batch
+    cfg = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused")
+    specs, lens = k4_population(torch, zoo, "cooke")
+    profile_steps(torch, f"aspheric population step (Adam on c, t, kappa, asph) at {N_SYSTEMS} x "
+                  "1536 rays", k4_train_step(torch, fused_batch, specs, lens, cfg), card)
 
 
 # ---------------------------------------------------------------------------
@@ -1179,15 +1212,18 @@ def k3_bwd_compare(torch, got, want):
     return finite and ray == 0.0 and par_rel <= ONE_ROUNDING, ray, par_abs, par_rel
 
 
-def failure_counts(torch, fused_asphere, inputs, n_per_w):
+def failure_counts(torch, fused_asphere, inputs, n_per_w, mask=None):
     """Per failure condition, the (ray, surface) pairs where it fires on a
-    ray still alive before the surface, read from the plain version's locals
-    (backward rays flagged)."""
+    ray still alive before a real surface, read from the plain version's
+    locals (backward rays flagged); ``inputs`` are K4's, (B, N) rays, or
+    K3's, (N,)."""
     counts = dict(domain_guard=0, not_converged=0, stationary=0, cos2_floor=0, tir=0,
                   cz2_collapse=0)
+    if inputs[0].ndim == 1:
+        inputs = fused_asphere._one(inputs[:9])
 
     def keep(k, pre, loc, kill, post):
-        alive = pre[6]
+        alive = pre[6] if mask is None else pre[6] & mask[:, k, None]
         count = lambda m: int((m & alive).sum())
         counts["domain_guard"] += count(loc["guard_pre"] | loc["guard2"])
         counts["not_converged"] += count(loc["not_conv"])
@@ -1196,7 +1232,7 @@ def failure_counts(torch, fused_asphere, inputs, n_per_w):
         counts["tir"] += count(loc["ok1"] & loc["fail2a"])
         counts["cz2_collapse"] += count(loc["ok1"] & loc["fail2"] & ~loc["fail2a"])
     with torch.no_grad():
-        fused_asphere._trace(*inputs[:9], True, n_per_w, 10, keep)
+        fused_asphere._trace_batch(*inputs[:9], True, n_per_w, 10, keep, mask)
     return counts
 
 
@@ -1508,6 +1544,462 @@ def k3_entries(ms, shape, fwd_err, bwd_err, serve_launches, train_launches):
     ]
 
 
+# ---------------------------------------------------------------------------
+# The aspheric-population path: kernel K4 on populations of conic/asphere
+# designs.
+# ---------------------------------------------------------------------------
+
+
+def k4_population(torch, zoo, name, n_sys=N_SYSTEMS, device="cuda"):
+    """An aspheric population at the generator width: 'cooke'
+    (``zoo.aspheric_population``, the JAX benchmark's "pallas-asphere"
+    draw), 'cooke c x 3' (c x 3 on every 8th system: the sag-domain guard
+    and non-convergence fire) or 'mixed' (128 Cooke + 128 double-Gauss padded
+    to 11 surfaces, the aspheric terms drawn and masked)."""
+    if name == "mixed":
+        return zoo.aspheric_population(n_sys, ("cooke", "double_gauss"), mask_pad=True,
+                                       device=device)
+    specs, lens = zoo.aspheric_population(n_sys, device=device)
+    if name == "cooke c x 3":
+        scale = torch.ones(n_sys, 1, device=device)
+        scale[::8] = 3.0
+        lens = lens.replace(c=lens.c * scale)
+    return specs, lens
+
+
+def k4_inputs(torch, zoo, simulator, fused_batch, fused_trace, name):
+    """K4's (B, N) inputs (xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z) on
+    the population ``name``, n_per_w, the surface mask, the widest system's
+    tight bounds and cos²(threshold)."""
+    specs, lens = k4_population(torch, zoo, name)
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, _) = fused_batch.prepare_fused_inputs_batch(
+            specs, lens, simulator.SimulatorConfig(**GEN_WIDTH).trace_config())
+    vertex_z = torch.cumsum(lens.t, 1)
+    ref_z = torch.cat((vertex_z, vertex_z[:, -1:]), 1)
+    widest = np.array([int(np.argmax(lens.structure.n_surfaces))])
+    bounds = fused_trace._path_bounds(lens[widest].structure, TIGHT["ray_path_lower_thresholds"],
+                                      TIGHT["ray_path_upper_thresholds"])
+    thr = math.cos(math.radians(TIGHT["ray_angle_threshold"])) ** 2
+    inputs = (xp, yp, cyb, z0, lens.c, lens.kappa, lens.t, mu, lens.asph, ref_z)
+    return (tuple(a.detach() for a in inputs), F * P,
+            fused_batch._static_mask(lens.structure, "cuda"), bounds, thr)
+
+
+def run_k4_fwd(fused_asphere, inputs, penalties, allow_backward, n_per_w, mask, bounds, thr,
+               plain):
+    ins = inputs if penalties == "full" else inputs[:9]
+    if plain:
+        return fused_asphere.trace_fused_asphere_batch_reference(
+            *ins[:9], penalties, allow_backward, n_per_w, 10, mask, inputs[9], bounds, thr)
+    return fused_asphere._launch_k4_fwd(ins, penalties, allow_backward, n_per_w, 10, mask,
+                                        bounds, thr)
+
+
+def run_k4_bwd(fused_asphere, inputs, cot, penalties, allow_backward, n_per_w, mask, bounds,
+               thr, plain):
+    ins = inputs if penalties == "full" else inputs[:9]
+    args = (penalties, allow_backward, n_per_w, 10, mask, bounds, thr)
+    if plain:
+        return fused_asphere.trace_fused_asphere_batch_backward_reference(ins, cot, *args)
+    return fused_asphere._launch_k4_bwd(ins, cot, *args)
+
+
+def k4_bwd_compare(torch, got, want):
+    """K4 backward's outputs against its plain version's: (ok, largest
+    per-ray deviation, largest per-system parameter deviation relative to
+    that system's largest parameter cotangent, largest absolute parameter
+    deviation); ok asks for bit-identical per-ray cotangents, finite outputs
+    and each system's parameter cotangents within one float32 rounding."""
+    ray, param, param_abs = k2_bwd_errors(torch, got, want)
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    return finite and ray == 0.0 and param <= ONE_ROUNDING, ray, param, param_abs
+
+
+def phase_k4_kernels(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere):
+    """K4 forward and backward against their plain versions at 256 x 1,536
+    rays, every mode and backward-ray policy, on the aspheric Cooke
+    population, its c x 3 variant (failure conditions counted) and the
+    padded mixed population (the MASKED instantiation); two backward
+    launches bit for bit. Returns the largest deviations."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = dict(fwd=0.0, fwd_full=0.0, bwd_ray=0.0, bwd_param=0.0, bwd_param_abs=0.0)
+    failed = []
+    for name in ("cooke", "cooke c x 3", "mixed"):
+        inputs, n_per_w, mask, bounds, thr = k4_inputs(torch, zoo, simulator, fused_batch,
+                                                      fused_trace, name)
+        n_sys, n = inputs[0].shape
+        if name == "cooke c x 3":
+            counts = failure_counts(torch, fused_asphere, inputs, n_per_w, mask)
+            check(counts["domain_guard"] > 0 and counts["not_converged"] > 0,
+                  f"K4 failure conditions on the {name} population, {n_sys} x {n} rays, (ray, "
+                  f"surface) pairs on rays alive before the surface, from the plain version's "
+                  f"locals: {counts}")
+        for penalties in PENALTY_MODES:
+            for allow_backward in (True, False):
+                args = (penalties, allow_backward, n_per_w, mask, bounds, thr)
+                with torch.no_grad():
+                    got = run_k4_fwd(fused_asphere, inputs, *args, plain=False)
+                    want = run_k4_fwd(fused_asphere, inputs, *args, plain=True)
+                fwd_ok, masks, coords, pen_rel, max_abs = k3_fwd_compare(torch, got, want)
+                key = "fwd_full" if penalties == "full" else "fwd"
+                worst[key] = max(worst[key], max_abs)
+                cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
+                       for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+                g1 = run_k4_bwd(fused_asphere, inputs, cot, *args, plain=False)
+                g2 = run_k4_bwd(fused_asphere, inputs, cot, *args, plain=False)
+                gw = run_k4_bwd(fused_asphere, inputs, cot, *args, plain=True)
+                same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+                bwd_ok, ray, param, param_abs = k4_bwd_compare(torch, g1, gw)
+                worst["bwd_ray"] = max(worst["bwd_ray"], ray)
+                worst["bwd_param"] = max(worst["bwd_param"], param)
+                worst["bwd_param_abs"] = max(worst["bwd_param_abs"], param_abs)
+                ok = fwd_ok and bwd_ok and same
+                print(f"{'ok  ' if ok else 'FAIL'} K4 vs plain, {name} population ({n_sys} x {n} "
+                      f"rays, {inputs[4].shape[1]} surfaces{', masked' if mask is not None else ''}"
+                      f"), {MODE_NAME[penalties]} mode, allow_backward={allow_backward}: forward "
+                      f"masks bit-identical={masks}, coordinates bit-identical={coords}, penalty "
+                      f"sums within {pen_rel:.2e} (limit {PEN_ROUNDINGS:.2e}); backward per-ray "
+                      f"deviation {ray:.3e}, per-system parameter cotangents within {param:.2e} "
+                      f"(limit {ONE_ROUNDING:.2e}), two launches bit-identical={same}; ray_ok "
+                      f"share {float(got[4].float().mean()):.6f}", flush=True)
+                if not ok:
+                    failed.append((name, penalties, allow_backward))
+        del inputs
+    check(not failed, f"K4 agrees with its plain versions (failed: {failed})")
+    return worst
+
+
+def phase_k4_is_k3(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere):
+    """K4 on a population of one, the aspherized double-Gauss at 2,457,600
+    rays, against K3: every output of the forward and the backward, bit for
+    bit, every mode. Then K4 at kappa = asph = 0 against K2 on the Cooke
+    population: masks equal, coordinates within JAX's own K3-vs-K1 bar."""
+    inputs, n_per_w, bounds, thr = asphere_inputs(torch, zoo, simulator, fused_trace, BENCH_WIDTH)
+    one = tuple(a.reshape(1) if i == 3 else a[None] for i, a in enumerate(inputs))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for penalties in PENALTY_MODES:
+        with torch.no_grad():
+            k3 = run_k3_fwd(fused_asphere, inputs, penalties, True, n_per_w, bounds, thr,
+                            plain=False)
+            k4 = run_k4_fwd(fused_asphere, one, penalties, True, n_per_w, None, bounds, thr,
+                            plain=False)
+        cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
+               for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+        g3 = run_k3_bwd(fused_asphere, inputs, cot, penalties, True, n_per_w, bounds, thr,
+                        plain=False)
+        g4 = run_k4_bwd(fused_asphere, one, [c[None] for c in cot], penalties, True, n_per_w,
+                        None, bounds, thr, plain=False)
+        torch.cuda.synchronize()
+        same_f = all(torch.equal(a, b[0]) for a, b in zip(k3, k4))
+        same_b = all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(g3, g4))
+        check(same_f and same_b,
+              f"K4 at B = 1 on the aspherized double-Gauss, {inputs[0].shape[0]} rays, "
+              f"{MODE_NAME[penalties]} mode: forward equal to K3 bit for bit={same_f}, backward "
+              f"(per-ray and parameter cotangents)={same_b}")
+    del inputs, one
+    inputs, n_per_w, mask, bounds, thr = k4_inputs(torch, zoo, simulator, fused_batch,
+                                                  fused_trace, "cooke")
+    xp, yp, cyb, z0, c, kappa, t, mu, asph = inputs[:9]
+    with torch.no_grad():
+        k2 = fused_batch._launch_k2_fwd((xp, yp, cyb, z0, c, t, mu), False, True, n_per_w, None,
+                                        bounds, thr)
+        k4 = fused_asphere._launch_k4_fwd((xp, yp, cyb, z0, c, torch.zeros_like(kappa), t, mu,
+                                           torch.zeros_like(asph)), False, True, n_per_w, 10,
+                                          None, bounds, thr)
+    torch.cuda.synchronize()
+    masks = torch.equal(k2[4], k4[4]) and torch.equal(k2[5], k4[5])
+    ok = k2[4]
+    excess = max(float(((k4[i] - k2[i]).abs() - 1e-4 * k2[i].abs())[ok].max()) for i in range(4))
+    dev = max(float((k4[i] - k2[i]).abs()[ok].max()) for i in range(4))
+    check(masks and excess <= 1e-5,
+          f"K4 at kappa = asph = 0 vs K2 on the Cooke population, {xp.numel()} rays: masks "
+          f"equal={masks}, coordinates within {dev:.3e} (limit 1e-05 + 1e-04 relative)")
+
+
+def per_system_gap(torch, card_ok, host_ok):
+    """(lanes whose ray_ok differs between the card and the CPU, the systems
+    whose masks agree) of two (B, F, P, W) ray_ok tensors."""
+    differ = card_ok.cpu() != host_ok.cpu()
+    return int(differ.sum()), ~differ.reshape(differ.shape[0], -1).any(1)
+
+
+def phase_k4_serve(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere):
+    """``do_ray_tracing(trace_engine="fused")`` on the 256-system aspheric
+    Cooke population under no_grad: one K4 forward launch and no other
+    kernel's; held against the CPU on its first 8 systems (lanes whose masks
+    differ reported). Returns the K4 forward launches of the run."""
+    cfg = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused")
+    specs, lens = k4_population(torch, zoo, "cooke")
+    counters = ((fused_trace, "K1_FWD_LAUNCHES"), (fused_batch, "K2_FWD_LAUNCHES"),
+                (fused_asphere, "K3_FWD_LAUNCHES"), (fused_asphere, "K4_FWD_LAUNCHES"),
+                (fused_asphere, "K4_BWD_LAUNCHES"))
+    for module, counter in counters:
+        setattr(module, counter, 0)
+    with torch.no_grad():
+        res, loss = simulator.do_ray_tracing(specs, lens, cfg)
+        torch.cuda.synchronize()
+    k1, k2, k3, launches, k4b = (getattr(m, c) for m, c in counters)
+    check(launches == 1 and k4b == 0 and k1 == k2 == k3 == 0,
+          f"aspheric population serving: K4 forward launched {launches} times for 1 call, K4 "
+          f"backward {k4b}, K1 {k1}, K2 {k2}, K3 {k3}")
+    shape = (N_SYSTEMS, GEN_WIDTH["n_sampled_fields"], GEN_WIDTH["n_pupil_rings"] ** 2, 3)
+    check(tuple(res.x.shape) == shape and bool(torch.isfinite(res.x[res.ray_ok]).all())
+          and all(math.isfinite(float(v)) for v in loss.values()),
+          f"aspheric Cooke population served: {shape} result, ray_ok share "
+          f"{float(res.ray_ok.float().mean()):.6f}, loss_unsup {float(loss['loss_unsup']):.6f}")
+    rows = np.arange(8)
+    with torch.no_grad():
+        res_card, on_card = simulator.do_ray_tracing(specs[rows], lens[rows], cfg)
+        res_host, on_cpu = simulator.do_ray_tracing(specs[rows].to("cpu"), lens[rows].to("cpu"),
+                                                    cfg)
+    lanes, _ = per_system_gap(torch, res_card.ray_ok, res_host.ray_ok)
+    tol = {"loss_unsup": 1e-5, "penalty": 1e-5, "rms": 2e-4}
+    rel = {k: abs(float(on_card[k]) - float(on_cpu[k])) / abs(float(on_cpu[k])) for k in tol}
+    check(lanes == 0 and all(rel[k] <= tol[k] for k in tol),
+          f"aspheric serving on 8 systems, CUDA vs CPU: lanes whose ray_ok differs {lanes}; "
+          "relative gaps " + ", ".join(f"{k} {rel[k]:.2e} (limit {tol[k]:.0e})" for k in tol))
+    return launches
+
+
+K4_PARAMS = ("c", "t", "kappa", "asph")
+
+
+def group_gaps(torch, got, want, real):
+    """Per parameter group of ``K4_PARAMS``: the largest deviation of ``got``
+    from ``want`` on the real surfaces ``real`` (B, S), relative to the
+    group's largest magnitude there."""
+    gaps = {}
+    for k, a, w in zip(K4_PARAMS, got, want):
+        m = real[..., None] if k == "asph" else real
+        gaps[k] = float(torch.where(m, (a.cpu() - w).abs(), 0.0).max()
+                        / torch.where(m, w.abs(), 0.0).max().clamp(min=1e-30))
+    return gaps
+
+
+def k4_train_step(torch, fused_batch, specs, lens, cfg, lr=1e-3):
+    """A closure running one Adam step on the population's (c, t, kappa,
+    asph) against ``batched_unsupervised_loss``; returns the loss and the
+    gradients."""
+    params = [getattr(lens, k).detach().clone().requires_grad_(True) for k in K4_PARAMS]
+    opt = torch.optim.Adam(params, lr=lr)
+
+    def step():
+        loss, _ = fused_batch.batched_unsupervised_loss(
+            specs, lens.replace(**dict(zip(K4_PARAMS, params))), cfg)
+        grads = torch.autograd.grad(loss, params)
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        return loss.detach(), grads
+    return step
+
+
+def k4_gradients(torch, fused_batch, specs, lens, cfg):
+    """The loss and d/d(c, t, kappa, asph) of ``batched_unsupervised_loss``
+    on the CPU's copy of a population."""
+    params = [getattr(lens, k).detach().clone().requires_grad_(True) for k in K4_PARAMS]
+    loss, _ = fused_batch.batched_unsupervised_loss(
+        specs, lens.replace(**dict(zip(K4_PARAMS, params))), cfg)
+    return float(loss.detach()), [g.cpu() for g in torch.autograd.grad(loss, params)]
+
+
+def phase_k4_train(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere, n_steps=10):
+    """The main path of this slice: 10 Adam steps (lr 1e-3) on the aspheric
+    Cooke population's (c, t, kappa, asph) against
+    ``batched_unsupervised_loss`` at 256 x 1,536 rays, the JAX benchmark's
+    "pallas-asphere" fwd+bwd with the update; counts set to 0 before the run
+    and read after. The first step's gradients held against the CPU on 8
+    systems. Then the grouped full loss of the padded mixed population. Returns
+    the (forward, backward) launches of both runs."""
+    cfg = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused")
+    specs, lens = k4_population(torch, zoo, "cooke")
+    step = k4_train_step(torch, fused_batch, specs, lens, cfg)
+    for module, counter in ((fused_trace, "K1_FWD_LAUNCHES"), (fused_batch, "K2_FWD_LAUNCHES"),
+                            (fused_asphere, "K4_FWD_LAUNCHES"),
+                            (fused_asphere, "K4_BWD_LAUNCHES")):
+        setattr(module, counter, 0)
+    losses, finite = [], True
+    first = None
+    for _ in range(n_steps):
+        loss, grads = step()
+        first = first or (float(loss), [g.cpu() for g in grads])
+        finite = finite and bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    fwd, bwd = fused_asphere.K4_FWD_LAUNCHES, fused_asphere.K4_BWD_LAUNCHES
+    check(fwd == n_steps and bwd == n_steps and finite
+          and fused_trace.K1_FWD_LAUNCHES == fused_batch.K2_FWD_LAUNCHES == 0,
+          f"aspheric population training: {n_steps} Adam steps (lr 1e-3) on (c, t, kappa, asph) "
+          f"of {N_SYSTEMS} Cooke designs ({N_SYSTEMS * 1536} rays): K4 forward launched {fwd} "
+          f"times, K4 backward {bwd} times, K1 {fused_trace.K1_FWD_LAUNCHES}, K2 "
+          f"{fused_batch.K2_FWD_LAUNCHES}; every loss and gradient finite={finite}; losses "
+          f"{['%.5f' % v for v in losses]}")
+    # The first step's gradients, card vs CPU on 8 systems of the same
+    # population (each system's rows of d(mean Lu) are its own; the mean over
+    # 8 systems scales them by 256 / 8).
+    rows = np.arange(8)
+    card = k4_gradients(torch, fused_batch, specs[rows], lens[rows], cfg)
+    host = k4_gradients(torch, fused_batch, specs[rows].to("cpu"), lens[rows].to("cpu"), cfg)
+    rel = abs(card[0] - host[0]) / abs(host[0])
+    every = torch.ones(lens[rows].c.shape, dtype=torch.bool)
+    grad_rel = group_gaps(torch, card[1], host[1], every)
+    full_rows = group_gaps(torch, [g[rows] * N_SYSTEMS / 8 for g in first[1]], host[1], every)
+    check(rel <= 1e-5 and max(grad_rel.values()) <= 1e-4 and max(full_rows.values()) <= 1e-4,
+          f"first aspheric population step on 8 systems, CUDA vs CPU: loss {card[0]:.7f} vs "
+          f"{host[0]:.7f} (relative gap {rel:.2e}, limit 1e-05); gradients within "
+          + ", ".join(f"{k} {v:.2e}" for k, v in grad_rel.items())
+          + " of their group's largest (limit 1e-04); the 256-system step's rows of those "
+          "systems within " + ", ".join(f"{k} {v:.2e}" for k, v in full_rows.items()))
+    train = (fwd, bwd)
+
+    # The grouped full loss of the padded mixed aspheric population.
+    cfg_full = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused", **TIGHT_OFF_KINK)
+    specs, lens = k4_population(torch, zoo, "mixed")
+
+    def value_and_grad(specs, lens):
+        params = [getattr(lens, k).detach().clone().requires_grad_(True) for k in K4_PARAMS]
+        total, _ = simulator.compute_losses(specs, lens.replace(**dict(zip(K4_PARAMS, params))),
+                                            cfg_full)
+        return float(total.detach()), [g.cpu() for g in torch.autograd.grad(total, params)]
+
+    fused_asphere.K4_FWD_LAUNCHES = 0
+    fused_asphere.K4_BWD_LAUNCHES = 0
+    total, grads = value_and_grad(specs, lens)
+    torch.cuda.synchronize()
+    full = (fused_asphere.K4_FWD_LAUNCHES, fused_asphere.K4_BWD_LAUNCHES)
+    check(full == (2, 2) and math.isfinite(total)
+          and all(bool(torch.isfinite(g).all()) for g in grads),
+          f"mixed aspheric full loss of {N_SYSTEMS} systems: K4 full forward launched {full[0]} "
+          f"times, backward {full[1]} times (one per lens type); total {total:.6f}, gradients "
+          "finite")
+    # Card vs CPU on 8 systems of both types. A ray at a failure threshold
+    # may flip between the two (their front-ends round otherwise): the lanes
+    # that differ are counted, each system's rows of the gradients are
+    # compared where its masks agree (a system's parameters reach only its
+    # own rays), the total where all agree. The gradients' float32 floor on
+    # these aberrated designs is measured, not assumed: each group is held
+    # within 1e-4 plus 4x the CPU's own move when c moves by one ulp.
+    rows = np.r_[0:4, N_SYSTEMS - 4:N_SYSTEMS]
+    cfg_lu = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused")
+    host_specs, host_lens = specs[rows].to("cpu"), lens[rows].to("cpu")
+    with torch.no_grad():
+        res_card = simulator.do_ray_tracing(specs[rows], lens[rows], cfg_lu)[0]
+        res_host = simulator.do_ray_tracing(host_specs, host_lens, cfg_lu)[0]
+    lanes, agree = per_system_gap(torch, res_card.ray_ok, res_host.ray_ok)
+    got = value_and_grad(specs[rows], lens[rows])
+    want = value_and_grad(host_specs, host_lens)
+    nudged = value_and_grad(host_specs, host_lens.replace(c=host_lens.c * (1 + 2.0 ** -23)))
+    real = torch.as_tensor(lens[rows].structure.mask) & agree[:, None]
+    gap, floor = group_gaps(torch, got[1], want[1], real), group_gaps(torch, nudged[1], want[1], real)
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    check(int(agree.sum()) >= 6 and all(gap[k] <= 1e-4 + 4 * floor[k] for k in K4_PARAMS)
+          and (lanes > 0 or rel <= 1e-5),
+          f"mixed aspheric full loss on 8 systems, CUDA vs CPU: lanes whose ray_ok differs "
+          f"{lanes}, systems whose masks agree {int(agree.sum())}; total {got[0]:.7f} vs "
+          f"{want[0]:.7f} (relative gap {rel:.2e}, limit 1e-05 where all masks agree); "
+          "d/d(c, t, kappa, asph) on those systems' real surfaces within "
+          + ", ".join(f"{k} {gap[k]:.2e} (limit 1e-04 + 4 x {floor[k]:.2e})" for k in K4_PARAMS)
+          + " of each group's largest; the parenthesis holds the CPU's own move under one ulp "
+          "of c")
+    return train, full
+
+
+def phase_k4_timing(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere, card):
+    """K4 and its plain versions per mode at the generator width (256 x 1,536
+    = 393,216 rays, aspheric Cooke population), the kernels' batches
+    enqueued behind a sleep kernel as K2's; the fwd+bwd of
+    ``batched_unsupervised_loss`` and one training step (host clock)."""
+    inputs, n_per_w, mask, bounds, thr = k4_inputs(torch, zoo, simulator, fused_batch,
+                                                  fused_trace, "cooke")
+    n_rays, n_surf = inputs[0].numel(), inputs[4].shape[1]
+    shape = dict(n_rays=n_rays, n_surf=n_surf, n_w=inputs[7].shape[2], n_asph=inputs[8].shape[2],
+                 bounds=bounds, n_sys=N_SYSTEMS, rays_per_sys=inputs[0].shape[1])
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    ms = {}
+    with torch.no_grad():
+        for penalties in PENALTY_MODES:
+            mode = MODE_NAME[penalties]
+            fwd = lambda plain: run_k4_fwd(fused_asphere, inputs, penalties, True, n_per_w, mask,
+                                           bounds, thr, plain)
+            ms[f"k4_fwd_{mode}"] = time_ms(torch, lambda: fwd(False), queue_ahead=True)
+            ms[f"plain_k4_fwd_{mode}"] = time_ms(torch, lambda: fwd(True), runs=3, batch=2)
+            cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
+                   for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+            bwd = lambda plain: run_k4_bwd(fused_asphere, inputs, cot, penalties, True, n_per_w,
+                                           mask, bounds, thr, plain)
+            ms[f"k4_bwd_{mode}"] = time_ms(torch, lambda: bwd(False), queue_ahead=True)
+            ms[f"plain_k4_bwd_{mode}"] = time_ms(torch, lambda: bwd(True), runs=3, batch=2)
+    cfg = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused")
+    specs, lens = k4_population(torch, zoo, "cooke")
+
+    def fwd_bwd():
+        params = [getattr(lens, k).detach().clone().requires_grad_(True) for k in K4_PARAMS]
+        loss = fused_batch.batched_unsupervised_loss(
+            specs, lens.replace(**dict(zip(K4_PARAMS, params))), cfg)[0]
+        torch.autograd.grad(loss, params)
+    ms["asphere_batched_unsupervised_loss_fwd_bwd"] = time_ms(torch, fwd_bwd, runs=5, batch=4)
+    ms["asphere_population_step"] = host_ms(torch, k4_train_step(torch, fused_batch, specs, lens,
+                                                                  cfg))
+    for key, value in ms.items():
+        print(f"time {key}: {value:.4f} ms per call at {n_rays} rays ({N_SYSTEMS} aspheric Cooke "
+              f"systems x 1,536 rays, {n_surf} surfaces, K = {shape['n_asph']}, 10 Newton "
+              f"steps), card: {card}", flush=True)
+    return ms, shape
+
+
+def k4_bound(shape, penalties, backward):
+    """(bound_ms, bound_by) of K4 forward or backward at the timed shape:
+    K3's per-ray operations and bytes (``k3_ops``) at the population's
+    surface count, plus each system's tables read once (3 S + S W + S K + 1
+    floats, + S + 1 in full mode) and, for the backward, its partials (one
+    column of doubles per block of 256 rays, written once and read once)."""
+    n, n_surf, n_w, n_asph = shape["n_rays"], shape["n_surf"], shape["n_w"], shape["n_asph"]
+    n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
+    ops = k3_ops(penalties, n_surf, n_asph, 10, backward, n_sides)
+    full = penalties == "full"
+    tables = 4 * (3 * n_surf + n_surf * n_w + n_surf * n_asph + 1 + (n_surf + 1 if full else 0))
+    if not backward:
+        return bound(n, ops, FWD_BYTES[penalties], shape["n_sys"] * tables)
+    n_params = (1 + 3 * n_surf + n_surf * n_w + n_surf * n_asph + (n_surf + 1 if full else 0))
+    blocks = -(-shape["rays_per_sys"] // 256)
+    return bound(n, ops, BWD_BYTES[penalties],
+                 shape["n_sys"] * (tables + 16 * n_params * blocks))
+
+
+def k4_entries(ms, shape, err, serve_launches, train_launches, full_launches):
+    """The K4 entries of the kernels line. ``launches`` counts the main path
+    of this slice, the aspheric population's training (Lu mode; the full
+    mode's from the mixed population's grouped full loss); each entry's main
+    numbers are for that mode, the other modes' under their own keys. K4
+    backward's parameter deviation is per system, relative to its largest
+    parameter cotangent."""
+    def numbers(kind, penalties, suffix=""):
+        mode = MODE_NAME[penalties]
+        b_ms, b_by = k4_bound(shape, penalties, kind == "bwd")
+        return {f"ms{suffix}": ms[f"k4_{kind}_{mode}"],
+                f"plain_ms{suffix}": ms[f"plain_k4_{kind}_{mode}"],
+                f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by}
+    return [
+        {"name": "k4_fwd", "route": "cuda", "source": K4_FWD_SOURCE, "replaces": TPU_K4_FWD,
+         "launches": train_launches[0], "max_abs_err": err["fwd"], **numbers("fwd", True),
+         "library_ms": None, "launches_serving": serve_launches,
+         **numbers("fwd", False, "_plain")},
+        {"name": "k4_fwd_full", "route": "cuda", "source": K4_FWD_SOURCE, "replaces": TPU_K4_FWD,
+         "launches": full_launches[0], "max_abs_err": err["fwd_full"], **numbers("fwd", "full"),
+         "library_ms": None},
+        {"name": "k4_bwd", "route": "cuda", "source": K4_BWD_SOURCE, "replaces": TPU_K4_BWD,
+         "launches": train_launches[1], "max_abs_err": err["bwd_ray"], **numbers("bwd", True),
+         "library_ms": None, "launches_full_loss": full_launches[1],
+         "param_max_abs_err": err["bwd_param_abs"], "param_max_rel_err": err["bwd_param"],
+         **numbers("bwd", False, "_plain"), **numbers("bwd", "full", "_full"),
+         "asphere_batched_unsupervised_loss_fwd_bwd_ms":
+             ms["asphere_batched_unsupervised_loss_fwd_bwd"],
+         "asphere_population_step_ms": ms["asphere_population_step"]},
+    ]
+
+
 def ptxas_summary(path):
     """One line per kernel from the build's -Xptxas -v report."""
     lines, name, frame = [], None, ""
@@ -1515,7 +2007,8 @@ def ptxas_summary(path):
         if "Compiling entry function" in line:
             raw = line.split("'")[1]
             for short in ("k1_fwd_kernel", "k1_bwd_kernel", "k2_fwd_kernel", "k2_bwd_kernel",
-                          "k3_fwd_kernel", "k3_bwd_kernel", "partials_reduce"):
+                          "k3_fwd_kernel", "k3_bwd_kernel", "k4_fwd_kernel", "k4_bwd_kernel",
+                          "partials_reduce"):
                 if short in raw:
                     # The template arguments of the mangled name: I L<type><value>E ... E.
                     args = re.match(r"I((?:L[a-z]+\d+E)+)E", raw[raw.index(short) + len(short):])
@@ -1575,11 +2068,19 @@ def main():
                                        LensOptimizer)
     k3_ms, k3_fwd_err_bench, k3_bwd_err_bench, k3_shape = phase_k3_timing(
         torch, zoo, simulator, fused_trace, fused_asphere, LensOptimizer, card)
+    k4_err = phase_k4_kernels(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere)
+    phase_k4_is_k3(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere)
+    k4_serve_launches = phase_k4_serve(torch, zoo, simulator, fused_trace, fused_batch,
+                                       fused_asphere)
+    k4_launches = phase_k4_train(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere)
+    k4_ms, k4_shape = phase_k4_timing(torch, zoo, simulator, fused_trace, fused_batch,
+                                      fused_asphere, card)
     entries = kernel_entries(ms, errs, shape, fwd_err, bwd_err, serve_launches, train_launches)
     entries += k2_entries(k2_ms, k2_shape, k2_err, pop_serve_launches, gen_launches,
                           mixed_launches)
     entries += k3_entries(k3_ms, k3_shape, (k3_fwd_err, k3_fwd_err_bench),
                           (k3_bwd_err, k3_bwd_err_bench), k3_serve_launches, k3_train_launches)
+    entries += k4_entries(k4_ms, k4_shape, k4_err, k4_serve_launches, *k4_launches)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

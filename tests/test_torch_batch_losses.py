@@ -204,9 +204,30 @@ def test_population_trace_rays_matches_unroll(jax_side):
 
 
 def test_population_refuses_aspheres():
+    """A population of aspheres runs on kernel K4 (it raised before K4 was
+    ported): two copies of the aspherized double-Gauss give kernel K3's
+    single-system Lu and full losses and their per-ray outputs; double
+    precision still raises."""
+    from torchoptics_tpu_torch.ops import fused_asphere, fused_trace
     specs, lens = zoo.build("double_gauss_asph", device="cpu")
-    batch = lens[np.array([0, 0])]
+    pair = np.array([0, 0])
     cfg = simulator.SimulatorConfig(trace_engine="fused", **BASE)
-    for fn in (fused_batch.batched_unsupervised_loss, fused_batch.batched_compute_losses_fused):
-        with pytest.raises(NotImplementedError, match="K4"):
-            fn(specs[np.array([0, 0])], batch, cfg)
+    lu, lu_dict = fused_batch.batched_unsupervised_loss(specs[pair], lens[pair], cfg)
+    want_lu, want_dict = fused_trace.unsupervised_loss_fused(specs, lens, cfg)
+    np.testing.assert_allclose(float(lu), float(want_lu), rtol=1e-6)
+    for k, v in lu_dict.items():
+        assert v.shape == (2,) and float(v[0]) == float(v[1])
+        np.testing.assert_allclose(float(v[0]), float(want_dict[k]), rtol=1e-6, err_msg=k)
+    total, full = fused_batch.batched_compute_losses_fused(specs[pair], lens[pair], cfg)
+    want_total, want_full = fused_asphere.compute_losses_fused_asphere(specs, lens, cfg)
+    np.testing.assert_allclose(float(total), float(want_total), rtol=1e-6)
+    for k, v in want_full.items():
+        np.testing.assert_allclose(float(full[k]), float(v), rtol=1e-6, err_msg=k)
+    res = fused_batch.trace_rays_fused_batch(specs[pair], lens[pair], cfg.trace_config())
+    want = fused_trace.trace_rays_fused(specs, lens, cfg.trace_config())
+    for a, b in zip(res[:6], want[:6]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[0])
+    with pytest.raises(NotImplementedError, match="float32"):
+        fused_batch.batched_unsupervised_loss(
+            specs[pair], lens[pair], simulator.SimulatorConfig(
+                trace_engine="fused", double_precision=True, **BASE))

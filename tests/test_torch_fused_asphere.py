@@ -379,7 +379,9 @@ def test_k3_without_asphere_terms_matches_k1():
 
 def test_fused_engine_routes_and_refuses():
     """A lens with only one of kappa/asph gets zeros for the other; a
-    population of aspheres raises naming K4; double precision raises."""
+    population of aspheres runs on kernel K4 (it raised before K4 was
+    ported): two copies give the single system's outputs and loss on K3;
+    double precision raises."""
     specs, lens = zoo.build("double_gauss_asph", device="cpu")
     cfg = simulator.SimulatorConfig(**CONFIG, trace_engine="fused").trace_config()
     only_kappa = lens.replace(asph=None)
@@ -392,9 +394,18 @@ def test_fused_engine_routes_and_refuses():
                                   lens.v.repeat(2, 1).numpy(), device="cpu",
                                   kappa=lens.kappa.repeat(2, 1).numpy(),
                                   asph=lens.asph.repeat(2, 1, 1).numpy())
-    with pytest.raises(NotImplementedError, match="K4"):
-        trace.trace_rays(specs[np.array([0, 0])], two, cfg)
-    with pytest.raises(NotImplementedError, match="K4"):
-        fused_batch.trace_rays_fused_batch(specs[np.array([0, 0])], two, cfg)
+    pair = np.array([0, 0])
+    one = trace.trace_rays(specs, lens, cfg)
+    for res in (trace.trace_rays(specs[pair], two, cfg),
+                fused_batch.trace_rays_fused_batch(specs[pair], two, cfg)):
+        assert res.x.shape == (2,) + tuple(one.x.shape[1:])
+        for a, b in zip(res[:6], one[:6]):
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[0])
+    sim_cfg = simulator.SimulatorConfig(**CONFIG, trace_engine="fused")
+    _, loss_two = simulator.do_ray_tracing(specs[pair], two, sim_cfg)
+    _, loss_one = simulator.do_ray_tracing(specs, lens, sim_cfg)
+    for key in ("loss_unsup", "rms", "penalty"):
+        np.testing.assert_allclose(float(loss_two[key]), float(loss_one[key]), rtol=1e-6,
+                                   err_msg=key)
     with pytest.raises(NotImplementedError, match="float32"):
         trace.trace_rays(specs, lens, dataclasses.replace(cfg, double_precision=True))

@@ -17,7 +17,9 @@ the same bars per system (parameter sums within 2e-6 of each system's
 largest, penalty sums within 1e-6), and at B = 1 to K1 bit for bit. K3,
 the conic/asphere kernel pair, to the same bars on the masks, coordinates,
 penalty sums and per-ray cotangents, and its parameter sums within one
-float32 rounding of the plain version's float64 sums.
+float32 rounding of the plain version's float64 sums. K4, the conic/asphere
+population pair, to K3's bars per system, with and without the surface
+mask, and at B = 1 to K3 bit for bit.
 """
 
 import math
@@ -446,3 +448,207 @@ def test_asphere_paths_on_gpu_match_cpu(cuda):
     assert {"kappa", "asph"} <= set(out["cuda"][5])
     for k, v in out["cpu"][5].items():
         assert float((out["cuda"][5][k] - v).abs().max()) <= 1e-6, k
+
+
+# ---------------------------------------------------------------------------
+# Kernel K4, the conic/asphere trace of a population.
+# ---------------------------------------------------------------------------
+
+
+def _k4_inputs(device, name, n_sys=32):
+    """K4's (B, N) inputs at the generator width: the aspheric Cooke
+    population with c x 3 on every 8th system (the sag-domain guard and
+    non-convergence fire there), or the padded mixed aspheric population
+    (Cooke and double-Gauss, 11 surfaces, masked draws). The path bounds are
+    the widest system's."""
+    import numpy as np
+    from torchoptics_tpu_torch.ops import fused_batch
+    if name == "cooke":
+        specs, lens = zoo.aspheric_population(n_sys, device=device)
+        scale = torch.ones(n_sys, 1, device=device)
+        scale[::8] = 3.0
+        lens = lens.replace(c=lens.c * scale)
+    else:
+        specs, lens = zoo.aspheric_population(n_sys, ("cooke", "double_gauss"), mask_pad=True,
+                                              device=device)
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, _) = fused_batch.prepare_fused_inputs_batch(
+            specs, lens, simulator.SimulatorConfig(**GEN).trace_config())
+    vertex_z = torch.cumsum(lens.t, 1)
+    ref_z = torch.cat((vertex_z, vertex_z[:, -1:]), 1)
+    widest = np.array([int(np.argmax(lens.structure.n_surfaces))])
+    bounds = fused_trace._path_bounds(lens[widest].structure, LOWER, UPPER)
+    inputs = (xp, yp, cyb, z0, lens.c, lens.kappa, lens.t, mu, lens.asph, ref_z)
+    return inputs, F * P, fused_batch._static_mask(lens.structure, device), bounds
+
+
+K4_CASES = [(name, p, ab) for name in ("cooke", "mixed") for p in PENALTY_MODES
+            for ab in (True, False)]
+
+
+@pytest.mark.parametrize("name,penalties,allow_backward", K4_CASES)
+def test_k4_matches_plain_versions(cuda, name, penalties, allow_backward):
+    """K4 forward: masks and coordinates bit-identical, penalty sums within
+    1e-6 of their largest magnitude. K4 backward: per-ray cotangents
+    bit-identical, each system's parameter cotangents within one float32
+    rounding of the plain version's float64 sums (relative to that system's
+    largest), two launches bit-identical."""
+    from torchoptics_tpu_torch.ops import fused_asphere
+    inputs, n_per_w, mask, bounds = _k4_inputs(cuda, name)
+    assert (mask is None) == (name == "cooke")
+    ins = inputs if penalties == "full" else inputs[:9]
+    before = (fused_asphere.K4_FWD_LAUNCHES, fused_asphere.K4_BWD_LAUNCHES)
+    got = fused_asphere._launch_k4_fwd(ins, penalties, allow_backward, n_per_w, 10, mask,
+                                       bounds, THR)
+    want = fused_asphere.trace_fused_asphere_batch_reference(
+        *ins[:9], penalties, allow_backward, n_per_w, 10, mask, inputs[9], bounds, THR)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cot = [torch.randn(inputs[0].shape, device=cuda, generator=gen)
+           for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+    args = (penalties, allow_backward, n_per_w, 10, mask, bounds, THR)
+    g1 = fused_asphere._launch_k4_bwd(ins, cot, *args)
+    g2 = fused_asphere._launch_k4_bwd(ins, cot, *args)
+    gw = fused_asphere.trace_fused_asphere_batch_backward_reference(ins, cot, *args)
+    torch.cuda.synchronize()
+    assert (fused_asphere.K4_FWD_LAUNCHES, fused_asphere.K4_BWD_LAUNCHES) == (before[0] + 1,
+                                                                              before[1] + 2)
+    assert len(got) == len(want) == {False: 6, True: 9, "full": 11}[penalties]
+    assert all(torch.equal(a, b) for a, b in zip(got[:6], want[:6]))
+    for a, b in zip(got[6:], want[6:]):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert len(g1) == len(gw) == (10 if penalties == "full" else 9)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2)), "two launches differ"
+    assert all(torch.equal(a, b) for a, b in zip(g1[:3], gw[:3]))
+    rows = lambda grads: torch.cat([g.reshape(g.shape[0], -1) for g in grads[3:]], 1)
+    assert bool(torch.isfinite(rows(g1)).all())
+    dev = (rows(g1) - rows(gw)).abs().max(1).values
+    assert bool((dev <= ONE_ROUNDING * rows(gw).abs().max(1).values).all())
+    if name == "cooke":
+        assert 0 < float(got[4].float().mean()) < 1
+
+
+def test_k4_population_of_one_is_k3(cuda):
+    """K4 at B = 1 without a mask gives K3's outputs and cotangents bit for
+    bit, every mode, on the aspherized double-Gauss and its c x 3 variant."""
+    from torchoptics_tpu_torch.ops import fused_asphere
+    for c_scale in (1.0, 3.0):
+        inputs, n_per_w, bounds = _k3_inputs(cuda, c_scale)
+        one = [a.reshape(1) if i == 3 else a[None] for i, a in enumerate(inputs)]
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        for penalties in PENALTY_MODES:
+            n = 10 if penalties == "full" else 9
+            k3 = fused_asphere._launch_k3_fwd(inputs[:n], penalties, True, n_per_w, 10, bounds,
+                                              THR)
+            k4 = fused_asphere._launch_k4_fwd(one[:n], penalties, True, n_per_w, 10, None,
+                                              bounds, THR)
+            assert all(torch.equal(a, b[0]) for a, b in zip(k3, k4))
+            cot = [torch.randn(inputs[0].shape, device=cuda, generator=gen)
+                   for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+            g3 = fused_asphere._launch_k3_bwd(inputs[:n], cot, penalties, True, n_per_w, 10,
+                                              bounds, THR)
+            g4 = fused_asphere._launch_k4_bwd(one[:n], [c[None] for c in cot], penalties, True,
+                                              n_per_w, 10, None, bounds, THR)
+            assert all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(g3, g4))
+
+
+def test_k4_refuses_bad_inputs(cuda):
+    from torchoptics_tpu_torch.ops import fused_asphere
+    x = torch.zeros(2, 8, device=cuda)
+    c = torch.zeros(2, 3, device=cuda)
+    mu = torch.ones(2, 3, 2, device=cuda)
+    z0 = torch.zeros(2, device=cuda)
+    asph = torch.zeros(2, 3, 2, device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="asphere coefficients"):
+            fused_asphere.trace_fused_asphere_batch(x, x, x, z0, c, c, c, mu,
+                                                    torch.zeros(2, 3, 9, device=cuda), False,
+                                                    True, 4)
+        with pytest.raises(ValueError, match="kappa"):
+            fused_asphere.trace_fused_asphere_batch(x, x, x, z0, c, c[:1], c, mu, asph, False,
+                                                    True, 4)
+        with pytest.raises(ValueError, match="mask"):
+            fused_asphere.trace_fused_asphere_batch(x, x, x, z0, c, c, c, mu, asph, False, True,
+                                                    4, mask=torch.ones(2, 4, dtype=torch.bool,
+                                                                       device=cuda))
+
+
+def _population_losses(specs, lens, cfg, names):
+    """``do_ray_tracing`` under no_grad, then ``batched_unsupervised_loss``
+    and ``compute_losses`` with their d/d(``names``), on the lens's device."""
+    from torchoptics_tpu_torch.ops import fused_batch
+    with torch.no_grad():
+        res, loss = simulator.do_ray_tracing(specs, lens, cfg)
+    params = [getattr(lens, k).clone().requires_grad_(True) for k in names]
+    trained = lens.replace(**dict(zip(names, params)))
+    lu, lu_dict = fused_batch.batched_unsupervised_loss(specs, trained, cfg)
+    g_lu = [g.cpu() for g in torch.autograd.grad(lu, params)]
+    total, _ = simulator.compute_losses(specs, trained, cfg)
+    g_tot = [g.cpu() for g in torch.autograd.grad(total, params)]
+    return dict(ok=res.ray_ok.cpu(), loss={k: float(v) for k, v in loss.items()},
+                lu=float(lu.detach()), lu_dict={k: v.detach().cpu() for k, v in lu_dict.items()},
+                g_lu=g_lu, total=float(total.detach()), g_tot=g_tot)
+
+
+@pytest.mark.parametrize("name", ["cooke", "mixed"])
+def test_aspheric_population_paths_on_gpu_match_cpu(cuda, name):
+    """On 8 systems of an aspheric population (the Cooke one, or the padded
+    mixed one): ``do_ray_tracing`` (one K4 forward launch),
+    ``batched_unsupervised_loss`` with d/d(c, t, kappa, asph) (one K4
+    forward and one K4 backward) and ``compute_losses`` (one K4 full launch
+    per lens type, forward and backward), on the card and on the CPU. The
+    upper glass path bound is 3.5: the Cooke's glass gap is 3.0, on the
+    default bound's kink (see ``chip_smoke.TIGHT_OFF_KINK``).
+
+    The card's front-end rounds otherwise than the CPU's, and on these
+    randomly aspherized designs the losses' gradients sit near their float32
+    floor: a ray at a failure threshold may flip (a double-Gauss of the
+    mixed population has one, whose flip moves that system's rms by a large
+    share), and one ulp of c moves the CPU's own gradients by up to ~1e-4 of
+    a group's largest, more where a ray flips. So the per-ray masks may
+    differ on at most 4 lanes; on each system whose masks agree the
+    per-system Lu terms are within 1e-5 relative (rms 2e-4), and its rows
+    of each gradient group within 1e-4 plus 4x the CPU's own move under one
+    ulp of c, relative to the group's largest on real surfaces; where all
+    masks agree, the loss values within 1e-5 relative (rms 2e-4)."""
+    from torchoptics_tpu_torch.ops import fused_asphere, fused_batch
+    cfg = simulator.SimulatorConfig(**GEN, trace_engine="fused",
+                                    ray_path_upper_thresholds=(None, 3.5, None))
+    names = ("c", "t", "kappa", "asph")
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        if name == "cooke":
+            specs, lens = zoo.aspheric_population(8, device=device)
+        else:
+            specs, lens = zoo.aspheric_population(8, ("cooke", "double_gauss"), mask_pad=True,
+                                                  device=device)
+        before = (fused_asphere.K4_FWD_LAUNCHES, fused_asphere.K4_BWD_LAUNCHES,
+                  fused_batch.K2_FWD_LAUNCHES)
+        out[device.type] = _population_losses(specs, lens, cfg, names)
+        out[device.type]["launches"] = (fused_asphere.K4_FWD_LAUNCHES - before[0],
+                                        fused_asphere.K4_BWD_LAUNCHES - before[1],
+                                        fused_batch.K2_FWD_LAUNCHES - before[2])
+    nudged = _population_losses(specs, lens.replace(c=lens.c * (1 + 2.0 ** -23)), cfg, names)
+    card, host = out["cuda"], out["cpu"]
+    n_types = 1 if name == "cooke" else 2
+    assert card["launches"] == (2 + n_types, 1 + n_types, 0) and host["launches"] == (0, 0, 0)
+    differ = card["ok"] != host["ok"]
+    assert int(differ.sum()) <= 4, f"{int(differ.sum())} lanes differ"
+    same = ~differ.reshape(differ.shape[0], -1).any(1)
+    if name == "cooke":
+        assert bool(same.all())
+    for key, rtol in (("loss_unsup", 1e-5), ("penalty", 1e-5), ("rms", 2e-4)):
+        got, want = card["lu_dict"][key][same], host["lu_dict"][key][same]
+        assert bool(((got - want).abs() <= rtol * want.abs()).all()), key
+        if bool(same.all()):
+            assert abs(card["loss"][key] - host["loss"][key]) <= rtol * abs(host["loss"][key]), key
+    if bool(same.all()):
+        for key in ("lu", "total"):
+            assert abs(card[key] - host[key]) <= 1e-5 * abs(host[key]), key
+    real = torch.as_tensor(lens.structure.mask) & same[:, None]
+    for grads in ("g_lu", "g_tot"):
+        for k, a, b, n in zip(names, card[grads], host[grads], nudged[grads]):
+            m = real[..., None] if k == "asph" else real
+            scale = float(torch.where(m, b, 0.0).abs().max())
+            gap = float(torch.where(m, a - b, 0.0).abs().max()) / scale
+            floor = float(torch.where(m, n - b, 0.0).abs().max()) / scale
+            assert gap <= 1e-4 + 4 * floor, (grads, k, gap, floor)

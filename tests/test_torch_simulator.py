@@ -124,10 +124,12 @@ def test_entry_evaluates_the_flagship():
 
 
 def test_fused_engine_refuses_batches_and_aspheres(port_lens):
-    """A population of aspheres and custom aggregates still raise on the
-    fused engine; one aspheric system runs (on kernel K3) and gives the
-    pure-torch engine's loss; a population runs (on kernel K2): two copies
-    of the flagship give the flagship's loss."""
+    """Custom aggregates still raise on the fused engine; one aspheric system
+    runs (on kernel K3) and gives the pure-torch engine's loss; a population
+    runs (on kernel K2): two copies of the flagship give the flagship's
+    loss; a population of aspheres runs (on kernel K4; it raised before K4
+    was ported): two copies of the aspherized flagship give K3's loss and
+    outputs."""
     specs, lens = port_lens
     cfg = simulator.SimulatorConfig(**CONFIG, trace_engine="fused")
     pair = np.array([0, 0])
@@ -143,8 +145,14 @@ def test_fused_engine_refuses_batches_and_aspheres(port_lens):
     for key in RTOL:
         np.testing.assert_allclose(float(asph_loss[key]), float(asph_want[key]), rtol=RTOL[key],
                                    err_msg=key)
-    with pytest.raises(NotImplementedError, match="K4"):
-        simulator.do_ray_tracing(asph_specs[pair], asph_lens[pair], cfg)
+    asph_res, asph_pair = simulator.do_ray_tracing(asph_specs[pair], asph_lens[pair], cfg)
+    asph_one, _ = simulator.do_ray_tracing(asph_specs, asph_lens, cfg)
+    assert asph_res.x.shape == (2, 3, 64, 3)
+    for a, b in zip(asph_res[:6], asph_one[:6]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[0])
+    for key in RTOL:
+        np.testing.assert_allclose(float(asph_pair[key]), float(asph_loss[key]), rtol=1e-6,
+                                   err_msg=key)
     with pytest.raises(NotImplementedError, match="aggregate"):
         simulator.do_ray_tracing(specs, lens, cfg, aggregate=("z",))
 

@@ -1,6 +1,7 @@
 // Device math of the fused conic/asphere trace: K3 (one system,
-// fused_asphere_fwd.cu / fused_asphere_bwd.cu). The population kernel K4
-// will supply only its indexing, as K2 does over trace_common.cuh.
+// fused_asphere_fwd.cu / fused_asphere_bwd.cu) and K4 (a population of
+// systems, fused_asphere_batch_fwd.cu / fused_asphere_batch_bwd.cu), which
+// supplies only its indexing, as K2 does over trace_common.cuh.
 //
 // One copy of: the asphere tables in shared memory, the sag and its slope,
 // their closed-form partials, the Newton solve (the sphere guess, then
@@ -652,7 +653,7 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE == 2>& s, int n_
   dcyp = dcy;
 }
 
-// The bounds every K3 launcher checks.
+// The bounds every K3 and K4 launcher checks.
 inline bool bad_shape_a(int n_surf, int n_w, int n_asph, int n_per_w, int n, int n_iter,
                         int mode) {
   return bad_shape(n_surf, n_w, n_per_w, n, mode) || n_asph < 1 || n_asph > MAX_ASPH ||

@@ -188,16 +188,47 @@ def population(name: str, n: int, seed: int = 0, device="cuda") -> Tuple[Specs, 
     """``n`` copies of a zoo prescription with every curvature perturbed by
     2 % (seeded numpy normal draws): the homogeneous population of the
     generator-loss benchmark (``benchmarks/bench_generator_loss.py``
-    ``make_population``), with the same draws for the same seed."""
+    ``make_population``), with the same draws for the same seed. A
+    prescription's conic constants and asphere coefficients are carried,
+    unperturbed, to every copy."""
     p = get_prescription(name)
     rng = np.random.default_rng(seed)
     c = np.tile(np.asarray(p["c"], np.float32), (n, 1))
     c *= 1.0 + 0.02 * rng.standard_normal(c.shape).astype(np.float32)
     base_specs, base = build(name, device=device)
     structure = Structure(tuple(p["stop_idx"]) * n, tuple(p["sequence"]) * n)
-    lens = Lens(structure, torch.tensor(c, device=device), base.t.repeat(n, 1),
-                base.nd.repeat(n, 1), base.v.repeat(n, 1))
+    tile = lambda a: None if a is None else a.repeat(n, *([1] * (a.ndim - 1)))
+    lens = Lens(structure, torch.tensor(c, device=device), tile(base.t), tile(base.nd),
+                tile(base.v), kappa=tile(base.kappa), asph=tile(base.asph))
     return Specs(structure, base_specs.epd.repeat(n), base_specs.hfov.repeat(n)), lens
+
+
+def aspheric_population(n: int, name="cooke", seed: int = 0, asph_seed: int = 1,
+                        device="cuda", mask_pad: bool = False) -> Tuple[Specs, Lens]:
+    """A population of conic/asphere designs: ``population(name, n, seed)``
+    (the 2 % curvature draw), then a conic constant kappa ~ U(-0.3, 0.1) on
+    every surface, (B, S), and two even-asphere terms (r⁴, r⁶) drawn as
+    U(-1, 1) x [1e-5, 1e-8], (B, S, 2), both from
+    ``np.random.default_rng(asph_seed)`` in that order: the aspherized
+    population of the generator-loss benchmark's "pallas-asphere" row
+    (``benchmarks/bench_generator_loss.py``), the same numbers for the same
+    seeds.
+
+    With ``mask_pad`` the base is the padded mixed population
+    ``mixed_population(n, name, seed)`` (``name`` a tuple of zoo names) and
+    the draws are multiplied by its surface mask, as the JAX package's
+    batched-asphere parity test draws them: padded slots carry zero conics
+    and coefficients."""
+    if mask_pad:
+        specs, lens = mixed_population(n, name, seed=seed, device=device)
+    else:
+        specs, lens = population(name, n, seed=seed, device=device)
+    rng = np.random.default_rng(asph_seed)
+    mask = lens.structure.mask
+    kappa = rng.uniform(-0.3, 0.1, mask.shape) * mask
+    asph = rng.uniform(-1, 1, mask.shape + (2,)) * np.asarray([1e-5, 1e-8]) * mask[..., None]
+    as_tensor = lambda a: torch.tensor(a.astype(np.float32), device=device)
+    return specs, lens.replace(kappa=as_tensor(kappa), asph=as_tensor(asph))
 
 
 def mixed_population(n: int, names=("cooke", "double_gauss"), seed: int = 0,

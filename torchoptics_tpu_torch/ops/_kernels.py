@@ -127,6 +127,10 @@ def load() -> ctypes.CDLL:
     lib.k3_fwd_launch.restype = i
     lib.k3_bwd_launch.argtypes = [p] * 12 + [f] + [p] * 9 + [i] * 8 + [p] * 5 + [p]
     lib.k3_bwd_launch.restype = i
+    lib.k4_fwd_launch.argtypes = [p] * 13 + [f] + [i] * 9 + [p] * 11 + [p]
+    lib.k4_fwd_launch.restype = i
+    lib.k4_bwd_launch.argtypes = [p] * 13 + [f] + [p] * 9 + [i] * 9 + [p] * 5 + [p]
+    lib.k4_bwd_launch.restype = i
     lib.k1_error_string.argtypes = [i]
     lib.k1_error_string.restype = ctypes.c_char_p
     for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block", "k3_max_asph"):

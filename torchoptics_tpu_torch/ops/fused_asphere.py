@@ -1,22 +1,32 @@
-"""The fused conic/asphere trace of one lens system: kernels, front-end, losses.
+"""The fused conic/asphere trace of one lens system and of a population:
+kernels, front-end, losses.
 
-PyTorch counterpart of the single-system part of
-``torchoptics_tpu.ops.pallas_asphere``. The Pallas TPU kernels there become
-kernel K3, hand-written in CUDA C++:
+PyTorch counterpart of ``torchoptics_tpu.ops.pallas_asphere``. Its Pallas
+TPU kernels become kernels K3 (one system) and K4 (a population),
+hand-written in CUDA C++:
 
 * K3 forward (``_fwd_kernel_a``) in ``csrc/fused_asphere_fwd.cu``, in plain,
   Lu and full penalty modes;
 * K3 backward (``_bwd_kernel_a``), the hand adjoint through the Newton
-  polish step, in ``csrc/fused_asphere_bwd.cu``, in the same three modes.
+  polish step, in ``csrc/fused_asphere_bwd.cu``, in the same three modes;
+* K4 forward and backward (``_fwd_kernel_ab``, ``_bwd_kernel_ab``) in
+  ``csrc/fused_asphere_batch_fwd.cu`` and ``csrc/fused_asphere_batch_bwd.cu``:
+  K3 over a grid of (ray blocks x systems), with per-system z0 (B,), c,
+  kappa, t (B, S), mu (B, S, W), asph (B, S, K), ref_z (B, S+1) and, for a
+  padded population of mixed lens types, a (B, S) surface mask with
+  ``fused_batch``'s semantics.
 
-Their device code lives in ``csrc/asphere_common.cuh``. Both are reached
-through one ``torch.autograd.Function`` behind :func:`trace_fused_asphere`
-and :func:`trace_fused_asphere_full`, which saves only its inputs. On CUDA
-tensors it checks them and launches the kernels, or raises; it never falls
-back. On CPU tensors it runs the plain versions of both passes,
+Their device code lives in ``csrc/asphere_common.cuh``. Each pair is reached
+through one ``torch.autograd.Function`` (behind :func:`trace_fused_asphere`,
+:func:`trace_fused_asphere_full`, :func:`trace_fused_asphere_batch` and
+:func:`trace_fused_asphere_batch_full`), which saves only its inputs. On
+CUDA tensors it checks them and launches the kernels, or raises; it never
+falls back. On CPU tensors it runs the plain versions,
+:func:`trace_fused_asphere_batch_reference` and
+:func:`trace_fused_asphere_batch_backward_reference` (K3's,
 :func:`trace_fused_asphere_reference` and
-:func:`trace_fused_asphere_backward_reference`; on the GPU these are what the
-kernels are checked against.
+:func:`trace_fused_asphere_backward_reference`, are these on a population
+of one); on the GPU these are what the kernels are checked against.
 
 Per surface: the closed-form sphere guess (the vertex plane where it
 misses), ``n_iter`` Newton steps treated as constants, one differentiable
@@ -27,11 +37,12 @@ as the pure-torch engine (``ops.surfaces``) does: the two agree in exact
 arithmetic and round differently. Integer powers of r² are chains of
 products, p_{j+1} = p_j · r², and 1/sqrt stands for rsqrt, the same in the
 kernels and here, so that masks, plain-mode coordinates and per-ray
-cotangents agree bit for bit. The parameter cotangents are summed over rays
-in float64 and rounded once.
+cotangents agree bit for bit. The parameter cotangents are summed over each
+system's rays in float64 and rounded once.
 
-The front-end is K1's (``fused_trace.prepare_fused_inputs``), wavelength-outer:
-ray i has wavelength ``min(i // n_per_w, W - 1)`` with ``n_per_w = F * P``.
+The front-ends are K1's and K2's (``fused_trace.prepare_fused_inputs``,
+``fused_batch.prepare_fused_inputs_batch``), wavelength-outer: ray i of a
+system has wavelength ``min(i // n_per_w, W - 1)`` with ``n_per_w = F * P``.
 """
 
 from __future__ import annotations
@@ -43,16 +54,18 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from torchoptics_tpu_torch.models.structure import Lens
-from torchoptics_tpu_torch.ops import fused_trace
+from torchoptics_tpu_torch.ops import fused_batch, fused_trace
 from torchoptics_tpu_torch.ops.fused_batch import _theta_norm, _widx
 from torchoptics_tpu_torch.ops.fused_trace import (
     _hinge, _hinge_grad, _mode, _theta_norm_adjoint)
 
-#: Launches of the K3 forward and backward CUDA kernels in this process. The
-#: wrappers add one per launch; reset them to 0 to count the launches of one
-#: run.
+#: Launches of the K3 and K4 forward and backward CUDA kernels in this
+#: process. The wrappers add one per launch; reset them to 0 to count the
+#: launches of one run.
 K3_FWD_LAUNCHES = 0
 K3_BWD_LAUNCHES = 0
+K4_FWD_LAUNCHES = 0
+K4_BWD_LAUNCHES = 0
 
 EPS = 1e-6
 NEWTON_ITERS = 10
@@ -60,8 +73,10 @@ NEWTON_TOL = 1e-5
 
 
 # ---------------------------------------------------------------------------
-# Kernel K3: the plain versions of both passes. ``a`` is one surface's list
-# of asphere coefficients, each a scalar tensor.
+# Kernels K3 and K4: the plain versions of both passes. One copy of the
+# surface math, over a leading system axis: K3's plain versions are K4's on
+# a population of one. ``a`` is one surface's list of asphere coefficients,
+# each a (B, 1) column (a scalar tensor where a caller passes one).
 # ---------------------------------------------------------------------------
 
 
@@ -349,40 +364,140 @@ def _bwd_surface_a(c, kappa, mu, a, pre, loc, d, dcos2_extra=None, dcos2p_extra=
     return (dx, dy, dz, dcx, dcy, dcz), dc_ray, dkap_ray, dt_ray, dmu_ray, da_ray
 
 
-def _trace(xp, yp, cy, z0, c, kappa, t, mu, asph, allow_backward, n_per_w, n_iter, keep):
-    """The forward trace surface by surface; ``keep(k, pre, loc, kill,
-    post)`` sees each surface. Returns the state after the last surface."""
-    n, n_surf = xp.shape[0], c.shape[0]
-    mu_ray = mu[:, _widx(n, n_per_w, mu.shape[1], xp.device)]          # (S, N)
+def _trace_batch(xp, yp, cy, z0, c, kappa, t, mu, asph, allow_backward, n_per_w, n_iter, keep,
+                 mask=None):
+    """The forward trace of a population surface by surface, on (B, N) rays
+    with per-system parameters; ``keep(k, pre, loc, kill, post)`` sees each
+    surface, ``kill`` the backward-ray test at k > 0, gated by mask[:, k-1]
+    where a ``mask`` is given. Returns the state after the last surface."""
+    n_sys, n = xp.shape
+    n_surf = c.shape[1]
+    mu_ray = mu[:, :, _widx(n, n_per_w, mu.shape[2], xp.device)]     # (B, S, N)
     x, y = xp, yp
-    z = z0.reshape(1).expand(n)
+    z = z0[:, None].expand(n_sys, n)
     cx = torch.zeros_like(xp)
     cz = torch.sqrt(1.0 - cy * cy)
     ok = torch.ones(xp.shape, dtype=torch.bool, device=xp.device)
     for k in range(n_surf):
         pre = (x, y, z, cx, cy, cz, ok)
-        a = [asph[k, j] for j in range(asph.shape[1])]
-        (x, y, z, cx, cy, cz, ok), loc = _fwd_surface_a(c[k], kappa[k], t[k], mu_ray[k], a,
-                                                        x, y, z, cx, cy, cz, ok, n_iter)
+        a = [asph[:, k, j, None] for j in range(asph.shape[2])]
+        tk = t[:, k, None]
+        (x, y, z, cx, cy, cz, ok), loc = _fwd_surface_a(c[:, k, None], kappa[:, k, None], tk,
+                                                        mu_ray[:, k], a, x, y, z, cx, cy, cz,
+                                                        ok, n_iter)
         kill = None
         if k > 0:
             kill = (loc["delta_z"] < 0) & loc["ok1"]
+            if mask is not None:
+                kill = kill & mask[:, k - 1, None]
             if not allow_backward:
                 ok = ok & ~kill
                 x, y, cx, cy = (torch.where(kill, 0.0, v) for v in (x, y, cx, cy))
-                z = torch.where(kill, -t[k], z)
+                z = torch.where(kill, -tk, z)
                 cz = torch.where(kill, 1.0, cz)
         keep(k, pre, loc, kill, (x, y, z, cx, cy, cz, ok))
     return x, y, z, cx, cy, cz, ok
+
+
+def _one(inputs):
+    """Single-system inputs (z0 a scalar, the rest without the B axis) as a
+    population of one."""
+    return [a.reshape(1) if i == 3 else a[None] for i, a in enumerate(inputs)]
+
+
+def _trace(xp, yp, cy, z0, c, kappa, t, mu, asph, allow_backward, n_per_w, n_iter, keep):
+    """K3's trace: ``_trace_batch`` on a population of one; ``keep`` sees (N,)
+    tensors."""
+    def keep_one(k, pre, loc, kill, post):
+        keep(k, tuple(v[0] for v in pre), {name: v[0] for name, v in loc.items()},
+             None if kill is None else kill[0], tuple(v[0] for v in post))
+    state = _trace_batch(*_one((xp, yp, cy, z0, c, kappa, t, mu, asph)), allow_backward,
+                         n_per_w, n_iter, keep_one)
+    return tuple(v[0] for v in state)
+
+
+def trace_fused_asphere_batch_reference(xp, yp, cy, z0, c, kappa, t, mu, asph, penalties,
+                                        allow_backward: bool, n_per_w: int,
+                                        n_iter: int = NEWTON_ITERS, mask=None, ref_z=None,
+                                        path_bounds=(), angle_thr=0.25):
+    """Plain PyTorch version of kernel K4 forward, a vectorised transcription
+    of ``pallas_asphere._fwd_kernel_ab``: K3's surface step on (B, N) ray
+    blocks, each system with its own parameters, in the kernel's order of
+    operations, so that the two agree bit for bit on masks and plain-mode
+    coordinates. Autograd differentiates it (the Newton steps are constants).
+
+    Args:
+      xp, yp, cy: (B, N) absolute pupil coordinates and launch direction
+        sines, each system's rays in wavelength-outer flat order.
+      z0: (B,) entrance-pupil positions.
+      c, kappa, t: (B, S); mu: (B, S, W), ray i of a system uses column
+        min(i // n_per_w, W-1); asph: (B, S, K) coefficients of r⁴, r⁶, ...
+      penalties, allow_backward, ref_z (B, S+1), path_bounds, angle_thr: as
+        for ``fused_trace.trace_fused_reference``; the bounds are shared.
+      n_iter: Newton steps before the polish step.
+      mask: (B, S) bool tensor of real surfaces, or None when no surface is
+        padded; the semantics of ``fused_batch.trace_fused_batch_reference``
+        (padded surfaces traced with the conic and coefficients they carry).
+
+    Returns (x, y, cx, cy, ray_ok, ray_backward[, pen_theta, pen_theta_p,
+    pen_zrelu[, pen_path, pen_angle]]), each (B, N).
+    """
+    mode = _mode(penalties)
+    n_surf = c.shape[1]
+    gate = ((lambda k, v: v) if mask is None
+            else (lambda k, v: torch.where(mask[:, k, None], v, 0.0)))
+    sums = dict(bw=torch.zeros(xp.shape, dtype=torch.bool, device=xp.device),
+                pth=torch.zeros_like(xp), ptp=torch.zeros_like(xp), pz=torch.zeros_like(xp),
+                ppath=torch.zeros_like(xp), pang=torch.zeros_like(xp), z_prev=None)
+    ref = lambda j: ref_z[:, j, None]
+
+    def keep(k, pre, loc, kill, post):
+        z, ok = post[2], post[6]
+        if k > 0 and allow_backward:
+            sums["bw"] = sums["bw"] | kill
+        if mode:
+            sums["pth"] = sums["pth"] + gate(k, _theta_norm(loc["cos2"], ok))
+            sums["ptp"] = sums["ptp"] + gate(k, _theta_norm(loc["cos2p"], ok))
+            sums["pz"] = sums["pz"] + gate(k, torch.clamp(z, min=0.0))
+        if mode == 2:
+            sums["pang"] = (sums["pang"] + gate(k, torch.clamp(angle_thr - loc["cos2"], min=0.0))
+                            + gate(k, torch.clamp(angle_thr - loc["cos2p"], min=0.0)))
+            if k > 0:
+                delta = (z + ref(k)) - (sums["z_prev"] + ref(k - 1))
+                sums["ppath"] = sums["ppath"] + _hinge(delta, *path_bounds[k - 1])
+            sums["z_prev"] = z
+
+    x, y, z, cx, cy, cz, ok = _trace_batch(xp, yp, cy, z0, c, kappa, t, mu, asph, allow_backward,
+                                           n_per_w, n_iter, keep, mask)
+    if mode == 2:
+        # The image-plane entry: ref_z[S] repeats the last vertex.
+        delta = ref(n_surf) - (sums["z_prev"] + ref(n_surf - 1))
+        sums["ppath"] = sums["ppath"] + _hinge(delta, *path_bounds[n_surf - 1])
+
+    # Transfer to the image plane.
+    delta_z = -z
+    dist = delta_z / cz
+    x = x + dist * cx
+    y = y + dist * cy
+    went = (delta_z < 0) & ok
+    if mask is not None:
+        went = went & mask[:, n_surf - 1, None]
+    bw = sums["bw"]
+    if allow_backward:
+        bw = bw | went
+    else:
+        ok = ok & ~went
+    return ((x, y, cx, cy, ok, bw) + ((sums["pth"], sums["ptp"], sums["pz"]) if mode else ())
+            + ((sums["ppath"], sums["pang"]) if mode == 2 else ()))
 
 
 def trace_fused_asphere_reference(xp, yp, cy, z0, c, kappa, t, mu, asph, penalties,
                                   allow_backward: bool, n_per_w: int,
                                   n_iter: int = NEWTON_ITERS, ref_z=None, path_bounds=(),
                                   angle_thr=0.25):
-    """Plain PyTorch version of kernel K3 forward, a vectorised transcription
-    of ``pallas_asphere._fwd_kernel_a`` in the kernel's order of operations,
-    so that the two agree bit for bit on masks and plain-mode coordinates.
+    """Plain PyTorch version of kernel K3 forward (``pallas_asphere._fwd_kernel_a``):
+    the population version :func:`trace_fused_asphere_batch_reference` on a
+    population of one system without padding, whose arithmetic is K3's.
 
     Args:
       xp, yp: (N,) absolute pupil coordinates, wavelength-outer flat order.
@@ -398,70 +513,34 @@ def trace_fused_asphere_reference(xp, yp, cy, z0, c, kappa, t, mu, asph, penalti
     Returns (x, y, cx, cy, ray_ok, ray_backward[, pen_theta, pen_theta_p,
     pen_zrelu[, pen_path, pen_angle]]), each (N,).
     """
-    mode = _mode(penalties)
-    n_surf = c.shape[0]
-    sums = dict(bw=torch.zeros(xp.shape, dtype=torch.bool, device=xp.device),
-                pth=torch.zeros_like(xp), ptp=torch.zeros_like(xp), pz=torch.zeros_like(xp),
-                ppath=torch.zeros_like(xp), pang=torch.zeros_like(xp), z_prev=None)
-
-    def keep(k, pre, loc, kill, post):
-        z, ok = post[2], post[6]
-        if k > 0 and allow_backward:
-            sums["bw"] = sums["bw"] | kill
-        if mode:
-            sums["pth"] = sums["pth"] + _theta_norm(loc["cos2"], ok)
-            sums["ptp"] = sums["ptp"] + _theta_norm(loc["cos2p"], ok)
-            sums["pz"] = sums["pz"] + torch.clamp(z, min=0.0)
-        if mode == 2:
-            sums["pang"] = (sums["pang"] + torch.clamp(angle_thr - loc["cos2"], min=0.0)
-                            + torch.clamp(angle_thr - loc["cos2p"], min=0.0))
-            if k > 0:
-                delta = (z + ref_z[k]) - (sums["z_prev"] + ref_z[k - 1])
-                sums["ppath"] = sums["ppath"] + _hinge(delta, *path_bounds[k - 1])
-            sums["z_prev"] = z
-
-    x, y, z, cx, cy, cz, ok = _trace(xp, yp, cy, z0, c, kappa, t, mu, asph, allow_backward,
-                                     n_per_w, n_iter, keep)
-    if mode == 2:
-        # The image-plane entry: ref_z[S] repeats the last vertex.
-        delta = ref_z[n_surf] - (sums["z_prev"] + ref_z[n_surf - 1])
-        sums["ppath"] = sums["ppath"] + _hinge(delta, *path_bounds[n_surf - 1])
-
-    # Transfer to the image plane.
-    delta_z = -z
-    dist = delta_z / cz
-    x = x + dist * cx
-    y = y + dist * cy
-    went = (delta_z < 0) & ok
-    bw = sums["bw"]
-    if allow_backward:
-        bw = bw | went
-    else:
-        ok = ok & ~went
-    return ((x, y, cx, cy, ok, bw) + ((sums["pth"], sums["ptp"], sums["pz"]) if mode else ())
-            + ((sums["ppath"], sums["pang"]) if mode == 2 else ()))
+    outs = trace_fused_asphere_batch_reference(
+        *_one((xp, yp, cy, z0, c, kappa, t, mu, asph)), penalties, allow_backward, n_per_w,
+        n_iter, None, None if ref_z is None else ref_z[None], path_bounds, angle_thr)
+    return tuple(v[0] for v in outs)
 
 
-def trace_fused_asphere_backward_reference(inputs, cotangents, penalties,
-                                           allow_backward: bool, n_per_w: int,
-                                           n_iter: int = NEWTON_ITERS, path_bounds=(),
-                                           angle_thr=0.25):
-    """Plain PyTorch version of kernel K3 backward, a vectorised transcription
-    of ``pallas_asphere._bwd_kernel_a``: the forward surface by surface, then
-    the hand adjoint in reverse, one torch operation per rounding as the
-    kernel does, so that the per-ray cotangents agree with the kernel's bit
-    for bit. The parameter cotangents are summed over rays in float64 and
-    returned in float32.
+def trace_fused_asphere_batch_backward_reference(inputs, cotangents, penalties,
+                                                 allow_backward: bool, n_per_w: int,
+                                                 n_iter: int = NEWTON_ITERS, mask=None,
+                                                 path_bounds=(), angle_thr=0.25):
+    """Plain PyTorch version of kernel K4 backward, a vectorised transcription
+    of ``pallas_asphere._bwd_kernel_ab``: the forward surface by surface on
+    (B, N) ray blocks, then the hand adjoint in reverse, one torch operation
+    per rounding as the kernel does, so that the per-ray cotangents agree
+    with the kernel's bit for bit. The parameter cotangents are per system,
+    summed over its rays in float64 and returned in float32. The penalty
+    cotangents are gated by the surface mask as the forward gates the sums.
 
     Args:
       inputs: (xp, yp, cy, z0, c, kappa, t, mu, asph[, ref_z]) as for the
         forward.
       cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), each
-        (N,): the cotangents of the forward's float outputs.
-      penalties, allow_backward, n_per_w, n_iter, path_bounds, angle_thr: as
-        for the forward.
+        (B, N): the cotangents of the forward's float outputs.
+      penalties, allow_backward, n_per_w, n_iter, mask, path_bounds,
+        angle_thr: as for the forward.
 
-    Returns (dxp, dyp, dcy, dz0, dc, dkappa, dt, dmu, dasph[, dref_z]).
+    Returns (dxp, dyp, dcy (B, N), dz0 (B,), dc, dkappa, dt (B, S), dmu
+    (B, S, W), dasph (B, S, K)[, dref_z (B, S+1)]).
     """
     mode = _mode(penalties)
     xp, yp, cyin, z0, c, kappa, t, mu, asph = inputs[:9]
@@ -471,9 +550,12 @@ def trace_fused_asphere_backward_reference(inputs, cotangents, penalties,
         dpth, dptp, dpz = cotangents[4:7]
     if mode == 2:
         dppath, dpang = cotangents[7:9]
-    n, n_surf, n_w, n_asph = xp.shape[0], c.shape[0], mu.shape[1], asph.shape[1]
-    mu_ray = mu[:, _widx(n, n_per_w, n_w, xp.device)]
-    total = lambda v: torch.sum(v, dtype=torch.float64)
+    n_sys, n = xp.shape
+    n_surf, n_w, n_asph = c.shape[1], mu.shape[2], asph.shape[2]
+    mu_ray = mu[:, :, _widx(n, n_per_w, n_w, xp.device)]             # (B, S, N)
+    total = lambda v: torch.sum(v, dim=1, dtype=torch.float64)       # (B,)
+    gate = ((lambda k, v: v) if mask is None
+            else (lambda k, v: torch.where(mask[:, k, None], v, 0.0)))
 
     pres, locs, kills = [], [], []
 
@@ -482,8 +564,8 @@ def trace_fused_asphere_backward_reference(inputs, cotangents, penalties,
         locs.append(loc)
         kills.append(None if allow_backward else kill)
 
-    x, y, z, cx, cy, cz, ok = _trace(xp, yp, cyin, z0, c, kappa, t, mu, asph, allow_backward,
-                                     n_per_w, n_iter, keep)
+    x, y, z, cx, cy, cz, ok = _trace_batch(xp, yp, cyin, z0, c, kappa, t, mu, asph,
+                                           allow_backward, n_per_w, n_iter, keep, mask)
     cz0 = pres[0][5]
 
     # Image-transfer adjoint.
@@ -496,19 +578,20 @@ def trace_fused_asphere_backward_reference(inputs, cotangents, penalties,
     dx, dy = dx_img, dy_img
 
     zpost = lambda m: pres[m + 1][2] if m + 1 < n_surf else z
+    ref = lambda j: ref_z[:, j, None]
 
     def hinge_cot(j):
         """dppath · d(hinge_j)/d(delta_j) for path gap j."""
         if j == n_surf - 1:
-            delta = ref_z[n_surf] - (zpost(n_surf - 1) + ref_z[n_surf - 1])
+            delta = ref(n_surf) - (zpost(n_surf - 1) + ref(n_surf - 1))
         else:
-            delta = (zpost(j + 1) + ref_z[j + 1]) - (zpost(j) + ref_z[j])
+            delta = (zpost(j + 1) + ref(j + 1)) - (zpost(j) + ref(j))
         return dppath * _hinge_grad(delta, *path_bounds[j])
 
     dc, dkap, dt = [None] * n_surf, [None] * n_surf, [None] * n_surf
     dmu = [[None] * n_w for _ in range(n_surf)]
     da = [[None] * n_asph for _ in range(n_surf)]
-    dref = [torch.zeros((), dtype=torch.float64, device=xp.device)] * (n_surf + 1)
+    dref = [torch.zeros(n_sys, dtype=torch.float64, device=xp.device)] * (n_surf + 1)
     bounds = [(min(w * n_per_w, n), n if w == n_w - 1 else min((w + 1) * n_per_w, n))
               for w in range(n_w)]
     for k in range(n_surf - 1, -1, -1):
@@ -519,9 +602,12 @@ def trace_fused_asphere_backward_reference(inputs, cotangents, penalties,
             if kill is not None:
                 ok_end = ok_end & ~kill
             # pen_z += relu(z after surface k): into the incoming z adjoint.
-            dz = dz + dpz * (zpost(k) > 0).to(dz.dtype)
-            dcos2_extra = _theta_norm_adjoint(loc["cos2"], ok_end, dpth)
-            dcos2p_extra = _theta_norm_adjoint(loc["cos2p"], ok_end, dptp)
+            relu_on = zpost(k) > 0
+            if mask is not None:
+                relu_on = relu_on & mask[:, k, None]
+            dz = dz + dpz * relu_on.to(dz.dtype)
+            dcos2_extra = gate(k, _theta_norm_adjoint(loc["cos2"], ok_end, dpth))
+            dcos2p_extra = gate(k, _theta_norm_adjoint(loc["cos2p"], ok_end, dptp))
         if mode == 2:
             # z after surface k enters gap k-1 (+) and gap k (-).
             hp_k = hinge_cot(k)
@@ -531,35 +617,61 @@ def trace_fused_asphere_backward_reference(inputs, cotangents, penalties,
             s = total(hp_k)
             dref[k + 1] = dref[k + 1] + s
             dref[k] = dref[k] - s
-            dcos2_extra = dcos2_extra - dpang * (loc["cos2"] < angle_thr).to(dz.dtype)
-            dcos2p_extra = dcos2p_extra - dpang * (loc["cos2p"] < angle_thr).to(dz.dtype)
+            dcos2_extra = dcos2_extra - gate(k, dpang * (loc["cos2"] < angle_thr).to(dz.dtype))
+            dcos2p_extra = dcos2p_extra - gate(
+                k, dpang * (loc["cos2p"] < angle_thr).to(dz.dtype))
         dt_kill = 0.0
         if kill is not None:
             # Killed lanes got z = -t (dz flows to dt) and a zeroed state.
             dt_kill = -total(torch.where(kill, dz, 0.0))
             dx, dy, dz, dcx, dcy, dcz = (torch.where(kill, 0.0, v)
                                          for v in (dx, dy, dz, dcx, dcy, dcz))
-        a = [asph[k, j] for j in range(n_asph)]
+        a = [asph[:, k, j, None] for j in range(n_asph)]
         (dx, dy, dz, dcx, dcy, dcz), dc_ray, dkap_ray, dt_ray, dmu_ray, da_ray = _bwd_surface_a(
-            c[k], kappa[k], mu_ray[k], a, pres[k], loc, (dx, dy, dz, dcx, dcy, dcz),
-            dcos2_extra, dcos2p_extra)
+            c[:, k, None], kappa[:, k, None], mu_ray[:, k], a, pres[k], loc,
+            (dx, dy, dz, dcx, dcy, dcz), dcos2_extra, dcos2p_extra)
         dc[k] = total(dc_ray)
         dkap[k] = total(dkap_ray)
         dt[k] = total(dt_ray) + dt_kill
         for w, (lo, hi) in enumerate(bounds):
-            dmu[k][w] = total(dmu_ray[lo:hi])
+            dmu[k][w] = total(dmu_ray[:, lo:hi])
         for j in range(n_asph):
             da[k][j] = total(da_ray[j])
 
     # Launch adjoint: cz0 = sqrt(1 - cy^2), cx0 = 0 (a constant).
     dcy = dcy + dcz * (-cyin / cz0)
-    f32 = lambda vals: torch.stack(vals).to(torch.float32)
-    grads = (dx.contiguous(), dy.contiguous(), dcy, total(dz).to(torch.float32).reshape(z0.shape),
-             f32(dc), f32(dkap), f32(dt), torch.stack([f32(row) for row in dmu]),
-             torch.stack([f32(row) for row in da]))
+    f32 = lambda vals: torch.stack(vals, dim=1).to(torch.float32)
+    grads = (dx.contiguous(), dy.contiguous(), dcy, total(dz).to(torch.float32), f32(dc),
+             f32(dkap), f32(dt), torch.stack([f32(row) for row in dmu], dim=1),
+             torch.stack([f32(row) for row in da], dim=1))
     if mode == 2:
         grads += (f32(dref),)
     return grads
+
+
+def trace_fused_asphere_backward_reference(inputs, cotangents, penalties,
+                                           allow_backward: bool, n_per_w: int,
+                                           n_iter: int = NEWTON_ITERS, path_bounds=(),
+                                           angle_thr=0.25):
+    """Plain PyTorch version of kernel K3 backward (``pallas_asphere._bwd_kernel_a``):
+    the population version :func:`trace_fused_asphere_batch_backward_reference`
+    on a population of one system without padding, whose arithmetic is K3's.
+
+    Args:
+      inputs: (xp, yp, cy, z0, c, kappa, t, mu, asph[, ref_z]) as for the
+        forward.
+      cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), each
+        (N,): the cotangents of the forward's float outputs.
+      penalties, allow_backward, n_per_w, n_iter, path_bounds, angle_thr: as
+        for the forward.
+
+    Returns (dxp, dyp, dcy, dz0, dc, dkappa, dt, dmu, dasph[, dref_z]).
+    """
+    z0 = inputs[3]
+    grads = trace_fused_asphere_batch_backward_reference(
+        _one(inputs), [v[None] for v in cotangents], penalties, allow_backward, n_per_w, n_iter,
+        None, path_bounds, angle_thr)
+    return tuple(g.reshape(z0.shape) if i == 3 else g[0] for i, g in enumerate(grads))
 
 
 # ---------------------------------------------------------------------------
@@ -723,19 +835,191 @@ def trace_fused_asphere_full(xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z,
 
 
 # ---------------------------------------------------------------------------
+# Kernel K4: the CUDA wrappers and the autograd Function.
+# ---------------------------------------------------------------------------
+
+
+def _check_k4_inputs(inputs, mask, n_per_w, n_iter, lib):
+    xp, yp, cy, z0, c, kappa, t, mu, asph = inputs[:9]
+    spherical = (xp, yp, cy, z0, c, t, mu) + tuple(inputs[9:])
+    fused_batch._check_k2_inputs(spherical, mask, n_per_w, lib.k1_max_surf(), lib.k1_max_w(),
+                                 kernel="K4")
+    fused_trace._check_tensors(dict(kappa=kappa, asph=asph), xp.device)
+    if kappa.shape != c.shape or asph.ndim != 3 or asph.shape[:2] != c.shape:
+        raise ValueError(f"kappa must be (B, S) and asph (B, S, K) with (B, S) = "
+                         f"{tuple(c.shape)}, got {tuple(kappa.shape)}, {tuple(asph.shape)}")
+    if not 1 <= asph.shape[2] <= lib.k3_max_asph():
+        raise ValueError(f"K4 takes 1..{lib.k3_max_asph()} asphere coefficients, got "
+                         f"{asph.shape[2]}")
+    if n_iter < 0:
+        raise ValueError(f"n_iter must be >= 0, got {n_iter}")
+
+
+def _launch_k4_fwd(inputs, penalties, allow_backward, n_per_w, n_iter, mask, path_bounds,
+                   angle_thr):
+    global K4_FWD_LAUNCHES
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    mode = _mode(penalties)
+    _check_k4_inputs(inputs, mask, n_per_w, n_iter, lib)
+    xp, yp, cy, z0, c, kappa, t, mu, asph = inputs[:9]
+    n_sys, n = xp.shape
+    ref_z, lo, hi = fused_trace._full_args(mode, inputs[9] if mode == 2 else None,
+                                           path_bounds, c.shape[1], xp.device)
+    new = lambda dtype: torch.empty(xp.shape, dtype=dtype, device=xp.device)
+    outs = [new(torch.float32) for _ in range(4)] + [new(torch.bool) for _ in range(2)]
+    outs += [new(torch.float32) for _ in range((0, 3, 5)[mode])]
+    ptr = fused_batch._ptr
+    pens = [ptr(v) for v in outs[6:]] + [None] * (5 - len(outs[6:]))
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        err = lib.k4_fwd_launch(
+            *map(ptr, (xp, yp, cy, z0, c, kappa, t, mu, asph, mask, ref_z, lo, hi)),
+            float(angle_thr), n_sys, n, c.shape[1], mu.shape[2], asph.shape[2], n_per_w, n_iter,
+            mode, int(allow_backward), *map(ptr, outs[:6]), *pens, stream)
+    fused_trace._raise_on_error(lib, err, "K4 forward kernel")
+    K4_FWD_LAUNCHES += 1
+    return tuple(outs)
+
+
+def _launch_k4_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, n_iter, mask,
+                   path_bounds, angle_thr):
+    global K4_BWD_LAUNCHES
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    mode = _mode(penalties)
+    _check_k4_inputs(inputs, mask, n_per_w, n_iter, lib)
+    xp, yp, cy, z0, c, kappa, t, mu, asph = inputs[:9]
+    n_sys, n = xp.shape
+    n_surf, n_w, n_asph = c.shape[1], mu.shape[2], asph.shape[2]
+    ref_z, lo, hi = fused_trace._full_args(mode, inputs[9] if mode == 2 else None,
+                                           path_bounds, n_surf, xp.device)
+    # Autograd may hand over expanded or strided cotangents.
+    cot = [v.to(torch.float32).contiguous() for v in cotangents]
+    for v in cot:
+        if v.device != xp.device or v.shape != xp.shape:
+            raise ValueError(f"cotangents must be (B, N) on {xp.device}, got "
+                             f"{tuple(v.shape)} on {v.device}")
+    cot += [None] * (9 - len(cot))
+    sizes = [1, n_surf, n_surf, n_surf, n_surf * n_w, n_surf * n_asph]
+    sizes += [n_surf + 1] if mode == 2 else []
+    n_params = sum(sizes)
+    n_blocks = -(-n // lib.k1_bwd_block())
+    new = lambda *size: torch.empty(size, dtype=torch.float32, device=xp.device)
+    dxp, dyp, dcy = new(n_sys, n), new(n_sys, n), new(n_sys, n)
+    params = new(n_sys, n_params)
+    partials = torch.empty(n_sys * n_params * n_blocks, dtype=torch.float64, device=xp.device)
+    ptr = fused_batch._ptr
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream(xp.device).cuda_stream
+        err = lib.k4_bwd_launch(
+            *map(ptr, (xp, yp, cy, z0, c, kappa, t, mu, asph, mask, ref_z, lo, hi)),
+            float(angle_thr), *map(ptr, cot), n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter,
+            mode, int(allow_backward), *map(ptr, (dxp, dyp, dcy, partials, params)), stream)
+    fused_trace._raise_on_error(lib, err, "K4 backward kernel")
+    K4_BWD_LAUNCHES += 1
+    dz0, dc, dkap, dt, dmu, da, *dref = torch.split(params, sizes, dim=1)
+    return (dxp, dyp, dcy, dz0.reshape(n_sys), dc, dkap, dt, dmu.reshape(n_sys, n_surf, n_w),
+            da.reshape(n_sys, n_surf, n_asph), *dref)
+
+
+class _K4(torch.autograd.Function):
+    """Kernel K4 with its hand adjoint. The forward saves only the inputs;
+    the backward recomputes the trace (``pallas_asphere._fused_fwd_ab`` /
+    ``_fused_bwd_ab``)."""
+
+    @staticmethod
+    def forward(ctx, penalties, allow_backward, n_per_w, n_iter, mask, path_bounds, angle_thr,
+                xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z):
+        inputs = (xp, yp, cy, z0, c, kappa, t, mu, asph)
+        inputs += (ref_z,) if _mode(penalties) == 2 else ()
+        config = (penalties, allow_backward, n_per_w, n_iter, mask, path_bounds, angle_thr)
+        if xp.device.type == "cpu":
+            outs = trace_fused_asphere_batch_reference(*inputs[:9], penalties, allow_backward,
+                                                       n_per_w, n_iter, mask, ref_z, path_bounds,
+                                                       angle_thr)
+        else:
+            outs = _launch_k4_fwd(inputs, *config)
+        ctx.mark_non_differentiable(outs[4], outs[5])
+        ctx.save_for_backward(*inputs)
+        ctx.config = config
+        return outs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        inputs = ctx.saved_tensors
+        xp = inputs[0]
+        cot = [torch.zeros_like(xp) if g is None else g
+               for i, g in enumerate(grads) if i not in (4, 5)]
+        if xp.device.type == "cpu":
+            out = trace_fused_asphere_batch_backward_reference(inputs, cot, *ctx.config)
+        else:
+            out = _launch_k4_bwd(inputs, cot, *ctx.config)
+        return (None,) * 7 + tuple(out) + (None,) * (10 - len(out))
+
+
+def _apply_k4(inputs, penalties, allow_backward, n_per_w, n_iter, mask, path_bounds=(),
+              angle_thr=0.25):
+    if inputs[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"K4 runs on CUDA or CPU tensors, got {inputs[0].device}")
+    inputs = [v.contiguous() for v in inputs]
+    ref_z = inputs[9] if len(inputs) > 9 else None
+    return _K4.apply(penalties, bool(allow_backward), int(n_per_w), int(n_iter), mask,
+                     tuple(path_bounds), float(angle_thr), *inputs[:9], ref_z)
+
+
+def trace_fused_asphere_batch(xp, yp, cy, z0, c, kappa, t, mu, asph, penalties: bool,
+                              allow_backward: bool, n_per_w: int, n_iter: int = NEWTON_ITERS,
+                              mask: Optional[torch.Tensor] = None):
+    """Kernel K4 on a population's (B, N) wavelength-outer ray blocks, plain
+    (``penalties`` False) or Lu (True) mode; arguments and results as
+    :func:`trace_fused_asphere_batch_reference`. Differentiable in all nine
+    inputs.
+
+    On CUDA tensors it launches the CUDA kernels (float32, one device;
+    anything else raises). On CPU tensors it runs the plain versions."""
+    if _mode(penalties) == 2:
+        raise ValueError("the full mode needs ref_z and its bounds: use "
+                         "trace_fused_asphere_batch_full")
+    return _apply_k4((xp, yp, cy, z0, c, kappa, t, mu, asph), penalties, allow_backward,
+                     n_per_w, n_iter, mask)
+
+
+def trace_fused_asphere_batch_full(xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z,
+                                   allow_backward: bool, path_bounds, angle_thr: float,
+                                   n_per_w: int, n_iter: int = NEWTON_ITERS,
+                                   mask: Optional[torch.Tensor] = None):
+    """``trace_fused_asphere_batch`` with the full weighted-loss penalty set,
+    the population form of :func:`trace_fused_asphere_full`: each system's
+    absolute vertex positions in ``ref_z`` (B, S+1), the static per-gap
+    ``path_bounds`` shared by the population. Returns the 6 trace outputs
+    plus (pen_theta, pen_theta_p, pen_zrelu, pen_path, pen_angle), each
+    (B, N)."""
+    return _apply_k4((xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z), "full", allow_backward,
+                     n_per_w, n_iter, mask, path_bounds, angle_thr)
+
+
+# ---------------------------------------------------------------------------
 # Front-end, packaging and losses (K1's, wavelength-outer).
 # ---------------------------------------------------------------------------
 
 
-def _check_asphere_lens(lens: Lens, config) -> Lens:
-    """The lens K3 traces: zeros for an absent ``kappa`` (S,) or ``asph``
-    (S, 1), then K1's checks and tail compression."""
+def with_asphere_terms(lens: Lens) -> Lens:
+    """The lens K3 and K4 trace: zeros for an absent ``kappa`` (B, S) or
+    ``asph`` (B, S, 1)."""
     if lens.kappa is None:
         lens = lens.replace(kappa=torch.zeros_like(lens.c))
     if lens.asph is None:
         lens = lens.replace(asph=torch.zeros(lens.c.shape + (1,), dtype=lens.c.dtype,
                                              device=lens.c.device))
-    return fused_trace._check_fused_lens(lens, config)
+    return lens
+
+
+def _check_asphere_lens(lens: Lens, config) -> Lens:
+    """The lens K3 traces: ``with_asphere_terms``, then K1's checks and tail
+    compression."""
+    return fused_trace._check_fused_lens(with_asphere_terms(lens), config)
 
 
 def _run(specs, lens, config, generator, xy, use_vig, penalties):
@@ -761,6 +1045,22 @@ def trace_rays_fused_asphere(specs, lens: Lens, config,
     count."""
     _, outs, shape = _run(specs, lens, config, generator, xy, use_vig, penalties)
     return fused_trace.package_fused_result(outs, shape, penalties)
+
+
+def trace_rays_fused_asphere_batch(specs, lens: Lens, config,
+                                   generator: Optional[torch.Generator] = None,
+                                   xy: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                                   penalties: bool = False, use_vig: bool = True):
+    """``trace_rays`` on kernel K4: a population of conic/asphere systems (an
+    absent ``kappa`` or ``asph`` taken as zeros; a padded population of
+    mixed lens types through its surface mask), through
+    ``fused_batch.trace_rays_fused_batch``. Returns a ``TraceResult`` shaped
+    (B, F, P, W); with ``penalties`` it returns ``(TraceResult, (pen_theta,
+    pen_theta_p, pen_zrelu))``, each the per-ray sum over a system's real
+    surfaces."""
+    return fused_batch.trace_rays_fused_batch(specs, with_asphere_terms(lens), config,
+                                              generator=generator, xy=xy, penalties=penalties,
+                                              use_vig=use_vig)
 
 
 def compute_losses_fused_asphere(specs, lens: Lens, config, g=None, catalog_g=None,

@@ -28,7 +28,9 @@ hinge by mask[k]; the path hinge is not gated (the full mode is reached by
 homogeneous populations only).
 
 The front-end keeps one ray order, wavelength-outer: each system's rays are
-a flat (W, F, P) block, the rows of a (B, N) array.
+a flat (W, F, P) block, the rows of a (B, N) array. The front-end, the
+losses and ``trace_rays_fused_batch`` also serve a population of
+conic/asphere systems, which goes to kernel K4 (``ops.fused_asphere``).
 """
 
 from __future__ import annotations
@@ -295,7 +297,7 @@ def trace_fused_batch_backward_reference(inputs, cotangents, penalties,
 # ---------------------------------------------------------------------------
 
 
-def _check_k2_inputs(inputs, mask, n_per_w, max_surf, max_w):
+def _check_k2_inputs(inputs, mask, n_per_w, max_surf, max_w, kernel="K2"):
     xp, yp, cy, z0, c, t, mu = inputs[:7]
     ref_z = inputs[7] if len(inputs) > 7 else None
     fused_trace._check_tensors(
@@ -312,7 +314,7 @@ def _check_k2_inputs(inputs, mask, n_per_w, max_surf, max_w):
                          f"got {tuple(z0.shape)}, {tuple(c.shape)}, {tuple(t.shape)}, "
                          f"{tuple(mu.shape)}")
     if not 1 <= n_surf <= max_surf or not 1 <= mu.shape[2] <= max_w:
-        raise ValueError(f"K2 takes 1..{max_surf} surfaces and 1..{max_w} "
+        raise ValueError(f"{kernel} takes 1..{max_surf} surfaces and 1..{max_w} "
                          f"wavelengths, got {n_surf} and {mu.shape[2]}")
     if ref_z is not None and tuple(ref_z.shape) != (n_sys, n_surf + 1):
         raise ValueError(f"ref_z must be (B, S+1) = ({n_sys}, {n_surf + 1}), "
@@ -478,12 +480,7 @@ def _static_mask(structure: Structure, device) -> Optional[torch.Tensor]:
     return torch.as_tensor(structure.mask, device=device)
 
 
-def _check_population(lens: Lens, config):
-    if not lens.is_spherical:
-        raise NotImplementedError(
-            "the fused engine traces a population of spherical systems; the "
-            "asphere population kernel K4 is not ported yet (ROADMAP.md), a "
-            "single conic/asphere system goes through kernel K3")
+def _check_population(config):
     if config.double_precision:
         raise NotImplementedError(
             "the fused engine is float32-only; use trace_engine='unroll' for "
@@ -575,22 +572,48 @@ def package_fused_result_batch(outs, shape, penalties: bool):
     return result
 
 
+def _trace_population(xpb, ypb, cyb, z0, mu, lens: Lens, config, penalties, n_per_w,
+                      ref_z=None, path_bounds=(), angle_thr=0.25):
+    """One launch on a population's prepared (B, N) rays: K2 for a
+    spherical population, K4 (``ops.fused_asphere``) for one whose lens
+    carries ``kappa`` or ``asph`` (an absent one as zeros), as
+    ``pallas_batch.batched_unsupervised_loss`` dispatches; ``penalties``
+    False, True or "full" (with ``ref_z``, ``path_bounds``, ``angle_thr``)."""
+    mask = _static_mask(lens.structure, lens.device)
+    full = _mode(penalties) == 2
+    if lens.is_spherical:
+        if full:
+            return trace_fused_batch_full(xpb, ypb, cyb, z0, lens.c, lens.t, mu, ref_z,
+                                          config.allow_backward_rays, path_bounds, angle_thr,
+                                          n_per_w, mask)
+        return trace_fused_batch(xpb, ypb, cyb, z0, lens.c, lens.t, mu, penalties,
+                                 config.allow_backward_rays, n_per_w, mask)
+    from torchoptics_tpu_torch.ops import fused_asphere
+    lens = fused_asphere.with_asphere_terms(lens)
+    args = (xpb, ypb, cyb, z0, lens.c, lens.kappa, lens.t, mu, lens.asph)
+    if full:
+        return fused_asphere.trace_fused_asphere_batch_full(
+            *args, ref_z, config.allow_backward_rays, path_bounds, angle_thr, n_per_w,
+            config.newton_iters, mask)
+    return fused_asphere.trace_fused_asphere_batch(
+        *args, penalties, config.allow_backward_rays, n_per_w, config.newton_iters, mask)
+
+
 def trace_rays_fused_batch(specs, lens: Lens, config,
                            generator: Optional[torch.Generator] = None,
                            xy: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                            penalties: bool = False, use_vig: bool = True):
-    """``trace_rays`` on kernel K2 (B >= 1 spherical systems; a padded
-    population of mixed lens types through its surface mask). Returns a
-    ``TraceResult`` shaped (B, F, P, W); with ``penalties`` it returns
+    """``trace_rays`` on kernel K2 (B >= 1 spherical systems) or K4 (B >= 1
+    conic/asphere systems, an absent ``kappa`` or ``asph`` as zeros); a
+    padded population of mixed lens types through its surface mask. Returns
+    a ``TraceResult`` shaped (B, F, P, W); with ``penalties`` it returns
     ``(TraceResult, (pen_theta, pen_theta_p, pen_zrelu))``, each the per-ray
     sum over a system's real surfaces."""
-    _check_population(lens, config)
+    _check_population(config)
     xpb, ypb, cyb, z0, mu, shape = prepare_fused_inputs_batch(
         specs, lens, config, generator=generator, xy=xy, use_vig=use_vig)
     _, F, P, _ = shape
-    outs = trace_fused_batch(xpb, ypb, cyb, z0, lens.c, lens.t, mu, penalties,
-                             config.allow_backward_rays, F * P,
-                             _static_mask(lens.structure, lens.device))
+    outs = _trace_population(xpb, ypb, cyb, z0, mu, lens, config, penalties, F * P)
     return package_fused_result_batch(outs, shape, penalties)
 
 
@@ -658,8 +681,9 @@ def _lu_terms(outs, lens: Lens, config, shape):
 def batched_compute_losses_fused(specs, lens: Lens, config, g=None, catalog_g=None,
                                  generator: Optional[torch.Generator] = None):
     """The full weighted loss (spot + ray-path + ray-angle + glass + Lu) of a
-    homogeneous spherical population on one launch of K2's full mode; the
-    population form of ``fused_trace.compute_losses_fused``. The hinge terms
+    homogeneous population on one launch of K2's full mode (K4's for
+    conic/asphere systems); the population form of
+    ``fused_trace.compute_losses_fused``. The hinge terms
     are means over all (B, F, P, W) rays, the Lu terms means over systems.
     ``config`` is a ``simulator.SimulatorConfig``. Returns (total, loss_dict)."""
     from torchoptics_tpu_torch import simulator as sim_mod
@@ -668,7 +692,7 @@ def batched_compute_losses_fused(specs, lens: Lens, config, g=None, catalog_g=No
     if len(set(lens.structure.sequence)) != 1:
         raise ValueError("batched fused full loss expects a homogeneous population (one "
                          "lens type); simulator.compute_losses groups mixed ones")
-    _check_population(lens, cfg)
+    _check_population(cfg)
     bounds = fused_trace._path_bounds(lens.structure, config.ray_path_lower_thresholds,
                                       config.ray_path_upper_thresholds)
     angle_thr = math.cos(math.radians(config.ray_angle_threshold)) ** 2
@@ -677,9 +701,8 @@ def batched_compute_losses_fused(specs, lens: Lens, config, g=None, catalog_g=No
     B, F, P, W = shape
     vertex_z = torch.cumsum(lens.t, dim=1)                           # (B, S)
     ref_z = torch.cat((vertex_z, vertex_z[:, -1:]), dim=1)
-    outs = trace_fused_batch_full(xpb, ypb, cyb, z0, lens.c, lens.t, mu, ref_z,
-                                  cfg.allow_backward_rays, bounds, angle_thr, F * P,
-                                  _static_mask(lens.structure, lens.device))
+    outs = _trace_population(xpb, ypb, cyb, z0, mu, lens, cfg, "full", F * P, ref_z, bounds,
+                             angle_thr)
     ppath, pang = outs[9:11]
     rms, sum_q, lu = _lu_terms(outs, lens, config, shape)
     n_rays = B * F * P * W
@@ -699,18 +722,16 @@ def batched_compute_losses_fused(specs, lens: Lens, config, g=None, catalog_g=No
 def batched_unsupervised_loss(specs, lens: Lens, config,
                               generator: Optional[torch.Generator] = None):
     """The unsupervised loss Lu of a whole population on one launch of K2's
-    Lu mode: the generator-training loss. Padded populations of mixed lens
-    types normalize each system's Q by its own surface count. ``config`` is
-    a ``simulator.SimulatorConfig``.
+    Lu mode (K4's for conic/asphere systems): the generator-training loss.
+    Padded populations of mixed lens types normalize each system's Q by its
+    own surface count. ``config`` is a ``simulator.SimulatorConfig``.
 
     Returns (mean Lu, {"loss_unsup", "rms", "penalty"}, each (B,))."""
     cfg = config.trace_config()
-    _check_population(lens, cfg)
+    _check_population(cfg)
     xpb, ypb, cyb, z0, mu, shape = prepare_fused_inputs_batch(specs, lens, cfg,
                                                               generator=generator)
     _, F, P, _ = shape
-    outs = trace_fused_batch(xpb, ypb, cyb, z0, lens.c, lens.t, mu, True,
-                             cfg.allow_backward_rays, F * P,
-                             _static_mask(lens.structure, lens.device))
+    outs = _trace_population(xpb, ypb, cyb, z0, mu, lens, cfg, True, F * P)
     rms, sum_q, lu = _lu_terms(outs, lens, config, shape)
     return torch.mean(lu), {"loss_unsup": lu, "rms": rms, "penalty": sum_q}

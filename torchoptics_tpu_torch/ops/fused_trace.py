@@ -537,7 +537,7 @@ def compress_padded_tail(lens: Lens) -> Lens:
 def _check_fused_lens(lens: Lens, config) -> Lens:
     if len(lens) != 1:
         raise ValueError("kernels K1 and K3 trace one system; a population goes through "
-                         "ops.fused_batch (kernel K2; aspheres need K4, not ported yet)")
+                         "ops.fused_batch (kernel K2, or K4 for aspheres)")
     if config.double_precision:
         raise NotImplementedError(
             "the fused engine is float32-only; use trace_engine='unroll' for "

@@ -8,8 +8,9 @@ PyTorch counterpart of ``torchoptics_tpu.ops.trace``. Two engines:
   sub-trace (ray aiming, the pupil radius).
 * ``engine="fused"``: a single spherical system goes through
   ``ops.fused_trace`` (kernel K1), a single conic/asphere system through
-  ``ops.fused_asphere`` (kernel K3), a spherical population through
-  ``ops.fused_batch`` (kernel K2); their forward and backward passes are
+  ``ops.fused_asphere`` (kernel K3), a population through
+  ``ops.fused_batch`` (kernel K2 for spheres, K4 of ``ops.fused_asphere``
+  for conic/asphere systems); their forward and backward passes are
   hand-written CUDA kernels on a GPU tensor.
 
 Failure-mask semantics are replicated exactly (miss, TIR, cz² collapse,
@@ -246,9 +247,9 @@ def trace_rays(specs: Specs, lens: Lens, config: TraceConfig,
     ``config.engine='fused'`` sends a single system to
     ``fused_trace.trace_rays_fused`` (kernel K1 for spheres, K3 for a
     conic/asphere system) and a population to
-    ``fused_batch.trace_rays_fused_batch``; what they cannot take (a
-    population of aspheres, double precision, aggregate stacks) raises
-    instead of silently running another engine. Internal sub-traces (``xy``
+    ``fused_batch.trace_rays_fused_batch`` (kernel K2 for spheres, K4 for
+    conic/asphere systems); what they cannot take (double precision,
+    aggregate stacks) raises instead of silently running another engine. Internal sub-traces (``xy``
     given, or ``up_to_stop``) always run the pure-torch engine.
     """
     internal = xy is not None or up_to_stop

@@ -192,8 +192,9 @@ def compute_loss_out(res: trace_mod.TraceResult, n_sequence,
 def _do_ray_tracing_fused(specs: Specs, lens: Lens, config: SimulatorConfig,
                           generator: Optional[torch.Generator]):
     """Fused form of ``do_ray_tracing``: the Lu penalty terms accumulate in
-    kernel K1 (one spherical system), K3 (one conic/asphere system) or K2 (a
-    population), so no per-surface stack is materialized. Each system's Q is
+    kernel K1 (one spherical system), K3 (one conic/asphere system), K2 (a
+    spherical population) or K4 (a population of conic/asphere systems), so
+    no per-surface stack is materialized. Each system's Q is
     normalized by its own surface count."""
     cfg = config.trace_config()
     if len(lens) == 1:
@@ -223,8 +224,9 @@ def do_ray_tracing(specs: Specs, lens: Lens, config: SimulatorConfig,
 
     With ``config.trace_engine='fused'`` the loss comes from the in-kernel
     penalty sums of kernel K1 (one spherical system), K3 (one conic/asphere
-    system) or K2 (a population) (``TraceResult.stacks`` is None);
-    non-default aggregates and a population of aspheres raise there."""
+    system), K2 (a spherical population) or K4 (a population of
+    conic/asphere systems) (``TraceResult.stacks`` is None); non-default
+    aggregates raise there."""
     cfg = config.trace_config()
     if cfg.engine == "fused":
         if tuple(aggregate) != trace_mod.AGG_TORCH:
@@ -262,8 +264,8 @@ def compute_losses(specs: Specs, lens: Lens, config: SimulatorConfig,
     (``fused_batch.batched_compute_losses_fused``) and a population of mixed
     lens types as one K2 launch per type (``_compute_losses_fused_grouped``);
     one conic/asphere system runs on K3's full mode
-    (``fused_asphere.compute_losses_fused_asphere``), a population of
-    aspheres raises."""
+    (``fused_asphere.compute_losses_fused_asphere``), a population of them
+    on K4's (one launch per lens type when the types are mixed)."""
     cfg = config.trace_config()
     if cfg.engine == "fused":
         if len(lens) == 1:
@@ -304,8 +306,9 @@ def _compute_losses_fused_grouped(specs: Specs, lens: Lens, config: SimulatorCon
                                   generator: Optional[torch.Generator],
                                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The fused full loss of a population of mixed lens types: systems
-    grouped by sequence on the host (static), one K2 launch per lens type at
-    its own surface count, recombined. Every loss entry is a mean over
+    grouped by sequence on the host (static), one K2 launch (K4 for
+    conic/asphere systems) per lens type at its own surface count,
+    recombined. Every loss entry is a mean over
     systems or over all rays, which have the same shape in every group, so
     group g weighs B_g / B. The glass penalty depends on ``g`` only and is
     computed once on the whole population. The caller's generator serves
