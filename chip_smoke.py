@@ -6,8 +6,10 @@ double-Gauss lens-evaluation ("serving") path, the lens-training path
 (``LensOptimizer`` Adam steps), the lens-population path (generator
 training through ``OpticalLoss``), the aspheric path (serving and training
 the aspherized double-Gauss on kernel K3) and the aspheric-population path
-(populations of conic/asphere designs on kernel K4), and checks every
-hand-written CUDA kernel on them against its plain PyTorch version:
+(populations of conic/asphere designs on kernel K4) and the wavefront path
+(OPD, Zernike, Strehl, the diffraction PSF and the ``wavefront_rms``
+objective on the opl mode of K1-K4), and checks every hand-written CUDA
+kernel on them against its plain PyTorch version:
 
 1. the card's name and power limit;
 2. the build of the CUDA kernels from the sources in this checkout, with
@@ -82,7 +84,30 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     the grouped full loss of the mixed population, one K4 full launch per
     lens type, held against the CPU on 8 systems;
 22. timings: K4 and its plain versions per mode, the fwd+bwd of
-    ``batched_unsupervised_loss`` and one population step (host clock).
+    ``batched_unsupervised_loss`` and one population step (host clock);
+    within phase 21, K4's training path at a fixed bar: the spot term's
+    gradients on the defocused aspherized double-Gauss population, card vs
+    CPU within 1e-4;
+23. the wavefront path (the opl mode of K1-K4, ``ops/wavefront.py``,
+    ``analysis.wavefront_rms``): each opl kernel, forward and backward,
+    against its plain version, both policies (K1, K3 at 442,368 rays on
+    their lens and its c x 3 variant; K2, K4 on two 256-system populations
+    at 393,216 rays, one padded), bit for bit but the parameter and dn_legs
+    sums (one rounding); K2 and K4 at B = 1 against K1 and K3;
+24. serving at the JAX OPL benchmark's width (16 fields x 96^2 x 3 =
+    442,368 rays): ``opd_map``, ``zernike_fit`` and ``strehl_ratio`` on the
+    double-Gauss and its aspherized form, card vs CPU;
+25. the population wavefront (K2 and K4 opl): ``opd_map`` and the fwd+bwd
+    of ``wavefront_rms`` on the 256-system Cooke and aspheric Cooke
+    populations, card vs CPU on 8 systems;
+26. ``diffraction_psf_window`` at the imaging defaults (64^2 pupil grid,
+    65 x 65 window at 4 um, oversample 4), TF32 off, card vs CPU;
+27. training: 5 Adam steps of ``wavefront_rms`` at 442,368 rays on the
+    double-Gauss's (c, t) and the aspherized double-Gauss's (c, asph), two
+    opl forward and two backward launches a step, the first step held
+    against the CPU; the fwd+bwd of the masked OPL sum w.r.t. (c, t);
+28. timings: each opl kernel and its plain versions (K1, K3 at 2,457,600
+    rays; K2, K4 at 393,216).
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -93,8 +118,9 @@ before that carries the kernels' numbers.
     python3 chip_smoke.py --profile   # instead: torch.profiler breakdowns of
                                       # LensOptimizer.step at 2,457,600 rays
                                       # (double-Gauss and aspherized), of a
-                                      # generator step and of an aspheric
-                                      # population step
+                                      # generator step, of an aspheric
+                                      # population step and of a
+                                      # wavefront_rms step at 442,368 rays
 """
 
 import json
@@ -629,6 +655,9 @@ def phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, OpticalLoss
     specs, lens = k4_population(torch, zoo, "cooke")
     profile_steps(torch, f"aspheric population step (Adam on c, t, kappa, asph) at {N_SYSTEMS} x "
                   "1536 rays", k4_train_step(torch, fused_batch, specs, lens, cfg), card)
+    for name, params in (("double_gauss", ("c", "t")), ("double_gauss_asph", ("c", "asph"))):
+        profile_steps(torch, f"wavefront_rms Adam step on the {name} {params} at 442368 rays",
+                      wavefront_optimizer(torch, zoo, name, params, "cuda", OPL_CONFIG), card)
 
 
 # ---------------------------------------------------------------------------
@@ -1853,6 +1882,7 @@ def phase_k4_train(torch, zoo, simulator, fused_trace, fused_batch, fused_aspher
           + " of their group's largest (limit 1e-04); the 256-system step's rows of those "
           "systems within " + ", ".join(f"{k} {v:.2e}" for k, v in full_rows.items()))
     train = (fwd, bwd)
+    phase_k4_fixed_bar(torch, zoo, simulator, fused_batch, cfg)
 
     # The grouped full loss of the padded mixed aspheric population.
     cfg_full = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused", **TIGHT_OFF_KINK)
@@ -1904,6 +1934,47 @@ def phase_k4_train(torch, zoo, simulator, fused_trace, fused_batch, fused_aspher
           + " of each group's largest; the parenthesis holds the CPU's own move under one ulp "
           "of c")
     return train, full
+
+
+def k4_term_gradients(torch, fused_batch, specs, lens, cfg):
+    """d/d(c, t, kappa, asph) of the spot term (the mean rms) and of the
+    mean Lu of ``batched_unsupervised_loss``, on the CPU."""
+    params = [getattr(lens, k).detach().clone().requires_grad_(True) for k in K4_PARAMS]
+    lu, terms = fused_batch.batched_unsupervised_loss(
+        specs, lens.replace(**dict(zip(K4_PARAMS, params))), cfg)
+    g_rms = torch.autograd.grad(terms["rms"].mean(), params, retain_graph=True)
+    return [g.cpu() for g in g_rms], [g.cpu() for g in torch.autograd.grad(lu, params)]
+
+
+def phase_k4_fixed_bar(torch, zoo, simulator, fused_batch, cfg):
+    """K4's training path at a bar that does not scale with the data: 8
+    systems of ``zoo.population("double_gauss_asph", 8)`` (conics and
+    asphere terms, curvatures perturbed by 2 %), defocused by 0.05 mm as
+    the asphere tests do, the first step's gradients on the card against the
+    CPU. The spot term's gradients (through K4's Lu mode forward and
+    backward) within a fixed 1e-4 of each group's largest. The whole Lu's
+    gap is reported beside the CPU's own move under one ulp of c: its
+    theta_norm sums amplify one ulp of cos² near normal incidence."""
+    specs, lens = zoo.population("double_gauss_asph", 8, device="cuda")
+    last = torch.zeros_like(lens.t)
+    last[:, -1] = 0.05
+    lens = lens.replace(t=lens.t + last)
+    card = k4_term_gradients(torch, fused_batch, specs, lens, cfg)
+    host_specs, host_lens = specs.to("cpu"), lens.to("cpu")
+    host = k4_term_gradients(torch, fused_batch, host_specs, host_lens, cfg)
+    nudged = k4_term_gradients(torch, fused_batch, host_specs,
+                               host_lens.replace(c=host_lens.c * (1 + 2.0 ** -23)), cfg)
+    every = torch.ones(lens.c.shape, dtype=torch.bool)
+    rms_gap = group_gaps(torch, card[0], host[0], every)
+    lu_gap, lu_floor = group_gaps(torch, card[1], host[1], every), group_gaps(torch, nudged[1],
+                                                                           host[1], every)
+    check(max(rms_gap.values()) <= 1e-4,
+          "fixed bar on 8 systems of the defocused aspherized double-Gauss population, CUDA vs "
+          "CPU: d(spot term)/d(c, t, kappa, asph) within "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rms_gap.items())
+          + " of each group's largest (limit 1e-04, fixed); d(Lu) within "
+          + ", ".join(f"{k} {lu_gap[k]:.2e} (CPU's own move under one ulp of c "
+                      f"{lu_floor[k]:.2e})" for k in K4_PARAMS))
 
 
 def phase_k4_timing(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere, card):
@@ -2000,6 +2071,629 @@ def k4_entries(ms, shape, err, serve_launches, train_launches, full_launches):
     ]
 
 
+# ---------------------------------------------------------------------------
+# The wavefront path: the opl mode of K1-K4, ops/wavefront.py and
+# analysis.wavefront_rms.
+# ---------------------------------------------------------------------------
+
+# The JAX OPL benchmark's width (bench.py _opl_workload): 16 fields x 96^2
+# circular pupil x 3 wavelengths = 442,368 rays, one ray-aiming iteration.
+OPL_CONFIG = dict(mode="circular", n_rays=(96, 96),
+                  rel_fields=tuple(float(f) for f in np.linspace(0.0, 1.0, 16)),
+                  wavelengths=(459.0, 520.0, 640.0), n_ray_aiming_iter=1)
+# 32 fields x 160^2 x 3 = 2,457,600 rays: K1 and K3's timing width.
+OPL_BENCH = dict(OPL_CONFIG, n_rays=(160, 160),
+                 rel_fields=tuple(float(f) for f in np.linspace(0.0, 1.0, 32)))
+# 5 fields x 16^2 x 3 = 3,840 rays: the card-vs-CPU gradients of training.
+OPL_ENTRY = dict(OPL_CONFIG, n_rays=(16, 16), rel_fields=(0.0, 0.5, 0.7, 0.85, 1.0))
+OPL_KERNELS = ("k1", "k2", "k3", "k4")
+OPL_SOURCES = {"k1": (FWD_SOURCE, BWD_SOURCE, TPU_FWD, TPU_BWD),
+               "k2": (K2_FWD_SOURCE, K2_BWD_SOURCE, TPU_K2_FWD, TPU_K2_BWD),
+               "k3": (K3_FWD_SOURCE, K3_BWD_SOURCE, TPU_K3_FWD, TPU_K3_BWD),
+               "k4": (K4_FWD_SOURCE, K4_BWD_SOURCE, TPU_K4_FWD, TPU_K4_BWD)}
+# The opl mode's bytes per ray: 12 read, 22 written forward; 12 + 20 read
+# and 12 written backward.
+OPL_FWD_BYTES, OPL_BWD_BYTES = 34, 44
+# Adam's step sizes for the wavefront_rms training runs (c, t; asph).
+WAVEFRONT_LR = {"c": 1e-6, "t": 1e-5, "asph": 1e-10}
+
+
+def opl_counters(fused_trace, fused_batch, fused_asphere):
+    """(module, counter name) of every launch counter, by kernel."""
+    return {"k1": (fused_trace, "K1"), "k2": (fused_batch, "K2"),
+            "k3": (fused_asphere, "K3"), "k4": (fused_asphere, "K4")}
+
+
+def reset_launches(counters):
+    for module, name in counters.values():
+        setattr(module, f"{name}_FWD_LAUNCHES", 0)
+        setattr(module, f"{name}_BWD_LAUNCHES", 0)
+
+
+def read_launches(counters):
+    """{kernel: (forward, backward)} launches since the last reset."""
+    return {k: (getattr(m, f"{n}_FWD_LAUNCHES"), getattr(m, f"{n}_BWD_LAUNCHES"))
+            for k, (m, n) in counters.items()}
+
+
+def opl_kernel_inputs(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere, kernel,
+                      variant, config=OPL_CONFIG):
+    """One opl kernel's inputs, ending with n_legs, its n_per_w and surface
+    mask: K1 on the double-Gauss and K3 on the aspherized double-Gauss at
+    ``config``'s width, c x ``variant``; K2 on the 256-system Cooke
+    population ('cooke': c x 1.5 on every 8th system; 'mixed': 128 Cooke +
+    128 double-Gauss, padded) and K4 on the aspheric Cooke population
+    ('cooke c x 3', 'mixed') at the generator width."""
+    from torchoptics_tpu_torch import trace
+    if kernel in ("k1", "k3"):
+        cfg = trace.TraceConfig(**config)
+        specs, lens = zoo.build("double_gauss" if kernel == "k1" else "double_gauss_asph",
+                                device="cuda")
+        lens = lens.replace(c=lens.c * variant)
+        with torch.no_grad():
+            xp, yp, cyb, z0, mu, (_, F, P, _) = fused_trace.prepare_fused_inputs(specs, lens, cfg)
+        n_legs = fused_trace.leg_indices(lens, cfg.wavelengths)[0]
+        if kernel == "k1":
+            ins = (xp, yp, cyb, z0, lens.c[0], lens.t[0], mu, n_legs)
+        else:
+            ins = (xp, yp, cyb, z0, lens.c[0], lens.kappa[0], lens.t[0], mu, lens.asph[0], n_legs)
+        return tuple(a.detach().contiguous() for a in ins), F * P, None
+    cfg = simulator.SimulatorConfig(**GEN_WIDTH).trace_config()
+    if kernel == "k2":
+        specs, lens = population_inputs(torch, zoo, simulator, fused_batch, fused_trace,
+                                        variant)[:2]
+    else:
+        specs, lens = k4_population(torch, zoo, variant)
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, _) = fused_batch.prepare_fused_inputs_batch(specs, lens, cfg)
+    n_legs = fused_trace.leg_indices(lens, cfg.wavelengths)
+    if kernel == "k2":
+        ins = (xp, yp, cyb, z0, lens.c, lens.t, mu, n_legs)
+    else:
+        ins = (xp, yp, cyb, z0, lens.c, lens.kappa, lens.t, mu, lens.asph, n_legs)
+    return (tuple(a.detach().contiguous() for a in ins), F * P,
+            fused_batch._static_mask(lens.structure, "cuda"))
+
+
+def run_opl(modules, kernel, inputs, n_per_w, mask, allow_backward, plain, cot=None):
+    """One opl kernel forward (``cot`` None) or backward, launched or its
+    plain version."""
+    fused_trace, fused_batch, fused_asphere = modules
+    if cot is None:
+        if kernel == "k1":
+            return (fused_trace.trace_fused_reference(*inputs[:7], "opl", allow_backward,
+                                                      n_per_w, n_legs=inputs[7]) if plain else
+                    fused_trace._launch_k1_fwd(inputs, "opl", allow_backward, n_per_w, (), 0.25))
+        if kernel == "k2":
+            return (fused_batch.trace_fused_batch_reference(
+                *inputs[:7], "opl", allow_backward, n_per_w, mask, n_legs=inputs[7]) if plain else
+                fused_batch._launch_k2_fwd(inputs, "opl", allow_backward, n_per_w, mask, (),
+                                           0.25))
+        if kernel == "k3":
+            return (fused_asphere.trace_fused_asphere_reference(
+                *inputs[:9], "opl", allow_backward, n_per_w, 10, n_legs=inputs[9]) if plain else
+                fused_asphere._launch_k3_fwd(inputs, "opl", allow_backward, n_per_w, 10, (), 0.25))
+        return (fused_asphere.trace_fused_asphere_batch_reference(
+            *inputs[:9], "opl", allow_backward, n_per_w, 10, mask, n_legs=inputs[9]) if plain else
+            fused_asphere._launch_k4_fwd(inputs, "opl", allow_backward, n_per_w, 10, mask, (),
+                                         0.25))
+    if kernel == "k1":
+        return (fused_trace.trace_fused_backward_reference(inputs, cot, "opl", allow_backward,
+                                                           n_per_w) if plain else
+                fused_trace._launch_k1_bwd(inputs, cot, "opl", allow_backward, n_per_w, (), 0.25))
+    if kernel == "k2":
+        return (fused_batch.trace_fused_batch_backward_reference(
+            inputs, cot, "opl", allow_backward, n_per_w, mask) if plain else
+            fused_batch._launch_k2_bwd(inputs, cot, "opl", allow_backward, n_per_w, mask, (),
+                                       0.25))
+    if kernel == "k3":
+        return (fused_asphere.trace_fused_asphere_backward_reference(
+            inputs, cot, "opl", allow_backward, n_per_w, 10) if plain else
+            fused_asphere._launch_k3_bwd(inputs, cot, "opl", allow_backward, n_per_w, 10, (),
+                                         0.25))
+    args = ("opl", allow_backward, n_per_w, 10, mask, (), 0.25)
+    return (fused_asphere.trace_fused_asphere_batch_backward_reference(inputs, cot, *args)
+            if plain else fused_asphere._launch_k4_bwd(inputs, cot, *args))
+
+
+def opl_param_rows(torch, grads, population):
+    """The parameter cotangents as rows, one per system (a single system's
+    groups as rows of their own), for the relative comparison."""
+    if population:
+        return [torch.cat([g.reshape(g.shape[0], -1) for g in grads[3:]], 1)]
+    return [g.reshape(1, -1) for g in grads[3:]]
+
+
+def opl_compare(torch, got, want, g1, g2, gw, population):
+    """(ok, largest float deviation forward, per-ray deviation backward,
+    largest parameter deviation relative to its row's largest, largest
+    absolute parameter deviation, two backward launches bit-identical)."""
+    fwd_exact = all(torch.equal(a, b) for a, b in zip(got, want))
+    fwd_dev = max(float((got[i] - want[i]).abs().max()) for i in (0, 1, 2, 3, 6))
+    same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    ray = max(float((g1[i] - gw[i]).abs().max()) for i in range(3))
+    rel, dev = 0.0, 0.0
+    for a, b in zip(opl_param_rows(torch, g1, population), opl_param_rows(torch, gw, population)):
+        rel = max(rel, float(((a - b).abs().max(1).values
+                              / b.abs().max(1).values.clamp(min=1e-30)).max()))
+        dev = max(dev, float((a - b).abs().max()))
+    finite = all(bool(torch.isfinite(a).all()) for a in g1)
+    ok = fwd_exact and same and finite and ray == 0.0 and rel <= ONE_ROUNDING
+    return ok, fwd_dev, ray, rel, dev, same
+
+
+OPL_VARIANTS = {"k1": (1.0, 3.0), "k3": (1.0, 3.0), "k2": ("cooke", "mixed"),
+                "k4": ("cooke c x 3", "mixed")}
+
+
+def phase_opl_kernels(torch, zoo, simulator, modules):
+    """Each opl kernel, forward and backward, against its plain version, both
+    backward-ray policies, seeded cotangents (x, y, cx, cy, opl): K1 and K3
+    at 442,368 rays on their lens and its c x 3 variant, K2 and K4 on two
+    256-system populations at 393,216 rays (one padded: the surface mask).
+    Forward outputs (masks, coordinates, opl) and per-ray cotangents bit for
+    bit, parameter and dn_legs sums within one float32 rounding, two
+    backward launches bit for bit. Returns the largest deviations per
+    kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    worst = {k: dict(fwd=0.0, ray=0.0, param=0.0, param_abs=0.0) for k in OPL_KERNELS}
+    failed = []
+    for kernel in OPL_KERNELS:
+        for variant in OPL_VARIANTS[kernel]:
+            inputs, n_per_w, mask = opl_kernel_inputs(torch, zoo, simulator, *modules, kernel,
+                                                      variant)
+            population = kernel in ("k2", "k4")
+            for allow_backward in (True, False):
+                with torch.no_grad():
+                    got = run_opl(modules, kernel, inputs, n_per_w, mask, allow_backward, False)
+                    want = run_opl(modules, kernel, inputs, n_per_w, mask, allow_backward, True)
+                cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
+                       for _ in range(5)]
+                g1 = run_opl(modules, kernel, inputs, n_per_w, mask, allow_backward, False, cot)
+                g2 = run_opl(modules, kernel, inputs, n_per_w, mask, allow_backward, False, cot)
+                gw = run_opl(modules, kernel, inputs, n_per_w, mask, allow_backward, True, cot)
+                torch.cuda.synchronize()
+                ok, fwd_dev, ray, rel, dev, same = opl_compare(torch, got, want, g1, g2, gw,
+                                                               population)
+                w = worst[kernel]
+                w.update(fwd=max(w["fwd"], fwd_dev), ray=max(w["ray"], ray),
+                         param=max(w["param"], rel), param_abs=max(w["param_abs"], dev))
+                label = f"c x {variant}" if not population else f"{variant} population"
+                print(f"{'ok  ' if ok else 'FAIL'} {kernel.upper()} opl vs plain, {label} "
+                      f"({inputs[0].numel()} rays{', masked' if mask is not None else ''}), "
+                      f"allow_backward={allow_backward}: forward bit-identical (masks, "
+                      f"coordinates, opl; max deviation {fwd_dev:.3e}), per-ray cotangents "
+                      f"deviation {ray:.3e}, parameter and dn_legs sums within {rel:.2e} of "
+                      f"their largest (limit {ONE_ROUNDING:.2e}), two launches bit-identical="
+                      f"{same}; ray_ok share {float(got[4].float().mean()):.6f}, mean opl "
+                      f"{float(got[6][got[4]].mean()):.4f} mm", flush=True)
+                if not ok:
+                    failed.append((kernel, variant, allow_backward))
+            del inputs
+    check(not failed, f"the opl modes of K1-K4 agree with their plain versions (failed: "
+          f"{failed})")
+    return worst
+
+
+def phase_opl_population_of_one(torch, zoo, simulator, modules):
+    """K2's opl mode at B = 1 against K1's, and K4's against K3's, at
+    442,368 rays: forward and backward bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for single, one in (("k1", "k2"), ("k3", "k4")):
+        inputs, n_per_w, _ = opl_kernel_inputs(torch, zoo, simulator, *modules, single, 1.0)
+        batch = tuple(a.reshape(1) if i == 3 else a[None] for i, a in enumerate(inputs))
+        cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen) for _ in range(5)]
+        with torch.no_grad():
+            a = run_opl(modules, single, inputs, n_per_w, None, True, False)
+            b = run_opl(modules, one, batch, n_per_w, None, True, False)
+        ga = run_opl(modules, single, inputs, n_per_w, None, True, False, cot)
+        gb = run_opl(modules, one, batch, n_per_w, None, True, False, [c[None] for c in cot])
+        torch.cuda.synchronize()
+        same_f = all(torch.equal(x, y[0]) for x, y in zip(a, b))
+        same_b = all(torch.equal(x.reshape(-1), y.reshape(-1)) for x, y in zip(ga, gb))
+        check(same_f and same_b,
+              f"{one.upper()} opl at B = 1 vs {single.upper()} opl, {inputs[0].numel()} rays: "
+              f"forward bit-identical={same_f}, backward (per-ray, parameter and dn_legs "
+              f"cotangents) bit-identical={same_b}")
+
+
+def wavefront_analysis(torch, wf, specs, lens, cfg, xy):
+    """opd_map, the Zernike fit (Noll j <= 11) per (system, field,
+    wavelength), and the Strehl ratio of the residual after piston, tilt and
+    defocus, on pupil points ``xy``."""
+    out = wf.opd_map(specs, lens, cfg, xy=xy)
+    opd, ok = out["opd"], out["ok"]
+    minor = lambda v: torch.movedim(torch.broadcast_to(v, opd.shape), 2, -1)
+    opd_m, ok_m, xr, yr = minor(opd), minor(ok), minor(xy[0]), minor(xy[1])
+    coef = wf.zernike_fit(opd_m, xr, yr, ok_m, j_max=11)
+    low = torch.sum(wf.zernike_basis(4, xr, yr) * coef[..., None, :4], dim=-1)
+    lam = torch.tensor([w * 1e-6 for w in cfg.wavelengths], device=opd.device)
+    strehl = wf.strehl_ratio(torch.where(ok_m, opd_m - low, 0.0), ok_m, lam.reshape(1, 1, -1, 1))
+    return dict(out, coef=coef, strehl=strehl)
+
+
+def phase_wavefront_serve(torch, zoo, modules):
+    """Serving at the JAX OPL benchmark's width (442,368 rays): ``opd_map``,
+    ``zernike_fit`` and ``strehl_ratio`` on the double-Gauss (K1 opl) and the
+    aspherized double-Gauss (K3 opl), counts set to 0 before each and read
+    after, held against the CPU: lanes whose mask differs (the front-ends
+    round otherwise: at most 4), OPD within 5e-5 mm where both are ok, the
+    Zernike coefficients within 5e-5 mm, the Strehl ratios within the bound
+    that OPD gap allows (2 x 2 pi / lambda x the largest OPD gap). Returns
+    the launches of each serving run."""
+    from torchoptics_tpu_torch import trace
+    from torchoptics_tpu_torch.ops import wavefront as wf
+    counters = opl_counters(*modules)
+    cfg = trace.TraceConfig(**OPL_CONFIG, engine="fused")
+    launches = {}
+    for name, kernel in (("double_gauss", "k1"), ("double_gauss_asph", "k3")):
+        specs, lens = zoo.build(name, device="cuda")
+        xy = pupil_points(torch, cfg, "cuda")
+        reset_launches(counters)
+        with torch.no_grad():
+            card = wavefront_analysis(torch, wf, specs, lens, cfg, xy)
+        torch.cuda.synchronize()
+        runs = read_launches(counters)
+        launches[kernel] = runs[kernel]
+        others = sum(sum(v) for k, v in runs.items() if k != kernel)
+        with torch.no_grad():
+            host = wavefront_analysis(torch, wf, specs.to("cpu"), lens.to("cpu"), cfg,
+                                      tuple(v.cpu() for v in xy))
+        ok_card, ok_host = card["ok"].cpu(), host["ok"]
+        lanes = int((ok_card != ok_host).sum())
+        both = ok_card & ok_host
+        gaps = (card["opd"].cpu() - host["opd"]).abs()[both]
+        opd_gap, opd_p999 = float(gaps.max()), float(torch.quantile(gaps, 0.999))
+        coef_gap = float((card["coef"].cpu() - host["coef"]).abs().max())
+        strehl_gap = float((card["strehl"].cpu() - host["strehl"]).abs().max())
+        strehl_bar = 2 * 2 * math.pi / (OPL_CONFIG["wavelengths"][0] * 1e-6) * opd_gap + 1e-5
+        finite = bool(torch.isfinite(card["opd"][card["ok"]]).all())
+        check(runs[kernel] == (2, 0) and others == 0 and finite and lanes <= 4
+              and opd_gap <= 5e-5 and coef_gap <= 5e-5 and strehl_gap <= strehl_bar,
+              f"wavefront serving on the {name}, {card['opd'].numel()} rays (16 fields x 96^2 x "
+              f"3 wavelengths): {kernel.upper()} opl forward launched {runs[kernel][0]} times "
+              f"(the bundle and the chief ray), backward {runs[kernel][1]}, other kernels "
+              f"{others}; card vs CPU: lanes whose ray_ok differs {lanes} (limit 4), OPD within "
+              f"{opd_gap:.3e} mm (limit 5e-05; 99.9 % of rays within {opd_p999:.3e}), Zernike coefficients within {coef_gap:.3e} mm, "
+              f"Strehl within {strehl_gap:.3e} (limit {strehl_bar:.3e}); on-axis Strehl "
+              f"{float(card['strehl'][0, 0, 1]):.4f}, edge {float(card['strehl'][0, -1, 1]):.4f}"
+              f", RMS OPD {float(card['opd'][card['ok']].std()) * 1e6:.1f} nm")
+    return launches
+
+
+def pupil_points(torch, cfg, device):
+    """The relative pupil points of ``cfg``'s sampler, drawn once."""
+    from torchoptics_tpu_torch.ops import pupil
+    return pupil.sample_pupil(cfg.mode, cfg.n_rays, 1, device=device)
+
+
+def phase_population_wavefront(torch, zoo, simulator, modules):
+    """The population wavefront at the generator width (256 x 1,536 rays):
+    ``opd_map`` and the fwd+bwd of ``wavefront_rms`` (d/d c, t) on the
+    256-system Cooke population (K2 opl) and the aspheric Cooke population
+    (K4 opl), counts set to 0 before each and read after; card vs CPU on 8
+    systems: OPD within 5e-5 mm where both are ok, the objective within
+    rtol 1e-2 and its gradient within rtol 0.05 and 0.02 of the largest.
+    Returns the launches of each kernel's run."""
+    from torchoptics_tpu_torch import analysis
+    from torchoptics_tpu_torch.ops import wavefront as wf
+    counters = opl_counters(*modules)
+    cfg = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused").trace_config()
+    launches = {}
+    for kernel, (specs, lens) in (("k2", zoo.population("cooke", N_SYSTEMS, device="cuda")),
+                                  ("k4", k4_population(torch, zoo, "cooke"))):
+        def run(specs, lens):
+            c = lens.c.detach().clone().requires_grad_(True)
+            t = lens.t.detach().clone().requires_grad_(True)
+            with torch.no_grad():
+                out = wf.opd_map(specs, lens, cfg)
+            rms = analysis.wavefront_rms(specs, lens.replace(c=c, t=t), cfg)
+            return out, float(rms.detach()), [g.cpu() for g in torch.autograd.grad(rms, (c, t))]
+        reset_launches(counters)
+        card = run(specs, lens)
+        torch.cuda.synchronize()
+        runs = read_launches(counters)
+        launches[kernel] = runs[kernel]
+        others = sum(sum(v) for k, v in runs.items() if k != kernel)
+        rows = np.arange(8)
+        small = run(specs[rows], lens[rows])
+        host = run(specs[rows].to("cpu"), lens[rows].to("cpu"))
+        both = small[0]["ok"].cpu() & host[0]["ok"]
+        opd_gap = float((small[0]["opd"].cpu() - host[0]["opd"]).abs()[both].max())
+        rms_gap = abs(small[1] - host[1]) / host[1]
+        grad_gap = max(float(((a - b).abs() - 0.05 * b.abs()).max() / b.abs().max())
+                       for a, b in zip(small[2], host[2]))
+        check(runs[kernel] == (4, 2) and others == 0 and math.isfinite(card[1])
+              and all(bool(torch.isfinite(g).all()) for g in card[2]) and opd_gap <= 5e-5
+              and rms_gap <= 1e-2 and grad_gap <= 0.02,
+              f"population wavefront, {N_SYSTEMS} {'aspheric ' if kernel == 'k4' else ''}Cooke "
+              f"designs x 1,536 rays: {kernel.upper()} opl forward launched {runs[kernel][0]} "
+              f"times (opd_map and wavefront_rms, each the bundle and the chief ray), backward "
+              f"{runs[kernel][1]}, other kernels {others}; wavefront_rms {card[1] * 1e6:.2f} nm, "
+              f"finite gradients; card vs CPU on 8 systems: OPD within {opd_gap:.3e} mm (limit "
+              f"5e-05), wavefront_rms within {rms_gap:.2e} (limit 1e-02), d/d(c, t) beyond "
+              f"rtol 0.05 by {grad_gap:.2e} of the largest (limit 0.02)")
+    return launches
+
+
+def phase_diffraction(torch, zoo, modules):
+    """The diffraction PSF at the imaging defaults (simulator.py:56-79): OPD
+    on a 64^2 pupil grid (K1 opl), then ``diffraction_psf_window`` onto a
+    65 x 65 window at a 4 um pitch, oversample 4, per (field, wavelength), as
+    ``imaging._sample_diffraction_psfs`` places it. TF32 must be off. The
+    card's window of the CPU's inputs (OPD, mask, reference sphere, window
+    offsets) against the CPU's, within 1e-5 of each PSF's peak (TF32 would
+    round the DFT's inputs to 10 bits); the card's whole path against the
+    CPU's within the bound that their input gaps allow: 2 x 2 pi / lambda x
+    (the largest OPD gap + r_xp / R x the largest offset gap), of each PSF's
+    peak. The energy
+    share inside the window is reported: the 64^2 grid's alias period
+    (lambda R N / (2 r_xp), ~70 um here) is shorter than the 260 um window,
+    so replicas fold in and it exceeds 1, the imaging defaults' own limit
+    (imaging.diffraction_sampling_report)."""
+    from torchoptics_tpu_torch import trace
+    from torchoptics_tpu_torch.ops import wavefront as wf
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          f"torch.backends.cuda.matmul.allow_tf32 is {torch.backends.cuda.matmul.allow_tf32} "
+          "(must be False: the window's complex products run in full float32)")
+    n = 64
+    g = (np.arange(n) + 0.5) / n * 2.0 - 1.0
+    X, Y = np.meshgrid(g, g, indexing="xy")
+    incircle = torch.tensor(((X ** 2 + Y ** 2) <= 1.0).ravel())
+    cfg = trace.TraceConfig(mode="circular", n_rays=(n, n), rel_fields=(0.0, 0.7, 1.0),
+                            wavelengths=(459.0, 520.0, 640.0), n_ray_aiming_iter=1,
+                            engine="fused")
+    counters = opl_counters(*modules)
+
+    def window_inputs(specs, lens, device):
+        """The window's inputs from one opd_map, as imaging places them."""
+        xy = tuple(torch.tensor(v.ravel()[None, None, :, None], dtype=torch.float32,
+                                device=device) for v in (X, Y))
+        with torch.no_grad():
+            out = wf.opd_map(specs, lens, cfg, xy=xy)
+            opd = out["opd"][0]
+            ok = out["ok"][0] & incircle.to(device)[None, :, None]
+            F, _, W = opd.shape
+            z_xp = wf.exit_pupil_distance(lens)[0]
+            r_xp = specs.epd[0] / 2.0 * wf.pupil_magnification(lens)[0]
+            x_img, y_img = out["x_img"][0], out["y_img"][0]
+            y_center = torch.mean(y_img, dim=1)
+        lam = torch.tensor([w * 1e-6 for w in cfg.wavelengths], device=device)
+        return dict(opd_grid=opd.permute(0, 2, 1).reshape(F, W, n, n),
+                    ok_grid=ok.permute(0, 2, 1).reshape(F, W, n, n), wavelength_mm=lam[None, :],
+                    R_mm=torch.sqrt(z_xp ** 2 + x_img ** 2 + y_img ** 2), r_xp_mm=r_xp,
+                    x_offset=-x_img, y_offset=y_center[:, None] - y_img)
+
+    def window(inputs):
+        with torch.no_grad():
+            return wf.diffraction_psf_window(**inputs, pitch_mm=4e-3, shape=(65, 65),
+                                             oversample=4)
+
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    reset_launches(counters)
+    card_in = window_inputs(specs, lens, "cuda")
+    card = window(card_in)
+    torch.cuda.synchronize()
+    runs = read_launches(counters)
+    host_in = window_inputs(specs.to("cpu"), lens.to("cpu"), "cpu")
+    host = window(host_in)
+    same_in = window({k: v.to("cuda") for k, v in host_in.items()})
+    peak = host["psf"].amax(dim=(-2, -1), keepdim=True)
+    dft_gap = float(((same_in["psf"].cpu() - host["psf"]) / peak).abs().max())
+    acc_gap = float((same_in["accounted"].cpu() - host["accounted"]).abs().max())
+    ok_c, ok_h = card_in["ok_grid"].cpu(), host_in["ok_grid"]
+    opd_gap = float((card_in["opd_grid"].cpu() - host_in["opd_grid"]).abs()[ok_c & ok_h].max())
+    off_gap = max(float((card_in[k].cpu() - host_in[k]).abs().max())
+                  for k in ("x_offset", "y_offset"))
+    tilt = float(host_in["r_xp_mm"]) / float(host_in["R_mm"].min()) * off_gap
+    path_gap = float(((card["psf"].cpu() - host["psf"]) / peak).abs().max())
+    path_bar = 2 * 2 * math.pi / 459e-6 * (opd_gap + tilt) + 1e-5
+    acc = card["accounted"].cpu()
+    check(runs["k1"] == (2, 0) and torch.equal(ok_c, ok_h) and dft_gap <= 1e-5
+          and acc_gap <= 1e-5 and path_gap <= path_bar and bool(torch.isfinite(acc).all()),
+          f"diffraction PSF of the double-Gauss, 3 fields x 3 wavelengths, 64^2 pupil grid, "
+          f"65 x 65 window at 4 um, oversample 4: K1 opl forward launched {runs['k1'][0]} times; "
+          f"masks equal on the card and the CPU; the card's window of the CPU's inputs within "
+          f"{dft_gap:.2e} of each PSF's peak (limit 1e-05), accounted within {acc_gap:.2e}; the "
+          f"whole path within {path_gap:.2e} (limit {path_bar:.2e} from the OPD gap "
+          f"{opd_gap:.2e} mm and the offset gap {off_gap:.2e} mm); accounted energy {float(acc.min()):.3f}-{float(acc.max()):.3f}")
+
+
+def wavefront_optimizer(torch, zoo, name, params, device, config):
+    """Adam on ``params`` of the zoo lens ``name`` against
+    ``analysis.wavefront_rms`` on the fused engine; returns a closure running
+    one step (the loss and the gradients)."""
+    from torchoptics_tpu_torch import analysis, trace
+    cfg = trace.TraceConfig(**config, engine="fused")
+    specs, lens = zoo.build(name, device=device)
+    xy = pupil_points(torch, cfg, device)
+    leaves = {k: getattr(lens, k).detach().clone().requires_grad_(True) for k in params}
+    opt = torch.optim.Adam([{"params": [v], "lr": WAVEFRONT_LR[k]} for k, v in leaves.items()])
+
+    def step():
+        loss = analysis.wavefront_rms(specs, lens.replace(**leaves), cfg, xy=xy)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        for v, g in zip(leaves.values(), grads):
+            v.grad = g
+        opt.step()
+        return loss.detach(), grads
+    return step
+
+
+def phase_wavefront_train(torch, zoo, modules, n_steps=5):
+    """The training path of this slice: 5 Adam steps of ``wavefront_rms``
+    at 442,368 rays on the double-Gauss's (c, t) (K1 opl forward and
+    backward) and the aspherized double-Gauss's (c, asph) (K3 opl), counts
+    set to 0 before each run and read after: every loss finite, two forward
+    and two backward launches a step (the bundle and the chief ray). The
+    first step's value and gradients held against the CPU at 3,840 rays
+    (JAX's bar between its Pallas and XLA paths: rtol 1e-2; rtol 0.05 and
+    0.02 of the largest). Then one step's host time (the median of 5).
+    Returns the launches of each run and the step times."""
+    counters = opl_counters(*modules)
+    launches, step_ms = {}, {}
+    for name, params, kernel in (("double_gauss", ("c", "t"), "k1"),
+                                 ("double_gauss_asph", ("c", "asph"), "k3")):
+        step = wavefront_optimizer(torch, zoo, name, params, "cuda", OPL_CONFIG)
+        reset_launches(counters)
+        losses, finite = [], True
+        for _ in range(n_steps):
+            loss, grads = step()
+            losses.append(float(loss))
+            finite = finite and math.isfinite(losses[-1]) and all(
+                bool(torch.isfinite(g).all()) for g in grads)
+        torch.cuda.synchronize()
+        runs = read_launches(counters)
+        launches[kernel] = runs[kernel]
+        others = sum(sum(v) for k, v in runs.items() if k != kernel)
+        check(runs[kernel] == (2 * n_steps, 2 * n_steps) and others == 0 and finite,
+              f"wavefront_rms training on the {name}, {n_steps} Adam steps on {params} at "
+              f"442368 rays: {kernel.upper()} opl forward launched {runs[kernel][0]} times, "
+              f"backward {runs[kernel][1]}, other kernels {others}; every loss and gradient "
+              f"finite={finite}; losses (nm) {['%.3f' % (v * 1e6) for v in losses]}")
+        step_ms[kernel] = host_ms(torch, step, runs=5, warmup=1)
+        (got, got_g), (want, want_g) = (
+            (float(loss), [g.cpu() for g in grads]) for loss, grads in (
+                wavefront_optimizer(torch, zoo, name, params, device, OPL_ENTRY)()
+                for device in ("cuda", "cpu")))
+        rel = abs(got - want) / want
+        gaps = [float(((a - b).abs() - 0.05 * b.abs()).max() / b.abs().max())
+                for a, b in zip(got_g, want_g)]
+        exact = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got_g, want_g)]
+        check(rel <= 1e-2 and max(gaps) <= 0.02,
+              f"first wavefront_rms step on the {name} at 3840 rays, CUDA vs CPU: "
+              f"{got * 1e6:.4f} vs {want * 1e6:.4f} nm (relative gap "
+              f"{rel:.2e}, limit 1e-02); d/d{params} within "
+              + ", ".join(f"{e:.2e}" for e in exact) + " of their largest (bar: rtol 0.05 "
+              f"plus 0.02 of the largest); one step {step_ms[kernel]:.2f} ms (host clock)")
+    return launches, step_ms
+
+
+def phase_opl_fwd_bwd(torch, zoo, modules, card):
+    """The fwd+bwd of the masked OPL sum with respect to (c, t) at 442,368
+    rays on the double-Gauss (bench.py _opl_workload), on the fused engine
+    (one K1 opl forward and one backward) and on the pure-torch engine,
+    timed with CUDA events. Returns (times, launches of one fused call)."""
+    from torchoptics_tpu_torch import trace
+    from torchoptics_tpu_torch.ops import wavefront as wf
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    xy = pupil_points(torch, trace.TraceConfig(**OPL_CONFIG), "cuda")
+    counters = opl_counters(*modules)
+
+    def fwd_bwd(engine):
+        cfg = trace.TraceConfig(**OPL_CONFIG, engine=engine)
+        c = lens.c.detach().clone().requires_grad_(True)
+        t = lens.t.detach().clone().requires_grad_(True)
+        res, opl = wf.optical_path_lengths(specs, lens.replace(c=c, t=t), cfg, xy=xy)
+        return torch.autograd.grad(torch.sum(torch.where(res.ray_ok, opl, 0.0)), (c, t))
+
+    reset_launches(counters)
+    fused = fwd_bwd("fused")
+    torch.cuda.synchronize()
+    runs = read_launches(counters)
+    unroll = fwd_bwd("unroll")
+    gap = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(fused, unroll))
+    ms = {"opl_fwd_bwd_fused": time_ms(torch, lambda: fwd_bwd("fused"), runs=5, batch=4),
+          "opl_fwd_bwd_unroll": time_ms(torch, lambda: fwd_bwd("unroll"), runs=3, batch=2)}
+    check(runs["k1"] == (1, 1) and gap <= 1e-4,
+          f"masked OPL sum fwd+bwd w.r.t. (c, t) at 442368 rays: K1 opl forward launched "
+          f"{runs['k1'][0]} times, backward {runs['k1'][1]}; fused vs pure-torch engine "
+          f"gradients within {gap:.2e} of the largest (limit 1e-04); "
+          f"{ms['opl_fwd_bwd_fused']:.3f} ms fused, {ms['opl_fwd_bwd_unroll']:.3f} ms pure "
+          f"torch, card: {card}")
+    return ms, runs["k1"]
+
+
+def phase_opl_timing(torch, zoo, simulator, modules, card):
+    """Each opl kernel and its plain versions with CUDA events, as their
+    sibling modes are timed: K1 and K3 at 2,457,600 rays, K2 and K4 at
+    256 x 1,536 = 393,216 rays (the population kernels' batches enqueued
+    behind a sleep kernel). Returns the times and the timed shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    ms, shapes = {}, {}
+    for kernel in OPL_KERNELS:
+        variant = {"k1": 1.0, "k3": 1.0, "k2": "cooke", "k4": "cooke"}[kernel]
+        inputs, n_per_w, mask = opl_kernel_inputs(torch, zoo, simulator, *modules, kernel,
+                                                  variant, OPL_BENCH)
+        population = kernel in ("k2", "k4")
+        c = inputs[4]
+        shapes[kernel] = dict(n_rays=inputs[0].numel(), n_surf=c.shape[-1],
+                              n_w=inputs[-1].shape[-1],
+                              n_asph=inputs[8].shape[-1] if kernel in ("k3", "k4") else 0,
+                              n_sys=inputs[0].shape[0] if population else 1,
+                              rays_per_sys=inputs[0].shape[-1])
+        cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen) for _ in range(5)]
+        run = lambda plain, cot=None: run_opl(modules, kernel, inputs, n_per_w, mask, True,
+                                              plain, cot)
+        with torch.no_grad():
+            ms[f"{kernel}_fwd"] = time_ms(torch, lambda: run(False), queue_ahead=population)
+            ms[f"plain_{kernel}_fwd"] = time_ms(torch, lambda: run(True), runs=3, batch=2)
+            ms[f"{kernel}_bwd"] = time_ms(torch, lambda: run(False, cot), queue_ahead=population)
+            ms[f"plain_{kernel}_bwd"] = time_ms(torch, lambda: run(True, cot), runs=3, batch=2)
+        print(f"time {kernel.upper()} opl: forward {ms[f'{kernel}_fwd']:.4f} ms (plain "
+              f"{ms[f'plain_{kernel}_fwd']:.2f} ms), backward {ms[f'{kernel}_bwd']:.4f} ms "
+              f"(plain {ms[f'plain_{kernel}_bwd']:.2f} ms) per call at {inputs[0].numel()} rays, "
+              f"{c.shape[-1]} surfaces, card: {card}", flush=True)
+        del inputs, cot
+    return ms, shapes
+
+
+def opl_bound(kernel, shape, backward):
+    """(bound_ms, bound_by) of an opl kernel at the timed shape: the plain
+    mode's per-ray operations (``k1_ops``, ``k3_ops``) plus the opl terms
+    (forward: a product and a sum per leg; backward: the distance adjoint's
+    product and sum and the dn_legs term and its sum per leg), the opl
+    bytes per ray, and for a population each system's tables (with the
+    (S+1) x W n_legs) and, backward, its partials."""
+    n, n_surf, n_w = shape["n_rays"], shape["n_surf"], shape["n_w"]
+    legs = n_surf + 1
+    if kernel in ("k1", "k2"):
+        ops = k1_ops(False, n_surf, 0, backward)
+        tables = 2 * n_surf + n_surf * n_w + 1
+        n_params = 1 + 2 * n_surf + n_surf * n_w
+    else:
+        ops = k3_ops(False, n_surf, shape["n_asph"], 10, backward)
+        tables = 3 * n_surf + n_surf * n_w + n_surf * shape["n_asph"] + 1
+        n_params = 1 + 3 * n_surf + n_surf * n_w + n_surf * shape["n_asph"]
+    ops += (4 if backward else 2) * legs
+    tables, n_params = 4 * (tables + legs * n_w), n_params + legs * n_w
+    extra = shape["n_sys"] * tables
+    if backward:
+        extra += shape["n_sys"] * 16 * n_params * -(-shape["rays_per_sys"] // 256)
+    return bound(n, ops, OPL_BWD_BYTES if backward else OPL_FWD_BYTES, extra)
+
+
+def opl_entries(ms, shapes, worst, serve, pop, train, fwd_bwd_launches, fwd_bwd_ms, step_ms):
+    """The eight opl entries of the kernels line. ``launches`` counts the
+    main path of this slice: K1 and K3 in their wavefront_rms training run
+    (5 steps), K2 and K4 in the population wavefront run (opd_map and one
+    wavefront_rms fwd+bwd); the serving runs' launches stand beside them."""
+    entries = []
+    for kernel in OPL_KERNELS:
+        fwd_src, bwd_src, tpu_fwd, tpu_bwd = OPL_SOURCES[kernel]
+        main = train[kernel] if kernel in train else pop[kernel]
+        for kind, src, tpu, idx in (("fwd", fwd_src, tpu_fwd, 0), ("bwd", bwd_src, tpu_bwd, 1)):
+            b_ms, b_by = opl_bound(kernel, shapes[kernel], kind == "bwd")
+            entry = {"name": f"{kernel}_{kind}_opl", "route": "cuda", "source": src,
+                     "replaces": tpu, "launches": main[idx],
+                     "max_abs_err": worst[kernel]["fwd" if kind == "fwd" else "ray"],
+                     "ms": ms[f"{kernel}_{kind}"], "plain_ms": ms[f"plain_{kernel}_{kind}"],
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            if kind == "bwd":
+                entry.update(param_max_rel_err=worst[kernel]["param"],
+                             param_max_abs_err=worst[kernel]["param_abs"])
+            if kernel in serve and kind == "fwd":
+                entry["launches_opd_map"] = serve[kernel][0]
+            if kernel in step_ms and kind == "bwd":
+                entry["wavefront_rms_step_ms"] = step_ms[kernel]
+            if kernel == "k1":
+                entry["launches_opl_fwd_bwd"] = fwd_bwd_launches[idx]
+                if kind == "bwd":
+                    entry.update(fwd_bwd_ms)
+            entries.append(entry)
+    return entries
+
+
 def ptxas_summary(path):
     """One line per kernel from the build's -Xptxas -v report."""
     lines, name, frame = [], None, ""
@@ -2075,12 +2769,23 @@ def main():
     k4_launches = phase_k4_train(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere)
     k4_ms, k4_shape = phase_k4_timing(torch, zoo, simulator, fused_trace, fused_batch,
                                       fused_asphere, card)
+    modules = (fused_trace, fused_batch, fused_asphere)
+    opl_worst = phase_opl_kernels(torch, zoo, simulator, modules)
+    phase_opl_population_of_one(torch, zoo, simulator, modules)
+    opl_serve = phase_wavefront_serve(torch, zoo, modules)
+    opl_pop = phase_population_wavefront(torch, zoo, simulator, modules)
+    phase_diffraction(torch, zoo, modules)
+    opl_train, step_ms = phase_wavefront_train(torch, zoo, modules)
+    fwd_bwd_ms, fwd_bwd_launches = phase_opl_fwd_bwd(torch, zoo, modules, card)
+    opl_ms, opl_shapes = phase_opl_timing(torch, zoo, simulator, modules, card)
     entries = kernel_entries(ms, errs, shape, fwd_err, bwd_err, serve_launches, train_launches)
     entries += k2_entries(k2_ms, k2_shape, k2_err, pop_serve_launches, gen_launches,
                           mixed_launches)
     entries += k3_entries(k3_ms, k3_shape, (k3_fwd_err, k3_fwd_err_bench),
                           (k3_bwd_err, k3_bwd_err_bench), k3_serve_launches, k3_train_launches)
     entries += k4_entries(k4_ms, k4_shape, k4_err, k4_serve_launches, *k4_launches)
+    entries += opl_entries(opl_ms, opl_shapes, opl_worst, opl_serve, opl_pop, opl_train,
+                           fwd_bwd_launches, fwd_bwd_ms, step_ms)
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

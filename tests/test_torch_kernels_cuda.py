@@ -19,7 +19,11 @@ the conic/asphere kernel pair, to the same bars on the masks, coordinates,
 penalty sums and per-ray cotangents, and its parameter sums within one
 float32 rounding of the plain version's float64 sums. K4, the conic/asphere
 population pair, to K3's bars per system, with and without the surface
-mask, and at B = 1 to K3 bit for bit.
+mask, and at B = 1 to K3 bit for bit. The opl mode of each (the wavefront
+path) to the same bars: forward outputs (opl included) and per-ray
+cotangents bit for bit, parameter and dn_legs sums within one float32
+rounding, K2 and K4 at B = 1 equal to K1 and K3; the wavefront functions on
+the card against the CPU; and K4's training path at a fixed bar.
 """
 
 import math
@@ -652,3 +656,231 @@ def test_aspheric_population_paths_on_gpu_match_cpu(cuda, name):
             gap = float(torch.where(m, a - b, 0.0).abs().max()) / scale
             floor = float(torch.where(m, n - b, 0.0).abs().max()) / scale
             assert gap <= 1e-4 + 4 * floor, (grads, k, gap, floor)
+
+
+# ---------------------------------------------------------------------------
+# The opl mode of K1-K4 (the wavefront path) and the wavefront functions.
+# ---------------------------------------------------------------------------
+
+OPL_CASES = [("k1", 1.0), ("k1", 3.0), ("k3", 1.0), ("k3", 3.0), ("k2", "cooke"),
+             ("k2", "mixed"), ("k4", "cooke"), ("k4", "mixed")]
+
+
+def _opl_inputs(device, kernel, variant):
+    """One opl kernel's inputs, ending with n_legs: K1 on the double-Gauss
+    and K3 on the aspherized double-Gauss (c x ``variant``, 8 fields x 32^2 x
+    3), K2 and K4 on 32-system populations at the generator width (the
+    Cooke with c x 3 on every 8th system, or the padded mixed one)."""
+    from torchoptics_tpu_torch.ops import fused_asphere, fused_batch
+    if kernel in ("k1", "k3"):
+        cfg = simulator.SimulatorConfig(**ASPH).trace_config()
+        specs, lens = zoo.build("double_gauss" if kernel == "k1" else "double_gauss_asph",
+                                device=device)
+        lens = lens.replace(c=lens.c * variant)
+        with torch.no_grad():
+            xp, yp, cyb, z0, mu, (_, F, P, _) = fused_trace.prepare_fused_inputs(specs, lens, cfg)
+        n_legs = fused_trace.leg_indices(lens, cfg.wavelengths)[0]
+        if kernel == "k1":
+            ins = (xp, yp, cyb, z0, lens.c[0], lens.t[0], mu, n_legs)
+        else:
+            ins = (xp, yp, cyb, z0, lens.c[0], lens.kappa[0], lens.t[0], mu, lens.asph[0], n_legs)
+        return [a.detach().contiguous() for a in ins], F * P, None
+    cfg = simulator.SimulatorConfig(**GEN).trace_config()
+    if kernel == "k2":
+        specs, lens = (zoo.population("cooke", 32, device=device) if variant == "cooke"
+                       else zoo.mixed_population(32, device=device))
+    else:
+        specs, lens = (zoo.aspheric_population(32, device=device) if variant == "cooke" else
+                       zoo.aspheric_population(32, ("cooke", "double_gauss"), mask_pad=True,
+                                               device=device))
+    if variant == "cooke":
+        scale = torch.ones(32, 1, device=device)
+        scale[::8] = 3.0
+        lens = lens.replace(c=lens.c * scale)
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, _) = fused_batch.prepare_fused_inputs_batch(specs, lens, cfg)
+    n_legs = fused_trace.leg_indices(lens, cfg.wavelengths)
+    if kernel == "k2":
+        ins = (xp, yp, cyb, z0, lens.c, lens.t, mu, n_legs)
+    else:
+        ins = (xp, yp, cyb, z0, lens.c, lens.kappa, lens.t, mu, lens.asph, n_legs)
+    return ([a.detach().contiguous() for a in ins], F * P,
+            fused_batch._static_mask(lens.structure, device))
+
+
+def _opl_run(kernel, ins, n_per_w, mask, allow_backward, plain, cot=None):
+    from torchoptics_tpu_torch.ops import fused_asphere, fused_batch
+    if kernel == "k1":
+        if cot is None:
+            return (fused_trace.trace_fused_reference(*ins[:7], "opl", allow_backward, n_per_w,
+                                                      n_legs=ins[7]) if plain else
+                    fused_trace._launch_k1_fwd(ins, "opl", allow_backward, n_per_w, (), THR))
+        return (fused_trace.trace_fused_backward_reference(ins, cot, "opl", allow_backward,
+                                                           n_per_w) if plain else
+                fused_trace._launch_k1_bwd(ins, cot, "opl", allow_backward, n_per_w, (), THR))
+    if kernel == "k2":
+        if cot is None:
+            return (fused_batch.trace_fused_batch_reference(
+                *ins[:7], "opl", allow_backward, n_per_w, mask, n_legs=ins[7]) if plain else
+                fused_batch._launch_k2_fwd(ins, "opl", allow_backward, n_per_w, mask, (), THR))
+        return (fused_batch.trace_fused_batch_backward_reference(
+            ins, cot, "opl", allow_backward, n_per_w, mask) if plain else
+            fused_batch._launch_k2_bwd(ins, cot, "opl", allow_backward, n_per_w, mask, (), THR))
+    if kernel == "k3":
+        if cot is None:
+            return (fused_asphere.trace_fused_asphere_reference(
+                *ins[:9], "opl", allow_backward, n_per_w, 10, n_legs=ins[9]) if plain else
+                fused_asphere._launch_k3_fwd(ins, "opl", allow_backward, n_per_w, 10, (), THR))
+        return (fused_asphere.trace_fused_asphere_backward_reference(
+            ins, cot, "opl", allow_backward, n_per_w, 10) if plain else
+            fused_asphere._launch_k3_bwd(ins, cot, "opl", allow_backward, n_per_w, 10, (), THR))
+    args = ("opl", allow_backward, n_per_w, 10, mask, (), THR)
+    if cot is None:
+        return (fused_asphere.trace_fused_asphere_batch_reference(
+            *ins[:9], "opl", allow_backward, n_per_w, 10, mask, n_legs=ins[9]) if plain else
+            fused_asphere._launch_k4_fwd(ins, *args))
+    return (fused_asphere.trace_fused_asphere_batch_backward_reference(ins, cot, *args) if plain
+            else fused_asphere._launch_k4_bwd(ins, cot, *args))
+
+
+@pytest.mark.parametrize("kernel,variant", OPL_CASES)
+@pytest.mark.parametrize("allow_backward", [True, False])
+def test_opl_kernels_match_plain_versions(cuda, kernel, variant, allow_backward):
+    """Each opl kernel against its plain version: forward outputs (masks,
+    coordinates, opl) and per-ray cotangents bit for bit; the parameter and
+    dn_legs sums within one float32 rounding of their row's largest (a
+    system's, or for one system each group's); two backward launches bit
+    for bit."""
+    ins, n_per_w, mask = _opl_inputs(cuda, kernel, variant)
+    assert (mask is None) == (variant != "mixed")
+    with torch.no_grad():
+        got = _opl_run(kernel, ins, n_per_w, mask, allow_backward, False)
+        want = _opl_run(kernel, ins, n_per_w, mask, allow_backward, True)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cot = [torch.randn(ins[0].shape, device=cuda, generator=gen) for _ in range(5)]
+    g1 = _opl_run(kernel, ins, n_per_w, mask, allow_backward, False, cot)
+    g2 = _opl_run(kernel, ins, n_per_w, mask, allow_backward, False, cot)
+    gw = _opl_run(kernel, ins, n_per_w, mask, allow_backward, True, cot)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 7 and len(g1) == len(gw) == len(ins)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2)), "two launches differ"
+    assert all(torch.equal(a, b) for a, b in zip(g1[:3], gw[:3]))
+    if kernel in ("k2", "k4"):
+        rows = lambda grads: [torch.cat([g.reshape(g.shape[0], -1) for g in grads[3:]], 1)]
+    else:
+        rows = lambda grads: [g.reshape(1, -1) for g in grads[3:]]
+    for a, b in zip(rows(g1), rows(gw)):
+        assert bool(torch.isfinite(a).all())
+        assert bool(((a - b).abs().max(1).values <= ONE_ROUNDING * b.abs().max(1).values).all())
+    if variant in (3.0, "cooke"):
+        assert 0 < float(got[4].float().mean()) < 1
+
+
+@pytest.mark.parametrize("single,one", [("k1", "k2"), ("k3", "k4")])
+def test_opl_population_of_one(cuda, single, one):
+    """K2's opl mode at B = 1 gives K1's outputs and cotangents bit for bit,
+    K4's K3's."""
+    ins, n_per_w, _ = _opl_inputs(cuda, single, 1.0)
+    batch = [a.reshape(1) if i == 3 else a[None] for i, a in enumerate(ins)]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cot = [torch.randn(ins[0].shape, device=cuda, generator=gen) for _ in range(5)]
+    with torch.no_grad():
+        a = _opl_run(single, ins, n_per_w, None, True, False)
+        b = _opl_run(one, batch, n_per_w, None, True, False)
+    ga = _opl_run(single, ins, n_per_w, None, True, False, cot)
+    gb = _opl_run(one, batch, n_per_w, None, True, False, [c[None] for c in cot])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y[0]) for x, y in zip(a, b))
+    assert all(torch.equal(x.reshape(-1), y.reshape(-1)) for x, y in zip(ga, gb))
+
+
+@pytest.mark.parametrize("name", ["double_gauss", "double_gauss_asph"])
+def test_wavefront_on_gpu_matches_cpu(cuda, name):
+    """``opd_map`` (two opl forward launches: the bundle and the chief ray)
+    and the fwd+bwd of ``wavefront_rms`` (two more, and two backward) on the
+    card against the CPU: masks equal, OPD within 5e-5 mm, the objective
+    within rtol 1e-2 and its gradient within rtol 0.05 and 0.02 of the
+    largest (JAX's bar between its Pallas and XLA paths)."""
+    from torchoptics_tpu_torch import analysis, trace
+    from torchoptics_tpu_torch.ops import fused_asphere
+    from torchoptics_tpu_torch.ops import wavefront as wf
+    cfg = trace.TraceConfig(mode="circular", n_rays=(16, 16), rel_fields=(0.0, 0.7, 1.0),
+                            wavelengths=(459.0, 520.0, 640.0), n_ray_aiming_iter=1,
+                            engine="fused")
+    module, key = (fused_trace, "K1") if name == "double_gauss" else (fused_asphere, "K3")
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        specs, lens = zoo.build(name, device=device)
+        before = (getattr(module, f"{key}_FWD_LAUNCHES"), getattr(module, f"{key}_BWD_LAUNCHES"))
+        with torch.no_grad():
+            opd = wf.opd_map(specs, lens, cfg)
+        c = lens.c.detach().clone().requires_grad_(True)
+        rms = analysis.wavefront_rms(specs, lens.replace(c=c), cfg)
+        (grad,) = torch.autograd.grad(rms, (c,))
+        launches = (getattr(module, f"{key}_FWD_LAUNCHES") - before[0],
+                    getattr(module, f"{key}_BWD_LAUNCHES") - before[1])
+        out[device.type] = (opd, float(rms.detach()), grad.cpu(), launches)
+    card, host = out["cuda"], out["cpu"]
+    assert card[3] == (4, 2) and host[3] == (0, 0)
+    assert torch.equal(card[0]["ok"].cpu(), host[0]["ok"])
+    ok = host[0]["ok"]
+    assert float((card[0]["opd"].cpu() - host[0]["opd"]).abs()[ok].max()) <= 5e-5
+    assert abs(card[1] - host[1]) <= 1e-2 * host[1]
+    scale = float(host[2].abs().max())
+    assert bool(((card[2] - host[2]).abs() <= 0.05 * host[2].abs() + 0.02 * scale).all())
+
+
+def test_diffraction_psf_window_on_gpu_matches_cpu(cuda):
+    """The matrix-DFT window at the imaging defaults' sizes (64^2 pupil, 65 x
+    65 pixels, oversample 4) equals the CPU's within 1e-5 of each PSF's peak:
+    TF32 is off (it would round the DFT's inputs to 10-bit mantissas)."""
+    from torchoptics_tpu_torch.ops import wavefront as wf
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    n = 64
+    gen = torch.Generator().manual_seed(4)
+    g = (torch.arange(n) + 0.5) / n * 2.0 - 1.0
+    Y, X = torch.meshgrid(g, g, indexing="ij")
+    ok = (X ** 2 + Y ** 2) <= 1.0
+    opd = (0.5e-3 * (0.4 * (2 * (X ** 2 + Y ** 2) - 1) + 0.2 * Y)
+           + 1e-5 * torch.randn(n, n, generator=gen))[None].repeat(3, 1, 1)
+    lam = torch.tensor([0.459e-3, 0.52e-3, 0.64e-3])
+    args = dict(pitch_mm=4e-3, shape=(65, 65), oversample=4)
+    host = wf.diffraction_psf_window(opd, ok[None].repeat(3, 1, 1), lam, 60.0, 12.0,
+                                     x_offset=torch.tensor([0.0, 1e-3, -2e-3]), **args)
+    card = wf.diffraction_psf_window(opd.to(cuda), ok[None].repeat(3, 1, 1).to(cuda),
+                                     lam.to(cuda), 60.0, 12.0,
+                                     x_offset=torch.tensor([0.0, 1e-3, -2e-3], device=cuda),
+                                     **args)
+    peak = host["psf"].amax(dim=(-2, -1), keepdim=True)
+    assert float(((card["psf"].cpu() - host["psf"]) / peak).abs().max()) <= 1e-5
+    assert float((card["accounted"].cpu() - host["accounted"]).abs().max()) <= 1e-5
+
+
+def test_k4_training_path_at_a_fixed_bar(cuda):
+    """K4's training path at a bar that does not scale with the data: 8
+    systems of the aspherized double-Gauss population (2 % curvature
+    draws), defocused by 0.05 mm, the gradients of the spot term of
+    ``batched_unsupervised_loss`` (through K4's Lu mode, forward and
+    backward) on the card within a fixed 1e-4 of each group's largest of
+    the CPU's. (The whole Lu's theta_norm sums amplify one ulp of cos² near
+    normal incidence: its float32 floor here is ~1e-3, see ROADMAP.)"""
+    from torchoptics_tpu_torch.ops import fused_asphere, fused_batch
+    cfg = simulator.SimulatorConfig(**GEN, trace_engine="fused")
+    names = ("c", "t", "kappa", "asph")
+    grads = {}
+    for device in (cuda, torch.device("cpu")):
+        specs, lens = zoo.population("double_gauss_asph", 8, device=device)
+        last = torch.zeros_like(lens.t)
+        last[:, -1] = 0.05
+        lens = lens.replace(t=lens.t + last)
+        params = [getattr(lens, k).detach().clone().requires_grad_(True) for k in names]
+        before = (fused_asphere.K4_FWD_LAUNCHES, fused_asphere.K4_BWD_LAUNCHES)
+        _, terms = fused_batch.batched_unsupervised_loss(
+            specs, lens.replace(**dict(zip(names, params))), cfg)
+        grads[device.type] = [g.cpu() for g in torch.autograd.grad(terms["rms"].mean(), params)]
+        launched = (fused_asphere.K4_FWD_LAUNCHES - before[0],
+                    fused_asphere.K4_BWD_LAUNCHES - before[1])
+        assert launched == ((1, 1) if device.type == "cuda" else (0, 0))
+    for k, a, b in zip(names, grads["cuda"], grads["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), k

@@ -4,7 +4,8 @@ The JAX package ``torchoptics_tpu`` stays the reference; this package
 evaluates and optimizes the same lenses with PyTorch, and its hot kernels
 (K1 and K2, the fused spherical trace of one system and of a population;
 K3 and K4, the fused conic/asphere trace of one system and of a
-population; each forward and backward) are hand-written CUDA for Hopper
+population; each forward and backward, with an opl mode for the
+wavefront) are hand-written CUDA for Hopper
 (``csrc/``), built with ``nvcc`` on first use. It imports neither JAX nor Triton, and builds
 nothing at import time. Its entry points put tensors on the GPU unless the
 caller asks for the CPU.
@@ -27,6 +28,10 @@ engine="fused")``; a population of conic/asphere designs
 (``zoo.aspheric_population``) in one launch of K4:
 ``fused_batch.batched_unsupervised_loss(specs, lens, cfg)``.
 
+The wavefront (``ops.wavefront``: OPD, Zernike, Strehl, the diffraction
+PSFs) and its objective ``analysis.wavefront_rms`` run on the same kernels'
+opl mode with ``TraceConfig(engine="fused")``.
+
 On a machine without a GPU, pass ``device="cpu"`` to ``zoo.build``: the
 wrappers then run the kernels' plain PyTorch versions.
 """
@@ -34,9 +39,10 @@ wrappers then run the kernels' plain PyTorch versions.
 from torchoptics_tpu_torch.models.structure import Lens, Specs, Structure  # noqa: F401
 from torchoptics_tpu_torch.models import catalog, convert, glass, zoo  # noqa: F401
 from torchoptics_tpu_torch.ops import (  # noqa: F401
-    abcd, aiming, fused_asphere, fused_batch, fused_trace, metrics, pupil, surfaces, trace)
+    abcd, aiming, fused_asphere, fused_batch, fused_trace, metrics, pupil, surfaces, trace,
+    wavefront)
 from torchoptics_tpu_torch.ops.trace import TraceConfig, TraceResult, trace_rays  # noqa: F401
-from torchoptics_tpu_torch import loss, optimize, simulator  # noqa: F401
+from torchoptics_tpu_torch import analysis, loss, optimize, simulator  # noqa: F401
 from torchoptics_tpu_torch.loss import OpticalLoss  # noqa: F401
 from torchoptics_tpu_torch.optimize import LensOptimizer  # noqa: F401
 from torchoptics_tpu_torch.simulator import SimulatorConfig  # noqa: F401

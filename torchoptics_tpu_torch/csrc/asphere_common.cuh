@@ -40,8 +40,10 @@ constexpr int MAX_ASPH = 8;
 constexpr float NEWTON_TOL = 1e-5f;
 
 // One system's surface tables, read once per block into shared memory.
-template <bool FULL>
+template <int MODE>
 struct AsphTables {
+  static constexpr bool FULL = MODE == 2;
+  static constexpr bool OPL = MODE == 3;
   float c[MAX_SURF];
   float kappa[MAX_SURF];
   float t[MAX_SURF];
@@ -50,15 +52,16 @@ struct AsphTables {
   float ref[FULL ? MAX_SURF + 1 : 1];
   float lo[FULL ? MAX_SURF : 1];
   float hi[FULL ? MAX_SURF : 1];
+  float nl[OPL ? (MAX_SURF + 1) * MAX_W : 1];  // n_legs, (S+1) x W row-major
   bool mask[MAX_SURF];
 
   // All threads of the block call it; the caller synchronizes after it.
-  // ref_z (S+1), the bounds lo, hi (S) and the mask (S) may be null where
-  // the mode or the population does not use them.
+  // ref_z (S+1), the bounds lo, hi (S), n_legs ((S+1) x W) and the mask (S)
+  // may be null where the mode or the population does not use them.
   __device__ void load(const float* c_, const float* kappa_, const float* t_,
                        const float* mu_, const float* a_, const float* ref_,
-                       const float* lo_, const float* hi_, const bool* mask_,
-                       int n_surf, int n_w, int n_asph) {
+                       const float* lo_, const float* hi_, const float* nl_,
+                       const bool* mask_, int n_surf, int n_w, int n_asph) {
     for (int j = threadIdx.x; j < n_surf; j += blockDim.x) {
       c[j] = c_[j];
       kappa[j] = kappa_[j];
@@ -71,6 +74,8 @@ struct AsphTables {
     }
     if (FULL)
       for (int j = threadIdx.x; j <= n_surf; j += blockDim.x) ref[j] = ref_[j];
+    if (OPL)
+      for (int j = threadIdx.x; j < (n_surf + 1) * n_w; j += blockDim.x) nl[j] = nl_[j];
     for (int j = threadIdx.x; j < n_surf * n_w; j += blockDim.x) mu[j] = mu_[j];
     for (int j = threadIdx.x; j < n_surf * n_asph; j += blockDim.x) a[j] = a_[j];
   }
@@ -264,14 +269,15 @@ struct SurfGrad {
 // the polish step, with the Newton point s_pre held constant. (px .. pcz) is
 // the pre-surface state; (dx .. dcz) the post-surface cotangents on entry
 // and the pre-surface ones on return. dcos2_extra and dcos2p_extra inject
-// the penalty cotangents on the raw cos^2 locals where LU is set.
-template <bool LU>
+// the penalty cotangents on the raw cos^2 locals where LU is set, and
+// ddist_extra the OPL cotangent on the marching distance where OPL is set.
+template <bool LU, bool OPL>
 __device__ __forceinline__ SurfGrad surface_adjoint(const Surf& p, float s_pre, float px,
                                                     float py, float pcx, float pcy, float pcz,
                                                     const LocalsA& L, float dcos2_extra,
-                                                    float dcos2p_extra, float& dx, float& dy,
-                                                    float& dz, float& dcx, float& dcy,
-                                                    float& dcz) {
+                                                    float dcos2p_extra, float ddist_extra,
+                                                    float& dx, float& dy, float& dz,
+                                                    float& dcx, float& dcy, float& dcz) {
   SurfGrad r;
   const float muk = p.mu;
   const bool ok2 = L.ok1 && !L.fail2;
@@ -347,7 +353,8 @@ __device__ __forceinline__ SurfGrad surface_adjoint(const Surf& p, float s_pre, 
   dys = dys + 2.0f * L.ys * dr2;
 
   // xs = x + dist cx, zA = z + dist cz
-  const float ddist = dxs * pcx + dys * pcy + dzA * pcz;
+  float ddist = dxs * pcx + dys * pcy + dzA * pcz;
+  if (OPL) ddist = ddist + ddist_extra;
   dx = dxs;
   dy = dys;
   dz = dzA;
@@ -390,29 +397,30 @@ __device__ __forceinline__ SurfGrad surface_adjoint(const Surf& p, float s_pre, 
   return r;
 }
 
-template <bool FULL>
-__device__ __forceinline__ Surf surf_of(const AsphTables<FULL>& s, int k, int n_w, int w,
+template <int MODE>
+__device__ __forceinline__ Surf surf_of(const AsphTables<MODE>& s, int k, int n_w, int w,
                                         int n_asph) {
   return Surf{s.c[k], s.kappa[k], s.t[k], s.mu[k * n_w + w], s.a + k * n_asph, n_asph};
 }
 
 // The forward trace of one ray of wavelength column w: launch at the
 // entrance pupil (xp, yp, cy, z0), every surface with its backward-ray
-// bookkeeping (or removal) and the penalty sums of the mode (MODE: 0 plain,
-// 1 Lu, 2 full), then the transfer to the image plane
+// bookkeeping (or removal) and the sums of the mode (MODE: 0 plain, 1 Lu,
+// 2 full, 3 opl), then the transfer to the image plane
 // (pallas_asphere._fwd_kernel_a).
 template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
-__device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE == 2>& s, int n_surf,
+__device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE>& s, int n_surf,
                                               int n_w, int n_asph, int n_iter, int w,
                                               float angle_thr, float x, float y, float cy,
                                               float z) {
-  constexpr bool LU = MODE >= 1;
+  constexpr bool LU = lu_mode(MODE);
   constexpr bool FULL = MODE == 2;
+  constexpr bool OPL = MODE == 3;
   float cx = 0.0f;
   float cz = sqrtf(1.0f - cy * cy);
   bool ok = true;
   bool bw = false;
-  float pth = 0.0f, ptp = 0.0f, pz = 0.0f, ppath = 0.0f, pang = 0.0f;
+  float pth = 0.0f, ptp = 0.0f, pz = 0.0f, ppath = 0.0f, pang = 0.0f, opl = 0.0f;
   float z_prev = 0.0f;
 
   for (int k = 0; k < n_surf; ++k) {
@@ -420,6 +428,9 @@ __device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE == 2>& s, in
     const float s_pre = newton_point(p, x, y, z, cx, cy, cz, n_iter);
     LocalsA L;
     surface_finish(p, s_pre, x, y, z, cx, cy, cz, ok, L);
+    // Leg k travels in the medium before surface k; it counts before a
+    // backward ray is removed.
+    if (OPL) opl = opl + L.dist * s.nl[k * n_w + w];
 
     // Backward-ray bookkeeping, skipping the pupil -> first-surface leg and
     // the legs that leave a padded surface.
@@ -464,20 +475,22 @@ __device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE == 2>& s, in
   const float dist = delta_z / cz;
   x = x + dist * cx;
   y = y + dist * cy;
+  // The final leg, in the image-space medium.
+  if (OPL) opl = opl + dist * s.nl[n_surf * n_w + w];
   const bool went_bw = (delta_z < 0.0f) && ok && (!MASKED || s.mask[n_surf - 1]);
   if (ALLOW_BACKWARD) {
     bw = bw || went_bw;
   } else {
     ok = ok && !went_bw;
   }
-  return RayOut{x, y, cx, cy, ok, bw, pth, ptp, pz, ppath, pang};
+  return RayOut{x, y, cx, cy, ok, bw, pth, ptp, pz, ppath, pang, opl};
 }
 
 // Parameters of one system in the partials and the result:
 // [dz0 | dc (S) | dkappa (S) | dt (S) | dmu (S x W) | da (S x K) | dref_z (S+1,
-// full mode only)].
+// full mode) or dn_legs ((S+1) x W, opl mode)].
 __host__ __device__ __forceinline__ int n_params_a(int mode, int n_surf, int n_w, int n_asph) {
-  return 1 + 3 * n_surf + n_surf * n_w + n_surf * n_asph + (mode == 2 ? n_surf + 1 : 0);
+  return 1 + 3 * n_surf + n_surf * n_w + n_surf * n_asph + n_extra_params(mode, n_surf, n_w);
 }
 
 // The backward pass of one ray (pallas_asphere._bwd_kernel_a): the forward
@@ -486,7 +499,8 @@ __host__ __device__ __forceinline__ int n_params_a(int mode, int n_surf, int n_w
 // image-transfer adjoint; then the surfaces in reverse, each one's locals
 // recomputed from its stash by surface_finish (the Newton steps do not run
 // again: s_pre is a constant of the adjoint), the penalty cotangents
-// injected, the killed lanes cut, and surface_adjoint applied. The per-ray
+// injected (in opl mode dopl into each leg's distance adjoint, uncut by a
+// kill), the killed lanes cut, and surface_adjoint applied. The per-ray
 // cotangents of xp, yp, cy come back in dxp, dyp, dcyp. The parameter terms
 // are summed over the warp in double and written by lane 0 into the warp's
 // row `part` of shared memory, in the layout of n_params_a; `part` starts
@@ -495,17 +509,18 @@ __host__ __device__ __forceinline__ int n_params_a(int mode, int n_surf, int n_w
 // shuffles; w_first and w_last are the warp's first and last wavelength
 // columns.
 template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
-__device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE == 2>& s, int n_surf, int n_w,
+__device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf, int n_w,
                                           int n_asph, int n_iter, float angle_thr, bool active,
                                           int w, float xp, float yp, float cy0, float z0,
                                           const RayCot& in, double* part, int w_first,
                                           int w_last, float& dxp, float& dyp, float& dcyp) {
-  constexpr bool LU = MODE >= 1;
+  constexpr bool LU = lu_mode(MODE);
   constexpr bool FULL = MODE == 2;
+  constexpr bool OPL = MODE == 3;
   const int lane = threadIdx.x & 31;
   const int off_c = 1, off_kap = 1 + n_surf, off_t = 1 + 2 * n_surf;
   const int off_mu = 1 + 3 * n_surf, off_a = off_mu + n_surf * n_w;
-  const int off_ref = off_a + n_surf * n_asph;
+  const int off_ref = off_a + n_surf * n_asph;  // dref_z or dn_legs
   auto kills = [&](int k) { return !ALLOW_BACKWARD && k > 0 && (!MASKED || s.mask[k - 1]); };
 
   // ---- forward, stashing the pre-surface states and Newton points ----
@@ -544,7 +559,13 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE == 2>& s, int n_
   const float dist_f = -z / cz;
   float dcx = in.dcx + in.dx * dist_f;
   float dcy = in.dcy + in.dy * dist_f;
-  const float ddist_f = in.dx * cx + in.dy * cy;
+  float ddist_f = in.dx * cx + in.dy * cy;
+  if (OPL) {
+    // opl += dist_f * n_S: into the final leg's distance adjoint.
+    ddist_f = ddist_f + in.dopl * s.nl[n_surf * n_w + w];
+    dn_legs_sums(active, w, w_first, w_last, in.dopl * dist_f,
+                 part + off_ref + n_surf * n_w, lane);
+  }
   float dz = -ddist_f / cz;
   float dcz = ddist_f * (z / (cz * cz));
   float dx = in.dx;
@@ -606,8 +627,11 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE == 2>& s, int n_
       dcz = 0.0f;
     }
 
-    const SurfGrad r = surface_adjoint<LU>(p, s_pre, px, py, pcx, pcy, pcz, L, dcos2_extra,
-                                           dcos2p_extra, dx, dy, dz, dcx, dcy, dcz);
+    // opl += dist_k * n_k, before the kill: not cut by it.
+    const float ddist_extra = OPL ? in.dopl * s.nl[k * n_w + w] : 0.0f;
+    const SurfGrad r = surface_adjoint<LU, OPL>(p, s_pre, px, py, pcx, pcy, pcz, L, dcos2_extra,
+                                                dcos2p_extra, ddist_extra, dx, dy, dz, dcx,
+                                                dcy, dcz);
 
     // ---- this surface's parameter terms, reduced over the warp ----
     const double r_c = warp_sum(active ? r.dc : 0.0f);
@@ -642,6 +666,9 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE == 2>& s, int n_
         part[off_ref + k] -= r_ref;
       }
     }
+    if (OPL)
+      dn_legs_sums(active, w, w_first, w_last, in.dopl * L.dist, part + off_ref + k * n_w,
+                   lane);
   }
 
   // ---- launch adjoint: cz0 = sqrt(1 - cy^2), cx0 = 0 (a constant) ----

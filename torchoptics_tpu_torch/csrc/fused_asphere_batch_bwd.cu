@@ -2,7 +2,7 @@
 // forward).
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel_ab` in
-// torchoptics_tpu/ops/pallas_asphere.py (plain, Lu and full modes, both
+// torchoptics_tpu/ops/pallas_asphere.py (plain, Lu, full and opl modes, both
 // backward-ray policies). The plain PyTorch version of the same function is
 // torchoptics_tpu_torch/ops/fused_asphere.py:
 // trace_fused_asphere_batch_backward_reference; the per-ray cotangents of
@@ -16,7 +16,8 @@
 // step with the Newton point held constant; the penalty cotangents gated by
 // the surface mask where MASKED is on). The parameter cotangents are per
 // system: dz0 (B,), dc, dkappa, dt (B, S), dmu (B, S, W), dasph (B, S, K)
-// and, in full mode, dref_z (B, S+1). They are summed as K2 backward sums
+// and, in full mode, dref_z (B, S+1), in opl mode dn_legs (B, S+1, W). They
+// are summed as K2 backward sums
 // its own, without atomics: warp shuffles in double, a row per warp in
 // shared memory, one column per block of a (B, n_params, blocks per system)
 // scratch tensor, then partials_reduce sums each (system, parameter) row in
@@ -40,7 +41,7 @@
 // k4_bound). A system has 6 blocks, so the partials are small; the second
 // kernel launches B x n_params blocks of 256 threads that sum 6 values each.
 //
-// Left for later work: the "opl" penalty mode and any tuning.
+// Left for later work: any tuning.
 //
 // Build: as K3, -fmad=false and no fast-math, so that the recompute
 // reproduces the forward and the adjoint the plain version.
@@ -51,8 +52,8 @@ namespace {
 
 constexpr int MAX_GRID_Y = 65535;
 
-// MODE: 0 plain, 1 Lu, 2 full. The partials are (n_sys, n_params, blocks),
-// one column per block, in the parameter layout of n_params_a.
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl. The partials are (n_sys, n_params,
+// blocks), one column per block, in the parameter layout of n_params_a.
 template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
 __global__ void __launch_bounds__(BLOCK) k4_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
@@ -61,24 +62,26 @@ __global__ void __launch_bounds__(BLOCK) k4_bwd_kernel(
     const float* __restrict__ t, const float* __restrict__ mu,
     const float* __restrict__ asph, const bool* __restrict__ mask,
     const float* __restrict__ ref_z, const float* __restrict__ lo,
-    const float* __restrict__ hi, float angle_thr,
+    const float* __restrict__ hi, const float* __restrict__ n_legs, float angle_thr,
     const float* __restrict__ dx_in, const float* __restrict__ dy_in,
     const float* __restrict__ dcx_in, const float* __restrict__ dcy_in,
     const float* __restrict__ dpth_in, const float* __restrict__ dptp_in,
     const float* __restrict__ dpz_in, const float* __restrict__ dppath_in,
-    const float* __restrict__ dpang_in, int n_sys, int n, int n_surf, int n_w, int n_asph,
-    int n_per_w, int n_iter, int n_params, float* __restrict__ dxp_out,
-    float* __restrict__ dyp_out, float* __restrict__ dcy_out,
+    const float* __restrict__ dpang_in, const float* __restrict__ dopl_in, int n_sys, int n,
+    int n_surf, int n_w, int n_asph, int n_per_w, int n_iter, int n_params,
+    float* __restrict__ dxp_out, float* __restrict__ dyp_out, float* __restrict__ dcy_out,
     double* __restrict__ partials) {
-  constexpr bool LU = MODE >= 1;
+  constexpr bool LU = lu_mode(MODE);
   constexpr bool FULL = MODE == 2;
+  constexpr bool OPL = MODE == 3;
   const int b = blockIdx.z * gridDim.y + blockIdx.y;
   if (b >= n_sys) return;  // the whole block
   const size_t bs = (size_t)b * n_surf;
-  __shared__ AsphTables<FULL> tab;
+  __shared__ AsphTables<MODE> tab;
   extern __shared__ double s_part[];  // [WARPS][n_params]
   tab.load(c + bs, kappa + bs, t + bs, mu + bs * n_w, asph + bs * n_asph,
            FULL ? ref_z + (size_t)b * (n_surf + 1) : nullptr, lo, hi,
+           OPL ? n_legs + (size_t)b * (n_surf + 1) * n_w : nullptr,
            MASKED ? mask + bs : nullptr, n_surf, n_w, n_asph);
   for (int j = threadIdx.x; j < WARPS * n_params; j += BLOCK) s_part[j] = 0.0;
   __syncthreads();
@@ -97,7 +100,7 @@ __global__ void __launch_bounds__(BLOCK) k4_bwd_kernel(
   const RayCot cot{read(dx_in), read(dy_in), read(dcx_in), read(dcy_in),
                    LU ? read(dpth_in) : 0.0f, LU ? read(dptp_in) : 0.0f,
                    LU ? read(dpz_in) : 0.0f, FULL ? read(dppath_in) : 0.0f,
-                   FULL ? read(dpang_in) : 0.0f};
+                   FULL ? read(dpang_in) : 0.0f, OPL ? read(dopl_in) : 0.0f};
   float dxp, dyp, dcyp;
   bwd_ray_a<MODE, ALLOW_BACKWARD, MASKED>(tab, n_surf, n_w, n_asph, n_iter, angle_thr, active,
                                           w, xp[rc], yp[rc], cy_in[rc], z0[b], cot,
@@ -123,9 +126,9 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* con
   if (err != cudaSuccess) return err;
   kernel<<<grid, BLOCK, smem, stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], mask, in[9], in[10],
-      in[11], angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7],
-      cot[8], n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter, n_params, out[0], out[1],
-      out[2], partials);
+      in[11], in[12], angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6],
+      cot[7], cot[8], cot[9], n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter, n_params,
+      out[0], out[1], out[2], partials);
   return cudaGetLastError();
 }
 
@@ -153,14 +156,16 @@ extern "C" {
 // cotangents (n_sys, n) as in k3_bwd_launch, per mode. `partials` holds
 // n_sys x n_params x ceil(n / k1_bwd_block()) doubles and `params`
 // n_sys x n_params, row-major, with n_params = 1 + 3 S + S W + S K (+ S + 1
-// in full mode) laid out [dz0 | dc | dkappa | dt | dmu (S x W) | da (S x K)
-// | dref_z]. Pointers a mode does not use may be null.
+// in full mode, + (S + 1) W in opl mode) laid out [dz0 | dc | dkappa | dt |
+// dmu (S x W) | da (S x K) | dref_z or dn_legs]. Pointers a mode does not
+// use may be null.
 int k4_bwd_launch(const float* xp, const float* yp, const float* cy, const float* z0,
                   const float* c, const float* kappa, const float* t, const float* mu,
                   const float* asph, const bool* mask, const float* ref_z, const float* lo,
-                  const float* hi, float angle_thr, const float* dx, const float* dy,
-                  const float* dcx, const float* dcy, const float* dpth, const float* dptp,
-                  const float* dpz, const float* dppath, const float* dpang, int n_sys, int n,
+                  const float* hi, const float* n_legs, float angle_thr, const float* dx,
+                  const float* dy, const float* dcx, const float* dcy, const float* dpth,
+                  const float* dptp, const float* dpz, const float* dppath, const float* dpang,
+                  const float* dopl, int n_sys, int n,
                   int n_surf, int n_w, int n_asph, int n_per_w, int n_iter, int mode,
                   int allow_backward, float* dxp, float* dyp, float* dcy_out,
                   double* partials, float* params, void* stream) {
@@ -173,8 +178,8 @@ int k4_bwd_launch(const float* xp, const float* yp, const float* cy, const float
   const int gy = n_sys < MAX_GRID_Y ? n_sys : MAX_GRID_Y;
   const dim3 grid(blocks, gy, (n_sys + gy - 1) / gy);
   const size_t smem = (size_t)WARPS * n_params * sizeof(double);
-  const float* const in[12] = {xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi};
-  const float* const cot[9] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang};
+  const float* const in[13] = {xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi, n_legs};
+  const float* const cot[10] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang, dopl};
   float* const out[3] = {dxp, dyp, dcy_out};
   const bool masked = mask != nullptr;
   if (blocks > 0) {
@@ -186,8 +191,10 @@ int k4_bwd_launch(const float* xp, const float* yp, const float* cy, const float
       err = allow_backward ? K4_BWD_LAUNCH(0, true) : K4_BWD_LAUNCH(0, false);
     else if (mode == 1)
       err = allow_backward ? K4_BWD_LAUNCH(1, true) : K4_BWD_LAUNCH(1, false);
-    else
+    else if (mode == 2)
       err = allow_backward ? K4_BWD_LAUNCH(2, true) : K4_BWD_LAUNCH(2, false);
+    else
+      err = allow_backward ? K4_BWD_LAUNCH(3, true) : K4_BWD_LAUNCH(3, false);
 #undef K4_BWD_LAUNCH
     if (err != cudaSuccess) return (int)err;
   }

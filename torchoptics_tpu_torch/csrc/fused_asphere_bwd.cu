@@ -2,7 +2,7 @@
 // forward).
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel_a` in
-// torchoptics_tpu/ops/pallas_asphere.py (plain, Lu and full modes, both
+// torchoptics_tpu/ops/pallas_asphere.py (plain, Lu, full and opl modes, both
 // backward-ray policies). The plain PyTorch version of the same function is
 // torchoptics_tpu_torch/ops/fused_asphere.py:
 // trace_fused_asphere_backward_reference; the per-ray cotangents of the two
@@ -20,8 +20,8 @@
 // without the Newton steps), the penalty cotangents injected as in K1, the
 // killed lanes cut, and the surface adjoint applied. Outputs: the per-ray
 // cotangents of xp, yp and cy, and the parameter cotangents dz0, dc,
-// dkappa, dt, dmu (per wavelength), da (S x K) and, in full mode, dref_z,
-// which are sums over all rays.
+// dkappa, dt, dmu (per wavelength), da (S x K) and, in full mode, dref_z, in
+// opl mode dn_legs (per leg and wavelength), which are sums over all rays.
 //
 // The parameter sums are K1's (fused_trace_bwd.cu): warp shuffles in
 // double, each warp's row in shared memory, each block's column of a
@@ -44,7 +44,7 @@
 // the asphere terms of dg/dr^2 at each; the asphere cotangents, 10 K on the
 // forward's powers of r^2; and one add per ray for each of the 4 + K
 // parameter sums. Per ray 19 for the launch, image-transfer and dz0 terms;
-// Lu and full add what they add to K1b. At N = 10 and K = 2 that is 752 a
+// Lu, full and opl add what they add to K1b. At N = 10 and K = 2 that is 752 a
 // surface, 8,291 a ray on the 11-surface flagship in plain mode: 20.4 GFLOP
 // at 2.46M rays, 0.304 ms at the 67 TFLOP/s FP32 peak, against ~103 MB,
 // 0.031 ms at 3.35 TB/s: operations bound it. What the kernel spends beyond
@@ -64,8 +64,8 @@
 
 namespace {
 
-// MODE: 0 plain, 1 Lu, 2 full. The partials are (n_params x blocks), one
-// column per block, in the parameter layout of n_params_a.
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl. The partials are (n_params x blocks),
+// one column per block, in the parameter layout of n_params_a.
 template <int MODE, bool ALLOW_BACKWARD>
 __global__ void __launch_bounds__(BLOCK) k3_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
@@ -73,20 +73,22 @@ __global__ void __launch_bounds__(BLOCK) k3_bwd_kernel(
     const float* __restrict__ c, const float* __restrict__ kappa,
     const float* __restrict__ t, const float* __restrict__ mu,
     const float* __restrict__ asph, const float* __restrict__ ref_z,
-    const float* __restrict__ lo, const float* __restrict__ hi, float angle_thr,
+    const float* __restrict__ lo, const float* __restrict__ hi,
+    const float* __restrict__ n_legs, float angle_thr,
     const float* __restrict__ dx_in, const float* __restrict__ dy_in,
     const float* __restrict__ dcx_in, const float* __restrict__ dcy_in,
     const float* __restrict__ dpth_in, const float* __restrict__ dptp_in,
     const float* __restrict__ dpz_in, const float* __restrict__ dppath_in,
-    const float* __restrict__ dpang_in, int n, int n_surf, int n_w, int n_asph,
-    int n_per_w, int n_iter, int n_params, float* __restrict__ dxp_out,
-    float* __restrict__ dyp_out, float* __restrict__ dcy_out,
+    const float* __restrict__ dpang_in, const float* __restrict__ dopl_in, int n,
+    int n_surf, int n_w, int n_asph, int n_per_w, int n_iter, int n_params,
+    float* __restrict__ dxp_out, float* __restrict__ dyp_out, float* __restrict__ dcy_out,
     double* __restrict__ partials) {
-  constexpr bool LU = MODE >= 1;
+  constexpr bool LU = lu_mode(MODE);
   constexpr bool FULL = MODE == 2;
-  __shared__ AsphTables<FULL> tab;
+  constexpr bool OPL = MODE == 3;
+  __shared__ AsphTables<MODE> tab;
   extern __shared__ double s_part[];  // [WARPS][n_params]
-  tab.load(c, kappa, t, mu, asph, ref_z, lo, hi, nullptr, n_surf, n_w, n_asph);
+  tab.load(c, kappa, t, mu, asph, ref_z, lo, hi, n_legs, nullptr, n_surf, n_w, n_asph);
   for (int j = threadIdx.x; j < WARPS * n_params; j += BLOCK) s_part[j] = 0.0;
   __syncthreads();
 
@@ -102,7 +104,7 @@ __global__ void __launch_bounds__(BLOCK) k3_bwd_kernel(
   const RayCot cot{read(dx_in), read(dy_in), read(dcx_in), read(dcy_in),
                    LU ? read(dpth_in) : 0.0f, LU ? read(dptp_in) : 0.0f,
                    LU ? read(dpz_in) : 0.0f, FULL ? read(dppath_in) : 0.0f,
-                   FULL ? read(dpang_in) : 0.0f};
+                   FULL ? read(dpang_in) : 0.0f, OPL ? read(dopl_in) : 0.0f};
   float dxp, dyp, dcyp;
   bwd_ray_a<MODE, ALLOW_BACKWARD, false>(tab, n_surf, n_w, n_asph, n_iter, angle_thr, active,
                                          w, xp[ic], yp[ic], cy_in[ic], *z0, cot,
@@ -127,8 +129,9 @@ cudaError_t launch(int grid, size_t smem, cudaStream_t stream, const float* cons
   if (err != cudaSuccess) return err;
   kernel<<<grid, BLOCK, smem, stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10], in[11],
-      angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7], cot[8], n,
-      n_surf, n_w, n_asph, n_per_w, n_iter, n_params, out[0], out[1], out[2], partials);
+      in[12], angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7],
+      cot[8], cot[9], n, n_surf, n_w, n_asph, n_per_w, n_iter, n_params, out[0], out[1],
+      out[2], partials);
   return cudaGetLastError();
 }
 
@@ -139,19 +142,19 @@ extern "C" {
 // Launches K3 backward and the reduction of its partials on `stream`;
 // returns the first CUDA error (0 on success). mode: 0 plain (cotangents dx,
 // dy, dcx, dcy), 1 Lu (plus dpth, dptp, dpz), 2 full (plus dppath, dpang;
-// reads ref_z, lo, hi, angle_thr). `partials` holds n_params x
-// ceil(n / k1_bwd_block()) doubles and `params` n_params, with n_params =
-// 1 + 3 S + S W + S K (+ S + 1 in full mode), laid out [dz0 | dc | dkappa |
-// dt | dmu (S x W) | da (S x K) | dref_z]. Pointers a mode does not use may
-// be null.
+// reads ref_z, lo, hi, angle_thr), 3 opl (plus dopl; reads n_legs).
+// `partials` holds n_params x ceil(n / k1_bwd_block()) doubles and `params`
+// n_params, with n_params = 1 + 3 S + S W + S K (+ S + 1 in full mode,
+// + (S + 1) W in opl mode), laid out [dz0 | dc | dkappa | dt | dmu (S x W) |
+// da (S x K) | dref_z or dn_legs]. Pointers a mode does not use may be null.
 int k3_bwd_launch(const float* xp, const float* yp, const float* cy,
                   const float* z0, const float* c, const float* kappa,
                   const float* t, const float* mu, const float* asph,
                   const float* ref_z, const float* lo, const float* hi,
-                  float angle_thr, const float* dx, const float* dy,
+                  const float* n_legs, float angle_thr, const float* dx, const float* dy,
                   const float* dcx, const float* dcy, const float* dpth,
                   const float* dptp, const float* dpz, const float* dppath,
-                  const float* dpang, int n, int n_surf, int n_w, int n_asph,
+                  const float* dpang, const float* dopl, int n, int n_surf, int n_w, int n_asph,
                   int n_per_w, int n_iter, int mode, int allow_backward,
                   float* dxp, float* dyp, float* dcy_out, double* partials,
                   float* params, void* stream) {
@@ -161,8 +164,8 @@ int k3_bwd_launch(const float* xp, const float* yp, const float* cy,
   const int n_params = n_params_a(mode, n_surf, n_w, n_asph);
   const int grid = (n + BLOCK - 1) / BLOCK;
   const size_t smem = (size_t)WARPS * n_params * sizeof(double);
-  const float* const in[12] = {xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi};
-  const float* const cot[9] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang};
+  const float* const in[13] = {xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi, n_legs};
+  const float* const cot[10] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang, dopl};
   float* const out[3] = {dxp, dyp, dcy_out};
   if (grid > 0) {
     cudaError_t err;
@@ -173,8 +176,10 @@ int k3_bwd_launch(const float* xp, const float* yp, const float* cy,
       err = allow_backward ? K3_BWD_LAUNCH(0, true) : K3_BWD_LAUNCH(0, false);
     else if (mode == 1)
       err = allow_backward ? K3_BWD_LAUNCH(1, true) : K3_BWD_LAUNCH(1, false);
-    else
+    else if (mode == 2)
       err = allow_backward ? K3_BWD_LAUNCH(2, true) : K3_BWD_LAUNCH(2, false);
+    else
+      err = allow_backward ? K3_BWD_LAUNCH(3, true) : K3_BWD_LAUNCH(3, false);
 #undef K3_BWD_LAUNCH
     if (err != cudaSuccess) return (int)err;
   }

@@ -2,7 +2,7 @@
 // flat ray block.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel_a` in
-// torchoptics_tpu/ops/pallas_asphere.py (plain, Lu and full modes). The
+// torchoptics_tpu/ops/pallas_asphere.py (plain, Lu, full and opl modes). The
 // plain PyTorch version of the same function is
 // torchoptics_tpu_torch/ops/fused_asphere.py:trace_fused_asphere_reference;
 // the two agree bit for bit on the failure masks and, in plain mode, on the
@@ -14,8 +14,9 @@
 // sag-domain guard at the Newton point and at the hit point, a stationary
 // F', non-convergence |F| > 1e-5, cos^2 < EPS), Snell's law with the true
 // normal (TIR and cz^2 masks), zeroing of failed lanes, backward-ray
-// bookkeeping (or removal), and the penalty sums of the mode, as K1
-// forward's (fused_trace_fwd.cu); finally the transfer to the image plane.
+// bookkeeping (or removal), and the sums of the mode, as K1 forward's
+// (fused_trace_fwd.cu: the penalty sums, or in opl mode the optical path
+// length); finally the transfer to the image plane.
 //
 // What bounds it on an H100: per ray it reads 12 B (xp, yp, cy) and writes
 // 18 B (plain), 30 B (Lu) or 38 B (full), as K1. Counting FP32 arithmetic
@@ -29,7 +30,8 @@
 // slopes 4 + 3 K each: the sag there is computed but read by nothing; then
 // the normal, cos^2 and Snell's law): 125 + 12 K + N (26 + 5 K) a surface,
 // 509 at N = 10 and K = 2, ~9x K1's 55. Lu adds 14 a surface and full 10 a
-// surface and 3 per finite side of a path bound, as in K1; the launch and
+// surface and 3 per finite side of a path bound, opl 2 a leg and 4 B written
+// a ray, as in K1; the launch and
 // the image transfer add 8 a ray (chip_smoke.py's k3_ops). At 2.46M rays x
 // 11 surfaces, plain mode is 13.8 GFLOP, 0.206 ms at the 67 TFLOP/s FP32
 // peak, against 74 MB of traffic, 0.022 ms at 3.35 TB/s: operations bound
@@ -44,10 +46,9 @@
 // per-ray trace (trace_ray_a) and the surface math live in
 // asphere_common.cuh, with the MASKED switch for the population kernel K4.
 //
-// Left for later work: the "opl" penalty mode, the population kernel K4, and
-// any tuning (a Newton loop that stops once every lane of a warp has
-// converged would change no result only if the steps after convergence
-// leave s unchanged, which float32 Newton steps need not do).
+// Left for later work: any tuning (a Newton loop that stops once every lane
+// of a warp has converged would change no result only if the steps after
+// convergence leave s unchanged, which float32 Newton steps need not do).
 //
 // Build: as K1, nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false, no fast-math: the masks compare against EPS and NEWTON_TOL,
@@ -58,7 +59,7 @@
 
 namespace {
 
-// MODE: 0 plain, 1 Lu, 2 full.
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl.
 template <int MODE, bool ALLOW_BACKWARD>
 __global__ void __launch_bounds__(BLOCK) k3_fwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
@@ -66,16 +67,17 @@ __global__ void __launch_bounds__(BLOCK) k3_fwd_kernel(
     const float* __restrict__ c, const float* __restrict__ kappa,
     const float* __restrict__ t, const float* __restrict__ mu,
     const float* __restrict__ asph, const float* __restrict__ ref_z,
-    const float* __restrict__ lo, const float* __restrict__ hi, float angle_thr,
+    const float* __restrict__ lo, const float* __restrict__ hi,
+    const float* __restrict__ n_legs, float angle_thr,
     int n, int n_surf, int n_w, int n_asph, int n_per_w, int n_iter,
     float* __restrict__ x_out, float* __restrict__ y_out,
     float* __restrict__ cx_out, float* __restrict__ cy_out,
     bool* __restrict__ ok_out, bool* __restrict__ bw_out,
     float* __restrict__ pen_theta, float* __restrict__ pen_theta_p,
     float* __restrict__ pen_zrelu, float* __restrict__ pen_path_out,
-    float* __restrict__ pen_ang_out) {
-  __shared__ AsphTables<MODE == 2> tab;
-  tab.load(c, kappa, t, mu, asph, ref_z, lo, hi, nullptr, n_surf, n_w, n_asph);
+    float* __restrict__ pen_ang_out, float* __restrict__ opl_out) {
+  __shared__ AsphTables<MODE> tab;
+  tab.load(c, kappa, t, mu, asph, ref_z, lo, hi, n_legs, nullptr, n_surf, n_w, n_asph);
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -89,7 +91,7 @@ __global__ void __launch_bounds__(BLOCK) k3_fwd_kernel(
   cy_out[i] = r.cy;
   ok_out[i] = r.ok;
   bw_out[i] = r.bw;
-  if (MODE >= 1) {
+  if (lu_mode(MODE)) {
     pen_theta[i] = r.pth;
     pen_theta_p[i] = r.ptp;
     pen_zrelu[i] = r.pz;
@@ -98,6 +100,7 @@ __global__ void __launch_bounds__(BLOCK) k3_fwd_kernel(
     pen_path_out[i] = r.ppath;
     pen_ang_out[i] = r.pang;
   }
+  if (MODE == 3) opl_out[i] = r.opl;
 }
 
 template <int MODE, bool ALLOW_BACKWARD>
@@ -107,8 +110,9 @@ void launch(const float* const* in, float angle_thr, int n, int n_surf, int n_w,
   const int grid = (n + BLOCK - 1) / BLOCK;
   k3_fwd_kernel<MODE, ALLOW_BACKWARD><<<grid, BLOCK, 0, stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
-      in[11], angle_thr, n, n_surf, n_w, n_asph, n_per_w, n_iter, outs[0], outs[1],
-      outs[2], outs[3], ok_out, bw_out, pens[0], pens[1], pens[2], pens[3], pens[4]);
+      in[11], in[12], angle_thr, n, n_surf, n_w, n_asph, n_per_w, n_iter, outs[0], outs[1],
+      outs[2], outs[3], ok_out, bw_out, pens[0], pens[1], pens[2], pens[3], pens[4],
+      pens[5]);
 }
 
 }  // namespace
@@ -120,25 +124,25 @@ int k3_max_asph() { return MAX_ASPH; }
 // Launches K3 forward on `stream` and returns cudaGetLastError() (0 on
 // success). asph is (S, n_asph) row-major. mode: 0 plain, 1 Lu (pen_theta,
 // pen_theta_p, pen_zrelu), 2 full (those plus pen_path, pen_ang; reads
-// ref_z (S+1), lo, hi (S) and angle_thr). Pointers a mode does not use may
-// be null.
+// ref_z (S+1), lo, hi (S) and angle_thr), 3 opl (opl_out; reads n_legs
+// ((S+1) x W)). Pointers a mode does not use may be null.
 int k3_fwd_launch(const float* xp, const float* yp, const float* cy,
                   const float* z0, const float* c, const float* kappa,
                   const float* t, const float* mu, const float* asph,
                   const float* ref_z, const float* lo, const float* hi,
-                  float angle_thr, int n, int n_surf, int n_w, int n_asph,
-                  int n_per_w, int n_iter, int mode, int allow_backward,
+                  const float* n_legs, float angle_thr, int n, int n_surf, int n_w,
+                  int n_asph, int n_per_w, int n_iter, int mode, int allow_backward,
                   float* x_out, float* y_out, float* cx_out, float* cy_out,
                   bool* ok_out, bool* bw_out, float* pen_theta,
                   float* pen_theta_p, float* pen_zrelu, float* pen_path,
-                  float* pen_ang, void* stream) {
+                  float* pen_ang, float* opl_out, void* stream) {
   if (bad_shape_a(n_surf, n_w, n_asph, n_per_w, n, n_iter, mode))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const float* const in[12] = {xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi};
+  const float* const in[13] = {xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi, n_legs};
   float* const outs[4] = {x_out, y_out, cx_out, cy_out};
-  float* const pens[5] = {pen_theta, pen_theta_p, pen_zrelu, pen_path, pen_ang};
+  float* const pens[6] = {pen_theta, pen_theta_p, pen_zrelu, pen_path, pen_ang, opl_out};
 #define K3_FWD_LAUNCH(M, AB)                                                     \
   launch<M, AB>(in, angle_thr, n, n_surf, n_w, n_asph, n_per_w, n_iter, outs, \
                 ok_out, bw_out, pens, s)
@@ -146,8 +150,10 @@ int k3_fwd_launch(const float* xp, const float* yp, const float* cy,
     if (allow_backward) K3_FWD_LAUNCH(0, true); else K3_FWD_LAUNCH(0, false);
   } else if (mode == 1) {
     if (allow_backward) K3_FWD_LAUNCH(1, true); else K3_FWD_LAUNCH(1, false);
-  } else {
+  } else if (mode == 2) {
     if (allow_backward) K3_FWD_LAUNCH(2, true); else K3_FWD_LAUNCH(2, false);
+  } else {
+    if (allow_backward) K3_FWD_LAUNCH(3, true); else K3_FWD_LAUNCH(3, false);
   }
 #undef K3_FWD_LAUNCH
   return (int)cudaGetLastError();

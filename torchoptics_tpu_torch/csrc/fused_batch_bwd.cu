@@ -1,7 +1,7 @@
 // K2 backward: the hand adjoint of the population trace (K2 forward).
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel_b` in
-// torchoptics_tpu/ops/pallas_batch.py (plain, Lu and full modes, both
+// torchoptics_tpu/ops/pallas_batch.py (plain, Lu, full and opl modes, both
 // backward-ray policies). The plain PyTorch version of the same function is
 // torchoptics_tpu_torch/ops/fused_batch.py:
 // trace_fused_batch_backward_reference; the per-ray cotangents of the two
@@ -12,7 +12,8 @@
 // bwd_ray of trace_common.cuh on its rays (forward recompute with a 6-float
 // stash per surface, reverse adjoint, the penalty cotangents gated by the
 // surface mask where MASKED is on). The parameter cotangents are per system:
-// dz0 (B,), dc, dt (B, S), dmu (B, S, W) and, in full mode, dref_z (B, S+1).
+// dz0 (B,), dc, dt (B, S), dmu (B, S, W) and, in full mode, dref_z (B, S+1),
+// in opl mode dn_legs (B, S+1, W).
 // They are summed without atomics, as in K1: warp shuffles, then a row per
 // warp in shared memory, then one column per block of a (B, n_params,
 // blocks per system) scratch tensor, then partials_reduce sums each
@@ -34,7 +35,7 @@ namespace {
 
 constexpr int MAX_GRID_Y = 65535;
 
-// MODE: 0 plain, 1 Lu, 2 full.
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl.
 template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
 __global__ void __launch_bounds__(BLOCK) k2_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
@@ -42,23 +43,25 @@ __global__ void __launch_bounds__(BLOCK) k2_bwd_kernel(
     const float* __restrict__ c, const float* __restrict__ t,
     const float* __restrict__ mu, const bool* __restrict__ mask,
     const float* __restrict__ ref_z, const float* __restrict__ lo,
-    const float* __restrict__ hi, float angle_thr,
+    const float* __restrict__ hi, const float* __restrict__ n_legs, float angle_thr,
     const float* __restrict__ dx_in, const float* __restrict__ dy_in,
     const float* __restrict__ dcx_in, const float* __restrict__ dcy_in,
     const float* __restrict__ dpth_in, const float* __restrict__ dptp_in,
     const float* __restrict__ dpz_in, const float* __restrict__ dppath_in,
-    const float* __restrict__ dpang_in, int n_sys, int n, int n_surf, int n_w,
-    int n_per_w, int n_params, float* __restrict__ dxp_out,
+    const float* __restrict__ dpang_in, const float* __restrict__ dopl_in, int n_sys,
+    int n, int n_surf, int n_w, int n_per_w, int n_params, float* __restrict__ dxp_out,
     float* __restrict__ dyp_out, float* __restrict__ dcy_out,
     double* __restrict__ partials) {
-  constexpr bool LU = MODE >= 1;
+  constexpr bool LU = lu_mode(MODE);
   constexpr bool FULL = MODE == 2;
+  constexpr bool OPL = MODE == 3;
   const int b = blockIdx.z * gridDim.y + blockIdx.y;
   if (b >= n_sys) return;  // the whole block
-  __shared__ Tables<FULL> tab;
+  __shared__ Tables<MODE> tab;
   extern __shared__ double s_part[];  // [WARPS][n_params]
   tab.load(c + (size_t)b * n_surf, t + (size_t)b * n_surf, mu + (size_t)b * n_surf * n_w,
            FULL ? ref_z + (size_t)b * (n_surf + 1) : nullptr, lo, hi,
+           OPL ? n_legs + (size_t)b * (n_surf + 1) * n_w : nullptr,
            MASKED ? mask + (size_t)b * n_surf : nullptr, n_surf, n_w);
   for (int j = threadIdx.x; j < WARPS * n_params; j += BLOCK) s_part[j] = 0.0;
   __syncthreads();
@@ -77,7 +80,7 @@ __global__ void __launch_bounds__(BLOCK) k2_bwd_kernel(
   const RayCot cot{read(dx_in), read(dy_in), read(dcx_in), read(dcy_in),
                    LU ? read(dpth_in) : 0.0f, LU ? read(dptp_in) : 0.0f,
                    LU ? read(dpz_in) : 0.0f, FULL ? read(dppath_in) : 0.0f,
-                   FULL ? read(dpang_in) : 0.0f};
+                   FULL ? read(dpang_in) : 0.0f, OPL ? read(dopl_in) : 0.0f};
   float dxp, dyp, dcyp;
   bwd_ray<MODE, ALLOW_BACKWARD, MASKED>(tab, n_surf, n_w, angle_thr, active, w, xp[rc],
                                         yp[rc], cy_in[rc], z0[b], cot,
@@ -102,9 +105,9 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* con
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, BLOCK, smem, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], mask, in[7], in[8], in[9],
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], mask, in[7], in[8], in[9], in[10],
       angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7], cot[8],
-      n_sys, n, n_surf, n_w, n_per_w, n_params, out[0], out[1], out[2], partials);
+      cot[9], n_sys, n, n_surf, n_w, n_per_w, n_params, out[0], out[1], out[2], partials);
   return cudaGetLastError();
 }
 
@@ -132,17 +135,17 @@ extern "C" {
 // cotangents (n_sys, n) as in k1_bwd_launch, per mode. `partials` holds
 // n_sys x n_params x ceil(n / k1_bwd_block()) doubles and `params`
 // n_sys x n_params, row-major, with n_params = 1 + 2 S + S W (+ S + 1 in full
-// mode) laid out [dz0 | dc | dt | dmu | dref_z]. Pointers a mode does not
-// use may be null.
+// mode, + (S + 1) W in opl mode) laid out [dz0 | dc | dt | dmu | dref_z or
+// dn_legs]. Pointers a mode does not use may be null.
 int k2_bwd_launch(const float* xp, const float* yp, const float* cy, const float* z0,
                   const float* c, const float* t, const float* mu, const bool* mask,
-                  const float* ref_z, const float* lo, const float* hi, float angle_thr,
-                  const float* dx, const float* dy, const float* dcx, const float* dcy,
-                  const float* dpth, const float* dptp, const float* dpz,
-                  const float* dppath, const float* dpang, int n_sys, int n, int n_surf,
-                  int n_w, int n_per_w, int mode, int allow_backward, float* dxp,
-                  float* dyp, float* dcy_out, double* partials, float* params,
-                  void* stream) {
+                  const float* ref_z, const float* lo, const float* hi,
+                  const float* n_legs, float angle_thr, const float* dx, const float* dy,
+                  const float* dcx, const float* dcy, const float* dpth, const float* dptp,
+                  const float* dpz, const float* dppath, const float* dpang,
+                  const float* dopl, int n_sys, int n, int n_surf, int n_w, int n_per_w,
+                  int mode, int allow_backward, float* dxp, float* dyp, float* dcy_out,
+                  double* partials, float* params, void* stream) {
   if (bad_shape(n_surf, n_w, n_per_w, n, mode) || n_sys < 0)
     return (int)cudaErrorInvalidValue;
   if (n_sys == 0) return 0;
@@ -152,8 +155,8 @@ int k2_bwd_launch(const float* xp, const float* yp, const float* cy, const float
   const int gy = n_sys < MAX_GRID_Y ? n_sys : MAX_GRID_Y;
   const dim3 grid(blocks, gy, (n_sys + gy - 1) / gy);
   const size_t smem = (size_t)WARPS * n_params * sizeof(double);
-  const float* const in[10] = {xp, yp, cy, z0, c, t, mu, ref_z, lo, hi};
-  const float* const cot[9] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang};
+  const float* const in[11] = {xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, n_legs};
+  const float* const cot[10] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang, dopl};
   float* const out[3] = {dxp, dyp, dcy_out};
   const bool masked = mask != nullptr;
   if (blocks > 0) {
@@ -165,8 +168,10 @@ int k2_bwd_launch(const float* xp, const float* yp, const float* cy, const float
       err = allow_backward ? K2_BWD_LAUNCH(0, true) : K2_BWD_LAUNCH(0, false);
     else if (mode == 1)
       err = allow_backward ? K2_BWD_LAUNCH(1, true) : K2_BWD_LAUNCH(1, false);
-    else
+    else if (mode == 2)
       err = allow_backward ? K2_BWD_LAUNCH(2, true) : K2_BWD_LAUNCH(2, false);
+    else
+      err = allow_backward ? K2_BWD_LAUNCH(3, true) : K2_BWD_LAUNCH(3, false);
 #undef K2_BWD_LAUNCH
     if (err != cudaSuccess) return (int)err;
   }

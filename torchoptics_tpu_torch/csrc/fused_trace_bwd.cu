@@ -1,7 +1,7 @@
 // K1 backward: the hand adjoint of the fused spherical trace (K1 forward).
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` in
-// torchoptics_tpu/ops/pallas_trace.py (plain, Lu and full modes, both
+// torchoptics_tpu/ops/pallas_trace.py (plain, Lu, full and opl modes, both
 // backward-ray policies). The plain PyTorch version of the same function is
 // torchoptics_tpu_torch/ops/fused_trace.py:trace_fused_backward_reference;
 // the per-ray cotangents of the two agree bit for bit.
@@ -14,10 +14,13 @@
 // contracted), inject the penalty cotangents (Lu: relu(z) into dz, the
 // theta_norm adjoint into the raw cos2 locals; full: the path-hinge
 // cotangent into dz and ref_z, the angle-hinge cotangent into the cos2
-// locals), cut the killed lanes (allow_backward = false), and apply the
-// surface adjoint. Outputs: the per-ray cotangents of xp, yp and cy, and
-// the parameter cotangents dz0, dc, dt, dmu (per wavelength) and, in full
-// mode, dref_z, which are sums over all rays.
+// locals; opl: the OPL cotangent times each leg's index into that leg's
+// distance adjoint, including the final leg's, uncut by a kill), cut the
+// killed lanes (allow_backward = false), and apply the surface adjoint.
+// Outputs: the per-ray cotangents of xp, yp and cy, and the parameter
+// cotangents dz0, dc, dt, dmu (per wavelength) and, in full mode, dref_z, in
+// opl mode dn_legs (per leg and wavelength: dopl times the leg's distance),
+// which are sums over all rays.
 //
 // The parameter sums need no float atomics and no sequential grid: each
 // warp reduces a surface's per-ray terms with shuffles and writes them to its
@@ -39,7 +42,9 @@
 // per ray 19 for the launch, image-transfer and dz0 terms. Lu adds the relu
 // term and the two theta_norm adjoints (20 per surface); full adds the
 // hinge gradients (4 per gap, plus 1 per finite side of a path bound),
-// their dz and dref_z terms (4) and the angle hinges (4). That is 1,801 /
+// their dz and dref_z terms (4) and the angle hinges (4); opl adds, per leg,
+// the product and sum into the distance adjoint (2) and the dn_legs term and
+// its sum (2), and reads 4 B more of cotangent per ray. That is 1,801 /
 // 2,021 / 2,169 operations per ray on the flagship (the tight bounds have 18
 // finite sides): at 2.46M rays, 4.43 / 4.97 / 5.33 GFLOP, 66.1 / 74.1 /
 // 79.6 us at the 67 TFLOP/s FP32 peak, against 103 / 132 / 153 MB, 30.6 /
@@ -66,28 +71,30 @@
 
 namespace {
 
-// MODE: 0 plain, 1 Lu, 2 full. The partials are (n_params x blocks), one
-// column per block, in the parameter layout of bwd_ray.
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl. The partials are (n_params x blocks),
+// one column per block, in the parameter layout of bwd_ray.
 template <int MODE, bool ALLOW_BACKWARD>
 __global__ void __launch_bounds__(BLOCK) k1_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
     const float* __restrict__ cy_in, const float* __restrict__ z0,
     const float* __restrict__ c, const float* __restrict__ t,
     const float* __restrict__ mu, const float* __restrict__ ref_z,
-    const float* __restrict__ lo, const float* __restrict__ hi, float angle_thr,
+    const float* __restrict__ lo, const float* __restrict__ hi,
+    const float* __restrict__ n_legs, float angle_thr,
     const float* __restrict__ dx_in, const float* __restrict__ dy_in,
     const float* __restrict__ dcx_in, const float* __restrict__ dcy_in,
     const float* __restrict__ dpth_in, const float* __restrict__ dptp_in,
     const float* __restrict__ dpz_in, const float* __restrict__ dppath_in,
-    const float* __restrict__ dpang_in, int n, int n_surf, int n_w,
-    int n_per_w, int n_params, float* __restrict__ dxp_out,
+    const float* __restrict__ dpang_in, const float* __restrict__ dopl_in, int n,
+    int n_surf, int n_w, int n_per_w, int n_params, float* __restrict__ dxp_out,
     float* __restrict__ dyp_out, float* __restrict__ dcy_out,
     double* __restrict__ partials) {
-  constexpr bool LU = MODE >= 1;
+  constexpr bool LU = lu_mode(MODE);
   constexpr bool FULL = MODE == 2;
-  __shared__ Tables<FULL> tab;
+  constexpr bool OPL = MODE == 3;
+  __shared__ Tables<MODE> tab;
   extern __shared__ double s_part[];  // [WARPS][n_params]
-  tab.load(c, t, mu, ref_z, lo, hi, nullptr, n_surf, n_w);
+  tab.load(c, t, mu, ref_z, lo, hi, n_legs, nullptr, n_surf, n_w);
   for (int j = threadIdx.x; j < WARPS * n_params; j += BLOCK) s_part[j] = 0.0;
   __syncthreads();
 
@@ -103,7 +110,7 @@ __global__ void __launch_bounds__(BLOCK) k1_bwd_kernel(
   const RayCot cot{read(dx_in), read(dy_in), read(dcx_in), read(dcy_in),
                    LU ? read(dpth_in) : 0.0f, LU ? read(dptp_in) : 0.0f,
                    LU ? read(dpz_in) : 0.0f, FULL ? read(dppath_in) : 0.0f,
-                   FULL ? read(dpang_in) : 0.0f};
+                   FULL ? read(dpang_in) : 0.0f, OPL ? read(dopl_in) : 0.0f};
   float dxp, dyp, dcyp;
   bwd_ray<MODE, ALLOW_BACKWARD, false>(tab, n_surf, n_w, angle_thr, active, w, xp[ic],
                                        yp[ic], cy_in[ic], *z0, cot,
@@ -127,10 +134,10 @@ cudaError_t launch(int grid, size_t smem, cudaStream_t stream,
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, BLOCK, smem, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-      angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6],
-      cot[7], cot[8], n, n_surf, n_w, n_per_w, n_params, out[0], out[1],
-      out[2], partials);
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
+      angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7],
+      cot[8], cot[9], n, n_surf, n_w, n_per_w, n_params, out[0], out[1], out[2],
+      partials);
   return cudaGetLastError();
 }
 
@@ -143,27 +150,27 @@ int k1_bwd_block() { return BLOCK; }
 // Launches K1 backward and the reduction of its partials on `stream`;
 // returns the first CUDA error (0 on success). mode: 0 plain (cotangents dx,
 // dy, dcx, dcy), 1 Lu (plus dpth, dptp, dpz), 2 full (plus dppath, dpang;
-// reads ref_z, lo, hi, angle_thr). `partials` holds n_params x
-// ceil(n / k1_bwd_block()) doubles and `params` n_params, with n_params =
-// 1 + 2 S + S W (+ S + 1 in full mode). Pointers a mode does not use may be
-// null.
+// reads ref_z, lo, hi, angle_thr), 3 opl (plus dopl; reads n_legs).
+// `partials` holds n_params x ceil(n / k1_bwd_block()) doubles and `params`
+// n_params, with n_params = 1 + 2 S + S W (+ S + 1 in full mode, + (S + 1) W
+// in opl mode). Pointers a mode does not use may be null.
 int k1_bwd_launch(const float* xp, const float* yp, const float* cy,
                   const float* z0, const float* c, const float* t,
                   const float* mu, const float* ref_z, const float* lo,
-                  const float* hi, float angle_thr, const float* dx,
-                  const float* dy, const float* dcx, const float* dcy,
-                  const float* dpth, const float* dptp, const float* dpz,
-                  const float* dppath, const float* dpang, int n, int n_surf,
-                  int n_w, int n_per_w, int mode, int allow_backward,
-                  float* dxp, float* dyp, float* dcy_out, double* partials,
-                  float* params, void* stream) {
+                  const float* hi, const float* n_legs, float angle_thr,
+                  const float* dx, const float* dy, const float* dcx,
+                  const float* dcy, const float* dpth, const float* dptp,
+                  const float* dpz, const float* dppath, const float* dpang,
+                  const float* dopl, int n, int n_surf, int n_w, int n_per_w,
+                  int mode, int allow_backward, float* dxp, float* dyp,
+                  float* dcy_out, double* partials, float* params, void* stream) {
   if (bad_shape(n_surf, n_w, n_per_w, n, mode)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int n_params = n_params_of(mode, n_surf, n_w);
   const int grid = (n + BLOCK - 1) / BLOCK;
   const size_t smem = (size_t)WARPS * n_params * sizeof(double);
-  const float* const in[10] = {xp, yp, cy, z0, c, t, mu, ref_z, lo, hi};
-  const float* const cot[9] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang};
+  const float* const in[11] = {xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, n_legs};
+  const float* const cot[10] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang, dopl};
   float* const out[3] = {dxp, dyp, dcy_out};
   if (grid > 0) {
     cudaError_t err;
@@ -174,8 +181,10 @@ int k1_bwd_launch(const float* xp, const float* yp, const float* cy,
       err = allow_backward ? K1_BWD_LAUNCH(0, true) : K1_BWD_LAUNCH(0, false);
     else if (mode == 1)
       err = allow_backward ? K1_BWD_LAUNCH(1, true) : K1_BWD_LAUNCH(1, false);
-    else
+    else if (mode == 2)
       err = allow_backward ? K1_BWD_LAUNCH(2, true) : K1_BWD_LAUNCH(2, false);
+    else
+      err = allow_backward ? K1_BWD_LAUNCH(3, true) : K1_BWD_LAUNCH(3, false);
 #undef K1_BWD_LAUNCH
     if (err != cudaSuccess) return (int)err;
   }

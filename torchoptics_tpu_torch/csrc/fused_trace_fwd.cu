@@ -1,7 +1,7 @@
 // K1 forward: fused spherical ray trace of one lens system on a flat ray block.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
-// torchoptics_tpu/ops/pallas_trace.py (plain, Lu and full modes). The plain
+// torchoptics_tpu/ops/pallas_trace.py (plain, Lu, full and opl modes). The plain
 // PyTorch version of the same function is
 // torchoptics_tpu_torch/ops/fused_trace.py:trace_fused_reference; the two
 // must agree bit for bit on the failure masks.
@@ -15,8 +15,12 @@
 // the raw cos2 of every surface, and the ray-path hinge of each gap's
 // absolute z step, (z_k + ref_z[k]) - (z_{k-1} + ref_z[k-1]) on the post-kill
 // z, against the gap's (lo, hi) bounds (+-inf switches a side off); the last
-// gap runs to ref_z[S]. Finally the transfer to the image plane and the last
-// backward test.
+// gap runs to ref_z[S]. Opl mode adds one per-ray sum, the optical path
+// length: each leg's marching distance times the index of its medium, read
+// from an (S+1) x W table (air first), the leg of surface k counted before a
+// backward ray is removed and the final leg to the image plane last
+// (pallas_trace.py trace_fused_opl). Finally the transfer to the image plane
+// and the last backward test.
 //
 // What bounds it on an H100: per ray it reads 12 B (xp, yp, cy) and writes
 // 18 B (plain: x, y, cx, cy, ray_ok, ray_backward), 30 B (Lu: plus three
@@ -34,7 +38,9 @@
 // operations bound plain mode and bytes bound Lu and full mode, narrowly
 // each time. The measured times (6-8x the bound) say the real limit is the
 // issue rate of the multi-instruction IEEE sqrt, division and acosf
-// sequences, which that count takes as one operation each.
+// sequences, which that count takes as one operation each. Opl mode adds 2
+// operations per leg (a product and a sum) and writes 22 B per ray; its table
+// is (S+1) W floats, read once per block.
 //
 // Design: one thread per ray, a runtime loop over surfaces (at most
 // MAX_SURF), the per-surface tables c, t and mu read once per block into
@@ -45,10 +51,8 @@
 // (trace_ray) and the surface math live in trace_common.cuh, shared with the
 // population kernel K2 (fused_batch_fwd.cu).
 //
-// Left for later work: the "opl" penalty mode, the asphere variants, and any
-// tuning
-// (several rays per thread, vectorized 16-byte loads, fast-math variants that
-// keep the masks identical).
+// Left for later work: any tuning (several rays per thread, vectorized
+// 16-byte loads, fast-math variants that keep the masks identical).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC. No --use_fast_math: the masks compare
@@ -62,23 +66,24 @@
 
 namespace {
 
-// MODE: 0 plain, 1 Lu, 2 full.
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl.
 template <int MODE, bool ALLOW_BACKWARD>
 __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
     const float* __restrict__ cy_in, const float* __restrict__ z0,
     const float* __restrict__ c, const float* __restrict__ t,
     const float* __restrict__ mu, const float* __restrict__ ref_z,
-    const float* __restrict__ lo, const float* __restrict__ hi, float angle_thr,
+    const float* __restrict__ lo, const float* __restrict__ hi,
+    const float* __restrict__ n_legs, float angle_thr,
     int n, int n_surf, int n_w, int n_per_w,
     float* __restrict__ x_out, float* __restrict__ y_out,
     float* __restrict__ cx_out, float* __restrict__ cy_out,
     bool* __restrict__ ok_out, bool* __restrict__ bw_out,
     float* __restrict__ pen_theta, float* __restrict__ pen_theta_p,
     float* __restrict__ pen_zrelu, float* __restrict__ pen_path_out,
-    float* __restrict__ pen_ang_out) {
-  __shared__ Tables<MODE == 2> tab;
-  tab.load(c, t, mu, ref_z, lo, hi, nullptr, n_surf, n_w);
+    float* __restrict__ pen_ang_out, float* __restrict__ opl_out) {
+  __shared__ Tables<MODE> tab;
+  tab.load(c, t, mu, ref_z, lo, hi, n_legs, nullptr, n_surf, n_w);
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -92,7 +97,7 @@ __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
   cy_out[i] = r.cy;
   ok_out[i] = r.ok;
   bw_out[i] = r.bw;
-  if (MODE >= 1) {
+  if (lu_mode(MODE)) {
     pen_theta[i] = r.pth;
     pen_theta_p[i] = r.ptp;
     pen_zrelu[i] = r.pz;
@@ -101,19 +106,18 @@ __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
     pen_path_out[i] = r.ppath;
     pen_ang_out[i] = r.pang;
   }
+  if (MODE == 3) opl_out[i] = r.opl;
 }
 
 template <int MODE, bool ALLOW_BACKWARD>
-void launch(const float* xp, const float* yp, const float* cy, const float* z0,
-            const float* c, const float* t, const float* mu, const float* ref_z,
-            const float* lo, const float* hi, float angle_thr, int n, int n_surf,
-            int n_w, int n_per_w, float* const* outs, bool* ok_out,
-            bool* bw_out, float* const* pens, cudaStream_t stream) {
+void launch(const float* const* in, float angle_thr, int n, int n_surf, int n_w,
+            int n_per_w, float* const* outs, bool* ok_out, bool* bw_out,
+            float* const* pens, cudaStream_t stream) {
   const int grid = (n + BLOCK - 1) / BLOCK;
   k1_fwd_kernel<MODE, ALLOW_BACKWARD><<<grid, BLOCK, 0, stream>>>(
-      xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, angle_thr, n, n_surf, n_w,
-      n_per_w, outs[0], outs[1], outs[2], outs[3], ok_out, bw_out, pens[0],
-      pens[1], pens[2], pens[3], pens[4]);
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
+      angle_thr, n, n_surf, n_w, n_per_w, outs[0], outs[1], outs[2], outs[3], ok_out,
+      bw_out, pens[0], pens[1], pens[2], pens[3], pens[4], pens[5]);
 }
 
 }  // namespace
@@ -127,30 +131,33 @@ int k1_max_w() { return MAX_W; }
 // Launches K1 forward on `stream` and returns cudaGetLastError() (0 on
 // success). mode: 0 plain, 1 Lu (pen_theta, pen_theta_p, pen_zrelu), 2 full
 // (those plus pen_path, pen_ang; reads ref_z (S+1), lo, hi (S) and
-// angle_thr). Pointers a mode does not use may be null.
+// angle_thr), 3 opl (opl_out; reads n_legs ((S+1) x W)). Pointers a mode
+// does not use may be null.
 int k1_fwd_launch(const float* xp, const float* yp, const float* cy,
                   const float* z0, const float* c, const float* t,
                   const float* mu, const float* ref_z, const float* lo,
-                  const float* hi, float angle_thr, int n, int n_surf, int n_w,
-                  int n_per_w, int mode, int allow_backward, float* x_out,
-                  float* y_out, float* cx_out, float* cy_out, bool* ok_out,
-                  bool* bw_out, float* pen_theta, float* pen_theta_p,
-                  float* pen_zrelu, float* pen_path, float* pen_ang,
+                  const float* hi, const float* n_legs, float angle_thr, int n,
+                  int n_surf, int n_w, int n_per_w, int mode, int allow_backward,
+                  float* x_out, float* y_out, float* cx_out, float* cy_out,
+                  bool* ok_out, bool* bw_out, float* pen_theta, float* pen_theta_p,
+                  float* pen_zrelu, float* pen_path, float* pen_ang, float* opl_out,
                   void* stream) {
   if (bad_shape(n_surf, n_w, n_per_w, n, mode)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  const float* const in[11] = {xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, n_legs};
   float* const outs[4] = {x_out, y_out, cx_out, cy_out};
-  float* const pens[5] = {pen_theta, pen_theta_p, pen_zrelu, pen_path, pen_ang};
-#define K1_FWD_LAUNCH(M, AB)                                                  \
-  launch<M, AB>(xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, angle_thr, n, n_surf, \
-                n_w, n_per_w, outs, ok_out, bw_out, pens, s)
+  float* const pens[6] = {pen_theta, pen_theta_p, pen_zrelu, pen_path, pen_ang, opl_out};
+#define K1_FWD_LAUNCH(M, AB) \
+  launch<M, AB>(in, angle_thr, n, n_surf, n_w, n_per_w, outs, ok_out, bw_out, pens, s)
   if (mode == 0) {
     if (allow_backward) K1_FWD_LAUNCH(0, true); else K1_FWD_LAUNCH(0, false);
   } else if (mode == 1) {
     if (allow_backward) K1_FWD_LAUNCH(1, true); else K1_FWD_LAUNCH(1, false);
-  } else {
+  } else if (mode == 2) {
     if (allow_backward) K1_FWD_LAUNCH(2, true); else K1_FWD_LAUNCH(2, false);
+  } else {
+    if (allow_backward) K1_FWD_LAUNCH(3, true); else K1_FWD_LAUNCH(3, false);
   }
 #undef K1_FWD_LAUNCH
   return (int)cudaGetLastError();

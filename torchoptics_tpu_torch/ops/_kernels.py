@@ -115,22 +115,13 @@ def load() -> ctypes.CDLL:
     ``float`` is ``c_float``."""
     lib = ctypes.CDLL(str(build()))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.k1_fwd_launch.argtypes = [p] * 10 + [f] + [i] * 6 + [p] * 11 + [p]
-    lib.k1_fwd_launch.restype = i
-    lib.k1_bwd_launch.argtypes = [p] * 10 + [f] + [p] * 9 + [i] * 6 + [p] * 5 + [p]
-    lib.k1_bwd_launch.restype = i
-    lib.k2_fwd_launch.argtypes = [p] * 11 + [f] + [i] * 7 + [p] * 11 + [p]
-    lib.k2_fwd_launch.restype = i
-    lib.k2_bwd_launch.argtypes = [p] * 11 + [f] + [p] * 9 + [i] * 7 + [p] * 5 + [p]
-    lib.k2_bwd_launch.restype = i
-    lib.k3_fwd_launch.argtypes = [p] * 12 + [f] + [i] * 8 + [p] * 11 + [p]
-    lib.k3_fwd_launch.restype = i
-    lib.k3_bwd_launch.argtypes = [p] * 12 + [f] + [p] * 9 + [i] * 8 + [p] * 5 + [p]
-    lib.k3_bwd_launch.restype = i
-    lib.k4_fwd_launch.argtypes = [p] * 13 + [f] + [i] * 9 + [p] * 11 + [p]
-    lib.k4_fwd_launch.restype = i
-    lib.k4_bwd_launch.argtypes = [p] * 13 + [f] + [p] * 9 + [i] * 9 + [p] * 5 + [p]
-    lib.k4_bwd_launch.restype = i
+    # Inputs (the last is n_legs), angle_thr, sizes, outputs (the last is
+    # opl) or cotangents (the last is dopl), the stream.
+    for kernel, n_in, n_int in (("k1", 11, 6), ("k2", 12, 7), ("k3", 13, 8), ("k4", 14, 9)):
+        fwd, bwd = getattr(lib, f"{kernel}_fwd_launch"), getattr(lib, f"{kernel}_bwd_launch")
+        fwd.argtypes = [p] * n_in + [f] + [i] * n_int + [p] * 12 + [p]
+        bwd.argtypes = [p] * n_in + [f] + [p] * 10 + [i] * n_int + [p] * 5 + [p]
+        fwd.restype = bwd.restype = i
     lib.k1_error_string.argtypes = [i]
     lib.k1_error_string.restype = ctypes.c_char_p
     for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block", "k3_max_asph"):

@@ -6,20 +6,20 @@ TPU kernels become kernels K3 (one system) and K4 (a population),
 hand-written in CUDA C++:
 
 * K3 forward (``_fwd_kernel_a``) in ``csrc/fused_asphere_fwd.cu``, in plain,
-  Lu and full penalty modes;
+  Lu, full and opl modes;
 * K3 backward (``_bwd_kernel_a``), the hand adjoint through the Newton
-  polish step, in ``csrc/fused_asphere_bwd.cu``, in the same three modes;
+  polish step, in ``csrc/fused_asphere_bwd.cu``, in the same four modes;
 * K4 forward and backward (``_fwd_kernel_ab``, ``_bwd_kernel_ab``) in
   ``csrc/fused_asphere_batch_fwd.cu`` and ``csrc/fused_asphere_batch_bwd.cu``:
   K3 over a grid of (ray blocks x systems), with per-system z0 (B,), c,
-  kappa, t (B, S), mu (B, S, W), asph (B, S, K), ref_z (B, S+1) and, for a
-  padded population of mixed lens types, a (B, S) surface mask with
-  ``fused_batch``'s semantics.
+  kappa, t (B, S), mu (B, S, W), asph (B, S, K), ref_z (B, S+1) or n_legs
+  (B, S+1, W) and, for a padded population of mixed lens types, a (B, S)
+  surface mask with ``fused_batch``'s semantics.
 
 Their device code lives in ``csrc/asphere_common.cuh``. Each pair is reached
 through one ``torch.autograd.Function`` (behind :func:`trace_fused_asphere`,
-:func:`trace_fused_asphere_full`, :func:`trace_fused_asphere_batch` and
-:func:`trace_fused_asphere_batch_full`), which saves only its inputs. On
+:func:`trace_fused_asphere_full`, :func:`trace_fused_asphere_opl` and their
+``_batch`` forms), which saves only its inputs. On
 CUDA tensors it checks them and launches the kernels, or raises; it never
 falls back. On CPU tensors it runs the plain versions,
 :func:`trace_fused_asphere_batch_reference` and
@@ -57,7 +57,8 @@ from torchoptics_tpu_torch.models.structure import Lens
 from torchoptics_tpu_torch.ops import fused_batch, fused_trace
 from torchoptics_tpu_torch.ops.fused_batch import _theta_norm, _widx
 from torchoptics_tpu_torch.ops.fused_trace import (
-    _hinge, _hinge_grad, _mode, _theta_norm_adjoint)
+    N_EXTRA_OUTS, _cot_ptrs, _hinge, _hinge_grad, _lu, _mode, _out_ptrs, _prepare_cotangents,
+    _ptr, _split_extra, _theta_norm_adjoint, n_extra_params)
 
 #: Launches of the K3 and K4 forward and backward CUDA kernels in this
 #: process. The wrappers add one per launch; reset them to 0 to count the
@@ -224,12 +225,13 @@ def _fwd_surface_a(c, kappa, t, mu, a, x, y, z, cx, cy, cz, ok, n_iter: int):
     return _finish_surface(c, kappa, t, mu, a, x, y, z, cx, cy, cz, ok, s_pre)
 
 
-def _bwd_surface_a(c, kappa, mu, a, pre, loc, d, dcos2_extra=None, dcos2p_extra=None):
+def _bwd_surface_a(c, kappa, mu, a, pre, loc, d, dcos2_extra=None, dcos2p_extra=None,
+                   ddist_extra=None):
     """Adjoint of ``_fwd_surface_a`` (pallas_asphere ``_bwd_surface_a``)
     through the polish step, with the Newton point held constant. ``pre`` is
     the pre-surface state, ``d`` the post-surface cotangents (dx, dy, dz, dcx,
     dcy, dcz); ``dcos2*_extra`` inject the penalty cotangents on the raw cos²
-    locals. Returns (d_pre_state, dc_ray, dkappa_ray, dt_ray, dmu_ray,
+    locals, ``ddist_extra`` the OPL cotangent on the marching distance. Returns (d_pre_state, dc_ray, dkappa_ray, dt_ray, dmu_ray,
     da_ray), per ray; da_ray holds one term per coefficient."""
     x, y, z, cx, cy, cz, _ = pre
     dxD, dyD, dzD, dcxD, dcyD, dczD = d
@@ -317,6 +319,8 @@ def _bwd_surface_a(c, kappa, mu, a, pre, loc, d, dcos2_extra=None, dcos2p_extra=
     # xs = x + dist cx, zA = z + dist cz
     dist = L["dist"]
     ddist = dxs * cx + dys * cy + dzA * cz
+    if ddist_extra is not None:
+        ddist = ddist + ddist_extra
     dx, dy, dz = dxs, dys, dzA
     dcx = dcx + dxs * dist
     dcy = dcy + dys * dist
@@ -419,7 +423,7 @@ def _trace(xp, yp, cy, z0, c, kappa, t, mu, asph, allow_backward, n_per_w, n_ite
 def trace_fused_asphere_batch_reference(xp, yp, cy, z0, c, kappa, t, mu, asph, penalties,
                                         allow_backward: bool, n_per_w: int,
                                         n_iter: int = NEWTON_ITERS, mask=None, ref_z=None,
-                                        path_bounds=(), angle_thr=0.25):
+                                        path_bounds=(), angle_thr=0.25, n_legs=None):
     """Plain PyTorch version of kernel K4 forward, a vectorised transcription
     of ``pallas_asphere._fwd_kernel_ab``: K3's surface step on (B, N) ray
     blocks, each system with its own parameters, in the kernel's order of
@@ -432,30 +436,38 @@ def trace_fused_asphere_batch_reference(xp, yp, cy, z0, c, kappa, t, mu, asph, p
       z0: (B,) entrance-pupil positions.
       c, kappa, t: (B, S); mu: (B, S, W), ray i of a system uses column
         min(i // n_per_w, W-1); asph: (B, S, K) coefficients of r⁴, r⁶, ...
-      penalties, allow_backward, ref_z (B, S+1), path_bounds, angle_thr: as
-        for ``fused_trace.trace_fused_reference``; the bounds are shared.
+      penalties, allow_backward, ref_z (B, S+1), path_bounds, angle_thr,
+        n_legs (B, S+1, W): as for ``fused_trace.trace_fused_reference``; the
+        bounds are shared.
       n_iter: Newton steps before the polish step.
       mask: (B, S) bool tensor of real surfaces, or None when no surface is
         padded; the semantics of ``fused_batch.trace_fused_batch_reference``
         (padded surfaces traced with the conic and coefficients they carry).
 
     Returns (x, y, cx, cy, ray_ok, ray_backward[, pen_theta, pen_theta_p,
-    pen_zrelu[, pen_path, pen_angle]]), each (B, N).
+    pen_zrelu[, pen_path, pen_angle]]), or in opl mode the six and ``opl``,
+    each (B, N).
     """
     mode = _mode(penalties)
     n_surf = c.shape[1]
+    widx = _widx(xp.shape[1], n_per_w, mu.shape[2], xp.device)
     gate = ((lambda k, v: v) if mask is None
             else (lambda k, v: torch.where(mask[:, k, None], v, 0.0)))
     sums = dict(bw=torch.zeros(xp.shape, dtype=torch.bool, device=xp.device),
                 pth=torch.zeros_like(xp), ptp=torch.zeros_like(xp), pz=torch.zeros_like(xp),
-                ppath=torch.zeros_like(xp), pang=torch.zeros_like(xp), z_prev=None)
+                ppath=torch.zeros_like(xp), pang=torch.zeros_like(xp), opl=torch.zeros_like(xp),
+                z_prev=None)
     ref = lambda j: ref_z[:, j, None]
 
     def keep(k, pre, loc, kill, post):
         z, ok = post[2], post[6]
+        if mode == 3:
+            # Leg k, in the medium before surface k, added before a backward
+            # ray is removed.
+            sums["opl"] = sums["opl"] + loc["dist"] * n_legs[:, k, widx]
         if k > 0 and allow_backward:
             sums["bw"] = sums["bw"] | kill
-        if mode:
+        if _lu(mode):
             sums["pth"] = sums["pth"] + gate(k, _theta_norm(loc["cos2"], ok))
             sums["ptp"] = sums["ptp"] + gate(k, _theta_norm(loc["cos2p"], ok))
             sums["pz"] = sums["pz"] + gate(k, torch.clamp(z, min=0.0))
@@ -487,6 +499,9 @@ def trace_fused_asphere_batch_reference(xp, yp, cy, z0, c, kappa, t, mu, asph, p
         bw = bw | went
     else:
         ok = ok & ~went
+    if mode == 3:
+        # The final leg, in the image-space medium.
+        return x, y, cx, cy, ok, bw, sums["opl"] + dist * n_legs[:, n_surf, widx]
     return ((x, y, cx, cy, ok, bw) + ((sums["pth"], sums["ptp"], sums["pz"]) if mode else ())
             + ((sums["ppath"], sums["pang"]) if mode == 2 else ()))
 
@@ -494,7 +509,7 @@ def trace_fused_asphere_batch_reference(xp, yp, cy, z0, c, kappa, t, mu, asph, p
 def trace_fused_asphere_reference(xp, yp, cy, z0, c, kappa, t, mu, asph, penalties,
                                   allow_backward: bool, n_per_w: int,
                                   n_iter: int = NEWTON_ITERS, ref_z=None, path_bounds=(),
-                                  angle_thr=0.25):
+                                  angle_thr=0.25, n_legs=None):
     """Plain PyTorch version of kernel K3 forward (``pallas_asphere._fwd_kernel_a``):
     the population version :func:`trace_fused_asphere_batch_reference` on a
     population of one system without padding, whose arithmetic is K3's.
@@ -506,16 +521,18 @@ def trace_fused_asphere_reference(xp, yp, cy, z0, c, kappa, t, mu, asph, penalti
       c, kappa, t: (S,) curvatures, conic constants, thicknesses.
       mu: (S, W) index-ratio table; ray i uses column min(i // n_per_w, W-1).
       asph: (S, K) even-asphere coefficients of r⁴, r⁶, ...
-      penalties, allow_backward, ref_z, path_bounds, angle_thr: as for
-        ``fused_trace.trace_fused_reference``.
+      penalties, allow_backward, ref_z, path_bounds, angle_thr, n_legs: as
+        for ``fused_trace.trace_fused_reference``.
       n_iter: Newton steps before the polish step.
 
     Returns (x, y, cx, cy, ray_ok, ray_backward[, pen_theta, pen_theta_p,
-    pen_zrelu[, pen_path, pen_angle]]), each (N,).
+    pen_zrelu[, pen_path, pen_angle]]), or in opl mode the six and ``opl``,
+    each (N,).
     """
+    batch = lambda v: None if v is None else v[None]
     outs = trace_fused_asphere_batch_reference(
         *_one((xp, yp, cy, z0, c, kappa, t, mu, asph)), penalties, allow_backward, n_per_w,
-        n_iter, None, None if ref_z is None else ref_z[None], path_bounds, angle_thr)
+        n_iter, None, batch(ref_z), path_bounds, angle_thr, batch(n_legs))
     return tuple(v[0] for v in outs)
 
 
@@ -532,28 +549,35 @@ def trace_fused_asphere_batch_backward_reference(inputs, cotangents, penalties,
     cotangents are gated by the surface mask as the forward gates the sums.
 
     Args:
-      inputs: (xp, yp, cy, z0, c, kappa, t, mu, asph[, ref_z]) as for the
-        forward.
-      cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), each
-        (B, N): the cotangents of the forward's float outputs.
+      inputs: (xp, yp, cy, z0, c, kappa, t, mu, asph[, ref_z (full) or
+        n_legs (opl)]) as for the forward.
+      cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), or
+        in opl mode (dx, dy, dcx, dcy, dopl), each (B, N): the cotangents of
+        the forward's float outputs.
       penalties, allow_backward, n_per_w, n_iter, mask, path_bounds,
         angle_thr: as for the forward.
 
     Returns (dxp, dyp, dcy (B, N), dz0 (B,), dc, dkappa, dt (B, S), dmu
-    (B, S, W), dasph (B, S, K)[, dref_z (B, S+1)]).
+    (B, S, W), dasph (B, S, K)[, dref_z (B, S+1) or dn_legs (B, S+1, W)]).
     """
     mode = _mode(penalties)
     xp, yp, cyin, z0, c, kappa, t, mu, asph = inputs[:9]
-    ref_z = inputs[9] if mode == 2 else None
+    ref_z, n_legs = _split_extra(inputs, 9, mode)
     dx_img, dy_img, dcx_img, dcy_img = cotangents[:4]
-    if mode:
+    if _lu(mode):
         dpth, dptp, dpz = cotangents[4:7]
     if mode == 2:
         dppath, dpang = cotangents[7:9]
+    dopl = cotangents[4] if mode == 3 else None
     n_sys, n = xp.shape
     n_surf, n_w, n_asph = c.shape[1], mu.shape[2], asph.shape[2]
-    mu_ray = mu[:, :, _widx(n, n_per_w, n_w, xp.device)]             # (B, S, N)
+    widx = _widx(n, n_per_w, n_w, xp.device)
+    mu_ray = mu[:, :, widx]                                          # (B, S, N)
     total = lambda v: torch.sum(v, dim=1, dtype=torch.float64)       # (B,)
+    bounds = [(min(w * n_per_w, n), n if w == n_w - 1 else min((w + 1) * n_per_w, n))
+              for w in range(n_w)]
+    per_w = lambda v: [total(v[:, lo:hi]) for lo, hi in bounds]
+    dn = [None] * (n_surf + 1)
     gate = ((lambda k, v: v) if mask is None
             else (lambda k, v: torch.where(mask[:, k, None], v, 0.0)))
 
@@ -573,6 +597,10 @@ def trace_fused_asphere_batch_backward_reference(inputs, cotangents, penalties,
     dcx = dcx_img + dx_img * dist_f
     dcy = dcy_img + dy_img * dist_f
     ddist = dx_img * cx + dy_img * cy
+    if mode == 3:
+        # opl += dist_f * n_S: into the final leg's distance adjoint.
+        ddist = ddist + dopl * n_legs[:, n_surf, widx]
+        dn[n_surf] = per_w(dopl * dist_f)
     dz = -ddist / cz
     dcz = ddist * (z / (cz * cz))
     dx, dy = dx_img, dy_img
@@ -592,12 +620,14 @@ def trace_fused_asphere_batch_backward_reference(inputs, cotangents, penalties,
     dmu = [[None] * n_w for _ in range(n_surf)]
     da = [[None] * n_asph for _ in range(n_surf)]
     dref = [torch.zeros(n_sys, dtype=torch.float64, device=xp.device)] * (n_surf + 1)
-    bounds = [(min(w * n_per_w, n), n if w == n_w - 1 else min((w + 1) * n_per_w, n))
-              for w in range(n_w)]
     for k in range(n_surf - 1, -1, -1):
         loc, kill = locs[k], kills[k]
-        dcos2_extra = dcos2p_extra = None
-        if mode:
+        dcos2_extra = dcos2p_extra = ddist_extra = None
+        if mode == 3:
+            # opl += dist_k * n_k, added before the kill: not cut by it.
+            ddist_extra = dopl * n_legs[:, k, widx]
+            dn[k] = per_w(dopl * loc["dist"])
+        if _lu(mode):
             ok_end = loc["ok1"] & ~loc["fail2"]
             if kill is not None:
                 ok_end = ok_end & ~kill
@@ -629,12 +659,11 @@ def trace_fused_asphere_batch_backward_reference(inputs, cotangents, penalties,
         a = [asph[:, k, j, None] for j in range(n_asph)]
         (dx, dy, dz, dcx, dcy, dcz), dc_ray, dkap_ray, dt_ray, dmu_ray, da_ray = _bwd_surface_a(
             c[:, k, None], kappa[:, k, None], mu_ray[:, k], a, pres[k], loc,
-            (dx, dy, dz, dcx, dcy, dcz), dcos2_extra, dcos2p_extra)
+            (dx, dy, dz, dcx, dcy, dcz), dcos2_extra, dcos2p_extra, ddist_extra)
         dc[k] = total(dc_ray)
         dkap[k] = total(dkap_ray)
         dt[k] = total(dt_ray) + dt_kill
-        for w, (lo, hi) in enumerate(bounds):
-            dmu[k][w] = total(dmu_ray[:, lo:hi])
+        dmu[k] = per_w(dmu_ray)
         for j in range(n_asph):
             da[k][j] = total(da_ray[j])
 
@@ -646,6 +675,8 @@ def trace_fused_asphere_batch_backward_reference(inputs, cotangents, penalties,
              torch.stack([f32(row) for row in da], dim=1))
     if mode == 2:
         grads += (f32(dref),)
+    if mode == 3:
+        grads += (torch.stack([f32(row) for row in dn], dim=1),)
     return grads
 
 
@@ -658,14 +689,16 @@ def trace_fused_asphere_backward_reference(inputs, cotangents, penalties,
     on a population of one system without padding, whose arithmetic is K3's.
 
     Args:
-      inputs: (xp, yp, cy, z0, c, kappa, t, mu, asph[, ref_z]) as for the
-        forward.
-      cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), each
-        (N,): the cotangents of the forward's float outputs.
+      inputs: (xp, yp, cy, z0, c, kappa, t, mu, asph[, ref_z (full) or
+        n_legs (opl)]) as for the forward.
+      cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), or
+        in opl mode (dx, dy, dcx, dcy, dopl), each (N,): the cotangents of
+        the forward's float outputs.
       penalties, allow_backward, n_per_w, n_iter, path_bounds, angle_thr: as
         for the forward.
 
-    Returns (dxp, dyp, dcy, dz0, dc, dkappa, dt, dmu, dasph[, dref_z]).
+    Returns (dxp, dyp, dcy, dz0, dc, dkappa, dt, dmu, dasph[, dref_z or
+    dn_legs]).
     """
     z0 = inputs[3]
     grads = trace_fused_asphere_batch_backward_reference(
@@ -679,11 +712,11 @@ def trace_fused_asphere_backward_reference(inputs, cotangents, penalties,
 # ---------------------------------------------------------------------------
 
 
-def _check_k3_inputs(inputs, n_per_w, n_iter, lib):
+def _check_k3_inputs(inputs, n_per_w, n_iter, lib, mode=0):
     xp, yp, cy, z0, c, kappa, t, mu, asph = inputs[:9]
-    ref_z = inputs[9] if len(inputs) > 9 else None
+    ref_z, n_legs = _split_extra(inputs, 9, mode)
     fused_trace._check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, lib.k1_max_surf(),
-                                 lib.k1_max_w(), ref_z)
+                                 lib.k1_max_w(), ref_z, n_legs)
     fused_trace._check_tensors(dict(kappa=kappa, asph=asph), xp.device)
     n_surf = c.shape[0]
     if tuple(kappa.shape) != (n_surf,) or asph.ndim != 2 or asph.shape[0] != n_surf:
@@ -696,27 +729,33 @@ def _check_k3_inputs(inputs, n_per_w, n_iter, lib):
         raise ValueError(f"n_iter must be >= 0, got {n_iter}")
 
 
+def _param_sizes(mode, n_surf, n_w, n_asph):
+    """The parameter layout of K3 and K4 backward, per system: dz0, dc,
+    dkappa, dt, dmu, dasph[, dref_z or dn_legs]."""
+    sizes = [1, n_surf, n_surf, n_surf, n_surf * n_w, n_surf * n_asph]
+    return sizes + ([n_extra_params(mode, n_surf, n_w)] if mode in (2, 3) else [])
+
+
 def _launch_k3_fwd(inputs, penalties, allow_backward, n_per_w, n_iter, path_bounds, angle_thr):
     global K3_FWD_LAUNCHES
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
     mode = _mode(penalties)
-    _check_k3_inputs(inputs, n_per_w, n_iter, lib)
+    _check_k3_inputs(inputs, n_per_w, n_iter, lib, mode)
     xp, yp, cy, z0, c, kappa, t, mu, asph = inputs[:9]
-    ref_z, lo, hi = fused_trace._full_args(mode, inputs[9] if mode == 2 else None,
-                                           path_bounds, c.shape[0], xp.device)
+    ref_z, n_legs = _split_extra(inputs, 9, mode)
+    ref_z, lo, hi = fused_trace._full_args(mode, ref_z, path_bounds, c.shape[0], xp.device)
     n = xp.shape[0]
     new = lambda dtype: torch.empty(n, dtype=dtype, device=xp.device)
     outs = [new(torch.float32) for _ in range(4)] + [new(torch.bool) for _ in range(2)]
-    outs += [new(torch.float32) for _ in range((0, 3, 5)[mode])]
-    ptr = lambda v: None if v is None else v.data_ptr()
-    pens = [ptr(v) for v in outs[6:]] + [None] * (5 - len(outs[6:]))
+    outs += [new(torch.float32) for _ in range(N_EXTRA_OUTS[mode])]
+    pens, opl = _out_ptrs(outs, mode)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = lib.k3_fwd_launch(
-            *map(ptr, (xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi)),
+            *map(_ptr, (xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi, n_legs)),
             float(angle_thr), n, c.shape[0], mu.shape[1], asph.shape[1], n_per_w, n_iter, mode,
-            int(allow_backward), *map(ptr, outs[:6]), *pens, stream)
+            int(allow_backward), *map(_ptr, outs[:6]), *pens, opl, stream)
     fused_trace._raise_on_error(lib, err, "K3 forward kernel")
     K3_FWD_LAUNCHES += 1
     return tuple(outs)
@@ -728,54 +767,50 @@ def _launch_k3_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, n_ite
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
     mode = _mode(penalties)
-    _check_k3_inputs(inputs, n_per_w, n_iter, lib)
+    _check_k3_inputs(inputs, n_per_w, n_iter, lib, mode)
     xp, yp, cy, z0, c, kappa, t, mu, asph = inputs[:9]
-    ref_z, lo, hi = fused_trace._full_args(mode, inputs[9] if mode == 2 else None,
-                                           path_bounds, c.shape[0], xp.device)
+    ref_z, n_legs = _split_extra(inputs, 9, mode)
+    ref_z, lo, hi = fused_trace._full_args(mode, ref_z, path_bounds, c.shape[0], xp.device)
     n, n_surf, n_w, n_asph = xp.shape[0], c.shape[0], mu.shape[1], asph.shape[1]
-    # Autograd may hand over expanded or strided cotangents.
-    cot = [v.to(torch.float32).contiguous() for v in cotangents]
-    for v in cot:
-        if v.device != xp.device or v.shape != xp.shape:
-            raise ValueError(f"cotangents must be (N,) on {xp.device}, got "
-                             f"{tuple(v.shape)} on {v.device}")
-    cot += [None] * (9 - len(cot))
-    sizes = [1, n_surf, n_surf, n_surf, n_surf * n_w, n_surf * n_asph]
-    sizes += [n_surf + 1] if mode == 2 else []
+    cot = _prepare_cotangents(cotangents, xp)
+    sizes = _param_sizes(mode, n_surf, n_w, n_asph)
     n_params = sum(sizes)
     n_blocks = -(-n // lib.k1_bwd_block())
     new = lambda size: torch.empty(size, dtype=torch.float32, device=xp.device)
     dxp, dyp, dcy = new(n), new(n), new(n)
     params = new(n_params)
     partials = torch.empty(n_params * n_blocks, dtype=torch.float64, device=xp.device)
-    ptr = lambda v: None if v is None else v.data_ptr()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = lib.k3_bwd_launch(
-            *map(ptr, (xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi)),
-            float(angle_thr), *map(ptr, cot), n, n_surf, n_w, n_asph, n_per_w, n_iter, mode,
-            int(allow_backward), *map(ptr, (dxp, dyp, dcy, partials, params)), stream)
+            *map(_ptr, (xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi, n_legs)),
+            float(angle_thr), *_cot_ptrs(cot, mode), n, n_surf, n_w, n_asph, n_per_w, n_iter,
+            mode, int(allow_backward), *map(_ptr, (dxp, dyp, dcy, partials, params)), stream)
     fused_trace._raise_on_error(lib, err, "K3 backward kernel")
     K3_BWD_LAUNCHES += 1
-    dz0, dc, dkap, dt, dmu, da, *dref = torch.split(params, sizes)
+    dz0, dc, dkap, dt, dmu, da, *extra = torch.split(params, sizes)
+    if mode == 3:
+        extra = [extra[0].reshape(n_surf + 1, n_w)]
     return (dxp, dyp, dcy, dz0.reshape(z0.shape), dc, dkap, dt, dmu.reshape(n_surf, n_w),
-            da.reshape(n_surf, n_asph), *dref)
+            da.reshape(n_surf, n_asph), *extra)
 
 
 class _K3(torch.autograd.Function):
     """Kernel K3 with its hand adjoint. The forward saves only the inputs;
     the backward recomputes the trace (``pallas_asphere._fused_fwd_a`` /
-    ``_fused_bwd_a``)."""
+    ``_fused_bwd_a``). ``extra`` is ref_z in full mode, n_legs in opl mode."""
 
     @staticmethod
     def forward(ctx, penalties, allow_backward, n_per_w, n_iter, path_bounds, angle_thr,
-                xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z):
+                xp, yp, cy, z0, c, kappa, t, mu, asph, extra):
+        mode = _mode(penalties)
         inputs = (xp, yp, cy, z0, c, kappa, t, mu, asph)
-        inputs += (ref_z,) if _mode(penalties) == 2 else ()
+        inputs += (extra,) if mode in (2, 3) else ()
         config = (penalties, allow_backward, n_per_w, n_iter, path_bounds, angle_thr)
         if xp.device.type == "cpu":
+            ref_z, n_legs = _split_extra(inputs, 9, mode)
             outs = trace_fused_asphere_reference(*inputs[:9], penalties, allow_backward, n_per_w,
-                                                 n_iter, ref_z, path_bounds, angle_thr)
+                                                 n_iter, ref_z, path_bounds, angle_thr, n_legs)
         else:
             outs = _launch_k3_fwd(inputs, *config)
         ctx.mark_non_differentiable(outs[4], outs[5])
@@ -801,9 +836,9 @@ def _apply_k3(inputs, penalties, allow_backward, n_per_w, n_iter, path_bounds=()
               angle_thr=0.25):
     if inputs[0].device.type not in ("cpu", "cuda"):
         raise ValueError(f"K3 runs on CUDA or CPU tensors, got {inputs[0].device}")
-    ref_z = inputs[9] if len(inputs) > 9 else None
+    extra = inputs[9] if len(inputs) > 9 else None
     return _K3.apply(penalties, bool(allow_backward), int(n_per_w), int(n_iter),
-                     tuple(path_bounds), float(angle_thr), *inputs[:9], ref_z)
+                     tuple(path_bounds), float(angle_thr), *inputs[:9], extra)
 
 
 def trace_fused_asphere(xp, yp, cy, z0, c, kappa, t, mu, asph, penalties: bool,
@@ -815,9 +850,9 @@ def trace_fused_asphere(xp, yp, cy, z0, c, kappa, t, mu, asph, penalties: bool,
     On CUDA tensors it launches the CUDA kernels (float32, contiguous, one
     device; anything else raises). On CPU tensors it runs the plain versions.
     """
-    if _mode(penalties) == 2:
-        raise ValueError("the full mode needs ref_z and its bounds: use "
-                         "trace_fused_asphere_full")
+    if _mode(penalties) >= 2:
+        raise ValueError("the full and opl modes need their tables: use "
+                         "trace_fused_asphere_full or trace_fused_asphere_opl")
     return _apply_k3((xp, yp, cy, z0, c, kappa, t, mu, asph), penalties, allow_backward,
                      n_per_w, n_iter)
 
@@ -834,16 +869,26 @@ def trace_fused_asphere_full(xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z,
                      n_per_w, n_iter, path_bounds, angle_thr)
 
 
+def trace_fused_asphere_opl(xp, yp, cy, z0, c, kappa, t, mu, asph, n_legs,
+                            allow_backward: bool, n_per_w: int, n_iter: int = NEWTON_ITERS):
+    """``trace_fused_asphere`` with the optical path length accumulated in
+    the kernel (``pallas_asphere.trace_fused_asphere_opl``), with
+    ``fused_trace.trace_fused_opl``'s ``n_legs`` (S+1, W) contract. Returns
+    the 6 trace outputs plus ``opl``, each (N,)."""
+    return _apply_k3((xp, yp, cy, z0, c, kappa, t, mu, asph, n_legs), "opl", allow_backward,
+                     n_per_w, n_iter)
+
+
 # ---------------------------------------------------------------------------
 # Kernel K4: the CUDA wrappers and the autograd Function.
 # ---------------------------------------------------------------------------
 
 
-def _check_k4_inputs(inputs, mask, n_per_w, n_iter, lib):
+def _check_k4_inputs(inputs, mask, n_per_w, n_iter, lib, mode=0):
     xp, yp, cy, z0, c, kappa, t, mu, asph = inputs[:9]
     spherical = (xp, yp, cy, z0, c, t, mu) + tuple(inputs[9:])
     fused_batch._check_k2_inputs(spherical, mask, n_per_w, lib.k1_max_surf(), lib.k1_max_w(),
-                                 kernel="K4")
+                                 kernel="K4", mode=mode)
     fused_trace._check_tensors(dict(kappa=kappa, asph=asph), xp.device)
     if kappa.shape != c.shape or asph.ndim != 3 or asph.shape[:2] != c.shape:
         raise ValueError(f"kappa must be (B, S) and asph (B, S, K) with (B, S) = "
@@ -861,22 +906,21 @@ def _launch_k4_fwd(inputs, penalties, allow_backward, n_per_w, n_iter, mask, pat
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
     mode = _mode(penalties)
-    _check_k4_inputs(inputs, mask, n_per_w, n_iter, lib)
+    _check_k4_inputs(inputs, mask, n_per_w, n_iter, lib, mode)
     xp, yp, cy, z0, c, kappa, t, mu, asph = inputs[:9]
     n_sys, n = xp.shape
-    ref_z, lo, hi = fused_trace._full_args(mode, inputs[9] if mode == 2 else None,
-                                           path_bounds, c.shape[1], xp.device)
+    ref_z, n_legs = _split_extra(inputs, 9, mode)
+    ref_z, lo, hi = fused_trace._full_args(mode, ref_z, path_bounds, c.shape[1], xp.device)
     new = lambda dtype: torch.empty(xp.shape, dtype=dtype, device=xp.device)
     outs = [new(torch.float32) for _ in range(4)] + [new(torch.bool) for _ in range(2)]
-    outs += [new(torch.float32) for _ in range((0, 3, 5)[mode])]
-    ptr = fused_batch._ptr
-    pens = [ptr(v) for v in outs[6:]] + [None] * (5 - len(outs[6:]))
+    outs += [new(torch.float32) for _ in range(N_EXTRA_OUTS[mode])]
+    pens, opl = _out_ptrs(outs, mode)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = lib.k4_fwd_launch(
-            *map(ptr, (xp, yp, cy, z0, c, kappa, t, mu, asph, mask, ref_z, lo, hi)),
+            *map(_ptr, (xp, yp, cy, z0, c, kappa, t, mu, asph, mask, ref_z, lo, hi, n_legs)),
             float(angle_thr), n_sys, n, c.shape[1], mu.shape[2], asph.shape[2], n_per_w, n_iter,
-            mode, int(allow_backward), *map(ptr, outs[:6]), *pens, stream)
+            mode, int(allow_backward), *map(_ptr, outs[:6]), *pens, opl, stream)
     fused_trace._raise_on_error(lib, err, "K4 forward kernel")
     K4_FWD_LAUNCHES += 1
     return tuple(outs)
@@ -888,56 +932,53 @@ def _launch_k4_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, n_ite
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
     mode = _mode(penalties)
-    _check_k4_inputs(inputs, mask, n_per_w, n_iter, lib)
+    _check_k4_inputs(inputs, mask, n_per_w, n_iter, lib, mode)
     xp, yp, cy, z0, c, kappa, t, mu, asph = inputs[:9]
     n_sys, n = xp.shape
     n_surf, n_w, n_asph = c.shape[1], mu.shape[2], asph.shape[2]
-    ref_z, lo, hi = fused_trace._full_args(mode, inputs[9] if mode == 2 else None,
-                                           path_bounds, n_surf, xp.device)
-    # Autograd may hand over expanded or strided cotangents.
-    cot = [v.to(torch.float32).contiguous() for v in cotangents]
-    for v in cot:
-        if v.device != xp.device or v.shape != xp.shape:
-            raise ValueError(f"cotangents must be (B, N) on {xp.device}, got "
-                             f"{tuple(v.shape)} on {v.device}")
-    cot += [None] * (9 - len(cot))
-    sizes = [1, n_surf, n_surf, n_surf, n_surf * n_w, n_surf * n_asph]
-    sizes += [n_surf + 1] if mode == 2 else []
+    ref_z, n_legs = _split_extra(inputs, 9, mode)
+    ref_z, lo, hi = fused_trace._full_args(mode, ref_z, path_bounds, n_surf, xp.device)
+    cot = _prepare_cotangents(cotangents, xp)
+    sizes = _param_sizes(mode, n_surf, n_w, n_asph)
     n_params = sum(sizes)
     n_blocks = -(-n // lib.k1_bwd_block())
     new = lambda *size: torch.empty(size, dtype=torch.float32, device=xp.device)
     dxp, dyp, dcy = new(n_sys, n), new(n_sys, n), new(n_sys, n)
     params = new(n_sys, n_params)
     partials = torch.empty(n_sys * n_params * n_blocks, dtype=torch.float64, device=xp.device)
-    ptr = fused_batch._ptr
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = lib.k4_bwd_launch(
-            *map(ptr, (xp, yp, cy, z0, c, kappa, t, mu, asph, mask, ref_z, lo, hi)),
-            float(angle_thr), *map(ptr, cot), n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter,
-            mode, int(allow_backward), *map(ptr, (dxp, dyp, dcy, partials, params)), stream)
+            *map(_ptr, (xp, yp, cy, z0, c, kappa, t, mu, asph, mask, ref_z, lo, hi, n_legs)),
+            float(angle_thr), *_cot_ptrs(cot, mode), n_sys, n, n_surf, n_w, n_asph, n_per_w,
+            n_iter, mode, int(allow_backward), *map(_ptr, (dxp, dyp, dcy, partials, params)),
+            stream)
     fused_trace._raise_on_error(lib, err, "K4 backward kernel")
     K4_BWD_LAUNCHES += 1
-    dz0, dc, dkap, dt, dmu, da, *dref = torch.split(params, sizes, dim=1)
+    dz0, dc, dkap, dt, dmu, da, *extra = torch.split(params, sizes, dim=1)
+    if mode == 3:
+        extra = [extra[0].reshape(n_sys, n_surf + 1, n_w)]
     return (dxp, dyp, dcy, dz0.reshape(n_sys), dc, dkap, dt, dmu.reshape(n_sys, n_surf, n_w),
-            da.reshape(n_sys, n_surf, n_asph), *dref)
+            da.reshape(n_sys, n_surf, n_asph), *extra)
 
 
 class _K4(torch.autograd.Function):
     """Kernel K4 with its hand adjoint. The forward saves only the inputs;
     the backward recomputes the trace (``pallas_asphere._fused_fwd_ab`` /
-    ``_fused_bwd_ab``)."""
+    ``_fused_bwd_ab``). ``extra`` is ref_z in full mode, n_legs in opl mode."""
 
     @staticmethod
     def forward(ctx, penalties, allow_backward, n_per_w, n_iter, mask, path_bounds, angle_thr,
-                xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z):
+                xp, yp, cy, z0, c, kappa, t, mu, asph, extra):
+        mode = _mode(penalties)
         inputs = (xp, yp, cy, z0, c, kappa, t, mu, asph)
-        inputs += (ref_z,) if _mode(penalties) == 2 else ()
+        inputs += (extra,) if mode in (2, 3) else ()
         config = (penalties, allow_backward, n_per_w, n_iter, mask, path_bounds, angle_thr)
         if xp.device.type == "cpu":
+            ref_z, n_legs = _split_extra(inputs, 9, mode)
             outs = trace_fused_asphere_batch_reference(*inputs[:9], penalties, allow_backward,
                                                        n_per_w, n_iter, mask, ref_z, path_bounds,
-                                                       angle_thr)
+                                                       angle_thr, n_legs)
         else:
             outs = _launch_k4_fwd(inputs, *config)
         ctx.mark_non_differentiable(outs[4], outs[5])
@@ -964,9 +1005,9 @@ def _apply_k4(inputs, penalties, allow_backward, n_per_w, n_iter, mask, path_bou
     if inputs[0].device.type not in ("cpu", "cuda"):
         raise ValueError(f"K4 runs on CUDA or CPU tensors, got {inputs[0].device}")
     inputs = [v.contiguous() for v in inputs]
-    ref_z = inputs[9] if len(inputs) > 9 else None
+    extra = inputs[9] if len(inputs) > 9 else None
     return _K4.apply(penalties, bool(allow_backward), int(n_per_w), int(n_iter), mask,
-                     tuple(path_bounds), float(angle_thr), *inputs[:9], ref_z)
+                     tuple(path_bounds), float(angle_thr), *inputs[:9], extra)
 
 
 def trace_fused_asphere_batch(xp, yp, cy, z0, c, kappa, t, mu, asph, penalties: bool,
@@ -979,9 +1020,9 @@ def trace_fused_asphere_batch(xp, yp, cy, z0, c, kappa, t, mu, asph, penalties: 
 
     On CUDA tensors it launches the CUDA kernels (float32, one device;
     anything else raises). On CPU tensors it runs the plain versions."""
-    if _mode(penalties) == 2:
-        raise ValueError("the full mode needs ref_z and its bounds: use "
-                         "trace_fused_asphere_batch_full")
+    if _mode(penalties) >= 2:
+        raise ValueError("the full and opl modes need their tables: use "
+                         "trace_fused_asphere_batch_full or trace_fused_asphere_batch_opl")
     return _apply_k4((xp, yp, cy, z0, c, kappa, t, mu, asph), penalties, allow_backward,
                      n_per_w, n_iter, mask)
 
@@ -998,6 +1039,19 @@ def trace_fused_asphere_batch_full(xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z,
     (B, N)."""
     return _apply_k4((xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z), "full", allow_backward,
                      n_per_w, n_iter, mask, path_bounds, angle_thr)
+
+
+def trace_fused_asphere_batch_opl(xp, yp, cy, z0, c, kappa, t, mu, asph, n_legs,
+                                  allow_backward: bool, n_per_w: int,
+                                  n_iter: int = NEWTON_ITERS,
+                                  mask: Optional[torch.Tensor] = None):
+    """``trace_fused_asphere_batch`` with the optical path length accumulated
+    in the kernel (``pallas_asphere.trace_fused_asphere_batch_opl``), the
+    population form of :func:`trace_fused_asphere_opl`, with each system's
+    per-leg indices in ``n_legs`` (B, S+1, W). Returns the 6 trace outputs
+    plus ``opl``, each (B, N)."""
+    return _apply_k4((xp, yp, cy, z0, c, kappa, t, mu, asph, n_legs), "opl", allow_backward,
+                     n_per_w, n_iter, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -1061,6 +1115,47 @@ def trace_rays_fused_asphere_batch(specs, lens: Lens, config,
     return fused_batch.trace_rays_fused_batch(specs, with_asphere_terms(lens), config,
                                               generator=generator, xy=xy, penalties=penalties,
                                               use_vig=use_vig)
+
+
+def optical_paths_fused_asphere(specs, lens: Lens, config,
+                                generator: Optional[torch.Generator] = None,
+                                xy: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """``wavefront.optical_path_lengths`` on kernel K3's opl mode (one
+    conic/asphere system, an absent ``kappa`` or ``asph`` as zeros, float32;
+    ``pallas_asphere.optical_paths_fused_asphere``): returns (TraceResult,
+    OPL) with OPL (1, F, P, W) in mm, launch phase included; differentiable
+    through c, kappa, t, asph and the dispersion model."""
+    lens = _check_asphere_lens(lens, config)
+    xp, yp, cyb, z0, mu, shape = fused_trace.prepare_fused_inputs(
+        specs, lens, config, generator=generator, xy=xy)
+    _, F, P, _ = shape
+    outs = trace_fused_asphere_opl(xp, yp, cyb, z0, lens.c[0], lens.kappa[0], lens.t[0], mu,
+                                   lens.asph[0],
+                                   fused_trace.leg_indices(lens, config.wavelengths)[0],
+                                   config.allow_backward_rays, F * P, config.newton_iters)
+    return (fused_trace.package_fused_result(outs[:6], shape, False),
+            fused_trace.package_opl(outs[6][None], yp[None], cyb[None], shape))
+
+
+def optical_paths_fused_asphere_batch(specs, lens: Lens, config,
+                                      generator: Optional[torch.Generator] = None,
+                                      xy: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """``wavefront.optical_path_lengths`` on kernel K4's opl mode (B >= 1
+    conic/asphere systems, an absent ``kappa`` or ``asph`` as zeros, float32;
+    ``pallas_asphere.optical_paths_fused_asphere_batch``), a padded
+    population through its surface mask: returns (TraceResult, OPL) with OPL
+    (B, F, P, W) in mm, launch phase included."""
+    lens = with_asphere_terms(lens)
+    fused_batch._check_population(config)
+    xpb, ypb, cyb, z0, mu, shape = fused_batch.prepare_fused_inputs_batch(
+        specs, lens, config, generator=generator, xy=xy)
+    _, F, P, _ = shape
+    outs = trace_fused_asphere_batch_opl(
+        xpb, ypb, cyb, z0, lens.c, lens.kappa, lens.t, mu, lens.asph,
+        fused_trace.leg_indices(lens, config.wavelengths), config.allow_backward_rays, F * P,
+        config.newton_iters, fused_batch._static_mask(lens.structure, lens.device))
+    return (fused_batch.package_fused_result_batch(outs[:6], shape, False),
+            fused_trace.package_opl(outs[6], ypb, cyb, shape))
 
 
 def compute_losses_fused_asphere(specs, lens: Lens, config, g=None, catalog_g=None,

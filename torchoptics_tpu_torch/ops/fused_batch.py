@@ -7,14 +7,15 @@ the fused engine. The Pallas TPU kernels there become kernel K2,
 hand-written in CUDA C++:
 
 * K2 forward (``_fwd_kernel_b``) in ``csrc/fused_batch_fwd.cu``, in plain,
-  Lu and full penalty modes;
+  Lu, full and opl modes;
 * K2 backward (``_bwd_kernel_b``), the hand adjoint with a forward
   recompute and per-system parameter cotangents, in
   ``csrc/fused_batch_bwd.cu``.
 
 K2 is K1 (``ops.fused_trace``) over a grid of (ray blocks x systems), with
-per-system z0 (B,), c, t (B, S), mu (B, S, W), ref_z (B, S+1) and, for a
-padded population of mixed lens types, a (B, S) surface mask. Both kernels
+per-system z0 (B,), c, t (B, S), mu (B, S, W), ref_z (B, S+1) or n_legs
+(B, S+1, W) and, for a padded population of mixed lens types, a (B, S)
+surface mask. Both kernels
 share K1's device code (``csrc/trace_common.cuh``) and are reached through
 one ``torch.autograd.Function``; on CPU tensors it runs the plain versions,
 :func:`trace_fused_batch_reference` and
@@ -24,8 +25,9 @@ surface step and its adjoint.
 The mask semantics are ``pallas_batch``'s. Padded surfaces (c = t = 0,
 n = V = 1) are traced, not skipped. The backward-ray test at surface k is
 gated by mask[k-1] and the last one by mask[S-1]; the Lu sums and the angle
-hinge by mask[k]; the path hinge is not gated (the full mode is reached by
-homogeneous populations only).
+hinge by mask[k]; the path hinge and the optical path length are not gated
+(the full mode is reached by homogeneous populations only; a padded gap has
+n = 1 and a zero-length leg).
 
 The front-end keeps one ray order, wavelength-outer: each system's rays are
 a flat (W, F, P) block, the rows of a (B, N) array. The front-end, the
@@ -48,7 +50,8 @@ from torchoptics_tpu_torch.ops import fused_trace
 from torchoptics_tpu_torch.ops import pupil as pupil_mod
 from torchoptics_tpu_torch.ops import trace as trace_mod
 from torchoptics_tpu_torch.ops.fused_trace import (
-    _bwd_surface, _fwd_surface, _hinge, _hinge_grad, _mode, _theta_norm_adjoint)
+    N_EXTRA_OUTS, _bwd_surface, _cot_ptrs, _fwd_surface, _hinge, _hinge_grad, _lu, _mode,
+    _out_ptrs, _prepare_cotangents, _ptr, _split_extra, _theta_norm_adjoint, n_extra_params)
 
 #: Launches of the K2 forward and backward CUDA kernels in this process. The
 #: wrappers add one per launch; reset them to 0 to count the launches of one
@@ -74,7 +77,7 @@ def _widx(n: int, n_per_w: int, n_w: int, device):
 
 def trace_fused_batch_reference(xp, yp, cy, z0, c, t, mu, penalties, allow_backward: bool,
                                 n_per_w: int, mask=None, ref_z=None, path_bounds=(),
-                                angle_thr=0.25):
+                                angle_thr=0.25, n_legs=None):
     """Plain PyTorch version of kernel K2 forward: K1's surface step
     (``fused_trace._fwd_surface``) on (B, N) ray blocks, each system with its
     own parameters, in the kernel's order of operations, so that the two
@@ -86,18 +89,21 @@ def trace_fused_batch_reference(xp, yp, cy, z0, c, t, mu, penalties, allow_backw
       z0: (B,) entrance-pupil positions.
       c, t: (B, S); mu: (B, S, W), ray i of a system uses column
         min(i // n_per_w, W-1).
-      penalties, allow_backward, ref_z (B, S+1), path_bounds, angle_thr: as
-        for ``fused_trace.trace_fused_reference``; the bounds are shared.
+      penalties, allow_backward, ref_z (B, S+1), path_bounds, angle_thr,
+        n_legs (B, S+1, W): as for ``fused_trace.trace_fused_reference``; the
+        bounds are shared.
       mask: (B, S) bool tensor of real surfaces, or None when no surface is
         padded.
 
     Returns (x, y, cx, cy, ray_ok, ray_backward[, pen_theta, pen_theta_p,
-    pen_zrelu[, pen_path, pen_angle]]), each (B, N).
+    pen_zrelu[, pen_path, pen_angle]]), or in opl mode the six and ``opl``,
+    each (B, N).
     """
     mode = _mode(penalties)
     n_sys, n = xp.shape
     n_surf = c.shape[1]
-    mu_ray = mu[:, :, _widx(n, n_per_w, mu.shape[2], xp.device)]    # (B, S, N)
+    widx = _widx(n, n_per_w, mu.shape[2], xp.device)
+    mu_ray = mu[:, :, widx]                                         # (B, S, N)
     gate = ((lambda k, a: a) if mask is None
             else (lambda k, a: torch.where(mask[:, k, None], a, 0.0)))
     x, y = xp, yp
@@ -106,12 +112,16 @@ def trace_fused_batch_reference(xp, yp, cy, z0, c, t, mu, penalties, allow_backw
     cz = torch.sqrt(1.0 - cy * cy)
     ok = torch.ones(xp.shape, dtype=torch.bool, device=xp.device)
     bw = torch.zeros_like(ok)
-    pth = ptp = pz = ppath = pang = torch.zeros_like(xp)
+    pth = ptp = pz = ppath = pang = opl = torch.zeros_like(xp)
     z_prev = None
     for k in range(n_surf):
         tk = t[:, k, None]
         (x, y, z, cx, cy, cz, ok2), loc = _fwd_surface(c[:, k, None], tk, mu_ray[:, k],
                                                        x, y, z, cx, cy, cz, ok)
+        if mode == 3:
+            # Leg k, in the medium before surface k, before a backward ray
+            # is removed.
+            opl = opl + loc["dist"] * n_legs[:, k, widx]
         if k > 0:
             went = (loc["delta_z"] < 0) & loc["ok1"]
             if mask is not None:
@@ -124,7 +134,7 @@ def trace_fused_batch_reference(xp, yp, cy, z0, c, t, mu, penalties, allow_backw
                 z = torch.where(went, -tk, z)
                 cz = torch.where(went, 1.0, cz)
         ok = ok2
-        if mode:
+        if _lu(mode):
             pth = pth + gate(k, _theta_norm(loc["cos2"], ok))
             ptp = ptp + gate(k, _theta_norm(loc["cos2p"], ok))
             pz = pz + gate(k, torch.clamp(z, min=0.0))
@@ -152,6 +162,9 @@ def trace_fused_batch_reference(xp, yp, cy, z0, c, t, mu, penalties, allow_backw
         bw = bw | went
     else:
         ok = ok & ~went
+    if mode == 3:
+        # The final leg, in the image-space medium.
+        return x, y, cx, cy, ok, bw, opl + dist * n_legs[:, n_surf, widx]
     return (x, y, cx, cy, ok, bw) + ((pth, ptp, pz) if mode else ()) + (
         (ppath, pang) if mode == 2 else ())
 
@@ -168,26 +181,30 @@ def trace_fused_batch_backward_reference(inputs, cotangents, penalties,
     over its rays in float64 and returned in float32.
 
     Args:
-      inputs: (xp, yp, cy, z0, c, t, mu[, ref_z]) as for the forward.
-      cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), each
-        (B, N): the cotangents of the forward's float outputs.
+      inputs: (xp, yp, cy, z0, c, t, mu[, ref_z (full) or n_legs (opl)]) as
+        for the forward.
+      cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), or
+        in opl mode (dx, dy, dcx, dcy, dopl), each (B, N): the cotangents of
+        the forward's float outputs.
       penalties, allow_backward, n_per_w, mask, path_bounds, angle_thr: as
         for the forward.
 
     Returns (dxp, dyp, dcy (B, N), dz0 (B,), dc, dt (B, S), dmu (B, S, W)
-    [, dref_z (B, S+1)]).
+    [, dref_z (B, S+1) or dn_legs (B, S+1, W)]).
     """
     mode = _mode(penalties)
     xp, yp, cyin, z0, c, t, mu = inputs[:7]
-    ref_z = inputs[7] if mode == 2 else None
+    ref_z, n_legs = _split_extra(inputs, 7, mode)
     dx_img, dy_img, dcx_img, dcy_img = cotangents[:4]
-    if mode:
+    if _lu(mode):
         dpth, dptp, dpz = cotangents[4:7]
     if mode == 2:
         dppath, dpang = cotangents[7:9]
+    dopl = cotangents[4] if mode == 3 else None
     n_sys, n = xp.shape
     n_surf, n_w = c.shape[1], mu.shape[2]
-    mu_ray = mu[:, :, _widx(n, n_per_w, n_w, xp.device)]             # (B, S, N)
+    widx = _widx(n, n_per_w, n_w, xp.device)
+    mu_ray = mu[:, :, widx]                                          # (B, S, N)
     total = lambda a: torch.sum(a, dim=1, dtype=torch.float64)       # (B,)
     valid = lambda k: None if mask is None else mask[:, k, None]
     gate = ((lambda k, a: a) if mask is None
@@ -217,11 +234,20 @@ def trace_fused_batch_backward_reference(inputs, cotangents, penalties,
         locs.append(loc)
         kills.append(kill)
 
+    bounds = [(min(w * n_per_w, n), n if w == n_w - 1 else min((w + 1) * n_per_w, n))
+              for w in range(n_w)]
+    per_w = lambda v: [total(v[:, lo:hi]) for lo, hi in bounds]
+    dn = [None] * (n_surf + 1)
+
     # Image-transfer adjoint.
     dist_f = -z / cz
     dcx = dcx_img + dx_img * dist_f
     dcy = dcy_img + dy_img * dist_f
     ddist = dx_img * cx + dy_img * cy
+    if mode == 3:
+        # opl += dist_f * n_S: into the final leg's distance adjoint.
+        ddist = ddist + dopl * n_legs[:, n_surf, widx]
+        dn[n_surf] = per_w(dopl * dist_f)
     dz = -ddist / cz
     dcz = ddist * (z / (cz * cz))
     dx, dy = dx_img, dy_img
@@ -240,12 +266,14 @@ def trace_fused_batch_backward_reference(inputs, cotangents, penalties,
     dc, dt = [None] * n_surf, [None] * n_surf
     dmu = [[None] * n_w for _ in range(n_surf)]
     dref = [torch.zeros(n_sys, dtype=torch.float64, device=xp.device)] * (n_surf + 1)
-    bounds = [(min(w * n_per_w, n), n if w == n_w - 1 else min((w + 1) * n_per_w, n))
-              for w in range(n_w)]
     for k in range(n_surf - 1, -1, -1):
         loc, kill = locs[k], kills[k]
-        dcos2_extra = dcos2p_extra = None
-        if mode:
+        dcos2_extra = dcos2p_extra = ddist_extra = None
+        if mode == 3:
+            # opl += dist_k * n_k, added before the kill: not cut by it.
+            ddist_extra = dopl * n_legs[:, k, widx]
+            dn[k] = per_w(dopl * loc["dist"])
+        if _lu(mode):
             ok_end = loc["ok1"] & ~loc["fail2"]
             if kill is not None:
                 ok_end = ok_end & ~kill
@@ -276,11 +304,10 @@ def trace_fused_batch_backward_reference(inputs, cotangents, penalties,
                                          for a in (dx, dy, dz, dcx, dcy, dcz))
         (dx, dy, dz, dcx, dcy, dcz), dc_ray, dt_ray, dmu_ray = _bwd_surface(
             c[:, k, None], mu_ray[:, k], pres[k], loc, (dx, dy, dz, dcx, dcy, dcz),
-            dcos2_extra, dcos2p_extra)
+            dcos2_extra, dcos2p_extra, ddist_extra)
         dc[k] = total(dc_ray)
         dt[k] = total(dt_ray) + dt_kill
-        for w, (lo, hi) in enumerate(bounds):
-            dmu[k][w] = total(dmu_ray[:, lo:hi])
+        dmu[k] = per_w(dmu_ray)
 
     # Launch adjoint: cz0 = sqrt(1 - cy^2), cx0 = 0 (a constant).
     dcy = dcy + dcz * (-cyin / cz0)
@@ -289,6 +316,8 @@ def trace_fused_batch_backward_reference(inputs, cotangents, penalties,
              f32(dc), f32(dt), torch.stack([f32(row) for row in dmu], dim=1))
     if mode == 2:
         grads += (f32(dref),)
+    if mode == 3:
+        grads += (torch.stack([f32(row) for row in dn], dim=1),)
     return grads
 
 
@@ -297,12 +326,12 @@ def trace_fused_batch_backward_reference(inputs, cotangents, penalties,
 # ---------------------------------------------------------------------------
 
 
-def _check_k2_inputs(inputs, mask, n_per_w, max_surf, max_w, kernel="K2"):
+def _check_k2_inputs(inputs, mask, n_per_w, max_surf, max_w, kernel="K2", mode=0):
     xp, yp, cy, z0, c, t, mu = inputs[:7]
-    ref_z = inputs[7] if len(inputs) > 7 else None
+    ref_z, n_legs = _split_extra(inputs, 7, mode)
     fused_trace._check_tensors(
-        dict(xp=xp, yp=yp, cy=cy, z0=z0, c=c, t=t, mu=mu, ref_z=ref_z, mask=mask), xp.device,
-        dtypes=dict(mask=torch.bool))
+        dict(xp=xp, yp=yp, cy=cy, z0=z0, c=c, t=t, mu=mu, ref_z=ref_z, n_legs=n_legs,
+             mask=mask), xp.device, dtypes=dict(mask=torch.bool))
     if xp.ndim != 2 or yp.shape != xp.shape or cy.shape != xp.shape:
         raise ValueError(f"xp, yp, cy must be equal (B, N) blocks, got "
                          f"{tuple(xp.shape)}, {tuple(yp.shape)}, {tuple(cy.shape)}")
@@ -319,14 +348,13 @@ def _check_k2_inputs(inputs, mask, n_per_w, max_surf, max_w, kernel="K2"):
     if ref_z is not None and tuple(ref_z.shape) != (n_sys, n_surf + 1):
         raise ValueError(f"ref_z must be (B, S+1) = ({n_sys}, {n_surf + 1}), "
                          f"got {tuple(ref_z.shape)}")
+    if n_legs is not None and tuple(n_legs.shape) != (n_sys, n_surf + 1, mu.shape[2]):
+        raise ValueError(f"n_legs must be (B, S+1, W) = ({n_sys}, {n_surf + 1}, "
+                         f"{mu.shape[2]}), got {tuple(n_legs.shape)}")
     if mask is not None and tuple(mask.shape) != (n_sys, n_surf):
         raise ValueError(f"mask must be (B, S) = ({n_sys}, {n_surf}), got {tuple(mask.shape)}")
     if not 1 <= n_per_w or n >= 2 ** 31 or n_sys >= 2 ** 31:
         raise ValueError(f"bad ray block: B={n_sys}, N={n}, n_per_w={n_per_w}")
-
-
-def _ptr(a):
-    return None if a is None else a.data_ptr()
 
 
 def _launch_k2_fwd(inputs, penalties, allow_backward, n_per_w, mask, path_bounds, angle_thr):
@@ -335,20 +363,20 @@ def _launch_k2_fwd(inputs, penalties, allow_backward, n_per_w, mask, path_bounds
     lib = _kernels.load()
     mode = _mode(penalties)
     xp, yp, cy, z0, c, t, mu = inputs[:7]
-    _check_k2_inputs(inputs, mask, n_per_w, lib.k1_max_surf(), lib.k1_max_w())
-    ref_z, lo, hi = fused_trace._full_args(mode, inputs[7] if mode == 2 else None,
-                                           path_bounds, c.shape[1], xp.device)
+    _check_k2_inputs(inputs, mask, n_per_w, lib.k1_max_surf(), lib.k1_max_w(), mode=mode)
+    ref_z, n_legs = _split_extra(inputs, 7, mode)
+    ref_z, lo, hi = fused_trace._full_args(mode, ref_z, path_bounds, c.shape[1], xp.device)
     n_sys, n = xp.shape
     new = lambda dtype: torch.empty(xp.shape, dtype=dtype, device=xp.device)
     outs = [new(torch.float32) for _ in range(4)] + [new(torch.bool) for _ in range(2)]
-    outs += [new(torch.float32) for _ in range((0, 3, 5)[mode])]
-    pens = [_ptr(a) for a in outs[6:]] + [None] * (5 - len(outs[6:]))
+    outs += [new(torch.float32) for _ in range(N_EXTRA_OUTS[mode])]
+    pens, opl = _out_ptrs(outs, mode)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = lib.k2_fwd_launch(
-            *map(_ptr, (xp, yp, cy, z0, c, t, mu, mask, ref_z, lo, hi)), float(angle_thr),
-            n_sys, n, c.shape[1], mu.shape[2], n_per_w, mode, int(allow_backward),
-            *map(_ptr, outs[:6]), *pens, stream)
+            *map(_ptr, (xp, yp, cy, z0, c, t, mu, mask, ref_z, lo, hi, n_legs)),
+            float(angle_thr), n_sys, n, c.shape[1], mu.shape[2], n_per_w, mode,
+            int(allow_backward), *map(_ptr, outs[:6]), *pens, opl, stream)
     fused_trace._raise_on_error(lib, err, "K2 forward kernel")
     K2_FWD_LAUNCHES += 1
     return tuple(outs)
@@ -361,19 +389,13 @@ def _launch_k2_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, mask,
     lib = _kernels.load()
     mode = _mode(penalties)
     xp, yp, cy, z0, c, t, mu = inputs[:7]
-    _check_k2_inputs(inputs, mask, n_per_w, lib.k1_max_surf(), lib.k1_max_w())
-    ref_z, lo, hi = fused_trace._full_args(mode, inputs[7] if mode == 2 else None,
-                                           path_bounds, c.shape[1], xp.device)
+    _check_k2_inputs(inputs, mask, n_per_w, lib.k1_max_surf(), lib.k1_max_w(), mode=mode)
+    ref_z, n_legs = _split_extra(inputs, 7, mode)
+    ref_z, lo, hi = fused_trace._full_args(mode, ref_z, path_bounds, c.shape[1], xp.device)
     n_sys, n = xp.shape
     n_surf, n_w = c.shape[1], mu.shape[2]
-    # Autograd may hand over expanded or strided cotangents.
-    cot = [a.to(torch.float32).contiguous() for a in cotangents]
-    for a in cot:
-        if a.device != xp.device or a.shape != xp.shape:
-            raise ValueError(f"cotangents must be (B, N) on {xp.device}, got "
-                             f"{tuple(a.shape)} on {a.device}")
-    cot += [None] * (9 - len(cot))
-    n_params = 1 + 2 * n_surf + n_surf * n_w + (n_surf + 1 if mode == 2 else 0)
+    cot = _prepare_cotangents(cotangents, xp)
+    n_params = 1 + 2 * n_surf + n_surf * n_w + n_extra_params(mode, n_surf, n_w)
     n_blocks = -(-n // lib.k1_bwd_block())
     new = lambda *size: torch.empty(size, dtype=torch.float32, device=xp.device)
     dxp, dyp, dcy = new(n_sys, n), new(n_sys, n), new(n_sys, n)
@@ -382,9 +404,9 @@ def _launch_k2_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, mask,
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = lib.k2_bwd_launch(
-            *map(_ptr, (xp, yp, cy, z0, c, t, mu, mask, ref_z, lo, hi)), float(angle_thr),
-            *map(_ptr, cot), n_sys, n, n_surf, n_w, n_per_w, mode, int(allow_backward),
-            *map(_ptr, (dxp, dyp, dcy, partials, params)), stream)
+            *map(_ptr, (xp, yp, cy, z0, c, t, mu, mask, ref_z, lo, hi, n_legs)),
+            float(angle_thr), *_cot_ptrs(cot, mode), n_sys, n, n_surf, n_w, n_per_w, mode,
+            int(allow_backward), *map(_ptr, (dxp, dyp, dcy, partials, params)), stream)
     fused_trace._raise_on_error(lib, err, "K2 backward kernel")
     K2_BWD_LAUNCHES += 1
     off = np.cumsum([1, n_surf, n_surf, n_surf * n_w])
@@ -392,22 +414,27 @@ def _launch_k2_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, mask,
              params[:, off[2]:off[3]].reshape(n_sys, n_surf, n_w))
     if mode == 2:
         grads += (params[:, off[3]:],)
+    if mode == 3:
+        grads += (params[:, off[3]:].reshape(n_sys, n_surf + 1, n_w),)
     return grads
 
 
 class _K2(torch.autograd.Function):
     """Kernel K2 with its hand adjoint. The forward saves only the inputs;
     the backward recomputes the trace (``pallas_batch._fused_fwd_b`` /
-    ``_fused_bwd_b``)."""
+    ``_fused_bwd_b``). ``extra`` is ref_z in full mode, n_legs in opl mode."""
 
     @staticmethod
     def forward(ctx, penalties, allow_backward, n_per_w, path_bounds, angle_thr, mask,
-                xp, yp, cy, z0, c, t, mu, ref_z):
-        inputs = (xp, yp, cy, z0, c, t, mu) + ((ref_z,) if _mode(penalties) == 2 else ())
+                xp, yp, cy, z0, c, t, mu, extra):
+        mode = _mode(penalties)
+        inputs = (xp, yp, cy, z0, c, t, mu) + ((extra,) if mode in (2, 3) else ())
         config = (penalties, allow_backward, n_per_w, mask, path_bounds, angle_thr)
         if xp.device.type == "cpu":
+            ref_z, n_legs = _split_extra(inputs, 7, mode)
             outs = trace_fused_batch_reference(*inputs[:7], penalties, allow_backward,
-                                               n_per_w, mask, ref_z, path_bounds, angle_thr)
+                                               n_per_w, mask, ref_z, path_bounds, angle_thr,
+                                               n_legs)
         else:
             outs = _launch_k2_fwd(inputs, *config)
         ctx.mark_non_differentiable(outs[4], outs[5])
@@ -436,9 +463,9 @@ def _apply_k2(inputs, penalties, allow_backward, n_per_w, mask, path_bounds=(),
     if inputs[0].device.type not in ("cpu", "cuda"):
         raise ValueError(f"K2 runs on CUDA or CPU tensors, got {inputs[0].device}")
     inputs = [a.contiguous() for a in inputs]
-    ref_z = inputs[7] if len(inputs) > 7 else None
+    extra = inputs[7] if len(inputs) > 7 else None
     return _K2.apply(penalties, bool(allow_backward), int(n_per_w), tuple(path_bounds),
-                     float(angle_thr), mask, *inputs[:7], ref_z)
+                     float(angle_thr), mask, *inputs[:7], extra)
 
 
 def trace_fused_batch(xp, yp, cy, z0, c, t, mu, penalties: bool, allow_backward: bool,
@@ -449,8 +476,9 @@ def trace_fused_batch(xp, yp, cy, z0, c, t, mu, penalties: bool, allow_backward:
 
     On CUDA tensors it launches the CUDA kernels (float32, one device;
     anything else raises). On CPU tensors it runs the plain versions."""
-    if _mode(penalties) == 2:
-        raise ValueError("the full mode needs ref_z and its bounds: use trace_fused_batch_full")
+    if _mode(penalties) >= 2:
+        raise ValueError("the full and opl modes need their tables: use "
+                         "trace_fused_batch_full or trace_fused_batch_opl")
     return _apply_k2((xp, yp, cy, z0, c, t, mu), penalties, allow_backward, n_per_w, mask)
 
 
@@ -465,6 +493,16 @@ def trace_fused_batch_full(xp, yp, cy, z0, c, t, mu, ref_z, allow_backward: bool
     pen_angle), each (B, N)."""
     return _apply_k2((xp, yp, cy, z0, c, t, mu, ref_z), "full", allow_backward, n_per_w,
                      mask, path_bounds, angle_thr)
+
+
+def trace_fused_batch_opl(xp, yp, cy, z0, c, t, mu, n_legs, allow_backward: bool,
+                          n_per_w: int, mask: Optional[torch.Tensor] = None):
+    """``trace_fused_batch`` with the optical path length accumulated in the
+    kernel (``pallas_batch.trace_fused_batch_opl``), the population form of
+    ``fused_trace.trace_fused_opl``: each system's differentiable per-leg
+    indices in ``n_legs`` (B, S+1, W); a padded gap carries n = 1 and a
+    zero-length leg. Returns the 6 trace outputs plus ``opl``, each (B, N)."""
+    return _apply_k2((xp, yp, cy, z0, c, t, mu, n_legs), "opl", allow_backward, n_per_w, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +653,28 @@ def trace_rays_fused_batch(specs, lens: Lens, config,
     _, F, P, _ = shape
     outs = _trace_population(xpb, ypb, cyb, z0, mu, lens, config, penalties, F * P)
     return package_fused_result_batch(outs, shape, penalties)
+
+
+def optical_paths_fused_batch(specs, lens: Lens, config,
+                              generator: Optional[torch.Generator] = None,
+                              xy: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """``wavefront.optical_path_lengths`` on kernel K2's opl mode (B >= 1
+    spherical systems, float32; ``pallas_batch.optical_paths_fused_batch``),
+    a padded population of mixed lens types through its surface mask: returns
+    (TraceResult, OPL) with OPL (B, F, P, W) in mm, launch phase included."""
+    if not lens.is_spherical:
+        raise ValueError("K2's opl mode is spherical; a conic/asphere population goes "
+                         "through fused_asphere.optical_paths_fused_asphere_batch")
+    _check_population(config)
+    xpb, ypb, cyb, z0, mu, shape = prepare_fused_inputs_batch(
+        specs, lens, config, generator=generator, xy=xy)
+    _, F, P, _ = shape
+    outs = trace_fused_batch_opl(xpb, ypb, cyb, z0, lens.c, lens.t, mu,
+                                 fused_trace.leg_indices(lens, config.wavelengths),
+                                 config.allow_backward_rays, F * P,
+                                 _static_mask(lens.structure, lens.device))
+    return (package_fused_result_batch(outs[:6], shape, False),
+            fused_trace.package_opl(outs[6], ypb, cyb, shape))
 
 
 # ---------------------------------------------------------------------------

@@ -3,13 +3,13 @@
 PyTorch counterpart of ``torchoptics_tpu.ops.pallas_trace``. The Pallas TPU
 kernels there become kernel K1, hand-written in CUDA C++:
 
-* K1 forward (``_fwd_kernel``) in ``csrc/fused_trace_fwd.cu``, in plain, Lu
-  and full penalty modes;
+* K1 forward (``_fwd_kernel``) in ``csrc/fused_trace_fwd.cu``, in plain, Lu,
+  full and opl (optical path length) modes;
 * K1 backward (``_bwd_kernel``), the hand adjoint with a forward recompute,
-  in ``csrc/fused_trace_bwd.cu``, in the same three modes.
+  in ``csrc/fused_trace_bwd.cu``, in the same four modes.
 
 Both are reached through one ``torch.autograd.Function`` behind
-:func:`trace_fused` and :func:`trace_fused_full`. It saves only its inputs
+:func:`trace_fused`, :func:`trace_fused_full` and :func:`trace_fused_opl`. It saves only its inputs
 for the backward pass. On CUDA tensors it checks them and launches the
 kernels, or raises; it never falls back. On CPU tensors it runs the plain
 versions of both passes, :func:`trace_fused_reference` and
@@ -47,14 +47,21 @@ _HALF_PI = math.pi / 2.0
 
 
 def _mode(penalties) -> int:
-    """0 = plain, 1 = Lu, 2 = full (the kernels' template modes)."""
+    """0 = plain, 1 = Lu, 2 = full, 3 = opl (the kernels' template modes)."""
     if penalties is False or penalties is None:
         return 0
     if penalties is True:
         return 1
     if penalties == "full":
         return 2
-    raise ValueError(f"penalties must be False, True or 'full', got {penalties!r}")
+    if penalties == "opl":
+        return 3
+    raise ValueError(f"penalties must be False, True, 'full' or 'opl', got {penalties!r}")
+
+
+def _lu(mode: int) -> bool:
+    """Whether a kernel mode accumulates the Lu penalty sums."""
+    return mode in (1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +90,8 @@ def _hinge_grad(delta, lo: float, hi: float):
 
 
 def trace_fused_reference(xp, yp, cy, z0, c, t, mu, penalties, allow_backward: bool,
-                          n_per_w: int, ref_z=None, path_bounds=(), angle_thr=0.25):
+                          n_per_w: int, ref_z=None, path_bounds=(), angle_thr=0.25,
+                          n_legs=None):
     """Plain PyTorch version of kernel K1 forward: the pure-torch engine
     (``trace.trace_skew``) on the flat ray block, each ray with its own
     wavelength's index ratios. It rounds every product and sum as the kernel
@@ -101,19 +109,25 @@ def trace_fused_reference(xp, yp, cy, z0, c, t, mu, penalties, allow_backward: b
         "full" for those plus the ray-path hinge against ``ref_z`` (S+1,)
         absolute vertex positions with the static per-gap ``path_bounds``
         (lo, hi) pairs, and the angle hinge of both cos² against
-        ``angle_thr`` = cos²(threshold).
+        ``angle_thr`` = cos²(threshold); "opl" for the optical path length
+        OPL = Σ_k n_legs[k]·dist_k per ray, over the surface legs and the
+        final leg to the image plane, with ``n_legs`` (S+1, W) the index of
+        the medium each leg travels in (air first), each leg added before a
+        backward ray is removed.
       allow_backward: False removes backward rays instead of flagging them.
 
     Returns (x, y, cx, cy, ray_ok, ray_backward[, pen_theta, pen_theta_p,
-    pen_zrelu[, pen_path, pen_angle]]), each (N,).
+    pen_zrelu[, pen_path, pen_angle]]), or in opl mode the six and ``opl``,
+    each (N,).
     """
     mode = _mode(penalties)
     n, n_surf = xp.shape[0], c.shape[0]
     widx = torch.clamp(torch.arange(n, device=xp.device) // n_per_w, max=mu.shape[1] - 1)
     ray = lambda a: a.reshape(1, 1, n, 1)
     surface = lambda a: a.reshape(1, 1, 1, 1, n_surf)
-    aggregate = ((trace_mod.AGG_TORCH if mode else ())
-                 + (("z", "cos2", "cos2_prime") if mode == 2 else ()))
+    aggregate = ((trace_mod.AGG_TORCH if _lu(mode) else ())
+                 + (("z", "cos2", "cos2_prime") if mode == 2 else ())
+                 + (("dist",) if mode == 3 else ()))
     res = trace_mod.trace_skew(
         ray(xp), ray(yp), z0.reshape(1, 1, 1, 1), torch.zeros_like(z0).reshape(1, 1, 1, 1),
         ray(cy), surface(c), surface(t), mu[:, widx].T.reshape(1, 1, n, 1, n_surf),
@@ -121,7 +135,7 @@ def trace_fused_reference(xp, yp, cy, z0, c, t, mu, penalties, allow_backward: b
         aggregate=aggregate, allow_backward_rays=allow_backward)
     outs = tuple(a.reshape(n) for a in res[:6])
     stack = lambda name: [a.reshape(n) for a in res.stacks[name]]
-    for name in ("theta_norm", "theta_prime_norm", "z_RELU") if mode else ():
+    for name in ("theta_norm", "theta_prime_norm", "z_RELU") if _lu(mode) else ():
         # Surface by surface, in the kernel's order: a tree sum of the stack
         # rounds differently by ~1e-5 on sums of order 100.
         total = torch.zeros_like(xp)
@@ -143,6 +157,13 @@ def trace_fused_reference(xp, yp, cy, z0, c, t, mu, penalties, allow_backward: b
         delta = ref_z[n_surf] - (z[n_surf - 1] + ref_z[n_surf - 1])
         pen_path = pen_path + _hinge(delta, *path_bounds[n_surf - 1])
         outs += (pen_path, pen_ang)
+    if mode == 3:
+        # Leg by leg, in the kernel's order.
+        n_ray = n_legs[:, widx]                                      # (S+1, N)
+        opl = torch.zeros_like(xp)
+        for k, leg in enumerate(stack("dist")):
+            opl = opl + leg * n_ray[k]
+        outs += (opl,)
     return outs
 
 
@@ -185,11 +206,13 @@ def _fwd_surface(c, t, mu, x, y, z, cx, cy, cz, ok):
     return post, loc
 
 
-def _bwd_surface(c, mu, pre, loc, d, dcos2_extra=None, dcos2p_extra=None):
+def _bwd_surface(c, mu, pre, loc, d, dcos2_extra=None, dcos2p_extra=None,
+                 ddist_extra=None):
     """Adjoint of ``_fwd_surface`` (``pallas_trace._bwd_surface``): ``pre`` is
     the pre-surface state, ``d`` the post-surface cotangents (dx, dy, dz, dcx,
     dcy, dcz); ``dcos2*_extra`` inject the penalty cotangents on the raw cos²
-    locals. Returns (d_pre_state, dc_ray, dt_ray, dmu_ray), per ray."""
+    locals, ``ddist_extra`` the OPL cotangent on the marching distance.
+    Returns (d_pre_state, dc_ray, dt_ray, dmu_ray), per ray."""
     x, y, z, cx, cy, cz, _ = pre
     dxD, dyD, dzD, dcxD, dcyD, dczD = d
     ok1 = loc["ok1"]
@@ -227,6 +250,8 @@ def _bwd_surface(c, mu, pre, loc, d, dcos2_extra=None, dcos2p_extra=None):
     dcx, dcy = where(ok1, dcxB), where(ok1, dcyB)
     # update_ray_coordinates adjoint
     ddist = dxA * cx + dyA * cy + dzA * cz
+    if ddist_extra is not None:
+        ddist = ddist + ddist_extra
     dx, dy, dz = dxA, dyA, dzA
     dcx = dcx + dxA * dist
     dcy = dcy + dyA * dist
@@ -290,13 +315,15 @@ def trace_fused_backward_reference(inputs, cotangents, penalties, allow_backward
     are summed over rays in float64 and returned in float32.
 
     Args:
-      inputs: (xp, yp, cy, z0, c, t, mu[, ref_z]) as for the forward.
-      cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), each
-        (N,): the cotangents of the forward's float outputs.
+      inputs: (xp, yp, cy, z0, c, t, mu[, ref_z (full) or n_legs (opl)]) as
+        for the forward.
+      cotangents: (dx, dy, dcx, dcy[, dpth, dptp, dpz[, dppath, dpang]]), or
+        in opl mode (dx, dy, dcx, dcy, dopl), each (N,): the cotangents of
+        the forward's float outputs.
       penalties, allow_backward, n_per_w, path_bounds, angle_thr: as for the
         forward.
 
-    Returns (dxp, dyp, dcy, dz0, dc, dt, dmu[, dref_z]).
+    Returns (dxp, dyp, dcy, dz0, dc, dt, dmu[, dref_z or dn_legs]).
     """
     from torchoptics_tpu_torch.ops import fused_batch
     z0 = inputs[3]
@@ -327,8 +354,10 @@ def _check_tensors(named, device, dtypes=None):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, max_surf, max_w, ref_z=None):
-    _check_tensors(dict(xp=xp, yp=yp, cy=cy, z0=z0, c=c, t=t, mu=mu, ref_z=ref_z), xp.device)
+def _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, max_surf, max_w, ref_z=None,
+                     n_legs=None):
+    _check_tensors(dict(xp=xp, yp=yp, cy=cy, z0=z0, c=c, t=t, mu=mu, ref_z=ref_z,
+                        n_legs=n_legs), xp.device)
     n = xp.shape[0]
     if xp.ndim != 1 or yp.shape != xp.shape or cy.shape != xp.shape:
         raise ValueError(f"xp, yp, cy must be equal (N,) vectors, got "
@@ -344,6 +373,9 @@ def _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, max_surf, max_w, ref_z=N
                          f"wavelengths, got {n_surf} and {mu.shape[1]}")
     if ref_z is not None and tuple(ref_z.shape) != (n_surf + 1,):
         raise ValueError(f"ref_z must be (S+1,) = ({n_surf + 1},), got {tuple(ref_z.shape)}")
+    if n_legs is not None and tuple(n_legs.shape) != (n_surf + 1, mu.shape[1]):
+        raise ValueError(f"n_legs must be (S+1, W) = ({n_surf + 1}, {mu.shape[1]}), got "
+                         f"{tuple(n_legs.shape)}")
     if not 1 <= n_per_w or n >= 2 ** 31:
         raise ValueError(f"bad ray block: N={n}, n_per_w={n_per_w}")
 
@@ -366,6 +398,55 @@ def _full_args(mode, ref_z, path_bounds, n_surf, device):
     return (ref_z, *_bound_tensors(tuple(path_bounds), device))
 
 
+def _split_extra(inputs, n_base, mode):
+    """(ref_z, n_legs) from the tensor that follows the ``n_base`` base
+    inputs: ref_z in full mode, n_legs in opl mode, else neither."""
+    extra = inputs[n_base] if len(inputs) > n_base else None
+    return (extra if mode == 2 else None), (extra if mode == 3 else None)
+
+
+#: Float outputs beyond the six trace outputs, per mode.
+N_EXTRA_OUTS = (0, 3, 5, 1)
+
+
+def n_extra_params(mode, n_surf, n_w):
+    """Parameter cotangents beyond the base ones, per system: dref_z (S+1) in
+    full mode, dn_legs ((S+1) x W) in opl mode."""
+    return {2: n_surf + 1, 3: (n_surf + 1) * n_w}.get(mode, 0)
+
+
+def _ptr(a):
+    return None if a is None else a.data_ptr()
+
+
+def _out_ptrs(outs, mode):
+    """The five penalty-output pointers and the opl-output pointer of a
+    forward launch (null where the mode has none)."""
+    extra = [_ptr(a) for a in outs[6:]]
+    if mode == 3:
+        return [None] * 5, extra[0]
+    return extra + [None] * (5 - len(extra)), None
+
+
+def _cot_ptrs(cot, mode):
+    """The ten cotangent pointers of a backward launch: dx, dy, dcx, dcy,
+    dpth, dptp, dpz, dppath, dpang, dopl (null where the mode has none)."""
+    if mode == 3:
+        cot = list(cot[:4]) + [None] * 5 + list(cot[4:])
+    return [_ptr(a) for a in cot] + [None] * (10 - len(cot))
+
+
+def _prepare_cotangents(cotangents, xp):
+    """Autograd may hand over expanded or strided cotangents: float32 and
+    contiguous, each shaped like ``xp``."""
+    cot = [a.to(torch.float32).contiguous() for a in cotangents]
+    for a in cot:
+        if a.device != xp.device or a.shape != xp.shape:
+            raise ValueError(f"cotangents must be {tuple(xp.shape)} on {xp.device}, got "
+                             f"{tuple(a.shape)} on {a.device}")
+    return cot
+
+
 def _raise_on_error(lib, err, what):
     if err != 0:
         raise RuntimeError(f"{what} launch failed: {lib.k1_error_string(err).decode()}")
@@ -377,22 +458,21 @@ def _launch_k1_fwd(inputs, penalties, allow_backward, n_per_w, path_bounds, angl
     lib = _kernels.load()
     mode = _mode(penalties)
     xp, yp, cy, z0, c, t, mu = inputs[:7]
-    ref_z = inputs[7] if mode == 2 else None
+    ref_z, n_legs = _split_extra(inputs, 7, mode)
     _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, lib.k1_max_surf(),
-                     lib.k1_max_w(), ref_z)
+                     lib.k1_max_w(), ref_z, n_legs)
     ref_z, lo, hi = _full_args(mode, ref_z, path_bounds, c.shape[0], xp.device)
     n = xp.shape[0]
     new = lambda dtype: torch.empty(n, dtype=dtype, device=xp.device)
     outs = [new(torch.float32) for _ in range(4)] + [new(torch.bool) for _ in range(2)]
-    outs += [new(torch.float32) for _ in range((0, 3, 5)[mode])]
-    ptr = lambda a: None if a is None else a.data_ptr()
-    pens = [ptr(a) for a in outs[6:]] + [None] * (5 - len(outs[6:]))
+    outs += [new(torch.float32) for _ in range(N_EXTRA_OUTS[mode])]
+    pens, opl = _out_ptrs(outs, mode)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = lib.k1_fwd_launch(
-            *map(ptr, (xp, yp, cy, z0, c, t, mu, ref_z, lo, hi)), float(angle_thr),
+            *map(_ptr, (xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, n_legs)), float(angle_thr),
             n, c.shape[0], mu.shape[1], n_per_w, mode, int(allow_backward),
-            *map(ptr, outs[:6]), *pens, stream)
+            *map(_ptr, outs[:6]), *pens, opl, stream)
     _raise_on_error(lib, err, "K1 forward kernel")
     K1_FWD_LAUNCHES += 1
     return tuple(outs)
@@ -405,31 +485,24 @@ def _launch_k1_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, path_
     lib = _kernels.load()
     mode = _mode(penalties)
     xp, yp, cy, z0, c, t, mu = inputs[:7]
-    ref_z = inputs[7] if mode == 2 else None
+    ref_z, n_legs = _split_extra(inputs, 7, mode)
     _check_k1_inputs(xp, yp, cy, z0, c, t, mu, n_per_w, lib.k1_max_surf(),
-                     lib.k1_max_w(), ref_z)
+                     lib.k1_max_w(), ref_z, n_legs)
     ref_z, lo, hi = _full_args(mode, ref_z, path_bounds, c.shape[0], xp.device)
     n, n_surf, n_w = xp.shape[0], c.shape[0], mu.shape[1]
-    # Autograd may hand over expanded or strided cotangents.
-    cot = [a.to(torch.float32).contiguous() for a in cotangents]
-    for a in cot:
-        if a.device != xp.device or a.shape != xp.shape:
-            raise ValueError(f"cotangents must be (N,) on {xp.device}, got "
-                             f"{tuple(a.shape)} on {a.device}")
-    cot += [None] * (9 - len(cot))
-    n_params = 1 + 2 * n_surf + n_surf * n_w + (n_surf + 1 if mode == 2 else 0)
+    cot = _prepare_cotangents(cotangents, xp)
+    n_params = 1 + 2 * n_surf + n_surf * n_w + n_extra_params(mode, n_surf, n_w)
     n_blocks = -(-n // lib.k1_bwd_block())
     new = lambda size: torch.empty(size, dtype=torch.float32, device=xp.device)
     dxp, dyp, dcy = new(n), new(n), new(n)
     params = new(n_params)
     partials = torch.empty(n_params * n_blocks, dtype=torch.float64, device=xp.device)
-    ptr = lambda a: None if a is None else a.data_ptr()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = lib.k1_bwd_launch(
-            *map(ptr, (xp, yp, cy, z0, c, t, mu, ref_z, lo, hi)), float(angle_thr),
-            *map(ptr, cot), n, n_surf, n_w, n_per_w, mode, int(allow_backward),
-            *map(ptr, (dxp, dyp, dcy, partials, params)), stream)
+            *map(_ptr, (xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, n_legs)), float(angle_thr),
+            *_cot_ptrs(cot, mode), n, n_surf, n_w, n_per_w, mode, int(allow_backward),
+            *map(_ptr, (dxp, dyp, dcy, partials, params)), stream)
     _raise_on_error(lib, err, "K1 backward kernel")
     K1_BWD_LAUNCHES += 1
     off = np.cumsum([1, n_surf, n_surf, n_surf * n_w])
@@ -437,22 +510,26 @@ def _launch_k1_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, path_
              params[off[1]:off[2]], params[off[2]:off[3]].reshape(n_surf, n_w))
     if mode == 2:
         grads += (params[off[3]:],)
+    if mode == 3:
+        grads += (params[off[3]:].reshape(n_surf + 1, n_w),)
     return grads
 
 
 class _K1(torch.autograd.Function):
     """Kernel K1 with its hand adjoint. The forward saves only the inputs;
     the backward recomputes the trace (``pallas_trace._fused_fwd`` /
-    ``_fused_bwd``)."""
+    ``_fused_bwd``). ``extra`` is ref_z in full mode, n_legs in opl mode."""
 
     @staticmethod
     def forward(ctx, penalties, allow_backward, n_per_w, path_bounds, angle_thr,
-                xp, yp, cy, z0, c, t, mu, ref_z):
-        inputs = (xp, yp, cy, z0, c, t, mu) + ((ref_z,) if _mode(penalties) == 2 else ())
+                xp, yp, cy, z0, c, t, mu, extra):
+        mode = _mode(penalties)
+        inputs = (xp, yp, cy, z0, c, t, mu) + ((extra,) if mode in (2, 3) else ())
         config = (penalties, allow_backward, n_per_w, path_bounds, angle_thr)
         if xp.device.type == "cpu":
+            ref_z, n_legs = _split_extra(inputs, 7, mode)
             outs = trace_fused_reference(*inputs[:7], penalties, allow_backward, n_per_w,
-                                         ref_z, path_bounds, angle_thr)
+                                         ref_z, path_bounds, angle_thr, n_legs)
         else:
             outs = _launch_k1_fwd(inputs, *config)
         ctx.mark_non_differentiable(outs[4], outs[5])
@@ -479,9 +556,9 @@ class _K1(torch.autograd.Function):
 def _apply_k1(inputs, penalties, allow_backward, n_per_w, path_bounds=(), angle_thr=0.25):
     if inputs[0].device.type not in ("cpu", "cuda"):
         raise ValueError(f"K1 runs on CUDA or CPU tensors, got {inputs[0].device}")
-    ref_z = inputs[7] if len(inputs) > 7 else None
+    extra = inputs[7] if len(inputs) > 7 else None
     return _K1.apply(penalties, bool(allow_backward), int(n_per_w), tuple(path_bounds),
-                     float(angle_thr), *inputs[:7], ref_z)
+                     float(angle_thr), *inputs[:7], extra)
 
 
 def trace_fused(xp, yp, cy, z0, c, t, mu, penalties: bool, allow_backward: bool,
@@ -493,8 +570,9 @@ def trace_fused(xp, yp, cy, z0, c, t, mu, penalties: bool, allow_backward: bool,
     On CUDA tensors it launches the CUDA kernels (float32, contiguous, one
     device; anything else raises). On CPU tensors it runs the plain versions.
     """
-    if _mode(penalties) == 2:
-        raise ValueError("the full mode needs ref_z and its bounds: use trace_fused_full")
+    if _mode(penalties) >= 2:
+        raise ValueError("the full and opl modes need their tables: use trace_fused_full "
+                         "or trace_fused_opl")
     return _apply_k1((xp, yp, cy, z0, c, t, mu), penalties, allow_backward, n_per_w)
 
 
@@ -509,6 +587,16 @@ def trace_fused_full(xp, yp, cy, z0, c, t, mu, ref_z, allow_backward: bool,
     pen_path, pen_angle), each (N,)."""
     return _apply_k1((xp, yp, cy, z0, c, t, mu, ref_z), "full", allow_backward, n_per_w,
                      path_bounds, angle_thr)
+
+
+def trace_fused_opl(xp, yp, cy, z0, c, t, mu, n_legs, allow_backward: bool, n_per_w: int):
+    """``trace_fused`` with the optical path length accumulated in the kernel
+    (``pallas_trace.trace_fused_opl``): per ray, OPL = Σ_k n_legs[k]·dist_k
+    over the surface legs and the final leg to the image plane, without a
+    per-surface stack. ``n_legs`` (S+1, W) is the differentiable index of the
+    medium of each leg, air first. Returns the 6 trace outputs plus ``opl``
+    (N,); the launch phase y_p·sin(u) is not included (the caller adds it)."""
+    return _apply_k1((xp, yp, cy, z0, c, t, mu, n_legs), "opl", allow_backward, n_per_w)
 
 
 # ---------------------------------------------------------------------------
@@ -601,6 +689,45 @@ def trace_rays_fused(specs, lens: Lens, config,
     sum over surfaces."""
     _, outs, shape = _run(specs, lens, config, generator, xy, use_vig, penalties)
     return package_fused_result(outs, shape, penalties)
+
+
+def leg_indices(lens: Lens, wavelengths) -> torch.Tensor:
+    """n_legs (B, S+1, W): the index of the medium each leg of the trace
+    travels in, air before the first surface, then each gap's index (a padded
+    gap has n = 1)."""
+    n = lens.get_refractive_indices(wavelengths)                     # (B, S, W)
+    return torch.cat((torch.ones_like(n[:, :1, :]), n), dim=1)
+
+
+def package_opl(opl_flat, ypb, cyb, shape):
+    """OPL (B, F, P, W) from the kernel's flat (B, N) sums, with the launch
+    phase of the incoming plane wave added: y_p·sin(u) at the launch point
+    (``pallas_trace.optical_paths_fused``)."""
+    B, F, P, W = shape
+    opl = opl_flat + ypb * cyb
+    return opl.reshape(B, W, F, P).permute(0, 2, 3, 1)
+
+
+def optical_paths_fused(specs, lens: Lens, config,
+                        generator: Optional[torch.Generator] = None,
+                        xy: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """``wavefront.optical_path_lengths`` on kernel K1's opl mode (one
+    spherical system, float32; ``pallas_trace.optical_paths_fused``): returns
+    (TraceResult, OPL) with OPL (1, F, P, W) in mm, launch phase included.
+    The per-surface distances never leave the kernel; the OPL is
+    differentiable through c, t and the dispersion model."""
+    if not lens.is_spherical:
+        raise ValueError("K1's opl mode is spherical; a conic/asphere system goes through "
+                         "fused_asphere.optical_paths_fused_asphere")
+    lens = _check_fused_lens(lens, config)
+    xp, yp, cyb, z0, mu, shape = prepare_fused_inputs(
+        specs, lens, config, generator=generator, xy=xy)
+    _, F, P, _ = shape
+    outs = trace_fused_opl(xp, yp, cyb, z0, lens.c[0], lens.t[0], mu,
+                           leg_indices(lens, config.wavelengths)[0],
+                           config.allow_backward_rays, F * P)
+    return (package_fused_result(outs[:6], shape, False),
+            package_opl(outs[6][None], yp[None], cyb[None], shape))
 
 
 # ---------------------------------------------------------------------------
