@@ -8,8 +8,10 @@ training through ``OpticalLoss``), the aspheric path (serving and training
 the aspherized double-Gauss on kernel K3) and the aspheric-population path
 (populations of conic/asphere designs on kernel K4) and the wavefront path
 (OPD, Zernike, Strehl, the diffraction PSF and the ``wavefront_rms``
-objective on the opl mode of K1-K4), and checks every hand-written CUDA
-kernel on them against its plain PyTorch version:
+objective on the opl mode of K1-K4) and the imaging path (rendering a
+photograph through a lens: PSFs, the SVOLA convolution on kernel P2, the
+distortion warp), runs the card's issue-rate probe P1, and checks every
+hand-written CUDA kernel on them against its plain PyTorch version:
 
 1. the card's name and power limit;
 2. the build of the CUDA kernels from the sources in this checkout, with
@@ -107,7 +109,23 @@ kernel on them against its plain PyTorch version:
     opl forward and two backward launches a step, the first step held
     against the CPU; the fwd+bwd of the masked OPL sum w.r.t. (c, t);
 28. timings: each opl kernel and its plain versions (K1, K3 at 2,457,600
-    rays; K2, K4 at 393,216).
+    rays; K2, K4 at 393,216);
+29. the imaging path (BASELINE config 5: the double-Gauss, 9 fields x 24
+    rings, 33 x 33 PSFs at 4 um, 5 x 5 patches): kernel P2 (the SVOLA patch
+    convolution) against its plain version, bit for bit, on the patches of
+    the sample photograph at 1024^2, 256^2 and 2048^2 (K = 11, 3, 23), on
+    non-square patches and on a batch of two; it raises under grad;
+30. ``imaging.simulate`` of the photograph at 1024^2 and 256^2 (geometric
+    PSFs on K1f, the separable warp): one K1 forward and one P2 launch a
+    render, the card's render held against the CPU's; a 256^2 diffraction
+    render (K1 opl) held the same way;
+31. the issue-rate probe P1: its chains against their plain versions, then
+    the FP32 FMA, sqrt and division rates (lane-operations per second) and
+    the sqrt and division weights, from which every trace kernel's entry
+    gets ``bound_ms_issue`` (its bound at the measured issue rates);
+32. timings: P2, its plain version and the torch.fft product at the 1024^2
+    shape, and the host wall of a render at 256, 512 and 1024^2, split into
+    ``sample_optics_model`` and ``apply_optics_model``.
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -119,10 +137,14 @@ before that carries the kernels' numbers.
                                       # LensOptimizer.step at 2,457,600 rays
                                       # (double-Gauss and aspherized), of a
                                       # generator step, of an aspheric
-                                      # population step and of a
+                                      # population step, of a
                                       # wavefront_rms step at 442,368 rays
+                                      # and of a 1024^2 render
+    python3 chip_smoke.py --render-walls  # instead: phase 32's render walls
+                                          # alone (no result line)
 """
 
+import collections
 import json
 import math
 import re
@@ -176,26 +198,51 @@ FWD_BYTES = {False: 30, True: 42, "full": 50}
 BWD_BYTES = {False: 40, True: 52, "full": 60}
 
 
+#: A kernel's floating-point operations per ray (``total``, each sqrt,
+#: division and acosf counted as one) and, of them, its square roots,
+#: divisions and acosf, which the issue bounds weight by P1's rates.
+OpCounts = collections.namedtuple("OpCounts", "total sqrt div acos")
+
+
+def _transcendentals(penalties, n_surf, backward, sqrt_surf, div_surf):
+    """(sqrt, division, acosf) per ray from a family's per-surface sqrt and
+    divisions: per ray, the launch's cz (1 sqrt) and the image transfer (1
+    division), the backward 2 sqrt and 5 divisions; Lu and full modes, two
+    theta_norm a surface (sqrt, acosf, a division each), backward their
+    adjoints (2 sqrt and a division each)."""
+    acos = 0
+    if penalties in (True, "full"):
+        sqrt_surf += 2 + (4 if backward else 0)
+        div_surf += 2 + (2 if backward else 0)
+        acos = 2
+    per_ray = (2, 5) if backward else (1, 1)
+    return n_surf * sqrt_surf + per_ray[0], n_surf * div_surf + per_ray[1], n_surf * acos
+
+
 def k1_ops(penalties, n_surf, n_sides, backward):
     """Floating-point operations per ray that K1 forward or backward needs,
     read off the kernels' code (see the notes in csrc/): adds, multiplies,
     min/max, and each sqrt, division and acosf counted as one; compares and
     selects not counted. ``n_sides``: the finite sides of the path bounds,
-    over all gaps (full mode)."""
+    over all gaps (full mode). Of them, per surface, from
+    trace_common.cuh: cos_theta, cos_theta' and cz (3 sqrt), the marching
+    distance (1 division), and backward the surface adjoint's 5 divisions;
+    the rest as ``_transcendentals``."""
     lu, full = penalties in (True, "full"), penalties == "full"
+    sq_dv_ac = _transcendentals(penalties, n_surf, backward, 3, 1 + (5 if backward else 0))
     if not backward:
         # 55 per surface, launch and image transfer 8; Lu: two theta_norm
         # and three sums, 14; full: angle hinges 6, path deltas and sum 4,
         # 3 per finite side.
-        return (55 * n_surf + 8 + (14 * n_surf if lu else 0)
-                + (10 * n_surf - 1 + 3 * n_sides if full else 0))
+        return OpCounts(55 * n_surf + 8 + (14 * n_surf if lu else 0)
+                        + (10 * n_surf - 1 + 3 * n_sides if full else 0), *sq_dv_ac)
     # The forward once (without its penalty sums), the surface adjoint 104
     # and the three parameter sums (dc, dt, dmu) per surface; launch, image
     # and dz0 terms 19 per ray. Lu: the relu and two theta_norm adjoints, 20;
     # full: the hinge gradients 4 per gap plus 1 per finite side, their dz
     # and dref_z terms 4, the angle hinges 4.
-    return (162 * n_surf + 19 + (20 * n_surf if lu else 0)
-            + (12 * n_surf - 2 + n_sides if full else 0))
+    return OpCounts(162 * n_surf + 19 + (20 * n_surf if lu else 0)
+                    + (12 * n_surf - 2 + n_sides if full else 0), *sq_dv_ac)
 
 
 def card_line():
@@ -614,6 +661,7 @@ def profile_steps(torch, label, step, card, n_steps=3):
                  "K2 forward" if "k2_fwd_kernel" in name else
                  "K2 backward" if "k2_bwd_kernel" in name else
                  "kernel parameter sums" if "partials_reduce" in name else
+                 "P2 (SVOLA patch convolution)" if "p2_svola_kernel" in name else
                  "Adam" if ("adam" in name.lower() or "multi_tensor" in name) else
                  "reductions" if "reduce" in name.lower() else "front-end and other")
         groups[group] = groups.get(group, 0.0) + dev_us / 1e3 / n_steps
@@ -658,6 +706,12 @@ def phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, OpticalLoss
     for name, params in (("double_gauss", ("c", "t")), ("double_gauss_asph", ("c", "asph"))):
         profile_steps(torch, f"wavefront_rms Adam step on the {name} {params} at 442368 rays",
                       wavefront_optimizer(torch, zoo, name, params, "cuda", OPL_CONFIG), card)
+    from torchoptics_tpu_torch import imaging
+    cfg = imaging_config(simulator)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    radiance = torch.tensor(photograph(1024)[None], device="cuda")
+    profile_steps(torch, "render of the sample photograph at 1024^2 (config 5, simulate)",
+                  lambda: render(torch, imaging, specs, lens, radiance, cfg), card)
 
 
 # ---------------------------------------------------------------------------
@@ -1047,7 +1101,7 @@ def k2_bound(shape, penalties, backward):
     block of 256 rays, written once and read once)."""
     n, n_surf, n_w, n_sys = shape["n_rays"], shape["n_surf"], shape["n_w"], shape["n_sys"]
     n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
-    ops = k1_ops(penalties, n_surf, n_sides, backward)
+    ops = k1_ops(penalties, n_surf, n_sides, backward).total
     full = penalties == "full"
     tables = 4 * (2 * n_surf + n_surf * n_w + 1 + (n_surf + 1 if full else 0))
     if not backward:
@@ -1061,7 +1115,7 @@ def kernel_bound(shape, penalties, backward):
     """(bound_ms, bound_by) of K1 forward or backward at the timed shape."""
     n, n_surf = shape["n_rays"], shape["n_surf"]
     n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
-    ops = k1_ops(penalties, n_surf, n_sides, backward)
+    ops = k1_ops(penalties, n_surf, n_sides, backward).total
     if not backward:
         return bound(n, ops, FWD_BYTES[penalties])
     # Plus the partials: one column of doubles per block of 256 rays,
@@ -1162,16 +1216,28 @@ def k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides=0):
     (163), the sag partials (20 at the Newton point, 10 at each of the hit
     and Snell points, and 2 K - 1 for the asphere terms of dg/dr^2 at each),
     the asphere cotangents (10 K) and one add per ray for each of the 4 + K
-    parameter sums. The launch, image and penalty terms are K1's."""
+    parameter sums. The launch, image and penalty terms are K1's.
+
+    Of them, per surface, from asphere_common.cuh: the sphere guess (1 sqrt,
+    2 divisions), each Newton step and the polish (the sag's w, its slope
+    g = c/(2w) and the sag, and the step F/F': 1 sqrt, 3 divisions), the
+    slopes at the hit and Snell points (w and g) with their normals'
+    1/sqrt, and Snell's three square roots: n_iter + 9 sqrt and
+    3 n_iter + 9 divisions; the backward adds 1 sqrt (the Newton point's
+    sag) and 28 divisions (the sag partials at three points, 7 each, and the
+    chain through Snell's law and the polish step); the rest as
+    ``_transcendentals``."""
     lu, full = penalties in (True, "full"), penalties == "full"
+    sq_dv_ac = _transcendentals(penalties, n_surf, backward, n_iter + 9 + (1 if backward else 0),
+                                3 * n_iter + 9 + (28 if backward else 0))
     k = n_asph
     surface = 125 + 12 * k + n_iter * (26 + 5 * k)
     if not backward:
-        return (surface * n_surf + 8 + (14 * n_surf if lu else 0)
-                + (10 * n_surf - 1 + 3 * n_sides if full else 0))
+        return OpCounts(surface * n_surf + 8 + (14 * n_surf if lu else 0)
+                        + (10 * n_surf - 1 + 3 * n_sides if full else 0), *sq_dv_ac)
     surface += (3 + k) + 163 + 40 + 3 * (2 * k - 1) + 10 * k + (4 + k)
-    return (surface * n_surf + 19 + (20 * n_surf if lu else 0)
-            + (12 * n_surf - 2 + n_sides if full else 0))
+    return OpCounts(surface * n_surf + 19 + (20 * n_surf if lu else 0)
+                    + (12 * n_surf - 2 + n_sides if full else 0), *sq_dv_ac)
 
 
 def asphere_inputs(torch, zoo, simulator, fused_trace, width, c_scale=1.0, name="double_gauss_asph"):
@@ -1533,7 +1599,7 @@ def k3_bound(shape, penalties, backward):
     """(bound_ms, bound_by) of K3 forward or backward at the timed shape."""
     n, n_surf, n_w, n_asph = shape["n_rays"], shape["n_surf"], shape["n_w"], shape["n_asph"]
     n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
-    ops = k3_ops(penalties, n_surf, n_asph, 10, backward, n_sides)
+    ops = k3_ops(penalties, n_surf, n_asph, 10, backward, n_sides).total
     if not backward:
         return bound(n, ops, FWD_BYTES[penalties])
     n_params = (1 + 3 * n_surf + n_surf * n_w + n_surf * n_asph
@@ -2028,7 +2094,7 @@ def k4_bound(shape, penalties, backward):
     column of doubles per block of 256 rays, written once and read once)."""
     n, n_surf, n_w, n_asph = shape["n_rays"], shape["n_surf"], shape["n_w"], shape["n_asph"]
     n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
-    ops = k3_ops(penalties, n_surf, n_asph, 10, backward, n_sides)
+    ops = k3_ops(penalties, n_surf, n_asph, 10, backward, n_sides).total
     full = penalties == "full"
     tables = 4 * (3 * n_surf + n_surf * n_w + n_surf * n_asph + 1 + (n_surf + 1 if full else 0))
     if not backward:
@@ -2648,11 +2714,11 @@ def opl_bound(kernel, shape, backward):
     n, n_surf, n_w = shape["n_rays"], shape["n_surf"], shape["n_w"]
     legs = n_surf + 1
     if kernel in ("k1", "k2"):
-        ops = k1_ops(False, n_surf, 0, backward)
+        ops = k1_ops(False, n_surf, 0, backward).total
         tables = 2 * n_surf + n_surf * n_w + 1
         n_params = 1 + 2 * n_surf + n_surf * n_w
     else:
-        ops = k3_ops(False, n_surf, shape["n_asph"], 10, backward)
+        ops = k3_ops(False, n_surf, shape["n_asph"], 10, backward).total
         tables = 3 * n_surf + n_surf * n_w + n_surf * shape["n_asph"] + 1
         n_params = 1 + 3 * n_surf + n_surf * n_w + n_surf * shape["n_asph"]
     ops += (4 if backward else 2) * legs
@@ -2694,6 +2760,343 @@ def opl_entries(ms, shapes, worst, serve, pop, train, fwd_bwd_launches, fwd_bwd_
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The imaging path: kernel P2 (the SVOLA patch convolution), rendering, and
+# the issue-rate probe P1.
+# ---------------------------------------------------------------------------
+
+P2_SOURCE = "torchoptics_tpu_torch/csrc/svola_conv.cu"
+TPU_P2 = "benchmarks/probe_svola_direct.py:60"
+P1_SOURCE = "torchoptics_tpu_torch/csrc/issue_peak.cu"
+TPU_P1 = "benchmarks/vpu_peak.py:65"
+# BASELINE config 5 (bench.py:358-361): the double-Gauss, 9 fields, 24 rings,
+# circular pupil, 33 x 33 PSFs at 4 um, a 5 x 5 patch grid; the trace on K1.
+IMAGING_CONFIG = dict(n_sampled_fields=9, n_pupil_rings=24, pupil_sampling="circular",
+                      n_ray_aiming_iter=1, psf_shape=(33, 33), psf_abs_pixel_size=4e-3,
+                      psf_grid_shape=(5, 5), trace_engine="fused")
+IMAGING_SIZES = (256, 512, 1024)
+# Card against CPU, a render of the same lens and photograph: the trace's
+# sqrt and the splat's exp round otherwise on the two (a few 1e-6 of each
+# PSF); a render is a convex blend of the image, so that stays ~1e-5 of the
+# signal: 0.05 grey levels of 255, PSNR within 2e-3 dB, SSIM within 1e-5.
+RENDER_BAR = dict(irradiance=0.05, psnr=2e-3, ssim=1e-5)
+
+
+def imaging_config(simulator, **kw):
+    return simulator.SimulatorConfig(**dict(IMAGING_CONFIG, **kw))
+
+
+def photograph(px, height=None):
+    """The shipped sample photograph at px x px (or height x px), decoded by
+    the port; it fails if the loader fell back to the synthetic chart."""
+    from torchoptics_tpu_torch.utils import images
+    size = (height or px, px)
+    img = images.load_test_image(size)
+    want = images._resize_nearest_box(images.decode_png(images.ASSET)[..., :3], size)
+    check(np.array_equal(img, want.astype(np.float32))
+          and not np.array_equal(img, images.synthetic_test_image(*size)),
+          f"test image {size}: the sample photograph (decoded from "
+          f"{images.ASSET.split('torchoptics_tpu/')[-1]}), not the synthetic chart")
+    return img
+
+
+def p2_inputs(torch, imaging, image, model, radiance, cfg):
+    """P2's inputs in a render: the patches of ``radiance`` (B, H, W, C) as
+    ``svola_convolution`` cuts them and each patch's PSF, flattened to
+    (B N, ph, pw, C) and (B N, kh, kw, C)."""
+    B, H, W, C = radiance.shape
+    psfs, overlap, _ = imaging.patch_psfs(model, (H, W), imaging.sample_field_lim(H, W), cfg)
+    kh, kw = psfs.shape[2:4]
+    patches, _, _ = image.svola_patches(radiance, overlap, (kh, kw), cfg.psf_grid_shape)
+    N = patches.shape[1]
+    psfs = torch.broadcast_to(psfs, (B,) + psfs.shape[1:]).reshape(B * N, kh, kw, C)
+    return patches.reshape((B * N,) + patches.shape[2:]).contiguous(), psfs.contiguous()
+
+
+def phase_p2_kernel(torch, zoo, simulator, imaging, image):
+    """P2 against its plain version on real data: the patches of the sample
+    photograph at 1024^2, 256^2 and 2048^2 with the double-Gauss's PSFs
+    resized as a render resizes them (K = 11, 3 and 23); a non-square image
+    (256 x 384, non-square patches); a batch of two images (the photograph
+    and its mirror). Bit-identical is the bar (the same tap order, no FMA
+    contraction). Under grad it must raise. Returns the largest deviation
+    and the 1024^2 inputs for the timing."""
+    cfg = imaging_config(simulator)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    with torch.no_grad():
+        model = imaging.sample_optics_model(specs, lens, cfg)
+    worst, timing_inputs = 0.0, None
+    cases = []
+    for px in (1024, 256, 2048):
+        rad = torch.tensor(photograph(px)[None], device="cuda")
+        cases.append((f"{px}^2 render", p2_inputs(torch, imaging, image, model, rad, cfg)))
+        if px == 1024:
+            timing_inputs = cases[-1][1]
+            both = torch.cat((rad, torch.flip(rad, dims=(2,))))
+    rect = torch.tensor(photograph(384, 256)[None], device="cuda")
+    cases.append(("256 x 384 image (non-square patches)",
+                  p2_inputs(torch, imaging, image, model, rect, cfg)))
+    cases.append(("B = 2 at 1024^2", p2_inputs(torch, imaging, image, model, both, cfg)))
+    for label, (patches, psfs) in cases:
+        with torch.no_grad():
+            got = image.svola_patch_conv(patches, psfs)
+            torch.cuda.synchronize()
+            want = image.svola_patch_conv_reference(patches, psfs)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        check(torch.equal(got, want) and bool(torch.isfinite(got).all()),
+              f"P2 vs plain, {label}: patches {tuple(patches.shape)}, PSFs "
+              f"{tuple(psfs.shape)} -> {tuple(got.shape)}: bit-identical={torch.equal(got, want)} "
+              f"(max deviation {err:.3e}, bar 0)")
+    patches, psfs = cases[-1][1]
+    try:
+        image.svola_patch_conv(patches, psfs.clone().requires_grad_(True))
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    check("no backward kernel" in raised,
+          f"P2 under grad raises NotImplementedError naming the missing adjoint: {raised[:90]}")
+    return worst, timing_inputs
+
+
+def render(torch, imaging, specs, lens, radiance, cfg):
+    with torch.no_grad():
+        return imaging.simulate(specs, lens, radiance, cfg)
+
+
+def render_gap(torch, a, b):
+    """Largest gaps of (irradiance, psnr, ssim) between two renders."""
+    return [float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(a, b)]
+
+
+def phase_imaging_serve(torch, zoo, simulator, imaging, image, fused_trace):
+    """``imaging.simulate`` of config 5 on the card under no_grad: the
+    double-Gauss, the sample photograph at 1024^2 (full width) and 256^2,
+    the geometric PSFs (K1f, plain mode), the separable warp, relative
+    illumination on. Counts set to 0 before each render and read after: one
+    K1 forward and one P2 launch a render. The card's render held against the
+    CPU's (the plain versions) within ``RENDER_BAR``; a 256^2 render with
+    ``psf_source="diffraction"`` (K1's opl mode through opd_map) held the
+    same way, plus four times the gap between the CPU's own renders on its
+    two engines (the diffraction PSFs' speckle moves with the float32 OPD
+    floor). Returns the launches of the 1024^2 render."""
+    cfg = imaging_config(simulator)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    specs_h, lens_h = zoo.build("double_gauss", device="cpu")
+    launches = None
+    for px in (1024, 256):
+        img = photograph(px)[None]
+        fused_trace.K1_FWD_LAUNCHES = image.P2_LAUNCHES = 0
+        card = render(torch, imaging, specs, lens, torch.tensor(img, device="cuda"), cfg)
+        torch.cuda.synchronize()
+        counts = (fused_trace.K1_FWD_LAUNCHES, image.P2_LAUNCHES)
+        if px == 1024:
+            launches = counts
+        host = render(torch, imaging, specs_h, lens_h, torch.tensor(img), cfg)
+        gap = render_gap(torch, card, host)
+        check(counts == (1, 1) and bool(torch.isfinite(card[0]).all())
+              and all(g <= b for g, b in zip(gap, RENDER_BAR.values())),
+              f"render of the sample photograph at {px}^2 (config 5, double-Gauss, geometric "
+              f"PSFs, separable warp): K1 forward launched {counts[0]} time(s), P2 "
+              f"{counts[1]} (one each a render); PSNR {float(card[1][0]):.4f} dB, SSIM "
+              f"{float(card[2][0]):.5f}; card vs CPU: irradiance within {gap[0]:.3e} grey "
+              f"levels (limit {RENDER_BAR['irradiance']}), PSNR within {gap[1]:.2e} dB (limit "
+              f"{RENDER_BAR['psnr']}), SSIM within {gap[2]:.2e} (limit {RENDER_BAR['ssim']})")
+    import dataclasses
+    img = photograph(256)[None]
+    dcfg = dataclasses.replace(cfg, psf_source="diffraction")
+    fused_trace.K1_FWD_LAUNCHES = image.P2_LAUNCHES = 0
+    card = render(torch, imaging, specs, lens, torch.tensor(img, device="cuda"), dcfg)
+    torch.cuda.synchronize()
+    counts = (fused_trace.K1_FWD_LAUNCHES, image.P2_LAUNCHES)
+    host = render(torch, imaging, specs_h, lens_h, torch.tensor(img), dcfg)
+    host_unroll = render(torch, imaging, specs_h, lens_h, torch.tensor(img),
+                         dataclasses.replace(dcfg, trace_engine="unroll"))
+    own = render_gap(torch, host, host_unroll)
+    bars = [b + 4 * o for b, o in zip(RENDER_BAR.values(), own)]
+    gap = render_gap(torch, card, host)
+    check(counts == (2, 1) and bool(torch.isfinite(card[0]).all())
+          and all(g <= b for g, b in zip(gap, bars)),
+          f"diffraction render at 256^2 (64^2 pupil grid, oversample 4): K1 opl forward "
+          f"launched {counts[0]} times (the bundle and the chief ray), P2 {counts[1]}; PSNR "
+          f"{float(card[1][0]):.4f} dB; card vs CPU: irradiance within {gap[0]:.3e} (limit "
+          f"{bars[0]:.3e}), PSNR within {gap[1]:.2e} (limit {bars[1]:.2e}), SSIM within "
+          f"{gap[2]:.2e} (limit {bars[2]:.2e}); the CPU's own fused-vs-unroll gap {own[0]:.3e}, "
+          f"{own[1]:.2e}, {own[2]:.2e}")
+    return launches
+
+
+def phase_p1_probe(torch, issue_peak):
+    """P1's chains against their plain versions on the probe's grid at 64
+    iterations, bit for bit (the plain fma step is fmaf rounded once), and
+    the kernel's fma chain apart from the twice-rounded a * k1 + k2 chain on
+    over 1 % of the lanes, so an unfused multiply and add fails; then the
+    rate protocol, its launches counted; then the kernel and its plain
+    version timed on the check's work. Returns the rates, the launches, the
+    deviation and the times."""
+    n = issue_peak.probe_threads()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = 0.9 + 0.2 * torch.rand(n, generator=g, device="cuda")
+    worst = 0.0
+    for op in issue_peak.OPS:
+        got = issue_peak.chains(x, op, 64)
+        want = issue_peak.chains_reference(x, op, 64)
+        rel = float(((got - want).abs() / want.abs()).max())
+        worst = max(worst, float((got - want).abs().max()))
+        check(torch.equal(got, want),
+              f"P1 {op} chains vs plain at 64 iterations on {n} threads: bit-identical="
+              f"{torch.equal(got, want)}, largest relative deviation {rel:.2e}")
+    unfused = issue_peak.chains_reference(x, "fma", 64, fused=False)
+    apart = float((issue_peak.chains(x, "fma", 64) != unfused).float().mean())
+    check(apart > 0.01, f"P1 fma chain vs the twice-rounded a * k1 + k2 chain: {apart:.2%} of "
+          f"lanes differ (an unfused kernel would differ on none; bar > 1 %)")
+    issue_peak.P1_LAUNCHES = 0
+    rates = issue_peak.measure_issue()
+    launches = issue_peak.P1_LAUNCHES
+    print(json.dumps({"p1_rates": rates}), flush=True)
+    check(launches > 0 and all(rates[f"{op}_ops_per_s"] > 0 for op in issue_peak.OPS),
+          f"P1 rates (lane-operations/s, min of 5 launches of ~150 ms): fma "
+          f"{rates['fma_ops_per_s']:.4e}, sqrt {rates['sqrt_ops_per_s']:.4e}, div "
+          f"{rates['div_ops_per_s']:.4e}; sqrt weight {rates['sqrt_weight']:.3f}, div weight "
+          f"{rates['div_weight']:.3f}; {launches} launches; card: {card_line()}")
+    ms = time_ms(torch, lambda: issue_peak.chains(x, "fma", 64))
+    plain_ms = time_ms(torch, lambda: issue_peak.chains_reference(x, "fma", 64), runs=5, batch=2)
+    return rates, launches, worst, ms, plain_ms, n
+
+
+def fft_conv(torch, patches, psfs):
+    """The library call computing P2's function as the JAX path does:
+    rfft2 of the patches and of the zero-padded PSFs, their product, the
+    inverse, rolled by -K//2 and cropped (ops/image.py:113-127). Timed
+    only; the port never calls it."""
+    P, ph, pw, C = patches.shape
+    kh, kw = psfs.shape[1:3]
+    padded = torch.nn.functional.pad(psfs, (0, 0, 0, pw - kw, 0, ph - kh))
+    f = torch.fft.rfftn(patches, s=(ph, pw), dim=(1, 2)) * torch.fft.rfftn(padded, s=(ph, pw),
+                                                                          dim=(1, 2))
+    conv = torch.fft.irfftn(f, s=(ph, pw), dim=(1, 2))
+    conv = torch.roll(conv, shifts=(-(kh // 2), -(kw // 2)), dims=(1, 2))
+    return conv[:, kh // 2: kh // 2 + ph - kh + 1, kw // 2: kw // 2 + pw - kw + 1, :]
+
+
+def p2_bound(patches, psfs):
+    """(bound_ms, bound_by, ops, bytes) of P2: kh kw multiply-adds (2
+    operations) per output element; the patches and PSFs read once, the
+    output written once."""
+    P, ph, pw, C = patches.shape
+    kh, kw = psfs.shape[1:3]
+    out = P * (ph - kh + 1) * (pw - kw + 1) * C
+    ops = 2 * out * kh * kw
+    nbytes = 4 * (patches.numel() + psfs.numel() + out)
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops,
+            nbytes)
+
+
+def phase_imaging_timing(torch, zoo, simulator, imaging, image, inputs, card):
+    """P2, its plain version and the torch.fft product at the 1024^2 shape
+    (CUDA events); then ``render_walls``."""
+    patches, psfs = inputs
+    with torch.no_grad():
+        want = image.svola_patch_conv_reference(patches, psfs)
+        lib_err = float((fft_conv(torch, patches, psfs) - want).abs().max())
+        ms = {"p2": time_ms(torch, lambda: image.svola_patch_conv(patches, psfs)),
+              "plain_p2": time_ms(torch, lambda: image.svola_patch_conv_reference(patches, psfs),
+                                  runs=5, batch=2),
+              "fft_p2": time_ms(torch, lambda: fft_conv(torch, patches, psfs))}
+    b_ms, b_by, ops, nbytes = p2_bound(patches, psfs)
+    print(f"time P2 at {tuple(patches.shape)} * {tuple(psfs.shape)}: {ms['p2']:.4f} ms (plain "
+          f"{ms['plain_p2']:.3f} ms, torch.fft product {ms['fft_p2']:.4f} ms, within "
+          f"{lib_err:.2e} of the plain version); bound {b_ms:.4f} ms by {b_by} ({ops:.3e} "
+          f"operations, {nbytes / 1e6:.1f} MB); card: {card}", flush=True)
+    return ms, (b_ms, b_by, ops), render_walls(torch, zoo, simulator, imaging, card)
+
+
+def render_walls(torch, zoo, simulator, imaging, card):
+    """The host wall of one render of config 5 at 256/512/1024^2, split into
+    sample_optics_model and apply_optics_model (median of 7 after 2 warm-up
+    renders): {px: (sample_ms, apply_ms)}."""
+    cfg = imaging_config(simulator)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    walls = {}
+    for px in IMAGING_SIZES:
+        rad = torch.tensor(photograph(px)[None], device="cuda")
+        field_lim = imaging.sample_field_lim(px, px)
+        holder = {}
+
+        def sample():
+            with torch.no_grad():
+                holder["model"] = imaging.sample_optics_model(specs, lens, cfg)
+
+        def apply():
+            with torch.no_grad():
+                imaging.apply_optics_model(holder["model"], rad, field_lim, cfg)
+        sample_ms = host_ms(torch, sample, runs=7)
+        apply_ms = host_ms(torch, apply, runs=7)
+        walls[px] = (sample_ms, apply_ms)
+        print(f"time render {px}^2: sample_optics_model {sample_ms:.2f} ms, apply_optics_model "
+              f"{apply_ms:.2f} ms, total {sample_ms + apply_ms:.2f} ms (host clock, median of "
+              f"7); card: {card}", flush=True)
+    return walls
+
+
+def imaging_entries(p2_err, p2_launches, ms, p2_b, walls, p1, rates):
+    """The P2 and P1 entries of the kernels line. P2's ``launches`` counts the
+    1024^2 render of the serving phase (its main path), its times are at that
+    render's shape; P1's ``launches`` counts the rate protocol's run, its
+    ``ms``, ``plain_ms`` and bound are for the check's work (the fma chain at
+    64 iterations on the probe's grid), and the rates stand beside them."""
+    p1_rates, p1_launches, p1_err, p1_ms, p1_plain_ms, n = p1
+    p1_ops = 2 * n * 8 * 64
+    p1_bound = max(p1_ops / PEAK_FLOPS, 8 * n / PEAK_BYTES) * 1e3
+    return [
+        {"name": "p2_svola", "route": "cuda", "source": P2_SOURCE, "replaces": TPU_P2,
+         "launches": p2_launches, "max_abs_err": p2_err, "ms": ms["p2"],
+         "plain_ms": ms["plain_p2"], "bound_ms": p2_b[0], "bound_by": p2_b[1],
+         "library_ms": ms["fft_p2"],
+         "bound_ms_issue": p2_b[2] / rates["fma_ops_per_s"] * 1e3,
+         **{f"render_{px}_sample_ms": w[0] for px, w in walls.items()},
+         **{f"render_{px}_apply_ms": w[1] for px, w in walls.items()}},
+        {"name": "p1_probe", "route": "cuda", "source": P1_SOURCE, "replaces": TPU_P1,
+         "launches": p1_launches, "max_abs_err": p1_err, "ms": p1_ms, "plain_ms": p1_plain_ms,
+         "bound_ms": p1_bound, "bound_by": "operations", "library_ms": None,
+         **{k: v for k, v in p1_rates.items() if k.endswith(("_ops_per_s", "_weight"))}},
+    ]
+
+
+def add_issue_bounds(entries, rates, shapes):
+    """Each trace kernel entry's ``bound_ms_issue``: its operations at the
+    card's measured FP32 issue rate (P1's fma rate, one instruction per add
+    or multiply: the kernels are built without FMA contraction), each sqrt,
+    division and acosf weighted by P1's measured sqrt and div weights
+    (acosf at the sqrt weight: no instruction count of it was made), for the
+    entry's main mode at its timed shape. ``shapes`` maps a family (k1-k4,
+    and 'opl_k1'..'opl_k4') to its timed shape. An entry that also carries
+    the plain or full mode's time (``ms_plain``, ``ms_full``) gets that
+    mode's bound beside it (``bound_ms_issue_plain``, ``_full``)."""
+    w_s, w_d, rate = rates["sqrt_weight"], rates["div_weight"], rates["fma_ops_per_s"]
+    for e in entries:
+        name = e["name"]
+        if not name.startswith(("k1", "k2", "k3", "k4")):
+            continue
+        family, backward, opl = name[:2], name[3:6] == "bwd", name.endswith("_opl")
+        shape = shapes[("opl_" if opl else "") + family]
+        n_surf = shape["n_surf"]
+        n_sides = sum(math.isfinite(v) for gap in shape.get("bounds", ()) for v in gap)
+        main = False if opl else ("full" if name.endswith("_full") else True)
+        for suffix, penalties in (("", main), ("_plain", False), ("_full", "full")):
+            if suffix and f"ms{suffix}" not in e:
+                continue
+            if family in ("k1", "k2"):
+                ops, sq, dv, ac = k1_ops(penalties, n_surf, n_sides, backward)
+            else:
+                ops, sq, dv, ac = k3_ops(penalties, n_surf, shape["n_asph"], 10, backward, n_sides)
+            if opl:
+                ops += (4 if backward else 2) * (n_surf + 1)
+            weighted = ops + (w_s - 1) * (sq + ac) + (w_d - 1) * dv
+            e[f"bound_ms_issue{suffix}"] = shape["n_rays"] * weighted / rate * 1e3
+
+
 def ptxas_summary(path):
     """One line per kernel from the build's -Xptxas -v report."""
     lines, name, frame = [], None, ""
@@ -2702,7 +3105,7 @@ def ptxas_summary(path):
             raw = line.split("'")[1]
             for short in ("k1_fwd_kernel", "k1_bwd_kernel", "k2_fwd_kernel", "k2_bwd_kernel",
                           "k3_fwd_kernel", "k3_bwd_kernel", "k4_fwd_kernel", "k4_bwd_kernel",
-                          "partials_reduce"):
+                          "partials_reduce", "p2_svola_kernel", "p1_chain_kernel"):
                 if short in raw:
                     # The template arguments of the mangled name: I L<type><value>E ... E.
                     args = re.match(r"I((?:L[a-z]+\d+E)+)E", raw[raw.index(short) + len(short):])
@@ -2721,8 +3124,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
         return 1
-    from torchoptics_tpu_torch import LensOptimizer, OpticalLoss, entry, simulator, zoo
-    from torchoptics_tpu_torch.ops import _kernels, fused_asphere, fused_batch, fused_trace
+    from torchoptics_tpu_torch import LensOptimizer, OpticalLoss, entry, imaging, simulator, zoo
+    from torchoptics_tpu_torch.benchmarks import issue_peak
+    from torchoptics_tpu_torch.ops import _kernels, fused_asphere, fused_batch, fused_trace, image
 
     card = card_line()
     print(f"card: {card} (nvidia-smi name, power.limit); "
@@ -2738,6 +3142,9 @@ def main():
 
     if "--profile" in sys.argv[1:]:
         phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, OpticalLoss, card)
+        return 0
+    if "--render-walls" in sys.argv[1:]:
+        print(json.dumps({"render_walls": render_walls(torch, zoo, simulator, imaging, card)}))
         return 0
 
     with torch.no_grad():
@@ -2786,6 +3193,15 @@ def main():
     entries += k4_entries(k4_ms, k4_shape, k4_err, k4_serve_launches, *k4_launches)
     entries += opl_entries(opl_ms, opl_shapes, opl_worst, opl_serve, opl_pop, opl_train,
                            fwd_bwd_launches, fwd_bwd_ms, step_ms)
+    p2_err, p2_timing_inputs = phase_p2_kernel(torch, zoo, simulator, imaging, image)
+    p2_launches = phase_imaging_serve(torch, zoo, simulator, imaging, image, fused_trace)
+    p1 = phase_p1_probe(torch, issue_peak)
+    img_ms, p2_b, walls = phase_imaging_timing(torch, zoo, simulator, imaging, image,
+                                               p2_timing_inputs, card)
+    entries += imaging_entries(p2_err, p2_launches[1], img_ms, p2_b, walls, p1, p1[0])
+    add_issue_bounds(entries, p1[0], {"k1": shape, "k2": k2_shape, "k3": k3_shape,
+                                      "k4": k4_shape,
+                                      **{f"opl_{k}": v for k, v in opl_shapes.items()}})
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

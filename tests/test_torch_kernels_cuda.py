@@ -23,7 +23,13 @@ mask, and at B = 1 to K3 bit for bit. The opl mode of each (the wavefront
 path) to the same bars: forward outputs (opl included) and per-ray
 cotangents bit for bit, parameter and dn_legs sums within one float32
 rounding, K2 and K4 at B = 1 equal to K1 and K3; the wavefront functions on
-the card against the CPU; and K4's training path at a fixed bar.
+the card against the CPU; and K4's training path at a fixed bar. P2, the
+SVOLA patch convolution, bit for bit with its plain version (the same tap
+order, no FMA contraction), and it refuses to run under grad; P1's chains:
+sqrt and div bit for bit with their plain versions, fma within one float32
+ulp a step, relative (``fmaf`` rounds once, the plain ``a * k1 + k2``
+twice); a small
+render on the card against the CPU's.
 """
 
 import math
@@ -884,3 +890,86 @@ def test_k4_training_path_at_a_fixed_bar(cuda):
         assert launched == ((1, 1) if device.type == "cuda" else (0, 0))
     for k, a, b in zip(names, grads["cuda"], grads["cpu"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), k
+
+
+# ---------------------------------------------------------------------------
+# The imaging path: kernel P2 and the issue-rate probe P1.
+# ---------------------------------------------------------------------------
+
+# (patches, patch height, width, channels, kh, kw): the 1024^2 and 256^2
+# renders' shapes, a non-square patch with K = 23 (a 2048^2 render's PSF)
+# and a non-square kernel on a batch of 2 x 4 patches.
+P2_SHAPES = [(25, 316, 316, 3, 11, 11), (25, 77, 77, 3, 3, 3), (6, 100, 72, 3, 23, 23),
+             (8, 40, 52, 3, 5, 7)]
+
+
+@pytest.mark.parametrize("shape", P2_SHAPES)
+def test_p2_matches_plain_version(cuda, shape):
+    from torchoptics_tpu_torch.ops import image
+    P, ph, pw, C, kh, kw = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    patches = torch.rand((P, ph, pw, C), generator=g, device=cuda) * 255.0
+    psfs = torch.rand((P, kh, kw, C), generator=g, device=cuda)
+    psfs = psfs / psfs.sum(dim=(1, 2), keepdim=True)
+    before = image.P2_LAUNCHES
+    with torch.no_grad():
+        got = image.svola_patch_conv(patches, psfs)
+    torch.cuda.synchronize()
+    assert image.P2_LAUNCHES == before + 1
+    assert torch.equal(got, image.svola_patch_conv_reference(patches, psfs))
+
+
+def test_p2_refuses_grad_and_bad_inputs(cuda):
+    from torchoptics_tpu_torch.ops import image
+    patches = torch.rand((4, 40, 40, 3), device=cuda)
+    psfs = torch.rand((4, 5, 5, 3), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        image.svola_patch_conv(patches, psfs)
+    with torch.no_grad():
+        image.svola_patch_conv(patches, psfs)
+        with pytest.raises(ValueError, match="up to"):
+            image.svola_patch_conv(torch.rand((1, 40, 40, 3), device=cuda),
+                                   torch.rand((1, 33, 33, 3), device=cuda))
+
+
+@pytest.mark.parametrize("op", ["fma", "sqrt", "div"])
+def test_p1_chains_match_plain_version(cuda, op):
+    from torchoptics_tpu_torch.benchmarks import issue_peak
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = 0.9 + 0.2 * torch.rand(issue_peak.probe_threads(), generator=g, device=cuda)
+    got = issue_peak.chains(x, op, 64)
+    want = issue_peak.chains_reference(x, op, 64)
+    # The plain fma step is fmaf rounded once; the twice-rounded a * k1 + k2
+    # chain differs on a few percent of the lanes, so an unfused kernel fails.
+    assert torch.equal(got, want)
+    if op == "fma":
+        unfused = issue_peak.chains_reference(x, op, 64, fused=False)
+        assert float((got != unfused).float().mean()) > 0.01
+
+
+def test_imaging_render_on_gpu_matches_cpu(cuda):
+    """A 64^2 render of the sample photograph (double-Gauss, 5 fields, 8
+    rings, 9 x 9 PSFs, 3 x 3 patches): one K1 forward and one P2 launch on
+    the card; irradiance within 0.05 grey levels of the CPU's, PSNR within
+    2e-3 dB, SSIM within 1e-5 (the trace's and the splat's float32 rounding
+    differ between the CPU and the card)."""
+    from torchoptics_tpu_torch import imaging
+    from torchoptics_tpu_torch.ops import image
+    from torchoptics_tpu_torch.utils import images
+    cfg = simulator.SimulatorConfig(n_sampled_fields=5, n_pupil_rings=8, pupil_sampling="circular",
+                                    psf_shape=(9, 9), psf_abs_pixel_size=8e-3,
+                                    psf_grid_shape=(3, 3), trace_engine="fused")
+    radiance = images.load_test_image((64, 64))[None]
+    out = {}
+    for device in ("cpu", cuda):
+        specs, lens = zoo.build("double_gauss", device=device)
+        k1, p2 = fused_trace.K1_FWD_LAUNCHES, image.P2_LAUNCHES
+        with torch.no_grad():
+            out[str(device)] = [v.cpu() for v in imaging.simulate(
+                specs, lens, torch.tensor(radiance, device=device), cfg)]
+        launched = (fused_trace.K1_FWD_LAUNCHES - k1, image.P2_LAUNCHES - p2)
+        assert launched == ((0, 0) if device == "cpu" else (1, 1))
+    (irr_c, p_c, s_c), (irr_g, p_g, s_g) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(irr_g, irr_c, rtol=0, atol=0.05)
+    torch.testing.assert_close(p_g, p_c, rtol=0, atol=2e-3)
+    torch.testing.assert_close(s_g, s_c, rtol=0, atol=1e-5)

@@ -5,7 +5,8 @@ evaluates and optimizes the same lenses with PyTorch, and its hot kernels
 (K1 and K2, the fused spherical trace of one system and of a population;
 K3 and K4, the fused conic/asphere trace of one system and of a
 population; each forward and backward, with an opl mode for the
-wavefront) are hand-written CUDA for Hopper
+wavefront; P2, the patch convolution of image formation; P1, the card's
+issue-rate probe) are hand-written CUDA for Hopper
 (``csrc/``), built with ``nvcc`` on first use. It imports neither JAX nor Triton, and builds
 nothing at import time. Its entry points put tensors on the GPU unless the
 caller asks for the CPU.
@@ -32,6 +33,18 @@ The wavefront (``ops.wavefront``: OPD, Zernike, Strehl, the diffraction
 PSFs) and its objective ``analysis.wavefront_rms`` run on the same kernels'
 opl mode with ``TraceConfig(engine="fused")``.
 
+Imaging (``imaging.simulate``: PSFs, the SVOLA patch convolution on kernel
+P2, the distortion warp) renders a sensor image of a lens; serve it under
+``torch.no_grad()``::
+
+    from torchoptics_tpu_torch.utils import images
+    cfg = SimulatorConfig(n_sampled_fields=9, n_pupil_rings=24, pupil_sampling="circular",
+                          psf_shape=(33, 33), psf_abs_pixel_size=4e-3,
+                          psf_grid_shape=(5, 5), trace_engine="fused")
+    radiance = torch.tensor(images.load_test_image((1024, 1024))[None], device="cuda")
+    with torch.no_grad():
+        irradiance, psnr, ssim = imaging.simulate(specs, lens, radiance, cfg)
+
 On a machine without a GPU, pass ``device="cpu"`` to ``zoo.build``: the
 wrappers then run the kernels' plain PyTorch versions.
 """
@@ -39,10 +52,10 @@ wrappers then run the kernels' plain PyTorch versions.
 from torchoptics_tpu_torch.models.structure import Lens, Specs, Structure  # noqa: F401
 from torchoptics_tpu_torch.models import catalog, convert, glass, zoo  # noqa: F401
 from torchoptics_tpu_torch.ops import (  # noqa: F401
-    abcd, aiming, fused_asphere, fused_batch, fused_trace, metrics, pupil, surfaces, trace,
-    wavefront)
+    abcd, aiming, fused_asphere, fused_batch, fused_trace, image, metrics, psf, pupil, surfaces,
+    trace, wavefront)
 from torchoptics_tpu_torch.ops.trace import TraceConfig, TraceResult, trace_rays  # noqa: F401
-from torchoptics_tpu_torch import analysis, loss, optimize, simulator  # noqa: F401
+from torchoptics_tpu_torch import analysis, imaging, loss, optimize, simulator  # noqa: F401
 from torchoptics_tpu_torch.loss import OpticalLoss  # noqa: F401
 from torchoptics_tpu_torch.optimize import LensOptimizer  # noqa: F401
 from torchoptics_tpu_torch.simulator import SimulatorConfig  # noqa: F401

@@ -124,7 +124,12 @@ def load() -> ctypes.CDLL:
         fwd.restype = bwd.restype = i
     lib.k1_error_string.argtypes = [i]
     lib.k1_error_string.restype = ctypes.c_char_p
-    for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block", "k3_max_asph"):
+    # P2: patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, the stream.
+    lib.p2_svola_launch.argtypes = [p] * 3 + [i] * 6 + [p]
+    # P1: x, scale, k1, k2, iters, n, op, out, the stream.
+    lib.p1_chain_launch.argtypes = [p, p, f, f, i, i, i, p, p]
+    lib.p2_svola_launch.restype = lib.p1_chain_launch.restype = i
+    for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block", "k3_max_asph", "p2_max_k"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     return lib

@@ -140,3 +140,15 @@ def compute_last_curvature(structure: Structure, c: torch.Tensor, t: torch.Tenso
     last_n = n2d[index]  # index *before* the last interface
     last_c = -(1.0 + last_n * abcd[:, 1, 0]) / (abcd[:, 0, 0] * (last_n - 1.0))
     return mask_gather(mask, c2d.index_put(index, last_c))
+
+
+def get_paraxial_heights_at_image_plane(specs, lens: Lens, relative_fields) -> torch.Tensor:
+    """Paraxial chief-ray heights at the image plane, (B, F): tan(field
+    angle) times B' = B - A · (entrance-pupil position) of the system ABCD."""
+    rel = torch.as_tensor(np.asarray(relative_fields), dtype=lens.dtype, device=lens.device)
+    angles = rel[None, :] * specs.hfov[:, None]
+    pupil_position = compute_pupil_position(lens)
+    abcd = reduce_abcd(interface_propagation_abcd(lens.c, lens.t, _with_air(lens.nd)))
+    a, b = abcd[:, 0, 0], abcd[:, 0, 1]
+    b_prime = b - a * pupil_position
+    return torch.tan(angles) * b_prime[:, None]

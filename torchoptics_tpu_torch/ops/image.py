@@ -1,0 +1,622 @@
+"""Image formation: spatially-varying convolution, warping, image quality.
+
+PyTorch counterpart of ``torchoptics_tpu.ops.image``:
+
+* :func:`svola_convolution`: Spatially-Varying OverLap-Add convolution.
+  Overlapping patches of the symmetric-padded image, each convolved with its
+  local PSF by kernel P2 (:func:`svola_patch_conv`, ``csrc/svola_conv.cu``:
+  the direct kh x kw tap sum of the valid convolution, which the JAX package
+  computes by FFT), then a windowed recomposition.
+* :func:`interpolate_bicubic`: the Keys bicubic (alpha = -0.75) gather
+  resampler, and the distortion warps built on the same weights
+  (:func:`warp_bicubic_shifts`, :func:`warp_bicubic_separable`, the default).
+  The JAX package writes the two shift warps as tap sums over a static band
+  of 2M + 5 shifted slices, because gathers are slow on a TPU; here each is
+  a 4-neighbour gather with the same coordinate and band clamps and the
+  same Keys weights, summed in the order of the tap sums' nonzero terms.
+* PSF grid interpolation, rotation and resizing, and the distortion and
+  relative-illumination maps.
+* :func:`psnr` and :func:`ssim` (SSIM's Gaussian filter as separable slice
+  sums, so no convolution reaches cuDNN and its TF32 default).
+
+Static geometry (the field map, the per-patch PSF weights, the overlap-add
+weights, the rotation angles and the resize weights) is numpy. Nothing here
+runs a matrix product or a convolution library call, so
+``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.allow_tf32``
+do not reach it.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+#: Launches of kernel P2 in this process. The wrapper adds one per launch;
+#: reset it to 0 to count the launches of one run.
+P2_LAUNCHES = 0
+
+
+def _window(kind: str, n: int) -> np.ndarray:
+    xs = np.linspace(0, 1, n + 2)[1:-1]
+    if kind == "boxcar":
+        return np.ones(n, dtype=np.float32)
+    if kind == "hann":
+        return (np.sin(np.pi * xs) ** 2).astype(np.float32)
+    raise ValueError(f"window_type must be 'boxcar' or 'hann', got {kind!r}")
+
+
+def pad_symmetric(img: torch.Tensor, pad_h: Tuple[int, int],
+                  pad_w: Tuple[int, int]) -> torch.Tensor:
+    """numpy's ``mode="symmetric"`` padding (the edge sample mirrored too,
+    which ``F.pad``'s ``reflect`` drops) of the H and W axes of a (B, H, W,
+    C) tensor, by index gathers that keep the channels-last layout."""
+    def index(n, before, after):
+        m = np.mod(np.arange(-before, n + after), 2 * n)
+        return torch.as_tensor(np.where(m >= n, 2 * n - 1 - m, m), device=img.device)
+    _, h, w, _ = img.shape
+    return img.index_select(1, index(h, *pad_h)).index_select(2, index(w, *pad_w))
+
+
+# ---------------------------------------------------------------------------
+# Kernel P2: the patch convolution.
+# ---------------------------------------------------------------------------
+
+
+def svola_patch_conv_reference(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel P2: the valid convolution of each patch with
+    its PSF, (P, ph, pw, C) and (P, kh, kw, C) -> (P, ph - kh + 1,
+    pw - kw + 1, C), out[i, j] = sum_{a, b} psf[kh-1-a, kw-1-b] ·
+    patch[i+a, j+b], as kh·kw shifted-slice multiply-adds, a outer, b inner,
+    in the order the kernel accumulates."""
+    P, ph, pw, C = patches.shape
+    kh, kw = psfs.shape[1:3]
+    hp, wp = ph - kh + 1, pw - kw + 1
+    taps = torch.flip(psfs, dims=(1, 2))
+    acc = torch.zeros((P, hp, wp, C), dtype=patches.dtype, device=patches.device)
+    for a in range(kh):
+        for b in range(kw):
+            acc = acc + taps[:, a:a + 1, b:b + 1, :] * patches[:, a:a + hp, b:b + wp, :]
+    return acc
+
+
+def _launch_p2(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
+    global P2_LAUNCHES
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    for name, a in (("patches", patches), ("psfs", psfs)):
+        if a.dtype != torch.float32 or a.device != patches.device:
+            raise ValueError(f"P2 takes float32 {name} on one device, got {a.dtype} on "
+                             f"{a.device}")
+    P, ph, pw, C = patches.shape
+    kh, kw = psfs.shape[1:3]
+    if psfs.shape != (P, kh, kw, C):
+        raise ValueError(f"psfs {tuple(psfs.shape)} must be (P, kh, kw, C) with (P, C) = "
+                         f"{(P, C)} of patches {tuple(patches.shape)}")
+    max_k = lib.p2_max_k()
+    if kh > max_k or kw > max_k or ph < kh or pw < kw or P * C > 65535:
+        raise ValueError(f"P2 takes kernels up to {max_k} x {max_k}, no larger than the "
+                         f"patch, and at most 65535 patch-channels; got psfs "
+                         f"{tuple(psfs.shape)}, patches {tuple(patches.shape)}")
+    out = torch.empty((P, ph - kh + 1, pw - kw + 1, C), dtype=torch.float32,
+                      device=patches.device)
+    with torch.cuda.device(patches.device):
+        stream = torch.cuda.current_stream(patches.device).cuda_stream
+        err = lib.p2_svola_launch(patches.data_ptr(), psfs.data_ptr(), out.data_ptr(), P, C,
+                                  ph, pw, kh, kw, stream)
+    if err != 0:
+        raise RuntimeError(f"P2 (SVOLA patch convolution) launch failed: "
+                           f"{lib.k1_error_string(err).decode()}")
+    P2_LAUNCHES += 1
+    return out
+
+
+def svola_patch_conv(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
+    """Kernel P2 (``csrc/svola_conv.cu``) on a CUDA tensor, its plain version
+    :func:`svola_patch_conv_reference` on a CPU tensor. The kernel has no
+    backward yet: on a CUDA tensor with grad mode on and an input that
+    requires grad it raises, naming the missing adjoint."""
+    if patches.device.type == "cpu":
+        return svola_patch_conv_reference(patches, psfs)
+    if patches.device.type != "cuda":
+        raise ValueError(f"P2 runs on CUDA or CPU tensors, got {patches.device}")
+    if torch.is_grad_enabled() and (patches.requires_grad or psfs.requires_grad):
+        raise NotImplementedError(
+            "kernel P2 (the SVOLA patch convolution) has no backward kernel yet: its adjoint "
+            "(d/dpsf, a kh x kw reduction per patch; d/dimage, the transposed convolution) "
+            "is still to be ported; render under torch.no_grad()")
+    return _launch_p2(patches.contiguous(), psfs.contiguous())
+
+
+def svola_patches(image: torch.Tensor, overlap_size, kernel_hw: Tuple[int, int],
+                  psfs_grid_shape: Tuple[int, int]):
+    """SVOLA's patch extraction: the image padded symmetrically by the
+    overlap plus half the kernel, cut into the static grid of overlapping
+    patches. Returns (patches (B, N, ph, pw, C), corners, patch_size)."""
+    if isinstance(overlap_size, int):
+        overlap_size = (overlap_size, overlap_size)
+    _, im_h_orig, im_w_orig, _ = image.shape
+    kh, kw = kernel_hw
+    gh, gw = psfs_grid_shape
+    im_h = im_h_orig + 2 * overlap_size[0]
+    im_w = im_w_orig + 2 * overlap_size[1]
+    pad_h, pad_w = kh // 2, kw // 2
+    tp_h = overlap_size[0] + pad_h
+    tp_w = overlap_size[1] + pad_w
+    image = pad_symmetric(image, (tp_h, tp_h), (tp_w, tp_w))
+    patch_size = (im_h_orig // gh + overlap_size[0] * 2,
+                  im_w_orig // gw + overlap_size[1] * 2)
+    rows_0 = np.round(np.linspace(0, 1, gh) * (im_h - patch_size[0])).astype(int)
+    cols_0 = np.round(np.linspace(0, 1, gw) * (im_w - patch_size[1])).astype(int)
+    corners = [(r0, r0 + patch_size[0], c0, c0 + patch_size[1])
+               for r0 in rows_0 for c0 in cols_0]
+    patches = torch.stack([image[:, r0:r1 + 2 * pad_h, c0:c1 + 2 * pad_w, :]
+                           for (r0, r1, c0, c1) in corners], dim=1)
+    return patches, corners, patch_size
+
+
+@functools.lru_cache(maxsize=16)
+def _overlap_weights(padded_hw: Tuple[int, int], corners, window_type: str,
+                     device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """SVOLA's overlap-add weights, one (ph, pw, 1) tensor per patch: the
+    window over the patch divided by the sum of every patch's window at
+    each pixel. They depend on the geometry alone, so each geometry's are
+    made once and kept on its device."""
+    r0, r1, c0, c1 = corners[0]
+    window = _window(window_type, r1 - r0)[:, None] * _window(window_type, c1 - c0)[None, :]
+    total = np.zeros(padded_hw, dtype=np.float32)
+    for r0, r1, c0, c1 in corners:
+        total[r0:r1, c0:c1] += window
+    return tuple(torch.as_tensor((window / total[r0:r1, c0:c1])[..., None], device=device)
+                 for r0, r1, c0, c1 in corners)
+
+
+def svola_convolution(image: torch.Tensor, overlap_size, psfs: torch.Tensor,
+                      psfs_grid_shape: Tuple[int, int], window_type: str = "boxcar",
+                      fft_fast_sizes: bool = False) -> torch.Tensor:
+    """Spatially-Varying OverLap-Add convolution.
+
+    Args:
+      image: (B, H, W, C).
+      overlap_size: int or (oh, ow) half-overlap between patches.
+      psfs: (B, N, kh, kw, C) with N == grid_h * grid_w local kernels (odd
+        kh, kw).
+      psfs_grid_shape: (grid_h, grid_w).
+      window_type: recomposition window, 'boxcar' or 'hann'.
+      fft_fast_sizes: accepted for the JAX package's signature and ignored:
+        it picks TPU-friendly FFT lengths, and no FFT runs here.
+
+    Returns:
+      (B, H, W, C) convolved image. Every patch-channel of the batch goes
+      through one launch of kernel P2 on the card.
+    """
+    del fft_fast_sizes
+    if isinstance(overlap_size, int):
+        overlap_size = (overlap_size, overlap_size)
+    n_img, im_h_orig, im_w_orig, n_channels = image.shape
+    n_patches, kh, kw = psfs.shape[1:4]
+    assert kh % 2 == 1 and kw % 2 == 1, "PSF kernels must be odd-sized"
+    gh, gw = psfs_grid_shape
+    assert n_patches == gh * gw
+    im_h = im_h_orig + 2 * overlap_size[0]
+    im_w = im_w_orig + 2 * overlap_size[1]
+
+    patches, corners, patch_size = svola_patches(image, overlap_size, (kh, kw),
+                                                 psfs_grid_shape)
+    ph, pw = patches.shape[2:4]
+    conv = svola_patch_conv(patches.reshape(n_img * n_patches, ph, pw, n_channels),
+                            psfs.reshape(n_img * n_patches, kh, kw, n_channels))
+    conv = conv.reshape(n_img, n_patches, patch_size[0], patch_size[1], n_channels)
+
+    # Windowed recomposition with normalized weights.
+    weights = _overlap_weights((im_h, im_w), tuple(corners), window_type, conv.device)
+    out = torch.zeros((n_img, im_h, im_w, n_channels), dtype=conv.dtype, device=conv.device)
+    for i, (r0, r1, c0, c1) in enumerate(corners):
+        out[:, r0:r1, c0:c1, :] += conv[:, i] * weights[i]
+    return out[:, overlap_size[0]: overlap_size[0] + im_h_orig,
+               overlap_size[1]: overlap_size[1] + im_w_orig]
+
+
+# ---------------------------------------------------------------------------
+# Keys bicubic resampling and the distortion warps.
+# ---------------------------------------------------------------------------
+
+# Keys bicubic (alpha = -0.75) coefficients: row k dotted with (1, t, t², t³)
+# is the weight of neighbour k in the order [v0, v0-1, v0+1, v0+2].
+_KEYS_ALPHA = -0.75
+_KEYS_COEFFS = np.asarray([
+    [1, 0, -(_KEYS_ALPHA + 3), (_KEYS_ALPHA + 2)],
+    [0, _KEYS_ALPHA, -2 * _KEYS_ALPHA, _KEYS_ALPHA],
+    [0, -_KEYS_ALPHA, 2 * _KEYS_ALPHA + 3, -_KEYS_ALPHA - 2],
+    [0, 0, _KEYS_ALPHA, -_KEYS_ALPHA]], dtype=np.float64)
+# Neighbour offsets of the Keys rows, and the rows in increasing offset (the
+# order in which the JAX package's tap sums meet their nonzero terms).
+_KEYS_OFFSETS = (0, -1, 1, 2)
+_ROWS_BY_OFFSET = (1, 0, 2, 3)
+
+
+def _keys_weights(v: torch.Tensor, v0: torch.Tensor):
+    """Keys weights [w(0), w(-1), w(+1), w(+2)] at fraction t = v - v0."""
+    tv = v - v0
+    powers = (torch.ones_like(tv), tv, tv * tv, tv * tv * tv)
+    return [sum(float(_KEYS_COEFFS[i, j]) * powers[j] for j in range(4)) for i in range(4)]
+
+
+def interpolate_bicubic(im: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                        out_size: Tuple[int, int]) -> torch.Tensor:
+    """Keys bicubic (alpha = -0.75) gather resampler.
+
+    Args:
+      im: (B, H, W, C); x, y: flat sample coordinates in [-1, 1] of length
+        B * out_h * out_w (image-major).
+
+    Returns (B, out_h, out_w, C): the 16 neighbours at clamped indices,
+    summed in the JAX package's order (rows [v0, v0-1, v0+1, v0+2], inner
+    sum over x first).
+    """
+    batch, height, width, channels = im.shape
+    out_h, out_w = out_size
+    x = torch.clamp(torch.as_tensor(x, dtype=im.dtype, device=im.device), -1, 1)
+    y = torch.clamp(torch.as_tensor(y, dtype=im.dtype, device=im.device), -1, 1)
+    x = (x + 1.0) / 2.0 * (width - 1.0)
+    y = (y + 1.0) / 2.0 * (height - 1.0)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    wx = _keys_weights(x, x0)
+    wy = _keys_weights(y, y0)
+
+    npix = x.shape[0]
+    b_idx = torch.arange(batch, device=im.device).repeat_interleave(out_h * out_w)
+    xi, yi = x0.long(), y0.long()
+    flat = im.reshape(batch * height * width, channels)
+    base = b_idx * (height * width)
+
+    def tap(oy, ox):
+        r = torch.clamp(yi + oy, 0, height - 1)
+        c = torch.clamp(xi + ox, 0, width - 1)
+        return flat[base + r * width + c]                 # (npix, C)
+
+    out = torch.zeros((npix, channels), dtype=im.dtype, device=im.device)
+    for i, oy in enumerate(_KEYS_OFFSETS):
+        x_interp = torch.zeros((npix, channels), dtype=im.dtype, device=im.device)
+        for j, ox in enumerate(_KEYS_OFFSETS):
+            x_interp = x_interp + wx[j][:, None] * tap(oy, ox)
+        out = out + wy[i][:, None] * x_interp
+    return out.reshape(batch, out_h, out_w, channels)
+
+
+def apply_distortion_by_warping(img: torch.Tensor, dist_x: torch.Tensor,
+                                dist_y: torch.Tensor) -> torch.Tensor:
+    """Warp an image through distorted sampling coordinates.
+
+    img: (B, H, W, C); dist_x / dist_y: (H*W,) coordinates in [-1, 1].
+    """
+    b, h, w, c = img.shape
+    # The batch merged into the channels, so one gather serves it all.
+    merged = img.permute(1, 2, 0, 3).reshape(1, h, w, b * c)
+    warped = interpolate_bicubic(merged, dist_x, dist_y, (h, w))
+    return warped.reshape(h, w, b, c).permute(2, 0, 1, 3)
+
+
+def warp_bicubic_shifts(img: torch.Tensor, sx_px: torch.Tensor, sy_px: torch.Tensor,
+                        max_shift_px: int) -> torch.Tensor:
+    """Keys-bicubic warp for per-pixel shift maps with a static bound.
+
+    The source of output pixel (i, j) is (i - sy, j - sx), shifts clamped to
+    ±``max_shift_px``, coordinates to the image; its 4 x 4 neighbours at
+    clamped indices are gathered and summed rows outer in increasing offset,
+    columns inner, the order in which the JAX package's dense tap sum over
+    the band [-M-2, M+2]² meets its nonzero taps.
+
+    Args:
+      img: (B, H, W, C); sx_px / sy_px: (H, W) shifts in pixels (positive =
+        sample from the smaller coordinate: content moves +x / +y).
+      max_shift_px: the clamp M.
+    """
+    B, H, W, C = img.shape
+    M = int(max_shift_px)
+    dtype, device = img.dtype, img.device
+    jj = torch.arange(W, dtype=dtype, device=device)[None, :]
+    ii = torch.arange(H, dtype=dtype, device=device)[:, None]
+    xs = torch.clamp(jj - torch.clamp(sx_px.to(dtype), -M, M), 0, W - 1)
+    ys = torch.clamp(ii - torch.clamp(sy_px.to(dtype), -M, M), 0, H - 1)
+    x0 = torch.floor(xs)
+    y0 = torch.floor(ys)
+    wxk = _keys_weights(xs, x0)
+    wyk = _keys_weights(ys, y0)
+    xi, yi = x0.long(), y0.long()
+    flat = img.reshape(B, H * W, C)
+
+    def tap(oy, ox):
+        idx = (torch.clamp(yi + oy, 0, H - 1) * W + torch.clamp(xi + ox, 0, W - 1))
+        return torch.gather(flat, 1, idx.reshape(1, H * W, 1).expand(B, H * W, C))
+
+    out = torch.zeros_like(flat)
+    for ry in _ROWS_BY_OFFSET:
+        row_acc = torch.zeros_like(flat)
+        for rx in _ROWS_BY_OFFSET:
+            row_acc = row_acc + wxk[rx].reshape(1, H * W, 1) * tap(_KEYS_OFFSETS[ry],
+                                                                   _KEYS_OFFSETS[rx])
+        out = out + wyk[ry].reshape(1, H * W, 1) * row_acc
+    return out.reshape(B, H, W, C)
+
+
+def _tap1d(img: torch.Tensor, coord: torch.Tensor, axis: int,
+           max_shift_px: int) -> torch.Tensor:
+    """1-D Keys-bicubic resample of (B, H, W, C) along H (axis=1) or W
+    (axis=2) at per-pixel source ``coord`` (H, W): the coordinate clamped to
+    the image and to ±``max_shift_px`` of the pixel, its 4 neighbours at
+    clamped indices gathered and summed in increasing offset."""
+    B, H, W, C = img.shape
+    N = H if axis == 1 else W
+    M = int(max_shift_px)
+    dtype, device = img.dtype, img.device
+    base = (torch.arange(H, dtype=dtype, device=device)[:, None] if axis == 1
+            else torch.arange(W, dtype=dtype, device=device)[None, :])
+    v = torch.clamp(coord.to(dtype), 0, N - 1)
+    v = torch.minimum(torch.maximum(v, base - M), base + M)
+    v0 = torch.floor(v)
+    wk = _keys_weights(v, v0)
+    vi = torch.broadcast_to(v0, (H, W)).long()
+    out = torch.zeros_like(img)
+    for r in _ROWS_BY_OFFSET:
+        idx = torch.clamp(vi + _KEYS_OFFSETS[r], 0, N - 1)
+        sl = torch.gather(img, axis, idx[None, :, :, None].expand(B, H, W, C))
+        out = out + torch.broadcast_to(wk[r], (H, W))[None, :, :, None] * sl
+    return out
+
+
+def warp_bicubic_separable(img: torch.Tensor, sx_fn, sy_fn, max_shift_px: int,
+                           n_solve_iters: int = 4) -> torch.Tensor:
+    """Two-pass (Catmull-Smith) bicubic warp for smooth per-pixel shift
+    fields: an x pass at each intermediate row's preimage (found by
+    ``n_solve_iters`` fixed-point steps of p = i' + sy(p, j)), then a y pass.
+
+    Args:
+      img: (B, H, W, C).
+      sx_fn / sy_fn: callables (ii, jj) -> shift in pixels at float pixel
+        coordinates (broadcastable (H, W) tensors); the source of output pixel
+        (i, j) is (i - sy(i, j), j - sx(i, j)), as in
+        :func:`warp_bicubic_shifts`.
+      max_shift_px: per-axis bound M (coordinates clamp into it).
+    """
+    B, H, W, C = img.shape
+    dtype, device = img.dtype, img.device
+    ii = torch.arange(H, dtype=dtype, device=device)[:, None]
+    jj = torch.arange(W, dtype=dtype, device=device)[None, :]
+    p = ii
+    for _ in range(n_solve_iters):
+        p = ii + sy_fn(p, jj)
+    xs2 = jj - sx_fn(p, jj)
+    tmp = _tap1d(img, xs2, axis=2, max_shift_px=max_shift_px)
+    ysrc = ii - sy_fn(ii, jj)
+    return _tap1d(tmp, ysrc, axis=1, max_shift_px=max_shift_px)
+
+
+# ---------------------------------------------------------------------------
+# Image quality.
+# ---------------------------------------------------------------------------
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor, max_val: float = 255.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio over (H, W, C), per batch element."""
+    mse = torch.mean((a - b) ** 2, dim=(-3, -2, -1))
+    return 10.0 * torch.log10(max_val ** 2 / torch.clamp(mse, min=1e-20))
+
+
+def _ssim_window(filter_size: int, filter_sigma: float) -> np.ndarray:
+    """Normalized Gaussian SSIM window (the ``tf.image.ssim`` default:
+    11 x 11, sigma = 1.5)."""
+    offsets = np.arange(filter_size, dtype=np.float64) - (filter_size - 1) / 2
+    g = np.exp(-0.5 * (offsets / filter_sigma) ** 2)
+    w2d = g[:, None] * g[None, :]
+    return (w2d / w2d.sum()).astype(np.float32)
+
+
+def _ssim_filter(x: torch.Tensor, window: np.ndarray) -> torch.Tensor:
+    """Per-channel VALID Gaussian filter over (B, H, W, C), as two 1-D
+    static-slice weighted sums (the window is an outer product; its row sums
+    are the normalized 1-D factor)."""
+    k = window.shape[0]
+    g1 = window.sum(axis=1)
+    h = x.shape[1] - k + 1
+    w_out = x.shape[2] - k + 1
+    acc = None
+    for i in range(k):
+        term = float(g1[i]) * x[:, i:i + h, :, :]
+        acc = term if acc is None else acc + term
+    out = None
+    for j in range(k):
+        term = float(g1[j]) * acc[:, :, j:j + w_out, :]
+        out = term if out is None else out + term
+    return out
+
+
+def ssim(a: torch.Tensor, b: torch.Tensor, max_val: float = 255.0, filter_size: int = 11,
+         filter_sigma: float = 1.5, k1: float = 0.01, k2: float = 0.03) -> torch.Tensor:
+    """Mean structural similarity per batch element, as ``tf.image.ssim``:
+    Gaussian 11 x 11 window with sigma = 1.5, VALID padding, per-channel
+    filtering, mean over space and channels."""
+    window = _ssim_window(filter_size, filter_sigma)
+    c1 = (k1 * max_val) ** 2
+    c2 = (k2 * max_val) ** 2
+    mu_a = _ssim_filter(a, window)
+    mu_b = _ssim_filter(b, window)
+    var_a = _ssim_filter(a * a, window) - mu_a ** 2
+    var_b = _ssim_filter(b * b, window) - mu_b ** 2
+    cov = _ssim_filter(a * b, window) - mu_a * mu_b
+    s = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)
+         / ((mu_a ** 2 + mu_b ** 2 + c1) * (var_a + var_b + c2)))
+    return torch.mean(s, dim=(-3, -2, -1))
+
+
+# ---------------------------------------------------------------------------
+# PSF grids, distortion and relative illumination.
+# ---------------------------------------------------------------------------
+
+
+def ensure_finite(tensor: torch.Tensor, replace_val: float = 0.0) -> torch.Tensor:
+    """NaN / Inf -> replace_val."""
+    return torch.where(torch.isfinite(tensor), tensor, replace_val)
+
+
+def linear_interpolation(soft_indices: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation of ``values`` along axis 0 at fractional indices
+    (clamped to the table). For a 1-D table of at most 64 entries (the
+    per-field samples) it is the hat-function sum
+    Σ_k values[k]·max(0, 1 - |soft - k|), as the JAX package writes it;
+    otherwise a two-point gather."""
+    K = values.shape[0]
+    soft = torch.clamp(soft_indices, 0, K - 1)
+    if values.ndim == 1 and K <= 64:
+        out = torch.zeros(soft.shape, dtype=values.dtype, device=soft.device)
+        for k in range(K):
+            out = out + values[k] * torch.clamp(1.0 - torch.abs(soft - k), min=0.0)
+        return out
+    upper = torch.ceil(soft).long()
+    lower = torch.floor(soft).long()
+    frac = torch.remainder(soft, 1)
+    return values[lower] * (1 - frac) + values[upper] * frac
+
+
+def get_psf_weights(grid_h: int, grid_w: int, field_map: np.ndarray,
+                    n_fields: int) -> np.ndarray:
+    """Per-patch PSF interpolation weights, (n_patches, n_fields): the
+    fraction of each patch's pixels nearest to each sampled field. Static
+    geometry, computed in numpy from the (H, W) normalized-radius map."""
+    field_map = np.asarray(field_map)
+    img_h, img_w = field_map.shape
+    ph = int(round(img_h / grid_h))
+    pw = int(round(img_w / grid_w))
+    rows_0 = np.round(np.linspace(0, 1, grid_h) * (img_h - ph)).astype(int)
+    cols_0 = np.round(np.linspace(0, 1, grid_w) * (img_w - pw)).astype(int)
+    discrete = np.round(field_map * (n_fields - 1)).astype(np.int32)
+    patches = np.stack([discrete[r0:r0 + ph, c0:c0 + pw] for r0 in rows_0 for c0 in cols_0])
+    fields = np.arange(n_fields)
+    return np.mean((patches[..., None] == fields).astype(np.float32), axis=(1, 2))
+
+
+def interpolate_psfs(sampled_psfs: torch.Tensor, field_map: np.ndarray,
+                     psf_grid_shape: Tuple[int, int]) -> torch.Tensor:
+    """Blend per-field PSFs (F, ph, pw, C) into per-patch PSFs (N, ph, pw, C)."""
+    gh, gw = psf_grid_shape
+    w = torch.as_tensor(get_psf_weights(gh, gw, field_map, sampled_psfs.shape[0]),
+                        dtype=sampled_psfs.dtype, device=sampled_psfs.device)
+    return torch.sum(w[..., None, None, None] * sampled_psfs, dim=1)
+
+
+def rotate_image_bilinear(img: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Rotate (N, H, W, C) images about their centres by ``angle`` (radians,
+    one per image), bilinear sampling, zero fill."""
+    n, h, w, c = img.shape
+    dtype, device = img.dtype, img.device
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=dtype, device=device),
+                            torch.arange(w, dtype=dtype, device=device), indexing="ij")
+    cy, cxx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = yy - cy
+    xx = xx - cxx
+    cos = torch.cos(angle)[:, None, None]
+    sin = torch.sin(angle)[:, None, None]
+    src_x = cos * xx[None] - sin * yy[None] + cxx
+    src_y = sin * xx[None] + cos * yy[None] + cy
+    x0 = torch.floor(src_x)
+    y0 = torch.floor(src_y)
+    fx = src_x - x0
+    fy = src_y - y0
+    flat = img.reshape(n, h * w, c)
+
+    def gather(yi, xi):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        yi = torch.clamp(yi, 0, h - 1).long()
+        xi = torch.clamp(xi, 0, w - 1).long()
+        idx = (yi * w + xi).reshape(n, -1, 1).expand(n, h * w, c)
+        vals = torch.gather(flat, 1, idx).reshape(n, h, w, c)
+        return vals * valid[..., None]
+
+    return (gather(y0, x0) * ((1 - fy) * (1 - fx))[..., None]
+            + gather(y0, x0 + 1) * ((1 - fy) * fx)[..., None]
+            + gather(y0 + 1, x0) * (fy * (1 - fx))[..., None]
+            + gather(y0 + 1, x0 + 1) * (fy * fx)[..., None])
+
+
+def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, out_size) float32 weights of ``jax.image.resize(...,
+    method="linear")`` along one axis: a triangle kernel on half-pixel
+    centres, widened by 1/scale when downscaling (antialiased), each column
+    normalized to unit sum, samples outside the input zeroed
+    (``jax._src.image.scale.compute_weight_mat``)."""
+    f32 = np.float32
+    scale = f32(out_size / in_size)
+    inv_scale = f32(1.0) / scale
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = np.sum(weights, axis=0, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
+
+
+def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Resize (N, H, W, C) as ``jax.image.resize(method="linear")`` does
+    (antialiased when downscaling): the per-axis weight matrices of
+    :func:`_resize_weights`, applied as two small elementwise products (an
+    axis whose size does not change is left as it is)."""
+    n, h, w, c = img.shape
+    out_h, out_w = (int(v) for v in out_hw)
+    if out_h != h:
+        wh = torch.as_tensor(_resize_weights(h, out_h), dtype=img.dtype, device=img.device)
+        img = torch.sum(img[:, :, None, :, :] * wh[None, :, :, None, None], dim=1)
+    if out_w != w:
+        ww = torch.as_tensor(_resize_weights(w, out_w), dtype=img.dtype, device=img.device)
+        img = torch.sum(img[:, :, :, None, :] * ww[None, None, :, :, None], dim=2)
+    return img
+
+
+def rotate_and_resize_psfs(interpolated_psfs: torch.Tensor, x_map, y_map,
+                           psf_grid_shape: Tuple[int, int],
+                           resized_psf_shape: Tuple[int, int]) -> torch.Tensor:
+    """Rotate each patch PSF to its azimuth and resize it to the simulated
+    resolution; each renormalized to unit sum. Returns (1, N, kh, kw, C)."""
+    gh, gw = psf_grid_shape
+    x_map = np.asarray(x_map)
+    y_map = np.asarray(y_map)
+    x_center = (np.arange(gw) + 0.5) / gw * (x_map[-1] - x_map[0]) + x_map[0]
+    y_center = (np.arange(gh) + 0.5) / gh * (y_map[-1] - y_map[0]) + y_map[0]
+    angles = torch.as_tensor(np.arctan2(x_center[None, :], y_center[:, None]).reshape(-1),
+                             dtype=interpolated_psfs.dtype, device=interpolated_psfs.device)
+    rotated = rotate_image_bilinear(interpolated_psfs, -angles)
+    resized = resize_bilinear(rotated, tuple(int(v) for v in resized_psf_shape))
+    resized = resized / torch.sum(resized, dim=(1, 2), keepdim=True)
+    return resized[None, ...]
+
+
+def sample_distortion_shifts(specs, lens, y_centroid: torch.Tensor) -> torch.Tensor:
+    """Relative distortion shifts at equidistant fields: the traced image
+    heights against the paraxial ones, over the paraxial full-field height."""
+    from torchoptics_tpu_torch.ops import abcd as abcd_mod
+    n_fields = y_centroid.shape[0]
+    fields = np.linspace(0, 1, n_fields)
+    y_ref = abcd_mod.get_paraxial_heights_at_image_plane(specs, lens, fields)[0]
+    return (y_centroid - y_ref) / y_ref[-1]
+
+
+def interpolate_distortion_shifts(sampled_shifts: torch.Tensor, x: torch.Tensor,
+                                  y: torch.Tensor):
+    """Radial interpolation of the distortion shifts into x / y shift maps."""
+    n_fields = sampled_shifts.shape[0]
+    r = torch.sqrt(x ** 2 + y ** 2)
+    angle = torch.atan2(y, x)
+    shift = linear_interpolation(r * (n_fields - 1), sampled_shifts)
+    return shift * torch.cos(angle), shift * torch.sin(angle)
+
+
+def interpolate_relative_illumination(sampled: torch.Tensor,
+                                      field_map: torch.Tensor) -> torch.Tensor:
+    """Relative-illumination map from per-field samples."""
+    n_fields = sampled.shape[0]
+    return linear_interpolation(field_map * (n_fields - 1), sampled)

@@ -56,3 +56,28 @@ def compute_spot_rms(x: torch.Tensor, y: torch.Tensor, ray_ok: torch.Tensor,
     if metric == "xy":
         return torch.mean(compute_spot_rms_xy(x, y, ray_ok), dim=1)
     raise ValueError(f"spot metric must be 'y' or 'xy', got {metric!r}")
+
+
+def compute_relative_illumination(specs, lens, relative_fields, vig_fn=None,
+                                  n_ray_aiming_iter: int = 1, wavelengths=("d",),
+                                  double_precision: bool = False) -> torch.Tensor:
+    """Relative illumination per field, (B, F, W): two marginal rays and one
+    sagittal ray per field (doi:10.1117/12.938414), traced as an internal
+    sub-trace on the pure-torch engine. The first relative field must be 0;
+    fields where a ray fails fall back to 1."""
+    from torchoptics_tpu_torch.ops import trace as trace_mod
+    eps = 1e-6
+    assert relative_fields[0] == 0.0, "first relative field must be 0"
+    cfg = trace_mod.TraceConfig(mode="tee", rel_fields=tuple(relative_fields), vig_fn=vig_fn,
+                                n_ray_aiming_iter=n_ray_aiming_iter,
+                                wavelengths=tuple(wavelengths),
+                                double_precision=double_precision)
+    as_xy = lambda v: torch.tensor(v, dtype=cfg.dtype, device=lens.device).reshape(1, 1, -1, 1)
+    res = trace_mod.trace_rays(specs, lens, cfg, xy=(as_xy([0.0, 0.0, 1.0]),
+                                                      as_xy([1.0, -1.0, 0.0])))
+    cx, cy, ray_ok = res.cx, res.cy, res.ray_ok
+    rel_illum = ((cy[..., 0, :] - cy[..., 1, :]) * cx[..., 2, :]
+                 / torch.clamp(2.0 * cy[:, 0, 0, 0][:, None, None] ** 2, min=eps))
+    validity = torch.all(torch.all(ray_ok, dim=3), dim=2)[..., None]     # (B, F, 1)
+    validity = validity & validity[:, 0, :][:, None, :]
+    return torch.where(validity, rel_illum, 1.0)
