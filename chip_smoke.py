@@ -66,8 +66,14 @@ hand-written CUDA kernel on them against its plain PyTorch version:
 16. training: 5 ``LensOptimizer`` steps on the Lu loss and 5 on the full
     loss at 2,457,600 rays with kappa and asph trained, one K3 forward and
     one K3 backward launch per step, the first step held against the CPU;
-17. timings: K3 and its plain versions per mode at 2,457,600 rays, and one
-    aspheric ``LensOptimizer.step`` on each loss (host clock);
+17. how soon K3's Newton steps repeat on the card at 2,457,600 rays, on
+    the aspherized double-Gauss and its c x 3 variant (the kernels leave a
+    lane there): steps per lane and per warp, the shares that leave on a
+    fixed point, on a 2-cycle and on none, by the plain version's
+    arithmetic, which must give the bits of all 10 steps; then timings: K3
+    and its plain versions per mode at 2,457,600 rays, with the bounds at
+    the steps these inputs need and at 10, and one aspheric
+    ``LensOptimizer.step`` on each loss (host clock);
 18. the aspheric-population path (kernel K4), at the generator width
     (256 x 1,536 = 393,216 rays): K4 forward and backward against
     ``trace_fused_asphere_batch_reference`` and its backward on the aspheric
@@ -142,6 +148,11 @@ before that carries the kernels' numbers.
                                       # and of a 1024^2 render
     python3 chip_smoke.py --render-walls  # instead: phase 32's render walls
                                           # alone (no result line)
+    python3 chip_smoke.py --k3-turns TREE...  # instead: K3 and K4, every
+                                          # mode, of each unpacked tree and
+                                          # of this checkout, timed in turns
+                                          # (trees, this, this, trees in
+                                          # reverse; no result line)
 """
 
 import collections
@@ -152,6 +163,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -1197,6 +1209,9 @@ def k2_entries(ms, shape, err, serve_launches, gen_launches, mixed_launches):
 
 def k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides=0):
     """Floating-point operations per ray that K3 forward or backward needs,
+    with ``n_iter`` Newton steps a lane-surface: the kernels leave a lane
+    once its steps repeat, so the bounds take the mean that their inputs
+    need (``newton_statistics``), and 10, the fixed count, beside it;
     counted from the kernels' source notes under ``k1_ops``'s rules (FP32
     arithmetic; a sqrt or a division as one; negations, fabsf, compares and
     selects not counted), each value once: the surface constants
@@ -1223,13 +1238,15 @@ def k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides=0):
     g = c/(2w) and the sag, and the step F/F': 1 sqrt, 3 divisions), the
     slopes at the hit and Snell points (w and g) with their normals'
     1/sqrt, and Snell's three square roots: n_iter + 9 sqrt and
-    3 n_iter + 9 divisions; the backward adds 1 sqrt (the Newton point's
-    sag) and 28 divisions (the sag partials at three points, 7 each, and the
-    chain through Snell's law and the polish step); the rest as
-    ``_transcendentals``."""
+    3 n_iter + 9 divisions; the backward adds 1 sqrt and 2 divisions (the
+    Newton point's sag terms) and 8 divisions: the sag partials, which share
+    one reciprocal of w and one of 1 + w (2 at the Newton point, 1 at each
+    of the hit and Snell points), and the chain through Snell's law and the
+    polish step (4); the rest as ``_transcendentals``. The operation totals
+    count the partials in their quotient form, the fewer operations."""
     lu, full = penalties in (True, "full"), penalties == "full"
     sq_dv_ac = _transcendentals(penalties, n_surf, backward, n_iter + 9 + (1 if backward else 0),
-                                3 * n_iter + 9 + (28 if backward else 0))
+                                3 * n_iter + 9 + (10 if backward else 0))
     k = n_asph
     surface = 125 + 12 * k + n_iter * (26 + 5 * k)
     if not backward:
@@ -1329,6 +1346,64 @@ def failure_counts(torch, fused_asphere, inputs, n_per_w, mask=None):
     with torch.no_grad():
         fused_asphere._trace_batch(*inputs[:9], True, n_per_w, 10, keep, mask)
     return counts
+
+
+def newton_statistics(torch, fused_asphere, inputs, n_per_w, mask=None, n_iter=10):
+    """How soon the Newton steps of K3 (``inputs`` (N,) rays) or K4 ((B, N))
+    repeat, on this device, by the plain version's arithmetic
+    (``newton_point_with_exit`` at every surface of the forward, backward
+    rays flagged): over all lane-surfaces, the steps a lane evaluates, the
+    steps its warp runs (the most of its 32 lanes, the kernels' ray order:
+    32 consecutive rays of a system), the shares that leave on a period of
+    1 or 2 and that find none; and whether the exit gave the bits of the
+    fixed count of steps everywhere."""
+    if inputs[0].ndim == 1:
+        inputs = fused_asphere._one(inputs[:9])
+    c, kappa, asph = inputs[4], inputs[5], inputs[8]
+    lane_steps, warp_steps, periods, same = 0, 0, torch.zeros(3, dtype=torch.int64), True
+    n_lanes = n_warps = 0
+
+    def keep(k, pre, loc, kill, post):
+        nonlocal lane_steps, warp_steps, periods, same, n_lanes, n_warps
+        a = [asph[:, k, j, None] for j in range(asph.shape[2])]
+        s, steps, period = fused_asphere.newton_point_with_exit(
+            c[:, k, None], kappa[:, k, None], a, *pre[:6], n_iter)
+        same = same and torch.equal(s.view(torch.int32), loc["s_pre"].view(torch.int32))
+        lane_steps += int(steps.sum())
+        n_lanes += steps.numel()
+        pad = -steps.shape[1] % 32
+        warps = torch.nn.functional.pad(steps, (0, pad)).reshape(steps.shape[0], -1, 32)
+        warp_steps += int(warps.amax(-1).sum())
+        n_warps += warps.shape[0] * warps.shape[1]
+        periods += torch.bincount(period.reshape(-1).long(), minlength=3).cpu()
+    with torch.no_grad():
+        fused_asphere._trace_batch(*inputs[:9], True, n_per_w, n_iter, keep, mask)
+    return dict(steps_per_lane=lane_steps / n_lanes, steps_per_warp=warp_steps / n_warps,
+                period_1_share=int(periods[1]) / n_lanes, period_2_share=int(periods[2]) / n_lanes,
+                no_period_share=int(periods[0]) / n_lanes, exit_bits_identical=same)
+
+
+def phase_newton_statistics(torch, zoo, simulator, fused_trace, fused_asphere):
+    """How soon K3's Newton steps repeat at the main path's 2,457,600 rays,
+    on the aspherized double-Gauss and on its c x 3 variant, by the plain
+    version's arithmetic on the card: the kernels leave a lane there, and
+    the bounds count the steps these inputs need. Returns the statistics
+    by lens."""
+    stats = {}
+    for label, c_scale in (("double_gauss_asph", 1.0), ("double_gauss_asph c x 3", 3.0)):
+        inputs, n_per_w, _, _ = asphere_inputs(torch, zoo, simulator, fused_trace, BENCH_WIDTH,
+                                               c_scale)
+        st = newton_statistics(torch, fused_asphere, inputs, n_per_w)
+        check(st["exit_bits_identical"],
+              f"Newton steps on the card, {label}, {inputs[0].shape[0]} rays x "
+              f"{inputs[4].shape[0]} surfaces, 10 steps: a lane evaluates "
+              f"{st['steps_per_lane']:.4f} steps before they repeat, its warp runs "
+              f"{st['steps_per_warp']:.4f}; lane-surfaces leaving on a fixed point "
+              f"{st['period_1_share']:.6f}, on a 2-cycle {st['period_2_share']:.6f}, on none "
+              f"{st['no_period_share']:.6f}; the exit gives the bits of all 10 steps: "
+              f"{st['exit_bits_identical']}")
+        stats[label] = st
+    return stats
 
 
 def phase_k3_forward(torch, zoo, simulator, fused_trace, fused_asphere):
@@ -1540,46 +1615,98 @@ def phase_k3_train(torch, zoo, simulator, fused_trace, fused_asphere, LensOptimi
     return launches
 
 
-def phase_k3_timing(torch, zoo, simulator, fused_trace, fused_asphere, LensOptimizer, card):
+def fwd_bwd_times(torch, kernel, suffix, fwd, bwd, plain, queue_ahead):
+    """{kernel}_fwd{suffix} and {kernel}_bwd{suffix}: the milliseconds of
+    fwd(False) and bwd(False), the kernels (``time_ms``, behind a sleep
+    kernel where ``queue_ahead``), and where ``plain`` is set
+    plain_{kernel}_fwd{suffix} and plain_{kernel}_bwd{suffix}, of fwd(True)
+    and bwd(True), their plain versions."""
+    ms = {}
+    with torch.no_grad():
+        for kind, run in (("fwd", fwd), ("bwd", bwd)):
+            ms[f"{kernel}_{kind}{suffix}"] = time_ms(torch, lambda: run(False),
+                                                     queue_ahead=queue_ahead)
+            if plain:
+                ms[f"plain_{kernel}_{kind}{suffix}"] = time_ms(torch, lambda: run(True), runs=3,
+                                                               batch=2)
+    return ms
+
+
+def asphere_mode_times(torch, zoo, simulator, modules, kernel, plain, gen, on_mode=None):
+    """K3 or K4 forward and backward in plain, Lu and full mode (backward
+    rays allowed) with CUDA events: K3 at 2,457,600 rays of the aspherized
+    double-Gauss, K4 at 256 x 1,536 = 393,216 rays of the aspheric Cooke
+    population (its batches enqueued behind a sleep kernel); their plain
+    versions too where ``plain`` is set. ``on_mode(penalties, fwd, bwd)``
+    sees each mode's runners (argument: plain) after its times, under
+    no_grad. ``modules`` is (fused_trace, fused_batch, fused_asphere); K3
+    reads no fused_batch. Returns the times and (inputs, n_per_w, mask,
+    bounds, thr), mask None for K3."""
+    fused_trace, fused_batch, fused_asphere = modules
+    population = kernel == "k4"
+    if population:
+        inputs, n_per_w, mask, bounds, thr = k4_inputs(torch, zoo, simulator, fused_batch,
+                                                      fused_trace, "cooke")
+    else:
+        inputs, n_per_w, bounds, thr = asphere_inputs(torch, zoo, simulator, fused_trace,
+                                                      BENCH_WIDTH)
+        mask = None
+    ms = {}
+    for penalties in PENALTY_MODES:
+        cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
+               for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+        if population:
+            fwd = lambda plain: run_k4_fwd(fused_asphere, inputs, penalties, True, n_per_w, mask,
+                                           bounds, thr, plain)
+            bwd = lambda plain: run_k4_bwd(fused_asphere, inputs, cot, penalties, True, n_per_w,
+                                           mask, bounds, thr, plain)
+        else:
+            fwd = lambda plain: run_k3_fwd(fused_asphere, inputs, penalties, True, n_per_w,
+                                           bounds, thr, plain)
+            bwd = lambda plain: run_k3_bwd(fused_asphere, inputs, cot, penalties, True, n_per_w,
+                                           bounds, thr, plain)
+        ms.update(fwd_bwd_times(torch, kernel, f"_{MODE_NAME[penalties]}", fwd, bwd, plain,
+                                population))
+        if on_mode:
+            with torch.no_grad():
+                on_mode(penalties, fwd, bwd)
+    return ms, (inputs, n_per_w, mask, bounds, thr)
+
+
+def phase_k3_timing(torch, zoo, simulator, fused_trace, fused_asphere, LensOptimizer, card,
+                    newton):
     """K3 and its plain versions per mode at 2,457,600 rays, the main path's
     width, each kernel checked against its plain version there as in the
     442,368-ray phases; then the host clock of one aspheric LensOptimizer
     step on each loss. Returns the times, the deviations at this width (as
     phase_k3_forward and phase_k3_backward return theirs) and the shapes
-    that the bounds count."""
-    inputs, n_per_w, bounds, thr = asphere_inputs(torch, zoo, simulator, fused_trace, BENCH_WIDTH)
+    that the bounds count, with the Newton steps a lane needs there
+    (``newton``: phase_newton_statistics's numbers for these inputs)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    fwd_err, bwd_err = {"k3_fwd": 0.0, "k3_fwd_full": 0.0}, [(0.0, 0.0, 0.0)]
+
+    def check_mode(penalties, fwd, bwd):
+        mode = MODE_NAME[penalties]
+        got = fwd(False)
+        n = got[0].shape[0]
+        ok, masks, coords, pen_rel, max_abs = k3_fwd_compare(torch, got, fwd(True))
+        key = "k3_fwd_full" if penalties == "full" else "k3_fwd"
+        fwd_err[key] = max(fwd_err[key], max_abs)
+        check(ok, f"K3 forward vs plain at {n} rays, {mode} mode: masks bit-identical="
+                  f"{masks}, coordinates bit-identical={coords}, penalty sums within "
+                  f"{pen_rel:.2e} of their largest (limit {PEN_ROUNDINGS:.2e})")
+        ok, ray, par_abs, par_rel = k3_bwd_compare(torch, bwd(False), bwd(True))
+        bwd_err[0] = tuple(map(max, bwd_err[0], (ray, par_abs, par_rel)))
+        check(ok, f"K3 backward vs plain at {n} rays, {mode} mode: per-ray cotangents "
+                  f"bit-identical (max deviation {ray:.3e}); parameter cotangents dz0, dc, "
+                  f"dkappa, dt, dmu, dasph{', dref_z' if mode == 'full' else ''} within "
+                  f"{par_rel:.2e} of their largest (limit {ONE_ROUNDING:.2e}; max absolute "
+                  f"deviation {par_abs:.3e})")
+    ms, (inputs, _, _, bounds, _) = asphere_mode_times(
+        torch, zoo, simulator, (fused_trace, None, fused_asphere), "k3", True, gen, check_mode)
     n, n_surf = inputs[0].shape[0], inputs[4].shape[0]
     shape = dict(n_rays=n, n_surf=n_surf, n_w=inputs[7].shape[1], n_asph=inputs[8].shape[1],
-                 bounds=bounds)
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    ms = {}
-    fwd_err, bwd_err = {"k3_fwd": 0.0, "k3_fwd_full": 0.0}, (0.0, 0.0, 0.0)
-    with torch.no_grad():
-        for penalties in PENALTY_MODES:
-            mode = MODE_NAME[penalties]
-            fwd = lambda plain: run_k3_fwd(fused_asphere, inputs, penalties, True, n_per_w,
-                                           bounds, thr, plain)
-            ms[f"k3_fwd_{mode}"] = time_ms(torch, lambda: fwd(False))
-            ms[f"plain_k3_fwd_{mode}"] = time_ms(torch, lambda: fwd(True), runs=3, batch=2)
-            ok, masks, coords, pen_rel, max_abs = k3_fwd_compare(torch, fwd(False), fwd(True))
-            key = "k3_fwd_full" if penalties == "full" else "k3_fwd"
-            fwd_err[key] = max(fwd_err[key], max_abs)
-            check(ok, f"K3 forward vs plain at {n} rays, {mode} mode: masks bit-identical="
-                      f"{masks}, coordinates bit-identical={coords}, penalty sums within "
-                      f"{pen_rel:.2e} of their largest (limit {PEN_ROUNDINGS:.2e})")
-            cot = [torch.randn(n, device="cuda", generator=gen)
-                   for _ in range({False: 4, True: 7, "full": 9}[penalties])]
-            bwd = lambda plain: run_k3_bwd(fused_asphere, inputs, cot, penalties, True, n_per_w,
-                                           bounds, thr, plain)
-            ms[f"k3_bwd_{mode}"] = time_ms(torch, lambda: bwd(False))
-            ms[f"plain_k3_bwd_{mode}"] = time_ms(torch, lambda: bwd(True), runs=3, batch=2)
-            ok, ray, par_abs, par_rel = k3_bwd_compare(torch, bwd(False), bwd(True))
-            bwd_err = tuple(map(max, bwd_err, (ray, par_abs, par_rel)))
-            check(ok, f"K3 backward vs plain at {n} rays, {mode} mode: per-ray cotangents "
-                      f"bit-identical (max deviation {ray:.3e}); parameter cotangents dz0, dc, "
-                      f"dkappa, dt, dmu, dasph{', dref_z' if mode == 'full' else ''} within "
-                      f"{par_rel:.2e} of their largest (limit {ONE_ROUNDING:.2e}; max absolute "
-                      f"deviation {par_abs:.3e})")
+                 bounds=bounds, newton_steps=newton["steps_per_lane"])
     for full in (False, True):
         opt, state = make_optimizer(zoo, simulator, LensOptimizer, "cuda", BENCH_WIDTH, full,
                                     "double_gauss_asph")
@@ -1590,16 +1717,20 @@ def phase_k3_timing(torch, zoo, simulator, fused_trace, fused_asphere, LensOptim
         ms[f"asphere_optimizer_step_{'full' if full else 'lu'}"] = host_ms(torch, step)
     for key, value in ms.items():
         print(f"time {key}: {value:.4f} ms per call at {n} rays (aspherized double-Gauss, "
-              f"{n_surf} surfaces, K = {shape['n_asph']}, 10 Newton steps), card: {card}",
+              f"{n_surf} surfaces, K = {shape['n_asph']}, n_iter = 10 Newton steps, "
+              f"{shape['newton_steps']:.4f} a lane before they repeat), card: {card}",
               flush=True)
-    return ms, fwd_err, bwd_err, shape
+    return ms, fwd_err, bwd_err[0], shape
 
 
-def k3_bound(shape, penalties, backward):
-    """(bound_ms, bound_by) of K3 forward or backward at the timed shape."""
+def k3_bound(shape, penalties, backward, n_iter=None):
+    """(bound_ms, bound_by) of K3 forward or backward at the timed shape,
+    at the Newton steps its inputs need (``shape["newton_steps"]``) or at
+    ``n_iter``."""
     n, n_surf, n_w, n_asph = shape["n_rays"], shape["n_surf"], shape["n_w"], shape["n_asph"]
     n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
-    ops = k3_ops(penalties, n_surf, n_asph, 10, backward, n_sides).total
+    n_iter = shape["newton_steps"] if n_iter is None else n_iter
+    ops = k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides).total
     if not backward:
         return bound(n, ops, FWD_BYTES[penalties])
     n_params = (1 + 3 * n_surf + n_surf * n_w + n_surf * n_asph
@@ -1620,7 +1751,8 @@ def k3_entries(ms, shape, fwd_err, bwd_err, serve_launches, train_launches):
         b_ms, b_by = k3_bound(shape, penalties, kind == "bwd")
         return {f"ms{suffix}": ms[f"k3_{kind}_{mode}"],
                 f"plain_ms{suffix}": ms[f"plain_k3_{kind}_{mode}"],
-                f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by}
+                f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
+                f"bound_ms_n10{suffix}": k3_bound(shape, penalties, kind == "bwd", 10)[0]}
     return [
         {"name": "k3_fwd", "route": "cuda", "source": K3_FWD_SOURCE, "replaces": TPU_K3_FWD,
          "launches": train_launches["Lu"][0], "max_abs_err": fwd_err["k3_fwd"],
@@ -2048,26 +2180,14 @@ def phase_k4_timing(torch, zoo, simulator, fused_trace, fused_batch, fused_asphe
     = 393,216 rays, aspheric Cooke population), the kernels' batches
     enqueued behind a sleep kernel as K2's; the fwd+bwd of
     ``batched_unsupervised_loss`` and one training step (host clock)."""
-    inputs, n_per_w, mask, bounds, thr = k4_inputs(torch, zoo, simulator, fused_batch,
-                                                  fused_trace, "cooke")
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    ms, (inputs, n_per_w, mask, bounds, _) = asphere_mode_times(
+        torch, zoo, simulator, (fused_trace, fused_batch, fused_asphere), "k4", True, gen)
     n_rays, n_surf = inputs[0].numel(), inputs[4].shape[1]
     shape = dict(n_rays=n_rays, n_surf=n_surf, n_w=inputs[7].shape[2], n_asph=inputs[8].shape[2],
-                 bounds=bounds, n_sys=N_SYSTEMS, rays_per_sys=inputs[0].shape[1])
-    gen = torch.Generator(device="cuda").manual_seed(10)
-    ms = {}
-    with torch.no_grad():
-        for penalties in PENALTY_MODES:
-            mode = MODE_NAME[penalties]
-            fwd = lambda plain: run_k4_fwd(fused_asphere, inputs, penalties, True, n_per_w, mask,
-                                           bounds, thr, plain)
-            ms[f"k4_fwd_{mode}"] = time_ms(torch, lambda: fwd(False), queue_ahead=True)
-            ms[f"plain_k4_fwd_{mode}"] = time_ms(torch, lambda: fwd(True), runs=3, batch=2)
-            cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
-                   for _ in range({False: 4, True: 7, "full": 9}[penalties])]
-            bwd = lambda plain: run_k4_bwd(fused_asphere, inputs, cot, penalties, True, n_per_w,
-                                           mask, bounds, thr, plain)
-            ms[f"k4_bwd_{mode}"] = time_ms(torch, lambda: bwd(False), queue_ahead=True)
-            ms[f"plain_k4_bwd_{mode}"] = time_ms(torch, lambda: bwd(True), runs=3, batch=2)
+                 bounds=bounds, n_sys=N_SYSTEMS, rays_per_sys=inputs[0].shape[1],
+                 newton_steps=newton_statistics(torch, fused_asphere, inputs, n_per_w,
+                                                mask)["steps_per_lane"])
     cfg = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused")
     specs, lens = k4_population(torch, zoo, "cooke")
 
@@ -2081,20 +2201,23 @@ def phase_k4_timing(torch, zoo, simulator, fused_trace, fused_batch, fused_asphe
                                                                   cfg))
     for key, value in ms.items():
         print(f"time {key}: {value:.4f} ms per call at {n_rays} rays ({N_SYSTEMS} aspheric Cooke "
-              f"systems x 1,536 rays, {n_surf} surfaces, K = {shape['n_asph']}, 10 Newton "
-              f"steps), card: {card}", flush=True)
+              f"systems x 1,536 rays, {n_surf} surfaces, K = {shape['n_asph']}, n_iter = 10 "
+              f"Newton steps, {shape['newton_steps']:.4f} a lane before they repeat), card: "
+              f"{card}", flush=True)
     return ms, shape
 
 
-def k4_bound(shape, penalties, backward):
+def k4_bound(shape, penalties, backward, n_iter=None):
     """(bound_ms, bound_by) of K4 forward or backward at the timed shape:
-    K3's per-ray operations and bytes (``k3_ops``) at the population's
-    surface count, plus each system's tables read once (3 S + S W + S K + 1
-    floats, + S + 1 in full mode) and, for the backward, its partials (one
-    column of doubles per block of 256 rays, written once and read once)."""
+    K3's per-ray operations and bytes (``k3_ops``, at the Newton steps the
+    inputs need or at ``n_iter``) at the population's surface count, plus
+    each system's tables read once (3 S + S W + S K + 1 floats, + S + 1 in
+    full mode) and, for the backward, its partials (one column of doubles
+    per block of 256 rays, written once and read once)."""
     n, n_surf, n_w, n_asph = shape["n_rays"], shape["n_surf"], shape["n_w"], shape["n_asph"]
     n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
-    ops = k3_ops(penalties, n_surf, n_asph, 10, backward, n_sides).total
+    n_iter = shape["newton_steps"] if n_iter is None else n_iter
+    ops = k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides).total
     full = penalties == "full"
     tables = 4 * (3 * n_surf + n_surf * n_w + n_surf * n_asph + 1 + (n_surf + 1 if full else 0))
     if not backward:
@@ -2117,7 +2240,8 @@ def k4_entries(ms, shape, err, serve_launches, train_launches, full_launches):
         b_ms, b_by = k4_bound(shape, penalties, kind == "bwd")
         return {f"ms{suffix}": ms[f"k4_{kind}_{mode}"],
                 f"plain_ms{suffix}": ms[f"plain_k4_{kind}_{mode}"],
-                f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by}
+                f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by,
+                f"bound_ms_n10{suffix}": k4_bound(shape, penalties, kind == "bwd", 10)[0]}
     return [
         {"name": "k4_fwd", "route": "cuda", "source": K4_FWD_SOURCE, "replaces": TPU_K4_FWD,
          "launches": train_launches[0], "max_abs_err": err["fwd"], **numbers("fwd", True),
@@ -2678,33 +2802,45 @@ def phase_opl_timing(torch, zoo, simulator, modules, card):
     gen = torch.Generator(device="cuda").manual_seed(22)
     ms, shapes = {}, {}
     for kernel in OPL_KERNELS:
-        variant = {"k1": 1.0, "k3": 1.0, "k2": "cooke", "k4": "cooke"}[kernel]
-        inputs, n_per_w, mask = opl_kernel_inputs(torch, zoo, simulator, *modules, kernel,
-                                                  variant, OPL_BENCH)
-        population = kernel in ("k2", "k4")
+        times, (inputs, n_per_w, mask) = opl_times(torch, zoo, simulator, modules, kernel, True,
+                                                   gen)
+        ms.update(times)
         c = inputs[4]
         shapes[kernel] = dict(n_rays=inputs[0].numel(), n_surf=c.shape[-1],
                               n_w=inputs[-1].shape[-1],
                               n_asph=inputs[8].shape[-1] if kernel in ("k3", "k4") else 0,
-                              n_sys=inputs[0].shape[0] if population else 1,
+                              n_sys=inputs[0].shape[0] if kernel in ("k2", "k4") else 1,
                               rays_per_sys=inputs[0].shape[-1])
-        cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen) for _ in range(5)]
-        run = lambda plain, cot=None: run_opl(modules, kernel, inputs, n_per_w, mask, True,
-                                              plain, cot)
-        with torch.no_grad():
-            ms[f"{kernel}_fwd"] = time_ms(torch, lambda: run(False), queue_ahead=population)
-            ms[f"plain_{kernel}_fwd"] = time_ms(torch, lambda: run(True), runs=3, batch=2)
-            ms[f"{kernel}_bwd"] = time_ms(torch, lambda: run(False, cot), queue_ahead=population)
-            ms[f"plain_{kernel}_bwd"] = time_ms(torch, lambda: run(True, cot), runs=3, batch=2)
+        if kernel in ("k3", "k4"):
+            shapes[kernel]["newton_steps"] = newton_statistics(
+                torch, modules[2], inputs, n_per_w, mask)["steps_per_lane"]
         print(f"time {kernel.upper()} opl: forward {ms[f'{kernel}_fwd']:.4f} ms (plain "
               f"{ms[f'plain_{kernel}_fwd']:.2f} ms), backward {ms[f'{kernel}_bwd']:.4f} ms "
               f"(plain {ms[f'plain_{kernel}_bwd']:.2f} ms) per call at {inputs[0].numel()} rays, "
               f"{c.shape[-1]} surfaces, card: {card}", flush=True)
-        del inputs, cot
+        del inputs
     return ms, shapes
 
 
-def opl_bound(kernel, shape, backward):
+def opl_times(torch, zoo, simulator, modules, kernel, plain, gen):
+    """One opl kernel forward and backward (backward rays allowed) with CUDA
+    events: K1 and K3 at 2,457,600 rays, K2 and K4 at 256 x 1,536 = 393,216
+    rays (the population kernels' batches enqueued behind a sleep kernel);
+    their plain versions too where ``plain`` is set. Returns the times
+    ({kernel}_fwd, {kernel}_bwd and plain_...) and (inputs, n_per_w,
+    mask)."""
+    variant = {"k1": 1.0, "k3": 1.0, "k2": "cooke", "k4": "cooke"}[kernel]
+    inputs, n_per_w, mask = opl_kernel_inputs(torch, zoo, simulator, *modules, kernel, variant,
+                                              OPL_BENCH)
+    cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen) for _ in range(5)]
+    run = lambda plain, cot=None: run_opl(modules, kernel, inputs, n_per_w, mask, True, plain,
+                                          cot)
+    ms = fwd_bwd_times(torch, kernel, "", run, lambda plain: run(plain, cot), plain,
+                       kernel in ("k2", "k4"))
+    return ms, (inputs, n_per_w, mask)
+
+
+def opl_bound(kernel, shape, backward, n_iter=None):
     """(bound_ms, bound_by) of an opl kernel at the timed shape: the plain
     mode's per-ray operations (``k1_ops``, ``k3_ops``) plus the opl terms
     (forward: a product and a sum per leg; backward: the distance adjoint's
@@ -2718,7 +2854,8 @@ def opl_bound(kernel, shape, backward):
         tables = 2 * n_surf + n_surf * n_w + 1
         n_params = 1 + 2 * n_surf + n_surf * n_w
     else:
-        ops = k3_ops(False, n_surf, shape["n_asph"], 10, backward).total
+        n_iter = shape["newton_steps"] if n_iter is None else n_iter
+        ops = k3_ops(False, n_surf, shape["n_asph"], n_iter, backward).total
         tables = 3 * n_surf + n_surf * n_w + n_surf * shape["n_asph"] + 1
         n_params = 1 + 3 * n_surf + n_surf * n_w + n_surf * shape["n_asph"]
     ops += (4 if backward else 2) * legs
@@ -2745,6 +2882,8 @@ def opl_entries(ms, shapes, worst, serve, pop, train, fwd_bwd_launches, fwd_bwd_
                      "max_abs_err": worst[kernel]["fwd" if kind == "fwd" else "ray"],
                      "ms": ms[f"{kernel}_{kind}"], "plain_ms": ms[f"plain_{kernel}_{kind}"],
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            if kernel in ("k3", "k4"):
+                entry["bound_ms_n10"] = opl_bound(kernel, shapes[kernel], kind == "bwd", 10)[0]
             if kind == "bwd":
                 entry.update(param_max_rel_err=worst[kernel]["param"],
                              param_max_abs_err=worst[kernel]["param_abs"])
@@ -3090,7 +3229,8 @@ def add_issue_bounds(entries, rates, shapes):
             if family in ("k1", "k2"):
                 ops, sq, dv, ac = k1_ops(penalties, n_surf, n_sides, backward)
             else:
-                ops, sq, dv, ac = k3_ops(penalties, n_surf, shape["n_asph"], 10, backward, n_sides)
+                ops, sq, dv, ac = k3_ops(penalties, n_surf, shape["n_asph"],
+                                         shape["newton_steps"], backward, n_sides)
             if opl:
                 ops += (4 if backward else 2) * (n_surf + 1)
             weighted = ops + (w_s - 1) * (sq + ac) + (w_d - 1) * dv
@@ -3119,11 +3259,97 @@ def ptxas_summary(path):
     return lines
 
 
+def kernel_times(torch, root, card):
+    """K3 and K4 forward and backward per mode (plain, Lu, full, opl;
+    backward rays allowed), with the timing code of phase_k3_timing,
+    phase_k4_timing and phase_opl_timing: K3 at 2,457,600 rays of the aspherized
+    double-Gauss, K4 at 256 x 1,536 rays of the aspheric Cooke population.
+    The port is imported from the tree at ``root`` and its kernels built
+    there (the build's seconds reported where it compiled)."""
+    sys.path.insert(0, root)
+    from torchoptics_tpu_torch import simulator, zoo
+    from torchoptics_tpu_torch.ops import _kernels, fused_asphere, fused_batch, fused_trace
+    modules = (fused_trace, fused_batch, fused_asphere)
+    built = not _kernels.library_path().exists()
+    start = time.perf_counter()
+    _kernels.load()
+    out = {"root": root, "package": fused_asphere.__file__, "card": card,
+           "build_s": time.perf_counter() - start if built else None, "ms": {}}
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for kernel in ("k3", "k4"):
+        out["ms"].update(asphere_mode_times(torch, zoo, simulator, modules, kernel, False, gen)[0])
+        opl = opl_times(torch, zoo, simulator, modules, kernel, False, gen)[0]
+        out["ms"].update({f"{key}_opl": value for key, value in opl.items()})
+    return out
+
+
+def kernel_turns(trees, card):
+    """``kernel_times`` of the trees given and of this checkout in turns, one
+    process each: the trees, this checkout twice, the trees in reverse (old,
+    new, new, old for one tree). Returns each key's times per tree in run
+    order, their medians and this checkout's median over each tree's."""
+    here = str(Path(__file__).resolve().parent)
+    order = [str(Path(t).resolve()) for t in trees]
+    order = order + [here, here] + order[::-1]
+    runs = []
+    for root in order:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--k3-times", root],
+                              capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"kernel times of {root}: exit {proc.returncode}\n"
+              + proc.stdout[-2000:] + proc.stderr[-4000:])
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(run), flush=True)
+        runs.append(run)
+    table = {}
+    for key in runs[0]["ms"]:
+        per_tree = collections.defaultdict(list)
+        for run in runs:
+            per_tree[run["root"]].append(run["ms"][key])
+        med = {root: statistics.median(v) for root, v in per_tree.items()}
+        table[key] = {"runs": dict(per_tree), "median": med,
+                      "ratio_to": {root: med[here] / m for root, m in med.items() if root != here}}
+    return {"card": card, "this": here, "build_s": {r["root"]: r["build_s"] for r in runs
+                                                     if r["build_s"] is not None},
+            "kernels": table}
+
+
+def add_resources(entries, summary, n_asph):
+    """Each K3 and K4 entry's registers, stack frame and spills (bytes) from
+    the build's ``-Xptxas -v`` report (``ptxas_summary``'s lines), for the
+    instantiation its main numbers time: its mode, backward rays allowed, at
+    the timed asphere term count (``n_asph``: {"k3": K, "k4": K}), K4
+    unmasked."""
+    found = {}
+    for line in summary:
+        name, rest = line.split(": ", 1)
+        nums = {key: int(m.group(1)) for key, pattern in (
+            ("registers", r"(\d+) registers"), ("stack_frame_bytes", r"(\d+) bytes stack frame"),
+            ("spill_store_bytes", r"(\d+) bytes spill stores"),
+            ("spill_load_bytes", r"(\d+) bytes spill loads"))
+            for m in [re.search(pattern, rest)] if m}
+        found[name] = nums
+    for e in entries:
+        name = e["name"]
+        if not name.startswith(("k3", "k4")):
+            continue
+        mode = 3 if name.endswith("_opl") else 2 if name.endswith("_full") else 1
+        masked = "" if name.startswith("k3") else "0,"
+        e.update(found.get(f"{name[:6]}_kernel<{mode},1,{masked}{n_asph[name[:2]]}>", {}))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
         return 1
+    args = sys.argv[1:]
+    if "--k3-turns" in args:
+        print(json.dumps({"k3_turns": kernel_turns(args[args.index("--k3-turns") + 1:],
+                                                   card_line())}))
+        return 0
+    if "--k3-times" in args:
+        print(json.dumps(kernel_times(torch, args[args.index("--k3-times") + 1], card_line())))
+        return 0
     from torchoptics_tpu_torch import LensOptimizer, OpticalLoss, entry, imaging, simulator, zoo
     from torchoptics_tpu_torch.benchmarks import issue_peak
     from torchoptics_tpu_torch.ops import _kernels, fused_asphere, fused_batch, fused_trace, image
@@ -3137,7 +3363,8 @@ def main():
     path = _kernels.build()
     _kernels.load()
     print(f"build: {path.name} in {time.perf_counter() - start:.2f} s", flush=True)
-    for line in ptxas_summary(path):
+    resources = ptxas_summary(path)
+    for line in resources:
         print(f"ptxas: {line}", flush=True)
 
     if "--profile" in sys.argv[1:]:
@@ -3167,8 +3394,10 @@ def main():
     k3_serve_launches = phase_k3_serve(torch, zoo, simulator, fused_trace, fused_asphere)
     k3_train_launches = phase_k3_train(torch, zoo, simulator, fused_trace, fused_asphere,
                                        LensOptimizer)
+    newton = phase_newton_statistics(torch, zoo, simulator, fused_trace, fused_asphere)
     k3_ms, k3_fwd_err_bench, k3_bwd_err_bench, k3_shape = phase_k3_timing(
-        torch, zoo, simulator, fused_trace, fused_asphere, LensOptimizer, card)
+        torch, zoo, simulator, fused_trace, fused_asphere, LensOptimizer, card,
+        newton["double_gauss_asph"])
     k4_err = phase_k4_kernels(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere)
     phase_k4_is_k3(torch, zoo, simulator, fused_trace, fused_batch, fused_asphere)
     k4_serve_launches = phase_k4_serve(torch, zoo, simulator, fused_trace, fused_batch,
@@ -3202,6 +3431,7 @@ def main():
     add_issue_bounds(entries, p1[0], {"k1": shape, "k2": k2_shape, "k3": k3_shape,
                                       "k4": k4_shape,
                                       **{f"opl_{k}": v for k, v in opl_shapes.items()}})
+    add_resources(entries, resources, {"k3": k3_shape["n_asph"], "k4": k4_shape["n_asph"]})
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,7 @@ render on the card against the CPU's.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -417,6 +418,72 @@ def test_k3_without_asphere_terms_matches_k1(cuda):
     ok = k1[4]
     for a, b in zip(k3[:4], k1[:4]):
         assert bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs())[ok].all())
+
+
+def _k3_inputs_with_terms(device, n_asph, c_scale):
+    """``_k3_inputs`` with ``n_asph`` asphere terms: the lens's r^4 term
+    alone, or its r^4 and r^6 terms and seeded higher ones that move the sag
+    by ~1e-3 mm at 20 mm from the axis; and the leg indices n_legs."""
+    inputs, n_per_w, bounds = _k3_inputs(device, c_scale)
+    asph = inputs[8]
+    if n_asph < asph.shape[1]:
+        asph = asph[:, :n_asph]
+    else:
+        rng = np.random.default_rng(n_asph)
+        extra = [rng.choice((-1.0, 1.0), asph.shape[0]) * 1e-3 / 400.0 ** (j + 2)
+                 for j in range(asph.shape[1], n_asph)]
+        asph = torch.cat((asph, torch.tensor(np.stack(extra, 1), dtype=torch.float32,
+                                             device=device)), 1) if extra else asph
+    lens = zoo.build("double_gauss_asph", device=device)[1]
+    n_legs = fused_trace.leg_indices(lens, simulator.SimulatorConfig(**ASPH).trace_config()
+                                     .wavelengths)[0]
+    return (*inputs[:8], asph.contiguous(), inputs[9]), n_per_w, bounds, n_legs
+
+
+@pytest.mark.parametrize("allow_backward", [True, False])
+@pytest.mark.parametrize("n_iter", [0, 1, 10])
+@pytest.mark.parametrize("n_asph", list(range(1, 9)))
+def test_k3_every_term_count_and_step_count(cuda, n_asph, n_iter, allow_backward):
+    """K3, built once per asphere term count (1 to MAX_ASPH = 8) and leaving
+    its Newton loop once the steps repeat, against its plain version, which
+    runs every step: in plain, Lu, full and opl mode, with backward rays
+    allowed and removed, forward masks, coordinates and opl and per-ray
+    cotangents bit for bit, penalty sums within 1e-6 and parameter
+    cotangents within one float32 rounding of their largest magnitude, two
+    backward launches bit for bit; and K4 (built per term count as K3) at
+    B = 1 equal to K3 bit for bit. Odd term counts run on the c x 3 lens,
+    which fails rays."""
+    from torchoptics_tpu_torch.ops import fused_asphere
+    c_scale = 3.0 if n_asph % 2 else 1.0
+    inputs, n_per_w, bounds, n_legs = _k3_inputs_with_terms(cuda, n_asph, c_scale)
+    gen = torch.Generator(device=cuda).manual_seed(n_asph)
+    for penalties in PENALTY_MODES + ["opl"]:
+        ins = inputs[:9] + {"full": inputs[9:], "opl": (n_legs,)}.get(penalties, ())
+        config = (penalties, allow_backward, n_per_w, n_iter)
+        got = fused_asphere._launch_k3_fwd(ins, *config, bounds, THR)
+        want = fused_asphere.trace_fused_asphere_reference(*ins[:9], *config, inputs[9], bounds,
+                                                           THR, n_legs)
+        cot = [torch.randn(inputs[0].shape[0], device=cuda, generator=gen)
+               for _ in range({False: 4, True: 7, "full": 9, "opl": 5}[penalties])]
+        g1 = fused_asphere._launch_k3_bwd(ins, cot, *config, bounds, THR)
+        g2 = fused_asphere._launch_k3_bwd(ins, cot, *config, bounds, THR)
+        gw = fused_asphere.trace_fused_asphere_backward_reference(ins, cot, *config, bounds, THR)
+        one = [a.reshape(1) if i == 3 else a[None] for i, a in enumerate(ins)]
+        k4 = fused_asphere._launch_k4_fwd(one, *config, None, bounds, THR)
+        g4 = fused_asphere._launch_k4_bwd(one, [c[None] for c in cot], *config, None, bounds,
+                                          THR)
+        torch.cuda.synchronize()
+        exact = 7 if penalties == "opl" else 6
+        assert all(torch.equal(a, b) for a, b in zip(got[:exact], want[:exact])), penalties
+        for a, b in zip(got[exact:], want[exact:]):
+            assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2)), "two launches differ"
+        assert all(torch.equal(a, b) for a, b in zip(g1[:3], gw[:3])), penalties
+        for a, b in zip(g1[3:], gw[3:]):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            assert float((a - b).abs().max()) <= ONE_ROUNDING * float(b.abs().max())
+        assert all(torch.equal(a, b[0]) for a, b in zip(got, k4))
+        assert all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(g1, g4))
 
 
 def test_asphere_paths_on_gpu_match_cpu(cuda):

@@ -3,11 +3,14 @@
 // systems, fused_asphere_batch_fwd.cu / fused_asphere_batch_bwd.cu), which
 // supplies only its indexing, as K2 does over trace_common.cuh.
 //
-// One copy of: the asphere tables in shared memory, the sag and its slope,
-// their closed-form partials, the Newton solve (the sphere guess, then
-// n_iter steps), the rest of a surface step from the pre-polish Newton point
-// (the polish step, the failure masks, Snell's law with the true normal) and
-// its adjoint, the per-ray forward trace and the per-ray backward pass. From
+// One copy of: the asphere tables in shared memory (with the constants that
+// every sag evaluation of a surface shares, formed once per block), the sag
+// and its slope, their closed-form partials (with shared reciprocals), the
+// Newton solve (the sphere guess, then up to n_iter steps: a lane leaves
+// once its steps repeat, with the bits of all n_iter), the rest of a surface
+// step from the pre-polish Newton point (the polish step, the failure masks,
+// Snell's law with the true normal) and its adjoint, the per-ray forward
+// trace and the per-ray backward pass. From
 // trace_common.cuh it takes theta_norm and its adjoint, the path hinge and
 // its gradient, the warp sums in double, the block's column of the partial
 // sums and their fixed-order reduction.
@@ -24,6 +27,14 @@
 // |F| > NEWTON_TOL among them), the coordinates and the per-ray cotangents
 // agree with them bit for bit.
 //
+// What bounds K3 and K4 on an H100 is the FP32 issue rate: the sag's square
+// root and divisions at every Newton step (a sqrt issues as ~13 FMAs, a
+// division as ~17.5: PERF.md, P1). So the design takes out what repeats:
+// Newton steps past the point where they repeat, the surface constants at
+// every evaluation, runtime loops over the asphere terms (Surf<NA>: K3 and
+// K4 are instantiated per term count, the terms in registers) and, in the
+// adjoint, divisions by one denominator.
+//
 // MASKED switches on the surface mask of padded populations, with the
 // semantics of trace_common.cuh: the backward-ray test at surface k gated by
 // mask[k-1] and the last one by mask[S-1], the Lu sums and the angle hinge
@@ -32,6 +43,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "trace_common.cuh"
 
 namespace {
@@ -39,16 +52,24 @@ namespace {
 constexpr int MAX_ASPH = 8;
 constexpr float NEWTON_TOL = 1e-5f;
 
-// One system's surface tables, read once per block into shared memory.
+// One system's surface tables, read once per block into shared memory, with
+// the constants that every sag evaluation of a surface shares, built there
+// once: beta = (1+kappa) c^2, c beta, c^3 and, per asphere term, a_j (j+2)
+// and a_j (j+2)(j+1). Each is the product that the plain version forms
+// first, left to right, at each evaluation, so it has the same bits.
 template <int MODE>
 struct AsphTables {
   static constexpr bool FULL = MODE == 2;
   static constexpr bool OPL = MODE == 3;
   float c[MAX_SURF];
-  float kappa[MAX_SURF];
+  float beta[MAX_SURF];
+  float cbeta[MAX_SURF];
+  float c3[MAX_SURF];
   float t[MAX_SURF];
   float mu[MAX_SURF * MAX_W];
-  float a[MAX_SURF * MAX_ASPH];  // surface k's coefficients at a + k * n_asph
+  float a[MAX_SURF * MAX_ASPH];    // surface k's coefficients at a + k * n_asph
+  float a2[MAX_SURF * MAX_ASPH];   // a_j (j+2), the same layout
+  float a21[MAX_SURF * MAX_ASPH];  // a_j (j+2)(j+1)
   float ref[FULL ? MAX_SURF + 1 : 1];
   float lo[FULL ? MAX_SURF : 1];
   float hi[FULL ? MAX_SURF : 1];
@@ -63,8 +84,11 @@ struct AsphTables {
                        const float* lo_, const float* hi_, const float* nl_,
                        const bool* mask_, int n_surf, int n_w, int n_asph) {
     for (int j = threadIdx.x; j < n_surf; j += blockDim.x) {
-      c[j] = c_[j];
-      kappa[j] = kappa_[j];
+      const float ck = c_[j];
+      c[j] = ck;
+      beta[j] = (1.0f + kappa_[j]) * ck * ck;
+      cbeta[j] = ck * beta[j];
+      c3[j] = ck * ck * ck;
       t[j] = t_[j];
       if (mask_) mask[j] = mask_[j];
       if (FULL) {
@@ -77,15 +101,22 @@ struct AsphTables {
     if (OPL)
       for (int j = threadIdx.x; j < (n_surf + 1) * n_w; j += blockDim.x) nl[j] = nl_[j];
     for (int j = threadIdx.x; j < n_surf * n_w; j += blockDim.x) mu[j] = mu_[j];
-    for (int j = threadIdx.x; j < n_surf * n_asph; j += blockDim.x) a[j] = a_[j];
+    for (int j = threadIdx.x; j < n_surf * n_asph; j += blockDim.x) {
+      const int term = j % n_asph;
+      a[j] = a_[j];
+      a2[j] = a_[j] * (float)(term + 2);
+      a21[j] = a2[j] * (float)(term + 1);
+    }
   }
 };
 
-// One surface's parameters as a thread reads them.
+// One surface's parameters and constants as a thread holds them, with its
+// NA asphere terms copied into registers once a surface; the loops over
+// them are unrolled.
+template <int NA>
 struct Surf {
-  float c, kappa, t, mu;
-  const float* a;
-  int n_asph;
+  float c, beta, cbeta, c3, t, mu;
+  float a[NA], a2[NA], a21[NA];
 };
 
 // sag, g = dsag/dr^2, w, u and the domain guard at r^2.
@@ -94,50 +125,54 @@ struct Sag {
   bool guard;
 };
 
-__device__ __forceinline__ Sag sag_terms(const Surf& p, float r2) {
+template <int NA>
+__device__ __forceinline__ Sag sag_terms(const Surf<NA>& p, float r2) {
   Sag q;
-  const float beta = (1.0f + p.kappa) * p.c * p.c;
-  q.u = beta * r2;
+  q.u = p.beta * r2;
   q.guard = 1.0f - q.u < EPS;
   q.w = sqrtf(q.guard ? 1.0f : 1.0f - q.u);
   q.sag = p.c * r2 / (1.0f + q.w);
   q.g = p.c / (2.0f * q.w);
   float pw = r2;  // (r^2)^(j+1)
-#pragma unroll 1
-  for (int j = 0; j < p.n_asph; ++j) {
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
     const float pw2 = pw * r2;  // (r^2)^(j+2)
     q.sag = q.sag + p.a[j] * pw2;
-    q.g = q.g + p.a[j] * (float)(j + 2) * pw;
+    q.g = q.g + p.a2[j] * pw;
     pw = pw2;
   }
   return q;
 }
 
 // h = dg/dr^2 and the partials of g and the sag in c and kappa at r^2; the
-// partials in a_j are powers of r^2.
+// partials in a_j are powers of r^2. The terms that divide by powers of w
+// and of 1 + w share one reciprocal of each (two divisions where the
+// quotients took seven; at the hit and Snell points, where the sag's
+// partials are read by nothing, one).
 struct GPart {
   float h, g_c, g_kap, sag_c, sag_kap;
 };
 
-__device__ __forceinline__ GPart g_partials(const Surf& p, float r2, float w, float u) {
+template <int NA>
+__device__ __forceinline__ GPart g_partials(const Surf<NA>& p, float r2, float w, float u) {
   GPart q;
-  const float c = p.c;
-  const float beta = (1.0f + p.kappa) * c * c;
-  const float w3 = w * w * w;
-  q.h = c * beta / (4.0f * w3);
-  q.g_c = 1.0f / (2.0f * w) + u / (2.0f * w3);
-  q.g_kap = c * c * c * r2 / (4.0f * w3);
-  const float opw = 1.0f + w;
-  q.sag_c = r2 / opw + u * r2 / (w * opw * opw);
-  q.sag_kap = c * c * c * r2 * r2 / (2.0f * w * opw * opw);
+  const float iw = 1.0f / w;
+  const float iw3 = iw * iw * iw;
+  const float q4 = 0.25f * iw3;  // 1/(4 w^3)
+  q.h = p.cbeta * q4;
+  q.g_c = 0.5f * iw + u * (0.5f * iw3);
+  q.g_kap = p.c3 * r2 * q4;
+  const float iopw = 1.0f / (1.0f + w);
+  const float iw_opw2 = iw * iopw * iopw;  // 1/(w (1+w)^2)
+  q.sag_c = r2 * iopw + u * r2 * iw_opw2;
+  q.sag_kap = p.c3 * r2 * r2 * (0.5f * iw_opw2);
   float pw = r2;  // (r^2)^j for j >= 1
-#pragma unroll 1
-  for (int j = 0; j < p.n_asph; ++j) {
-    const float term = p.a[j] * (float)(j + 2) * (float)(j + 1);
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
     if (j == 0) {
-      q.h = q.h + term;
+      q.h = q.h + p.a21[j];
     } else {
-      q.h = q.h + term * pw;
+      q.h = q.h + p.a21[j] * pw;
       pw = pw * r2;
     }
   }
@@ -145,7 +180,8 @@ __device__ __forceinline__ GPart g_partials(const Surf& p, float r2, float w, fl
 }
 
 // F(s) = z(s) - sag(r^2(s)), F'(s) and the domain guard at s.
-__device__ __forceinline__ void f_fp(const Surf& p, float x, float y, float z, float cx,
+template <int NA>
+__device__ __forceinline__ void f_fp(const Surf<NA>& p, float x, float y, float z, float cx,
                                      float cy, float cz, float s, float& f, float& fp,
                                      bool& guard) {
   const float xs = x + s * cx;
@@ -158,8 +194,16 @@ __device__ __forceinline__ void f_fp(const Surf& p, float x, float y, float z, f
 }
 
 // The pre-polish Newton point: the closed-form sphere guess (the vertex
-// plane where it misses), then n_iter Newton steps.
-__device__ __forceinline__ float newton_point(const Surf& p, float x, float y, float z,
+// plane where it misses), then n_iter Newton steps, left as soon as the
+// steps repeat. A step is a function of s alone (the ray and the surface
+// fixed, every operation correctly rounded: no contraction, no fast-math),
+// so once s_{i+1} equals s_i bit for bit every later step returns s_i, and
+// once it equals s_{i-1} the steps alternate between s_i and s_{i+1}: the
+// n_iter-th is s_{i+1} when n_iter - i - 1 is even, else s_i. Either exit
+// returns the bits of all n_iter steps (the plain version runs them all).
+// A lane leaves on its own; its warp runs until its last lane has left.
+template <int NA>
+__device__ __forceinline__ float newton_point(const Surf<NA>& p, float x, float y, float z,
                                               float cx, float cy, float cz, int n_iter) {
   const float e = -(x * cx + y * cy + z * cz);
   const float mz = z + e * cz;
@@ -172,13 +216,22 @@ __device__ __forceinline__ float newton_point(const Surf& p, float x, float y, f
   const bool plane_ok = fabsf(cz) > EPS;
   const float plane = plane_ok ? -z / cz : 0.0f;
   float s = fail_s ? plane : dist_s;
+  float s_prev = s;
 #pragma unroll 1
   for (int i = 0; i < n_iter; ++i) {
     float f, fp;
     bool guard;
     f_fp(p, x, y, z, cx, cy, cz, s, f, fp, guard);
     const float fp_s = fabsf(fp) > EPS ? fp : (fp >= 0.0f ? EPS : -EPS);
-    s = s - f / fp_s;
+    const float s_next = s - f / fp_s;
+    const unsigned bits = __float_as_uint(s_next);
+    if (bits == __float_as_uint(s)) break;
+    if (i > 0 && bits == __float_as_uint(s_prev)) {
+      if ((n_iter - i) & 1) s = s_next;
+      break;
+    }
+    s_prev = s;
+    s = s_next;
   }
   return s;
 }
@@ -195,7 +248,8 @@ struct LocalsA {
 // (pallas_asphere._fwd_surface_a): the polish step, the failure masks, the
 // hit point, Snell's law with the true normal and the zeroing of failed
 // lanes; advances the state in place.
-__device__ __forceinline__ void surface_finish(const Surf& p, float s_pre, float& x, float& y,
+template <int NA>
+__device__ __forceinline__ void surface_finish(const Surf<NA>& p, float s_pre, float& x, float& y,
                                                float& z, float& cx, float& cy, float& cz,
                                                bool& ok, LocalsA& L) {
   float fp;
@@ -271,8 +325,8 @@ struct SurfGrad {
 // and the pre-surface ones on return. dcos2_extra and dcos2p_extra inject
 // the penalty cotangents on the raw cos^2 locals where LU is set, and
 // ddist_extra the OPL cotangent on the marching distance where OPL is set.
-template <bool LU, bool OPL>
-__device__ __forceinline__ SurfGrad surface_adjoint(const Surf& p, float s_pre, float px,
+template <bool LU, bool OPL, int NA>
+__device__ __forceinline__ SurfGrad surface_adjoint(const Surf<NA>& p, float s_pre, float px,
                                                     float py, float pcx, float pcy, float pcz,
                                                     const LocalsA& L, float dcos2_extra,
                                                     float dcos2p_extra, float ddist_extra,
@@ -363,8 +417,9 @@ __device__ __forceinline__ SurfGrad surface_adjoint(const Surf& p, float s_pre, 
   dcz = dcz + dzA * L.dist;
 
   // polish: dist = s_pre - f/fp_safe, s_pre constant
-  const float df = -ddist / L.fp_safe;
-  const float dfp = L.stationary ? 0.0f : ddist * L.f / (L.fp_safe * L.fp_safe);
+  const float ifp = 1.0f / L.fp_safe;
+  const float df = -ddist * ifp;
+  const float dfp = L.stationary ? 0.0f : ddist * L.f * (ifp * ifp);
   // f and fp were evaluated at s_pre: that point's locals.
   const float xsp = px + s_pre * pcx;
   const float ysp = py + s_pre * pcy;
@@ -397,18 +452,34 @@ __device__ __forceinline__ SurfGrad surface_adjoint(const Surf& p, float s_pre, 
   return r;
 }
 
-template <int MODE>
-__device__ __forceinline__ Surf surf_of(const AsphTables<MODE>& s, int k, int n_w, int w,
-                                        int n_asph) {
-  return Surf{s.c[k], s.kappa[k], s.t[k], s.mu[k * n_w + w], s.a + k * n_asph, n_asph};
+// Surface k's parameters and constants for wavelength column w, read once a
+// surface from the block's tables.
+template <int NA, int MODE>
+__device__ __forceinline__ Surf<NA> surf_of(const AsphTables<MODE>& s, int k, int n_w, int w,
+                                            int n_asph) {
+  Surf<NA> p;
+  p.c = s.c[k];
+  p.beta = s.beta[k];
+  p.cbeta = s.cbeta[k];
+  p.c3 = s.c3[k];
+  p.t = s.t[k];
+  p.mu = s.mu[k * n_w + w];
+  const int base = k * n_asph;
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    p.a[j] = s.a[base + j];
+    p.a2[j] = s.a2[base + j];
+    p.a21[j] = s.a21[base + j];
+  }
+  return p;
 }
 
 // The forward trace of one ray of wavelength column w: launch at the
 // entrance pupil (xp, yp, cy, z0), every surface with its backward-ray
 // bookkeeping (or removal) and the sums of the mode (MODE: 0 plain, 1 Lu,
 // 2 full, 3 opl), then the transfer to the image plane
-// (pallas_asphere._fwd_kernel_a).
-template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
+// (pallas_asphere._fwd_kernel_a). NA as Surf's.
+template <int MODE, bool ALLOW_BACKWARD, bool MASKED, int NA>
 __device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE>& s, int n_surf,
                                               int n_w, int n_asph, int n_iter, int w,
                                               float angle_thr, float x, float y, float cy,
@@ -424,7 +495,7 @@ __device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE>& s, int n_s
   float z_prev = 0.0f;
 
   for (int k = 0; k < n_surf; ++k) {
-    const Surf p = surf_of(s, k, n_w, w, n_asph);
+    const Surf<NA> p = surf_of<NA>(s, k, n_w, w, n_asph);
     const float s_pre = newton_point(p, x, y, z, cx, cy, cz, n_iter);
     LocalsA L;
     surface_finish(p, s_pre, x, y, z, cx, cy, cz, ok, L);
@@ -508,7 +579,7 @@ __host__ __device__ __forceinline__ int n_params_a(int mode, int n_surf, int n_w
 // real ray and contribute zero so that every lane takes part in the
 // shuffles; w_first and w_last are the warp's first and last wavelength
 // columns.
-template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
+template <int MODE, bool ALLOW_BACKWARD, bool MASKED, int NA>
 __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf, int n_w,
                                           int n_asph, int n_iter, float angle_thr, bool active,
                                           int w, float xp, float yp, float cy0, float z0,
@@ -531,7 +602,7 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf,
   float cz = cz0;
   bool ok = true;
   for (int k = 0; k < n_surf; ++k) {
-    const Surf p = surf_of(s, k, n_w, w, n_asph);
+    const Surf<NA> p = surf_of<NA>(s, k, n_w, w, n_asph);
     st[k][0] = x;
     st[k][1] = y;
     st[k][2] = z;
@@ -584,7 +655,7 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf,
 
   // ---- reverse surface loop ----
   for (int k = n_surf - 1; k >= 0; --k) {
-    const Surf p = surf_of(s, k, n_w, w, n_asph);
+    const Surf<NA> p = surf_of<NA>(s, k, n_w, w, n_asph);
     const float px = st[k][0], py = st[k][1];
     const float pcx = st[k][3], pcy = st[k][4], pcz = st[k][5];
     const float s_pre = st[k][6];
@@ -649,7 +720,8 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf,
     // dsag/da_j = (r^2)^(j+2), dg/da_j = (j+2) (r^2)^(j+1), at the Snell
     // point, the hit point and the Newton point, in that order.
     float pB = L.r2B, ph = L.r2, pp = r.r2p;  // (r^2)^(j+1)
-    for (int j = 0; j < n_asph; ++j) {
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
       const float f2 = (float)(j + 2);
       const float pp2 = pp * r.r2p;
       const float da = r.dgB * f2 * pB + r.dg * f2 * ph + r.dsag * pp2 + r.dgp * f2 * pp;
@@ -678,6 +750,20 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf,
   dxp = dx;
   dyp = dy;
   dcyp = dcy;
+}
+
+// Calls f(std::integral_constant<int, n_asph>{}) for 1 <= n_asph <=
+// MAX_ASPH (the launchers admit no other count): K3 and K4 are
+// instantiated once per asphere term count.
+template <int K = 1, typename F>
+inline void with_terms(int n_asph, F&& f) {
+  if constexpr (K == MAX_ASPH) {
+    f(std::integral_constant<int, K>{});
+  } else if (n_asph == K) {
+    f(std::integral_constant<int, K>{});
+  } else {
+    with_terms<K + 1>(n_asph, f);
+  }
 }
 
 // The bounds every K3 and K4 launcher checks.

@@ -41,6 +41,12 @@
 // k4_bound). A system has 6 blocks, so the partials are small; the second
 // kernel launches B x n_params blocks of 256 threads that sum 6 values each.
 //
+// Design beyond K3's indexing: none. K4 runs K3's device code, so it leaves
+// the Newton loop as K3 does, once a lane's steps repeat (bit-identical to
+// all n_iter steps; N above is then what the inputs need, ~2.2 steps a
+// lane-surface on the aspheric Cooke population), reads the shared
+// per-surface constants from its tables and, as K3, is instantiated per
+// asphere term count, the loops over the terms unrolled.
 // Left for later work: any tuning.
 //
 // Build: as K3, -fmad=false and no fast-math, so that the recompute
@@ -52,9 +58,10 @@ namespace {
 
 constexpr int MAX_GRID_Y = 65535;
 
-// MODE: 0 plain, 1 Lu, 2 full, 3 opl. The partials are (n_sys, n_params,
-// blocks), one column per block, in the parameter layout of n_params_a.
-template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl; NA asphere terms. The partials are
+// (n_sys, n_params, blocks), one column per block, in the parameter layout
+// of n_params_a.
+template <int MODE, bool ALLOW_BACKWARD, bool MASKED, int NA>
 __global__ void __launch_bounds__(BLOCK) k4_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
     const float* __restrict__ cy_in, const float* __restrict__ z0,
@@ -102,10 +109,10 @@ __global__ void __launch_bounds__(BLOCK) k4_bwd_kernel(
                    LU ? read(dpz_in) : 0.0f, FULL ? read(dppath_in) : 0.0f,
                    FULL ? read(dpang_in) : 0.0f, OPL ? read(dopl_in) : 0.0f};
   float dxp, dyp, dcyp;
-  bwd_ray_a<MODE, ALLOW_BACKWARD, MASKED>(tab, n_surf, n_w, n_asph, n_iter, angle_thr, active,
-                                          w, xp[rc], yp[rc], cy_in[rc], z0[b], cot,
-                                          s_part + (threadIdx.x >> 5) * n_params, w_first,
-                                          w_last, dxp, dyp, dcyp);
+  bwd_ray_a<MODE, ALLOW_BACKWARD, MASKED, NA>(tab, n_surf, n_w, n_asph, n_iter, angle_thr,
+                                             active, w, xp[rc], yp[rc], cy_in[rc], z0[b], cot,
+                                             s_part + (threadIdx.x >> 5) * n_params, w_first,
+                                             w_last, dxp, dyp, dcyp);
   if (active) {
     dxp_out[r] = dxp;
     dyp_out[r] = dyp;
@@ -121,15 +128,19 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* con
                    const bool* mask, float angle_thr, const float* const* cot, int n_sys,
                    int n, int n_surf, int n_w, int n_asph, int n_per_w, int n_iter,
                    int n_params, float* const* out, double* partials) {
-  auto kernel = k4_bwd_kernel<MODE, ALLOW_BACKWARD, MASKED>;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, BLOCK, smem, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], mask, in[9], in[10],
-      in[11], in[12], angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6],
-      cot[7], cot[8], cot[9], n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter, n_params,
-      out[0], out[1], out[2], partials);
-  return cudaGetLastError();
+  cudaError_t err = cudaSuccess;
+  with_terms(n_asph, [&](auto na) {
+    auto kernel = k4_bwd_kernel<MODE, ALLOW_BACKWARD, MASKED, decltype(na)::value>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return;
+    kernel<<<grid, BLOCK, smem, stream>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], mask, in[9], in[10],
+        in[11], in[12], angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6],
+        cot[7], cot[8], cot[9], n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter, n_params,
+        out[0], out[1], out[2], partials);
+    err = cudaGetLastError();
+  });
+  return err;
 }
 
 template <int MODE, bool ALLOW_BACKWARD>

@@ -27,18 +27,24 @@
 // What bounds it on an H100: per ray the bytes and operations of K3 forward
 // (see fused_asphere_fwd.cu: 12 B read, 18 / 30 / 38 B written in plain /
 // Lu / full mode; 125 + 12 K + N (26 + 5 K) operations a surface with K
-// asphere terms and N = n_iter Newton steps, the surface constants counted
-// once per ray and surface), at the population's padded surface count, plus
-// each system's tables read once per block: 3 S + S W + S K + 1 floats
-// (+ S + 1 in full mode) and S mask bytes (chip_smoke.py's k3_ops and
-// k4_bound). At the generator width (256 systems x 1,536 rays x 7 surfaces,
+// asphere terms and N Newton steps a lane evaluates, the surface constants
+// counted once per ray and surface), at the population's padded surface
+// count, plus each system's tables read once per block: 3 S + S W + S K + 1
+// floats (+ S + 1 in full mode) and S mask bytes (chip_smoke.py's k3_ops
+// and k4_bound). At the generator width (256 systems x 1,536 rays x 7 surfaces,
 // K = 2, N = 10: 3,571 operations a ray in plain mode) that is 1.41 GFLOP,
 // 0.021 ms at the 67 TFLOP/s FP32 peak, against 11.8 MB, 0.0035 ms at
 // 3.35 TB/s: operations bound it, by 6x; the tables add < 1 % of the
 // bytes. One thread per ray; a system's 1,536 rays fill 6 blocks of 256, so
 // a 256-system population launches 1,536 blocks, ~12 per SM, each loading a
-// ~12 KB shared table for 256 rays.
+// ~17 KB shared table for 256 rays.
 //
+// Design beyond K3's indexing: none. K4 runs K3's device code, so it leaves
+// the Newton loop as K3 does, once a lane's steps repeat (bit-identical to
+// all n_iter steps; N above is then what the inputs need, ~2.2 steps a
+// lane-surface on the aspheric Cooke population), reads the shared
+// per-surface constants from its tables and, as K3, is instantiated per
+// asphere term count, the loops over the terms unrolled.
 // Left for later work: any tuning.
 //
 // Build: as K3, -fmad=false and no fast-math: the masks compare against EPS
@@ -50,8 +56,8 @@ namespace {
 
 constexpr int MAX_GRID_Y = 65535;
 
-// MODE: 0 plain, 1 Lu, 2 full, 3 opl.
-template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl; NA asphere terms.
+template <int MODE, bool ALLOW_BACKWARD, bool MASKED, int NA>
 __global__ void __launch_bounds__(BLOCK) k4_fwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
     const float* __restrict__ cy_in, const float* __restrict__ z0,
@@ -83,7 +89,7 @@ __global__ void __launch_bounds__(BLOCK) k4_fwd_kernel(
   if (i >= n) return;
   const size_t r = (size_t)b * n + i;
   const int w = min(i / n_per_w, n_w - 1);
-  const RayOut o = trace_ray_a<MODE, ALLOW_BACKWARD, MASKED>(
+  const RayOut o = trace_ray_a<MODE, ALLOW_BACKWARD, MASKED, NA>(
       tab, n_surf, n_w, n_asph, n_iter, w, angle_thr, xp[r], yp[r], cy_in[r], z0[b]);
   x_out[r] = o.x;
   y_out[r] = o.y;
@@ -109,11 +115,14 @@ void launch(const float* const* in, const bool* mask, float angle_thr, int n_sys
             bool* ok_out, bool* bw_out, float* const* pens, cudaStream_t stream) {
   const int gy = n_sys < MAX_GRID_Y ? n_sys : MAX_GRID_Y;
   const dim3 grid((n + BLOCK - 1) / BLOCK, gy, (n_sys + gy - 1) / gy);
-  k4_fwd_kernel<MODE, ALLOW_BACKWARD, MASKED><<<grid, BLOCK, 0, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], mask, in[9], in[10],
-      in[11], in[12], angle_thr, n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter, outs[0],
-      outs[1], outs[2], outs[3], ok_out, bw_out, pens[0], pens[1], pens[2], pens[3], pens[4],
-      pens[5]);
+  with_terms(n_asph, [&](auto na) {
+    constexpr int NA = decltype(na)::value;
+    k4_fwd_kernel<MODE, ALLOW_BACKWARD, MASKED, NA><<<grid, BLOCK, 0, stream>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], mask, in[9], in[10],
+        in[11], in[12], angle_thr, n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter, outs[0],
+        outs[1], outs[2], outs[3], ok_out, bw_out, pens[0], pens[1], pens[2], pens[3],
+        pens[4], pens[5]);
+  });
 }
 
 template <int MODE, bool ALLOW_BACKWARD>

@@ -34,28 +34,41 @@
 // partials add 16 B per block and parameter. The operations are counted as
 // for the forward, each value once, and as the function needs them
 // (chip_smoke.py's k3_ops): per ray-surface the forward once
-// (125 + 12 K + N (26 + 5 K)); the backward's surface constants
-// c (1+kappa)c^2, c^3 and a_j (j+2)(j+1), 3 + K (g_partials forms them at
-// each of its three calls); the adjoint chain through Snell's law, the hit
-// point and the polish step, 163 (the Newton point's coordinates, dot
-// product and sag terms are the forward's, not counted again); the sag
-// partials, 20 at the Newton point and 10 at each of the hit and Snell
-// points (where the sag's partials are read by nothing), plus 2 K - 1 for
-// the asphere terms of dg/dr^2 at each; the asphere cotangents, 10 K on the
-// forward's powers of r^2; and one add per ray for each of the 4 + K
-// parameter sums. Per ray 19 for the launch, image-transfer and dz0 terms;
-// Lu, full and opl add what they add to K1b. At N = 10 and K = 2 that is 752 a
-// surface, 8,291 a ray on the 11-surface flagship in plain mode: 20.4 GFLOP
-// at 2.46M rays, 0.304 ms at the 67 TFLOP/s FP32 peak, against ~103 MB,
-// 0.031 ms at 3.35 TB/s: operations bound it. What the kernel spends beyond
-// that count: the rest of each surface step a second time (the recompute
-// from s_pre in the reverse loop), the surface constants at every sag
-// evaluation, the Newton point's sag terms again in the adjoint, five
+// (125 + 12 K + N (26 + 5 K), N the Newton steps a lane evaluates); the
+// backward's surface constants c (1+kappa)c^2, c^3 and a_j (j+2)(j+1),
+// 3 + K; the adjoint chain through Snell's law, the hit point and the polish
+// step, 163 (the Newton point's coordinates, dot product and sag terms are
+// the forward's, not counted again); the sag partials, 20 at the Newton
+// point and 10 at each of the hit and Snell points (where the sag's
+// partials are read by nothing), plus 2 K - 1 for the asphere terms of
+// dg/dr^2 at each; the asphere cotangents, 10 K on the forward's powers of
+// r^2; and one add per ray for each of the 4 + K parameter sums. Per ray 19
+// for the launch, image-transfer and dz0 terms; Lu, full and opl add what
+// they add to K1b. At K = 2 and N = 10 that is 752 a surface, 8,291 a ray
+// on the 11-surface flagship in plain mode: 20.4 GFLOP at 2.46M rays,
+// 0.304 ms at the 67 TFLOP/s FP32 peak; at the ~2.4 steps the flagship's
+// lanes need, 5,285 a ray, 0.194 ms; against ~103 MB, 0.031 ms at
+// 3.35 TB/s: operations bound it.
+//
+// Design: the forward as K3 forward's (the Newton exit, the constants
+// formed once per block, the kernel instantiated per asphere term count K
+// with the terms' loops unrolled). The adjoint shares reciprocals where it
+// divided by one denominator more than once: the sag partials take one
+// reciprocal of w and one of 1 + w (2 divisions at the Newton point where
+// the quotients took 7, and 1 at each of the hit and Snell points), the
+// polish step one of F'; 10 divisions a surface where there were 28. The
+// plain version (ops/fused_asphere.py: _g_partials, _bwd_surface_a) has the
+// same form, so the per-ray cotangents stay bit-identical; it stays within
+// a few float32 roundings of the quotients (tests/test_torch_newton_exit.py).
+// What the kernel spends beyond the count: the rest of each surface step a
+// second time (the recompute from s_pre in the reverse loop), five
 // shuffle-adds per warp sum where one add per ray is needed, and the path
-// hinges of each gap twice. The stash (7 floats a
-// surface, 1,792 B of stack frame at MAX_SURF, 308 B used at 11 surfaces)
-// lives in local memory; the TPU kernel stashes 32 floats and 6 masks a
-// surface instead.
+// hinges of each gap twice. The stash (7 floats a surface, 1,792 B of stack
+// frame at MAX_SURF, 308 B used at 11 surfaces) lives in local memory,
+// which the L1 and L2 caches hold; the TPU kernel stashes 32 floats and 6
+// masks a surface instead. The kernel asks for 4 blocks of 256 an SM
+// (K3B_MIN_BLOCKS): 64 registers where it would take 80, with 48-92 B of
+// spills, and 1,024 threads in flight where 768 fit.
 //
 // Build: as the forward, -fmad=false and no fast-math, so that the
 // recompute reproduces the forward and the adjoint the plain version.
@@ -64,10 +77,17 @@
 
 namespace {
 
-// MODE: 0 plain, 1 Lu, 2 full, 3 opl. The partials are (n_params x blocks),
-// one column per block, in the parameter layout of n_params_a.
-template <int MODE, bool ALLOW_BACKWARD>
-__global__ void __launch_bounds__(BLOCK) k3_bwd_kernel(
+// At least 4 blocks of 256 threads an SM: at most 64 registers a thread
+// where the compiler would take 80 (3 blocks), with a few spills, for a
+// third more warps in flight over the divisions and the stash's local
+// memory; faster in every mode on an H100 (PERF.md, section 6).
+constexpr int K3B_MIN_BLOCKS = 4;
+
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl; NA asphere terms. The partials are
+// (n_params x blocks), one column per block, in the parameter layout of
+// n_params_a.
+template <int MODE, bool ALLOW_BACKWARD, int NA>
+__global__ void __launch_bounds__(BLOCK, K3B_MIN_BLOCKS) k3_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
     const float* __restrict__ cy_in, const float* __restrict__ z0,
     const float* __restrict__ c, const float* __restrict__ kappa,
@@ -106,10 +126,10 @@ __global__ void __launch_bounds__(BLOCK) k3_bwd_kernel(
                    LU ? read(dpz_in) : 0.0f, FULL ? read(dppath_in) : 0.0f,
                    FULL ? read(dpang_in) : 0.0f, OPL ? read(dopl_in) : 0.0f};
   float dxp, dyp, dcyp;
-  bwd_ray_a<MODE, ALLOW_BACKWARD, false>(tab, n_surf, n_w, n_asph, n_iter, angle_thr, active,
-                                         w, xp[ic], yp[ic], cy_in[ic], *z0, cot,
-                                         s_part + (threadIdx.x >> 5) * n_params, w_first,
-                                         w_last, dxp, dyp, dcyp);
+  bwd_ray_a<MODE, ALLOW_BACKWARD, false, NA>(tab, n_surf, n_w, n_asph, n_iter, angle_thr,
+                                             active, w, xp[ic], yp[ic], cy_in[ic], *z0, cot,
+                                             s_part + (threadIdx.x >> 5) * n_params, w_first,
+                                             w_last, dxp, dyp, dcyp);
   if (active) {
     dxp_out[i] = dxp;
     dyp_out[i] = dyp;
@@ -124,15 +144,19 @@ cudaError_t launch(int grid, size_t smem, cudaStream_t stream, const float* cons
                    float angle_thr, const float* const* cot, int n, int n_surf, int n_w,
                    int n_asph, int n_per_w, int n_iter, int n_params, float* const* out,
                    double* partials) {
-  auto kernel = k3_bwd_kernel<MODE, ALLOW_BACKWARD>;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, BLOCK, smem, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10], in[11],
-      in[12], angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7],
-      cot[8], cot[9], n, n_surf, n_w, n_asph, n_per_w, n_iter, n_params, out[0], out[1],
-      out[2], partials);
-  return cudaGetLastError();
+  cudaError_t err = cudaSuccess;
+  with_terms(n_asph, [&](auto na) {
+    auto kernel = k3_bwd_kernel<MODE, ALLOW_BACKWARD, decltype(na)::value>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return;
+    kernel<<<grid, BLOCK, smem, stream>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10], in[11],
+        in[12], angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7],
+        cot[8], cot[9], n, n_surf, n_w, n_asph, n_per_w, n_iter, n_params, out[0], out[1],
+        out[2], partials);
+    err = cudaGetLastError();
+  });
+  return err;
 }
 
 }  // namespace

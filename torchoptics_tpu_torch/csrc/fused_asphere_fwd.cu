@@ -22,33 +22,37 @@
 // 18 B (plain), 30 B (Lu) or 38 B (full), as K1. Counting FP32 arithmetic
 // only (adds, multiplies, min/max, each sqrt and division as one; negations,
 // fabsf, compares and selects not counted), each value once, with K asphere
-// terms and N = n_iter Newton steps: the surface constants (1+kappa)c^2 and
-// a_j (j+2) once a surface, 3 + K (the code forms them at each of its 13
-// sag evaluations); a Newton step or the polish, 26 + 5 K (F, F' and the
+// terms and N Newton steps: the surface constants (1+kappa)c^2 and
+// a_j (j+2), 3 + K; a Newton step or the polish, 26 + 5 K (F, F' and the
 // step 18, the sag and its slope 8 + 5 K); the sphere guess and the plane
 // fallback 26; the hit point 29 + 3 K and the Snell point 41 + 3 K (their
 // slopes 4 + 3 K each: the sag there is computed but read by nothing; then
 // the normal, cos^2 and Snell's law): 125 + 12 K + N (26 + 5 K) a surface,
 // 509 at N = 10 and K = 2, ~9x K1's 55. Lu adds 14 a surface and full 10 a
 // surface and 3 per finite side of a path bound, opl 2 a leg and 4 B written
-// a ray, as in K1; the launch and
-// the image transfer add 8 a ray (chip_smoke.py's k3_ops). At 2.46M rays x
-// 11 surfaces, plain mode is 13.8 GFLOP, 0.206 ms at the 67 TFLOP/s FP32
-// peak, against 74 MB of traffic, 0.022 ms at 3.35 TB/s: operations bound
-// it, by 9x.
+// a ray, as in K1; the launch and the image transfer add 8 a ray
+// (chip_smoke.py's k3_ops). N is what the inputs need: a lane leaves the
+// Newton loop once its steps repeat (below), on the flagship after ~2.4
+// steps on average where the loop ran 10. Operations bound it, ~9x above
+// the bytes at N = 10 and still ~4x at N = 2.4.
 //
-// Design: one thread per ray, as K1; the Newton loop is a runtime loop
-// (n_iter is an argument) and not unrolled; the per-surface tables c,
-// kappa, t, mu and the asphere coefficients (S x K, K <= MAX_ASPH) are read
-// once per block into shared memory; z0 is read from device memory; the
-// mode and the backward-ray policy are template parameters; the ragged tail
-// is masked by i < n. Ray i has wavelength min(i / n_per_w, W - 1). The
-// per-ray trace (trace_ray_a) and the surface math live in
-// asphere_common.cuh, with the MASKED switch for the population kernel K4.
-//
-// Left for later work: any tuning (a Newton loop that stops once every lane
-// of a warp has converged would change no result only if the steps after
-// convergence leave s unchanged, which float32 Newton steps need not do).
+// Design: one thread per ray, as K1. The Newton loop (newton_point in
+// asphere_common.cuh) leaves a lane as soon as its steps repeat, a fixed
+// point or a 2-cycle between two floats, and reads the n_iter-th step off
+// the cycle: a step is a function of s alone, every operation correctly
+// rounded, so the exit returns the bits of all n_iter steps (the plain
+// version runs them all, and the two are held bit for bit). A warp runs
+// until its last lane leaves. The per-surface tables c, t, mu and the
+// asphere coefficients (S x K, K <= MAX_ASPH) are read once per block into
+// shared memory, with the constants every sag evaluation shares ((1+kappa)
+// c^2 and the products a_j (j+2), formed there once), which a thread copies
+// into registers once a surface. The kernel is instantiated per
+// asphere term count K (1 to MAX_ASPH = 8), so the loops over the terms are
+// unrolled; z0 is read from device memory; the mode and the backward-ray
+// policy are template parameters; the ragged tail is masked by i < n. Ray i
+// has wavelength min(i / n_per_w, W - 1). The per-ray trace (trace_ray_a)
+// and the surface math live in asphere_common.cuh, with the MASKED switch
+// for the population kernel K4.
 //
 // Build: as K1, nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false, no fast-math: the masks compare against EPS and NEWTON_TOL,
@@ -59,8 +63,8 @@
 
 namespace {
 
-// MODE: 0 plain, 1 Lu, 2 full, 3 opl.
-template <int MODE, bool ALLOW_BACKWARD>
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl; NA asphere terms.
+template <int MODE, bool ALLOW_BACKWARD, int NA>
 __global__ void __launch_bounds__(BLOCK) k3_fwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
     const float* __restrict__ cy_in, const float* __restrict__ z0,
@@ -83,7 +87,7 @@ __global__ void __launch_bounds__(BLOCK) k3_fwd_kernel(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int w = min(i / n_per_w, n_w - 1);
-  const RayOut r = trace_ray_a<MODE, ALLOW_BACKWARD, false>(
+  const RayOut r = trace_ray_a<MODE, ALLOW_BACKWARD, false, NA>(
       tab, n_surf, n_w, n_asph, n_iter, w, angle_thr, xp[i], yp[i], cy_in[i], *z0);
   x_out[i] = r.x;
   y_out[i] = r.y;
@@ -108,11 +112,13 @@ void launch(const float* const* in, float angle_thr, int n, int n_surf, int n_w,
             int n_asph, int n_per_w, int n_iter, float* const* outs, bool* ok_out,
             bool* bw_out, float* const* pens, cudaStream_t stream) {
   const int grid = (n + BLOCK - 1) / BLOCK;
-  k3_fwd_kernel<MODE, ALLOW_BACKWARD><<<grid, BLOCK, 0, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
-      in[11], in[12], angle_thr, n, n_surf, n_w, n_asph, n_per_w, n_iter, outs[0], outs[1],
-      outs[2], outs[3], ok_out, bw_out, pens[0], pens[1], pens[2], pens[3], pens[4],
-      pens[5]);
+  with_terms(n_asph, [&](auto na) {
+    k3_fwd_kernel<MODE, ALLOW_BACKWARD, decltype(na)::value><<<grid, BLOCK, 0, stream>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
+        in[11], in[12], angle_thr, n, n_surf, n_w, n_asph, n_per_w, n_iter, outs[0], outs[1],
+        outs[2], outs[3], ok_out, bw_out, pens[0], pens[1], pens[2], pens[3], pens[4],
+        pens[5]);
+  });
 }
 
 }  // namespace

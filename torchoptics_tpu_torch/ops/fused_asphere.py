@@ -108,15 +108,22 @@ def _sag_terms(c, kappa, a, r2):
 
 def _g_partials(c, kappa, a, r2, w, u):
     """(h = dg/dr², dg/dc, dg/dκ, dsag/dc, dsag/dκ) at r² (pallas_asphere
-    ``_g_partials``); the aₖ partials are powers of r²."""
+    ``_g_partials``); the aₖ partials are powers of r². The terms that
+    divide by powers of w and of 1 + w share one reciprocal of each, as the
+    kernels compute them (within 4 float32 roundings of the closed forms,
+    ``tests/test_torch_newton_exit.py``)."""
     beta = (1.0 + kappa) * c * c
-    w3 = w * w * w
-    h = c * beta / (4.0 * w3)
-    g_c = 1.0 / (2.0 * w) + u / (2.0 * w3)
-    g_kap = c * c * c * r2 / (4.0 * w3)
-    opw = 1.0 + w
-    sag_c = r2 / opw + u * r2 / (w * opw * opw)
-    sag_kap = c * c * c * r2 * r2 / (2.0 * w * opw * opw)
+    c3 = c * c * c
+    iw = 1.0 / w
+    iw3 = iw * iw * iw
+    q4 = 0.25 * iw3                      # 1/(4 w³)
+    h = c * beta * q4
+    g_c = 0.5 * iw + u * (0.5 * iw3)
+    g_kap = c3 * r2 * q4
+    iopw = 1.0 / (1.0 + w)
+    iw_opw2 = iw * iopw * iopw           # 1/(w (1+w)²)
+    sag_c = r2 * iopw + u * r2 * iw_opw2
+    sag_kap = c3 * r2 * r2 * (0.5 * iw_opw2)
     p = _powers(r2, len(a))
     for k, ak in enumerate(a):
         term = ak * (k + 2.0) * (k + 1.0)
@@ -155,6 +162,40 @@ def _newton_point(c, kappa, a, x, y, z, cx, cy, cz, n_iter: int):
         fp_s = torch.where(torch.abs(fp) > EPS, fp, torch.where(fp >= 0, eps, neg_eps))
         s = s - f / fp_s
     return s
+
+
+def newton_point_with_exit(c, kappa, a, x, y, z, cx, cy, cz, n_iter: int):
+    """The kernels' Newton solve: ``_newton_point``'s steps, each lane left
+    as soon as its steps repeat. A step is a function of s alone, so once
+    s_{i+1} equals s_i bit for bit (a fixed point) every later step returns
+    s_i, and once it equals s_{i-1} (a 2-cycle) the steps alternate: the
+    ``n_iter``-th is s_{i+1} when n_iter - i - 1 is even, else s_i.
+
+    Returns (s, steps, period), each shaped as x: s with the bits of
+    ``_newton_point``'s, the Newton steps each lane evaluates before it
+    leaves (``n_iter`` where no period <= 2 shows), and the period it left
+    on (1 or 2; 0 for none)."""
+    s = _newton_point(c, kappa, a, x, y, z, cx, cy, cz, 0)  # the sphere guess
+    bits = lambda v: v.view(torch.int32)
+    eps, neg_eps = s.new_tensor(EPS), s.new_tensor(-EPS)
+    out = s
+    steps = torch.full(s.shape, n_iter, dtype=torch.int32, device=s.device)
+    period = torch.zeros(s.shape, dtype=torch.int8, device=s.device)
+    done = torch.zeros(s.shape, dtype=torch.bool, device=s.device)
+    s_prev = s
+    for i in range(n_iter):
+        f, fp, _ = _f_fp(c, kappa, a, x, y, z, cx, cy, cz, s)
+        fp_s = torch.where(torch.abs(fp) > EPS, fp, torch.where(fp >= 0, eps, neg_eps))
+        s_next = s - f / fp_s
+        one = ~done & (bits(s_next) == bits(s))
+        two = ~done & ~one & (bits(s_next) == bits(s_prev)) & (i > 0)
+        out = torch.where(one, s, out)
+        out = torch.where(two, s_next if (n_iter - i) % 2 else s, out)
+        steps = torch.where(one | two, i + 1, steps)
+        period = torch.where(one, 1, torch.where(two, 2, period)).to(torch.int8)
+        done = done | one | two
+        s_prev, s = s, s_next
+    return torch.where(done, out, s), steps, period
 
 
 def _finish_surface(c, kappa, t, mu, a, x, y, z, cx, cy, cz, ok, s_pre):
@@ -223,6 +264,13 @@ def _fwd_surface_a(c, kappa, t, mu, a, x, y, z, cx, cy, cz, ok, n_iter: int):
     with torch.no_grad():
         s_pre = _newton_point(c, kappa, a, x, y, z, cx, cy, cz, n_iter)
     return _finish_surface(c, kappa, t, mu, a, x, y, z, cx, cy, cz, ok, s_pre)
+
+
+def _polish_adjoint(ddist, f, fp_safe, stationary):
+    """(df, dfp) of the polish step dist = s_pre - f/fp_safe with s_pre held,
+    through one reciprocal of fp_safe, as the kernels compute them."""
+    ifp = 1.0 / fp_safe
+    return -ddist * ifp, torch.where(stationary, 0.0, ddist * f * (ifp * ifp))
 
 
 def _bwd_surface_a(c, kappa, mu, a, pre, loc, d, dcos2_extra=None, dcos2p_extra=None,
@@ -327,9 +375,8 @@ def _bwd_surface_a(c, kappa, mu, a, pre, loc, d, dcos2_extra=None, dcos2p_extra=
     dcz = dcz + dzA * dist
 
     # polish: dist = s_pre - f/fp_safe, s_pre constant
-    s_pre, fp_safe = L["s_pre"], L["fp_safe"]
-    df = -ddist / fp_safe
-    dfp = torch.where(L["stationary"], 0.0, ddist * L["f"] / (fp_safe * fp_safe))
+    s_pre = L["s_pre"]
+    df, dfp = _polish_adjoint(ddist, L["f"], L["fp_safe"], L["stationary"])
     # f and fp were evaluated at s_pre: that point's locals.
     xsp = x + s_pre * cx
     ysp = y + s_pre * cy
