@@ -131,7 +131,15 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     gets ``bound_ms_issue`` (its bound at the measured issue rates);
 32. timings: P2, its plain version and the torch.fft product at the 1024^2
     shape, and the host wall of a render at 256, 512 and 1024^2, split into
-    ``sample_optics_model`` and ``apply_optics_model``.
+    ``sample_optics_model`` and ``apply_optics_model``;
+33. (after 28) K1b to K4b at ragged shapes, where no warp or block boundary
+    falls on a wavelength's: 5 fields x 13^2 pupil rays (845 a wavelength,
+    2,535 a system; blocks straddle wavelengths, the last block is partly
+    inactive) and 1 x 9^2 (81 a wavelength: three wavelengths in one
+    partial block), every mode and policy, on each kernel's lens and c x 3
+    variant (K2 and K4 on 32-system populations, also padded and mixed):
+    per-ray cotangents and two launches bit for bit, parameter sums within
+    each kernel's bar of the plain version's.
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -148,11 +156,12 @@ before that carries the kernels' numbers.
                                       # and of a 1024^2 render
     python3 chip_smoke.py --render-walls  # instead: phase 32's render walls
                                           # alone (no result line)
-    python3 chip_smoke.py --k3-turns TREE...  # instead: K3 and K4, every
-                                          # mode, of each unpacked tree and
-                                          # of this checkout, timed in turns
-                                          # (trees, this, this, trees in
-                                          # reverse; no result line)
+    python3 chip_smoke.py --kernel-turns TREE...  # instead: K1 to K4,
+                                          # every mode, of each unpacked tree
+                                          # and of this checkout, timed in
+                                          # turns (trees, this, this, trees
+                                          # in reverse; no result line)
+    python3 chip_smoke.py --ragged        # instead: phase 33 alone
 """
 
 import collections
@@ -1615,12 +1624,37 @@ def phase_k3_train(torch, zoo, simulator, fused_trace, fused_asphere, LensOptimi
     return launches
 
 
-def fwd_bwd_times(torch, kernel, suffix, fwd, bwd, plain, queue_ahead):
+def reduce_split_ms(torch, fn, calls=20):
+    """(the partial sums' reduction, the backward kernel): device
+    milliseconds per call of ``fn`` from torch.profiler's kernel times over
+    ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    reduce_us = main_us = 0.0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if "partials_reduce" in ev.key:
+            reduce_us += dev_us
+        elif "_bwd_kernel" in ev.key:
+            main_us += dev_us
+    return reduce_us / calls / 1e3, main_us / calls / 1e3
+
+
+def fwd_bwd_times(torch, kernel, suffix, fwd, bwd, plain, queue_ahead, split=False):
     """{kernel}_fwd{suffix} and {kernel}_bwd{suffix}: the milliseconds of
     fwd(False) and bwd(False), the kernels (``time_ms``, behind a sleep
     kernel where ``queue_ahead``), and where ``plain`` is set
     plain_{kernel}_fwd{suffix} and plain_{kernel}_bwd{suffix}, of fwd(True)
-    and bwd(True), their plain versions."""
+    and bwd(True), their plain versions; where ``split`` is set,
+    {kernel}_bwd{suffix}_reduce and _main, the backward's two kernels apart
+    (``reduce_split_ms``)."""
     ms = {}
     with torch.no_grad():
         for kind, run in (("fwd", fwd), ("bwd", bwd)):
@@ -1629,44 +1663,61 @@ def fwd_bwd_times(torch, kernel, suffix, fwd, bwd, plain, queue_ahead):
             if plain:
                 ms[f"plain_{kernel}_{kind}{suffix}"] = time_ms(torch, lambda: run(True), runs=3,
                                                                batch=2)
+        if split:
+            (ms[f"{kernel}_bwd{suffix}_reduce"],
+             ms[f"{kernel}_bwd{suffix}_main"]) = reduce_split_ms(torch, lambda: bwd(False))
     return ms
 
 
-def asphere_mode_times(torch, zoo, simulator, modules, kernel, plain, gen, on_mode=None):
-    """K3 or K4 forward and backward in plain, Lu and full mode (backward
-    rays allowed) with CUDA events: K3 at 2,457,600 rays of the aspherized
-    double-Gauss, K4 at 256 x 1,536 = 393,216 rays of the aspheric Cooke
-    population (its batches enqueued behind a sleep kernel); their plain
-    versions too where ``plain`` is set. ``on_mode(penalties, fwd, bwd)``
-    sees each mode's runners (argument: plain) after its times, under
-    no_grad. ``modules`` is (fused_trace, fused_batch, fused_asphere); K3
-    reads no fused_batch. Returns the times and (inputs, n_per_w, mask,
-    bounds, thr), mask None for K3."""
+def mode_times(torch, zoo, simulator, modules, kernel, plain, gen, on_mode=None, split=False):
+    """One kernel's forward and backward in plain, Lu and full mode
+    (backward rays allowed) with CUDA events: K1 at 2,457,600 rays of the
+    double-Gauss, K3 at 2,457,600 rays of the aspherized double-Gauss, K2 at
+    256 x 1,536 = 393,216 rays of the Cooke population, K4 of the aspheric
+    Cooke population (the population kernels' batches enqueued behind a
+    sleep kernel); their plain versions too where ``plain`` is set, the
+    backward's two kernels apart where ``split`` is (``fwd_bwd_times``).
+    ``on_mode(penalties, fwd, bwd)`` sees each mode's runners (argument:
+    plain) after its times, under no_grad. ``modules`` is (fused_trace,
+    fused_batch, fused_asphere). Returns the times and (inputs, n_per_w,
+    mask, bounds, thr), mask None for K1 and K3."""
     fused_trace, fused_batch, fused_asphere = modules
-    population = kernel == "k4"
-    if population:
-        inputs, n_per_w, mask, bounds, thr = k4_inputs(torch, zoo, simulator, fused_batch,
-                                                      fused_trace, "cooke")
-    else:
+    population = kernel in ("k2", "k4")
+    mask = None
+    if kernel == "k1":
+        inputs, n_per_w, bounds, thr = kernel_inputs(torch, zoo, simulator, fused_trace,
+                                                     BENCH_WIDTH)
+    elif kernel == "k2":
+        inputs, n_per_w, mask, bounds, thr = population_inputs(
+            torch, zoo, simulator, fused_batch, fused_trace, "cooke")[2:]
+        inputs = tuple(a.detach() for a in inputs)
+    elif kernel == "k3":
         inputs, n_per_w, bounds, thr = asphere_inputs(torch, zoo, simulator, fused_trace,
                                                       BENCH_WIDTH)
-        mask = None
+    else:
+        inputs, n_per_w, mask, bounds, thr = k4_inputs(torch, zoo, simulator, fused_batch,
+                                                      fused_trace, "cooke")
     ms = {}
     for penalties in PENALTY_MODES:
         cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
                for _ in range({False: 4, True: 7, "full": 9}[penalties])]
-        if population:
-            fwd = lambda plain: run_k4_fwd(fused_asphere, inputs, penalties, True, n_per_w, mask,
-                                           bounds, thr, plain)
-            bwd = lambda plain: run_k4_bwd(fused_asphere, inputs, cot, penalties, True, n_per_w,
-                                           mask, bounds, thr, plain)
+        args = (penalties, True, n_per_w)
+        if kernel == "k1":
+            fwd = lambda plain: run_fwd(fused_trace, inputs, *args, bounds, thr, plain)
+            bwd = lambda plain: run_bwd(fused_trace, inputs, cot, *args, bounds, thr, plain)
+        elif kernel == "k2":
+            fwd = lambda plain: run_k2_fwd(fused_batch, inputs, *args, mask, bounds, thr, plain)
+            bwd = lambda plain: run_k2_bwd(fused_batch, inputs, cot, *args, mask, bounds, thr,
+                                           plain)
+        elif kernel == "k3":
+            fwd = lambda plain: run_k3_fwd(fused_asphere, inputs, *args, bounds, thr, plain)
+            bwd = lambda plain: run_k3_bwd(fused_asphere, inputs, cot, *args, bounds, thr, plain)
         else:
-            fwd = lambda plain: run_k3_fwd(fused_asphere, inputs, penalties, True, n_per_w,
-                                           bounds, thr, plain)
-            bwd = lambda plain: run_k3_bwd(fused_asphere, inputs, cot, penalties, True, n_per_w,
-                                           bounds, thr, plain)
+            fwd = lambda plain: run_k4_fwd(fused_asphere, inputs, *args, mask, bounds, thr, plain)
+            bwd = lambda plain: run_k4_bwd(fused_asphere, inputs, cot, *args, mask, bounds, thr,
+                                           plain)
         ms.update(fwd_bwd_times(torch, kernel, f"_{MODE_NAME[penalties]}", fwd, bwd, plain,
-                                population))
+                                population, split))
         if on_mode:
             with torch.no_grad():
                 on_mode(penalties, fwd, bwd)
@@ -1702,7 +1753,7 @@ def phase_k3_timing(torch, zoo, simulator, fused_trace, fused_asphere, LensOptim
                   f"dkappa, dt, dmu, dasph{', dref_z' if mode == 'full' else ''} within "
                   f"{par_rel:.2e} of their largest (limit {ONE_ROUNDING:.2e}; max absolute "
                   f"deviation {par_abs:.3e})")
-    ms, (inputs, _, _, bounds, _) = asphere_mode_times(
+    ms, (inputs, _, _, bounds, _) = mode_times(
         torch, zoo, simulator, (fused_trace, None, fused_asphere), "k3", True, gen, check_mode)
     n, n_surf = inputs[0].shape[0], inputs[4].shape[0]
     shape = dict(n_rays=n, n_surf=n_surf, n_w=inputs[7].shape[1], n_asph=inputs[8].shape[1],
@@ -2181,7 +2232,7 @@ def phase_k4_timing(torch, zoo, simulator, fused_trace, fused_batch, fused_asphe
     enqueued behind a sleep kernel as K2's; the fwd+bwd of
     ``batched_unsupervised_loss`` and one training step (host clock)."""
     gen = torch.Generator(device="cuda").manual_seed(10)
-    ms, (inputs, n_per_w, mask, bounds, _) = asphere_mode_times(
+    ms, (inputs, n_per_w, mask, bounds, _) = mode_times(
         torch, zoo, simulator, (fused_trace, fused_batch, fused_asphere), "k4", True, gen)
     n_rays, n_surf = inputs[0].numel(), inputs[4].shape[1]
     shape = dict(n_rays=n_rays, n_surf=n_surf, n_w=inputs[7].shape[2], n_asph=inputs[8].shape[2],
@@ -2822,7 +2873,7 @@ def phase_opl_timing(torch, zoo, simulator, modules, card):
     return ms, shapes
 
 
-def opl_times(torch, zoo, simulator, modules, kernel, plain, gen):
+def opl_times(torch, zoo, simulator, modules, kernel, plain, gen, split=False):
     """One opl kernel forward and backward (backward rays allowed) with CUDA
     events: K1 and K3 at 2,457,600 rays, K2 and K4 at 256 x 1,536 = 393,216
     rays (the population kernels' batches enqueued behind a sleep kernel);
@@ -2836,7 +2887,7 @@ def opl_times(torch, zoo, simulator, modules, kernel, plain, gen):
     run = lambda plain, cot=None: run_opl(modules, kernel, inputs, n_per_w, mask, True, plain,
                                           cot)
     ms = fwd_bwd_times(torch, kernel, "", run, lambda plain: run(plain, cot), plain,
-                       kernel in ("k2", "k4"))
+                       kernel in ("k2", "k4"), split)
     return ms, (inputs, n_per_w, mask)
 
 
@@ -2897,6 +2948,145 @@ def opl_entries(ms, shapes, worst, serve, pop, train, fwd_bwd_launches, fwd_bwd_
                     entry.update(fwd_bwd_ms)
             entries.append(entry)
     return entries
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels at ragged shapes: wavelengths and ray counts that no
+# warp or block boundary divides.
+# ---------------------------------------------------------------------------
+
+# 5 fields x 13^2 pupil rays = 845 a wavelength, 2,535 a system: warps and
+# blocks straddle two wavelengths and the last block is partly inactive.
+# 1 field x 9^2 = 81 a wavelength, 243 a system: one partly inactive block
+# holds all three wavelengths.
+RAGGED_WIDTHS = {"5 x 13^2": dict(n_sampled_fields=5, n_pupil_rings=13),
+                 "1 x 9^2": dict(n_sampled_fields=1, n_pupil_rings=9)}
+RAGGED_VARIANTS = {"k1": (1.0, 3.0), "k3": (1.0, 3.0), "k2": ("cooke", "cooke c x 3", "mixed"),
+                   "k4": ("cooke", "cooke c x 3", "mixed")}
+RAGGED_SYSTEMS = 32
+RAGGED_MODES = (False, True, "full", "opl")
+# Parameter sums against the plain version's, relative to their row's
+# largest: each kernel's bar in the phases above.
+RAGGED_BAR = {"k1": 1e-5, "k2": 2e-6, "k3": ONE_ROUNDING, "k4": ONE_ROUNDING}
+
+
+def ragged_inputs(torch, zoo, simulator, modules, kernel, variant, width):
+    """A backward kernel's base inputs (without ref_z and n_legs), ref_z,
+    n_legs, n_per_w, the surface mask, the tight bounds and cos²(threshold)
+    at ``width``: K1 on the double-Gauss and K3 on its aspherized form, c x
+    ``variant``; K2 on 32 Cooke triplets and K4 on 32 aspheric Cooke
+    triplets ('cooke c x 3': c x 3 on every 8th system), or on 32 Cooke and
+    double-Gauss designs padded to 11 surfaces ('mixed')."""
+    fused_trace, fused_batch, _ = modules
+    cfg = simulator.SimulatorConfig(pupil_sampling="circular", n_ray_aiming_iter=1,
+                                    **width).trace_config()
+    single = kernel in ("k1", "k3")
+    asph = kernel in ("k3", "k4")
+    if single:
+        specs, lens = zoo.build("double_gauss_asph" if asph else "double_gauss", device="cuda")
+        lens = lens.replace(c=lens.c * variant)
+    elif asph:
+        specs, lens = k4_population(torch, zoo, variant, RAGGED_SYSTEMS)
+    elif variant == "mixed":
+        specs, lens = zoo.mixed_population(RAGGED_SYSTEMS, device="cuda")
+    else:
+        specs, lens = zoo.population("cooke", RAGGED_SYSTEMS, device="cuda")
+        if variant == "cooke c x 3":
+            scale = torch.ones(RAGGED_SYSTEMS, 1, device="cuda")
+            scale[::8] = 3.0
+            lens = lens.replace(c=lens.c * scale)
+    prepare = fused_trace.prepare_fused_inputs if single else fused_batch.prepare_fused_inputs_batch
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, _) = prepare(specs, lens, cfg)
+    row = (lambda a: a[0]) if single else (lambda a: a)
+    base = (xp, yp, cyb, z0, row(lens.c), row(lens.t), mu)
+    if asph:
+        base = base[:5] + (row(lens.kappa),) + base[5:] + (row(lens.asph),)
+    vertex_z = torch.cumsum(lens.t, 1)
+    ref_z = row(torch.cat((vertex_z, vertex_z[:, -1:]), 1))
+    n_legs = row(fused_trace.leg_indices(lens, cfg.wavelengths))
+    widest = np.array([int(np.argmax(lens.structure.n_surfaces))])
+    bounds = fused_trace._path_bounds(lens[widest].structure, TIGHT["ray_path_lower_thresholds"],
+                                      TIGHT["ray_path_upper_thresholds"])
+    thr = math.cos(math.radians(TIGHT["ray_angle_threshold"])) ** 2
+    mask = None if single else fused_batch._static_mask(lens.structure, "cuda")
+    detach = lambda items: tuple(a.detach().contiguous() for a in items)
+    return detach(base), ref_z.detach(), n_legs.detach(), F * P, mask, bounds, thr
+
+
+def ragged_backward(modules, kernel, base, ref_z, n_legs, cot, penalties, allow_backward,
+                    n_per_w, mask, bounds, thr, plain):
+    """One backward launch of ``kernel`` in mode ``penalties`` (or 'opl'),
+    or its plain version."""
+    fused_trace, fused_batch, fused_asphere = modules
+    if penalties == "opl":
+        return run_opl(modules, kernel, base + (n_legs,), n_per_w, mask, allow_backward, plain,
+                       cot)
+    ins = base + (ref_z,)
+    args = (penalties, allow_backward, n_per_w)
+    if kernel == "k1":
+        return run_bwd(fused_trace, ins, cot, *args, bounds, thr, plain)
+    if kernel == "k2":
+        return run_k2_bwd(fused_batch, ins, cot, *args, mask, bounds, thr, plain)
+    if kernel == "k3":
+        return run_k3_bwd(fused_asphere, ins, cot, *args, bounds, thr, plain)
+    return run_k4_bwd(fused_asphere, ins, cot, *args, mask, bounds, thr, plain)
+
+
+def phase_ragged(torch, zoo, simulator, modules):
+    """K1b to K4b against their plain versions where n_per_w is not a
+    multiple of 32 and n not one of 256 (``RAGGED_WIDTHS``), every mode
+    (plain, Lu, full, opl) and both policies, on each kernel's lens and its
+    c x 3 variant (K2, K4 also on the padded mixed population; at 1 x 9^2
+    the first variant alone): per-ray cotangents bit-identical, two launches
+    bit-identical, each row's parameter sums within the kernel's bar of the
+    plain version's (``RAGGED_BAR``; a system's row, or for one system each
+    parameter group's). Returns each kernel's worst relative deviation."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    worst = {}
+    for width_name, width in RAGGED_WIDTHS.items():
+        for kernel, variants in RAGGED_VARIANTS.items():
+            population = kernel in ("k2", "k4")
+            for variant in variants[:None if width_name == "5 x 13^2" else 1]:
+                base, ref_z, n_legs, n_per_w, mask, bounds, thr = ragged_inputs(
+                    torch, zoo, simulator, modules, kernel, variant, width)
+                n = base[0].shape[-1]
+                check(n_per_w % 32 != 0 and n % 256 != 0,
+                      f"ragged {width_name}: {n_per_w} rays a wavelength, {n} a system")
+                for penalties in RAGGED_MODES:
+                    n_cot = {False: 4, True: 7, "full": 9, "opl": 5}[penalties]
+                    cot = [torch.randn(base[0].shape, device="cuda", generator=gen)
+                           for _ in range(n_cot)]
+                    bar = ONE_ROUNDING if penalties == "opl" else RAGGED_BAR[kernel]
+                    for allow_backward in (True, False):
+                        run = lambda plain: ragged_backward(
+                            modules, kernel, base, ref_z, n_legs, cot, penalties,
+                            allow_backward, n_per_w, mask, bounds, thr, plain)
+                        g1, g2, gw = run(False), run(False), run(True)
+                        same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+                        ray = max(float((g1[i] - gw[i]).abs().max()) for i in range(3))
+                        rel = 0.0
+                        for a, b in zip(opl_param_rows(torch, g1, population),
+                                        opl_param_rows(torch, gw, population)):
+                            rel = max(rel, float(((a - b).abs().max(1).values
+                                                  / b.abs().max(1).values.clamp(min=1e-30))
+                                                 .max()))
+                        finite = all(bool(torch.isfinite(a).all()) for a in g1)
+                        label = (f"{kernel.upper()}b ragged {width_name} ({n_per_w} rays a "
+                                 f"wavelength, {n} a system), {variant}, "
+                                 f"{MODE_NAME.get(penalties, penalties)} mode, allow_backward="
+                                 f"{allow_backward}")
+                        check(same and finite and ray == 0.0 and rel <= bar,
+                              f"{label}: two launches bit-identical ({same}), per-ray "
+                              f"cotangents bit-identical (max deviation {ray:.3e}), parameter "
+                              f"sums within {rel:.3e} of their row's largest (limit {bar:.3e})")
+                        worst[kernel] = max(worst.get(kernel, 0.0), rel)
+                print(f"ragged {width_name}: {kernel.upper()}b on {variant} ({n_per_w} rays a "
+                      f"wavelength, {n} a system) equals its plain version in every mode and "
+                      f"policy: per-ray cotangents bit for bit, two launches bit for bit, "
+                      f"parameter sums within {worst[kernel]:.3e} (limits "
+                      f"{RAGGED_BAR[kernel]:.3e}, opl {ONE_ROUNDING:.3e})", flush=True)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -3260,12 +3450,13 @@ def ptxas_summary(path):
 
 
 def kernel_times(torch, root, card):
-    """K3 and K4 forward and backward per mode (plain, Lu, full, opl;
-    backward rays allowed), with the timing code of phase_k3_timing,
-    phase_k4_timing and phase_opl_timing: K3 at 2,457,600 rays of the aspherized
-    double-Gauss, K4 at 256 x 1,536 rays of the aspheric Cooke population.
-    The port is imported from the tree at ``root`` and its kernels built
-    there (the build's seconds reported where it compiled)."""
+    """K1 to K4 forward and backward per mode (plain, Lu, full, opl;
+    backward rays allowed), with the timing code of the timing phases
+    (``mode_times``, ``opl_times``): K1 and K3 at 2,457,600 rays of the
+    double-Gauss and its aspherized form, K2 and K4 at 256 x 1,536 rays of
+    the Cooke and aspheric Cooke populations. The port is imported from the
+    tree at ``root`` and its kernels built there (the build's seconds
+    reported where it compiled)."""
     sys.path.insert(0, root)
     from torchoptics_tpu_torch import simulator, zoo
     from torchoptics_tpu_torch.ops import _kernels, fused_asphere, fused_batch, fused_trace
@@ -3276,10 +3467,12 @@ def kernel_times(torch, root, card):
     out = {"root": root, "package": fused_asphere.__file__, "card": card,
            "build_s": time.perf_counter() - start if built else None, "ms": {}}
     gen = torch.Generator(device="cuda").manual_seed(23)
-    for kernel in ("k3", "k4"):
-        out["ms"].update(asphere_mode_times(torch, zoo, simulator, modules, kernel, False, gen)[0])
-        opl = opl_times(torch, zoo, simulator, modules, kernel, False, gen)[0]
-        out["ms"].update({f"{key}_opl": value for key, value in opl.items()})
+    for kernel in OPL_KERNELS:
+        out["ms"].update(mode_times(torch, zoo, simulator, modules, kernel, False, gen,
+                                    split=True)[0])
+        opl = opl_times(torch, zoo, simulator, modules, kernel, False, gen, split=True)[0]
+        out["ms"].update({key.replace("_bwd", "_bwd_opl") if "_bwd_" in key else f"{key}_opl":
+                          value for key, value in opl.items()})
     return out
 
 
@@ -3293,8 +3486,8 @@ def kernel_turns(trees, card):
     order = order + [here, here] + order[::-1]
     runs = []
     for root in order:
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--k3-times", root],
-                              capture_output=True, text=True, timeout=900)
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--kernel-times",
+                               root], capture_output=True, text=True, timeout=900)
         check(proc.returncode == 0, f"kernel times of {root}: exit {proc.returncode}\n"
               + proc.stdout[-2000:] + proc.stderr[-4000:])
         run = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -3314,11 +3507,11 @@ def kernel_turns(trees, card):
 
 
 def add_resources(entries, summary, n_asph):
-    """Each K3 and K4 entry's registers, stack frame and spills (bytes) from
-    the build's ``-Xptxas -v`` report (``ptxas_summary``'s lines), for the
-    instantiation its main numbers time: its mode, backward rays allowed, at
-    the timed asphere term count (``n_asph``: {"k3": K, "k4": K}), K4
-    unmasked."""
+    """Each trace kernel entry's registers, stack frame and spills (bytes)
+    from the build's ``-Xptxas -v`` report (``ptxas_summary``'s lines), for
+    the instantiation its main numbers time: its mode, backward rays
+    allowed, K2 and K4 unmasked, K3 and K4 at the timed asphere term count
+    (``n_asph``: {"k3": K, "k4": K})."""
     found = {}
     for line in summary:
         name, rest = line.split(": ", 1)
@@ -3330,11 +3523,12 @@ def add_resources(entries, summary, n_asph):
         found[name] = nums
     for e in entries:
         name = e["name"]
-        if not name.startswith(("k3", "k4")):
+        family = name[:2]
+        if family not in ("k1", "k2", "k3", "k4"):
             continue
         mode = 3 if name.endswith("_opl") else 2 if name.endswith("_full") else 1
-        masked = "" if name.startswith("k3") else "0,"
-        e.update(found.get(f"{name[:6]}_kernel<{mode},1,{masked}{n_asph[name[:2]]}>", {}))
+        rest = {"k1": "", "k2": ",0", "k3": f",{n_asph['k3']}", "k4": f",0,{n_asph['k4']}"}
+        e.update(found.get(f"{name[:6]}_kernel<{mode},1{rest[family]}>", {}))
 
 
 def main():
@@ -3343,12 +3537,13 @@ def main():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
         return 1
     args = sys.argv[1:]
-    if "--k3-turns" in args:
-        print(json.dumps({"k3_turns": kernel_turns(args[args.index("--k3-turns") + 1:],
-                                                   card_line())}))
+    if "--kernel-turns" in args:
+        print(json.dumps({"kernel_turns": kernel_turns(args[args.index("--kernel-turns") + 1:],
+                                                       card_line())}))
         return 0
-    if "--k3-times" in args:
-        print(json.dumps(kernel_times(torch, args[args.index("--k3-times") + 1], card_line())))
+    if "--kernel-times" in args:
+        print(json.dumps(kernel_times(torch, args[args.index("--kernel-times") + 1],
+                                      card_line())))
         return 0
     from torchoptics_tpu_torch import LensOptimizer, OpticalLoss, entry, imaging, simulator, zoo
     from torchoptics_tpu_torch.benchmarks import issue_peak
@@ -3372,6 +3567,9 @@ def main():
         return 0
     if "--render-walls" in sys.argv[1:]:
         print(json.dumps({"render_walls": render_walls(torch, zoo, simulator, imaging, card)}))
+        return 0
+    if "--ragged" in sys.argv[1:]:
+        phase_ragged(torch, zoo, simulator, (fused_trace, fused_batch, fused_asphere))
         return 0
 
     with torch.no_grad():
@@ -3414,6 +3612,7 @@ def main():
     opl_train, step_ms = phase_wavefront_train(torch, zoo, modules)
     fwd_bwd_ms, fwd_bwd_launches = phase_opl_fwd_bwd(torch, zoo, modules, card)
     opl_ms, opl_shapes = phase_opl_timing(torch, zoo, simulator, modules, card)
+    ragged = phase_ragged(torch, zoo, simulator, modules)
     entries = kernel_entries(ms, errs, shape, fwd_err, bwd_err, serve_launches, train_launches)
     entries += k2_entries(k2_ms, k2_shape, k2_err, pop_serve_launches, gen_launches,
                           mixed_launches)
@@ -3432,6 +3631,9 @@ def main():
                                       "k4": k4_shape,
                                       **{f"opl_{k}": v for k, v in opl_shapes.items()}})
     add_resources(entries, resources, {"k3": k3_shape["n_asph"], "k4": k4_shape["n_asph"]})
+    for e in entries:
+        if e["name"][:6] in ("k1_bwd", "k2_bwd", "k3_bwd", "k4_bwd"):
+            e["ragged_param_max_rel_err"] = ragged[e["name"][:2]]
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -125,13 +125,14 @@ def _jax(specs, lens):
                   asph=arr(lens.asph)))
 
 
-def _jnp_outputs(mask, bounds, allow_backward, xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z):
+def _jnp_outputs(mask, bounds, allow_backward, xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z,
+                 n_per_w=N_PER_W):
     """K4's nine float outputs in full mode from JAX's jnp engine with the
     surface mask, the stacks gated and summed surface by surface in the
     kernel's order; the masks ride along as aux."""
     n_sys, n = xp.shape
     n_surf = c.shape[1]
-    widx = np.minimum(np.arange(n) // N_PER_W, mu.shape[2] - 1)
+    widx = np.minimum(np.arange(n) // n_per_w, mu.shape[2] - 1)
     col = lambda a: a.reshape(n_sys, 1, n, 1)
     surf = lambda a: a.reshape(n_sys, 1, 1, 1, n_surf)
     res = jtrace_mod.trace_skew(
@@ -162,7 +163,7 @@ def _jnp_outputs(mask, bounds, allow_backward, xp, yp, cy, z0, c, kappa, t, mu, 
     return outs + [path, ang], (res.ray_ok.reshape(n_sys, n), res.ray_backward.reshape(n_sys, n))
 
 
-def _theta_sensitivity(inputs, mask):
+def _theta_sensitivity(inputs, mask, n_per_w=N_PER_W):
     """Per ray, from the plain forward's locals over the real surfaces: the
     sum and the largest of |d theta_norm/d cos²| = 1/(pi u sqrt(1 - u²)),
     u = sqrt(cos²), for cos² and cos²' (0 where the clip holds theta), and
@@ -182,7 +183,7 @@ def _theta_sensitivity(inputs, mask):
             total = total + sens
             largest = torch.maximum(largest, sens)
             edge = edge | ((v >= (1.0 - 3e-7) ** 2) & real)
-    fused_asphere._trace_batch(*inputs[:9], True, N_PER_W, 10, keep, mask)
+    fused_asphere._trace_batch(*inputs[:9], True, n_per_w, 10, keep, mask)
     return total.numpy(), largest.numpy(), edge.numpy()
 
 

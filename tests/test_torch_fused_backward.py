@@ -61,11 +61,11 @@ BAR = 1e-4
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
-def _pallas_vjp(allow_backward, bounds, inputs, cot):
+def _pallas_vjp(allow_backward, bounds, inputs, cot, n_per_w=N_PER_W):
     """The outputs and vjp of the Pallas K1 in full mode (interpret mode),
     lowered for these argument shapes."""
     fwd = functools.partial(jpt.trace_fused_full, allow_backward=allow_backward,
-                            path_bounds=bounds, angle_thr=THR, n_per_w=N_PER_W)
+                            path_bounds=bounds, angle_thr=THR, n_per_w=n_per_w)
 
     def run(inputs, cot):
         outs, vjp = jax.vjp(lambda *a: fwd(*a), *inputs)
@@ -75,11 +75,11 @@ def _pallas_vjp(allow_backward, bounds, inputs, cot):
         return jax.jit(run).lower(inputs, cot)
 
 
-def _jnp_outputs(bounds, allow_backward, xp, yp, cyb, z0, c, t, mu, ref_z):
+def _jnp_outputs(bounds, allow_backward, xp, yp, cyb, z0, c, t, mu, ref_z, n_per_w=N_PER_W):
     """The nine float outputs of K1's full mode from JAX's jnp engine and its
     stacks, the sums accumulated surface by surface in the kernel's order."""
     n, n_surf = xp.shape[0], c.shape[0]
-    widx = np.minimum(np.arange(n) // N_PER_W, mu.shape[1] - 1)
+    widx = np.minimum(np.arange(n) // n_per_w, mu.shape[1] - 1)
     col = lambda a: a.reshape(1, 1, -1, 1)
     surf = lambda a: a.reshape(1, 1, 1, 1, n_surf)
     res = jtrace_mod.trace_skew(
@@ -108,11 +108,11 @@ def _jnp_outputs(bounds, allow_backward, xp, yp, cyb, z0, c, t, mu, ref_z):
     return tuple(a.reshape(n) for a in res[:4]) + tuple(sums) + (path, ang)
 
 
-def _at_clip_edge(inputs):
+def _at_clip_edge(inputs, n_per_w=N_PER_W):
     """Rays whose cos² or cos²' reaches (1 - 3e-7)² at some surface."""
     xp, yp, cyb, z0, c, t, mu = inputs
     n, n_surf = xp.shape[0], c.shape[0]
-    widx = torch.clamp(torch.arange(n) // N_PER_W, max=mu.shape[1] - 1)
+    widx = torch.clamp(torch.arange(n) // n_per_w, max=mu.shape[1] - 1)
     res = trace_mod.trace_skew(
         xp.reshape(1, 1, n, 1), yp.reshape(1, 1, n, 1), z0.reshape(1, 1, 1, 1),
         torch.zeros(1, 1, 1, 1), cyb.reshape(1, 1, n, 1), c.reshape(1, 1, 1, 1, n_surf),

@@ -960,6 +960,187 @@ def test_k4_training_path_at_a_fixed_bar(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The backward kernels at ragged shapes.
+# ---------------------------------------------------------------------------
+
+# 5 fields x 13^2 = 845 rays a wavelength, 2,535 a system: warps and blocks
+# of 256 straddle two wavelengths and the last block is partly inactive.
+# 1 x 9^2 = 81 a wavelength, 243 a system: one partial block holds all
+# three wavelengths.
+RAGGED = {"845": dict(n_sampled_fields=5, n_pupil_rings=13),
+          "81": dict(n_sampled_fields=1, n_pupil_rings=9)}
+RAGGED_CASES = ([(k, v, "845") for k, vs in (("k1", (1.0, 3.0)), ("k3", (1.0, 3.0)),
+                                             ("k2", ("cooke", "c3", "mixed")),
+                                             ("k4", ("cooke", "c3", "mixed"))) for v in vs]
+                + [(k, v, "81") for k, v in (("k1", 1.0), ("k3", 1.0), ("k2", "cooke"),
+                                             ("k4", "cooke"))])
+# Each kernel's bar on its parameter sums, as in the tests above.
+RAGGED_BAR = {"k1": 1e-5, "k2": 2e-6, "k3": ONE_ROUNDING, "k4": ONE_ROUNDING}
+
+
+def _ragged_inputs(device, kernel, variant, width):
+    """(base inputs, ref_z, n_legs, n_per_w, mask, bounds) at a ragged width:
+    K1 on the double-Gauss and K3 on its aspherized form (c x ``variant``),
+    K2 and K4 on 32-system Cooke and aspheric Cooke populations ('c3': c x 3
+    on every 8th system) or on the padded mixed ones."""
+    import numpy as np
+    from torchoptics_tpu_torch.ops import fused_batch
+    cfg = simulator.SimulatorConfig(pupil_sampling="circular", n_ray_aiming_iter=1,
+                                    **RAGGED[width]).trace_config()
+    single, asph = kernel in ("k1", "k3"), kernel in ("k3", "k4")
+    if single:
+        specs, lens = zoo.build("double_gauss_asph" if asph else "double_gauss", device=device)
+        lens = lens.replace(c=lens.c * variant)
+    elif variant == "mixed":
+        specs, lens = (zoo.aspheric_population(32, ("cooke", "double_gauss"), mask_pad=True,
+                                               device=device) if asph
+                       else zoo.mixed_population(32, device=device))
+    else:
+        specs, lens = (zoo.aspheric_population(32, device=device) if asph
+                       else zoo.population("cooke", 32, device=device))
+        if variant == "c3":
+            scale = torch.ones(32, 1, device=device)
+            scale[::8] = 3.0
+            lens = lens.replace(c=lens.c * scale)
+    prepare = fused_trace.prepare_fused_inputs if single else fused_batch.prepare_fused_inputs_batch
+    with torch.no_grad():
+        xp, yp, cyb, z0, mu, (_, F, P, _) = prepare(specs, lens, cfg)
+    row = (lambda a: a[0]) if single else (lambda a: a)
+    base = (xp, yp, cyb, z0, row(lens.c), row(lens.t), mu)
+    if asph:
+        base = base[:5] + (row(lens.kappa),) + base[5:] + (row(lens.asph),)
+    vertex_z = torch.cumsum(lens.t, 1)
+    ref_z = row(torch.cat((vertex_z, vertex_z[:, -1:]), 1))
+    n_legs = row(fused_trace.leg_indices(lens, cfg.wavelengths))
+    widest = np.array([int(np.argmax(lens.structure.n_surfaces))])
+    bounds = fused_trace._path_bounds(lens[widest].structure, LOWER, UPPER)
+    mask = None if single else fused_batch._static_mask(lens.structure, device)
+    base = tuple(a.detach().contiguous() for a in base)
+    return base, ref_z.detach(), n_legs.detach(), F * P, mask, bounds
+
+
+def _ragged_bwd(kernel, base, ref_z, n_legs, cot, penalties, allow_backward, n_per_w, mask,
+                bounds, plain):
+    from torchoptics_tpu_torch.ops import fused_asphere, fused_batch
+    if penalties == "opl":
+        return _opl_run(kernel, base + (n_legs,), n_per_w, mask, allow_backward, plain, cot)
+    ins = base + (ref_z,) if penalties == "full" else base
+    if kernel == "k1":
+        return (fused_trace.trace_fused_backward_reference(
+            ins, cot, penalties, allow_backward, n_per_w, bounds, THR) if plain else
+            fused_trace._launch_k1_bwd(ins, cot, penalties, allow_backward, n_per_w, bounds,
+                                       THR))
+    if kernel == "k3":
+        return (fused_asphere.trace_fused_asphere_backward_reference(
+            ins, cot, penalties, allow_backward, n_per_w, 10, bounds, THR) if plain else
+            fused_asphere._launch_k3_bwd(ins, cot, penalties, allow_backward, n_per_w, 10,
+                                         bounds, THR))
+    if kernel == "k2":
+        return (fused_batch.trace_fused_batch_backward_reference(
+            ins, cot, penalties, allow_backward, n_per_w, mask, bounds, THR) if plain else
+            fused_batch._launch_k2_bwd(ins, cot, penalties, allow_backward, n_per_w, mask,
+                                       bounds, THR))
+    args = (penalties, allow_backward, n_per_w, 10, mask, bounds, THR)
+    return (fused_asphere.trace_fused_asphere_batch_backward_reference(ins, cot, *args)
+            if plain else fused_asphere._launch_k4_bwd(ins, cot, *args))
+
+
+@pytest.mark.parametrize("penalties", [False, True, "full", "opl"])
+@pytest.mark.parametrize("kernel,variant,width", RAGGED_CASES)
+def test_backward_kernels_at_ragged_shapes(cuda, kernel, variant, width, penalties):
+    """K1b to K4b where no warp or block boundary falls on a wavelength's
+    and the last block is partly inactive, both policies: per-ray
+    cotangents bit-identical to the plain version's, two launches
+    bit-identical, each row's parameter sums (a system's, or for one
+    system each parameter group's) within the kernel's bar of the plain
+    version's float64 sums (opl: one float32 rounding)."""
+    base, ref_z, n_legs, n_per_w, mask, bounds = _ragged_inputs(cuda, kernel, variant, width)
+    n = base[0].shape[-1]
+    assert n_per_w % 32 != 0 and n % 256 != 0
+    population = kernel in ("k2", "k4")
+    bar = ONE_ROUNDING if penalties == "opl" else RAGGED_BAR[kernel]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    n_cot = {False: 4, True: 7, "full": 9, "opl": 5}[penalties]
+    cot = [torch.randn(base[0].shape, device=cuda, generator=gen) for _ in range(n_cot)]
+    for allow_backward in (True, False):
+        run = lambda plain: _ragged_bwd(kernel, base, ref_z, n_legs, cot, penalties,
+                                        allow_backward, n_per_w, mask, bounds, plain)
+        g1, g2, gw = run(False), run(False), run(True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2)), "two launches differ"
+        assert all(torch.equal(a, b) for a, b in zip(g1[:3], gw[:3])), allow_backward
+        if population:
+            rows = lambda grads: [torch.cat([g.reshape(g.shape[0], -1) for g in grads[3:]], 1)]
+        else:
+            rows = lambda grads: [g.reshape(1, -1) for g in grads[3:]]
+        for a, b in zip(rows(g1), rows(gw)):
+            assert bool(torch.isfinite(a).all())
+            dev = (a - b).abs().max(1).values
+            assert bool((dev <= bar * b.abs().max(1).values).all()), allow_backward
+
+
+def _largest_inputs(device, kernel):
+    """Inputs at the largest shape the kernels take: 64 surfaces (MAX_SURF),
+    32 wavelengths (MAX_W), 8 asphere terms (MAX_ASPH), 10 rays a
+    wavelength (2 systems for K2 and K4), on a weak seeded lens (glass and
+    air alternating), ending with ref_z and n_legs."""
+    rng = np.random.default_rng(64)
+    n_surf, n_w, n_per_w = 64, 32, 10
+    n_sys = 2 if kernel in ("k2", "k4") else None
+    lead = (n_sys,) if n_sys else ()
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    n = n_w * n_per_w
+    xp, yp = (f32(rng.uniform(-1.0, 1.0, lead + (n,))) for _ in range(2))
+    cy = f32(rng.uniform(-0.05, 0.05, lead + (n,)))
+    z0 = f32(np.full(lead or (), -1.0))
+    c = f32(rng.normal(0.0, 0.01, lead + (n_surf,)))
+    t = f32(np.full(lead + (n_surf,), 0.5))
+    index = 1.5 + 0.01 * np.arange(n_w) / n_w                 # glass, per wavelength
+    legs = np.where(np.arange(n_surf + 1)[:, None] % 2 == 1, index, 1.0)  # air first
+    mu = f32(np.broadcast_to(legs[:-1] / legs[1:], lead + (n_surf, n_w)))
+    n_legs = f32(np.broadcast_to(legs, lead + (n_surf + 1, n_w)))
+    vertex_z = torch.cumsum(t, -1)
+    ref_z = torch.cat((vertex_z, vertex_z[..., -1:]), -1)
+    if kernel in ("k1", "k2"):
+        base = (xp, yp, cy, z0, c, t, mu)
+    else:
+        kappa = f32(rng.normal(0.0, 0.1, lead + (n_surf,)))
+        asph = f32(rng.normal(0.0, 1e-7, lead + (n_surf, 8)))
+        base = (xp, yp, cy, z0, c, kappa, t, mu, asph)
+    return tuple(a.contiguous() for a in base), ref_z.contiguous(), n_legs.contiguous(), n_per_w
+
+
+@pytest.mark.parametrize("penalties", ["full", "opl"])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4"])
+def test_backward_kernels_at_the_largest_shape(cuda, kernel, penalties):
+    """Each backward kernel launches at 64 surfaces and 32 wavelengths (and
+    8 asphere terms) in the modes with the most parameters, both policies,
+    and equals its plain version: per-ray cotangents bit for bit, parameter
+    sums within one float32 rounding of each row's largest (a system's, or
+    for one system each group's)."""
+    base, ref_z, n_legs, n_per_w = _largest_inputs(cuda, kernel)
+    population = kernel in ("k2", "k4")
+    bounds = ((0.1, 5.0),) * 64
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    cot = [torch.randn(base[0].shape, device=cuda, generator=gen)
+           for _ in range(9 if penalties == "full" else 5)]
+    for allow_backward in (True, False):
+        run = lambda plain: _ragged_bwd(kernel, base, ref_z, n_legs, cot, penalties,
+                                        allow_backward, n_per_w, None, bounds, plain)
+        g1, gw = run(False), run(True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(g1[:3], gw[:3])), allow_backward
+        if population:
+            rows = lambda grads: [torch.cat([g.reshape(g.shape[0], -1) for g in grads[3:]], 1)]
+        else:
+            rows = lambda grads: [g.reshape(1, -1) for g in grads[3:]]
+        for a, b in zip(rows(g1), rows(gw)):
+            assert bool(torch.isfinite(a).all())
+            dev = (a - b).abs().max(1).values
+            assert bool((dev <= ONE_ROUNDING * b.abs().max(1).values).all()), allow_backward
+
+
+# ---------------------------------------------------------------------------
 # The imaging path: kernel P2 and the issue-rate probe P1.
 # ---------------------------------------------------------------------------
 

@@ -12,8 +12,8 @@
 // Snell's law with the true normal) and its adjoint, the per-ray forward
 // trace and the per-ray backward pass. From
 // trace_common.cuh it takes theta_norm and its adjoint, the path hinge and
-// its gradient, the warp sums in double, the block's column of the partial
-// sums and their fixed-order reduction.
+// its gradient, the block's parameter sums (BlockSums), the block's column
+// of the partial sums and their fixed-order reductions.
 //
 // The surface math is pallas_asphere.py's (_sag_terms, _g_partials,
 // _newton_dist, _fwd_surface_a, _bwd_surface_a), with u = (1+k)c^2 r^2 and
@@ -557,6 +557,13 @@ __device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE>& s, int n_s
   return RayOut{x, y, cx, cy, ok, bw, pth, ptp, pz, ppath, pang, opl};
 }
 
+// Rows of terms a surface puts into the block's sums in bwd_ray_a: dc,
+// dkappa, dt, dmu, the NA asphere terms, and the path hinge (full mode) or
+// the leg's dn_legs (opl mode).
+__host__ __device__ constexpr int term_slots_a(int mode, int na) {
+  return 4 + na + (mode >= 2 ? 1 : 0);
+}
+
 // Parameters of one system in the partials and the result:
 // [dz0 | dc (S) | dkappa (S) | dt (S) | dmu (S x W) | da (S x K) | dref_z (S+1,
 // full mode) or dn_legs ((S+1) x W, opl mode)].
@@ -573,25 +580,25 @@ __host__ __device__ __forceinline__ int n_params_a(int mode, int n_surf, int n_w
 // injected (in opl mode dopl into each leg's distance adjoint, uncut by a
 // kill), the killed lanes cut, and surface_adjoint applied. The per-ray
 // cotangents of xp, yp, cy come back in dxp, dyp, dcyp. The parameter terms
-// are summed over the warp in double and written by lane 0 into the warp's
-// row `part` of shared memory, in the layout of n_params_a; `part` starts
-// zeroed. `active` is false on threads past the end, which trace a copy of a
-// real ray and contribute zero so that every lane takes part in the
-// shuffles; w_first and w_last are the warp's first and last wavelength
-// columns.
+// go to the block's sums `bs` as in bwd_ray (trace_common.cuh),
+// term_slots_a(MODE, NA) rows a surface, in the layout of n_params_a (and in
+// full mode the S path-hinge sums after it). `active` is false on threads
+// past the end, which trace a copy of a real ray and put zero terms, so
+// that every thread reaches every flush.
 template <int MODE, bool ALLOW_BACKWARD, bool MASKED, int NA>
 __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf, int n_w,
                                           int n_asph, int n_iter, float angle_thr, bool active,
                                           int w, float xp, float yp, float cy0, float z0,
-                                          const RayCot& in, double* part, int w_first,
-                                          int w_last, float& dxp, float& dyp, float& dcyp) {
+                                          const RayCot& in, const BlockSums& bs, float& dxp,
+                                          float& dyp, float& dcyp) {
   constexpr bool LU = lu_mode(MODE);
   constexpr bool FULL = MODE == 2;
   constexpr bool OPL = MODE == 3;
-  const int lane = threadIdx.x & 31;
+  constexpr int SLOTS = term_slots_a(MODE, NA);
   const int off_c = 1, off_kap = 1 + n_surf, off_t = 1 + 2 * n_surf;
   const int off_mu = 1 + 3 * n_surf, off_a = off_mu + n_surf * n_w;
   const int off_ref = off_a + n_surf * n_asph;  // dref_z or dn_legs
+  const int off_hinge = off_ref + n_surf + 1;   // full mode: the hinge sums
   auto kills = [&](int k) { return !ALLOW_BACKWARD && k > 0 && (!MASKED || s.mask[k - 1]); };
 
   // ---- forward, stashing the pre-surface states and Newton points ----
@@ -634,9 +641,8 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf,
   if (OPL) {
     // opl += dist_f * n_S: into the final leg's distance adjoint.
     ddist_f = ddist_f + in.dopl * s.nl[n_surf * n_w + w];
-    dn_legs_sums(active, w, w_first, w_last, in.dopl * dist_f,
-                 part + off_ref + n_surf * n_w, lane);
   }
+  const float dn_last = OPL ? in.dopl * dist_f : 0.0f;
   float dz = -ddist_f / cz;
   float dcz = ddist_f * (z / (cz * cz));
   float dx = in.dx;
@@ -654,6 +660,7 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf,
   };
 
   // ---- reverse surface loop ----
+  int pos = 0;  // the surface's place in the current flush group
   for (int k = n_surf - 1; k >= 0; --k) {
     const Surf<NA> p = surf_of<NA>(s, k, n_w, w, n_asph);
     const float px = st[k][0], py = st[k][1];
@@ -704,19 +711,12 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf,
                                                 dcos2p_extra, ddist_extra, dx, dy, dz, dcx,
                                                 dcy, dcz);
 
-    // ---- this surface's parameter terms, reduced over the warp ----
-    const double r_c = warp_sum(active ? r.dc : 0.0f);
-    const double r_kap = warp_sum(active ? r.dkap : 0.0f);
-    const double r_t = warp_sum(active ? r.dt + dt_kill : 0.0f);
-    if (lane == 0) {
-      part[off_c + k] = r_c;
-      part[off_kap + k] = r_kap;
-      part[off_t + k] = r_t;
-    }
-    for (int wv = w_first; wv <= w_last; ++wv) {
-      const double r_mu = warp_sum(active && w == wv ? r.dmu : 0.0f);
-      if (lane == 0) part[off_mu + k * n_w + wv] = r_mu;
-    }
+    // ---- this surface's parameter terms, into the block's sums ----
+    const int row = pos * SLOTS;
+    bs.put(row, active ? r.dc : 0.0f);
+    bs.put(row + 1, active ? r.dkap : 0.0f);
+    bs.put(row + 2, active ? r.dt + dt_kill : 0.0f);
+    bs.put(row + 3, active ? r.dmu : 0.0f);
     // dsag/da_j = (r^2)^(j+2), dg/da_j = (j+2) (r^2)^(j+1), at the Snell
     // point, the hit point and the Newton point, in that order.
     float pB = L.r2B, ph = L.r2, pp = r.r2p;  // (r^2)^(j+1)
@@ -725,28 +725,40 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf,
       const float f2 = (float)(j + 2);
       const float pp2 = pp * r.r2p;
       const float da = r.dgB * f2 * pB + r.dg * f2 * ph + r.dsag * pp2 + r.dgp * f2 * pp;
-      const double r_a = warp_sum(active ? da : 0.0f);
-      if (lane == 0) part[off_a + k * n_asph + j] = r_a;
+      bs.put(row + 4 + j, active ? da : 0.0f);
       pB = pB * L.r2B;
       ph = ph * L.r2;
       pp = pp2;
     }
-    if (FULL) {
-      const double r_ref = warp_sum(active ? hp : 0.0f);
-      if (lane == 0) {
-        part[off_ref + k + 1] += r_ref;
-        part[off_ref + k] -= r_ref;
-      }
+    if (FULL) bs.put(row + 4 + NA, active ? hp : 0.0f);
+    if (OPL) bs.put(row + 4 + NA, active ? in.dopl * L.dist : 0.0f);
+    if (pos + 1 == bs.group || k == 0) {
+      const int k_top = k + pos;  // the group's first surface
+      bs.flush((pos + 1) * SLOTS, [&](int rw, int& base, bool& split) {
+        const int slot = rw % SLOTS, kr = k_top - rw / SLOTS;
+        split = slot == 3 || (OPL && slot == 4 + NA);
+        base = slot == 0        ? off_c + kr
+               : slot == 1      ? off_kap + kr
+               : slot == 2      ? off_t + kr
+               : slot == 3      ? off_mu + kr * n_w
+               : slot < 4 + NA  ? off_a + kr * n_asph + (slot - 4)
+               : FULL           ? off_hinge + kr
+                                : off_ref + kr * n_w;
+      });
+      pos = 0;
+    } else {
+      ++pos;
     }
-    if (OPL)
-      dn_legs_sums(active, w, w_first, w_last, in.dopl * L.dist, part + off_ref + k * n_w,
-                   lane);
   }
 
   // ---- launch adjoint: cz0 = sqrt(1 - cy^2), cx0 = 0 (a constant) ----
   dcy = dcy + dcz * (-cy0 / cz0);
-  const double r_z0 = warp_sum(active ? dz : 0.0f);
-  if (lane == 0) part[0] = r_z0;
+  bs.put(0, active ? dz : 0.0f);
+  if (OPL) bs.put(1, active ? dn_last : 0.0f);
+  bs.flush(OPL ? 2 : 1, [&](int rw, int& base, bool& split) {
+    split = rw == 1;
+    base = rw == 0 ? 0 : off_ref + n_surf * n_w;
+  });
   dxp = dx;
   dyp = dy;
   dcyp = dcy;

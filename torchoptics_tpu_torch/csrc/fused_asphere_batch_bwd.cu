@@ -17,13 +17,13 @@
 // the surface mask where MASKED is on). The parameter cotangents are per
 // system: dz0 (B,), dc, dkappa, dt (B, S), dmu (B, S, W), dasph (B, S, K)
 // and, in full mode, dref_z (B, S+1), in opl mode dn_legs (B, S+1, W). They
-// are summed as K2 backward sums
-// its own, without atomics: warp shuffles in double, a row per warp in
-// shared memory, one column per block of a (B, n_params, blocks per system)
-// scratch tensor, then partials_reduce sums each (system, parameter) row in
-// a fixed order, rounded to float32 once. Two launches on the same inputs
-// give bit-identical results, and each system's sums equal the plain
-// version's float64 sums rounded once.
+// are summed as K1 backward sums its own, without atomics: each block's
+// terms reduced once per block in double (BlockSums, trace_common.cuh), one
+// column per block of a (B, n_params, blocks per system) scratch tensor,
+// then reduce_partials sums each (system, parameter) row in a fixed order
+// (one warp a row where a system has few blocks), rounded to float32 once.
+// Two launches on the same inputs give bit-identical results, and each
+// system's sums equal the plain version's float64 sums rounded once.
 //
 // What bounds it on an H100: per ray the bytes and operations of K3
 // backward (see fused_asphere_bwd.cu: 12 B of inputs, 16 / 28 / 36 B of
@@ -38,16 +38,26 @@
 // x 7 surfaces, K = 2, N = 10: 5,283 operations a ray in plain mode) that
 // is 2.08 GFLOP, 0.031 ms at the 67 TFLOP/s FP32 peak, against 16 MB, 0.005
 // ms at 3.35 TB/s: operations bound it (chip_smoke.py's k3_ops and
-// k4_bound). A system has 6 blocks, so the partials are small; the second
-// kernel launches B x n_params blocks of 256 threads that sum 6 values each.
+// k4_bound); at P1's measured issue rates ~0.09-0.11 ms.
 //
-// Design beyond K3's indexing: none. K4 runs K3's device code, so it leaves
-// the Newton loop as K3 does, once a lane's steps repeat (bit-identical to
-// all n_iter steps; N above is then what the inputs need, ~2.2 steps a
-// lane-surface on the aspheric Cooke population), reads the shared
-// per-surface constants from its tables and, as K3, is instantiated per
-// asphere term count, the loops over the terms unrolled.
-// Left for later work: any tuning.
+// Design beyond K3's indexing (measured on an H100; PERF.md, section 6):
+// - the parameter sums, 4 + K a surface (6 at K = 2), reduced once per
+//   block from shared memory rather than by a warp shuffle tree in double
+//   per sum after every surface;
+// - the second pass: a system has 6 blocks, so each (system, parameter)
+//   row holds 6 partials; one warp sums a row, 8 rows a block (1,824
+//   blocks at 256 systems, 7 surfaces, K = 2, 3 wavelengths), where a
+//   block of 256 threads a row (14,592 blocks) took 18-25 us of the
+//   kernel's ~0.2 ms;
+// - 4 blocks of 256 threads an SM (K4B_MIN_BLOCKS): 64 registers where
+//   the compiler takes 77-80, with 48-92 B of spills.
+// K4 runs K3's device code, so it leaves the Newton loop as K3 does, once
+// a lane's steps repeat (bit-identical to all n_iter steps; N above is then
+// what the inputs need, ~2.2 steps a lane-surface on the aspheric Cooke
+// population), reads the shared per-surface constants from its tables and,
+// as K3, is instantiated per asphere term count, the loops over the terms
+// unrolled. What it still spends beyond the count: K3b's recompute, and
+// the warp's Newton steps beyond its lanes'.
 //
 // Build: as K3, -fmad=false and no fast-math, so that the recompute
 // reproduces the forward and the adjoint the plain version.
@@ -57,12 +67,16 @@
 namespace {
 
 constexpr int MAX_GRID_Y = 65535;
+// At least 4 blocks of 256 threads an SM, as K3b: at most 64 registers a
+// thread where the compiler takes 77-80 (3 blocks), with 48-92 B of spills;
+// 4-5 % faster in every mode on an H100 (PERF.md, section 6).
+constexpr int K4B_MIN_BLOCKS = 4;
 
 // MODE: 0 plain, 1 Lu, 2 full, 3 opl; NA asphere terms. The partials are
 // (n_sys, n_params, blocks), one column per block, in the parameter layout
 // of n_params_a.
 template <int MODE, bool ALLOW_BACKWARD, bool MASKED, int NA>
-__global__ void __launch_bounds__(BLOCK) k4_bwd_kernel(
+__global__ void __launch_bounds__(BLOCK, K4B_MIN_BLOCKS) k4_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
     const float* __restrict__ cy_in, const float* __restrict__ z0,
     const float* __restrict__ c, const float* __restrict__ kappa,
@@ -75,7 +89,7 @@ __global__ void __launch_bounds__(BLOCK) k4_bwd_kernel(
     const float* __restrict__ dpth_in, const float* __restrict__ dptp_in,
     const float* __restrict__ dpz_in, const float* __restrict__ dppath_in,
     const float* __restrict__ dpang_in, const float* __restrict__ dopl_in, int n_sys, int n,
-    int n_surf, int n_w, int n_asph, int n_per_w, int n_iter, int n_params,
+    int n_surf, int n_w, int n_asph, int n_per_w, int n_iter, int n_params, int group,
     float* __restrict__ dxp_out, float* __restrict__ dyp_out, float* __restrict__ dcy_out,
     double* __restrict__ partials) {
   constexpr bool LU = lu_mode(MODE);
@@ -85,24 +99,23 @@ __global__ void __launch_bounds__(BLOCK) k4_bwd_kernel(
   if (b >= n_sys) return;  // the whole block
   const size_t bs = (size_t)b * n_surf;
   __shared__ AsphTables<MODE> tab;
-  extern __shared__ double s_part[];  // [WARPS][n_params]
+  extern __shared__ double s_sums[];  // the column, then the rows of terms
   tab.load(c + bs, kappa + bs, t + bs, mu + bs * n_w, asph + bs * n_asph,
            FULL ? ref_z + (size_t)b * (n_surf + 1) : nullptr, lo, hi,
            OPL ? n_legs + (size_t)b * (n_surf + 1) * n_w : nullptr,
            MASKED ? mask + bs : nullptr, n_surf, n_w, n_asph);
-  for (int j = threadIdx.x; j < WARPS * n_params; j += BLOCK) s_part[j] = 0.0;
+  const BlockSums sums =
+      block_sums(s_sums, n_params + (FULL ? n_surf : 0), group, n, n_per_w, n_w);
   __syncthreads();
 
-  // Threads past the end trace a copy of the system's last ray and
-  // contribute zero, so that every lane takes part in the shuffles.
+  // Threads past the end trace a copy of the system's last ray and put zero
+  // terms, so that every thread reaches every flush of the block's sums.
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool active = i < n;
   const int ic = active ? i : n - 1;
   const size_t r = (size_t)b * n + i;
   const size_t rc = (size_t)b * n + ic;
   const int w = min(ic / n_per_w, n_w - 1);
-  const int w_first = __shfl_sync(FULL_MASK, w, 0);
-  const int w_last = __shfl_sync(FULL_MASK, w, 31);
   auto read = [&](const float* a) { return active ? a[r] : 0.0f; };
   const RayCot cot{read(dx_in), read(dy_in), read(dcx_in), read(dcy_in),
                    LU ? read(dpth_in) : 0.0f, LU ? read(dptp_in) : 0.0f,
@@ -111,49 +124,50 @@ __global__ void __launch_bounds__(BLOCK) k4_bwd_kernel(
   float dxp, dyp, dcyp;
   bwd_ray_a<MODE, ALLOW_BACKWARD, MASKED, NA>(tab, n_surf, n_w, n_asph, n_iter, angle_thr,
                                              active, w, xp[rc], yp[rc], cy_in[rc], z0[b], cot,
-                                             s_part + (threadIdx.x >> 5) * n_params, w_first,
-                                             w_last, dxp, dyp, dcyp);
+                                             sums, dxp, dyp, dcyp);
   if (active) {
     dxp_out[r] = dxp;
     dyp_out[r] = dyp;
     dcy_out[r] = dcyp;
   }
-  __syncthreads();
-  write_column(s_part, n_params,
+  write_column(s_sums, n_params, FULL ? s_sums + n_params : nullptr, n_surf,
                partials + (size_t)b * n_params * gridDim.x + blockIdx.x, gridDim.x);
 }
 
 template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
-cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* const* in,
+cudaError_t launch(dim3 grid, cudaStream_t stream, const float* const* in,
                    const bool* mask, float angle_thr, const float* const* cot, int n_sys,
                    int n, int n_surf, int n_w, int n_asph, int n_per_w, int n_iter,
                    int n_params, float* const* out, double* partials) {
   cudaError_t err = cudaSuccess;
   with_terms(n_asph, [&](auto na) {
     auto kernel = k4_bwd_kernel<MODE, ALLOW_BACKWARD, MASKED, decltype(na)::value>;
+    constexpr int slots = term_slots_a(MODE, decltype(na)::value);
+    const size_t smem =
+        block_sums_bytes(n_params + (MODE == 2 ? n_surf : 0), slots, n_surf);
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return;
     kernel<<<grid, BLOCK, smem, stream>>>(
         in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], mask, in[9], in[10],
         in[11], in[12], angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6],
         cot[7], cot[8], cot[9], n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter, n_params,
-        out[0], out[1], out[2], partials);
+        term_group(slots, n_surf), out[0], out[1], out[2], partials);
     err = cudaGetLastError();
   });
   return err;
 }
 
 template <int MODE, bool ALLOW_BACKWARD>
-cudaError_t launch_masked(bool masked, dim3 grid, size_t smem, cudaStream_t stream,
+cudaError_t launch_masked(bool masked, dim3 grid, cudaStream_t stream,
                           const float* const* in, const bool* mask, float angle_thr,
                           const float* const* cot, int n_sys, int n, int n_surf, int n_w,
                           int n_asph, int n_per_w, int n_iter, int n_params,
                           float* const* out, double* partials) {
   if (masked)
-    return launch<MODE, ALLOW_BACKWARD, true>(grid, smem, stream, in, mask, angle_thr, cot,
+    return launch<MODE, ALLOW_BACKWARD, true>(grid, stream, in, mask, angle_thr, cot,
                                               n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter,
                                               n_params, out, partials);
-  return launch<MODE, ALLOW_BACKWARD, false>(grid, smem, stream, in, mask, angle_thr, cot,
+  return launch<MODE, ALLOW_BACKWARD, false>(grid, stream, in, mask, angle_thr, cot,
                                              n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter,
                                              n_params, out, partials);
 }
@@ -188,7 +202,6 @@ int k4_bwd_launch(const float* xp, const float* yp, const float* cy, const float
   const int blocks = (n + BLOCK - 1) / BLOCK;
   const int gy = n_sys < MAX_GRID_Y ? n_sys : MAX_GRID_Y;
   const dim3 grid(blocks, gy, (n_sys + gy - 1) / gy);
-  const size_t smem = (size_t)WARPS * n_params * sizeof(double);
   const float* const in[13] = {xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi, n_legs};
   const float* const cot[10] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang, dopl};
   float* const out[3] = {dxp, dyp, dcy_out};
@@ -196,7 +209,7 @@ int k4_bwd_launch(const float* xp, const float* yp, const float* cy, const float
   if (blocks > 0) {
     cudaError_t err;
 #define K4_BWD_LAUNCH(M, AB)                                                            \
-  launch_masked<M, AB>(masked, grid, smem, s, in, mask, angle_thr, cot, n_sys, n, n_surf,   \
+  launch_masked<M, AB>(masked, grid, s, in, mask, angle_thr, cot, n_sys, n, n_surf,         \
                        n_w, n_asph, n_per_w, n_iter, n_params, out, partials)
     if (mode == 0)
       err = allow_backward ? K4_BWD_LAUNCH(0, true) : K4_BWD_LAUNCH(0, false);
@@ -209,7 +222,7 @@ int k4_bwd_launch(const float* xp, const float* yp, const float* cy, const float
 #undef K4_BWD_LAUNCH
     if (err != cudaSuccess) return (int)err;
   }
-  partials_reduce<<<n_sys * n_params, REDUCE_BLOCK, 0, s>>>(partials, blocks, params);
+  reduce_partials(partials, n_sys * n_params, blocks, params, s);
   return (int)cudaGetLastError();
 }
 

@@ -23,11 +23,12 @@
 // dkappa, dt, dmu (per wavelength), da (S x K) and, in full mode, dref_z, in
 // opl mode dn_legs (per leg and wavelength), which are sums over all rays.
 //
-// The parameter sums are K1's (fused_trace_bwd.cu): warp shuffles in
-// double, each warp's row in shared memory, each block's column of a
-// (n_params x blocks) scratch tensor in a fixed order, and a second kernel
-// that sums each row in a fixed order, rounded to float32 once. No atomics:
-// two launches on the same inputs give bit-identical results.
+// The parameter sums are K1's (fused_trace_bwd.cu): each block's terms
+// reduced once per block in double from shared memory (BlockSums), each
+// block's column of a (n_params x blocks) scratch tensor in a fixed order,
+// and a second kernel that sums each row in a fixed order, rounded to
+// float32 once. No atomics: two launches on the same inputs give
+// bit-identical results.
 //
 // What bounds it on an H100: per ray it reads 12 B of inputs and 16 / 28 /
 // 36 B of cotangents (plain / Lu / full) and writes 12 B, as K1; the
@@ -61,8 +62,7 @@
 // same form, so the per-ray cotangents stay bit-identical; it stays within
 // a few float32 roundings of the quotients (tests/test_torch_newton_exit.py).
 // What the kernel spends beyond the count: the rest of each surface step a
-// second time (the recompute from s_pre in the reverse loop), five
-// shuffle-adds per warp sum where one add per ray is needed, and the path
+// second time (the recompute from s_pre in the reverse loop) and the path
 // hinges of each gap twice. The stash (7 floats a surface, 1,792 B of stack
 // frame at MAX_SURF, 308 B used at 11 surfaces) lives in local memory,
 // which the L1 and L2 caches hold; the TPU kernel stashes 32 floats and 6
@@ -100,26 +100,25 @@ __global__ void __launch_bounds__(BLOCK, K3B_MIN_BLOCKS) k3_bwd_kernel(
     const float* __restrict__ dpth_in, const float* __restrict__ dptp_in,
     const float* __restrict__ dpz_in, const float* __restrict__ dppath_in,
     const float* __restrict__ dpang_in, const float* __restrict__ dopl_in, int n,
-    int n_surf, int n_w, int n_asph, int n_per_w, int n_iter, int n_params,
+    int n_surf, int n_w, int n_asph, int n_per_w, int n_iter, int n_params, int group,
     float* __restrict__ dxp_out, float* __restrict__ dyp_out, float* __restrict__ dcy_out,
     double* __restrict__ partials) {
   constexpr bool LU = lu_mode(MODE);
   constexpr bool FULL = MODE == 2;
   constexpr bool OPL = MODE == 3;
   __shared__ AsphTables<MODE> tab;
-  extern __shared__ double s_part[];  // [WARPS][n_params]
+  extern __shared__ double s_sums[];  // the column, then the rows of terms
   tab.load(c, kappa, t, mu, asph, ref_z, lo, hi, n_legs, nullptr, n_surf, n_w, n_asph);
-  for (int j = threadIdx.x; j < WARPS * n_params; j += BLOCK) s_part[j] = 0.0;
+  const BlockSums bs =
+      block_sums(s_sums, n_params + (FULL ? n_surf : 0), group, n, n_per_w, n_w);
   __syncthreads();
 
-  // Threads past the end trace a copy of the last ray and contribute zero,
-  // so that every lane takes part in the shuffles.
+  // Threads past the end trace a copy of the last ray and put zero terms,
+  // so that every thread reaches every flush of the block's sums.
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool active = i < n;
   const int ic = active ? i : n - 1;
   const int w = min(ic / n_per_w, n_w - 1);
-  const int w_first = __shfl_sync(FULL_MASK, w, 0);
-  const int w_last = __shfl_sync(FULL_MASK, w, 31);
   auto read = [&](const float* a) { return active ? a[i] : 0.0f; };
   const RayCot cot{read(dx_in), read(dy_in), read(dcx_in), read(dcy_in),
                    LU ? read(dpth_in) : 0.0f, LU ? read(dptp_in) : 0.0f,
@@ -128,32 +127,34 @@ __global__ void __launch_bounds__(BLOCK, K3B_MIN_BLOCKS) k3_bwd_kernel(
   float dxp, dyp, dcyp;
   bwd_ray_a<MODE, ALLOW_BACKWARD, false, NA>(tab, n_surf, n_w, n_asph, n_iter, angle_thr,
                                              active, w, xp[ic], yp[ic], cy_in[ic], *z0, cot,
-                                             s_part + (threadIdx.x >> 5) * n_params, w_first,
-                                             w_last, dxp, dyp, dcyp);
+                                             bs, dxp, dyp, dcyp);
   if (active) {
     dxp_out[i] = dxp;
     dyp_out[i] = dyp;
     dcy_out[i] = dcyp;
   }
-  __syncthreads();
-  write_column(s_part, n_params, partials + blockIdx.x, gridDim.x);
+  write_column(s_sums, n_params, FULL ? s_sums + n_params : nullptr, n_surf,
+               partials + blockIdx.x, gridDim.x);
 }
 
 template <int MODE, bool ALLOW_BACKWARD>
-cudaError_t launch(int grid, size_t smem, cudaStream_t stream, const float* const* in,
+cudaError_t launch(int grid, cudaStream_t stream, const float* const* in,
                    float angle_thr, const float* const* cot, int n, int n_surf, int n_w,
                    int n_asph, int n_per_w, int n_iter, int n_params, float* const* out,
                    double* partials) {
   cudaError_t err = cudaSuccess;
   with_terms(n_asph, [&](auto na) {
     auto kernel = k3_bwd_kernel<MODE, ALLOW_BACKWARD, decltype(na)::value>;
+    constexpr int slots = term_slots_a(MODE, decltype(na)::value);
+    const size_t smem =
+        block_sums_bytes(n_params + (MODE == 2 ? n_surf : 0), slots, n_surf);
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return;
     kernel<<<grid, BLOCK, smem, stream>>>(
         in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10], in[11],
         in[12], angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7],
-        cot[8], cot[9], n, n_surf, n_w, n_asph, n_per_w, n_iter, n_params, out[0], out[1],
-        out[2], partials);
+        cot[8], cot[9], n, n_surf, n_w, n_asph, n_per_w, n_iter, n_params,
+        term_group(slots, n_surf), out[0], out[1], out[2], partials);
     err = cudaGetLastError();
   });
   return err;
@@ -187,14 +188,13 @@ int k3_bwd_launch(const float* xp, const float* yp, const float* cy,
   cudaStream_t s = (cudaStream_t)stream;
   const int n_params = n_params_a(mode, n_surf, n_w, n_asph);
   const int grid = (n + BLOCK - 1) / BLOCK;
-  const size_t smem = (size_t)WARPS * n_params * sizeof(double);
   const float* const in[13] = {xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi, n_legs};
   const float* const cot[10] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang, dopl};
   float* const out[3] = {dxp, dyp, dcy_out};
   if (grid > 0) {
     cudaError_t err;
 #define K3_BWD_LAUNCH(M, AB)                                                      \
-  launch<M, AB>(grid, smem, s, in, angle_thr, cot, n, n_surf, n_w, n_asph, n_per_w, \
+  launch<M, AB>(grid, s, in, angle_thr, cot, n, n_surf, n_w, n_asph, n_per_w,       \
                 n_iter, n_params, out, partials)
     if (mode == 0)
       err = allow_backward ? K3_BWD_LAUNCH(0, true) : K3_BWD_LAUNCH(0, false);
@@ -207,7 +207,7 @@ int k3_bwd_launch(const float* xp, const float* yp, const float* cy,
 #undef K3_BWD_LAUNCH
     if (err != cudaSuccess) return (int)err;
   }
-  partials_reduce<<<n_params, REDUCE_BLOCK, 0, s>>>(partials, grid, params);
+  reduce_partials(partials, n_params, grid, params, s);
   return (int)cudaGetLastError();
 }
 

@@ -14,18 +14,20 @@
 // surface mask where MASKED is on). The parameter cotangents are per system:
 // dz0 (B,), dc, dt (B, S), dmu (B, S, W) and, in full mode, dref_z (B, S+1),
 // in opl mode dn_legs (B, S+1, W).
-// They are summed without atomics, as in K1: warp shuffles, then a row per
-// warp in shared memory, then one column per block of a (B, n_params,
-// blocks per system) scratch tensor, then partials_reduce sums each
-// (system, parameter) row in a fixed order, all in double and rounded to
+// They are summed without atomics, as in K1: the block's terms reduced once
+// per block in double (BlockSums, trace_common.cuh), then one column per
+// block of a (B, n_params, blocks per system) scratch tensor, then
+// reduce_partials sums each (system, parameter) row in a fixed order (one
+// warp a row where a system has few blocks), all in double and rounded to
 // float32 once. Two launches on the same inputs give bit-identical results.
 //
 // What bounds it on an H100: per ray the bytes and operations of K1 backward
 // (see fused_trace_bwd.cu) at the padded surface count, plus the partials,
 // 16 B per block and parameter (a double written and read), and each system's tables read once per block.
-// At the generator width (1,536 rays a system) a system has 6 blocks, so the
-// partials are small; the second kernel launches B x n_params blocks of 256
-// threads that sum 6 values each.
+// At the generator width (1,536 rays a system) a system has 6 blocks, so a
+// (system, parameter) row holds 6 partials: one warp sums it, 8 rows a
+// block, where a block of 256 threads a row took 12-20 us of the ~0.1 ms
+// (measured on an H100; PERF.md, section 6).
 //
 // Build: as K1, -fmad=false and no fast-math.
 
@@ -49,7 +51,8 @@ __global__ void __launch_bounds__(BLOCK) k2_bwd_kernel(
     const float* __restrict__ dpth_in, const float* __restrict__ dptp_in,
     const float* __restrict__ dpz_in, const float* __restrict__ dppath_in,
     const float* __restrict__ dpang_in, const float* __restrict__ dopl_in, int n_sys,
-    int n, int n_surf, int n_w, int n_per_w, int n_params, float* __restrict__ dxp_out,
+    int n, int n_surf, int n_w, int n_per_w, int n_params, int group,
+    float* __restrict__ dxp_out,
     float* __restrict__ dyp_out, float* __restrict__ dcy_out,
     double* __restrict__ partials) {
   constexpr bool LU = lu_mode(MODE);
@@ -58,24 +61,23 @@ __global__ void __launch_bounds__(BLOCK) k2_bwd_kernel(
   const int b = blockIdx.z * gridDim.y + blockIdx.y;
   if (b >= n_sys) return;  // the whole block
   __shared__ Tables<MODE> tab;
-  extern __shared__ double s_part[];  // [WARPS][n_params]
+  extern __shared__ double s_sums[];  // the column, then the rows of terms
   tab.load(c + (size_t)b * n_surf, t + (size_t)b * n_surf, mu + (size_t)b * n_surf * n_w,
            FULL ? ref_z + (size_t)b * (n_surf + 1) : nullptr, lo, hi,
            OPL ? n_legs + (size_t)b * (n_surf + 1) * n_w : nullptr,
            MASKED ? mask + (size_t)b * n_surf : nullptr, n_surf, n_w);
-  for (int j = threadIdx.x; j < WARPS * n_params; j += BLOCK) s_part[j] = 0.0;
+  const BlockSums bs =
+      block_sums(s_sums, n_params + (FULL ? n_surf : 0), group, n, n_per_w, n_w);
   __syncthreads();
 
-  // Threads past the end trace a copy of the system's last ray and
-  // contribute zero, so that every lane takes part in the shuffles.
+  // Threads past the end trace a copy of the system's last ray and put zero
+  // terms, so that every thread reaches every flush of the block's sums.
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool active = i < n;
   const int ic = active ? i : n - 1;
   const size_t r = (size_t)b * n + i;
   const size_t rc = (size_t)b * n + ic;
   const int w = min(ic / n_per_w, n_w - 1);
-  const int w_first = __shfl_sync(FULL_MASK, w, 0);
-  const int w_last = __shfl_sync(FULL_MASK, w, 31);
   auto read = [&](const float* a) { return active ? a[r] : 0.0f; };
   const RayCot cot{read(dx_in), read(dy_in), read(dcx_in), read(dcy_in),
                    LU ? read(dpth_in) : 0.0f, LU ? read(dptp_in) : 0.0f,
@@ -83,45 +85,45 @@ __global__ void __launch_bounds__(BLOCK) k2_bwd_kernel(
                    FULL ? read(dpang_in) : 0.0f, OPL ? read(dopl_in) : 0.0f};
   float dxp, dyp, dcyp;
   bwd_ray<MODE, ALLOW_BACKWARD, MASKED>(tab, n_surf, n_w, angle_thr, active, w, xp[rc],
-                                        yp[rc], cy_in[rc], z0[b], cot,
-                                        s_part + (threadIdx.x >> 5) * n_params, w_first,
-                                        w_last, dxp, dyp, dcyp);
+                                        yp[rc], cy_in[rc], z0[b], cot, bs, dxp, dyp, dcyp);
   if (active) {
     dxp_out[r] = dxp;
     dyp_out[r] = dyp;
     dcy_out[r] = dcyp;
   }
-  __syncthreads();
-  write_column(s_part, n_params,
+  write_column(s_sums, n_params, FULL ? s_sums + n_params : nullptr, n_surf,
                partials + (size_t)b * n_params * gridDim.x + blockIdx.x, gridDim.x);
 }
 
 template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
-cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* const* in,
+cudaError_t launch(dim3 grid, cudaStream_t stream, const float* const* in,
                    const bool* mask, float angle_thr, const float* const* cot, int n_sys,
                    int n, int n_surf, int n_w, int n_per_w, int n_params,
                    float* const* out, double* partials) {
   auto kernel = k2_bwd_kernel<MODE, ALLOW_BACKWARD, MASKED>;
+  constexpr int slots = term_slots(MODE);
+  const size_t smem = block_sums_bytes(n_params + (MODE == 2 ? n_surf : 0), slots, n_surf);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, BLOCK, smem, stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], mask, in[7], in[8], in[9], in[10],
       angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7], cot[8],
-      cot[9], n_sys, n, n_surf, n_w, n_per_w, n_params, out[0], out[1], out[2], partials);
+      cot[9], n_sys, n, n_surf, n_w, n_per_w, n_params, term_group(slots, n_surf), out[0],
+      out[1], out[2], partials);
   return cudaGetLastError();
 }
 
 template <int MODE, bool ALLOW_BACKWARD>
-cudaError_t launch_masked(bool masked, dim3 grid, size_t smem, cudaStream_t stream,
+cudaError_t launch_masked(bool masked, dim3 grid, cudaStream_t stream,
                           const float* const* in, const bool* mask, float angle_thr,
                           const float* const* cot, int n_sys, int n, int n_surf, int n_w,
                           int n_per_w, int n_params, float* const* out,
                           double* partials) {
   if (masked)
-    return launch<MODE, ALLOW_BACKWARD, true>(grid, smem, stream, in, mask, angle_thr, cot,
+    return launch<MODE, ALLOW_BACKWARD, true>(grid, stream, in, mask, angle_thr, cot,
                                               n_sys, n, n_surf, n_w, n_per_w, n_params, out,
                                               partials);
-  return launch<MODE, ALLOW_BACKWARD, false>(grid, smem, stream, in, mask, angle_thr, cot,
+  return launch<MODE, ALLOW_BACKWARD, false>(grid, stream, in, mask, angle_thr, cot,
                                              n_sys, n, n_surf, n_w, n_per_w, n_params, out,
                                              partials);
 }
@@ -154,7 +156,6 @@ int k2_bwd_launch(const float* xp, const float* yp, const float* cy, const float
   const int blocks = (n + BLOCK - 1) / BLOCK;
   const int gy = n_sys < MAX_GRID_Y ? n_sys : MAX_GRID_Y;
   const dim3 grid(blocks, gy, (n_sys + gy - 1) / gy);
-  const size_t smem = (size_t)WARPS * n_params * sizeof(double);
   const float* const in[11] = {xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, n_legs};
   const float* const cot[10] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang, dopl};
   float* const out[3] = {dxp, dyp, dcy_out};
@@ -162,7 +163,7 @@ int k2_bwd_launch(const float* xp, const float* yp, const float* cy, const float
   if (blocks > 0) {
     cudaError_t err;
 #define K2_BWD_LAUNCH(M, AB)                                                          \
-  launch_masked<M, AB>(masked, grid, smem, s, in, mask, angle_thr, cot, n_sys, n, n_surf, \
+  launch_masked<M, AB>(masked, grid, s, in, mask, angle_thr, cot, n_sys, n, n_surf,       \
                        n_w, n_per_w, n_params, out, partials)
     if (mode == 0)
       err = allow_backward ? K2_BWD_LAUNCH(0, true) : K2_BWD_LAUNCH(0, false);
@@ -175,7 +176,7 @@ int k2_bwd_launch(const float* xp, const float* yp, const float* cy, const float
 #undef K2_BWD_LAUNCH
     if (err != cudaSuccess) return (int)err;
   }
-  partials_reduce<<<n_sys * n_params, REDUCE_BLOCK, 0, s>>>(partials, blocks, params);
+  reduce_partials(partials, n_sys * n_params, blocks, params, s);
   return (int)cudaGetLastError();
 }
 

@@ -22,15 +22,16 @@
 // opl mode dn_legs (per leg and wavelength: dopl times the leg's distance),
 // which are sums over all rays.
 //
-// The parameter sums need no float atomics and no sequential grid: each
-// warp reduces a surface's per-ray terms with shuffles and writes them to its
-// own row of shared memory (a warp of wavelength-outer rays straddles at most
-// a few wavelengths, so dmu goes wavelength by wavelength); each block adds
-// its warps' rows in a fixed order and writes one column of a (n_params x
-// blocks) scratch tensor; a second kernel sums each row of it in a fixed
-// order. The sums run in double from the warp shuffles on and are rounded to
-// float32 once, so they match the plain version's float64 sums to float32
-// rounding. Two launches on the same inputs give bit-identical results.
+// The parameter sums need no float atomics and no sequential grid. Each
+// thread writes its float32 term of each surface parameter into shared
+// memory, a row of 256 a parameter (BlockSums, trace_common.cuh); every
+// two surfaces (TERM_BYTES) the block reduces each row in double in a fixed
+// order, wavelength by wavelength for dmu and dn_legs (a block of
+// wavelength-outer rays may hold several), and at the end writes its column
+// of a (n_params x blocks) scratch tensor; a second kernel sums each row of
+// it in a fixed order, rounded to float32 once, so the sums match the plain
+// version's float64 sums to float32 rounding. Two launches on the same
+// inputs give bit-identical results.
 //
 // What bounds it on an H100: per ray it reads 12 B of inputs and 16 / 28 /
 // 36 B of cotangents (plain / Lu / full) and writes 12 B of cotangents; the
@@ -48,17 +49,26 @@
 // 2,021 / 2,169 operations per ray on the flagship (the tight bounds have 18
 // finite sides): at 2.46M rays, 4.43 / 4.97 / 5.33 GFLOP, 66.1 / 74.1 /
 // 79.6 us at the 67 TFLOP/s FP32 peak, against 103 / 132 / 153 MB, 30.6 /
-// 39.4 / 45.6 us at 3.35 TB/s: operations bound it. What the kernel spends
-// beyond that count: the forward a second time (the recompute of each
-// surface's locals in the reverse loop, +55 per surface), five shuffle-adds
-// per warp sum where one add per ray is needed, and the path hinges of each
-// gap twice. The stash (6 floats a surface, 1,536 B of stack frame at
-// MAX_SURF, 264 B used at 11 surfaces) lives in local memory, device memory
-// behind L1 and L2; it is written once and read once per surface, ~1.3 GB of
-// cached traffic at 2.46M rays that the bound does not count. Recomputing
-// the locals instead of stashing them (the TPU kernel stashes 17 floats and
-// 4 masks per surface) keeps the stash at 6 floats and one bit per surface.
-// 48-64 registers per thread, no spills.
+// 39.4 / 45.6 us at 3.35 TB/s: operations bound it; at P1's measured issue
+// rates (each sqrt and division at its real cost) 0.26-0.42 ms.
+//
+// What the design does about it (measured on an H100; PERF.md, section 6):
+// a row of 256 terms is reduced once per block, by one warp, and each
+// thread spends one shared-memory store a term and two barriers a flush;
+// a warp shuffle tree in double per sum after every surface (5 levels of
+// two 32-bit shuffles and a double add) took 5-12 % more time in every
+// mode (opl the most: one sum more per leg). What the kernel still spends
+// beyond the count: the forward a second time (the recompute of each
+// surface's locals in the reverse loop, +55 per surface) and the path
+// hinges of each gap twice; and the stash (6 floats a surface, 1,536 B of
+// stack frame at MAX_SURF, 264 B used at 11 surfaces) in local memory,
+// ~1.3 GB of cached traffic at 2.46M rays that the bound does not count.
+// Measured, not kept: the stash in shared memory (66 KB a block at 11
+// surfaces, 2 blocks an SM) is 25-27 % slower; a 40 % shared-memory
+// carveout (more L1 for the stash) moves plain, Lu and full by under 1 %.
+// Recomputing the locals instead of stashing them (the TPU kernel stashes
+// 17 floats and 4 masks per surface) keeps the stash at 6 floats and one
+// bit per surface. 48-62 registers per thread, 4-5 blocks an SM.
 //
 // The per-ray pass (bwd_ray), the surface math and the reduction of the
 // partials live in trace_common.cuh, shared with the population kernel K2
@@ -86,26 +96,25 @@ __global__ void __launch_bounds__(BLOCK) k1_bwd_kernel(
     const float* __restrict__ dpth_in, const float* __restrict__ dptp_in,
     const float* __restrict__ dpz_in, const float* __restrict__ dppath_in,
     const float* __restrict__ dpang_in, const float* __restrict__ dopl_in, int n,
-    int n_surf, int n_w, int n_per_w, int n_params, float* __restrict__ dxp_out,
+    int n_surf, int n_w, int n_per_w, int n_params, int group, float* __restrict__ dxp_out,
     float* __restrict__ dyp_out, float* __restrict__ dcy_out,
     double* __restrict__ partials) {
   constexpr bool LU = lu_mode(MODE);
   constexpr bool FULL = MODE == 2;
   constexpr bool OPL = MODE == 3;
   __shared__ Tables<MODE> tab;
-  extern __shared__ double s_part[];  // [WARPS][n_params]
+  extern __shared__ double s_sums[];  // the column, then the rows of terms
   tab.load(c, t, mu, ref_z, lo, hi, n_legs, nullptr, n_surf, n_w);
-  for (int j = threadIdx.x; j < WARPS * n_params; j += BLOCK) s_part[j] = 0.0;
+  const BlockSums bs =
+      block_sums(s_sums, n_params + (FULL ? n_surf : 0), group, n, n_per_w, n_w);
   __syncthreads();
 
-  // Threads past the end trace a copy of the last ray and contribute zero,
-  // so that every lane takes part in the shuffles.
+  // Threads past the end trace a copy of the last ray and put zero terms,
+  // so that every thread reaches every flush of the block's sums.
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool active = i < n;
   const int ic = active ? i : n - 1;
   const int w = min(ic / n_per_w, n_w - 1);
-  const int w_first = __shfl_sync(FULL_MASK, w, 0);
-  const int w_last = __shfl_sync(FULL_MASK, w, 31);
   auto read = [&](const float* a) { return active ? a[i] : 0.0f; };
   const RayCot cot{read(dx_in), read(dy_in), read(dcx_in), read(dcy_in),
                    LU ? read(dpth_in) : 0.0f, LU ? read(dptp_in) : 0.0f,
@@ -113,31 +122,31 @@ __global__ void __launch_bounds__(BLOCK) k1_bwd_kernel(
                    FULL ? read(dpang_in) : 0.0f, OPL ? read(dopl_in) : 0.0f};
   float dxp, dyp, dcyp;
   bwd_ray<MODE, ALLOW_BACKWARD, false>(tab, n_surf, n_w, angle_thr, active, w, xp[ic],
-                                       yp[ic], cy_in[ic], *z0, cot,
-                                       s_part + (threadIdx.x >> 5) * n_params, w_first,
-                                       w_last, dxp, dyp, dcyp);
+                                       yp[ic], cy_in[ic], *z0, cot, bs, dxp, dyp, dcyp);
   if (active) {
     dxp_out[i] = dxp;
     dyp_out[i] = dyp;
     dcy_out[i] = dcyp;
   }
-  __syncthreads();
-  write_column(s_part, n_params, partials + blockIdx.x, gridDim.x);
+  write_column(s_sums, n_params, FULL ? s_sums + n_params : nullptr, n_surf,
+               partials + blockIdx.x, gridDim.x);
 }
 
 template <int MODE, bool ALLOW_BACKWARD>
-cudaError_t launch(int grid, size_t smem, cudaStream_t stream,
-                   const float* const* in, float angle_thr,
-                   const float* const* cot, int n, int n_surf, int n_w,
-                   int n_per_w, int n_params, float* const* out, double* partials) {
+cudaError_t launch(int grid, cudaStream_t stream, const float* const* in, float angle_thr,
+                   const float* const* cot, int n, int n_surf, int n_w, int n_per_w,
+                   int n_params, float* const* out, double* partials) {
   auto kernel = k1_bwd_kernel<MODE, ALLOW_BACKWARD>;
+  constexpr int slots = term_slots(MODE);
+  const int n_col = n_params + (MODE == 2 ? n_surf : 0);
+  const size_t smem = block_sums_bytes(n_col, slots, n_surf);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, BLOCK, smem, stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
       angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7],
-      cot[8], cot[9], n, n_surf, n_w, n_per_w, n_params, out[0], out[1], out[2],
-      partials);
+      cot[8], cot[9], n, n_surf, n_w, n_per_w, n_params, term_group(slots, n_surf), out[0],
+      out[1], out[2], partials);
   return cudaGetLastError();
 }
 
@@ -168,15 +177,13 @@ int k1_bwd_launch(const float* xp, const float* yp, const float* cy,
   cudaStream_t s = (cudaStream_t)stream;
   const int n_params = n_params_of(mode, n_surf, n_w);
   const int grid = (n + BLOCK - 1) / BLOCK;
-  const size_t smem = (size_t)WARPS * n_params * sizeof(double);
   const float* const in[11] = {xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, n_legs};
   const float* const cot[10] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang, dopl};
   float* const out[3] = {dxp, dyp, dcy_out};
   if (grid > 0) {
     cudaError_t err;
-#define K1_BWD_LAUNCH(M, AB)                                                 \
-  launch<M, AB>(grid, smem, s, in, angle_thr, cot, n, n_surf, n_w, n_per_w, \
-                n_params, out, partials)
+#define K1_BWD_LAUNCH(M, AB) \
+  launch<M, AB>(grid, s, in, angle_thr, cot, n, n_surf, n_w, n_per_w, n_params, out, partials)
     if (mode == 0)
       err = allow_backward ? K1_BWD_LAUNCH(0, true) : K1_BWD_LAUNCH(0, false);
     else if (mode == 1)
@@ -188,7 +195,7 @@ int k1_bwd_launch(const float* xp, const float* yp, const float* cy,
 #undef K1_BWD_LAUNCH
     if (err != cudaSuccess) return (int)err;
   }
-  partials_reduce<<<n_params, REDUCE_BLOCK, 0, s>>>(partials, grid, params);
+  reduce_partials(partials, n_params, grid, params, s);
   return (int)cudaGetLastError();
 }
 
