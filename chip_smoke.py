@@ -157,10 +157,14 @@ before that carries the kernels' numbers.
     python3 chip_smoke.py --render-walls  # instead: phase 32's render walls
                                           # alone (no result line)
     python3 chip_smoke.py --kernel-turns TREE...  # instead: K1 to K4,
-                                          # every mode, of each unpacked tree
-                                          # and of this checkout, timed in
-                                          # turns (trees, this, this, trees
-                                          # in reverse; no result line)
+                                          # every mode, K2b's splits and P2
+                                          # at two render shapes, of each
+                                          # unpacked tree and of this
+                                          # checkout, timed in turns (trees,
+                                          # this, this, trees in reverse; no
+                                          # result line); --families k2,p2
+                                          # (of k1,k2,k3,k4,p2) times only
+                                          # those
     python3 chip_smoke.py --ragged        # instead: phase 33 alone
 """
 
@@ -3449,17 +3453,84 @@ def ptxas_summary(path):
     return lines
 
 
-def kernel_times(torch, root, card):
+def k2_splits(torch, zoo, simulator, fused_batch, gen):
+    """K2b in plain and Lu mode (backward rays allowed, no bounds) split three
+    ways: one Cooke system of 393,216 rays (8 fields x 128^2 x 3,
+    ``k2_b1_bwd_*``) against 256 Cooke systems of 1,536 (``k2_cooke_bwd_*``),
+    the population layout's cost and its rays'; a 256-system double-Gauss population
+    (11 surfaces, ``k2_dg_bwd_*``) against the Cooke one (7), per-ray against
+    per-surface cost; and each backward's main kernel and second pass apart
+    (``_main``, ``_reduce``: ``reduce_split_ms``), with ``_gap``, the whole
+    time (CUDA events) less the two, the gap between them and the launch.
+    Two more cases trade the rays of the first two, to part the layout from
+    the rays: the population's rays as one system with the first system's
+    tables (``k2_poprays_b1_bwd_*``), and the single system's rays cut into
+    256 systems of 1,536, each with its tables (``k2_b1rays_pop_bwd_*``)."""
+    def inputs_of(name, n_sys, width):
+        specs, lens = zoo.population(name, n_sys, device="cuda")
+        with torch.no_grad():
+            xp, yp, cyb, z0, mu, (_, F, P, _) = fused_batch.prepare_fused_inputs_batch(
+                specs, lens, simulator.SimulatorConfig(**width).trace_config())
+        return (xp, yp, cyb, z0, lens.c, lens.t, mu), F * P
+
+    cases = {"b1": inputs_of("cooke", 1, dict(GEN_WIDTH, n_pupil_rings=128)),
+             "cooke": inputs_of("cooke", N_SYSTEMS, GEN_WIDTH),
+             "dg": inputs_of("double_gauss", N_SYSTEMS, GEN_WIDTH)}
+    (b1, n1), (pop, n_pop) = cases["b1"], cases["cooke"]
+    one = lambda a: a.reshape(1, -1)
+    cases["poprays_b1"] = ((one(pop[0]), one(pop[1]), one(pop[2]), b1[3], b1[4], b1[5],
+                            b1[6]), n1)
+    cut = lambda a: a.reshape(N_SYSTEMS, -1).contiguous()
+    rep = lambda a: a.expand((N_SYSTEMS,) + a.shape[1:]).contiguous()
+    cases["b1rays_pop"] = ((cut(b1[0]), cut(b1[1]), cut(b1[2]), rep(b1[3]), rep(b1[4]),
+                            rep(b1[5]), rep(b1[6])), n_pop)
+    ms = {}
+    for label, (inputs, n_per_w) in cases.items():
+        for penalties in (False, True):
+            cot = [torch.randn(inputs[0].shape, device="cuda", generator=gen)
+                   for _ in range(7 if penalties else 4)]
+            key = f"k2_{label}_bwd_{MODE_NAME[penalties]}"
+            with torch.no_grad():
+                bwd = lambda: fused_batch._launch_k2_bwd(inputs, cot, penalties, True, n_per_w,
+                                                         None, (), 0.25)
+                ms[key] = time_ms(torch, bwd, queue_ahead=True)
+                ms[f"{key}_reduce"], ms[f"{key}_main"] = reduce_split_ms(torch, bwd)
+            ms[f"{key}_gap"] = ms[key] - ms[f"{key}_reduce"] - ms[f"{key}_main"]
+    return ms
+
+
+def p2_times(torch, zoo, simulator, imaging, image):
+    """P2 (CUDA events) on the photograph's patches at the 1024^2 and 2048^2
+    renders' shapes (K = 11 and 23): ``p2_1024``, ``p2_2048``."""
+    cfg = imaging_config(simulator)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    ms = {}
+    with torch.no_grad():
+        model = imaging.sample_optics_model(specs, lens, cfg)
+        for px in (1024, 2048):
+            rad = torch.tensor(photograph(px)[None], device="cuda")
+            patches, psfs = p2_inputs(torch, imaging, image, model, rad, cfg)
+            ms[f"p2_{px}"] = time_ms(torch, lambda: image.svola_patch_conv(patches, psfs))
+    return ms
+
+
+KERNEL_FAMILIES = ("k1", "k2", "k3", "k4", "p2")
+
+
+def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
     """K1 to K4 forward and backward per mode (plain, Lu, full, opl;
     backward rays allowed), with the timing code of the timing phases
     (``mode_times``, ``opl_times``): K1 and K3 at 2,457,600 rays of the
     double-Gauss and its aspherized form, K2 and K4 at 256 x 1,536 rays of
-    the Cooke and aspheric Cooke populations. The port is imported from the
-    tree at ``root`` and its kernels built there (the build's seconds
+    the Cooke and aspheric Cooke populations; then K2b's splits
+    (``k2_splits``) and P2 at two render shapes (``p2_times``); of these,
+    the ``families`` named (``KERNEL_FAMILIES``). The port is imported from
+    the tree at ``root`` and its kernels built there (the build's seconds
     reported where it compiled)."""
     sys.path.insert(0, root)
-    from torchoptics_tpu_torch import simulator, zoo
-    from torchoptics_tpu_torch.ops import _kernels, fused_asphere, fused_batch, fused_trace
+    from torchoptics_tpu_torch import imaging, simulator, zoo
+    from torchoptics_tpu_torch.ops import (_kernels, fused_asphere, fused_batch, fused_trace,
+                                           image)
     modules = (fused_trace, fused_batch, fused_asphere)
     built = not _kernels.library_path().exists()
     start = time.perf_counter()
@@ -3468,26 +3539,45 @@ def kernel_times(torch, root, card):
            "build_s": time.perf_counter() - start if built else None, "ms": {}}
     gen = torch.Generator(device="cuda").manual_seed(23)
     for kernel in OPL_KERNELS:
+        if kernel not in families:
+            continue
         out["ms"].update(mode_times(torch, zoo, simulator, modules, kernel, False, gen,
                                     split=True)[0])
         opl = opl_times(torch, zoo, simulator, modules, kernel, False, gen, split=True)[0]
         out["ms"].update({key.replace("_bwd", "_bwd_opl") if "_bwd_" in key else f"{key}_opl":
                           value for key, value in opl.items()})
+    if "k2" in families:
+        out["ms"].update(k2_splits(torch, zoo, simulator, fused_batch, gen))
+    if "p2" in families:
+        out["ms"].update(p2_times(torch, zoo, simulator, imaging, image))
     return out
 
 
-def kernel_turns(trees, card):
+def kernel_turns(trees, card, families=KERNEL_FAMILIES):
     """``kernel_times`` of the trees given and of this checkout in turns, one
     process each: the trees, this checkout twice, the trees in reverse (old,
-    new, new, old for one tree). Returns each key's times per tree in run
-    order, their medians and this checkout's median over each tree's."""
+    new, new, old for one tree). The kernels of every tree are built first,
+    all trees at once (``build_s``: the seconds that took). Returns each
+    key's times per tree in run order, their medians and this checkout's
+    median over each tree's."""
     here = str(Path(__file__).resolve().parent)
-    order = [str(Path(t).resolve()) for t in trees]
-    order = order + [here, here] + order[::-1]
+    roots = [str(Path(t).resolve()) for t in trees] + [here]
+    start = time.perf_counter()
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); "
+             "from torchoptics_tpu_torch.ops import _kernels; _kernels.build()")
+    builds = [subprocess.Popen([sys.executable, "-c", build, root], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True) for root in roots]
+    for root, proc in zip(roots, builds):
+        text = proc.communicate()[0]
+        check(proc.returncode == 0, f"kernel build of {root}: exit {proc.returncode}\n"
+              + text[-4000:])
+    build_s = time.perf_counter() - start
+    order = roots[:-1] + [here, here] + roots[-2::-1]
     runs = []
     for root in order:
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--kernel-times",
-                               root], capture_output=True, text=True, timeout=900)
+                               root, "--families", ",".join(families)], capture_output=True,
+                              text=True, timeout=900)
         check(proc.returncode == 0, f"kernel times of {root}: exit {proc.returncode}\n"
               + proc.stdout[-2000:] + proc.stderr[-4000:])
         run = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -3500,18 +3590,19 @@ def kernel_turns(trees, card):
             per_tree[run["root"]].append(run["ms"][key])
         med = {root: statistics.median(v) for root, v in per_tree.items()}
         table[key] = {"runs": dict(per_tree), "median": med,
-                      "ratio_to": {root: med[here] / m for root, m in med.items() if root != here}}
-    return {"card": card, "this": here, "build_s": {r["root"]: r["build_s"] for r in runs
-                                                     if r["build_s"] is not None},
-            "kernels": table}
+                      "ratio_to": {root: med[here] / m if m else None
+                                   for root, m in med.items() if root != here}}
+    return {"card": card, "this": here, "build_s": build_s, "kernels": table}
 
 
-def add_resources(entries, summary, n_asph):
+def add_resources(entries, summary, n_asph, k2_surf):
     """Each trace kernel entry's registers, stack frame and spills (bytes)
     from the build's ``-Xptxas -v`` report (``ptxas_summary``'s lines), for
     the instantiation its main numbers time: its mode, backward rays
     allowed, K2 and K4 unmasked, K3 and K4 at the timed asphere term count
-    (``n_asph``: {"k3": K, "k4": K})."""
+    (``n_asph``: {"k3": K, "k4": K}), K2 backward at the timed population's
+    surface count ``k2_surf`` (its own kernel, or 0 where it has none); P2's
+    at kw = 11, its timed shape's."""
     found = {}
     for line in summary:
         name, rest = line.split(": ", 1)
@@ -3524,11 +3615,14 @@ def add_resources(entries, summary, n_asph):
     for e in entries:
         name = e["name"]
         family = name[:2]
+        if name == "p2_svola":  # the 1024^2 render's kw
+            e.update(found.get("p2_svola_kernel<11>", {}))
         if family not in ("k1", "k2", "k3", "k4"):
             continue
         mode = 3 if name.endswith("_opl") else 2 if name.endswith("_full") else 1
         rest = {"k1": "", "k2": ",0", "k3": f",{n_asph['k3']}", "k4": f",0,{n_asph['k4']}"}
-        e.update(found.get(f"{name[:6]}_kernel<{mode},1{rest[family]}>", {}))
+        ns = f",{k2_surf}" if name.startswith("k2_bwd") else ""
+        e.update(found.get(f"{name[:6]}_kernel<{mode},1{rest[family]}{ns}>", {}))
 
 
 def main():
@@ -3537,13 +3631,19 @@ def main():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
         return 1
     args = sys.argv[1:]
+    families = KERNEL_FAMILIES
+    if "--families" in args:
+        families = tuple(args[args.index("--families") + 1].split(","))
+        check(set(families) <= set(KERNEL_FAMILIES),
+              f"--families takes some of {','.join(KERNEL_FAMILIES)}, got {','.join(families)}")
+        del args[args.index("--families"):args.index("--families") + 2]
     if "--kernel-turns" in args:
         print(json.dumps({"kernel_turns": kernel_turns(args[args.index("--kernel-turns") + 1:],
-                                                       card_line())}))
+                                                       card_line(), families)}))
         return 0
     if "--kernel-times" in args:
         print(json.dumps(kernel_times(torch, args[args.index("--kernel-times") + 1],
-                                      card_line())))
+                                      card_line(), families)))
         return 0
     from torchoptics_tpu_torch import LensOptimizer, OpticalLoss, entry, imaging, simulator, zoo
     from torchoptics_tpu_torch.benchmarks import issue_peak
@@ -3630,7 +3730,9 @@ def main():
     add_issue_bounds(entries, p1[0], {"k1": shape, "k2": k2_shape, "k3": k3_shape,
                                       "k4": k4_shape,
                                       **{f"opl_{k}": v for k, v in opl_shapes.items()}})
-    add_resources(entries, resources, {"k3": k3_shape["n_asph"], "k4": k4_shape["n_asph"]})
+    add_resources(entries, resources, {"k3": k3_shape["n_asph"], "k4": k4_shape["n_asph"]},
+                  k2_shape["n_surf"] if _kernels.load().k2_bwd_specialized(k2_shape["n_surf"])
+                  else 0)
     for e in entries:
         if e["name"][:6] in ("k1_bwd", "k2_bwd", "k3_bwd", "k4_bwd"):
             e["ragged_param_max_rel_err"] = ragged[e["name"][:2]]

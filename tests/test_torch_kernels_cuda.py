@@ -119,8 +119,8 @@ def test_fused_loss_on_gpu_matches_cpu(cuda):
         assert abs(float(loss[key]) - float(want[key])) <= rtol * abs(float(want[key])), key
 
 
-def _k1_inputs(device, c_scale):
-    cfg = simulator.SimulatorConfig(**CONFIG).trace_config()
+def _k1_inputs(device, c_scale, **width):
+    cfg = simulator.SimulatorConfig(**dict(CONFIG, **width)).trace_config()
     specs, lens = zoo.build("double_gauss", device=device)
     lens = lens.replace(c=lens.c * c_scale)
     with torch.no_grad():
@@ -273,17 +273,33 @@ def test_k2_matches_plain_versions(cuda, name, penalties, allow_backward):
         assert 0 < float(got[4].float().mean()) < 1
 
 
-def test_k2_population_of_one_is_k1(cuda):
-    """K2 at B = 1 without a mask gives K1's outputs bit for bit."""
-    from torchoptics_tpu_torch.ops import fused_batch
-    inputs, n_per_w, bounds = _k1_inputs(cuda, 3.0)
+@pytest.mark.parametrize("n_rings", [96, 16])
+def test_k2_population_of_one_is_k1(cuda, n_rings):
+    """K2 at B = 1 without a mask gives K1's outputs and, both policies, its
+    backward's cotangents bit for bit: at 442,368 rays (1,728 blocks: the
+    second pass sums the partials) and at 16 x 16^2 x 3 = 12,288 (48 blocks:
+    the system's last block sums them, in the second pass's order). The
+    double-Gauss's 11 surfaces take K2b's kernel of their own."""
+    from torchoptics_tpu_torch.ops import _kernels, fused_batch
+    assert _kernels.load().k2_bwd_specialized(11) == 1
+    inputs, n_per_w, bounds = _k1_inputs(cuda, 3.0, n_pupil_rings=n_rings)
     one = [a.reshape(1) if i == 3 else a[None] for i, a in enumerate(inputs)]
+    gen = torch.Generator(device=cuda).manual_seed(5)
     for penalties in PENALTY_MODES:
         ins = inputs if penalties == "full" else inputs[:7]
+        ones = one if penalties == "full" else one[:7]
         k1 = fused_trace._launch_k1_fwd(ins, penalties, True, n_per_w, bounds, THR)
-        k2 = fused_batch._launch_k2_fwd(one if penalties == "full" else one[:7], penalties, True,
-                                        n_per_w, None, bounds, THR)
+        k2 = fused_batch._launch_k2_fwd(ones, penalties, True, n_per_w, None, bounds, THR)
         assert all(torch.equal(a, b[0]) for a, b in zip(k1, k2))
+        cot = [torch.randn(inputs[0].shape, device=cuda, generator=gen)
+               for _ in range({False: 4, True: 7, "full": 9}[penalties])]
+        for allow_backward in (True, False):
+            g1 = fused_trace._launch_k1_bwd(ins, cot, penalties, allow_backward, n_per_w, bounds,
+                                            THR)
+            g2 = fused_batch._launch_k2_bwd(ones, [c[None] for c in cot], penalties,
+                                            allow_backward, n_per_w, None, bounds, THR)
+            assert all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(g1, g2)), (
+                penalties, allow_backward)
 
 
 def test_population_paths_on_gpu_match_cpu(cuda):
@@ -969,22 +985,65 @@ def test_k4_training_path_at_a_fixed_bar(cuda):
 # three wavelengths.
 RAGGED = {"845": dict(n_sampled_fields=5, n_pupil_rings=13),
           "81": dict(n_sampled_fields=1, n_pupil_rings=9)}
+# K2 also on seeded populations of S surfaces ("s7", "s11", "s12"; "m" for a
+# surface mask with the last two surfaces of every other system padded): the
+# counts with a K2b kernel of their own (7, 11), masked and unmasked, and one
+# past the largest (12, the runtime-S kernel).
 RAGGED_CASES = ([(k, v, "845") for k, vs in (("k1", (1.0, 3.0)), ("k3", (1.0, 3.0)),
                                              ("k2", ("cooke", "c3", "mixed")),
                                              ("k4", ("cooke", "c3", "mixed"))) for v in vs]
                 + [(k, v, "81") for k, v in (("k1", 1.0), ("k3", 1.0), ("k2", "cooke"),
-                                             ("k4", "cooke"))])
+                                             ("k4", "cooke"))]
+                + [("k2", f"s{n}{m}", "845") for n in (7, 11, 12) for m in ("", "m")])
 # Each kernel's bar on its parameter sums, as in the tests above.
 RAGGED_BAR = {"k1": 1e-5, "k2": 2e-6, "k3": ONE_ROUNDING, "k4": ONE_ROUNDING}
+
+
+def _short_inputs(device, variant, n_per_w):
+    """A seeded 8-system population of S surfaces ('s<S>', 'm' at the end
+    for a surface mask), 3 wavelengths of ``n_per_w`` rays: weak glass and
+    air surfaces as in ``_largest_inputs``, system 0 with 30x the
+    curvatures (rays fail there); masked, every other system's last two
+    surfaces padded (c = t = 0, mu = 1, mask False). Returns what
+    ``_ragged_inputs`` does."""
+    masked = variant.endswith("m")
+    n_surf, n_sys, n_w = int(variant[1:].rstrip("m")), 8, 3
+    rng = np.random.default_rng(n_surf + 100 * masked)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    n = n_w * n_per_w
+    xp, yp = (rng.uniform(-1.0, 1.0, (n_sys, n)) for _ in range(2))
+    cy = rng.uniform(-0.05, 0.05, (n_sys, n))
+    c = rng.normal(0.0, 0.02, (n_sys, n_surf))
+    c[0] *= 30.0
+    t = np.full((n_sys, n_surf), 0.5)
+    index = 1.5 + 0.01 * np.arange(n_w) / n_w
+    legs = np.where(np.arange(n_surf + 1)[:, None] % 2 == 1, index, 1.0)
+    legs = np.broadcast_to(legs, (n_sys, n_surf + 1, n_w)).copy()
+    mask = np.ones((n_sys, n_surf), bool)
+    if masked:
+        mask[1::2, -2:] = False
+        c[1::2, -2:] = 0.0
+        t[1::2, -2:] = 0.0
+        legs[1::2, -2:] = legs[1::2, -3:-2]      # the padded legs stay in the last medium
+    mu = legs[:, :-1] / legs[:, 1:]
+    vertex_z = np.cumsum(t, -1)
+    ref_z = np.concatenate((vertex_z, vertex_z[:, -1:]), -1)
+    base = tuple(f32(a).contiguous() for a in (xp, yp, cy, np.full(n_sys, -1.0), c, t, mu))
+    bounds = ((0.1, 5.0),) * n_surf
+    return (base, f32(ref_z), f32(legs), n_per_w,
+            torch.tensor(mask, device=device) if masked else None, bounds)
 
 
 def _ragged_inputs(device, kernel, variant, width):
     """(base inputs, ref_z, n_legs, n_per_w, mask, bounds) at a ragged width:
     K1 on the double-Gauss and K3 on its aspherized form (c x ``variant``),
     K2 and K4 on 32-system Cooke and aspheric Cooke populations ('c3': c x 3
-    on every 8th system) or on the padded mixed ones."""
+    on every 8th system) or on the padded mixed ones, K2 also on the seeded
+    populations of ``_short_inputs``."""
     import numpy as np
     from torchoptics_tpu_torch.ops import fused_batch
+    if isinstance(variant, str) and variant.startswith("s"):
+        return _short_inputs(device, variant, 845)
     cfg = simulator.SimulatorConfig(pupil_sampling="circular", n_ray_aiming_iter=1,
                                     **RAGGED[width]).trace_config()
     single, asph = kernel in ("k1", "k3"), kernel in ("k3", "k4")
@@ -1058,6 +1117,10 @@ def test_backward_kernels_at_ragged_shapes(cuda, kernel, variant, width, penalti
     n = base[0].shape[-1]
     assert n_per_w % 32 != 0 and n % 256 != 0
     population = kernel in ("k2", "k4")
+    if kernel == "k2":
+        from torchoptics_tpu_torch.ops import _kernels
+        n_surf = base[4].shape[-1]
+        assert _kernels.load().k2_bwd_specialized(n_surf) == (n_surf in (7, 11))
     bar = ONE_ROUNDING if penalties == "opl" else RAGGED_BAR[kernel]
     gen = torch.Generator(device=cuda).manual_seed(9)
     n_cot = {False: 4, True: 7, "full": 9, "opl": 5}[penalties]
@@ -1146,15 +1209,26 @@ def test_backward_kernels_at_the_largest_shape(cuda, kernel, penalties):
 
 # (patches, patch height, width, channels, kh, kw): the 1024^2 and 256^2
 # renders' shapes, a non-square patch with K = 23 (a 2048^2 render's PSF)
-# and a non-square kernel on a batch of 2 x 4 patches.
+# and a non-square kernel on a batch of 2 x 4 patches; then ragged shapes
+# (outputs no multiple of the 32 x 32 tile): K = 1 and 31, one and three
+# channels and five (a group of four and one of one), kh != kw, a kw on each
+# side of each kw with a kernel of its own (3, 5, 11, 23), the others on the
+# runtime-kw kernel.
 P2_SHAPES = [(25, 316, 316, 3, 11, 11), (25, 77, 77, 3, 3, 3), (6, 100, 72, 3, 23, 23),
-             (8, 40, 52, 3, 5, 7)]
+             (8, 40, 52, 3, 5, 7),
+             (3, 45, 50, 1, 1, 1), (2, 70, 75, 3, 31, 31), (2, 66, 63, 1, 31, 29),
+             (4, 50, 61, 3, 7, 11), (3, 41, 39, 5, 3, 3), (2, 60, 57, 3, 5, 2),
+             (2, 41, 70, 1, 3, 4), (2, 52, 49, 3, 5, 5), (2, 44, 47, 3, 7, 6),
+             (3, 66, 45, 3, 9, 10), (2, 47, 80, 3, 13, 12),
+             (2, 90, 77, 3, 21, 22), (2, 85, 90, 1, 25, 24), (2, 57, 58, 3, 23, 23),
+             (2, 33, 34, 3, 1, 3)]
 
 
 @pytest.mark.parametrize("shape", P2_SHAPES)
 def test_p2_matches_plain_version(cuda, shape):
-    from torchoptics_tpu_torch.ops import image
+    from torchoptics_tpu_torch.ops import _kernels, image
     P, ph, pw, C, kh, kw = shape
+    assert _kernels.load().p2_specialized_kw(kw) == (kw in (3, 5, 11, 23))
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
     patches = torch.rand((P, ph, pw, C), generator=g, device=cuda) * 255.0
     psfs = torch.rand((P, kh, kw, C), generator=g, device=cuda)

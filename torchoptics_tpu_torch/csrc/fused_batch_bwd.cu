@@ -29,6 +29,20 @@
 // block, where a block of 256 threads a row took 12-20 us of the ~0.1 ms
 // (measured on an H100; PERF.md, section 6).
 //
+// Design for the short systems of populations: the surface counts in
+// SHORT_SURF (7, the Cooke triplet's; 11, the double-Gauss's and the mixed
+// populations' padded width) are instantiated with the count fixed at
+// compile time (bwd_ray's NS). Its loops unroll, so the 6-float stash a
+// surface stays in registers (80 of them, 3 blocks an SM, a few spilled),
+// where the runtime-S kernel keeps it in a 1,536-byte local-memory frame;
+// and its divisions skip zero dividends (quot), which a population's failed
+// rays divide on every surface and which IEEE division sends down its slow
+// path. The unrolled kernel without quot was slower than the runtime-S one
+// on a population; with it, 9-15 % faster (measured on an H100, PERF.md
+// section 6). Any other count runs the runtime-S kernel. Each thread reads
+// its ray and cotangents before the tables' barrier, so that the two reads'
+// latencies overlap.
+//
 // Build: as K1, -fmad=false and no fast-math.
 
 #include "trace_common.cuh"
@@ -36,10 +50,16 @@
 namespace {
 
 constexpr int MAX_GRID_Y = 65535;
+// The surface counts with a kernel of their own (NS), and the blocks an SM
+// their kernels ask for: 80 registers a thread, which spills a little of the
+// stash (measured on an H100: 2 blocks of ~120 registers without spills are
+// slower, PERF.md section 6).
+constexpr int SHORT_SURF[] = {7, 11};
+constexpr int SHORT_BLOCKS_PER_SM = 3;
 
-// MODE: 0 plain, 1 Lu, 2 full, 3 opl.
-template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
-__global__ void __launch_bounds__(BLOCK) k2_bwd_kernel(
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl. NS: the surface count, or 0 for any.
+template <int MODE, bool ALLOW_BACKWARD, bool MASKED, int NS>
+__global__ void __launch_bounds__(BLOCK, NS > 0 ? SHORT_BLOCKS_PER_SM : 1) k2_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
     const float* __restrict__ cy_in, const float* __restrict__ z0,
     const float* __restrict__ c, const float* __restrict__ t,
@@ -60,18 +80,10 @@ __global__ void __launch_bounds__(BLOCK) k2_bwd_kernel(
   constexpr bool OPL = MODE == 3;
   const int b = blockIdx.z * gridDim.y + blockIdx.y;
   if (b >= n_sys) return;  // the whole block
-  __shared__ Tables<MODE> tab;
-  extern __shared__ double s_sums[];  // the column, then the rows of terms
-  tab.load(c + (size_t)b * n_surf, t + (size_t)b * n_surf, mu + (size_t)b * n_surf * n_w,
-           FULL ? ref_z + (size_t)b * (n_surf + 1) : nullptr, lo, hi,
-           OPL ? n_legs + (size_t)b * (n_surf + 1) * n_w : nullptr,
-           MASKED ? mask + (size_t)b * n_surf : nullptr, n_surf, n_w);
-  const BlockSums bs =
-      block_sums(s_sums, n_params + (FULL ? n_surf : 0), group, n, n_per_w, n_w);
-  __syncthreads();
-
   // Threads past the end trace a copy of the system's last ray and put zero
-  // terms, so that every thread reaches every flush of the block's sums.
+  // terms, so that every thread reaches every flush of the block's sums. The
+  // rays are read before the tables' barrier, so that the two reads' latencies
+  // overlap.
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool active = i < n;
   const int ic = active ? i : n - 1;
@@ -83,9 +95,20 @@ __global__ void __launch_bounds__(BLOCK) k2_bwd_kernel(
                    LU ? read(dpth_in) : 0.0f, LU ? read(dptp_in) : 0.0f,
                    LU ? read(dpz_in) : 0.0f, FULL ? read(dppath_in) : 0.0f,
                    FULL ? read(dpang_in) : 0.0f, OPL ? read(dopl_in) : 0.0f};
+  const float x0 = xp[rc], y0 = yp[rc], cy0 = cy_in[rc], zb = z0[b];
+  __shared__ Tables<MODE> tab;
+  extern __shared__ double s_sums[];  // the column, then the rows of terms
+  tab.load(c + (size_t)b * n_surf, t + (size_t)b * n_surf, mu + (size_t)b * n_surf * n_w,
+           FULL ? ref_z + (size_t)b * (n_surf + 1) : nullptr, lo, hi,
+           OPL ? n_legs + (size_t)b * (n_surf + 1) * n_w : nullptr,
+           MASKED ? mask + (size_t)b * n_surf : nullptr, n_surf, n_w);
+  const BlockSums bs =
+      block_sums(s_sums, n_params + (FULL ? n_surf : 0), group, n, n_per_w, n_w);
+  __syncthreads();
+
   float dxp, dyp, dcyp;
-  bwd_ray<MODE, ALLOW_BACKWARD, MASKED>(tab, n_surf, n_w, angle_thr, active, w, xp[rc],
-                                        yp[rc], cy_in[rc], z0[b], cot, bs, dxp, dyp, dcyp);
+  bwd_ray<MODE, ALLOW_BACKWARD, MASKED, NS>(tab, n_surf, n_w, angle_thr, active, w, x0, y0,
+                                            cy0, zb, cot, bs, dxp, dyp, dcyp);
   if (active) {
     dxp_out[r] = dxp;
     dyp_out[r] = dyp;
@@ -95,42 +118,65 @@ __global__ void __launch_bounds__(BLOCK) k2_bwd_kernel(
                partials + (size_t)b * n_params * gridDim.x + blockIdx.x, gridDim.x);
 }
 
-template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
-cudaError_t launch(dim3 grid, cudaStream_t stream, const float* const* in,
-                   const bool* mask, float angle_thr, const float* const* cot, int n_sys,
-                   int n, int n_surf, int n_w, int n_per_w, int n_params,
-                   float* const* out, double* partials) {
-  auto kernel = k2_bwd_kernel<MODE, ALLOW_BACKWARD, MASKED>;
+// The launch arguments every instantiation takes.
+struct Args {
+  dim3 grid;
+  cudaStream_t stream;
+  const float* const* in;
+  const bool* mask;
+  float angle_thr;
+  const float* const* cot;
+  int n_sys, n, n_surf, n_w, n_per_w, n_params;
+  float* const* out;
+  double* partials;
+};
+
+template <int MODE, bool ALLOW_BACKWARD, bool MASKED, int NS>
+cudaError_t launch(const Args& a) {
+  auto kernel = k2_bwd_kernel<MODE, ALLOW_BACKWARD, MASKED, NS>;
   constexpr int slots = term_slots(MODE);
-  const size_t smem = block_sums_bytes(n_params + (MODE == 2 ? n_surf : 0), slots, n_surf);
+  const size_t smem =
+      block_sums_bytes(a.n_params + (MODE == 2 ? a.n_surf : 0), slots, a.n_surf);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, BLOCK, smem, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], mask, in[7], in[8], in[9], in[10],
-      angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7], cot[8],
-      cot[9], n_sys, n, n_surf, n_w, n_per_w, n_params, term_group(slots, n_surf), out[0],
-      out[1], out[2], partials);
+  const float* const* in = a.in;
+  const float* const* cot = a.cot;
+  kernel<<<a.grid, BLOCK, smem, a.stream>>>(
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], a.mask, in[7], in[8], in[9], in[10],
+      a.angle_thr, cot[0], cot[1], cot[2], cot[3], cot[4], cot[5], cot[6], cot[7], cot[8],
+      cot[9], a.n_sys, a.n, a.n_surf, a.n_w, a.n_per_w, a.n_params,
+      term_group(slots, a.n_surf), a.out[0], a.out[1], a.out[2], a.partials);
   return cudaGetLastError();
 }
 
+template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
+cudaError_t launch_surf(const Args& a) {
+  switch (a.n_surf) {
+    case 7:
+      return launch<MODE, ALLOW_BACKWARD, MASKED, 7>(a);
+    case 11:
+      return launch<MODE, ALLOW_BACKWARD, MASKED, 11>(a);
+    default:
+      return launch<MODE, ALLOW_BACKWARD, MASKED, 0>(a);
+  }
+}
+
 template <int MODE, bool ALLOW_BACKWARD>
-cudaError_t launch_masked(bool masked, dim3 grid, cudaStream_t stream,
-                          const float* const* in, const bool* mask, float angle_thr,
-                          const float* const* cot, int n_sys, int n, int n_surf, int n_w,
-                          int n_per_w, int n_params, float* const* out,
-                          double* partials) {
-  if (masked)
-    return launch<MODE, ALLOW_BACKWARD, true>(grid, stream, in, mask, angle_thr, cot,
-                                              n_sys, n, n_surf, n_w, n_per_w, n_params, out,
-                                              partials);
-  return launch<MODE, ALLOW_BACKWARD, false>(grid, stream, in, mask, angle_thr, cot,
-                                             n_sys, n, n_surf, n_w, n_per_w, n_params, out,
-                                             partials);
+cudaError_t launch_masked(const Args& a) {
+  return a.mask ? launch_surf<MODE, ALLOW_BACKWARD, true>(a)
+                : launch_surf<MODE, ALLOW_BACKWARD, false>(a);
 }
 
 }  // namespace
 
 extern "C" {
+
+// 1 where n_surf has a kernel of its own, 0 where it takes the runtime-S one.
+int k2_bwd_specialized(int n_surf) {
+  for (int k : SHORT_SURF)
+    if (k == n_surf) return 1;
+  return 0;
+}
 
 // Launches K2 backward and the reduction of its partials on `stream`;
 // returns the first CUDA error (0 on success). Inputs as k2_fwd_launch;
@@ -159,12 +205,11 @@ int k2_bwd_launch(const float* xp, const float* yp, const float* cy, const float
   const float* const in[11] = {xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, n_legs};
   const float* const cot[10] = {dx, dy, dcx, dcy, dpth, dptp, dpz, dppath, dpang, dopl};
   float* const out[3] = {dxp, dyp, dcy_out};
-  const bool masked = mask != nullptr;
+  const Args args{grid, s, in, mask, angle_thr, cot, n_sys, n, n_surf, n_w, n_per_w,
+                  n_params, out, partials};
   if (blocks > 0) {
     cudaError_t err;
-#define K2_BWD_LAUNCH(M, AB)                                                          \
-  launch_masked<M, AB>(masked, grid, s, in, mask, angle_thr, cot, n_sys, n, n_surf,       \
-                       n_w, n_per_w, n_params, out, partials)
+#define K2_BWD_LAUNCH(M, AB) launch_masked<M, AB>(args)
     if (mode == 0)
       err = allow_backward ? K2_BWD_LAUNCH(0, true) : K2_BWD_LAUNCH(0, false);
     else if (mode == 1)

@@ -291,6 +291,16 @@ def required_warp_band(model: OpticsModel, field_lim, img_h: int, img_w: int,
                          torch.amax(torch.abs(dy)) * (img_h - 1) / 2.0)
 
 
+def psf_kernel_shape(img_hw: Tuple[int, int], config) -> Tuple[int, int]:
+    """(kh, kw) of the patch PSFs at an image of ``img_hw`` pixels: the PSF
+    window at the sensor's pixel pitch for this diagonal, odd, at least 3."""
+    diag = math.sqrt(img_hw[0] ** 2 + img_hw[1] ** 2)
+    resized = (np.asarray(config.psf_shape) * config.psf_abs_pixel_size
+               * int(config.simulated_res_factor) * diag / config.sensor_diagonal)
+    resized = np.maximum((np.floor(resized / 2) * 2 + 1).astype(int), 3)
+    return tuple(int(v) for v in resized)
+
+
 def patch_psfs(model: OpticsModel, img_hw: Tuple[int, int], field_lim,
                config: sim_mod.SimulatorConfig):
     """The PSF of each SVOLA patch of an (H, W) render: the per-field PSFs
@@ -305,14 +315,10 @@ def patch_psfs(model: OpticsModel, img_hw: Tuple[int, int], field_lim,
     # Static geometry, in numpy: the per-patch PSF weights and the
     # illumination map's hat weights come from it.
     field_map = np.sqrt(x_map[None, :] ** 2 + y_map[:, None] ** 2)
-    diag = math.sqrt(img_h ** 2 + img_w ** 2)
-    resized = (np.asarray(config.psf_shape) * config.psf_abs_pixel_size
-               * int(config.simulated_res_factor) * diag / config.sensor_diagonal)
-    resized = np.maximum((np.floor(resized / 2) * 2 + 1).astype(int), 3)
     gh, gw = config.psf_grid_shape
     psfs = image_mod.interpolate_psfs(model.sampled_psfs, field_map, (gh, gw))
     psfs = image_mod.rotate_and_resize_psfs(psfs, x_map, y_map, (gh, gw),
-                                            tuple(int(v) for v in resized))
+                                            psf_kernel_shape(img_hw, config))
     overlap = tuple(int(v) for v in (0.25 * np.asarray(img_hw)
                                      / np.asarray(config.psf_grid_shape)).astype(int))
     return psfs, overlap, field_map

@@ -132,4 +132,7 @@ def load() -> ctypes.CDLL:
     for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block", "k3_max_asph", "p2_max_k"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
+    for name in ("k2_bwd_specialized", "p2_specialized_kw"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = i
     return lib
