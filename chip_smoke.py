@@ -10,7 +10,9 @@ the aspherized double-Gauss on kernel K3) and the aspheric-population path
 (OPD, Zernike, Strehl, the diffraction PSF and the ``wavefront_rms``
 objective on the opl mode of K1-K4) and the imaging path (rendering a
 photograph through a lens: PSFs, the SVOLA convolution on kernel P2, the
-distortion warp), runs the card's issue-rate probe P1, and checks every
+distortion warp) and imaging training (``LensOptimizer`` on the rendered
+image's PSNR and SSIM, through P2's adjoint) and the stateful simulator
+(``RaytracedOptics``), runs the card's issue-rate probe P1, and checks every
 hand-written CUDA kernel on them against its plain PyTorch version:
 
 1. the card's name and power limit;
@@ -120,7 +122,7 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     rings, 33 x 33 PSFs at 4 um, 5 x 5 patches): kernel P2 (the SVOLA patch
     convolution) against its plain version, bit for bit, on the patches of
     the sample photograph at 1024^2, 256^2 and 2048^2 (K = 11, 3, 23), on
-    non-square patches and on a batch of two; it raises under grad;
+    non-square patches and on a batch of two; under grad it runs;
 30. ``imaging.simulate`` of the photograph at 1024^2 and 256^2 (geometric
     PSFs on K1f, the separable warp): one K1 forward and one P2 launch a
     render, the card's render held against the CPU's; a 256^2 diffraction
@@ -132,7 +134,27 @@ hand-written CUDA kernel on them against its plain PyTorch version:
 32. timings: P2, its plain version and the torch.fft product at the 1024^2
     shape, and the host wall of a render at 256, 512 and 1024^2, split into
     ``sample_optics_model`` and ``apply_optics_model``;
-33. (after 28) K1b to K4b at ragged shapes, where no warp or block boundary
+33. P2 with wide PSFs (the tap rows in chunks), bit for bit with its plain
+    version: the default configuration's (65 x 65 PSFs, 9 x 9 patches)
+    renders at 1448^2, 2048^2 and 4096^2 (K = 33, 47, 95) and a non-square
+    kh 47 x kw 29; whole renders of the default configuration at 2048^2 and
+    of config 5 at 4096^2, one K1 forward and one P2 launch each;
+34. P2's adjoint through ``svola_patch_conv``'s backward at config 5's
+    1024^2 shape (K = 11) and the default configuration's 2048^2 (K = 47):
+    d/dpsf (``csrc/svola_conv_bwd.cu``) and d/dpatch (P2 on the padded
+    cotangent) bit for bit with their plain versions;
+35. image training, this slice's main path: 5 Adam steps of
+    ``LensOptimizer(loss_fn=imaging.make_image_loss_fn(...))`` on the
+    double-Gauss defocused by 0.3 mm, config 5 at 1024^2, one K1 forward,
+    one K1 backward, one P2 and one d/dpsf launch a step, every step
+    accepted; the first step's d/d(c, t) at 256^2 held against the CPU's;
+    the host wall of a step at 256^2 and 1024^2;
+36. ``RaytracedOptics.do_ray_tracing`` on the Cooke (the zoo's prescription
+    dict) on the fused engine, held against the CPU;
+37. timings: d/dpsf, its plain version and the torch.fft correlation at the
+    1024^2 and 2048^2 shapes; P2, its plain version and the torch.fft
+    product at K = 47 and 95;
+38. (after 28) K1b to K4b at ragged shapes, where no warp or block boundary
     falls on a wavelength's: 5 fields x 13^2 pupil rays (845 a wavelength,
     2,535 a system; blocks straddle wavelengths, the last block is partly
     inactive) and 1 x 9^2 (81 a wavelength: three wavelengths in one
@@ -152,20 +174,22 @@ before that carries the kernels' numbers.
                                       # (double-Gauss and aspherized), of a
                                       # generator step, of an aspheric
                                       # population step, of a
-                                      # wavefront_rms step at 442,368 rays
-                                      # and of a 1024^2 render
+                                      # wavefront_rms step at 442,368 rays,
+                                      # of a 1024^2 render and of an
+                                      # image-loss step at 256^2 and
+                                      # 1024^2
     python3 chip_smoke.py --render-walls  # instead: phase 32's render walls
                                           # alone (no result line)
     python3 chip_smoke.py --kernel-turns TREE...  # instead: K1 to K4,
                                           # every mode, K2b's splits and P2
-                                          # at two render shapes, of each
+                                          # at four render shapes, of each
                                           # unpacked tree and of this
                                           # checkout, timed in turns (trees,
                                           # this, this, trees in reverse; no
                                           # result line); --families k2,p2
                                           # (of k1,k2,k3,k4,p2) times only
                                           # those
-    python3 chip_smoke.py --ragged        # instead: phase 33 alone
+    python3 chip_smoke.py --ragged        # instead: phase 38 alone
 """
 
 import collections
@@ -687,6 +711,7 @@ def profile_steps(torch, label, step, card, n_steps=3):
                  "K2 backward" if "k2_bwd_kernel" in name else
                  "kernel parameter sums" if "partials_reduce" in name else
                  "P2 (SVOLA patch convolution)" if "p2_svola_kernel" in name else
+                 "P2 d/dpsf" if "p2_dpsf" in name else
                  "Adam" if ("adam" in name.lower() or "multi_tensor" in name) else
                  "reductions" if "reduce" in name.lower() else "front-end and other")
         groups[group] = groups.get(group, 0.0) + dev_us / 1e3 / n_steps
@@ -737,6 +762,14 @@ def phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, OpticalLoss
     radiance = torch.tensor(photograph(1024)[None], device="cuda")
     profile_steps(torch, "render of the sample photograph at 1024^2 (config 5, simulate)",
                   lambda: render(torch, imaging, specs, lens, radiance, cfg), card)
+    for px in IMAGE_TRAIN_SIZES:
+        opt, state = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, "cuda", px)
+        holder = [state]
+
+        def step():
+            holder[0] = opt.step(holder[0])[0]
+        profile_steps(torch, f"image-loss LensOptimizer.step at {px}^2 (config 5, double-Gauss "
+                      "defocused 0.3 mm)", step, card)
 
 
 # ---------------------------------------------------------------------------
@@ -3152,8 +3185,9 @@ def phase_p2_kernel(torch, zoo, simulator, imaging, image):
     resized as a render resizes them (K = 11, 3 and 23); a non-square image
     (256 x 384, non-square patches); a batch of two images (the photograph
     and its mirror). Bit-identical is the bar (the same tap order, no FMA
-    contraction). Under grad it must raise. Returns the largest deviation
-    and the 1024^2 inputs for the timing."""
+    contraction). Under grad it runs, with the same bits (its adjoint is
+    ``phase_p2_adjoint``'s). Returns the largest deviation and the 1024^2
+    inputs for the timing."""
     cfg = imaging_config(simulator)
     specs, lens = zoo.build("double_gauss", device="cuda")
     with torch.no_grad():
@@ -3182,13 +3216,13 @@ def phase_p2_kernel(torch, zoo, simulator, imaging, image):
               f"{tuple(psfs.shape)} -> {tuple(got.shape)}: bit-identical={torch.equal(got, want)} "
               f"(max deviation {err:.3e}, bar 0)")
     patches, psfs = cases[-1][1]
-    try:
-        image.svola_patch_conv(patches, psfs.clone().requires_grad_(True))
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    check("no backward kernel" in raised,
-          f"P2 under grad raises NotImplementedError naming the missing adjoint: {raised[:90]}")
+    graded = image.svola_patch_conv(patches, psfs.clone().requires_grad_(True))
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        same = torch.equal(graded.detach(), image.svola_patch_conv(patches, psfs))
+    check(graded.requires_grad and same,
+          f"P2 under grad: runs, output requires grad={graded.requires_grad}, the same bits as "
+          f"under no_grad={same}")
     return worst, timing_inputs
 
 
@@ -3373,6 +3407,466 @@ def render_walls(torch, zoo, simulator, imaging, card):
     return walls
 
 
+# ---------------------------------------------------------------------------
+# Imaging training: wide PSFs, P2's adjoint, the image loss through
+# LensOptimizer, and the stateful simulator.
+# ---------------------------------------------------------------------------
+
+P2_DPSF_SOURCE = "torchoptics_tpu_torch/csrc/svola_conv_bwd.cu"
+# No Pallas kernel computes d/dpsf: XLA differentiates the FFT SVOLA.
+TPU_P2_DPSF = ("torchoptics_tpu/ops/image.py:62 (svola_convolution by FFT, differentiated by "
+               "XLA; no Pallas kernel)")
+# FP64 outside the tensor cores, NVIDIA's H100 SXM data sheet: the rate of
+# d/dpsf's double FMAs, the ceiling of its design. Its bound_ms is taken at
+# PEAK_FLOPS, the rate of its inputs' float32 (and of FP64 on the tensor
+# cores).
+PEAK_FP64 = 34e12
+# Card against CPU, d/d(c, t) of the image loss at 256^2. Each side traces,
+# splats, renders and differentiates on its own: the kernels are held to
+# their plain versions on the same inputs elsewhere (K1 at this loss's PSF
+# bundle in the same phase), but here the gradient differentiates the
+# splat's Gaussians (sigma 4 um) at ray positions that differ by the float32
+# rounding of the two traces (~1e-6 mm). Measured on an H100: 3.44e-4 of the
+# largest component, cosine 1 to float32; the bar is ~3x that reading.
+IMAGE_GRAD_BAR = dict(rel=1e-3, cosine=0.99999)
+IMAGE_TRAIN_SIZES = (256, 1024)
+
+
+def default_imaging_config(simulator, **kw):
+    """The default ``SimulatorConfig``'s imaging (65 x 65 PSFs at 4 um, a
+    9 x 9 patch grid, 21 fields x 32 rings), its trace on K1."""
+    return simulator.SimulatorConfig(trace_engine="fused", **kw)
+
+
+def phase_p2_wide(torch, zoo, simulator, imaging, image, fused_trace):
+    """P2 with PSFs wider than 31 taps (the tap rows in chunks) against its
+    plain version, bit for bit: the photograph's patches with the
+    double-Gauss's PSFs at the default configuration's 1448^2, 2048^2 and
+    4096^2 renders (K = 33, 47, 95; at K = 95 the plain version on the first
+    27 of the 81 patches, each patch being convolved alone), and a seeded
+    non-square case (kh 47, kw 29). Then whole renders where the 31-tap
+    ceiling refused them: the default configuration at 2048^2 and config 5
+    at 4096^2 (K = 47 each), counts set to 0 before each and read after: one
+    K1 forward a render and P2's launches for its K (one a chunk of tap
+    rows, ``p2_svola_launches``). Returns the deviations by (kh, kw), the
+    inputs by K for the timing, and the 2048^2 render's P2 launches."""
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    cfg = default_imaging_config(simulator)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    with torch.no_grad():
+        model = imaging.sample_optics_model(specs, lens, cfg)
+    cases, inputs, errs = [], {}, {}
+    for px in (1448, 2048, 4096):
+        rad = torch.tensor(photograph(px)[None], device="cuda")
+        patches, psfs = p2_inputs(torch, imaging, image, model, rad, cfg)
+        inputs[psfs.shape[2]] = (patches, psfs)
+        cases.append((f"default config at {px}^2", patches, psfs))
+    g = torch.Generator(device="cuda").manual_seed(4729)
+    patches = torch.rand((8, 200, 180, 3), generator=g, device="cuda") * 255.0
+    psfs = torch.rand((8, 47, 29, 3), generator=g, device="cuda")
+    psfs = psfs / psfs.sum(dim=(1, 2), keepdim=True)
+    cases.append(("non-square, kh 47, kw 29", patches, psfs))
+    for label, patches, psfs in cases:
+        kh, kw = psfs.shape[1:3]
+        n = 27 if kw > 90 else patches.shape[0]
+        chunks = lib.p2_svola_launches(psfs.shape[3], kh, kw)
+        image.P2_LAUNCHES = 0
+        with torch.no_grad():
+            got = image.svola_patch_conv(patches, psfs)
+            torch.cuda.synchronize()
+            launched = image.P2_LAUNCHES
+            want = image.svola_patch_conv_reference(patches[:n], psfs[:n])
+        err = float((got[:n] - want).abs().max())
+        errs[(kh, kw)] = err
+        same = torch.equal(got[:n], want)
+        check(same and bool(torch.isfinite(got).all()) and launched == chunks,
+              f"P2 vs plain, wide PSF, {label}: patches {tuple(patches.shape)}, PSFs "
+              f"{tuple(psfs.shape)} -> {tuple(got.shape)}: bit-identical={same} on "
+              f"{n} patches (max deviation {err:.3e}, bar 0); {launched} launches (chunks "
+              f"of tap rows: {chunks})")
+    launches = None
+    for label, cfg_r, px in (("default config", cfg, 2048),
+                             ("config 5", imaging_config(simulator), 4096)):
+        rad = torch.tensor(photograph(px)[None], device="cuda")
+        fused_trace.K1_FWD_LAUNCHES = image.P2_LAUNCHES = 0
+        irr, psnr, ssim = render(torch, imaging, specs, lens, rad, cfg_r)
+        torch.cuda.synchronize()
+        counts = (fused_trace.K1_FWD_LAUNCHES, image.P2_LAUNCHES)
+        if px == 2048:
+            launches = counts[1]
+        k = imaging.psf_kernel_shape((px, px), cfg_r)
+        check(counts == (1, lib.p2_svola_launches(3, *k)) and tuple(irr.shape) == (1, px, px, 3)
+              and bool(torch.isfinite(irr).all()) and math.isfinite(float(psnr[0])),
+              f"render of the photograph at {px}^2, {label} (K = {k[0]} x {k[1]}): "
+              f"{tuple(irr.shape)}, finite; K1 forward launched {counts[0]} time(s), P2 "
+              f"{counts[1]}; PSNR {float(psnr[0]):.4f} dB, SSIM {float(ssim[0]):.5f}")
+    return errs, inputs, launches
+
+
+def adjoint_inputs(torch, zoo, imaging, image, cfg, px):
+    """P2's inputs in a px^2 render of the photograph through the
+    double-Gauss, and a seeded normal cotangent of its output."""
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    with torch.no_grad():
+        model = imaging.sample_optics_model(specs, lens, cfg)
+        rad = torch.tensor(photograph(px)[None], device="cuda")
+        patches, psfs = p2_inputs(torch, imaging, image, model, rad, cfg)
+    P, ph, pw, C = patches.shape
+    kh, kw = psfs.shape[1:3]
+    gen = torch.Generator(device="cuda").manual_seed(px)
+    cot = torch.randn((P, ph - kh + 1, pw - kw + 1, C), generator=gen, device="cuda")
+    return patches, psfs, cot
+
+
+def phase_p2_adjoint(torch, zoo, simulator, imaging, image):
+    """P2's adjoint through ``svola_patch_conv``'s backward on real inputs:
+    config 5's 1024^2 render (K = 11) and the default configuration's 2048^2
+    (K = 47), both inputs requiring grad, counts set to 0 before and read
+    after: P2's launches for the forward and again for d/dpatch on the padded
+    cotangent, d/dpsf's for its groups of patch-channels (1 at 1024^2, 8 at
+    2048^2). d/dpsf and d/dpatch bit for bit with their plain versions.
+    Returns {kw: (patches, psfs, cot, dpsf deviation, dpatch deviation)}."""
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    out = {}
+    for label, cfg, px in (("config 5 at 1024^2", imaging_config(simulator), 1024),
+                           ("default config at 2048^2", default_imaging_config(simulator),
+                            2048)):
+        patches, psfs, cot = adjoint_inputs(torch, zoo, imaging, image, cfg, px)
+        kh, kw = psfs.shape[1:3]
+        p_var = patches.clone().requires_grad_(True)
+        k_var = psfs.clone().requires_grad_(True)
+        image.P2_LAUNCHES = image.P2_DPSF_LAUNCHES = 0
+        d_patch, d_psf = torch.autograd.grad(image.svola_patch_conv(p_var, k_var),
+                                             (p_var, k_var), cot)
+        torch.cuda.synchronize()
+        counts = (image.P2_LAUNCHES, image.P2_DPSF_LAUNCHES)
+        with torch.no_grad():
+            want_psf = image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw))
+            want_patch = image.svola_patch_conv_dpatch_reference(cot, psfs)
+        e_psf = float((d_psf - want_psf).abs().max())
+        e_patch = float((d_patch - want_patch).abs().max())
+        same = (torch.equal(d_psf, want_psf), torch.equal(d_patch, want_patch))
+        P, ph, pw, C = patches.shape
+        want = (2 * lib.p2_svola_launches(C, kh, kw), lib.p2_dpsf_launches(P, C, ph, pw, kh, kw))
+        check(all(same) and counts == want and bool(torch.isfinite(d_psf).all()),
+              f"P2 adjoint vs plain, {label}: patches {tuple(patches.shape)}, PSFs "
+              f"{tuple(psfs.shape)}: d/dpsf bit-identical={same[0]} (max deviation "
+              f"{e_psf:.3e}, bar 0), d/dpatch bit-identical={same[1]} ({e_patch:.3e}); P2 "
+              f"launched {counts[0]} times (forward and d/dpatch), d/dpsf {counts[1]} "
+              f"(expected {want})")
+        out[kw] = (patches, psfs, cot, e_psf, e_patch)
+    return out
+
+
+def image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, device, px):
+    """The double-Gauss defocused by 0.3 mm, trained on -PSNR + 10 (1 - SSIM)
+    of the photograph at px^2 rendered at config 5: Adam on (c, t) at the
+    lens's own EFL, glasses fixed."""
+    specs, lens = zoo.build("double_gauss", device=device)
+    t = lens.t.clone()
+    t[0, -1] += 0.3
+    radiance = torch.tensor(photograph(px)[None], device=device)
+    opt = LensOptimizer(specs=specs, config=imaging_config(simulator), learning_rate=1e-3,
+                        trainable=("c", "t"), qc_variables=False,
+                        efl_target=float(lens.efl[0]),
+                        loss_fn=imaging.make_image_loss_fn(radiance, ssim_weight=10.0))
+    return opt, opt.init(lens.replace(t=t))
+
+
+def image_gradients(torch, opt, state):
+    total, _ = opt.loss(state.params)
+    grads = torch.autograd.grad(total, [state.params[k] for k in ("c", "t")])
+    return float(total.detach()), [g.detach().cpu() for g in grads]
+
+
+def captured(torch, args):
+    """A copy of a launch's arguments: the optimizer updates the lens in
+    place after the step."""
+    if torch.is_tensor(args):
+        return args.detach().clone()
+    if isinstance(args, (tuple, list)):
+        return type(args)(captured(torch, a) for a in args)
+    return args
+
+
+def capture_k1(torch, fused_trace, step):
+    """Run ``step`` with K1's launchers recording (a copy of) the arguments
+    of their first launch, then restore them. Returns (step's result,
+    {"fwd": args, "bwd": args})."""
+    record, launchers = {}, {}
+    for kind in ("fwd", "bwd"):
+        launchers[kind] = launch = getattr(fused_trace, f"_launch_k1_{kind}")
+
+        def recording(*args, kind=kind, launch=launch):
+            record.setdefault(kind, captured(torch, args))
+            return launch(*args)
+        setattr(fused_trace, f"_launch_k1_{kind}", recording)
+    try:
+        return step(), record
+    finally:
+        for kind, launch in launchers.items():
+            setattr(fused_trace, f"_launch_k1_{kind}", launch)
+
+
+def check_k1_at_bundle(torch, fused_trace, record):
+    """K1 forward and backward on the arguments an image-loss step gave them
+    (the PSF bundle's rays, and the cotangent the splat sent back), against
+    their plain versions on the same card tensors, at phases 3 and 4's bars:
+    masks equal and coordinates within 5e-6 relative (1e-6 for the
+    directions); the backward's per-ray cotangents bit for bit and its
+    parameter sums within 1e-5 of the largest. Returns (forward deviation,
+    (per-ray, parameter absolute, parameter relative) deviations)."""
+    inputs, penalties, allow_backward, n_per_w, bounds, thr = record["fwd"]
+    ref_z, n_legs = fused_trace._split_extra(inputs, 7, fused_trace._mode(penalties))
+    got = fused_trace._launch_k1_fwd(*record["fwd"])
+    want = fused_trace.trace_fused_reference(*inputs[:7], penalties, allow_backward, n_per_w,
+                                             ref_z, bounds, thr, n_legs)
+    torch.cuda.synchronize()
+    masks_equal, err = fwd_errors(got, want)
+    fwd_err = max(v for k, v in err.items() if k != "xy_excess")
+    check(masks_equal and err["xy_excess"] <= 5e-6 and err["cxcy"] <= 1e-6
+          and err.get("pen", 0.0) <= 1e-5,
+          f"K1 forward vs plain at the image loss's PSF bundle ({MODE_NAME[penalties]} mode, "
+          f"{inputs[0].shape[0]} rays, {n_per_w} a wavelength): masks identical={masks_equal}, "
+          f"max |dx|,|dy|={err['xy']:.3e} ({err['xy_excess']:.1e} past 1e-6 relative, bar "
+          f"5e-6), max |dcx|,|dcy|={err['cxcy']:.3e} (bar 1e-6)")
+    inputs, cot, penalties, allow_backward, n_per_w, bounds, thr = record["bwd"]
+    got = fused_trace._launch_k1_bwd(*record["bwd"])
+    want = fused_trace.trace_fused_backward_reference(inputs, cot, penalties, allow_backward,
+                                                      n_per_w, bounds, thr)
+    torch.cuda.synchronize()
+    ray_err = max(float((got[i] - want[i]).abs().max()) for i in range(3))
+    par_abs = max(float((got[i] - want[i]).abs().max()) for i in range(3, len(got)))
+    par_rel = max(float((got[i] - want[i]).abs().max() / want[i].abs().max().clamp(min=1e-30))
+                  for i in range(3, len(got)))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    live = sum(int((c != 0).sum()) for c in cot)
+    check(finite and ray_err == 0.0 and par_rel <= 1e-5 and live > 0,
+          f"K1 backward vs plain at the image loss's PSF bundle ({MODE_NAME[penalties]} mode, "
+          f"{inputs[0].shape[0]} rays, the step's own cotangent: {live} nonzero entries): max "
+          f"per-ray deviation {ray_err:.3e} (bar 0), max per-parameter deviation {par_abs:.3e} "
+          f"({par_rel:.2e} of the largest, bar 1e-5)")
+    return fwd_err, (ray_err, par_abs, par_rel)
+
+
+def phase_image_training(torch, zoo, simulator, imaging, image, fused_trace, LensOptimizer,
+                         card, n_steps=5):
+    """The main path of this slice: 5 Adam steps of ``LensOptimizer`` with
+    ``make_image_loss_fn`` at config 5 and 1024^2, the counts set to 0
+    before each step and read after (K1 forward and backward, P2, d/dpsf);
+    every loss and gradient finite, every step accepted. K1's arguments in
+    the first step are recorded, and after the run K1 forward and backward
+    are held to their plain versions on them (``check_k1_at_bundle``). The
+    first step's d/d(c, t) on the card against the port's CPU at 256^2 (the
+    same lens, pupil and radiance) within ``IMAGE_GRAD_BAR``. The host wall
+    of a step at 256^2 and 1024^2. Returns the launches of the 5-step run,
+    the walls and K1's deviations at the bundle."""
+    counters = lambda: (fused_trace.K1_FWD_LAUNCHES, fused_trace.K1_BWD_LAUNCHES,
+                        image.P2_LAUNCHES, image.P2_DPSF_LAUNCHES)
+    opt, state = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, "cuda", 1024)
+    start = {k: v.detach().clone() for k, v in state.params.items()}
+    per_step, totals, psnrs = [], [], []
+    record = None
+    for i in range(n_steps):
+        fused_trace.K1_FWD_LAUNCHES = fused_trace.K1_BWD_LAUNCHES = 0
+        image.P2_LAUNCHES = image.P2_DPSF_LAUNCHES = 0
+        if i == 0:
+            (state, total, terms), record = capture_k1(torch, fused_trace,
+                                                        lambda: opt.step(state))
+        else:
+            state, total, terms = opt.step(state)
+        torch.cuda.synchronize()
+        per_step.append(counters())
+        totals.append(float(total))
+        psnrs.append(float(terms["psnr"]))
+    adam_steps = [int(s["step"]) for s in state.opt_state.state.values()]
+    moved = max(float((state.params[k].detach() - start[k]).abs().max()) for k in start)
+    check(all(c == (1, 1, 1, 1) for c in per_step) and all(map(math.isfinite, totals))
+          and adam_steps == [n_steps] * len(adam_steps) and moved > 0,
+          f"image training at 1024^2 (config 5, double-Gauss defocused 0.3 mm, "
+          f"-PSNR + 10 (1 - SSIM)): {n_steps} LensOptimizer steps, launches per step (K1 "
+          f"forward, K1 backward, P2, d/dpsf) {per_step}; every step accepted (finite loss and "
+          f"gradients: Adam step counts {adam_steps}); losses {['%.5f' % v for v in totals]}; "
+          f"PSNR {['%.4f' % v for v in psnrs]} dB; parameters moved by up to {moved:.3e}")
+    launches = tuple(sum(c[i] for c in per_step) for i in range(4))
+    bundle = check_k1_at_bundle(torch, fused_trace, record)
+
+    got = {}
+    for device in ("cuda", "cpu"):
+        opt_d, state_d = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer,
+                                         device, 256)
+        got[device] = image_gradients(torch, opt_d, state_d)
+    (l_card, g_card), (l_cpu, g_cpu) = got["cuda"], got["cpu"]
+    a, b = torch.cat(g_card), torch.cat(g_cpu)
+    rel = float((a - b).abs().max() / b.abs().max())
+    cosine = float(a @ b / (a.norm() * b.norm()))
+    check(all(map(math.isfinite, (l_card, l_cpu))) and bool(torch.isfinite(a).all())
+          and rel <= IMAGE_GRAD_BAR["rel"] and cosine >= IMAGE_GRAD_BAR["cosine"],
+          f"image loss at 256^2, first step, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f}; "
+          f"d/d(c, t) within {rel:.3e} of the largest (limit {IMAGE_GRAD_BAR['rel']}), "
+          f"cosine {cosine:.7f} (limit {IMAGE_GRAD_BAR['cosine']})")
+
+    walls = {}
+    for px in IMAGE_TRAIN_SIZES:
+        opt_px, state_px = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, "cuda",
+                                           px)
+        holder = [state_px]
+
+        def step():
+            holder[0] = opt_px.step(holder[0])[0]
+        walls[px] = host_ms(torch, step, runs=5, warmup=2)
+        print(f"time image-loss LensOptimizer.step at {px}^2 (config 5): {walls[px]:.2f} ms "
+              f"(host clock, median of 5); card: {card}", flush=True)
+    return launches, walls, bundle
+
+
+def phase_raytraced_optics(torch, zoo, simulator, fused_trace):
+    """``RaytracedOptics`` on the Cooke from the zoo's prescription dict,
+    ``do_ray_tracing`` on the card with ``trace_engine="fused"`` (one K1
+    forward launch) against the same call on the CPU: the same masks, image
+    coordinates within 1e-5 mm, the loss terms within phase 5's bars."""
+    kw = dict(initial_lens_path=zoo.get_prescription("cooke"), pupil_sampling="circular",
+              trace_engine="fused", **ENTRY_WIDTH)
+    card = simulator.RaytracedOptics(**kw)
+    fused_trace.K1_FWD_LAUNCHES = 0
+    with torch.no_grad():
+        x, y, ok = card.do_ray_tracing()
+    torch.cuda.synchronize()
+    launches = fused_trace.K1_FWD_LAUNCHES
+    host = simulator.RaytracedOptics(device="cpu", **kw)
+    with torch.no_grad():
+        hx, hy, hok = host.do_ray_tracing()
+    ok, x, y = ok.cpu(), x.cpu(), y.cpu()
+    gap = max(float((x - hx)[hok].abs().max()), float((y - hy)[hok].abs().max()))
+    tol = {"loss_unsup": 1e-5, "penalty": 1e-5, "rms": 2e-4}
+    rel = {k: abs(float(card.loss_dict[k]) - float(host.loss_dict[k]))
+           / abs(float(host.loss_dict[k])) for k in tol}
+    fails = int(card.logged_metrics["ray_tracing/ray_failures"])
+    check(launches == 1 and torch.equal(ok, hok) and gap <= 1e-5
+          and all(rel[k] <= tol[k] for k in tol) and card.lensR.device.type == "cuda",
+          f"RaytracedOptics (Cooke, prescription dict) on the card: K1 forward launched "
+          f"{launches} time(s); {tuple(x.shape)} rays, {fails} failed, masks equal to the "
+          f"CPU's={torch.equal(ok, hok)}; x, y within {gap:.2e} mm of the CPU's (limit 1e-5); "
+          + ", ".join(f"{k} {rel[k]:.2e} (limit {tol[k]:.0e})" for k in tol))
+
+
+def fft_dpsf(torch, patches, cot, kernel_hw):
+    """The library call computing d/dpsf: the FFT correlation of each patch
+    with the cotangent (rfft2 of both, the patch's times the cotangent's
+    conjugate, irfft2), cropped to the taps and flipped. Timed only; the
+    port never calls it."""
+    P, ph, pw, C = patches.shape
+    kh, kw = kernel_hw
+    fp = torch.fft.rfftn(patches, s=(ph, pw), dim=(1, 2))
+    fg = torch.fft.rfftn(cot, s=(ph, pw), dim=(1, 2))
+    corr = torch.fft.irfftn(fp * fg.conj(), s=(ph, pw), dim=(1, 2))
+    return torch.flip(corr[:, :kh, :kw, :], dims=(1, 2))
+
+
+def dpsf_bound(patches, kernel_hw):
+    """(bound_ms, bound_by, ops, fp64_ms) of d/dpsf: kh kw products and sums
+    per output element of the forward over the peak of the inputs' float32
+    (PEAK_FLOPS; FP64 on the tensor cores runs at the same rate); the
+    patches and the cotangent read once, the PSF gradient written once.
+    ``fp64_ms``: the same operations at PEAK_FP64, the ceiling of this
+    design's double FMAs outside the tensor cores."""
+    P, ph, pw, C = patches.shape
+    kh, kw = kernel_hw
+    hp, wp = ph - kh + 1, pw - kw + 1
+    ops = 2 * P * C * hp * wp * kh * kw
+    nbytes = 4 * (patches.numel() + P * hp * wp * C + P * kh * kw * C)
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops,
+            max(ops / PEAK_FP64, t_bytes) * 1e3)
+
+
+def phase_adjoint_timing(torch, image, adjoint, wide, card):
+    """CUDA events: the d/dpsf kernel (both passes, with its partials'
+    allocation), its plain version and the torch.fft correlation at the
+    1024^2 and 2048^2 shapes of ``phase_p2_adjoint``; P2, its plain version
+    and the torch.fft product at the default configuration's 2048^2 and
+    4096^2 shapes (K = 47, 95; few calls there: one K = 95 call is tens of
+    ms, and the plain version runs on the first 27 of the 81 patches)."""
+    ms, bounds = {}, {}
+    for kw, (patches, psfs, cot, _, _) in adjoint.items():
+        kh = psfs.shape[1]
+        big = kw > 20
+        with torch.no_grad():
+            want = image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw))
+            lib_err = float((fft_dpsf(torch, patches, cot, (kh, kw)) - want).abs().max())
+            ms[f"dpsf_k{kw}"] = time_ms(
+                torch, lambda: image._launch_p2_dpsf(patches, cot, (kh, kw)),
+                runs=5 if big else 25, batch=2 if big else 10)
+            ms[f"plain_dpsf_k{kw}"] = time_ms(
+                torch, lambda: image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw)),
+                runs=1 if big else 3, batch=1, warmup=1)
+            ms[f"fft_dpsf_k{kw}"] = time_ms(torch, lambda: fft_dpsf(torch, patches, cot,
+                                                                     (kh, kw)))
+        bounds[f"dpsf_k{kw}"] = b = dpsf_bound(patches, (kh, kw))
+        print(f"time d/dpsf at {tuple(patches.shape)}, K = {kh}: {ms[f'dpsf_k{kw}']:.4f} ms "
+              f"(plain {ms[f'plain_dpsf_k{kw}']:.2f} ms, torch.fft correlation "
+              f"{ms[f'fft_dpsf_k{kw}']:.4f} ms, within {lib_err:.2e} of the plain version); "
+              f"bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations at 67 TFLOP/s; "
+              f"{b[3]:.4f} ms at FP64's 34 TFLOP/s outside the tensor cores, this design's "
+              f"ceiling); card: {card}",
+              flush=True)
+    for kw in (47, 95):
+        patches, psfs = wide[kw]
+        n = 27 if kw > 90 else patches.shape[0]
+        with torch.no_grad():
+            ms[f"p2_k{kw}"] = time_ms(torch, lambda: image.svola_patch_conv(patches, psfs),
+                                      runs=3 if kw > 90 else 10, batch=1 if kw > 90 else 3,
+                                      warmup=1)
+            ms[f"plain_p2_k{kw}"] = time_ms(
+                torch, lambda: image.svola_patch_conv_reference(patches[:n], psfs[:n]),
+                runs=1, batch=1, warmup=1)
+            ms[f"fft_p2_k{kw}"] = time_ms(torch, lambda: fft_conv(torch, patches, psfs),
+                                          runs=5, batch=2, warmup=1)
+        bounds[f"p2_k{kw}"] = b = p2_bound(patches, psfs)
+        print(f"time P2 at {tuple(patches.shape)} * {tuple(psfs.shape)}: {ms[f'p2_k{kw}']:.4f} "
+              f"ms (plain on {n} patches {ms[f'plain_p2_k{kw}']:.2f} ms, torch.fft product "
+              f"{ms[f'fft_p2_k{kw}']:.4f} ms); bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} "
+              f"operations); card: {card}", flush=True)
+    return ms, bounds
+
+
+def adjoint_entries(wide_errs, wide_launches, adjoint, train_launches, ms, bounds, rates):
+    """The kernels line's entries of this slice: P2 at K = 47 (the default
+    configuration's 2048^2 render; ``launches`` counts that render), with
+    K = 95 beside it; P2's d/dpsf at config 5's 1024^2 shape (``launches``
+    counts the 5-step image training run, the main path), with the 2048^2
+    shape beside it."""
+    issue = lambda ops: ops / rates["fma_ops_per_s"] * 1e3
+
+    def p2(kw, suffix=""):
+        b = bounds[f"p2_k{kw}"]
+        return {f"ms{suffix}": ms[f"p2_k{kw}"], f"plain_ms{suffix}": ms[f"plain_p2_k{kw}"],
+                f"bound_ms{suffix}": b[0], f"bound_by{suffix}": b[1],
+                f"library_ms{suffix}": ms[f"fft_p2_k{kw}"],
+                f"bound_ms_issue{suffix}": issue(b[2]),
+                f"max_abs_err{suffix}": wide_errs[(kw, kw)]}
+
+    def dpsf(kw, suffix=""):
+        b = bounds[f"dpsf_k{kw}"]
+        return {f"ms{suffix}": ms[f"dpsf_k{kw}"], f"plain_ms{suffix}": ms[f"plain_dpsf_k{kw}"],
+                f"bound_ms{suffix}": b[0], f"bound_by{suffix}": b[1],
+                f"library_ms{suffix}": ms[f"fft_dpsf_k{kw}"],
+                f"bound_ms_fp64{suffix}": b[3],
+                f"max_abs_err{suffix}": adjoint[kw][3],
+                f"dpatch_max_abs_err{suffix}": adjoint[kw][4]}
+    return [
+        {"name": "p2_svola_k47", "route": "cuda", "source": P2_SOURCE, "replaces": TPU_P2,
+         "launches": wide_launches, **p2(47), **p2(95, "_k95"), "plain_ms_k95_patches": 27,
+         "max_abs_err_k33": wide_errs[(33, 33)], "max_abs_err_47x29": wide_errs[(47, 29)]},
+        {"name": "p2_dpsf", "route": "cuda", "source": P2_DPSF_SOURCE, "replaces": TPU_P2_DPSF,
+         "launches": train_launches[3], **dpsf(11), **dpsf(47, "_k47"),
+         "image_training_launches": dict(zip(("k1_fwd", "k1_bwd", "p2", "p2_dpsf"),
+                                             train_launches))},
+    ]
+
+
 def imaging_entries(p2_err, p2_launches, ms, p2_b, walls, p1, rates):
     """The P2 and P1 entries of the kernels line. P2's ``launches`` counts the
     1024^2 render of the serving phase (its main path), its times are at that
@@ -3439,7 +3933,8 @@ def ptxas_summary(path):
             raw = line.split("'")[1]
             for short in ("k1_fwd_kernel", "k1_bwd_kernel", "k2_fwd_kernel", "k2_bwd_kernel",
                           "k3_fwd_kernel", "k3_bwd_kernel", "k4_fwd_kernel", "k4_bwd_kernel",
-                          "partials_reduce", "p2_svola_kernel", "p1_chain_kernel"):
+                          "partials_reduce", "p2_svola_kernel", "p2_dpsf_kernel",
+                          "p2_dpsf_reduce", "p1_chain_kernel"):
                 if short in raw:
                     # The template arguments of the mangled name: I L<type><value>E ... E.
                     args = re.match(r"I((?:L[a-z]+\d+E)+)E", raw[raw.index(short) + len(short):])
@@ -3500,17 +3995,20 @@ def k2_splits(torch, zoo, simulator, fused_batch, gen):
 
 
 def p2_times(torch, zoo, simulator, imaging, image):
-    """P2 (CUDA events) on the photograph's patches at the 1024^2 and 2048^2
-    renders' shapes (K = 11 and 23): ``p2_1024``, ``p2_2048``."""
+    """P2 (CUDA events) on the photograph's patches at the 256^2, 512^2,
+    1024^2 and 2048^2 renders' shapes (K = 3, 5, 11 and 23, each kw's
+    unrolled kernel): ``p2_256`` ... ``p2_2048``. Queued behind a sleep
+    kernel: at 256^2 and 512^2 the kernel is shorter than its wrapper."""
     cfg = imaging_config(simulator)
     specs, lens = zoo.build("double_gauss", device="cuda")
     ms = {}
     with torch.no_grad():
         model = imaging.sample_optics_model(specs, lens, cfg)
-        for px in (1024, 2048):
+        for px in (256, 512, 1024, 2048):
             rad = torch.tensor(photograph(px)[None], device="cuda")
             patches, psfs = p2_inputs(torch, imaging, image, model, rad, cfg)
-            ms[f"p2_{px}"] = time_ms(torch, lambda: image.svola_patch_conv(patches, psfs))
+            ms[f"p2_{px}"] = time_ms(torch, lambda: image.svola_patch_conv(patches, psfs),
+                                     queue_ahead=True)
     return ms
 
 
@@ -3523,7 +4021,7 @@ def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
     (``mode_times``, ``opl_times``): K1 and K3 at 2,457,600 rays of the
     double-Gauss and its aspherized form, K2 and K4 at 256 x 1,536 rays of
     the Cooke and aspheric Cooke populations; then K2b's splits
-    (``k2_splits``) and P2 at two render shapes (``p2_times``); of these,
+    (``k2_splits``) and P2 at four render shapes (``p2_times``); of these,
     the ``families`` named (``KERNEL_FAMILIES``). The port is imported from
     the tree at ``root`` and its kernels built there (the build's seconds
     reported where it compiled)."""
@@ -3616,7 +4114,11 @@ def add_resources(entries, summary, n_asph, k2_surf):
         name = e["name"]
         family = name[:2]
         if name == "p2_svola":  # the 1024^2 render's kw
-            e.update(found.get("p2_svola_kernel<11>", {}))
+            e.update(found.get("p2_svola_kernel<11,0>", {}))
+        if name == "p2_svola_k47":  # the runtime-kw kernel, tap rows in chunks
+            e.update(found.get("p2_svola_kernel<0,1>", {}))
+        if name == "p2_dpsf":
+            e.update(found.get("p2_dpsf_kernel", {}))
         if family not in ("k1", "k2", "k3", "k4"):
             continue
         mode = 3 if name.endswith("_opl") else 2 if name.endswith("_full") else 1
@@ -3727,6 +4229,15 @@ def main():
     img_ms, p2_b, walls = phase_imaging_timing(torch, zoo, simulator, imaging, image,
                                                p2_timing_inputs, card)
     entries += imaging_entries(p2_err, p2_launches[1], img_ms, p2_b, walls, p1, p1[0])
+    wide_errs, wide_inputs, wide_launches = phase_p2_wide(torch, zoo, simulator, imaging, image,
+                                                          fused_trace)
+    adjoint = phase_p2_adjoint(torch, zoo, simulator, imaging, image)
+    train_launches, _, bundle = phase_image_training(torch, zoo, simulator, imaging, image,
+                                                     fused_trace, LensOptimizer, card)
+    phase_raytraced_optics(torch, zoo, simulator, fused_trace)
+    adj_ms, adj_bounds = phase_adjoint_timing(torch, image, adjoint, wide_inputs, card)
+    entries += adjoint_entries(wide_errs, wide_launches, adjoint, train_launches, adj_ms,
+                               adj_bounds, p1[0])
     add_issue_bounds(entries, p1[0], {"k1": shape, "k2": k2_shape, "k3": k3_shape,
                                       "k4": k4_shape,
                                       **{f"opl_{k}": v for k, v in opl_shapes.items()}})
@@ -3736,6 +4247,14 @@ def main():
     for e in entries:
         if e["name"][:6] in ("k1_bwd", "k2_bwd", "k3_bwd", "k4_bwd"):
             e["ragged_param_max_rel_err"] = ragged[e["name"][:2]]
+        # K1 at the image loss's PSF bundle (plain mode), the slice's main path.
+        if e["name"] == "k1_fwd":
+            e["image_bundle_max_abs_err"] = bundle[0]
+            e["launches_image_training"] = train_launches[0]
+        if e["name"] == "k1_bwd":
+            e["image_bundle_max_abs_err"] = bundle[1][0]
+            e["image_bundle_param_max_rel_err"] = bundle[1][2]
+            e["launches_image_training"] = train_launches[1]
     print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ instantiation each ``case`` launches. A size in the list without a ``case``
 that launches its own instantiation, or a ``case`` outside the list, fails.
 The imaging renders' PSF sizes (256^2 to 2048^2 at BASELINE config 5) and the
 zoo populations' surface counts that the port's main paths run must each be
-routed to a specialised kernel.
+routed to a specialised kernel, and every render from 256^2 to 4096^2, at
+config 5 and at the default configuration (PSFs up to 95 taps), must pass
+P2's and its d/dpsf kernel's argument checks.
 """
 
 import re
@@ -18,6 +20,7 @@ import pytest
 
 from torchoptics_tpu_torch import imaging, simulator
 from torchoptics_tpu_torch.models import zoo
+from torchoptics_tpu_torch.ops import image
 
 CSRC = Path(__file__).resolve().parents[1] / "torchoptics_tpu_torch" / "csrc"
 
@@ -65,3 +68,44 @@ def test_main_paths_reach_the_specialised_kernels():
     surfaces = {len(zoo.get_prescription(name)["c"]) for name in ("cooke", "double_gauss")}
     assert surfaces == {7, 11}
     assert surfaces <= set(_routes("k2b")[1])
+
+
+RENDER_CONFIGS = {
+    "default": simulator.SimulatorConfig(),
+    "config 5": simulator.SimulatorConfig(psf_shape=(33, 33), psf_abs_pixel_size=4e-3,
+                                          psf_grid_shape=(5, 5)),
+}
+# (config, render side) -> the PSF width psf_kernel_shape gives.
+RENDER_K = {("default", 1024): 23, ("default", 1448): 33, ("default", 2048): 47,
+            ("default", 4096): 95, ("config 5", 1024): 11, ("config 5", 2048): 23,
+            ("config 5", 4096): 47}
+
+
+@pytest.mark.parametrize("name", sorted(RENDER_CONFIGS))
+@pytest.mark.parametrize("px", [256, 512, 1024, 1448, 2048, 4096])
+def test_every_render_passes_the_p2_checks(name, px):
+    """The patches and PSFs of a px^2 render (their shapes as
+    ``svola_convolution`` cuts them) pass the launchers' checks, forward and
+    d/dpsf, and d/dpatch's padded cotangent passes P2's."""
+    cfg = RENDER_CONFIGS[name]
+    kh, kw = imaging.psf_kernel_shape((px, px), cfg)
+    assert RENDER_K.get((name, px), kw) == kw and kh == kw and kw % 2 == 1
+    gh, gw = cfg.psf_grid_shape
+    overlap = int(0.25 * px / gh)
+    ph = px // gh + 2 * overlap + kh - 1
+    pw = px // gw + 2 * overlap + kw - 1
+    patches, psfs = (gh * gw, ph, pw, 3), (gh * gw, kh, kw, 3)
+    assert image.p2_argument_error(patches, psfs) is None
+    assert image.p2_argument_error(patches, psfs, adjoint=True) is None
+    padded = (gh * gw, ph + kh - 1, pw + kw - 1, 3)
+    assert image.p2_argument_error(padded, psfs) is None
+
+
+def test_p2_checks_refuse_what_the_kernels_cannot_take():
+    assert "65535" in image.p2_argument_error((30000, 40, 40, 3), (30000, 5, 5, 3))
+    assert image.p2_argument_error((1, 40, 40, 3), (1, 41, 5, 3))
+    assert image.p2_argument_error((1, 40, 40, 3), (1, 5, 5, 2))
+    wide = image.p2_max_kw(adjoint=True) + 2
+    assert image.p2_argument_error((1, 40, 2000, 1), (1, 3, wide, 1)) is None
+    assert image.p2_argument_error((1, 40, 2000, 1), (1, 3, wide, 1), adjoint=True)
+    assert image.p2_argument_error((1, 40, 2000, 1), (1, 3, image.p2_max_kw() + 1, 1))

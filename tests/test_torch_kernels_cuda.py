@@ -25,7 +25,10 @@ cotangents bit for bit, parameter and dn_legs sums within one float32
 rounding, K2 and K4 at B = 1 equal to K1 and K3; the wavefront functions on
 the card against the CPU; and K4's training path at a fixed bar. P2, the
 SVOLA patch convolution, bit for bit with its plain version (the same tap
-order, no FMA contraction), and it refuses to run under grad; P1's chains:
+order, no FMA contraction), also for PSFs wider than 31 taps (the tap rows
+in chunks); its adjoint: d/dpsf and d/dpatch bit for bit with their plain
+versions, and a backward launches d/dpatch only when the patches need it;
+P1's chains:
 sqrt and div bit for bit with their plain versions, fma within one float32
 ulp a step, relative (``fmaf`` rounds once, the plain ``a * k1 + k2``
 twice); a small
@@ -1221,7 +1224,13 @@ P2_SHAPES = [(25, 316, 316, 3, 11, 11), (25, 77, 77, 3, 3, 3), (6, 100, 72, 3, 2
              (2, 41, 70, 1, 3, 4), (2, 52, 49, 3, 5, 5), (2, 44, 47, 3, 7, 6),
              (3, 66, 45, 3, 9, 10), (2, 47, 80, 3, 13, 12),
              (2, 90, 77, 3, 21, 22), (2, 85, 90, 1, 25, 24), (2, 57, 58, 3, 23, 23),
-             (2, 33, 34, 3, 1, 3)]
+             (2, 33, 34, 3, 1, 3),
+             # Wide PSFs (tap rows in chunks, fewer channels a block): the
+             # default config's K at 1448^2, 2048^2 and 4096^2, kh != kw with
+             # one side above 31, a PSF as wide as its patch, five channels.
+             (3, 110, 104, 3, 33, 33), (2, 150, 141, 3, 47, 47), (2, 190, 200, 3, 95, 95),
+             (2, 120, 90, 3, 47, 33), (2, 80, 140, 1, 21, 95), (1, 60, 71, 3, 60, 71),
+             (2, 99, 97, 5, 41, 39)]
 
 
 @pytest.mark.parametrize("shape", P2_SHAPES)
@@ -1229,6 +1238,7 @@ def test_p2_matches_plain_version(cuda, shape):
     from torchoptics_tpu_torch.ops import _kernels, image
     P, ph, pw, C, kh, kw = shape
     assert _kernels.load().p2_specialized_kw(kw) == (kw in (3, 5, 11, 23))
+    assert image.p2_argument_error((P, ph, pw, C), (P, kh, kw, C)) is None
     g = torch.Generator(device=cuda).manual_seed(sum(shape))
     patches = torch.rand((P, ph, pw, C), generator=g, device=cuda) * 255.0
     psfs = torch.rand((P, kh, kw, C), generator=g, device=cuda)
@@ -1237,21 +1247,74 @@ def test_p2_matches_plain_version(cuda, shape):
     with torch.no_grad():
         got = image.svola_patch_conv(patches, psfs)
     torch.cuda.synchronize()
-    assert image.P2_LAUNCHES == before + 1
+    # One launch a chunk of tap rows; every PSF up to 31 taps takes one pass.
+    launches = _kernels.load().p2_svola_launches(C, kh, kw)
+    assert image.P2_LAUNCHES == before + launches
+    assert launches >= 1 and (launches == 1 or max(kh, kw) > 31)
     assert torch.equal(got, image.svola_patch_conv_reference(patches, psfs))
 
 
 def test_p2_refuses_grad_and_bad_inputs(cuda):
-    from torchoptics_tpu_torch.ops import image
+    """Under grad P2 now runs (its adjoint is in ``csrc/svola_conv_bwd.cu``);
+    what the kernels cannot take still raises, and the library's widest
+    PSFs are those ``image.p2_max_kw`` computes without it."""
+    from torchoptics_tpu_torch.ops import _kernels, image
+    lib = _kernels.load()
+    assert lib.p2_max_kw() == image.p2_max_kw()
+    assert lib.p2_dpsf_max_kw() == image.p2_max_kw(adjoint=True)
     patches = torch.rand((4, 40, 40, 3), device=cuda)
     psfs = torch.rand((4, 5, 5, 3), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        image.svola_patch_conv(patches, psfs)
+    out = image.svola_patch_conv(patches, psfs)
+    assert out.requires_grad
+    with pytest.raises(ValueError, match="up to"):
+        image.svola_patch_conv(torch.rand((1, 40, 2000, 3), device=cuda),
+                               torch.rand((1, 3, image.p2_max_kw() + 1, 3), device=cuda))
+    with pytest.raises(ValueError, match="up to"):
+        image.svola_patch_conv(torch.rand((1, 40, 40, 3), device=cuda),
+                               torch.rand((1, 41, 5, 3), device=cuda))
+
+
+# (P, patch height, width, channels, kh, kw) of P2's adjoint: config 5's
+# 1024^2 render (K = 11) and the default config's 2048^2 (K = 47); then
+# ragged outputs, kh != kw, one and five channels, a PSF of 95 taps, a
+# patch that is one tile.
+P2_ADJOINT_SHAPES = [(25, 316, 316, 3, 11, 11), (81, 385, 385, 3, 47, 47),
+                     (3, 70, 75, 3, 5, 9), (2, 45, 50, 1, 9, 3), (2, 130, 129, 3, 95, 95),
+                     (2, 99, 97, 5, 41, 39), (1, 34, 34, 3, 3, 3)]
+
+
+@pytest.mark.parametrize("shape", P2_ADJOINT_SHAPES)
+def test_p2_adjoint_matches_plain_versions(cuda, shape):
+    """d/dpsf (its kernel) and d/dpatch (P2 on the padded cotangent) through
+    ``svola_patch_conv``'s backward, bit for bit with their plain versions
+    on the card; d/dpsf alone when only the PSFs need a gradient."""
+    from torchoptics_tpu_torch.ops import _kernels, image
+    lib = _kernels.load()
+    P, ph, pw, C, kh, kw = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    patches = (torch.rand((P, ph, pw, C), generator=g, device=cuda) * 255.0).requires_grad_()
+    psfs = torch.rand((P, kh, kw, C), generator=g, device=cuda)
+    psfs = (psfs / psfs.sum(dim=(1, 2), keepdim=True)).requires_grad_()
+    cot = torch.randn((P, ph - kh + 1, pw - kw + 1, C), generator=g, device=cuda)
+    out = image.svola_patch_conv(patches, psfs)
+    p2, dpsf = image.P2_LAUNCHES, image.P2_DPSF_LAUNCHES
+    d_patch, d_psf = torch.autograd.grad(out, (patches, psfs), cot)
+    torch.cuda.synchronize()
+    # d/dpatch is one P2 call; d/dpsf launches its kernel once a group of
+    # patch-channels, the groups' partials within 64 MB (8 groups at 2048^2).
+    assert (image.P2_LAUNCHES - p2, image.P2_DPSF_LAUNCHES - dpsf) == (
+        lib.p2_svola_launches(C, kh, kw), lib.p2_dpsf_launches(P, C, ph, pw, kh, kw))
+    tiles = -(-(ph - kh + 1) // 32) * -(-(pw - kw + 1) // 32)
+    assert lib.p2_dpsf_partials(P, C, ph, pw, kh, kw) <= max(1 << 23, tiles * kh * kw)
     with torch.no_grad():
-        image.svola_patch_conv(patches, psfs)
-        with pytest.raises(ValueError, match="up to"):
-            image.svola_patch_conv(torch.rand((1, 40, 40, 3), device=cuda),
-                                   torch.rand((1, 33, 33, 3), device=cuda))
+        want_psf = image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw))
+        want_patch = image.svola_patch_conv_dpatch_reference(cot, psfs)
+    assert torch.equal(d_psf, want_psf) and bool(torch.isfinite(d_psf).all())
+    assert torch.equal(d_patch, want_patch)
+    out = image.svola_patch_conv(patches.detach(), psfs)
+    p2 = image.P2_LAUNCHES
+    assert torch.equal(torch.autograd.grad(out, psfs, cot)[0], want_psf)
+    assert image.P2_LAUNCHES == p2
 
 
 @pytest.mark.parametrize("op", ["fma", "sqrt", "div"])

@@ -5,7 +5,8 @@ evaluates and optimizes the same lenses with PyTorch, and its hot kernels
 (K1 and K2, the fused spherical trace of one system and of a population;
 K3 and K4, the fused conic/asphere trace of one system and of a
 population; each forward and backward, with an opl mode for the
-wavefront; P2, the patch convolution of image formation; P1, the card's
+wavefront; P2, the patch convolution of image formation, and its
+adjoint; P1, the card's
 issue-rate probe) are hand-written CUDA for Hopper
 (``csrc/``), built with ``nvcc`` on first use. It imports neither JAX nor Triton, and builds
 nothing at import time. Its entry points put tensors on the GPU unless the
@@ -45,12 +46,24 @@ P2, the distortion warp) renders a sensor image of a lens; serve it under
     with torch.no_grad():
         irradiance, psnr, ssim = imaging.simulate(specs, lens, radiance, cfg)
 
+Rendering is differentiable (P2's adjoint: ``csrc/svola_conv_bwd.cu``), so
+a lens trains on rendered image quality, -PSNR + w·(1 - SSIM)::
+
+    opt = LensOptimizer(specs=specs, config=cfg, trainable=("c", "t"),
+                        efl_target=float(lens.efl[0]),
+                        loss_fn=imaging.make_image_loss_fn(radiance, ssim_weight=10.0))
+    state = opt.init(lens)
+    state, loss, loss_dict = opt.step(state)   # K1 fwd + bwd, P2, P2's d/dpsf
+
+Prescriptions load and save through ``models.io`` (``load_lens``,
+``save_lens``); ``RaytracedOptics`` is the stateful simulator over them.
+
 On a machine without a GPU, pass ``device="cpu"`` to ``zoo.build``: the
 wrappers then run the kernels' plain PyTorch versions.
 """
 
 from torchoptics_tpu_torch.models.structure import Lens, Specs, Structure  # noqa: F401
-from torchoptics_tpu_torch.models import catalog, convert, glass, zoo  # noqa: F401
+from torchoptics_tpu_torch.models import catalog, convert, glass, io, zoo  # noqa: F401
 from torchoptics_tpu_torch.ops import (  # noqa: F401
     abcd, aiming, fused_asphere, fused_batch, fused_trace, image, metrics, psf, pupil, surfaces,
     trace, wavefront)
@@ -58,6 +71,6 @@ from torchoptics_tpu_torch.ops.trace import TraceConfig, TraceResult, trace_rays
 from torchoptics_tpu_torch import analysis, imaging, loss, optimize, simulator  # noqa: F401
 from torchoptics_tpu_torch.loss import OpticalLoss  # noqa: F401
 from torchoptics_tpu_torch.optimize import LensOptimizer  # noqa: F401
-from torchoptics_tpu_torch.simulator import SimulatorConfig  # noqa: F401
+from torchoptics_tpu_torch.simulator import RaytracedOptics, SimulatorConfig  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,12 +1,16 @@
 """End-to-end image formation: lens -> PSF grid -> aberrated sensor image.
 
-PyTorch counterpart of ``torchoptics_tpu.imaging`` (its serving path;
-rendering is not differentiable on the card yet, since kernel P2 has no
-backward)::
+PyTorch counterpart of ``torchoptics_tpu.imaging``::
 
     model = sample_optics_model(specs, lens, config)        # trace once
     irradiance, psnr, ssim = apply_optics_model(model, radiance, field_lim,
                                                 config)      # render images
+
+Rendering is differentiable, on the card too (kernel P2 has its adjoint), so
+a lens trains on rendered image quality: :func:`image_quality_loss`, and
+:func:`make_image_loss_fn` as ``LensOptimizer(loss_fn=...)``. On the fused
+engine such a step launches K1 forward and backward once each, P2 once and
+P2's d/dpsf once.
 
 ``sample_optics_model`` traces the PSF bundle (on kernel K1's plain mode
 with ``trace_engine="fused"``, or K1's opl mode through ``opd_map`` with
@@ -38,7 +42,7 @@ from torchoptics_tpu_torch.ops import trace as trace_mod
 __all__ = [
     "OpticsModel", "diffraction_sampling_report", "sample_optics_model", "sample_field_lim",
     "compute_distortion_shift", "resolve_max_warp_px", "required_warp_band", "patch_psfs",
-    "apply_optics_model", "simulate",
+    "apply_optics_model", "simulate", "image_quality_loss", "make_image_loss_fn",
 ]
 
 
@@ -370,7 +374,8 @@ def apply_optics_model(model: OpticsModel, radiance: torch.Tensor, field_lim,
         if config.warp_method in ("separable", "taps"):
             # The band clamps shifts; a lens whose shifts exceed it would
             # render with flattened corners, so it raises instead.
-            need = float(required_warp_band(model, field_lim, img_h, img_w))
+            with torch.no_grad():
+                need = float(required_warp_band(model, field_lim, img_h, img_w))
             if need > warp_band:
                 raise ValueError(
                     f"distortion shifts reach {need:.1f} px but the static warp band is "
@@ -413,3 +418,49 @@ def simulate(specs: Specs, lens: Lens, radiance: torch.Tensor,
         field_lim = sample_field_lim(radiance.shape[1], radiance.shape[2],
                                      config.simulated_res_factor, roi_index)
     return apply_optics_model(model, radiance, field_lim, config)
+
+
+def image_quality_loss(specs: Specs, lens: Lens, radiance: torch.Tensor,
+                       config: sim_mod.SimulatorConfig,
+                       generator: Optional[torch.Generator] = None,
+                       field_lim=None, roi_index: int = 0, ssim_weight: float = 0.0,
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Differentiable image-quality objective for lens design: ``-PSNR +
+    ssim_weight · (1 - SSIM)`` of the rendered sensor image against the
+    ideal radiance (expected in [0, 255]), batch means.
+
+    PSNR and SSIM are taken before the illumination map and the warp (as
+    :func:`apply_optics_model` returns them), so the loss reaches the lens
+    through the PSFs: trace -> PSF splat -> SVOLA (P2 and its d/dpsf kernel
+    on the card).
+
+    Returns ``(total, {"psnr", "ssim", "image_loss", "psf_accounted"})``;
+    ``psf_accounted`` is the mean in-window PSF energy fraction. Once a blur
+    spot outgrows the ``psf_shape × psf_abs_pixel_size`` window the clipped
+    PSF is renormalized and the rendered image stops degrading, so watch it
+    and keep starting perturbations inside the window.
+    """
+    model = sample_optics_model(specs, lens, config, generator=generator)
+    if field_lim is None:
+        field_lim = sample_field_lim(radiance.shape[1], radiance.shape[2],
+                                     config.simulated_res_factor, roi_index)
+    _, psnr, ssim = apply_optics_model(model, radiance, field_lim, config)
+    psnr = torch.mean(psnr)
+    ssim = torch.mean(ssim)
+    total = -psnr + ssim_weight * (1.0 - ssim)
+    return total, {"psnr": psnr, "ssim": ssim, "image_loss": total,
+                   "psf_accounted": torch.mean(model.accounted)}
+
+
+def make_image_loss_fn(radiance: torch.Tensor, ssim_weight: float = 0.0, field_lim=None,
+                       roi_index: int = 0):
+    """:func:`image_quality_loss` with ``LensOptimizer.loss_fn``'s signature
+    ``(specs, lens, config, g, catalog_g, generator)``, so a stock
+    :class:`~torchoptics_tpu_torch.optimize.LensOptimizer` runs Adam on
+    rendered image quality instead of the ray-space loss."""
+    def loss_fn(specs, lens, config, g, catalog_g, generator):
+        del g, catalog_g
+        return image_quality_loss(specs, lens, radiance, config, generator=generator,
+                                  field_lim=field_lim, roi_index=roi_index,
+                                  ssim_weight=ssim_weight)
+    return loss_fn

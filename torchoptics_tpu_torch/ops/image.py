@@ -6,7 +6,9 @@ PyTorch counterpart of ``torchoptics_tpu.ops.image``:
   Overlapping patches of the symmetric-padded image, each convolved with its
   local PSF by kernel P2 (:func:`svola_patch_conv`, ``csrc/svola_conv.cu``:
   the direct kh x kw tap sum of the valid convolution, which the JAX package
-  computes by FFT), then a windowed recomposition.
+  computes by FFT), then a windowed recomposition. It is differentiable:
+  d/dpsf is a kernel of its own (``csrc/svola_conv_bwd.cu``), d/dpatch is
+  P2 on the padded cotangent with the flipped PSFs.
 * :func:`interpolate_bicubic`: the Keys bicubic (alpha = -0.75) gather
   resampler, and the distortion warps built on the same weights
   (:func:`warp_bicubic_shifts`, :func:`warp_bicubic_separable`, the default).
@@ -33,10 +35,17 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
-#: Launches of kernel P2 in this process. The wrapper adds one per launch;
-#: reset it to 0 to count the launches of one run.
+#: Launches of kernel P2 in this process (the forward, and d/dpatch in a
+#: backward). The wrapper adds one per kernel launch: a wide PSF's call
+#: launches once per chunk of tap rows. Reset it to 0 to count the launches
+#: of one run.
 P2_LAUNCHES = 0
+#: Launches of P2's d/dpsf kernel: one per group of patch-channels (one at
+#: config 5's 1024^2 render, whose partials fit one group); the second pass
+#: that follows each is not counted.
+P2_DPSF_LAUNCHES = 0
 
 
 def _window(kind: str, n: int) -> np.ndarray:
@@ -82,24 +91,116 @@ def svola_patch_conv_reference(patches: torch.Tensor, psfs: torch.Tensor) -> tor
     return acc
 
 
+def svola_patch_conv_dpatch_reference(cotangent: torch.Tensor, psfs: torch.Tensor
+                                      ) -> torch.Tensor:
+    """Plain version of P2's adjoint with respect to the patches: the full
+    correlation of the cotangent (P, hp, wp, C) with the unflipped taps,
+    which is P2 on the cotangent zero-padded by (kh - 1, kw - 1) on each side
+    with the flipped PSFs: d[y, x] = sum_{a, b} psf[a, b] · g[y+a-kh+1,
+    x+b-kw+1]."""
+    kh, kw = psfs.shape[1:3]
+    padded = torch.nn.functional.pad(cotangent, (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
+    return svola_patch_conv_reference(padded, torch.flip(psfs, dims=(1, 2)))
+
+
+#: The side of the output tiles over which d/dpsf takes its partial sums.
+DPSF_TILE = 32
+
+
+def svola_patch_conv_dpsf_reference(patches: torch.Tensor, cotangent: torch.Tensor,
+                                    kernel_hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of P2's d/dpsf kernel: dpsf[p, u, v, c] = sum_{i, j}
+    g[p, i, j, c] · patch[p, i+kh-1-u, j+kw-1-v, c], in the kernel's order.
+    The outputs are cut into ``DPSF_TILE``² tiles (the tails padded with zero
+    cotangents); each tile's partial sum of a tap runs over its positions in
+    row-major order from 0, in float64 (each float32 product is exact there),
+    a loop over the positions vectorised across tiles and taps; then each
+    tap's partials are summed over the tiles in index order from 0 and
+    rounded once to the input's type."""
+    P, ph, pw, C = patches.shape
+    kh, kw = kernel_hw
+    hp, wp = ph - kh + 1, pw - kw + 1
+    T = DPSF_TILE
+    nty, ntx = -(-hp // T), -(-wp // T)
+    f64 = dict(dtype=torch.float64, device=patches.device)
+    g = torch.zeros((P, nty * T, ntx * T, C), **f64)
+    g[:, :hp, :wp] = cotangent
+    win = torch.zeros((P, nty * T + kh - 1, ntx * T + kw - 1, C), **f64)
+    win[:, :ph, :pw] = patches
+    sp, sy, sx, sc = win.stride()
+    acc = torch.zeros((P, nty, ntx, kh, kw, C), **f64)
+    term = torch.empty_like(acc)
+    for ti in range(T):
+        for tj in range(T):
+            # view[p, ty, tx, a, b, c] = win[p, ty T + ti + a, tx T + tj + b, c]:
+            # tap (u, v) = (kh-1-a, kw-1-b) of tile (ty, tx) at (ti, tj).
+            view = win.as_strided((P, nty, ntx, kh, kw, C), (sp, T * sy, T * sx, sy, sx, sc),
+                                  ti * sy + tj * sx)
+            torch.mul(g[:, ti::T, tj::T, None, None, :], view, out=term)
+            acc += term
+    total = torch.zeros((P, kh, kw, C), **f64)
+    for t in range(nty * ntx):
+        total += acc[:, t // ntx, t % ntx]
+    return torch.flip(total, dims=(1, 2)).to(patches.dtype)
+
+
+_P2_SMEM_MAX = 232448    # bytes of shared memory a block can have (227 KB)
+
+
+@functools.lru_cache(maxsize=None)
+def p2_max_kw(adjoint: bool = False) -> int:
+    """The widest PSF a block of the kernel holds (the C functions
+    ``p2_max_kw`` and ``p2_dpsf_max_kw`` compute the same): P2's one input
+    row tile and one tap row of one channel, float32; d/dpsf's 32² cotangent
+    tile and 32 window rows of an odd pitch of 32 + kw + 2 doubles."""
+    def fits(kw):
+        r4 = (kw + 3) // 4 * 4
+        if adjoint:
+            return 8 * (32 * 32 + 32 * ((32 + kw + 2) | 1)) <= _P2_SMEM_MAX
+        return 4 * (32 * (32 + r4) + r4) <= _P2_SMEM_MAX
+    kw = 1
+    while fits(kw + 1):
+        kw += 1
+    return kw
+
+
+def p2_argument_error(patches_shape, psfs_shape, adjoint: bool = False):
+    """Why P2 (or, with ``adjoint``, its d/dpsf kernel) would refuse patches
+    and PSFs of these shapes, or None: the checks of the launchers in
+    ``csrc/svola_conv*.cu``, with no library needed."""
+    P, ph, pw, C = patches_shape
+    if tuple(psfs_shape[:1]) + tuple(psfs_shape[3:]) != (P, C) or len(psfs_shape) != 4:
+        return (f"psfs {tuple(psfs_shape)} must be (P, kh, kw, C) with (P, C) = {(P, C)} of "
+                f"patches {tuple(patches_shape)}")
+    kh, kw = psfs_shape[1:3]
+    max_kw = p2_max_kw(adjoint)
+    if C < 1 or kh < 1 or not 1 <= kw <= max_kw or ph < kh or pw < kw or P * C > 65535:
+        return (f"{'d/dpsf' if adjoint else 'P2'} takes kernels up to {max_kw} taps wide, no "
+                f"larger than the patch, and at most 65535 patch-channels; got psfs "
+                f"{tuple(psfs_shape)}, patches {tuple(patches_shape)}")
+    return None
+
+
+def _check_p2_inputs(tensors: dict, psfs_shape, adjoint: bool = False):
+    """Raise unless ``tensors`` (the first is the patches) are float32 on one
+    device and the launcher takes the shapes."""
+    device = next(iter(tensors.values())).device
+    for name, a in tensors.items():
+        if a.dtype != torch.float32 or a.device != device:
+            raise ValueError(f"P2 takes float32 {name} on one device, got {a.dtype} on "
+                             f"{a.device}")
+    error = p2_argument_error(next(iter(tensors.values())).shape, psfs_shape, adjoint)
+    if error:
+        raise ValueError(error)
+
+
 def _launch_p2(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
     global P2_LAUNCHES
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
-    for name, a in (("patches", patches), ("psfs", psfs)):
-        if a.dtype != torch.float32 or a.device != patches.device:
-            raise ValueError(f"P2 takes float32 {name} on one device, got {a.dtype} on "
-                             f"{a.device}")
+    _check_p2_inputs({"patches": patches, "psfs": psfs}, psfs.shape)
     P, ph, pw, C = patches.shape
     kh, kw = psfs.shape[1:3]
-    if psfs.shape != (P, kh, kw, C):
-        raise ValueError(f"psfs {tuple(psfs.shape)} must be (P, kh, kw, C) with (P, C) = "
-                         f"{(P, C)} of patches {tuple(patches.shape)}")
-    max_k = lib.p2_max_k()
-    if kh > max_k or kw > max_k or ph < kh or pw < kw or P * C > 65535:
-        raise ValueError(f"P2 takes kernels up to {max_k} x {max_k}, no larger than the "
-                         f"patch, and at most 65535 patch-channels; got psfs "
-                         f"{tuple(psfs.shape)}, patches {tuple(patches.shape)}")
     out = torch.empty((P, ph - kh + 1, pw - kw + 1, C), dtype=torch.float32,
                       device=patches.device)
     with torch.cuda.device(patches.device):
@@ -109,25 +210,85 @@ def _launch_p2(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"P2 (SVOLA patch convolution) launch failed: "
                            f"{lib.k1_error_string(err).decode()}")
-    P2_LAUNCHES += 1
+    P2_LAUNCHES += lib.p2_svola_launches(C, kh, kw) if P else 0
     return out
+
+
+def _launch_p2_dpsf(patches: torch.Tensor, cotangent: torch.Tensor,
+                    kernel_hw: Tuple[int, int]) -> torch.Tensor:
+    global P2_DPSF_LAUNCHES
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    P, ph, pw, C = patches.shape
+    kh, kw = kernel_hw
+    _check_p2_inputs({"patches": patches, "cotangent": cotangent}, (P, kh, kw, C), True)
+    if cotangent.shape != (P, ph - kh + 1, pw - kw + 1, C):
+        raise ValueError(f"the cotangent {tuple(cotangent.shape)} must have P2's output shape "
+                         f"{(P, ph - kh + 1, pw - kw + 1, C)}")
+    partials = torch.empty(lib.p2_dpsf_partials(P, C, ph, pw, kh, kw), dtype=torch.float64,
+                           device=patches.device)
+    dpsf = torch.empty((P, kh, kw, C), dtype=torch.float32, device=patches.device)
+    with torch.cuda.device(patches.device):
+        stream = torch.cuda.current_stream(patches.device).cuda_stream
+        err = lib.p2_dpsf_launch(patches.data_ptr(), cotangent.data_ptr(), partials.data_ptr(),
+                                 dpsf.data_ptr(), P, C, ph, pw, kh, kw, stream)
+    if err != 0:
+        raise RuntimeError(f"P2's d/dpsf kernel launch failed: "
+                           f"{lib.k1_error_string(err).decode()}")
+    P2_DPSF_LAUNCHES += lib.p2_dpsf_launches(P, C, ph, pw, kh, kw) if P else 0
+    return dpsf
+
+
+class _P2(torch.autograd.Function):
+    """Kernel P2 with its adjoint: on CUDA tensors the forward is P2, d/dpsf
+    its own kernel and d/dpatch P2 on the padded cotangent (launched only
+    when the patches need a gradient); on CPU tensors each is its plain
+    version."""
+
+    @staticmethod
+    def forward(ctx, patches, psfs):
+        ctx.save_for_backward(patches, psfs)
+        if patches.device.type == "cpu":
+            return svola_patch_conv_reference(patches, psfs)
+        return _launch_p2(patches, psfs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, cotangent):
+        patches, psfs = ctx.saved_tensors
+        cotangent = cotangent.contiguous()
+        on_cpu = patches.device.type == "cpu"
+        d_patches = d_psfs = None
+        if ctx.needs_input_grad[0]:
+            if on_cpu:
+                d_patches = svola_patch_conv_dpatch_reference(cotangent, psfs)
+            else:
+                kh, kw = psfs.shape[1:3]
+                padded = torch.nn.functional.pad(cotangent,
+                                                 (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
+                d_patches = _launch_p2(padded, torch.flip(psfs, dims=(1, 2)).contiguous())
+        if ctx.needs_input_grad[1]:
+            kernel_hw = tuple(psfs.shape[1:3])
+            d_psfs = (svola_patch_conv_dpsf_reference if on_cpu else _launch_p2_dpsf)(
+                patches, cotangent, kernel_hw)
+        return d_patches, d_psfs
 
 
 def svola_patch_conv(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
     """Kernel P2 (``csrc/svola_conv.cu``) on a CUDA tensor, its plain version
-    :func:`svola_patch_conv_reference` on a CPU tensor. The kernel has no
-    backward yet: on a CUDA tensor with grad mode on and an input that
-    requires grad it raises, naming the missing adjoint."""
-    if patches.device.type == "cpu":
-        return svola_patch_conv_reference(patches, psfs)
-    if patches.device.type != "cuda":
+    :func:`svola_patch_conv_reference` on a CPU tensor; differentiable in
+    both inputs (``_P2``: on the card d/dpsf is ``csrc/svola_conv_bwd.cu``
+    and d/dpatch one more P2 launch, on the CPU their plain versions)."""
+    if patches.device.type not in ("cpu", "cuda"):
         raise ValueError(f"P2 runs on CUDA or CPU tensors, got {patches.device}")
+    on_cpu = patches.device.type == "cpu"
+    if not on_cpu:
+        patches, psfs = patches.contiguous(), psfs.contiguous()
     if torch.is_grad_enabled() and (patches.requires_grad or psfs.requires_grad):
-        raise NotImplementedError(
-            "kernel P2 (the SVOLA patch convolution) has no backward kernel yet: its adjoint "
-            "(d/dpsf, a kh x kw reduction per patch; d/dimage, the transposed convolution) "
-            "is still to be ported; render under torch.no_grad()")
-    return _launch_p2(patches.contiguous(), psfs.contiguous())
+        return _P2.apply(patches, psfs)
+    # No gradient wanted: the forward alone, without the Function's host
+    # cost (a 1024^2 render's P2 launch is ~0.1 ms).
+    return svola_patch_conv_reference(patches, psfs) if on_cpu else _launch_p2(patches, psfs)
 
 
 def svola_patches(image: torch.Tensor, overlap_size, kernel_hw: Tuple[int, int],

@@ -2,7 +2,8 @@
 full weighted loss.
 
 PyTorch counterpart of ``torchoptics_tpu.simulator``: pure functions over
-(Specs, Lens, SimulatorConfig). ``do_ray_tracing`` returns the raw trace and
+(Specs, Lens, SimulatorConfig), and the stateful wrappers
+``OpticsSimulator`` and ``RaytracedOptics`` over them. ``do_ray_tracing`` returns the raw trace and
 the loss Lu = rms + rate·ΣQ; ``compute_losses`` the full weighted loss
 (spot + ray-path + ray-angle + glass + Lu). With ``trace_engine="fused"``
 the trace and the penalty sums come from kernel K1 (``ops.fused_trace``)
@@ -16,14 +17,16 @@ stacks.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from torchoptics_tpu_torch.models import glass as glass_mod
+from torchoptics_tpu_torch.models import io as io_mod
 from torchoptics_tpu_torch.models.structure import Lens, Specs, Structure, mask_scatter
 from torchoptics_tpu_torch.ops import metrics as metrics_mod
 from torchoptics_tpu_torch.ops import trace as trace_mod
@@ -331,3 +334,137 @@ def _compute_losses_fused_grouped(specs: Specs, lens: Lens, config: SimulatorCon
     total = sum(combined[k] * w for k, w in config.loss_weights.items()
                 if k in combined and w is not None)
     return total, combined
+
+
+# ---------------------------------------------------------------------------
+# Stateful wrappers
+# ---------------------------------------------------------------------------
+
+
+def _numbers(t: torch.Tensor) -> list:
+    return t.detach().cpu().numpy().tolist()
+
+
+class OpticsSimulator:
+    """Stateful wrapper with the reference ``OpticsSimulator``'s constructor
+    surface: a lens from a prescription (a YAML path or a dict) or from the
+    constructor's arrays, built on ``device`` by :meth:`initialize`. The
+    compute path is the pure functions above."""
+
+    def __init__(self,
+                 initial_lens_path="",
+                 stop_index=np.array([1]),
+                 sequence=np.array(["AGA"]),
+                 hfov=(0.0, 17.5, 25.0),
+                 epd=(0.7,),
+                 curvature=(0.0, -0.242432341, -0.424975232),
+                 thickness=(1.21071062, 0.25, 9.86362667),
+                 n_refractive=(1.5224147149313454,),
+                 abbe_number=(59.450346241693694,),
+                 n_sampled_fields=21,
+                 sensor_diagonal=16.0,
+                 config: Optional[SimulatorConfig] = None,
+                 device="cuda",
+                 **extra_config):
+        self.device = torch.device(device)
+        self.config = config or SimulatorConfig(n_sampled_fields=n_sampled_fields,
+                                                sensor_diagonal=sensor_diagonal,
+                                                **extra_config)
+        if initial_lens_path:
+            self.initial_lens = io_mod.load_prescription(initial_lens_path)
+        else:
+            self.initial_lens = None
+            self._stop_index = np.asarray(stop_index)
+            self._sequence = np.asarray(sequence)
+            self._hfov = np.asarray(hfov, dtype=np.float32)
+            self._epd = np.asarray(epd, dtype=np.float32)
+            as_tensor = lambda v: torch.tensor(np.asarray(v, dtype=np.float32),
+                                               device=self.device)
+            self._curvature = as_tensor(curvature)
+            self._thickness = as_tensor(thickness)
+            self._n_refractive = as_tensor(n_refractive)
+            self._abbe_number = as_tensor(abbe_number)
+        self.logged_metrics: Dict[str, Any] = {}
+        self.loss_dict: Optional[Dict[str, torch.Tensor]] = None
+
+    def initialize(self):
+        """Build the structure, specs and lens, and the EFL the sensor needs."""
+        if self.initial_lens is not None:
+            self.specs, self.lensR = io_mod.load_lens(self.initial_lens, device=self.device)
+            self.structure = self.lensR.structure
+            self.hfov = self.specs.hfov
+            self.epd = self.specs.epd
+        else:
+            self.structure = Structure(tuple(int(i) for i in self._stop_index),
+                                       tuple(str(s) for s in self._sequence))
+            # The reference keeps only the outermost field angle as the HFOV.
+            self.hfov = torch.deg2rad(torch.tensor(self._hfov[-1:].copy(), device=self.device))
+            self.epd = torch.tensor(self._epd, device=self.device)
+            self.specs = Specs(self.structure, self.epd, self.hfov)
+            self.lensR = Lens(self.structure, self._curvature, self._thickness,
+                              self._n_refractive, self._abbe_number)
+        self.efl = self.config.sensor_diagonal / 2 / torch.tan(self.hfov)
+
+
+class RaytracedOptics(OpticsSimulator):
+    """Exact-ray-trace simulator: :meth:`do_ray_tracing` traces the lens
+    (on kernel K1 with ``trace_engine="fused"``) and logs the loss terms.
+    Keyword arguments that name ``SimulatorConfig`` fields configure it; the
+    rest go to :class:`OpticsSimulator`."""
+
+    def __init__(self, initial_lens_path="", glass_catalog_path=None,
+                 quantized_continuous_glass_variables=True, device="cuda", **kwargs):
+        sim_keys = {f.name for f in dataclasses.fields(SimulatorConfig)}
+        cfg_kw = {k: kwargs.pop(k) for k in list(kwargs) if k in sim_keys}
+        super().__init__(initial_lens_path, config=SimulatorConfig(**cfg_kw), device=device,
+                         **kwargs)
+        self.quantized_continuous_glass_variables = quantized_continuous_glass_variables
+        if glass_catalog_path:
+            self.catalog_g = glass_mod.load_catalog(glass_catalog_path, device=self.device)
+        else:
+            self.catalog_g = glass_mod.default_catalog_g(device=self.device)
+        self.initialize()
+
+    def do_ray_tracing(self, lens: Optional[Lens] = None,
+                       generator: Optional[torch.Generator] = None, should_log=True):
+        """Trace ``lens`` (the loaded one by default); returns (x, y, ray_ok)
+        and keeps the loss terms in ``loss_dict``, logged under ``loss/``
+        with the failed and backward ray counts under ``ray_tracing/``."""
+        lens = lens if lens is not None else self.lensR
+        res, loss_dict = do_ray_tracing(self.specs, lens, self.config, generator=generator)
+        self.loss_dict = loss_dict
+        if should_log:
+            self.logged_metrics.update({"loss/" + k: v for k, v in loss_dict.items()})
+            self.logged_metrics.update({
+                "ray_tracing/ray_failures": torch.sum(~res.ray_ok),
+                "ray_tracing/backward_rays": torch.sum(res.ray_backward),
+            })
+        return res.x, res.y, res.ray_ok
+
+    def get_catalog_glass_indices(self, g):
+        """The closest catalog glass of each optimized glass."""
+        return glass_mod.catalog_glass_indices(g, self.catalog_g)
+
+    def get_vars(self) -> Dict[str, Any]:
+        """State dump of the current design."""
+        lens = self.lensR
+        st = lens.structure
+        return {
+            "nd": _numbers(lens.flat_nd),
+            "v": _numbers(lens.flat_v),
+            "t": _numbers(lens.flat_t),
+            "lens_c": _numbers(lens.flat_c),
+            "g": _numbers(glass_mod.g_from_n_v(lens.flat_nd, lens.flat_v)),
+            "stop_idx": list(st.stop_idx),
+            "mask": st.mask.tolist(),
+            "mask_G": st.mask_G.tolist(),
+            "hfov": _numbers(self.hfov),
+            "epd": _numbers(self.epd),
+            "efl": _numbers(self.efl),
+        }
+
+    def ShowTraceResult(self, x, y, ray_ok, loss_unsup, show=True):
+        """The spot diagram needs ``utils/plotting.py``, which the port does
+        not have yet."""
+        raise NotImplementedError(
+            "ShowTraceResult draws with utils/plotting.py, which is not ported yet")
