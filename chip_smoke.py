@@ -10,8 +10,9 @@ the aspherized double-Gauss on kernel K3) and the aspheric-population path
 (OPD, Zernike, Strehl, the diffraction PSF and the ``wavefront_rms``
 objective on the opl mode of K1-K4) and the imaging path (rendering a
 photograph through a lens: PSFs, the SVOLA convolution on kernel P2, the
-distortion warp) and imaging training (``LensOptimizer`` on the rendered
-image's PSNR and SSIM, through P2's adjoint) and the stateful simulator
+distortion warp; wide PSFs on P2's FFT route) and imaging training
+(``LensOptimizer`` on the rendered image's PSNR and SSIM, through P2's
+adjoint, at config 5 and at the default configuration) and the stateful simulator
 (``RaytracedOptics``), runs the card's issue-rate probe P1, and checks every
 hand-written CUDA kernel on them against its plain PyTorch version:
 
@@ -134,15 +135,22 @@ hand-written CUDA kernel on them against its plain PyTorch version:
 32. timings: P2, its plain version and the torch.fft product at the 1024^2
     shape, and the host wall of a render at 256, 512 and 1024^2, split into
     ``sample_optics_model`` and ``apply_optics_model``;
-33. P2 with wide PSFs (the tap rows in chunks), bit for bit with its plain
-    version: the default configuration's (65 x 65 PSFs, 9 x 9 patches)
-    renders at 1448^2, 2048^2 and 4096^2 (K = 33, 47, 95) and a non-square
-    kh 47 x kw 29; whole renders of the default configuration at 2048^2 and
-    of config 5 at 4096^2, one K1 forward and one P2 launch each;
+33. P2 with wide PSFs, which take its FFT route (``csrc/svola_fft.cu``,
+    three launches a call), bit for bit with the route's plain version: the
+    default configuration's (65 x 65 PSFs, 9 x 9 patches) renders at
+    1448^2, 2048^2 and 4096^2 (K = 33, 47, 95) and seeded non-square cases
+    (kh 47 x kw 29, kh 21 x kw 95), a PSF as large as its patch, five
+    channels; the route's forward and d/dpsf kernels also within 1e-5 and
+    1e-4 of the largest entry of the float64 torch.fft product and
+    correlation (cuFFT's float32 deviation printed beside); whole renders of
+    the default configuration at 2048^2 and of config 5 at 4096^2, one K1
+    forward and one FFT call each;
 34. P2's adjoint through ``svola_patch_conv``'s backward at config 5's
-    1024^2 shape (K = 11) and the default configuration's 2048^2 (K = 47):
-    d/dpsf (``csrc/svola_conv_bwd.cu``) and d/dpatch (P2 on the padded
-    cotangent) bit for bit with their plain versions;
+    1024^2 shape (K = 11, the direct kernels), its 2048^2 (K = 23: the
+    direct forward and d/dpatch, the FFT route's d/dpsf) and the default
+    configuration's 2048^2 and 4096^2 (K = 47, 95, the FFT route): d/dpsf
+    and d/dpatch (P2 on the padded cotangent) bit for bit with their
+    routes' plain versions, each route's launches counted;
 35. image training, this slice's main path: 5 Adam steps of
     ``LensOptimizer(loss_fn=imaging.make_image_loss_fn(...))`` on the
     double-Gauss defocused by 0.3 mm, config 5 at 1024^2, one K1 forward,
@@ -151,9 +159,13 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     the host wall of a step at 256^2 and 1024^2;
 36. ``RaytracedOptics.do_ray_tracing`` on the Cooke (the zoo's prescription
     dict) on the fused engine, held against the CPU;
-37. timings: d/dpsf, its plain version and the torch.fft correlation at the
-    1024^2 and 2048^2 shapes; P2, its plain version and the torch.fft
-    product at K = 47 and 95;
+37. timings: the direct d/dpsf, its plain version and the torch.fft
+    correlation at config 5's 1024^2 shape; the FFT route's forward and
+    d/dpsf, their plain versions and the torch.fft calls at K = 47 and 95,
+    with the route's bound and the direct sum's; both routes (the direct
+    kernels where they take the PSF) and the torch.fft calls at the renders
+    that set the route's thresholds (config 5 at 1024^2, 2048^2, the default
+    configuration at 1024^2-4096^2);
 38. (after 28) K1b to K4b at ragged shapes, where no warp or block boundary
     falls on a wavelength's: 5 fields x 13^2 pupil rays (845 a wavelength,
     2,535 a system; blocks straddle wavelengths, the last block is partly
@@ -161,7 +173,13 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     partial block), every mode and policy, on each kernel's lens and c x 3
     variant (K2 and K4 on 32-system populations, also padded and mixed):
     per-ray cotangents and two launches bit for bit, parameter sums within
-    each kernel's bar of the plain version's.
+    each kernel's bar of the plain version's;
+39. (after 35) image training at the default configuration, this slice's
+    main path: 3 Adam steps at 2048^2 (K = 47), one K1 forward, one K1
+    backward, one FFT P2 call and one FFT d/dpsf call (three launches each)
+    a step, every step accepted, each step's host wall; the first step's
+    d/d(c, t) at 1448^2 (K = 33, the FFT route both ways; config 5's
+    deterministic PSF bundle) held against the CPU's.
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -181,8 +199,10 @@ before that carries the kernels' numbers.
     python3 chip_smoke.py --render-walls  # instead: phase 32's render walls
                                           # alone (no result line)
     python3 chip_smoke.py --kernel-turns TREE...  # instead: K1 to K4,
-                                          # every mode, K2b's splits and P2
-                                          # at four render shapes, of each
+                                          # every mode, K2b's splits, P2 at
+                                          # config 5's four render shapes
+                                          # and P2 and d/dpsf by each tree's
+                                          # route at the wide ones, of each
                                           # unpacked tree and of this
                                           # checkout, timed in turns (trees,
                                           # this, this, trees in reverse; no
@@ -190,6 +210,10 @@ before that carries the kernels' numbers.
                                           # (of k1,k2,k3,k4,p2) times only
                                           # those
     python3 chip_smoke.py --ragged        # instead: phase 38 alone
+    python3 chip_smoke.py --p2-fft        # instead: the FFT route's checks
+                                          # and both routes' times at the
+                                          # crossover renders (no result line)
+    python3 chip_smoke.py --default-image-training  # instead: phase 39
 """
 
 import collections
@@ -712,6 +736,9 @@ def profile_steps(torch, label, step, card, n_steps=3):
                  "kernel parameter sums" if "partials_reduce" in name else
                  "P2 (SVOLA patch convolution)" if "p2_svola_kernel" in name else
                  "P2 d/dpsf" if "p2_dpsf" in name else
+                 "P2 FFT route, rows forward" if "fft_rows_fwd" in name else
+                 "P2 FFT route, columns" if "fft_cols" in name else
+                 "P2 FFT route, rows inverse" if "fft_rows_inv" in name else
                  "Adam" if ("adam" in name.lower() or "multi_tensor" in name) else
                  "reductions" if "reduce" in name.lower() else "front-end and other")
         groups[group] = groups.get(group, 0.0) + dev_us / 1e3 / n_steps
@@ -3332,18 +3359,17 @@ def phase_p1_probe(torch, issue_peak):
 
 
 def fft_conv(torch, patches, psfs):
-    """The library call computing P2's function as the JAX path does:
-    rfft2 of the patches and of the zero-padded PSFs, their product, the
-    inverse, rolled by -K//2 and cropped (ops/image.py:113-127). Timed
-    only; the port never calls it."""
+    """The library call computing P2's function as the JAX path does
+    (ops/image.py:113-127): rfft2 of the patches and of the zero-padded
+    PSFs at the patch's length, their product, the inverse, and the valid
+    region, which starts at index (kh - 1, kw - 1) (JAX's roll by -K//2 and
+    crop from K//2 for its odd K). Timed, and in float64 the route's
+    yardstick; the port never calls it."""
     P, ph, pw, C = patches.shape
     kh, kw = psfs.shape[1:3]
-    padded = torch.nn.functional.pad(psfs, (0, 0, 0, pw - kw, 0, ph - kh))
-    f = torch.fft.rfftn(patches, s=(ph, pw), dim=(1, 2)) * torch.fft.rfftn(padded, s=(ph, pw),
+    f = torch.fft.rfftn(patches, s=(ph, pw), dim=(1, 2)) * torch.fft.rfftn(psfs, s=(ph, pw),
                                                                           dim=(1, 2))
-    conv = torch.fft.irfftn(f, s=(ph, pw), dim=(1, 2))
-    conv = torch.roll(conv, shifts=(-(kh // 2), -(kw // 2)), dims=(1, 2))
-    return conv[:, kh // 2: kh // 2 + ph - kh + 1, kw // 2: kw // 2 + pw - kw + 1, :]
+    return torch.fft.irfftn(f, s=(ph, pw), dim=(1, 2))[:, kh - 1:, kw - 1:, :]
 
 
 def p2_bound(patches, psfs):
@@ -3438,137 +3464,136 @@ def default_imaging_config(simulator, **kw):
     return simulator.SimulatorConfig(trace_engine="fused", **kw)
 
 
+def plain_p2(image, patches, psfs):
+    """P2's plain version for the route the PSFs take."""
+    if image.p2_takes_fft(psfs.shape[1:3]):
+        return image.svola_patch_conv_fft_reference(patches, psfs)
+    return image.svola_patch_conv_reference(patches, psfs)
+
+
+def plain_dpsf(image, patches, cot, kernel_hw):
+    """d/dpsf's plain version for the route the PSFs take."""
+    if image.p2_takes_fft(kernel_hw, adjoint=True):
+        return image.svola_patch_conv_dpsf_fft_reference(patches, cot, kernel_hw)
+    return image.svola_patch_conv_dpsf_reference(patches, cot, kernel_hw)
+
+
 def phase_p2_wide(torch, zoo, simulator, imaging, image, fused_trace):
-    """P2 with PSFs wider than 31 taps (the tap rows in chunks) against its
-    plain version, bit for bit: the photograph's patches with the
-    double-Gauss's PSFs at the default configuration's 1448^2, 2048^2 and
-    4096^2 renders (K = 33, 47, 95; at K = 95 the plain version on the first
-    27 of the 81 patches, each patch being convolved alone), and a seeded
-    non-square case (kh 47, kw 29). Then whole renders where the 31-tap
-    ceiling refused them: the default configuration at 2048^2 and config 5
-    at 4096^2 (K = 47 each), counts set to 0 before each and read after: one
-    K1 forward a render and P2's launches for its K (one a chunk of tap
-    rows, ``p2_svola_launches``). Returns the deviations by (kh, kw), the
-    inputs by K for the timing, and the 2048^2 render's P2 launches."""
-    from torchoptics_tpu_torch.ops import _kernels
-    lib = _kernels.load()
+    """P2 with wide PSFs, which take the FFT route (``csrc/svola_fft.cu``):
+    ``svola_patch_conv`` on the photograph's patches with the double-Gauss's
+    PSFs at the default configuration's 1448^2, 2048^2 and 4096^2 renders
+    (K = 33, 47, 95) and on seeded cases (kh 47 x kw 29, kh 21 x kw 95, a
+    PSF as large as its patch, five channels), counts set to 0 before each
+    and read after (three FFT launches, no direct one), bit for bit with the
+    route's plain version; then ``fft_route_check`` on each (the forward and
+    d/dpsf kernels against the float64 torch.fft product and correlation).
+    Then whole renders of the default configuration at 2048^2 and of config
+    5 at 4096^2 (K = 47 each): one K1 forward and one FFT call each. Returns
+    {label: fft_route_check's deviations}, the render inputs by K, and the
+    2048^2 render's FFT launches."""
     cfg = default_imaging_config(simulator)
-    specs, lens = zoo.build("double_gauss", device="cuda")
-    with torch.no_grad():
-        model = imaging.sample_optics_model(specs, lens, cfg)
-    cases, inputs, errs = [], {}, {}
-    for px in (1448, 2048, 4096):
-        rad = torch.tensor(photograph(px)[None], device="cuda")
-        patches, psfs = p2_inputs(torch, imaging, image, model, rad, cfg)
-        inputs[psfs.shape[2]] = (patches, psfs)
-        cases.append((f"default config at {px}^2", patches, psfs))
-    g = torch.Generator(device="cuda").manual_seed(4729)
-    patches = torch.rand((8, 200, 180, 3), generator=g, device="cuda") * 255.0
-    psfs = torch.rand((8, 47, 29, 3), generator=g, device="cuda")
-    psfs = psfs / psfs.sum(dim=(1, 2), keepdim=True)
-    cases.append(("non-square, kh 47, kw 29", patches, psfs))
-    for label, patches, psfs in cases:
-        kh, kw = psfs.shape[1:3]
-        n = 27 if kw > 90 else patches.shape[0]
-        chunks = lib.p2_svola_launches(psfs.shape[3], kh, kw)
-        image.P2_LAUNCHES = 0
+    inputs = render_inputs(torch, zoo, simulator, imaging, image,
+                           [("default", px) for px in (1448, 2048, 4096)])
+    cases = {f"default config at {px}^2": args for (_, px), args in inputs.items()}
+    cases.update(seeded_fft_cases(torch))
+    errs = {}
+    for label, (patches, psfs, cot) in cases.items():
+        image.P2_LAUNCHES = image.P2_FFT_LAUNCHES = 0
         with torch.no_grad():
             got = image.svola_patch_conv(patches, psfs)
             torch.cuda.synchronize()
-            launched = image.P2_LAUNCHES
-            want = image.svola_patch_conv_reference(patches[:n], psfs[:n])
-        err = float((got[:n] - want).abs().max())
-        errs[(kh, kw)] = err
-        same = torch.equal(got[:n], want)
-        check(same and bool(torch.isfinite(got).all()) and launched == chunks,
-              f"P2 vs plain, wide PSF, {label}: patches {tuple(patches.shape)}, PSFs "
-              f"{tuple(psfs.shape)} -> {tuple(got.shape)}: bit-identical={same} on "
-              f"{n} patches (max deviation {err:.3e}, bar 0); {launched} launches (chunks "
-              f"of tap rows: {chunks})")
+            launched = (image.P2_LAUNCHES, image.P2_FFT_LAUNCHES)
+            same = torch.equal(got, plain_p2(image, patches, psfs))
+        check(same and bool(torch.isfinite(got).all()) and launched == (0, 3),
+              f"P2 on the FFT route, {label}: patches {tuple(patches.shape)}, PSFs "
+              f"{tuple(psfs.shape)} -> {tuple(got.shape)}: bit-identical to the route's plain "
+              f"version={same}; launches (direct, FFT) {launched} (expected (0, 3))")
+        errs[label] = fft_route_check(torch, image, label, patches, psfs, cot)
     launches = None
+    specs, lens = zoo.build("double_gauss", device="cuda")
     for label, cfg_r, px in (("default config", cfg, 2048),
                              ("config 5", imaging_config(simulator), 4096)):
         rad = torch.tensor(photograph(px)[None], device="cuda")
-        fused_trace.K1_FWD_LAUNCHES = image.P2_LAUNCHES = 0
+        fused_trace.K1_FWD_LAUNCHES = image.P2_LAUNCHES = image.P2_FFT_LAUNCHES = 0
         irr, psnr, ssim = render(torch, imaging, specs, lens, rad, cfg_r)
         torch.cuda.synchronize()
-        counts = (fused_trace.K1_FWD_LAUNCHES, image.P2_LAUNCHES)
+        counts = (fused_trace.K1_FWD_LAUNCHES, image.P2_LAUNCHES, image.P2_FFT_LAUNCHES)
         if px == 2048:
-            launches = counts[1]
+            launches = counts[2]
         k = imaging.psf_kernel_shape((px, px), cfg_r)
-        check(counts == (1, lib.p2_svola_launches(3, *k)) and tuple(irr.shape) == (1, px, px, 3)
+        check(counts == (1, 0, 3) and tuple(irr.shape) == (1, px, px, 3)
               and bool(torch.isfinite(irr).all()) and math.isfinite(float(psnr[0])),
               f"render of the photograph at {px}^2, {label} (K = {k[0]} x {k[1]}): "
-              f"{tuple(irr.shape)}, finite; K1 forward launched {counts[0]} time(s), P2 "
-              f"{counts[1]}; PSNR {float(psnr[0]):.4f} dB, SSIM {float(ssim[0]):.5f}")
-    return errs, inputs, launches
+              f"{tuple(irr.shape)}, finite; launches (K1 forward, P2 direct, P2 FFT) {counts} "
+              f"(expected (1, 0, 3)); PSNR {float(psnr[0]):.4f} dB, SSIM {float(ssim[0]):.5f}")
+    return errs, {args[1].shape[1]: args for args in inputs.values()}, launches
 
 
-def adjoint_inputs(torch, zoo, imaging, image, cfg, px):
-    """P2's inputs in a px^2 render of the photograph through the
-    double-Gauss, and a seeded normal cotangent of its output."""
-    specs, lens = zoo.build("double_gauss", device="cuda")
-    with torch.no_grad():
-        model = imaging.sample_optics_model(specs, lens, cfg)
-        rad = torch.tensor(photograph(px)[None], device="cuda")
-        patches, psfs = p2_inputs(torch, imaging, image, model, rad, cfg)
-    P, ph, pw, C = patches.shape
-    kh, kw = psfs.shape[1:3]
-    gen = torch.Generator(device="cuda").manual_seed(px)
-    cot = torch.randn((P, ph - kh + 1, pw - kw + 1, C), generator=gen, device="cuda")
-    return patches, psfs, cot
+# P2's adjoint at render shapes, (label, configuration, px): both routes
+# direct (K = 11), the split route (direct forward and d/dpatch, FFT d/dpsf;
+# K = 23), both FFT (K = 47, 95).
+ADJOINT_RENDERS = (("config 5 at 1024^2", "config 5", 1024),
+                   ("config 5 at 2048^2", "config 5", 2048),
+                   ("default config at 2048^2", "default", 2048),
+                   ("default config at 4096^2", "default", 4096))
 
 
 def phase_p2_adjoint(torch, zoo, simulator, imaging, image):
-    """P2's adjoint through ``svola_patch_conv``'s backward on real inputs:
-    config 5's 1024^2 render (K = 11) and the default configuration's 2048^2
-    (K = 47), both inputs requiring grad, counts set to 0 before and read
-    after: P2's launches for the forward and again for d/dpatch on the padded
-    cotangent, d/dpsf's for its groups of patch-channels (1 at 1024^2, 8 at
-    2048^2). d/dpsf and d/dpatch bit for bit with their plain versions.
-    Returns {kw: (patches, psfs, cot, dpsf deviation, dpatch deviation)}."""
+    """P2's adjoint through ``svola_patch_conv``'s backward on the render
+    shapes of ``ADJOINT_RENDERS``, both inputs requiring grad, counts set to
+    0 before and read after: each route's launches (the direct P2 once for
+    the forward and once for d/dpatch, its d/dpsf once a group of
+    patch-channels; the FFT route three a call). d/dpsf and d/dpatch bit
+    for bit with the plain versions of their routes. Returns {label:
+    (patches, psfs, cot, dpsf deviation, dpatch deviation)}."""
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
+    inputs = render_inputs(torch, zoo, simulator, imaging, image,
+                           [(name, px) for _, name, px in ADJOINT_RENDERS])
     out = {}
-    for label, cfg, px in (("config 5 at 1024^2", imaging_config(simulator), 1024),
-                           ("default config at 2048^2", default_imaging_config(simulator),
-                            2048)):
-        patches, psfs, cot = adjoint_inputs(torch, zoo, imaging, image, cfg, px)
+    for label, name, px in ADJOINT_RENDERS:
+        patches, psfs, cot = inputs[(name, px)]
+        P, ph, pw, C = patches.shape
         kh, kw = psfs.shape[1:3]
         p_var = patches.clone().requires_grad_(True)
         k_var = psfs.clone().requires_grad_(True)
-        image.P2_LAUNCHES = image.P2_DPSF_LAUNCHES = 0
+        counters = ("P2_LAUNCHES", "P2_FFT_LAUNCHES", "P2_DPSF_LAUNCHES", "P2_DPSF_FFT_LAUNCHES")
+        for c in counters:
+            setattr(image, c, 0)
         d_patch, d_psf = torch.autograd.grad(image.svola_patch_conv(p_var, k_var),
                                              (p_var, k_var), cot)
         torch.cuda.synchronize()
-        counts = (image.P2_LAUNCHES, image.P2_DPSF_LAUNCHES)
+        counts = tuple(getattr(image, c) for c in counters)
+        fft, fft_d = image.p2_takes_fft((kh, kw)), image.p2_takes_fft((kh, kw), adjoint=True)
+        want = (0 if fft else 2, 6 if fft else 0,
+                0 if fft_d else lib.p2_dpsf_launches(P, C, ph, pw, kh, kw), 3 if fft_d else 0)
         with torch.no_grad():
-            want_psf = image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw))
+            want_psf = plain_dpsf(image, patches, cot, (kh, kw))
             want_patch = image.svola_patch_conv_dpatch_reference(cot, psfs)
         e_psf = float((d_psf - want_psf).abs().max())
         e_patch = float((d_patch - want_patch).abs().max())
         same = (torch.equal(d_psf, want_psf), torch.equal(d_patch, want_patch))
-        P, ph, pw, C = patches.shape
-        want = (2 * lib.p2_svola_launches(C, kh, kw), lib.p2_dpsf_launches(P, C, ph, pw, kh, kw))
+        routes = f"P2 {'FFT' if fft else 'direct'}, d/dpsf {'FFT' if fft_d else 'direct'}"
         check(all(same) and counts == want and bool(torch.isfinite(d_psf).all()),
-              f"P2 adjoint vs plain, {label}: patches {tuple(patches.shape)}, PSFs "
+              f"P2 adjoint vs plain, {label} ({routes}): patches {tuple(patches.shape)}, PSFs "
               f"{tuple(psfs.shape)}: d/dpsf bit-identical={same[0]} (max deviation "
-              f"{e_psf:.3e}, bar 0), d/dpatch bit-identical={same[1]} ({e_patch:.3e}); P2 "
-              f"launched {counts[0]} times (forward and d/dpatch), d/dpsf {counts[1]} "
-              f"(expected {want})")
-        out[kw] = (patches, psfs, cot, e_psf, e_patch)
+              f"{e_psf:.3e}, bar 0), d/dpatch bit-identical={same[1]} ({e_patch:.3e}); "
+              f"launches (P2 direct, P2 FFT, d/dpsf direct, d/dpsf FFT) {counts} (expected "
+              f"{want})")
+        out[label] = (patches, psfs, cot, e_psf, e_patch)
     return out
 
 
-def image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, device, px):
+def image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, device, px, config=None):
     """The double-Gauss defocused by 0.3 mm, trained on -PSNR + 10 (1 - SSIM)
-    of the photograph at px^2 rendered at config 5: Adam on (c, t) at the
-    lens's own EFL, glasses fixed."""
+    of the photograph at px^2 rendered at ``config`` (config 5 by default):
+    Adam on (c, t) at the lens's own EFL, glasses fixed."""
     specs, lens = zoo.build("double_gauss", device=device)
     t = lens.t.clone()
     t[0, -1] += 0.3
     radiance = torch.tensor(photograph(px)[None], device=device)
-    opt = LensOptimizer(specs=specs, config=imaging_config(simulator), learning_rate=1e-3,
+    opt = LensOptimizer(specs=specs, config=config or imaging_config(simulator),
+                        learning_rate=1e-3,
                         trainable=("c", "t"), qc_variables=False,
                         efl_target=float(lens.efl[0]),
                         loss_fn=imaging.make_image_loss_fn(radiance, ssim_weight=10.0))
@@ -3579,6 +3604,27 @@ def image_gradients(torch, opt, state):
     total, _ = opt.loss(state.params)
     grads = torch.autograd.grad(total, [state.params[k] for k in ("c", "t")])
     return float(total.detach()), [g.detach().cpu() for g in grads]
+
+
+def gradient_card_vs_cpu(torch, zoo, simulator, imaging, LensOptimizer, px, config, label):
+    """The first image-loss step's d/d(c, t) at px^2 and ``config`` on the
+    card against the port's CPU (the same lens, pupil and radiance), within
+    ``IMAGE_GRAD_BAR``. Returns (relative deviation, cosine)."""
+    got = {}
+    for device in ("cuda", "cpu"):
+        opt, state = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, device, px,
+                                     config)
+        got[device] = image_gradients(torch, opt, state)
+    (l_card, g_card), (l_cpu, g_cpu) = got["cuda"], got["cpu"]
+    a, b = torch.cat(g_card), torch.cat(g_cpu)
+    rel = float((a - b).abs().max() / b.abs().max())
+    cosine = float(a @ b / (a.norm() * b.norm()))
+    check(all(map(math.isfinite, (l_card, l_cpu))) and bool(torch.isfinite(a).all())
+          and rel <= IMAGE_GRAD_BAR["rel"] and cosine >= IMAGE_GRAD_BAR["cosine"],
+          f"image loss at {label}, first step, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f}; "
+          f"d/d(c, t) within {rel:.3e} of the largest (limit {IMAGE_GRAD_BAR['rel']}), "
+          f"cosine {cosine:.7f} (limit {IMAGE_GRAD_BAR['cosine']})")
+    return rel, cosine
 
 
 def captured(torch, args):
@@ -3693,20 +3739,8 @@ def phase_image_training(torch, zoo, simulator, imaging, image, fused_trace, Len
     launches = tuple(sum(c[i] for c in per_step) for i in range(4))
     bundle = check_k1_at_bundle(torch, fused_trace, record)
 
-    got = {}
-    for device in ("cuda", "cpu"):
-        opt_d, state_d = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer,
-                                         device, 256)
-        got[device] = image_gradients(torch, opt_d, state_d)
-    (l_card, g_card), (l_cpu, g_cpu) = got["cuda"], got["cpu"]
-    a, b = torch.cat(g_card), torch.cat(g_cpu)
-    rel = float((a - b).abs().max() / b.abs().max())
-    cosine = float(a @ b / (a.norm() * b.norm()))
-    check(all(map(math.isfinite, (l_card, l_cpu))) and bool(torch.isfinite(a).all())
-          and rel <= IMAGE_GRAD_BAR["rel"] and cosine >= IMAGE_GRAD_BAR["cosine"],
-          f"image loss at 256^2, first step, card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f}; "
-          f"d/d(c, t) within {rel:.3e} of the largest (limit {IMAGE_GRAD_BAR['rel']}), "
-          f"cosine {cosine:.7f} (limit {IMAGE_GRAD_BAR['cosine']})")
+    gradient_card_vs_cpu(torch, zoo, simulator, imaging, LensOptimizer, 256,
+                         imaging_config(simulator), "256^2")
 
     walls = {}
     for px in IMAGE_TRAIN_SIZES:
@@ -3782,88 +3816,370 @@ def dpsf_bound(patches, kernel_hw):
             max(ops / PEAK_FP64, t_bytes) * 1e3)
 
 
-def phase_adjoint_timing(torch, image, adjoint, wide, card):
-    """CUDA events: the d/dpsf kernel (both passes, with its partials'
-    allocation), its plain version and the torch.fft correlation at the
-    1024^2 and 2048^2 shapes of ``phase_p2_adjoint``; P2, its plain version
-    and the torch.fft product at the default configuration's 2048^2 and
-    4096^2 shapes (K = 47, 95; few calls there: one K = 95 call is tens of
-    ms, and the plain version runs on the first 27 of the 81 patches)."""
+def phase_adjoint_timing(torch, image, adjoint, card):
+    """CUDA events: the direct d/dpsf kernel (both passes, with its partials'
+    allocation), its plain version and the torch.fft correlation at config
+    5's 1024^2 shape (K = 11, the main path of phase 35)."""
+    patches, psfs, cot, _, _ = adjoint["config 5 at 1024^2"]
+    kh, kw = psfs.shape[1:3]
+    with torch.no_grad():
+        want = image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw))
+        lib_err = float((fft_dpsf(torch, patches, cot, (kh, kw)) - want).abs().max())
+        ms = {"dpsf": time_ms(torch, lambda: image._launch_p2_dpsf(patches, cot, (kh, kw))),
+              "plain_dpsf": time_ms(torch, lambda: image.svola_patch_conv_dpsf_reference(
+                  patches, cot, (kh, kw)), runs=3, batch=1, warmup=1),
+              "fft_dpsf": time_ms(torch, lambda: fft_dpsf(torch, patches, cot, (kh, kw)))}
+    b = dpsf_bound(patches, (kh, kw))
+    print(f"time d/dpsf (direct) at {tuple(patches.shape)}, K = {kh}: {ms['dpsf']:.4f} ms (plain "
+          f"{ms['plain_dpsf']:.2f} ms, torch.fft correlation {ms['fft_dpsf']:.4f} ms, within "
+          f"{lib_err:.2e} of the plain version); bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} "
+          f"operations at 67 TFLOP/s; {b[3]:.4f} ms at FP64's 34 TFLOP/s outside the tensor "
+          f"cores, this design's ceiling); card: {card}", flush=True)
+    return ms, b
+
+
+def adjoint_entry(adjoint, train_launches, ms, b):
+    """The direct d/dpsf kernel's entry of the kernels line, at config 5's
+    1024^2 shape (``launches`` counts phase 35's 5-step image training run,
+    its main path)."""
+    return {"name": "p2_dpsf", "route": "cuda", "source": P2_DPSF_SOURCE,
+            "replaces": TPU_P2_DPSF, "launches": train_launches[3],
+            "max_abs_err": adjoint["config 5 at 1024^2"][3], "ms": ms["dpsf"],
+            "plain_ms": ms["plain_dpsf"], "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": ms["fft_dpsf"], "bound_ms_fp64": b[3],
+            "dpatch_max_abs_err": adjoint["config 5 at 1024^2"][4],
+            "image_training_launches": dict(zip(("k1_fwd", "k1_bwd", "p2", "p2_dpsf"),
+                                                train_launches))}
+
+
+# ---------------------------------------------------------------------------
+# P2's FFT route (csrc/svola_fft.cu): the wide PSFs' forward and d/dpsf.
+# ---------------------------------------------------------------------------
+
+P2_FFT_SOURCE = "torchoptics_tpu_torch/csrc/svola_fft.cu"
+# The route replaces the direct sum for wide PSFs: `_k_acc`'s port, and for
+# d/dpsf the direct kernel, which replaced none.
+TPU_P2_FFT = (f"{TPU_P2} (wide PSFs; the FFT of torchoptics_tpu/ops/image.py:62 "
+              f"svola_convolution)")
+# The route against the float64 torch.fft product and correlation (~1e-15 of
+# the largest entry, a yardstick only), as a share of the largest entry: a
+# float32 FFT's error is relative to a plane's norm, so dark pixels and the
+# small edge taps of the PSF gradient carry absolute error. cuFFT's float32
+# product and correlation are printed beside.
+FFT_BAR = {"fwd": 1e-5, "dpsf": 1e-4}
+# The renders whose P2 shapes set P2_FFT_MIN_KW and P2_DPSF_FFT_MIN_KW
+# (K = 11, 23, 23, 33, 47) and the widest, K = 95: (configuration, px).
+CROSSOVER_RENDERS = (("config 5", 1024), ("config 5", 2048), ("default", 1024),
+                     ("default", 1448), ("default", 2048), ("default", 4096))
+
+
+def render_inputs(torch, zoo, simulator, imaging, image, renders):
+    """P2's inputs at renders of the photograph through the double-Gauss,
+    ``renders`` a list of (configuration, px): {(name, px): (patches, psfs,
+    cot)}, cot a seeded normal cotangent of P2's output."""
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    cfgs = {"config 5": imaging_config(simulator), "default": default_imaging_config(simulator)}
+    models, out = {}, {}
+    for name, px in renders:
+        with torch.no_grad():
+            if name not in models:
+                models[name] = imaging.sample_optics_model(specs, lens, cfgs[name])
+            rad = torch.tensor(photograph(px)[None], device="cuda")
+            patches, psfs = p2_inputs(torch, imaging, image, models[name], rad, cfgs[name])
+        P, ph, pw, C = patches.shape
+        kh, kw = psfs.shape[1:3]
+        gen = torch.Generator(device="cuda").manual_seed(px)
+        cot = torch.randn((P, ph - kh + 1, pw - kw + 1, C), generator=gen, device="cuda")
+        out[(name, px)] = (patches, psfs, cot)
+    return out
+
+
+def seeded_fft_cases(torch):
+    """Seeded cases of the FFT route beyond the renders: non-square PSFs (kh
+    47 x kw 29, kh 21 x kw 95), a PSF as large as its patch, five channels
+    (a block's sequences split a row pair's channels), one channel."""
+    g = torch.Generator(device="cuda").manual_seed(4729)
+    cases = {}
+    for P, ph, pw, C, kh, kw in ((8, 200, 180, 3, 47, 29), (2, 80, 140, 1, 21, 95),
+                                 (1, 60, 71, 3, 60, 71), (2, 99, 97, 5, 41, 39)):
+        patches = torch.rand((P, ph, pw, C), generator=g, device="cuda") * 255.0
+        psfs = torch.rand((P, kh, kw, C), generator=g, device="cuda")
+        cot = torch.randn((P, ph - kh + 1, pw - kw + 1, C), generator=g, device="cuda")
+        cases[f"seeded {kh} x {kw}, {C} ch"] = (patches, psfs / psfs.sum(dim=(1, 2), keepdim=True),
+                                               cot)
+    return cases
+
+
+def fft_route_check(torch, image, label, patches, psfs, cot):
+    """The FFT route's kernels on (patches, psfs, cot), forward and d/dpsf,
+    called directly: bit for bit with their plain versions on the card,
+    within ``FFT_BAR`` of the float64 torch.fft product and correlation (a
+    share of the largest entry), three launches each; cuFFT's float32
+    deviation from the same yardstick printed beside. Returns {"fwd": (dev
+    from the plain version, the route's share, cuFFT's share), "dpsf": ...}."""
+    kh, kw = psfs.shape[1:3]
+    image.P2_FFT_LAUNCHES = image.P2_DPSF_FFT_LAUNCHES = 0
+    errs = {}
+    with torch.no_grad():
+        got = {"fwd": image._launch_fft(patches, psfs, (kh, kw), False),
+               "dpsf": image._launch_fft(patches, cot, (kh, kw), True)}
+        torch.cuda.synchronize()
+        launches = (image.P2_FFT_LAUNCHES, image.P2_DPSF_FFT_LAUNCHES)
+        plain = {"fwd": lambda: image.svola_patch_conv_fft_reference(patches, psfs),
+                 "dpsf": lambda: image.svola_patch_conv_dpsf_fft_reference(patches, cot,
+                                                                           (kh, kw))}
+        lib_call = {"fwd": lambda p, k, g: fft_conv(torch, p, k),
+                    "dpsf": lambda p, k, g: fft_dpsf(torch, p, g, (kh, kw))}
+        same = {}
+        for key in ("fwd", "dpsf"):
+            want = plain[key]()
+            same[key] = torch.equal(got[key], want)
+            dev = float((got[key] - want).abs().max())
+            del want
+            ref = lib_call[key](patches.double(), psfs.double(), cot.double())
+            scale = float(ref.abs().max())
+            share = float((got[key].double() - ref).abs().max()) / scale
+            cufft = float((lib_call[key](patches, psfs, cot).double() - ref).abs().max()) / scale
+            del ref
+            errs[key] = (dev, share, cufft)
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    check(all(same.values()) and finite and launches == (3, 3)
+          and all(errs[k][1] <= FFT_BAR[k] for k in errs),
+          f"P2's FFT route, {label}: patches {tuple(patches.shape)}, PSFs {tuple(psfs.shape)}; "
+          f"forward bit-identical to its plain version={same['fwd']} (max deviation "
+          f"{errs['fwd'][0]:.3e}), within {errs['fwd'][1]:.2e} of the float64 torch.fft "
+          f"product's largest entry (bar {FFT_BAR['fwd']:.0e}; cuFFT float32 "
+          f"{errs['fwd'][2]:.2e}); d/dpsf bit-identical={same['dpsf']} ({errs['dpsf'][0]:.3e}), "
+          f"within {errs['dpsf'][1]:.2e} of the float64 correlation (bar "
+          f"{FFT_BAR['dpsf']:.0e}; cuFFT float32 {errs['dpsf'][2]:.2e}); launches {launches} "
+          f"(3 each)")
+    return errs
+
+
+def fft_route_bound(patches, kernel_hw, adjoint):
+    """(bound_ms, bound_by, ops, bytes) of the FFT route at these shapes: the
+    transforms it runs at 5 L log2 L operations a complex transform of L
+    points (pass 1 the packed row pairs of both inputs, pass 2 two forward
+    and one inverse column transform of each of the Lw/2 + 1 columns, pass 3
+    the kept rows' pairs) and the 6 of each pointwise product, over 67
+    TFLOP/s; the inputs read once and the output written once over 3.35
+    TB/s."""
+    P, ph, pw, C = patches.shape
+    kh, kw = kernel_hw
+    hp, wp = ph - kh + 1, pw - kw + 1
+    lh = max(16, 1 << (ph - 1).bit_length())
+    lw = max(16, 1 << (pw - 1).bit_length())
+    t = lambda n: 5 * n * math.log2(n)
+    rows_b, n_out = (hp, kh) if adjoint else (kh, hp)
+    nc = lw // 2 + 1
+    ops = P * C * ((-(-ph // 2) + -(-rows_b // 2) + -(-n_out // 2)) * t(lw)
+                   + nc * (3 * t(lh) + 6 * lh))
+    second = P * hp * wp * C if adjoint else P * kh * kw * C
+    out = P * kh * kw * C if adjoint else P * hp * wp * C
+    nbytes = 4 * (patches.numel() + second + out)
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops,
+            nbytes)
+
+
+def auto_ms(torch, fn, budget_ms=600.0):
+    """``time_ms`` with its batches sized to the call: one call timed on the
+    host clock first, then batches of ~20 ms, as many as fit ``budget_ms``
+    (3 to 25)."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = max((time.perf_counter() - start) * 1e3, 1e-3)
+    batch = max(1, min(10, int(20.0 / one)))
+    runs = max(3, min(25, int(budget_ms / (one * batch))))
+    return time_ms(torch, fn, runs=runs, batch=batch, warmup=1)
+
+
+def phase_p2_crossover(torch, image, inputs, card):
+    """P2 and its d/dpsf by both routes on the same render inputs ({(name,
+    px): (patches, psfs, cot)}), CUDA events (``auto_ms``): the direct
+    kernels where their launchers take the PSF (``p2_max_kw``,
+    ``p2_dpsf_max_kw``), the FFT route's kernels, and the torch.fft product
+    and correlation. Returns {label: {key: ms}}."""
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    out = {}
+    for (name, px), (patches, psfs, cot) in inputs.items():
+        kh, kw = psfs.shape[1:3]
+        k = (kh, kw)
+        calls = {"fft_fwd": lambda: image._launch_fft(patches, psfs, k, False),
+                 "fft_dpsf": lambda: image._launch_fft(patches, cot, k, True),
+                 "torch_fft_fwd": lambda: fft_conv(torch, patches, psfs),
+                 "torch_fft_dpsf": lambda: fft_dpsf(torch, patches, cot, k)}
+        if max(k) <= lib.p2_max_kw():
+            calls["direct_fwd"] = lambda: image._launch_p2(patches, psfs)
+        if max(k) <= lib.p2_dpsf_max_kw():
+            calls["direct_dpsf"] = lambda: image._launch_p2_dpsf(patches, cot, k)
+        ms = {}
+        with torch.no_grad():
+            for key, fn in calls.items():
+                ms[key] = auto_ms(torch, fn)
+        label = f"{name} {px}^2 K={kh}"
+        out[label] = ms
+        print(f"time P2 routes at {label}, patches {tuple(patches.shape)}: " + ", ".join(
+            f"{key} {v:.4f} ms" for key, v in ms.items()) + f"; card: {card}", flush=True)
+    return out
+
+
+def phase_fft_timing(torch, image, wide, card):
+    """CUDA events (``auto_ms``): the FFT route's kernels, forward and
+    d/dpsf, their plain versions and the torch.fft product and correlation
+    at the default configuration's 2048^2 and 4096^2 shapes (K = 47, 95;
+    ``wide`` maps K to (patches, psfs, cot)), with the route's bound and the
+    direct sum's. Returns {key: ms}, {key: bound tuple}."""
     ms, bounds = {}, {}
-    for kw, (patches, psfs, cot, _, _) in adjoint.items():
-        kh = psfs.shape[1]
-        big = kw > 20
+    for k in (47, 95):
+        patches, psfs, cot = wide[k]
+        kh, kw = psfs.shape[1:3]
+        calls = {f"fft_p2_k{k}": lambda: image._launch_fft(patches, psfs, (kh, kw), False),
+                 f"plain_fft_p2_k{k}": lambda: image.svola_patch_conv_fft_reference(patches, psfs),
+                 f"torch_fft_p2_k{k}": lambda: fft_conv(torch, patches, psfs),
+                 f"fft_dpsf_k{k}": lambda: image._launch_fft(patches, cot, (kh, kw), True),
+                 f"plain_fft_dpsf_k{k}": lambda: image.svola_patch_conv_dpsf_fft_reference(
+                     patches, cot, (kh, kw)),
+                 f"torch_fft_dpsf_k{k}": lambda: fft_dpsf(torch, patches, cot, (kh, kw))}
         with torch.no_grad():
-            want = image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw))
-            lib_err = float((fft_dpsf(torch, patches, cot, (kh, kw)) - want).abs().max())
-            ms[f"dpsf_k{kw}"] = time_ms(
-                torch, lambda: image._launch_p2_dpsf(patches, cot, (kh, kw)),
-                runs=5 if big else 25, batch=2 if big else 10)
-            ms[f"plain_dpsf_k{kw}"] = time_ms(
-                torch, lambda: image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw)),
-                runs=1 if big else 3, batch=1, warmup=1)
-            ms[f"fft_dpsf_k{kw}"] = time_ms(torch, lambda: fft_dpsf(torch, patches, cot,
-                                                                     (kh, kw)))
-        bounds[f"dpsf_k{kw}"] = b = dpsf_bound(patches, (kh, kw))
-        print(f"time d/dpsf at {tuple(patches.shape)}, K = {kh}: {ms[f'dpsf_k{kw}']:.4f} ms "
-              f"(plain {ms[f'plain_dpsf_k{kw}']:.2f} ms, torch.fft correlation "
-              f"{ms[f'fft_dpsf_k{kw}']:.4f} ms, within {lib_err:.2e} of the plain version); "
-              f"bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations at 67 TFLOP/s; "
-              f"{b[3]:.4f} ms at FP64's 34 TFLOP/s outside the tensor cores, this design's "
-              f"ceiling); card: {card}",
-              flush=True)
-    for kw in (47, 95):
-        patches, psfs = wide[kw]
-        n = 27 if kw > 90 else patches.shape[0]
-        with torch.no_grad():
-            ms[f"p2_k{kw}"] = time_ms(torch, lambda: image.svola_patch_conv(patches, psfs),
-                                      runs=3 if kw > 90 else 10, batch=1 if kw > 90 else 3,
-                                      warmup=1)
-            ms[f"plain_p2_k{kw}"] = time_ms(
-                torch, lambda: image.svola_patch_conv_reference(patches[:n], psfs[:n]),
-                runs=1, batch=1, warmup=1)
-            ms[f"fft_p2_k{kw}"] = time_ms(torch, lambda: fft_conv(torch, patches, psfs),
-                                          runs=5, batch=2, warmup=1)
-        bounds[f"p2_k{kw}"] = b = p2_bound(patches, psfs)
-        print(f"time P2 at {tuple(patches.shape)} * {tuple(psfs.shape)}: {ms[f'p2_k{kw}']:.4f} "
-              f"ms (plain on {n} patches {ms[f'plain_p2_k{kw}']:.2f} ms, torch.fft product "
-              f"{ms[f'fft_p2_k{kw}']:.4f} ms); bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} "
-              f"operations); card: {card}", flush=True)
+            for key, fn in calls.items():
+                ms[key] = auto_ms(torch, fn, budget_ms=300.0 if "plain" in key else 600.0)
+        bounds[f"fft_p2_k{k}"] = fft_route_bound(patches, (kh, kw), False)
+        bounds[f"fft_dpsf_k{k}"] = fft_route_bound(patches, (kh, kw), True)
+        bounds[f"direct_p2_k{k}"] = p2_bound(patches, psfs)
+        bounds[f"direct_dpsf_k{k}"] = dpsf_bound(patches, (kh, kw))
+        for what in ("p2", "dpsf"):
+            b = bounds[f"fft_{what}_k{k}"]
+            t = ms[f"fft_{what}_k{k}"]
+            print(f"time P2's FFT route, {'forward' if what == 'p2' else 'd/dpsf'}, at "
+                  f"{tuple(patches.shape)}, K = {k}: {t:.4f} ms (plain "
+                  f"{ms[f'plain_fft_{what}_k{k}']:.3f} ms, torch.fft "
+                  f"{ms[f'torch_fft_{what}_k{k}']:.4f} ms); the route's bound {b[0]:.4f} ms by "
+                  f"{b[1]} ({b[2]:.3e} operations, {b[3] / 1e6:.1f} MB), {b[0] / t:.3f} of it "
+                  f"reached; the direct sum's bound {bounds[f'direct_{what}_k{k}'][0]:.4f} ms; "
+                  f"card: {card}", flush=True)
     return ms, bounds
 
 
-def adjoint_entries(wide_errs, wide_launches, adjoint, train_launches, ms, bounds, rates):
-    """The kernels line's entries of this slice: P2 at K = 47 (the default
-    configuration's 2048^2 render; ``launches`` counts that render), with
-    K = 95 beside it; P2's d/dpsf at config 5's 1024^2 shape (``launches``
-    counts the 5-step image training run, the main path), with the 2048^2
-    shape beside it."""
-    issue = lambda ops: ops / rates["fma_ops_per_s"] * 1e3
+# The image-loss steps of the default configuration: its renders from 1448^2
+# take the FFT route both ways. The card-vs-CPU gradient check runs at the
+# smallest of them (1448^2, K = 33) with config 5's PSF bundle (9 fields x
+# 24 circular rings) in place of the default's 21 fields of a jittered
+# 32 x 32 pupil: that pupil draws from each device's own generator, so card
+# and CPU would trace different rays, and its splat holds a 35 GB
+# intermediate that a CPU run cannot.
+DEFAULT_TRAIN_PX = 2048
+DEFAULT_GRAD_PX = 1448
+DEFAULT_GRAD_BUNDLE = dict(n_sampled_fields=9, n_pupil_rings=24, pupil_sampling="circular")
 
-    def p2(kw, suffix=""):
-        b = bounds[f"p2_k{kw}"]
-        return {f"ms{suffix}": ms[f"p2_k{kw}"], f"plain_ms{suffix}": ms[f"plain_p2_k{kw}"],
-                f"bound_ms{suffix}": b[0], f"bound_by{suffix}": b[1],
-                f"library_ms{suffix}": ms[f"fft_p2_k{kw}"],
-                f"bound_ms_issue{suffix}": issue(b[2]),
-                f"max_abs_err{suffix}": wide_errs[(kw, kw)]}
 
-    def dpsf(kw, suffix=""):
-        b = bounds[f"dpsf_k{kw}"]
-        return {f"ms{suffix}": ms[f"dpsf_k{kw}"], f"plain_ms{suffix}": ms[f"plain_dpsf_k{kw}"],
-                f"bound_ms{suffix}": b[0], f"bound_by{suffix}": b[1],
-                f"library_ms{suffix}": ms[f"fft_dpsf_k{kw}"],
-                f"bound_ms_fp64{suffix}": b[3],
-                f"max_abs_err{suffix}": adjoint[kw][3],
-                f"dpatch_max_abs_err{suffix}": adjoint[kw][4]}
+def phase_default_image_training(torch, zoo, simulator, imaging, image, fused_trace,
+                                 LensOptimizer, card, n_steps=3):
+    """This slice's main path: ``n_steps`` Adam steps of ``LensOptimizer``
+    with ``make_image_loss_fn`` at the default configuration at 2048^2 (K =
+    47), the counts set to 0 before each step and read after: K1 forward and
+    backward once each, P2 on the FFT route once (three launches, no direct
+    one) and d/dpsf on the FFT route once (three); every loss finite, every
+    step accepted; the host wall of each step. Then the first step's d/d(c,
+    t) on the card against the port's CPU at ``DEFAULT_GRAD_PX`` with
+    ``DEFAULT_GRAD_BUNDLE`` within ``IMAGE_GRAD_BAR``. Returns the launches
+    summed over the run (K1f, K1b, P2 direct, P2 FFT, d/dpsf direct, d/dpsf
+    FFT), the walls and the gradient's (relative deviation, cosine)."""
+    names = ("K1_FWD_LAUNCHES", "K1_BWD_LAUNCHES")
+    counters = ("P2_LAUNCHES", "P2_FFT_LAUNCHES", "P2_DPSF_LAUNCHES", "P2_DPSF_FFT_LAUNCHES")
+
+    def reset():
+        for c in names:
+            setattr(fused_trace, c, 0)
+        for c in counters:
+            setattr(image, c, 0)
+    read = lambda: (tuple(getattr(fused_trace, c) for c in names)
+                    + tuple(getattr(image, c) for c in counters))
+    cfg = default_imaging_config(simulator)
+    opt, state = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, "cuda",
+                                 DEFAULT_TRAIN_PX, cfg)
+    start = {k: v.detach().clone() for k, v in state.params.items()}
+    per_step, totals, psnrs, walls = [], [], [], []
+    for _ in range(n_steps):
+        reset()
+        t0 = time.perf_counter()
+        state, total, terms = opt.step(state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(read())
+        totals.append(float(total))
+        psnrs.append(float(terms["psnr"]))
+    adam_steps = [int(v["step"]) for v in state.opt_state.state.values()]
+    moved = max(float((state.params[k].detach() - start[k]).abs().max()) for k in start)
+    k = imaging.psf_kernel_shape((DEFAULT_TRAIN_PX,) * 2, cfg)
+    check(all(c == (1, 1, 0, 3, 0, 3) for c in per_step) and all(map(math.isfinite, totals))
+          and adam_steps == [n_steps] * len(adam_steps) and moved > 0,
+          f"image training at the default configuration at {DEFAULT_TRAIN_PX}^2 (K = {k[0]}, "
+          f"double-Gauss defocused 0.3 mm): {n_steps} LensOptimizer steps, launches per step "
+          f"(K1 forward, K1 backward, P2 direct, P2 FFT, d/dpsf direct, d/dpsf FFT) {per_step} "
+          f"(expected (1, 1, 0, 3, 0, 3) each); every step accepted (Adam step counts "
+          f"{adam_steps}); losses {['%.5f' % v for v in totals]}; PSNR "
+          f"{['%.4f' % v for v in psnrs]} dB; parameters moved by up to {moved:.3e}")
+    print(f"time image-loss LensOptimizer.step at the default configuration at "
+          f"{DEFAULT_TRAIN_PX}^2: {', '.join('%.2f' % w for w in walls)} ms (host clock, each "
+          f"step; median {statistics.median(walls):.2f} ms); card: {card}", flush=True)
+    kg = imaging.psf_kernel_shape((DEFAULT_GRAD_PX,) * 2, cfg)
+    check(image.p2_takes_fft(kg) and image.p2_takes_fft(kg, adjoint=True),
+          f"the default configuration's render at {DEFAULT_GRAD_PX}^2 (K = {kg[0]}) takes the "
+          f"FFT route both ways")
+    grad = gradient_card_vs_cpu(
+        torch, zoo, simulator, imaging, LensOptimizer, DEFAULT_GRAD_PX,
+        default_imaging_config(simulator, **DEFAULT_GRAD_BUNDLE),
+        f"the default configuration's imaging at {DEFAULT_GRAD_PX}^2 (K = {kg[0]}; PSF bundle "
+        f"{DEFAULT_GRAD_BUNDLE})")
+    launches = tuple(sum(c[i] for c in per_step) for i in range(6))
+    return launches, walls, grad
+
+
+def fft_entries(wide_errs, wide_launches, train, ms, bounds, crossover, rates):
+    """The FFT route's entries of the kernels line: forward (``p2_fft``) and
+    d/dpsf (``p2_dpsf_fft``), their times at the default configuration's
+    2048^2 shape (K = 47, the main path's) with K = 95 beside, ``launches``
+    counting the main path's run (the default configuration's image-loss
+    steps), the route's bound and the direct sum's beside it, the route's
+    operations at P1's FP32 issue rate (``bound_ms_issue``: no FMA
+    contraction, an instruction an operation), the deviations from the
+    plain versions and from float64 torch.fft, and the crossover timings of
+    both routes."""
+    launches, walls, grad = train
+    errs47 = wide_errs["default config at 2048^2"]
+    errs95 = wide_errs["default config at 4096^2"]
+
+    def entry(what, key, launched, extra):
+        b, b95 = bounds[f"fft_{what}_k47"], bounds[f"fft_{what}_k95"]
+        return {"name": f"p2_{'fft' if what == 'p2' else 'dpsf_fft'}", "route": "cuda",
+                "source": P2_FFT_SOURCE, "replaces": TPU_P2_FFT if what == "p2" else TPU_P2_DPSF,
+                "launches": launched, "max_abs_err": errs47[key][0],
+                "ms": ms[f"fft_{what}_k47"], "plain_ms": ms[f"plain_fft_{what}_k47"],
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": ms[f"torch_fft_{what}_k47"],
+                "bound_share": b[0] / ms[f"fft_{what}_k47"],
+                "bound_ms_issue": b[2] / rates["fma_ops_per_s"] * 1e3,
+                "bound_ms_issue_k95": b95[2] / rates["fma_ops_per_s"] * 1e3,
+                "direct_bound_ms": bounds[f"direct_{what}_k47"][0],
+                "float64_share": errs47[key][1], "cufft_float64_share": errs47[key][2],
+                "ms_k95": ms[f"fft_{what}_k95"], "plain_ms_k95": ms[f"plain_fft_{what}_k95"],
+                "bound_ms_k95": b95[0], "bound_by_k95": b95[1],
+                "library_ms_k95": ms[f"torch_fft_{what}_k95"],
+                "direct_bound_ms_k95": bounds[f"direct_{what}_k95"][0],
+                "max_abs_err_k95": errs95[key][0], "float64_share_k95": errs95[key][1],
+                "max_float64_share": max(e[key][1] for e in wide_errs.values()), **extra}
     return [
-        {"name": "p2_svola_k47", "route": "cuda", "source": P2_SOURCE, "replaces": TPU_P2,
-         "launches": wide_launches, **p2(47), **p2(95, "_k95"), "plain_ms_k95_patches": 27,
-         "max_abs_err_k33": wide_errs[(33, 33)], "max_abs_err_47x29": wide_errs[(47, 29)]},
-        {"name": "p2_dpsf", "route": "cuda", "source": P2_DPSF_SOURCE, "replaces": TPU_P2_DPSF,
-         "launches": train_launches[3], **dpsf(11), **dpsf(47, "_k47"),
-         "image_training_launches": dict(zip(("k1_fwd", "k1_bwd", "p2", "p2_dpsf"),
-                                             train_launches))},
+        entry("p2", "fwd", launches[3], {"render_2048_launches": wide_launches,
+                                         "crossover_ms": crossover}),
+        entry("dpsf", "dpsf", launches[5], {
+            "image_training_default_2048_launches": dict(zip(
+                ("k1_fwd", "k1_bwd", "p2", "p2_fft", "p2_dpsf", "p2_dpsf_fft"), launches)),
+            "image_training_default_2048_step_ms": walls,
+            "image_grad_1448_rel_err": grad[0], "image_grad_1448_cosine": grad[1]}),
     ]
 
 
@@ -3934,7 +4250,8 @@ def ptxas_summary(path):
             for short in ("k1_fwd_kernel", "k1_bwd_kernel", "k2_fwd_kernel", "k2_bwd_kernel",
                           "k3_fwd_kernel", "k3_bwd_kernel", "k4_fwd_kernel", "k4_bwd_kernel",
                           "partials_reduce", "p2_svola_kernel", "p2_dpsf_kernel",
-                          "p2_dpsf_reduce", "p1_chain_kernel"):
+                          "p2_dpsf_reduce", "fft_rows_fwd", "fft_cols", "fft_rows_inv",
+                          "p1_chain_kernel"):
                 if short in raw:
                     # The template arguments of the mangled name: I L<type><value>E ... E.
                     args = re.match(r"I((?:L[a-z]+\d+E)+)E", raw[raw.index(short) + len(short):])
@@ -3995,10 +4312,16 @@ def k2_splits(torch, zoo, simulator, fused_batch, gen):
 
 
 def p2_times(torch, zoo, simulator, imaging, image):
-    """P2 (CUDA events) on the photograph's patches at the 256^2, 512^2,
-    1024^2 and 2048^2 renders' shapes (K = 3, 5, 11 and 23, each kw's
-    unrolled kernel): ``p2_256`` ... ``p2_2048``. Queued behind a sleep
-    kernel: at 256^2 and 512^2 the kernel is shorter than its wrapper."""
+    """P2 (CUDA events) on the photograph's patches at config 5's 256^2,
+    512^2, 1024^2 and 2048^2 renders' shapes (K = 3, 5, 11 and 23, each
+    kw's unrolled kernel), queued behind a sleep kernel (at 256^2 and 512^2
+    the kernel is shorter than its wrapper): ``p2_256`` ... ``p2_2048``.
+    Then the wide renders, by ``auto_ms``: ``svola_patch_conv`` (the route
+    the tree takes) at the default configuration's 1024^2-4096^2 (K = 23,
+    33, 47, 95) and config 5's 4096^2 (K = 47), ``p2_default_{px}`` and
+    ``p2_c5_4096``; and d/dpsf by the tree's route (its ``_p2_dpsf``, or a
+    tree without an FFT route its direct kernel) there and at config 5's
+    1024^2 and 2048^2, ``dpsf_default_{px}``, ``dpsf_c5_{px}``."""
     cfg = imaging_config(simulator)
     specs, lens = zoo.build("double_gauss", device="cuda")
     ms = {}
@@ -4009,6 +4332,18 @@ def p2_times(torch, zoo, simulator, imaging, image):
             patches, psfs = p2_inputs(torch, imaging, image, model, rad, cfg)
             ms[f"p2_{px}"] = time_ms(torch, lambda: image.svola_patch_conv(patches, psfs),
                                      queue_ahead=True)
+    renders = [("config 5", 1024), ("config 5", 2048), ("config 5", 4096)] + [
+        ("default", px) for px in (1024, 1448, 2048, 4096)]
+    dpsf = getattr(image, "_p2_dpsf", None) or image._launch_p2_dpsf
+    for (name, px), (patches, psfs, cot) in render_inputs(torch, zoo, simulator, imaging, image,
+                                                          renders).items():
+        tag = "c5" if name == "config 5" else "default"
+        k = tuple(psfs.shape[1:3])
+        with torch.no_grad():
+            if name == "default" or px == 4096:
+                ms[f"p2_{tag}_{px}"] = auto_ms(torch, lambda: image.svola_patch_conv(patches,
+                                                                                      psfs))
+            ms[f"dpsf_{tag}_{px}"] = auto_ms(torch, lambda: dpsf(patches, cot, k))
     return ms
 
 
@@ -4114,11 +4449,12 @@ def add_resources(entries, summary, n_asph, k2_surf):
         name = e["name"]
         family = name[:2]
         if name == "p2_svola":  # the 1024^2 render's kw
-            e.update(found.get("p2_svola_kernel<11,0>", {}))
-        if name == "p2_svola_k47":  # the runtime-kw kernel, tap rows in chunks
-            e.update(found.get("p2_svola_kernel<0,1>", {}))
+            e.update(found.get("p2_svola_kernel<11>", {}))
         if name == "p2_dpsf":
             e.update(found.get("p2_dpsf_kernel", {}))
+        if name in ("p2_fft", "p2_dpsf_fft"):  # the same three kernels
+            e["passes"] = {k: found.get(k, {}) for k in ("fft_rows_fwd", "fft_cols",
+                                                         "fft_rows_inv")}
         if family not in ("k1", "k2", "k3", "k4"):
             continue
         mode = 3 if name.endswith("_opl") else 2 if name.endswith("_full") else 1
@@ -4172,6 +4508,26 @@ def main():
         return 0
     if "--ragged" in sys.argv[1:]:
         phase_ragged(torch, zoo, simulator, (fused_trace, fused_batch, fused_asphere))
+        return 0
+    if "--p2-fft" in sys.argv[1:]:
+        inputs = render_inputs(torch, zoo, simulator, imaging, image, CROSSOVER_RENDERS)
+        cases = {f"{name} {px}^2": args for (name, px), args in inputs.items()}
+        for label, args in dict(cases, **seeded_fft_cases(torch)).items():
+            fft_route_check(torch, image, label, *args)
+        print(json.dumps({"p2_crossover": phase_p2_crossover(torch, image, inputs, card)}))
+        for px in (2048, 4096):
+            patches, psfs, cot = inputs[("default", px)]
+            k = tuple(psfs.shape[1:3])
+            with torch.no_grad():
+                for adjoint, second in ((False, psfs), (True, cot)):
+                    profile_steps(torch, f"P2's FFT route, {'d/dpsf' if adjoint else 'forward'}, "
+                                  f"default config at {px}^2 (K = {k[0]})",
+                                  lambda: image._launch_fft(patches, second, k, adjoint), card,
+                                  n_steps=5)
+        return 0
+    if "--default-image-training" in sys.argv[1:]:
+        print(json.dumps({"default_image_training": phase_default_image_training(
+            torch, zoo, simulator, imaging, image, fused_trace, LensOptimizer, card)}))
         return 0
 
     with torch.no_grad():
@@ -4229,15 +4585,28 @@ def main():
     img_ms, p2_b, walls = phase_imaging_timing(torch, zoo, simulator, imaging, image,
                                                p2_timing_inputs, card)
     entries += imaging_entries(p2_err, p2_launches[1], img_ms, p2_b, walls, p1, p1[0])
+    # Phase 37's timings of the route and of the adjoint run right after
+    # phases 33 and 34, so that their inputs are freed before the default
+    # configuration's training (its splat holds two 35 GB tensors).
     wide_errs, wide_inputs, wide_launches = phase_p2_wide(torch, zoo, simulator, imaging, image,
                                                           fused_trace)
+    fft_ms, fft_bounds = phase_fft_timing(torch, image, wide_inputs, card)
+    del wide_inputs
     adjoint = phase_p2_adjoint(torch, zoo, simulator, imaging, image)
+    adj_ms, adj_bound = phase_adjoint_timing(torch, image, adjoint, card)
+    adjoint = {"config 5 at 1024^2": (None,) * 3 + adjoint["config 5 at 1024^2"][3:]}
+    torch.cuda.empty_cache()
     train_launches, _, bundle = phase_image_training(torch, zoo, simulator, imaging, image,
                                                      fused_trace, LensOptimizer, card)
+    default_train = phase_default_image_training(torch, zoo, simulator, imaging, image,
+                                                 fused_trace, LensOptimizer, card)
+    torch.cuda.empty_cache()
     phase_raytraced_optics(torch, zoo, simulator, fused_trace)
-    adj_ms, adj_bounds = phase_adjoint_timing(torch, image, adjoint, wide_inputs, card)
-    entries += adjoint_entries(wide_errs, wide_launches, adjoint, train_launches, adj_ms,
-                               adj_bounds, p1[0])
+    entries.append(adjoint_entry(adjoint, train_launches, adj_ms, adj_bound))
+    crossover = phase_p2_crossover(torch, image, render_inputs(
+        torch, zoo, simulator, imaging, image, CROSSOVER_RENDERS), card)
+    entries += fft_entries(wide_errs, wide_launches, default_train, fft_ms, fft_bounds,
+                           crossover, p1[0])
     add_issue_bounds(entries, p1[0], {"k1": shape, "k2": k2_shape, "k3": k3_shape,
                                       "k4": k4_shape,
                                       **{f"opl_{k}": v for k, v in opl_shapes.items()}})

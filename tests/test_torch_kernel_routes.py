@@ -10,7 +10,10 @@ The imaging renders' PSF sizes (256^2 to 2048^2 at BASELINE config 5) and the
 zoo populations' surface counts that the port's main paths run must each be
 routed to a specialised kernel, and every render from 256^2 to 4096^2, at
 config 5 and at the default configuration (PSFs up to 95 taps), must pass
-P2's and its d/dpsf kernel's argument checks.
+P2's and its d/dpsf's argument checks and take the intended route: the
+direct kernels below the FFT route's thresholds (``image.P2_FFT_MIN_KW``,
+``P2_DPSF_FFT_MIN_KW``), whose widths the direct kernels' sources fix as
+``MAX_K``, and the FFT route (``csrc/svola_fft.cu``) from there.
 """
 
 import re
@@ -79,6 +82,11 @@ RENDER_CONFIGS = {
 RENDER_K = {("default", 1024): 23, ("default", 1448): 33, ("default", 2048): 47,
             ("default", 4096): 95, ("config 5", 1024): 11, ("config 5", 2048): 23,
             ("config 5", 4096): 47}
+# (config, render side) -> the routes of P2 (forward and d/dpatch) and of
+# d/dpsf; the other renders take the direct kernels both ways.
+RENDER_ROUTES = {("default", 1024): ("direct", "fft"), ("default", 1448): ("fft", "fft"),
+                 ("default", 2048): ("fft", "fft"), ("default", 4096): ("fft", "fft"),
+                 ("config 5", 2048): ("direct", "fft"), ("config 5", 4096): ("fft", "fft")}
 
 
 @pytest.mark.parametrize("name", sorted(RENDER_CONFIGS))
@@ -86,7 +94,8 @@ RENDER_K = {("default", 1024): 23, ("default", 1448): 33, ("default", 2048): 47,
 def test_every_render_passes_the_p2_checks(name, px):
     """The patches and PSFs of a px^2 render (their shapes as
     ``svola_convolution`` cuts them) pass the launchers' checks, forward and
-    d/dpsf, and d/dpatch's padded cotangent passes P2's."""
+    d/dpsf, and d/dpatch's padded cotangent passes P2's; each takes its
+    intended route."""
     cfg = RENDER_CONFIGS[name]
     kh, kw = imaging.psf_kernel_shape((px, px), cfg)
     assert RENDER_K.get((name, px), kw) == kw and kh == kw and kw % 2 == 1
@@ -99,13 +108,34 @@ def test_every_render_passes_the_p2_checks(name, px):
     assert image.p2_argument_error(patches, psfs, adjoint=True) is None
     padded = (gh * gw, ph + kh - 1, pw + kw - 1, 3)
     assert image.p2_argument_error(padded, psfs) is None
+    routes = tuple("fft" if image.p2_takes_fft((kh, kw), adjoint) else "direct"
+                   for adjoint in (False, True))
+    assert routes == RENDER_ROUTES.get((name, px), ("direct", "direct"))
 
 
 def test_p2_checks_refuse_what_the_kernels_cannot_take():
+    """Both routes refuse too many patch-channels, a PSF larger than its
+    patch and a channel mismatch; the FFT route patches longer than its
+    longest transform. The direct kernels' widths (``MAX_K`` in their
+    sources) end one tap below the FFT route's thresholds, so every PSF
+    has a route."""
     assert "65535" in image.p2_argument_error((30000, 40, 40, 3), (30000, 5, 5, 3))
+    assert "65535" in image.p2_argument_error((30000, 60, 60, 3), (30000, 41, 5, 3))
     assert image.p2_argument_error((1, 40, 40, 3), (1, 41, 5, 3))
     assert image.p2_argument_error((1, 40, 40, 3), (1, 5, 5, 2))
-    wide = image.p2_max_kw(adjoint=True) + 2
-    assert image.p2_argument_error((1, 40, 2000, 1), (1, 3, wide, 1)) is None
-    assert image.p2_argument_error((1, 40, 2000, 1), (1, 3, wide, 1), adjoint=True)
-    assert image.p2_argument_error((1, 40, 2000, 1), (1, 3, image.p2_max_kw() + 1, 1))
+    longest = image.P2_FFT_MAX_LEN
+    for adjoint in (False, True):
+        wide = image.p2_max_kw(adjoint) + 1
+        assert image.p2_takes_fft((3, wide), adjoint) and not image.p2_takes_fft(
+            (wide - 1, wide - 1), adjoint)
+        assert image.p2_argument_error((1, 40, longest, 1), (1, 3, wide, 1), adjoint) is None
+        assert "pixels a side" in image.p2_argument_error((1, 40, longest + 1, 1),
+                                                          (1, 3, wide, 1), adjoint)
+        assert image.p2_argument_error((1, 40, longest + 1, 1), (1, 3, wide - 1, 1),
+                                       adjoint) is None
+    for source, adjoint in (("svola_conv.cu", False), ("svola_conv_bwd.cu", True)):
+        text = (CSRC / source).read_text()
+        assert int(re.search(r"constexpr int MAX_K = (\d+);", text).group(1)) == \
+            image.p2_max_kw(adjoint)
+    fft = (CSRC / "svola_fft.cu").read_text()
+    assert 1 << int(re.search(r"constexpr int LMAX_LOG2 = (\d+);", fft).group(1)) == longest

@@ -25,8 +25,11 @@ cotangents bit for bit, parameter and dn_legs sums within one float32
 rounding, K2 and K4 at B = 1 equal to K1 and K3; the wavefront functions on
 the card against the CPU; and K4's training path at a fixed bar. P2, the
 SVOLA patch convolution, bit for bit with its plain version (the same tap
-order, no FMA contraction), also for PSFs wider than 31 taps (the tap rows
-in chunks); its adjoint: d/dpsf and d/dpatch bit for bit with their plain
+order, no FMA contraction); PSFs from 33 taps take its FFT route
+(``csrc/svola_fft.cu``), bit for bit with the route's plain version and
+within 1e-5 of the largest entry of the float64 torch.fft product; its
+adjoint: d/dpsf (from 23 taps the FFT route's correlation, within 1e-4 of
+the float64 one) and d/dpatch bit for bit with their routes' plain
 versions, and a backward launches d/dpatch only when the patches need it;
 P1's chains:
 sqrt and div bit for bit with their plain versions, fma within one float32
@@ -1225,12 +1228,28 @@ P2_SHAPES = [(25, 316, 316, 3, 11, 11), (25, 77, 77, 3, 3, 3), (6, 100, 72, 3, 2
              (3, 66, 45, 3, 9, 10), (2, 47, 80, 3, 13, 12),
              (2, 90, 77, 3, 21, 22), (2, 85, 90, 1, 25, 24), (2, 57, 58, 3, 23, 23),
              (2, 33, 34, 3, 1, 3),
-             # Wide PSFs (tap rows in chunks, fewer channels a block): the
-             # default config's K at 1448^2, 2048^2 and 4096^2, kh != kw with
-             # one side above 31, a PSF as wide as its patch, five channels.
+             # Wide PSFs (the FFT route): the default config's K at 1448^2,
+             # 2048^2 and 4096^2, kh != kw with one side of 33 or more, a
+             # PSF as large as its patch, five channels.
              (3, 110, 104, 3, 33, 33), (2, 150, 141, 3, 47, 47), (2, 190, 200, 3, 95, 95),
              (2, 120, 90, 3, 47, 33), (2, 80, 140, 1, 21, 95), (1, 60, 71, 3, 60, 71),
              (2, 99, 97, 5, 41, 39)]
+
+
+def _fft_share(torch, got, patches, second, kernel_hw, adjoint):
+    """The deviation of the FFT route's result from the float64 torch.fft
+    product (or, with ``adjoint``, correlation with the cotangent
+    ``second``), a share of the largest entry."""
+    P, ph, pw, C = patches.shape
+    kh, kw = kernel_hw
+    a = torch.fft.rfftn(patches.double(), s=(ph, pw), dim=(1, 2))
+    b = torch.fft.rfftn(second.double(), s=(ph, pw), dim=(1, 2))
+    if adjoint:
+        ref = torch.fft.irfftn(a * b.conj(), s=(ph, pw), dim=(1, 2))
+        ref = torch.flip(ref[:, :kh, :kw], dims=(1, 2))
+    else:
+        ref = torch.fft.irfftn(a * b, s=(ph, pw), dim=(1, 2))[:, kh - 1:, kw - 1:]
+    return float((got.double() - ref).abs().max() / ref.abs().max())
 
 
 @pytest.mark.parametrize("shape", P2_SHAPES)
@@ -1243,51 +1262,72 @@ def test_p2_matches_plain_version(cuda, shape):
     patches = torch.rand((P, ph, pw, C), generator=g, device=cuda) * 255.0
     psfs = torch.rand((P, kh, kw, C), generator=g, device=cuda)
     psfs = psfs / psfs.sum(dim=(1, 2), keepdim=True)
-    before = image.P2_LAUNCHES
+    before = (image.P2_LAUNCHES, image.P2_FFT_LAUNCHES)
     with torch.no_grad():
         got = image.svola_patch_conv(patches, psfs)
     torch.cuda.synchronize()
-    # One launch a chunk of tap rows; every PSF up to 31 taps takes one pass.
-    launches = _kernels.load().p2_svola_launches(C, kh, kw)
-    assert image.P2_LAUNCHES == before + launches
-    assert launches >= 1 and (launches == 1 or max(kh, kw) > 31)
-    assert torch.equal(got, image.svola_patch_conv_reference(patches, psfs))
+    # One direct launch below 33 taps; the FFT route's three from there.
+    fft = max(kh, kw) >= 33
+    assert image.p2_takes_fft((kh, kw)) == fft
+    assert (image.P2_LAUNCHES - before[0], image.P2_FFT_LAUNCHES - before[1]) == (
+        (0, 3) if fft else (1, 0))
+    if fft:
+        assert torch.equal(got, image.svola_patch_conv_fft_reference(patches, psfs))
+        assert _fft_share(torch, got, patches, psfs, (kh, kw), False) <= 1e-5
+    else:
+        assert torch.equal(got, image.svola_patch_conv_reference(patches, psfs))
 
 
 def test_p2_refuses_grad_and_bad_inputs(cuda):
-    """Under grad P2 now runs (its adjoint is in ``csrc/svola_conv_bwd.cu``);
-    what the kernels cannot take still raises, and the library's widest
-    PSFs are those ``image.p2_max_kw`` computes without it."""
+    """Under grad P2 runs (its adjoint is in ``csrc/svola_conv_bwd.cu`` and
+    ``csrc/svola_fft.cu``); what the kernels cannot take still raises, and
+    the library's limits are those ``image`` computes without it: the
+    direct kernels end one tap below the FFT route's thresholds."""
     from torchoptics_tpu_torch.ops import _kernels, image
     lib = _kernels.load()
-    assert lib.p2_max_kw() == image.p2_max_kw()
-    assert lib.p2_dpsf_max_kw() == image.p2_max_kw(adjoint=True)
+    assert lib.p2_max_kw() == image.p2_max_kw() == image.P2_FFT_MIN_KW - 1
+    assert lib.p2_dpsf_max_kw() == image.p2_max_kw(adjoint=True) == image.P2_DPSF_FFT_MIN_KW - 1
+    assert lib.p2_fft_max_len() == image.P2_FFT_MAX_LEN and lib.p2_fft_launches() == 3
     patches = torch.rand((4, 40, 40, 3), device=cuda)
     psfs = torch.rand((4, 5, 5, 3), device=cuda, requires_grad=True)
     out = image.svola_patch_conv(patches, psfs)
     assert out.requires_grad
-    with pytest.raises(ValueError, match="up to"):
-        image.svola_patch_conv(torch.rand((1, 40, 2000, 3), device=cuda),
-                               torch.rand((1, 3, image.p2_max_kw() + 1, 3), device=cuda))
-    with pytest.raises(ValueError, match="up to"):
+    with pytest.raises(ValueError, match="pixels a side"):
+        image.svola_patch_conv(torch.rand((1, 40, image.P2_FFT_MAX_LEN + 1, 1), device=cuda),
+                               torch.rand((1, 3, image.P2_FFT_MIN_KW, 1), device=cuda))
+    with pytest.raises(ValueError, match="no larger than the patch"):
         image.svola_patch_conv(torch.rand((1, 40, 40, 3), device=cuda),
                                torch.rand((1, 41, 5, 3), device=cuda))
+    # The direct kernels refuse what their route no longer sends them.
+    with pytest.raises(RuntimeError, match="launch failed"):
+        image._launch_p2(torch.rand((1, 60, 60, 3), device=cuda),
+                         torch.rand((1, 3, image.P2_FFT_MIN_KW, 3), device=cuda))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k = image.P2_DPSF_FFT_MIN_KW
+        image._launch_p2_dpsf(torch.rand((1, 60, 60, 3), device=cuda),
+                              torch.rand((1, 60 - k + 1, 58, 3), device=cuda), (k, 3))
 
 
 # (P, patch height, width, channels, kh, kw) of P2's adjoint: config 5's
 # 1024^2 render (K = 11) and the default config's 2048^2 (K = 47); then
 # ragged outputs, kh != kw, one and five channels, a PSF of 95 taps, a
-# patch that is one tile.
+# patch that is one tile; K = 23 (the direct forward, the FFT route's
+# d/dpsf) and the wide cases of the FFT route (K = 33, 47 x 33, 21 x 95, a
+# PSF as large as its patch).
 P2_ADJOINT_SHAPES = [(25, 316, 316, 3, 11, 11), (81, 385, 385, 3, 47, 47),
                      (3, 70, 75, 3, 5, 9), (2, 45, 50, 1, 9, 3), (2, 130, 129, 3, 95, 95),
-                     (2, 99, 97, 5, 41, 39), (1, 34, 34, 3, 3, 3)]
+                     (2, 99, 97, 5, 41, 39), (1, 34, 34, 3, 3, 3), (2, 100, 90, 3, 23, 23),
+                     (3, 110, 104, 3, 33, 33), (2, 120, 90, 3, 47, 33), (2, 80, 140, 1, 21, 95),
+                     (1, 60, 71, 3, 60, 71)]
 
 
 @pytest.mark.parametrize("shape", P2_ADJOINT_SHAPES)
 def test_p2_adjoint_matches_plain_versions(cuda, shape):
-    """d/dpsf (its kernel) and d/dpatch (P2 on the padded cotangent) through
-    ``svola_patch_conv``'s backward, bit for bit with their plain versions
-    on the card; d/dpsf alone when only the PSFs need a gradient."""
+    """d/dpsf and d/dpatch (P2 on the padded cotangent) through
+    ``svola_patch_conv``'s backward, each by its route, bit for bit with the
+    routes' plain versions on the card, the FFT route's d/dpsf within 1e-4
+    of the float64 correlation; d/dpsf alone when only the PSFs need a
+    gradient."""
     from torchoptics_tpu_torch.ops import _kernels, image
     lib = _kernels.load()
     P, ph, pw, C, kh, kw = shape
@@ -1297,24 +1337,33 @@ def test_p2_adjoint_matches_plain_versions(cuda, shape):
     psfs = (psfs / psfs.sum(dim=(1, 2), keepdim=True)).requires_grad_()
     cot = torch.randn((P, ph - kh + 1, pw - kw + 1, C), generator=g, device=cuda)
     out = image.svola_patch_conv(patches, psfs)
-    p2, dpsf = image.P2_LAUNCHES, image.P2_DPSF_LAUNCHES
+    names = ("P2_LAUNCHES", "P2_FFT_LAUNCHES", "P2_DPSF_LAUNCHES", "P2_DPSF_FFT_LAUNCHES")
+    before = [getattr(image, n) for n in names]
     d_patch, d_psf = torch.autograd.grad(out, (patches, psfs), cot)
     torch.cuda.synchronize()
-    # d/dpatch is one P2 call; d/dpsf launches its kernel once a group of
-    # patch-channels, the groups' partials within 64 MB (8 groups at 2048^2).
-    assert (image.P2_LAUNCHES - p2, image.P2_DPSF_LAUNCHES - dpsf) == (
-        lib.p2_svola_launches(C, kh, kw), lib.p2_dpsf_launches(P, C, ph, pw, kh, kw))
-    tiles = -(-(ph - kh + 1) // 32) * -(-(pw - kw + 1) // 32)
-    assert lib.p2_dpsf_partials(P, C, ph, pw, kh, kw) <= max(1 << 23, tiles * kh * kw)
+    # d/dpatch is one P2 call by P2's route; the direct d/dpsf launches its
+    # kernel once a group of patch-channels, the groups' partials within
+    # 64 MB; the FFT route three kernels a call.
+    fft, fft_d = max(kh, kw) >= 33, max(kh, kw) >= 23
+    assert (image.p2_takes_fft((kh, kw)), image.p2_takes_fft((kh, kw), True)) == (fft, fft_d)
+    assert [getattr(image, n) - b for n, b in zip(names, before)] == [
+        0 if fft else 1, 3 if fft else 0,
+        0 if fft_d else lib.p2_dpsf_launches(P, C, ph, pw, kh, kw), 3 if fft_d else 0]
     with torch.no_grad():
-        want_psf = image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw))
+        if fft_d:
+            want_psf = image.svola_patch_conv_dpsf_fft_reference(patches, cot, (kh, kw))
+            assert _fft_share(torch, d_psf, patches, cot, (kh, kw), True) <= 1e-4
+        else:
+            tiles = -(-(ph - kh + 1) // 32) * -(-(pw - kw + 1) // 32)
+            assert lib.p2_dpsf_partials(P, C, ph, pw, kh, kw) <= max(1 << 23, tiles * kh * kw)
+            want_psf = image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw))
         want_patch = image.svola_patch_conv_dpatch_reference(cot, psfs)
     assert torch.equal(d_psf, want_psf) and bool(torch.isfinite(d_psf).all())
     assert torch.equal(d_patch, want_patch)
     out = image.svola_patch_conv(patches.detach(), psfs)
-    p2 = image.P2_LAUNCHES
+    p2 = (image.P2_LAUNCHES, image.P2_FFT_LAUNCHES)
     assert torch.equal(torch.autograd.grad(out, psfs, cot)[0], want_psf)
-    assert image.P2_LAUNCHES == p2
+    assert (image.P2_LAUNCHES, image.P2_FFT_LAUNCHES) == p2
 
 
 @pytest.mark.parametrize("op", ["fma", "sqrt", "div"])

@@ -1,0 +1,177 @@
+"""Port parity for P2's FFT route (wide PSFs): SVOLA through the route's
+plain versions against the JAX package, and the plain versions against
+float64 direct sums.
+
+The same numpy inputs, made from a seed, go through JAX's
+``svola_convolution`` (its rfftn product at the patch's length, eagerly on
+the CPU; its gradient by ``jax.grad``) and the port's (CPU tensors, so the
+FFT route's plain versions, ``svola_patch_conv_fft_reference`` and
+``svola_patch_conv_dpsf_fft_reference``, which the kernels of
+``csrc/svola_fft.cu`` equal bit for bit on the card). A float32 FFT's error
+is relative to a plane's norm, not to each entry, so every bar is a share of
+the largest entry: 1e-5 for the forward and for d/dpatch, 1e-4 for d/dpsf
+(whose small edge taps carry the absolute error of the whole correlation).
+The JAX side runs once per module.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torchoptics_tpu.ops import image as jimage
+from torchoptics_tpu_torch.ops import image
+
+FWD_BAR, DPSF_BAR = 1e-5, 1e-4
+# (image side, grid, overlap, kh, kw): 2 x 2 patches on a 96^2 image, K = 33,
+# and a non-square PSF.
+SVOLA_CASES = [(96, (2, 2), 4, 33, 33), (80, (2, 2), 6, 37, 45)]
+
+
+def _rng(k):
+    return np.random.default_rng(1200 + k)
+
+
+def _svola_inputs(case, k):
+    side, grid, _, kh, kw = case
+    rng = _rng(k)
+    x = rng.uniform(0.0, 255.0, (1, side, side, 3)).astype(np.float32)
+    psfs = rng.uniform(0.0, 1.0, (1, grid[0] * grid[1], kh, kw, 3)).astype(np.float32)
+    psfs /= psfs.sum(axis=(2, 3), keepdims=True)
+    cot = rng.standard_normal((1, side, side, 3)).astype(np.float32)
+    return x, psfs, cot
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """JAX's SVOLA, and its gradients of <out, cot> with respect to the image
+    and the PSFs, for every case."""
+    out = {}
+    for k, case in enumerate(SVOLA_CASES):
+        x, psfs, cot = _svola_inputs(case, k)
+        _, grid, overlap, _, _ = case
+
+        def loss(img, p):
+            y = jimage.svola_convolution(img, overlap, p, grid, "hann")
+            return jnp.sum(y * cot), y
+        (_, y), grads = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+            jnp.asarray(x), jnp.asarray(psfs))
+        out[k] = (np.asarray(y), np.asarray(grads[0]), np.asarray(grads[1]))
+    return out
+
+
+def _close(got, want, bar):
+    got = np.asarray(got).astype(np.complex128)
+    want = np.asarray(want).astype(np.complex128)
+    assert got.shape == want.shape
+    dev = np.abs(got - want).max() / np.abs(want).max()
+    assert dev <= bar, (dev, bar)
+
+
+@pytest.mark.parametrize("k", range(len(SVOLA_CASES)))
+def test_svola_fft_route_matches_jax(jax_side, k):
+    """Forward, d/dimage (d/dpatch on the padded cotangent) and d/dpsf of
+    SVOLA on the FFT route against JAX's FFT SVOLA and ``jax.grad``."""
+    case = SVOLA_CASES[k]
+    _, grid, overlap, kh, kw = case
+    assert image.p2_takes_fft((kh, kw)) and image.p2_takes_fft((kh, kw), adjoint=True)
+    x, psfs, cot = _svola_inputs(case, k)
+    t_x = torch.tensor(x, requires_grad=True)
+    t_psfs = torch.tensor(psfs, requires_grad=True)
+    y = image.svola_convolution(t_x, overlap, t_psfs, grid, "hann")
+    d_x, d_psfs = torch.autograd.grad(y, (t_x, t_psfs), torch.tensor(cot))
+    want_y, want_dx, want_dpsfs = jax_side[k]
+    _close(y.detach().numpy(), want_y, FWD_BAR)
+    _close(d_x.numpy(), want_dx, FWD_BAR)
+    _close(d_psfs.numpy(), want_dpsfs, DPSF_BAR)
+
+
+# (P, ph, pw, C, kh, kw): transforms of 64 and 128 points, odd and even row
+# counts, non-square patches and PSFs, a PSF as large as its patch, one and
+# three channels.
+PLAIN_SHAPES = [(2, 60, 50, 3, 33, 33), (1, 64, 41, 1, 35, 21), (2, 100, 128, 3, 47, 29),
+                (1, 99, 70, 3, 99, 33), (2, 117, 90, 2, 21, 61)]
+
+
+@pytest.mark.parametrize("shape", PLAIN_SHAPES)
+def test_fft_plain_versions_match_float64_direct_sums(shape):
+    """The FFT route's plain versions, forward, d/dpsf and d/dpatch, against
+    the direct sums (``svola_patch_conv_reference`` and its adjoints) in
+    float64, as shares of the largest entry."""
+    P, ph, pw, C, kh, kw = shape
+    assert {image.fft_log2(ph), image.fft_log2(pw)} <= {6, 7}
+    rng = _rng(sum(shape))
+    patches = rng.uniform(0.0, 255.0, (P, ph, pw, C)).astype(np.float32)
+    psfs = rng.uniform(0.0, 1.0, (P, kh, kw, C)).astype(np.float32)
+    psfs /= psfs.sum(axis=(1, 2), keepdims=True)
+    cot = rng.standard_normal((P, ph - kh + 1, pw - kw + 1, C)).astype(np.float32)
+    t = lambda a, dtype=torch.float32: torch.tensor(a, dtype=dtype)
+    f64 = torch.float64
+    _close(image.svola_patch_conv_fft_reference(t(patches), t(psfs)),
+           image.svola_patch_conv_reference(t(patches, f64), t(psfs, f64)), FWD_BAR)
+    _close(image.svola_patch_conv_dpsf_fft_reference(t(patches), t(cot), (kh, kw)),
+           image.svola_patch_conv_dpsf_reference(t(patches, f64), t(cot, f64), (kh, kw)),
+           DPSF_BAR)
+    padded = torch.nn.functional.pad(t(cot, f64), (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
+    want = image.svola_patch_conv_reference(padded, torch.flip(t(psfs, f64), dims=(1, 2)))
+    _close(image.svola_patch_conv_dpatch_reference(t(cot), t(psfs)), want, FWD_BAR)
+
+
+@pytest.mark.parametrize("log2_l", [4, 6, 9, 12])
+def test_stockham_is_the_dft(log2_l):
+    """The route's radix-2 Stockham (the table's twiddles, forward and
+    inverse) against numpy's FFT in float64; the table is W_4096 rounded
+    once."""
+    tw = image.fft_twiddles(torch.device("cpu"))
+    i = np.arange(image.P2_FFT_MAX_LEN // 2)
+    w = np.exp(-2j * np.pi * i / image.P2_FFT_MAX_LEN)
+    assert np.array_equal(tw.numpy(), np.stack([w.real, w.imag], -1).astype(np.float32))
+    L = 1 << log2_l
+    z = _rng(log2_l).standard_normal((2, 3, L)) + 1j * _rng(log2_l + 1).standard_normal((2, 3, L))
+    z = z.astype(np.complex64)
+    for inverse, want in ((False, np.fft.fft(z.astype(np.complex128))),
+                          (True, np.fft.ifft(z.astype(np.complex128)) * L)):
+        re, im = image._stockham(torch.tensor(z.real), torch.tensor(z.imag), tw, inverse)
+        _close(re.numpy() + 1j * im.numpy(), want, 1e-6)
+
+
+def test_route_threshold_on_both_devices(monkeypatch):
+    """``p2_takes_fft`` splits at ``P2_FFT_MIN_KW`` (d/dpsf at
+    ``P2_DPSF_FFT_MIN_KW``) on the larger side of the PSF. On CPU tensors
+    ``svola_patch_conv`` and its backward take the plain version of the
+    route; on a device tensor (the meta device stands in for the card here)
+    the dispatch calls the route's launcher."""
+    k_fft, k_dpsf = image.P2_FFT_MIN_KW, image.P2_DPSF_FFT_MIN_KW
+    for adjoint, k in ((False, k_fft), (True, k_dpsf)):
+        assert not image.p2_takes_fft((k - 2, k - 2), adjoint)
+        assert image.p2_takes_fft((k, 3), adjoint) and image.p2_takes_fft((3, k), adjoint)
+
+    rng = _rng(0)
+    for kh, kw in ((k_fft - 2, k_fft - 2), (k_fft, 5), (5, k_fft + 2)):
+        patches = torch.tensor(rng.uniform(0, 1, (2, kh + 9, kw + 12, 3)).astype(np.float32))
+        psfs = torch.tensor(rng.uniform(0, 1, (2, kh, kw, 3)).astype(np.float32),
+                            requires_grad=True)
+        cot = torch.tensor(rng.standard_normal((2, 10, 13, 3)).astype(np.float32))
+        out = image.svola_patch_conv(patches, psfs)
+        fwd = (image.svola_patch_conv_fft_reference if image.p2_takes_fft((kh, kw))
+               else image.svola_patch_conv_reference)
+        assert torch.equal(out.detach(), fwd(patches, psfs.detach()))
+        dpsf = (image.svola_patch_conv_dpsf_fft_reference
+                if image.p2_takes_fft((kh, kw), adjoint=True)
+                else image.svola_patch_conv_dpsf_reference)
+        assert torch.equal(torch.autograd.grad(out, psfs, cot)[0],
+                           dpsf(patches, cot, (kh, kw)))
+
+    called = []
+    record = lambda name: lambda *args: called.append(name) or torch.empty(0, device="meta")
+    monkeypatch.setattr(image, "_launch_p2", record("direct"))
+    monkeypatch.setattr(image, "_launch_p2_dpsf", record("direct d/dpsf"))
+    monkeypatch.setattr(image, "_launch_fft",
+                        lambda p, s, k, adjoint: called.append(("fft", adjoint)))
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    for k in (k_fft - 2, k_fft):
+        image._p2(meta(2, 80, 80, 3), meta(2, k, k, 3))
+    for k in (k_dpsf - 2, k_dpsf):
+        image._p2_dpsf(meta(2, 80, 80, 3), meta(2, 81 - k, 81 - k, 3), (k, k))
+    assert called == ["direct", ("fft", False), "direct d/dpsf", ("fft", True)]

@@ -55,21 +55,12 @@
 // in registers (97 registers, fewer blocks an SM), the input rows walked 4
 // at a time (a 4,184-instruction body at kw = 23), 8 x 4 outputs a thread.
 //
-// Wide PSFs (the default config's renders from 1448^2 up: K = 33, 47, 95):
-// a block's shared memory grows with kh (the input tile's rows and the taps),
-// so where one pass of all the block's channels would need more than
-// SMEM_TARGET, the runtime-kw kernel's CHUNKED instantiation runs instead:
-// the tap rows split into chunks [a0, a0 + na), one launch a chunk in order
-// on the stream. A launch over a later chunk starts each output from the
-// value the previous one stored instead of from zero: each output's
-// additions stay one sequence, a outer, b inner, so the bits are those of one
-// pass. A chunk takes as many rows as fit SMEM_TARGET with all the block's
-// channels (GROUP at most), fewer channels a block when fewer than MIN_ROWS
-// rows would fit, and the whole 227 KB when even one channel's MIN_ROWS rows
-// need it. Every PSF up to kw = 31 takes one pass, in the kernels PR 10
-// left (a0 and na are compile-time 0 and kh there). The widest kw a block
-// can hold is p2_max_kw(): one input row tile and one tap row of one
-// channel.
+// Wide PSFs: from P2_FFT_MIN_KW = 33 taps on the larger side (the default
+// configuration's renders from 1448^2 up) P2 takes its FFT route,
+// svola_fft.cu (ops/image.py routes the calls), which was faster there in
+// both directions on an H100. So this kernel takes kh and kw up to MAX_K =
+// 32 (p2_max_kw()), where one pass of a block's channels always fits in
+// shared memory (80,896 bytes at 32 x 32 and four channels).
 //
 // The adjoint is in svola_conv_bwd.cu: d/dpsf has a kernel of its own;
 // d/dpatch is this kernel on the zero-padded cotangent with the flipped PSF.
@@ -87,9 +78,7 @@ constexpr int TILE_X = TX * RX;     // 32
 constexpr int TILE_Y = TY * RY;     // 32
 constexpr int PER_CH = TX * TY;     // 64 threads a channel
 constexpr int GROUP = 4;            // channels a block, at most
-constexpr int MIN_ROWS = 8;         // tap rows a chunk, at least, before channels are cut
-constexpr size_t SMEM_TARGET = 80 * 1024;  // a block's shared memory, where it can
-constexpr size_t SMEM_MAX = 232448;        // 227 KB, the most a block can have
+constexpr int MAX_K = 32;           // kh and kw at most (wider PSFs take svola_fft.cu)
 // The kw values with an unrolled kernel: the PSFs of the renders at 256^2,
 // 512^2, 1024^2 and 2048^2 (imaging.psf_kernel_shape). Others take the
 // runtime-kw kernel.
@@ -175,18 +164,13 @@ __host__ __device__ constexpr int plane_floats(int kh, int kw) {
   return (TILE_Y + kh - 1) * tile_pitch(kw) + kh * round4(kw);
 }
 
-template <int KW, bool CHUNKED>
+template <int KW>
 __global__ void __launch_bounds__(PER_CH * GROUP) p2_svola_kernel(
     const float* __restrict__ patches, const float* __restrict__ psfs,
-    float* __restrict__ out, int n_ch, int group, int ph, int pw, int kh, int kw, int a0,
-    int na) {
+    float* __restrict__ out, int n_ch, int group, int ph, int pw, int kh, int kw) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   if (KW > 0) kw = KW;
-  if (!CHUNKED) {
-    a0 = 0;
-    na = kh;
-  }
   const int hp = ph - kh + 1;
   const int wp = pw - kw + 1;
   const int n_groups = (n_ch + group - 1) / group;
@@ -197,10 +181,8 @@ __global__ void __launch_bounds__(PER_CH * GROUP) p2_svola_kernel(
   const int x0 = blockIdx.x * TILE_X;
   const int pitch = tile_pitch(kw);
   const int tpitch = round4(kw);
-  // This launch's tap rows are a0 .. a0 + na - 1: the input tile starts a0
-  // rows down, and the taps are those rows of the flipped PSF.
-  const int span_y = TILE_Y + na - 1;
-  const int plane = plane_floats(na, kw);
+  const int span_y = TILE_Y + kh - 1;
+  const int plane = plane_floats(kh, kw);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
@@ -211,7 +193,7 @@ __global__ void __launch_bounds__(PER_CH * GROUP) p2_svola_kernel(
   // load and a store in turn; what lies outside the patch is zero.
   const float* src = patches + (size_t)p * ph * pw * n_ch + c0;
   for (int y = warp; y < span_y; y += n_warps) {
-    const int gy = y0 + a0 + y;
+    const int gy = y0 + y;
     for (int x = lane; x < pitch; x += 32) {
       const int gx = x0 + x;
       float* dst = smem + y * pitch + x;
@@ -224,15 +206,15 @@ __global__ void __launch_bounds__(PER_CH * GROUP) p2_svola_kernel(
     }
   }
   const float* kern = psfs + (size_t)p * kh * kw * n_ch + c0;
-  for (int k = threadIdx.x; k < gc * na * tpitch; k += blockDim.x) {
-    const int g = k / (na * tpitch);
-    const int ab = k - g * na * tpitch;
+  for (int k = threadIdx.x; k < gc * kh * tpitch; k += blockDim.x) {
+    const int g = k / (kh * tpitch);
+    const int ab = k - g * kh * tpitch;
     const int a = ab / tpitch;
     const int b = ab - a * tpitch;
     float* dst = smem + g * plane + span_y * pitch + ab;
     if (b < kw)
       __pipeline_memcpy_async(
-          dst, kern + ((size_t)(kh - 1 - a0 - a) * kw + (kw - 1 - b)) * n_ch + g, 4);
+          dst, kern + ((size_t)(kh - 1 - a) * kw + (kw - 1 - b)) * n_ch + g, 4);
     else
       *dst = 0.0f;
   }
@@ -248,22 +230,11 @@ __global__ void __launch_bounds__(PER_CH * GROUP) p2_svola_kernel(
   for (int r = 0; r < RY; ++r)
 #pragma unroll
     for (int j = 0; j < RX; ++j) acc[r][j] = 0.0f;
-  // A later chunk starts from what the previous one stored.
-  if (CHUNKED && a0 > 0 && g < gc) {
-#pragma unroll
-    for (int r = 0; r < RY; ++r)
-#pragma unroll
-      for (int j = 0; j < RX; ++j) {
-        const int oy = y0 + ty * RY + r, ox = x0 + tx * RX + j;
-        if (oy < hp && ox < wp)
-          acc[r][j] = out[(((size_t)p * hp + oy) * wp + ox) * n_ch + c0 + g];
-      }
-  }
   if (g < gc) {
     const float* tile = smem + g * plane + ty * RY * pitch + tx * RX;
     const float* taps = smem + g * plane + span_y * pitch;
-    for (int y = 0; y < RY + na - 1; ++y)
-      row_taps<KW>(tile + y * pitch, taps, y, na, kw, tpitch, acc);
+    for (int y = 0; y < RY + kh - 1; ++y)
+      row_taps<KW>(tile + y * pitch, taps, y, kh, kw, tpitch, acc);
   }
   __syncthreads();
 
@@ -294,73 +265,38 @@ __global__ void __launch_bounds__(PER_CH * GROUP) p2_svola_kernel(
   }
 }
 
-// A block's shared memory: `group` channels of `rows` tap rows.
-size_t block_bytes(int group, int rows, int kw) {
-  return (size_t)group * plane_floats(rows, kw) * sizeof(float);
+// A block's shared memory: `group` channels of kh tap rows.
+size_t block_bytes(int group, int kh, int kw) {
+  return (size_t)group * plane_floats(kh, kw) * sizeof(float);
 }
 
-// How a launch cuts the work: the channels a block and the tap rows a
-// chunk. One pass (rows = kh, all the block's channels) where it fits
-// SMEM_TARGET; else the chunked route (see the note at the top).
-struct Plan {
-  int group;
-  int rows;
-  bool chunked;
-};
-
-Plan plan(int n_ch, int kh, int kw) {
-  int group = n_ch < GROUP ? n_ch : GROUP;
-  if (block_bytes(group, kh, kw) <= SMEM_TARGET) return {group, kh, false};
-  const int min_rows = kh < MIN_ROWS ? kh : MIN_ROWS;
-  while (group > 1 && block_bytes(group, min_rows, kw) > SMEM_TARGET) --group;
-  const size_t cap = block_bytes(group, min_rows, kw) > SMEM_TARGET ? SMEM_MAX : SMEM_TARGET;
-  int rows = kh;
-  while (rows > 1 && block_bytes(group, rows, kw) > cap) --rows;
-  const int n_chunks = (kh + rows - 1) / rows;
-  return {group, (kh + n_chunks - 1) / n_chunks, true};
-}
-
-// One launch a chunk of tap rows, in order on the stream, each continuing
-// the sums the last one stored; a one-pass plan is one chunk (a0 = 0,
-// na = kh), which the CHUNKED = false kernels take as PR 10 left them.
-template <int KW, bool CHUNKED = false>
+// One launch: a block takes up to GROUP channels of a 32 x 32 output tile.
+template <int KW>
 cudaError_t launch(const float* patches, const float* psfs, float* out, int n_patch, int n_ch,
-                   int ph, int pw, int kh, int kw, const Plan& pl, cudaStream_t stream) {
-  const int n_groups = (n_ch + pl.group - 1) / pl.group;
+                   int ph, int pw, int kh, int kw, cudaStream_t stream) {
+  const int group = n_ch < GROUP ? n_ch : GROUP;
+  const int n_groups = (n_ch + group - 1) / group;
   const int hp = ph - kh + 1;
   const int wp = pw - kw + 1;
   const dim3 grid((wp + TILE_X - 1) / TILE_X, (hp + TILE_Y - 1) / TILE_Y, n_patch * n_groups);
-  const size_t smem = block_bytes(pl.group, pl.rows, kw);
-  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  auto kernel = p2_svola_kernel<KW, CHUNKED>;
+  const size_t smem = block_bytes(group, kh, kw);
+  auto kernel = p2_svola_kernel<KW>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  for (int a0 = 0; a0 < kh; a0 += pl.rows) {
-    const int na = kh - a0 < pl.rows ? kh - a0 : pl.rows;
-    kernel<<<grid, PER_CH * pl.group, smem, stream>>>(patches, psfs, out, n_ch, pl.group, ph,
-                                                      pw, kh, kw, a0, na);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  kernel<<<grid, PER_CH * group, smem, stream>>>(patches, psfs, out, n_ch, group, ph, pw, kh,
+                                                 kw);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// The widest kw a block can hold: one channel, one tap row.
-int p2_max_kw() {
-  static const int max_kw = [] {
-    int kw = 1;
-    while (block_bytes(1, 1, kw + 1) <= SMEM_MAX) ++kw;
-    return kw;
-  }();
-  return max_kw;
-}
+// The widest PSF, in either axis, this kernel takes.
+int p2_max_kw() { return MAX_K; }
 
 // 1 where kw has an unrolled kernel, 0 where it takes the runtime-kw one.
 int p2_specialized_kw(int kw) {
@@ -369,38 +305,28 @@ int p2_specialized_kw(int kw) {
   return 0;
 }
 
-// The kernel launches one P2 call makes: its chunks of tap rows (1 where
-// one pass fits).
-int p2_svola_launches(int n_ch, int kh, int kw) {
-  const Plan pl = plan(n_ch, kh, kw);
-  return (kh + pl.rows - 1) / pl.rows;
-}
-
-// Launches P2 on `stream` and returns cudaGetLastError() (0 on success):
-// p2_svola_launches(n_ch, kh, kw) kernel launches. patches (n_patch, ph,
-// pw, n_ch), psfs (n_patch, kh, kw, n_ch) and out (n_patch, ph - kh + 1,
-// pw - kw + 1, n_ch), float32, contiguous.
+// Launches P2 on `stream` (one kernel launch) and returns cudaGetLastError()
+// (0 on success). patches (n_patch, ph, pw, n_ch), psfs (n_patch, kh, kw,
+// n_ch) and out (n_patch, ph - kh + 1, pw - kw + 1, n_ch), float32,
+// contiguous; kh and kw up to MAX_K.
 int p2_svola_launch(const float* patches, const float* psfs, float* out, int n_patch,
                     int n_ch, int ph, int pw, int kh, int kw, void* stream) {
-  if (n_patch < 0 || n_ch < 1 || kh < 1 || kw < 1 || kw > p2_max_kw() || ph < kh || pw < kw ||
-      (long long)n_patch * n_ch > 65535)
+  if (n_patch < 0 || n_ch < 1 || kh < 1 || kw < 1 || kh > MAX_K || kw > MAX_K || ph < kh ||
+      pw < kw || (long long)n_patch * n_ch > 65535)
     return (int)cudaErrorInvalidValue;
   if (n_patch == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const Plan pl = plan(n_ch, kh, kw);
-  if (pl.chunked)
-    return (int)launch<0, true>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, pl, s);
   switch (kw) {
     case 3:
-      return (int)launch<3>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, pl, s);
+      return (int)launch<3>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, s);
     case 5:
-      return (int)launch<5>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, pl, s);
+      return (int)launch<5>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, s);
     case 11:
-      return (int)launch<11>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, pl, s);
+      return (int)launch<11>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, s);
     case 23:
-      return (int)launch<23>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, pl, s);
+      return (int)launch<23>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, s);
     default:
-      return (int)launch<0>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, pl, s);
+      return (int)launch<0>(patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, s);
   }
 }
 

@@ -41,16 +41,21 @@
 // once) take 17 us at 3.35 TB/s. Operations bound it. This design's double
 // FMAs run outside the tensor cores, at 34 TFLOP/s: 50 us is its ceiling.
 //
-// Design (a simple kernel): one block per (tile, chunk of tap rows,
-// patch-channel). The block copies the tile's cotangent (32 x 32) and the
-// patch window that the chunk's taps read ((32 + rows - 1) x (32 + kw - 1),
-// three zero columns on the left) to shared memory as doubles, converted
-// once. Each thread takes the taps (u, v0 .. v0 + 3) of one tap row: along
-// a row of positions the four taps read a sliding window of the patch row,
-// so a step loads one new patch value and one broadcast cotangent for four
-// multiply-adds. Consecutive threads take consecutive tap rows, so their
-// window rows lie an odd pitch of doubles apart (no bank conflicts in a
-// half-warp). A chunk holds as many tap rows as give at most 256 threads.
+// Design (a simple kernel): one block per (tile, patch-channel). The block
+// copies the tile's cotangent (32 x 32) and the patch window that the taps
+// read ((32 + kh - 1) x (32 + kw - 1), three zero columns on the left) to
+// shared memory as doubles, converted once. Each thread takes the taps (u,
+// v0 .. v0 + 3) of one tap row: along a row of positions the four taps read
+// a sliding window of the patch row, so a step loads one new patch value
+// and one broadcast cotangent for four multiply-adds. Consecutive threads
+// take consecutive tap rows, so their window rows lie an odd pitch of
+// doubles apart (no bank conflicts in a half-warp).
+//
+// Wide PSFs: from P2_DPSF_FFT_MIN_KW = 23 taps on the larger side d/dpsf
+// takes the FFT route's correlation (svola_fft.cu; ops/image.py routes the
+// calls), which was faster there on an H100. So this kernel takes kh and kw
+// up to MAX_K = 22 (p2_dpsf_max_kw()): kh x ceil(kw / 4) <= 132 threads, one
+// block a tile.
 
 #include <cuda_runtime.h>
 
@@ -60,7 +65,7 @@ constexpr int TILE = 32;         // outputs a tile side
 constexpr int QUAD = 4;          // taps a thread along v
 constexpr int PADL = QUAD - 1;   // zero columns left of the window
 constexpr int MAX_THREADS = 256;
-constexpr size_t SMEM_MAX = 232448;  // 227 KB
+constexpr int MAX_K = 22;        // kh and kw at most (wider PSFs take svola_fft.cu)
 constexpr long long PARTIALS_MAX = 1LL << 23;  // doubles of partials a group, 64 MB
 
 // Doubles a window row: 32 + kw - 1 columns and the left padding, odd.
@@ -72,8 +77,8 @@ size_t smem_bytes(int rows, int kw) {
 
 __global__ void __launch_bounds__(MAX_THREADS) p2_dpsf_kernel(
     const float* __restrict__ patches, const float* __restrict__ cot,
-    double* __restrict__ partials, int n_ch, int ph, int pw, int kh, int kw, int rows,
-    int n_tx, int pc0) {
+    double* __restrict__ partials, int n_ch, int ph, int pw, int kh, int kw, int n_tx,
+    int pc0) {
   extern __shared__ double smem[];
   const int pc = pc0 + blockIdx.z;
   const int p = pc / n_ch;
@@ -82,13 +87,10 @@ __global__ void __launch_bounds__(MAX_THREADS) p2_dpsf_kernel(
   const int n_tiles = gridDim.x;
   const int i0 = (tile / n_tx) * TILE;
   const int j0 = (tile % n_tx) * TILE;
-  const int u0 = blockIdx.y * rows;
-  const int nu = min(rows, kh - u0);
-  const int u1 = u0 + nu;
   const int hp = ph - kh + 1;
   const int wp = pw - kw + 1;
   const int pitch = window_pitch(kw);
-  const int n_rows = TILE + nu - 1;
+  const int n_rows = TILE + kh - 1;
   double* gt = smem;
   double* win = smem + TILE * TILE;
 
@@ -97,12 +99,12 @@ __global__ void __launch_bounds__(MAX_THREADS) p2_dpsf_kernel(
     const int i = i0 + k / TILE, j = j0 + k % TILE;
     gt[k] = i < hp && j < wp ? (double)cot[(((size_t)p * hp + i) * wp + j) * n_ch + c] : 0.0;
   }
-  // Window row r is patch row i0 + kh - u1 + r; window column q is patch
-  // column j0 + q - PADL. Zero outside the patch (read only against zero
+  // Window row r is patch row i0 + r; window column q is patch column
+  // j0 + q - PADL. Zero outside the patch (read only against zero
   // cotangents) and in the padding.
   for (int k = threadIdx.x; k < n_rows * pitch; k += blockDim.x) {
     const int r = k / pitch, q = k - r * pitch;
-    const int y = i0 + kh - u1 + r, x = j0 + q - PADL;
+    const int y = i0 + r, x = j0 + q - PADL;
     win[k] = q >= PADL && y < ph && x < pw
                  ? (double)patches[(((size_t)p * ph + y) * pw + x) * n_ch + c]
                  : 0.0;
@@ -110,15 +112,15 @@ __global__ void __launch_bounds__(MAX_THREADS) p2_dpsf_kernel(
   __syncthreads();
 
   const int n_quads = (kw + QUAD - 1) / QUAD;
-  for (int item = threadIdx.x; item < nu * n_quads; item += blockDim.x) {
-    const int u = u0 + item % nu;
-    const int v0 = (item / nu) * QUAD;
-    // Tap u at position (ti, tj) reads window row ti + u1 - 1 - u; tap
+  for (int item = threadIdx.x; item < kh * n_quads; item += blockDim.x) {
+    const int u = item % kh;
+    const int v0 = (item / kh) * QUAD;
+    // Tap u at position (ti, tj) reads window row ti + kh - 1 - u; tap
     // v0 + k reads window column tj + base - k.
     const int base = kw - 1 - v0 + PADL;
     double s[QUAD] = {0.0, 0.0, 0.0, 0.0};
     for (int ti = 0; ti < TILE; ++ti) {
-      const double* row = win + (ti + u1 - 1 - u) * pitch + base;
+      const double* row = win + (ti + kh - 1 - u) * pitch + base;
       const double* grow = gt + ti * TILE;
       double w1 = row[-1], w2 = row[-2], w3 = row[-3];
       for (int tj = 0; tj < TILE; ++tj) {
@@ -173,15 +175,8 @@ int group_pcs(int n_patch, int n_ch, int ph, int pw, int kh, int kw) {
 
 extern "C" {
 
-// The widest kw a block can hold: one tap row's window.
-int p2_dpsf_max_kw() {
-  static const int max_kw = [] {
-    int kw = 1;
-    while (smem_bytes(1, kw + 1) <= SMEM_MAX) ++kw;
-    return kw;
-  }();
-  return max_kw;
-}
+// The widest PSF, in either axis, this kernel takes.
+int p2_dpsf_max_kw() { return MAX_K; }
 
 // The partials buffer's doubles: one group's patch-channels x tiles x kh x kw.
 long long p2_dpsf_partials(int n_patch, int n_ch, int ph, int pw, int kh, int kw) {
@@ -204,23 +199,15 @@ int p2_dpsf_launches(int n_patch, int n_ch, int ph, int pw, int kh, int kw) {
 // (n_patch, kh, kw, n_ch) float32; all contiguous.
 int p2_dpsf_launch(const float* patches, const float* cot, double* partials, float* dpsf,
                    int n_patch, int n_ch, int ph, int pw, int kh, int kw, void* stream) {
-  if (n_patch < 0 || n_ch < 1 || kh < 1 || kw < 1 || kw > p2_dpsf_max_kw() || ph < kh ||
+  if (n_patch < 0 || n_ch < 1 || kh < 1 || kw < 1 || kh > MAX_K || kw > MAX_K || ph < kh ||
       pw < kw || (long long)n_patch * n_ch > 65535)
     return (int)cudaErrorInvalidValue;
   if (n_patch == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const int n_quads = (kw + QUAD - 1) / QUAD;
-  int rows = MAX_THREADS / n_quads;
-  if (rows < 1) rows = 1;
-  if (rows > kh) rows = kh;
-  while (rows > 1 && smem_bytes(rows, kw) > SMEM_MAX) --rows;
-  const int n_chunks = (kh + rows - 1) / rows;
-  rows = (kh + n_chunks - 1) / n_chunks;
   const int n_tx = (pw - kw + 1 + TILE - 1) / TILE;
   const int n_ty = (ph - kh + 1 + TILE - 1) / TILE;
-  int threads = rows * n_quads;
-  threads = threads > MAX_THREADS ? MAX_THREADS : (threads + 31) / 32 * 32;
-  const size_t smem = smem_bytes(rows, kw);
+  const int threads = (kh * ((kw + QUAD - 1) / QUAD) + 31) / 32 * 32;
+  const size_t smem = smem_bytes(kh, kw);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         p2_dpsf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -230,9 +217,9 @@ int p2_dpsf_launch(const float* patches, const float* cot, double* partials, flo
   const int group = group_pcs(n_patch, n_ch, ph, pw, kh, kw);
   for (int pc0 = 0; pc0 < n_pc; pc0 += group) {
     const int n = n_pc - pc0 < group ? n_pc - pc0 : group;
-    const dim3 grid(n_tx * n_ty, n_chunks, n);
+    const dim3 grid(n_tx * n_ty, 1, n);
     p2_dpsf_kernel<<<grid, threads, smem, s>>>(patches, cot, partials, n_ch, ph, pw, kh, kw,
-                                               rows, n_tx, pc0);
+                                               n_tx, pc0);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const long long total = (long long)n * kh * kw;

@@ -124,22 +124,27 @@ def load() -> ctypes.CDLL:
         fwd.restype = bwd.restype = i
     lib.k1_error_string.argtypes = [i]
     lib.k1_error_string.restype = ctypes.c_char_p
-    # P2: patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, the stream; and
-    # its kernel launches for n_ch, kh, kw.
+    # P2: patches, psfs, out, n_patch, n_ch, ph, pw, kh, kw, the stream.
     lib.p2_svola_launch.argtypes = [p] * 3 + [i] * 6 + [p]
-    lib.p2_svola_launches.argtypes = [i] * 3
     # P2's d/dpsf: patches, cotangent, partials, dpsf, n_patch, n_ch, ph, pw,
     # kh, kw, the stream; and the partials' length and the launches of its
     # main kernel for those sizes.
     lib.p2_dpsf_launch.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.p2_dpsf_partials.argtypes = lib.p2_dpsf_launches.argtypes = [i] * 6
     lib.p2_dpsf_partials.restype = ctypes.c_longlong
-    lib.p2_svola_launches.restype = lib.p2_dpsf_launches.restype = i
+    lib.p2_dpsf_launches.restype = i
+    # P2's FFT route, forward and d/dpsf: patches, psfs or cotangent, out,
+    # twiddles, scratch, n_patch, n_ch, ph, pw, kh, kw, the stream; its
+    # scratch floats for n_patch, n_ch, ph, pw, kh, adjoint.
+    lib.p2_fft_launch.argtypes = lib.p2_dpsf_fft_launch.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.p2_fft_launch.restype = lib.p2_dpsf_fft_launch.restype = i
+    lib.p2_fft_scratch.argtypes = [i] * 6
+    lib.p2_fft_scratch.restype = ctypes.c_longlong
     # P1: x, scale, k1, k2, iters, n, op, out, the stream.
     lib.p1_chain_launch.argtypes = [p, p, f, f, i, i, i, p, p]
     lib.p2_svola_launch.restype = lib.p2_dpsf_launch.restype = lib.p1_chain_launch.restype = i
     for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block", "k3_max_asph", "p2_max_kw",
-                 "p2_dpsf_max_kw"):
+                 "p2_dpsf_max_kw", "p2_fft_max_len", "p2_fft_launches"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     for name in ("k2_bwd_specialized", "p2_specialized_kw"):

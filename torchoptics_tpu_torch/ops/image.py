@@ -4,11 +4,15 @@ PyTorch counterpart of ``torchoptics_tpu.ops.image``:
 
 * :func:`svola_convolution`: Spatially-Varying OverLap-Add convolution.
   Overlapping patches of the symmetric-padded image, each convolved with its
-  local PSF by kernel P2 (:func:`svola_patch_conv`, ``csrc/svola_conv.cu``:
-  the direct kh x kw tap sum of the valid convolution, which the JAX package
-  computes by FFT), then a windowed recomposition. It is differentiable:
-  d/dpsf is a kernel of its own (``csrc/svola_conv_bwd.cu``), d/dpatch is
-  P2 on the padded cotangent with the flipped PSFs.
+  local PSF by kernel P2 (:func:`svola_patch_conv`), then a windowed
+  recomposition. P2 has two routes, chosen by the PSF's width on both
+  devices: below ``P2_FFT_MIN_KW`` taps the direct kh x kw tap sum of the
+  valid convolution (``csrc/svola_conv.cu``), from there a hand-written FFT
+  convolution at power-of-two lengths (``csrc/svola_fft.cu``), the JAX
+  package's own algorithm. It is differentiable: d/dpsf has kernels of its
+  own (``csrc/svola_conv_bwd.cu``, or the FFT route's correlation from
+  ``P2_DPSF_FFT_MIN_KW`` taps), d/dpatch is P2 on the padded cotangent with
+  the flipped PSFs.
 * :func:`interpolate_bicubic`: the Keys bicubic (alpha = -0.75) gather
   resampler, and the distortion warps built on the same weights
   (:func:`warp_bicubic_shifts`, :func:`warp_bicubic_separable`, the default).
@@ -22,8 +26,9 @@ PyTorch counterpart of ``torchoptics_tpu.ops.image``:
   sums, so no convolution reaches cuDNN and its TF32 default).
 
 Static geometry (the field map, the per-patch PSF weights, the overlap-add
-weights, the rotation angles and the resize weights) is numpy. Nothing here
-runs a matrix product or a convolution library call, so
+weights, the rotation angles and the resize weights) and the FFT route's
+twiddle table are numpy. Nothing here runs a matrix product, an FFT or a
+convolution library call, so
 ``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.allow_tf32``
 do not reach it.
 """
@@ -37,15 +42,33 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-#: Launches of kernel P2 in this process (the forward, and d/dpatch in a
-#: backward). The wrapper adds one per kernel launch: a wide PSF's call
-#: launches once per chunk of tap rows. Reset it to 0 to count the launches
+#: Launches of kernel P2's direct route in this process (the forward, and
+#: d/dpatch in a backward): one a call. Reset it to 0 to count the launches
 #: of one run.
 P2_LAUNCHES = 0
 #: Launches of P2's d/dpsf kernel: one per group of patch-channels (one at
 #: config 5's 1024^2 render, whose partials fit one group); the second pass
 #: that follows each is not counted.
 P2_DPSF_LAUNCHES = 0
+#: Launches of P2's FFT route (``csrc/svola_fft.cu``; the forward, and
+#: d/dpatch in a backward): three kernels a call, each counted.
+P2_FFT_LAUNCHES = 0
+#: Launches of the FFT route's d/dpsf: the same three kernels a call.
+P2_DPSF_FFT_LAUNCHES = 0
+
+#: PSFs whose larger side has at least this many taps take P2's FFT route
+#: (``csrc/svola_fft.cu``; on CPU tensors its plain version), forward and
+#: d/dpatch; narrower ones the direct kernel (``csrc/svola_conv.cu``). Set
+#: from the two routes' times on an H100 at the renders' shapes (PERF.md):
+#: at K = 23 (config 5 at 2048^2) the direct forward was faster, at K = 33
+#: (the default configuration at 1448^2) the FFT route, in both directions.
+P2_FFT_MIN_KW = 33
+#: The same for d/dpsf (``csrc/svola_fft.cu`` or ``csrc/svola_conv_bwd.cu``):
+#: the FFT route's correlation was faster from K = 23, the direct kernel at
+#: K = 11 (config 5 at 1024^2).
+P2_DPSF_FFT_MIN_KW = 23
+#: The FFT route's transform lengths: powers of two, 16 to 4096 points.
+P2_FFT_MIN_LEN, P2_FFT_MAX_LEN = 16, 4096
 
 
 def _window(kind: str, n: int) -> np.ndarray:
@@ -97,10 +120,12 @@ def svola_patch_conv_dpatch_reference(cotangent: torch.Tensor, psfs: torch.Tenso
     correlation of the cotangent (P, hp, wp, C) with the unflipped taps,
     which is P2 on the cotangent zero-padded by (kh - 1, kw - 1) on each side
     with the flipped PSFs: d[y, x] = sum_{a, b} psf[a, b] · g[y+a-kh+1,
-    x+b-kw+1]."""
+    x+b-kw+1]; by the route the PSFs' width takes, the direct sum or the
+    FFT route's plain version."""
     kh, kw = psfs.shape[1:3]
     padded = torch.nn.functional.pad(cotangent, (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
-    return svola_patch_conv_reference(padded, torch.flip(psfs, dims=(1, 2)))
+    conv = svola_patch_conv_fft_reference if p2_takes_fft((kh, kw)) else svola_patch_conv_reference
+    return conv(padded, torch.flip(psfs, dims=(1, 2)))
 
 
 #: The side of the output tiles over which d/dpsf takes its partial sums.
@@ -144,40 +169,191 @@ def svola_patch_conv_dpsf_reference(patches: torch.Tensor, cotangent: torch.Tens
     return torch.flip(total, dims=(1, 2)).to(patches.dtype)
 
 
-_P2_SMEM_MAX = 232448    # bytes of shared memory a block can have (227 KB)
+# ---------------------------------------------------------------------------
+# P2's FFT route: the plain versions of csrc/svola_fft.cu's three passes.
+# ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
+def p2_takes_fft(kernel_hw, adjoint: bool = False) -> bool:
+    """Whether PSFs of ``kernel_hw`` = (kh, kw) take the FFT route: the
+    forward and d/dpatch (or, with ``adjoint``, d/dpsf), on either device."""
+    return max(kernel_hw) >= (P2_DPSF_FFT_MIN_KW if adjoint else P2_FFT_MIN_KW)
+
+
+def fft_log2(n: int) -> int:
+    """log2 of the route's transform length for n points: the smallest power
+    of two >= n, at least ``P2_FFT_MIN_LEN``."""
+    return max(P2_FFT_MIN_LEN.bit_length() - 1, (int(n) - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=8)
+def fft_twiddles(device: torch.device) -> torch.Tensor:
+    """The route's one twiddle table, (P2_FFT_MAX_LEN / 2, 2) float32: W^i =
+    exp(-2 pi i i / 4096) for i < 2048, computed in float64 and rounded once.
+    A transform of L points takes every (4096 / L)-th entry. The kernels and
+    the plain versions read the same table."""
+    i = np.arange(P2_FFT_MAX_LEN // 2)
+    w = np.exp(-2j * np.pi * i / P2_FFT_MAX_LEN)
+    return torch.as_tensor(np.stack([w.real, w.imag], -1).astype(np.float32), device=device)
+
+
+def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, inverse: bool):
+    """The unscaled radix-2 Stockham FFT along the last axis (L points, a
+    power of two) of a complex float32 tensor held as (re, im): for Ns = 1,
+    2, .., L/2, a = x[j], b = x[j + L/2], t = w b with w = W_L^((j mod Ns)
+    L / (2 Ns)) from the table (conjugated for the inverse), each product
+    rounded before its sum; y[(j // Ns) 2 Ns + j mod Ns] = a + t, y[.. + Ns]
+    = a - t. The kernels run the same butterflies, three stages a pass in
+    registers."""
+    L = re.shape[-1]
+    half = L // 2
+    j = torch.arange(half, device=re.device)
+    ns = 1
+    while ns < L:
+        idx = (j % ns) * (L // (2 * ns)) * (P2_FFT_MAX_LEN // L)
+        wr, wi = tw[idx, 0], tw[idx, 1]
+        if inverse:
+            wi = -wi
+        ar, ai, br, bi = re[..., :half], im[..., :half], re[..., half:], im[..., half:]
+        tr = br * wr - bi * wi
+        ti = br * wi + bi * wr
+        shape = re.shape[:-1] + (half // ns, 1, ns)
+        re = torch.cat(((ar + tr).reshape(shape), (ar - tr).reshape(shape)), -2).reshape(
+            re.shape)
+        im = torch.cat(((ai + ti).reshape(shape), (ai - ti).reshape(shape)), -2).reshape(
+            im.shape)
+        ns *= 2
+    return re, im
+
+
+def _fft_rows_fwd(x: torch.Tensor, log2_l: int, tw: torch.Tensor):
+    """Pass 1: the half spectra (L/2 + 1 points) of the rows of x (P, R, W,
+    C), as (re, im) of shape (P, C, R, L/2 + 1): rows 2q and 2q + 1 packed
+    as one complex row zero to L, transformed and separated, A_k = (Z_k +
+    conj Z_{L-k}) / 2 and B_k = (Z_k - conj Z_{L-k}) / 2i."""
+    P, R, W, C = x.shape
+    L = 1 << log2_l
+    n2 = R + (R & 1)
+    z = x.new_zeros((P, C, n2, L))
+    z[:, :, :R, :W] = x.permute(0, 3, 1, 2)
+    fr, fi = _stockham(z[:, :, 0::2], z[:, :, 1::2], tw, False)
+    k = torch.arange(L // 2 + 1, device=x.device)
+    m = (L - k) % L
+    zr, zi, mr, mi = fr[..., k], fi[..., k], fr[..., m], fi[..., m]
+    pairs = lambda a, b: torch.stack((a, b), 3).reshape(P, C, n2, L // 2 + 1)[:, :, :R]
+    return (pairs((zr + mr) * 0.5, (zi + mi) * 0.5),
+            pairs((zi - mi) * 0.5, (mr - zr) * 0.5))
+
+
+def _fft_cols(a, b, log2_l: int, tw: torch.Tensor, conj_b: bool, row0: int, n_out: int):
+    """Pass 2: each column of the half spectra a and b ((re, im), (P, C,
+    rows, NC)) zero to L, the forward FFT of both, a b (a conj(b) with
+    ``conj_b``: (ac + bd, bc - ad)), the inverse; rows [row0, row0 + n_out)."""
+    L = 1 << log2_l
+
+    def columns(s):
+        re, im = s
+        zr = re.new_zeros(re.shape[:2] + (re.shape[3], L))
+        zi = torch.zeros_like(zr)
+        zr[..., :re.shape[2]] = re.transpose(2, 3)
+        zi[..., :re.shape[2]] = im.transpose(2, 3)
+        return _stockham(zr, zi, tw, False)
+    (xr, xi), (yr, yi) = columns(a), columns(b)
+    if conj_b:
+        pr, pi = xr * yr + xi * yi, xi * yr - xr * yi
+    else:
+        pr, pi = xr * yr - xi * yi, xr * yi + xi * yr
+    pr, pi = _stockham(pr, pi, tw, True)
+    return (pr[..., row0:row0 + n_out].transpose(2, 3),
+            pi[..., row0:row0 + n_out].transpose(2, 3))
+
+
+def _fft_rows_inv(s, log2_l: int, tw: torch.Tensor, scale: float, t0: int, nt: int,
+                  flip: bool) -> torch.Tensor:
+    """Pass 3: rows 2q and 2q + 1 of the half spectra s ((re, im), (P, C, n,
+    L/2 + 1)) packed as Z = X + iY over all L points by Hermitian symmetry
+    (the imaginary parts at 0 and L/2 dropped), the inverse FFT, times
+    ``scale``; columns [t0, t0 + nt) as (P, n, nt, C), flipped in both axes
+    with ``flip``."""
+    re, im = s
+    P, C, n, _ = re.shape
+    L = 1 << log2_l
+    n2 = n + (n & 1)
+    if n2 != n:
+        re = torch.cat((re, re.new_zeros((P, C, 1, re.shape[3]))), 2)
+        im = torch.cat((im, im.new_zeros((P, C, 1, im.shape[3]))), 2)
+    k = torch.arange(L, device=re.device)
+    kk = torch.where(k <= L // 2, k, L - k)
+    xr, xi = re[:, :, 0::2][..., kk], im[:, :, 0::2][..., kk]
+    yr, yi = re[:, :, 1::2][..., kk], im[:, :, 1::2][..., kk]
+    low, high = (k > 0) & (k < L // 2), k > L // 2
+    zr = torch.where(low, xr - yi, torch.where(high, xr + yi, xr))
+    zi = torch.where(low, xi + yr, torch.where(high, yr - xi, yr))
+    zr, zi = _stockham(zr, zi, tw, True)
+    rows = torch.stack((zr * scale, zi * scale), 3).reshape(P, C, n2, L)[:, :, :n, t0:t0 + nt]
+    if flip:
+        rows = torch.flip(rows, dims=(2, 3))
+    return rows.permute(0, 2, 3, 1).contiguous()
+
+
+def svola_patch_conv_fft_reference(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
+    """Plain version of P2's FFT route (``csrc/svola_fft.cu``): the valid
+    convolution of each patch with its PSF, (P, ph, pw, C) and (P, kh, kw,
+    C) -> (P, ph - kh + 1, pw - kw + 1, C), as the circular convolution at
+    lengths Lh = 2^fft_log2(ph), Lw = 2^fft_log2(pw) (the wrap never reaches
+    rows [kh-1, ph) and columns [kw-1, pw), which are kept), scaled by
+    1/(Lh Lw); the kernels' three passes in their arithmetic."""
+    P, ph, pw, C = patches.shape
+    kh, kw = psfs.shape[1:3]
+    lh, lw = fft_log2(ph), fft_log2(pw)
+    tw = fft_twiddles(patches.device)
+    spec = _fft_cols(_fft_rows_fwd(patches, lw, tw), _fft_rows_fwd(psfs, lw, tw), lh, tw,
+                     False, kh - 1, ph - kh + 1)
+    return _fft_rows_inv(spec, lw, tw, 2.0 ** -(lh + lw), kw - 1, pw - kw + 1, False)
+
+
+def svola_patch_conv_dpsf_fft_reference(patches: torch.Tensor, cotangent: torch.Tensor,
+                                        kernel_hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain version of the FFT route's d/dpsf: the circular correlation
+    corr[s, t] = sum_ij g[i, j] patch[i+s, j+t] of each patch with the
+    cotangent at the forward's lengths (lags s < kh, t < kw do not wrap),
+    dpsf[u, v] = corr[kh-1-u, kw-1-v]; the kernels' passes in their
+    arithmetic."""
+    P, ph, pw, C = patches.shape
+    kh, kw = kernel_hw
+    lh, lw = fft_log2(ph), fft_log2(pw)
+    tw = fft_twiddles(patches.device)
+    spec = _fft_cols(_fft_rows_fwd(patches, lw, tw), _fft_rows_fwd(cotangent, lw, tw), lh, tw,
+                     True, 0, kh)
+    return _fft_rows_inv(spec, lw, tw, 2.0 ** -(lh + lw), 0, kw, True)
+
+
 def p2_max_kw(adjoint: bool = False) -> int:
-    """The widest PSF a block of the kernel holds (the C functions
-    ``p2_max_kw`` and ``p2_dpsf_max_kw`` compute the same): P2's one input
-    row tile and one tap row of one channel, float32; d/dpsf's 32² cotangent
-    tile and 32 window rows of an odd pitch of 32 + kw + 2 doubles."""
-    def fits(kw):
-        r4 = (kw + 3) // 4 * 4
-        if adjoint:
-            return 8 * (32 * 32 + 32 * ((32 + kw + 2) | 1)) <= _P2_SMEM_MAX
-        return 4 * (32 * (32 + r4) + r4) <= _P2_SMEM_MAX
-    kw = 1
-    while fits(kw + 1):
-        kw += 1
-    return kw
+    """The widest PSF, in either axis, that the direct kernels take (the C
+    functions ``p2_max_kw`` and ``p2_dpsf_max_kw`` return the same): one tap
+    narrower than the FFT route's threshold."""
+    return (P2_DPSF_FFT_MIN_KW if adjoint else P2_FFT_MIN_KW) - 1
 
 
 def p2_argument_error(patches_shape, psfs_shape, adjoint: bool = False):
-    """Why P2 (or, with ``adjoint``, its d/dpsf kernel) would refuse patches
-    and PSFs of these shapes, or None: the checks of the launchers in
-    ``csrc/svola_conv*.cu``, with no library needed."""
+    """Why P2 (or, with ``adjoint``, its d/dpsf) would refuse patches and
+    PSFs of these shapes, or None: the checks of the launchers in
+    ``csrc/svola_*.cu`` of the route the shapes take, with no library
+    needed. The direct kernels take every PSF narrower than the FFT route's
+    threshold; the FFT route any wider PSF up to the patch, on patches up to
+    ``P2_FFT_MAX_LEN`` pixels a side."""
     P, ph, pw, C = patches_shape
     if tuple(psfs_shape[:1]) + tuple(psfs_shape[3:]) != (P, C) or len(psfs_shape) != 4:
         return (f"psfs {tuple(psfs_shape)} must be (P, kh, kw, C) with (P, C) = {(P, C)} of "
                 f"patches {tuple(patches_shape)}")
     kh, kw = psfs_shape[1:3]
-    max_kw = p2_max_kw(adjoint)
-    if C < 1 or kh < 1 or not 1 <= kw <= max_kw or ph < kh or pw < kw or P * C > 65535:
-        return (f"{'d/dpsf' if adjoint else 'P2'} takes kernels up to {max_kw} taps wide, no "
-                f"larger than the patch, and at most 65535 patch-channels; got psfs "
-                f"{tuple(psfs_shape)}, patches {tuple(patches_shape)}")
+    what = "d/dpsf" if adjoint else "P2"
+    if C < 1 or kh < 1 or kw < 1 or ph < kh or pw < kw or P * C > 65535:
+        return (f"{what} takes kernels no larger than the patch, and at most 65535 "
+                f"patch-channels; got psfs {tuple(psfs_shape)}, patches {tuple(patches_shape)}")
+    if p2_takes_fft((kh, kw), adjoint) and max(ph, pw) > P2_FFT_MAX_LEN:
+        return (f"{what}'s FFT route takes patches up to {P2_FFT_MAX_LEN} pixels a side; "
+                f"got patches {tuple(patches_shape)}")
     return None
 
 
@@ -210,7 +386,7 @@ def _launch_p2(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"P2 (SVOLA patch convolution) launch failed: "
                            f"{lib.k1_error_string(err).decode()}")
-    P2_LAUNCHES += lib.p2_svola_launches(C, kh, kw) if P else 0
+    P2_LAUNCHES += 1 if P else 0
     return out
 
 
@@ -239,56 +415,108 @@ def _launch_p2_dpsf(patches: torch.Tensor, cotangent: torch.Tensor,
     return dpsf
 
 
+def _launch_fft(patches: torch.Tensor, second: torch.Tensor, kernel_hw: Tuple[int, int],
+                adjoint: bool) -> torch.Tensor:
+    """The FFT route's three launches (``csrc/svola_fft.cu``): P2, or with
+    ``adjoint`` its d/dpsf (``second`` is then the cotangent)."""
+    global P2_FFT_LAUNCHES, P2_DPSF_FFT_LAUNCHES
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    P, ph, pw, C = patches.shape
+    kh, kw = kernel_hw
+    name = "cotangent" if adjoint else "psfs"
+    _check_p2_inputs({"patches": patches, name: second}, (P, kh, kw, C), adjoint)
+    want = (P, ph - kh + 1, pw - kw + 1, C) if adjoint else (P, kh, kw, C)
+    if tuple(second.shape) != want:
+        raise ValueError(f"the {name} {tuple(second.shape)} must be {want}")
+    shape = (P, kh, kw, C) if adjoint else (P, ph - kh + 1, pw - kw + 1, C)
+    out = torch.empty(shape, dtype=torch.float32, device=patches.device)
+    scratch = torch.empty(lib.p2_fft_scratch(P, C, ph, pw, kh, int(adjoint)),
+                          dtype=torch.float32, device=patches.device)
+    tw = fft_twiddles(patches.device)
+    launch = lib.p2_dpsf_fft_launch if adjoint else lib.p2_fft_launch
+    with torch.cuda.device(patches.device):
+        stream = torch.cuda.current_stream(patches.device).cuda_stream
+        err = launch(patches.data_ptr(), second.data_ptr(), out.data_ptr(), tw.data_ptr(),
+                     scratch.data_ptr(), P, C, ph, pw, kh, kw, stream)
+    if err != 0:
+        raise RuntimeError(f"P2's FFT route{' (d/dpsf)' if adjoint else ''} launch failed: "
+                           f"{lib.k1_error_string(err).decode()}")
+    if P:
+        if adjoint:
+            P2_DPSF_FFT_LAUNCHES += lib.p2_fft_launches()
+        else:
+            P2_FFT_LAUNCHES += lib.p2_fft_launches()
+    return out
+
+
+def _p2(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
+    """P2 by the route the PSFs' width takes: on a CUDA tensor the FFT
+    kernels or the direct one, on a CPU tensor their plain versions."""
+    fft = p2_takes_fft(psfs.shape[1:3])
+    if patches.device.type == "cpu":
+        return (svola_patch_conv_fft_reference if fft else svola_patch_conv_reference)(
+            patches, psfs)
+    return _launch_fft(patches, psfs, psfs.shape[1:3], False) if fft else _launch_p2(patches,
+                                                                                      psfs)
+
+
+def _p2_dpsf(patches: torch.Tensor, cotangent: torch.Tensor,
+             kernel_hw: Tuple[int, int]) -> torch.Tensor:
+    """P2's d/dpsf by the route ``kernel_hw`` takes, on either device."""
+    fft = p2_takes_fft(kernel_hw, adjoint=True)
+    if patches.device.type == "cpu":
+        return (svola_patch_conv_dpsf_fft_reference if fft else svola_patch_conv_dpsf_reference)(
+            patches, cotangent, kernel_hw)
+    return (_launch_fft(patches, cotangent, kernel_hw, True) if fft
+            else _launch_p2_dpsf(patches, cotangent, kernel_hw))
+
+
 class _P2(torch.autograd.Function):
-    """Kernel P2 with its adjoint: on CUDA tensors the forward is P2, d/dpsf
-    its own kernel and d/dpatch P2 on the padded cotangent (launched only
-    when the patches need a gradient); on CPU tensors each is its plain
-    version."""
+    """Kernel P2 with its adjoint, each by the route the PSFs' width takes
+    (``p2_takes_fft``): on CUDA tensors the forward is P2 (direct or FFT),
+    d/dpsf its own kernels and d/dpatch P2 on the padded cotangent with the
+    flipped PSFs (launched only when the patches need a gradient); on CPU
+    tensors each is its plain version."""
 
     @staticmethod
     def forward(ctx, patches, psfs):
         ctx.save_for_backward(patches, psfs)
-        if patches.device.type == "cpu":
-            return svola_patch_conv_reference(patches, psfs)
-        return _launch_p2(patches, psfs)
+        return _p2(patches, psfs)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, cotangent):
         patches, psfs = ctx.saved_tensors
         cotangent = cotangent.contiguous()
-        on_cpu = patches.device.type == "cpu"
+        kh, kw = psfs.shape[1:3]
         d_patches = d_psfs = None
         if ctx.needs_input_grad[0]:
-            if on_cpu:
-                d_patches = svola_patch_conv_dpatch_reference(cotangent, psfs)
-            else:
-                kh, kw = psfs.shape[1:3]
-                padded = torch.nn.functional.pad(cotangent,
-                                                 (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
-                d_patches = _launch_p2(padded, torch.flip(psfs, dims=(1, 2)).contiguous())
+            padded = torch.nn.functional.pad(cotangent, (0, 0, kw - 1, kw - 1, kh - 1, kh - 1))
+            d_patches = _p2(padded, torch.flip(psfs, dims=(1, 2)).contiguous())
         if ctx.needs_input_grad[1]:
-            kernel_hw = tuple(psfs.shape[1:3])
-            d_psfs = (svola_patch_conv_dpsf_reference if on_cpu else _launch_p2_dpsf)(
-                patches, cotangent, kernel_hw)
+            d_psfs = _p2_dpsf(patches, cotangent, (kh, kw))
         return d_patches, d_psfs
 
 
 def svola_patch_conv(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
-    """Kernel P2 (``csrc/svola_conv.cu``) on a CUDA tensor, its plain version
-    :func:`svola_patch_conv_reference` on a CPU tensor; differentiable in
-    both inputs (``_P2``: on the card d/dpsf is ``csrc/svola_conv_bwd.cu``
-    and d/dpatch one more P2 launch, on the CPU their plain versions)."""
+    """Kernel P2 on a CUDA tensor, its plain version on a CPU tensor, by the
+    route the PSFs' width takes: below ``P2_FFT_MIN_KW`` taps the direct sum
+    (``csrc/svola_conv.cu``, :func:`svola_patch_conv_reference`), from there
+    the FFT convolution (``csrc/svola_fft.cu``,
+    :func:`svola_patch_conv_fft_reference`). Differentiable in both inputs
+    (``_P2``: d/dpsf is ``csrc/svola_conv_bwd.cu`` or the FFT route's, by
+    ``P2_DPSF_FFT_MIN_KW``, d/dpatch one more P2 call; on the CPU their plain
+    versions)."""
     if patches.device.type not in ("cpu", "cuda"):
         raise ValueError(f"P2 runs on CUDA or CPU tensors, got {patches.device}")
-    on_cpu = patches.device.type == "cpu"
-    if not on_cpu:
+    if patches.device.type == "cuda":
         patches, psfs = patches.contiguous(), psfs.contiguous()
     if torch.is_grad_enabled() and (patches.requires_grad or psfs.requires_grad):
         return _P2.apply(patches, psfs)
     # No gradient wanted: the forward alone, without the Function's host
     # cost (a 1024^2 render's P2 launch is ~0.1 ms).
-    return svola_patch_conv_reference(patches, psfs) if on_cpu else _launch_p2(patches, psfs)
+    return _p2(patches, psfs)
 
 
 def svola_patches(image: torch.Tensor, overlap_size, kernel_hw: Tuple[int, int],
@@ -347,11 +575,12 @@ def svola_convolution(image: torch.Tensor, overlap_size, psfs: torch.Tensor,
       psfs_grid_shape: (grid_h, grid_w).
       window_type: recomposition window, 'boxcar' or 'hann'.
       fft_fast_sizes: accepted for the JAX package's signature and ignored:
-        it picks TPU-friendly FFT lengths, and no FFT runs here.
+        it picks TPU-friendly FFT lengths; P2's FFT route takes powers of two.
 
     Returns:
       (B, H, W, C) convolved image. Every patch-channel of the batch goes
-      through one launch of kernel P2 on the card.
+      through one P2 call on the card: one launch of the direct kernel, or
+      the FFT route's three.
     """
     del fft_fast_sizes
     if isinstance(overlap_size, int):
