@@ -23,6 +23,13 @@ hand-written CUDA kernel on them against its plain PyTorch version:
    rays x 3 wavelengths (442,368 rays), plain, Lu and full modes, both
    backward-ray policies, on the flagship and on a c x 3 lens that fails
    rays; the full mode with tight path and angle bounds so both hinges fire;
+   then (3b) K1 forward on each of its routes, every mode (opl included) and
+   policy: the double-Gauss and its c x 3 at 2,457,600 rays on the
+   11-surface kernel, the Cooke on the 7-surface kernel, a seeded
+   64-surface system on the runtime-S kernel, each with odd lanes (NaN,
+   1e30, -inf), and K2 at B = 1 equal to K1 there; and (3c) the exhaustive
+   checks of the trace kernels' exact shortcuts (``div_half_pi``,
+   ``sqrt_from_eps``) on every float32 of their domains;
 4. K1 backward against ``trace_fused_backward_reference`` at the same width,
    all three modes, both policies, both lenses, with seeded cotangents; two
    launches must agree bit for bit;
@@ -150,7 +157,9 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     direct forward and d/dpatch, the FFT route's d/dpsf) and the default
     configuration's 2048^2 and 4096^2 (K = 47, 95, the FFT route): d/dpsf
     and d/dpatch (P2 on the padded cotangent) bit for bit with their
-    routes' plain versions, each route's launches counted;
+    routes' plain versions, each route's launches counted; the direct
+    d/dpsf kernel alone on seeded shapes (K = 1 to 22, non-square, ragged
+    tiles, every kernel of its own and the runtime-kw one), bit for bit;
 35. image training, this slice's main path: 5 Adam steps of
     ``LensOptimizer(loss_fn=imaging.make_image_loss_fn(...))`` on the
     double-Gauss defocused by 0.3 mm, config 5 at 1024^2, one K1 forward,
@@ -219,6 +228,7 @@ before that carries the kernels' numbers.
 import collections
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -272,9 +282,16 @@ BWD_BYTES = {False: 40, True: 52, "full": 60}
 
 
 #: A kernel's floating-point operations per ray (``total``, each sqrt,
-#: division and acosf counted as one) and, of them, its square roots,
-#: divisions and acosf, which the issue bounds weight by P1's rates.
-OpCounts = collections.namedtuple("OpCounts", "total sqrt div acos")
+#: division and acosf counted as one) and, of them, its IEEE square roots,
+#: divisions and acosf, which the issue bounds weight by P1's rates, and the
+#: square roots and divisions by pi / 2 that K1 and K2 take by their exact
+#: shortcuts (``fast_sqrt``: sqrt_from_eps, ``fast_div``: div_half_pi in
+#: trace_common.cuh), which they weight by the shortcuts' instructions.
+OpCounts = collections.namedtuple("OpCounts", "total sqrt div acos fast_sqrt fast_div",
+                                  defaults=(0, 0))
+#: Instructions a shortcut issues: sqrt_from_eps a MUFU.RSQ, two FMUL and two
+#: FFMA; div_half_pi an FMUL and two FFMA.
+FAST_SQRT_ISSUES, FAST_DIV_ISSUES = 5, 3
 
 
 def _transcendentals(penalties, n_surf, backward, sqrt_surf, div_surf):
@@ -298,11 +315,15 @@ def k1_ops(penalties, n_surf, n_sides, backward):
     min/max, and each sqrt, division and acosf counted as one; compares and
     selects not counted. ``n_sides``: the finite sides of the path bounds,
     over all gaps (full mode). Of them, per surface, from
-    trace_common.cuh: cos_theta, cos_theta' and cz (3 sqrt), the marching
-    distance (1 division), and backward the surface adjoint's 5 divisions;
-    the rest as ``_transcendentals``."""
+    trace_common.cuh: cos_theta, cos_theta' and cz (3 sqrt, by
+    sqrt_from_eps), the marching distance (1 division), and backward the
+    surface adjoint's 5 divisions; the rest as ``_transcendentals``, except
+    that the forward's two theta_norm a surface take the surface step's roots
+    and divide by pi / 2 by div_half_pi (theta_norm_root)."""
     lu, full = penalties in (True, "full"), penalties == "full"
-    sq_dv_ac = _transcendentals(penalties, n_surf, backward, 3, 1 + (5 if backward else 0))
+    sq, dv, ac = _transcendentals(penalties, n_surf, backward, 0, 1 + (5 if backward else 0))
+    fast_div = 2 * n_surf if lu and not backward else 0
+    sq_dv_ac = (sq - fast_div, dv - fast_div, ac, 3 * n_surf, fast_div)
     if not backward:
         # 55 per surface, launch and image transfer 8; Lu: two theta_norm
         # and three sums, 14; full: angle hinges 6, path deltas and sum 4,
@@ -472,6 +493,164 @@ def phase_backward(torch, zoo, simulator, fused_trace):
                 if not ok:
                     failed.append((label, penalties, allow_backward))
     check(not failed, f"phase 4: K1 backward agrees with its plain version (failed: {failed})")
+    return worst
+
+
+# K1 forward's routes (csrc/fused_trace_fwd.cu SHORT_SURF and its runtime-S
+# kernel): (label, prescription or None for the seeded 64-surface system, c
+# scale, width). The double-Gauss (11 surfaces) and its c x 3 at the main
+# path's 2,457,600 rays, the Cooke (7) at 442,368 rays, 64 surfaces (MAX_SURF,
+# the runtime-S kernel) at 3 x 65,536 rays.
+K1_ROUTE_CASES = (("double_gauss", "double_gauss", 1.0, BENCH_WIDTH),
+                  ("double_gauss c x 3", "double_gauss", 3.0, BENCH_WIDTH),
+                  ("cooke", "cooke", 1.0, FULL_WIDTH),
+                  ("64 surfaces", None, 1.0, None))
+K1_MODES = (False, True, "full", "opl")
+
+
+def k1_route_inputs(torch, zoo, simulator, fused_trace, name, c_scale, width):
+    """K1's inputs for one of ``K1_ROUTE_CASES``: (xp, yp, cy, z0, c, t, mu),
+    ref_z, n_legs (seeded indices in [1, 1.8], one a leg and wavelength),
+    n_per_w, the path bounds and cos^2 of the angle threshold. The first 8
+    rays are replaced by odd lanes: NaN pupil coordinates and directions, a
+    ray at 1e30 or -inf, directions at the edge of the launch's domain. The
+    64-surface system: weak seeded curvatures, 0.5 mm gaps, glass and air
+    alternating, 3 wavelengths of 65,536 rays, every gap bounded to (0.1,
+    5.0)."""
+    gen = np.random.default_rng(64)
+    if name is None:
+        n_surf, n_w, n_per_w = 64, 3, 65536
+        n = n_w * n_per_w
+        f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+        xp, yp = (f32(gen.uniform(-1.0, 1.0, n)) for _ in range(2))
+        cyb = f32(gen.uniform(-0.05, 0.05, n))
+        z0 = f32(-1.0)
+        c = f32(gen.normal(0.0, 0.01, n_surf))
+        t = f32(np.full(n_surf, 0.5))
+        index = 1.5 + 0.01 * np.arange(n_w) / n_w
+        legs = np.where(np.arange(n_surf + 1)[:, None] % 2 == 1, index, 1.0)
+        mu = f32(legs[:-1] / legs[1:])
+        bounds = ((0.1, 5.0),) * n_surf
+        thr = math.cos(math.radians(TIGHT["ray_angle_threshold"])) ** 2
+    else:
+        cfg = simulator.SimulatorConfig(pupil_sampling="circular", n_ray_aiming_iter=1,
+                                        **width).trace_config()
+        specs, lens = zoo.build(name, device="cuda")
+        lens = lens.replace(c=lens.c * c_scale)
+        with torch.no_grad():
+            xp, yp, cyb, z0, mu, (_, F, P, W) = fused_trace.prepare_fused_inputs(specs, lens,
+                                                                                 cfg)
+        n_per_w, n_surf, n_w = F * P, lens.c.shape[1], W
+        c, t = lens.c[0].detach(), lens.t[0].detach()
+        bounds = fused_trace._path_bounds(lens.structure, TIGHT["ray_path_lower_thresholds"],
+                                          TIGHT["ray_path_upper_thresholds"])
+        thr = math.cos(math.radians(TIGHT["ray_angle_threshold"])) ** 2
+    xp, yp, cyb = (a.detach().clone().contiguous() for a in (xp, yp, cyb))
+    odd = torch.tensor
+    xp[:8] = odd([math.nan, 0.0, 1e30, -math.inf, 0.5, 0.0, math.nan, 3.0], device="cuda")
+    yp[:8] = odd([0.0, math.nan, 0.0, 0.0, -0.5, 1e-30, 0.0, -3.0], device="cuda")
+    cyb[:8] = odd([0.0, 0.0, 0.0, 0.0, 0.9999999, 1.0, math.nan, -0.99999], device="cuda")
+    vertex_z = torch.cumsum(t, 0)
+    ref_z = torch.cat((vertex_z, vertex_z[-1:]))
+    n_legs = torch.tensor(gen.uniform(1.0, 1.8, (n_surf + 1, n_w)).astype(np.float32),
+                          device="cuda")
+    base = (xp, yp, cyb, z0.reshape(()), c.contiguous(), t.contiguous(), mu.contiguous())
+    return base, ref_z, n_legs, n_per_w, bounds, thr
+
+
+def same_bits(a, b):
+    """Equal, NaN where the other is NaN."""
+    import torch
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def k1_route_compare(torch, fused_trace, fused_batch, inputs, penalties, allow_backward):
+    """K1 forward on ``k1_route_inputs``'s inputs in one mode and policy
+    against its plain version, and K2 at B = 1 without a mask against K1.
+    Returns {"bits": masks, coordinates and the opl bit for bit (NaN lanes
+    alike), "pen_nan": the Lu and full sums NaN where the plain version's
+    are, "pen": their largest deviation (theta_norm's sums on every lane, a
+    NaN cos2 counting 1 in both; relu(z) and the hinges past the odd lanes:
+    the kernel's fmaxf drops a NaN, torch.clamp keeps it), "k2_same": K2
+    equal to K1, "launches": K1 forward's launches, "got": K1's outputs}."""
+    base, ref_z, n_legs, n_per_w, bounds, thr = inputs
+    extra = (ref_z,) if penalties == "full" else (n_legs,) if penalties == "opl" else ()
+    one = tuple(a.reshape(1) if i == 3 else a[None] for i, a in enumerate(base + extra))
+    args = (penalties, allow_backward, n_per_w, bounds, thr)
+    before = fused_trace.K1_FWD_LAUNCHES
+    with torch.no_grad():
+        got = fused_trace._launch_k1_fwd(base + extra, *args)
+        want = fused_trace.trace_fused_reference(*base, penalties, allow_backward, n_per_w,
+                                                 ref_z, bounds, thr, n_legs=n_legs)
+        k2 = fused_batch._launch_k2_fwd(one, *args[:3], None, *args[3:])
+    torch.cuda.synchronize()
+    exact = 7 if penalties == "opl" else 6
+    pen, pen_nan = 0.0, True
+    lu = penalties in (True, "full")
+    for j, (a, b) in enumerate(zip(got[6:], want[6:]) if lu else ()):
+        a, b = (a, b) if j < 2 else (a[8:], b[8:])
+        pen_nan = pen_nan and torch.equal(torch.isnan(a), torch.isnan(b))
+        pen = max(pen, float((a - b).abs().nan_to_num(0.0).max()))
+    return {"bits": all(same_bits(a, b) for a, b in zip(got[:exact], want[:exact])),
+            "pen_nan": pen_nan, "pen": pen,
+            "k2_same": all(same_bits(a, b[0]) for a, b in zip(got, k2)),
+            "launches": fused_trace.K1_FWD_LAUNCHES - before, "got": got}
+
+
+def phase_k1_routes(torch, zoo, simulator, fused_trace, fused_batch):
+    """K1 forward on each of its routes (``K1_ROUTE_CASES``): every mode
+    (plain, Lu, full, opl), both backward-ray policies, against its plain
+    version, and K2 at B = 1 against K1 (``k1_route_compare``): masks,
+    coordinates and the opl bit for bit, the Lu and full sums within 1e-5
+    (the plain version's division by pi / 2 is torch's). Then the exhaustive
+    checks of div_half_pi (every float32 in [2^-100, 4) divided by pi / 2 as
+    the IEEE division does) and sqrt_from_eps (sqrtf's bits from 2^-100 to
+    +inf, NaN on NaN). Returns the largest penalty deviations per kernel
+    entry ('k1_fwd' = plain and Lu, 'k1_fwd_full')."""
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    worst = {"k1_fwd": 0.0, "k1_fwd_full": 0.0}
+    failed = []
+    for label, name, c_scale, width in K1_ROUTE_CASES:
+        inputs = k1_route_inputs(torch, zoo, simulator, fused_trace, name, c_scale, width)
+        n, n_surf = inputs[0][0].shape[0], inputs[0][4].shape[0]
+        route = f"{n_surf}-surface kernel" if lib.k1_fwd_specialized(n_surf) else "runtime-S kernel"
+        for penalties in K1_MODES:
+            for allow_backward in (True, False):
+                r = k1_route_compare(torch, fused_trace, fused_batch, inputs, penalties,
+                                     allow_backward)
+                key = "k1_fwd_full" if penalties == "full" else "k1_fwd"
+                worst[key] = max(worst[key], r["pen"])
+                ok = r["bits"] and r["pen_nan"] and r["pen"] <= 1e-5 and r["k2_same"]
+                print(f"{'ok  ' if ok else 'FAIL'} K1 forward route, {label} ({n_surf} surfaces, "
+                      f"{route}), {penalties if penalties == 'opl' else MODE_NAME[penalties]} "
+                      f"mode, allow_backward={allow_backward}, {n} rays: masks, coordinates"
+                      f"{' and opl' if penalties == 'opl' else ''} bit-identical (NaN lanes "
+                      f"alike)={r['bits']}, ray_ok share {float(r['got'][4].float().mean()):.6f}"
+                      + (f", max |dpenalty| {r['pen']:.3e} (bar 1e-5)"
+                         if penalties in (True, "full") else "")
+                      + f"; K2 at B = 1 equal to K1={r['k2_same']}", flush=True)
+                if not ok:
+                    failed.append((label, penalties, allow_backward))
+    check(not failed, f"phase 3b: K1 forward's routes (7, 11, runtime-S at 64 surfaces) agree "
+          f"with the plain version, K2 at B = 1 with K1 (failed: {failed})")
+    mismatches = torch.zeros(2, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    start = time.perf_counter()
+    err = lib.k1_exact_checks(mismatches.data_ptr(), stream)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - start
+    n_div, n_sqrt = 0x40800000 - 0x0D800000, 0x80000000 - 0x0D800000
+    bad = mismatches.tolist()
+    check(err == 0 and bad == [0, 0],
+          f"phase 3c: exhaustive checks on the card ({took * 1e3:.1f} ms): div_half_pi "
+          f"(theta_norm's division by pi / 2 in K1f and K2f) equals the IEEE division on all "
+          f"{n_div:,} float32 in [2^-100, 4), mismatches {bad[0]}; sqrt_from_eps (the surface "
+          f"step's roots in K1 and K2, forward and backward) equals sqrtf on all {n_sqrt:,} "
+          f"float32 from 2^-100 to +inf and NaN (NaN on NaN), mismatches {bad[1]}")
     return worst
 
 
@@ -3538,14 +3717,29 @@ ADJOINT_RENDERS = (("config 5 at 1024^2", "config 5", 1024),
                    ("default config at 4096^2", "default", 4096))
 
 
+# Seeded d/dpsf cases for the direct kernel (P, patch height, width,
+# channels, kh, kw): K = 1, 3, 5, 11, 22, each kw with a kernel of its own
+# (3, 5, 11) and kw on the runtime-kw kernel (1, 7, 9, 19, 22),
+# non-square PSFs, ragged tail tiles (outputs no multiple of 32), one and
+# five channels, a patch that is one tile, config 5's 1024^2 shape with 75
+# patch-channels.
+DPSF_SHAPES = ((3, 45, 50, 1, 1, 1), (1, 34, 34, 3, 3, 3), (2, 77, 77, 3, 3, 3),
+               (3, 70, 75, 3, 5, 9), (2, 45, 50, 1, 9, 3), (2, 60, 57, 3, 11, 11),
+               (2, 52, 49, 5, 5, 5), (2, 66, 70, 3, 22, 22), (2, 90, 77, 3, 21, 22),
+               (2, 100, 90, 3, 17, 22), (2, 41, 70, 1, 7, 11), (1, 70, 80, 3, 22, 19),
+               (1, 64, 70, 1, 13, 22), (25, 316, 316, 3, 11, 11))
+
+
 def phase_p2_adjoint(torch, zoo, simulator, imaging, image):
     """P2's adjoint through ``svola_patch_conv``'s backward on the render
     shapes of ``ADJOINT_RENDERS``, both inputs requiring grad, counts set to
     0 before and read after: each route's launches (the direct P2 once for
     the forward and once for d/dpatch, its d/dpsf once a group of
     patch-channels; the FFT route three a call). d/dpsf and d/dpatch bit
-    for bit with the plain versions of their routes. Returns {label:
-    (patches, psfs, cot, dpsf deviation, dpatch deviation)}."""
+    for bit with the plain versions of their routes. Then the direct d/dpsf
+    kernel alone on ``DPSF_SHAPES``, bit for bit with its plain version.
+    Returns {label: (patches, psfs, cot, dpsf deviation, dpatch
+    deviation)}."""
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
     inputs = render_inputs(torch, zoo, simulator, imaging, image,
@@ -3581,7 +3775,32 @@ def phase_p2_adjoint(torch, zoo, simulator, imaging, image):
               f"launches (P2 direct, P2 FFT, d/dpsf direct, d/dpsf FFT) {counts} (expected "
               f"{want})")
         out[label] = (patches, psfs, cot, e_psf, e_patch)
+    for shape in DPSF_SHAPES:
+        P, ph, pw, C, kh, kw = shape
+        got, want, launches = dpsf_direct_case(torch, image, shape)
+        kernel = "its own kernel" if lib.p2_dpsf_specialized_kw(kw) else "the runtime-kw kernel"
+        check(torch.equal(got, want) and bool(torch.isfinite(got).all())
+              and launches == lib.p2_dpsf_launches(P, C, ph, pw, kh, kw),
+              f"d/dpsf (direct) vs plain, patches {(P, ph, pw, C)}, K = {kh} x {kw} ({kernel}): "
+              f"bit-identical={torch.equal(got, want)} (max deviation "
+              f"{float((got - want).abs().max()):.3e}, bar 0), launches {launches}")
     return out
+
+
+def dpsf_direct_case(torch, image, shape):
+    """The direct d/dpsf kernel and its plain version on one of
+    ``DPSF_SHAPES``, on seeded patches and cotangents: (kernel's, plain
+    version's, the kernel's launches)."""
+    P, ph, pw, C, kh, kw = shape
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    patches = torch.rand((P, ph, pw, C), generator=g, device="cuda") * 255.0
+    cot = torch.randn((P, ph - kh + 1, pw - kw + 1, C), generator=g, device="cuda")
+    before = image.P2_DPSF_LAUNCHES
+    with torch.no_grad():
+        got = image._launch_p2_dpsf(patches, cot, (kh, kw))
+        torch.cuda.synchronize()
+        want = image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw))
+    return got, want, image.P2_DPSF_LAUNCHES - before
 
 
 def image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, device, px, config=None):
@@ -3818,19 +4037,24 @@ def dpsf_bound(patches, kernel_hw):
 
 def phase_adjoint_timing(torch, image, adjoint, card):
     """CUDA events: the direct d/dpsf kernel (both passes, with its partials'
-    allocation), its plain version and the torch.fft correlation at config
-    5's 1024^2 shape (K = 11, the main path of phase 35)."""
+    allocation) back to back (``dpsf``: the host's time to launch shows where
+    it is the longer) and queued behind a sleep kernel (``dpsf_queued``: the
+    device's time alone), its plain version and the torch.fft correlation at
+    config 5's 1024^2 shape (K = 11, the main path of phase 35)."""
     patches, psfs, cot, _, _ = adjoint["config 5 at 1024^2"]
     kh, kw = psfs.shape[1:3]
     with torch.no_grad():
         want = image.svola_patch_conv_dpsf_reference(patches, cot, (kh, kw))
         lib_err = float((fft_dpsf(torch, patches, cot, (kh, kw)) - want).abs().max())
-        ms = {"dpsf": time_ms(torch, lambda: image._launch_p2_dpsf(patches, cot, (kh, kw))),
+        direct = lambda: image._launch_p2_dpsf(patches, cot, (kh, kw))
+        ms = {"dpsf": time_ms(torch, direct),
+              "dpsf_queued": time_ms(torch, direct, queue_ahead=True),
               "plain_dpsf": time_ms(torch, lambda: image.svola_patch_conv_dpsf_reference(
                   patches, cot, (kh, kw)), runs=3, batch=1, warmup=1),
               "fft_dpsf": time_ms(torch, lambda: fft_dpsf(torch, patches, cot, (kh, kw)))}
     b = dpsf_bound(patches, (kh, kw))
-    print(f"time d/dpsf (direct) at {tuple(patches.shape)}, K = {kh}: {ms['dpsf']:.4f} ms (plain "
+    print(f"time d/dpsf (direct) at {tuple(patches.shape)}, K = {kh}: {ms['dpsf']:.4f} ms back "
+          f"to back, {ms['dpsf_queued']:.4f} ms queued (plain "
           f"{ms['plain_dpsf']:.2f} ms, torch.fft correlation {ms['fft_dpsf']:.4f} ms, within "
           f"{lib_err:.2e} of the plain version); bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} "
           f"operations at 67 TFLOP/s; {b[3]:.4f} ms at FP64's 34 TFLOP/s outside the tensor "
@@ -3845,7 +4069,8 @@ def adjoint_entry(adjoint, train_launches, ms, b):
     return {"name": "p2_dpsf", "route": "cuda", "source": P2_DPSF_SOURCE,
             "replaces": TPU_P2_DPSF, "launches": train_launches[3],
             "max_abs_err": adjoint["config 5 at 1024^2"][3], "ms": ms["dpsf"],
-            "plain_ms": ms["plain_dpsf"], "bound_ms": b[0], "bound_by": b[1],
+            "ms_queued": ms["dpsf_queued"], "plain_ms": ms["plain_dpsf"], "bound_ms": b[0],
+            "bound_by": b[1],
             "library_ms": ms["fft_dpsf"], "bound_ms_fp64": b[3],
             "dpatch_max_abs_err": adjoint["config 5 at 1024^2"][4],
             "image_training_launches": dict(zip(("k1_fwd", "k1_bwd", "p2", "p2_dpsf"),
@@ -3982,10 +4207,10 @@ def fft_route_bound(patches, kernel_hw, adjoint):
             nbytes)
 
 
-def auto_ms(torch, fn, budget_ms=600.0):
+def auto_ms(torch, fn, budget_ms=600.0, queue_ahead=False):
     """``time_ms`` with its batches sized to the call: one call timed on the
     host clock first, then batches of ~20 ms, as many as fit ``budget_ms``
-    (3 to 25)."""
+    (3 to 25); ``queue_ahead`` as ``time_ms``'s."""
     fn()
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -3994,7 +4219,7 @@ def auto_ms(torch, fn, budget_ms=600.0):
     one = max((time.perf_counter() - start) * 1e3, 1e-3)
     batch = max(1, min(10, int(20.0 / one)))
     runs = max(3, min(25, int(budget_ms / (one * batch))))
-    return time_ms(torch, fn, runs=runs, batch=batch, warmup=1)
+    return time_ms(torch, fn, runs=runs, batch=batch, warmup=1, queue_ahead=queue_ahead)
 
 
 def phase_p2_crossover(torch, image, inputs, card):
@@ -4002,7 +4227,9 @@ def phase_p2_crossover(torch, image, inputs, card):
     px): (patches, psfs, cot)}), CUDA events (``auto_ms``): the direct
     kernels where their launchers take the PSF (``p2_max_kw``,
     ``p2_dpsf_max_kw``), the FFT route's kernels, and the torch.fft product
-    and correlation. Returns {label: {key: ms}}."""
+    and correlation, each back to back (``key``) and queued behind a sleep
+    kernel (``key_queued``: the device's time alone). Returns {label: {key:
+    ms}}."""
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
     out = {}
@@ -4021,6 +4248,7 @@ def phase_p2_crossover(torch, image, inputs, card):
         with torch.no_grad():
             for key, fn in calls.items():
                 ms[key] = auto_ms(torch, fn)
+                ms[f"{key}_queued"] = auto_ms(torch, fn, queue_ahead=True)
         label = f"{name} {px}^2 K={kh}"
         out[label] = ms
         print(f"time P2 routes at {label}, patches {tuple(patches.shape)}: " + ", ".join(
@@ -4212,8 +4440,9 @@ def add_issue_bounds(entries, rates, shapes):
     card's measured FP32 issue rate (P1's fma rate, one instruction per add
     or multiply: the kernels are built without FMA contraction), each sqrt,
     division and acosf weighted by P1's measured sqrt and div weights
-    (acosf at the sqrt weight: no instruction count of it was made), for the
-    entry's main mode at its timed shape. ``shapes`` maps a family (k1-k4,
+    (acosf at the sqrt weight: no instruction count of it was made), K1's and
+    K2's exact shortcuts at their instruction counts (``FAST_SQRT_ISSUES``,
+    ``FAST_DIV_ISSUES``), for the entry's main mode at its timed shape. ``shapes`` maps a family (k1-k4,
     and 'opl_k1'..'opl_k4') to its timed shape. An entry that also carries
     the plain or full mode's time (``ms_plain``, ``ms_full``) gets that
     mode's bound beside it (``bound_ms_issue_plain``, ``_full``)."""
@@ -4231,13 +4460,13 @@ def add_issue_bounds(entries, rates, shapes):
             if suffix and f"ms{suffix}" not in e:
                 continue
             if family in ("k1", "k2"):
-                ops, sq, dv, ac = k1_ops(penalties, n_surf, n_sides, backward)
+                n = k1_ops(penalties, n_surf, n_sides, backward)
             else:
-                ops, sq, dv, ac = k3_ops(penalties, n_surf, shape["n_asph"],
-                                         shape["newton_steps"], backward, n_sides)
-            if opl:
-                ops += (4 if backward else 2) * (n_surf + 1)
-            weighted = ops + (w_s - 1) * (sq + ac) + (w_d - 1) * dv
+                n = k3_ops(penalties, n_surf, shape["n_asph"], shape["newton_steps"], backward,
+                           n_sides)
+            ops = n.total + ((4 if backward else 2) * (n_surf + 1) if opl else 0)
+            weighted = (ops + (w_s - 1) * (n.sqrt + n.acos) + (w_d - 1) * n.div
+                        + (FAST_SQRT_ISSUES - 1) * n.fast_sqrt + (FAST_DIV_ISSUES - 1) * n.fast_div)
             e[f"bound_ms_issue{suffix}"] = shape["n_rays"] * weighted / rate * 1e3
 
 
@@ -4321,7 +4550,9 @@ def p2_times(torch, zoo, simulator, imaging, image):
     33, 47, 95) and config 5's 4096^2 (K = 47), ``p2_default_{px}`` and
     ``p2_c5_4096``; and d/dpsf by the tree's route (its ``_p2_dpsf``, or a
     tree without an FFT route its direct kernel) there and at config 5's
-    1024^2 and 2048^2, ``dpsf_default_{px}``, ``dpsf_c5_{px}``."""
+    1024^2 and 2048^2, ``dpsf_default_{px}``, ``dpsf_c5_{px}``, back to back,
+    and queued behind a sleep kernel (the device's time alone) as
+    ``..._queued``."""
     cfg = imaging_config(simulator)
     specs, lens = zoo.build("double_gauss", device="cuda")
     ms = {}
@@ -4344,6 +4575,8 @@ def p2_times(torch, zoo, simulator, imaging, image):
                 ms[f"p2_{tag}_{px}"] = auto_ms(torch, lambda: image.svola_patch_conv(patches,
                                                                                       psfs))
             ms[f"dpsf_{tag}_{px}"] = auto_ms(torch, lambda: dpsf(patches, cot, k))
+            ms[f"dpsf_{tag}_{px}_queued"] = auto_ms(torch, lambda: dpsf(patches, cot, k),
+                                                     queue_ahead=True)
     return ms
 
 
@@ -4386,25 +4619,101 @@ def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
     return out
 
 
+# The kernels whose SASS ``kernel_turns`` counts: K1 forward (every
+# instantiation), K2 forward and d/dpsf.
+SASS_KERNELS = ("k1_fwd_kernel", "k2_fwd_kernel", "p2_dpsf_kernel")
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def sass_summary(lib_path, out_dir=None):
+    """Instruction counts of ``SASS_KERNELS``'s instantiations in the library
+    at ``lib_path`` (``cuobjdump -sass``): per function (its name with the
+    template arguments, as ``ptxas_summary`` gives them), the instructions
+    up to its last EXIT (``main``; what follows are the out-of-line slow
+    paths of the IEEE square root and division), its longest loop (the
+    instructions from a backward branch's target to the branch: the
+    runtime-S surface loop), and of ``main`` the MUFU, FP32 (FFMA, FMUL,
+    FADD, FMNMX), FSEL/SEL, FSETP/ISETP, shared-memory load, branch (BRA,
+    BSSY, BSYNC, CALL) and DFMA counts. With ``out_dir`` the functions' SASS
+    goes to ``<out_dir>/sass_<library>.txt``."""
+    cuobjdump = str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=600, check=True).stdout
+    groups = {"mufu": ("MUFU",), "fp32": ("FFMA", "FMUL", "FADD", "FMNMX"),
+              "select": ("FSEL", "SEL"), "compare": ("FSETP", "ISETP"), "lds": ("LDS",),
+              "branch": ("BRA", "BSSY", "BSYNC", "CALL"), "dfma": ("DFMA",)}
+    out, kept = {}, []
+    for chunk in text.split("Function : ")[1:]:
+        raw = chunk.split()[0]
+        short = next((k for k in SASS_KERNELS if k in raw), None)
+        if not short:
+            continue
+        args = re.match(r"I((?:L[a-z]+\d+E)+)E", raw[raw.index(short) + len(short):])
+        name = short + ("<" + ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1))) + ">"
+                        if args else "")
+        # Instructions (address, opcode, words) and the labels' addresses
+        # (a branch names its target as an address or as a label).
+        ops, labels, pending = [], {}, []
+        for line in chunk.splitlines():
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                pending.append(label.group(1))
+                continue
+            m = SASS_LINE.search(line)
+            if not m or not m.group(2).split():
+                continue
+            addr, words = int(m.group(1), 16), m.group(2).split()
+            labels.update({name: addr for name in pending})
+            pending = []
+            op = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+            if op != "NOP":
+                ops.append((addr, op, words))
+        exits = [addr for addr, op, _ in ops if op == "EXIT"]
+        main = [o for o in ops if not exits or o[0] <= exits[-1]]
+        loop = 0
+        for addr, op, words in main:
+            target = None
+            for w in words[1:]:
+                w = w.strip("`(),")
+                if re.fullmatch(r"0x[0-9a-f]+", w):
+                    target = int(w, 16)
+                elif w in labels:
+                    target = labels[w]
+            if op == "BRA" and target is not None and target < addr:
+                loop = max(loop, sum(1 for a, _, _ in main if target <= a <= addr))
+        counts = {"main": len(main), "all": len(ops), "longest_loop": loop}
+        for key, names in groups.items():
+            counts[key] = sum(1 for _, op, _ in main if op.split(".")[0] in names)
+        out[name] = counts
+        kept.append(f"Function : {name}\n{chunk}")
+    if out_dir:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        Path(out_dir, f"sass_{Path(lib_path).stem}.txt").write_text("".join(kept))
+    return out
+
+
 def kernel_turns(trees, card, families=KERNEL_FAMILIES):
     """``kernel_times`` of the trees given and of this checkout in turns, one
     process each: the trees, this checkout twice, the trees in reverse (old,
     new, new, old for one tree). The kernels of every tree are built first,
-    all trees at once (``build_s``: the seconds that took). Returns each
-    key's times per tree in run order, their medians and this checkout's
-    median over each tree's."""
+    all trees at once (``build_s``: the seconds that took), and each tree's
+    SASS counted (``sass_summary``). Returns each key's times per tree in run
+    order, their medians and this checkout's median over each tree's."""
     here = str(Path(__file__).resolve().parent)
     roots = [str(Path(t).resolve()) for t in trees] + [here]
     start = time.perf_counter()
     build = ("import sys; sys.path.insert(0, sys.argv[1]); "
-             "from torchoptics_tpu_torch.ops import _kernels; _kernels.build()")
+             "from torchoptics_tpu_torch.ops import _kernels; print(_kernels.build())")
     builds = [subprocess.Popen([sys.executable, "-c", build, root], stdout=subprocess.PIPE,
                                stderr=subprocess.STDOUT, text=True) for root in roots]
+    sass = {}
     for root, proc in zip(roots, builds):
         text = proc.communicate()[0]
         check(proc.returncode == 0, f"kernel build of {root}: exit {proc.returncode}\n"
               + text[-4000:])
+        sass[root] = sass_summary(text.strip().splitlines()[-1], Path(here) / "chiprun_out")
     build_s = time.perf_counter() - start
+    print(json.dumps({"sass": sass}), flush=True)
     order = roots[:-1] + [here, here] + roots[-2::-1]
     runs = []
     for root in order:
@@ -4425,17 +4734,18 @@ def kernel_turns(trees, card, families=KERNEL_FAMILIES):
         table[key] = {"runs": dict(per_tree), "median": med,
                       "ratio_to": {root: med[here] / m if m else None
                                    for root, m in med.items() if root != here}}
-    return {"card": card, "this": here, "build_s": build_s, "kernels": table}
+    return {"card": card, "this": here, "build_s": build_s, "sass": sass, "kernels": table}
 
 
-def add_resources(entries, summary, n_asph, k2_surf):
+def add_resources(entries, summary, n_asph, k2_surf, k1_surf):
     """Each trace kernel entry's registers, stack frame and spills (bytes)
     from the build's ``-Xptxas -v`` report (``ptxas_summary``'s lines), for
     the instantiation its main numbers time: its mode, backward rays
     allowed, K2 and K4 unmasked, K3 and K4 at the timed asphere term count
     (``n_asph``: {"k3": K, "k4": K}), K2 backward at the timed population's
-    surface count ``k2_surf`` (its own kernel, or 0 where it has none); P2's
-    at kw = 11, its timed shape's."""
+    surface count ``k2_surf`` (its own kernel, or 0 where it has none), K1
+    forward at the flagship's ``k1_surf`` likewise; P2's and d/dpsf's at
+    kw = 11, their timed shape's."""
     found = {}
     for line in summary:
         name, rest = line.split(": ", 1)
@@ -4450,8 +4760,8 @@ def add_resources(entries, summary, n_asph, k2_surf):
         family = name[:2]
         if name == "p2_svola":  # the 1024^2 render's kw
             e.update(found.get("p2_svola_kernel<11>", {}))
-        if name == "p2_dpsf":
-            e.update(found.get("p2_dpsf_kernel", {}))
+        if name == "p2_dpsf":  # its kernel at kw = 11, config 5's 1024^2 render
+            e.update(found.get("p2_dpsf_kernel<11>", {}))
         if name in ("p2_fft", "p2_dpsf_fft"):  # the same three kernels
             e["passes"] = {k: found.get(k, {}) for k in ("fft_rows_fwd", "fft_cols",
                                                          "fft_rows_inv")}
@@ -4459,7 +4769,8 @@ def add_resources(entries, summary, n_asph, k2_surf):
             continue
         mode = 3 if name.endswith("_opl") else 2 if name.endswith("_full") else 1
         rest = {"k1": "", "k2": ",0", "k3": f",{n_asph['k3']}", "k4": f",0,{n_asph['k4']}"}
-        ns = f",{k2_surf}" if name.startswith("k2_bwd") else ""
+        ns = (f",{k2_surf}" if name.startswith("k2_bwd") else
+              f",{k1_surf}" if name.startswith("k1_fwd") else "")
         e.update(found.get(f"{name[:6]}_kernel<{mode},1{rest[family]}{ns}>", {}))
 
 
@@ -4532,6 +4843,8 @@ def main():
 
     with torch.no_grad():
         fwd_err = phase_forward(torch, zoo, simulator, fused_trace)
+    route_err = phase_k1_routes(torch, zoo, simulator, fused_trace, fused_batch)
+    fwd_err = {key: max(err, route_err[key]) for key, err in fwd_err.items()}
     bwd_err = phase_backward(torch, zoo, simulator, fused_trace)
     serve_launches = phase_serve(torch, zoo, simulator, fused_trace, entry)
     train_launches = phase_train(torch, zoo, simulator, fused_trace, LensOptimizer)
@@ -4610,9 +4923,10 @@ def main():
     add_issue_bounds(entries, p1[0], {"k1": shape, "k2": k2_shape, "k3": k3_shape,
                                       "k4": k4_shape,
                                       **{f"opl_{k}": v for k, v in opl_shapes.items()}})
+    lib = _kernels.load()
     add_resources(entries, resources, {"k3": k3_shape["n_asph"], "k4": k4_shape["n_asph"]},
-                  k2_shape["n_surf"] if _kernels.load().k2_bwd_specialized(k2_shape["n_surf"])
-                  else 0)
+                  k2_shape["n_surf"] if lib.k2_bwd_specialized(k2_shape["n_surf"]) else 0,
+                  shape["n_surf"] if lib.k1_fwd_specialized(shape["n_surf"]) else 0)
     for e in entries:
         if e["name"][:6] in ("k1_bwd", "k2_bwd", "k3_bwd", "k4_bwd"):
             e["ragged_param_max_rel_err"] = ragged[e["name"][:2]]

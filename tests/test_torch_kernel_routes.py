@@ -2,16 +2,18 @@
 sources.
 
 No CPU can build the kernels, so these tests read the ``.cu`` text: each
-launcher's list of routed sizes (P2's ``SPECIALIZED_KW``, K2 backward's
-``SHORT_SURF``), the ``switch`` that dispatches on the size, and the
-instantiation each ``case`` launches. A size in the list without a ``case``
-that launches its own instantiation, or a ``case`` outside the list, fails.
-The imaging renders' PSF sizes (256^2 to 2048^2 at BASELINE config 5) and the
-zoo populations' surface counts that the port's main paths run must each be
-routed to a specialised kernel, and every render from 256^2 to 4096^2, at
-config 5 and at the default configuration (PSFs up to 95 taps), must pass
-P2's and its d/dpsf's argument checks and take the intended route: the
-direct kernels below the FFT route's thresholds (``image.P2_FFT_MIN_KW``,
+launcher's list of routed sizes (P2's and its d/dpsf's ``SPECIALIZED_KW``,
+K1 forward's and K2 backward's ``SHORT_SURF``), the ``switch`` that
+dispatches on the size, and the instantiation each ``case`` launches. A
+size in the list without a ``case`` that launches its own instantiation, or
+a ``case`` outside the list, fails. The imaging renders' PSF sizes (256^2
+to 2048^2 at BASELINE config 5; those on d/dpsf's direct route too) and the
+zoo systems' surface counts that the port's main paths run (the
+populations, K1 forward's double-Gauss and Cooke) must each be routed to a
+specialised kernel, and every render from 256^2 to 4096^2, at config 5 and
+at the default configuration (PSFs up to 95 taps), must pass P2's and its
+d/dpsf's argument checks and take the intended route: the direct kernels
+below the FFT route's thresholds (``image.P2_FFT_MIN_KW``,
 ``P2_DPSF_FFT_MIN_KW``), whose widths the direct kernels' sources fix as
 ``MAX_K``, and the FFT route (``csrc/svola_fft.cu``) from there.
 """
@@ -27,17 +29,27 @@ from torchoptics_tpu_torch.ops import image
 
 CSRC = Path(__file__).resolve().parents[1] / "torchoptics_tpu_torch" / "csrc"
 
-# (source, the routed list, the launcher's case pattern: label, instantiation)
+# (source, the routed list, the launcher's case pattern: label, instantiation;
+# the launch of the runtime-size instantiation, 0, that every other size
+# falls to)
 ROUTES = {
     "p2": ("svola_conv.cu", "SPECIALIZED_KW",
-           r"case (\d+):\s*return \(int\)launch<(\d+)>\("),
+           r"case (\d+):\s*return \(int\)launch<(\d+)>\(",
+           r"default:\s*return \(int\)launch<0>\("),
+    "p2_dpsf": ("svola_conv_bwd.cu", "SPECIALIZED_KW",
+                r"case (\d+):\s*return \(int\)launch<(\d+)>\(",
+                r"default:\s*return \(int\)launch<0>\("),
+    "k1f": ("fused_trace_fwd.cu", "SHORT_SURF",
+            r"case (\d+):\s*return launch<MODE, ALLOW_BACKWARD, (\d+)>\(",
+            r"default:\s*return launch<MODE, ALLOW_BACKWARD, 0>\("),
     "k2b": ("fused_batch_bwd.cu", "SHORT_SURF",
-            r"case (\d+):\s*return launch<MODE, ALLOW_BACKWARD, MASKED, (\d+)>\("),
+            r"case (\d+):\s*return launch<MODE, ALLOW_BACKWARD, MASKED, (\d+)>\(",
+            r"default:\s*return launch<MODE, ALLOW_BACKWARD, MASKED, 0>\("),
 }
 
 
 def _routes(kernel):
-    source, name, case = ROUTES[kernel]
+    source, name, case, _ = ROUTES[kernel]
     text = (CSRC / source).read_text()
     listed = re.search(rf"constexpr int {name}\[\] = \{{([^}}]*)\}};", text)
     assert listed, f"{source} has no {name}"
@@ -55,8 +67,7 @@ def test_every_routed_size_has_its_instantiation(kernel):
     # The C query the tests and chip_smoke.py ask reads the same list, and
     # every other size falls to the runtime-size instantiation (0).
     assert re.search(rf"for \(int k : {ROUTES[kernel][1]}\)", text)
-    assert re.search(r"default:\s*return (\(int\))?launch<(MODE, ALLOW_BACKWARD, MASKED, )?0>\(",
-                     text)
+    assert re.search(ROUTES[kernel][3], text)
 
 
 def test_main_paths_reach_the_specialised_kernels():
@@ -71,6 +82,12 @@ def test_main_paths_reach_the_specialised_kernels():
     surfaces = {len(zoo.get_prescription(name)["c"]) for name in ("cooke", "double_gauss")}
     assert surfaces == {7, 11}
     assert surfaces <= set(_routes("k2b")[1])
+    # K1 forward: the double-Gauss of the flagship paths and the Cooke of
+    # RaytracedOptics; d/dpsf: the image-loss renders' PSF widths that take
+    # the direct kernel.
+    assert surfaces <= set(_routes("k1f")[1])
+    direct = {kw for kw in kws if not image.p2_takes_fft((kw, kw), adjoint=True)}
+    assert direct and direct <= set(_routes("p2_dpsf")[1])
 
 
 RENDER_CONFIGS = {

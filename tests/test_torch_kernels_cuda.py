@@ -8,7 +8,12 @@ on a machine with the card but without JAX:
 
 K1 forward is built without FMA contraction and must agree with its plain
 version bit for bit on coordinates and masks; the Lu and full penalty sums
-within 1e-5 (acosf rounding, measured <= 2e-6 on an H100). K1 backward must
+within 1e-5 (acosf rounding, measured <= 2e-6 on an H100), on each of its
+routes (the 7- and 11-surface kernels and the runtime-S kernel at 64
+surfaces) and on odd lanes (NaN, 1e30, -inf), NaN where the plain version's
+is; theta_norm's division by pi / 2 in the kernel is the IEEE division on
+every float32 in [2^-100, 4), and the surface step's roots sqrtf from
+2^-100 to +inf (exhaustive checks). K1 backward must
 agree with its plain version bit for bit on the per-ray cotangents, and its
 parameter sums (double sums in another order than the plain version's
 float64 sums, rounded to float32) within 1e-5 of their largest magnitude; two launches on the
@@ -28,9 +33,10 @@ SVOLA patch convolution, bit for bit with its plain version (the same tap
 order, no FMA contraction); PSFs from 33 taps take its FFT route
 (``csrc/svola_fft.cu``), bit for bit with the route's plain version and
 within 1e-5 of the largest entry of the float64 torch.fft product; its
-adjoint: d/dpsf (from 23 taps the FFT route's correlation, within 1e-4 of
-the float64 one) and d/dpatch bit for bit with their routes' plain
-versions, and a backward launches d/dpatch only when the patches need it;
+adjoint: d/dpsf (from ``P2_DPSF_FFT_MIN_KW`` taps the FFT route's
+correlation, within 1e-4 of the float64 one) and d/dpatch bit for bit with
+their routes' plain versions, the direct d/dpsf kernel alone at K = 1 to 22,
+and a backward launches d/dpatch only when the patches need it;
 P1's chains:
 sqrt and div bit for bit with their plain versions, fma within one float32
 ulp a step, relative (``fmaf`` rounds once, the plain ``a * k1 + k2``
@@ -38,7 +44,9 @@ twice); a small
 render on the card against the CPU's.
 """
 
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -49,9 +57,16 @@ from torchoptics_tpu_torch.ops import fused_trace
 
 pytestmark = pytest.mark.cuda
 
+# The card checks' cases and comparisons that chip_smoke.py runs too
+# (K1_ROUTE_CASES, k1_route_inputs, k1_route_compare, DPSF_SHAPES,
+# dpsf_direct_case); the module imports only the standard library and numpy.
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
 CONFIG = dict(n_sampled_fields=16, n_pupil_rings=96, pupil_sampling="circular",
               n_ray_aiming_iter=1)
-MODES = [(True, True), (True, False), (False, True), (False, False)]
 PENALTY_MODES = [False, True, "full"]
 # Tight bounds, so that the path and angle hinges fire.
 LOWER, UPPER, THR = (0.5, 1.5, 12.0), (None, 3.0, 40.0), math.cos(math.radians(30.0)) ** 2
@@ -64,28 +79,30 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("c_scale", [1.0, 3.0])
-@pytest.mark.parametrize("penalties,allow_backward", MODES)
-def test_k1_forward_matches_plain_version(cuda, c_scale, penalties, allow_backward):
-    cfg = simulator.SimulatorConfig(**CONFIG).trace_config()
-    specs, lens = zoo.build("double_gauss", device=cuda)
-    lens = lens.replace(c=lens.c * c_scale)
-    with torch.no_grad():
-        xp, yp, cyb, z0, mu, (_, F, P, _) = fused_trace.prepare_fused_inputs(
-            specs, lens, cfg)
-        args = (xp, yp, cyb, z0, lens.c[0], lens.t[0], mu)
-        before = fused_trace.K1_FWD_LAUNCHES
-        got = fused_trace.trace_fused(*args, penalties, allow_backward, F * P)
-        want = fused_trace.trace_fused_reference(*args, penalties, allow_backward, F * P)
-        torch.cuda.synchronize()
-    assert fused_trace.K1_FWD_LAUNCHES == before + 1
-    assert len(got) == len(want) == (9 if penalties else 6)
-    for a, b in zip(got[:6], want[:6]):
-        assert torch.equal(a, b)
-    for a, b in zip(got[6:], want[6:]):
-        assert float((a - b).abs().max()) <= 1e-5
-    if c_scale == 3.0:
-        assert 0 < float(got[4].float().mean()) < 1
+@pytest.mark.parametrize("allow_backward", [True, False])
+@pytest.mark.parametrize("penalties", [False, True, "full", "opl"])
+@pytest.mark.parametrize("case", [c[0] for c in chip_smoke.K1_ROUTE_CASES])
+def test_k1_forward_matches_plain_version(cuda, case, penalties, allow_backward):
+    """K1 forward on each of its routes (``chip_smoke.K1_ROUTE_CASES``: the
+    double-Gauss and its c x 3 on the 11-surface kernel, the Cooke on the
+    7-surface kernel, 64 surfaces on the runtime-S kernel, the first 8 rays
+    odd lanes: NaN, 1e30, -inf), every mode and policy, against its plain
+    version (``chip_smoke.k1_route_compare``): masks, coordinates and the
+    opl bit for bit, NaN where the plain version's is; theta_norm's sums
+    within 1e-5 on every lane (the kernel takes the roots that the surface
+    step took), relu(z) and the hinges within 1e-5 past the odd lanes; one
+    launch; K2 at B = 1 equal to K1 bit for bit."""
+    from torchoptics_tpu_torch.ops import _kernels, fused_batch
+    _, name, c_scale, width = next(c for c in chip_smoke.K1_ROUTE_CASES if c[0] == case)
+    inputs = chip_smoke.k1_route_inputs(torch, zoo, simulator, fused_trace, name, c_scale, width)
+    n_surf = inputs[0][4].shape[0]
+    assert _kernels.load().k1_fwd_specialized(n_surf) == (n_surf in (7, 11))
+    r = chip_smoke.k1_route_compare(torch, fused_trace, fused_batch, inputs, penalties,
+                                    allow_backward)
+    assert r["launches"] == 1
+    assert len(r["got"]) == {False: 6, True: 9, "full": 11, "opl": 7}[penalties]
+    assert r["bits"] and r["pen_nan"] and r["pen"] <= 1e-5 and r["k2_same"]
+    assert bool(torch.isnan(r["got"][0][:8]).any()) and 0 < float(r["got"][4].float().mean()) < 1
 
 
 def test_k1_forward_refuses_bad_inputs(cuda):
@@ -306,6 +323,21 @@ def test_k2_population_of_one_is_k1(cuda, n_rings):
                                             allow_backward, n_per_w, None, bounds, THR)
             assert all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(g1, g2)), (
                 penalties, allow_backward)
+
+
+def test_k1_exact_shortcuts_match_ieee(cuda):
+    """theta_norm's division by pi / 2 in K1 and K2 forward (div_half_pi: a
+    product and two FMAs) equals the IEEE division on every float32 in
+    [2^-100, 4), where acosf's results on the clipped arguments lie; the
+    surface step's roots (sqrt_from_eps: sqrtf's fast path without its
+    range check) equal sqrtf on every float32 from 2^-100 to +inf, NaN on
+    NaN."""
+    from torchoptics_tpu_torch.ops import _kernels
+    mismatches = torch.zeros(2, dtype=torch.int64, device=cuda)
+    err = _kernels.load().k1_exact_checks(mismatches.data_ptr(),
+                                          torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and mismatches.tolist() == [0, 0]
 
 
 def test_population_paths_on_gpu_match_cpu(cuda):
@@ -1344,7 +1376,7 @@ def test_p2_adjoint_matches_plain_versions(cuda, shape):
     # d/dpatch is one P2 call by P2's route; the direct d/dpsf launches its
     # kernel once a group of patch-channels, the groups' partials within
     # 64 MB; the FFT route three kernels a call.
-    fft, fft_d = max(kh, kw) >= 33, max(kh, kw) >= 23
+    fft, fft_d = max(kh, kw) >= image.P2_FFT_MIN_KW, max(kh, kw) >= image.P2_DPSF_FFT_MIN_KW
     assert (image.p2_takes_fft((kh, kw)), image.p2_takes_fft((kh, kw), True)) == (fft, fft_d)
     assert [getattr(image, n) - b for n, b in zip(names, before)] == [
         0 if fft else 1, 3 if fft else 0,
@@ -1364,6 +1396,21 @@ def test_p2_adjoint_matches_plain_versions(cuda, shape):
     p2 = (image.P2_LAUNCHES, image.P2_FFT_LAUNCHES)
     assert torch.equal(torch.autograd.grad(out, psfs, cot)[0], want_psf)
     assert (image.P2_LAUNCHES, image.P2_FFT_LAUNCHES) == p2
+
+
+@pytest.mark.parametrize("shape", chip_smoke.DPSF_SHAPES)
+def test_p2_dpsf_direct_matches_plain_version(cuda, shape):
+    """The direct d/dpsf kernel (register-blocked: a tap row and a chunk of
+    tap columns a thread, several tiles a block) bit for bit with its plain
+    version on ``chip_smoke.DPSF_SHAPES`` (K = 1 to 22, non-square PSFs,
+    ragged tail tiles); its launches one a group of patch-channels."""
+    from torchoptics_tpu_torch.ops import _kernels, image
+    lib = _kernels.load()
+    P, ph, pw, C, kh, kw = shape
+    assert lib.p2_dpsf_specialized_kw(kw) == (kw in (3, 5, 11))
+    got, want, launches = chip_smoke.dpsf_direct_case(torch, image, shape)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    assert launches == lib.p2_dpsf_launches(P, C, ph, pw, kh, kw)
 
 
 @pytest.mark.parametrize("op", ["fma", "sqrt", "div"])

@@ -42,17 +42,25 @@
 // operations per leg (a product and a sum) and writes 22 B per ray; its table
 // is (S+1) W floats, read once per block.
 //
-// Design: one thread per ray, a runtime loop over surfaces (at most
-// MAX_SURF), the per-surface tables c, t and mu read once per block into
-// shared memory, z0 read from device memory (the host never synchronizes),
-// the mode and the backward-ray policy as template parameters, the ragged
-// tail masked by i < n. Ray i has wavelength min(i / n_per_w, W - 1): the
-// wavelength-outer flat order of the front-end. The per-ray trace itself
-// (trace_ray) and the surface math live in trace_common.cuh, shared with the
-// population kernel K2 (fused_batch_fwd.cu).
-//
-// Left for later work: any tuning (several rays per thread, vectorized
-// 16-byte loads, fast-math variants that keep the masks identical).
+// Design: one thread per ray, the per-surface tables c, t and mu read once
+// per block into shared memory, z0 read from device memory (the host never
+// synchronizes), the mode and the backward-ray policy as template
+// parameters, the ragged tail masked by i < n. Ray i has wavelength
+// min(i / n_per_w, W - 1): the wavelength-outer flat order of the
+// front-end. The per-ray trace itself (trace_ray) and the surface math live
+// in trace_common.cuh, shared with the population kernel K2
+// (fused_batch_fwd.cu). The surface counts of the port's single-system
+// paths (SHORT_SURF: 7, the Cooke triplet's; 11, the double-Gauss's) have
+// kernels of their own, the count fixed at compile time (trace_ray's NS):
+// the surface loop unrolls, the tables are read at immediate offsets and the
+// loop's own instructions go. Any other count (up to MAX_SURF) runs the
+// runtime-S kernel. In Lu and full mode the two theta_norm a surface take
+// the square roots of cos2 and cos2' that the surface step took
+// (theta_norm_root): two IEEE square roots a surface fewer, bit for bit;
+// and their divisions by pi / 2 are a product and two FMAs (div_half_pi),
+// equal to the IEEE division on every float32 that acosf can return. The
+// surface step's three roots take the IEEE square root's fast path without
+// its range check and branch (sqrt_from_eps), which the masks make exact.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC. No --use_fast_math: the masks compare
@@ -60,14 +68,18 @@
 // contraction either: the plain PyTorch version rounds every product and sum
 // separately, and a contracted kernel flips masks on lanes at a threshold of
 // the c x 3 double-Gauss; uncontracted, the two agree bit for bit in plain
-// mode. 29-32 registers per thread, no spills, 8.7 KB of shared memory.
+// mode. The registers, stack and spills of each instantiation are in the
+// build's -Xptxas -v report (PERF.md, section 6).
 
 #include "trace_common.cuh"
 
 namespace {
 
-// MODE: 0 plain, 1 Lu, 2 full, 3 opl.
-template <int MODE, bool ALLOW_BACKWARD>
+// The surface counts with a kernel of their own (NS).
+constexpr int SHORT_SURF[] = {7, 11};
+
+// MODE: 0 plain, 1 Lu, 2 full, 3 opl. NS: the surface count, or 0 for any.
+template <int MODE, bool ALLOW_BACKWARD, int NS>
 __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ yp,
     const float* __restrict__ cy_in, const float* __restrict__ z0,
@@ -89,8 +101,8 @@ __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int w = min(i / n_per_w, n_w - 1);
-  const RayOut r = trace_ray<MODE, ALLOW_BACKWARD, false>(tab, n_surf, n_w, w, angle_thr,
-                                                          xp[i], yp[i], cy_in[i], *z0);
+  const RayOut r = trace_ray<MODE, ALLOW_BACKWARD, false, NS>(tab, n_surf, n_w, w, angle_thr,
+                                                              xp[i], yp[i], cy_in[i], *z0);
   x_out[i] = r.x;
   y_out[i] = r.y;
   cx_out[i] = r.cx;
@@ -109,15 +121,59 @@ __global__ void __launch_bounds__(BLOCK) k1_fwd_kernel(
   if (MODE == 3) opl_out[i] = r.opl;
 }
 
-template <int MODE, bool ALLOW_BACKWARD>
-void launch(const float* const* in, float angle_thr, int n, int n_surf, int n_w,
-            int n_per_w, float* const* outs, bool* ok_out, bool* bw_out,
-            float* const* pens, cudaStream_t stream) {
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  k1_fwd_kernel<MODE, ALLOW_BACKWARD><<<grid, BLOCK, 0, stream>>>(
+// One launch's arguments, as k1_fwd_launch takes them.
+struct Args {
+  const float* const* in;  // xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, n_legs
+  float angle_thr;
+  int n, n_surf, n_w, n_per_w;
+  float* const* outs;      // x, y, cx, cy
+  bool* ok_out;
+  bool* bw_out;
+  float* const* pens;      // pen_theta, pen_theta_p, pen_zrelu, pen_path, pen_ang, opl
+  cudaStream_t stream;
+};
+
+template <int MODE, bool ALLOW_BACKWARD, int NS>
+void launch(const Args& a) {
+  const int grid = (a.n + BLOCK - 1) / BLOCK;
+  const float* const* in = a.in;
+  k1_fwd_kernel<MODE, ALLOW_BACKWARD, NS><<<grid, BLOCK, 0, a.stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
-      angle_thr, n, n_surf, n_w, n_per_w, outs[0], outs[1], outs[2], outs[3], ok_out,
-      bw_out, pens[0], pens[1], pens[2], pens[3], pens[4], pens[5]);
+      a.angle_thr, a.n, a.n_surf, a.n_w, a.n_per_w, a.outs[0], a.outs[1], a.outs[2],
+      a.outs[3], a.ok_out, a.bw_out, a.pens[0], a.pens[1], a.pens[2], a.pens[3], a.pens[4],
+      a.pens[5]);
+}
+
+template <int MODE, bool ALLOW_BACKWARD>
+void launch_surf(const Args& a) {
+  switch (a.n_surf) {
+    case 7:
+      return launch<MODE, ALLOW_BACKWARD, 7>(a);
+    case 11:
+      return launch<MODE, ALLOW_BACKWARD, 11>(a);
+    default:
+      return launch<MODE, ALLOW_BACKWARD, 0>(a);
+  }
+}
+
+// The exhaustive checks of div_half_pi and sqrt_from_eps against the IEEE
+// division and square root: mismatches[0] counts the float32 x in
+// [2^-100, 4) (bit patterns 0x0d800000 .. 0x407fffff) where div_half_pi(x)
+// and x / HALF_PI differ in any bit; mismatches[1] those from 2^-100 to +inf
+// (0x0d800000 .. 0x7f800000) where sqrt_from_eps(x) and sqrtf(x) differ in
+// any bit, and the NaN (0x7f800001 .. 0x7fffffff) where either is no NaN.
+__global__ void exact_checks_kernel(unsigned long long* mismatches) {
+  constexpr unsigned START = 0x0d800000u, DIV_END = 0x40800000u, INF = 0x7f800000u;
+  unsigned long long bad_div = 0, bad_sqrt = 0;
+  for (unsigned b = START + blockIdx.x * blockDim.x + threadIdx.x; b <= 0x7fffffffu;
+       b += gridDim.x * blockDim.x) {
+    const float x = __uint_as_float(b);
+    if (b < DIV_END) bad_div += __float_as_uint(div_half_pi(x)) != __float_as_uint(x / HALF_PI);
+    const float r = sqrt_from_eps(x), want = sqrtf(x);
+    bad_sqrt += b <= INF ? __float_as_uint(r) != __float_as_uint(want) : !(r != r && want != want);
+  }
+  if (bad_div) atomicAdd(mismatches, bad_div);
+  if (bad_sqrt) atomicAdd(mismatches + 1, bad_sqrt);
 }
 
 }  // namespace
@@ -127,6 +183,22 @@ extern "C" {
 int k1_max_surf() { return MAX_SURF; }
 
 int k1_max_w() { return MAX_W; }
+
+// 1 where n_surf has a forward kernel of its own, 0 where it takes the
+// runtime-S one.
+int k1_fwd_specialized(int n_surf) {
+  for (int k : SHORT_SURF)
+    if (k == n_surf) return 1;
+  return 0;
+}
+
+// The exhaustive checks of div_half_pi and sqrt_from_eps (exact_checks_kernel):
+// adds their mismatch counts to mismatches[0] and mismatches[1] (device
+// memory, zeroed by the caller).
+int k1_exact_checks(unsigned long long* mismatches, void* stream) {
+  exact_checks_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(mismatches);
+  return (int)cudaGetLastError();
+}
 
 // Launches K1 forward on `stream` and returns cudaGetLastError() (0 on
 // success). mode: 0 plain, 1 Lu (pen_theta, pen_theta_p, pen_zrelu), 2 full
@@ -144,22 +216,20 @@ int k1_fwd_launch(const float* xp, const float* yp, const float* cy,
                   void* stream) {
   if (bad_shape(n_surf, n_w, n_per_w, n, mode)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
   const float* const in[11] = {xp, yp, cy, z0, c, t, mu, ref_z, lo, hi, n_legs};
   float* const outs[4] = {x_out, y_out, cx_out, cy_out};
   float* const pens[6] = {pen_theta, pen_theta_p, pen_zrelu, pen_path, pen_ang, opl_out};
-#define K1_FWD_LAUNCH(M, AB) \
-  launch<M, AB>(in, angle_thr, n, n_surf, n_w, n_per_w, outs, ok_out, bw_out, pens, s)
+  const Args a{in, angle_thr, n, n_surf, n_w, n_per_w, outs, ok_out, bw_out, pens,
+               (cudaStream_t)stream};
   if (mode == 0) {
-    if (allow_backward) K1_FWD_LAUNCH(0, true); else K1_FWD_LAUNCH(0, false);
+    if (allow_backward) launch_surf<0, true>(a); else launch_surf<0, false>(a);
   } else if (mode == 1) {
-    if (allow_backward) K1_FWD_LAUNCH(1, true); else K1_FWD_LAUNCH(1, false);
+    if (allow_backward) launch_surf<1, true>(a); else launch_surf<1, false>(a);
   } else if (mode == 2) {
-    if (allow_backward) K1_FWD_LAUNCH(2, true); else K1_FWD_LAUNCH(2, false);
+    if (allow_backward) launch_surf<2, true>(a); else launch_surf<2, false>(a);
   } else {
-    if (allow_backward) K1_FWD_LAUNCH(3, true); else K1_FWD_LAUNCH(3, false);
+    if (allow_backward) launch_surf<3, true>(a); else launch_surf<3, false>(a);
   }
-#undef K1_FWD_LAUNCH
   return (int)cudaGetLastError();
 }
 

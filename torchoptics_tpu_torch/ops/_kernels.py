@@ -147,7 +147,12 @@ def load() -> ctypes.CDLL:
                  "p2_dpsf_max_kw", "p2_fft_max_len", "p2_fft_launches"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
-    for name in ("k2_bwd_specialized", "p2_specialized_kw"):
+    for name in ("k1_fwd_specialized", "k2_bwd_specialized", "p2_specialized_kw",
+                 "p2_dpsf_specialized_kw"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = i
+    # The exhaustive checks of div_half_pi and sqrt_from_eps: two mismatch
+    # counts (device int64), the stream.
+    lib.k1_exact_checks.argtypes = [p, p]
+    lib.k1_exact_checks.restype = i
     return lib

@@ -65,7 +65,7 @@ P2_DPSF_FFT_LAUNCHES = 0
 P2_FFT_MIN_KW = 33
 #: The same for d/dpsf (``csrc/svola_fft.cu`` or ``csrc/svola_conv_bwd.cu``):
 #: the FFT route's correlation was faster from K = 23, the direct kernel at
-#: K = 11 (config 5 at 1024^2).
+#: K = 11 (config 5 at 1024^2), before and after the direct kernel's redesign.
 P2_DPSF_FFT_MIN_KW = 23
 #: The FFT route's transform lengths: powers of two, 16 to 4096 points.
 P2_FFT_MIN_LEN, P2_FFT_MAX_LEN = 16, 4096
