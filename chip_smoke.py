@@ -27,9 +27,15 @@ hand-written CUDA kernel on them against its plain PyTorch version:
    policy: the double-Gauss and its c x 3 at 2,457,600 rays on the
    11-surface kernel, the Cooke on the 7-surface kernel, a seeded
    64-surface system on the runtime-S kernel, each with odd lanes (NaN,
-   1e30, -inf), and K2 at B = 1 equal to K1 there; and (3c) the exhaustive
+   1e30, -inf), and K2 at B = 1 equal to K1 there; (3c) the exhaustive
    checks of the trace kernels' exact shortcuts (``div_half_pi``,
-   ``sqrt_from_eps``) on every float32 of their domains;
+   ``sqrt_from_eps``) on every float32 of their domains; and (3d) K2 and
+   K4 forward, every mode and policy, unmasked and masked: the Cooke
+   populations (256 x 1,536 rays; K2's 7-surface kernel), the padded mixed
+   populations (K2's 11-surface kernel), seeded 64-surface populations
+   (K2's runtime-S kernel), K4 also at 3 and 1 asphere terms, each with
+   odd lanes (NaN, 1e30, -inf), against their plain versions; and their
+   resident blocks per SM and waves at the generator width;
 4. K1 backward against ``trace_fused_backward_reference`` at the same width,
    all three modes, both policies, both lenses, with seeded cotangents; two
    launches must agree bit for bit;
@@ -101,7 +107,8 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     per step, the first step's gradients held against the CPU on 8 systems;
     the grouped full loss of the mixed population, one K4 full launch per
     lens type, held against the CPU on 8 systems;
-22. timings: K4 and its plain versions per mode, the fwd+bwd of
+22. timings: K4 and its plain versions per mode, the Newton steps a lane
+    and a warp run on the timed population, the fwd+bwd of
     ``batched_unsupervised_loss`` and one population step (host clock);
     within phase 21, K4's training path at a fixed bar: the spot term's
     gradients on the defocused aspherized double-Gauss population, card vs
@@ -219,6 +226,11 @@ before that carries the kernels' numbers.
                                           # (of k1,k2,k3,k4,p2) times only
                                           # those
     python3 chip_smoke.py --ragged        # instead: phase 38 alone
+    python3 chip_smoke.py --population-routes  # instead: phase 3d alone
+    python3 chip_smoke.py --build-times TREE...  # instead: the kernel
+                                          # library's build time of each
+                                          # unpacked tree and of this
+                                          # checkout, one after another
     python3 chip_smoke.py --p2-fft        # instead: the FFT route's checks
                                           # and both routes' times at the
                                           # crossover renders (no result line)
@@ -276,6 +288,11 @@ TPU_K4_BWD = "torchoptics_tpu/ops/pallas_asphere.py:1075"
 PEAK_FLOPS = 67e12
 TRAINABLE = ("c", "t", "g", "kappa", "asph")
 PEAK_BYTES = 3.35e12
+# A penalty sum of the card within 8 float32 roundings of its largest value;
+# a parameter cotangent within one rounding of the plain version's float64
+# sum (both relative to the largest magnitude).
+PEN_ROUNDINGS = 8 * 2.0 ** -23
+ONE_ROUNDING = 2.0 ** -23
 # Bytes per ray: the inputs read once and the outputs written once.
 FWD_BYTES = {False: 30, True: 42, "full": 50}
 BWD_BYTES = {False: 40, True: 52, "full": 60}
@@ -284,9 +301,9 @@ BWD_BYTES = {False: 40, True: 52, "full": 60}
 #: A kernel's floating-point operations per ray (``total``, each sqrt,
 #: division and acosf counted as one) and, of them, its IEEE square roots,
 #: divisions and acosf, which the issue bounds weight by P1's rates, and the
-#: square roots and divisions by pi / 2 that K1 and K2 take by their exact
-#: shortcuts (``fast_sqrt``: sqrt_from_eps, ``fast_div``: div_half_pi in
-#: trace_common.cuh), which they weight by the shortcuts' instructions.
+#: square roots and divisions by pi / 2 that the trace kernels take by their
+#: exact shortcuts (``fast_sqrt``: sqrt_from_eps, ``fast_div``: div_half_pi
+#: in trace_common.cuh), which they weight by the shortcuts' instructions.
 OpCounts = collections.namedtuple("OpCounts", "total sqrt div acos fast_sqrt fast_div",
                                   defaults=(0, 0))
 #: Instructions a shortcut issues: sqrt_from_eps a MUFU.RSQ, two FMUL and two
@@ -647,11 +664,217 @@ def phase_k1_routes(torch, zoo, simulator, fused_trace, fused_batch):
     bad = mismatches.tolist()
     check(err == 0 and bad == [0, 0],
           f"phase 3c: exhaustive checks on the card ({took * 1e3:.1f} ms): div_half_pi "
-          f"(theta_norm's division by pi / 2 in K1f and K2f) equals the IEEE division on all "
+          f"(theta_norm's division by pi / 2 in K1f to K4f) equals the IEEE division on all "
           f"{n_div:,} float32 in [2^-100, 4), mismatches {bad[0]}; sqrt_from_eps (the surface "
-          f"step's roots in K1 and K2, forward and backward) equals sqrtf on all {n_sqrt:,} "
+          f"step's roots in K1 to K4, forward and backward) equals sqrtf on all {n_sqrt:,} "
           f"float32 from 2^-100 to +inf and NaN (NaN on NaN), mismatches {bad[1]}")
     return worst
+
+
+# K2 forward's routes (csrc/fused_batch_fwd.cu's SHORT_SURF and its
+# runtime-S kernel) and K4 forward's shapes (its one kernel a term count):
+# (label, population, K4's asphere terms). 'cooke': K2's Cooke population
+# (c x 1.5 on every 8th system, 7 surfaces) and K4's aspheric Cooke
+# population (7 surfaces, K = 2); 'mixed': 128 Cooke + 128 double-Gauss
+# padded to 11 surfaces, spherical and aspheric; None: a seeded population
+# of 32 systems of 64 surfaces (K2's runtime-S kernel); K4 also at K = 3 on
+# the aspheric Cooke population and at K = 1 on the 64-surface one. Each case
+# runs unmasked and masked: the padded population with its own mask, the
+# others with a seeded one.
+POP_ROUTE_CASES = (("cooke", "cooke", 2), ("mixed", "mixed", 2), ("64 surfaces", None, 2),
+                   ("cooke, K = 3", "cooke", 3), ("64 surfaces, K = 1", None, 1))
+POP_ROUTE_K2 = ("cooke", "mixed", "64 surfaces")
+#: Each family's bar on its penalty sums, relative to their largest (the
+#: bars of phases 7 and 18).
+POP_PEN_BAR = {"k2": 1e-6, "k4": PEN_ROUNDINGS}
+
+
+def pop_route_inputs(torch, zoo, simulator, fused_trace, fused_batch, kernel, name, n_asph):
+    """K2's or K4's (``kernel``) inputs for one of ``POP_ROUTE_CASES``: the
+    (B, N) rays and the system tables (K2: xp, yp, cy, z0, c, t, mu; K4:
+    xp, yp, cy, z0, c, kappa, t, mu, asph), ref_z, n_legs (seeded indices in
+    [1, 1.8]), n_per_w, the masks to run ((label, mask or None) pairs), the
+    path bounds and cos^2 of the angle threshold. System 0's first 8 rays
+    are odd lanes, as ``k1_route_inputs``'s."""
+    gen = np.random.default_rng(65 + n_asph)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")
+    thr = math.cos(math.radians(TIGHT["ray_angle_threshold"])) ** 2
+    if name is None:
+        n_sys, n_surf, n_w, n_per_w = 32, 64, 3, 512
+        shape = (n_sys, n_w * n_per_w)
+        xp, yp = (f32(gen.uniform(-1.0, 1.0, shape)) for _ in range(2))
+        cyb = f32(gen.uniform(-0.05, 0.05, shape))
+        z0 = f32(np.full(n_sys, -1.0))
+        c = f32(gen.normal(0.0, 0.01, (n_sys, n_surf)))
+        t = f32(np.full((n_sys, n_surf), 0.5))
+        index = 1.5 + 0.01 * np.arange(n_w) / n_w
+        legs = np.where(np.arange(n_surf + 1)[:, None] % 2 == 1, index, 1.0)
+        mu = f32(np.broadcast_to(legs[:-1] / legs[1:], (n_sys, n_surf, n_w)))
+        kappa = f32(gen.uniform(-0.3, 0.1, (n_sys, n_surf)))
+        asph = f32(gen.uniform(-1, 1, (n_sys, n_surf, n_asph))
+                   * np.asarray([1e-5, 1e-8][:n_asph]))
+        bounds, real = ((0.1, 5.0),) * n_surf, None
+    elif kernel == "k2":
+        _, lens, ins, n_per_w, real, _, thr = population_inputs(torch, zoo, simulator,
+                                                                fused_batch, fused_trace, name)
+        xp, yp, cyb, z0, c, t, mu = (a.detach() for a in ins[:7])
+        # The widest system's bounds, as k4_inputs takes them.
+        widest = np.array([int(np.argmax(lens.structure.n_surfaces))])
+        bounds = fused_trace._path_bounds(lens[widest].structure,
+                                          TIGHT["ray_path_lower_thresholds"],
+                                          TIGHT["ray_path_upper_thresholds"])
+    else:
+        ins, n_per_w, real, bounds, thr = k4_inputs(torch, zoo, simulator, fused_batch,
+                                                    fused_trace, name)
+        xp, yp, cyb, z0, c, kappa, t, mu, asph = ins[:9]
+        if n_asph > asph.shape[2]:
+            extra = gen.uniform(-1, 1, asph.shape[:2] + (n_asph - asph.shape[2],)) * 1e-11
+            asph = torch.cat((asph, f32(extra)), 2)
+    n_sys, n_surf, n_w = c.shape[0], c.shape[1], mu.shape[2]
+    xp, yp, cyb = (a.clone().contiguous() for a in (xp, yp, cyb))
+    odd = torch.tensor
+    xp[0, :8] = odd([math.nan, 0.0, 1e30, -math.inf, 0.5, 0.0, math.nan, 3.0], device="cuda")
+    yp[0, :8] = odd([0.0, math.nan, 0.0, 0.0, -0.5, 1e-30, 0.0, -3.0], device="cuda")
+    cyb[0, :8] = odd([0.0, 0.0, 0.0, 0.0, 0.9999999, 1.0, math.nan, -0.99999], device="cuda")
+    vertex_z = torch.cumsum(t, 1)
+    ref_z = torch.cat((vertex_z, vertex_z[:, -1:]), 1)
+    n_legs = f32(gen.uniform(1.0, 1.8, (n_sys, n_surf + 1, n_w)))
+    if real is None:
+        seeded = gen.random((n_sys, n_surf)) > 0.15
+        seeded[:, 0] = True
+        masks = (("unmasked", None), ("seeded mask", torch.tensor(seeded, device="cuda")))
+    else:
+        masks = (("unmasked", None), ("padded mask", real))
+    base = ((xp, yp, cyb, z0, c, t, mu) if kernel == "k2"
+            else (xp, yp, cyb, z0, c, kappa, t, mu, asph))
+    return (tuple(a.contiguous() for a in base), ref_z.contiguous(), n_legs, n_per_w, masks,
+            bounds, thr)
+
+
+def pop_route_compare(torch, modules, kernel, inputs, mask, penalties, allow_backward):
+    """K2 or K4 forward on ``pop_route_inputs``'s inputs with ``mask`` in one
+    mode and policy against its plain version: {"bits": masks, coordinates
+    and the opl bit for bit (NaN lanes alike), "pen_nan": the Lu and full
+    sums NaN where the plain version's are, "pen": their largest deviation
+    relative to their largest magnitude (theta_norm's sums on every lane;
+    relu(z) and the hinges past each system's first 8 rays: the kernel's
+    fmaxf drops a NaN, torch.clamp keeps it), "launches", "got"}."""
+    _, fused_batch, fused_asphere = modules
+    base, ref_z, n_legs, n_per_w, _, bounds, thr = inputs
+    extra = (ref_z,) if penalties == "full" else (n_legs,) if penalties == "opl" else ()
+    args = (penalties, allow_backward, n_per_w)
+    with torch.no_grad():
+        if kernel == "k2":
+            before = fused_batch.K2_FWD_LAUNCHES
+            got = fused_batch._launch_k2_fwd(base + extra, *args, mask, bounds, thr)
+            launches = fused_batch.K2_FWD_LAUNCHES - before
+            want = fused_batch.trace_fused_batch_reference(*base, *args, mask, ref_z, bounds,
+                                                           thr, n_legs=n_legs)
+        else:
+            before = fused_asphere.K4_FWD_LAUNCHES
+            got = fused_asphere._launch_k4_fwd(base + extra, *args, 10, mask, bounds, thr)
+            launches = fused_asphere.K4_FWD_LAUNCHES - before
+            want = fused_asphere.trace_fused_asphere_batch_reference(
+                *base, *args, 10, mask, ref_z, bounds, thr, n_legs=n_legs)
+    torch.cuda.synchronize()
+    exact = 7 if penalties == "opl" else 6
+    pen, pen_nan = 0.0, True
+    lu = penalties in (True, "full")
+    for j, (a, b) in enumerate(zip(got[6:], want[6:]) if lu else ()):
+        a, b = (a, b) if j < 2 else (a[:, 8:], b[:, 8:])
+        pen_nan = pen_nan and torch.equal(torch.isnan(a), torch.isnan(b))
+        scale = float(b.abs().nan_to_num(0.0).max().clamp(min=1e-30))
+        pen = max(pen, float((a - b).abs().nan_to_num(0.0).max()) / scale)
+    return {"bits": all(same_bits(a, b) for a, b in zip(got[:exact], want[:exact])),
+            "pen_nan": pen_nan, "pen": pen, "launches": launches, "got": got}
+
+
+def population_occupancy(torch, lib):
+    """K2 and K4 forward's resident blocks per SM (the occupancy calculator's,
+    ``k2_fwd_blocks_per_sm``, ``k4_fwd_blocks_per_sm``) per mode and mask
+    flag, backward rays allowed, K2 on its 7- and 11-surface kernels, K4 at
+    K = 2, and the waves their launch at the generator width (256 systems x
+    1,536 rays) takes on this card's SMs: {kernel: {"<mode> <S> <unmasked|
+    masked>": (rays a block, blocks per SM, waves)}} (K4's key without S)."""
+    import ctypes
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    block = ctypes.c_int()
+    out = {"k2": {}, "k4": {}}
+    for mode, label in enumerate(("plain", "lu", "full", "opl")):
+        for masked in (0, 1):
+            flag = "masked" if masked else "unmasked"
+            found = {f"{label} {n_surf} {flag}": ("k2", lib.k2_fwd_blocks_per_sm(
+                mode, 1, masked, n_surf, ctypes.byref(block)), block.value) for n_surf in (7, 11)}
+            found[f"{label} {flag}"] = ("k4", lib.k4_fwd_blocks_per_sm(
+                mode, 1, masked, 2, ctypes.byref(block)), block.value)
+            for key, (kernel, per_sm, threads) in found.items():
+                blocks = N_SYSTEMS * -(-1536 // threads)
+                out[kernel][key] = (threads, per_sm,
+                                    blocks / (per_sm * sms) if per_sm > 0 else None)
+    return out
+
+
+def phase_population_routes(torch, zoo, simulator, modules):
+    """K2 and K4 forward on each of their routes (``POP_ROUTE_CASES``): every
+    mode (plain, Lu, full, opl), both backward-ray policies, unmasked and
+    masked, against their plain versions (``pop_route_compare``): masks,
+    coordinates and the opl bit for bit (NaN lanes alike), the Lu and full
+    sums within ``POP_PEN_BAR``; one launch each. Then each kernel's
+    resident blocks per SM and waves at the generator width
+    (``population_occupancy``). Returns the largest penalty deviations per
+    kernel entry and the occupancy."""
+    fused_trace, fused_batch, _ = modules
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    worst = {"k2_fwd": 0.0, "k2_fwd_full": 0.0, "k4_fwd": 0.0, "k4_fwd_full": 0.0}
+    failed = []
+    for kernel in ("k2", "k4"):
+        for label, name, n_asph in POP_ROUTE_CASES:
+            if kernel == "k2" and label not in POP_ROUTE_K2:
+                continue
+            inputs = pop_route_inputs(torch, zoo, simulator, fused_trace, fused_batch, kernel,
+                                      name, n_asph)
+            n_sys, n = inputs[0][0].shape
+            n_surf = inputs[0][4].shape[1]
+            if kernel == "k4":
+                route = f"its {n_asph}-term kernel"
+            else:
+                route = ("its runtime-S kernel" if not lib.k2_fwd_specialized(n_surf)
+                         else f"its {n_surf}-surface kernel")
+            for mask_label, mask in inputs[4]:
+                for penalties in K1_MODES:
+                    for allow_backward in (True, False):
+                        r = pop_route_compare(torch, modules, kernel, inputs, mask, penalties,
+                                              allow_backward)
+                        key = f"{kernel}_fwd_full" if penalties == "full" else f"{kernel}_fwd"
+                        worst[key] = max(worst[key], r["pen"])
+                        ok = (r["bits"] and r["pen_nan"] and r["pen"] <= POP_PEN_BAR[kernel]
+                              and r["launches"] == 1)
+                        mode = penalties if penalties == "opl" else MODE_NAME[penalties]
+                        print(f"{'ok  ' if ok else 'FAIL'} {kernel.upper()} forward route, "
+                              f"{label} ({n_sys} x {n} rays, {n_surf} surfaces, {route}), "
+                              f"{mask_label}, {mode} mode, allow_backward={allow_backward}: "
+                              f"masks, coordinates{' and opl' if penalties == 'opl' else ''} "
+                              f"bit-identical (NaN lanes alike)={r['bits']}, ray_ok share "
+                              f"{float(r['got'][4].float().mean()):.6f}"
+                              + (f", penalty sums within {r['pen']:.2e} of their largest "
+                                 f"(bar {POP_PEN_BAR[kernel]:.2e})"
+                                 if penalties in (True, "full") else ""), flush=True)
+                        if not ok:
+                            failed.append((kernel, label, mask_label, penalties, allow_backward))
+            del inputs
+    check(not failed, f"phase 3d: K2 forward's routes (7, 11 surfaces, runtime-S at 64) and K4 "
+          f"forward at 7, 11 and 64 surfaces and 1-3 asphere terms agree with their plain "
+          f"versions (failed: {failed})")
+    occupancy = population_occupancy(torch, lib)
+    check(all(per_sm > 0 for table in occupancy.values() for _, per_sm, _ in table.values()),
+          f"phase 3d: every population forward kernel has resident blocks ({occupancy})")
+    for kernel, table in occupancy.items():
+        print(f"occupancy {kernel.upper()} forward (rays a block, blocks per SM, waves at 256 x "
+              f"1,536 rays on {torch.cuda.get_device_properties(0).multi_processor_count} SMs): "
+              + "; ".join(f"{key} {threads}, {per_sm}, {waves:.3f}" for key, (threads, per_sm, waves)
+                          in table.items()), flush=True)
+    return worst, occupancy
 
 
 def phase_serve(torch, zoo, simulator, fused_trace, entry):
@@ -1459,11 +1682,13 @@ def k2_entries(ms, shape, err, serve_launches, gen_launches, mixed_launches):
 # ---------------------------------------------------------------------------
 
 
-def k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides=0):
+def k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides=0, no_period=1.0):
     """Floating-point operations per ray that K3 forward or backward needs,
     with ``n_iter`` Newton steps a lane-surface: the kernels leave a lane
     once its steps repeat, so the bounds take the mean that their inputs
-    need (``newton_statistics``), and 10, the fixed count, beside it;
+    need (``newton_statistics``), and 10, the fixed count, beside it; of the
+    lane-surfaces, the share ``no_period`` runs all its steps without a
+    repeat (1 at the fixed count);
     counted from the kernels' source notes under ``k1_ops``'s rules (FP32
     arithmetic; a sqrt or a division as one; negations, fabsf, compares and
     selects not counted), each value once: the surface constants
@@ -1475,10 +1700,15 @@ def k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides=0):
     partials there), not at all. K = n_asph >= 1, as the kernels require.
 
     Per surface the forward is the constants (3 + K), the sphere guess
-    (26), ``n_iter`` Newton steps and the polish (26 + 5 K each: 18 for F,
-    F' and the step, 8 + 5 K for the sag and its slope), the hit point
-    (29 + 3 K: 4 + 3 K for its slope, then the normal and cos^2) and the
-    Snell point (41 + 3 K); the backward adds the constants (3 + K), the
+    (26), ``n_iter`` Newton steps (26 + 5 K each: 18 for F, F' and the step,
+    8 + 5 K for the sag and its slope), the polish step (2), whose F and F'
+    are the last Newton step's where a lane leaves on a repeat (the kernels
+    hand them on) and new (24 + 5 K) on the share ``no_period``, the hit
+    point (29 + 3 K: 4 + 3 K for its slope, then the normal and cos^2) and
+    Snell's law (31): the Snell point's slope and normal (10 + 3 K) are the
+    hit point's on a live ray and read by nothing the forward writes on a
+    dead one (the forward kernels take the hit point's); the backward adds
+    them, which its adjoint reads on every lane, the constants (3 + K), the
     adjoint chain through Snell's law, the hit point and the polish step
     (163), the sag partials (20 at the Newton point, 10 at each of the hit
     and Snell points, and 2 K - 1 for the asphere terms of dg/dr^2 at each),
@@ -1486,25 +1716,34 @@ def k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides=0):
     parameter sums. The launch, image and penalty terms are K1's.
 
     Of them, per surface, from asphere_common.cuh: the sphere guess (1 sqrt,
-    2 divisions), each Newton step and the polish (the sag's w, its slope
-    g = c/(2w) and the sag, and the step F/F': 1 sqrt, 3 divisions), the
-    slopes at the hit and Snell points (w and g) with their normals'
-    1/sqrt, and Snell's three square roots: n_iter + 9 sqrt and
-    3 n_iter + 9 divisions; the backward adds 1 sqrt and 2 divisions (the
-    Newton point's sag terms) and 8 divisions: the sag partials, which share
-    one reciprocal of w and one of 1 + w (2 at the Newton point, 1 at each
-    of the hit and Snell points), and the chain through Snell's law and the
-    polish step (4); the rest as ``_transcendentals``. The operation totals
-    count the partials in their quotient form, the fewer operations."""
+    2 divisions), each Newton step (the sag's w, its slope g = c/(2w) and
+    the sag, and the step F/F': 1 sqrt, 3 divisions), the polish (its step,
+    1 division; on the share ``no_period`` its F and F', 1 sqrt and 2
+    divisions), the slope at the hit point (w and g) with its normal's
+    1/sqrt, and Snell's three square roots: n_iter + 6 + no_period sqrt,
+    every one by sqrt_from_eps, and 3 n_iter + 5 + 2 no_period divisions;
+    the backward adds the Snell point's slope and normal (2 sqrt, 2
+    divisions), 1 sqrt (by
+    sqrt_from_eps) and 2 divisions (the Newton point's sag terms) and 8
+    divisions: the sag partials, which share one reciprocal of w and one of
+    1 + w (2 at the Newton point, 1 at each of the hit and Snell points), and
+    the chain through Snell's law and the polish step (4); the rest as
+    ``_transcendentals``, except that the forward's two theta_norm a surface
+    take the surface step's roots and divide by pi / 2 by div_half_pi
+    (theta_norm_root), as ``k1_ops``. The operation totals count the
+    partials in their quotient form, the fewer operations."""
     lu, full = penalties in (True, "full"), penalties == "full"
-    sq_dv_ac = _transcendentals(penalties, n_surf, backward, n_iter + 9 + (1 if backward else 0),
-                                3 * n_iter + 9 + (10 if backward else 0))
+    sq, dv, ac = _transcendentals(penalties, n_surf, backward, 0,
+                                  3 * n_iter + 5 + 2 * no_period + (12 if backward else 0))
+    fast_div = 2 * n_surf if lu and not backward else 0
+    sq_dv_ac = (sq - fast_div, dv - fast_div, ac,
+                (n_iter + 6 + no_period + (3 if backward else 0)) * n_surf, fast_div)
     k = n_asph
-    surface = 125 + 12 * k + n_iter * (26 + 5 * k)
+    surface = 91 + 4 * k + n_iter * (26 + 5 * k) + no_period * (24 + 5 * k)
     if not backward:
         return OpCounts(surface * n_surf + 8 + (14 * n_surf if lu else 0)
                         + (10 * n_surf - 1 + 3 * n_sides if full else 0), *sq_dv_ac)
-    surface += (3 + k) + 163 + 40 + 3 * (2 * k - 1) + 10 * k + (4 + k)
+    surface += (10 + 3 * k) + (3 + k) + 163 + 40 + 3 * (2 * k - 1) + 10 * k + (4 + k)
     return OpCounts(surface * n_surf + 19 + (20 * n_surf if lu else 0)
                     + (12 * n_surf - 2 + n_sides if full else 0), *sq_dv_ac)
 
@@ -1540,13 +1779,6 @@ def run_k3_bwd(fused_asphere, inputs, cot, penalties, allow_backward, n_per_w, b
             ins, cot, penalties, allow_backward, n_per_w, 10, bounds, thr)
     return fused_asphere._launch_k3_bwd(ins, cot, penalties, allow_backward, n_per_w, 10, bounds,
                                         thr)
-
-
-# A penalty sum of the card within 8 float32 roundings of its largest value;
-# a parameter cotangent within one rounding of the plain version's float64
-# sum (both relative to the largest magnitude).
-PEN_ROUNDINGS = 8 * 2.0 ** -23
-ONE_ROUNDING = 2.0 ** -23
 
 
 def k3_fwd_compare(torch, got, want):
@@ -2000,7 +2232,8 @@ def phase_k3_timing(torch, zoo, simulator, fused_trace, fused_asphere, LensOptim
         torch, zoo, simulator, (fused_trace, None, fused_asphere), "k3", True, gen, check_mode)
     n, n_surf = inputs[0].shape[0], inputs[4].shape[0]
     shape = dict(n_rays=n, n_surf=n_surf, n_w=inputs[7].shape[1], n_asph=inputs[8].shape[1],
-                 bounds=bounds, newton_steps=newton["steps_per_lane"])
+                 bounds=bounds, newton_steps=newton["steps_per_lane"],
+                 newton_no_period=newton["no_period_share"])
     for full in (False, True):
         opt, state = make_optimizer(zoo, simulator, LensOptimizer, "cuda", BENCH_WIDTH, full,
                                     "double_gauss_asph")
@@ -2017,14 +2250,23 @@ def phase_k3_timing(torch, zoo, simulator, fused_trace, fused_asphere, LensOptim
     return ms, fwd_err, bwd_err[0], shape
 
 
+def newton_of(shape, n_iter=None):
+    """``k3_ops``'s Newton arguments (n_iter, no_period) at a timed shape:
+    the steps its inputs need and the share of lane-surfaces that find no
+    repeat (``newton_statistics``), or ``n_iter`` steps without a repeat."""
+    if n_iter is None:
+        return shape["newton_steps"], shape["newton_no_period"]
+    return n_iter, 1.0
+
+
 def k3_bound(shape, penalties, backward, n_iter=None):
     """(bound_ms, bound_by) of K3 forward or backward at the timed shape,
     at the Newton steps its inputs need (``shape["newton_steps"]``) or at
     ``n_iter``."""
     n, n_surf, n_w, n_asph = shape["n_rays"], shape["n_surf"], shape["n_w"], shape["n_asph"]
     n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
-    n_iter = shape["newton_steps"] if n_iter is None else n_iter
-    ops = k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides).total
+    n_iter, no_period = newton_of(shape, n_iter)
+    ops = k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides, no_period).total
     if not backward:
         return bound(n, ops, FWD_BYTES[penalties])
     n_params = (1 + 3 * n_surf + n_surf * n_w + n_surf * n_asph
@@ -2478,10 +2720,12 @@ def phase_k4_timing(torch, zoo, simulator, fused_trace, fused_batch, fused_asphe
     ms, (inputs, n_per_w, mask, bounds, _) = mode_times(
         torch, zoo, simulator, (fused_trace, fused_batch, fused_asphere), "k4", True, gen)
     n_rays, n_surf = inputs[0].numel(), inputs[4].shape[1]
+    newton = newton_statistics(torch, fused_asphere, inputs, n_per_w, mask)
     shape = dict(n_rays=n_rays, n_surf=n_surf, n_w=inputs[7].shape[2], n_asph=inputs[8].shape[2],
                  bounds=bounds, n_sys=N_SYSTEMS, rays_per_sys=inputs[0].shape[1],
-                 newton_steps=newton_statistics(torch, fused_asphere, inputs, n_per_w,
-                                                mask)["steps_per_lane"])
+                 newton_steps=newton["steps_per_lane"],
+                 newton_steps_per_warp=newton["steps_per_warp"],
+                 newton_no_period=newton["no_period_share"])
     cfg = simulator.SimulatorConfig(**GEN_WIDTH, trace_engine="fused")
     specs, lens = k4_population(torch, zoo, "cooke")
 
@@ -2496,7 +2740,9 @@ def phase_k4_timing(torch, zoo, simulator, fused_trace, fused_batch, fused_asphe
     for key, value in ms.items():
         print(f"time {key}: {value:.4f} ms per call at {n_rays} rays ({N_SYSTEMS} aspheric Cooke "
               f"systems x 1,536 rays, {n_surf} surfaces, K = {shape['n_asph']}, n_iter = 10 "
-              f"Newton steps, {shape['newton_steps']:.4f} a lane before they repeat), card: "
+              f"Newton steps, {shape['newton_steps']:.4f} a lane before they repeat, "
+              f"{shape['newton_steps_per_warp']:.4f} a warp, a share "
+              f"{shape['newton_no_period']:.6f} of lane-surfaces without a repeat), card: "
               f"{card}", flush=True)
     return ms, shape
 
@@ -2510,8 +2756,8 @@ def k4_bound(shape, penalties, backward, n_iter=None):
     per block of 256 rays, written once and read once)."""
     n, n_surf, n_w, n_asph = shape["n_rays"], shape["n_surf"], shape["n_w"], shape["n_asph"]
     n_sides = sum(math.isfinite(v) for gap in shape["bounds"] for v in gap)
-    n_iter = shape["newton_steps"] if n_iter is None else n_iter
-    ops = k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides).total
+    n_iter, no_period = newton_of(shape, n_iter)
+    ops = k3_ops(penalties, n_surf, n_asph, n_iter, backward, n_sides, no_period).total
     full = penalties == "full"
     tables = 4 * (3 * n_surf + n_surf * n_w + n_surf * n_asph + 1 + (n_surf + 1 if full else 0))
     if not backward:
@@ -2540,6 +2786,9 @@ def k4_entries(ms, shape, err, serve_launches, train_launches, full_launches):
         {"name": "k4_fwd", "route": "cuda", "source": K4_FWD_SOURCE, "replaces": TPU_K4_FWD,
          "launches": train_launches[0], "max_abs_err": err["fwd"], **numbers("fwd", True),
          "library_ms": None, "launches_serving": serve_launches,
+         "newton_steps_per_lane": shape["newton_steps"],
+         "newton_steps_per_warp": shape["newton_steps_per_warp"],
+         "newton_no_period_share": shape["newton_no_period"],
          **numbers("fwd", False, "_plain")},
         {"name": "k4_fwd_full", "route": "cuda", "source": K4_FWD_SOURCE, "replaces": TPU_K4_FWD,
          "launches": full_launches[0], "max_abs_err": err["fwd_full"], **numbers("fwd", "full"),
@@ -3106,8 +3355,9 @@ def phase_opl_timing(torch, zoo, simulator, modules, card):
                               n_sys=inputs[0].shape[0] if kernel in ("k2", "k4") else 1,
                               rays_per_sys=inputs[0].shape[-1])
         if kernel in ("k3", "k4"):
-            shapes[kernel]["newton_steps"] = newton_statistics(
-                torch, modules[2], inputs, n_per_w, mask)["steps_per_lane"]
+            newton = newton_statistics(torch, modules[2], inputs, n_per_w, mask)
+            shapes[kernel].update(newton_steps=newton["steps_per_lane"],
+                                  newton_no_period=newton["no_period_share"])
         print(f"time {kernel.upper()} opl: forward {ms[f'{kernel}_fwd']:.4f} ms (plain "
               f"{ms[f'plain_{kernel}_fwd']:.2f} ms), backward {ms[f'{kernel}_bwd']:.4f} ms "
               f"(plain {ms[f'plain_{kernel}_bwd']:.2f} ms) per call at {inputs[0].numel()} rays, "
@@ -3148,8 +3398,8 @@ def opl_bound(kernel, shape, backward, n_iter=None):
         tables = 2 * n_surf + n_surf * n_w + 1
         n_params = 1 + 2 * n_surf + n_surf * n_w
     else:
-        n_iter = shape["newton_steps"] if n_iter is None else n_iter
-        ops = k3_ops(False, n_surf, shape["n_asph"], n_iter, backward).total
+        n_iter, no_period = newton_of(shape, n_iter)
+        ops = k3_ops(False, n_surf, shape["n_asph"], n_iter, backward, 0, no_period).total
         tables = 3 * n_surf + n_surf * n_w + n_surf * shape["n_asph"] + 1
         n_params = 1 + 3 * n_surf + n_surf * n_w + n_surf * shape["n_asph"]
     ops += (4 if backward else 2) * legs
@@ -4463,7 +4713,7 @@ def add_issue_bounds(entries, rates, shapes):
                 n = k1_ops(penalties, n_surf, n_sides, backward)
             else:
                 n = k3_ops(penalties, n_surf, shape["n_asph"], shape["newton_steps"], backward,
-                           n_sides)
+                           n_sides, shape["newton_no_period"])
             ops = n.total + ((4 if backward else 2) * (n_surf + 1) if opl else 0)
             weighted = (ops + (w_s - 1) * (n.sqrt + n.acos) + (w_d - 1) * n.div
                         + (FAST_SQRT_ISSUES - 1) * n.fast_sqrt + (FAST_DIV_ISSUES - 1) * n.fast_div)
@@ -4619,9 +4869,11 @@ def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
     return out
 
 
-# The kernels whose SASS ``kernel_turns`` counts: K1 forward (every
-# instantiation), K2 forward and d/dpsf.
-SASS_KERNELS = ("k1_fwd_kernel", "k2_fwd_kernel", "p2_dpsf_kernel")
+# The kernels whose SASS ``kernel_turns`` counts: K1 forward, K2 forward and
+# d/dpsf (every instantiation), K4 forward at the populations' two asphere
+# terms (the SASS text only of its unmasked instantiations that allow
+# backward rays).
+SASS_KERNELS = ("k1_fwd_kernel", "k2_fwd_kernel", "p2_dpsf_kernel", "k4_fwd_kernel")
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
@@ -4649,8 +4901,10 @@ def sass_summary(lib_path, out_dir=None):
         if not short:
             continue
         args = re.match(r"I((?:L[a-z]+\d+E)+)E", raw[raw.index(short) + len(short):])
-        name = short + ("<" + ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1))) + ">"
-                        if args else "")
+        targs = re.findall(r"L[a-z]+(\d+)E", args.group(1)) if args else []
+        if short == "k4_fwd_kernel" and targs[3] != "2":
+            continue
+        name = short + ("<" + ",".join(targs) + ">" if args else "")
         # Instructions (address, opcode, words) and the labels' addresses
         # (a branch names its target as an address or as a label).
         ops, labels, pending = [], {}, []
@@ -4685,7 +4939,8 @@ def sass_summary(lib_path, out_dir=None):
         for key, names in groups.items():
             counts[key] = sum(1 for _, op, _ in main if op.split(".")[0] in names)
         out[name] = counts
-        kept.append(f"Function : {name}\n{chunk}")
+        if short != "k4_fwd_kernel" or targs[1:3] == ["1", "0"]:
+            kept.append(f"Function : {name}\n{chunk}")
     if out_dir:
         Path(out_dir).mkdir(parents=True, exist_ok=True)
         Path(out_dir, f"sass_{Path(lib_path).stem}.txt").write_text("".join(kept))
@@ -4737,15 +4992,36 @@ def kernel_turns(trees, card, families=KERNEL_FAMILIES):
     return {"card": card, "this": here, "build_s": build_s, "sass": sass, "kernels": table}
 
 
-def add_resources(entries, summary, n_asph, k2_surf, k1_surf):
+def build_times(trees):
+    """The seconds ``_kernels.build()`` takes for each tree given and for
+    this checkout, one after another (each build alone on the machine, its
+    nvcc processes in parallel as always), in a process each; None where
+    the tree's library was built already."""
+    here = str(Path(__file__).resolve().parent)
+    script = ("import sys, time; sys.path.insert(0, sys.argv[1]); "
+              "from torchoptics_tpu_torch.ops import _kernels; "
+              "fresh = not _kernels.library_path().exists(); start = time.perf_counter(); "
+              "_kernels.build(); print(time.perf_counter() - start if fresh else None)")
+    out = {}
+    for root in [str(Path(t).resolve()) for t in trees] + [here]:
+        proc = subprocess.run([sys.executable, "-c", script, root], capture_output=True,
+                              text=True, timeout=900)
+        check(proc.returncode == 0, f"kernel build of {root}: exit {proc.returncode}\n"
+              + proc.stdout[-2000:] + proc.stderr[-4000:])
+        out[root] = json.loads(proc.stdout.strip().splitlines()[-1].replace("None", "null"))
+        print(f"build of {root}: {out[root]} s", flush=True)
+    return out
+
+
+def add_resources(entries, summary, n_asph, surf):
     """Each trace kernel entry's registers, stack frame and spills (bytes)
     from the build's ``-Xptxas -v`` report (``ptxas_summary``'s lines), for
     the instantiation its main numbers time: its mode, backward rays
     allowed, K2 and K4 unmasked, K3 and K4 at the timed asphere term count
-    (``n_asph``: {"k3": K, "k4": K}), K2 backward at the timed population's
-    surface count ``k2_surf`` (its own kernel, or 0 where it has none), K1
-    forward at the flagship's ``k1_surf`` likewise; P2's and d/dpsf's at
-    kw = 11, their timed shape's."""
+    (``n_asph``: {"k3": K, "k4": K}), and the kernels with kernels of their
+    own per surface count at the timed one (``surf``: {"k1_fwd": S,
+    "k2_fwd": S, "k2_bwd": S}, 0 where the timed count takes the runtime-S
+    kernel); P2's and d/dpsf's at kw = 11, their timed shape's."""
     found = {}
     for line in summary:
         name, rest = line.split(": ", 1)
@@ -4769,8 +5045,7 @@ def add_resources(entries, summary, n_asph, k2_surf, k1_surf):
             continue
         mode = 3 if name.endswith("_opl") else 2 if name.endswith("_full") else 1
         rest = {"k1": "", "k2": ",0", "k3": f",{n_asph['k3']}", "k4": f",0,{n_asph['k4']}"}
-        ns = (f",{k2_surf}" if name.startswith("k2_bwd") else
-              f",{k1_surf}" if name.startswith("k1_fwd") else "")
+        ns = f",{surf[name[:6]]}" if name[:6] in surf else ""
         e.update(found.get(f"{name[:6]}_kernel<{mode},1{rest[family]}{ns}>", {}))
 
 
@@ -4786,6 +5061,10 @@ def main():
         check(set(families) <= set(KERNEL_FAMILIES),
               f"--families takes some of {','.join(KERNEL_FAMILIES)}, got {','.join(families)}")
         del args[args.index("--families"):args.index("--families") + 2]
+    if "--build-times" in args:
+        print(json.dumps({"build_s": build_times(args[args.index("--build-times") + 1:]),
+                          "card": card_line()}))
+        return 0
     if "--kernel-turns" in args:
         print(json.dumps({"kernel_turns": kernel_turns(args[args.index("--kernel-turns") + 1:],
                                                        card_line(), families)}))
@@ -4820,6 +5099,9 @@ def main():
     if "--ragged" in sys.argv[1:]:
         phase_ragged(torch, zoo, simulator, (fused_trace, fused_batch, fused_asphere))
         return 0
+    if "--population-routes" in sys.argv[1:]:
+        phase_population_routes(torch, zoo, simulator, (fused_trace, fused_batch, fused_asphere))
+        return 0
     if "--p2-fft" in sys.argv[1:]:
         inputs = render_inputs(torch, zoo, simulator, imaging, image, CROSSOVER_RENDERS)
         cases = {f"{name} {px}^2": args for (name, px), args in inputs.items()}
@@ -4845,6 +5127,8 @@ def main():
         fwd_err = phase_forward(torch, zoo, simulator, fused_trace)
     route_err = phase_k1_routes(torch, zoo, simulator, fused_trace, fused_batch)
     fwd_err = {key: max(err, route_err[key]) for key, err in fwd_err.items()}
+    pop_route_err, occupancy = phase_population_routes(
+        torch, zoo, simulator, (fused_trace, fused_batch, fused_asphere))
     bwd_err = phase_backward(torch, zoo, simulator, fused_trace)
     serve_launches = phase_serve(torch, zoo, simulator, fused_trace, entry)
     train_launches = phase_train(torch, zoo, simulator, fused_trace, LensOptimizer)
@@ -4885,6 +5169,10 @@ def main():
     opl_ms, opl_shapes = phase_opl_timing(torch, zoo, simulator, modules, card)
     ragged = phase_ragged(torch, zoo, simulator, modules)
     entries = kernel_entries(ms, errs, shape, fwd_err, bwd_err, serve_launches, train_launches)
+    k2_err = dict(k2_err, fwd=max(k2_err["fwd"], pop_route_err["k2_fwd"]),
+                  fwd_full=max(k2_err["fwd_full"], pop_route_err["k2_fwd_full"]))
+    k4_err = dict(k4_err, fwd=max(k4_err["fwd"], pop_route_err["k4_fwd"]),
+                  fwd_full=max(k4_err["fwd_full"], pop_route_err["k4_fwd_full"]))
     entries += k2_entries(k2_ms, k2_shape, k2_err, pop_serve_launches, gen_launches,
                           mixed_launches)
     entries += k3_entries(k3_ms, k3_shape, (k3_fwd_err, k3_fwd_err_bench),
@@ -4924,10 +5212,21 @@ def main():
                                       "k4": k4_shape,
                                       **{f"opl_{k}": v for k, v in opl_shapes.items()}})
     lib = _kernels.load()
+    k2_surf = k2_shape["n_surf"]
     add_resources(entries, resources, {"k3": k3_shape["n_asph"], "k4": k4_shape["n_asph"]},
-                  k2_shape["n_surf"] if lib.k2_bwd_specialized(k2_shape["n_surf"]) else 0,
-                  shape["n_surf"] if lib.k1_fwd_specialized(shape["n_surf"]) else 0)
+                  {"k1_fwd": shape["n_surf"] if lib.k1_fwd_specialized(shape["n_surf"]) else 0,
+                   "k2_fwd": k2_surf if lib.k2_fwd_specialized(k2_surf) else 0,
+                   "k2_bwd": k2_surf if lib.k2_bwd_specialized(k2_surf) else 0})
     for e in entries:
+        # The population forwards' block, resident blocks per SM and waves
+        # at the timed width, on the timed population's kernel.
+        family = e["name"][:2]
+        if e["name"][:6] in ("k2_fwd", "k4_fwd"):
+            mode = ("opl" if e["name"].endswith("_opl") else
+                    "full" if e["name"].endswith("_full") else "lu")
+            key = f"{mode} {k2_surf} unmasked" if family == "k2" else f"{mode} unmasked"
+            if key in occupancy[family]:
+                e["block"], e["blocks_per_sm"], e["waves"] = occupancy[family][key]
         if e["name"][:6] in ("k1_bwd", "k2_bwd", "k3_bwd", "k4_bwd"):
             e["ragged_param_max_rel_err"] = ragged[e["name"][:2]]
         # K1 at the image loss's PSF bundle (plain mode), the slice's main path.

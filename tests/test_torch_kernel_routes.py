@@ -3,14 +3,14 @@ sources.
 
 No CPU can build the kernels, so these tests read the ``.cu`` text: each
 launcher's list of routed sizes (P2's and its d/dpsf's ``SPECIALIZED_KW``,
-K1 forward's and K2 backward's ``SHORT_SURF``), the ``switch`` that
-dispatches on the size, and the instantiation each ``case`` launches. A
-size in the list without a ``case`` that launches its own instantiation, or
-a ``case`` outside the list, fails. The imaging renders' PSF sizes (256^2
-to 2048^2 at BASELINE config 5; those on d/dpsf's direct route too) and the
-zoo systems' surface counts that the port's main paths run (the
-populations, K1 forward's double-Gauss and Cooke) must each be routed to a
-specialised kernel, and every render from 256^2 to 4096^2, at config 5 and
+K1 forward's and K2 forward's and backward's ``SHORT_SURF``), the
+``switch`` that dispatches on the size, and the instantiation each
+``case`` launches. A size in the list without a ``case`` that launches its
+own instantiation, or a ``case`` outside the list, fails. The imaging
+renders' PSF sizes (256^2 to 2048^2 at BASELINE config 5; those on
+d/dpsf's direct route too) and the zoo systems' surface counts that the
+port's main paths run (the populations, K1 forward's double-Gauss and
+Cooke) must each be routed to a specialised kernel, and every render from 256^2 to 4096^2, at config 5 and
 at the default configuration (PSFs up to 95 taps), must pass P2's and its
 d/dpsf's argument checks and take the intended route: the direct kernels
 below the FFT route's thresholds (``image.P2_FFT_MIN_KW``,
@@ -43,6 +43,9 @@ ROUTES = {
             r"case (\d+):\s*return launch<MODE, ALLOW_BACKWARD, (\d+)>\(",
             r"default:\s*return launch<MODE, ALLOW_BACKWARD, 0>\("),
     "k2b": ("fused_batch_bwd.cu", "SHORT_SURF",
+            r"case (\d+):\s*return launch<MODE, ALLOW_BACKWARD, MASKED, (\d+)>\(",
+            r"default:\s*return launch<MODE, ALLOW_BACKWARD, MASKED, 0>\("),
+    "k2f": ("fused_batch_fwd.cu", "SHORT_SURF",
             r"case (\d+):\s*return launch<MODE, ALLOW_BACKWARD, MASKED, (\d+)>\(",
             r"default:\s*return launch<MODE, ALLOW_BACKWARD, MASKED, 0>\("),
 }
@@ -86,6 +89,9 @@ def test_main_paths_reach_the_specialised_kernels():
     # RaytracedOptics; d/dpsf: the image-loss renders' PSF widths that take
     # the direct kernel.
     assert surfaces <= set(_routes("k1f")[1])
+    # K2 forward: the generator's Cooke populations and the padded mixed
+    # ones.
+    assert surfaces <= set(_routes("k2f")[1])
     direct = {kw for kw in kws if not image.p2_takes_fft((kw, kw), adjoint=True)}
     assert direct and direct <= set(_routes("p2_dpsf")[1])
 

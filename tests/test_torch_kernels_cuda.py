@@ -24,10 +24,13 @@ the conic/asphere kernel pair, to the same bars on the masks, coordinates,
 penalty sums and per-ray cotangents, and its parameter sums within one
 float32 rounding of the plain version's float64 sums. K4, the conic/asphere
 population pair, to K3's bars per system, with and without the surface
-mask, and at B = 1 to K3 bit for bit. The opl mode of each (the wavefront
-path) to the same bars: forward outputs (opl included) and per-ray
-cotangents bit for bit, parameter and dn_legs sums within one float32
-rounding, K2 and K4 at B = 1 equal to K1 and K3; the wavefront functions on
+mask, and at B = 1 to K3 bit for bit; K2 and K4 forward on each of their
+routes and shapes (``chip_smoke.POP_ROUTE_CASES``: 7, 11 and 64 surfaces,
+K4 at 1 to 3 asphere terms), every mode, policy and mask flag, odd lanes
+included, bit for bit on masks, coordinates and the opl. The opl mode of
+each (the wavefront path) to the same bars: forward outputs (opl included)
+and per-ray cotangents bit for bit, parameter and dn_legs sums within one
+float32 rounding, K2 and K4 at B = 1 equal to K1 and K3; the wavefront functions on
 the card against the CPU; and K4's training path at a fixed bar. P2, the
 SVOLA patch convolution, bit for bit with its plain version (the same tap
 order, no FMA contraction); PSFs from 33 taps take its FFT route
@@ -58,8 +61,9 @@ from torchoptics_tpu_torch.ops import fused_trace
 pytestmark = pytest.mark.cuda
 
 # The card checks' cases and comparisons that chip_smoke.py runs too
-# (K1_ROUTE_CASES, k1_route_inputs, k1_route_compare, DPSF_SHAPES,
-# dpsf_direct_case); the module imports only the standard library and numpy.
+# (K1_ROUTE_CASES, k1_route_inputs, k1_route_compare, POP_ROUTE_CASES,
+# pop_route_inputs, pop_route_compare, DPSF_SHAPES, dpsf_direct_case); the
+# module imports only the standard library and numpy.
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
 chip_smoke = importlib.util.module_from_spec(_spec)
@@ -680,6 +684,56 @@ def test_k4_population_of_one_is_k3(cuda):
             g4 = fused_asphere._launch_k4_bwd(one[:n], [c[None] for c in cot], penalties, True,
                                               n_per_w, 10, None, bounds, THR)
             assert all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(g3, g4))
+
+
+def _population_route(kernel, case, penalties, allow_backward, masked):
+    """K2 or K4 forward on one of ``chip_smoke.POP_ROUTE_CASES`` against its
+    plain version (``chip_smoke.pop_route_compare``), after checking that
+    K2 takes the route the case names (K4 has one kernel a term count)."""
+    from torchoptics_tpu_torch.ops import _kernels, fused_asphere, fused_batch
+    _, name, n_asph = next(c for c in chip_smoke.POP_ROUTE_CASES if c[0] == case)
+    inputs = chip_smoke.pop_route_inputs(torch, zoo, simulator, fused_trace, fused_batch,
+                                         kernel, name, n_asph)
+    n_surf = inputs[0][4].shape[1]
+    if kernel == "k2":
+        assert _kernels.load().k2_fwd_specialized(n_surf) == (n_surf in (7, 11))
+    mask = inputs[4][int(masked)][1]
+    assert (mask is None) != masked
+    r = chip_smoke.pop_route_compare(torch, (fused_trace, fused_batch, fused_asphere), kernel,
+                                     inputs, mask, penalties, allow_backward)
+    assert r["launches"] == 1
+    assert len(r["got"]) == {False: 6, True: 9, "full": 11, "opl": 7}[penalties]
+    assert r["bits"] and r["pen_nan"] and r["pen"] <= chip_smoke.POP_PEN_BAR[kernel]
+    assert bool(torch.isnan(r["got"][0][0, :8]).any()) and 0 < float(r["got"][4].float().mean()) < 1
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("allow_backward", [True, False])
+@pytest.mark.parametrize("penalties", [False, True, "full", "opl"])
+@pytest.mark.parametrize("case", chip_smoke.POP_ROUTE_K2)
+def test_k2_forward_routes_match_plain_version(cuda, case, penalties, allow_backward, masked):
+    """K2 forward on each of its routes (the Cooke population on the
+    7-surface kernel, the padded mixed one on the 11-surface kernel, 64
+    surfaces on the runtime-S kernel; system 0's first 8 rays odd lanes:
+    NaN, 1e30, -inf), every mode and policy, unmasked and masked, against
+    its plain version: masks, coordinates and the opl bit for bit, NaN where
+    the plain version's is; the penalty sums within 1e-6 of their largest;
+    one launch."""
+    _population_route("k2", case, penalties, allow_backward, masked)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("allow_backward", [True, False])
+@pytest.mark.parametrize("penalties", [False, True, "full", "opl"])
+@pytest.mark.parametrize("case", [c[0] for c in chip_smoke.POP_ROUTE_CASES])
+def test_k4_forward_routes_match_plain_version(cuda, case, penalties, allow_backward, masked):
+    """K4 forward on the aspheric Cooke population (7 surfaces), the padded
+    mixed one (11) and a seeded 64-surface one, at 2 asphere terms, and at 3
+    and 1 (odd lanes as K2's), every mode and policy, unmasked and masked,
+    against its plain version: masks, coordinates and the opl bit for bit,
+    NaN where the plain version's is; the penalty sums within 8 float32
+    roundings of their largest; one launch."""
+    _population_route("k4", case, penalties, allow_backward, masked)
 
 
 def test_k4_refuses_bad_inputs(cuda):

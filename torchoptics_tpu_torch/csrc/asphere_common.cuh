@@ -11,9 +11,10 @@
 // step from the pre-polish Newton point (the polish step, the failure masks,
 // Snell's law with the true normal) and its adjoint, the per-ray forward
 // trace and the per-ray backward pass. From
-// trace_common.cuh it takes theta_norm and its adjoint, the path hinge and
-// its gradient, the block's parameter sums (BlockSums), the block's column
-// of the partial sums and their fixed-order reductions.
+// trace_common.cuh it takes theta_norm (theta_norm_root) and its adjoint,
+// the path hinge and its gradient, the block's parameter sums (BlockSums),
+// the block's column of the partial sums and their fixed-order reductions,
+// and the exact shortcuts sqrt_from_eps and div_half_pi.
 //
 // The surface math is pallas_asphere.py's (_sag_terms, _g_partials,
 // _newton_dist, _fwd_surface_a, _bwd_surface_a), with u = (1+k)c^2 r^2 and
@@ -33,7 +34,16 @@
 // Newton steps past the point where they repeat, the surface constants at
 // every evaluation, runtime loops over the asphere terms (Surf<NA>: K3 and
 // K4 are instantiated per term count, the terms in registers) and, in the
-// adjoint, divisions by one denominator.
+// adjoint, divisions by one denominator. The surface step's seven square
+// roots (the sag's w at every evaluation, the sphere guess, the two
+// normals, Snell's three) take sqrtf's fast path without its range check
+// (sqrt_from_eps), each argued beside it to lie in the domain where the two
+// are equal; the forward's Lu sums reuse the roots of cos2 and cos2'
+// (theta_norm_root). The launch's sqrtf(1 - cy^2) stays IEEE: its argument
+// has no such bound. Values the plain version forms twice are formed once,
+// with the same bits: the polish step's F and F' (newton_point hands them
+// on) and, in the forward, the Snell point's slope and normal
+// (surface_finish<false>).
 //
 // MASKED switches on the surface mask of padded populations, with the
 // semantics of trace_common.cuh: the backward-ray test at surface k gated by
@@ -130,7 +140,10 @@ __device__ __forceinline__ Sag sag_terms(const Surf<NA>& p, float r2) {
   Sag q;
   q.u = p.beta * r2;
   q.guard = 1.0f - q.u < EPS;
-  q.w = sqrtf(q.guard ? 1.0f : 1.0f - q.u);
+  // sqrt_from_eps's domain: where the guard holds the argument is 1; where it
+  // does not, the same float32 1 - u is no less than EPS (a difference that
+  // rounds below EPS was below it) or is +inf or NaN.
+  q.w = sqrt_from_eps(q.guard ? 1.0f : 1.0f - q.u);
   q.sag = p.c * r2 / (1.0f + q.w);
   q.g = p.c / (2.0f * q.w);
   float pw = r2;  // (r^2)^(j+1)
@@ -202,38 +215,65 @@ __device__ __forceinline__ void f_fp(const Surf<NA>& p, float x, float y, float 
 // n_iter-th is s_{i+1} when n_iter - i - 1 is even, else s_i. Either exit
 // returns the bits of all n_iter steps (the plain version runs them all).
 // A lane leaves on its own; its warp runs until its last lane has left.
+// Where a lane leaves, the loop has evaluated F, F' and the guard at the
+// point it returns (s_i, or s_{i+1} = s_{i-1} on a 2-cycle: the step
+// before's), and the polish step that follows (surface_finish) takes them
+// instead of evaluating them again: the same function of the same bits, so
+// the same bits. Only a lane that runs all n_iter steps without a repeat
+// leaves them to surface_finish.
+struct NewtonPoint {
+  float s, f, fp;
+  bool guard, have;  // have: f, fp and guard are those at s
+};
+
 template <int NA>
-__device__ __forceinline__ float newton_point(const Surf<NA>& p, float x, float y, float z,
-                                              float cx, float cy, float cz, int n_iter) {
+__device__ __forceinline__ NewtonPoint newton_point(const Surf<NA>& p, float x, float y,
+                                                    float z, float cx, float cy, float cz,
+                                                    int n_iter) {
   const float e = -(x * cx + y * cy + z * cz);
   const float mz = z + e * cz;
   const float m2 = x * x + y * y + z * z - e * e;
   const float temp = p.c * m2 - 2.0f * mz;
   const float cos2_s = cz * cz - p.c * temp;
   const bool fail_s = cos2_s - EPS < 0.0f;
-  const float cos_s = sqrtf(fail_s ? 1.0f : cos2_s);
-  const float dist_s = e + temp / (cz + cos_s);
-  const bool plane_ok = fabsf(cz) > EPS;
-  const float plane = plane_ok ? -z / cz : 0.0f;
-  float s = fail_s ? plane : dist_s;
-  float s_prev = s;
+  // The sphere's near root, or where the sphere is missed the vertex plane
+  // (0 where cz is below EPS): a branch, so that a warp none of whose lanes
+  // misses skips the plane's division, and one all of whose lanes miss the
+  // root's square root and division.
+  NewtonPoint np{0.0f, 0.0f, 0.0f, false, false};
+  if (fail_s) {
+    np.s = fabsf(cz) > EPS ? -z / cz : 0.0f;
+  } else {
+    // sqrt_from_eps's domain: cos2_s >= EPS (cos2_s - EPS rounds to a
+    // negative number wherever cos2_s < EPS), +inf or NaN.
+    np.s = e + temp / (cz + sqrt_from_eps(cos2_s));
+  }
+  float s_prev = np.s, f_prev = 0.0f, fp_prev = 0.0f;  // and F, F', the guard there
+  bool guard_prev = false;
 #pragma unroll 1
   for (int i = 0; i < n_iter; ++i) {
     float f, fp;
     bool guard;
-    f_fp(p, x, y, z, cx, cy, cz, s, f, fp, guard);
+    f_fp(p, x, y, z, cx, cy, cz, np.s, f, fp, guard);
     const float fp_s = fabsf(fp) > EPS ? fp : (fp >= 0.0f ? EPS : -EPS);
-    const float s_next = s - f / fp_s;
+    const float s_next = np.s - f / fp_s;
     const unsigned bits = __float_as_uint(s_next);
-    if (bits == __float_as_uint(s)) break;
-    if (i > 0 && bits == __float_as_uint(s_prev)) {
-      if ((n_iter - i) & 1) s = s_next;
+    if (bits == __float_as_uint(np.s)) {
+      np = NewtonPoint{np.s, f, fp, guard, true};
       break;
     }
-    s_prev = s;
-    s = s_next;
+    if (i > 0 && bits == __float_as_uint(s_prev)) {
+      np = (n_iter - i) & 1 ? NewtonPoint{s_next, f_prev, fp_prev, guard_prev, true}
+                            : NewtonPoint{np.s, f, fp, guard, true};
+      break;
+    }
+    s_prev = np.s;
+    f_prev = f;
+    fp_prev = fp;
+    guard_prev = guard;
+    np.s = s_next;
   }
-  return s;
+  return np;
 }
 
 // The locals of one surface step that its adjoint reads.
@@ -244,17 +284,30 @@ struct LocalsA {
   bool stationary, fail1, ok1, fail2a, fail2;
 };
 
-// The rest of one surface step from the pre-polish point s_pre
+// The rest of one surface step from the pre-polish point np.s
 // (pallas_asphere._fwd_surface_a): the polish step, the failure masks, the
 // hit point, Snell's law with the true normal and the zeroing of failed
-// lanes; advances the state in place.
-template <int NA>
-__device__ __forceinline__ void surface_finish(const Surf<NA>& p, float s_pre, float& x, float& y,
-                                               float& z, float& cx, float& cy, float& cz,
-                                               bool& ok, LocalsA& L) {
-  float fp;
-  bool guard_pre;
-  f_fp(p, x, y, z, cx, cy, cz, s_pre, L.f, fp, guard_pre);
+// lanes; advances the state in place. F, F' and the guard at np.s are
+// np's where it has them (np.have), else evaluated here.
+//
+// ADJOINT: every local as the plain version forms it, for the adjoint
+// (surface_adjoint) to read. Without it, the Snell point's slope, w, u and
+// normal are the hit point's: on a live lane (ok1) the Snell point is the
+// hit point (xB = xs, yB = ys, so r2B has r2's bits and so has every value
+// formed from it), and on a dead one they feed only nx, ny, cxC, cyC, czC
+// and fail2, which the zeroed state and ok2 = false then discard. So the
+// advanced state, ok and the locals the forward trace reads (dist,
+// delta_z, ok1, cos2, cs, cos2p, csp) keep their bits, one sag evaluation
+// and one normal a surface fewer.
+template <bool ADJOINT, int NA>
+__device__ __forceinline__ void surface_finish(const Surf<NA>& p, const NewtonPoint& np,
+                                               float& x, float& y, float& z, float& cx,
+                                               float& cy, float& cz, bool& ok, LocalsA& L) {
+  const float s_pre = np.s;
+  float fp = np.fp;
+  bool guard_pre = np.guard;
+  L.f = np.f;
+  if (!np.have) f_fp(p, x, y, z, cx, cy, cz, s_pre, L.f, fp, guard_pre);
   L.stationary = fabsf(fp) < EPS;
   L.fp_safe = L.stationary ? 1.0f : fp;
   L.dist = s_pre - L.f / L.fp_safe;
@@ -269,12 +322,18 @@ __device__ __forceinline__ void surface_finish(const Surf<NA>& p, float s_pre, f
   L.g = hit.g;
   L.w = hit.w;
   L.u = hit.u;
-  L.inv_norm = 1.0f / sqrtf(1.0f + 4.0f * L.r2 * L.g * L.g);
+  // sqrt_from_eps's domain: r2 = xs^2 + ys^2 and ((4 r2) g) g are zero or
+  // positive (a product's sign is exact), so 1 + 4 r2 g^2 is at least 1, or
+  // +inf or NaN.
+  L.inv_norm = 1.0f / sqrt_from_eps(1.0f + 4.0f * L.r2 * L.g * L.g);
   L.dots = L.xs * cx + L.ys * cy;
   L.cosr = (cz - 2.0f * L.g * L.dots) * L.inv_norm;
   L.cos2 = L.cosr * L.cosr;
   L.fail1 = guard_pre || hit.guard || L.stationary || not_conv || (L.cos2 - EPS < 0.0f);
-  L.cs = sqrtf(L.fail1 ? 1.0f : L.cos2);
+  // sqrt_from_eps's domain: 1 where fail1 holds, else cos2 >= EPS (as
+  // newton_point's cos2_s), +inf or NaN; so cs is sqrtf(cos2) wherever fail1
+  // does not hold, which theta_norm_root reads.
+  L.cs = sqrt_from_eps(L.fail1 ? 1.0f : L.cos2);
 
   L.ok1 = ok && !L.fail1;
   L.xB = L.ok1 ? L.xs : 0.0f;
@@ -283,16 +342,26 @@ __device__ __forceinline__ void surface_finish(const Surf<NA>& p, float s_pre, f
   L.cxB = L.ok1 ? cx : 0.0f;
   L.cyB = L.ok1 ? cy : 0.0f;
 
-  L.r2B = L.xB * L.xB + L.yB * L.yB;
-  const Sag snell = sag_terms(p, L.r2B);
-  L.gB = snell.g;
-  L.wB = snell.w;
-  L.uB = snell.u;
-  L.inv_normB = 1.0f / sqrtf(1.0f + 4.0f * L.r2B * L.gB * L.gB);
+  if (ADJOINT) {
+    L.r2B = L.xB * L.xB + L.yB * L.yB;
+    const Sag snell = sag_terms(p, L.r2B);
+    L.gB = snell.g;
+    L.wB = snell.w;
+    L.uB = snell.u;
+    // At least 1, +inf or NaN, as inv_norm's argument.
+    L.inv_normB = 1.0f / sqrt_from_eps(1.0f + 4.0f * L.r2B * L.gB * L.gB);
+  } else {
+    L.r2B = L.r2;
+    L.gB = L.g;
+    L.wB = L.w;
+    L.uB = L.u;
+    L.inv_normB = L.inv_norm;
+  }
   const float muk = p.mu;
   L.cos2p = 1.0f - muk * muk * (1.0f - L.cs * L.cs);
   L.fail2a = L.cos2p - EPS < 0.0f;
-  L.csp = sqrtf(L.fail2a ? 1.0f : L.cos2p);
+  // 1 where fail2a holds, else cos2p >= EPS, +inf or NaN, as cs's argument.
+  L.csp = sqrt_from_eps(L.fail2a ? 1.0f : L.cos2p);
   L.gsn = L.csp - muk * L.cs;
   L.nx = 2.0f * L.xB * L.gB * L.inv_normB;
   L.ny = 2.0f * L.yB * L.gB * L.inv_normB;
@@ -300,7 +369,8 @@ __device__ __forceinline__ void surface_finish(const Surf<NA>& p, float s_pre, f
   L.cyC = muk * L.cyB - L.gsn * L.ny;
   const float cz2 = 1.0f - (L.cxC * L.cxC + L.cyC * L.cyC);
   L.fail2 = L.fail2a || (cz2 - EPS < 0.0f);
-  L.czC = sqrtf(L.fail2 ? 1.0f : cz2);
+  // 1 where fail2 holds, else cz2 >= EPS, +inf or NaN, as cs's argument.
+  L.czC = sqrt_from_eps(L.fail2 ? 1.0f : cz2);
 
   const bool ok2 = L.ok1 && !L.fail2;
   x = ok2 ? L.xB : 0.0f;
@@ -478,7 +548,8 @@ __device__ __forceinline__ Surf<NA> surf_of(const AsphTables<MODE>& s, int k, in
 // entrance pupil (xp, yp, cy, z0), every surface with its backward-ray
 // bookkeeping (or removal) and the sums of the mode (MODE: 0 plain, 1 Lu,
 // 2 full, 3 opl), then the transfer to the image plane
-// (pallas_asphere._fwd_kernel_a). NA as Surf's.
+// (pallas_asphere._fwd_kernel_a). NA as Surf's. The Lu sums take
+// theta_norm from the roots that surface_finish took (theta_norm_root).
 template <int MODE, bool ALLOW_BACKWARD, bool MASKED, int NA>
 __device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE>& s, int n_surf,
                                               int n_w, int n_asph, int n_iter, int w,
@@ -496,9 +567,9 @@ __device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE>& s, int n_s
 
   for (int k = 0; k < n_surf; ++k) {
     const Surf<NA> p = surf_of<NA>(s, k, n_w, w, n_asph);
-    const float s_pre = newton_point(p, x, y, z, cx, cy, cz, n_iter);
     LocalsA L;
-    surface_finish(p, s_pre, x, y, z, cx, cy, cz, ok, L);
+    surface_finish<false>(p, newton_point(p, x, y, z, cx, cy, cz, n_iter), x, y, z, cx, cy, cz,
+                          ok, L);
     // Leg k travels in the medium before surface k; it counts before a
     // backward ray is removed.
     if (OPL) opl = opl + L.dist * s.nl[k * n_w + w];
@@ -521,8 +592,10 @@ __device__ __forceinline__ RayOut trace_ray_a(const AsphTables<MODE>& s, int n_s
     }
     const bool valid = !MASKED || s.mask[k];
     if (LU && valid) {
-      pth = pth + theta_norm(L.cos2, ok);
-      ptp = ptp + theta_norm(L.cos2p, ok);
+      // Where ok holds after the surface, neither fail1 nor fail2a fired, so
+      // L.cs and L.csp are sqrtf of cos2 and cos2p (surface_finish).
+      pth = pth + theta_norm_root(L.cos2, L.cs, ok);
+      ptp = ptp + theta_norm_root(L.cos2p, L.csp, ok);
       pz = pz + fmaxf(z, 0.0f);
     }
     if (FULL) {
@@ -617,10 +690,10 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf,
     st[k][4] = cy;
     st[k][5] = cz;
     if (ok) ok_bits |= 1ull << k;
-    const float s_pre = newton_point(p, x, y, z, cx, cy, cz, n_iter);
-    st[k][6] = s_pre;
+    const NewtonPoint np = newton_point(p, x, y, z, cx, cy, cz, n_iter);
+    st[k][6] = np.s;
     LocalsA L;
-    surface_finish(p, s_pre, x, y, z, cx, cy, cz, ok, L);
+    surface_finish<false>(p, np, x, y, z, cx, cy, cz, ok, L);
     if (kills(k) && L.delta_z < 0.0f && L.ok1) {
       ok = false;
       x = 0.0f;
@@ -670,7 +743,8 @@ __device__ __forceinline__ void bwd_ray_a(const AsphTables<MODE>& s, int n_surf,
     {
       float x1 = px, y1 = py, z1 = st[k][2], cx1 = pcx, cy1 = pcy, cz1 = pcz;
       bool ok1 = (ok_bits >> k) & 1ull;
-      surface_finish(p, s_pre, x1, y1, z1, cx1, cy1, cz1, ok1, L);
+      surface_finish<true>(p, NewtonPoint{s_pre, 0.0f, 0.0f, false, false}, x1, y1, z1, cx1,
+                           cy1, cz1, ok1, L);
     }
     const bool kill = kills(k) && L.delta_z < 0.0f && L.ok1;
     const bool ok2 = L.ok1 && !L.fail2;

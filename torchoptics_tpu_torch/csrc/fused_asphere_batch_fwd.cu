@@ -32,20 +32,37 @@
 // count, plus each system's tables read once per block: 3 S + S W + S K + 1
 // floats (+ S + 1 in full mode) and S mask bytes (chip_smoke.py's k3_ops
 // and k4_bound). At the generator width (256 systems x 1,536 rays x 7 surfaces,
-// K = 2, N = 10: 3,571 operations a ray in plain mode) that is 1.41 GFLOP,
-// 0.021 ms at the 67 TFLOP/s FP32 peak, against 11.8 MB, 0.0035 ms at
+// K = 2, N = 10: 3,459 operations a ray in plain mode) that is 1.36 GFLOP,
+// 0.020 ms at the 67 TFLOP/s FP32 peak, against 11.8 MB, 0.0035 ms at
 // 3.35 TB/s: operations bound it, by 6x; the tables add < 1 % of the
-// bytes. One thread per ray; a system's 1,536 rays fill 6 blocks of 256, so
-// a 256-system population launches 1,536 blocks, ~12 per SM, each loading a
-// ~17 KB shared table for 256 rays.
+// bytes. What binds on the card is the FP32 issue rate: its square roots
+// and divisions issue as many instructions each (PERF.md, P1). One thread
+// per ray; a system's 1,536 rays fill 6 blocks of 256, so a 256-system
+// population launches 1,536 blocks, each loading a ~17 KB shared table for
+// 256 rays.
 //
-// Design beyond K3's indexing: none. K4 runs K3's device code, so it leaves
-// the Newton loop as K3 does, once a lane's steps repeat (bit-identical to
-// all n_iter steps; N above is then what the inputs need, ~2.2 steps a
-// lane-surface on the aspheric Cooke population), reads the shared
-// per-surface constants from its tables and, as K3, is instantiated per
-// asphere term count, the loops over the terms unrolled.
-// Left for later work: any tuning.
+// Design. K4 runs K3's device code: it leaves the Newton loop as K3 does,
+// once a lane's steps repeat (bit-identical to all n_iter steps; N above is
+// then what the inputs need, 2.24 steps a lane-surface on the aspheric
+// Cooke population, 3.04 for its warp: measured on an H100, PERF.md section 6),
+// reads the shared per-surface constants from its tables and is
+// instantiated per asphere term count, the loops over the terms unrolled.
+// Its exact shortcuts (asphere_common.cuh, shared with K3): the surface
+// step's seven roots by sqrt_from_eps, the Lu sums' theta_norm from two of
+// them; the polish step's F and F' handed on from the Newton loop where a
+// lane leaves it on a repeat; the Snell point's slope and normal taken
+// from the hit point's (on a live ray the two points are one, on a dead
+// one the forward reads neither); the vertex plane's division only where
+// the sphere is missed. What was measured on the card and left out
+// (PERF.md, section 6): kernels of their own at the populations' 7 and 11
+// surfaces (at 2 asphere terms). Unrolled, the 7-surface kernel was 3,549
+// to 4,255 instructions where the loop body is 478 to 586, and ran 1.05 to
+// 1.10x the parent's time: a surface is too long to unroll. With the loop
+// kept, the fixed count changed nothing but the registers (full mode 49,
+// 4 blocks an SM) and ran 1.00-1.02x the runtime-S kernel. Neither blocks
+// of 128, nor 6 blocks an SM forced by launch bounds (40 registers, a few
+// bytes spilled in full and opl mode), nor a block walking two of its
+// system's ray blocks (its table built once for both) ran faster.
 //
 // Build: as K3, -fmad=false and no fast-math: the masks compare against EPS
 // and NEWTON_TOL, and one ulp moved by a contraction flips lanes there.
@@ -109,38 +126,83 @@ __global__ void __launch_bounds__(BLOCK) k4_fwd_kernel(
   if (OPL) opl_out[r] = o.opl;
 }
 
+// One launch's arguments. Where blocks_per_sm is set, the launchers write
+// the kernel's resident blocks per SM there (the occupancy calculator's)
+// instead of launching it.
+struct Args {
+  const float* const* in;  // xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi, n_legs
+  const bool* mask;
+  float angle_thr;
+  int n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter;
+  float* const* outs;      // x, y, cx, cy
+  bool* ok_out;
+  bool* bw_out;
+  float* const* pens;      // pen_theta, pen_theta_p, pen_zrelu, pen_path, pen_ang, opl
+  cudaStream_t stream;
+  int* blocks_per_sm;
+};
+
+template <int MODE, bool ALLOW_BACKWARD, bool MASKED, int NA>
+void launch(const Args& a) {
+  const auto kernel = k4_fwd_kernel<MODE, ALLOW_BACKWARD, MASKED, NA>;
+  if (a.blocks_per_sm) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.blocks_per_sm, kernel, BLOCK, 0);
+    return;
+  }
+  const int gy = a.n_sys < MAX_GRID_Y ? a.n_sys : MAX_GRID_Y;
+  const dim3 grid((a.n + BLOCK - 1) / BLOCK, gy, (a.n_sys + gy - 1) / gy);
+  const float* const* in = a.in;
+  kernel<<<grid, BLOCK, 0, a.stream>>>(
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], a.mask, in[9], in[10],
+      in[11], in[12], a.angle_thr, a.n_sys, a.n, a.n_surf, a.n_w, a.n_asph, a.n_per_w,
+      a.n_iter, a.outs[0], a.outs[1], a.outs[2], a.outs[3], a.ok_out, a.bw_out, a.pens[0],
+      a.pens[1], a.pens[2], a.pens[3], a.pens[4], a.pens[5]);
+}
+
 template <int MODE, bool ALLOW_BACKWARD, bool MASKED>
-void launch(const float* const* in, const bool* mask, float angle_thr, int n_sys, int n,
-            int n_surf, int n_w, int n_asph, int n_per_w, int n_iter, float* const* outs,
-            bool* ok_out, bool* bw_out, float* const* pens, cudaStream_t stream) {
-  const int gy = n_sys < MAX_GRID_Y ? n_sys : MAX_GRID_Y;
-  const dim3 grid((n + BLOCK - 1) / BLOCK, gy, (n_sys + gy - 1) / gy);
-  with_terms(n_asph, [&](auto na) {
-    constexpr int NA = decltype(na)::value;
-    k4_fwd_kernel<MODE, ALLOW_BACKWARD, MASKED, NA><<<grid, BLOCK, 0, stream>>>(
-        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], mask, in[9], in[10],
-        in[11], in[12], angle_thr, n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter, outs[0],
-        outs[1], outs[2], outs[3], ok_out, bw_out, pens[0], pens[1], pens[2], pens[3],
-        pens[4], pens[5]);
-  });
+void launch_terms(const Args& a) {
+  with_terms(a.n_asph,
+             [&](auto na) { launch<MODE, ALLOW_BACKWARD, MASKED, decltype(na)::value>(a); });
 }
 
 template <int MODE, bool ALLOW_BACKWARD>
-void launch_masked(bool masked, const float* const* in, const bool* mask, float angle_thr,
-                   int n_sys, int n, int n_surf, int n_w, int n_asph, int n_per_w, int n_iter,
-                   float* const* outs, bool* ok_out, bool* bw_out, float* const* pens,
-                   cudaStream_t stream) {
-  if (masked)
-    launch<MODE, ALLOW_BACKWARD, true>(in, mask, angle_thr, n_sys, n, n_surf, n_w, n_asph,
-                                       n_per_w, n_iter, outs, ok_out, bw_out, pens, stream);
+void launch_masked(const Args& a) {
+  if (a.mask)
+    launch_terms<MODE, ALLOW_BACKWARD, true>(a);
   else
-    launch<MODE, ALLOW_BACKWARD, false>(in, mask, angle_thr, n_sys, n, n_surf, n_w, n_asph,
-                                        n_per_w, n_iter, outs, ok_out, bw_out, pens, stream);
+    launch_terms<MODE, ALLOW_BACKWARD, false>(a);
+}
+
+void dispatch(int mode, int allow_backward, const Args& a) {
+  if (mode == 0) {
+    if (allow_backward) launch_masked<0, true>(a); else launch_masked<0, false>(a);
+  } else if (mode == 1) {
+    if (allow_backward) launch_masked<1, true>(a); else launch_masked<1, false>(a);
+  } else if (mode == 2) {
+    if (allow_backward) launch_masked<2, true>(a); else launch_masked<2, false>(a);
+  } else {
+    if (allow_backward) launch_masked<3, true>(a); else launch_masked<3, false>(a);
+  }
 }
 
 }  // namespace
 
 extern "C" {
+
+// The resident blocks per SM of the forward kernel that k4_fwd_launch takes
+// for this mode, policy, mask flag and term count
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current device),
+// its threads a block in *block; -1 where the sizes are refused.
+int k4_fwd_blocks_per_sm(int mode, int allow_backward, int masked, int n_asph, int* block) {
+  if (bad_shape_a(1, 1, n_asph, 1, 0, 0, mode)) return -1;
+  int blocks = 0;
+  static const bool some_mask = true;
+  const Args a{nullptr, masked ? &some_mask : nullptr, 0.0f, 1, 0, 1, 1, n_asph, 1, 0,
+               nullptr, nullptr, nullptr, nullptr, nullptr, &blocks};
+  dispatch(mode, allow_backward, a);
+  *block = BLOCK;
+  return blocks;
+}
 
 // Launches K4 forward on `stream` and returns cudaGetLastError() (0 on
 // success). Rays and outputs are (n_sys, n) row-major; z0 is (n_sys,), c,
@@ -162,24 +224,12 @@ int k4_fwd_launch(const float* xp, const float* yp, const float* cy, const float
   if (bad_shape_a(n_surf, n_w, n_asph, n_per_w, n, n_iter, mode) || n_sys < 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0 || n_sys == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
   const float* const in[13] = {xp, yp, cy, z0, c, kappa, t, mu, asph, ref_z, lo, hi, n_legs};
   float* const outs[4] = {x_out, y_out, cx_out, cy_out};
   float* const pens[6] = {pen_theta, pen_theta_p, pen_zrelu, pen_path, pen_ang, opl_out};
-  const bool masked = mask != nullptr;
-#define K4_FWD_LAUNCH(M, AB)                                                             \
-  launch_masked<M, AB>(masked, in, mask, angle_thr, n_sys, n, n_surf, n_w, n_asph, n_per_w, \
-                       n_iter, outs, ok_out, bw_out, pens, s)
-  if (mode == 0) {
-    if (allow_backward) K4_FWD_LAUNCH(0, true); else K4_FWD_LAUNCH(0, false);
-  } else if (mode == 1) {
-    if (allow_backward) K4_FWD_LAUNCH(1, true); else K4_FWD_LAUNCH(1, false);
-  } else if (mode == 2) {
-    if (allow_backward) K4_FWD_LAUNCH(2, true); else K4_FWD_LAUNCH(2, false);
-  } else {
-    if (allow_backward) K4_FWD_LAUNCH(3, true); else K4_FWD_LAUNCH(3, false);
-  }
-#undef K4_FWD_LAUNCH
+  const Args a{in, mask, angle_thr, n_sys, n, n_surf, n_w, n_asph, n_per_w, n_iter, outs,
+               ok_out, bw_out, pens, (cudaStream_t)stream, nullptr};
+  dispatch(mode, allow_backward, a);
   return (int)cudaGetLastError();
 }
 

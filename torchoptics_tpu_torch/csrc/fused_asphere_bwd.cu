@@ -35,7 +35,9 @@
 // partials add 16 B per block and parameter. The operations are counted as
 // for the forward, each value once, and as the function needs them
 // (chip_smoke.py's k3_ops): per ray-surface the forward once
-// (125 + 12 K + N (26 + 5 K), N the Newton steps a lane evaluates); the
+// (125 + 12 K + N (26 + 5 K), N the Newton steps a lane evaluates, less
+// (1 - Q)(24 + 5 K) where a share Q of lane-surfaces finds no repeat: the
+// polish's F and F' are the last Newton step's elsewhere); the
 // backward's surface constants c (1+kappa)c^2, c^3 and a_j (j+2)(j+1),
 // 3 + K; the adjoint chain through Snell's law, the hit point and the polish
 // step, 163 (the Newton point's coordinates, dot product and sag terms are
@@ -53,7 +55,9 @@
 //
 // Design: the forward as K3 forward's (the Newton exit, the constants
 // formed once per block, the kernel instantiated per asphere term count K
-// with the terms' loops unrolled). The adjoint shares reciprocals where it
+// with the terms' loops unrolled, its shortcuts: the stash pass takes the
+// forward surface step, surface_finish<false>; the reverse loop's recompute
+// forms every local the adjoint reads, surface_finish<true>). The adjoint shares reciprocals where it
 // divided by one denominator more than once: the sag partials take one
 // reciprocal of w and one of 1 + w (2 divisions at the Newton point where
 // the quotients took 7, and 1 at each of the hit and Snell points), the

@@ -23,18 +23,22 @@
 // only (adds, multiplies, min/max, each sqrt and division as one; negations,
 // fabsf, compares and selects not counted), each value once, with K asphere
 // terms and N Newton steps: the surface constants (1+kappa)c^2 and
-// a_j (j+2), 3 + K; a Newton step or the polish, 26 + 5 K (F, F' and the
-// step 18, the sag and its slope 8 + 5 K); the sphere guess and the plane
-// fallback 26; the hit point 29 + 3 K and the Snell point 41 + 3 K (their
-// slopes 4 + 3 K each: the sag there is computed but read by nothing; then
-// the normal, cos^2 and Snell's law): 125 + 12 K + N (26 + 5 K) a surface,
-// 509 at N = 10 and K = 2, ~9x K1's 55. Lu adds 14 a surface and full 10 a
+// a_j (j+2), 3 + K; a Newton step, 26 + 5 K (F, F' and the step 18, the
+// sag and its slope 8 + 5 K); the polish step, 2, its F and F' the last
+// Newton step's where a lane leaves on a repeat and 24 + 5 K more on the
+// share Q of lane-surfaces that find none; the sphere guess and the plane
+// fallback 26; the hit point 29 + 3 K (its slope 4 + 3 K: the sag there is
+// computed but read by nothing; then the normal and cos^2) and Snell's law
+// 31 (the Snell point's slope and normal are the hit point's on a live ray,
+// and read by nothing the forward writes on a dead one): 91 + 4 K +
+// N (26 + 5 K) + Q (24 + 5 K) a surface, 493 at N = 10, Q = 1 and K = 2,
+// ~9x K1's 55. Lu adds 14 a surface and full 10 a
 // surface and 3 per finite side of a path bound, opl 2 a leg and 4 B written
 // a ray, as in K1; the launch and the image transfer add 8 a ray
 // (chip_smoke.py's k3_ops). N is what the inputs need: a lane leaves the
 // Newton loop once its steps repeat (below), on the flagship after ~2.4
 // steps on average where the loop ran 10. Operations bound it, ~9x above
-// the bytes at N = 10 and still ~4x at N = 2.4.
+// the bytes at N = 10 and still ~3x at N = 2.4.
 //
 // Design: one thread per ray, as K1. The Newton loop (newton_point in
 // asphere_common.cuh) leaves a lane as soon as its steps repeat, a fixed
@@ -52,7 +56,11 @@
 // policy are template parameters; the ragged tail is masked by i < n. Ray i
 // has wavelength min(i / n_per_w, W - 1). The per-ray trace (trace_ray_a)
 // and the surface math live in asphere_common.cuh, with the MASKED switch
-// for the population kernel K4.
+// for the population kernel K4; so do the exact shortcuts it shares with
+// K4 forward: the surface step's roots by sqrt_from_eps, the Lu sums'
+// theta_norm from those roots, the polish step's F and F' from the Newton
+// loop, the Snell point's slope and normal from the hit point's, the vertex
+// plane only where the sphere is missed.
 //
 // Build: as K1, nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false, no fast-math: the masks compare against EPS and NEWTON_TOL,

@@ -147,10 +147,15 @@ def load() -> ctypes.CDLL:
                  "p2_dpsf_max_kw", "p2_fft_max_len", "p2_fft_launches"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
-    for name in ("k1_fwd_specialized", "k2_bwd_specialized", "p2_specialized_kw",
-                 "p2_dpsf_specialized_kw"):
+    for name in ("k1_fwd_specialized", "k2_fwd_specialized", "k2_bwd_specialized",
+                 "p2_specialized_kw", "p2_dpsf_specialized_kw"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = i
+    # The population forwards' resident blocks per SM: mode, allow_backward,
+    # masked, n_surf (K2) or n_asph (K4), where to write the block's threads.
+    for fn in (lib.k2_fwd_blocks_per_sm, lib.k4_fwd_blocks_per_sm):
+        fn.argtypes = [i] * 4 + [p]
+        fn.restype = i
     # The exhaustive checks of div_half_pi and sqrt_from_eps: two mismatch
     # counts (device int64), the stream.
     lib.k1_exact_checks.argtypes = [p, p]
