@@ -13,7 +13,9 @@ photograph through a lens: PSFs, the SVOLA convolution on kernel P2, the
 distortion warp; wide PSFs on P2's FFT route) and imaging training
 (``LensOptimizer`` on the rendered image's PSNR and SSIM, through P2's
 adjoint, at config 5 and at the default configuration) and the stateful simulator
-(``RaytracedOptics``), runs the card's issue-rate probe P1, and checks every
+(``RaytracedOptics``) and the analysis layer (tolerancing, sensitivities,
+MTFs, fans, Seidel sums, the vignetting solver, the metrics), runs the
+card's issue-rate probe P1, and checks every
 hand-written CUDA kernel on them against its plain PyTorch version:
 
 1. the card's name and power limit;
@@ -196,6 +198,20 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     a step, every step accepted, each step's host wall; the first step's
     d/d(c, t) at 1448^2 (K = 33, the FFT route both ways; config 5's
     deterministic PSF bundle) held against the CPU's.
+40. (after 36) the analysis layer at the README's tolerance width, this
+    slice's main path (``analysis.py``, ``ops/metrics.py``,
+    ``ops/vignetting.py``; the double-Gauss, 5 fields x 64 pupil points x
+    3 wavelengths): ``tolerance_analysis`` of 4096 perturbed samples
+    (3,932,160 rays: one K2 Lu launch; refocused, one K2 plain launch
+    more) and ``sensitivities`` (one K2 forward and one backward), the same
+    on the aspherized double-Gauss with kappa and asphere tolerances on K4,
+    each held against the unroll engine on the card; ``through_focus_mtf``
+    (9 shifts, one K2 plain launch), ``field_mtf`` (one K1 launch),
+    ``diffraction_mtf`` (grid 32, pad 4: two K1 opl launches),
+    ``solve_vignetting`` (Tessar and double-Gauss, n_scan 129), the Seidel
+    sums, fans, field curves, longitudinal aberration and the five metrics,
+    each held against the CPU; each call's launches counted from 0 and its
+    host wall (median of 5).
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -235,6 +251,8 @@ before that carries the kernels' numbers.
                                           # and both routes' times at the
                                           # crossover renders (no result line)
     python3 chip_smoke.py --default-image-training  # instead: phase 39
+    python3 chip_smoke.py --analysis      # instead: phase 40 alone (no
+                                          # result line)
 """
 
 import collections
@@ -5049,6 +5067,396 @@ def add_resources(entries, summary, n_asph, surf):
         e.update(found.get(f"{name[:6]}_kernel<{mode},1{rest[family]}{ns}>", {}))
 
 
+# ---------------------------------------------------------------------------
+# The analysis layer (analysis.py, ops/metrics.py, ops/vignetting.py).
+# ---------------------------------------------------------------------------
+
+#: The README's tolerance run (examples/tolerance_analysis.py): 4096 perturbed
+#: double-Gauss designs x 5 fields x 64 pupil points x 3 wavelengths =
+#: 3,932,160 rays in one K2 launch.
+ANALYSIS_CONFIG = dict(n_sampled_fields=5, n_pupil_rings=8, pupil_sampling="circular",
+                       n_ray_aiming_iter=1, wavelengths=(459.0, 520.0, 640.0),
+                       psf_shape=(33, 33), psf_abs_pixel_size=4e-3)
+ANALYSIS_SAMPLES = 4096
+ANALYSIS_TOL = dict(c=1e-4, t=0.01, nd=5e-4, v=0.1)
+ANALYSIS_TOL_ASPH = dict(ANALYSIS_TOL, kappa=0.01, asph_rel=0.05)
+ANALYSIS_THRESHOLD = 0.01
+ANALYSIS_FIELDS = (0.0, 0.5, 0.7, 1.0)
+#: The sensitivity tables' bar between the fused and the unroll engine, each
+#: entry's deviation over the largest of its table: 1e-2, JAX's own bar between
+#: its Pallas and XLA population gradients (tests/test_pallas_batch.py:96) and
+#: the float32 floor of these tables: on the CPU port the double-Gauss's
+#: float32 and float64 tables differ by 1.1e-2 to 1.4e-2 of their largest
+#: entries at this width (its spot RMS is a sum over rays 3 um from a
+#: centroid 18 mm off axis).
+SENS_BAR = 1e-2
+#: The geometric MTFs, card vs CPU: the modulation that the trace's
+#: coordinate bar (5e-6 mm) moves at the PSF grid's Nyquist frequency
+#: (1 / (2 x 4 um)), 2 pi f dx = 3.9e-3. The splat is smooth, so a ray's
+#: shift moves a cut at f by at most 2 pi f times it.
+MTF_BAR = 2 * math.pi * 0.5 / ANALYSIS_CONFIG["psf_abs_pixel_size"] * 5e-6
+
+
+def float64_cuts(opd_map, wavelengths_mm, n, pad):
+    """``diffraction_mtf``'s tangential and sagittal cuts in float64 numpy
+    from an OPD map (numpy arrays): (F, W, K) each."""
+    g = (np.arange(n) + 0.5) / n * 2.0 - 1.0
+    X, Y = np.meshgrid(g, g, indexing="xy")
+    ok = opd_map["ok"][0] & ((X ** 2 + Y ** 2) <= 1.0).ravel()[None, :, None]
+    cuts = {"mtf_t": [], "mtf_s": []}
+    for wi, lam in enumerate(wavelengths_mm):
+        o = opd_map["opd"][0][:, :, wi].reshape(-1, n, n).astype(np.float64)
+        pupil = ok[:, :, wi].reshape(-1, n, n) * np.exp(2j * np.pi * o / lam)
+        psf = np.abs(np.fft.fft2(pupil, s=(pad * n, pad * n))) ** 2
+        for axis, key in ((-1, "mtf_t"), (-2, "mtf_s")):
+            m = np.abs(np.fft.rfft(psf.sum(axis), axis=-1))
+            cuts[key].append(m / m[..., :1])
+    return {k: np.stack(v, axis=1) for k, v in cuts.items()}
+
+
+def to_cpu(tree):
+    """A nested dict / tuple of tensors moved to the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree.detach().cpu() if hasattr(tree, "detach") else tree
+
+
+def rel_gap(got, want):
+    """max |got - want| over max |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def allclose_gap(got, want, rtol, atol):
+    """The largest of |got - want| / (atol + rtol |want|): <= 1 passes."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+
+
+def tolerance_check(torch, analysis, label, specs, lens, tol, card_out, seed, compensator):
+    """Hold a 4096-sample tolerance run on the fused engine against the
+    unroll engine on the card, on the same perturbed population (drawn again
+    from the same seed): per-sample RMS and the statistics at rtol 2e-4,
+    atol 1e-6 (JAX's bar between its Pallas and XLA runs), the refocus
+    shifts within 5e-5 mm; the yield within the samples that sit that close
+    to the threshold."""
+    specs_n, lens_n = analysis.tile_population(specs, lens, ANALYSIS_SAMPLES)
+    lens_p = analysis.perturb_lens(lens_n, torch.Generator(device="cuda").manual_seed(seed), tol)
+    cfg = simulator_config(trace_engine="unroll")
+    with torch.no_grad():
+        want = to_cpu(analysis._score_population(specs_n, lens_p, cfg, compensator,
+                                                  (50.0, 90.0, 99.0), ANALYSIS_THRESHOLD))
+    got = to_cpu(card_out)
+    gaps = {k: allclose_gap(got[k], want[k], 2e-4, 1e-6)
+            for k in ("rms", "nominal_rms", "mean", "std", "p50", "p90", "p99")}
+    if compensator is not None:
+        # A closed-form focus from nearby float32 rays: within 5e-5 mm (JAX's own
+        # engines give such focus shifts 2.3e-5 mm apart, ROADMAP §3).
+        gaps["refocus_delta"] = allclose_gap(got["refocus_delta"], want["refocus_delta"], 0.0,
+                                             5e-5)
+    near = int(((want["rms"][1:] - ANALYSIS_THRESHOLD).abs()
+                <= 2e-4 * ANALYSIS_THRESHOLD + 1e-6).sum())
+    flips = abs(float(got["yield_fraction"]) - float(want["yield_fraction"])) * (
+        ANALYSIS_SAMPLES - 1)
+    finite = bool(torch.isfinite(got["rms"]).all())
+    check(max(gaps.values()) <= 1.0 and flips <= near + 0.5 and finite and float(got["std"]) > 0,
+          f"analysis: {label} tolerance_analysis ({ANALYSIS_SAMPLES} samples, compensator "
+          f"{compensator}) on the fused engine vs the unroll engine on the card, the same "
+          f"population: worst gap {max(gaps.values()):.3f} of rtol 2e-4 + atol 1e-6 "
+          f"({max(gaps, key=gaps.get)}); yield {float(got['yield_fraction']):.4f} vs "
+          f"{float(want['yield_fraction']):.4f} ({flips:.0f} samples apart, {near} within the "
+          f"bar of the threshold); nominal RMS {float(got['nominal_rms']):.5f} mm, mean "
+          f"{float(got['mean']):.5f}, p99 {float(got['p99']):.5f}")
+    return max(gaps.values())
+
+
+def simulator_config(**kw):
+    from torchoptics_tpu_torch import simulator
+    return simulator.SimulatorConfig(**dict(ANALYSIS_CONFIG, **kw))
+
+
+def sensitivity_check(torch, analysis, label, specs, lens, card_sens):
+    """The fused engine's sensitivity table against the unroll engine's
+    autograd on the card, each entry within ``SENS_BAR`` of its table's
+    largest, and both against the unroll engine's float64 table: the fused
+    one no farther from it than twice the float32 unroll one plus 1e-3 of
+    the largest. Then, with ray aiming off (aiming enters the objective as a
+    constant, so a finite difference through it differs), the fused table's
+    most sensitive curvature against a central difference of the fused
+    objective at rtol 1e-2 (JAX's own test)."""
+    unroll = to_cpu(analysis.sensitivities(specs, lens, simulator_config(trace_engine="unroll")))
+    f64 = to_cpu(analysis.sensitivities(specs, lens, simulator_config(
+        trace_engine="unroll", double_precision=True)))
+    got = to_cpu(card_sens)
+    gaps = {k: rel_gap(got[k], unroll[k]) for k in unroll}
+    floor = {k: rel_gap(unroll[k], f64[k]) for k in unroll}
+    acc = {k: rel_gap(got[k], f64[k]) for k in unroll}
+    check(max(gaps.values()) <= SENS_BAR and all(acc[k] <= 2 * floor[k] + 1e-3 for k in acc)
+          and all(bool(torch.isfinite(v).all()) for v in got.values()),
+          f"analysis: {label} sensitivities ({', '.join(got)}) on the fused engine vs the unroll "
+          f"engine's autograd on the card: worst {max(gaps.values()):.2e} of a table's largest "
+          f"({max(gaps, key=gaps.get)}; limit {SENS_BAR:g}); from the float64 table: fused "
+          f"{max(acc.values()):.2e}, unroll {max(floor.values()):.2e} (limit twice the unroll "
+          f"one's + 1e-3)")
+    return max(gaps.values())
+
+
+def sensitivity_difference_check(torch, zoo, analysis):
+    """JAX's own check of the sensitivity table (tests/test_analysis.py:
+    189-211) on the card's kernels: the Cooke at 3 fields x a 4-ring
+    circular pupil x 3 wavelengths on the fused engine, its most sensitive
+    curvature against a central difference of the same objective (eps 1e-5)
+    at rtol 1e-2."""
+    specs, lens = zoo.build("cooke", device="cuda")
+    cfg = simulator_config(n_sampled_fields=3, n_pupil_rings=4, trace_engine="fused")
+    g = analysis.sensitivities(specs, lens, cfg)["c"][0].cpu()
+    j = int(g.abs().argmax())
+    eps = 1e-5
+
+    def rms_at(dc):
+        c = lens.c.clone()
+        c[0, j] += dc
+        with torch.no_grad():
+            return float(analysis._per_sample_rms(specs, lens.replace(c=c), cfg)[0])
+
+    fd = (rms_at(eps) - rms_at(-eps)) / (2 * eps)
+    gap = abs(float(g[j]) - fd) / abs(fd)
+    check(gap <= 1e-2, f"analysis: the Cooke's d(rms)/dc[{j}] on K2's adjoint {float(g[j]):.4f} "
+                       f"vs a central difference {fd:.4f}: {gap:.2e} (limit 1e-2)")
+
+
+def phase_analysis(torch, zoo, modules, card):
+    """The analysis layer at the README's tolerance width, each call's
+    launches counted from 0 and read after it:
+
+    - ``tolerance_analysis`` of the double-Gauss, 4096 samples, compensator
+      None (one K2 Lu launch) and "refocus" (one K2 plain launch for the
+      focus, one Lu); ``sensitivities`` (one K2 Lu forward, one backward);
+      the same on the aspherized double-Gauss with kappa and asphere
+      tolerances on K4; each held against the unroll engine on the card;
+    - ``through_focus_mtf`` (9 shifts: one K2 plain launch), ``field_mtf``
+      (one K1 plain launch), ``diffraction_mtf`` (grid 32, pad 4: two K1
+      opl launches), ``solve_vignetting`` of the Tessar and the
+      double-Gauss (n_scan 129), the Seidel sums and focal shifts, the ray
+      fans, the field curves, the longitudinal aberration and the five
+      metrics (all on the unroll engine), each held against the same call
+      on the CPU.
+
+    Then each call's host wall (median of 5 around
+    ``torch.cuda.synchronize()``). Returns ({call: {kernel entry:
+    launches}}, {call: ms})."""
+    from torchoptics_tpu_torch import analysis, trace
+    from torchoptics_tpu_torch.ops import metrics, vignetting
+    counters = opl_counters(*modules)
+    launches, walls, calls = {}, {}, {}
+
+    def counted(name, fn):
+        reset_launches(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = read_launches(counters)
+        calls[name] = fn
+        return out
+
+    fused = simulator_config(trace_engine="fused")
+    gap = {}
+    for label, tol_kw, kernel in (("double_gauss", ANALYSIS_TOL, "k2"),
+                                  ("double_gauss_asph", ANALYSIS_TOL_ASPH, "k4")):
+        specs, lens = zoo.build(label, device="cuda")
+        tol = analysis.Tolerances(**tol_kw)
+        for compensator, mode in ((None, "lu"), ("refocus", "plain + lu")):
+            name = f"tolerance_analysis {label}{' refocus' if compensator else ''}"
+
+            def run(compensator=compensator, specs=specs, lens=lens, tol=tol):
+                with torch.no_grad():
+                    return analysis.tolerance_analysis(
+                        specs, lens, fused, tol, ANALYSIS_SAMPLES,
+                        torch.Generator(device="cuda").manual_seed(7),
+                        rms_threshold=ANALYSIS_THRESHOLD, compensator=compensator)
+
+            out = counted(name, run)
+            n_fwd = 2 if compensator else 1
+            check(launches[name][kernel] == (n_fwd, 0)
+                  and all(v == (0, 0) for k, v in launches[name].items() if k != kernel),
+                  f"analysis: {name}: {kernel.upper()} forward launched "
+                  f"{launches[name][kernel][0]} times ({mode}; expected {n_fwd}), backward "
+                  f"{launches[name][kernel][1]}, other kernels "
+                  f"{ {k: v for k, v in launches[name].items() if k != kernel} }")
+            gap[name] = tolerance_check(torch, analysis, label, specs, lens, tol, out, 7,
+                                        compensator)
+        name = f"sensitivities {label}"
+        sens = counted(name, lambda specs=specs, lens=lens: analysis.sensitivities(specs, lens,
+                                                                                  fused))
+        check(launches[name][kernel] == (1, 1)
+              and all(v == (0, 0) for k, v in launches[name].items() if k != kernel),
+              f"analysis: {name}: {kernel.upper()} forward {launches[name][kernel][0]}, backward "
+              f"{launches[name][kernel][1]} (expected 1 and 1), other kernels none")
+        gap[name] = sensitivity_check(torch, analysis, label, specs, lens, sens)
+    sensitivity_difference_check(torch, zoo, analysis)
+
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    specs_h, lens_h = zoo.build("double_gauss", device="cpu")
+    deltas = np.linspace(-0.2, 0.2, 9)
+    for name, fn, kernel, expect in (
+            ("through_focus_mtf", lambda s, l: analysis.through_focus_mtf(s, l, fused, deltas),
+             "k2", (1, 0)),
+            ("field_mtf", lambda s, l: analysis.field_mtf(s, l, fused), "k1", (1, 0))):
+        with torch.no_grad():
+            out = to_cpu(counted(name, lambda fn=fn: fn(specs, lens)))
+            want = fn(specs_h, lens_h)
+        mtf_gap = max(float((out[k] - want[k]).abs().max()) for k in want)
+        check(launches[name][kernel] == expect
+              and all(v == (0, 0) for k, v in launches[name].items() if k != kernel)
+              and mtf_gap <= MTF_BAR and bool(torch.isfinite(out["mtf_t"]).all()),
+              f"analysis: {name} of the double-Gauss: {kernel.upper()} forward launched "
+              f"{launches[name][kernel][0]} times (expected {expect[0]}); card vs CPU within "
+              f"{mtf_gap:.2e} (limit {MTF_BAR:.2e}, the coordinate bar's move at Nyquist); "
+              f"mtf_t {tuple(out['mtf_t'].shape)}")
+        gap[name] = mtf_gap
+
+    name = "diffraction_mtf"
+    dcfg = trace.TraceConfig(mode="circular", n_rays=(2, 2), rel_fields=(0.0, 0.7, 1.0),
+                             wavelengths=(459.0, 520.0, 640.0), n_ray_aiming_iter=1,
+                             engine="fused")
+    check(not torch.backends.cuda.matmul.allow_tf32, "analysis: TF32 is off")
+    with torch.no_grad():
+        out = to_cpu(counted(name, lambda: analysis.diffraction_mtf(specs, lens, dcfg,
+                                                                    grid_n=32, pad=4)))
+        want = analysis.diffraction_mtf(specs_h, lens_h, dcfg, grid_n=32, pad=4)
+        g = (np.arange(32) + 0.5) / 32 * 2.0 - 1.0
+        X, Y = np.meshgrid(g, g, indexing="xy")
+        xy = tuple(torch.tensor(a.ravel()[None, None, :, None], dtype=torch.float32,
+                                device="cuda") for a in (X, Y))
+        opd = {k: v.numpy() for k, v in to_cpu(analysis.wf.opd_map(specs, lens, dcfg,
+                                                                   xy=xy)).items()}
+    ref = float64_cuts(opd, [w * 1e-6 for w in dcfg.wavelengths], 32, 4)
+    cut_gap = max(float(np.abs(out[k].numpy() - ref[k]).max()) for k in ref)
+    cutoff_gap = rel_gap(out["cutoff_cyc_mm"], want["cutoff_cyc_mm"])
+    check(launches[name]["k1"] == (2, 0)
+          and all(v == (0, 0) for k, v in launches[name].items() if k != "k1")
+          and cut_gap <= 1e-4 and cutoff_gap <= 5e-6,
+          f"analysis: diffraction_mtf of the double-Gauss (32^2 pupil, pad 4): K1 opl forward "
+          f"launched {launches[name]['k1'][0]} times (the bundle and the chief ray; expected 2); "
+          f"its cuts within {cut_gap:.2e} of float64 cuts of the card's own OPD (limit 1e-4), "
+          f"cutoffs within {cutoff_gap:.2e} of the CPU's (limit 5e-6); card vs CPU cuts "
+          f"{max(float((out[k] - want[k]).abs().max()) for k in ('mtf_t', 'mtf_s')):.2e} "
+          f"(the OPD's float32 floor)")
+    gap[name] = cut_gap
+
+    for label in ("tessar", "double_gauss"):
+        name = f"solve_vignetting {label}"
+        s, l = zoo.build(label, device="cuda")
+        s_h, l_h = zoo.build(label, device="cpu")
+        with torch.no_grad():
+            out = to_cpu(counted(name, lambda s=s, l=l: vignetting.solve_vignetting(
+                s, l, ANALYSIS_FIELDS, n_scan=129)))
+            want = vignetting.solve_vignetting(s_h, l_h, ANALYSIS_FIELDS, n_scan=129)
+            vcfg = trace.TraceConfig(mode="tee", rel_fields=ANALYSIS_FIELDS, wavelengths=("d",),
+                                     n_ray_aiming_iter=1)
+            p = np.linspace(-1.0, 1.0, 129).astype(np.float32)
+            masks = []
+            for dev, ss, ll, sa in (("cuda", s, l, out["semi_apertures"].cuda()),
+                                    ("cpu", s_h, l_h, want["semi_apertures"])):
+                pp = torch.tensor(p, device=dev).reshape(1, 1, -1, 1)
+                z = torch.zeros_like(pp)
+                masks.append([vignetting._fan_margins(ss, ll, vcfg, *xy, sa * (1 + 1e-6)).cpu()
+                              > 1.0 for xy in ((z, pp), (pp, z))])
+        agree = all(bool(torch.equal(a, b)) for a, b in zip(*masks))
+        tab_gap = max(float((out[k] - want[k]).abs().max()) for k in want)
+        check(agree and tab_gap <= 1e-4 and launches[name] == {k: (0, 0) for k in counters},
+              f"analysis: {name} (fields {ANALYSIS_FIELDS}, n_scan 129, unroll engine): the "
+              f"blocked masks of both fans agree card vs CPU: {agree}; tables within "
+              f"{tab_gap:.2e} (limit 1e-4); vig_up {out['vig_up'][0].numpy().round(4).tolist()}")
+        gap[name] = tab_gap
+
+    fcfg = trace.TraceConfig(mode="circular", n_rays=(8, 8), rel_fields=ANALYSIS_FIELDS,
+                             wavelengths=(459.0, 520.0, 640.0), n_ray_aiming_iter=1)
+    host_calls = {
+        "seidel_coefficients": lambda s, l: analysis.seidel_coefficients(s, l),
+        "ray_fans": lambda s, l: analysis.ray_fans(s, l, fcfg),
+        "field_curvature": lambda s, l: analysis.field_curvature(s, l, fcfg),
+        "longitudinal_aberration": lambda s, l: analysis.longitudinal_aberration(s, l, fcfg),
+        "compute_distortion": lambda s, l: metrics.compute_distortion(s, l, ANALYSIS_FIELDS[1:]),
+        "compute_semi_apertures": lambda s, l: metrics.compute_semi_apertures(s, l),
+        "compute_ray_aiming_error": lambda s, l: metrics.compute_ray_aiming_error(
+            s, l, ANALYSIS_FIELDS),
+        "compute_axial_color": lambda s, l: metrics.compute_axial_color(l),
+        "compute_lateral_color": lambda s, l: metrics.compute_lateral_color(s, l),
+    }
+    # The fans' deviations and the lateral colour are differences of two image
+    # points at up to the full-field height (~17 mm): the coordinate bar
+    # (5e-6 mm or relative) on each, 2 (5e-6 + 5e-6 y_max).
+    y_max = float(lens_h.efl[0] * torch.tan(specs_h.hfov[0]))
+    diff_atol = 2 * (5e-6 + 5e-6 * y_max)
+    for name, fn in host_calls.items():
+        with torch.no_grad():
+            out = to_cpu(counted(name, lambda fn=fn: fn(specs, lens)))
+            want = fn(specs_h, lens_h)
+        if name == "seidel_coefficients":
+            per = want["per_surface"]
+            worst = max(max(float((out["per_surface"][k] - per[k]).abs().max()),
+                            float((out[k] - want[k]).abs().max())) / float(per[k].abs().max())
+                        for k in per)
+            ok, bar = worst <= 1e-5, "1e-5 of the largest per-surface term"
+        elif isinstance(want, dict):
+            bools = [k for k, v in want.items() if v.dtype == torch.bool]
+            rtol, atol = {"field_curvature": (0.0, 5e-5),
+                          "ray_fans": (0.0, diff_atol)}.get(name, (5e-6, 5e-6))
+            worst = max(allclose_gap(out[k], want[k], rtol, atol)
+                        for k in want if k not in bools)
+            ok = worst <= 1.0 and all(torch.equal(out[k], want[k]) for k in bools)
+            bar = f"{atol:.3g} mm" + (" or relative" if rtol else "") + ", masks equal"
+        else:
+            rtol, atol = (0.0, diff_atol) if name == "compute_lateral_color" else (5e-6, 5e-6)
+            worst = allclose_gap(out, want, rtol, atol)
+            ok, bar = worst <= 1.0, f"{atol:.3g} mm" + (" or relative" if rtol else "")
+        check(ok and launches[name] == {k: (0, 0) for k in counters},
+              f"analysis: {name} of the double-Gauss, card vs CPU: {worst:.3g} (limit: {bar}); "
+              f"no kernel launched")
+        gap[name] = worst
+
+    with torch.no_grad():
+        for name, fn in calls.items():
+            walls[name] = host_ms(torch, fn, runs=5, warmup=1)
+    per_entry = {}
+    entry_of = {("k1", 0): "k1_fwd", ("k2", 0): "k2_fwd", ("k2", 1): "k2_bwd",
+                ("k4", 0): "k4_fwd", ("k4", 1): "k4_bwd"}
+    for name, runs in launches.items():
+        for kernel, counts in runs.items():
+            for direction, n in enumerate(counts):
+                if n:
+                    entry = entry_of[(kernel, direction)]
+                    if name == "diffraction_mtf":
+                        entry += "_opl"
+                    per_entry.setdefault(entry, {})[name] = n
+    print(json.dumps({"analysis_walls_ms": {k: round(v, 3) for k, v in walls.items()},
+                      "launches": per_entry, "gaps": gap, "card": card}), flush=True)
+    return per_entry, walls
+
+
+def profile_analysis(torch, zoo, card):
+    """torch.profiler breakdowns of the 4096-sample tolerance runs (plain and
+    refocused, spherical and aspherized) and of the sensitivity tables."""
+    from torchoptics_tpu_torch import analysis
+    fused = simulator_config(trace_engine="fused")
+    for label, tol_kw in (("double_gauss", ANALYSIS_TOL), ("double_gauss_asph", ANALYSIS_TOL_ASPH)):
+        specs, lens = zoo.build(label, device="cuda")
+        tol = analysis.Tolerances(**tol_kw)
+        for compensator in (None, "refocus"):
+            def run(compensator=compensator):
+                with torch.no_grad():
+                    analysis.tolerance_analysis(specs, lens, fused, tol, ANALYSIS_SAMPLES,
+                                                torch.Generator(device="cuda").manual_seed(7),
+                                                rms_threshold=ANALYSIS_THRESHOLD,
+                                                compensator=compensator)
+            profile_steps(torch, f"tolerance_analysis {label}, {ANALYSIS_SAMPLES} samples, "
+                                 f"compensator {compensator}", run, card)
+        profile_steps(torch, f"sensitivities {label}",
+                      lambda: analysis.sensitivities(specs, lens, fused), card)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5117,6 +5525,10 @@ def main():
                                   f"default config at {px}^2 (K = {k[0]})",
                                   lambda: image._launch_fft(patches, second, k, adjoint), card,
                                   n_steps=5)
+        return 0
+    if "--analysis" in sys.argv[1:]:
+        phase_analysis(torch, zoo, (fused_trace, fused_batch, fused_asphere), card)
+        profile_analysis(torch, zoo, card)
         return 0
     if "--default-image-training" in sys.argv[1:]:
         print(json.dumps({"default_image_training": phase_default_image_training(
@@ -5203,6 +5615,8 @@ def main():
                                                  fused_trace, LensOptimizer, card)
     torch.cuda.empty_cache()
     phase_raytraced_optics(torch, zoo, simulator, fused_trace)
+    analysis_launches, _ = phase_analysis(torch, zoo, (fused_trace, fused_batch, fused_asphere),
+                                          card)
     entries.append(adjoint_entry(adjoint, train_launches, adj_ms, adj_bound))
     crossover = phase_p2_crossover(torch, image, render_inputs(
         torch, zoo, simulator, imaging, image, CROSSOVER_RENDERS), card)
@@ -5233,6 +5647,8 @@ def main():
         if e["name"] == "k1_fwd":
             e["image_bundle_max_abs_err"] = bundle[0]
             e["launches_image_training"] = train_launches[0]
+        # Launches per analysis call (phase 40), by the entry of the mode each runs.
+        e["launches_analysis"] = analysis_launches.get(e["name"], {})
         if e["name"] == "k1_bwd":
             e["image_bundle_max_abs_err"] = bundle[1][0]
             e["image_bundle_param_max_rel_err"] = bundle[1][2]

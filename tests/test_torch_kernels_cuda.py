@@ -44,7 +44,8 @@ P1's chains:
 sqrt and div bit for bit with their plain versions, fma within one float32
 ulp a step, relative (``fmaf`` rounds once, the plain ``a * k1 + k2``
 twice); a small
-render on the card against the CPU's.
+render on the card against the CPU's; the analysis layer's tolerance runs
+and sensitivity tables on K2 and K4 against the unroll engine on the card.
 """
 
 import importlib.util
@@ -1508,3 +1509,89 @@ def test_imaging_render_on_gpu_matches_cpu(cuda):
     torch.testing.assert_close(irr_g, irr_c, rtol=0, atol=0.05)
     torch.testing.assert_close(p_g, p_c, rtol=0, atol=2e-3)
     torch.testing.assert_close(s_g, s_c, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The analysis layer: tolerancing and the sensitivity table on K2 and K4.
+# ---------------------------------------------------------------------------
+
+# The JAX package's own analysis tests' width: 3 fields x a 4-ring circular
+# pupil x 3 wavelengths, one ray-aiming iteration.
+ANALYSIS = dict(n_sampled_fields=3, n_pupil_rings=4, pupil_sampling="circular",
+                n_ray_aiming_iter=1, wavelengths=(459.0, 520.0, 640.0))
+
+
+def _analysis_case(name, device):
+    """(specs, lens, Tolerances, kernel counters' module and name)."""
+    from torchoptics_tpu_torch import analysis
+    from torchoptics_tpu_torch.ops import fused_asphere, fused_batch
+    if name == "cooke":
+        specs, lens = zoo.build("cooke", device=device)
+        return specs, lens, analysis.Tolerances(c=2e-4, t=0.02, nd=1e-3, v=0.2), (fused_batch,
+                                                                                    "K2")
+    specs, lens = zoo.aspheric_population(1, device=device)
+    tol = analysis.Tolerances(c=1e-4, t=0.01, kappa=0.02, asph_rel=0.05)
+    return specs, lens, tol, (fused_asphere, "K4")
+
+
+def _launches(counter):
+    module, name = counter
+    return getattr(module, f"{name}_FWD_LAUNCHES"), getattr(module, f"{name}_BWD_LAUNCHES")
+
+
+@pytest.mark.parametrize("compensator", [None, "refocus"])
+@pytest.mark.parametrize("name", ["cooke", "aspheric cooke"])
+def test_tolerance_on_gpu_matches_unroll(cuda, name, compensator):
+    """``tolerance_analysis`` of 64 samples on the fused engine (one K2 or K4
+    Lu launch; with the refocus compensator one plain launch more) against
+    the unroll engine on the card for the same population (drawn again
+    from the same seed): per-sample RMS and the statistics at rtol 2e-4,
+    atol 1e-6 (JAX's bar between its Pallas and XLA tolerance runs); the
+    refocus shifts, a closed-form focus from nearby float32 rays, within
+    5e-5 mm (JAX's own engines give such focus shifts 2.3e-5 mm apart; the
+    aspheric population's came 1.28x the rms bar apart on the card)."""
+    from torchoptics_tpu_torch import analysis
+    specs, lens, tol, counter = _analysis_case(name, cuda)
+    fused = simulator.SimulatorConfig(**ANALYSIS, trace_engine="fused")
+    unroll = simulator.SimulatorConfig(**ANALYSIS, trace_engine="unroll")
+    before = _launches(counter)
+    with torch.no_grad():
+        got = analysis.tolerance_analysis(specs, lens, fused, tol, 64,
+                                          torch.Generator(device=cuda).manual_seed(5),
+                                          rms_threshold=0.02, compensator=compensator)
+    launched = tuple(a - b for a, b in zip(_launches(counter), before))
+    assert launched == (2 if compensator else 1, 0)
+    specs_n, lens_n = analysis.tile_population(specs, lens, 64)
+    lens_p = analysis.perturb_lens(lens_n, torch.Generator(device=cuda).manual_seed(5), tol)
+    with torch.no_grad():
+        want = analysis._score_population(specs_n, lens_p, unroll, compensator,
+                                          (50.0, 90.0, 99.0), 0.02)
+    assert set(got) == set(want)
+    for k in got:
+        if k == "refocus_delta":
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=5e-5, msg=k)
+        else:
+            torch.testing.assert_close(got[k], want[k], rtol=2e-4, atol=1e-6, msg=k)
+    assert float(got["std"]) > 0.0
+
+
+@pytest.mark.parametrize("name,bar", [("cooke", 5e-5), ("aspheric cooke", 2e-3)])
+def test_sensitivities_on_gpu_match_unroll(cuda, name, bar):
+    """``sensitivities`` on the fused engine (one K2 or K4 forward and one
+    backward) against the unroll engine's autograd on the card, each entry
+    within ``bar`` of its table's largest: 5e-5 on the Cooke, twice the
+    float32 floor of its table at this width (its float32 and float64
+    tables differ by 1.1e-5 to 2.0e-5 of the largest on the CPU port),
+    2e-3 on aspheres."""
+    from torchoptics_tpu_torch import analysis
+    specs, lens, _, counter = _analysis_case(name, cuda)
+    before = _launches(counter)
+    got = analysis.sensitivities(specs, lens,
+                                 simulator.SimulatorConfig(**ANALYSIS, trace_engine="fused"))
+    assert tuple(a - b for a, b in zip(_launches(counter), before)) == (1, 1)
+    want = analysis.sensitivities(specs, lens,
+                                  simulator.SimulatorConfig(**ANALYSIS, trace_engine="unroll"))
+    assert set(got) == set(want)
+    for k in want:
+        scale = float(want[k].abs().max())
+        assert float((got[k] - want[k]).abs().max()) <= bar * scale, k

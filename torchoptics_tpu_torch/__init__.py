@@ -55,6 +55,15 @@ a lens trains on rendered image quality, -PSNR + w·(1 - SSIM)::
     state = opt.init(lens)
     state, loss, loss_dict = opt.step(state)   # K1 fwd + bwd, P2, P2's d/dpsf
 
+The analysis layer (``analysis``: Monte-Carlo tolerancing in one population
+launch of K2 or K4, the sensitivity table, MTFs, fans, Seidel sums;
+``ops.metrics``; ``ops.vignetting``) takes a ``torch.Generator`` where the
+JAX package takes a key::
+
+    tol = analysis.Tolerances(c=1e-4, t=0.01, nd=5e-4, v=0.1)
+    out = analysis.tolerance_analysis(specs, lens, cfg, tol, 4096,
+                                      torch.Generator("cuda").manual_seed(0))
+
 Prescriptions load and save through ``models.io`` (``load_lens``,
 ``save_lens``); ``RaytracedOptics`` is the stateful simulator over them.
 
