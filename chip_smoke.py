@@ -14,7 +14,9 @@ distortion warp; wide PSFs on P2's FFT route) and imaging training
 (``LensOptimizer`` on the rendered image's PSNR and SSIM, through P2's
 adjoint, at config 5 and at the default configuration) and the stateful simulator
 (``RaytracedOptics``) and the analysis layer (tolerancing, sensitivities,
-MTFs, fans, Seidel sums, the vignetting solver, the metrics), runs the
+MTFs, fans, Seidel sums, the vignetting solver, the metrics) and
+``parallel/`` (the sharded trace, losses, train step and generator step on
+rank groups sharing the card), runs the
 card's issue-rate probe P1, and checks every
 hand-written CUDA kernel on them against its plain PyTorch version:
 
@@ -212,6 +214,23 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     sums, fans, field curves, longitudinal aberration and the five metrics,
     each held against the CPU; each call's launches counted from 0 and its
     host wall (median of 5).
+41. (after 40) ``parallel/`` on ``torch.distributed``, this slice's main
+    path: the kernel library built first (by this process), the
+    single-process results on the card, then rank groups that share the
+    card, each spawned by ``parallel.mesh.spawn``: 1 rank (NCCL), 2 ranks
+    (gloo, lens 1 x rays 2) and 4 ranks (gloo, 2 x 2). Every rank checks
+    ``all_reduce`` and ``broadcast`` of CUDA tensors; ``sharded_trace_rays``
+    of the double-Gauss at 2,457,600 rays (K1 forward, one launch a rank;
+    x and y within 5e-6 mm of the single-process trace, ``ray_ok``
+    bit-identical); ``sharded_fused_losses``, full and Lu, value and
+    d/d(c, t[, kappa, asph]), on the 256-system double-Gauss (K2) and
+    aspheric Cooke (K4) populations at 256 x 1,536 rays (values rtol 2e-5,
+    the world-summed gradients rtol 1e-3, atol 1e-6); 3
+    ``make_sharded_train_step`` steps (full loss) against 3 single-process
+    ``LensOptimizer`` steps (total rtol 1e-5, params rtol 1e-4, atol 1e-6,
+    bit-identical across ranks); one ``OpticalLoss.unsupervised(mesh=...)``
+    generator step at B = 256; each call's launches on the rank. The
+    step and trace walls of every rank beside the single process's.
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -252,6 +271,8 @@ before that carries the kernels' numbers.
                                           # crossover renders (no result line)
     python3 chip_smoke.py --default-image-training  # instead: phase 39
     python3 chip_smoke.py --analysis      # instead: phase 40 alone (no
+                                          # result line)
+    python3 chip_smoke.py --parallel      # instead: phase 41 alone (no
                                           # result line)
 """
 
@@ -5457,6 +5478,299 @@ def profile_analysis(torch, zoo, card):
                       lambda: analysis.sensitivities(specs, lens, fused), card)
 
 
+# ---------------------------------------------------------------------------
+# Phase 41: parallel/ on torch.distributed, rank groups sharing the one card.
+# ---------------------------------------------------------------------------
+
+#: (ranks, lens_parallel, the backend ``init_distributed``'s rule picks):
+#: one rank has the card to itself (NCCL); two and four share it (gloo).
+PARALLEL_GROUPS = ((1, 1, "nccl"), (2, 1, "gloo"), (4, 2, "gloo"))
+PARALLEL_STEPS = 3
+#: The sharded-against-single-process bars (tests/test_sharding.py's and
+#: tests/test_distributed.py's).
+PARALLEL_VALUE_RTOL, PARALLEL_GRAD_RTOL, PARALLEL_GRAD_ATOL = 2e-5, 1e-3, 1e-6
+
+
+def parallel_cases(torch, zoo, simulator, device):
+    """The phase's inputs, the same on every rank: the flagship at
+    2,457,600 rays, the 256-system double-Gauss population (glasses 2e-3
+    off the catalog) and aspheric Cooke population at the generator width,
+    and the train step's optimizer settings."""
+    trace_cfg = simulator.SimulatorConfig(pupil_sampling="circular", n_ray_aiming_iter=1,
+                                          trace_engine="fused", **BENCH_WIDTH).trace_config()
+    pop_cfg = simulator.SimulatorConfig(trace_engine="fused", **GEN_WIDTH)
+    specs, lens = zoo.population("double_gauss", N_SYSTEMS, device=device)
+    lens = lens.replace(nd=lens.nd + 2e-3)
+    pops = {"k2": (specs, lens), "k4": zoo.aspheric_population(N_SYSTEMS, device=device)}
+    train_kw = dict(learning_rate=1e-4, use_full_loss=True)
+    return trace_cfg, pop_cfg, pops, train_kw
+
+
+def parallel_loss(torch, fused_batch, shard, specs, lens, cfg, full, mesh=None):
+    """(value, gradients w.r.t. c, t[, kappa, asph]) of the population loss:
+    sharded over ``mesh`` (this rank's share of the gradients), or the
+    single-process fused loss."""
+    names = [k for k in ("c", "t", "kappa", "asph") if getattr(lens, k) is not None]
+    leaves = {k: getattr(lens, k).detach().clone().requires_grad_(True) for k in names}
+    lens = lens.replace(**leaves)
+    if mesh is not None:
+        value, _ = shard.sharded_fused_losses(specs, lens, cfg, mesh, full=full)
+    elif full:
+        value, _ = fused_batch.batched_compute_losses_fused(specs, lens, cfg)
+    else:
+        value, _ = fused_batch.batched_unsupervised_loss(specs, lens, cfg)
+    grads = torch.autograd.grad(value, list(leaves.values()))
+    return value.detach(), dict(zip(names, grads))
+
+
+def parallel_train(torch, LensOptimizer, shard, specs, lens, cfg, train_kw, mesh=None):
+    """PARALLEL_STEPS steps (sharded over ``mesh``, or single-process
+    LensOptimizer steps): (params, last total, each step's host wall ms)."""
+    train_kw = dict(train_kw, efl_target=float(lens.efl[0]))
+    if mesh is None:
+        opt = LensOptimizer(specs, cfg, **train_kw)
+        state = opt.init(lens)
+        step = opt.step
+    else:
+        _, init_fn, step = shard.make_sharded_train_step(specs, cfg, mesh, **train_kw)
+        state = init_fn(lens)
+    walls = []
+    for _ in range(PARALLEL_STEPS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, total, _ = step(state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - start) * 1e3)
+    return {k: v.detach() for k, v in state.params.items()}, total, walls
+
+
+def parallel_generator(torch, OpticalLoss, mesh=None):
+    """One generator step at B = N_SYSTEMS from seeded weights and specs
+    (sharded over ``mesh``: the world-sum of the ranks' shares): (loss, the
+    MLP's gradients, the MLP after the Adam step)."""
+    ol = OpticalLoss("GAGA", spot_metric="xy")
+    net = Generator(torch, ol, 0, "cuda")
+    inputs = sample_specs(torch, torch.Generator(device="cuda").manual_seed(3), N_SYSTEMS, "cuda")
+    loss = ol.unsupervised(inputs, net(inputs), stop_idx=1, engine="fused", mesh=mesh)[0]
+    for p, g in zip(net.params, torch.autograd.grad(loss, net.params)):
+        p.grad = g
+    if mesh is not None:
+        mesh.sum_gradients(net.params)
+    grads = [p.grad.clone() for p in net.params]
+    torch.optim.Adam(net.params, lr=1e-3).step()
+    return loss.detach(), grads, [p.detach() for p in net.params]
+
+
+def parallel_references(torch, path):
+    """The single-process results on the card, saved to ``path`` for the
+    ranks, and the single-process walls (ms)."""
+    from torchoptics_tpu_torch import LensOptimizer, OpticalLoss, simulator, zoo
+    from torchoptics_tpu_torch.ops import fused_batch, fused_trace
+    trace_cfg, pop_cfg, pops, train_kw = parallel_cases(torch, zoo, simulator, "cuda")
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    with torch.no_grad():
+        res = fused_trace.trace_rays_fused(specs, lens, trace_cfg)
+    refs = {"trace": (res.x, res.y, res.ray_ok), "loss": {}}
+    for kernel, (specs, lens) in pops.items():
+        for full in (True, False):
+            refs["loss"][(kernel, full)] = parallel_loss(torch, fused_batch, None, specs, lens,
+                                                         pop_cfg, full)
+    params, total, walls = parallel_train(torch, LensOptimizer, None, *pops["k2"], pop_cfg,
+                                          train_kw)
+    refs["train"] = (params, total)
+    refs["generator"] = parallel_generator(torch, OpticalLoss)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    with torch.no_grad():
+        trace_ms = host_ms(torch, lambda: fused_trace.trace_rays_fused(specs, lens, trace_cfg),
+                           runs=5, warmup=1)
+    torch.save(refs, path)
+    return {"step_ms": walls, "trace_ms": trace_ms}
+
+
+def parallel_rank(device, lens_parallel, backend, ref_path, out_path):
+    """One rank of a phase-41 group: every check on the mesh of the group's
+    layout, against the single-process results; the launches of this rank
+    counted from 0 around each call; its walls written to ``out_path``. A
+    failed check raises, which ends the group and the run."""
+    import torch
+    import torch.distributed as dist
+    from torchoptics_tpu_torch import LensOptimizer, OpticalLoss, simulator, zoo
+    from torchoptics_tpu_torch.ops import fused_asphere, fused_batch, fused_trace
+    from torchoptics_tpu_torch.parallel import mesh as mesh_mod
+    from torchoptics_tpu_torch.parallel import shard
+
+    rank_start = time.perf_counter()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mesh = mesh_mod.make_mesh(lens_parallel)
+    label = f"{n} rank{'s' if n > 1 else ''} ({dist.get_backend()}, lens {mesh.shape['lens']} x " \
+            f"rays {mesh.shape['rays']})"
+
+    def rank_check(ok, message):
+        if rank == 0 or not ok:
+            print(("ok   " if ok else "FAIL ") + f"parallel, {label}, rank {rank}: {message}",
+                  flush=True)
+        if not ok:
+            raise RuntimeError(f"phase 41 check failed on rank {rank}: {message}")
+
+    counters = opl_counters(fused_trace, fused_batch, fused_asphere)
+    launches = {}
+
+    def counted(name, fn):
+        reset_launches(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = read_launches(counters)
+        return out
+
+    # The backend init_distributed's rule picked, on CUDA tensors: a sum
+    # and a broadcast over the world.
+    x = torch.full((3,), rank + 1.0, device=device)
+    dist.all_reduce(x)
+    y = torch.full((3,), float(rank), device=device)
+    dist.broadcast(y, src=n - 1)
+    rank_check(dist.get_backend() == backend and bool((x == n * (n + 1) / 2).all())
+               and bool((y == n - 1).all()),
+               f"backend {dist.get_backend()} (expected {backend}); all_reduce and broadcast "
+               f"of CUDA tensors on {device}")
+    refs = torch.load(ref_path, map_location=device)
+    trace_cfg, pop_cfg, pops, train_kw = parallel_cases(torch, zoo, simulator, device)
+
+    specs, lens = zoo.build("double_gauss", device=device)
+    with torch.no_grad():
+        res = counted("sharded_trace_rays", lambda: shard.sharded_trace_rays(
+            specs, lens, trace_cfg, mesh))
+        # The wall of a second call (the first one warmed it up).
+        start = time.perf_counter()
+        shard.sharded_trace_rays(specs, lens, trace_cfg, mesh)
+        torch.cuda.synchronize()
+        trace_ms = (time.perf_counter() - start) * 1e3
+    x_ref, y_ref, ok_ref = refs["trace"]
+    gap = max(float((res.x - x_ref).abs().max()), float((res.y - y_ref).abs().max()))
+    rank_check(launches["sharded_trace_rays"]["k1"] == (1, 0) and gap <= 5e-6
+               and torch.equal(res.ray_ok, ok_ref),
+               f"sharded_trace_rays of the double-Gauss at {res.y.numel():,} rays: K1 forward "
+               f"launched {launches['sharded_trace_rays']['k1'][0]} time(s) on this rank "
+               f"(expected 1); x and y within {gap:.2e} mm of the single-process trace "
+               f"(limit 5e-6), ray_ok bit-identical")
+    del res
+
+    for (kernel, full), (want, want_grads) in refs["loss"].items():
+        specs, lens = pops[kernel]
+        name = f"sharded_fused_losses {kernel} {'full' if full else 'lu'}"
+        value, grads = counted(name, lambda: parallel_loss(torch, fused_batch, shard, specs,
+                                                           lens, pop_cfg, full, mesh))
+        flat = torch.cat([g.reshape(-1) for g in grads.values()])
+        if n > 1:
+            dist.all_reduce(flat)
+        summed = torch.split(flat, [g.numel() for g in grads.values()])
+        rel = abs(float(value) - float(want)) / abs(float(want))
+        worst = max(float(((s.view_as(w) - w).abs() / (PARALLEL_GRAD_ATOL
+                                                       + PARALLEL_GRAD_RTOL * w.abs())).max())
+                    for s, w in zip(summed, want_grads.values()))
+        rank_check(launches[name][kernel] == (1, 1)
+                   and all(v == (0, 0) for k, v in launches[name].items() if k != kernel)
+                   and rel <= PARALLEL_VALUE_RTOL and worst <= 1.0,
+                   f"{name} on {N_SYSTEMS} systems x 1,536 rays: {kernel.upper()} forward and "
+                   f"backward {launches[name][kernel]} on this rank (expected (1, 1)); value "
+                   f"{float(value):.7f} vs {float(want):.7f} (relative {rel:.2e}, limit "
+                   f"{PARALLEL_VALUE_RTOL:g}); world-summed d/d({', '.join(grads)}) at "
+                   f"{worst:.3f} of the bar (rtol {PARALLEL_GRAD_RTOL:g}, atol "
+                   f"{PARALLEL_GRAD_ATOL:g})")
+
+    name = f"sharded train step x {PARALLEL_STEPS}"
+    params, total, step_ms = counted(name, lambda: parallel_train(
+        torch, LensOptimizer, shard, *pops["k2"], pop_cfg, train_kw, mesh))
+    want_params, want_total = refs["train"]
+    rel = abs(float(total) - float(want_total)) / abs(float(want_total))
+    worst = max(float(((params[k] - w).abs() / (1e-6 + 1e-4 * w.abs())).max())
+                for k, w in want_params.items())
+    same = True
+    for v in params.values():
+        v0 = v.clone()
+        if n > 1:
+            dist.broadcast(v0, src=0)
+        same = same and torch.equal(v, v0)
+    rank_check(launches[name]["k2"] == (PARALLEL_STEPS, PARALLEL_STEPS) and rel <= 1e-5
+               and worst <= 1.0 and same,
+               f"{PARALLEL_STEPS} make_sharded_train_step steps (full loss) on the "
+               f"{N_SYSTEMS}-system double-Gauss population: K2 forward and backward "
+               f"{launches[name]['k2']} on this rank (expected ({PARALLEL_STEPS}, "
+               f"{PARALLEL_STEPS})); total {float(total):.7f} vs {float(want_total):.7f} "
+               f"(relative {rel:.2e}, limit 1e-5); params at {worst:.3f} of the bar (rtol 1e-4, "
+               f"atol 1e-6); every rank's params bit-identical to rank 0's: {same}")
+
+    name = "generator step"
+    loss, grads, after = counted(name, lambda: parallel_generator(torch, OpticalLoss, mesh))
+    want_loss, want_grads, want_after = refs["generator"]
+    rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    worst = max(float(((g - w).abs() / (PARALLEL_GRAD_ATOL + PARALLEL_GRAD_RTOL * w.abs())).max())
+                for g, w in zip(grads, want_grads))
+    rank_check(launches[name]["k2"] == (1, 1) and rel <= PARALLEL_VALUE_RTOL and worst <= 1.0
+               and all(bool(torch.isfinite(p).all()) for p in after),
+               f"one OpticalLoss.unsupervised(mesh=...) generator step at B = {N_SYSTEMS}: K2 "
+               f"forward and backward {launches[name]['k2']} on this rank (expected (1, 1)); "
+               f"loss {float(loss):.7f} vs {float(want_loss):.7f} (relative {rel:.2e}); "
+               f"world-summed MLP gradients at {worst:.3f} of the bar")
+    with open(f"{out_path}_{rank}.json", "w") as f:
+        json.dump({"launches": launches, "step_ms": step_ms, "trace_ms": trace_ms,
+                   "rank_s": time.perf_counter() - rank_start}, f)
+
+
+def phase_parallel(torch, card):
+    """Phase 41: ``parallel/`` on rank groups that share the one card. The
+    kernel library is built (by ``main``) before any rank starts; the
+    single-process results come first, then each group of PARALLEL_GROUPS
+    runs ``parallel_rank`` on every rank. Prints each group's step walls per
+    rank beside the single-process step's, with the card; returns
+    {kernel entry: {call: launches per rank}}."""
+    import tempfile
+    from torchoptics_tpu_torch.parallel import mesh as mesh_mod
+    start = time.perf_counter()
+    entry_of = {("k1", 0): "k1_fwd", ("k2", 0): "k2_fwd", ("k2", 1): "k2_bwd",
+                ("k4", 0): "k4_fwd", ("k4", 1): "k4_bwd"}
+    per_entry, walls = {}, {}
+    torch.cuda.empty_cache()         # the ranks share the card with this process
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "references.pt")
+        walls["single process"] = parallel_references(torch, ref_path)
+        for n, lens_parallel, backend in PARALLEL_GROUPS:
+            out = os.path.join(tmp, f"group{n}")
+            group_start = time.perf_counter()
+            mesh_mod.spawn(parallel_rank, n, args=(lens_parallel, backend, ref_path, out),
+                           device="cuda")
+            group_s = time.perf_counter() - group_start
+            ranks = []
+            for r in range(n):
+                with open(f"{out}_{r}.json") as f:
+                    ranks.append(json.load(f))
+            label = f"{n} rank{'s' if n > 1 else ''} ({backend})"
+            walls[label] = {"step_ms": [r["step_ms"] for r in ranks],
+                            "trace_ms": [r["trace_ms"] for r in ranks], "group_s": group_s,
+                            "rank_s": [r["rank_s"] for r in ranks]}
+            for name, runs in ranks[0]["launches"].items():
+                for kernel, counts in runs.items():
+                    for direction, count in enumerate(counts):
+                        if count:
+                            entry = entry_of[(kernel, direction)]
+                            if "full" in name or "train" in name:
+                                entry = entry.replace("_fwd", "_fwd_full")
+                            per_entry.setdefault(entry, {})[name] = count
+    single = walls["single process"]
+    print(f"parallel walls (host clock, ms; {card}): single-process step "
+          f"{[round(v, 3) for v in single['step_ms']]}, trace {single['trace_ms']:.3f}", flush=True)
+    for label, w in walls.items():
+        if label != "single process":
+            print(f"parallel walls (host clock, ms; {card}): {label}, each rank's "
+                  f"{PARALLEL_STEPS} steps {[[round(v, 3) for v in r] for r in w['step_ms']]}, "
+                  f"sharded trace {[round(v, 3) for v in w['trace_ms']]}; the group "
+                  f"{w['group_s']:.1f} s, of it the ranks' checks "
+                  f"{max(w['rank_s']):.1f} s (the rest their start and end)", flush=True)
+    print(json.dumps({"parallel_walls_ms": walls, "launches_per_rank": per_entry, "card": card}),
+          flush=True)
+    print(f"phase 41 (parallel) took {time.perf_counter() - start:.1f} s", flush=True)
+    return per_entry
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5529,6 +5843,9 @@ def main():
     if "--analysis" in sys.argv[1:]:
         phase_analysis(torch, zoo, (fused_trace, fused_batch, fused_asphere), card)
         profile_analysis(torch, zoo, card)
+        return 0
+    if "--parallel" in sys.argv[1:]:
+        phase_parallel(torch, card)
         return 0
     if "--default-image-training" in sys.argv[1:]:
         print(json.dumps({"default_image_training": phase_default_image_training(
@@ -5617,6 +5934,7 @@ def main():
     phase_raytraced_optics(torch, zoo, simulator, fused_trace)
     analysis_launches, _ = phase_analysis(torch, zoo, (fused_trace, fused_batch, fused_asphere),
                                           card)
+    parallel_launches = phase_parallel(torch, card)
     entries.append(adjoint_entry(adjoint, train_launches, adj_ms, adj_bound))
     crossover = phase_p2_crossover(torch, image, render_inputs(
         torch, zoo, simulator, imaging, image, CROSSOVER_RENDERS), card)
@@ -5649,6 +5967,8 @@ def main():
             e["launches_image_training"] = train_launches[0]
         # Launches per analysis call (phase 40), by the entry of the mode each runs.
         e["launches_analysis"] = analysis_launches.get(e["name"], {})
+        # Launches per rank of each phase-41 call, by the entry of the mode it runs.
+        e["launches_parallel"] = parallel_launches.get(e["name"], {})
         if e["name"] == "k1_bwd":
             e["image_bundle_max_abs_err"] = bundle[1][0]
             e["image_bundle_param_max_rel_err"] = bundle[1][2]

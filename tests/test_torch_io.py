@@ -94,8 +94,17 @@ def test_raytraced_optics_matches_jax(case):
     g = torch.tensor(np.asarray(want["g"], dtype=np.float32))
     assert np.array_equal(ro.get_catalog_glass_indices(g).numpy(),
                           np.asarray(jro.get_catalog_glass_indices(np.asarray(want["g"]))))
-    with pytest.raises(NotImplementedError, match="plotting"):
-        ro.ShowTraceResult(x, y, ok, ro.loss_dict["loss_unsup"])
+    # The spot diagram (Agg backend): the same points, one line a wavelength.
+    import matplotlib.pyplot as plt
+    fig = ro.ShowTraceResult(x, y, ok, ro.loss_dict["loss_unsup"], show=False)
+    jfig = jro.ShowTraceResult(jx, jy, jok, jro.loss_dict["loss_unsup"], show=False)
+    lines, jlines = fig.axes[0].get_lines(), jfig.axes[0].get_lines()
+    assert len(lines) == len(jlines) == len(ro.config.wavelengths)
+    for line, jline in zip(lines, jlines):
+        assert line.get_color() == jline.get_color()
+        np.testing.assert_allclose(line.get_xydata(), jline.get_xydata(), rtol=0, atol=1e-5)
+    plt.close(fig)
+    plt.close(jfig)
 
 
 @pytest.mark.parametrize("case", sorted(WRAPPER_CASES))

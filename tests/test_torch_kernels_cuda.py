@@ -45,7 +45,9 @@ sqrt and div bit for bit with their plain versions, fma within one float32
 ulp a step, relative (``fmaf`` rounds once, the plain ``a * k1 + k2``
 twice); a small
 render on the card against the CPU's; the analysis layer's tolerance runs
-and sensitivity tables on K2 and K4 against the unroll engine on the card.
+and sensitivity tables on K2 and K4 against the unroll engine on the card;
+the sharded fused losses of two gloo ranks sharing the card against the
+single-process K2 and K4 losses.
 """
 
 import importlib.util
@@ -1595,3 +1597,47 @@ def test_sensitivities_on_gpu_match_unroll(cuda, name, bar):
     for k in want:
         scale = float(want[k].abs().max())
         assert float((got[k] - want[k]).abs().max()) <= bar * scale, k
+
+
+#: The sharded population: 255 systems (256 on a 2-wide 'lens' axis) x 54
+#: rays (9 pupil rays, 10 on a 2-wide 'rays' axis).
+N_SHARDED = 255
+
+
+@pytest.fixture(scope="module")
+def two_ranks_on_the_card(tmp_path_factory):
+    """A 2-rank gloo group sharing cuda:0 (``parallel.mesh.spawn``), each
+    rank's sharded K2 and K4 losses on the (1 x 2) and (2 x 1) layouts
+    (``torch_parallel_ranks.cuda_rank``, which imports no JAX)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    import torch_parallel_ranks as ranks
+    from torchoptics_tpu_torch.parallel import mesh as mesh_mod
+    prefix = str(tmp_path_factory.mktemp("ranks") / "cuda")
+    mesh_mod.spawn(ranks.cuda_rank, 2, args=(prefix, N_SHARDED), device="cuda")
+    return ranks, [dict(np.load(f"{prefix}_{r}.npz")) for r in range(2)]
+
+
+@pytest.mark.parametrize("full", [True, False])
+@pytest.mark.parametrize("lens_parallel", [1, 2])
+@pytest.mark.parametrize("kernel", ["k2", "k4"])
+def test_sharded_fused_losses_on_gpu_match_single_process(cuda, two_ranks_on_the_card, kernel,
+                                                          lens_parallel, full):
+    """Two ranks on the one card (gloo on CUDA tensors), one K2 or K4
+    forward and backward launch each: every rank's value within 2e-5 of the
+    single-process fused loss on the card, the world-sum of the ranks'
+    gradients within rtol 1e-3, atol 1e-6 (``tests/test_sharding.py``'s
+    bars)."""
+    ranks, results = two_ranks_on_the_card
+    specs, lens = (ranks.tiled_population("cooke", N_SHARDED, 0.02, 0, cuda) if kernel == "k2"
+                   else ranks.aspheric_population(N_SHARDED, cuda))
+    value, grads = ranks.loss_and_grads(specs, lens, simulator.SimulatorConfig(**ranks.POP_KW),
+                                        full, False)
+    tag = f"{kernel}/{lens_parallel}/{'full' if full else 'lu'}"
+    for res in results:
+        assert abs(float(res[f"{tag}/value"]) - value) <= 2e-5 * abs(value)
+        assert res[f"{tag}/launches"].tolist() == ([1, 1, 0, 0] if kernel == "k2"
+                                                   else [0, 0, 1, 1])
+    for k, want in grads.items():
+        np.testing.assert_allclose(sum(res[f"{tag}/d{k}"] for res in results), want,
+                                   rtol=1e-3, atol=1e-6, err_msg=k)

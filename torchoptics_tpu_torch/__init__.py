@@ -66,6 +66,15 @@ JAX package takes a key::
 
 Prescriptions load and save through ``models.io`` (``load_lens``,
 ``save_lens``); ``RaytracedOptics`` is the stateful simulator over them.
+Training state checkpoints through ``utils.checkpoint`` (the JAX package's
+layout), metrics through ``utils.logging``.
+
+Several GPUs (or processes sharing one) split a population's systems and a
+trace's pupil over a ('lens', 'rays') mesh of ranks, ``parallel.mesh`` and
+``parallel.shard`` on ``torch.distributed``: each rank launches K1, K2 or
+K4 on its block, and the loss moments and gradients are summed over ranks
+(``shard.make_sharded_train_step``, ``OpticalLoss.unsupervised(...,
+mesh=...)``, ``mesh.spawn`` to start the ranks on one host).
 
 On a machine without a GPU, pass ``device="cpu"`` to ``zoo.build``: the
 wrappers then run the kernels' plain PyTorch versions.

@@ -162,11 +162,19 @@ class OpticalLoss:
 
     def unsupervised(self, inputs: torch.Tensor, outputs: torch.Tensor,
                      stop_idx: Optional[int] = None, has_stop_vars: bool = False,
-                     engine: str = "unroll",
+                     engine: str = "unroll", mesh=None,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Mean unsupervised loss over a batch of designs, with the mean rms
         and penalty: the population of ``build_batch`` on kernel K2's Lu mode
         (``engine="fused"``) or on the pure-torch engine (``"unroll"``).
+
+        With ``engine="fused"`` and a ``parallel.mesh.Mesh`` in ``mesh`` the
+        population shards over the mesh's ('lens', 'rays') axes, one K2
+        launch a rank on its block (``parallel.shard.sharded_fused_losses``):
+        multi-GPU generator training. The network and its designs are
+        replicated, and each rank's gradient is its block's share: sum the
+        network's gradients over the world (``mesh.sum_gradients``) before
+        the optimizer's step. The unroll engine ignores ``mesh``.
 
         ``stop_idx`` is a host int; it defaults to the value in the first
         sample's input slot -3 (every sample of one lens type shares it)."""
@@ -175,6 +183,11 @@ class OpticalLoss:
         if stop_idx is None:
             stop_idx = int(inputs[0, -3])
         specs, lens = self.build_batch(inputs, outputs, stop_idx, has_stop_vars)
+        if engine == "fused" and mesh is not None:
+            from torchoptics_tpu_torch.parallel import shard as shard_mod
+            mean_lu, loss = shard_mod.sharded_fused_losses(specs, lens, self._sim_config(), mesh,
+                                                           full=False)
+            return mean_lu, loss["rms"], loss["penalty"]
         if engine == "fused":
             from torchoptics_tpu_torch.ops import fused_batch
             mean_lu, loss = fused_batch.batched_unsupervised_loss(specs, lens,

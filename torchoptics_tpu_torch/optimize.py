@@ -88,6 +88,17 @@ def lens_from_normalized(structure: Structure, params: Dict[str, torch.Tensor],
     return lens
 
 
+def set_adam_moments(adam: torch.optim.Adam, params: Dict[str, torch.Tensor],
+                     exp_avg: Dict[str, torch.Tensor], exp_avg_sq: Dict[str, torch.Tensor],
+                     count: int) -> None:
+    """Give ``adam`` the moments (optax's ``mu`` and ``nu``) and step count
+    of each of ``params``, as if it had taken ``count`` steps."""
+    for k, p in params.items():
+        adam.state[p] = {"step": torch.tensor(float(count)),
+                         "exp_avg": exp_avg[k].detach().clone().to(p),
+                         "exp_avg_sq": exp_avg_sq[k].detach().clone().to(p)}
+
+
 class OptState(NamedTuple):
     """``params``: the leaf tensors Adam updates in place; ``opt_state``: the
     ``torch.optim.Adam`` over them (moments and its own step count);
@@ -147,10 +158,7 @@ class LensOptimizer:
         params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
         adam = self._adam(params)
         if exp_avg is not None:
-            for k, p in params.items():
-                adam.state[p] = {"step": torch.tensor(float(count)),
-                                 "exp_avg": exp_avg[k].detach().clone().to(p),
-                                 "exp_avg_sq": exp_avg_sq[k].detach().clone().to(p)}
+            set_adam_moments(adam, params, exp_avg, exp_avg_sq, count)
         return OptState(params, adam, step)
 
     def build_lens(self, params: Dict[str, torch.Tensor]) -> Lens:
@@ -174,6 +182,10 @@ class LensOptimizer:
                                               generator=generator)
         return loss_dict["loss_unsup"], loss_dict
 
+    def _gradients(self, total: torch.Tensor, params: Dict[str, torch.Tensor]):
+        """d total / d params, in the order of ``params`` (None where unused)."""
+        return torch.autograd.grad(total, list(params.values()), allow_unused=True)
+
     def step(self, state: OptState, generator: Optional[torch.Generator] = None):
         """One Adam step. The gradients of groups not in ``trainable`` are
         zeroed (not dropped, so Adam's moments decay as in the JAX package).
@@ -182,7 +194,7 @@ class LensOptimizer:
         advances. Returns (state, total, loss_dict)."""
         params = state.params
         total, loss_dict = self.loss(params, generator)
-        grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        grads = self._gradients(total, params)
         finite = torch.isfinite(total)
         for k, p, g in zip(params, params.values(), grads):
             g = torch.zeros_like(p) if g is None or k not in self.trainable else g

@@ -464,7 +464,6 @@ class RaytracedOptics(OpticsSimulator):
         }
 
     def ShowTraceResult(self, x, y, ray_ok, loss_unsup, show=True):
-        """The spot diagram needs ``utils/plotting.py``, which the port does
-        not have yet."""
-        raise NotImplementedError(
-            "ShowTraceResult draws with utils/plotting.py, which is not ported yet")
+        """Spot diagram colored by wavelength; returns the figure."""
+        from torchoptics_tpu_torch.utils.plotting import show_trace_result
+        return show_trace_result(x, y, ray_ok, loss_unsup, self.config.wavelengths, show=show)
