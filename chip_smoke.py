@@ -16,7 +16,8 @@ adjoint, at config 5 and at the default configuration) and the stateful simulato
 (``RaytracedOptics``) and the analysis layer (tolerancing, sensitivities,
 MTFs, fans, Seidel sums, the vignetting solver, the metrics) and
 ``parallel/`` (the sharded trace, losses, train step and generator step on
-rank groups sharing the card), runs the
+rank groups sharing the card) and the examples (``python -m
+torchoptics_tpu_torch.examples.<name>``), runs the
 card's issue-rate probe P1, and checks every
 hand-written CUDA kernel on them against its plain PyTorch version:
 
@@ -59,10 +60,11 @@ hand-written CUDA kernel on them against its plain PyTorch version:
    2,457,600 rays, bit for bit;
 8. both populations served by ``do_ray_tracing``, one K2 forward launch each,
    held against the CPU on 8 systems;
-9. generator training: a 2 -> 64 -> 64 -> numout GELU MLP trained 10 Adam
-   steps on ``OpticalLoss("GAGA", spot_metric="xy").unsupervised(
-   engine="fused")`` at B = 256, one K2 forward and one K2 backward launch
-   per step, the first step held against the CPU at B = 8;
+9. generator training: the ``train_generator`` example's 2 -> 64 -> 64 ->
+   numout MLP (tanh GELU) trained 10 Adam steps on ``OpticalLoss("GAGA",
+   spot_metric="xy").unsupervised(engine="fused")`` at B = 256, one K2
+   forward and one K2 backward launch per step, the first step held
+   against the CPU at B = 8;
 10. the full loss of the mixed population (one K2 full-mode launch per lens
     type), held against the CPU on 8 systems;
 11. timings with CUDA events: K1 and its plain versions at 2,457,600 rays,
@@ -231,6 +233,22 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     bit-identical across ranks); one ``OpticalLoss.unsupervised(mesh=...)``
     generator step at B = 256; each call's launches on the rank. The
     step and trace walls of every rank beside the single process's.
+42. (after 41) the examples, this slice's main path: each of
+    ``torchoptics_tpu_torch/examples/``'s eight newcomers run through its
+    ``main(argv)`` at its default widths, only the step counts cut
+    (``EXAMPLE_RUNS``: ``optimize_lens`` 3 steps, and 2 on the full loss;
+    ``refine_flagship`` 3 steps and a 2-step polish, at population 24 and
+    as a population of one with ``--aspherize``; ``train_generator`` 3
+    steps at batch 32 and 64 scored designs; ``optimize_through_image`` 2
+    steps at 96^2; ``optimize_wavefront`` 3 steps; ``simulate_aberrations``
+    at 128^2 with both PSF sources; ``flagship_report`` with vignetting;
+    ``aberration_report``), each on ``--engine fused`` and ``--engine
+    unroll``: every run's kernel launches counted from 0 (the fused run's as
+    ``EXAMPLE_RUNS`` predicts, the unroll run's those of P2 alone), its host
+    wall, and the two runs' printed numbers held within each number's bar
+    (1e-5 relative on losses, 5e-6 mm on coordinates, the wavefront,
+    Strehl and MTF bars of the coordinate bar's move) plus its printed
+    resolution.
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -274,6 +292,9 @@ before that carries the kernels' numbers.
                                           # result line)
     python3 chip_smoke.py --parallel      # instead: phase 41 alone (no
                                           # result line)
+    python3 chip_smoke.py --examples      # instead: phase 42 alone, with
+                                          # each run's printout (no result
+                                          # line)
 """
 
 import collections
@@ -1435,38 +1456,29 @@ def phase_population_serve(torch, zoo, simulator, fused_trace, fused_batch):
 
 
 class Generator:
-    """The generator of ``examples/train_generator.py``: a 2 -> 64 -> 64 ->
-    numout GELU MLP from lens specs (EPD, HFOV) to design vectors, scaled by
-    0.1 about base offsets (glass at the catalog centre, curvatures 0.3,
-    thicknesses 0.2)."""
+    """The generator of the ``train_generator`` example: its network
+    (``GeneratorMLP``, 2 -> 64 -> 64 -> numout, the tanh GELU) from lens
+    specs (EPD, HFOV) to design vectors, scaled by 0.1 about its base
+    design (``generate``, ``base_design``), the weights drawn from
+    ``seed``."""
 
     def __init__(self, torch, ol, seed, device):
-        gen = torch.Generator().manual_seed(seed)
-        sizes = (2, 64, 64, ol.numout)
-        self.params = []
-        for din, dout in zip(sizes[:-1], sizes[1:]):
-            w = torch.randn(din, dout, generator=gen) * (2.0 / din) ** 0.5
-            self.params += [w.to(device).requires_grad_(True),
-                            torch.zeros(dout, device=device, requires_grad=True)]
-        base = torch.zeros(ol.numout)
-        g, s = ol.numglass, ol.numsurf
-        base[2 * g: 2 * g + s - 1] = 0.3
-        base[2 * g + s - 1:] = 0.2
-        self.base = base.to(device)
-        self.torch = torch
+        from torchoptics_tpu_torch.examples import train_generator as tg
+        self.net = tg.GeneratorMLP((2, 64, 64, ol.numout), torch.Generator().manual_seed(seed),
+                                   device)
+        self.base = tg.base_design(ol, device)
+        self.params = list(self.net.parameters())
+        self.generate = tg.generate
 
     def __call__(self, inputs):
-        x = inputs
-        for i in range(0, len(self.params) - 2, 2):
-            x = self.torch.nn.functional.gelu(x @ self.params[i] + self.params[i + 1])
-        return (x @ self.params[-2] + self.params[-1]) * 0.1 + self.base
+        return self.generate(self.net, inputs, self.base)
 
 
 def sample_specs(torch, gen, n, device):
-    """Seeded spec draws in the generator example's ranges: EPD in
-    [0.15, 0.35], HFOV in [0.2, 0.45] rad."""
-    u = torch.rand(n, 2, generator=gen, device=device)
-    return torch.stack((0.15 + 0.2 * u[:, 0], 0.2 + 0.25 * u[:, 1]), dim=1)
+    """Seeded spec draws in the generator example's ranges (its
+    ``sample_specs``): EPD in [0.15, 0.35], HFOV in [0.2, 0.45] rad."""
+    from torchoptics_tpu_torch.examples import train_generator as tg
+    return tg.sample_specs(gen, n, device)
 
 
 def generator_loss(ol, net, inputs):
@@ -5771,6 +5783,208 @@ def phase_parallel(torch, card):
     return per_entry
 
 
+#: Phase 42: the examples. The wavefront bar (waves) and the Strehl bar: the
+#: OPD held at the coordinate bar (5e-6 mm) at 520 nm, and its move of the
+#: Strehl ratio, 2 x 2 pi / lambda x 5e-6 mm (``phase_wavefront_serve``'s
+#: bound at that OPD gap); the through-focus MTF's: the coordinate bar's
+#: move at the 2 um PSF grid's Nyquist frequency (``MTF_BAR``'s argument).
+EXAMPLE_WAVES_BAR = 5e-6 / 520e-6
+EXAMPLE_STREHL_BAR = 2 * 2 * math.pi / 520e-6 * 5e-6 + 1e-5
+EXAMPLE_MTF_BAR = 2 * math.pi * 0.5 / 2e-3 * 5e-6
+#: A line's numbers that are not results: host walls and run labels.
+EXAMPLE_SKIP = ("steps in", "engine=", "wrote ", "saved ")
+
+
+def _default_bar(line, k):
+    """(relative, absolute) bar of a printed number: 1e-5 relative on Lu
+    and loss values, 5e-6 on coordinates in mm."""
+    return 1e-5, 5e-6
+
+
+def _wavefront_bar(line, k):
+    return (0.0, EXAMPLE_STREHL_BAR) if "Strehl" in line[:k] else (0.0, EXAMPLE_WAVES_BAR)
+
+
+def _flagship_bar(line, k):
+    """Columns: field, rms_y and rms_xy (mm), wfe (waves), Strehl, then the
+    solved vignetting and relative illumination (the unroll engine in both
+    runs)."""
+    col = len(EXAMPLE_NUMBER.findall(line[:k]))
+    if line.lstrip().startswith("mean"):
+        col += 1
+    return {3: (0.0, EXAMPLE_WAVES_BAR), 4: (0.0, EXAMPLE_STREHL_BAR)}.get(col, (1e-5, 5e-6))
+
+
+def _aberration_bar(line, k):
+    return (0.0, EXAMPLE_MTF_BAR) if re.match(r"\s+[-+]\d\.\d{3}\s", line) else (1e-5, 5e-6)
+
+
+EXAMPLE_NUMBER = re.compile(r"[-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
+#: (label, module, argv, optimization steps, {kernel entry: (launches in the
+#: fused run, of them per step)}, bar). The argv keep each example's default
+#: widths and cut only its step counts.
+EXAMPLE_RUNS = (
+    ("optimize_lens --steps 3", "optimize_lens", ["--steps", "3"], 3,
+     {"k1_fwd": (3, 1), "k1_bwd": (3, 1)}, _default_bar),
+    ("optimize_lens --full-loss --freeze-glass --steps 2", "optimize_lens",
+     ["--full-loss", "--freeze-glass", "--steps", "2"], 2,
+     {"k1_fwd_full": (2, 1), "k1_bwd": (2, 1)}, _default_bar),
+    ("refine_flagship --steps 3 --polish-steps 2", "refine_flagship",
+     ["--steps", "3", "--polish-steps", "2"], 5,
+     # 24 members (K2 Lu) and the polish (a population of one, K2 Lu); two
+     # population evaluations (K2 plain) and three of the polished lens (K1).
+     {"k2_fwd": (7, 1), "k2_bwd": (5, 1), "k1_fwd": (3, 0)}, _default_bar),
+    ("refine_flagship --aspherize --steps 3 --polish-steps 2", "refine_flagship",
+     ["--aspherize", "--steps", "3", "--polish-steps", "2"], 5,
+     {"k4_fwd": (5, 1), "k4_bwd": (5, 1), "k3_fwd": (5, 0)}, _default_bar),
+    ("train_generator --steps 3 --eval-designs 64", "train_generator",
+     ["--steps", "3", "--eval-designs", "64"], 3,
+     # The two scored distributions (snapped and raw glass): K2 plain.
+     {"k2_fwd": (5, 1), "k2_bwd": (3, 1)}, _default_bar),
+    ("optimize_through_image --steps 2", "optimize_through_image", ["--steps", "2"], 2,
+     # The start and final renders: K1 plain and P2 once each.
+     {"k1_fwd": (4, 1), "k1_bwd": (2, 1), "p2_svola": (4, 1), "p2_dpsf": (2, 1)},
+     _default_bar),
+    ("optimize_wavefront --steps 3", "optimize_wavefront", ["--steps", "3"], 3,
+     # opd_map is two opl launches (the grid, the chief rays): the initial
+     # and final loss and Strehl report, and each step.
+     {"k1_fwd_opl": (14, 2), "k1_bwd_opl": (6, 2)}, _wavefront_bar),
+    ("simulate_aberrations", "simulate_aberrations", [], 0,
+     {"k1_fwd": (1, 0), "p2_svola": (1, 0)}, _default_bar),
+    ("simulate_aberrations --psf-source diffraction", "simulate_aberrations",
+     ["--psf-source", "diffraction"], 0,
+     # opd_map for the sampling report and for the render.
+     {"k1_fwd_opl": (4, 0), "p2_svola": (1, 0)}, _default_bar),
+    ("flagship_report", "flagship_report", [], 0,
+     # The report's trace and the vignetted trace; opd_map on the grid.
+     {"k1_fwd": (2, 0), "k1_fwd_opl": (2, 0)}, _flagship_bar),
+    ("aberration_report", "aberration_report", [], 0,
+     {"k2_fwd": (1, 0)}, _aberration_bar),
+)
+#: Entry -> the launch counter it reads: (module attribute path).
+EXAMPLE_COUNTERS = {"k1_fwd": ("fused_trace", "K1_FWD_LAUNCHES"),
+                    "k1_bwd": ("fused_trace", "K1_BWD_LAUNCHES"),
+                    "k2_fwd": ("fused_batch", "K2_FWD_LAUNCHES"),
+                    "k2_bwd": ("fused_batch", "K2_BWD_LAUNCHES"),
+                    "k3_fwd": ("fused_asphere", "K3_FWD_LAUNCHES"),
+                    "k3_bwd": ("fused_asphere", "K3_BWD_LAUNCHES"),
+                    "k4_fwd": ("fused_asphere", "K4_FWD_LAUNCHES"),
+                    "k4_bwd": ("fused_asphere", "K4_BWD_LAUNCHES"),
+                    "p2_svola": ("image", "P2_LAUNCHES"),
+                    "p2_dpsf": ("image", "P2_DPSF_LAUNCHES"),
+                    "p2_fft": ("image", "P2_FFT_LAUNCHES"),
+                    "p2_dpsf_fft": ("image", "P2_DPSF_FFT_LAUNCHES")}
+
+
+def example_numbers(text):
+    """[(line, [(offset, token)])] of an example's printout, the lines
+    that print no result left out."""
+    out = []
+    for line in text.splitlines():
+        if any(s in line for s in EXAMPLE_SKIP):
+            continue
+        line = re.sub(r"\[\d+s\]", "", line)
+        toks = [(m.start(), m.group()) for m in EXAMPLE_NUMBER.finditer(line)]
+        if toks:
+            out.append((line, toks))
+    return out
+
+
+def printed_resolution(token):
+    """The step of the last printed digit of a number token."""
+    mant, _, exp = token.lower().partition("e")
+    decimals = len(mant.partition(".")[2])
+    return 10.0 ** (-decimals + (int(exp) if exp else 0))
+
+
+def compare_printouts(fused, unroll, bar):
+    """The largest (gap - allowed) over the two runs' printed numbers,
+    token by token (the printouts must have the same lines and numbers),
+    with the worst gap and its line. ``allowed`` is the bar plus the
+    printed resolution (two runs within the bar can print numbers one
+    last digit apart)."""
+    a, b = example_numbers(fused), example_numbers(unroll)
+    if len(a) != len(b) or any(len(x[1]) != len(y[1]) for x, y in zip(a, b)):
+        return math.inf, math.inf, "the printouts differ in their lines or numbers"
+    worst, worst_gap, where = -math.inf, 0.0, ""
+    for (line, toks), (_, toks_u) in zip(a, b):
+        for (k, t), (_, u) in zip(toks, toks_u):
+            rel, absolute = bar(line, k)
+            v, w = float(t), float(u)
+            gap = abs(v - w)
+            allowed = max(rel * abs(w), absolute) + printed_resolution(t)
+            if gap - allowed > worst:
+                worst, worst_gap, where = gap - allowed, gap, f"{line.strip()} ({t} vs {u})"
+    return worst, worst_gap, where
+
+
+def phase_examples(torch, card, verbose=False):
+    """Phase 42: the nine examples' eight newcomers, each ``main(argv)`` on
+    the card at its default widths (only the step counts cut, as
+    EXAMPLE_RUNS lists), on the fused engine and on the unroll engine: each
+    run's launches counted from 0 (the fused run's must be EXAMPLE_RUNS's,
+    the unroll run's those of P2 alone), its host wall, and the printed numbers of the
+    two runs held within each number's bar plus its printed resolution.
+    Returns {kernel entry: {example: {"run": launches, "per_step": n}}}."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+    from torchoptics_tpu_torch.ops import fused_asphere, fused_batch, fused_trace, image
+    modules = {"fused_trace": fused_trace, "fused_batch": fused_batch,
+               "fused_asphere": fused_asphere, "image": image}
+    start = time.perf_counter()
+    per_entry, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, name, argv, steps, expect, bar in EXAMPLE_RUNS:
+            example = importlib.import_module(f"torchoptics_tpu_torch.examples.{name}")
+            extra = ["--output", os.path.join(tmp, "out.png")] if name == "simulate_aberrations" \
+                else []
+            printed = {}
+            for engine in ("fused", "unroll"):
+                for module, counter in EXAMPLE_COUNTERS.values():
+                    setattr(modules[module], counter, 0)
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    example.main(argv + extra + ["--engine", engine])
+                torch.cuda.synchronize()
+                walls[f"{label} ({engine})"] = time.perf_counter() - t0
+                printed[engine] = buf.getvalue()
+                counts = {e: getattr(modules[m], c) for e, (m, c) in EXAMPLE_COUNTERS.items()}
+                # An opl or full-mode launch counts on its kernel's counter;
+                # the unroll engine launches no trace kernel, and renders on
+                # P2 alike.
+                want = {e: 0 for e in EXAMPLE_COUNTERS}
+                for e, (n, _) in expect.items():
+                    if engine == "fused" or e.startswith("p2"):
+                        want[e.replace("_opl", "").replace("_full", "")] += n
+                check(counts == want,
+                      f"examples: {label} on the {engine} engine launched "
+                      f"{ {e: n for e, n in counts.items() if n} } (expected "
+                      f"{ {e: n for e, n in want.items() if n} })")
+                if engine == "fused":
+                    for e, (n, per_step) in expect.items():
+                        per_entry.setdefault(e, {})[label] = {"run": n, "per_step": per_step}
+            if verbose:
+                for engine, text in printed.items():
+                    print(f"--- {label} --engine {engine}", flush=True)
+                    print(text, end="", flush=True)
+            worst, gap, where = compare_printouts(printed["fused"], printed["unroll"], bar)
+            check(worst <= 0.0,
+                  f"examples: {label}: fused and unroll print the same numbers within their "
+                  f"bars plus the printed resolution; the largest gap {gap:.3g} at: {where}")
+            print(f"examples: {label}: host wall {walls[f'{label} (fused)']:.2f} s fused, "
+                  f"{walls[f'{label} (unroll)']:.2f} s unroll ({card}); fused launches "
+                  f"{ {e: n for e, (n, _) in expect.items()} } "
+                  f"({steps} steps; per step "
+                  f"{ {e: p for e, (_, p) in expect.items() if p} })", flush=True)
+    print(json.dumps({"example_walls_s": {k: round(v, 3) for k, v in walls.items()},
+                      "launches_examples": per_entry, "card": card}), flush=True)
+    print(f"phase 42 (examples) took {time.perf_counter() - start:.1f} s", flush=True)
+    return per_entry
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5846,6 +6060,9 @@ def main():
         return 0
     if "--parallel" in sys.argv[1:]:
         phase_parallel(torch, card)
+        return 0
+    if "--examples" in sys.argv[1:]:
+        phase_examples(torch, card, verbose=True)
         return 0
     if "--default-image-training" in sys.argv[1:]:
         print(json.dumps({"default_image_training": phase_default_image_training(
@@ -5935,6 +6152,7 @@ def main():
     analysis_launches, _ = phase_analysis(torch, zoo, (fused_trace, fused_batch, fused_asphere),
                                           card)
     parallel_launches = phase_parallel(torch, card)
+    example_launches = phase_examples(torch, card)
     entries.append(adjoint_entry(adjoint, train_launches, adj_ms, adj_bound))
     crossover = phase_p2_crossover(torch, image, render_inputs(
         torch, zoo, simulator, imaging, image, CROSSOVER_RENDERS), card)
@@ -5969,6 +6187,8 @@ def main():
         e["launches_analysis"] = analysis_launches.get(e["name"], {})
         # Launches per rank of each phase-41 call, by the entry of the mode it runs.
         e["launches_parallel"] = parallel_launches.get(e["name"], {})
+        # Launches of each example's fused run (phase 42), and of them per step.
+        e["launches_examples"] = example_launches.get(e["name"], {})
         if e["name"] == "k1_bwd":
             e["image_bundle_max_abs_err"] = bundle[1][0]
             e["image_bundle_param_max_rel_err"] = bundle[1][2]

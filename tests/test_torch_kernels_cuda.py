@@ -47,7 +47,9 @@ twice); a small
 render on the card against the CPU's; the analysis layer's tolerance runs
 and sensitivity tables on K2 and K4 against the unroll engine on the card;
 the sharded fused losses of two gloo ranks sharing the card against the
-single-process K2 and K4 losses.
+single-process K2 and K4 losses; each example at tiny flags, its printed
+numbers on the fused engine against the unroll engine's (``chip_smoke.py``
+phase 42's bars).
 """
 
 import importlib.util
@@ -1641,3 +1643,40 @@ def test_sharded_fused_losses_on_gpu_match_single_process(cuda, two_ranks_on_the
     for k, want in grads.items():
         np.testing.assert_allclose(sum(res[f"{tag}/d{k}"] for res in results), want,
                                    rtol=1e-3, atol=1e-6, err_msg=k)
+
+
+#: Each example at tiny flags (``tests/test_torch_examples.py``'s CPU runs).
+EXAMPLE_FLAGS = {
+    "optimize_lens": ["--steps", "2", "--fields", "2", "--rings", "3", "--log-every", "1"],
+    "refine_flagship": ["--lens", "cooke", "--pop", "2", "--steps", "2", "--polish-steps", "1"],
+    "train_generator": ["--steps", "2", "--batch", "4", "--eval-designs", "4"],
+    "optimize_through_image": ["--steps", "1", "--image-size", "32", "--psf", "9", "--fields",
+                               "3", "--rings", "4"],
+    "optimize_wavefront": ["--steps", "2", "--grid", "5"],
+    "simulate_aberrations": ["--image-size", "32", "--fields", "3", "--rings", "4",
+                             "--psf-source", "diffraction", "--diffraction-grid", "16"],
+    "flagship_report": ["--lens", "cooke", "--fields", "0,1.0"],
+    "aberration_report": ["--fields", "0,1.0"],
+}
+
+
+@pytest.mark.parametrize("name", list(EXAMPLE_FLAGS))
+def test_example_fused_matches_unroll_on_gpu(cuda, name, tmp_path):
+    """Each example's ``main`` on the card at tiny flags, on the fused and
+    the unroll engine: the printed numbers within ``chip_smoke.py`` phase
+    42's bars plus their printed resolution."""
+    import contextlib
+    import importlib
+    import io
+    example = importlib.import_module(f"torchoptics_tpu_torch.examples.{name}")
+    argv = EXAMPLE_FLAGS[name] + (["--output", str(tmp_path / "out.png")]
+                                  if name == "simulate_aberrations" else [])
+    printed = {}
+    for engine in ("fused", "unroll"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            example.main(argv + ["--engine", engine])
+        printed[engine] = buf.getvalue()
+    bar = next(run[5] for run in chip_smoke.EXAMPLE_RUNS if run[1] == name)
+    worst, gap, where = chip_smoke.compare_printouts(printed["fused"], printed["unroll"], bar)
+    assert worst <= 0.0, (gap, where)

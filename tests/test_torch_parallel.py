@@ -210,19 +210,36 @@ def test_sharded_train_step_matches_lens_optimizer(groups, n, lp):
             np.testing.assert_array_equal(res[f"{key}/{k}"], results[0][f"{key}/{k}"])
 
 
+def _unroll_steps_match(groups, n, lp, full):
+    """The unroll engine's sharded steps on this layout against the
+    single-process steps; every rank's parameters are rank 0's bit for bit."""
+    cfg = simulator.SimulatorConfig(**dict(ranks.POP_KW, trace_engine="unroll"))
+    params, total = ranks.train_steps(cfg, use_full_loss=full)
+    results = _results(groups, n)
+    key = f"unroll/{_tag(n, lp)}/{'full' if full else 'lu'}"
+    for res in results:
+        np.testing.assert_allclose(float(res[f"{key}/total"]), total, rtol=1e-5)
+        for k, want in params.items():
+            np.testing.assert_allclose(res[f"{key}/{k}"], want, rtol=1e-4, atol=1e-6, err_msg=k)
+            np.testing.assert_array_equal(res[f"{key}/{k}"], results[0][f"{key}/{k}"])
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_unroll_train_step_shards_over_lens(groups, n):
     """The unroll engine's step over 'lens' alone (one or two systems a
-    rank) is the single-process step; with a 'rays' axis it raises."""
-    cfg = simulator.SimulatorConfig(**dict(ranks.POP_KW, trace_engine="unroll"))
-    params, total = ranks.train_steps(cfg)
-    results = _results(groups, n)
-    for res in results:
-        np.testing.assert_allclose(float(res["unroll/total"]), total, rtol=1e-5)
-        for k, want in params.items():
-            np.testing.assert_allclose(res[f"unroll/{k}"], want, rtol=1e-4, atol=1e-6, err_msg=k)
-            np.testing.assert_array_equal(res[f"unroll/{k}"], results[0][f"unroll/{k}"])
-        assert "'lens' axis only" in str(res["unroll/rays_raise"])
+    rank, full loss), and on Lu with a 'rays' axis (lens 1 x rays 2 and
+    2 x 2: each rank traces its pupil block, the spot moments and penalty
+    sums summed over 'rays'), is the single-process step."""
+    _unroll_steps_match(groups, n, n, True)
+    _unroll_steps_match(groups, n, 1 if n == 2 else 2, False)
+
+
+@pytest.mark.parametrize("n, lp", [(2, 1), (4, 2)], ids=["1x2", "2x2"])
+def test_unroll_full_loss_step_shards_over_rays(groups, n, lp):
+    """The unroll engine's full-loss step with a 'rays' axis (the ray-path
+    and ray-angle hinge sums summed over 'rays' too) is the single-process
+    step."""
+    _unroll_steps_match(groups, n, lp, True)
 
 
 @pytest.mark.parametrize("n, lp", GROUPS, ids=GROUP_IDS)

@@ -167,6 +167,10 @@ def generator_loss(mesh=None, device="cpu"):
     return np.asarray([float(v.detach()) for v in (lu, rms, pen)]), grad.cpu().numpy()
 
 
+def _tag(n, lp):
+    return f"{lp}x{n // lp}"
+
+
 def cpu_rank(device, prefix):
     """Every CPU case on each of this group's layouts."""
     n = dist.get_world_size()
@@ -179,7 +183,7 @@ def cpu_rank(device, prefix):
                                                       ).numpy()
     for lp in LAYOUTS[n]:
         mesh = mesh_mod.make_mesh(lp)
-        tag = f"{lp}x{n // lp}"
+        tag = _tag(n, lp)
         out[f"{tag}/coords"] = np.asarray([mesh.coords["lens"], mesh.coords["rays"]])
         out[f"{tag}/shape"] = np.asarray([mesh.shape["lens"], mesh.shape["rays"]])
         blocks = mesh_mod.ray_sharding(mesh, 4, 10)
@@ -210,16 +214,15 @@ def cpu_rank(device, prefix):
             out[f"{tag}/train/fused/{k}"] = v
         lu, grad = generator_loss(mesh)
         out[f"{tag}/generator/loss"], out[f"{tag}/generator/grad"] = lu, grad
-    # The unroll engine over 'lens' alone; with a 'rays' axis it raises.
+    # The unroll engine: the full loss over 'lens' alone, the full loss and
+    # Lu with a 'rays' axis (this group's layouts with rays > 1).
     unroll = simulator.SimulatorConfig(**dict(POP_KW, trace_engine="unroll"))
-    params, total = train_steps(unroll, mesh_mod.make_mesh(n))
-    out["unroll/total"] = np.asarray(total)
-    for k, v in params.items():
-        out[f"unroll/{k}"] = v
-    try:
-        shard.make_sharded_train_step(train_population()[0], unroll, mesh_mod.make_mesh(1))
-    except NotImplementedError as e:
-        out["unroll/rays_raise"] = np.asarray(str(e))
+    for lp, full in [(n, True)] + [(lp, f) for lp in LAYOUTS[n] for f in (True, False)]:
+        params, total = train_steps(unroll, mesh_mod.make_mesh(lp), use_full_loss=full)
+        key = f"unroll/{_tag(n, lp)}/{'full' if full else 'lu'}"
+        out[f"{key}/total"] = np.asarray(total)
+        for k, v in params.items():
+            out[f"{key}/{k}"] = v
     np.savez(f"{prefix}_{dist.get_rank()}.npz", **out)
 
 

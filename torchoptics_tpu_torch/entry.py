@@ -63,14 +63,13 @@ def _dryrun_rank(device):
                                      pupil_sampling="circular", n_ray_aiming_iter=1,
                                      wavelengths=(459.0, 520.0, 640.0), trace_engine="unroll")
 
-    # The unroll engine shards over 'lens' only; the fused one over both
-    # axes. The full weighted loss in both, so the two losses are one
-    # objective.
+    # Both engines shard over both axes. The full weighted loss in both, so
+    # the two losses are one objective.
     losses = {}
-    for engine, layout in (("unroll", n), ("fused", lens_parallel)):
+    for engine in ("unroll", "fused"):
         cfg = dataclasses.replace(config, trace_engine=engine)
         _, init_fn, step_fn = shard_mod.make_sharded_train_step(
-            specs, cfg, mesh_mod.make_mesh(layout), learning_rate=1e-4, use_full_loss=True)
+            specs, cfg, mesh, learning_rate=1e-4, use_full_loss=True)
         _, loss, _ = step_fn(init_fn(lens))
         losses[engine] = float(loss)
         if not torch.isfinite(loss):
@@ -90,8 +89,8 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> None:
     when each has a GPU of its own, gloo when they share one or run on the
     CPU), build a ('lens', 'rays') mesh with ``lens_parallel = 2`` when
     ``n_ranks`` is even, and run one sharded full-loss training step of a
-    tiled double-Gauss population on the unroll engine (over 'lens') and on
-    the fused one (K2 on each rank's block), and one sharded trace; rank 0
+    tiled double-Gauss population on the unroll engine and on the fused one
+    (K2 on each rank's block), both over the mesh, and one sharded trace; rank 0
     prints both losses. A rank that fails raises here."""
     from torchoptics_tpu_torch.parallel import mesh as mesh_mod
     mesh_mod.spawn(_dryrun_rank, n_ranks, device=device)

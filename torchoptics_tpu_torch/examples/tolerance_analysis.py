@@ -20,6 +20,8 @@ import argparse
 import numpy as np
 import torch
 
+from torchoptics_tpu_torch.examples import _cli
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
@@ -36,20 +38,14 @@ def main(argv=None):
     ap.add_argument("--uniform", action="store_true",
                     help="uniform (half-width) instead of normal tolerances")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--engine", default=None, choices=(None, "fused", "unroll"),
-                    help="trace engine (default: fused on the GPU, unroll on the CPU)")
-    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _cli.add_device_arguments(ap)
     args = ap.parse_args(argv)
-
-    if args.device != "cpu" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device} needs a CUDA device; pass --device cpu "
-                           "to run on the CPU")
+    engine = _cli.resolve_engine(args)
 
     from torchoptics_tpu_torch import analysis, simulator as sim, zoo
     from torchoptics_tpu_torch.ops import trace as trace_mod
     from torchoptics_tpu_torch.ops import wavefront as wfront
 
-    engine = args.engine or ("unroll" if args.device == "cpu" else "fused")
     specs, lens = zoo.build(args.lens, device=args.device)
     config = sim.SimulatorConfig(
         n_sampled_fields=5, n_pupil_rings=8, pupil_sampling="circular",

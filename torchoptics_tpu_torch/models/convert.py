@@ -4,7 +4,9 @@
 ``Specs`` from parameters given as numpy arrays, e.g.
 ``np.asarray(jax_lens.c)``; ``params_from_numpy`` and ``opt_state_from_numpy``
 build the optimizer's parameters and an Adam state from the numpy leaves of a
-JAX ``OptState``; so that both packages compute on the same numbers. Nothing
+JAX ``OptState``; ``mlp_params_from_numpy`` the generator network of the
+``train_generator`` example from JAX's MLP parameters; so that both
+packages compute on the same numbers. Nothing
 here imports JAX. Like every entry point of the port, they put the tensors
 on the GPU unless the caller names another device.
 """
@@ -61,3 +63,18 @@ def opt_state_from_numpy(optimizer, params: Dict[str, np.ndarray],
     convert = lambda d: None if d is None else params_from_numpy(d, device)
     return optimizer.init_from(params_from_numpy(params, device), convert(mu),
                                convert(nu), int(count), int(step))
+
+
+def mlp_params_from_numpy(params: Sequence[Dict[str, np.ndarray]], device="cuda"):
+    """The ``train_generator`` example's ``GeneratorMLP`` whose weights are
+    JAX's MLP parameters: its list of ``{"w": (din, dout), "b": (dout,)}``
+    arrays, as ``examples/train_generator.py``'s ``init_mlp`` builds it."""
+    from torchoptics_tpu_torch.examples.train_generator import GeneratorMLP
+
+    ws = [np.asarray(layer["w"]) for layer in params]
+    net = GeneratorMLP([ws[0].shape[0]] + [w.shape[1] for w in ws], device=device)
+    with torch.no_grad():
+        for i, layer in enumerate(params):
+            net.w[i].copy_(_tensor(layer["w"], device))
+            net.b[i].copy_(_tensor(layer["b"], device))
+    return net

@@ -11,6 +11,8 @@ JAX package's ``shard_map`` bodies do on each device:
 * :func:`shard_map_mean_rms`: the spot-RMS reduction of ray shards;
 * :func:`sharded_fused_losses`: the fused population loss, one K2 (or K4)
   launch a rank on its block, the loss moments summed over the mesh;
+* :func:`sharded_unroll_losses`: the same loss on the pure-torch engine,
+  each rank tracing its block with the per-surface stacks;
 * :func:`make_sharded_train_step`: a ``LensOptimizer`` step on a
   population whose parameters are replicated, the gradients summed over
   the world before Adam.
@@ -134,6 +136,80 @@ def _weighted_total(loss_dict, config) -> torch.Tensor:
                if k in loss_dict and w is not None)
 
 
+def _block(specs: Specs, lens: Lens, cfg: trace_mod.TraceConfig, mesh: Mesh, generator):
+    """This rank's block of a population loss: its rows of the population
+    padded to a 'lens'-axis multiple with clones of system 0, which of them
+    are real systems, their specs and lens, and their pupil block
+    (``_pupil_block``). Returns (rows, real_sys, specs_loc, lens_loc, xp,
+    yp, P_total, P_loc, start)."""
+    B = len(lens)
+    b_pad = mesh_mod.pad_to_multiple(B, mesh.shape[LENS_AXIS])
+    rows = np.arange(b_pad)[mesh_mod.lens_sharding(mesh, b_pad)]
+    real_sys = rows < B
+    rows = np.where(real_sys, rows, 0)
+    xp, yp, p_total, p_loc, start = _pupil_block(cfg.mode, cfg.n_rays, B, generator,
+                                                 lens.device, mesh)
+    if xp.shape[0] == B:
+        xp, yp = xp[rows], yp[rows]
+    return rows, real_sys, specs[rows], lens[rows], xp, yp, p_total, p_loc, start
+
+
+def _reduce_losses(mesh: Mesh, config: sim_mod.SimulatorConfig, lens: Lens, rows, real_sys,
+                   x4, y4, ok4, real_ray, p_total: int, sums, g, catalog_g, full: bool):
+    """The population loss from this rank's block: ``x4``, ``y4``, ``ok4``
+    the (B_loc, W, F, P_loc) rays of the systems ``rows`` of ``lens``,
+    ``real_ray`` (P_loc,) the block's real pupil rays, ``sums`` each
+    system's sums over its real rays of the per-ray penalty ΣQ (over
+    surfaces, before the division by the surface count) and, when ``full``,
+    of the ray-path and the ray-angle hinges. The spot moments and ``sums``
+    are summed over 'rays', the per-system terms over 'lens'; padded systems
+    and rays weigh zero. Returns (total, loss_dict), the same on every rank."""
+    B = len(lens)
+    b_loc, W, F, p_loc = x4.shape
+    # Spot RMS from moments summed over 'rays': 'y' is compute_rms2d's
+    # (all-ray centroid, ok-masked deviations, all-ray denominator), 'xy'
+    # the radial metric (masked centroid and count).
+    if config.spot_metric == "xy":
+        w = ok4.to(x4.dtype)
+        m1 = mesh.sum(torch.stack((torch.sum(w, dim=(1, 3)), torch.sum(x4 * w, dim=(1, 3)),
+                                   torch.sum(y4 * w, dim=(1, 3)))), RAY_AXIS)
+        count = torch.clamp(m1[0], min=1.0)                                # (B_loc, F)
+        xc, yc = mesh.vary(m1[1:] / count, RAY_AXIS)
+        dev2 = torch.where(ok4, (x4 - xc[:, None, :, None]) ** 2
+                           + (y4 - yc[:, None, :, None]) ** 2, 0.0)
+    else:
+        ycent = mesh.sum(torch.sum(torch.where(real_ray, y4, 0.0), dim=3),
+                         RAY_AXIS) / p_total                               # (B_loc, W, F)
+        ymean = mesh.vary(torch.mean(ycent, dim=1), RAY_AXIS)              # (B_loc, F)
+        dev2 = torch.where(ok4, (y4 - ymean[:, None, :, None]) ** 2, 0.0)
+        count = p_total * W
+    # The second moments, the penalty sums and the hinge sums in one sum.
+    m2 = mesh.sum(torch.cat([torch.sum(dev2, dim=(1, 3))] + [v[:, None] for v in sums], dim=1),
+                  RAY_AXIS)
+    ss = m2[:, :F]
+    pos = ss > 0
+    rms_b = torch.mean(torch.where(pos, torch.sqrt(torch.where(pos, ss, 1.0) / count), 0.0),
+                       dim=1)                                              # (B_loc,)
+    n_seq = torch.as_tensor(lens.structure.n_surfaces[rows], dtype=m2.dtype, device=m2.device)
+    sum_q = m2[:, F] / n_seq
+    per_sys = [rms_b + config.penalty_rate * sum_q, rms_b, sum_q]
+    if full:
+        per_sys += [m2[:, F + 1], m2[:, F + 2]]
+    sysw = torch.as_tensor(real_sys, device=m2.device)                    # (B_loc,)
+    means = mesh.sum(torch.stack([torch.sum(torch.where(sysw, v, 0.0)) for v in per_sys]),
+                     LENS_AXIS)
+    loss_dict = {"loss_unsup": means[0] / B, "rms": means[1] / B, "penalty": means[2] / B}
+    if not full:
+        return loss_dict["loss_unsup"], loss_dict
+    n_rays = B * F * p_total * W
+    loss_dict.update(spot_size=loss_dict["rms"], ray_path=means[3] / n_rays,
+                     ray_angle=means[4] / n_rays)
+    if g is not None:
+        loss_dict["glass"] = _replicated_once(
+            mesh, sim_mod.compute_glass_penalty(lens.structure, g, catalog_g))
+    return _weighted_total(loss_dict, config), loss_dict
+
+
 def sharded_fused_losses(specs: Specs, lens: Lens, config: sim_mod.SimulatorConfig, mesh: Mesh,
                          g: Optional[torch.Tensor] = None,
                          catalog_g: Optional[torch.Tensor] = None,
@@ -168,17 +244,8 @@ def sharded_fused_losses(specs: Specs, lens: Lens, config: sim_mod.SimulatorConf
             "sequence as simulator._compute_losses_fused_grouped does")
     if config.spot_metric not in ("y", "xy"):
         raise ValueError(f"spot metric must be 'y' or 'xy', got {config.spot_metric!r}")
-    B = len(lens)
-    b_pad = mesh_mod.pad_to_multiple(B, mesh.shape[LENS_AXIS])
-    rows = np.arange(b_pad)[mesh_mod.lens_sharding(mesh, b_pad)]
-    real_sys = rows < B
-    rows = np.where(real_sys, rows, 0)                 # padding: clones of system 0
-    lens_loc, specs_loc = lens[rows], specs[rows]
-
-    xp, yp, p_total, p_loc, start = _pupil_block(cfg.mode, cfg.n_rays, B, generator,
-                                                 lens.device, mesh)
-    if xp.shape[0] == B:
-        xp, yp = xp[rows], yp[rows]
+    rows, real_sys, specs_loc, lens_loc, xp, yp, p_total, p_loc, start = _block(
+        specs, lens, cfg, mesh, generator)
     xpb, ypb, cyb, z0, mu, shape = fused_batch.prepare_fused_inputs_batch(
         specs_loc, lens_loc, cfg, xy=(xp, yp))
     b_loc, F, _, W = shape
@@ -193,86 +260,59 @@ def sharded_fused_losses(specs: Specs, lens: Lens, config: sim_mod.SimulatorConf
     outs = fused_batch._trace_population(xpb, ypb, cyb, z0, mu, lens_loc, cfg, penalties,
                                          F * p_loc, *full_args)
 
-    device = xpb.device
-    sysw = torch.as_tensor(real_sys, device=device)                       # (B_loc,)
-    real_ray = (start + torch.arange(p_loc, device=device)) < p_total      # (P_loc,)
+    real_ray = (start + torch.arange(p_loc, device=xpb.device)) < p_total  # (P_loc,)
+    # The (B, W, F, P_loc) view of the flat wavelength-outer outputs.
     per_ray = lambda a: a.reshape(b_loc, W, F, p_loc)
-    x4, y4 = per_ray(outs[0]), per_ray(outs[1])
-    ok4 = per_ray(outs[4]) & real_ray
     ray_sum = lambda a: torch.sum(torch.where(real_ray, per_ray(a), 0.0), dim=(1, 2, 3))
-
-    # Spot RMS from moments summed over 'rays', on the (B, W, F, P_loc)
-    # view of the flat wavelength-outer outputs: 'y' is compute_rms2d's
-    # (all-ray centroid, ok-masked deviations, all-ray denominator), 'xy'
-    # the radial metric (masked centroid and count).
-    if config.spot_metric == "xy":
-        w = ok4.to(x4.dtype)
-        m1 = mesh.sum(torch.stack((torch.sum(w, dim=(1, 3)), torch.sum(x4 * w, dim=(1, 3)),
-                                   torch.sum(y4 * w, dim=(1, 3)))), RAY_AXIS)
-        count = torch.clamp(m1[0], min=1.0)                                # (B_loc, F)
-        xc, yc = mesh.vary(m1[1:] / count, RAY_AXIS)
-        dev2 = torch.where(ok4, (x4 - xc[:, None, :, None]) ** 2
-                           + (y4 - yc[:, None, :, None]) ** 2, 0.0)
-    else:
-        ycent = mesh.sum(torch.sum(torch.where(real_ray, y4, 0.0), dim=3),
-                         RAY_AXIS) / p_total                               # (B_loc, W, F)
-        ymean = mesh.vary(torch.mean(ycent, dim=1), RAY_AXIS)              # (B_loc, F)
-        dev2 = torch.where(ok4, (y4 - ymean[:, None, :, None]) ** 2, 0.0)
-        count = p_total * W
-    # The second moments, the penalty sums and the hinge sums in one sum.
-    parts = [torch.sum(dev2, dim=(1, 3)), (ray_sum(outs[6]) + ray_sum(outs[7])
-                                           + ray_sum(outs[8]))[:, None]]
+    sums = [ray_sum(outs[6]) + ray_sum(outs[7]) + ray_sum(outs[8])]
     if full:
-        parts += [ray_sum(outs[9])[:, None], ray_sum(outs[10])[:, None]]
-    m2 = mesh.sum(torch.cat(parts, dim=1), RAY_AXIS)
-    ss = m2[:, :F]
-    pos = ss > 0
-    rms_b = torch.mean(torch.where(pos, torch.sqrt(torch.where(pos, ss, 1.0) / count), 0.0),
-                       dim=1)                                              # (B_loc,)
-    sum_q = m2[:, F] / float(lens_loc.structure.n_surfaces[0])
-    per_sys = [rms_b + config.penalty_rate * sum_q, rms_b, sum_q]
+        sums += [ray_sum(outs[9]), ray_sum(outs[10])]
+    return _reduce_losses(mesh, config, lens, rows, real_sys, per_ray(outs[0]),
+                          per_ray(outs[1]), per_ray(outs[4]) & real_ray, real_ray, p_total,
+                          sums, g, catalog_g, full)
+
+
+def sharded_unroll_losses(specs: Specs, lens: Lens, config: sim_mod.SimulatorConfig,
+                          mesh: Mesh, g: Optional[torch.Tensor] = None,
+                          catalog_g: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None,
+                          full: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The unroll engine's population loss over the ('lens', 'rays') mesh:
+    each rank traces its (system block x pupil block) on the pure-torch
+    engine with the per-surface stacks, and the loss is reduced as
+    :func:`sharded_fused_losses` reduces it (the same padding, spot moments
+    and sums over 'rays' and 'lens'). ``full=True`` is
+    ``simulator.compute_losses``, ``full=False`` ``do_ray_tracing``'s Lu;
+    each system's penalty is normalized by its own surface count, so mixed
+    populations and double precision are taken. The result is the
+    single-process loss up to the order of the sums."""
+    cfg = config.trace_config(engine="unroll")
+    if config.spot_metric not in ("y", "xy"):
+        raise ValueError(f"spot metric must be 'y' or 'xy', got {config.spot_metric!r}")
+    rows, real_sys, specs_loc, lens_loc, xp, yp, p_total, p_loc, start = _block(
+        specs, lens, cfg, mesh, generator)
+    res = trace_mod.trace_rays(specs_loc, lens_loc, cfg, xy=(xp, yp),
+                               aggregate=sim_mod.FULL_AGGREGATE if full else trace_mod.AGG_TORCH)
+    st = res.stacks
+    real_ray = (start + torch.arange(p_loc, device=res.x.device)) < p_total   # (P_loc,)
+    # Per-ray sums over the surfaces, (B_loc, F, P_loc, W), summed over the
+    # real rays of each system.
+    ray_sum = lambda a: torch.sum(torch.where(real_ray[:, None], a, 0.0), dim=(1, 2, 3))
+    mask = torch.as_tensor(lens_loc.structure.mask, device=res.x.device).T[:, :, None, None, None]
+    q = torch.sum(torch.where(mask, st["theta_norm"] + st["theta_prime_norm"] + st["z_RELU"],
+                              0.0), dim=0)
+    sums = [ray_sum(torch.where(torch.isnan(q), 0.0, q))]
     if full:
-        per_sys += [m2[:, F + 1], m2[:, F + 2]]
-    means = mesh.sum(torch.stack([torch.sum(torch.where(sysw, v, 0.0)) for v in per_sys]),
-                     LENS_AXIS)
-    loss_dict = {"loss_unsup": means[0] / B, "rms": means[1] / B, "penalty": means[2] / B}
-    if not full:
-        return loss_dict["loss_unsup"], loss_dict
-    n_rays = B * F * p_total * W
-    loss_dict.update(spot_size=loss_dict["rms"], ray_path=means[3] / n_rays,
-                     ray_angle=means[4] / n_rays)
-    if g is not None:
-        loss_dict["glass"] = _replicated_once(
-            mesh, sim_mod.compute_glass_penalty(lens.structure, g, catalog_g))
-    return _weighted_total(loss_dict, config), loss_dict
-
-
-def _lens_sharded_losses(specs: Specs, lens: Lens, config: sim_mod.SimulatorConfig, mesh: Mesh,
-                         g, catalog_g, generator, full: bool):
-    """The single-process loss of this rank's contiguous block of systems
-    (the last block may be short or empty), its means weighted by the
-    block's share of the systems and summed over 'lens': the unroll
-    engine's sharded loss."""
-    B = len(lens)
-    n_loc = -(-B // mesh.shape[LENS_AXIS])
-    rows = np.arange(B)[mesh.coords[LENS_AXIS] * n_loc:(mesh.coords[LENS_AXIS] + 1) * n_loc]
-    keys = ("loss_unsup", "rms", "penalty") + (
-        ("spot_size", "ray_path", "ray_angle") if full else ())
-    if len(rows):
-        if full:
-            _, d = sim_mod.compute_losses(specs[rows], lens[rows], config, generator=generator)
-        else:
-            _, d = sim_mod.do_ray_tracing(specs[rows], lens[rows], config, generator=generator)
-        part = torch.stack([d[k] for k in keys]) * (len(rows) / B)
-    else:
-        part = torch.zeros(len(keys), dtype=lens.dtype, device=lens.device)
-    loss_dict = dict(zip(keys, mesh.sum(part, LENS_AXIS)))
-    if not full:
-        return loss_dict["loss_unsup"], loss_dict
-    if g is not None:
-        loss_dict["glass"] = _replicated_once(
-            mesh, sim_mod.compute_glass_penalty(lens.structure, g, catalog_g))
-    return _weighted_total(loss_dict, config), loss_dict
+        threshold = math.cos(math.radians(config.ray_angle_threshold)) ** 2
+        sums += [ray_sum(torch.sum(sim_mod.ray_path_hinges(
+                     lens_loc, st["z"], config.ray_path_lower_thresholds,
+                     config.ray_path_upper_thresholds), dim=0)),
+                 ray_sum(torch.sum(torch.clamp(threshold - sim_mod.masked_cos2(lens_loc, st),
+                                               min=0.0), dim=0))]
+    wfp = lambda a: a.permute(0, 3, 1, 2)                    # (B, F, P, W) -> (B, W, F, P)
+    return _reduce_losses(mesh, config, lens, rows, real_sys, wfp(res.x), wfp(res.y),
+                          wfp(res.ray_ok) & real_ray, real_ray, p_total, sums, g, catalog_g,
+                          full)
 
 
 @dataclass
@@ -313,24 +353,13 @@ def make_sharded_train_step(specs: Specs, config: sim_mod.SimulatorConfig, mesh:
     EFL rather than at EFL = 1).
 
     With ``config.trace_engine == "fused"`` the loss is
-    :func:`sharded_fused_losses` over both axes. The unroll engine (the JAX
-    package's GSPMD route) shards over 'lens' only: each rank scores its
-    systems with the single-process loss, the means weighted by the real
-    system counts; a 'rays' axis above 1 raises there."""
-    if config.trace_engine == "fused":
-        def loss_fn(specs_, lens_, config_, g_, catalog_g_, generator_):
-            return sharded_fused_losses(specs_, lens_, config_, mesh, g=g_,
-                                        catalog_g=catalog_g_, generator=generator_,
-                                        full=use_full_loss)
-    else:
-        if mesh.shape[RAY_AXIS] != 1:
-            raise NotImplementedError(
-                "trace_engine='unroll' shards over the 'lens' axis only; build the mesh "
-                "with lens_parallel equal to the world size, or use trace_engine='fused'")
+    :func:`sharded_fused_losses`, on the unroll engine (the JAX package's
+    GSPMD route) :func:`sharded_unroll_losses`; both over both axes."""
+    losses = sharded_fused_losses if config.trace_engine == "fused" else sharded_unroll_losses
 
-        def loss_fn(specs_, lens_, config_, g_, catalog_g_, generator_):
-            return _lens_sharded_losses(specs_, lens_, config_, mesh, g_, catalog_g_,
-                                        generator_, use_full_loss)
+    def loss_fn(specs_, lens_, config_, g_, catalog_g_, generator_):
+        return losses(specs_, lens_, config_, mesh, g=g_, catalog_g=catalog_g_,
+                      generator=generator_, full=use_full_loss)
 
     opt = ShardedLensOptimizer(specs, config, learning_rate=learning_rate, add_bfl=add_bfl,
                                qc_variables=qc_variables, use_full_loss=use_full_loss,

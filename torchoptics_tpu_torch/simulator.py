@@ -105,18 +105,10 @@ class SimulatorConfig:
         }
 
 
-def compute_ray_path_penalty(lens: Lens, z_stack: torch.Tensor, min_thickness,
-                             max_thickness) -> torch.Tensor:
-    """Hinge penalty on the inter-surface ray path Δz against the air, glass
-    and image thickness bounds.
-
-    Args:
-      z_stack: (S+1, B, F, P, W): per-surface z (next-vertex frame) plus the
-        image-plane entry, i.e. the trace's ``stacks['z']``.
-      min/max_thickness: (air, glass, image) bounds; None disables a bound.
-
-    Returns: scalar penalty (mean over rays, summed over gaps).
-    """
+def ray_path_hinges(lens: Lens, z_stack: torch.Tensor, min_thickness,
+                    max_thickness) -> torch.Tensor:
+    """The ray-path hinges of :func:`compute_ray_path_penalty` per gap and
+    ray, (S, B, F, P, W), before the mean over rays."""
     lo_air, lo_glass, lo_image = (-np.inf if v is None else v for v in min_thickness)
     hi_air, hi_glass, hi_image = (np.inf if v is None else v for v in max_thickness)
     st = lens.structure
@@ -137,8 +129,27 @@ def compute_ray_path_penalty(lens: Lens, z_stack: torch.Tensor, min_thickness,
 
     min_map = bound_map(lo_glass, lo_air, lo_image, -np.inf)
     max_map = bound_map(hi_glass, hi_air, hi_image, np.inf)
-    penalty = (torch.clamp(min_map - delta_z, min=0.0)
-               + torch.clamp(delta_z - max_map, min=0.0))
+    return (torch.clamp(min_map - delta_z, min=0.0)
+            + torch.clamp(delta_z - max_map, min=0.0))
+
+
+#: The stacks the unroll engine's full loss reads.
+FULL_AGGREGATE = ("z", "cos2", "cos2_prime") + trace_mod.AGG_TORCH
+
+
+def compute_ray_path_penalty(lens: Lens, z_stack: torch.Tensor, min_thickness,
+                             max_thickness) -> torch.Tensor:
+    """Hinge penalty on the inter-surface ray path Δz against the air, glass
+    and image thickness bounds.
+
+    Args:
+      z_stack: (S+1, B, F, P, W): per-surface z (next-vertex frame) plus the
+        image-plane entry, i.e. the trace's ``stacks['z']``.
+      min/max_thickness: (air, glass, image) bounds; None disables a bound.
+
+    Returns: scalar penalty (mean over rays, summed over gaps).
+    """
+    penalty = ray_path_hinges(lens, z_stack, min_thickness, max_thickness)
     return torch.sum(torch.mean(penalty, dim=(1, 2, 3, 4)))
 
 
@@ -149,6 +160,16 @@ def compute_ray_angle_penalty(cos_squared: torch.Tensor,
     threshold = math.cos(math.radians(angle_threshold)) ** 2
     return torch.sum(torch.mean(torch.clamp(threshold - cos_squared, min=0.0),
                                 dim=(1, 2, 3, 4)))
+
+
+def masked_cos2(lens: Lens, stacks: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The (2S, B, F, P, W) cos² of the incidence and refraction angles that
+    the angle hinge reads. Padding surfaces of heterogeneous batches are
+    straight-through no-ops; their cos² is pinned to 1 so the hinge never
+    fires on them."""
+    m_s = torch.as_tensor(lens.structure.mask, device=lens.device).T[:, :, None, None, None]
+    cos2 = torch.cat((stacks["cos2"], stacks["cos2_prime"]), dim=0)
+    return torch.where(torch.cat((m_s, m_s), dim=0), cos2, 1.0)
 
 
 def compute_glass_penalty(structure: Structure, g: torch.Tensor,
@@ -281,7 +302,7 @@ def compute_losses(specs: Specs, lens: Lens, config: SimulatorConfig,
                 specs, lens, config, g=g, catalog_g=catalog_g, generator=generator)
         return _compute_losses_fused_grouped(specs, lens, config, g, catalog_g, generator)
     res = trace_mod.trace_rays(specs, lens, cfg, generator=generator,
-                               aggregate=("z", "cos2", "cos2_prime") + trace_mod.AGG_TORCH)
+                               aggregate=FULL_AGGREGATE)
     mask = torch.as_tensor(lens.structure.mask, device=lens.device)
     loss_dict = compute_loss_out(res, lens.structure.n_surfaces, config.penalty_rate,
                                  surface_mask=mask, spot_metric=config.spot_metric)
@@ -290,12 +311,8 @@ def compute_losses(specs: Specs, lens: Lens, config: SimulatorConfig,
     loss_dict["ray_path"] = compute_ray_path_penalty(
         lens, res.stacks["z"], config.ray_path_lower_thresholds,
         config.ray_path_upper_thresholds)
-    # Padding surfaces of heterogeneous batches are straight-through no-ops;
-    # pin their cos² to 1 so the angle hinge never fires on them.
-    m_s = mask.T[:, :, None, None, None]
-    cos2 = torch.cat((res.stacks["cos2"], res.stacks["cos2_prime"]), dim=0)
-    cos2 = torch.where(torch.cat((m_s, m_s), dim=0), cos2, 1.0)
-    loss_dict["ray_angle"] = compute_ray_angle_penalty(cos2, config.ray_angle_threshold)
+    loss_dict["ray_angle"] = compute_ray_angle_penalty(masked_cos2(lens, res.stacks),
+                                                       config.ray_angle_threshold)
     if g is not None:
         loss_dict["glass"] = compute_glass_penalty(lens.structure, g, catalog_g)
     total = sum(loss_dict[k] * w for k, w in config.loss_weights.items()

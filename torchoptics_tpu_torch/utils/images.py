@@ -124,6 +124,23 @@ def decode_png(path: str) -> np.ndarray:
     return np.frombuffer(b"".join(rows), dtype=np.uint8).reshape(height, width, channels)
 
 
+def encode_png(path: str, rgb: np.ndarray) -> None:
+    """Write (H, W, 3) values in [0, 1] as an 8-bit RGB PNG (rows
+    unfiltered, zlib-compressed): ``plt.imsave``'s output for such an array
+    on a machine without matplotlib."""
+    img = np.round(np.clip(np.asarray(rgb, np.float64), 0.0, 1.0) * 255.0).astype(np.uint8)
+    h, w = img.shape[:2]
+    raw = b"".join(b"\x00" + img[y, :, :3].tobytes() for y in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
 @functools.lru_cache(maxsize=None)
 def _shipped_rgb() -> np.ndarray:
     img = decode_png(ASSET)
