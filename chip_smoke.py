@@ -243,12 +243,16 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     steps at 96^2; ``optimize_wavefront`` 3 steps; ``simulate_aberrations``
     at 128^2 with both PSF sources; ``flagship_report`` with vignetting;
     ``aberration_report``), each on ``--engine fused`` and ``--engine
-    unroll``: every run's kernel launches counted from 0 (the fused run's as
-    ``EXAMPLE_RUNS`` predicts, the unroll run's those of P2 alone), its host
-    wall, and the two runs' printed numbers held within each number's bar
-    (1e-5 relative on losses, 5e-6 mm on coordinates, the wavefront,
-    Strehl and MTF bars of the coordinate bar's move) plus its printed
-    resolution.
+    unroll``: every run's kernel launches counted from 0 by kernel entry,
+    the trace kernels' by the template mode each launch ran (the fused
+    run's as ``EXAMPLE_RUNS`` predicts, the unroll run's those of P2
+    alone), the launches per step measured as a fused run at ``--steps`` +
+    1 less the run at ``--steps``, each run's host wall, and the two runs'
+    printed numbers held within each number's bar (1e-5 relative on
+    losses, 5e-6 mm on coordinates, the wavefront and MTF bars of the
+    coordinate bar's move, the Strehl ratios' bar from the OPD gap between
+    the engines measured on the examples' lenses and grids, that gap held
+    at the wavefront phases' 5e-5 mm) plus its printed resolution.
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -1456,19 +1460,20 @@ def phase_population_serve(torch, zoo, simulator, fused_trace, fused_batch):
 
 
 class Generator:
-    """The generator of the ``train_generator`` example: its network
-    (``GeneratorMLP``, 2 -> 64 -> 64 -> numout, the tanh GELU) from lens
+    """The generator of the ``train_generator`` example
+    (``models.generator``): its network (``GeneratorMLP``, 2 -> 64 -> 64 ->
+    numout, the tanh GELU) from lens
     specs (EPD, HFOV) to design vectors, scaled by 0.1 about its base
     design (``generate``, ``base_design``), the weights drawn from
     ``seed``."""
 
     def __init__(self, torch, ol, seed, device):
-        from torchoptics_tpu_torch.examples import train_generator as tg
-        self.net = tg.GeneratorMLP((2, 64, 64, ol.numout), torch.Generator().manual_seed(seed),
-                                   device)
-        self.base = tg.base_design(ol, device)
+        from torchoptics_tpu_torch.models import generator
+        self.net = generator.GeneratorMLP((2, 64, 64, ol.numout),
+                                          torch.Generator().manual_seed(seed), device)
+        self.base = generator.base_design(ol, device)
         self.params = list(self.net.parameters())
-        self.generate = tg.generate
+        self.generate = generator.generate
 
     def __call__(self, inputs):
         return self.generate(self.net, inputs, self.base)
@@ -1477,8 +1482,8 @@ class Generator:
 def sample_specs(torch, gen, n, device):
     """Seeded spec draws in the generator example's ranges (its
     ``sample_specs``): EPD in [0.15, 0.35], HFOV in [0.2, 0.45] rad."""
-    from torchoptics_tpu_torch.examples import train_generator as tg
-    return tg.sample_specs(gen, n, device)
+    from torchoptics_tpu_torch.models import generator
+    return generator.sample_specs(gen, n, device)
 
 
 def generator_loss(ol, net, inputs):
@@ -5783,97 +5788,187 @@ def phase_parallel(torch, card):
     return per_entry
 
 
-#: Phase 42: the examples. The wavefront bar (waves) and the Strehl bar: the
-#: OPD held at the coordinate bar (5e-6 mm) at 520 nm, and its move of the
-#: Strehl ratio, 2 x 2 pi / lambda x 5e-6 mm (``phase_wavefront_serve``'s
-#: bound at that OPD gap); the through-focus MTF's: the coordinate bar's
-#: move at the 2 um PSF grid's Nyquist frequency (``MTF_BAR``'s argument).
-EXAMPLE_WAVES_BAR = 5e-6 / 520e-6
-EXAMPLE_STREHL_BAR = 2 * 2 * math.pi / 520e-6 * 5e-6 + 1e-5
+#: Phase 42: the examples. The wavefront bar (waves): the OPD held at the
+#: coordinate bar (5e-6 mm) at 520 nm; the through-focus MTF's: the
+#: coordinate bar's move at the 2 um PSF grid's Nyquist frequency
+#: (``MTF_BAR``'s argument). The Strehl ratios' bar follows from the OPD gap
+#: measured in the run (``strehl_bar``).
+EXAMPLE_LAM = 520e-6
+EXAMPLE_WAVES_BAR = 5e-6 / EXAMPLE_LAM
 EXAMPLE_MTF_BAR = 2 * math.pi * 0.5 / 2e-3 * 5e-6
 #: A line's numbers that are not results: host walls and run labels.
 EXAMPLE_SKIP = ("steps in", "engine=", "wrote ", "saved ")
 
 
-def _default_bar(line, k):
-    """(relative, absolute) bar of a printed number: 1e-5 relative on Lu
-    and loss values, 5e-6 on coordinates in mm."""
-    return 1e-5, 5e-6
+def strehl_bar(gap):
+    """The largest move of a Strehl ratio S = |A|^2, A = <exp(i k OPD)>
+    over the valid points (k = 2 pi / lambda), when its OPD moves by a gap
+    of rms ``gap`` mm over them: |dA| <= k gap, so |dS| <= 2 sqrt(S) k gap
+    + (k gap)^2 (piston and tilt removal, a least-squares projection over
+    the same points, does not grow the gap's rms; the mean of a row of
+    ratios obeys the bound at the mean, sqrt being concave), plus 1e-5 for
+    the float32 sums."""
+    kg = 2 * math.pi / EXAMPLE_LAM * gap
+    return lambda s: 2 * math.sqrt(max(s, 0.0)) * kg + kg * kg + 1e-5
 
 
-def _wavefront_bar(line, k):
-    return (0.0, EXAMPLE_STREHL_BAR) if "Strehl" in line[:k] else (0.0, EXAMPLE_WAVES_BAR)
+def _default_bar(line, k, w, strehl):
+    """The allowed gap of a printed number whose unroll value is ``w``:
+    1e-5 relative on Lu and loss values, 5e-6 on coordinates in mm."""
+    return max(1e-5 * abs(w), 5e-6)
 
 
-def _flagship_bar(line, k):
+def _wavefront_bar(line, k, w, strehl):
+    return strehl(w) if "Strehl" in line[:k] else EXAMPLE_WAVES_BAR
+
+
+def _flagship_bar(line, k, w, strehl):
     """Columns: field, rms_y and rms_xy (mm), wfe (waves), Strehl, then the
     solved vignetting and relative illumination (the unroll engine in both
     runs)."""
     col = len(EXAMPLE_NUMBER.findall(line[:k]))
     if line.lstrip().startswith("mean"):
         col += 1
-    return {3: (0.0, EXAMPLE_WAVES_BAR), 4: (0.0, EXAMPLE_STREHL_BAR)}.get(col, (1e-5, 5e-6))
+    if col == 3:
+        return EXAMPLE_WAVES_BAR
+    return strehl(w) if col == 4 else _default_bar(line, k, w, strehl)
 
 
-def _aberration_bar(line, k):
-    return (0.0, EXAMPLE_MTF_BAR) if re.match(r"\s+[-+]\d\.\d{3}\s", line) else (1e-5, 5e-6)
+def _aberration_bar(line, k, w, strehl):
+    if re.match(r"\s+[-+]\d\.\d{3}\s", line):
+        return EXAMPLE_MTF_BAR
+    return _default_bar(line, k, w, strehl)
 
 
 EXAMPLE_NUMBER = re.compile(r"[-+]?\d+(?:\.\d+)?(?:e[-+]?\d+)?")
-#: (label, module, argv, optimization steps, {kernel entry: (launches in the
-#: fused run, of them per step)}, bar). The argv keep each example's default
-#: widths and cut only its step counts.
+#: (label, module, argv, {kernel entry: predicted launches of the fused run,
+#: and of them per step of ``--steps``}, bar). The argv keep each example's
+#: default widths and cut only its step counts. A trace kernel's launches
+#: go to the entry of the mode each ran (``read_example_counters``); the
+#: launches per step are the counts of a run at ``--steps`` + 1 less those
+#: of the run.
 EXAMPLE_RUNS = (
-    ("optimize_lens --steps 3", "optimize_lens", ["--steps", "3"], 3,
+    ("optimize_lens --steps 3", "optimize_lens", ["--steps", "3"],
      {"k1_fwd": (3, 1), "k1_bwd": (3, 1)}, _default_bar),
     ("optimize_lens --full-loss --freeze-glass --steps 2", "optimize_lens",
-     ["--full-loss", "--freeze-glass", "--steps", "2"], 2,
+     ["--full-loss", "--freeze-glass", "--steps", "2"],
      {"k1_fwd_full": (2, 1), "k1_bwd": (2, 1)}, _default_bar),
     ("refine_flagship --steps 3 --polish-steps 2", "refine_flagship",
-     ["--steps", "3", "--polish-steps", "2"], 5,
+     ["--steps", "3", "--polish-steps", "2"],
      # 24 members (K2 Lu) and the polish (a population of one, K2 Lu); two
      # population evaluations (K2 plain) and three of the polished lens (K1).
      {"k2_fwd": (7, 1), "k2_bwd": (5, 1), "k1_fwd": (3, 0)}, _default_bar),
     ("refine_flagship --aspherize --steps 3 --polish-steps 2", "refine_flagship",
-     ["--aspherize", "--steps", "3", "--polish-steps", "2"], 5,
+     ["--aspherize", "--steps", "3", "--polish-steps", "2"],
      {"k4_fwd": (5, 1), "k4_bwd": (5, 1), "k3_fwd": (5, 0)}, _default_bar),
     ("train_generator --steps 3 --eval-designs 64", "train_generator",
-     ["--steps", "3", "--eval-designs", "64"], 3,
+     ["--steps", "3", "--eval-designs", "64"],
      # The two scored distributions (snapped and raw glass): K2 plain.
      {"k2_fwd": (5, 1), "k2_bwd": (3, 1)}, _default_bar),
-    ("optimize_through_image --steps 2", "optimize_through_image", ["--steps", "2"], 2,
+    ("optimize_through_image --steps 2", "optimize_through_image", ["--steps", "2"],
      # The start and final renders: K1 plain and P2 once each.
      {"k1_fwd": (4, 1), "k1_bwd": (2, 1), "p2_svola": (4, 1), "p2_dpsf": (2, 1)},
      _default_bar),
-    ("optimize_wavefront --steps 3", "optimize_wavefront", ["--steps", "3"], 3,
+    ("optimize_wavefront --steps 3", "optimize_wavefront", ["--steps", "3"],
      # opd_map is two opl launches (the grid, the chief rays): the initial
      # and final loss and Strehl report, and each step.
      {"k1_fwd_opl": (14, 2), "k1_bwd_opl": (6, 2)}, _wavefront_bar),
-    ("simulate_aberrations", "simulate_aberrations", [], 0,
+    ("simulate_aberrations", "simulate_aberrations", [],
      {"k1_fwd": (1, 0), "p2_svola": (1, 0)}, _default_bar),
     ("simulate_aberrations --psf-source diffraction", "simulate_aberrations",
-     ["--psf-source", "diffraction"], 0,
+     ["--psf-source", "diffraction"],
      # opd_map for the sampling report and for the render.
      {"k1_fwd_opl": (4, 0), "p2_svola": (1, 0)}, _default_bar),
-    ("flagship_report", "flagship_report", [], 0,
+    ("flagship_report", "flagship_report", [],
      # The report's trace and the vignetted trace; opd_map on the grid.
      {"k1_fwd": (2, 0), "k1_fwd_opl": (2, 0)}, _flagship_bar),
-    ("aberration_report", "aberration_report", [], 0,
+    ("aberration_report", "aberration_report", [],
      {"k2_fwd": (1, 0)}, _aberration_bar),
 )
-#: Entry -> the launch counter it reads: (module attribute path).
-EXAMPLE_COUNTERS = {"k1_fwd": ("fused_trace", "K1_FWD_LAUNCHES"),
-                    "k1_bwd": ("fused_trace", "K1_BWD_LAUNCHES"),
-                    "k2_fwd": ("fused_batch", "K2_FWD_LAUNCHES"),
-                    "k2_bwd": ("fused_batch", "K2_BWD_LAUNCHES"),
-                    "k3_fwd": ("fused_asphere", "K3_FWD_LAUNCHES"),
-                    "k3_bwd": ("fused_asphere", "K3_BWD_LAUNCHES"),
-                    "k4_fwd": ("fused_asphere", "K4_FWD_LAUNCHES"),
-                    "k4_bwd": ("fused_asphere", "K4_BWD_LAUNCHES"),
-                    "p2_svola": ("image", "P2_LAUNCHES"),
-                    "p2_dpsf": ("image", "P2_DPSF_LAUNCHES"),
-                    "p2_fft": ("image", "P2_FFT_LAUNCHES"),
-                    "p2_dpsf_fft": ("image", "P2_DPSF_FFT_LAUNCHES")}
+#: Kernel family -> (module, counter prefix). Each counter's launches by
+#: template mode go to the kernel entries: forward modes 0 and 1 (plain,
+#: Lu) to 'kN_fwd', 2 to 'kN_fwd_full', 3 to 'kN_fwd_opl'; backward modes
+#: 0-2 to 'kN_bwd', 3 to 'kN_bwd_opl'.
+EXAMPLE_MODE_COUNTERS = {"k1": ("fused_trace", "K1"), "k2": ("fused_batch", "K2"),
+                         "k3": ("fused_asphere", "K3"), "k4": ("fused_asphere", "K4")}
+EXAMPLE_MODE_ENTRY = {"fwd": ("", "", "_full", "_opl"), "bwd": ("", "", "", "_opl")}
+EXAMPLE_P2_COUNTERS = {"p2_svola": "P2_LAUNCHES", "p2_dpsf": "P2_DPSF_LAUNCHES",
+                       "p2_fft": "P2_FFT_LAUNCHES", "p2_dpsf_fft": "P2_DPSF_FFT_LAUNCHES"}
+
+
+def reset_example_counters(modules):
+    for module, prefix in EXAMPLE_MODE_COUNTERS.values():
+        for d in ("FWD", "BWD"):
+            setattr(modules[module], f"{prefix}_{d}_LAUNCHES", 0)
+            setattr(modules[module], f"{prefix}_{d}_MODE_LAUNCHES", [0] * 4)
+    for counter in EXAMPLE_P2_COUNTERS.values():
+        setattr(modules["image"], counter, 0)
+
+
+def read_example_counters(modules):
+    """({kernel entry: launches since the reset}, {kernel: [plain, Lu,
+    full, opl] launches} of the trace kernels that launched): the trace
+    kernels' entries by the template mode each launch ran (their sums must
+    be the totals), P2's by its counters."""
+    out, modes = {}, {}
+    for family, (module, prefix) in EXAMPLE_MODE_COUNTERS.items():
+        for d, suffixes in EXAMPLE_MODE_ENTRY.items():
+            by_mode = getattr(modules[module], f"{prefix}_{d.upper()}_MODE_LAUNCHES")
+            total = getattr(modules[module], f"{prefix}_{d.upper()}_LAUNCHES")
+            if sum(by_mode) != total:
+                check(False, f"examples: {prefix} {d} launches by mode {by_mode} sum to the "
+                      f"total {total}")
+            for mode, n in enumerate(by_mode):
+                entry = f"{family}_{d}{suffixes[mode]}"
+                out[entry] = out.get(entry, 0) + n
+            if total:
+                modes[f"{family}_{d}"] = list(by_mode)
+    for entry, counter in EXAMPLE_P2_COUNTERS.items():
+        out[entry] = getattr(modules["image"], counter)
+    return out, modes
+
+
+def example_opd_gap(torch, name, argv):
+    """The rms OPD gap (mm) behind the Strehl ratios that example ``name``
+    prints when run with ``argv``: ``opd_map`` on the fused engine against
+    the unroll engine, on the lens, grid and points that its Strehl ratios
+    use (``optimize_wavefront``: the defocused lens it starts from, its
+    grid, the valid rays; ``flagship_report``: the lens it reports, its
+    24 x 24 grid, the valid rays inside the unit circle), the largest over
+    the fields. The masks must be equal and the largest gap within
+    ``phase_wavefront_serve``'s OPD bar, 5e-5 mm (an OPD is a difference of
+    float32 path lengths of 100-300 mm, whose last bit is 0.8-3e-5 mm)."""
+    from torchoptics_tpu_torch.examples import flagship_report as fr
+    from torchoptics_tpu_torch.examples import optimize_wavefront as ow
+    from torchoptics_tpu_torch.ops import wavefront as wf
+
+    def opd(engine):
+        if name == "optimize_wavefront":
+            specs, lens, _, cfg, xy = ow.setup(ow.parse_args(argv), engine)
+            return wf.opd_map(specs, lens, cfg, xy=xy), None
+        args = fr.parse_args(argv)
+        specs, lens, fields = fr.load_design(args, args.device)
+        xy, inside = fr.pupil_grid(device=args.device)
+        return wf.opd_map(specs, lens, fr.wavefront_config(fields, engine), xy=xy), inside
+
+    with torch.no_grad():
+        (fused, inside), (unroll, _) = opd("fused"), opd("unroll")
+    ok = fused["ok"][0, :, :, 0]                                             # (F, P)
+    same = torch.equal(ok, unroll["ok"][0, :, :, 0])
+    w = (ok if inside is None else ok & inside).to(torch.float64)
+    d = (fused["opd"] - unroll["opd"])[0, :, :, 0].to(torch.float64)
+    rms = torch.sqrt(torch.sum(w * d * d, dim=1) / torch.clamp(torch.sum(w, dim=1), min=1.0))
+    gap, largest = float(torch.max(rms)), float(torch.max(w * d.abs()))
+    check(same and largest <= 5e-5,
+          f"examples: {name}'s OPD, fused against unroll on its lens and grid: the same valid "
+          f"rays ({same}), the largest gap {largest:.3g} mm (limit 5e-5), the rms gap per field "
+          f"{[float(v) for v in rms]} mm; its Strehl bar 2 sqrt(S) k g + (k g)^2 + 1e-5 is "
+          f"{strehl_bar(gap)(1.0):.3g} at S = 1, {strehl_bar(gap)(0.1):.3g} at S = 0.1")
+    return gap
+
+
+#: The examples that print Strehl ratios.
+STREHL_EXAMPLES = ("optimize_wavefront", "flagship_report")
 
 
 def example_numbers(text):
@@ -5900,19 +5995,18 @@ def printed_resolution(token):
 def compare_printouts(fused, unroll, bar):
     """The largest (gap - allowed) over the two runs' printed numbers,
     token by token (the printouts must have the same lines and numbers),
-    with the worst gap and its line. ``allowed`` is the bar plus the
-    printed resolution (two runs within the bar can print numbers one
-    last digit apart)."""
+    with the worst gap and its line. ``allowed`` is ``bar(line, offset,
+    unroll value)`` plus the printed resolution (two runs within the bar
+    can print numbers one last digit apart)."""
     a, b = example_numbers(fused), example_numbers(unroll)
     if len(a) != len(b) or any(len(x[1]) != len(y[1]) for x, y in zip(a, b)):
         return math.inf, math.inf, "the printouts differ in their lines or numbers"
     worst, worst_gap, where = -math.inf, 0.0, ""
     for (line, toks), (_, toks_u) in zip(a, b):
         for (k, t), (_, u) in zip(toks, toks_u):
-            rel, absolute = bar(line, k)
             v, w = float(t), float(u)
             gap = abs(v - w)
-            allowed = max(rel * abs(w), absolute) + printed_resolution(t)
+            allowed = bar(line, k, w) + printed_resolution(t)
             if gap - allowed > worst:
                 worst, worst_gap, where = gap - allowed, gap, f"{line.strip()} ({t} vs {u})"
     return worst, worst_gap, where
@@ -5922,10 +6016,13 @@ def phase_examples(torch, card, verbose=False):
     """Phase 42: the nine examples' eight newcomers, each ``main(argv)`` on
     the card at its default widths (only the step counts cut, as
     EXAMPLE_RUNS lists), on the fused engine and on the unroll engine: each
-    run's launches counted from 0 (the fused run's must be EXAMPLE_RUNS's,
-    the unroll run's those of P2 alone), its host wall, and the printed numbers of the
-    two runs held within each number's bar plus its printed resolution.
-    Returns {kernel entry: {example: {"run": launches, "per_step": n}}}."""
+    run's launches counted from 0 by kernel entry (the fused run's must be
+    EXAMPLE_RUNS's, the unroll run's those of P2 alone), the launches per
+    step measured as a fused run at ``--steps`` + 1 less the run at
+    ``--steps`` (they must be EXAMPLE_RUNS's), each run's host wall, and the
+    printed numbers of the two runs held within each number's bar plus its
+    printed resolution. Returns {kernel entry: {example: {"run": launches,
+    "steps": n[, "per_step": launches]}}}, all measured."""
     import contextlib
     import importlib
     import io
@@ -5934,53 +6031,74 @@ def phase_examples(torch, card, verbose=False):
     modules = {"fused_trace": fused_trace, "fused_batch": fused_batch,
                "fused_asphere": fused_asphere, "image": image}
     start = time.perf_counter()
-    per_entry, walls = {}, {}
+    strehl = {name: strehl_bar(example_opd_gap(torch, name, argv))
+              for _, name, argv, _, _ in EXAMPLE_RUNS if name in STREHL_EXAMPLES}
+    per_entry, walls, modes = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for label, name, argv, steps, expect, bar in EXAMPLE_RUNS:
+        for label, name, argv, expect, bar in EXAMPLE_RUNS:
             example = importlib.import_module(f"torchoptics_tpu_torch.examples.{name}")
             extra = ["--output", os.path.join(tmp, "out.png")] if name == "simulate_aberrations" \
                 else []
-            printed = {}
-            for engine in ("fused", "unroll"):
-                for module, counter in EXAMPLE_COUNTERS.values():
-                    setattr(modules[module], counter, 0)
+
+            def run(args, engine):
+                reset_example_counters(modules)
                 buf = io.StringIO()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(buf):
-                    example.main(argv + extra + ["--engine", engine])
+                    example.main(args + extra + ["--engine", engine])
                 torch.cuda.synchronize()
-                walls[f"{label} ({engine})"] = time.perf_counter() - t0
-                printed[engine] = buf.getvalue()
-                counts = {e: getattr(modules[m], c) for e, (m, c) in EXAMPLE_COUNTERS.items()}
-                # An opl or full-mode launch counts on its kernel's counter;
-                # the unroll engine launches no trace kernel, and renders on
-                # P2 alike.
-                want = {e: 0 for e in EXAMPLE_COUNTERS}
-                for e, (n, _) in expect.items():
-                    if engine == "fused" or e.startswith("p2"):
-                        want[e.replace("_opl", "").replace("_full", "")] += n
-                check(counts == want,
-                      f"examples: {label} on the {engine} engine launched "
-                      f"{ {e: n for e, n in counts.items() if n} } (expected "
-                      f"{ {e: n for e, n in want.items() if n} })")
+                return buf.getvalue(), *read_example_counters(modules), time.perf_counter() - t0
+
+            printed, counts = {}, {}
+            for engine in ("fused", "unroll"):
+                printed[engine], counts[engine], by_mode, walls[f"{label} ({engine})"] = run(
+                    argv, engine)
                 if engine == "fused":
-                    for e, (n, per_step) in expect.items():
-                        per_entry.setdefault(e, {})[label] = {"run": n, "per_step": per_step}
+                    modes[label] = by_mode
+            want = {e: expect.get(e, (0, 0))[0] for e in counts["fused"]}
+            # The unroll engine launches no trace kernel, and renders on P2
+            # alike.
+            want_unroll = {e: n if e.startswith("p2") else 0 for e, n in want.items()}
+            for engine, wanted in (("fused", want), ("unroll", want_unroll)):
+                check(counts[engine] == wanted,
+                      f"examples: {label} on the {engine} engine launched "
+                      f"{ {e: n for e, n in counts[engine].items() if n} } (expected "
+                      f"{ {e: n for e, n in wanted.items() if n} })")
+            steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv else 0
+            per_step = {}
+            if steps:
+                more = list(argv)
+                more[argv.index("--steps") + 1] = str(steps + 1)
+                _, counts_more, _, _ = run(more, "fused")
+                per_step = {e: counts_more[e] - n for e, n in counts["fused"].items()}
+                wanted = {e: expect.get(e, (0, 0))[1] for e in per_step}
+                check(per_step == wanted,
+                      f"examples: {label}: the fused run at --steps {steps + 1} less the run "
+                      f"at --steps {steps} launched { {e: n for e, n in per_step.items() if n} }"
+                      f" a step (expected { {e: n for e, n in wanted.items() if n} })")
+            for e, n in counts["fused"].items():
+                if n or per_step.get(e):
+                    per_entry.setdefault(e, {})[label] = dict(
+                        {"run": n, "steps": steps}, **({"per_step": per_step[e]} if steps else {}))
             if verbose:
                 for engine, text in printed.items():
                     print(f"--- {label} --engine {engine}", flush=True)
                     print(text, end="", flush=True)
-            worst, gap, where = compare_printouts(printed["fused"], printed["unroll"], bar)
+            worst, gap, where = compare_printouts(
+                printed["fused"], printed["unroll"],
+                lambda line, k, w: bar(line, k, w, strehl.get(name)))
             check(worst <= 0.0,
                   f"examples: {label}: fused and unroll print the same numbers within their "
                   f"bars plus the printed resolution; the largest gap {gap:.3g} at: {where}")
             print(f"examples: {label}: host wall {walls[f'{label} (fused)']:.2f} s fused, "
                   f"{walls[f'{label} (unroll)']:.2f} s unroll ({card}); fused launches "
-                  f"{ {e: n for e, (n, _) in expect.items()} } "
-                  f"({steps} steps; per step "
-                  f"{ {e: p for e, (_, p) in expect.items() if p} })", flush=True)
+                  f"{ {e: n for e, n in counts['fused'].items() if n} } ({steps} steps; "
+                  f"measured per step { {e: n for e, n in per_step.items() if n} }; the trace "
+                  f"kernels' by template mode [plain, Lu, full, opl] {modes[label]})",
+                  flush=True)
     print(json.dumps({"example_walls_s": {k: round(v, 3) for k, v in walls.items()},
-                      "launches_examples": per_entry, "card": card}), flush=True)
+                      "launches_examples": per_entry, "launches_by_mode": modes, "card": card}),
+          flush=True)
     print(f"phase 42 (examples) took {time.perf_counter() - start:.1f} s", flush=True)
     return per_entry
 
@@ -6187,7 +6305,7 @@ def main():
         e["launches_analysis"] = analysis_launches.get(e["name"], {})
         # Launches per rank of each phase-41 call, by the entry of the mode it runs.
         e["launches_parallel"] = parallel_launches.get(e["name"], {})
-        # Launches of each example's fused run (phase 42), and of them per step.
+        # Launches of each example's fused run (phase 42), and per step, measured.
         e["launches_examples"] = example_launches.get(e["name"], {})
         if e["name"] == "k1_bwd":
             e["image_bundle_max_abs_err"] = bundle[1][0]

@@ -195,7 +195,8 @@ def test_train_generator_matches_jax():
     JAX's ``batch_loss`` on its xla engine."""
     from torchoptics_tpu import loss as jloss
     from torchoptics_tpu_torch import OpticalLoss
-    tg, jtg = _example("train_generator"), _jax_example("train_generator")
+    from torchoptics_tpu_torch.models import generator
+    jtg = _jax_example("train_generator")
     kw = dict(n_sampled_fields=4, n_pupil_rings=6, spot_metric="y", penalty_rate=0.2)
     jol, ol = jloss.OpticalLoss("GA", **kw), OpticalLoss("GA", **kw)
     key = jax.random.PRNGKey(0)
@@ -204,7 +205,7 @@ def test_train_generator_matches_jax():
     kepd, khfov = jax.random.split(kspec)
     inputs = jnp.stack([jax.random.uniform(kepd, (8,), minval=0.15, maxval=0.35),
                         jax.random.uniform(khfov, (8,), minval=0.2, maxval=0.45)], axis=1)
-    base = tg.base_design(ol, device="cpu")
+    base = generator.base_design(ol, device="cpu")
 
     def batch_loss(net_params):
         outputs = jtg.mlp(net_params, inputs) * 0.1 + jnp.asarray(base.numpy())
@@ -217,7 +218,7 @@ def test_train_generator_matches_jax():
     x = torch.tensor(np.asarray(inputs))
     np.testing.assert_allclose(net(x).detach().numpy(), np.asarray(jtg.mlp(jnet, inputs)),
                                rtol=0, atol=1e-6)
-    loss = tg.batch_loss(ol, net, x, base, "unroll")
+    loss = generator.batch_loss(ol, net, x, base, "unroll")
     grads = torch.autograd.grad(loss, list(net.parameters()))
     np.testing.assert_allclose(float(loss.detach()), float(value), rtol=1e-5)
     want = [np.asarray(layer["w"]) for layer in jgrads] + [np.asarray(layer["b"])

@@ -1664,7 +1664,9 @@ EXAMPLE_FLAGS = {
 def test_example_fused_matches_unroll_on_gpu(cuda, name, tmp_path):
     """Each example's ``main`` on the card at tiny flags, on the fused and
     the unroll engine: the printed numbers within ``chip_smoke.py`` phase
-    42's bars plus their printed resolution."""
+    42's bars plus their printed resolution (the Strehl ratios' bar from
+    the OPD gap between the engines on the example's lens and grid, that
+    gap held at 5e-5 mm)."""
     import contextlib
     import importlib
     import io
@@ -1677,6 +1679,9 @@ def test_example_fused_matches_unroll_on_gpu(cuda, name, tmp_path):
         with contextlib.redirect_stdout(buf):
             example.main(argv + ["--engine", engine])
         printed[engine] = buf.getvalue()
-    bar = next(run[5] for run in chip_smoke.EXAMPLE_RUNS if run[1] == name)
-    worst, gap, where = chip_smoke.compare_printouts(printed["fused"], printed["unroll"], bar)
+    bar = next(run[4] for run in chip_smoke.EXAMPLE_RUNS if run[1] == name)
+    strehl = (chip_smoke.strehl_bar(chip_smoke.example_opd_gap(torch, name, argv))
+              if name in chip_smoke.STREHL_EXAMPLES else None)
+    worst, gap, where = chip_smoke.compare_printouts(
+        printed["fused"], printed["unroll"], lambda line, k, w: bar(line, k, w, strehl))
     assert worst <= 0.0, (gap, where)

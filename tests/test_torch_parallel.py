@@ -34,7 +34,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 import torch_parallel_ranks as ranks
-from torchoptics_tpu_torch import simulator, trace, zoo
+from torchoptics_tpu_torch import LensOptimizer, simulator, trace, zoo
 from torchoptics_tpu_torch.models.structure import Lens, Specs, Structure
 from torchoptics_tpu_torch.ops import metrics
 from torchoptics_tpu_torch.parallel import mesh as mesh_mod
@@ -210,13 +210,21 @@ def test_sharded_train_step_matches_lens_optimizer(groups, n, lp):
             np.testing.assert_array_equal(res[f"{key}/{k}"], results[0][f"{key}/{k}"])
 
 
-def _unroll_steps_match(groups, n, lp, full):
+def _unroll_steps_match(groups, n, lp, full, case=None):
     """The unroll engine's sharded steps on this layout against the
-    single-process steps; every rank's parameters are rank 0's bit for bit."""
-    cfg = simulator.SimulatorConfig(**dict(ranks.POP_KW, trace_engine="unroll"))
-    params, total = ranks.train_steps(cfg, use_full_loss=full)
+    single-process steps; every rank's parameters are rank 0's bit for bit.
+    ``case`` names one of ``ranks.UNROLL_CASES`` (the Cooke population in
+    float32 without one)."""
+    population, f64 = ranks.UNROLL_CASES[case] if case else (ranks.train_population, False)
+    cfg = simulator.SimulatorConfig(**dict(ranks.POP_KW, trace_engine="unroll",
+                                           double_precision=f64))
+    params, total = ranks.train_steps(cfg, use_full_loss=full, population=population)
+    specs, lens = population()
+    start = LensOptimizer(specs, cfg).init(lens).params
+    # The steps were taken (a rejected step keeps the parameters).
+    assert not np.array_equal(params["c"], start["c"].detach().numpy())
     results = _results(groups, n)
-    key = f"unroll/{_tag(n, lp)}/{'full' if full else 'lu'}"
+    key = f"unroll/{_tag(n, lp)}/{'full' if full else 'lu'}" + (f"/{case}" if case else "")
     for res in results:
         np.testing.assert_allclose(float(res[f"{key}/total"]), total, rtol=1e-5)
         for k, want in params.items():
@@ -240,6 +248,16 @@ def test_unroll_full_loss_step_shards_over_rays(groups, n, lp):
     and ray-angle hinge sums summed over 'rays' too) is the single-process
     step."""
     _unroll_steps_match(groups, n, lp, True)
+
+
+@pytest.mark.parametrize("case", list(ranks.UNROLL_CASES))
+@pytest.mark.parametrize("n, lp", [(2, 1), (4, 2)], ids=["1x2", "2x2"])
+def test_unroll_step_over_rays_takes_mixed_and_float64(groups, n, lp, case):
+    """The unroll engine's full-loss step with a 'rays' axis on a population
+    mixing three lens types (each rank's block cut to its own widest
+    sequence, its own masks and surface counts; on 2 x 2 the 3 systems pad
+    the 'lens' axis) and in double precision is the single-process step."""
+    _unroll_steps_match(groups, n, lp, True, case)
 
 
 @pytest.mark.parametrize("n, lp", GROUPS, ids=GROUP_IDS)

@@ -259,3 +259,17 @@ def test_plots_draw_what_jax_draws():
             np.testing.assert_allclose(xy, jxy, rtol=0, atol=1e-5)
         plt.close(fig)
         plt.close(jfig)
+
+
+def test_encode_png_reads_back(tmp_path):
+    """``images.encode_png`` (the writer of ``simulate_aberrations``): the
+    file holds each value rounded to 8 bits, read back by the port's
+    decoder and by matplotlib's reader alike."""
+    import matplotlib.image as mpimg
+    from torchoptics_tpu_torch.utils import images
+    rgb = np.random.default_rng(0).uniform(-0.1, 1.1, (7, 5, 3))
+    path = str(tmp_path / "out.png")
+    images.encode_png(path, rgb)
+    want = np.round(np.clip(rgb, 0.0, 1.0) * 255.0).astype(np.uint8)
+    np.testing.assert_array_equal(images.decode_png(path), want)
+    np.testing.assert_array_equal(np.round(mpimg.imread(path) * 255.0).astype(np.uint8), want)

@@ -139,10 +139,28 @@ def train_population(device="cpu"):
     return tiled_population("cooke", 4, perturb=0.02, device=device)
 
 
-def train_steps(config, mesh=None, device="cpu", use_full_loss=True):
+def mixed_train_population(device="cpu"):
+    """A Cooke, a double-Gauss and a Tessar (``zoo.mixed_population``),
+    padded to the widest sequence, their glass moved off the catalog (where
+    the glass penalty's gradient is NaN): nd x 1.01, v x 0.99."""
+    specs, lens = zoo.mixed_population(3, names=("cooke", "double_gauss", "tessar"),
+                                       device=device)
+    return specs, lens.replace(nd=lens.nd * 1.01, v=lens.v * 0.99)
+
+
+#: The unroll engine's full-loss steps on the layouts with a 'rays' axis:
+#: case -> (population, SimulatorConfig.double_precision).
+UNROLL_CASES = {"mixed": (mixed_train_population, False), "f64": (train_population, True)}
+#: The unroll engine's (lens_parallel, full loss) runs of each group: the
+#: full loss over 'lens' alone, the full loss and Lu with a 'rays' axis.
+UNROLL_LAYOUTS = {2: ((2, True), (1, True), (1, False)), 4: ((4, True), (2, True), (2, False))}
+
+
+def train_steps(config, mesh=None, device="cpu", use_full_loss=True,
+                population=train_population):
     """(params after N_STEPS steps, last total) of the sharded train step on
     ``mesh`` (single-process ``LensOptimizer`` steps without one)."""
-    specs, lens = train_population(device)
+    specs, lens = population(device)
     if mesh is None:
         opt = LensOptimizer(specs, config, learning_rate=1e-3, use_full_loss=use_full_loss)
         state, step = opt.init(lens), opt.step
@@ -214,15 +232,20 @@ def cpu_rank(device, prefix):
             out[f"{tag}/train/fused/{k}"] = v
         lu, grad = generator_loss(mesh)
         out[f"{tag}/generator/loss"], out[f"{tag}/generator/grad"] = lu, grad
-    # The unroll engine: the full loss over 'lens' alone, the full loss and
-    # Lu with a 'rays' axis (this group's layouts with rays > 1).
+    # The unroll engine: UNROLL_LAYOUTS on the Cooke population, and the
+    # UNROLL_CASES on the layout with a 'rays' axis and the most ranks on it.
     unroll = simulator.SimulatorConfig(**dict(POP_KW, trace_engine="unroll"))
-    for lp, full in [(n, True)] + [(lp, f) for lp in LAYOUTS[n] for f in (True, False)]:
-        params, total = train_steps(unroll, mesh_mod.make_mesh(lp), use_full_loss=full)
-        key = f"unroll/{_tag(n, lp)}/{'full' if full else 'lu'}"
-        out[f"{key}/total"] = np.asarray(total)
+    runs = [(f"{_tag(n, lp)}/{'full' if full else 'lu'}", lp, full, unroll, train_population)
+            for lp, full in UNROLL_LAYOUTS[n]]
+    runs += [(f"{_tag(n, n // 2)}/full/{case}", n // 2, True,
+              dataclasses.replace(unroll, double_precision=f64), population)
+             for case, (population, f64) in UNROLL_CASES.items()]
+    for key, lp, full, cfg, population in runs:
+        params, total = train_steps(cfg, mesh_mod.make_mesh(lp), use_full_loss=full,
+                                    population=population)
+        out[f"unroll/{key}/total"] = np.asarray(total)
         for k, v in params.items():
-            out[f"{key}/{k}"] = v
+            out[f"unroll/{key}/{k}"] = v
     np.savez(f"{prefix}_{dist.get_rank()}.npz", **out)
 
 

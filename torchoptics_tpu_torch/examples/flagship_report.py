@@ -73,7 +73,7 @@ def strehl_per_field(opd_out, xy, in_pupil, lam=520e-6):
     return torch.stack(strehls), torch.stack(wrms)
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--lens", default="double_gauss",
@@ -86,15 +86,13 @@ def main(argv=None):
                     help="skip the aperture model (solved vignetting factors + relative "
                     "illumination columns)")
     _cli.add_device_arguments(ap)
-    args = ap.parse_args(argv)
-    engine = _cli.resolve_engine(args)
+    return ap.parse_args(argv)
 
+
+def load_design(args, device):
+    """(specs, lens, fields) of the report: the zoo prescription ``--lens``
+    with ``--design``'s parameters over it, and the relative fields."""
     from torchoptics_tpu_torch import zoo
-    from torchoptics_tpu_torch.ops import metrics
-    from torchoptics_tpu_torch.ops import trace as trace_mod
-    from torchoptics_tpu_torch.ops import wavefront as wf
-
-    device = args.device
     p = zoo.get_prescription(args.lens)
     if args.design:
         with open(args.design) as f:
@@ -105,14 +103,30 @@ def main(argv=None):
             elif k in p and k in ("kappa", "asph"):
                 del p[k]
     specs, lens = zoo.build(p, device=device)
+    return specs, lens, tuple(float(f) for f in args.fields.split(","))
 
-    fields = tuple(float(f) for f in args.fields.split(","))
+
+def wavefront_config(fields, engine):
+    """The wavefront pass's trace: 520 nm, one ray-aiming iteration."""
+    from torchoptics_tpu_torch.ops import trace as trace_mod
+    return trace_mod.TraceConfig(mode="circular", n_rays=(24, 24), rel_fields=fields,
+                                 wavelengths=(520.0,), n_ray_aiming_iter=1, engine=engine)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    engine = _cli.resolve_engine(args)
+
+    from torchoptics_tpu_torch.ops import metrics
+    from torchoptics_tpu_torch.ops import trace as trace_mod
+    from torchoptics_tpu_torch.ops import wavefront as wf
+
+    device = args.device
+    specs, lens, fields = load_design(args, device)
     cfg = trace_mod.TraceConfig(
         mode="circular", n_rays=(24, 24), rel_fields=fields,
         wavelengths=(459.0, 520.0, 640.0), n_ray_aiming_iter=1, engine=engine)
-    wf_cfg = trace_mod.TraceConfig(
-        mode="circular", n_rays=(24, 24), rel_fields=fields, wavelengths=(520.0,),
-        n_ray_aiming_iter=1, engine=engine)
+    wf_cfg = wavefront_config(fields, engine)
     xy, in_pupil = pupil_grid(device=device)
 
     with torch.no_grad():

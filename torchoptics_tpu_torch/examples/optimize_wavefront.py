@@ -25,7 +25,11 @@ import torch
 from torchoptics_tpu_torch.examples import _cli
 
 
-def main(argv=None):
+#: The wavelength of the OPD sampling (520 nm) and of the Strehl ratios, mm.
+LAM = 520e-6
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--lens", default="cooke")
@@ -39,31 +43,40 @@ def main(argv=None):
     _cli.add_device_arguments(
         ap, "trace engine: fused (K1's opl mode; the default on the GPU) or unroll (pure "
         "torch, the JAX example's 'scan'; the default on the CPU)")
-    args = ap.parse_args(argv)
-    engine = _cli.resolve_engine(args)
+    return ap.parse_args(argv)
 
-    from torchoptics_tpu_torch import analysis, trace, zoo
-    from torchoptics_tpu_torch import optimize as opt_mod
-    from torchoptics_tpu_torch import simulator as sim
-    from torchoptics_tpu_torch.ops import wavefront as wf
 
-    device = args.device
-    specs, lens = zoo.build(args.lens, device=device)
+def setup(args, engine):
+    """(specs, lens, efl_target, cfg, xy): ``--lens`` with its image
+    distance moved by ``--defocus`` mm (the EFL target is the nominal
+    lens's), the OPD trace's config and the ``--grid``-square pupil grid
+    (1, 1, n², 1) over [-0.85, 0.85]²."""
+    from torchoptics_tpu_torch import trace, zoo
+    specs, lens = zoo.build(args.lens, device=args.device)
     efl_target = float(lens.efl[0])
     t = lens.t.clone()
     t[0, -1] += args.defocus
     lens = lens.replace(t=t)
-
-    n = args.grid
-    g = np.linspace(-0.85, 0.85, n)
+    g = np.linspace(-0.85, 0.85, args.grid)
     X, Y = np.meshgrid(g, g, indexing="xy")
     as_xy = lambda a: torch.tensor(a.ravel()[None, None, :, None], dtype=torch.float32,
-                                   device=device)
-    xy = (as_xy(X), as_xy(Y))
-    xg, yg = xy[0][0, 0, :, 0], xy[1][0, 0, :, 0]
+                                   device=args.device)
     cfg = trace.TraceConfig(mode="circular", n_rays=(2, 2), rel_fields=tuple(args.fields),
                             wavelengths=(520.0,), n_ray_aiming_iter=0, engine=engine)
-    lam = 520e-6
+    return specs, lens, efl_target, cfg, (as_xy(X), as_xy(Y))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    engine = _cli.resolve_engine(args)
+
+    from torchoptics_tpu_torch import analysis
+    from torchoptics_tpu_torch import optimize as opt_mod
+    from torchoptics_tpu_torch import simulator as sim
+    from torchoptics_tpu_torch.ops import wavefront as wf
+
+    specs, lens, efl_target, cfg, xy = setup(args, engine)
+    xg, yg = xy[0][0, 0, :, 0], xy[1][0, 0, :, 0]
 
     def strehls(l):
         with torch.no_grad():
@@ -77,7 +90,7 @@ def main(argv=None):
                 # (defocus counts).
                 cz = wf.zernike_fit(opd, xg, yg, ok, j_max=3)
                 low = torch.sum(wf.zernike_basis(3, xg, yg) * cz[None, :], dim=-1)
-                vals.append(float(wf.strehl_ratio(torch.where(ok, opd - low, 0.0), ok, lam)))
+                vals.append(float(wf.strehl_ratio(torch.where(ok, opd - low, 0.0), ok, LAM)))
         return vals
 
     def wf_loss(specs_, lens_, config_, g_, catalog_g_, generator_):
@@ -91,16 +104,16 @@ def main(argv=None):
     with torch.no_grad():
         v0 = float(opt.loss(state.params)[0])
     print(f"{args.lens} +{args.defocus}mm defocus: "
-          f"initial wavefront RMS {v0 / lam:.3f} waves, "
+          f"initial wavefront RMS {v0 / LAM:.3f} waves, "
           f"Strehl {strehls(lens)}")
     for i in range(args.steps):
         state, v, _ = opt.step(state, None)
         if (i + 1) % max(1, args.steps // 6) == 0:
-            print(f"  step {i + 1:4d}: wavefront RMS {float(v) / lam:.4f} waves")
+            print(f"  step {i + 1:4d}: wavefront RMS {float(v) / LAM:.4f} waves")
     with torch.no_grad():
         final = opt.build_lens(state.params)
         v1 = float(opt.loss(state.params)[0])
-    print(f"final: wavefront RMS {v1 / lam:.4f} waves, Strehl {strehls(final)}")
+    print(f"final: wavefront RMS {v1 / LAM:.4f} waves, Strehl {strehls(final)}")
 
 
 if __name__ == "__main__":

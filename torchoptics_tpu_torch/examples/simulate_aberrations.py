@@ -116,15 +116,7 @@ def main(argv=None):
     print(f"rendered {irr.shape[1]}x{irr.shape[2]} image: "
           f"PSNR={float(psnr[0]):.2f} dB, SSIM={float(ssim[0]):.4f}")
 
-    out = np.clip(irr[0].cpu().numpy() / 255.0, 0, 1)
-    try:
-        import matplotlib
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-        plt.imsave(args.output, out)
-    except ImportError:
-        # A machine without matplotlib writes the same 8-bit RGB PNG.
-        img_util.encode_png(args.output, out)
+    img_util.encode_png(args.output, irr[0].cpu().numpy() / 255.0)
     print(f"wrote {args.output}")
 
     if args.show_spots:

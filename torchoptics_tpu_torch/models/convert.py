@@ -4,8 +4,8 @@
 ``Specs`` from parameters given as numpy arrays, e.g.
 ``np.asarray(jax_lens.c)``; ``params_from_numpy`` and ``opt_state_from_numpy``
 build the optimizer's parameters and an Adam state from the numpy leaves of a
-JAX ``OptState``; ``mlp_params_from_numpy`` the generator network of the
-``train_generator`` example from JAX's MLP parameters; so that both
+JAX ``OptState``; ``mlp_params_from_numpy`` the generator network
+(``models.generator``) from the JAX example's MLP parameters; so that both
 packages compute on the same numbers. Nothing
 here imports JAX. Like every entry point of the port, they put the tensors
 on the GPU unless the caller names another device.
@@ -18,6 +18,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from torchoptics_tpu_torch.models.generator import GeneratorMLP
 from torchoptics_tpu_torch.models.structure import Lens, Specs, Structure
 
 
@@ -66,11 +67,9 @@ def opt_state_from_numpy(optimizer, params: Dict[str, np.ndarray],
 
 
 def mlp_params_from_numpy(params: Sequence[Dict[str, np.ndarray]], device="cuda"):
-    """The ``train_generator`` example's ``GeneratorMLP`` whose weights are
+    """A ``models.generator.GeneratorMLP`` whose weights are
     JAX's MLP parameters: its list of ``{"w": (din, dout), "b": (dout,)}``
     arrays, as ``examples/train_generator.py``'s ``init_mlp`` builds it."""
-    from torchoptics_tpu_torch.examples.train_generator import GeneratorMLP
-
     ws = [np.asarray(layer["w"]) for layer in params]
     net = GeneratorMLP([ws[0].shape[0]] + [w.shape[1] for w in ws], device=device)
     with torch.no_grad():

@@ -67,6 +67,12 @@ K3_FWD_LAUNCHES = 0
 K3_BWD_LAUNCHES = 0
 K4_FWD_LAUNCHES = 0
 K4_BWD_LAUNCHES = 0
+#: The same launches by the kernels' template mode (0 plain, 1 Lu, 2 full,
+#: 3 opl), counted where the totals are; reset each to [0] * 4.
+K3_FWD_MODE_LAUNCHES = [0, 0, 0, 0]
+K3_BWD_MODE_LAUNCHES = [0, 0, 0, 0]
+K4_FWD_MODE_LAUNCHES = [0, 0, 0, 0]
+K4_BWD_MODE_LAUNCHES = [0, 0, 0, 0]
 
 EPS = 1e-6
 NEWTON_ITERS = 10
@@ -805,6 +811,7 @@ def _launch_k3_fwd(inputs, penalties, allow_backward, n_per_w, n_iter, path_boun
             int(allow_backward), *map(_ptr, outs[:6]), *pens, opl, stream)
     fused_trace._raise_on_error(lib, err, "K3 forward kernel")
     K3_FWD_LAUNCHES += 1
+    K3_FWD_MODE_LAUNCHES[mode] += 1
     return tuple(outs)
 
 
@@ -835,6 +842,7 @@ def _launch_k3_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, n_ite
             mode, int(allow_backward), *map(_ptr, (dxp, dyp, dcy, partials, params)), stream)
     fused_trace._raise_on_error(lib, err, "K3 backward kernel")
     K3_BWD_LAUNCHES += 1
+    K3_BWD_MODE_LAUNCHES[mode] += 1
     dz0, dc, dkap, dt, dmu, da, *extra = torch.split(params, sizes)
     if mode == 3:
         extra = [extra[0].reshape(n_surf + 1, n_w)]
@@ -970,6 +978,7 @@ def _launch_k4_fwd(inputs, penalties, allow_backward, n_per_w, n_iter, mask, pat
             mode, int(allow_backward), *map(_ptr, outs[:6]), *pens, opl, stream)
     fused_trace._raise_on_error(lib, err, "K4 forward kernel")
     K4_FWD_LAUNCHES += 1
+    K4_FWD_MODE_LAUNCHES[mode] += 1
     return tuple(outs)
 
 
@@ -1002,6 +1011,7 @@ def _launch_k4_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, n_ite
             stream)
     fused_trace._raise_on_error(lib, err, "K4 backward kernel")
     K4_BWD_LAUNCHES += 1
+    K4_BWD_MODE_LAUNCHES[mode] += 1
     dz0, dc, dkap, dt, dmu, da, *extra = torch.split(params, sizes, dim=1)
     if mode == 3:
         extra = [extra[0].reshape(n_sys, n_surf + 1, n_w)]

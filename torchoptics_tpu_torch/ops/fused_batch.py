@@ -58,6 +58,10 @@ from torchoptics_tpu_torch.ops.fused_trace import (
 #: run.
 K2_FWD_LAUNCHES = 0
 K2_BWD_LAUNCHES = 0
+#: The same launches by the kernels' template mode (0 plain, 1 Lu, 2 full,
+#: 3 opl), counted where the totals are; reset each to [0] * 4.
+K2_FWD_MODE_LAUNCHES = [0, 0, 0, 0]
+K2_BWD_MODE_LAUNCHES = [0, 0, 0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +383,7 @@ def _launch_k2_fwd(inputs, penalties, allow_backward, n_per_w, mask, path_bounds
             int(allow_backward), *map(_ptr, outs[:6]), *pens, opl, stream)
     fused_trace._raise_on_error(lib, err, "K2 forward kernel")
     K2_FWD_LAUNCHES += 1
+    K2_FWD_MODE_LAUNCHES[mode] += 1
     return tuple(outs)
 
 
@@ -409,6 +414,7 @@ def _launch_k2_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, mask,
             int(allow_backward), *map(_ptr, (dxp, dyp, dcy, partials, params)), stream)
     fused_trace._raise_on_error(lib, err, "K2 backward kernel")
     K2_BWD_LAUNCHES += 1
+    K2_BWD_MODE_LAUNCHES[mode] += 1
     off = np.cumsum([1, n_surf, n_surf, n_surf * n_w])
     grads = (dxp, dyp, dcy, params[:, 0], params[:, off[0]:off[1]], params[:, off[1]:off[2]],
              params[:, off[2]:off[3]].reshape(n_sys, n_surf, n_w))

@@ -41,6 +41,10 @@ from torchoptics_tpu_torch.ops import trace as trace_mod
 #: run.
 K1_FWD_LAUNCHES = 0
 K1_BWD_LAUNCHES = 0
+#: The same launches by the kernels' template mode (0 plain, 1 Lu, 2 full,
+#: 3 opl), counted where the totals are; reset each to [0] * 4.
+K1_FWD_MODE_LAUNCHES = [0, 0, 0, 0]
+K1_BWD_MODE_LAUNCHES = [0, 0, 0, 0]
 
 _EPS_CLIP = 1e-7
 _HALF_PI = math.pi / 2.0
@@ -475,6 +479,7 @@ def _launch_k1_fwd(inputs, penalties, allow_backward, n_per_w, path_bounds, angl
             *map(_ptr, outs[:6]), *pens, opl, stream)
     _raise_on_error(lib, err, "K1 forward kernel")
     K1_FWD_LAUNCHES += 1
+    K1_FWD_MODE_LAUNCHES[mode] += 1
     return tuple(outs)
 
 
@@ -505,6 +510,7 @@ def _launch_k1_bwd(inputs, cotangents, penalties, allow_backward, n_per_w, path_
             *map(_ptr, (dxp, dyp, dcy, partials, params)), stream)
     _raise_on_error(lib, err, "K1 backward kernel")
     K1_BWD_LAUNCHES += 1
+    K1_BWD_MODE_LAUNCHES[mode] += 1
     off = np.cumsum([1, n_surf, n_surf, n_surf * n_w])
     grads = (dxp, dyp, dcy, params[0].reshape(z0.shape), params[off[0]:off[1]],
              params[off[1]:off[2]], params[off[2]:off[3]].reshape(n_surf, n_w))

@@ -126,8 +126,8 @@ def decode_png(path: str) -> np.ndarray:
 
 def encode_png(path: str, rgb: np.ndarray) -> None:
     """Write (H, W, 3) values in [0, 1] as an 8-bit RGB PNG (rows
-    unfiltered, zlib-compressed): ``plt.imsave``'s output for such an array
-    on a machine without matplotlib."""
+    unfiltered, zlib-compressed), each value rounded to 8 bits; no imaging
+    library is needed."""
     img = np.round(np.clip(np.asarray(rgb, np.float64), 0.0, 1.0) * 255.0).astype(np.uint8)
     h, w = img.shape[:2]
     raw = b"".join(b"\x00" + img[y, :, :3].tobytes() for y in range(h))
