@@ -253,6 +253,19 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     coordinate bar's move, the Strehl ratios' bar from the OPD gap between
     the engines measured on the examples' lenses and grids, that gap held
     at the wavefront phases' 5e-5 mm) plus its printed resolution.
+43. (after 42) kernel S1, the PSF splat (``csrc/psf_splat_fwd.cu``, its
+    adjoint ``csrc/psf_splat_bwd.cu``), forward and adjoint against their
+    plain versions, bit for bit, one launch each a call: on the default
+    configuration's own splat (the double-Gauss traced on K1: 21 fields x 3
+    channels, a 65 x 33 half grid, 65,536 rays), W = 4 with one-hot weights
+    (d/dweights too), an even and a non-square grid, the auto extent
+    (increment=None: d/dgx, d/dgy, d/dsigma), a NaN ray, an inf ray,
+    float64, and rays no multiple of the chunk; ``compute_psf`` on CUDA
+    tensors under grad launches S1 both ways and no plain version; S1, its
+    plain versions and the PyTorch contractions (TF32 off) timed at the
+    default configuration's splat; the default configuration's 2048^2
+    render and image-loss ``LensOptimizer.step``: peak device memory, host
+    walls (median of 5), the step's profile and its largest allocations.
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -299,6 +312,14 @@ before that carries the kernels' numbers.
     python3 chip_smoke.py --examples      # instead: phase 42 alone, with
                                           # each run's printout (no result
                                           # line)
+    python3 chip_smoke.py --splat         # instead: phase 43 alone (no
+                                          # result line)
+    python3 chip_smoke.py --splat-memory TREE...  # instead: phase 43's
+                                          # memory, walls and profile of the
+                                          # default configuration's 2048^2
+                                          # render and image-loss step, of
+                                          # each unpacked tree and of this
+                                          # checkout, one after another
 """
 
 import collections
@@ -1170,7 +1191,8 @@ def phase_timing(torch, zoo, simulator, fused_trace, LensOptimizer, card):
 def profile_steps(torch, label, step, card, n_steps=3):
     """Where one step's time goes: the device's busy time by kernel group
     from torch.profiler over ``n_steps`` steps (after 2 warm-up steps),
-    against the host clock."""
+    against the host clock. Returns (wall ms, busy ms, {group: ms}) a
+    step."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         step()
@@ -1205,6 +1227,8 @@ def profile_steps(torch, label, step, card, n_steps=3):
                  "P2 FFT route, rows forward" if "fft_rows_fwd" in name else
                  "P2 FFT route, columns" if "fft_cols" in name else
                  "P2 FFT route, rows inverse" if "fft_rows_inv" in name else
+                 "S1 forward (PSF splat)" if "s1_fwd" in name else
+                 "S1 adjoint" if "s1_bwd" in name else
                  "Adam" if ("adam" in name.lower() or "multi_tensor" in name) else
                  "reductions" if "reduce" in name.lower() else "front-end and other")
         groups[group] = groups.get(group, 0.0) + dev_us / 1e3 / n_steps
@@ -1216,6 +1240,7 @@ def profile_steps(torch, label, step, card, n_steps=3):
         print(f"profile:   {group}: {value:.4f} ms per step", flush=True)
     for value, count, name in sorted(kernels, reverse=True)[:12]:
         print(f"profile:     {value:.4f} ms, {count:.0f} launches: {name[:90]}", flush=True)
+    return wall, busy, groups
 
 
 def phase_profile(torch, zoo, simulator, fused_trace, LensOptimizer, OpticalLoss, card):
@@ -4604,8 +4629,7 @@ def phase_fft_timing(torch, image, wide, card):
 # smallest of them (1448^2, K = 33) with config 5's PSF bundle (9 fields x
 # 24 circular rings) in place of the default's 21 fields of a jittered
 # 32 x 32 pupil: that pupil draws from each device's own generator, so card
-# and CPU would trace different rays, and its splat holds a 35 GB
-# intermediate that a CPU run cannot.
+# and CPU would trace different rays.
 DEFAULT_TRAIN_PX = 2048
 DEFAULT_GRAD_PX = 1448
 DEFAULT_GRAD_BUNDLE = dict(n_sampled_fields=9, n_pupil_rings=24, pupil_sampling="circular")
@@ -4620,19 +4644,25 @@ def phase_default_image_training(torch, zoo, simulator, imaging, image, fused_tr
     one) and d/dpsf on the FFT route once (three); every loss finite, every
     step accepted; the host wall of each step. Then the first step's d/d(c,
     t) on the card against the port's CPU at ``DEFAULT_GRAD_PX`` with
-    ``DEFAULT_GRAD_BUNDLE`` within ``IMAGE_GRAD_BAR``. Returns the launches
-    summed over the run (K1f, K1b, P2 direct, P2 FFT, d/dpsf direct, d/dpsf
-    FFT), the walls and the gradient's (relative deviation, cosine)."""
+    ``DEFAULT_GRAD_BUNDLE`` within ``IMAGE_GRAD_BAR``. S1 (the PSF splat)
+    forward and adjoint once each a step. Returns the launches summed over
+    the run (K1f, K1b, P2 direct, P2 FFT, d/dpsf direct, d/dpsf FFT, S1f,
+    S1b), the walls and the gradient's (relative deviation, cosine)."""
+    from torchoptics_tpu_torch.ops import psf
     names = ("K1_FWD_LAUNCHES", "K1_BWD_LAUNCHES")
     counters = ("P2_LAUNCHES", "P2_FFT_LAUNCHES", "P2_DPSF_LAUNCHES", "P2_DPSF_FFT_LAUNCHES")
+    splats = ("SPLAT_LAUNCHES", "SPLAT_BWD_LAUNCHES")
 
     def reset():
         for c in names:
             setattr(fused_trace, c, 0)
         for c in counters:
             setattr(image, c, 0)
+        for c in splats:
+            setattr(psf, c, 0)
     read = lambda: (tuple(getattr(fused_trace, c) for c in names)
-                    + tuple(getattr(image, c) for c in counters))
+                    + tuple(getattr(image, c) for c in counters)
+                    + tuple(getattr(psf, c) for c in splats))
     cfg = default_imaging_config(simulator)
     opt, state = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, "cuda",
                                  DEFAULT_TRAIN_PX, cfg)
@@ -4650,12 +4680,14 @@ def phase_default_image_training(torch, zoo, simulator, imaging, image, fused_tr
     adam_steps = [int(v["step"]) for v in state.opt_state.state.values()]
     moved = max(float((state.params[k].detach() - start[k]).abs().max()) for k in start)
     k = imaging.psf_kernel_shape((DEFAULT_TRAIN_PX,) * 2, cfg)
-    check(all(c == (1, 1, 0, 3, 0, 3) for c in per_step) and all(map(math.isfinite, totals))
+    check(all(c == (1, 1, 0, 3, 0, 3, 1, 1) for c in per_step)
+          and all(map(math.isfinite, totals))
           and adam_steps == [n_steps] * len(adam_steps) and moved > 0,
           f"image training at the default configuration at {DEFAULT_TRAIN_PX}^2 (K = {k[0]}, "
           f"double-Gauss defocused 0.3 mm): {n_steps} LensOptimizer steps, launches per step "
-          f"(K1 forward, K1 backward, P2 direct, P2 FFT, d/dpsf direct, d/dpsf FFT) {per_step} "
-          f"(expected (1, 1, 0, 3, 0, 3) each); every step accepted (Adam step counts "
+          f"(K1 forward, K1 backward, P2 direct, P2 FFT, d/dpsf direct, d/dpsf FFT, S1 forward, "
+          f"S1 adjoint) {per_step} (expected (1, 1, 0, 3, 0, 3, 1, 1) each); every step "
+          f"accepted (Adam step counts "
           f"{adam_steps}); losses {['%.5f' % v for v in totals]}; PSNR "
           f"{['%.4f' % v for v in psnrs]} dB; parameters moved by up to {moved:.3e}")
     print(f"time image-loss LensOptimizer.step at the default configuration at "
@@ -4670,7 +4702,7 @@ def phase_default_image_training(torch, zoo, simulator, imaging, image, fused_tr
         default_imaging_config(simulator, **DEFAULT_GRAD_BUNDLE),
         f"the default configuration's imaging at {DEFAULT_GRAD_PX}^2 (K = {kg[0]}; PSF bundle "
         f"{DEFAULT_GRAD_BUNDLE})")
-    launches = tuple(sum(c[i] for c in per_step) for i in range(6))
+    launches = tuple(sum(c[i] for c in per_step) for i in range(8))
     return launches, walls, grad
 
 
@@ -4711,7 +4743,8 @@ def fft_entries(wide_errs, wide_launches, train, ms, bounds, crossover, rates):
                                          "crossover_ms": crossover}),
         entry("dpsf", "dpsf", launches[5], {
             "image_training_default_2048_launches": dict(zip(
-                ("k1_fwd", "k1_bwd", "p2", "p2_fft", "p2_dpsf", "p2_dpsf_fft"), launches)),
+                ("k1_fwd", "k1_bwd", "p2", "p2_fft", "p2_dpsf", "p2_dpsf_fft", "s1_fwd",
+                 "s1_bwd"), launches)),
             "image_training_default_2048_step_ms": walls,
             "image_grad_1448_rel_err": grad[0], "image_grad_1448_cosine": grad[1]}),
     ]
@@ -4786,12 +4819,16 @@ def ptxas_summary(path):
                           "k3_fwd_kernel", "k3_bwd_kernel", "k4_fwd_kernel", "k4_bwd_kernel",
                           "partials_reduce", "p2_svola_kernel", "p2_dpsf_kernel",
                           "p2_dpsf_reduce", "fft_rows_fwd", "fft_cols", "fft_rows_inv",
-                          "p1_chain_kernel"):
+                          "p1_chain_kernel", "s1_fwd_kernel", "s1_fwd_reduce", "s1_bwd_kernel",
+                          "s1_bwd_bins"):
                 if short in raw:
-                    # The template arguments of the mangled name: I L<type><value>E ... E.
-                    args = re.match(r"I((?:L[a-z]+\d+E)+)E", raw[raw.index(short) + len(short):])
+                    # The template arguments of the mangled name: I L<type><value>E ... E,
+                    # or a type (S1's IfE, IdE).
+                    tail = raw[raw.index(short) + len(short):]
+                    args = re.match(r"I((?:L[a-z]+\d+E)+)E", tail)
+                    kind = {"IfE": "<float>", "IdE": "<double>"}.get(tail[:3], "")
                     name = short + ("<" + ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1)))
-                                    + ">" if args else "")
+                                    + ">" if args else kind)
         elif name and "stack frame" in line:
             frame = line.strip()
         elif name and "Used" in line and "registers" in line:
@@ -5286,15 +5323,17 @@ def phase_analysis(torch, zoo, modules, card):
     ``torch.cuda.synchronize()``). Returns ({call: {kernel entry:
     launches}}, {call: ms})."""
     from torchoptics_tpu_torch import analysis, trace
-    from torchoptics_tpu_torch.ops import metrics, vignetting
+    from torchoptics_tpu_torch.ops import metrics, psf, vignetting
     counters = opl_counters(*modules)
-    launches, walls, calls = {}, {}, {}
+    launches, walls, calls, splats = {}, {}, {}, {}
 
     def counted(name, fn):
         reset_launches(counters)
+        psf.SPLAT_LAUNCHES = psf.SPLAT_BWD_LAUNCHES = 0
         out = fn()
         torch.cuda.synchronize()
         launches[name] = read_launches(counters)
+        splats[name] = (psf.SPLAT_LAUNCHES, psf.SPLAT_BWD_LAUNCHES)
         calls[name] = fn
         return out
 
@@ -5469,6 +5508,11 @@ def phase_analysis(torch, zoo, modules, card):
                     if name == "diffraction_mtf":
                         entry += "_opl"
                     per_entry.setdefault(entry, {})[name] = n
+    # S1 (the PSF splat) under each call that splats PSFs.
+    for name, counts in splats.items():
+        for entry, n in zip(("s1_fwd", "s1_bwd"), counts):
+            if n:
+                per_entry.setdefault(entry, {})[name] = n
     print(json.dumps({"analysis_walls_ms": {k: round(v, 3) for k, v in walls.items()},
                       "launches": per_entry, "gaps": gap, "card": card}), flush=True)
     return per_entry, walls
@@ -6103,6 +6147,352 @@ def phase_examples(torch, card, verbose=False):
     return per_entry
 
 
+# Kernel S1, the PSF splat (csrc/psf_splat_fwd.cu, csrc/psf_splat_bwd.cu).
+S1_FWD_SOURCE = "torchoptics_tpu_torch/csrc/psf_splat_fwd.cu"
+S1_BWD_SOURCE = "torchoptics_tpu_torch/csrc/psf_splat_bwd.cu"
+TPU_S1 = ("torchoptics_tpu/ops/psf.py:75 (the splat's broadcast, which XLA fuses into its sum "
+          "over rays; no Pallas kernel)")
+# Phase 43's cases (``splat_cases``), in order.
+SPLAT_CASES = ("default config (21 x 3 pairs, 65 x 33, 65,536 rays)", "W = 4, one-hot weights",
+               "even grid 48 x 64", "non-square grid 33 x 65", "auto extent (increment=None)",
+               "a NaN ray", "an inf ray", "float64", "1,037 rays (no multiple of the chunk)")
+
+
+def capture_splat(torch, psf, call):
+    """Run ``call`` with ``psf.splat`` recording a copy of the arguments of
+    its first call. Returns (call's result, the arguments)."""
+    record, splat = [], psf.splat
+
+    def spy(*args):
+        if not record:
+            record.append(tuple(None if a is None else a.detach().clone() for a in args))
+        return splat(*args)
+    psf.splat = spy
+    try:
+        out = call()
+    finally:
+        psf.splat = splat
+    return out, record[0]
+
+
+def seeded_spots(torch, shape, seed, dtype=None, scale=0.02):
+    """Seeded spot coordinates (x, y) on the card, from numpy: y about 0.5."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, scale, shape)
+    y = rng.normal(0.0, scale, shape) + 0.5
+    dtype = dtype or torch.float32
+    return (torch.tensor(x, dtype=dtype, device="cuda"),
+            torch.tensor(y, dtype=dtype, device="cuda"))
+
+
+def splat_cases(torch, zoo, simulator, imaging, psf):
+    """S1's inputs, {label: (args, bins, weights_grad)}: the default
+    configuration's own splat (the double-Gauss traced on K1: 21 fields x 3
+    channels, 65 x 33 half grid, 65,536 rays), and seeded ones: W = 4 (one-hot
+    weights, d/dw too), an even and a non-square grid, the auto extent
+    (increment=None: d/dgx, d/dgy, d/dsigma), a NaN ray, an inf ray,
+    float64, and rays no multiple of the chunk."""
+    cases = {}
+    cfg = default_imaging_config(simulator)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    with torch.no_grad():
+        _, args = capture_splat(torch, psf, lambda: imaging.sample_optics_model(specs, lens, cfg))
+    cases["default config (21 x 3 pairs, 65 x 33, 65,536 rays)"] = (args, False, False)
+    x, y = seeded_spots(torch, (1, 9, 2048, 4), 1)
+    yc = torch.linspace(0.45, 0.55, 9, device="cuda")
+    _, args = capture_splat(torch, psf, lambda: psf.sample_psfs(x, y, yc, (65, 65), 4e-3))
+    cases["W = 4, one-hot weights"] = (args, False, True)
+    for label, n_bins, seed in (("even grid 48 x 64", (48, 64), 2),
+                                ("non-square grid 33 x 65", (33, 65), 3)):
+        x, y = seeded_spots(torch, (2, 5, 3, 3000), seed)
+        _, args = capture_splat(torch, psf, lambda: psf.compute_psf(x, y, n_bins, 3e-3))
+        cases[label] = (args, False, False)
+    x, y = seeded_spots(torch, (2, 4, 3, 2500), 4)
+    _, args = capture_splat(torch, psf, lambda: psf.compute_psf(x, y, (21, 21), None))
+    cases["auto extent (increment=None)"] = (args, True, False)
+    for label, seed in (("a NaN ray", 5), ("an inf ray", 6)):
+        x, y = seeded_spots(torch, (1, 4, 3, 2000), seed)
+        if label == "a NaN ray":
+            x[0, 1, 2, 7] = float("nan")
+        else:
+            y[0, 2, 0, 11] = float("inf")
+        _, args = capture_splat(torch, psf, lambda: psf.compute_psf(x, y, (33, 33), 4e-3))
+        cases[label] = (args, False, False)
+    x, y = seeded_spots(torch, (1, 6, 3, 5000), 7, torch.float64)
+    _, args = capture_splat(torch, psf, lambda: psf.compute_psf(x, y, (65, 65), 4e-3))
+    cases["float64"] = (args, False, False)
+    x, y = seeded_spots(torch, (2, 3, 3, 1037), 8)
+    _, args = capture_splat(torch, psf, lambda: psf.compute_psf(x, y, (17, 17), 5e-3))
+    cases["1,037 rays (no multiple of the chunk)"] = (args, False, False)
+    check(tuple(cases) == SPLAT_CASES, f"phase 43's cases are SPLAT_CASES: {tuple(cases)}")
+    return cases
+
+
+def bits_gap(torch, got, want):
+    """(bit-identical, NaN where the other is NaN; largest |got - want| over
+    the finite entries; entries that differ)."""
+    nan = torch.isnan(want)
+    diff = (got != want) & ~(nan & torch.isnan(got))
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    gap = float((got[fin].double() - want[fin].double()).abs().max()) if bool(fin.any()) else 0.0
+    return same_bits(got, want), gap, int(diff.sum())
+
+
+def splat_compare(torch, psf, label, args, bins, weights_grad, seed):
+    """S1 forward and adjoint against their plain versions on the card, the
+    counts set to 0 before and read after. Returns {output: (same, gap,
+    n_diff)} and the launches (forward, adjoint)."""
+    psf.SPLAT_LAUNCHES = psf.SPLAT_BWD_LAUNCHES = 0
+    got = psf._launch_splat(*args)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cot = torch.randn(got.shape, generator=gen, device="cuda", dtype=got.dtype)
+    got_b = psf._launch_splat_bwd(*args, cot, bins, weights_grad)
+    torch.cuda.synchronize()
+    launches = (psf.SPLAT_LAUNCHES, psf.SPLAT_BWD_LAUNCHES)
+    want = psf.splat_reference(*args)
+    want_b = psf.splat_backward_reference(*args, cot, bins, weights_grad)
+    out = {"half": bits_gap(torch, got, want)}
+    for name, a, b in zip(("dx", "dy", "dgx", "dgy", "dsigma_x", "dsigma_y", "dweights"),
+                          got_b, want_b):
+        if b is not None:
+            out[name] = bits_gap(torch, a, b)
+    x = args[0]
+    print(f"S1 {label}: rays {tuple(x.shape)} {str(x.dtype)[6:]}, half grid "
+          f"{args[3].shape[1]} x {args[2].shape[1]}, weights {args[6] is not None}: "
+          + "; ".join(f"{k} bit-identical={v[0]} (max |diff| {v[1]:.3e}, {v[2]} differ)"
+                      for k, v in out.items())
+          + f"; launches (forward, adjoint) {launches}", flush=True)
+    return out, launches
+
+
+def s1_bound(args, backward, bins=False):
+    """(bound_ms, bound_by, operations, bytes) of S1 forward or its adjoint on
+    ``args``: a product and a sum per ray and bin (the adjoint's A and B: two
+    each; with bins, two more), 6 operations a factor (a difference, a
+    square, a division, a negation, a halving, an exp), the weight's product
+    a ray and row; the adjoint's terms 6 a ray and bin of either axis; the
+    bytes of the inputs read once and the outputs written once."""
+    x, y, gx, gy, sx, sy, w = args
+    g, C, R = x.shape
+    ny, nx = gy.shape[1], gx.shape[1]
+    pairs, b = g * C, x.element_size()
+    products = pairs * R * ny * nx
+    factors = pairs * R * (nx + ny)
+    rays_in = pairs * R * (2 + (w is not None))
+    grids = g * (nx + ny + 2)
+    if backward:
+        ops = (4 + (2 if bins else 0)) * products + 6 * factors + 6 * factors
+        nbytes = b * (rays_in + pairs * ny * nx + grids + 2 * pairs * R + (grids if bins else 0))
+    else:
+        ops = 2 * products + 6 * factors + (pairs * R * ny if w is not None else 0)
+        nbytes = b * (rays_in + grids + pairs * ny * nx)
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops,
+            nbytes)
+
+
+def splat_library(torch, args, cot):
+    """The separable product as PyTorch calls on the same inputs, TF32 off:
+    the forward as one ``torch.einsum`` of the factors (materialised
+    beforehand, 1.6 GB at the default configuration), and the adjoint's two
+    contractions A and B. Returns {key: ms}."""
+    x, y, gx, gy, sx, sy, w = args
+    ex = torch.exp(-(((x[:, :, None, :] - gx[:, None, :, None]) ** 2)
+                     / (sx * sx)[:, None, None, None]) / 2)
+    ey = torch.exp(-(((y[:, :, None, :] - gy[:, None, :, None]) ** 2)
+                     / (sy * sy)[:, None, None, None]) / 2)
+    exw = ex if w is None else ex * w[:, :, None, :]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return {"fwd": auto_ms(torch, lambda: torch.einsum("gcyr,gcxr->gcyx", ey, exw)),
+                "bwd": auto_ms(torch, lambda: (torch.einsum("gcyx,gcyr->gcxr", cot, ey),
+                                               torch.einsum("gcyx,gcxr->gcyr", cot, ex)))}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def splat_memory(torch, card, profiled=True):
+    """The default configuration's 2048^2 render and one image-loss
+    ``LensOptimizer.step`` (the double-Gauss defocused 0.3 mm): each call's
+    ``torch.cuda.max_memory_allocated`` (after ``reset_peak_memory_stats``,
+    beside what was allocated before it) and host wall (median of 5 after
+    one warm-up); the step's largest single allocations, with the port's
+    innermost line that asked for each (``torch.cuda.memory`` history of
+    one step); with ``profiled``, the step's torch.profiler split
+    (``profile_steps``). Imports the port from ``sys.path`` (any tree)."""
+    from torchoptics_tpu_torch import LensOptimizer, imaging, simulator, zoo
+    cfg = default_imaging_config(simulator)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    rad = torch.tensor(photograph(DEFAULT_TRAIN_PX)[None], device="cuda")
+    opt, state = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, "cuda",
+                                 DEFAULT_TRAIN_PX, cfg)
+    box = [state]
+
+    def step():
+        box[0] = opt.step(box[0])[0]
+    out = {"card": card}
+    for name, fn in (("render", lambda: render(torch, imaging, specs, lens, rad, cfg)),
+                     ("step", step)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out[f"{name}_before_bytes"] = before
+        out[f"{name}_wall_ms"] = host_ms(torch, fn, runs=5, warmup=1)
+    torch.cuda.memory._record_memory_history(max_entries=200_000, stacks="python")
+    step()
+    torch.cuda.synchronize()
+    snapshot = torch.cuda.memory._snapshot()
+    torch.cuda.memory._record_memory_history(enabled=None)
+    allocs = [t for trace in snapshot["device_traces"] for t in trace if t["action"] == "alloc"]
+    largest = []
+    for t in sorted(allocs, key=lambda t: -t["size"])[:8]:
+        frames = [f for f in t.get("frames", []) if "torchoptics_tpu_torch" in f["filename"]]
+        where = (f"{frames[0]['filename'].split('torchoptics_tpu_torch/')[-1]}:{frames[0]['line']} "
+                 f"{frames[0]['name']}" if frames else "outside the port")
+        largest.append([t["size"], where])
+    out["step_largest_allocations"] = largest
+    gb = lambda v: v / 1e9
+    if profiled:
+        wall, busy, groups = profile_steps(
+            torch, f"image-loss LensOptimizer.step, default configuration at "
+            f"{DEFAULT_TRAIN_PX}^2", step, card, n_steps=3)
+        out.update(step_profile_wall_ms=wall, step_busy_ms=busy, step_busy_share=busy / wall,
+                   step_groups_ms=groups)
+    print(f"memory: default configuration at {DEFAULT_TRAIN_PX}^2: render peak "
+          f"{gb(out['render_peak_bytes']):.3f} GB (allocated before "
+          f"{gb(out['render_before_bytes']):.3f}), wall {out['render_wall_ms']:.2f} ms; "
+          f"image-loss step peak {gb(out['step_peak_bytes']):.3f} GB (before "
+          f"{gb(out['step_before_bytes']):.3f}), wall {out['step_wall_ms']:.2f} ms; the step's "
+          f"largest allocations (GB, the port's line): "
+          f"{[(round(gb(m), 3), w) for m, w in largest]}; card: {card}", flush=True)
+    return out
+
+
+def splat_memory_turns(trees, card):
+    """``splat_memory`` of each tree given and of this checkout, one process
+    each, one after another; every tree's kernels built first, all at once."""
+    here = str(Path(__file__).resolve().parent)
+    roots = [str(Path(t).resolve()) for t in trees] + [here]
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); "
+             "from torchoptics_tpu_torch.ops import _kernels; print(_kernels.build())")
+    builds = [subprocess.Popen([sys.executable, "-c", build, root], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True) for root in roots]
+    for root, proc in zip(roots, builds):
+        text = proc.communicate()[0]
+        check(proc.returncode == 0, f"kernel build of {root}: exit {proc.returncode}\n"
+              + text[-4000:])
+    out = {}
+    for root in roots:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--splat-memory-of",
+                               root], capture_output=True, text=True, timeout=900)
+        print(proc.stdout[-6000:], flush=True)
+        check(proc.returncode == 0, f"splat memory of {root}: exit {proc.returncode}\n"
+              + proc.stderr[-4000:])
+        out[root] = json.loads(proc.stdout.strip().splitlines()[-1])
+    return out
+
+
+def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
+    """Phase 43: kernel S1 (the PSF splat), forward and adjoint, against its
+    plain versions on the card (``splat_cases``), bit for bit, one launch of
+    each a call; a CUDA-tensor ``compute_psf`` under grad launches S1 both
+    ways and never a plain version; timings at the default configuration's
+    splat (CUDA events: S1, its plain versions, the PyTorch contractions);
+    the default configuration's 2048^2 render and image-loss step's memory,
+    walls and largest allocations, and with ``profiled`` its profile
+    (``splat_memory``). Returns the numbers for the kernels line."""
+    cases = splat_cases(torch, zoo, simulator, imaging, psf)
+    results, worst = {}, {"fwd": 0.0, "bwd": 0.0}
+    for n, (label, (args, bins, weights_grad)) in enumerate(cases.items()):
+        out, launches = splat_compare(torch, psf, label, args, bins, weights_grad, 100 + n)
+        results[label] = (out, launches)
+        worst["fwd"] = max(worst["fwd"], out["half"][1])
+        worst["bwd"] = max([worst["bwd"]] + [v[1] for k, v in out.items() if k != "half"])
+    bad = {label: [k for k, v in out.items() if not v[0]] for label, (out, launches)
+           in results.items() if not all(v[0] for v in out.values()) or launches != (1, 1)}
+    check(not bad, f"S1 forward and adjoint bit for bit with their plain versions, one launch "
+          f"each, on {len(cases)} cases; differing: {bad}")
+    reference, backward_reference = psf.splat_reference, psf.splat_backward_reference
+
+    def refuse(*_):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    psf.splat_reference = psf.splat_backward_reference = refuse
+    try:
+        psf.SPLAT_LAUNCHES = psf.SPLAT_BWD_LAUNCHES = 0
+        xs, ys = seeded_spots(torch, (2, 4, 3, 2500), 4)
+        xs, ys = xs.requires_grad_(), ys.requires_grad_()
+        kernels = psf.compute_psf(xs, ys, (21, 21), None)[3]
+        grads = torch.autograd.grad((kernels * kernels).sum(), (xs, ys))
+        torch.cuda.synchronize()
+        launches = (psf.SPLAT_LAUNCHES, psf.SPLAT_BWD_LAUNCHES)
+    finally:
+        psf.splat_reference, psf.splat_backward_reference = reference, backward_reference
+    check(launches == (1, 1) and all(bool(torch.isfinite(g).all()) for g in grads),
+          f"compute_psf on CUDA tensors under grad (increment=None): S1 launches (forward, "
+          f"adjoint) {launches} (expected (1, 1)), no plain version ran, gradients finite")
+
+    args = cases["default config (21 x 3 pairs, 65 x 33, 65,536 rays)"][0]
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    half = psf._launch_splat(*args)
+    cot = torch.randn(half.shape, generator=gen, device="cuda")
+    ms = {"s1_fwd": auto_ms(torch, lambda: psf._launch_splat(*args)),
+          "s1_bwd": auto_ms(torch, lambda: psf._launch_splat_bwd(*args, cot, False, False)),
+          "plain_fwd": auto_ms(torch, lambda: psf.splat_reference(*args), budget_ms=300.0),
+          "plain_bwd": auto_ms(torch, lambda: psf.splat_backward_reference(*args, cot),
+                               budget_ms=300.0)}
+    library = splat_library(torch, args, cot)
+    bounds = {"fwd": s1_bound(args, False), "bwd": s1_bound(args, True)}
+    g, C, R = args[0].shape
+    span = psf.splat_span(R, g * C)
+    workspace = g * C * -(-R // span) * args[3].shape[1] * args[2].shape[1] * 8
+    for what in ("fwd", "bwd"):
+        b, t = bounds[what], ms[f"s1_{what}"]
+        print(f"time S1 {'forward' if what == 'fwd' else 'adjoint'} at the default "
+              f"configuration's splat {tuple(args[0].shape)} on 65 x 33: {t:.4f} ms (plain "
+              f"{ms[f'plain_{what}']:.2f} ms; PyTorch contractions {library[what]:.4f} ms, TF32 "
+              f"off); bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations, {b[3] / 1e6:.2f} MB), "
+              f"{b[0] / t:.3f} of it reached; forward workspace {workspace / 1e6:.1f} MB; "
+              f"card: {card}", flush=True)
+    memory = splat_memory(torch, card, profiled)
+    return {"results": results, "worst": worst, "ms": ms, "library": library,
+            "bounds": bounds, "workspace_bytes": workspace, "memory": memory}
+
+
+def s1_entries(splat, train_launches, resources=()):
+    """S1's entries of the kernels line: forward (``s1_fwd``) and adjoint
+    (``s1_bwd``) at the default configuration's splat, ``launches`` counting
+    the main path's run (phase 39's image-loss steps at the default
+    configuration)."""
+    out = []
+    for what, source in (("fwd", S1_FWD_SOURCE), ("bwd", S1_BWD_SOURCE)):
+        b = splat["bounds"][what]
+        out.append({
+            "name": f"s1_{what}", "route": "cuda", "source": source, "replaces": TPU_S1,
+            "launches": train_launches[0 if what == "fwd" else 1],
+            "max_abs_err": splat["worst"][what], "ms": splat["ms"][f"s1_{what}"],
+            "plain_ms": splat["ms"][f"plain_{what}"], "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": splat["library"]["fwd"] if what == "fwd" else None,
+            "library_ms_contractions": splat["library"][what],
+            "bound_share": b[0] / splat["ms"][f"s1_{what}"],
+            "workspace_bytes": splat["workspace_bytes"] if what == "fwd" else 0,
+            "cases_bit_identical": {label: all(v[0] for v in out_.values())
+                                    for label, (out_, _) in splat["results"].items()},
+            "default_2048_memory": {k: v for k, v in splat["memory"].items()
+                                    if k != "step_groups_ms"}})
+        # The main kernel's registers and spills (float32), from -Xptxas -v.
+        for line in resources:
+            if line.startswith(f"s1_{what}_kernel<float>"):
+                out[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+                out[-1]["spill_bytes"] = [int(v) for v in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", line)]
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6123,13 +6513,24 @@ def main():
         print(json.dumps({"kernel_turns": kernel_turns(args[args.index("--kernel-turns") + 1:],
                                                        card_line(), families)}))
         return 0
+    if "--splat-memory-of" in args:
+        sys.path.insert(0, args[args.index("--splat-memory-of") + 1])
+        from torchoptics_tpu_torch.ops import _kernels
+        _kernels.load()
+        print(json.dumps(splat_memory(torch, card_line())))
+        return 0
+    if "--splat-memory" in args:
+        print(json.dumps({"splat_memory": splat_memory_turns(
+            args[args.index("--splat-memory") + 1:], card_line())}))
+        return 0
     if "--kernel-times" in args:
         print(json.dumps(kernel_times(torch, args[args.index("--kernel-times") + 1],
                                       card_line(), families)))
         return 0
     from torchoptics_tpu_torch import LensOptimizer, OpticalLoss, entry, imaging, simulator, zoo
     from torchoptics_tpu_torch.benchmarks import issue_peak
-    from torchoptics_tpu_torch.ops import _kernels, fused_asphere, fused_batch, fused_trace, image
+    from torchoptics_tpu_torch.ops import (_kernels, fused_asphere, fused_batch, fused_trace, image,
+                                           psf)
 
     card = card_line()
     print(f"card: {card} (nvidia-smi name, power.limit); "
@@ -6181,6 +6582,10 @@ def main():
         return 0
     if "--examples" in sys.argv[1:]:
         phase_examples(torch, card, verbose=True)
+        return 0
+    if "--splat" in sys.argv[1:]:
+        splat = phase_splat(torch, zoo, simulator, imaging, psf, card)
+        print(json.dumps({"kernels": s1_entries(splat, (None, None), resources)}))
         return 0
     if "--default-image-training" in sys.argv[1:]:
         print(json.dumps({"default_image_training": phase_default_image_training(
@@ -6252,7 +6657,7 @@ def main():
     entries += imaging_entries(p2_err, p2_launches[1], img_ms, p2_b, walls, p1, p1[0])
     # Phase 37's timings of the route and of the adjoint run right after
     # phases 33 and 34, so that their inputs are freed before the default
-    # configuration's training (its splat holds two 35 GB tensors).
+    # configuration's training.
     wide_errs, wide_inputs, wide_launches = phase_p2_wide(torch, zoo, simulator, imaging, image,
                                                           fused_trace)
     fft_ms, fft_bounds = phase_fft_timing(torch, image, wide_inputs, card)
@@ -6271,11 +6676,14 @@ def main():
                                           card)
     parallel_launches = phase_parallel(torch, card)
     example_launches = phase_examples(torch, card)
+    torch.cuda.empty_cache()
+    splat = phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=False)
     entries.append(adjoint_entry(adjoint, train_launches, adj_ms, adj_bound))
     crossover = phase_p2_crossover(torch, image, render_inputs(
         torch, zoo, simulator, imaging, image, CROSSOVER_RENDERS), card)
     entries += fft_entries(wide_errs, wide_launches, default_train, fft_ms, fft_bounds,
                            crossover, p1[0])
+    entries += s1_entries(splat, default_train[0][6:8], resources)
     add_issue_bounds(entries, p1[0], {"k1": shape, "k2": k2_shape, "k3": k3_shape,
                                       "k4": k4_shape,
                                       **{f"opl_{k}": v for k, v in opl_shapes.items()}})

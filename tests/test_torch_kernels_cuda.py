@@ -40,7 +40,10 @@ adjoint: d/dpsf (from ``P2_DPSF_FFT_MIN_KW`` taps the FFT route's
 correlation, within 1e-4 of the float64 one) and d/dpatch bit for bit with
 their routes' plain versions, the direct d/dpsf kernel alone at K = 1 to 22,
 and a backward launches d/dpatch only when the patches need it;
-P1's chains:
+S1, the PSF splat, forward and adjoint bit for bit with their plain
+versions on ``chip_smoke.SPLAT_CASES`` (the default configuration's own
+splat included), one launch each a call, and ``compute_psf`` on CUDA tensors
+launching S1 both ways and never a plain version; P1's chains:
 sqrt and div bit for bit with their plain versions, fma within one float32
 ulp a step, relative (``fmaf`` rounds once, the plain ``a * k1 + k2``
 twice); a small
@@ -1685,3 +1688,59 @@ def test_example_fused_matches_unroll_on_gpu(cuda, name, tmp_path):
     worst, gap, where = chip_smoke.compare_printouts(
         printed["fused"], printed["unroll"], lambda line, k, w: bar(line, k, w, strehl))
     assert worst <= 0.0, (gap, where)
+
+
+@pytest.fixture(scope="module")
+def splat_cases():
+    """``chip_smoke.splat_cases`` on the card: the default configuration's
+    splat (the double-Gauss traced on K1) and the seeded ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from torchoptics_tpu_torch import imaging
+    from torchoptics_tpu_torch.ops import psf
+    return chip_smoke.splat_cases(torch, zoo, simulator, imaging, psf)
+
+
+@pytest.mark.parametrize("label", chip_smoke.SPLAT_CASES)
+def test_s1_matches_plain_versions(cuda, splat_cases, label):
+    """S1 forward and adjoint (d/dx, d/dy; d/dweights with the one-hot
+    weights; d/dgx, d/dgy, d/dsigma with the auto extent) bit for bit with
+    ``splat_reference`` and ``splat_backward_reference``, NaN where theirs
+    is; one launch of each."""
+    from torchoptics_tpu_torch.ops import psf
+    args, bins, weights_grad = splat_cases[label]
+    out, launches = chip_smoke.splat_compare(torch, psf, label, args, bins, weights_grad,
+                                             chip_smoke.SPLAT_CASES.index(label))
+    assert launches == (1, 1)
+    assert all(v[0] for v in out.values()), out
+
+
+def test_compute_psf_launches_s1_and_no_plain_version(cuda, monkeypatch):
+    """On CUDA tensors under grad, ``compute_psf`` runs S1 forward and its
+    adjoint (with the per-bin sums: the auto extent), never a plain version;
+    the library's limits are ``psf``'s."""
+    from torchoptics_tpu_torch.ops import _kernels, psf
+    lib = _kernels.load()
+    assert (lib.s1_max_ny(), lib.s1_max_nx(), lib.s1_chunk()) == (
+        psf.SPLAT_MAX_NY, psf.SPLAT_MAX_NX, psf.SPLAT_CHUNK)
+
+    def refuse(*_):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    monkeypatch.setattr(psf, "splat_reference", refuse)
+    monkeypatch.setattr(psf, "splat_backward_reference", refuse)
+    monkeypatch.setattr(psf, "SPLAT_LAUNCHES", 0)
+    monkeypatch.setattr(psf, "SPLAT_BWD_LAUNCHES", 0)
+    x, y = chip_smoke.seeded_spots(torch, (2, 4, 3, 700), 31)
+    x.requires_grad_()
+    y.requires_grad_()
+    kernels = psf.compute_psf(x, y, (21, 17), None)[3]
+    grads = torch.autograd.grad((kernels * kernels).sum(), (x, y))
+    torch.cuda.synchronize()
+    assert (psf.SPLAT_LAUNCHES, psf.SPLAT_BWD_LAUNCHES) == (1, 1)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    with pytest.raises(ValueError, match="half grids"):
+        psf.compute_psf(x.detach(), y.detach(), (2 * psf.SPLAT_MAX_NX + 2, 9), 1e-3)
+    with pytest.raises(ValueError, match="contiguous"):
+        psf._launch_splat(x.detach(), y.detach().double(), *[torch.zeros((2, n), device=cuda)
+                                                             for n in (3, 4)],
+                          torch.ones(2, device=cuda), torch.ones(2, device=cuda), None)

@@ -1,0 +1,156 @@
+"""Port parity for kernel S1's plain versions (``ops.psf``): the PSF splat
+and its hand adjoint, which ``compute_psf`` runs on CPU tensors.
+
+The same seeded spot coordinates go through the JAX package (eagerly, on
+the CPU) and the port. Forward: ``compute_psf`` on odd and even, square and
+non-square grids, a fixed pitch and the auto extent, with weights, with a
+NaN ray, in float64 (JAX's x64 in a scoped context) and with rays across a
+span boundary; bars rtol 1e-5 and atol 1e-6, as ``test_torch_psf.py``'s
+(the splat's exp rounds differently in the two libraries; the port sums in
+float64). Adjoint: the gradients of a seeded weighting of the kernels with
+respect to x, y and y_target (and, with the auto extent, through the grid's
+centres and widths) against ``jax.grad``, within 1e-4 of each gradient's
+largest magnitude in float32 and 1e-12 in float64 (measured: 3.8e-7 at a
+fixed pitch, 1.5e-5 with the auto extent; 1.2e-14 in float64);
+``_Splat`` under ``torch.autograd.gradcheck`` in float64, every input.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torchoptics_tpu.ops import psf as jpsf
+from torchoptics_tpu_torch.ops import psf
+
+
+def _spots(shape, seed=0, scale=0.02, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, scale, shape).astype(dtype)
+    y = (rng.normal(0.0, scale, shape) + 0.5).astype(dtype)
+    return x, y
+
+
+def _assert_close(got, want, rtol=1e-5, atol=1e-6):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("n_bins,increment", [((9, 9), 8e-3), ((8, 11), 6e-3),
+                                              ((9, 7), None)])
+def test_plain_splat_matches_jax(n_bins, increment):
+    """Odd and even grids, square and not, a fixed pitch and the auto extent:
+    ``compute_psf``'s outputs through the plain splat; its half kernels are
+    those of the eager 5-D formula in float64 within one float32 rounding."""
+    x, y = _spots((2, 3, 3, 40))
+    want = jpsf.compute_psf(jnp.asarray(x), jnp.asarray(y), n_bins=n_bins, increment=increment)
+    got = psf.compute_psf(torch.tensor(x), torch.tensor(y), n_bins=n_bins, increment=increment)
+    _assert_close(got, want)
+    assert got[3].shape == (6, 3, n_bins[1], n_bins[0])
+
+
+@pytest.mark.parametrize("case", ["weights", "nan ray", "span boundary"])
+def test_plain_splat_cases_match_jax(case):
+    """Per-ray weights (random, not one-hot); a NaN ray (its grid and
+    channel's kernel NaN in both); 5 x 3 grids of 1,100 rays, whose last
+    span (``splat_span``: 32 rays) ends short."""
+    shape = (1, 5, 3, 1100) if case == "span boundary" else (2, 3, 3, 40)
+    x, y = _spots(shape, seed=7)
+    kw = dict(n_bins=(9, 9), increment=8e-3)
+    w = None
+    if case == "weights":
+        w = np.random.default_rng(8).uniform(0.0, 1.0, (6, 3, 40)).astype(np.float32)
+    if case == "nan ray":
+        x[0, 1, 2, 7] = np.nan
+    if case == "span boundary":
+        span = psf.splat_span(shape[-1], 15)
+        assert shape[-1] % span and span % psf.SPLAT_CHUNK == 0
+    want = jpsf.compute_psf(jnp.asarray(x), jnp.asarray(y), weights=w, **kw)
+    got = psf.compute_psf(torch.tensor(x), torch.tensor(y),
+                          weights=None if w is None else torch.tensor(w), **kw)
+    if case == "nan ray":
+        assert bool(torch.isnan(got[3][1, 2]).all()) and int(torch.isnan(got[3]).sum()) == 81
+    for g, wv in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wv), rtol=1e-5, atol=1e-6,
+                                   equal_nan=True)
+
+
+def test_plain_splat_matches_jax_in_float64():
+    x, y = _spots((1, 4, 3, 300), seed=9, dtype=np.float64)
+    with jax.enable_x64(True):
+        want = jpsf.compute_psf(jnp.asarray(x), jnp.asarray(y), n_bins=(17, 13), increment=4e-3)
+        want = [np.asarray(w) for w in want]
+    got = psf.compute_psf(torch.tensor(x), torch.tensor(y), n_bins=(17, 13), increment=4e-3)
+    assert got[3].dtype == torch.float64
+    _assert_close(got, want, rtol=1e-12, atol=1e-14)
+
+
+def _grads_jax(x, y, yt, weight, n_bins, increment):
+    def loss(x, y, yt):
+        return jnp.sum(jpsf.compute_psf(x, y, n_bins=n_bins, increment=increment,
+                                        y_target=yt)[3] * weight)
+    argnums = (0, 1) if yt is None else (0, 1, 2)
+    return [np.asarray(g) for g in jax.grad(loss, argnums=argnums)(x, y, yt)]
+
+
+def _grads_port(x, y, yt, weight, n_bins, increment):
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, y, yt) if a is not None]
+    ytt = leaves[2] if yt is not None else None
+    k = psf.compute_psf(leaves[0], leaves[1], n_bins=n_bins, increment=increment, y_target=ytt)[3]
+    return [g.numpy() for g in torch.autograd.grad((k * torch.tensor(weight)).sum(), leaves)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n_bins,increment,y_target", [((9, 9), 8e-3, True),
+                                                       ((8, 11), None, False)])
+def test_splat_adjoint_matches_jax_grad(n_bins, increment, y_target, dtype):
+    """The hand adjoint (``splat_backward_reference``, through ``_Splat``)
+    against ``jax.grad`` of JAX's ``compute_psf``: d/dx, d/dy and d/dy_target
+    at a fixed pitch; d/dx and d/dy with the auto extent, whose grid centres
+    and widths follow the data (the adjoint's per-bin sums)."""
+    x, y = _spots((2, 3, 3, 64), seed=11, dtype=dtype)
+    yt = np.linspace(0.48, 0.52, 6).astype(dtype) if y_target else None
+    weight = np.random.default_rng(12).normal(size=(6, 3, n_bins[1], n_bins[0])).astype(dtype)
+    if dtype == np.float64:
+        with jax.enable_x64(True):
+            want = _grads_jax(jnp.asarray(x), jnp.asarray(y),
+                              None if yt is None else jnp.asarray(yt), weight, n_bins, increment)
+        bar = 1e-12
+    else:
+        want = _grads_jax(jnp.asarray(x), jnp.asarray(y), None if yt is None else jnp.asarray(yt),
+                          weight, n_bins, increment)
+        bar = 1e-4
+    got = _grads_port(x, y, yt, weight, n_bins, increment)
+    assert len(got) == len(want) == (3 if y_target else 2)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and np.all(np.isfinite(g))
+        assert np.abs(g - w).max() <= bar * np.abs(w).max()
+
+
+@pytest.mark.parametrize("weights", [False, True])
+def test_splat_function_gradcheck(weights):
+    """``_Splat`` on CPU tensors in float64: the hand adjoint against finite
+    differences of the plain forward, in every input (the grid's centres and
+    widths, and the weights, included); 2 x 37 rays, two spans each."""
+    rng = np.random.default_rng(13)
+    g, C, R, ny, nx = 2, 1, 37, 4, 3
+    t = lambda a: torch.tensor(a, dtype=torch.float64, requires_grad=True)
+    x = t(rng.normal(0.0, 0.01, (g, C, R)))
+    y = t(rng.normal(0.0, 0.01, (g, C, R)))
+    gx = t(np.tile(np.arange(nx) * 0.008, (g, 1)))
+    gy = t(np.tile((np.arange(ny) - 2) * 0.008, (g, 1)))
+    sx, sy = t(np.full(g, 0.004)), t(np.full(g, 0.005))
+    w = t(rng.uniform(0.0, 1.0, (g, C, R))) if weights else None
+    assert psf.splat_span(R, g * C) < R
+    assert torch.autograd.gradcheck(psf._Splat.apply, (x, y, gx, gy, sx, sy, w))
+
+
+def test_splat_refuses_other_devices_and_grids():
+    x = torch.zeros((1, 1, 4))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        psf.splat(x.to("meta"), x.to("meta"), torch.zeros((1, 2), device="meta"),
+                  torch.zeros((1, 3), device="meta"), torch.ones(1, device="meta"),
+                  torch.ones(1, device="meta"))
+    assert psf.splat_argument_error((1, 1, 4), (1, psf.SPLAT_MAX_NX + 1), (1, 3))
+    assert psf.splat_argument_error((1, 1, 4), (1, 2), (1, psf.SPLAT_MAX_NY)) is None

@@ -197,8 +197,9 @@ def sample_optics_model(specs: Specs, lens: Lens, config: sim_mod.SimulatorConfi
     illumination at ``config.n_sampled_fields`` field values.
 
     ``config.psf_source`` selects the PSF physics: ``'geometric'`` (the ray
-    splat of :func:`ops.psf.sample_psfs`; with ``trace_engine='fused'`` the
-    bundle is one launch of kernel K1's plain mode) or ``'diffraction'``
+    splat of :func:`ops.psf.sample_psfs`, one launch of kernel S1 on the
+    card; with ``trace_engine='fused'`` the bundle is one launch of kernel
+    K1's plain mode) or ``'diffraction'``
     (the pupil-function transform; K1's opl mode through ``opd_map``)."""
     cfg = config.trace_config()
     n_fields = len(cfg.rel_fields)

@@ -143,8 +143,17 @@ def load() -> ctypes.CDLL:
     # P1: x, scale, k1, k2, iters, n, op, out, the stream.
     lib.p1_chain_launch.argtypes = [p, p, f, f, i, i, i, p, p]
     lib.p2_svola_launch.restype = lib.p2_dpsf_launch.restype = lib.p1_chain_launch.restype = i
+    # S1, the PSF splat: x, y, gx, gy, sigma_x, sigma_y, weights (or null),
+    # partials, out, n_grids, n_ch, n_rays, n_y, n_x, span, float64, the
+    # stream; its adjoint: the same inputs, the cotangent, dx, dy, dweights
+    # (or null), the bins' partials, dgx, dgy, dsigma_x, dsigma_y (null
+    # without bins), the sizes, float64, bins, the stream.
+    lib.s1_fwd_launch.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.s1_bwd_launch.argtypes = [p] * 16 + [i] * 8 + [p]
+    lib.s1_fwd_launch.restype = lib.s1_bwd_launch.restype = i
     for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block", "k3_max_asph", "p2_max_kw",
-                 "p2_dpsf_max_kw", "p2_fft_max_len", "p2_fft_launches"):
+                 "p2_dpsf_max_kw", "p2_fft_max_len", "p2_fft_launches", "s1_max_ny",
+                 "s1_max_nx", "s1_chunk"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     for name in ("k1_fwd_specialized", "k2_fwd_specialized", "k2_bwd_specialized",

@@ -4,6 +4,18 @@ PyTorch counterpart of ``torchoptics_tpu.ops.psf``: the soft-histogram PSF.
 Rays are splatted onto a pixel grid with a Gaussian of sigma = pixel / 2,
 the x half is mirrored (lens systems are meridionally symmetric), and each
 kernel is normalized to unit area. Differentiable.
+
+The splat itself, the sum over rays of a separable Gaussian on the half grid,
+is kernel S1, hand-written in CUDA C++ (``csrc/psf_splat_fwd.cu``, its
+adjoint ``csrc/psf_splat_bwd.cu``), reached through :func:`splat`. The JAX
+package writes it as a (grids, channels, n_y, n_x/2, rays) broadcast that XLA
+fuses into the sum, so the Gaussian never exists in memory; run eagerly, the
+same lines would hold it (8.86e9 values at the default ``SimulatorConfig``,
+twice with autograd). On CPU
+tensors :func:`splat` runs the plain versions, :func:`splat_reference` and
+:func:`splat_backward_reference`, which sum in the kernels' order and hold
+no more than a few ray positions' terms at a time; on the GPU they are what
+the kernels are checked against.
 """
 
 from __future__ import annotations
@@ -12,6 +24,328 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
+
+#: Launches of S1's forward kernel in this process: one a splat (the second
+#: pass that sums the spans' partials is not counted). Reset it to 0 to count
+#: the launches of one run.
+SPLAT_LAUNCHES = 0
+#: Launches of S1's adjoint kernel: one a backward (the second pass of the
+#: per-bin sums, launched only when the grid's centres or widths need a
+#: gradient, is not counted).
+SPLAT_BWD_LAUNCHES = 0
+
+#: Rays a block of S1 stages at a time; a span is a multiple of it.
+SPLAT_CHUNK = 32
+#: The blocks a splat aims at, (grid, channel) pairs times spans a pair: enough
+#: to fill an H100's 132 SMs several times over.
+SPLAT_BLOCKS = 1024
+#: The largest half grid S1 takes: n_y rows and n_x/2 columns (a PSF grid up
+#: to 129 x 129 or 129 x 130).
+SPLAT_MAX_NY, SPLAT_MAX_NX = 129, 65
+
+
+def splat_span(n_rays: int, n_pairs: int) -> int:
+    """Rays a span: each (grid, channel) pair's rays are cut into spans of
+    this many, a multiple of ``SPLAT_CHUNK``, so that pairs x spans is about
+    ``SPLAT_BLOCKS``. A span's rays are summed in order (one block of S1),
+    then the spans' sums in order; the plain versions cut the rays alike."""
+    per = -(-int(n_rays) * int(n_pairs) // SPLAT_BLOCKS)
+    return max(1, -(-per // SPLAT_CHUNK)) * SPLAT_CHUNK
+
+
+def _gauss(v: torch.Tensor, centres: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """exp(-(((v - c)^2) / s2) / 2), each operation rounded in v's type, in the
+    JAX formula's order: v (..., 1) against the centres (..., n)."""
+    d = v - centres
+    return torch.exp(-((d * d) / s2) / 2)
+
+
+def _spans(a: torch.Tensor, span: int, n_spans: int) -> torch.Tensor:
+    """(g, C, R) -> (g, C, n_spans, span), the tail padded with zeros."""
+    pad = n_spans * span - a.shape[-1]
+    return torch.nn.functional.pad(a, (0, pad)).reshape(*a.shape[:2], n_spans, span)
+
+
+def splat_reference(x: torch.Tensor, y: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
+                    sigma_x: torch.Tensor, sigma_y: torch.Tensor,
+                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of kernel S1: half[g, c, iy, ix] = sum_r ex[r, ix] ·
+    eyw[r, iy], with ex = exp(-(((x - gx)^2) / sigma_x^2) / 2) and eyw the
+    same in y times the ray's weight, each factor in the inputs' type.
+
+    x, y (g, C, R) (y already shifted to the grid's centre), gx (g, n_x/2),
+    gy (g, n_y), sigma_x, sigma_y (g,), weights (g, C, R) or None; returns
+    (g, C, n_y, n_x/2) in the inputs' type. The kernel's order: the rays of
+    each pair are cut into spans (:func:`splat_span`); each span's sum runs
+    over its rays in order from 0.0 in float64 (a product of two float32
+    factors is exact there), a loop over the ray positions vectorised across
+    spans and bins; then each bin's span sums are added in span order from
+    0.0 and rounded once. Past R the factors are zero."""
+    g, C, R = x.shape
+    span = splat_span(R, g * C)
+    n_spans = -(-R // span)
+    f64 = dict(dtype=torch.float64, device=x.device)
+    xs, ys = _spans(x, span, n_spans), _spans(y, span, n_spans)
+    ws = None if weights is None else _spans(weights, span, n_spans)
+    valid = (torch.arange(n_spans * span, device=x.device) < R).reshape(n_spans, span)
+    gx4, gy4 = gx[:, None, None, :], gy[:, None, None, :]
+    s2x = (sigma_x * sigma_x)[:, None, None, None]
+    s2y = (sigma_y * sigma_y)[:, None, None, None]
+    acc = torch.zeros((g, C, n_spans, gy.shape[1], gx.shape[1]), **f64)
+    term = torch.empty_like(acc)
+    for r in range(span):
+        ex = _gauss(xs[..., r, None], gx4, s2x)                # (g, C, spans, n_x/2)
+        eyw = _gauss(ys[..., r, None], gy4, s2y)               # (g, C, spans, n_y)
+        if ws is not None:
+            eyw = eyw * ws[..., r, None]
+        eyw = torch.where(valid[:, r, None], eyw, torch.zeros((), dtype=eyw.dtype,
+                                                              device=eyw.device))
+        torch.mul(eyw.double()[..., :, None], ex.double()[..., None, :], out=term)
+        acc += term
+    total = torch.zeros((g, C) + acc.shape[3:], **f64)
+    for s in range(n_spans):
+        total += acc[:, :, s]
+    return total.to(x.dtype)
+
+
+def _ordered_sum(a: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in index order from 0.0."""
+    s = torch.zeros(a.shape[:-1], dtype=a.dtype, device=a.device)
+    for i in range(a.shape[-1]):
+        s = s + a[..., i]
+    return s
+
+
+def splat_backward_reference(x: torch.Tensor, y: torch.Tensor, gx: torch.Tensor,
+                             gy: torch.Tensor, sigma_x: torch.Tensor, sigma_y: torch.Tensor,
+                             weights: Optional[torch.Tensor], cotangent: torch.Tensor,
+                             bins: bool = False, weights_grad: bool = False):
+    """Plain version of S1's adjoint: the gradients of :func:`splat_reference`
+    for the cotangent G (g, C, n_y, n_x/2), in float64 and the kernel's order.
+
+    Per ray, with the factors ex, ey recomputed as the forward takes them (ey
+    without the weight w), in float64: A[ix] = sum_iy G[iy, ix] ey[iy] and
+    B[iy] = sum_ix G[iy, ix] ex[ix] in index order from 0.0; tx[ix] = ((A ·
+    ex) · qx) · w with qx = (x - gx) · (1 / sigma_x^2), ty[iy] = ((B · ey) ·
+    qy) · w; d/dx = -sum_ix tx, d/dy = -sum_iy ty, d/dw = sum_iy B · ey, each
+    in index order from 0.0 and rounded once. With ``bins``, the grid's
+    gradients: d/dgx[ix] = sum tx and d/dsigma_x = sum tx · (x - gx) ·
+    (1 / sigma_x) (y alike): each span's rays summed in order per bin, then
+    per grid over (channel, span) in order; d/dsigma_x sums the bins' totals
+    in order last. Returns (dx, dy, dgx, dgy, dsigma_x, dsigma_y, dweights),
+    None where not asked for; the per-ray parts a loop over the ray
+    positions' blocks, vectorised across spans and rays."""
+    g, C, R = x.shape
+    ny, nx = gy.shape[1], gx.shape[1]
+    span = splat_span(R, g * C)
+    n_spans = -(-R // span)
+    dt, dev = x.dtype, x.device
+    xs, ys = _spans(x, span, n_spans), _spans(y, span, n_spans)
+    ws = None if weights is None else _spans(weights, span, n_spans)
+    valid = (torch.arange(n_spans * span, device=dev) < R).reshape(n_spans, span)
+    s2x = (sigma_x * sigma_x)[:, None, None, None, None]
+    s2y = (sigma_y * sigma_y)[:, None, None, None, None]
+    sxd, syd = sigma_x.double(), sigma_y.double()
+    inv2 = [(1.0 / (s * s))[:, None, None, None, None] for s in (sxd, syd)]
+    inv1 = [(1.0 / s)[:, None, None, None, None] for s in (sxd, syd)]
+    gxd, gyd = gx.double()[:, None, None, None, :], gy.double()[:, None, None, None, :]
+    G = cotangent.double()[:, :, None, None]                    # (g, C, 1, 1, n_y, n_x/2)
+    per_ray = {k: torch.zeros((g, C, n_spans, span), dtype=torch.float64, device=dev)
+               for k in ("dx", "dy", "dw")}
+    part = {k: torch.zeros((g, C, n_spans, n), dtype=torch.float64, device=dev)
+            for k, n in (("gx", nx), ("sx", nx), ("gy", ny), ("sy", ny))}
+    block = max(1, min(span, 4_000_000 // max(1, g * C * n_spans * (nx + ny))))
+    for r0 in range(0, span, block):
+        sl = slice(r0, min(span, r0 + block))
+        xb, yb = xs[..., sl, None], ys[..., sl, None]           # (g, C, spans, b, 1)
+        ex = _gauss(xb, gx[:, None, None, None, :], s2x).double()
+        ey = _gauss(yb, gy[:, None, None, None, :], s2y).double()
+        A = torch.zeros(ex.shape, dtype=torch.float64, device=dev)
+        for iy in range(ny):
+            A = A + ey[..., iy, None] * G[..., iy, :]
+        B = torch.zeros(ey.shape, dtype=torch.float64, device=dev)
+        for ix in range(nx):
+            B = B + ex[..., ix, None] * G[..., :, ix]
+        dxv, dyv = xb.double() - gxd, yb.double() - gyd
+        tx = (A * ex) * (dxv * inv2[0])
+        be = B * ey
+        ty = be * (dyv * inv2[1])
+        if ws is not None:
+            w = ws[..., sl, None].double()
+            tx, ty = tx * w, ty * w
+        per_ray["dx"][..., sl] = -_ordered_sum(tx)
+        per_ray["dy"][..., sl] = -_ordered_sum(ty)
+        if weights_grad:
+            per_ray["dw"][..., sl] = _ordered_sum(be)
+        if bins:
+            # Past R a term is zero (the kernel skips those rays).
+            ok = valid[:, sl, None]
+            zero = torch.zeros((), dtype=torch.float64, device=dev)
+            vx, vy = tx * (dxv * inv1[0]), ty * (dyv * inv1[1])
+            tx, ty, vx, vy = (torch.where(ok, a, zero) for a in (tx, ty, vx, vy))
+            for j in range(tx.shape[3]):
+                part["gx"] += tx[:, :, :, j]
+                part["sx"] += vx[:, :, :, j]
+                part["gy"] += ty[:, :, :, j]
+                part["sy"] += vy[:, :, :, j]
+    dx, dy, dw = (per_ray[k].reshape(g, C, -1)[..., :R].to(dt) for k in ("dx", "dy", "dw"))
+    dgx = dgy = dsx = dsy = None
+    if bins:
+        tot = {k: torch.zeros((g, v.shape[-1]), dtype=torch.float64, device=dev)
+               for k, v in part.items()}
+        for c in range(C):
+            for s in range(n_spans):
+                for k in tot:
+                    tot[k] += part[k][:, c, s]
+        dgx, dgy = tot["gx"].to(dt), tot["gy"].to(dt)
+        dsx, dsy = _ordered_sum(tot["sx"]).to(dt), _ordered_sum(tot["sy"]).to(dt)
+    return dx, dy, dgx, dgy, dsx, dsy, (dw if weights_grad else None)
+
+
+def splat_argument_error(x_shape, gx_shape, gy_shape):
+    """Why S1 would refuse rays of ``x_shape`` (g, C, R) on a half grid of
+    gx (g, n_x/2) and gy (g, n_y), or None: the launchers' checks in
+    ``csrc/psf_splat_*.cu``, with no library needed."""
+    if len(x_shape) != 3 or len(gx_shape) != 2 or len(gy_shape) != 2 or not (
+            gx_shape[0] == gy_shape[0] == x_shape[0]):
+        return (f"S1 takes rays (g, C, R) and grids (g, n_x/2), (g, n_y); got {tuple(x_shape)}, "
+                f"{tuple(gx_shape)}, {tuple(gy_shape)}")
+    ny, nx = gy_shape[1], gx_shape[1]
+    if not (1 <= ny <= SPLAT_MAX_NY and 1 <= nx <= SPLAT_MAX_NX):
+        return (f"S1 takes half grids of 1 to {SPLAT_MAX_NY} rows and 1 to {SPLAT_MAX_NX} "
+                f"columns; got {ny} x {nx}")
+    return None
+
+
+def _check_splat_inputs(tensors: dict):
+    """Raise unless ``tensors`` are contiguous, of x's type (float32 or
+    float64) and on x's device, and the launcher takes their shapes."""
+    device, dtype = tensors["x"].device, tensors["x"].dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"S1 takes float32 or float64, got {dtype}")
+    for name, a in tensors.items():
+        if a is None:
+            continue
+        if a.dtype != dtype or a.device != device or not a.is_contiguous():
+            raise ValueError(f"S1 takes contiguous {dtype} {name} on one device, got "
+                             f"{a.dtype} on {a.device}")
+    g, C, R = tensors["x"].shape
+    for name in ("y", "weights"):
+        if tensors.get(name) is not None and tuple(tensors[name].shape) != (g, C, R):
+            raise ValueError(f"{name} {tuple(tensors[name].shape)} must be x's {(g, C, R)}")
+    for name in ("sigma_x", "sigma_y"):
+        if tuple(tensors[name].shape) != (g,):
+            raise ValueError(f"{name} {tuple(tensors[name].shape)} must be ({g},)")
+    error = splat_argument_error((g, C, R), tensors["gx"].shape, tensors["gy"].shape)
+    if error:
+        raise ValueError(error)
+
+
+def _ptr(a: Optional[torch.Tensor]):
+    return None if a is None else a.data_ptr()
+
+
+def _launch_splat(x, y, gx, gy, sigma_x, sigma_y, weights):
+    global SPLAT_LAUNCHES
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    _check_splat_inputs(dict(x=x, y=y, gx=gx, gy=gy, sigma_x=sigma_x, sigma_y=sigma_y,
+                             weights=weights))
+    g, C, R = x.shape
+    ny, nx = gy.shape[1], gx.shape[1]
+    span = splat_span(R, g * C)
+    n_spans = -(-R // span)
+    partials = torch.empty(g * C * n_spans * ny * nx, dtype=torch.float64, device=x.device)
+    out = torch.empty((g, C, ny, nx), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.s1_fwd_launch(x.data_ptr(), y.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+                                sigma_x.data_ptr(), sigma_y.data_ptr(), _ptr(weights),
+                                partials.data_ptr(), out.data_ptr(), g, C, R, ny, nx, span,
+                                int(x.dtype == torch.float64), stream)
+    if err != 0:
+        raise RuntimeError(f"S1 (PSF splat) launch failed: {lib.k1_error_string(err).decode()}")
+    SPLAT_LAUNCHES += 1 if g * C * R else 0
+    return out
+
+
+def _launch_splat_bwd(x, y, gx, gy, sigma_x, sigma_y, weights, cotangent, bins, weights_grad):
+    global SPLAT_BWD_LAUNCHES
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    g, C, R = x.shape
+    ny, nx = gy.shape[1], gx.shape[1]
+    _check_splat_inputs(dict(x=x, y=y, gx=gx, gy=gy, sigma_x=sigma_x, sigma_y=sigma_y,
+                             weights=weights))
+    if tuple(cotangent.shape) != (g, C, ny, nx) or cotangent.dtype != x.dtype:
+        raise ValueError(f"the cotangent {tuple(cotangent.shape)} {cotangent.dtype} must be "
+                         f"{(g, C, ny, nx)} {x.dtype}")
+    span = splat_span(R, g * C)
+    n_spans = -(-R // span)
+    new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
+    dx, dy = new(g, C, R), new(g, C, R)
+    dw = new(g, C, R) if weights_grad else None
+    dgx, dgy, dsx, dsy = (new(g, nx), new(g, ny), new(g), new(g)) if bins else (None,) * 4
+    partials = (torch.empty(g * C * n_spans * 2 * (nx + ny), dtype=torch.float64,
+                            device=x.device) if bins else None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.s1_bwd_launch(
+            x.data_ptr(), y.data_ptr(), gx.data_ptr(), gy.data_ptr(), sigma_x.data_ptr(),
+            sigma_y.data_ptr(), _ptr(weights), cotangent.data_ptr(), dx.data_ptr(),
+            dy.data_ptr(), _ptr(dw), _ptr(partials), _ptr(dgx), _ptr(dgy), _ptr(dsx), _ptr(dsy),
+            g, C, R, ny, nx, span, int(x.dtype == torch.float64), int(bins), stream)
+    if err != 0:
+        raise RuntimeError(f"S1's adjoint launch failed: {lib.k1_error_string(err).decode()}")
+    SPLAT_BWD_LAUNCHES += 1 if g * C * R else 0
+    return dx, dy, dgx, dgy, dsx, dsy, dw
+
+
+def _splat(x, y, gx, gy, sigma_x, sigma_y, weights):
+    if x.device.type == "cpu":
+        return splat_reference(x, y, gx, gy, sigma_x, sigma_y, weights)
+    return _launch_splat(x, y, gx, gy, sigma_x, sigma_y, weights)
+
+
+class _Splat(torch.autograd.Function):
+    """Kernel S1 with its hand adjoint: on CUDA tensors ``csrc/psf_splat_fwd.cu``
+    and ``csrc/psf_splat_bwd.cu`` (its per-bin sums only when the grid's
+    centres or widths need a gradient), on CPU tensors their plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, y, gx, gy, sigma_x, sigma_y, weights):
+        ctx.save_for_backward(x, y, gx, gy, sigma_x, sigma_y, weights)
+        return _splat(x, y, gx, gy, sigma_x, sigma_y, weights)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, cotangent):
+        x, y, gx, gy, sigma_x, sigma_y, weights = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        bins = any(need[2:6])
+        weights_grad = weights is not None and need[6]
+        args = (x, y, gx, gy, sigma_x, sigma_y, weights, cotangent.contiguous(), bins,
+                weights_grad)
+        grads = (splat_backward_reference(*args) if x.device.type == "cpu"
+                 else _launch_splat_bwd(*args))
+        return tuple(d if n else None for d, n in zip(grads, need))
+
+
+def splat(x: torch.Tensor, y: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
+          sigma_x: torch.Tensor, sigma_y: torch.Tensor,
+          weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The half-grid splat of :func:`compute_psf`: kernel S1 on CUDA tensors,
+    :func:`splat_reference` on CPU tensors; differentiable in every input
+    (``_Splat``). Arguments as :func:`splat_reference`'s."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"S1 runs on CUDA or CPU tensors, got {x.device}")
+    args = [x, y, gx, gy, sigma_x, sigma_y, weights]
+    if x.device.type == "cuda":
+        args = [None if a is None else a.contiguous() for a in args]
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in args):
+        return _Splat.apply(*args)
+    return _splat(*args)
 
 
 def compute_psf(x: torch.Tensor, y: torch.Tensor, n_bins: Tuple[int, int] = (21, 21),
@@ -67,15 +401,10 @@ def compute_psf(x: torch.Tensor, y: torch.Tensor, n_bins: Tuple[int, int] = (21,
 
     sigma_x = x_incr / 2
     sigma_y = y_incr / 2
-    dx2 = (x.reshape(n_grids, nw, 1, 1, -1) - gx.reshape(n_grids, 1, 1, -1, 1)) ** 2
-    dy2 = (y.reshape(n_grids, nw, 1, 1, -1) - gy.reshape(n_grids, 1, -1, 1, 1)) ** 2
-    gaussian = (torch.exp(-(dx2 / sigma_x.reshape(-1, 1, 1, 1, 1) ** 2) / 2)
-                * torch.exp(-(dy2 / sigma_y.reshape(-1, 1, 1, 1, 1) ** 2) / 2))
     if weights is not None:
         weights = torch.broadcast_to(torch.as_tensor(weights, dtype=dtype, device=device),
                                      x.shape)                    # (g, nw, n_rays)
-        gaussian = gaussian * weights[:, :, None, None, :]
-    kernels = torch.sum(gaussian, dim=-1)                         # (g, nw, n_y, n_x_half)
+    kernels = splat(x, y, gx, gy, sigma_x, sigma_y, weights)     # (g, nw, n_y, n_x_half)
 
     if n_x_bins % 2 == 1:
         kernels = torch.cat((torch.flip(kernels[..., 1:], dims=(-1,)), kernels), dim=-1)
