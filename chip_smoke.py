@@ -254,7 +254,11 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     the engines measured on the examples' lenses and grids, that gap held
     at the wavefront phases' 5e-5 mm) plus its printed resolution.
 43. (after 42) kernel S1, the PSF splat (``csrc/psf_splat_fwd.cu``, its
-    adjoint ``csrc/psf_splat_bwd.cu``), forward and adjoint against their
+    adjoint ``csrc/psf_splat_bwd.cu``): first its tensor-core probe
+    (``csrc/psf_splat_probe.cu``: mma.sync m8n8k4 and m16n8k4 .f64 bit for
+    bit with the fma chain in k order, which S1's float32 products rely
+    on), the card's FP64 rates (DFMA and both shapes) and S1's registers
+    and spills; then forward and adjoint against their
     plain versions, bit for bit, one launch each a call: on the default
     configuration's own splat (the double-Gauss traced on K1: 21 fields x 3
     channels, a 65 x 33 half grid, 65,536 rays), W = 4 with one-hot weights
@@ -288,12 +292,15 @@ before that carries the kernels' numbers.
                                           # every mode, K2b's splits, P2 at
                                           # config 5's four render shapes
                                           # and P2 and d/dpsf by each tree's
-                                          # route at the wide ones, of each
+                                          # route at the wide ones, and S1
+                                          # both ways at the default
+                                          # configuration's splat beside its
+                                          # PyTorch contractions, of each
                                           # unpacked tree and of this
                                           # checkout, timed in turns (trees,
                                           # this, this, trees in reverse; no
                                           # result line); --families k2,p2
-                                          # (of k1,k2,k3,k4,p2) times only
+                                          # (of k1,k2,k3,k4,p2,s1) times only
                                           # those
     python3 chip_smoke.py --ragged        # instead: phase 38 alone
     python3 chip_smoke.py --population-routes  # instead: phase 3d alone
@@ -4823,10 +4830,13 @@ def ptxas_summary(path):
                           "s1_bwd_bins"):
                 if short in raw:
                     # The template arguments of the mangled name: I L<type><value>E ... E,
-                    # or a type (S1's IfE, IdE).
+                    # or a type and perhaps a bool (S1's IfE, IdLb1EE).
                     tail = raw[raw.index(short) + len(short):]
                     args = re.match(r"I((?:L[a-z]+\d+E)+)E", tail)
-                    kind = {"IfE": "<float>", "IdE": "<double>"}.get(tail[:3], "")
+                    typed = re.match(r"I([fd])(?:Lb([01])E)?E", tail)
+                    kind = ("<" + {"f": "float", "d": "double"}[typed.group(1)]
+                            + {"0": ",false", "1": ",true", None: ""}[typed.group(2)] + ">"
+                            if typed else "")
                     name = short + ("<" + ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1)))
                                     + ">" if args else kind)
         elif name and "stack frame" in line:
@@ -4923,7 +4933,7 @@ def p2_times(torch, zoo, simulator, imaging, image):
     return ms
 
 
-KERNEL_FAMILIES = ("k1", "k2", "k3", "k4", "p2")
+KERNEL_FAMILIES = ("k1", "k2", "k3", "k4", "p2", "s1")
 
 
 def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
@@ -4932,8 +4942,10 @@ def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
     (``mode_times``, ``opl_times``): K1 and K3 at 2,457,600 rays of the
     double-Gauss and its aspherized form, K2 and K4 at 256 x 1,536 rays of
     the Cooke and aspheric Cooke populations; then K2b's splits
-    (``k2_splits``) and P2 at four render shapes (``p2_times``); of these,
-    the ``families`` named (``KERNEL_FAMILIES``). The port is imported from
+    (``k2_splits``), P2 at four render shapes (``p2_times``) and S1 forward
+    and adjoint at the default configuration's splat with its PyTorch
+    contractions (``s1_times``); of these, the ``families`` named
+    (``KERNEL_FAMILIES``). The port is imported from
     the tree at ``root`` and its kernels built there (the build's seconds
     reported where it compiled)."""
     sys.path.insert(0, root)
@@ -4959,6 +4971,10 @@ def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
         out["ms"].update(k2_splits(torch, zoo, simulator, fused_batch, gen))
     if "p2" in families:
         out["ms"].update(p2_times(torch, zoo, simulator, imaging, image))
+    if "s1" in families:
+        from torchoptics_tpu_torch.ops import psf
+        out["ms"].update(s1_times(torch, psf, default_splat_args(torch, zoo, simulator, imaging,
+                                                                 psf)))
     return out
 
 
@@ -6192,12 +6208,8 @@ def splat_cases(torch, zoo, simulator, imaging, psf):
     weights, d/dw too), an even and a non-square grid, the auto extent
     (increment=None: d/dgx, d/dgy, d/dsigma), a NaN ray, an inf ray,
     float64, and rays no multiple of the chunk."""
-    cases = {}
-    cfg = default_imaging_config(simulator)
-    specs, lens = zoo.build("double_gauss", device="cuda")
-    with torch.no_grad():
-        _, args = capture_splat(torch, psf, lambda: imaging.sample_optics_model(specs, lens, cfg))
-    cases["default config (21 x 3 pairs, 65 x 33, 65,536 rays)"] = (args, False, False)
+    cases = {"default config (21 x 3 pairs, 65 x 33, 65,536 rays)": (
+        default_splat_args(torch, zoo, simulator, imaging, psf), False, False)}
     x, y = seeded_spots(torch, (1, 9, 2048, 4), 1)
     yc = torch.linspace(0.45, 0.55, 9, device="cuda")
     _, args = capture_splat(torch, psf, lambda: psf.sample_psfs(x, y, yc, (65, 65), 4e-3))
@@ -6397,6 +6409,67 @@ def splat_memory_turns(trees, card):
     return out
 
 
+def default_splat_args(torch, zoo, simulator, imaging, psf):
+    """The default configuration's own splat: the arguments of ``psf.splat``
+    in a render of the double-Gauss traced on K1 (21 fields x 3 channels, a
+    65 x 33 half grid, 65,536 rays)."""
+    cfg = default_imaging_config(simulator)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    with torch.no_grad():
+        return capture_splat(torch, psf, lambda: imaging.sample_optics_model(specs, lens, cfg))[1]
+
+
+def s1_times(torch, psf, args, plain=False):
+    """S1 forward and adjoint (as the main path calls it: no d/dw, no per-bin
+    sums) on ``args``, CUDA events (``auto_ms``), with the PyTorch
+    contractions of ``splat_library`` timed in the same process and, with
+    ``plain``, the plain versions. Returns {key: ms}."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    half = psf._launch_splat(*args)
+    cot = torch.randn(half.shape, generator=gen, device="cuda", dtype=half.dtype)
+    ms = {"s1_fwd": auto_ms(torch, lambda: psf._launch_splat(*args)),
+          "s1_bwd": auto_ms(torch, lambda: psf._launch_splat_bwd(*args, cot, False, False))}
+    library = splat_library(torch, args, cot)
+    ms.update(s1_fwd_einsum=library["fwd"], s1_bwd_contractions=library["bwd"])
+    if plain:
+        ms["plain_fwd"] = auto_ms(torch, lambda: psf.splat_reference(*args), budget_ms=300.0)
+        ms["plain_bwd"] = auto_ms(torch, lambda: psf.splat_backward_reference(*args, cot),
+                                  budget_ms=300.0)
+    return ms
+
+
+#: The FP64 rate kernel's kinds (csrc/psf_splat_probe.cu) and the
+#: multiply-adds a thread does per chain and step of each.
+FP64_RATE_KINDS = {"dfma": (0, 2), "mma_m8n8k4": (1, 8), "mma_m16n8k4": (2, 16)}
+
+
+def fp64_rates(torch, lib, iters=1024, blocks=132 * 8):
+    """The card's FP64 rates, TFLOP/s (a multiply-add two operations): the
+    rate kernel of ``psf_splat_probe.cu`` (8 independent chains a thread,
+    ``blocks`` blocks of 256 threads) timed by CUDA events over 5 launches
+    after one, for DFMA and mma.sync m8n8k4 and m16n8k4 .f64."""
+    out = torch.empty(blocks * 256, dtype=torch.float64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for name, (kind, fmas) in FP64_RATE_KINDS.items():
+        def launch():
+            err = lib.s1_fp64_rate(iters, blocks, kind, out.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"the FP64 rate kernel failed: "
+                                   f"{lib.k1_error_string(err).decode()}")
+        launch()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            launch()
+        end.record()
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 5 / 1e3
+        rates[name] = 2 * blocks * 256 * iters * 8 * fmas / seconds / 1e12
+    return rates
+
+
 def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
     """Phase 43: kernel S1 (the PSF splat), forward and adjoint, against its
     plain versions on the card (``splat_cases``), bit for bit, one launch of
@@ -6405,7 +6478,26 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
     splat (CUDA events: S1, its plain versions, the PyTorch contractions);
     the default configuration's 2048^2 render and image-loss step's memory,
     walls and largest allocations, and with ``profiled`` its profile
-    (``splat_memory``). Returns the numbers for the kernels line."""
+    (``splat_memory``). First S1's tensor-core probe (``psf.dmma_probe``:
+    mma.sync m8n8k4 and m16n8k4 .f64 bit for bit with the fma chain in k
+    order, which S1's float32 route relies on), the card's FP64 rates and
+    S1's registers and spills. Returns the numbers for the kernels line."""
+    from torchoptics_tpu_torch.ops import _kernels
+    probe = psf.dmma_probe()
+    for shape, labels in probe.items():
+        print(f"S1 tensor-core probe, mma.sync {shape} .f64 against the fma chain in k order: "
+              + "; ".join(f"{label}: {v['differ']} of {v['entries']} differ, matches "
+                          f"{v['models']}" for label, v in labels.items()), flush=True)
+    check(all(v["differ"] == 0 and v["fma_chain_ok"] for labels in probe.values()
+              for v in labels.values()),
+          "S1's tensor-core probe: every mma.sync .f64 result bit for bit the fma chain in k "
+          "order (the route S1's float32 products take)")
+    rates = fp64_rates(torch, _kernels.load())
+    print("FP64 rates (TFLOP/s, psf_splat_probe.cu): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()) + f"; card: {card}", flush=True)
+    for line in ptxas_summary(_kernels.library_path()):
+        if line.startswith("s1_"):
+            print(f"S1 ptxas: {line}", flush=True)
     cases = splat_cases(torch, zoo, simulator, imaging, psf)
     results, worst = {}, {"fwd": 0.0, "bwd": 0.0}
     for n, (label, (args, bins, weights_grad)) in enumerate(cases.items()):
@@ -6437,15 +6529,8 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
           f"adjoint) {launches} (expected (1, 1)), no plain version ran, gradients finite")
 
     args = cases["default config (21 x 3 pairs, 65 x 33, 65,536 rays)"][0]
-    gen = torch.Generator(device="cuda").manual_seed(43)
-    half = psf._launch_splat(*args)
-    cot = torch.randn(half.shape, generator=gen, device="cuda")
-    ms = {"s1_fwd": auto_ms(torch, lambda: psf._launch_splat(*args)),
-          "s1_bwd": auto_ms(torch, lambda: psf._launch_splat_bwd(*args, cot, False, False)),
-          "plain_fwd": auto_ms(torch, lambda: psf.splat_reference(*args), budget_ms=300.0),
-          "plain_bwd": auto_ms(torch, lambda: psf.splat_backward_reference(*args, cot),
-                               budget_ms=300.0)}
-    library = splat_library(torch, args, cot)
+    ms = s1_times(torch, psf, args, plain=True)
+    library = {"fwd": ms["s1_fwd_einsum"], "bwd": ms["s1_bwd_contractions"]}
     bounds = {"fwd": s1_bound(args, False), "bwd": s1_bound(args, True)}
     g, C, R = args[0].shape
     span = psf.splat_span(R, g * C)
@@ -6460,7 +6545,8 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
               f"card: {card}", flush=True)
     memory = splat_memory(torch, card, profiled)
     return {"results": results, "worst": worst, "ms": ms, "library": library,
-            "bounds": bounds, "workspace_bytes": workspace, "memory": memory}
+            "bounds": bounds, "workspace_bytes": workspace, "memory": memory, "probe": probe,
+            "fp64_tflops": rates}
 
 
 def s1_entries(splat, train_launches, resources=()):
@@ -6479,14 +6565,20 @@ def s1_entries(splat, train_launches, resources=()):
             "library_ms": splat["library"]["fwd"] if what == "fwd" else None,
             "library_ms_contractions": splat["library"][what],
             "bound_share": b[0] / splat["ms"][f"s1_{what}"],
+            "products": "float32: FP64 tensor cores (mma.sync m16n8k4); float64: separate "
+                        "double multiplies and adds",
+            "tensor_core_probe_differ": {shape: sum(v["differ"] for v in labels.values())
+                                         for shape, labels in splat["probe"].items()},
+            "fp64_tflops": splat["fp64_tflops"],
             "workspace_bytes": splat["workspace_bytes"] if what == "fwd" else 0,
             "cases_bit_identical": {label: all(v[0] for v in out_.values())
                                     for label, (out_, _) in splat["results"].items()},
             "default_2048_memory": {k: v for k, v in splat["memory"].items()
                                     if k != "step_groups_ms"}})
-        # The main kernel's registers and spills (float32), from -Xptxas -v.
+        # The main path's kernel's registers and spills (float32; the adjoint
+        # without d/dw and the per-bin sums), from -Xptxas -v.
         for line in resources:
-            if line.startswith(f"s1_{what}_kernel<float>"):
+            if line.startswith(f"s1_{what}_kernel<float" + (">" if what == "fwd" else ",false>")):
                 out[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
                 out[-1]["spill_bytes"] = [int(v) for v in re.findall(
                     r"(\d+) bytes spill (?:stores|loads)", line)]

@@ -42,8 +42,9 @@ their routes' plain versions, the direct d/dpsf kernel alone at K = 1 to 22,
 and a backward launches d/dpatch only when the patches need it;
 S1, the PSF splat, forward and adjoint bit for bit with their plain
 versions on ``chip_smoke.SPLAT_CASES`` (the default configuration's own
-splat included), one launch each a call, and ``compute_psf`` on CUDA tensors
-launching S1 both ways and never a plain version; P1's chains:
+splat included), one launch each a call, ``compute_psf`` on CUDA tensors
+launching S1 both ways and never a plain version, and S1's tensor-core probe
+(mma.sync .f64 rounding as the fma chain in k order); P1's chains:
 sqrt and div bit for bit with their plain versions, fma within one float32
 ulp a step, relative (``fmaf`` rounds once, the plain ``a * k1 + k2``
 twice); a small
@@ -1713,6 +1714,21 @@ def test_s1_matches_plain_versions(cuda, splat_cases, label):
                                              chip_smoke.SPLAT_CASES.index(label))
     assert launches == (1, 1)
     assert all(v[0] for v in out.values()), out
+
+
+def test_s1_tensor_core_probe(cuda):
+    """S1's float32 route takes its products on the FP64 tensor cores, which
+    is right only if one mma.sync .f64 (m8n8k4, and m16n8k4, the shape S1
+    runs) rounds as the chain of fused multiply-adds in k order: bit for bit
+    on every case of ``psf.dmma_probe_inputs`` (ties, cancellation, the
+    terms' order, random exact products, float32 subnormals)."""
+    from torchoptics_tpu_torch.ops import psf
+    probe = psf.dmma_probe()
+    assert set(probe) == set(psf.DMMA_SHAPES)
+    for shape, labels in probe.items():
+        for label, v in labels.items():
+            assert v["differ"] == 0 and v["fma_chain_ok"], (shape, label, v)
+            assert "fma chain in k order" in v["models"], (shape, label, v)
 
 
 def test_compute_psf_launches_s1_and_no_plain_version(cuda, monkeypatch):

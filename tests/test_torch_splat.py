@@ -54,7 +54,7 @@ def test_plain_splat_matches_jax(n_bins, increment):
 def test_plain_splat_cases_match_jax(case):
     """Per-ray weights (random, not one-hot); a NaN ray (its grid and
     channel's kernel NaN in both); 5 x 3 grids of 1,100 rays, whose last
-    span (``splat_span``: 32 rays) ends short."""
+    span (``splat_span``: 96 rays) ends short."""
     shape = (1, 5, 3, 1100) if case == "span boundary" else (2, 3, 3, 40)
     x, y = _spots(shape, seed=7)
     kw = dict(n_bins=(9, 9), increment=8e-3)
@@ -154,3 +154,97 @@ def test_splat_refuses_other_devices_and_grids():
                   torch.ones(1, device="meta"))
     assert psf.splat_argument_error((1, 1, 4), (1, psf.SPLAT_MAX_NX + 1), (1, 3))
     assert psf.splat_argument_error((1, 1, 4), (1, 2), (1, psf.SPLAT_MAX_NY)) is None
+
+
+def test_plain_splat_order_is_the_documented_one():
+    """The plain forward and adjoint against explicit float64 loops in the
+    documented order, bit for bit, on a half grid of 45 x 41 (two groups of
+    bins each way) and 2 pairs of 150 rays (spans of 32, the last 22 rays
+    long), with weights: the forward sums each span's rays in order from 0.0
+    and the spans in order (``splat_span``); the adjoint's A and B run in
+    index order and a ray's d/dx, d/dy and d/dw are ``grouped_sum``s (groups
+    (j, t) of bins 40 j + 8 k + 2 t + e, summed in index order, then the
+    groups in order). In float64, whose results keep the order's last bits
+    (float32 outputs round most of them away); the factors are the port's
+    own (``psf._gauss``)."""
+    rng = np.random.default_rng(21)
+    g, C, R, ny, nx = 1, 2, 150, 45, 41
+    f64 = lambda a: torch.tensor(np.asarray(a, dtype=np.float64))
+    x, y = f64(rng.normal(0.0, 0.02, (g, C, R))), f64(rng.normal(0.0, 0.02, (g, C, R)))
+    gx, gy = f64(np.arange(nx)[None] * 1e-3), f64((np.arange(ny)[None] - ny / 2) * 1e-3)
+    sx, sy = f64([7e-4]), f64([6e-4])
+    w = f64(rng.uniform(0.0, 1.0, (g, C, R)))
+    cot = f64(rng.normal(size=(g, C, ny, nx)))
+    span = psf.splat_span(R, g * C)
+    assert (span, R % span) == (32, 22)
+    ex = psf._gauss(x[..., None], gx[:, None, None], (sx * sx)[:, None, None, None]).double()
+    ey = psf._gauss(y[..., None], gy[:, None, None], (sy * sy)[:, None, None, None])
+    eyw = (ey * w[..., None]).double().numpy()
+    ex, ey = ex.numpy(), ey.double().numpy()
+
+    half = np.zeros((g, C, ny, nx))
+    for c in range(C):
+        for r0 in range(0, R, span):
+            acc = np.zeros((ny, nx))
+            for r in range(r0, min(R, r0 + span)):
+                acc = acc + eyw[0, c, r][:, None] * ex[0, c, r][None, :]
+            half[0, c] = half[0, c] + acc
+    got = psf.splat_reference(x, y, gx, gy, sx, sy, w)
+    assert np.array_equal(got.numpy().view(np.int64), half.view(np.int64))
+
+    def grouped(t):
+        total = 0.0
+        for j in range(-(-len(t) // 40)):
+            for q in range(4):
+                s = 0.0
+                for k in range(5):
+                    for e in range(2):
+                        b = 40 * j + 8 * k + 2 * q + e
+                        if b < len(t):
+                            s = s + t[b]
+                total = total + s
+        return total
+
+    G = cot.double().numpy()[0]
+    xd, yd, wd = (a.double().numpy()[0] for a in (x, y, w))
+    qx0 = 1.0 / (float(sx[0]) * float(sx[0]))
+    qy0 = 1.0 / (float(sy[0]) * float(sy[0]))
+    want = np.zeros((3, C, R))
+    for c in range(C):
+        A = np.zeros((R, nx))
+        for iy in range(ny):
+            A = A + ey[0, c, :, iy, None] * G[c, iy][None, :]
+        B = np.zeros((R, ny))
+        for ix in range(nx):
+            B = B + ex[0, c, :, ix, None] * G[c, :, ix][None, :]
+        tx = ((A * ex[0, c]) * ((xd[c][:, None] - gx.double().numpy()[0]) * qx0)) * wd[c][:, None]
+        be = B * ey[0, c]
+        ty = (be * ((yd[c][:, None] - gy.double().numpy()[0]) * qy0)) * wd[c][:, None]
+        for r in range(R):
+            want[:, c, r] = -grouped(tx[r]), -grouped(ty[r]), grouped(be[r])
+    dx, dy, *_, dw = psf.splat_backward_reference(x, y, gx, gy, sx, sy, w, cot,
+                                                  weights_grad=True)
+    for a, b in zip((dx, dy, dw), want):
+        assert np.array_equal(a[0].numpy().view(np.int64), b.view(np.int64))
+
+
+def test_dmma_probe_cases_tell_the_roundings_apart():
+    """S1's tensor-core probe (``psf.dmma_probe``, run on the card) can tell
+    the fma chain in k order from the other orders and roundings: on every
+    case some entry of each other model differs from the chain, and the
+    chain is the float64 sum of the exact products in k order."""
+    cases = psf.dmma_probe_inputs()
+    assert set(cases) == {"ties", "cancellation", "order", "random",
+                          "random, exponents -30 to 30", "float32 subnormals"}
+    for label, (A, B, C) in cases.items():
+        assert A.shape[1:] == (16, 4) and B.shape[1:] == (4, 8) and C.shape[1:] == (16, 8)
+        assert np.array_equal(A.astype(np.float32).astype(np.float64), A)
+        assert np.array_equal(B.astype(np.float32).astype(np.float64), B)
+        models = psf._dmma_models(A, B, C)
+        chain = models.pop("fma chain in k order")
+        want = C.copy()
+        for k in range(4):
+            want = want + A[:, :, k, None] * B[:, None, k, :]
+        assert np.array_equal(chain.view(np.int64), want.view(np.int64)), label
+        for name, v in models.items():
+            assert (v.view(np.int64) != chain.view(np.int64)).any(), (label, name)

@@ -5,36 +5,58 @@
 // No Pallas kernel is replaced: XLA differentiates the JAX package's fused
 // broadcast (torchoptics_tpu/ops/psf.py:75-86). The forward sums ex[r, ix] *
 // ey[r, iy] * w[r] over the rays r of each (grid, channel) pair. Per ray, in
-// double, with ex and ey recomputed as the forward takes them (ey without
-// the weight):
+// double, with ex and ey recomputed as the forward takes them (s1::gauss4;
+// ey without the weight):
 //
 //   A[ix] = sum_iy G[iy, ix] ey[iy],   B[iy] = sum_ix G[iy, ix] ex[ix]
 //   tx[ix] = ((A ex) qx) w,  qx = (x - gx) (1 / sigma_x^2);  ty alike with B
 //   d/dx = -sum_ix tx,  d/dy = -sum_iy ty,  d/dw = sum_iy B ey,
 //
-// each sum in index order from 0.0 and rounded once. With `bins` (the grid's
-// centres and widths need a gradient: compute_psf sized the grid from the
-// data), also d/dgx[ix] = sum tx and d/dsigma_x = sum tx (x - gx) (1 /
-// sigma_x) (y alike): a block sums its span's rays in order for each bin;
-// the second kernel sums them per grid over (channel, span) in order, and
-// d/dsigma over the bins last. The plain PyTorch version is
-// ops/psf.py:splat_backward_reference; the two agree bit for bit.
+// A and B in index order from 0.0. The sums over a ray's bins run in two
+// levels (ops/psf.py:grouped_sum): the bins fall into groups (j, t), bins
+// 40 j + 8 n + 2 t + e (n < 5, e < 2), each group summed in index order from
+// 0.0, then the groups' sums in order (j, then t) from 0.0, each result
+// rounded once. With `bins` (the grid's centres and widths need a gradient:
+// compute_psf sized the grid from the data), also d/dgx[ix] = sum tx and
+// d/dsigma_x = sum tx (x - gx) (1 / sigma_x) (y alike): a block sums its
+// span's rays in order for each bin; the second kernel sums them per grid
+// over (channel, span) in order, and d/dsigma over the bins last. The plain
+// PyTorch version is ops/psf.py:splat_backward_reference; the two agree bit
+// for bit.
 //
 // What bounds it on an H100, at the default configuration (63 pairs, a 65 x
 // 33 half grid, 65,536 rays): A and B are 2 x 8.86e9 products and sums,
 // with the factors and the terms 4.03e10 operations, 0.60 ms at 67
 // TFLOP/s; the bytes (x, y, the cotangent read once, d/dx and d/dy written
-// once) take 0.02 ms. Operations bound it; this design's products are
-// double FMAs outside the tensor cores (34 TFLOP/s: 1.06 ms).
+// once) take 0.02 ms. Operations bound it; here the products outweigh the
+// factors (5,600 multiply-adds a ray after padding, against the same 98
+// factors as the forward's), and the fragments they read from shared
+// memory come close to its bandwidth.
 //
-// Design: a block per (pair, span), as the forward's. It stages the pair's
-// cotangent once as doubles in both layouts (G[iy][ix] and its transpose,
-// 37 KB at 65 x 33), then walks its span rc rays a step: the step's factors
-// into shared memory (ey[iy][r], ex[ix][r]), A and B as 4 x 4 register tiles
-// of (rays, bins) over the cotangent, each tile's terms tx, ty into shared
-// memory, then one thread a ray sums d/dx or d/dy (and d/dw), and one thread
-// a bin carries the span's per-bin sums. rc is 32, or fewer rays where a
-// large grid's staged cotangent leaves less than 227 KB of shared memory.
+// Design, per (pair, span) block, a step of `kr` rays (64 where the layout
+// fits), warp-specialised as the forward:
+// - The cotangent staged once as doubles, in one layout (G[iy][ix], zero
+//   padded to whole k-steps and whole groups of tiles, 28 KB at 65 x 33): A
+//   reads it as B-fragments G[k][n], B as G^T, both free of bank conflicts
+//   at an odd-multiple-of-4 pitch. One block an SM (~210 KB with a ring of
+//   3 stages), 12 consumer and 8 producer warps.
+// - Products on the FP64 tensor cores for float32 inputs (mma.sync m16n8k4,
+//   s1::mma_chain; M = 16 rays, N = 8 bins, K = the other axis's bins in
+//   index order, zero padding past n_y and n_x changing no sum), separate
+//   double multiplies and adds for float64. A task is one product's 16 rays
+//   by NW column tiles: per 16 rays one A task (5 tiles x 17 k-steps) and
+//   two B tasks (5 tiles x 9 k-steps each, the last tile zero) at the
+//   default grid, dealt so that each SM sub-partition gets one of each kind.
+// - Fused epilogue: each thread forms its tiles' terms tx (or ty and B ey)
+//   in registers and sums its own bins in index order, branch-free; the
+//   partials go to shared memory, one per (ray, group). After one consumer
+//   barrier a ray's d/dx adds 4 group partials, d/dy 8 (at most 8 and 16),
+//   one thread a ray; with `bins`, one thread a bin carries the span's
+//   per-bin sums. d/dw and the per-bin sums live in their own instantiation
+//   (FULL), so the main path's kernel carries none of their code.
+// - Producer warps compute the next stage's factors (s1::stage_factors)
+//   while the consumers run this one; named barriers: two a step for the
+//   consumers (the stage's FULL, their own), none for the whole block.
 
 #include <cuda_runtime.h>
 
@@ -42,69 +64,73 @@
 
 namespace {
 
-using s1::TILE;
+using s1::NW;
 
-constexpr int THREADS = 256;
-constexpr int MAX_RC = 32;  // rays a step
+constexpr int PRODUCER_WARPS = 8;
+constexpr int MAX_CONSUMERS = 12;
+constexpr int MAX_THREADS = (MAX_CONSUMERS + PRODUCER_WARPS) * 32;
 
-// A block's shared memory, in doubles, for an ny x nx half grid at rc rays a
-// step; `be` keeps B ey for d/dw.
-struct Layout {
-  int nyp, nxp;
-  size_t g, gt, eyt, ext, tx, ty, be, xr, yr, wr, gxs, gys, sums, total;
+// A block's shared memory, in doubles, for an ny x nx half grid at kr rays
+// a step and `stages` stages.
+struct BwdLayout {
+  int ka, kb, ja, jb, gxn, gyn, ppx, ppy, pg, g_rows, pe, px, tasks, consumers;
+  size_t gxs, gys, tcen, sums, part, part_size, tx, ty, stage0, stage, total;
 
-  __host__ __device__ Layout(int ny, int nx, int rc, bool with_be) {
-    nyp = s1::pad4(ny);
-    nxp = s1::pad4(nx);
-    g = 0;                                   // G[iy][ix], row pitch nxp
-    gt = g + (size_t)ny * nxp;               // G[ix][iy], row pitch nyp
-    eyt = gt + (size_t)nx * nyp;             // ey[iy][r], row pitch rc
-    ext = eyt + (size_t)ny * rc;             // ex[ix][r]
-    tx = ext + (size_t)nx * rc;              // tx[r][ix], row pitch nxp
-    ty = tx + (size_t)rc * nxp;              // ty[r][iy], row pitch nyp
-    be = ty + (size_t)rc * nyp;              // B ey [r][iy]
-    xr = be + (with_be ? (size_t)rc * nyp : 0);  // the step's x, y, w in double
-    yr = xr + rc;
-    wr = yr + rc;
-    gxs = wr + rc;                           // the grid's centres in double
-    gys = gxs + nx;
-    sums = gys + ny;                         // the span's bin sums: gx, sx, gy, sy
-    total = sums + 2 * (size_t)(nx + ny);
+  __host__ __device__ BwdLayout(int ny, int nx, int kr, int stages, bool with_dw, bool bins) {
+    ka = s1::cdiv(ny, 4);           // A's k-steps (over iy)
+    kb = s1::cdiv(nx, 4);           // B's k-steps (over ix)
+    ja = s1::cdiv(nx, 8 * NW);      // A's groups of NW column tiles (ix)
+    jb = s1::cdiv(ny, 8 * NW);      // B's (iy)
+    gxn = 4 * ja;  // a ray's groups of x bins, and of y bins
+    gyn = 4 * jb;
+    ppx = gxn | 1;
+    ppy = gyn | 1;
+    // G padded with zeros to whole groups of tiles and whole k-steps.
+    pg = s1::pitch(4 * kb > 8 * NW * ja ? 4 * kb : 8 * NW * ja);
+    g_rows = 4 * ka > 8 * NW * jb ? 4 * ka : 8 * NW * jb;
+    pe = s1::pitch(4 * ka);
+    px = s1::pitch(4 * kb);
+    tasks = (kr / 16) * (ja + jb);
+    consumers = tasks < MAX_CONSUMERS ? tasks : MAX_CONSUMERS;
+    gys = (size_t)g_rows * pg;                    // the grid's centres in double, gy's
+    gxs = gys + ny;                               // first, and in the inputs' type
+    tcen = gxs + nx;
+    sums = tcen + ny + nx;                        // the span's bin sums: gx, sx, gy, sy
+    part = sums + (bins ? 2 * (size_t)(nx + ny) : 0);
+    part_size = (size_t)kr * (ppx + ppy + (with_dw ? ppy : 0));  // a step's partials
+    tx = part + 2 * part_size;                    // bins: tx[2][kr][nx], ty[2][kr][ny]
+    ty = tx + (bins ? 2 * (size_t)kr * nx : 0);
+    stage0 = ty + (bins ? 2 * (size_t)kr * ny : 0);
+    stage = (size_t)kr * (pe + px + 3);           // ey[kr][pe], ex[kr][px], x, y, w
+    total = stage0 + stages * stage;
   }
 
   size_t bytes() const { return sizeof(double) * total; }
 };
 
-// The most rays a step (a multiple of TILE, at most MAX_RC) whose layout fits
-// a block's shared memory; 0 if none does.
-int step_rays(int ny, int nx, bool with_be) {
-  for (int rc = MAX_RC; rc >= TILE; rc -= TILE)
-    if (Layout(ny, nx, rc, with_be).bytes() <= s1::SMEM_MAX) return rc;
-  return 0;
+// The most rays a step (64, 32 or 16) and then the most stages whose layout
+// fits a block's shared memory; {0, 0} if none does.
+void step_plan(int ny, int nx, bool with_dw, bool bins, int& kr, int& stages) {
+  for (kr = 64; kr >= 16; kr /= 2)
+    for (stages = s1::MAX_STAGES; stages >= 1; --stages)
+      if (BwdLayout(ny, nx, kr, stages, with_dw, bins).bytes() <= s1::SMEM_MAX) return;
+  kr = stages = 0;
 }
 
 // Block b = pair * n_spans + span. dw null: no d/dw; sums null: no bins.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) s1_bwd_kernel(
+// FULL: either is asked for (the main path asks for neither).
+template <typename T, bool FULL>
+__global__ void __launch_bounds__(MAX_THREADS, 1) s1_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ gx,
     const T* __restrict__ gy, const T* __restrict__ sx, const T* __restrict__ sy,
     const T* __restrict__ w, const T* __restrict__ cot, T* __restrict__ dx, T* __restrict__ dy,
     T* __restrict__ dw, double* __restrict__ sums, int n_ch, int n_rays, int ny, int nx,
-    int span, int n_spans, int rc) {
+    int span, int n_spans, int kr, int n_stages) {
   extern __shared__ double smem[];
-  const bool with_be = dw != nullptr;
-  const bool bins = sums != nullptr;
-  const Layout L(ny, nx, rc, with_be);
-  double* sG = smem + L.g;
-  double* sGT = smem + L.gt;
-  double* sEY = smem + L.eyt;
-  double* sEX = smem + L.ext;
-  double* sTX = smem + L.tx;
-  double* sTY = smem + L.ty;
-  double* sBE = smem + L.be;
-  double* sXR = smem + L.xr;
-  double* sYR = smem + L.yr;
-  double* sWR = smem + L.wr;
+  const bool with_dw = FULL && dw != nullptr;
+  const bool bins = FULL && sums != nullptr;
+  const BwdLayout L(ny, nx, kr, n_stages, with_dw, bins);
+  double* sG = smem;
   double* sGX = smem + L.gxs;
   double* sGY = smem + L.gys;
   double* sSum = smem + L.sums;
@@ -112,137 +138,182 @@ __global__ void __launch_bounds__(THREADS) s1_bwd_kernel(
   const int g = pair / n_ch;
   const int r0 = (blockIdx.x - pair * n_spans) * span;
   const int r_end = min(r0 + span, n_rays);
-  const T s2x = sx[g] * sx[g];
-  const T s2y = sy[g] * sy[g];
+  const int n_steps = s1::cdiv(r_end - r0, kr);
+  const size_t base = (size_t)pair * n_rays;
+  const T* gxp = gx + (size_t)g * nx;
+  const T* gyp = gy + (size_t)g * ny;
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
+
+  const T* cp = cot + (size_t)pair * ny * nx;
+  for (int k = tid; k < L.g_rows * L.pg; k += threads) {
+    const int iy = k / L.pg, ix = k - iy * L.pg;
+    sG[k] = iy < ny && ix < nx ? (double)cp[iy * nx + ix] : 0.0;
+  }
+  T* tcen = reinterpret_cast<T*>(smem + L.tcen);
+  for (int k = tid; k < ny + nx; k += threads) {
+    tcen[k] = k < ny ? gyp[k] : gxp[k - ny];
+    sGY[k] = (double)tcen[k];  // sGX = sGY + ny
+  }
+  if (bins)
+    for (int k = tid; k < 2 * (nx + ny); k += threads) sSum[k] = 0.0;
+  // The stages zeroed once: their padding columns stay zero.
+  for (size_t k = L.stage0 + tid; k < L.total; k += threads) smem[k] = 0.0;
+  __syncthreads();
+
+  const int warp = tid >> 5;
+  if (warp >= L.consumers) {
+    const T s2x = sx[g] * sx[g];
+    const T s2y = sy[g] * sy[g];
+    const s1::ProducerMap map(tid - 32 * L.consumers, threads - 32 * L.consumers, kr);
+    const T* xp = x + base;
+    const T* yp = y + base;
+    const T* wp = w ? w + base : nullptr;
+    s1::Quad<T> quad, next;
+    quad.load(xp, yp, wp, r0 + 4 * map.rg, r_end);
+    for (int i = 0; i < n_steps; ++i) {
+      const int s = i % n_stages;
+      if (i + 1 < n_steps) next.load(xp, yp, wp, r0 + (i + 1) * kr + 4 * map.rg, r_end);
+      if (i >= n_stages) s1::bar_sync(s1::BAR_EMPTY + s, threads);
+      double* E = smem + L.stage0 + s * L.stage;
+      double* X = E + (size_t)kr * L.pe;
+      double* XR = X + (size_t)kr * L.px;
+      s1::stage_factors<T>(map, quad, tcen, s2x, s2y, ny, nx, false, E, L.pe, X, L.px);
+      if (map.q == 0) {
+        // The group's rays in double for the terms: x, y, w (1 without weights).
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = j < quad.n_valid;
+          XR[4 * map.rg + j] = ok ? (double)quad.x[j] : 0.0;
+          XR[kr + 4 * map.rg + j] = ok ? (double)quad.y[j] : 0.0;
+          XR[2 * kr + 4 * map.rg + j] = ok ? (double)quad.w[j] : 1.0;
+        }
+      }
+      s1::bar_arrive(s1::BAR_FULL + s, threads);
+      quad = next;
+    }
+    return;
+  }
+
   const double sxd = (double)sx[g], syd = (double)sy[g];
   const double inv2x = 1.0 / (sxd * sxd), inv2y = 1.0 / (syd * syd);
   const double inv1x = 1.0 / sxd, inv1y = 1.0 / syd;
-  const size_t base = (size_t)pair * n_rays;
-  const T* xp = x + base;
-  const T* yp = y + base;
-  const T* wp = w ? w + base : nullptr;
-  const T* gxp = gx + (size_t)g * nx;
-  const T* gyp = gy + (size_t)g * ny;
-  const T* cp = cot + (size_t)pair * ny * nx;
-  const int tid = threadIdx.x;
-
-  for (int k = tid; k < ny * L.nxp; k += blockDim.x) {
-    const int iy = k / L.nxp, ix = k - iy * L.nxp;
-    sG[k] = ix < nx ? (double)cp[iy * nx + ix] : 0.0;
-  }
-  for (int k = tid; k < nx * L.nyp; k += blockDim.x) {
-    const int ix = k / L.nyp, iy = k - ix * L.nyp;
-    sGT[k] = iy < ny ? (double)cp[iy * nx + ix] : 0.0;
-  }
-  for (int k = tid; k < nx; k += blockDim.x) sGX[k] = (double)gxp[k];
-  for (int k = tid; k < ny; k += blockDim.x) sGY[k] = (double)gyp[k];
-  for (int k = tid; k < 2 * (nx + ny); k += blockDim.x) sSum[k] = 0.0;
-
-  const int mt = rc / TILE;
-  const int n_a = mt * (L.nxp / TILE);
-  const int n_b = mt * (L.nyp / TILE);
-  const int n_tasks = 2 * rc + (bins ? nx + ny : 0);
-  for (int c0 = r0; c0 < r_end; c0 += rc) {
-    const int n_valid = min(rc, r_end - c0);
-    __syncthreads();  // the cotangent is staged, or the last step is read
-    // The step's factors, bin-major so that neighbouring threads take
-    // neighbouring rays; zero past the span's last ray.
-    for (int k = tid; k < (ny + nx) * rc; k += blockDim.x) {
-      const int b = k / rc, j = k - b * rc;
-      double v = 0.0;
-      if (b < ny) {
-        if (j < n_valid) v = (double)s1::gauss(yp[c0 + j], gyp[b], s2y);
-        sEY[b * rc + j] = v;
-      } else {
-        if (j < n_valid) v = (double)s1::gauss(xp[c0 + j], gxp[b - ny], s2x);
-        sEX[(b - ny) * rc + j] = v;
-      }
-    }
-    for (int j = tid; j < rc; j += blockDim.x) {
-      const bool ok = j < n_valid;
-      sXR[j] = ok ? (double)xp[c0 + j] : 0.0;
-      sYR[j] = ok ? (double)yp[c0 + j] : 0.0;
-      sWR[j] = ok && wp ? (double)wp[c0 + j] : 1.0;
-    }
-    __syncthreads();
-    // A (tiles of rays x columns) and B (rays x rows), and their terms.
-    for (int t = tid; t < n_a + n_b; t += blockDim.x) {
-      const bool is_a = t < n_a;
-      const int u = is_a ? t : t - n_a;
-      const int mi = u % mt, ni = u / mt;
-      double acc[TILE][TILE];
-      s1::zero(acc);
-      if (is_a)
-        s1::tile_madd<T>(sEY + mi * TILE, rc, sG + ni * TILE, L.nxp, ny, acc);
-      else
-        s1::tile_madd<T>(sEX + mi * TILE, rc, sGT + ni * TILE, L.nyp, nx, acc);
+  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const int n_cons = 32 * L.consumers;
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = i % n_stages, par = i & 1;
+    const int c0 = r0 + i * kr;
+    const int n_valid = min(kr, r_end - c0);
+    s1::bar_sync(s1::BAR_FULL + s, threads);
+    const double* E = smem + L.stage0 + s * L.stage;
+    const double* X = E + (size_t)kr * L.pe;
+    const double* XR = X + (size_t)kr * L.px;
+    const double* YR = XR + kr;
+    const double* WR = YR + kr;
+    double* PX = smem + L.part + par * L.part_size;
+    double* PY = PX + (size_t)kr * L.ppx;
+    double* PW = PY + (size_t)kr * L.ppy;
+    double* TX = smem + L.tx + (size_t)par * kr * nx;
+    double* TY = smem + L.ty + (size_t)par * kr * ny;
+    for (int task = warp; task < L.tasks; task += L.consumers) {
+      const int mg = task / (L.ja + L.jb), kind = task - mg * (L.ja + L.jb);
+      const bool is_a = kind < L.ja;
+      const int j = is_a ? kind : kind - L.ja;
+      const int ray0 = 16 * mg;
+      // acc[n] = rays ray0 + gid (+ 8) by bins 8 (NW j + n) + 2 tig (+ 1).
+      double acc[NW][4];
 #pragma unroll
-      for (int i = 0; i < TILE; ++i) {
-        const int j = mi * TILE + i;
+      for (int n = 0; n < NW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0;
+      if (is_a)  // A(m, k) = ey[ray m][iy k], B(k, n) = G[iy k][ix n]
+        s1::mma_chain<T>(acc, E + ray0 * L.pe, L.pe, 1, sG + 8 * NW * j, L.pg, 1,
+                         sizeof(T) == 4 ? 4 * L.ka : ny, lane);
+      else       // A(m, k) = ex[ray m][ix k], B(k, n) = G[iy n][ix k]
+        s1::mma_chain<T>(acc, X + ray0 * L.px, L.px, 1, sG + 8 * NW * j * L.pg, 1, L.pg,
+                         sizeof(T) == 4 ? 4 * L.kb : nx, lane);
+      // The terms, ((acc f) q) w, f the factor and q = (v - centre) / sigma^2
+      // (w = 1 without weights: exact), and this thread's group sums over its
+      // bins in index order. A bin past the grid adds 0.0, which changes no
+      // sum (a sum from 0.0 is never -0.0).
+      const int nb = is_a ? nx : ny;
+      const double* cen = is_a ? sGX : sGY;
+      const double inv2 = is_a ? inv2x : inv2y;
 #pragma unroll
-        for (int l = 0; l < TILE; ++l) {
-          const int b = ni * TILE + l;
-          if (is_a) {
-            if (b < nx) {
-              const double q = (sXR[j] - sGX[b]) * inv2x;
-              sTX[j * L.nxp + b] = ((acc[i][l] * sEX[b * rc + j]) * q) * sWR[j];
+      for (int h = 0; h < 2; ++h) {
+        const int ray = ray0 + 8 * h + gid;
+        const double wd = WR[ray];
+        const double vd = (is_a ? XR : YR)[ray];
+        const double* f = is_a ? X + ray * L.px : E + ray * L.pe;
+        double sum = 0.0, sum_w = 0.0;
+#pragma unroll
+        for (int n = 0; n < NW; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int b = 8 * (NW * j + n) + 2 * tig + e;
+            const bool ok = b < nb;
+            const int bc = ok ? b : 0;
+            const double prod = acc[n][2 * h + e] * f[bc];
+            const double t = (prod * ((vd - cen[bc]) * inv2)) * wd;
+            sum = sum + (ok ? t : 0.0);
+            if constexpr (FULL) {
+              sum_w = sum_w + (ok ? prod : 0.0);
+              if (bins && ok) (is_a ? TX + ray * nx : TY + ray * ny)[b] = t;
             }
-          } else if (b < ny) {
-            const double be = acc[i][l] * sEY[b * rc + j];
-            const double q = (sYR[j] - sGY[b]) * inv2y;
-            sTY[j * L.nyp + b] = (be * q) * sWR[j];
-            if (with_be) sBE[j * L.nyp + b] = be;
           }
-        }
+        (is_a ? PX + ray * L.ppx : PY + ray * L.ppy)[4 * j + tig] = sum;
+        if constexpr (FULL)
+          if (with_dw && !is_a) PW[ray * L.ppy + 4 * j + tig] = sum_w;
       }
     }
-    __syncthreads();
-    // One thread a ray: d/dx, or d/dy and d/dw; with bins, one thread a bin.
-    for (int t = tid; t < n_tasks; t += blockDim.x) {
-      if (t < rc) {
-        if (t < n_valid) {
-          double s = 0.0;
-          for (int ix = 0; ix < nx; ++ix) s = s + sTX[t * L.nxp + ix];
-          dx[base + c0 + t] = (T)(-s);
+    s1::bar_sync(s1::BAR_CONSUMERS, n_cons);
+    // One thread a ray: d/dx, or d/dy and d/dw, from the group partials in
+    // order; with bins, one thread a bin.
+    const int n_fin = 2 * kr + (bins ? nx + ny : 0);
+    for (int t = tid; t < n_fin; t += n_cons) {
+      if (t < 2 * kr) {
+        const bool is_x = t < kr;
+        const int r = is_x ? t : t - kr;
+        if (r < n_valid) {
+          const int n_g = is_x ? L.gxn : L.gyn;
+          const double* src = is_x ? PX + r * L.ppx : PY + r * L.ppy;
+          double s_ = 0.0;
+          for (int q = 0; q < n_g; ++q) s_ = s_ + src[q];
+          (is_x ? dx : dy)[base + c0 + r] = (T)(-s_);
+          if constexpr (FULL)
+            if (with_dw && !is_x) {
+              double sw = 0.0;
+              for (int q = 0; q < n_g; ++q) sw = sw + PW[r * L.ppy + q];
+              dw[base + c0 + r] = (T)sw;
+            }
         }
-      } else if (t < 2 * rc) {
-        const int j = t - rc;
-        if (j < n_valid) {
-          double s = 0.0, sw = 0.0;
-          for (int iy = 0; iy < ny; ++iy) {
-            s = s + sTY[j * L.nyp + iy];
-            if (with_be) sw = sw + sBE[j * L.nyp + iy];
-          }
-          dy[base + c0 + j] = (T)(-s);
-          if (with_be) dw[base + c0 + j] = (T)sw;
-        }
-      } else if (t < 2 * rc + nx) {
-        const int ix = t - 2 * rc;
+      } else if (!FULL) {
+      } else if (t < 2 * kr + nx) {
+        const int ix = t - 2 * kr;
         double a = sSum[ix], v = sSum[nx + ix];
-        for (int j = 0; j < n_valid; ++j) {
-          const double tt = sTX[j * L.nxp + ix];
+        for (int r = 0; r < n_valid; ++r) {
+          const double tt = TX[r * nx + ix];
           a = a + tt;
-          v = v + tt * ((sXR[j] - sGX[ix]) * inv1x);
+          v = v + tt * ((XR[r] - sGX[ix]) * inv1x);
         }
         sSum[ix] = a;
         sSum[nx + ix] = v;
       } else {
-        const int iy = t - 2 * rc - nx;
+        const int iy = t - 2 * kr - nx;
         double a = sSum[2 * nx + iy], v = sSum[2 * nx + ny + iy];
-        for (int j = 0; j < n_valid; ++j) {
-          const double tt = sTY[j * L.nyp + iy];
+        for (int r = 0; r < n_valid; ++r) {
+          const double tt = TY[r * ny + iy];
           a = a + tt;
-          v = v + tt * ((sYR[j] - sGY[iy]) * inv1y);
+          v = v + tt * ((YR[r] - sGY[iy]) * inv1y);
         }
         sSum[2 * nx + iy] = a;
         sSum[2 * nx + ny + iy] = v;
       }
     }
+    if (i + n_stages < n_steps) s1::bar_arrive(s1::BAR_EMPTY + s, threads);
   }
-  if (bins) {
-    __syncthreads();
+  if (FULL && bins) {
+    s1::bar_sync(s1::BAR_CONSUMERS, n_cons);
     double* dst = sums + (size_t)blockIdx.x * 2 * (nx + ny);
-    for (int k = tid; k < 2 * (nx + ny); k += blockDim.x) dst[k] = sSum[k];
+    for (int k = tid; k < 2 * (nx + ny); k += n_cons) dst[k] = sSum[k];
   }
 }
 
@@ -291,23 +362,26 @@ cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy,
                    const void* sy, const void* w, const void* cot, void* dx, void* dy, void* dw,
                    double* sums, void* dgx, void* dgy, void* dsx, void* dsy, int n_grids,
                    int n_ch, int n_rays, int ny, int nx, int span, cudaStream_t stream) {
-  const int rc = step_rays(ny, nx, dw != nullptr);
-  if (rc == 0) return cudaErrorInvalidValue;
-  const size_t smem = Layout(ny, nx, rc, dw != nullptr).bytes();
+  int kr, stages;
+  step_plan(ny, nx, dw != nullptr, sums != nullptr, kr, stages);
+  if (kr == 0) return cudaErrorInvalidValue;
+  const BwdLayout L(ny, nx, kr, stages, dw != nullptr, sums != nullptr);
+  const size_t smem = L.bytes();
+  const int threads = (L.consumers + PRODUCER_WARPS) * 32;
   const int n_spans = (n_rays + span - 1) / span;
   const long long blocks = (long long)n_grids * n_ch * n_spans;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   cudaError_t err;
   if (blocks > 0) {
+    auto kernel = dw || sums ? s1_bwd_kernel<T, true> : s1_bwd_kernel<T, false>;
     if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(s1_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return err;
     }
-    s1_bwd_kernel<T><<<(unsigned)blocks, THREADS, smem, stream>>>(
+    kernel<<<(unsigned)blocks, threads, smem, stream>>>(
         (const T*)x, (const T*)y, (const T*)gx, (const T*)gy, (const T*)sx, (const T*)sy,
         (const T*)w, (const T*)cot, (T*)dx, (T*)dy, (T*)dw, sums, n_ch, n_rays, ny, nx, span,
-        n_spans, rc);
+        n_spans, kr, stages);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -14,32 +14,48 @@
 //   eyw[r, iy] = exp(-(((y[r] - gy[iy])^2) / sigma_y^2) / 2) * w[r],
 //
 // each factor in the inputs' type (float32 or float64) in the JAX formula's
-// order (s1::gauss), w = 1 without weights. The plain PyTorch version is
+// order (s1::gauss4), w = 1 without weights. The plain PyTorch version is
 // ops/psf.py:splat_reference; the two agree bit for bit.
 //
 // Sum order, fixed and free of atomics: each pair's rays are cut into spans
-// of `span` rays (ops/psf.py:splat_span, a multiple of CHUNK chosen so that
-// pairs x spans is about 1,024 blocks: the default configuration has only
-// 63 pairs for 132 SMs). A block sums one span's rays in order, from 0.0, in
-// double (a product of two float32 factors is exact there, so a fused
-// multiply-add rounds as the plain version's product and sum do); a bin's
-// span sums go to a workspace of doubles (18 MB at the default shape), and
-// the second kernel adds them in span order from 0.0 and rounds once.
+// (ops/psf.py:splat_span, a function of the shape alone: as many spans a
+// pair as fill SPLAT_SLOTS = 132 SMs x 2 blocks, of equal length rounded up
+// to CHUNK). A block sums one span's rays in order, from 0.0, in double (a
+// product of two float32 factors is exact there); a bin's span sums go to a
+// workspace of doubles (4.3 MB at the default shape), and the second kernel
+// adds them in span order from 0.0 and rounds once.
 //
 // What bounds it on an H100, at the default configuration: 8.86e9 products
 // and as many sums, and 4.05e8 factors of 6 operations (one exp and one
 // division among them), 2.01e10 operations, 0.30 ms at 67 TFLOP/s; the
 // bytes (x, y and the weights read once, the half kernels written once)
-// take 0.01 ms. Operations bound it. This design's products are double
-// FMAs outside the tensor cores (34 TFLOP/s: 0.52 ms).
+// take 0.01 ms, so TMA would buy nothing: a stage's coordinates come in as
+// 16-byte loads, issued a stage ahead. Operations bound it, and of them
+// the factors weigh most: each one's IEEE division (a reciprocal, a check
+// and a refinement, with its own slow-path branch) and expf run on the
+// SM's quarter-rate units, 98 factors a ray and pair against 3,200
+// multiply-adds a ray on the tensor cores.
 //
-// Design, as a matrix product half = EYW^T EX over the rays: a block covers
-// the whole half grid in 4 x 4 register tiles of bins, one a thread. A step
-// stages CHUNK rays' factors into shared memory as doubles, each computed
-// once per ray and bin (n_y + n_x/2 a ray, not n_y * n_x/2), then every
-// thread runs the CHUNK ray positions, 8 doubles loaded for 16 FMAs a
-// position. A simple kernel: tensor cores, TMA and a ring of stages are left
-// to a later design.
+// Design, as a matrix product half = EYW^T EX over the rays (M = n_y, N =
+// n_x/2, K = the span's rays), warp-specialised:
+// - Products on the FP64 tensor cores (float32 inputs): mma.sync m16n8k4,
+//   which rounds as the chain of fused multiply-adds in k order (the probe,
+//   psf_splat_probe.cu, checks it bit for bit on the card, and measures it
+//   at twice the rate of m8n8k4 and of DFMA), so the k-steps in ray order
+//   give the plain version's sum. A consumer warp holds one 16-row tile of
+//   bins by NW 8-column tiles (65 x 33: 5 warps, 80 x 40 after padding) and
+//   runs it over every ray of the span (s1::mma_chain, no predicates: the
+//   padding is zero); float64 inputs keep the same tiles on separate double
+//   multiplies and adds (s1::madd).
+// - Factors overlapped with the products: producer warps fill a ring of
+//   MAX_STAGES stages of CHUNK rays (eyw[ray][iy], ex[ray][ix] as doubles,
+//   row pitches that keep the fragments' loads free of bank conflicts)
+//   while the consumers read the previous one; named barriers (FULL,
+//   EMPTY) hand a stage over, never a whole-block barrier. A producer
+//   thread's 4 rays and bins are a fixed map (s1::ProducerMap), its four
+//   divisions issued before its four exps (s1::gauss4).
+// - Two blocks an SM (the grid's rule in splat_span), one wave at the
+//   default shape: 63 pairs x 4 spans of 16,384 rays.
 
 #include <cuda_runtime.h>
 
@@ -48,77 +64,121 @@
 namespace {
 
 using s1::CHUNK;
-using s1::TILE;
+using s1::NW;
 
-// Threads of the largest grid's tiles, rounded to whole warps.
-constexpr int MAX_THREADS =
-    ((s1::MAX_NY + TILE - 1) / TILE * ((s1::MAX_NX + TILE - 1) / TILE) + 31) / 32 * 32;
+// 288 producer threads: 36 a group of 4 rays, each at most 3 of the default
+// grid's 98 factors a stage. With its 5 consumers a block has 14 warps, and
+// two blocks of 72 registers a thread share an SM.
+constexpr int PRODUCER_WARPS = 9;
+// The largest grid's consumers (9 row tiles x 2 column groups) and producers.
+constexpr int MAX_THREADS = (9 * 2 + PRODUCER_WARPS) * 32;
+// The shared memory a block aims at, so that two fit an SM.
+constexpr size_t SMEM_TWO = 113 * 1024;
+
+// A forward block's shape: mt 16-row tiles of bins by ng groups of NW
+// 8-column tiles (the last padded with zero columns); consumer warps mt x
+// ng; a stage's rows of eyw (pitch pe) and of ex (pitch px), in doubles,
+// after the grid's centres (ny + nx of the inputs' type, gy's first).
+struct FwdLayout {
+  int mt, ng, consumers, pe, px;
+  size_t stage0, stage;
+
+  __host__ __device__ FwdLayout(int ny, int nx) {
+    mt = s1::cdiv(ny, 16);
+    ng = s1::cdiv(nx, 8 * NW);
+    consumers = mt * ng;
+    pe = s1::pitch(16 * mt);
+    px = s1::pitch(8 * NW * ng);
+    stage0 = (size_t)ny + nx;
+    stage = (size_t)CHUNK * (pe + px);
+  }
+
+  size_t bytes(int stages) const { return sizeof(double) * (stage0 + stage * stages); }
+};
+
+// The most stages (up to MAX_STAGES) that let two blocks share an SM, or
+// else one block; 0 if not even one stage fits.
+int fwd_stages(const FwdLayout& L) {
+  const size_t caps[2] = {SMEM_TWO, s1::SMEM_MAX};
+  for (size_t cap : caps)
+    for (int s = s1::MAX_STAGES; s >= 1; --s)
+      if (L.bytes(s) <= cap) return s;
+  return 0;
+}
 
 // Block b = pair * n_spans + span: its span's sums of every bin, into
-// partials[b][iy][ix]. Shared memory: a step's eyw[CHUNK][nyp] and
-// ex[CHUNK][nxp], zero past the span's last ray and in the padding bins.
+// partials[b][iy][ix]. Warps [0, consumers) consume, the rest produce.
 template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS) s1_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ gx,
     const T* __restrict__ gy, const T* __restrict__ sx, const T* __restrict__ sy,
     const T* __restrict__ w, double* __restrict__ partials, int n_ch, int n_rays, int ny,
-    int nx, int span, int n_spans) {
+    int nx, int span, int n_spans, int n_stages) {
   extern __shared__ double smem[];
-  const int nyp = s1::pad4(ny), nxp = s1::pad4(nx);
-  double* s_ey = smem;
-  double* s_ex = smem + CHUNK * nyp;
+  const FwdLayout L(ny, nx);
   const int pair = blockIdx.x / n_spans;
   const int g = pair / n_ch;
   const int r0 = (blockIdx.x - pair * n_spans) * span;
   const int r_end = min(r0 + span, n_rays);
-  const T s2x = sx[g] * sx[g];
-  const T s2y = sy[g] * sy[g];
-  const T* xp = x + (size_t)pair * n_rays;
-  const T* yp = y + (size_t)pair * n_rays;
-  const T* wp = w ? w + (size_t)pair * n_rays : nullptr;
-  const T* gxp = gx + (size_t)g * nx;
-  const T* gyp = gy + (size_t)g * ny;
-  // This thread's tile: rows ty * TILE .., columns tx * TILE ...
-  const int tx_n = nxp / TILE;
-  const bool computes = threadIdx.x < tx_n * (nyp / TILE);
-  const int ty = threadIdx.x / tx_n;
-  const int tx = threadIdx.x - ty * tx_n;
-  double acc[TILE][TILE];
-  s1::zero(acc);
-  const int per = nyp + nxp;
-  for (int c0 = r0; c0 < r_end; c0 += CHUNK) {
-    __syncthreads();  // the last step's factors are read
-    for (int k = threadIdx.x; k < CHUNK * per; k += blockDim.x) {
-      const int j = k / per;
-      const int b = k - j * per;
-      const int r = c0 + j;
-      double v = 0.0;
-      if (b < nyp) {
-        if (r < r_end && b < ny) {
-          T e = s1::gauss(yp[r], gyp[b], s2y);
-          if (wp) e = e * wp[r];
-          v = (double)e;
-        }
-        s_ey[j * nyp + b] = v;
-      } else {
-        const int ix = b - nyp;
-        if (r < r_end && ix < nx) v = (double)s1::gauss(xp[r], gxp[ix], s2x);
-        s_ex[j * nxp + ix] = v;
-      }
+  const int n_steps = s1::cdiv(r_end - r0, CHUNK);
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
+  // The grid's centres; every stage zeroed once (the padding stays zero).
+  T* cen = reinterpret_cast<T*>(smem);
+  for (int k = tid; k < ny + nx; k += threads)
+    cen[k] = k < ny ? gy[(size_t)g * ny + k] : gx[(size_t)g * nx + k - ny];
+  for (size_t k = L.stage0 + tid; k < L.stage0 + L.stage * n_stages; k += threads) smem[k] = 0.0;
+  __syncthreads();
+
+  const int warp = tid >> 5;
+  if (warp >= L.consumers) {
+    const T s2x = sx[g] * sx[g];
+    const T s2y = sy[g] * sy[g];
+    const size_t base = (size_t)pair * n_rays;
+    const T* xp = x + base;
+    const T* yp = y + base;
+    const T* wp = w ? w + base : nullptr;
+    const s1::ProducerMap map(tid - 32 * L.consumers, threads - 32 * L.consumers, CHUNK);
+    s1::Quad<T> quad, next;
+    quad.load(xp, yp, wp, r0 + 4 * map.rg, r_end);
+    for (int i = 0; i < n_steps; ++i) {
+      const int s = i % n_stages;
+      if (i + 1 < n_steps) next.load(xp, yp, wp, r0 + (i + 1) * CHUNK + 4 * map.rg, r_end);
+      if (i >= n_stages) s1::bar_sync(s1::BAR_EMPTY + s, threads);
+      double* E = smem + L.stage0 + s * L.stage;
+      s1::stage_factors<T>(map, quad, cen, s2x, s2y, ny, nx, w != nullptr, E, L.pe,
+                           E + CHUNK * L.pe, L.px);
+      s1::bar_arrive(s1::BAR_FULL + s, threads);
+      quad = next;
     }
-    __syncthreads();
-    if (computes) s1::tile_madd<T>(s_ey + ty * TILE, nyp, s_ex + tx * TILE, nxp, CHUNK, acc);
+    return;
   }
-  if (computes) {
-    double* dst = partials + (size_t)blockIdx.x * ny * nx;
+
+  // Consumer: row tile mi, column tiles NW * nj + n; D as the m16n8k4
+  // fragment: acc[n] = rows 16 mi + gid (+ 8), columns 8 (NW nj + n) + 2 tig
+  // (+ 1).
+  const int mi = warp / L.ng, nj = warp - mi * L.ng;
+  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  double acc[NW][4];
 #pragma unroll
-    for (int i = 0; i < TILE; ++i)
-#pragma unroll
-      for (int l = 0; l < TILE; ++l) {
-        const int iy = ty * TILE + i, ix = tx * TILE + l;
-        if (iy < ny && ix < nx) dst[iy * nx + ix] = acc[i][l];
-      }
+  for (int n = 0; n < NW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0;
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = i % n_stages;
+    s1::bar_sync(s1::BAR_FULL + s, threads);
+    const double* E = smem + L.stage0 + s * L.stage;
+    const double* X = E + CHUNK * L.pe;
+    // A(m, k) = eyw[ray k][row tile + m], B(k, n) = ex[ray k][column group + n].
+    s1::mma_chain<T>(acc, E + 16 * mi, 1, L.pe, X + 8 * NW * nj, L.px, 1, CHUNK, lane);
+    if (i + n_stages < n_steps) s1::bar_arrive(s1::BAR_EMPTY + s, threads);
   }
+  double* dst = partials + (size_t)blockIdx.x * ny * nx;
+#pragma unroll
+  for (int n = 0; n < NW; ++n)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int iy = 16 * mi + gid + 8 * (v >> 1), ix = 8 * (NW * nj + n) + 2 * tig + (v & 1);
+      if (iy < ny && ix < nx) dst[iy * nx + ix] = acc[n][v];
+    }
 }
 
 // Each bin's span sums added in span order from 0.0, rounded once, into the
@@ -141,12 +201,13 @@ cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy,
                    int n_ch, int n_rays, int ny, int nx, int span, cudaStream_t stream) {
   const long long n_pairs = (long long)n_grids * n_ch;
   const int n_spans = (n_rays + span - 1) / span;
-  const int nyp = s1::pad4(ny), nxp = s1::pad4(nx);
-  const int tiles = (nyp / TILE) * (nxp / TILE);
-  const int threads = tiles < 128 ? 128 : (tiles + 31) / 32 * 32;
-  const size_t smem = sizeof(double) * CHUNK * (nyp + nxp);
+  const FwdLayout L(ny, nx);
+  const int stages = fwd_stages(L);
+  if (stages == 0) return cudaErrorInvalidValue;
+  const int threads = (L.consumers + PRODUCER_WARPS) * 32;
+  const size_t smem = L.bytes(stages);
   const long long blocks = n_pairs * n_spans;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL || threads > MAX_THREADS) return cudaErrorInvalidValue;
   cudaError_t err;
   if (blocks > 0) {
     if (smem > 48 * 1024) {
@@ -156,7 +217,7 @@ cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy,
     }
     s1_fwd_kernel<T><<<(unsigned)blocks, threads, smem, stream>>>(
         (const T*)x, (const T*)y, (const T*)gx, (const T*)gy, (const T*)sx, (const T*)sy,
-        (const T*)w, partials, n_ch, n_rays, ny, nx, span, n_spans);
+        (const T*)w, partials, n_ch, n_rays, ny, nx, span, n_spans, stages);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -174,7 +235,7 @@ cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy,
 
 extern "C" {
 
-// The largest half grid S1 takes, and the rays a forward block stages a step.
+// The largest half grid S1 takes, and the rays a forward stage holds.
 int s1_max_ny() { return s1::MAX_NY; }
 int s1_max_nx() { return s1::MAX_NX; }
 int s1_chunk() { return CHUNK; }

@@ -20,6 +20,8 @@ the kernels are checked against.
 
 from __future__ import annotations
 
+import itertools
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -35,22 +37,32 @@ SPLAT_LAUNCHES = 0
 #: gradient, is not counted).
 SPLAT_BWD_LAUNCHES = 0
 
-#: Rays a block of S1 stages at a time; a span is a multiple of it.
+#: Rays a stage of S1's forward holds; a span is a multiple of it.
 SPLAT_CHUNK = 32
-#: The blocks a splat aims at, (grid, channel) pairs times spans a pair: enough
-#: to fill an H100's 132 SMs several times over.
-SPLAT_BLOCKS = 1024
+#: The blocks of S1's forward an H100 holds at once: 132 SMs, two blocks each
+#: (at the default configuration's grid). :func:`splat_span` sizes the spans
+#: to fill them.
+SPLAT_SLOTS = 132 * 2
+#: Column tiles of 8 bins a consumer warp of S1's adjoint holds: the groups
+#: of :func:`grouped_sum`.
+SPLAT_GROUP_TILES = 5
 #: The largest half grid S1 takes: n_y rows and n_x/2 columns (a PSF grid up
 #: to 129 x 129 or 129 x 130).
 SPLAT_MAX_NY, SPLAT_MAX_NX = 129, 65
 
 
 def splat_span(n_rays: int, n_pairs: int) -> int:
-    """Rays a span: each (grid, channel) pair's rays are cut into spans of
-    this many, a multiple of ``SPLAT_CHUNK``, so that pairs x spans is about
-    ``SPLAT_BLOCKS``. A span's rays are summed in order (one block of S1),
-    then the spans' sums in order; the plain versions cut the rays alike."""
-    per = -(-int(n_rays) * int(n_pairs) // SPLAT_BLOCKS)
+    """Rays a span, S1's grid rule and the order of its sums: each (grid,
+    channel) pair's rays are cut into ``SPLAT_SLOTS // n_pairs`` spans (at
+    least one) of equal length, rounded up to a multiple of ``SPLAT_CHUNK``,
+    so that pairs x spans fills the forward's resident blocks in one wave
+    where the pairs allow it (the default configuration: 63 pairs x 4 spans
+    of 16,384 rays, 252 blocks on 264 slots) and the last span is all but
+    full. A span's rays are summed in order (one block of S1), then the
+    spans' sums in order; the plain versions cut the rays alike. A function
+    of the shape alone, not of the card."""
+    n_spans = max(1, SPLAT_SLOTS // max(1, int(n_pairs)))
+    per = -(-int(n_rays) // n_spans)
     return max(1, -(-per // SPLAT_CHUNK)) * SPLAT_CHUNK
 
 
@@ -117,6 +129,25 @@ def _ordered_sum(a: torch.Tensor) -> torch.Tensor:
     return s
 
 
+def grouped_sum(a: torch.Tensor) -> torch.Tensor:
+    """S1's adjoint's sum of a ray's terms over its n bins (the last axis),
+    in two levels as the kernel's threads hold them: the bins fall into 4 J
+    groups (j, t), J = ceil(n / 40), group (j, t) holding the bins 40 j + 8 k
+    + 2 t + e (k < ``SPLAT_GROUP_TILES``, e < 2) that are below n; each
+    group's bins are summed in index order from 0.0, then the group sums in
+    order (j, then t) from 0.0."""
+    n = a.shape[-1]
+    tiles = SPLAT_GROUP_TILES
+    groups = np.arange(-(-n // (8 * tiles)) * 8 * tiles).reshape(-1, tiles, 4, 2)
+    total = torch.zeros(a.shape[:-1], dtype=a.dtype, device=a.device)
+    for bins in groups.transpose(0, 2, 1, 3).reshape(-1, 2 * tiles):
+        s = torch.zeros_like(total)
+        for b in bins[bins < n]:
+            s = s + a[..., b]
+        total = total + s
+    return total
+
+
 def splat_backward_reference(x: torch.Tensor, y: torch.Tensor, gx: torch.Tensor,
                              gy: torch.Tensor, sigma_x: torch.Tensor, sigma_y: torch.Tensor,
                              weights: Optional[torch.Tensor], cotangent: torch.Tensor,
@@ -129,7 +160,7 @@ def splat_backward_reference(x: torch.Tensor, y: torch.Tensor, gx: torch.Tensor,
     B[iy] = sum_ix G[iy, ix] ex[ix] in index order from 0.0; tx[ix] = ((A ·
     ex) · qx) · w with qx = (x - gx) · (1 / sigma_x^2), ty[iy] = ((B · ey) ·
     qy) · w; d/dx = -sum_ix tx, d/dy = -sum_iy ty, d/dw = sum_iy B · ey, each
-    in index order from 0.0 and rounded once. With ``bins``, the grid's
+    a :func:`grouped_sum` rounded once. With ``bins``, the grid's
     gradients: d/dgx[ix] = sum tx and d/dsigma_x = sum tx · (x - gx) ·
     (1 / sigma_x) (y alike): each span's rays summed in order per bin, then
     per grid over (channel, span) in order; d/dsigma_x sums the bins' totals
@@ -174,10 +205,10 @@ def splat_backward_reference(x: torch.Tensor, y: torch.Tensor, gx: torch.Tensor,
         if ws is not None:
             w = ws[..., sl, None].double()
             tx, ty = tx * w, ty * w
-        per_ray["dx"][..., sl] = -_ordered_sum(tx)
-        per_ray["dy"][..., sl] = -_ordered_sum(ty)
+        per_ray["dx"][..., sl] = -grouped_sum(tx)
+        per_ray["dy"][..., sl] = -grouped_sum(ty)
         if weights_grad:
-            per_ray["dw"][..., sl] = _ordered_sum(be)
+            per_ray["dw"][..., sl] = grouped_sum(be)
         if bins:
             # Past R a term is zero (the kernel skips those rays).
             ok = valid[:, sl, None]
@@ -201,6 +232,100 @@ def splat_backward_reference(x: torch.Tensor, y: torch.Tensor, gx: torch.Tensor,
         dgx, dgy = tot["gx"].to(dt), tot["gy"].to(dt)
         dsx, dsy = _ordered_sum(tot["sx"]).to(dt), _ordered_sum(tot["sy"]).to(dt)
     return dx, dy, dgx, dgy, dsx, dsy, (dw if weights_grad else None)
+
+
+def dmma_probe_inputs(seed: int = 0, n_random: int = 128) -> dict:
+    """The cases of S1's tensor-core probe (``csrc/psf_splat_probe.cu``),
+    {label: (A (n, 16, 4), B (n, 4, 8), C (n, 16, 8))} in float64, A and B
+    float32 values (their products exact in double): ties (every product
+    2^-53 against accumulators 1 + j 2^-52, either sign), cancellation
+    (2^60 - 2^60 beside 1 and 2^-30, in 16 orders), the terms' order (1,
+    2^-53, 2^-53, 2^-54 in every order from 0), random products of normal
+    values and of exponents from -30 to 30, and products of float32
+    subnormals (normal in double)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: np.asarray(a, dtype=np.float32).astype(np.float64)
+    perms = np.array(list(itertools.permutations(range(4))))     # 24 orders
+    cases = {}
+    j = np.arange(128, dtype=np.float64).reshape(16, 8)
+    B = np.full((2, 4, 8), 2.0 ** -26)
+    B[1, 1::2] = -B[1, 1::2]
+    cases["ties"] = (np.full((2, 16, 4), 2.0 ** -27), B,
+                     np.stack([1.0 + j * 2.0 ** -52, -(1.0 + j * 2.0 ** -52)]))
+    big = np.array([2.0 ** 60, -2.0 ** 60, 1.0, 2.0 ** -30])
+    cases["cancellation"] = (big[perms[:16]][None], np.ones((1, 4, 8)), np.ones((1, 16, 8)))
+    terms = np.array([1.0, 2.0 ** -53, 2.0 ** -53, 2.0 ** -54])
+    order = terms[np.concatenate([perms, perms[:8]])].reshape(2, 16, 4)
+    cases["order"] = (order, np.ones((2, 4, 8)), np.zeros((2, 16, 8)))
+    shape = lambda *s: (n_random,) + s
+    cases["random"] = (f32(rng.normal(size=shape(16, 4))), f32(rng.normal(size=shape(4, 8))),
+                       rng.normal(size=shape(16, 8)))
+    wide = lambda s: f32(rng.choice([-1.0, 1.0], s) * rng.uniform(1.0, 2.0, s)
+                         * 2.0 ** rng.integers(-30, 31, s))
+    cases["random, exponents -30 to 30"] = (wide(shape(16, 4)), wide(shape(4, 8)),
+                                            wide(shape(16, 8)))
+    tiny = lambda s: f32(rng.uniform(1.0, 2.0, s) * 2.0 ** rng.integers(-149, -126, s))
+    cases["float32 subnormals"] = (tiny(shape(16, 4)), f32(rng.normal(size=shape(4, 8))),
+                                   tiny(shape(16, 8)) * 1e-3)
+    return cases
+
+
+def _dmma_models(A, B, C) -> dict:
+    """What D = C + A B would be under each order and rounding, in float64
+    (every product exact): the chain in k order (fused multiply-adds), the
+    chain in reverse order, C + ((p0 + p1) + (p2 + p3)), and one rounding of
+    the exact sum."""
+    p = A[:, :, :, None] * B[:, None, :, :]                        # (n, 16, k, 8)
+    chain, reverse = C.copy(), C.copy()
+    for k in range(4):
+        chain = chain + p[:, :, k]
+        reverse = reverse + p[:, :, 3 - k]
+    pairwise = C + ((p[:, :, 0] + p[:, :, 1]) + (p[:, :, 2] + p[:, :, 3]))
+    terms = np.concatenate([C[:, :, None], p], axis=2).transpose(0, 1, 3, 2).reshape(-1, 5)
+    once = np.array([math.fsum(t) for t in terms]).reshape(C.shape)
+    return {"fma chain in k order": chain, "chain in reverse order": reverse,
+            "pairwise": pairwise, "one rounding of the exact sum": once}
+
+
+#: The shapes S1's probe runs: {name: (mma.sync shape, rows of D it computes)}.
+DMMA_SHAPES = {"m8n8k4": (0, 8), "m16n8k4": (1, 16)}
+
+
+def dmma_probe(seed: int = 0) -> dict:
+    """Run S1's tensor-core probe on the card: one ``mma.sync ... .f64`` a
+    case, m8n8k4 and m16n8k4 (``DMMA_SHAPES``), against the chain of fma()
+    in k order on the same lanes (``csrc/psf_splat_probe.cu``), on
+    :func:`dmma_probe_inputs`. Returns {shape: {label: {"entries": n,
+    "differ": entries whose bits differ from the chain, "fma_chain_ok": the
+    device chain equals the float64 chain, "models": the orders and
+    roundings (``_dmma_models``) whose bits the instruction gave on every
+    entry}}}; every "differ" is 0 when S1's float32 route may take its
+    products on the tensor cores (it runs m16n8k4)."""
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    bits = lambda a: a.view(np.int64)
+    out = {}
+    for shape, (m16, rows) in DMMA_SHAPES.items():
+        out[shape] = {}
+        for label, (A, B, C) in dmma_probe_inputs(seed).items():
+            dev = [torch.tensor(np.ascontiguousarray(a), dtype=torch.float64, device="cuda")
+                   for a in (A, B, C)]
+            d_mma, d_fma = torch.empty_like(dev[2]), torch.empty_like(dev[2])
+            err = lib.s1_dmma_probe(*[a.data_ptr() for a in dev], d_mma.data_ptr(),
+                                    d_fma.data_ptr(), A.shape[0], m16,
+                                    torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"S1's tensor-core probe failed: "
+                                   f"{lib.k1_error_string(err).decode()}")
+            torch.cuda.synchronize()
+            mma, fma = d_mma.cpu().numpy()[:, :rows], d_fma.cpu().numpy()
+            models = _dmma_models(A, B, C)
+            out[shape][label] = {
+                "entries": int(mma.size), "differ": int((bits(mma) != bits(fma[:, :rows])).sum()),
+                "fma_chain_ok": bool((bits(fma) == bits(models["fma chain in k order"])).all()),
+                "models": [k for k, v in models.items()
+                           if (bits(v[:, :rows]) == bits(mma)).all()]}
+    return out
 
 
 def splat_argument_error(x_shape, gx_shape, gy_shape):
