@@ -143,7 +143,9 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     rings, 33 x 33 PSFs at 4 um, 5 x 5 patches): kernel P2 (the SVOLA patch
     convolution) against its plain version, bit for bit, on the patches of
     the sample photograph at 1024^2, 256^2 and 2048^2 (K = 11, 3, 23), on
-    non-square patches and on a batch of two; under grad it runs;
+    non-square patches and on a batch of two, and ``svola_patch_conv`` on
+    each against its route's plain version (from 23 taps the FFT route's);
+    under grad it runs;
 30. ``imaging.simulate`` of the photograph at 1024^2 and 256^2 (geometric
     PSFs on K1f, the separable warp): one K1 forward and one P2 launch a
     render, the card's render held against the CPU's; a 256^2 diffraction
@@ -156,7 +158,8 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     shape, and the host wall of a render at 256, 512 and 1024^2, split into
     ``sample_optics_model`` and ``apply_optics_model``;
 33. P2 with wide PSFs, which take its FFT route (``csrc/svola_fft.cu``,
-    three launches a call), bit for bit with the route's plain version: the
+    three launches a call; mixed-radix transforms at ``image.fft_len``, the
+    reference's fast lengths), bit for bit with the route's plain version: the
     default configuration's (65 x 65 PSFs, 9 x 9 patches) renders at
     1448^2, 2048^2 and 4096^2 (K = 33, 47, 95) and seeded non-square cases
     (kh 47 x kw 29, kh 21 x kw 95), a PSF as large as its patch, five
@@ -166,9 +169,9 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     the default configuration at 2048^2 and of config 5 at 4096^2, one K1
     forward and one FFT call each;
 34. P2's adjoint through ``svola_patch_conv``'s backward at config 5's
-    1024^2 shape (K = 11, the direct kernels), its 2048^2 (K = 23: the
-    direct forward and d/dpatch, the FFT route's d/dpsf) and the default
-    configuration's 2048^2 and 4096^2 (K = 47, 95, the FFT route): d/dpsf
+    1024^2 shape (K = 11, the direct kernels), its 2048^2 (K = 23) and the
+    default configuration's 2048^2 and 4096^2 (K = 47, 95; the FFT route
+    from 23 taps both ways): d/dpsf
     and d/dpatch (P2 on the padded cotangent) bit for bit with their
     routes' plain versions, each route's launches counted; the direct
     d/dpsf kernel alone on seeded shapes (K = 1 to 22, non-square, ragged
@@ -183,8 +186,10 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     dict) on the fused engine, held against the CPU;
 37. timings: the direct d/dpsf, its plain version and the torch.fft
     correlation at config 5's 1024^2 shape; the FFT route's forward and
-    d/dpsf, their plain versions and the torch.fft calls at K = 47 and 95,
-    with the route's bound and the direct sum's; both routes (the direct
+    d/dpsf, their plain versions and the torch.fft calls at K = 33, 47 and
+    95, with the route's bound at the fast lengths (``fft_route_bound``, the
+    same yardstick for any tree; the power-of-two lengths' beside it) and
+    the direct sum's; both routes (the direct
     kernels where they take the PSF) and the torch.fft calls at the renders
     that set the route's thresholds (config 5 at 1024^2, 2048^2, the default
     configuration at 1024^2-4096^2);
@@ -3724,12 +3729,14 @@ def p2_inputs(torch, imaging, image, model, radiance, cfg):
 
 
 def phase_p2_kernel(torch, zoo, simulator, imaging, image):
-    """P2 against its plain version on real data: the patches of the sample
-    photograph at 1024^2, 256^2 and 2048^2 with the double-Gauss's PSFs
-    resized as a render resizes them (K = 11, 3 and 23); a non-square image
-    (256 x 384, non-square patches); a batch of two images (the photograph
-    and its mirror). Bit-identical is the bar (the same tap order, no FMA
-    contraction). Under grad it runs, with the same bits (its adjoint is
+    """P2's direct kernel against its plain version on real data: the
+    patches of the sample photograph at 1024^2, 256^2 and 2048^2 with the
+    double-Gauss's PSFs resized as a render resizes them (K = 11, 3 and 23);
+    a non-square image (256 x 384, non-square patches); a batch of two
+    images (the photograph and its mirror); and ``svola_patch_conv`` on each
+    against its route's plain version (K = 23 takes the FFT route).
+    Bit-identical is the bar (the same tap order, no FMA contraction). Under
+    grad it runs, with the same bits (its adjoint is
     ``phase_p2_adjoint``'s). Returns the largest deviation and the 1024^2
     inputs for the timing."""
     cfg = imaging_config(simulator)
@@ -3750,15 +3757,20 @@ def phase_p2_kernel(torch, zoo, simulator, imaging, image):
     cases.append(("B = 2 at 1024^2", p2_inputs(torch, imaging, image, model, both, cfg)))
     for label, (patches, psfs) in cases:
         with torch.no_grad():
-            got = image.svola_patch_conv(patches, psfs)
+            got = image._launch_p2(patches, psfs)
+            routed = image.svola_patch_conv(patches, psfs)
             torch.cuda.synchronize()
             want = image.svola_patch_conv_reference(patches, psfs)
+            want_routed = plain_p2(image, patches, psfs)
         err = float((got - want).abs().max())
         worst = max(worst, err)
-        check(torch.equal(got, want) and bool(torch.isfinite(got).all()),
+        route = "FFT" if image.p2_takes_fft(psfs.shape[1:3]) else "direct"
+        same = (torch.equal(got, want), torch.equal(routed, want_routed))
+        check(all(same) and bool(torch.isfinite(got).all()),
               f"P2 vs plain, {label}: patches {tuple(patches.shape)}, PSFs "
-              f"{tuple(psfs.shape)} -> {tuple(got.shape)}: bit-identical={torch.equal(got, want)} "
-              f"(max deviation {err:.3e}, bar 0)")
+              f"{tuple(psfs.shape)} -> {tuple(got.shape)}: the direct kernel bit-identical="
+              f"{same[0]} (max deviation {err:.3e}, bar 0); svola_patch_conv on its route "
+              f"({route}) bit-identical to that route's plain version={same[1]}")
     patches, psfs = cases[-1][1]
     graded = image.svola_patch_conv(patches, psfs.clone().requires_grad_(True))
     torch.cuda.synchronize()
@@ -4047,8 +4059,7 @@ def phase_p2_wide(torch, zoo, simulator, imaging, image, fused_trace):
 
 
 # P2's adjoint at render shapes, (label, configuration, px): both routes
-# direct (K = 11), the split route (direct forward and d/dpatch, FFT d/dpsf;
-# K = 23), both FFT (K = 47, 95).
+# direct (K = 11), both FFT (K = 23, 47, 95).
 ADJOINT_RENDERS = (("config 5 at 1024^2", "config 5", 1024),
                    ("config 5 at 2048^2", "config 5", 2048),
                    ("default config at 2048^2", "default", 2048),
@@ -4420,6 +4431,10 @@ def adjoint_entry(adjoint, train_launches, ms, b):
 # ---------------------------------------------------------------------------
 
 P2_FFT_SOURCE = "torchoptics_tpu_torch/csrc/svola_fft.cu"
+# The template arguments of the FFT route's kernels at 400 points (the
+# default configuration's 2048^2 patches): register blocks (4 4) and (5 5)
+# of BLOCK_TYPES, no third (SPECIAL in the source).
+FFT_400_BLOCKS = "4,12,-1"
 # The route replaces the direct sum for wide PSFs: `_k_acc`'s port, and for
 # d/dpsf the direct kernel, which replaced none.
 TPU_P2_FFT = (f"{TPU_P2} (wide PSFs; the FFT of torchoptics_tpu/ops/image.py:62 "
@@ -4519,19 +4534,30 @@ def fft_route_check(torch, image, label, patches, psfs, cot):
     return errs
 
 
-def fft_route_bound(patches, kernel_hw, adjoint):
-    """(bound_ms, bound_by, ops, bytes) of the FFT route at these shapes: the
-    transforms it runs at 5 L log2 L operations a complex transform of L
-    points (pass 1 the packed row pairs of both inputs, pass 2 two forward
-    and one inverse column transform of each of the Lw/2 + 1 columns, pass 3
-    the kept rows' pairs) and the 6 of each pointwise product, over 67
-    TFLOP/s; the inputs read once and the output written once over 3.35
-    TB/s."""
+def next_fast_len(n):
+    """The smallest 2^a 3^b 5^c >= n (the reference's ``next_fast_fft_len``,
+    copied so that every tree's route is held to the same lengths)."""
+    return min(p2 * 3 ** b * 5 ** c for b in range(9) for c in range(7)
+               for p2 in [1 << max(0, (-(-n // (3 ** b * 5 ** c)) - 1).bit_length())])
+
+
+def fft_route_bound(patches, kernel_hw, adjoint, lengths=None):
+    """(bound_ms, bound_by, ops, bytes) of the FFT route at these shapes, a
+    yardstick that does not move with a tree's design: the transforms at
+    lengths Lh, Lw = ``next_fast_len`` of the patch's sides, at least 16
+    (``lengths`` = "pow2": the powers of two that the route took before),
+    at 5 L log2 L operations a complex transform of L points (pass 1 the
+    packed row pairs of both inputs, pass 2 two forward and one inverse
+    column transform of each of the Lw//2 + 1 columns, pass 3 the kept rows'
+    pairs) and the 6 of each pointwise product, over 67 TFLOP/s; the inputs
+    read once and the output written once over 3.35 TB/s."""
     P, ph, pw, C = patches.shape
     kh, kw = kernel_hw
     hp, wp = ph - kh + 1, pw - kw + 1
-    lh = max(16, 1 << (ph - 1).bit_length())
-    lw = max(16, 1 << (pw - 1).bit_length())
+    if lengths == "pow2":
+        lh, lw = (max(16, 1 << (n - 1).bit_length()) for n in (ph, pw))
+    else:
+        lh, lw = (next_fast_len(max(16, n)) for n in (ph, pw))
     t = lambda n: 5 * n * math.log2(n)
     rows_b, n_out = (hp, kh) if adjoint else (kh, hp)
     nc = lw // 2 + 1
@@ -4597,11 +4623,12 @@ def phase_p2_crossover(torch, image, inputs, card):
 def phase_fft_timing(torch, image, wide, card):
     """CUDA events (``auto_ms``): the FFT route's kernels, forward and
     d/dpsf, their plain versions and the torch.fft product and correlation
-    at the default configuration's 2048^2 and 4096^2 shapes (K = 47, 95;
-    ``wide`` maps K to (patches, psfs, cot)), with the route's bound and the
+    at the default configuration's 1448^2, 2048^2 and 4096^2 shapes (K =
+    33, 47, 95; ``wide`` maps K to (patches, psfs, cot)), with the route's
+    bound at the fast lengths, the power-of-two lengths' beside it, and the
     direct sum's. Returns {key: ms}, {key: bound tuple}."""
     ms, bounds = {}, {}
-    for k in (47, 95):
+    for k in (33, 47, 95):
         patches, psfs, cot = wide[k]
         kh, kw = psfs.shape[1:3]
         calls = {f"fft_p2_k{k}": lambda: image._launch_fft(patches, psfs, (kh, kw), False),
@@ -4614,8 +4641,9 @@ def phase_fft_timing(torch, image, wide, card):
         with torch.no_grad():
             for key, fn in calls.items():
                 ms[key] = auto_ms(torch, fn, budget_ms=300.0 if "plain" in key else 600.0)
-        bounds[f"fft_p2_k{k}"] = fft_route_bound(patches, (kh, kw), False)
-        bounds[f"fft_dpsf_k{k}"] = fft_route_bound(patches, (kh, kw), True)
+        for what, adjoint in (("p2", False), ("dpsf", True)):
+            bounds[f"fft_{what}_k{k}"] = fft_route_bound(patches, (kh, kw), adjoint)
+            bounds[f"fft_{what}_k{k}_pow2"] = fft_route_bound(patches, (kh, kw), adjoint, "pow2")
         bounds[f"direct_p2_k{k}"] = p2_bound(patches, psfs)
         bounds[f"direct_dpsf_k{k}"] = dpsf_bound(patches, (kh, kw))
         for what in ("p2", "dpsf"):
@@ -4624,10 +4652,11 @@ def phase_fft_timing(torch, image, wide, card):
             print(f"time P2's FFT route, {'forward' if what == 'p2' else 'd/dpsf'}, at "
                   f"{tuple(patches.shape)}, K = {k}: {t:.4f} ms (plain "
                   f"{ms[f'plain_fft_{what}_k{k}']:.3f} ms, torch.fft "
-                  f"{ms[f'torch_fft_{what}_k{k}']:.4f} ms); the route's bound {b[0]:.4f} ms by "
-                  f"{b[1]} ({b[2]:.3e} operations, {b[3] / 1e6:.1f} MB), {b[0] / t:.3f} of it "
-                  f"reached; the direct sum's bound {bounds[f'direct_{what}_k{k}'][0]:.4f} ms; "
-                  f"card: {card}", flush=True)
+                  f"{ms[f'torch_fft_{what}_k{k}']:.4f} ms); the route's bound at the fast "
+                  f"lengths {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations, {b[3] / 1e6:.1f} MB), "
+                  f"{b[0] / t:.3f} of it reached (at powers of two: "
+                  f"{bounds[f'fft_{what}_k{k}_pow2'][0]:.4f} ms); the direct sum's bound "
+                  f"{bounds[f'direct_{what}_k{k}'][0]:.4f} ms; card: {card}", flush=True)
     return ms, bounds
 
 
@@ -4728,7 +4757,7 @@ def fft_entries(wide_errs, wide_launches, train, ms, bounds, crossover, rates):
     errs95 = wide_errs["default config at 4096^2"]
 
     def entry(what, key, launched, extra):
-        b, b95 = bounds[f"fft_{what}_k47"], bounds[f"fft_{what}_k95"]
+        b, b95, b33 = (bounds[f"fft_{what}_k{k}"] for k in (47, 95, 33))
         return {"name": f"p2_{'fft' if what == 'p2' else 'dpsf_fft'}", "route": "cuda",
                 "source": P2_FFT_SOURCE, "replaces": TPU_P2_FFT if what == "p2" else TPU_P2_DPSF,
                 "launches": launched, "max_abs_err": errs47[key][0],
@@ -4739,9 +4768,13 @@ def fft_entries(wide_errs, wide_launches, train, ms, bounds, crossover, rates):
                 "bound_ms_issue_k95": b95[2] / rates["fma_ops_per_s"] * 1e3,
                 "direct_bound_ms": bounds[f"direct_{what}_k47"][0],
                 "float64_share": errs47[key][1], "cufft_float64_share": errs47[key][2],
+                "bound_ms_pow2": bounds[f"fft_{what}_k47_pow2"][0],
                 "ms_k95": ms[f"fft_{what}_k95"], "plain_ms_k95": ms[f"plain_fft_{what}_k95"],
                 "bound_ms_k95": b95[0], "bound_by_k95": b95[1],
                 "library_ms_k95": ms[f"torch_fft_{what}_k95"],
+                "ms_k33": ms[f"fft_{what}_k33"], "plain_ms_k33": ms[f"plain_fft_{what}_k33"],
+                "bound_ms_k33": b33[0], "bound_by_k33": b33[1],
+                "library_ms_k33": ms[f"torch_fft_{what}_k33"],
                 "direct_bound_ms_k95": bounds[f"direct_{what}_k95"][0],
                 "max_abs_err_k95": errs95[key][0], "float64_share_k95": errs95[key][1],
                 "max_float64_share": max(e[key][1] for e in wide_errs.values()), **extra}
@@ -4832,12 +4865,14 @@ def ptxas_summary(path):
                     # The template arguments of the mangled name: I L<type><value>E ... E,
                     # or a type and perhaps a bool (S1's IfE, IdLb1EE).
                     tail = raw[raw.index(short) + len(short):]
-                    args = re.match(r"I((?:L[a-z]+\d+E)+)E", tail)
+                    args = re.match(r"I((?:L[a-z]n?\d+E)+)E", tail)
                     typed = re.match(r"I([fd])(?:Lb([01])E)?E", tail)
                     kind = ("<" + {"f": "float", "d": "double"}[typed.group(1)]
                             + {"0": ",false", "1": ",true", None: ""}[typed.group(2)] + ">"
                             if typed else "")
-                    name = short + ("<" + ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1)))
+                    name = short + ("<" + ",".join(
+                        ("-" if neg else "") + v
+                        for neg, v in re.findall(r"L[a-z](n?)(\d+)E", args.group(1)))
                                     + ">" if args else kind)
         elif name and "stack frame" in line:
             frame = line.strip()
@@ -4895,8 +4930,9 @@ def k2_splits(torch, zoo, simulator, fused_batch, gen):
 
 def p2_times(torch, zoo, simulator, imaging, image):
     """P2 (CUDA events) on the photograph's patches at config 5's 256^2,
-    512^2, 1024^2 and 2048^2 renders' shapes (K = 3, 5, 11 and 23, each
-    kw's unrolled kernel), queued behind a sleep kernel (at 256^2 and 512^2
+    512^2, 1024^2 and 2048^2 renders' shapes (K = 3, 5, 11 and 23, by the
+    route the tree takes: the direct kernel's unrolled kw, or from the FFT
+    route's threshold the FFT route), queued behind a sleep kernel (at 256^2 and 512^2
     the kernel is shorter than its wrapper): ``p2_256`` ... ``p2_2048``.
     Then the wide renders, by ``auto_ms``: ``svola_patch_conv`` (the route
     the tree takes) at the default configuration's 1024^2-4096^2 (K = 23,
@@ -5147,9 +5183,9 @@ def add_resources(entries, summary, n_asph, surf):
             e.update(found.get("p2_svola_kernel<11>", {}))
         if name == "p2_dpsf":  # its kernel at kw = 11, config 5's 1024^2 render
             e.update(found.get("p2_dpsf_kernel<11>", {}))
-        if name in ("p2_fft", "p2_dpsf_fft"):  # the same three kernels
-            e["passes"] = {k: found.get(k, {}) for k in ("fft_rows_fwd", "fft_cols",
-                                                         "fft_rows_inv")}
+        if name in ("p2_fft", "p2_dpsf_fft"):  # the same three kernels, at 400 points
+            e["passes"] = {k: found.get(f"{k}<{FFT_400_BLOCKS}>", {})
+                           for k in ("fft_rows_fwd", "fft_cols", "fft_rows_inv")}
         if family not in ("k1", "k2", "k3", "k4"):
             continue
         mode = 3 if name.endswith("_opl") else 2 if name.endswith("_full") else 1

@@ -14,8 +14,9 @@ Cooke) must each be routed to a specialised kernel, and every render from 256^2 
 at the default configuration (PSFs up to 95 taps), must pass P2's and its
 d/dpsf's argument checks and take the intended route: the direct kernels
 below the FFT route's thresholds (``image.P2_FFT_MIN_KW``,
-``P2_DPSF_FFT_MIN_KW``), whose widths the direct kernels' sources fix as
-``MAX_K``, and the FFT route (``csrc/svola_fft.cu``) from there.
+``P2_DPSF_FFT_MIN_KW``), within the widths that the direct kernels'
+sources fix as ``MAX_K``, and the FFT route (``csrc/svola_fft.cu``) from
+there.
 """
 
 import re
@@ -81,7 +82,8 @@ def test_main_paths_reach_the_specialised_kernels():
                                     psf_grid_shape=(5, 5))
     kws = {imaging.psf_kernel_shape((px, px), cfg)[1] for px in (256, 512, 1024, 2048)}
     assert kws == {3, 5, 11, 23}
-    assert kws <= set(_routes("p2")[1])
+    direct = {kw for kw in kws if not image.p2_takes_fft((kw, kw))}
+    assert direct and direct <= set(_routes("p2")[1])
     surfaces = {len(zoo.get_prescription(name)["c"]) for name in ("cooke", "double_gauss")}
     assert surfaces == {7, 11}
     assert surfaces <= set(_routes("k2b")[1])
@@ -107,9 +109,9 @@ RENDER_K = {("default", 1024): 23, ("default", 1448): 33, ("default", 2048): 47,
             ("config 5", 4096): 47}
 # (config, render side) -> the routes of P2 (forward and d/dpatch) and of
 # d/dpsf; the other renders take the direct kernels both ways.
-RENDER_ROUTES = {("default", 1024): ("direct", "fft"), ("default", 1448): ("fft", "fft"),
+RENDER_ROUTES = {("default", 1024): ("fft", "fft"), ("default", 1448): ("fft", "fft"),
                  ("default", 2048): ("fft", "fft"), ("default", 4096): ("fft", "fft"),
-                 ("config 5", 2048): ("direct", "fft"), ("config 5", 4096): ("fft", "fft")}
+                 ("config 5", 2048): ("fft", "fft"), ("config 5", 4096): ("fft", "fft")}
 
 
 @pytest.mark.parametrize("name", sorted(RENDER_CONFIGS))
@@ -140,15 +142,16 @@ def test_p2_checks_refuse_what_the_kernels_cannot_take():
     """Both routes refuse too many patch-channels, a PSF larger than its
     patch and a channel mismatch; the FFT route patches longer than its
     longest transform. The direct kernels' widths (``MAX_K`` in their
-    sources) end one tap below the FFT route's thresholds, so every PSF
-    has a route."""
+    sources) reach at least one tap below the FFT route's thresholds, so
+    every PSF has a route."""
     assert "65535" in image.p2_argument_error((30000, 40, 40, 3), (30000, 5, 5, 3))
     assert "65535" in image.p2_argument_error((30000, 60, 60, 3), (30000, 41, 5, 3))
     assert image.p2_argument_error((1, 40, 40, 3), (1, 41, 5, 3))
     assert image.p2_argument_error((1, 40, 40, 3), (1, 5, 5, 2))
     longest = image.P2_FFT_MAX_LEN
     for adjoint in (False, True):
-        wide = image.p2_max_kw(adjoint) + 1
+        wide = image.P2_DPSF_FFT_MIN_KW if adjoint else image.P2_FFT_MIN_KW
+        assert image.p2_max_kw(adjoint) >= wide - 1
         assert image.p2_takes_fft((3, wide), adjoint) and not image.p2_takes_fft(
             (wide - 1, wide - 1), adjoint)
         assert image.p2_argument_error((1, 40, longest, 1), (1, 3, wide, 1), adjoint) is None
@@ -161,4 +164,5 @@ def test_p2_checks_refuse_what_the_kernels_cannot_take():
         assert int(re.search(r"constexpr int MAX_K = (\d+);", text).group(1)) == \
             image.p2_max_kw(adjoint)
     fft = (CSRC / "svola_fft.cu").read_text()
-    assert 1 << int(re.search(r"constexpr int LMAX_LOG2 = (\d+);", fft).group(1)) == longest
+    assert int(re.search(r"constexpr int LMAX = (\d+);", fft).group(1)) == longest
+    assert int(re.search(r"constexpr int LMIN = (\d+);", fft).group(1)) == image.P2_FFT_MIN_LEN

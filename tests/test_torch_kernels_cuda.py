@@ -33,7 +33,7 @@ and per-ray cotangents bit for bit, parameter and dn_legs sums within one
 float32 rounding, K2 and K4 at B = 1 equal to K1 and K3; the wavefront functions on
 the card against the CPU; and K4's training path at a fixed bar. P2, the
 SVOLA patch convolution, bit for bit with its plain version (the same tap
-order, no FMA contraction); PSFs from 33 taps take its FFT route
+order, no FMA contraction); PSFs from ``P2_FFT_MIN_KW`` taps take its FFT route
 (``csrc/svola_fft.cu``), bit for bit with the route's plain version and
 within 1e-5 of the largest entry of the float64 torch.fft product; its
 adjoint: d/dpsf (from ``P2_DPSF_FFT_MIN_KW`` taps the FFT route's
@@ -1361,8 +1361,9 @@ def test_p2_matches_plain_version(cuda, shape):
     with torch.no_grad():
         got = image.svola_patch_conv(patches, psfs)
     torch.cuda.synchronize()
-    # One direct launch below 33 taps; the FFT route's three from there.
-    fft = max(kh, kw) >= 33
+    # One direct launch below P2_FFT_MIN_KW taps; the FFT route's three from
+    # there.
+    fft = max(kh, kw) >= image.P2_FFT_MIN_KW
     assert image.p2_takes_fft((kh, kw)) == fft
     assert (image.P2_LAUNCHES - before[0], image.P2_FFT_LAUNCHES - before[1]) == (
         (0, 3) if fft else (1, 0))
@@ -1371,17 +1372,69 @@ def test_p2_matches_plain_version(cuda, shape):
         assert _fft_share(torch, got, patches, psfs, (kh, kw), False) <= 1e-5
     else:
         assert torch.equal(got, image.svola_patch_conv_reference(patches, psfs))
+    # The direct kernel on every PSF it takes, the route's or not.
+    if max(kh, kw) <= image.p2_max_kw():
+        with torch.no_grad():
+            direct = image._launch_p2(patches, psfs)
+        assert torch.equal(direct, image.svola_patch_conv_reference(patches, psfs))
+
+
+# The FFT route at the default configuration's transform lengths (Lh x Lw):
+# 288 (1448^2, K = 33), 400 (2048^2, K = 47) and 800 (4096^2, K = 95), each
+# with a kernel of its own, and a generic length beside (270 -> 270).
+FAST_LENGTH_SHAPES = [(3, 272, 270, 3, 33, 33), (2, 385, 390, 3, 47, 47),
+                      (1, 775, 790, 3, 95, 95), (2, 270, 283, 1, 35, 41)]
+
+
+@pytest.mark.parametrize("shape", FAST_LENGTH_SHAPES)
+def test_fft_route_at_fast_lengths(cuda, shape):
+    """Forward, d/dpsf and d/dpatch on the FFT route at the fast lengths
+    (``image.fft_len``), bit for bit with the plain versions and within the
+    bars of the float64 torch.fft product and correlation."""
+    from torchoptics_tpu_torch.ops import image
+    P, ph, pw, C, kh, kw = shape
+    assert image.p2_takes_fft((kh, kw)) and image.p2_takes_fft((kh, kw), adjoint=True)
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    patches = torch.rand((P, ph, pw, C), generator=g, device=cuda) * 255.0
+    psfs = torch.rand((P, kh, kw, C), generator=g, device=cuda)
+    psfs = psfs / psfs.sum(dim=(1, 2), keepdim=True)
+    cot = torch.randn((P, ph - kh + 1, pw - kw + 1, C), generator=g, device=cuda)
+    p_var, k_var = patches.clone().requires_grad_(True), psfs.clone().requires_grad_(True)
+    out = image.svola_patch_conv(p_var, k_var)
+    d_patch, d_psf = torch.autograd.grad(out, (p_var, k_var), cot)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        assert torch.equal(out.detach(), image.svola_patch_conv_fft_reference(patches, psfs))
+        assert torch.equal(d_psf, image.svola_patch_conv_dpsf_fft_reference(patches, cot,
+                                                                          (kh, kw)))
+        assert torch.equal(d_patch, image.svola_patch_conv_dpatch_reference(cot, psfs))
+    assert _fft_share(torch, out.detach(), patches, psfs, (kh, kw), False) <= 1e-5
+    assert _fft_share(torch, d_psf, patches, cot, (kh, kw), True) <= 1e-4
+
+
+def test_fft_lengths_match_the_launchers(cuda):
+    """The launchers' transform length (``p2_fft_len``) is ``image.fft_len``
+    for every side the route takes, and their scratch is sized from it."""
+    from torchoptics_tpu_torch.ops import _kernels, image
+    lib = _kernels.load()
+    assert [lib.p2_fft_len(n) for n in range(1, image.P2_FFT_MAX_LEN + 1)] == [
+        image.fft_len(n) for n in range(1, image.P2_FFT_MAX_LEN + 1)]
+    for P, ph, pw, C, kh, _ in FAST_LENGTH_SHAPES:
+        nc = image.fft_len(pw) // 2 + 1
+        assert lib.p2_fft_scratch(P, C, ph, pw, kh, 0) == 2 * P * C * (ph + kh) * nc
+        assert lib.p2_fft_scratch(P, C, ph, pw, kh, 1) == 2 * P * C * (2 * ph - kh + 1) * nc
 
 
 def test_p2_refuses_grad_and_bad_inputs(cuda):
     """Under grad P2 runs (its adjoint is in ``csrc/svola_conv_bwd.cu`` and
     ``csrc/svola_fft.cu``); what the kernels cannot take still raises, and
     the library's limits are those ``image`` computes without it: the
-    direct kernels end one tap below the FFT route's thresholds."""
+    direct kernels reach at least one tap below the FFT route's
+    thresholds."""
     from torchoptics_tpu_torch.ops import _kernels, image
     lib = _kernels.load()
-    assert lib.p2_max_kw() == image.p2_max_kw() == image.P2_FFT_MIN_KW - 1
-    assert lib.p2_dpsf_max_kw() == image.p2_max_kw(adjoint=True) == image.P2_DPSF_FFT_MIN_KW - 1
+    assert lib.p2_max_kw() == image.p2_max_kw() >= image.P2_FFT_MIN_KW - 1
+    assert lib.p2_dpsf_max_kw() == image.p2_max_kw(adjoint=True) >= image.P2_DPSF_FFT_MIN_KW - 1
     assert lib.p2_fft_max_len() == image.P2_FFT_MAX_LEN and lib.p2_fft_launches() == 3
     patches = torch.rand((4, 40, 40, 3), device=cuda)
     psfs = torch.rand((4, 5, 5, 3), device=cuda, requires_grad=True)
@@ -1393,12 +1446,12 @@ def test_p2_refuses_grad_and_bad_inputs(cuda):
     with pytest.raises(ValueError, match="no larger than the patch"):
         image.svola_patch_conv(torch.rand((1, 40, 40, 3), device=cuda),
                                torch.rand((1, 41, 5, 3), device=cuda))
-    # The direct kernels refuse what their route no longer sends them.
+    # The direct kernels refuse PSFs wider than they take.
     with pytest.raises(RuntimeError, match="launch failed"):
         image._launch_p2(torch.rand((1, 60, 60, 3), device=cuda),
-                         torch.rand((1, 3, image.P2_FFT_MIN_KW, 3), device=cuda))
+                         torch.rand((1, 3, image.p2_max_kw() + 1, 3), device=cuda))
     with pytest.raises(RuntimeError, match="launch failed"):
-        k = image.P2_DPSF_FFT_MIN_KW
+        k = image.p2_max_kw(adjoint=True) + 1
         image._launch_p2_dpsf(torch.rand((1, 60, 60, 3), device=cuda),
                               torch.rand((1, 60 - k + 1, 58, 3), device=cuda), (k, 3))
 
@@ -1406,8 +1459,8 @@ def test_p2_refuses_grad_and_bad_inputs(cuda):
 # (P, patch height, width, channels, kh, kw) of P2's adjoint: config 5's
 # 1024^2 render (K = 11) and the default config's 2048^2 (K = 47); then
 # ragged outputs, kh != kw, one and five channels, a PSF of 95 taps, a
-# patch that is one tile; K = 23 (the direct forward, the FFT route's
-# d/dpsf) and the wide cases of the FFT route (K = 33, 47 x 33, 21 x 95, a
+# patch that is one tile; K = 23 (the FFT route's thresholds) and the wide
+# cases of the FFT route (K = 33, 47 x 33, 21 x 95, a
 # PSF as large as its patch).
 P2_ADJOINT_SHAPES = [(25, 316, 316, 3, 11, 11), (81, 385, 385, 3, 47, 47),
                      (3, 70, 75, 3, 5, 9), (2, 45, 50, 1, 9, 3), (2, 130, 129, 3, 95, 95),

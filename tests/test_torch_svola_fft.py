@@ -14,6 +14,9 @@ the largest entry: 1e-5 for the forward and for d/dpatch, 1e-4 for d/dpsf
 The JAX side runs once per module.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,11 +90,13 @@ def test_svola_fft_route_matches_jax(jax_side, k):
     _close(d_psfs.numpy(), want_dpsfs, DPSF_BAR)
 
 
-# (P, ph, pw, C, kh, kw): transforms of 64 and 128 points, odd and even row
-# counts, non-square patches and PSFs, a PSF as large as its patch, one and
-# three channels.
+# (P, ph, pw, C, kh, kw): transforms of 27 to 128 points (2^a 3^b 5^c: 60,
+# 50, 64, 45, 100, 128, 72, 120, 90, and the odd 75, 81, 27), odd and even
+# row counts, non-square patches and PSFs, a PSF as large as its patch, one
+# to three channels.
 PLAIN_SHAPES = [(2, 60, 50, 3, 33, 33), (1, 64, 41, 1, 35, 21), (2, 100, 128, 3, 47, 29),
-                (1, 99, 70, 3, 99, 33), (2, 117, 90, 2, 21, 61)]
+                (1, 99, 70, 3, 99, 33), (2, 117, 90, 2, 21, 61), (1, 75, 81, 3, 33, 35),
+                (2, 27, 40, 2, 23, 25)]
 
 
 @pytest.mark.parametrize("shape", PLAIN_SHAPES)
@@ -100,7 +105,7 @@ def test_fft_plain_versions_match_float64_direct_sums(shape):
     the direct sums (``svola_patch_conv_reference`` and its adjoints) in
     float64, as shares of the largest entry."""
     P, ph, pw, C, kh, kw = shape
-    assert {image.fft_log2(ph), image.fft_log2(pw)} <= {6, 7}
+    assert all(image.fft_len(n) <= 128 for n in (ph, pw))
     rng = _rng(sum(shape))
     patches = rng.uniform(0.0, 255.0, (P, ph, pw, C)).astype(np.float32)
     psfs = rng.uniform(0.0, 1.0, (P, kh, kw, C)).astype(np.float32)
@@ -118,22 +123,113 @@ def test_fft_plain_versions_match_float64_direct_sums(shape):
     _close(image.svola_patch_conv_dpatch_reference(t(cot), t(psfs)), want, FWD_BAR)
 
 
-@pytest.mark.parametrize("log2_l", [4, 6, 9, 12])
-def test_stockham_is_the_dft(log2_l):
-    """The route's radix-2 Stockham (the table's twiddles, forward and
-    inverse) against numpy's FFT in float64; the table is W_4096 rounded
-    once."""
-    tw = image.fft_twiddles(torch.device("cpu"))
-    i = np.arange(image.P2_FFT_MAX_LEN // 2)
-    w = np.exp(-2j * np.pi * i / image.P2_FFT_MAX_LEN)
+@pytest.mark.parametrize("L", [16, 64, 512, 4096, 48, 192, 288, 400, 800])
+def test_stockham_is_the_dft(L):
+    """The route's mixed-radix Stockham (the length's table, forward and
+    inverse) against numpy's FFT in float64; the table is W_L rounded once."""
+    tw = image.fft_twiddles(L, torch.device("cpu"))
+    w = np.exp(-2j * np.pi * np.arange(L) / L)
     assert np.array_equal(tw.numpy(), np.stack([w.real, w.imag], -1).astype(np.float32))
-    L = 1 << log2_l
-    z = _rng(log2_l).standard_normal((2, 3, L)) + 1j * _rng(log2_l + 1).standard_normal((2, 3, L))
+    assert np.prod(image.fft_radices(L)) == L
+    z = _rng(L).standard_normal((2, 3, L)) + 1j * _rng(L + 1).standard_normal((2, 3, L))
     z = z.astype(np.complex64)
     for inverse, want in ((False, np.fft.fft(z.astype(np.complex128))),
                           (True, np.fft.ifft(z.astype(np.complex128)) * L)):
         re, im = image._stockham(torch.tensor(z.real), torch.tensor(z.imag), tw, inverse)
         _close(re.numpy() + 1j * im.numpy(), want, 1e-6)
+
+
+def test_next_fast_fft_len_matches_jax():
+    """The port's copy of ``next_fast_fft_len`` is the JAX package's for
+    every n from 1 to 4096; ``fft_len`` is it from 16 points, but for the
+    two lengths the kernels do not plan (3125, 3750)."""
+    for n in range(1, image.P2_FFT_MAX_LEN + 1):
+        fast = image.next_fast_fft_len(n)
+        assert fast == jimage.next_fast_fft_len(n), n
+        want = 16 if n <= 16 else {3125: 3200, 3750: 3840}.get(fast, fast)
+        assert image.fft_len(n) == want, n
+
+
+# The register blocks that make_plan (csrc/svola_fft.cu) picks at these
+# lengths: (R1, R2, R3) stages a thread runs on its M values in registers.
+KERNEL_BLOCKS = {48: [(4,), (4, 3)], 288: [(4, 4), (2, 3, 3)], 400: [(4, 4), (5, 5)],
+                 800: [(4, 4, 2), (5, 5)], 243: [(3, 3, 3), (3, 3)]}
+CSRC = Path(image.__file__).resolve().parents[1] / "csrc" / "svola_fft.cu"
+
+
+def test_special_plans_are_the_stages():
+    """The lengths with kernels of their own (``SPECIAL`` in
+    ``csrc/svola_fft.cu``) run the stages of ``fft_radices`` in order, in
+    register blocks of ``BLOCK_TYPES``; those in ``KERNEL_BLOCKS`` as listed
+    there."""
+    text = CSRC.read_text()
+    table = text[text.index("BLOCK_TYPES[][3] = {"):]
+    types = [tuple(int(v) for v in m) for m in
+             re.findall(r"\{(\d), (\d), (\d)\}", table[:table.index("};")])]
+    special = text[text.index("SPECIAL[][4] = {"):]
+    rows = re.findall(r"\{(\d+), (-?\d+), (-?\d+), (-?\d+)\}", special[:special.index("};")])
+    assert {int(r[0]) for r in rows} == {192, 288, 400, 640, 800, 1280}
+    for L, *blocks in ((int(v) for v in r) for r in rows):
+        plan = [tuple(x for x in types[b] if x > 1) for b in blocks if b >= 0]
+        assert tuple(x for blk in plan for x in blk) == image.fft_radices(L), L
+        assert plan == KERNEL_BLOCKS.get(L, plan), L
+
+
+def _blocks_stockham(re, im, tw, inverse, blocks):
+    """The kernels' schedule of the same stages: in a block of M = R1 R2 R3
+    values starting after Ns points, thread t < L/M holds x[t + m L/M] (m =
+    (r1 R2 + r2) R3 + r3), runs the block's stages on them (stage 2's j mod
+    Ns is r1 Ns + t mod Ns, stage 3's (r1 + R1 r2) Ns + t mod Ns) and writes
+    value (r1, r2, r3) to (t // Ns) Ns M + Ns (r1 + R1 r2 + R1 R2 r3) + t mod
+    Ns."""
+    L = re.shape[-1]
+    ns = 1
+    for blk in blocks:
+        R = tuple(blk) + (1,) * (3 - len(blk))
+        M, T = int(np.prod(R)), L // int(np.prod(R))
+        out_re, out_im = np.empty_like(re), np.empty_like(im)
+        for t in range(T):
+            v = {d: (re[..., t + ((d[0] * R[1] + d[1]) * R[2] + d[2]) * T],
+                     im[..., t + ((d[0] * R[1] + d[1]) * R[2] + d[2]) * T])
+                 for d in np.ndindex(*R)}
+            for si in range(3):
+                if R[si] == 1:
+                    continue
+                nss = ns * int(np.prod(R[:si]))
+                for d0 in np.ndindex(*[1 if i == si else R[i] for i in range(3)]):
+                    keys = [tuple(r if i == si else d0[i] for i in range(3)) for r in range(R[si])]
+                    low = sum(d0[i] * int(np.prod(R[:i])) for i in range(si))
+                    k = low * ns + t % ns
+                    x = [v[key] for key in keys]
+                    if nss > 1:
+                        for r in range(1, R[si]):
+                            w = tw[r * k * (L // (nss * R[si]))]
+                            wi = -w[1] if inverse else w[1]
+                            x[r] = (x[r][0] * w[0] - x[r][1] * wi, x[r][0] * wi + x[r][1] * w[0])
+                    for key, y in zip(keys, image._butterfly(x, inverse)):
+                        v[key] = y
+            for d, (vr, vi) in v.items():
+                at = (t // ns) * ns * M + ns * (d[0] + R[0] * d[1] + R[0] * R[1] * d[2]) + t % ns
+                out_re[..., at], out_im[..., at] = vr, vi
+        re, im = out_re, out_im
+        ns *= M
+    return re, im
+
+
+@pytest.mark.parametrize("L", sorted(KERNEL_BLOCKS))
+def test_register_blocks_equal_the_stages(L):
+    """The kernels' register blocks (several stages a thread in registers,
+    written back at the block's output positions) give the bits of the
+    stage-by-stage plain Stockham, forward and inverse."""
+    blocks = KERNEL_BLOCKS[L]
+    assert tuple(r for blk in blocks for r in blk) == image.fft_radices(L)
+    tw = image.fft_twiddles(L, torch.device("cpu")).numpy()
+    rng = _rng(L)
+    re, im = (rng.standard_normal((2, L)).astype(np.float32) for _ in range(2))
+    for inverse in (False, True):
+        got = _blocks_stockham(re, im, tw, inverse, blocks)
+        want = image._stockham(torch.tensor(re), torch.tensor(im), torch.tensor(tw), inverse)
+        assert np.array_equal(got[0], want[0].numpy()) and np.array_equal(got[1], want[1].numpy())
 
 
 def test_route_threshold_on_both_devices(monkeypatch):

@@ -4,7 +4,8 @@ A render traces the PSF bundle (on the GPU one K1 forward launch with
 ``--engine fused``; ``--psf-source diffraction`` runs K1's opl mode for the
 pupil's OPD) and convolves the image with the patch PSFs on P2. P2's route
 goes by the patch PSFs' taps (the PSF resized to the image's pixel pitch),
-printed before the render: direct below 33 taps, FFT from there.
+printed before the render: direct below ``image.P2_FFT_MIN_KW`` taps, FFT
+from there.
 
 Examples:
   python -m torchoptics_tpu_torch.examples.simulate_aberrations --lens cooke --output out.png

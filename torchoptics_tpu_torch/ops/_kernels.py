@@ -134,9 +134,10 @@ def load() -> ctypes.CDLL:
     lib.p2_dpsf_partials.restype = ctypes.c_longlong
     lib.p2_dpsf_launches.restype = i
     # P2's FFT route, forward and d/dpsf: patches, psfs or cotangent, out,
-    # twiddles, scratch, n_patch, n_ch, ph, pw, kh, kw, the stream; its
-    # scratch floats for n_patch, n_ch, ph, pw, kh, adjoint.
-    lib.p2_fft_launch.argtypes = lib.p2_dpsf_fft_launch.argtypes = [p] * 5 + [i] * 6 + [p]
+    # the column and row lengths' twiddles, scratch, n_patch, n_ch, ph, pw,
+    # kh, kw, the stream; its scratch floats for n_patch, n_ch, ph, pw, kh,
+    # adjoint.
+    lib.p2_fft_launch.argtypes = lib.p2_dpsf_fft_launch.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.p2_fft_launch.restype = lib.p2_dpsf_fft_launch.restype = i
     lib.p2_fft_scratch.argtypes = [i] * 6
     lib.p2_fft_scratch.restype = ctypes.c_longlong
@@ -162,7 +163,7 @@ def load() -> ctypes.CDLL:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     for name in ("k1_fwd_specialized", "k2_fwd_specialized", "k2_bwd_specialized",
-                 "p2_specialized_kw", "p2_dpsf_specialized_kw"):
+                 "p2_specialized_kw", "p2_dpsf_specialized_kw", "p2_fft_len"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = i
     # The population forwards' resident blocks per SM: mode, allow_backward,

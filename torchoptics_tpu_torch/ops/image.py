@@ -8,8 +8,9 @@ PyTorch counterpart of ``torchoptics_tpu.ops.image``:
   recomposition. P2 has two routes, chosen by the PSF's width on both
   devices: below ``P2_FFT_MIN_KW`` taps the direct kh x kw tap sum of the
   valid convolution (``csrc/svola_conv.cu``), from there a hand-written FFT
-  convolution at power-of-two lengths (``csrc/svola_fft.cu``), the JAX
-  package's own algorithm. It is differentiable: d/dpsf has kernels of its
+  convolution at the reference's fast lengths, 2^a 3^b 5^c
+  (``csrc/svola_fft.cu``), the JAX package's own algorithm. It is
+  differentiable: d/dpsf has kernels of its
   own (``csrc/svola_conv_bwd.cu``, or the FFT route's correlation from
   ``P2_DPSF_FFT_MIN_KW`` taps), d/dpatch is P2 on the padded cotangent with
   the flipped PSFs.
@@ -60,14 +61,17 @@ P2_DPSF_FFT_LAUNCHES = 0
 #: (``csrc/svola_fft.cu``; on CPU tensors its plain version), forward and
 #: d/dpatch; narrower ones the direct kernel (``csrc/svola_conv.cu``). Set
 #: from the two routes' times on an H100 at the renders' shapes (PERF.md):
-#: at K = 23 (config 5 at 2048^2) the direct forward was faster, at K = 33
-#: (the default configuration at 1448^2) the FFT route, in both directions.
-P2_FFT_MIN_KW = 33
+#: at K = 11 (config 5 at 1024^2) the direct forward was faster; at K = 23
+#: (config 5 at 2048^2, the default configuration at 1024^2) the FFT route
+#: at its fast lengths (at powers of two it had lost there, and the
+#: threshold was 33).
+P2_FFT_MIN_KW = 23
 #: The same for d/dpsf (``csrc/svola_fft.cu`` or ``csrc/svola_conv_bwd.cu``):
 #: the FFT route's correlation was faster from K = 23, the direct kernel at
 #: K = 11 (config 5 at 1024^2), before and after the direct kernel's redesign.
 P2_DPSF_FFT_MIN_KW = 23
-#: The FFT route's transform lengths: powers of two, 16 to 4096 points.
+#: The FFT route's transform lengths (``fft_len``): 2^a 3^b 5^c, 16 to 4096
+#: points.
 P2_FFT_MIN_LEN, P2_FFT_MAX_LEN = 16, 4096
 
 
@@ -180,77 +184,171 @@ def p2_takes_fft(kernel_hw, adjoint: bool = False) -> bool:
     return max(kernel_hw) >= (P2_DPSF_FFT_MIN_KW if adjoint else P2_FFT_MIN_KW)
 
 
-def fft_log2(n: int) -> int:
-    """log2 of the route's transform length for n points: the smallest power
-    of two >= n, at least ``P2_FFT_MIN_LEN``."""
-    return max(P2_FFT_MIN_LEN.bit_length() - 1, (int(n) - 1).bit_length())
+def next_fast_fft_len(n: int) -> int:
+    """The smallest 2^a 3^b 5^c >= n: the reference's fast FFT length
+    (``torchoptics_tpu.ops.image.next_fast_fft_len``, copied here)."""
+    best = 1
+    while best < n:
+        best *= 2
+    m = best
+    p3 = 1
+    while p3 <= best:
+        p5 = 1
+        while p3 * p5 <= best:
+            p2 = 1
+            while p2 * p3 * p5 < n:
+                p2 *= 2
+            m = min(m, p2 * p3 * p5)
+            p5 *= 5
+        p3 *= 3
+    return m
 
 
-@functools.lru_cache(maxsize=8)
-def fft_twiddles(device: torch.device) -> torch.Tensor:
-    """The route's one twiddle table, (P2_FFT_MAX_LEN / 2, 2) float32: W^i =
-    exp(-2 pi i i / 4096) for i < 2048, computed in float64 and rounded once.
-    A transform of L points takes every (4096 / L)-th entry. The kernels and
-    the plain versions read the same table."""
-    i = np.arange(P2_FFT_MAX_LEN // 2)
-    w = np.exp(-2j * np.pi * i / P2_FFT_MAX_LEN)
+def fft_len(n: int) -> int:
+    """The route's transform length for n points: ``next_fast_fft_len``, at
+    least ``P2_FFT_MIN_LEN`` (the reference's ``fft_fast_sizes=True``). Past
+    3125 and 3750, whose last register block would need more than the
+    kernels' 512 threads a sequence, it takes the next fast length (3200,
+    3840); the C launchers' ``fft_len`` (``lib.p2_fft_len``) is the same."""
+    L = next_fast_fft_len(max(int(n), P2_FFT_MIN_LEN))
+    while L in (3125, 3750):
+        L = next_fast_fft_len(L + 1)
+    return L
+
+
+def fft_radices(L: int) -> Tuple[int, ...]:
+    """The Stockham stages of an L-point transform, in order: radix 4 while
+    two factors 2 remain, then radix 2, radix 3 and radix 5 (the kernels
+    run the same stages, several at a time in registers)."""
+    out, n = [], int(L)
+    for r in (4, 2, 3, 5):
+        while n % r == 0 and (r != 2 or n % 4 != 0):
+            out.append(r)
+            n //= r
+    if n != 1:
+        raise ValueError(f"{L} is not a product of 2, 3 and 5")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=32)
+def fft_twiddles(L: int, device: torch.device) -> torch.Tensor:
+    """The twiddle table of an L-point transform, (L, 2) float32: W_L^i =
+    exp(-2 pi i i / L) for i < L, computed in float64 and rounded once. The
+    kernels and the plain versions read the same table."""
+    i = np.arange(L)
+    w = np.exp(-2j * np.pi * i / L)
     return torch.as_tensor(np.stack([w.real, w.imag], -1).astype(np.float32), device=device)
 
 
+# The butterflies' real constants, each rounded once from float64: sin(2 pi / 3)
+# and cos, sin of 2 pi / 5 and 4 pi / 5.
+_S3 = float(np.float32(np.sin(2 * np.pi / 3)))
+_C51, _C52 = float(np.float32(np.cos(2 * np.pi / 5))), float(np.float32(np.cos(4 * np.pi / 5)))
+_S51, _S52 = float(np.float32(np.sin(2 * np.pi / 5))), float(np.float32(np.sin(4 * np.pi / 5)))
+
+
+def _minus_i(x, inverse: bool):
+    """x times -i (forward) or +i (inverse), exact: (re, im) swapped."""
+    re, im = x
+    return (-im, re) if inverse else (im, -re)
+
+
+def _add(a, b):
+    return a[0] + b[0], a[1] + b[1]
+
+
+def _sub(a, b):
+    return a[0] - b[0], a[1] - b[1]
+
+
+def _scale(a, c: float):
+    return a[0] * c, a[1] * c
+
+
+def _butterfly(x, inverse: bool):
+    """The DFT of the R = len(x) values x (each (re, im)), in the kernels'
+    order of operations (``bfly`` in ``csrc/svola_fft.cu``): radix 2, 4 (its
+    -i exact), 3 and 5 (their constants rounded once, each product rounded
+    before its sum)."""
+    R = len(x)
+    if R == 2:
+        return [_add(x[0], x[1]), _sub(x[0], x[1])]
+    if R == 4:
+        s0, d0 = _add(x[0], x[2]), _sub(x[0], x[2])
+        s1, d1 = _add(x[1], x[3]), _sub(x[1], x[3])
+        u = _minus_i(d1, inverse)
+        return [_add(s0, s1), _add(d0, u), _sub(s0, s1), _sub(d0, u)]
+    if R == 3:
+        s, d = _add(x[1], x[2]), _sub(x[1], x[2])
+        t = _sub(x[0], _scale(s, 0.5))
+        u = _minus_i(_scale(d, _S3), inverse)
+        return [_add(x[0], s), _add(t, u), _sub(t, u)]
+    if R == 5:
+        a1, b1 = _add(x[1], x[4]), _sub(x[1], x[4])
+        a2, b2 = _add(x[2], x[3]), _sub(x[2], x[3])
+        t1 = _add(_add(x[0], _scale(a1, _C51)), _scale(a2, _C52))
+        t2 = _add(_add(x[0], _scale(a1, _C52)), _scale(a2, _C51))
+        u1 = _minus_i(_add(_scale(b1, _S51), _scale(b2, _S52)), inverse)
+        u2 = _minus_i(_sub(_scale(b1, _S52), _scale(b2, _S51)), inverse)
+        return [_add(_add(x[0], a1), a2), _add(t1, u1), _add(t2, u2), _sub(t2, u2),
+                _sub(t1, u1)]
+    raise ValueError(f"no radix-{R} butterfly")
+
+
 def _stockham(re: torch.Tensor, im: torch.Tensor, tw: torch.Tensor, inverse: bool):
-    """The unscaled radix-2 Stockham FFT along the last axis (L points, a
-    power of two) of a complex float32 tensor held as (re, im): for Ns = 1,
-    2, .., L/2, a = x[j], b = x[j + L/2], t = w b with w = W_L^((j mod Ns)
-    L / (2 Ns)) from the table (conjugated for the inverse), each product
-    rounded before its sum; y[(j // Ns) 2 Ns + j mod Ns] = a + t, y[.. + Ns]
-    = a - t. The kernels run the same butterflies, three stages a pass in
-    registers."""
+    """The unscaled mixed-radix Stockham FFT along the last axis (L points,
+    ``fft_radices(L)``) of a complex float32 tensor held as (re, im). A stage
+    of radix R after Ns points of earlier stages: for j < L/R, x_r = x[j + r
+    L/R], each x_r (r >= 1) times w = W_L^(r (j mod Ns) L / (Ns R)) from the
+    table (conjugated for the inverse; no product in the first stage, Ns =
+    1), (ac - bd, ad + bc) with the products rounded before their sums; the
+    radix-R butterfly; y[(j // Ns) Ns R + r Ns + j mod Ns] = its output r.
+    The kernels run the same stages, two or three at a time in registers."""
     L = re.shape[-1]
-    half = L // 2
-    j = torch.arange(half, device=re.device)
     ns = 1
-    while ns < L:
-        idx = (j % ns) * (L // (2 * ns)) * (P2_FFT_MAX_LEN // L)
-        wr, wi = tw[idx, 0], tw[idx, 1]
-        if inverse:
-            wi = -wi
-        ar, ai, br, bi = re[..., :half], im[..., :half], re[..., half:], im[..., half:]
-        tr = br * wr - bi * wi
-        ti = br * wi + bi * wr
-        shape = re.shape[:-1] + (half // ns, 1, ns)
-        re = torch.cat(((ar + tr).reshape(shape), (ar - tr).reshape(shape)), -2).reshape(
-            re.shape)
-        im = torch.cat(((ai + ti).reshape(shape), (ai - ti).reshape(shape)), -2).reshape(
-            im.shape)
-        ns *= 2
+    for R in fft_radices(L):
+        m = L // R
+        x = [(re[..., r * m:(r + 1) * m], im[..., r * m:(r + 1) * m]) for r in range(R)]
+        if ns > 1:
+            k = torch.arange(m, device=re.device) % ns
+            for r in range(1, R):
+                idx = r * k * (L // (ns * R))
+                wr, wi = tw[idx, 0], tw[idx, 1]
+                if inverse:
+                    wi = -wi
+                br, bi = x[r]
+                x[r] = (br * wr - bi * wi, br * wi + bi * wr)
+        y = _butterfly(x, inverse)
+        shape = re.shape[:-1] + (m // ns, 1, ns)
+        re = torch.cat([v[0].reshape(shape) for v in y], -2).reshape(re.shape[:-1] + (L,))
+        im = torch.cat([v[1].reshape(shape) for v in y], -2).reshape(re.shape)
+        ns *= R
     return re, im
 
 
-def _fft_rows_fwd(x: torch.Tensor, log2_l: int, tw: torch.Tensor):
-    """Pass 1: the half spectra (L/2 + 1 points) of the rows of x (P, R, W,
-    C), as (re, im) of shape (P, C, R, L/2 + 1): rows 2q and 2q + 1 packed
-    as one complex row zero to L, transformed and separated, A_k = (Z_k +
-    conj Z_{L-k}) / 2 and B_k = (Z_k - conj Z_{L-k}) / 2i."""
+def _fft_rows_fwd(x: torch.Tensor, L: int, tw: torch.Tensor):
+    """Pass 1: the half spectra (L // 2 + 1 points) of the rows of x (P, R,
+    W, C), as (re, im) of shape (P, C, R, L // 2 + 1): rows 2q and 2q + 1
+    packed as one complex row zero to L, transformed and separated, A_k =
+    (Z_k + conj Z_{L-k}) / 2 and B_k = (Z_k - conj Z_{L-k}) / 2i."""
     P, R, W, C = x.shape
-    L = 1 << log2_l
+    nc = L // 2 + 1
     n2 = R + (R & 1)
     z = x.new_zeros((P, C, n2, L))
     z[:, :, :R, :W] = x.permute(0, 3, 1, 2)
     fr, fi = _stockham(z[:, :, 0::2], z[:, :, 1::2], tw, False)
-    k = torch.arange(L // 2 + 1, device=x.device)
+    k = torch.arange(nc, device=x.device)
     m = (L - k) % L
     zr, zi, mr, mi = fr[..., k], fi[..., k], fr[..., m], fi[..., m]
-    pairs = lambda a, b: torch.stack((a, b), 3).reshape(P, C, n2, L // 2 + 1)[:, :, :R]
+    pairs = lambda a, b: torch.stack((a, b), 3).reshape(P, C, n2, nc)[:, :, :R]
     return (pairs((zr + mr) * 0.5, (zi + mi) * 0.5),
             pairs((zi - mi) * 0.5, (mr - zr) * 0.5))
 
 
-def _fft_cols(a, b, log2_l: int, tw: torch.Tensor, conj_b: bool, row0: int, n_out: int):
+def _fft_cols(a, b, L: int, tw: torch.Tensor, conj_b: bool, row0: int, n_out: int):
     """Pass 2: each column of the half spectra a and b ((re, im), (P, C,
     rows, NC)) zero to L, the forward FFT of both, a b (a conj(b) with
     ``conj_b``: (ac + bd, bc - ad)), the inverse; rows [row0, row0 + n_out)."""
-    L = 1 << log2_l
-
     def columns(s):
         re, im = s
         zr = re.new_zeros(re.shape[:2] + (re.shape[3], L))
@@ -268,25 +366,24 @@ def _fft_cols(a, b, log2_l: int, tw: torch.Tensor, conj_b: bool, row0: int, n_ou
             pi[..., row0:row0 + n_out].transpose(2, 3))
 
 
-def _fft_rows_inv(s, log2_l: int, tw: torch.Tensor, scale: float, t0: int, nt: int,
+def _fft_rows_inv(s, L: int, tw: torch.Tensor, scale: float, t0: int, nt: int,
                   flip: bool) -> torch.Tensor:
     """Pass 3: rows 2q and 2q + 1 of the half spectra s ((re, im), (P, C, n,
-    L/2 + 1)) packed as Z = X + iY over all L points by Hermitian symmetry
-    (the imaginary parts at 0 and L/2 dropped), the inverse FFT, times
-    ``scale``; columns [t0, t0 + nt) as (P, n, nt, C), flipped in both axes
-    with ``flip``."""
+    L // 2 + 1)) packed as Z = X + iY over all L points by Hermitian symmetry
+    (the imaginary parts at 0 and, for even L, L/2 dropped), the inverse
+    FFT, times ``scale``; columns [t0, t0 + nt) as (P, n, nt, C), flipped in
+    both axes with ``flip``."""
     re, im = s
     P, C, n, _ = re.shape
-    L = 1 << log2_l
     n2 = n + (n & 1)
     if n2 != n:
         re = torch.cat((re, re.new_zeros((P, C, 1, re.shape[3]))), 2)
         im = torch.cat((im, im.new_zeros((P, C, 1, im.shape[3]))), 2)
     k = torch.arange(L, device=re.device)
-    kk = torch.where(k <= L // 2, k, L - k)
+    kk = torch.where(2 * k <= L, k, L - k)
     xr, xi = re[:, :, 0::2][..., kk], im[:, :, 0::2][..., kk]
     yr, yi = re[:, :, 1::2][..., kk], im[:, :, 1::2][..., kk]
-    low, high = (k > 0) & (k < L // 2), k > L // 2
+    low, high = (k > 0) & (2 * k < L), 2 * k > L
     zr = torch.where(low, xr - yi, torch.where(high, xr + yi, xr))
     zi = torch.where(low, xi + yr, torch.where(high, yr - xi, yr))
     zr, zi = _stockham(zr, zi, tw, True)
@@ -296,20 +393,34 @@ def _fft_rows_inv(s, log2_l: int, tw: torch.Tensor, scale: float, t0: int, nt: i
     return rows.permute(0, 2, 3, 1).contiguous()
 
 
+def fft_scale(lh: int, lw: int) -> float:
+    """The inverse's scale 1 / (Lh Lw), rounded once to float32 (the C
+    launcher rounds the same double)."""
+    return float(np.float32(1.0 / (lh * lw)))
+
+
+def _fft_route(patches, second, conj_b: bool, row0: int, n_out: int, t0: int, nt: int,
+               flip: bool) -> torch.Tensor:
+    """The three passes of ``csrc/svola_fft.cu`` at Lh = fft_len(ph), Lw =
+    fft_len(pw), with each length's twiddle table."""
+    _, ph, pw, _ = patches.shape
+    lh, lw = fft_len(ph), fft_len(pw)
+    tw_h, tw_w = fft_twiddles(lh, patches.device), fft_twiddles(lw, patches.device)
+    spec = _fft_cols(_fft_rows_fwd(patches, lw, tw_w), _fft_rows_fwd(second, lw, tw_w), lh,
+                     tw_h, conj_b, row0, n_out)
+    return _fft_rows_inv(spec, lw, tw_w, fft_scale(lh, lw), t0, nt, flip)
+
+
 def svola_patch_conv_fft_reference(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
     """Plain version of P2's FFT route (``csrc/svola_fft.cu``): the valid
     convolution of each patch with its PSF, (P, ph, pw, C) and (P, kh, kw,
     C) -> (P, ph - kh + 1, pw - kw + 1, C), as the circular convolution at
-    lengths Lh = 2^fft_log2(ph), Lw = 2^fft_log2(pw) (the wrap never reaches
-    rows [kh-1, ph) and columns [kw-1, pw), which are kept), scaled by
-    1/(Lh Lw); the kernels' three passes in their arithmetic."""
-    P, ph, pw, C = patches.shape
+    lengths Lh = fft_len(ph), Lw = fft_len(pw) (the wrap never reaches rows
+    [kh-1, ph) and columns [kw-1, pw), which are kept), scaled by 1/(Lh Lw);
+    the kernels' three passes in their arithmetic."""
+    _, ph, pw, _ = patches.shape
     kh, kw = psfs.shape[1:3]
-    lh, lw = fft_log2(ph), fft_log2(pw)
-    tw = fft_twiddles(patches.device)
-    spec = _fft_cols(_fft_rows_fwd(patches, lw, tw), _fft_rows_fwd(psfs, lw, tw), lh, tw,
-                     False, kh - 1, ph - kh + 1)
-    return _fft_rows_inv(spec, lw, tw, 2.0 ** -(lh + lw), kw - 1, pw - kw + 1, False)
+    return _fft_route(patches, psfs, False, kh - 1, ph - kh + 1, kw - 1, pw - kw + 1, False)
 
 
 def svola_patch_conv_dpsf_fft_reference(patches: torch.Tensor, cotangent: torch.Tensor,
@@ -319,20 +430,21 @@ def svola_patch_conv_dpsf_fft_reference(patches: torch.Tensor, cotangent: torch.
     cotangent at the forward's lengths (lags s < kh, t < kw do not wrap),
     dpsf[u, v] = corr[kh-1-u, kw-1-v]; the kernels' passes in their
     arithmetic."""
-    P, ph, pw, C = patches.shape
     kh, kw = kernel_hw
-    lh, lw = fft_log2(ph), fft_log2(pw)
-    tw = fft_twiddles(patches.device)
-    spec = _fft_cols(_fft_rows_fwd(patches, lw, tw), _fft_rows_fwd(cotangent, lw, tw), lh, tw,
-                     True, 0, kh)
-    return _fft_rows_inv(spec, lw, tw, 2.0 ** -(lh + lw), 0, kw, True)
+    return _fft_route(patches, cotangent, True, 0, kh, 0, kw, True)
+
+
+#: The widest PSF, in either axis, that the direct kernels take (``MAX_K``
+#: of ``csrc/svola_conv.cu`` and ``csrc/svola_conv_bwd.cu``): at least one
+#: tap narrower than the FFT route's thresholds, so that every PSF has a
+#: route.
+P2_DIRECT_MAX_KW, P2_DPSF_DIRECT_MAX_KW = 32, 22
 
 
 def p2_max_kw(adjoint: bool = False) -> int:
     """The widest PSF, in either axis, that the direct kernels take (the C
-    functions ``p2_max_kw`` and ``p2_dpsf_max_kw`` return the same): one tap
-    narrower than the FFT route's threshold."""
-    return (P2_DPSF_FFT_MIN_KW if adjoint else P2_FFT_MIN_KW) - 1
+    functions ``p2_max_kw`` and ``p2_dpsf_max_kw`` return the same)."""
+    return P2_DPSF_DIRECT_MAX_KW if adjoint else P2_DIRECT_MAX_KW
 
 
 def p2_argument_error(patches_shape, psfs_shape, adjoint: bool = False):
@@ -433,12 +545,13 @@ def _launch_fft(patches: torch.Tensor, second: torch.Tensor, kernel_hw: Tuple[in
     out = torch.empty(shape, dtype=torch.float32, device=patches.device)
     scratch = torch.empty(lib.p2_fft_scratch(P, C, ph, pw, kh, int(adjoint)),
                           dtype=torch.float32, device=patches.device)
-    tw = fft_twiddles(patches.device)
+    tw_h = fft_twiddles(fft_len(ph), patches.device)
+    tw_w = fft_twiddles(fft_len(pw), patches.device)
     launch = lib.p2_dpsf_fft_launch if adjoint else lib.p2_fft_launch
     with torch.cuda.device(patches.device):
         stream = torch.cuda.current_stream(patches.device).cuda_stream
-        err = launch(patches.data_ptr(), second.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                     scratch.data_ptr(), P, C, ph, pw, kh, kw, stream)
+        err = launch(patches.data_ptr(), second.data_ptr(), out.data_ptr(), tw_h.data_ptr(),
+                     tw_w.data_ptr(), scratch.data_ptr(), P, C, ph, pw, kh, kw, stream)
     if err != 0:
         raise RuntimeError(f"P2's FFT route{' (d/dpsf)' if adjoint else ''} launch failed: "
                            f"{lib.k1_error_string(err).decode()}")
@@ -575,7 +688,8 @@ def svola_convolution(image: torch.Tensor, overlap_size, psfs: torch.Tensor,
       psfs_grid_shape: (grid_h, grid_w).
       window_type: recomposition window, 'boxcar' or 'hann'.
       fft_fast_sizes: accepted for the JAX package's signature and ignored:
-        it picks TPU-friendly FFT lengths; P2's FFT route takes powers of two.
+        P2's FFT route always transforms at the fast lengths (``fft_len``),
+        which is the JAX package's ``fft_fast_sizes=True``.
 
     Returns:
       (B, H, W, C) convolved image. Every patch-channel of the batch goes
