@@ -206,7 +206,10 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     backward, one FFT P2 call and one FFT d/dpsf call (three launches each)
     a step, every step accepted, each step's host wall; the first step's
     d/d(c, t) at 1448^2 (K = 33, the FFT route both ways; config 5's
-    deterministic PSF bundle) held against the CPU's.
+    deterministic PSF bundle) held against the CPU's; then 2 steps at
+    psf_shape (257, 257) (K = 187; S1 over a 257 x 129 half grid, its
+    adjoint the tiled kernel), the same launches a step, loss and
+    gradients finite.
 40. (after 36) the analysis layer at the README's tolerance width, this
     slice's main path (``analysis.py``, ``ops/metrics.py``,
     ``ops/vignetting.py``; the double-Gauss, 5 fields x 64 pupil points x
@@ -215,8 +218,8 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     more) and ``sensitivities`` (one K2 forward and one backward), the same
     on the aspherized double-Gauss with kappa and asphere tolerances on K4,
     each held against the unroll engine on the card; ``through_focus_mtf``
-    (9 shifts, one K2 plain launch), ``field_mtf`` (one K1 launch),
-    ``diffraction_mtf`` (grid 32, pad 4: two K1 opl launches),
+    (9 shifts, one K2 plain launch), ``field_mtf`` (one K1 launch), both
+    also at psf_shape (257, 257), ``diffraction_mtf`` (grid 32, pad 4: two K1 opl launches),
     ``solve_vignetting`` (Tessar and double-Gauss, n_scan 129), the Seidel
     sums, fans, field curves, longitudinal aberration and the five metrics,
     each held against the CPU; each call's launches counted from 0 and its
@@ -246,7 +249,8 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     as a population of one with ``--aspherize``; ``train_generator`` 3
     steps at batch 32 and 64 scored designs; ``optimize_through_image`` 2
     steps at 96^2; ``optimize_wavefront`` 3 steps; ``simulate_aberrations``
-    at 128^2 with both PSF sources; ``flagship_report`` with vignetting;
+    at 128^2 with both PSF sources and at ``--psf-size 257``;
+    ``flagship_report`` with vignetting;
     ``aberration_report``), each on ``--engine fused`` and ``--engine
     unroll``: every run's kernel launches counted from 0 by kernel entry,
     the trace kernels' by the template mode each launch ran (the fused
@@ -269,12 +273,27 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     channels, a 65 x 33 half grid, 65,536 rays), W = 4 with one-hot weights
     (d/dweights too), an even and a non-square grid, the auto extent
     (increment=None: d/dgx, d/dgy, d/dsigma), a NaN ray, an inf ray,
-    float64, and rays no multiple of the chunk; ``compute_psf`` on CUDA
-    tensors under grad launches S1 both ways and no plain version; S1, its
-    plain versions and the PyTorch contractions (TF32 off) timed at the
-    default configuration's splat; the default configuration's 2048^2
-    render and image-loss ``LensOptimizer.step``: peak device memory, host
-    walls (median of 5), the step's profile and its largest allocations.
+    float64, rays no multiple of the chunk, half grids above the former
+    ceiling of 129 x 65 (``SPLAT_WIDE``: 130 x 65 to 513 x 257, 300 x 7 and
+    7 x 300, float32 and float64, with and without weights, per-bin sums
+    and d/dw; the tiled adjoint forced on two grids below it) and the
+    default configuration's splat at psf_shape (257, 257); ``compute_psf``
+    on CUDA tensors under grad launches S1 both ways and no plain version;
+    S1, its plain versions and the PyTorch contractions (TF32 off) timed at
+    the default configuration's splat at psf 65 and 257; the default
+    configuration's 2048^2 render and image-loss ``LensOptimizer.step`` at
+    psf 65 and 257, and its 4096^2 render at psf 129
+    (``SPLAT_MEMORY_RUNS``): peak device memory, host walls (median of 5),
+    the largest allocations (resize_bilinear's within twice its largest
+    operand; at psf 257 the step's peak at most 12 GB and no allocation
+    above 1.5 GB).
+44. (after 43) P2's FFT route past its longest transform: the default
+    configuration's 4096^2 render with one PSF (6,238-pixel patches, K =
+    95), the route (``image._p2``, ``image._p2_dpsf``) cut into
+    sub-patches (``image.fft_tiles``) bit for bit with its plain versions
+    and within the FFT bars of float64 torch.fft, at a lowered cut of 2048
+    (4 x 4 pieces) and at the route's own (2 x 2); its times; the render,
+    its launches counted (three FFT launches a piece) and its host wall.
 
 Every phase prints its findings; any failure exits nonzero. It needs one CUDA
 device and exits 1 without one. The last line is a JSON object with the
@@ -317,6 +336,7 @@ before that carries the kernels' numbers.
                                           # and both routes' times at the
                                           # crossover renders (no result line)
     python3 chip_smoke.py --default-image-training  # instead: phase 39
+    python3 chip_smoke.py --fft-cut       # instead: phase 44 alone
     python3 chip_smoke.py --analysis      # instead: phase 40 alone (no
                                           # result line)
     python3 chip_smoke.py --parallel      # instead: phase 41 alone (no
@@ -327,14 +347,17 @@ before that carries the kernels' numbers.
     python3 chip_smoke.py --splat         # instead: phase 43 alone (no
                                           # result line)
     python3 chip_smoke.py --splat-memory TREE...  # instead: phase 43's
-                                          # memory, walls and profile of the
-                                          # default configuration's 2048^2
-                                          # render and image-loss step, of
+                                          # memory, walls and profile of
+                                          # SPLAT_MEMORY_RUNS (2048^2 render
+                                          # and step at psf 65 and 257,
+                                          # 4096^2 render at psf 129), of
                                           # each unpacked tree and of this
-                                          # checkout, one after another
+                                          # checkout, in turns (trees, this,
+                                          # this, trees in reverse)
 """
 
 import collections
+import ctypes
 import json
 import math
 import os
@@ -4672,15 +4695,17 @@ DEFAULT_GRAD_BUNDLE = dict(n_sampled_fields=9, n_pupil_rings=24, pupil_sampling=
 
 
 def phase_default_image_training(torch, zoo, simulator, imaging, image, fused_trace,
-                                 LensOptimizer, card, n_steps=3):
+                                 LensOptimizer, card, n_steps=3, psf_shape=(65, 65)):
     """This slice's main path: ``n_steps`` Adam steps of ``LensOptimizer``
     with ``make_image_loss_fn`` at the default configuration at 2048^2 (K =
-    47), the counts set to 0 before each step and read after: K1 forward and
+    47; at psf_shape (257, 257) K = 187 and S1's 257 x 129 half grid), the
+    counts set to 0 before each step and read after: K1 forward and
     backward once each, P2 on the FFT route once (three launches, no direct
-    one) and d/dpsf on the FFT route once (three); every loss finite, every
-    step accepted; the host wall of each step. Then the first step's d/d(c,
-    t) on the card against the port's CPU at ``DEFAULT_GRAD_PX`` with
-    ``DEFAULT_GRAD_BUNDLE`` within ``IMAGE_GRAD_BAR``. S1 (the PSF splat)
+    one) and d/dpsf on the FFT route once (three); every loss and gradient
+    finite, every step accepted; the host wall of each step. Then, at the
+    default psf_shape, the first step's d/d(c, t) on the card against the
+    port's CPU at ``DEFAULT_GRAD_PX`` with ``DEFAULT_GRAD_BUNDLE`` within
+    ``IMAGE_GRAD_BAR`` (None at another psf_shape). S1 (the PSF splat)
     forward and adjoint once each a step. Returns the launches summed over
     the run (K1f, K1b, P2 direct, P2 FFT, d/dpsf direct, d/dpsf FFT, S1f,
     S1b), the walls and the gradient's (relative deviation, cosine)."""
@@ -4699,11 +4724,12 @@ def phase_default_image_training(torch, zoo, simulator, imaging, image, fused_tr
     read = lambda: (tuple(getattr(fused_trace, c) for c in names)
                     + tuple(getattr(image, c) for c in counters)
                     + tuple(getattr(psf, c) for c in splats))
-    cfg = default_imaging_config(simulator)
+    cfg = default_imaging_config(simulator, psf_shape=psf_shape)
     opt, state = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, "cuda",
                                  DEFAULT_TRAIN_PX, cfg)
     start = {k: v.detach().clone() for k, v in state.params.items()}
-    per_step, totals, psnrs, walls = [], [], [], []
+    per_step, totals, psnrs, walls, finite = [], [], [], [], []
+    grads = lambda: [v["exp_avg"] for v in state.opt_state.state.values()]
     for _ in range(n_steps):
         reset()
         t0 = time.perf_counter()
@@ -4713,22 +4739,28 @@ def phase_default_image_training(torch, zoo, simulator, imaging, image, fused_tr
         per_step.append(read())
         totals.append(float(total))
         psnrs.append(float(terms["psnr"]))
+        finite.append(all(bool(torch.isfinite(g).all()) for g in grads()))
     adam_steps = [int(v["step"]) for v in state.opt_state.state.values()]
     moved = max(float((state.params[k].detach() - start[k]).abs().max()) for k in start)
     k = imaging.psf_kernel_shape((DEFAULT_TRAIN_PX,) * 2, cfg)
     check(all(c == (1, 1, 0, 3, 0, 3, 1, 1) for c in per_step)
-          and all(map(math.isfinite, totals))
+          and all(map(math.isfinite, totals)) and all(finite)
           and adam_steps == [n_steps] * len(adam_steps) and moved > 0,
-          f"image training at the default configuration at {DEFAULT_TRAIN_PX}^2 (K = {k[0]}, "
-          f"double-Gauss defocused 0.3 mm): {n_steps} LensOptimizer steps, launches per step "
+          f"image training at the default configuration at {DEFAULT_TRAIN_PX}^2, psf_shape "
+          f"{psf_shape} (K = {k[0]}, double-Gauss defocused 0.3 mm): {n_steps} LensOptimizer "
+          f"steps, Adam's first moments finite {finite}, launches per step "
           f"(K1 forward, K1 backward, P2 direct, P2 FFT, d/dpsf direct, d/dpsf FFT, S1 forward, "
           f"S1 adjoint) {per_step} (expected (1, 1, 0, 3, 0, 3, 1, 1) each); every step "
           f"accepted (Adam step counts "
           f"{adam_steps}); losses {['%.5f' % v for v in totals]}; PSNR "
           f"{['%.4f' % v for v in psnrs]} dB; parameters moved by up to {moved:.3e}")
     print(f"time image-loss LensOptimizer.step at the default configuration at "
-          f"{DEFAULT_TRAIN_PX}^2: {', '.join('%.2f' % w for w in walls)} ms (host clock, each "
-          f"step; median {statistics.median(walls):.2f} ms); card: {card}", flush=True)
+          f"{DEFAULT_TRAIN_PX}^2, psf_shape {psf_shape}: {', '.join('%.2f' % w for w in walls)} "
+          f"ms (host clock, each step; median {statistics.median(walls):.2f} ms); card: {card}",
+          flush=True)
+    launches = tuple(sum(c[i] for c in per_step) for i in range(8))
+    if tuple(psf_shape) != (65, 65):
+        return launches, walls, None
     kg = imaging.psf_kernel_shape((DEFAULT_GRAD_PX,) * 2, cfg)
     check(image.p2_takes_fft(kg) and image.p2_takes_fft(kg, adjoint=True),
           f"the default configuration's render at {DEFAULT_GRAD_PX}^2 (K = {kg[0]}) takes the "
@@ -4738,11 +4770,141 @@ def phase_default_image_training(torch, zoo, simulator, imaging, image, fused_tr
         default_imaging_config(simulator, **DEFAULT_GRAD_BUNDLE),
         f"the default configuration's imaging at {DEFAULT_GRAD_PX}^2 (K = {kg[0]}; PSF bundle "
         f"{DEFAULT_GRAD_BUNDLE})")
-    launches = tuple(sum(c[i] for c in per_step) for i in range(8))
     return launches, walls, grad
 
 
-def fft_entries(wide_errs, wide_launches, train, ms, bounds, crossover, rates):
+#: The render whose patches pass P2's FFT route's longest transform: the
+#: default configuration at 4096^2 with one PSF (psf_grid_shape (1, 1), K =
+#: 95), patches of 6,238 pixels a side, cut into 2 x 2 sub-patches
+#: (``image.fft_tiles``); its check's lowered cut (4 x 4).
+FFT_CUT_PX = 4096
+FFT_CUT_LOWERED = 2048
+
+
+def fft_cut_check(torch, image, label, patches, psfs, cot):
+    """P2's FFT route as the port calls it (``image._p2``,
+    ``image._p2_dpsf``: cut by ``image.fft_tiles``) on (patches, psfs, cot):
+    bit for bit with the plain versions (which cut alike), within
+    ``FFT_BAR`` of the float64 torch.fft product and correlation of the
+    whole patch (a share of the largest entry), three launches a piece each
+    way. Returns ({"fwd": (max deviation from the plain version, share),
+    "dpsf": ...}, pieces)."""
+    kh, kw = psfs.shape[1:3]
+    pieces = len(image.fft_tiles(patches.shape[1], kh)) * len(image.fft_tiles(patches.shape[2],
+                                                                              kw))
+    image.P2_FFT_LAUNCHES = image.P2_DPSF_FFT_LAUNCHES = 0
+    errs, same = {}, {}
+    with torch.no_grad():
+        got = {"fwd": image._p2(patches, psfs), "dpsf": image._p2_dpsf(patches, cot, (kh, kw))}
+        torch.cuda.synchronize()
+        launches = (image.P2_FFT_LAUNCHES, image.P2_DPSF_FFT_LAUNCHES)
+        plain = {"fwd": lambda: image.svola_patch_conv_fft_reference(patches, psfs),
+                 "dpsf": lambda: image.svola_patch_conv_dpsf_fft_reference(patches, cot,
+                                                                           (kh, kw))}
+        yardstick = {"fwd": lambda: fft_conv(torch, patches.double(), psfs.double()),
+                     "dpsf": lambda: fft_dpsf(torch, patches.double(), cot.double(), (kh, kw))}
+        for key in ("fwd", "dpsf"):
+            want = plain[key]()
+            same[key] = torch.equal(got[key], want)
+            dev = float((got[key] - want).abs().max())
+            del want
+            ref = yardstick[key]()
+            errs[key] = (dev, float((got[key].double() - ref).abs().max()) / float(ref.abs().max()))
+            del ref
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    check(all(same.values()) and finite and launches == (3 * pieces,) * 2
+          and all(errs[k][1] <= FFT_BAR[k] for k in errs),
+          f"P2's FFT route cut into {pieces} sub-patches, {label}: patches "
+          f"{tuple(patches.shape)}, PSFs {tuple(psfs.shape)}, cut at {image.P2_FFT_TILE} "
+          f"(pieces of rows {image.fft_tiles(patches.shape[1], kh)}); forward bit-identical to "
+          f"its plain version={same['fwd']} (max deviation {errs['fwd'][0]:.3e}), within "
+          f"{errs['fwd'][1]:.2e} of the float64 torch.fft product's largest entry (bar "
+          f"{FFT_BAR['fwd']:.0e}); d/dpsf bit-identical={same['dpsf']} ({errs['dpsf'][0]:.3e}), "
+          f"within {errs['dpsf'][1]:.2e} of the float64 correlation (bar "
+          f"{FFT_BAR['dpsf']:.0e}); launches {launches} (3 a piece each way)")
+    return errs, pieces
+
+
+def phase_fft_cut(torch, zoo, simulator, imaging, image, fused_trace, card):
+    """Phase 44: P2's FFT route past its longest transform, at the default
+    configuration's 4096^2 render with one PSF (``FFT_CUT_PX``): the
+    render's patches (6,238 pixels a side, K = 95) and a seeded cotangent
+    through the route with its cut lowered to ``FFT_CUT_LOWERED``, then at
+    the real cut (``fft_cut_check``: bit for bit with the plain versions,
+    within ``FFT_BAR`` of float64 torch.fft); the route's times there (CUDA
+    events; the plain versions one host-clock run each; the torch.fft
+    product and correlation of the whole patch); then the render itself,
+    its launches counted from 0 (K1 forward once, S1 forward once, the FFT
+    route three a piece, no direct P2), finite, and its host wall. Returns
+    the numbers for the FFT route's entries."""
+    from torchoptics_tpu_torch.ops import psf
+    cfg = default_imaging_config(simulator, psf_grid_shape=(1, 1))
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    rad = torch.tensor(photograph(FFT_CUT_PX)[None], device="cuda")
+    with torch.no_grad():
+        model = imaging.sample_optics_model(specs, lens, cfg)
+        patches, psfs = p2_inputs(torch, imaging, image, model, rad, cfg)
+    del model
+    P, ph, pw, C = patches.shape
+    kh, kw = psfs.shape[1:3]
+    check(image.p2_takes_fft((kh, kw)) and image.p2_takes_fft((kh, kw), adjoint=True)
+          and min(ph, pw) > image.P2_FFT_MAX_LEN,
+          f"the default configuration's {FFT_CUT_PX}^2 render with one PSF: patches "
+          f"{tuple(patches.shape)} longer than the route's longest transform "
+          f"({image.P2_FFT_MAX_LEN}), PSFs {tuple(psfs.shape)} on the FFT route both ways")
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    cot = torch.randn((P, ph - kh + 1, pw - kw + 1, C), generator=gen, device="cuda")
+    cut = image.P2_FFT_TILE
+    image.P2_FFT_TILE = FFT_CUT_LOWERED
+    try:
+        lowered, lowered_pieces = fft_cut_check(torch, image, "a lowered cut", patches, psfs, cot)
+    finally:
+        image.P2_FFT_TILE = cut
+    errs, pieces = fft_cut_check(torch, image, "the route's cut", patches, psfs, cot)
+    with torch.no_grad():
+        ms = {"fft_p2": auto_ms(torch, lambda: image._p2(patches, psfs)),
+              "fft_dpsf": auto_ms(torch, lambda: image._p2_dpsf(patches, cot, (kh, kw))),
+              "torch_fft_p2": auto_ms(torch, lambda: fft_conv(torch, patches, psfs)),
+              "torch_fft_dpsf": auto_ms(torch, lambda: fft_dpsf(torch, patches, cot, (kh, kw))),
+              "plain_fft_p2": host_ms(torch, lambda: image.svola_patch_conv_fft_reference(
+                  patches, psfs), runs=1, warmup=0),
+              "plain_fft_dpsf": host_ms(torch, lambda: image.svola_patch_conv_dpsf_fft_reference(
+                  patches, cot, (kh, kw)), runs=1, warmup=0)}
+    bounds = {"p2": fft_route_bound(patches, (kh, kw), False),
+              "dpsf": fft_route_bound(patches, (kh, kw), True)}
+    del patches, psfs, cot
+    torch.cuda.empty_cache()
+    counters = ("P2_LAUNCHES", "P2_FFT_LAUNCHES")
+    for c in counters:
+        setattr(image, c, 0)
+    fused_trace.K1_FWD_LAUNCHES = psf.SPLAT_LAUNCHES = 0
+    irr, psnr, ssim = render(torch, imaging, specs, lens, rad, cfg)
+    torch.cuda.synchronize()
+    launches = (fused_trace.K1_FWD_LAUNCHES, psf.SPLAT_LAUNCHES,
+                *(getattr(image, c) for c in counters))
+    ok = bool(torch.isfinite(irr).all()) and math.isfinite(float(psnr[0]))
+    del irr
+    wall = host_ms(torch, lambda: render(torch, imaging, specs, lens, rad, cfg), runs=3, warmup=0)
+    check(ok and launches == (1, 1, 0, 3 * pieces),
+          f"the default configuration's {FFT_CUT_PX}^2 render with one PSF: launches (K1 "
+          f"forward, S1 forward, P2 direct, P2 FFT) {launches} (expected (1, 1, 0, "
+          f"{3 * pieces})), irradiance finite={ok}, PSNR {float(psnr[0]):.3f} dB, SSIM "
+          f"{float(ssim[0]):.5f}")
+    for what in ("p2", "dpsf"):
+        b, t = bounds[what], ms[f"fft_{what}"]
+        print(f"time P2's FFT route {'forward' if what == 'p2' else 'd/dpsf'} cut into {pieces} "
+              f"sub-patches at the {FFT_CUT_PX}^2 one-PSF render ({ph}^2 patches, K = {kh}): "
+              f"{t:.3f} ms (plain {ms[f'plain_fft_{what}']:.1f} ms, one run; torch.fft of the "
+              f"whole patch {ms[f'torch_fft_{what}']:.3f} ms); bound {b[0]:.4f} ms by {b[1]}, "
+              f"{b[0] / t:.3f} of it reached; card: {card}", flush=True)
+    print(f"time the default configuration's {FFT_CUT_PX}^2 render with one PSF: {wall:.1f} ms "
+          f"(host clock, median of 3); card: {card}", flush=True)
+    return {"pieces": pieces, "lowered_pieces": lowered_pieces, "launches": launches[3],
+            "errs": errs, "lowered_errs": lowered, "ms": ms, "bounds": bounds,
+            "render_wall_ms": wall, "patch": [ph, pw], "k": kh}
+
+
+def fft_entries(wide_errs, wide_launches, train, ms, bounds, crossover, rates, cut=None):
     """The FFT route's entries of the kernels line: forward (``p2_fft``) and
     d/dpsf (``p2_dpsf_fft``), their times at the default configuration's
     2048^2 shape (K = 47, the main path's) with K = 95 beside, ``launches``
@@ -4751,7 +4913,8 @@ def fft_entries(wide_errs, wide_launches, train, ms, bounds, crossover, rates):
     operations at P1's FP32 issue rate (``bound_ms_issue``: no FMA
     contraction, an instruction an operation), the deviations from the
     plain versions and from float64 torch.fft, and the crossover timings of
-    both routes."""
+    both routes; with ``cut`` (phase 44), ``cut_4096_one_psf``: the route
+    cut into sub-patches at the 4096^2 render with one PSF."""
     launches, walls, grad = train
     errs47 = wide_errs["default config at 2048^2"]
     errs95 = wide_errs["default config at 4096^2"]
@@ -4777,7 +4940,16 @@ def fft_entries(wide_errs, wide_launches, train, ms, bounds, crossover, rates):
                 "library_ms_k33": ms[f"torch_fft_{what}_k33"],
                 "direct_bound_ms_k95": bounds[f"direct_{what}_k95"][0],
                 "max_abs_err_k95": errs95[key][0], "float64_share_k95": errs95[key][1],
-                "max_float64_share": max(e[key][1] for e in wide_errs.values()), **extra}
+                "max_float64_share": max(e[key][1] for e in wide_errs.values()),
+                **({"cut_4096_one_psf": {
+                    "pieces": cut["pieces"], "launches_render": cut["launches"],
+                    "patch": cut["patch"], "k": cut["k"], "ms": cut["ms"][f"fft_{what}"],
+                    "plain_ms": cut["ms"][f"plain_fft_{what}"],
+                    "library_ms": cut["ms"][f"torch_fft_{what}"],
+                    "bound_ms": cut["bounds"][what][0], "bound_by": cut["bounds"][what][1],
+                    "max_abs_err": cut["errs"][key][0], "float64_share": cut["errs"][key][1],
+                    "lowered_cut_max_abs_err": cut["lowered_errs"][key][0],
+                    "render_wall_ms": cut["render_wall_ms"]}} if cut else {}), **extra}
     return [
         entry("p2", "fwd", launches[3], {"render_2048_launches": wide_launches,
                                          "crossover_ms": crossover}),
@@ -4860,7 +5032,7 @@ def ptxas_summary(path):
                           "partials_reduce", "p2_svola_kernel", "p2_dpsf_kernel",
                           "p2_dpsf_reduce", "fft_rows_fwd", "fft_cols", "fft_rows_inv",
                           "p1_chain_kernel", "s1_fwd_kernel", "s1_fwd_reduce", "s1_bwd_kernel",
-                          "s1_bwd_bins"):
+                          "s1_bwd_tiled_kernel", "s1_bwd_bins"):
                 if short in raw:
                     # The template arguments of the mangled name: I L<type><value>E ... E,
                     # or a type and perhaps a bool (S1's IfE, IdLb1EE).
@@ -5428,10 +5600,15 @@ def phase_analysis(torch, zoo, modules, card):
     specs, lens = zoo.build("double_gauss", device="cuda")
     specs_h, lens_h = zoo.build("double_gauss", device="cpu")
     deltas = np.linspace(-0.2, 0.2, 9)
+    # And at a 257 x 257 PSF grid (S1 over a 257 x 129 half grid).
+    wide = simulator_config(trace_engine="fused", psf_shape=(257, 257))
     for name, fn, kernel, expect in (
             ("through_focus_mtf", lambda s, l: analysis.through_focus_mtf(s, l, fused, deltas),
              "k2", (1, 0)),
-            ("field_mtf", lambda s, l: analysis.field_mtf(s, l, fused), "k1", (1, 0))):
+            ("field_mtf", lambda s, l: analysis.field_mtf(s, l, fused), "k1", (1, 0)),
+            ("through_focus_mtf at psf 257",
+             lambda s, l: analysis.through_focus_mtf(s, l, wide, deltas), "k2", (1, 0)),
+            ("field_mtf at psf 257", lambda s, l: analysis.field_mtf(s, l, wide), "k1", (1, 0))):
         with torch.no_grad():
             out = to_cpu(counted(name, lambda fn=fn: fn(specs, lens)))
             want = fn(specs_h, lens_h)
@@ -5971,6 +6148,10 @@ EXAMPLE_RUNS = (
      {"k1_fwd_opl": (14, 2), "k1_bwd_opl": (6, 2)}, _wavefront_bar),
     ("simulate_aberrations", "simulate_aberrations", [],
      {"k1_fwd": (1, 0), "p2_svola": (1, 0)}, _default_bar),
+    # A 257 x 257 PSF: S1 over its 257 x 129 half grid (S1's launches are
+    # not among the counted entries), 11-tap patch PSFs on P2's direct route.
+    ("simulate_aberrations --psf-size 257", "simulate_aberrations", ["--psf-size", "257"],
+     {"k1_fwd": (1, 0), "p2_svola": (1, 0)}, _default_bar),
     ("simulate_aberrations --psf-source diffraction", "simulate_aberrations",
      ["--psf-source", "diffraction"],
      # opd_map for the sampling report and for the render.
@@ -6204,10 +6385,33 @@ S1_FWD_SOURCE = "torchoptics_tpu_torch/csrc/psf_splat_fwd.cu"
 S1_BWD_SOURCE = "torchoptics_tpu_torch/csrc/psf_splat_bwd.cu"
 TPU_S1 = ("torchoptics_tpu/ops/psf.py:75 (the splat's broadcast, which XLA fuses into its sum "
           "over rays; no Pallas kernel)")
+#: Half grids above S1's former ceiling (129 x 65), and both adjoint kernels
+#: on one grid: {label: (g, C, R, n_y, n_x/2, float64, weights, per-bin
+#: sums, d/dw, the adjoint's kernel (None: ``psf.splat_bwd_tiled``'s; True:
+#: the tiled one forced))}; seeded spots spread over the grid
+#: (``splat_wide_args``). 66 pairs cut into 4 spans of 192, 192, 192 and 124
+#: rays, 3 steps of the tiled adjoint a span, the last one short.
+SPLAT_WIDE = {
+    "130 x 65": (2, 1, 1000, 130, 65, False, False, False, False, None),
+    "129 x 66, weights, d/dw": (2, 1, 1000, 129, 66, False, True, False, True, None),
+    "257 x 129, 66 pairs": (22, 3, 700, 257, 129, False, False, False, False, None),
+    "257 x 129, float64, weights, per-bin sums, d/dw": (2, 2, 1000, 257, 129, True, True, True,
+                                                         True, None),
+    "513 x 257, per-bin sums": (1, 2, 2000, 513, 257, False, False, True, False, None),
+    "300 x 7, float64": (2, 3, 700, 300, 7, True, False, False, False, None),
+    "7 x 300, weights, per-bin sums, d/dw": (22, 3, 700, 7, 300, False, True, True, True, None),
+    "65 x 33 on the tiled adjoint, weights, per-bin sums, d/dw": (2, 3, 700, 65, 33, False, True,
+                                                                   True, True, True),
+    "129 x 65 on the tiled adjoint, float64": (2, 2, 1000, 129, 65, True, False, False, False,
+                                               True),
+}
+#: The default configuration's splat at psf_shape (257, 257), the timed one.
+SPLAT_257 = "default config at psf 257 (21 x 3 pairs, 257 x 129, 65,536 rays)"
 # Phase 43's cases (``splat_cases``), in order.
-SPLAT_CASES = ("default config (21 x 3 pairs, 65 x 33, 65,536 rays)", "W = 4, one-hot weights",
-               "even grid 48 x 64", "non-square grid 33 x 65", "auto extent (increment=None)",
-               "a NaN ray", "an inf ray", "float64", "1,037 rays (no multiple of the chunk)")
+SPLAT_CASES = (("default config (21 x 3 pairs, 65 x 33, 65,536 rays)", "W = 4, one-hot weights",
+                "even grid 48 x 64", "non-square grid 33 x 65", "auto extent (increment=None)",
+                "a NaN ray", "an inf ray", "float64", "1,037 rays (no multiple of the chunk)")
+               + tuple(f"half grid {k}" for k in SPLAT_WIDE) + (SPLAT_257,))
 
 
 def capture_splat(torch, psf, call):
@@ -6237,13 +6441,30 @@ def seeded_spots(torch, shape, seed, dtype=None, scale=0.02):
             torch.tensor(y, dtype=dtype, device="cuda"))
 
 
+def splat_wide_args(torch, g, C, R, ny, nx, f64, weights, seed):
+    """S1's arguments on an ny x nx half grid at a 4 um pitch: seeded spots
+    (x about 0 with a third of the half grid's width, y about the grid's
+    centre with a quarter of its height) and, with ``weights``, uniform
+    weights in [0, 1); float32, or float64 with ``f64``."""
+    rng = np.random.default_rng(seed)
+    inc = 4e-3
+    t = lambda a: torch.tensor(a, dtype=torch.float64 if f64 else torch.float32, device="cuda")
+    sigma = t(np.full(g, inc / 2))
+    return (t(rng.normal(0.0, nx * inc / 3, (g, C, R))), t(rng.normal(0.0, ny * inc / 4, (g, C, R))),
+            t(np.tile(np.arange(nx) * inc, (g, 1))),
+            t(np.tile((np.arange(ny) + 0.5 - ny / 2) * inc, (g, 1))), sigma, sigma.clone(),
+            t(rng.uniform(0.0, 1.0, (g, C, R))) if weights else None)
+
+
 def splat_cases(torch, zoo, simulator, imaging, psf):
-    """S1's inputs, {label: (args, bins, weights_grad)}: the default
+    """S1's inputs, {label: (args, bins, weights_grad, tiled)}: the default
     configuration's own splat (the double-Gauss traced on K1: 21 fields x 3
     channels, 65 x 33 half grid, 65,536 rays), and seeded ones: W = 4 (one-hot
     weights, d/dw too), an even and a non-square grid, the auto extent
     (increment=None: d/dgx, d/dgy, d/dsigma), a NaN ray, an inf ray,
-    float64, and rays no multiple of the chunk."""
+    float64, rays no multiple of the chunk, the grids of ``SPLAT_WIDE``, and
+    the default configuration's splat at psf_shape (257, 257). ``tiled``:
+    the adjoint's kernel (None: ``psf.splat_bwd_tiled``'s)."""
     cases = {"default config (21 x 3 pairs, 65 x 33, 65,536 rays)": (
         default_splat_args(torch, zoo, simulator, imaging, psf), False, False)}
     x, y = seeded_spots(torch, (1, 9, 2048, 4), 1)
@@ -6272,6 +6493,13 @@ def splat_cases(torch, zoo, simulator, imaging, psf):
     x, y = seeded_spots(torch, (2, 3, 3, 1037), 8)
     _, args = capture_splat(torch, psf, lambda: psf.compute_psf(x, y, (17, 17), 5e-3))
     cases["1,037 rays (no multiple of the chunk)"] = (args, False, False)
+    cases = {k: v + (None,) for k, v in cases.items()}
+    for n, (label, (g, C, R, ny, nx, f64, weights, bins, dw, tiled)) in enumerate(
+            SPLAT_WIDE.items()):
+        cases[f"half grid {label}"] = (splat_wide_args(torch, g, C, R, ny, nx, f64, weights,
+                                                       200 + n), bins, dw, tiled)
+    cases[SPLAT_257] = (default_splat_args(torch, zoo, simulator, imaging, psf, (257, 257)),
+                        False, False, None)
     check(tuple(cases) == SPLAT_CASES, f"phase 43's cases are SPLAT_CASES: {tuple(cases)}")
     return cases
 
@@ -6286,15 +6514,16 @@ def bits_gap(torch, got, want):
     return same_bits(got, want), gap, int(diff.sum())
 
 
-def splat_compare(torch, psf, label, args, bins, weights_grad, seed):
-    """S1 forward and adjoint against their plain versions on the card, the
-    counts set to 0 before and read after. Returns {output: (same, gap,
-    n_diff)} and the launches (forward, adjoint)."""
+def splat_compare(torch, psf, label, args, bins, weights_grad, seed, tiled=None):
+    """S1 forward and adjoint (by the kernel ``tiled`` names, None: the
+    route's) against their plain versions on the card, the counts set to 0
+    before and read after. Returns {output: (same, gap, n_diff)} and the
+    launches (forward, adjoint)."""
     psf.SPLAT_LAUNCHES = psf.SPLAT_BWD_LAUNCHES = 0
     got = psf._launch_splat(*args)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cot = torch.randn(got.shape, generator=gen, device="cuda", dtype=got.dtype)
-    got_b = psf._launch_splat_bwd(*args, cot, bins, weights_grad)
+    got_b = psf._launch_splat_bwd(*args, cot, bins, weights_grad, tiled)
     torch.cuda.synchronize()
     launches = (psf.SPLAT_LAUNCHES, psf.SPLAT_BWD_LAUNCHES)
     want = psf.splat_reference(*args)
@@ -6305,8 +6534,10 @@ def splat_compare(torch, psf, label, args, bins, weights_grad, seed):
         if b is not None:
             out[name] = bits_gap(torch, a, b)
     x = args[0]
-    print(f"S1 {label}: rays {tuple(x.shape)} {str(x.dtype)[6:]}, half grid "
-          f"{args[3].shape[1]} x {args[2].shape[1]}, weights {args[6] is not None}: "
+    ny, nx = args[3].shape[1], args[2].shape[1]
+    adjoint = "tiled" if (psf.splat_bwd_tiled(ny, nx) if tiled is None else tiled) else "resident"
+    print(f"S1 {label}: rays {tuple(x.shape)} {str(x.dtype)[6:]}, half grid {ny} x {nx}, "
+          f"weights {args[6] is not None}, {adjoint} adjoint: "
           + "; ".join(f"{k} bit-identical={v[0]} (max |diff| {v[1]:.3e}, {v[2]} differ)"
                       for k, v in out.items())
           + f"; launches (forward, adjoint) {launches}", flush=True)
@@ -6360,28 +6591,47 @@ def splat_library(torch, args, cot):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def splat_memory(torch, card, profiled=True):
-    """The default configuration's 2048^2 render and one image-loss
-    ``LensOptimizer.step`` (the double-Gauss defocused 0.3 mm): each call's
-    ``torch.cuda.max_memory_allocated`` (after ``reset_peak_memory_stats``,
-    beside what was allocated before it) and host wall (median of 5 after
-    one warm-up); the step's largest single allocations, with the port's
-    innermost line that asked for each (``torch.cuda.memory`` history of
-    one step); with ``profiled``, the step's torch.profiler split
-    (``profile_steps``). Imports the port from ``sys.path`` (any tree)."""
-    from torchoptics_tpu_torch import LensOptimizer, imaging, simulator, zoo
-    cfg = default_imaging_config(simulator)
-    specs, lens = zoo.build("double_gauss", device="cuda")
-    rad = torch.tensor(photograph(DEFAULT_TRAIN_PX)[None], device="cuda")
-    opt, state = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, "cuda",
-                                 DEFAULT_TRAIN_PX, cfg)
-    box = [state]
+#: The renders whose memory ``splat_memory`` reads: (label, px, psf_shape,
+#: with the image-loss step). At psf 257 the patch PSFs are 187 taps at
+#: 2048^2; at 4096^2 and psf 129, 187 too (the resize's largest products
+#: before it became two matrix products: 3.03 and 4.39 GB).
+SPLAT_MEMORY_RUNS = (("2048^2 at psf 65", 2048, (65, 65), True),
+                     ("2048^2 at psf 257", 2048, (257, 257), True),
+                     ("4096^2 at psf 129", 4096, (129, 129), False))
+#: The psf-257 step's limits: peak device memory and the largest allocation.
+PSF257_PEAK_BYTES, PSF257_LARGEST_BYTES = 12e9, 1.5e9
 
-    def step():
-        box[0] = opt.step(box[0])[0]
-    out = {"card": card}
-    for name, fn in (("render", lambda: render(torch, imaging, specs, lens, rad, cfg)),
-                     ("step", step)):
+
+def splat_memory(torch, card, profiled=True, px=DEFAULT_TRAIN_PX, psf_shape=(65, 65),
+                 step=True):
+    """The default configuration's px^2 render at ``psf_shape`` and, with
+    ``step``, one image-loss ``LensOptimizer.step`` (the double-Gauss
+    defocused 0.3 mm): each call's ``torch.cuda.max_memory_allocated``
+    (after ``reset_peak_memory_stats``, beside what was allocated before it)
+    and host wall (median of 5 after one warm-up); the largest single
+    allocations of the last of them (the step, else the render), with the
+    port's innermost line that asked for each (``torch.cuda.memory`` history
+    of one call), and the largest made in ``image.resize_bilinear`` beside
+    twice the largest of its input, its intermediate and its output
+    (``resize_bytes``); with ``profiled``, that call's torch.profiler split
+    (``profile_steps``: wall and busy time). Imports the port from
+    ``sys.path`` (any tree)."""
+    from torchoptics_tpu_torch import LensOptimizer, imaging, simulator, zoo
+    cfg = default_imaging_config(simulator, psf_shape=psf_shape)
+    specs, lens = zoo.build("double_gauss", device="cuda")
+    rad = torch.tensor(photograph(px)[None], device="cuda")
+    calls = {"render": lambda: render(torch, imaging, specs, lens, rad, cfg)}
+    if step:
+        opt, state = image_optimizer(torch, zoo, simulator, imaging, LensOptimizer, "cuda", px,
+                                     cfg)
+        box = [state]
+
+        def one_step():
+            box[0] = opt.step(box[0])[0]
+        calls["step"] = one_step
+    last = "step" if step else "render"
+    out = {"card": card, "px": px, "psf_shape": list(psf_shape)}
+    for name, fn in calls.items():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated()
@@ -6392,38 +6642,52 @@ def splat_memory(torch, card, profiled=True):
         out[f"{name}_before_bytes"] = before
         out[f"{name}_wall_ms"] = host_ms(torch, fn, runs=5, warmup=1)
     torch.cuda.memory._record_memory_history(max_entries=200_000, stacks="python")
-    step()
+    calls[last]()
     torch.cuda.synchronize()
     snapshot = torch.cuda.memory._snapshot()
     torch.cuda.memory._record_memory_history(enabled=None)
     allocs = [t for trace in snapshot["device_traces"] for t in trace if t["action"] == "alloc"]
-    largest = []
+    largest, resize = [], 0
+    where = lambda f: (f"{f['filename'].split('torchoptics_tpu_torch/')[-1]}:{f['line']} "
+                       f"{f['name']}")
+    for t in allocs:
+        if any(f["name"] == "resize_bilinear" for f in t.get("frames", [])):
+            resize = max(resize, t["size"])
     for t in sorted(allocs, key=lambda t: -t["size"])[:8]:
         frames = [f for f in t.get("frames", []) if "torchoptics_tpu_torch" in f["filename"]]
-        where = (f"{frames[0]['filename'].split('torchoptics_tpu_torch/')[-1]}:{frames[0]['line']} "
-                 f"{frames[0]['name']}" if frames else "outside the port")
-        largest.append([t["size"], where])
-    out["step_largest_allocations"] = largest
+        largest.append([t["size"], where(frames[0]) if frames else "outside the port"])
+    out[f"{last}_largest_allocations"] = largest
+    gh, gw = cfg.psf_grid_shape
+    k = imaging.psf_kernel_shape((px, px), cfg)
+    out["resize_largest_bytes"] = resize
+    out["resize_bytes"] = 2 * 4 * gh * gw * 3 * max(psf_shape[0] * psf_shape[1],
+                                                    k[0] * psf_shape[1], k[0] * k[1])
     gb = lambda v: v / 1e9
     if profiled:
         wall, busy, groups = profile_steps(
-            torch, f"image-loss LensOptimizer.step, default configuration at "
-            f"{DEFAULT_TRAIN_PX}^2", step, card, n_steps=3)
-        out.update(step_profile_wall_ms=wall, step_busy_ms=busy, step_busy_share=busy / wall,
-                   step_groups_ms=groups)
-    print(f"memory: default configuration at {DEFAULT_TRAIN_PX}^2: render peak "
-          f"{gb(out['render_peak_bytes']):.3f} GB (allocated before "
-          f"{gb(out['render_before_bytes']):.3f}), wall {out['render_wall_ms']:.2f} ms; "
-          f"image-loss step peak {gb(out['step_peak_bytes']):.3f} GB (before "
-          f"{gb(out['step_before_bytes']):.3f}), wall {out['step_wall_ms']:.2f} ms; the step's "
-          f"largest allocations (GB, the port's line): "
-          f"{[(round(gb(m), 3), w) for m, w in largest]}; card: {card}", flush=True)
+            torch, f"{'image-loss LensOptimizer.step' if step else 'render'}, default "
+            f"configuration at {px}^2, psf_shape {tuple(psf_shape)}", calls[last], card, n_steps=3)
+        out.update({f"{last}_profile_wall_ms": wall, f"{last}_busy_ms": busy,
+                    f"{last}_busy_share": busy / wall, f"{last}_groups_ms": groups})
+    print(f"memory: default configuration at {px}^2, psf_shape {tuple(psf_shape)} (K = {k[0]}): "
+          f"render peak {gb(out['render_peak_bytes']):.3f} GB (allocated before "
+          f"{gb(out['render_before_bytes']):.3f}), wall {out['render_wall_ms']:.2f} ms"
+          + (f"; image-loss step peak {gb(out['step_peak_bytes']):.3f} GB (before "
+             f"{gb(out['step_before_bytes']):.3f}), wall {out['step_wall_ms']:.2f} ms"
+             if step else "")
+          + f"; the {last}'s largest allocations (GB, the port's line): "
+          f"{[(round(gb(m), 3), w) for m, w in largest]}; resize_bilinear's largest "
+          f"{gb(resize):.4f} GB (twice its largest operand {gb(out['resize_bytes']):.4f}); "
+          f"card: {card}", flush=True)
     return out
 
 
 def splat_memory_turns(trees, card):
-    """``splat_memory`` of each tree given and of this checkout, one process
-    each, one after another; every tree's kernels built first, all at once."""
+    """``splat_memory`` of each run of ``SPLAT_MEMORY_RUNS``, profiled, in
+    turns: the trees given, this checkout twice, the trees again in reverse
+    order, one process each; every tree's kernels built first, all at once.
+    A run that a tree refuses (an older tree's S1 takes no 257 x 129 half
+    grid) is recorded as its error."""
     here = str(Path(__file__).resolve().parent)
     roots = [str(Path(t).resolve()) for t in trees] + [here]
     build = ("import sys; sys.path.insert(0, sys.argv[1]); "
@@ -6434,22 +6698,26 @@ def splat_memory_turns(trees, card):
         text = proc.communicate()[0]
         check(proc.returncode == 0, f"kernel build of {root}: exit {proc.returncode}\n"
               + text[-4000:])
+    order = roots[:-1] + [here, here] + roots[-2::-1]
     out = {}
-    for root in roots:
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--splat-memory-of",
-                               root], capture_output=True, text=True, timeout=900)
-        print(proc.stdout[-6000:], flush=True)
-        check(proc.returncode == 0, f"splat memory of {root}: exit {proc.returncode}\n"
-              + proc.stderr[-4000:])
-        out[root] = json.loads(proc.stdout.strip().splitlines()[-1])
+    for label, px, psf_shape, step in SPLAT_MEMORY_RUNS:
+        for turn, root in enumerate(order):
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                   "--splat-memory-of", root, str(px), str(psf_shape[0]),
+                                   str(int(step))], capture_output=True, text=True, timeout=900)
+            print(proc.stdout[-6000:], flush=True)
+            check(proc.returncode == 0, f"splat memory of {root}, {label}: exit "
+                  f"{proc.returncode}\n" + proc.stderr[-4000:])
+            out.setdefault(label, []).append(
+                {"tree": root, "turn": turn, **json.loads(proc.stdout.strip().splitlines()[-1])})
     return out
 
 
-def default_splat_args(torch, zoo, simulator, imaging, psf):
+def default_splat_args(torch, zoo, simulator, imaging, psf, psf_shape=(65, 65)):
     """The default configuration's own splat: the arguments of ``psf.splat``
     in a render of the double-Gauss traced on K1 (21 fields x 3 channels, a
-    65 x 33 half grid, 65,536 rays)."""
-    cfg = default_imaging_config(simulator)
+    65 x 33 half grid at the default psf_shape, 65,536 rays)."""
+    cfg = default_imaging_config(simulator, psf_shape=psf_shape)
     specs, lens = zoo.build("double_gauss", device="cuda")
     with torch.no_grad():
         return capture_splat(torch, psf, lambda: imaging.sample_optics_model(specs, lens, cfg))[1]
@@ -6536,8 +6804,8 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
             print(f"S1 ptxas: {line}", flush=True)
     cases = splat_cases(torch, zoo, simulator, imaging, psf)
     results, worst = {}, {"fwd": 0.0, "bwd": 0.0}
-    for n, (label, (args, bins, weights_grad)) in enumerate(cases.items()):
-        out, launches = splat_compare(torch, psf, label, args, bins, weights_grad, 100 + n)
+    for n, (label, (args, bins, weights_grad, tiled)) in enumerate(cases.items()):
+        out, launches = splat_compare(torch, psf, label, args, bins, weights_grad, 100 + n, tiled)
         results[label] = (out, launches)
         worst["fwd"] = max(worst["fwd"], out["half"][1])
         worst["bwd"] = max([worst["bwd"]] + [v[1] for k, v in out.items() if k != "half"])
@@ -6579,17 +6847,54 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
               f"off); bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations, {b[3] / 1e6:.2f} MB), "
               f"{b[0] / t:.3f} of it reached; forward workspace {workspace / 1e6:.1f} MB; "
               f"card: {card}", flush=True)
-    memory = splat_memory(torch, card, profiled)
+    # The default configuration's splat at psf_shape (257, 257): the forward's
+    # tiles, the tiled adjoint; S1 and the PyTorch contractions by CUDA
+    # events, the plain versions one host-clock run each.
+    args = cases[SPLAT_257][0]
+    tiles = (ctypes.c_int * 4)()
+    _kernels.load().s1_fwd_tiles(args[3].shape[1], args[2].shape[1], tiles)
+    ms257 = s1_times(torch, psf, args)
+    half = psf._launch_splat(*args)
+    cot = torch.randn(half.shape, generator=torch.Generator(device="cuda").manual_seed(257),
+                      device="cuda")
+    ms257["plain_fwd"] = host_ms(torch, lambda: psf.splat_reference(*args), runs=1, warmup=0)
+    ms257["plain_bwd"] = host_ms(torch, lambda: psf.splat_backward_reference(*args, cot),
+                                 runs=1, warmup=0)
+    del half, cot
+    bounds257 = {"fwd": s1_bound(args, False), "bwd": s1_bound(args, True)}
+    for what in ("fwd", "bwd"):
+        b, t = bounds257[what], ms257[f"s1_{what}"]
+        lib_ms = ms257["s1_fwd_einsum" if what == "fwd" else "s1_bwd_contractions"]
+        print(f"time S1 {'forward' if what == 'fwd' else 'adjoint (tiled kernel)'} at the "
+              f"default configuration's splat at psf 257 {tuple(args[0].shape)} on 257 x 129 "
+              f"(forward tiles {list(tiles)}: rows, columns, down, across): {t:.4f} ms (plain "
+              f"{ms257[f'plain_{what}']:.1f} ms, one run; PyTorch contractions {lib_ms:.4f} ms, "
+              f"TF32 off); bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations, "
+              f"{b[3] / 1e6:.2f} MB), {b[0] / t:.3f} of it reached; card: {card}", flush=True)
+    memory = {label: splat_memory(torch, card, profiled, px, psf_shape, step)
+              for label, px, psf_shape, step in SPLAT_MEMORY_RUNS}
+    wide = memory["2048^2 at psf 257"]
+    check(wide["step_peak_bytes"] <= PSF257_PEAK_BYTES
+          and wide["step_largest_allocations"][0][0] <= PSF257_LARGEST_BYTES
+          and all(m["resize_largest_bytes"] <= m["resize_bytes"] for m in memory.values()),
+          f"the default configuration's 2048^2 image-loss step at psf 257: peak "
+          f"{wide['step_peak_bytes'] / 1e9:.3f} GB (limit {PSF257_PEAK_BYTES / 1e9:.0f}), "
+          f"largest allocation {wide['step_largest_allocations'][0][0] / 1e9:.3f} GB (limit "
+          f"{PSF257_LARGEST_BYTES / 1e9:.1f}); resize_bilinear's largest allocation within "
+          f"twice its largest operand in every run: "
+          f"{ {k: (m['resize_largest_bytes'], m['resize_bytes']) for k, m in memory.items()} }")
     return {"results": results, "worst": worst, "ms": ms, "library": library,
             "bounds": bounds, "workspace_bytes": workspace, "memory": memory, "probe": probe,
-            "fp64_tflops": rates}
+            "fp64_tflops": rates, "ms_257": ms257, "bounds_257": bounds257,
+            "tiles_257": list(tiles)}
 
 
-def s1_entries(splat, train_launches, resources=()):
+def s1_entries(splat, train_launches, resources=(), train_launches_257=(None, None)):
     """S1's entries of the kernels line: forward (``s1_fwd``) and adjoint
     (``s1_bwd``) at the default configuration's splat, ``launches`` counting
     the main path's run (phase 39's image-loss steps at the default
-    configuration)."""
+    configuration); ``half_grid_257``: the same numbers at psf_shape (257,
+    257), its launches those of phase 39's steps there."""
     out = []
     for what, source in (("fwd", S1_FWD_SOURCE), ("bwd", S1_BWD_SOURCE)):
         b = splat["bounds"][what]
@@ -6609,15 +6914,28 @@ def s1_entries(splat, train_launches, resources=()):
             "workspace_bytes": splat["workspace_bytes"] if what == "fwd" else 0,
             "cases_bit_identical": {label: all(v[0] for v in out_.values())
                                     for label, (out_, _) in splat["results"].items()},
-            "default_2048_memory": {k: v for k, v in splat["memory"].items()
-                                    if k != "step_groups_ms"}})
+            "default_2048_memory": {k: v for k, v in splat["memory"]["2048^2 at psf 65"].items()
+                                    if not k.endswith("_groups_ms")},
+            "memory_runs": {label: {k: v for k, v in m.items() if not k.endswith("_groups_ms")}
+                            for label, m in splat["memory"].items()},
+            "half_grid_257": {
+                "launches": train_launches_257[0 if what == "fwd" else 1],
+                "ms": splat["ms_257"][f"s1_{what}"], "plain_ms": splat["ms_257"][f"plain_{what}"],
+                "bound_ms": splat["bounds_257"][what][0], "bound_by": splat["bounds_257"][what][1],
+                "library_ms": splat["ms_257"]["s1_fwd_einsum" if what == "fwd"
+                                              else "s1_bwd_contractions"],
+                "bound_share": splat["bounds_257"][what][0] / splat["ms_257"][f"s1_{what}"],
+                **({"tiles": splat["tiles_257"]} if what == "fwd" else {"kernel": "tiled"})}})
         # The main path's kernel's registers and spills (float32; the adjoint
         # without d/dw and the per-bin sums), from -Xptxas -v.
         for line in resources:
-            if line.startswith(f"s1_{what}_kernel<float" + (">" if what == "fwd" else ",false>")):
-                out[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
-                out[-1]["spill_bytes"] = [int(v) for v in re.findall(
-                    r"(\d+) bytes spill (?:stores|loads)", line)]
+            for prefix, key in (("", ""), ("tiled_", "half_grid_257")):
+                if line.startswith(f"s1_{what}_{prefix}kernel<float"
+                                   + (">" if what == "fwd" else ",false>")):
+                    entry = out[-1][key] if key else out[-1]
+                    entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+                    entry["spill_bytes"] = [int(v) for v in re.findall(
+                        r"(\d+) bytes spill (?:stores|loads)", line)]
     return out
 
 
@@ -6642,10 +6960,15 @@ def main():
                                                        card_line(), families)}))
         return 0
     if "--splat-memory-of" in args:
-        sys.path.insert(0, args[args.index("--splat-memory-of") + 1])
+        root, px, psf, step = args[args.index("--splat-memory-of") + 1:][:4]
+        sys.path.insert(0, root)
         from torchoptics_tpu_torch.ops import _kernels
         _kernels.load()
-        print(json.dumps(splat_memory(torch, card_line())))
+        try:
+            out = splat_memory(torch, card_line(), True, int(px), (int(psf),) * 2, step == "1")
+        except ValueError as e:
+            out = {"refused": str(e)}
+        print(json.dumps(out))
         return 0
     if "--splat-memory" in args:
         print(json.dumps({"splat_memory": splat_memory_turns(
@@ -6716,8 +7039,13 @@ def main():
         print(json.dumps({"kernels": s1_entries(splat, (None, None), resources)}))
         return 0
     if "--default-image-training" in sys.argv[1:]:
-        print(json.dumps({"default_image_training": phase_default_image_training(
-            torch, zoo, simulator, imaging, image, fused_trace, LensOptimizer, card)}))
+        print(json.dumps({"default_image_training": [phase_default_image_training(
+            torch, zoo, simulator, imaging, image, fused_trace, LensOptimizer, card,
+            psf_shape=shape) for shape in ((65, 65), (257, 257))]}))
+        return 0
+    if "--fft-cut" in sys.argv[1:]:
+        cut = phase_fft_cut(torch, zoo, simulator, imaging, image, fused_trace, card)
+        print(json.dumps({"fft_cut": {k: v for k, v in cut.items()}}))
         return 0
 
     with torch.no_grad():
@@ -6799,6 +7127,10 @@ def main():
     default_train = phase_default_image_training(torch, zoo, simulator, imaging, image,
                                                  fused_trace, LensOptimizer, card)
     torch.cuda.empty_cache()
+    default_train_257 = phase_default_image_training(
+        torch, zoo, simulator, imaging, image, fused_trace, LensOptimizer, card, n_steps=2,
+        psf_shape=(257, 257))
+    torch.cuda.empty_cache()
     phase_raytraced_optics(torch, zoo, simulator, fused_trace)
     analysis_launches, _ = phase_analysis(torch, zoo, (fused_trace, fused_batch, fused_asphere),
                                           card)
@@ -6806,12 +7138,15 @@ def main():
     example_launches = phase_examples(torch, card)
     torch.cuda.empty_cache()
     splat = phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=False)
+    torch.cuda.empty_cache()
+    cut = phase_fft_cut(torch, zoo, simulator, imaging, image, fused_trace, card)
+    torch.cuda.empty_cache()
     entries.append(adjoint_entry(adjoint, train_launches, adj_ms, adj_bound))
     crossover = phase_p2_crossover(torch, image, render_inputs(
         torch, zoo, simulator, imaging, image, CROSSOVER_RENDERS), card)
     entries += fft_entries(wide_errs, wide_launches, default_train, fft_ms, fft_bounds,
-                           crossover, p1[0])
-    entries += s1_entries(splat, default_train[0][6:8], resources)
+                           crossover, p1[0], cut)
+    entries += s1_entries(splat, default_train[0][6:8], resources, default_train_257[0][6:8])
     add_issue_bounds(entries, p1[0], {"k1": shape, "k2": k2_shape, "k3": k3_shape,
                                       "k4": k4_shape,
                                       **{f"opl_{k}": v for k, v in opl_shapes.items()}})

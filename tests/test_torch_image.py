@@ -12,11 +12,12 @@ version). Bars:
   order of nonzero terms, so they agree to float32 rounding: rtol 1e-5 and
   atol 1e-4 grey levels.
 - ``resize_bilinear``: the weight matrices equal JAX's ``compute_weight_mat``
-  to 1e-6; the products (two elementwise sums here, an einsum there) to
-  rtol 1e-5.
+  to 1e-6; the products (two matrix products here, an einsum there) to
+  rtol 1e-5, their gradients within 1e-5 of the largest entry.
 - PSNR, SSIM: rtol 1e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,6 +164,24 @@ def test_resize_weights_and_resize(n_in, n_out):
     want = np.asarray(jimage.resize_bilinear(jnp.asarray(x), (n_out, 7)))
     got = image.resize_bilinear(torch.tensor(x), (n_out, 7)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("n_in,n_out", [(257, 187), (47, 95)])
+def test_resize_and_its_gradient_at_psf_sizes(n_in, n_out):
+    """``resize_bilinear`` as two matrix products, on 3 patches' PSFs: a large
+    downscale (257 -> 187, the resize at psf_shape 257) and an upscale
+    (47 -> 95), its output against ``jax.image.resize`` at the bars above
+    and its gradient for a seeded cotangent against ``jax.grad``, within
+    1e-5 of the largest entry."""
+    x = _psfs((3, n_in, n_in, 3), 9)
+    cot = _rng(10).normal(size=(3, n_out, n_out, 3)).astype(np.float32)
+    want, vjp = jax.vjp(lambda a: jimage.resize_bilinear(a, (n_out, n_out)), jnp.asarray(x))
+    t = torch.tensor(x, requires_grad=True)
+    got = image.resize_bilinear(t, (n_out, n_out))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-8)
+    g = torch.autograd.grad(got, t, torch.tensor(cot))[0].numpy()
+    want_g = np.asarray(vjp(jnp.asarray(cot))[0])
+    assert np.abs(g - want_g).max() <= 1e-5 * np.abs(want_g).max()
 
 
 def test_rotation_and_psf_resize():

@@ -42,9 +42,12 @@ their routes' plain versions, the direct d/dpsf kernel alone at K = 1 to 22,
 and a backward launches d/dpatch only when the patches need it;
 S1, the PSF splat, forward and adjoint bit for bit with their plain
 versions on ``chip_smoke.SPLAT_CASES`` (the default configuration's own
-splat included), one launch each a call, ``compute_psf`` on CUDA tensors
-launching S1 both ways and never a plain version, and S1's tensor-core probe
-(mma.sync .f64 rounding as the fma chain in k order); P1's chains:
+splat included, and half grids up to 513 x 257 above the former ceiling),
+one launch each a call, ``compute_psf`` on CUDA tensors launching S1 both
+ways and never a plain version (at a 257 x 257 grid too), and S1's
+tensor-core probe (mma.sync .f64 rounding as the fma chain in k order);
+P2's FFT route cut into sub-patches bit for bit with its plain version;
+``resize_bilinear``'s matrix products against the CPU; P1's chains:
 sqrt and div bit for bit with their plain versions, fma within one float32
 ulp a step, relative (``fmaf`` rounds once, the plain ``a * k1 + k2``
 twice); a small
@@ -1440,9 +1443,17 @@ def test_p2_refuses_grad_and_bad_inputs(cuda):
     psfs = torch.rand((4, 5, 5, 3), device=cuda, requires_grad=True)
     out = image.svola_patch_conv(patches, psfs)
     assert out.requires_grad
+    # One launch of the FFT route takes patches up to its longest transform;
+    # a longer patch is cut into sub-patches (``image.fft_tiles``) first.
     with pytest.raises(ValueError, match="pixels a side"):
-        image.svola_patch_conv(torch.rand((1, 40, image.P2_FFT_MAX_LEN + 1, 1), device=cuda),
-                               torch.rand((1, 3, image.P2_FFT_MIN_KW, 1), device=cuda))
+        image._launch_fft(torch.rand((1, 40, image.P2_FFT_MAX_LEN + 1, 1), device=cuda),
+                          torch.rand((1, 3, image.P2_FFT_MIN_KW, 1), device=cuda),
+                          (3, image.P2_FFT_MIN_KW), False)
+    long_patch = torch.rand((1, 40, image.P2_FFT_MAX_LEN + 1, 1), device=cuda)
+    wide = torch.rand((1, 3, image.P2_FFT_MIN_KW, 1), device=cuda)
+    assert len(image.fft_tiles(image.P2_FFT_MAX_LEN + 1, image.P2_FFT_MIN_KW)) == 2
+    assert torch.equal(image.svola_patch_conv(long_patch, wide),
+                       image.svola_patch_conv_fft_reference(long_patch, wide))
     with pytest.raises(ValueError, match="no larger than the patch"):
         image.svola_patch_conv(torch.rand((1, 40, 40, 3), device=cuda),
                                torch.rand((1, 41, 5, 3), device=cuda))
@@ -1760,11 +1771,16 @@ def test_s1_matches_plain_versions(cuda, splat_cases, label):
     """S1 forward and adjoint (d/dx, d/dy; d/dweights with the one-hot
     weights; d/dgx, d/dgy, d/dsigma with the auto extent) bit for bit with
     ``splat_reference`` and ``splat_backward_reference``, NaN where theirs
-    is; one launch of each."""
+    is; one launch of each. Among the cases the half grids of
+    ``chip_smoke.SPLAT_WIDE`` above the former ceiling of 129 x 65 (130 x
+    65, 129 x 66, 257 x 129, 513 x 257, 300 x 7, 7 x 300: the forward's
+    tiles, the tiled adjoint; float32 and float64, with and without weights,
+    per-bin sums and d/dw), the tiled adjoint on two grids below it, and the
+    default configuration's splat at psf 257."""
     from torchoptics_tpu_torch.ops import psf
-    args, bins, weights_grad = splat_cases[label]
+    args, bins, weights_grad, tiled = splat_cases[label]
     out, launches = chip_smoke.splat_compare(torch, psf, label, args, bins, weights_grad,
-                                             chip_smoke.SPLAT_CASES.index(label))
+                                             chip_smoke.SPLAT_CASES.index(label), tiled)
     assert launches == (1, 1)
     assert all(v[0] for v in out.values()), out
 
@@ -1784,14 +1800,93 @@ def test_s1_tensor_core_probe(cuda):
             assert "fma chain in k order" in v["models"], (shape, label, v)
 
 
+def test_compute_psf_at_psf_257_launches_s1_once_each_way(cuda, monkeypatch):
+    """``compute_psf`` on CUDA tensors under grad at a 257 x 257 grid (half
+    grid 257 x 129: the forward's tiles, the tiled adjoint), a fixed pitch:
+    S1 launches once forward and once backward, never a plain version, the
+    gradients finite; the forward's tiles are 144 x 80 bins at most."""
+    import ctypes
+    from torchoptics_tpu_torch.ops import _kernels, psf
+    tiles = (ctypes.c_int * 4)()
+    _kernels.load().s1_fwd_tiles(257, 129, tiles)
+    assert list(tiles) == [144, 80, 2, 2]
+
+    def refuse(*_):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    monkeypatch.setattr(psf, "splat_reference", refuse)
+    monkeypatch.setattr(psf, "splat_backward_reference", refuse)
+    monkeypatch.setattr(psf, "SPLAT_LAUNCHES", 0)
+    monkeypatch.setattr(psf, "SPLAT_BWD_LAUNCHES", 0)
+    x, y = chip_smoke.seeded_spots(torch, (3, 7, 3, 2000), 37, scale=0.1)
+    x.requires_grad_()
+    y.requires_grad_()
+    kernels = psf.compute_psf(x, y, (257, 257), 8e-4)[3]
+    grads = torch.autograd.grad((kernels * kernels).sum(), (x, y))
+    torch.cuda.synchronize()
+    assert (psf.SPLAT_LAUNCHES, psf.SPLAT_BWD_LAUNCHES) == (1, 1)
+    assert kernels.shape == (21, 3, 257, 257)
+    assert all(bool(torch.isfinite(g).all()) and bool((g != 0).any()) for g in grads)
+
+
+def test_resize_contractions_match_the_cpu_and_refuse_tf32(cuda, monkeypatch):
+    """``resize_bilinear``'s two matrix products on the card against the CPU
+    (a 257 -> 187 downscale and a 47 -> 95 upscale of 9 patches' PSFs, and
+    the gradient of a seeded weighting) within 1e-6 of the largest entry;
+    with TF32 allowed for matrix products it raises."""
+    from torchoptics_tpu_torch.ops import image
+    rng = np.random.default_rng(61)
+    for n_in, n_out in ((257, 187), (47, 95)):
+        x = rng.uniform(0.0, 1.0, (9, n_in, n_in, 3)).astype(np.float32)
+        cot = rng.normal(size=(9, n_out, n_out, 3)).astype(np.float32)
+        got, want = [], []
+        for device, out in ((cuda, got), ("cpu", want)):
+            t = torch.tensor(x, device=device, requires_grad=True)
+            y = image.resize_bilinear(t, (n_out, n_out))
+            out += [y.detach().cpu(), torch.autograd.grad(y, t, torch.tensor(cot, device=device))[
+                0].cpu()]
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        image.resize_bilinear(torch.ones((1, 5, 5, 3), device=cuda), (3, 3))
+
+
+@pytest.mark.parametrize("kh,kw", [(23, 23), (33, 25)])
+def test_fft_route_cut_matches_plain_version(cuda, monkeypatch, kh, kw):
+    """P2's FFT route with its cut lowered to 64 pixels (``P2_FFT_TILE``) on
+    patches of 150 x 130: forward, d/dpsf and d/dpatch (whose padded
+    cotangent is cut too) bit for bit with their plain versions, which cut
+    alike; three launches a piece."""
+    from torchoptics_tpu_torch.ops import image
+    monkeypatch.setattr(image, "P2_FFT_TILE", 64)
+    g = torch.Generator(device=cuda).manual_seed(kh + kw)
+    patches = torch.rand((2, 150, 130, 3), generator=g, device=cuda) * 255.0
+    psfs = torch.rand((2, kh, kw, 3), generator=g, device=cuda)
+    cot = torch.randn((2, 151 - kh, 131 - kw, 3), generator=g, device=cuda)
+    pieces = len(image.fft_tiles(150, kh)) * len(image.fft_tiles(130, kw))
+    assert pieces >= 9
+    monkeypatch.setattr(image, "P2_FFT_LAUNCHES", 0)
+    monkeypatch.setattr(image, "P2_DPSF_FFT_LAUNCHES", 0)
+    t_psfs = psfs.clone().requires_grad_()
+    t_patches = patches.clone().requires_grad_()
+    out = image.svola_patch_conv(t_patches, t_psfs)
+    d_patches, d_psfs = torch.autograd.grad(out, (t_patches, t_psfs), cot)
+    torch.cuda.synchronize()
+    assert image.P2_DPSF_FFT_LAUNCHES == 3 * pieces
+    assert image.P2_FFT_LAUNCHES > 3 * pieces
+    assert torch.equal(out, image.svola_patch_conv_fft_reference(patches, psfs))
+    assert torch.equal(d_psfs, image.svola_patch_conv_dpsf_fft_reference(patches, cot, (kh, kw)))
+    assert torch.equal(d_patches, image.svola_patch_conv_dpatch_reference(cot, psfs))
+
+
 def test_compute_psf_launches_s1_and_no_plain_version(cuda, monkeypatch):
     """On CUDA tensors under grad, ``compute_psf`` runs S1 forward and its
     adjoint (with the per-bin sums: the auto extent), never a plain version;
-    the library's limits are ``psf``'s."""
+    the library's chunk is ``psf``'s; a grid above the former ceiling (a
+    132 x 9 PSF, half grid 9 x 66) is taken."""
     from torchoptics_tpu_torch.ops import _kernels, psf
     lib = _kernels.load()
-    assert (lib.s1_max_ny(), lib.s1_max_nx(), lib.s1_chunk()) == (
-        psf.SPLAT_MAX_NY, psf.SPLAT_MAX_NX, psf.SPLAT_CHUNK)
+    assert lib.s1_chunk() == psf.SPLAT_CHUNK
 
     def refuse(*_):
         raise AssertionError("a plain version ran on CUDA tensors")
@@ -1807,8 +1902,8 @@ def test_compute_psf_launches_s1_and_no_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert (psf.SPLAT_LAUNCHES, psf.SPLAT_BWD_LAUNCHES) == (1, 1)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
-    with pytest.raises(ValueError, match="half grids"):
-        psf.compute_psf(x.detach(), y.detach(), (2 * psf.SPLAT_MAX_NX + 2, 9), 1e-3)
+    wide = psf.compute_psf(x.detach(), y.detach(), (2 * psf.SPLAT_RESIDENT_NX + 2, 9), 1e-3)[3]
+    assert wide.shape == (8, 3, 9, 132) and bool(torch.isfinite(wide).all())
     with pytest.raises(ValueError, match="contiguous"):
         psf._launch_splat(x.detach(), y.detach().double(), *[torch.zeros((2, n), device=cuda)
                                                              for n in (3, 4)],

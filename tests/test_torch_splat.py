@@ -128,6 +128,39 @@ def test_splat_adjoint_matches_jax_grad(n_bins, increment, y_target, dtype):
         assert np.abs(g - w).max() <= bar * np.abs(w).max()
 
 
+@pytest.mark.parametrize("n_bins,weighted", [((257, 257), False), ((131, 260), True)])
+def test_splat_above_the_resident_grid_matches_jax(n_bins, weighted):
+    """PSF grids whose half grids (257 x 129, 260 x 66) are above the
+    adjoint's resident kernel and S1's former ceiling (129 x 65), on 2 grids
+    x 3 channels x 80 rays, one case with random weights: ``compute_psf``'s
+    outputs and the gradients of a seeded weighting of the kernels with
+    respect to x, y and y_target, through the plain splat and its adjoint,
+    against JAX's ``compute_psf`` and ``jax.grad`` at the bars above."""
+    x, y = _spots((1, 2, 3, 80), seed=31)
+    yt = np.asarray([0.49, 0.51], np.float32)
+    w = np.random.default_rng(32).uniform(0.0, 1.0, (2, 3, 80)).astype(np.float32) \
+        if weighted else None
+    weight = np.random.default_rng(33).normal(size=(2, 3, n_bins[1], n_bins[0])).astype(
+        np.float32)
+    kw = dict(n_bins=n_bins, increment=6e-4)
+
+    def loss(x, y, yt):
+        return jnp.sum(jpsf.compute_psf(x, y, y_target=yt, weights=w, **kw)[3] * weight)
+    want = jpsf.compute_psf(jnp.asarray(x), jnp.asarray(y), y_target=jnp.asarray(yt), weights=w,
+                            **kw)
+    want_g = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(y), jnp.asarray(yt))
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, y, yt)]
+    got = psf.compute_psf(*leaves[:2], y_target=leaves[2],
+                          weights=None if w is None else torch.tensor(w), **kw)
+    assert got[3].shape == (2, 3, n_bins[1], n_bins[0])
+    assert psf.splat_bwd_tiled(n_bins[1], n_bins[0] // 2 + 1)
+    _assert_close(got, want)
+    got_g = torch.autograd.grad((got[3] * torch.tensor(weight)).sum(), leaves)
+    for g, wg in zip(got_g, want_g):
+        g, wg = g.numpy(), np.asarray(wg)
+        assert np.all(np.isfinite(g)) and np.abs(g - wg).max() <= 1e-4 * np.abs(wg).max()
+
+
 @pytest.mark.parametrize("weights", [False, True])
 def test_splat_function_gradcheck(weights):
     """``_Splat`` on CPU tensors in float64: the hand adjoint against finite
@@ -152,8 +185,13 @@ def test_splat_refuses_other_devices_and_grids():
         psf.splat(x.to("meta"), x.to("meta"), torch.zeros((1, 2), device="meta"),
                   torch.zeros((1, 3), device="meta"), torch.ones(1, device="meta"),
                   torch.ones(1, device="meta"))
-    assert psf.splat_argument_error((1, 1, 4), (1, psf.SPLAT_MAX_NX + 1), (1, 3))
-    assert psf.splat_argument_error((1, 1, 4), (1, 2), (1, psf.SPLAT_MAX_NY)) is None
+    assert psf.splat_argument_error((1, 1, 4), (1, 0), (1, 3))
+    assert psf.splat_argument_error((1, 1, 4), (2, 2), (1, 3))
+    # No ceiling on the grid: a 513 x 513 PSF's half grid is taken, and its
+    # adjoint runs the tiled kernel.
+    assert psf.splat_argument_error((1, 1, 4), (1, 257), (1, 513)) is None
+    assert psf.splat_bwd_tiled(513, 257) and psf.splat_bwd_tiled(130, 65)
+    assert not psf.splat_bwd_tiled(psf.SPLAT_RESIDENT_NY, psf.SPLAT_RESIDENT_NX)
 
 
 def test_plain_splat_order_is_the_documented_one():

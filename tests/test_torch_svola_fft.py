@@ -90,6 +90,60 @@ def test_svola_fft_route_matches_jax(jax_side, k):
     _close(d_psfs.numpy(), want_dpsfs, DPSF_BAR)
 
 
+def test_fft_tiles_cut_an_axis_into_overlapping_runs(monkeypatch):
+    """``fft_tiles``: a side up to ``P2_FFT_TILE`` (or a PSF longer than it)
+    is one piece; a longer one the fewest equal runs of outputs, the last
+    shorter, each sub-patch (its run and the k - 1 pixels after it) at most
+    ``P2_FFT_TILE`` long, covering every output once."""
+    assert image.P2_FFT_TILE == image.P2_FFT_MAX_LEN
+    assert image.fft_tiles(4096, 47) == ((0, 4050),)
+    assert len(image.fft_tiles(6240, 95)) == 2
+    monkeypatch.setattr(image, "P2_FFT_TILE", 64)
+    assert image.fft_tiles(120, 33) == ((0, 30), (30, 30), (60, 28))
+    assert image.fft_tiles(64, 33) == ((0, 32),) and image.fft_tiles(90, 65) == ((0, 26),)
+    for n, k in ((65, 1), (200, 23), (151, 64), (97, 2)):
+        runs = image.fft_tiles(n, k)
+        assert [o for o, _ in runs] == list(np.cumsum([0] + [m for _, m in runs[:-1]]))
+        assert sum(m for _, m in runs) == n - k + 1 and len({m for _, m in runs[:-1]}) <= 1
+        assert all(m + k - 1 <= 64 for _, m in runs) and runs[-1][1] <= runs[0][1]
+
+
+#: A patch that the lowered cut (``P2_FFT_TILE`` = 64) takes in 3 x 3
+#: pieces: an 80^2 image with one PSF of 33 taps (120-pixel patches).
+CUT_CASE = (80, (1, 1), 4, 33, 33)
+
+
+def test_fft_route_cut_matches_jax_and_the_uncut_route(monkeypatch):
+    """SVOLA on the FFT route with ``P2_FFT_TILE`` lowered to 64: the patch
+    (120 pixels a side, 3 x 3 pieces) and d/dpatch's padded cotangent (152,
+    4 x 4) are cut into sub-patches (``fft_tiles``), each through the route's plain versions,
+    d/dpsf the pieces' correlations summed in order. Forward, d/dimage and
+    d/dpsf against JAX's FFT SVOLA and ``jax.grad`` and against the uncut
+    route, at the bars above."""
+    x, psfs, cot = _svola_inputs(CUT_CASE, 9)
+    _, grid, overlap, kh, kw = CUT_CASE
+
+    def loss(img, p):
+        y = jimage.svola_convolution(img, overlap, p, grid, "hann")
+        return jnp.sum(y * cot), y
+    (_, want_y), want_g = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(psfs))
+
+    def port():
+        t_x = torch.tensor(x, requires_grad=True)
+        t_psfs = torch.tensor(psfs, requires_grad=True)
+        y = image.svola_convolution(t_x, overlap, t_psfs, grid, "hann")
+        return (y.detach(),) + torch.autograd.grad(y, (t_x, t_psfs), torch.tensor(cot))
+    uncut = port()
+    monkeypatch.setattr(image, "P2_FFT_TILE", 64)
+    assert (len(image.fft_tiles(120, kh)), len(image.fft_tiles(152, kh))) == (3, 4)
+    cut = port()
+    for got, jax_want, whole, bar in zip(cut, (want_y,) + tuple(want_g), uncut,
+                                         (FWD_BAR, FWD_BAR, DPSF_BAR)):
+        _close(got.numpy(), np.asarray(jax_want), bar)
+        _close(got.numpy(), whole.numpy(), bar)
+
+
 # (P, ph, pw, C, kh, kw): transforms of 27 to 128 points (2^a 3^b 5^c: 60,
 # 50, 64, 45, 100, 128, 72, 120, 90, and the odd 75, 81, 27), odd and even
 # row counts, non-square patches and PSFs, a PSF as large as its patch, one

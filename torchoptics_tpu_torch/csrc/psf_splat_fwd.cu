@@ -56,6 +56,13 @@
 //   divisions issued before its four exps (s1::gauss4).
 // - Two blocks an SM (the grid's rule in splat_span), one wave at the
 //   default shape: 63 pairs x 4 spans of 16,384 rays.
+// - Any half grid: a block holds one tile of bins, at most MAX_MT 16-row
+//   tiles by MAX_NG groups of NW 8-column tiles (144 x 80 bins); a grid
+//   larger than that is cut into equal tiles (FwdTiles, the last of each
+//   axis shorter), a block each per (pair, span). Each bin's sum runs over
+//   the span's rays in order whatever tile holds it, so the tiles change no
+//   bit; a grid of one tile (up to 144 x 80) runs as before. Each tile's
+//   producers compute only its bins' factors.
 
 #include <cuda_runtime.h>
 
@@ -70,8 +77,12 @@ using s1::NW;
 // grid's 98 factors a stage. With its 5 consumers a block has 14 warps, and
 // two blocks of 72 registers a thread share an SM.
 constexpr int PRODUCER_WARPS = 9;
-// The largest grid's consumers (9 row tiles x 2 column groups) and producers.
-constexpr int MAX_THREADS = (9 * 2 + PRODUCER_WARPS) * 32;
+// The largest tile: MAX_MT row tiles of 16 by MAX_NG column groups of NW
+// tiles of 8 (144 x 80 bins), one consumer warp each; with the producers,
+// a block's threads at most.
+constexpr int MAX_MT = 9;
+constexpr int MAX_NG = 2;
+constexpr int MAX_THREADS = (MAX_MT * MAX_NG + PRODUCER_WARPS) * 32;
 // The shared memory a block aims at, so that two fit an SM.
 constexpr size_t SMEM_TWO = 113 * 1024;
 
@@ -96,6 +107,21 @@ struct FwdLayout {
   size_t bytes(int stages) const { return sizeof(double) * (stage0 + stage * stages); }
 };
 
+// A grid's tiles: n_ty x n_tx of tile_ny x tile_nx bins (the last row and
+// column of tiles shorter), each at most MAX_MT x MAX_NG of the consumers'
+// tiles; one tile, the whole grid, up to 144 x 80 bins.
+struct FwdTiles {
+  int tile_ny, tile_nx, n_ty, n_tx;
+
+  FwdTiles(int ny, int nx) {
+    const int mt = s1::cdiv(ny, 16), ng = s1::cdiv(nx, 8 * NW);
+    tile_ny = mt <= MAX_MT ? ny : 16 * s1::cdiv(mt, s1::cdiv(mt, MAX_MT));
+    tile_nx = ng <= MAX_NG ? nx : 8 * NW * s1::cdiv(ng, s1::cdiv(ng, MAX_NG));
+    n_ty = s1::cdiv(ny, tile_ny);
+    n_tx = s1::cdiv(nx, tile_nx);
+  }
+};
+
 // The most stages (up to MAX_STAGES) that let two blocks share an SM, or
 // else one block; 0 if not even one stage fits.
 int fwd_stages(const FwdLayout& L) {
@@ -106,27 +132,33 @@ int fwd_stages(const FwdLayout& L) {
   return 0;
 }
 
-// Block b = pair * n_spans + span: its span's sums of every bin, into
-// partials[b][iy][ix]. Warps [0, consumers) consume, the rest produce.
+// Block b = (pair * n_spans + span) * n_tiles + tile: its span's sums of
+// the tile's bins, into partials[pair * n_spans + span][iy][ix]. Warps [0,
+// consumers) consume, the rest produce.
 template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS) s1_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ gx,
     const T* __restrict__ gy, const T* __restrict__ sx, const T* __restrict__ sy,
     const T* __restrict__ w, double* __restrict__ partials, int n_ch, int n_rays, int ny,
-    int nx, int span, int n_spans, int n_stages) {
+    int nx, int span, int n_spans, int n_stages, int tile_ny, int tile_nx, int n_tx,
+    int n_tiles) {
   extern __shared__ double smem[];
-  const FwdLayout L(ny, nx);
-  const int pair = blockIdx.x / n_spans;
+  const int block = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x - block * n_tiles;
+  const int y0 = tile / n_tx * tile_ny, x0 = tile % n_tx * tile_nx;
+  const int tny = min(tile_ny, ny - y0), tnx = min(tile_nx, nx - x0);
+  const FwdLayout L(tny, tnx);
+  const int pair = block / n_spans;
   const int g = pair / n_ch;
-  const int r0 = (blockIdx.x - pair * n_spans) * span;
+  const int r0 = (block - pair * n_spans) * span;
   const int r_end = min(r0 + span, n_rays);
   const int n_steps = s1::cdiv(r_end - r0, CHUNK);
   const int tid = threadIdx.x;
   const int threads = blockDim.x;
-  // The grid's centres; every stage zeroed once (the padding stays zero).
+  // The tile's centres; every stage zeroed once (the padding stays zero).
   T* cen = reinterpret_cast<T*>(smem);
-  for (int k = tid; k < ny + nx; k += threads)
-    cen[k] = k < ny ? gy[(size_t)g * ny + k] : gx[(size_t)g * nx + k - ny];
+  for (int k = tid; k < tny + tnx; k += threads)
+    cen[k] = k < tny ? gy[(size_t)g * ny + y0 + k] : gx[(size_t)g * nx + x0 + k - tny];
   for (size_t k = L.stage0 + tid; k < L.stage0 + L.stage * n_stages; k += threads) smem[k] = 0.0;
   __syncthreads();
 
@@ -146,7 +178,7 @@ __global__ void __launch_bounds__(MAX_THREADS) s1_fwd_kernel(
       if (i + 1 < n_steps) next.load(xp, yp, wp, r0 + (i + 1) * CHUNK + 4 * map.rg, r_end);
       if (i >= n_stages) s1::bar_sync(s1::BAR_EMPTY + s, threads);
       double* E = smem + L.stage0 + s * L.stage;
-      s1::stage_factors<T>(map, quad, cen, s2x, s2y, ny, nx, w != nullptr, E, L.pe,
+      s1::stage_factors<T>(map, quad, cen, cen + tny, s2x, s2y, tny, tnx, w != nullptr, E, L.pe,
                            E + CHUNK * L.pe, L.px);
       s1::bar_arrive(s1::BAR_FULL + s, threads);
       quad = next;
@@ -171,13 +203,13 @@ __global__ void __launch_bounds__(MAX_THREADS) s1_fwd_kernel(
     s1::mma_chain<T>(acc, E + 16 * mi, 1, L.pe, X + 8 * NW * nj, L.px, 1, CHUNK, lane);
     if (i + n_stages < n_steps) s1::bar_arrive(s1::BAR_EMPTY + s, threads);
   }
-  double* dst = partials + (size_t)blockIdx.x * ny * nx;
+  double* dst = partials + (size_t)block * ny * nx + (size_t)y0 * nx + x0;
 #pragma unroll
   for (int n = 0; n < NW; ++n)
 #pragma unroll
     for (int v = 0; v < 4; ++v) {
       const int iy = 16 * mi + gid + 8 * (v >> 1), ix = 8 * (NW * nj + n) + 2 * tig + (v & 1);
-      if (iy < ny && ix < nx) dst[iy * nx + ix] = acc[n][v];
+      if (iy < tny && ix < tnx) dst[(size_t)iy * nx + ix] = acc[n][v];
     }
 }
 
@@ -201,12 +233,15 @@ cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy,
                    int n_ch, int n_rays, int ny, int nx, int span, cudaStream_t stream) {
   const long long n_pairs = (long long)n_grids * n_ch;
   const int n_spans = (n_rays + span - 1) / span;
-  const FwdLayout L(ny, nx);
+  // The first tile is the largest: its layout sizes every block.
+  const FwdTiles tiles(ny, nx);
+  const FwdLayout L(tiles.tile_ny, tiles.tile_nx);
   const int stages = fwd_stages(L);
   if (stages == 0) return cudaErrorInvalidValue;
   const int threads = (L.consumers + PRODUCER_WARPS) * 32;
   const size_t smem = L.bytes(stages);
-  const long long blocks = n_pairs * n_spans;
+  const int n_tiles = tiles.n_ty * tiles.n_tx;
+  const long long blocks = n_pairs * n_spans * n_tiles;
   if (blocks > 0x7fffffffLL || threads > MAX_THREADS) return cudaErrorInvalidValue;
   cudaError_t err;
   if (blocks > 0) {
@@ -217,7 +252,8 @@ cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy,
     }
     s1_fwd_kernel<T><<<(unsigned)blocks, threads, smem, stream>>>(
         (const T*)x, (const T*)y, (const T*)gx, (const T*)gy, (const T*)sx, (const T*)sy,
-        (const T*)w, partials, n_ch, n_rays, ny, nx, span, n_spans, stages);
+        (const T*)w, partials, n_ch, n_rays, ny, nx, span, n_spans, stages, tiles.tile_ny,
+        tiles.tile_nx, tiles.n_tx, n_tiles);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -235,10 +271,18 @@ cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy,
 
 extern "C" {
 
-// The largest half grid S1 takes, and the rays a forward stage holds.
-int s1_max_ny() { return s1::MAX_NY; }
-int s1_max_nx() { return s1::MAX_NX; }
+// The rays a forward stage holds.
 int s1_chunk() { return CHUNK; }
+
+// The forward's tiles of an ny x nx half grid: tile rows and columns, and
+// tiles along each axis, into out[4].
+void s1_fwd_tiles(int ny, int nx, int* out) {
+  const FwdTiles t(ny, nx);
+  out[0] = t.tile_ny;
+  out[1] = t.tile_nx;
+  out[2] = t.n_ty;
+  out[3] = t.n_tx;
+}
 
 // Launches S1's forward on `stream` (the main kernel and its second pass)
 // and returns cudaGetLastError() (0 on success). x, y and w (or null)
@@ -249,8 +293,8 @@ int s1_chunk() { return CHUNK; }
 int s1_fwd_launch(const void* x, const void* y, const void* gx, const void* gy, const void* sx,
                   const void* sy, const void* w, double* partials, void* out, int n_grids,
                   int n_ch, int n_rays, int ny, int nx, int span, int dbl, void* stream) {
-  if (n_grids < 0 || n_ch < 0 || n_rays < 0 || ny < 1 || ny > s1::MAX_NY || nx < 1 ||
-      nx > s1::MAX_NX || span < CHUNK || span % CHUNK != 0)
+  if (n_grids < 0 || n_ch < 0 || n_rays < 0 || ny < 1 || nx < 1 || span < CHUNK ||
+      span % CHUNK != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dbl ? launch<double>(x, y, gx, gy, sx, sy, w, partials, out, n_grids, n_ch,

@@ -148,18 +148,21 @@ def load() -> ctypes.CDLL:
     # partials, out, n_grids, n_ch, n_rays, n_y, n_x, span, float64, the
     # stream; its adjoint: the same inputs, the cotangent, dx, dy, dweights
     # (or null), the bins' partials, dgx, dgy, dsigma_x, dsigma_y (null
-    # without bins), the sizes, float64, bins, the stream.
+    # without bins), the sizes, float64, bins, tiled, the stream; the
+    # forward's tiles of a half grid: n_y, n_x, where to write (tile rows,
+    # tile columns, tiles down, tiles across).
     lib.s1_fwd_launch.argtypes = [p] * 9 + [i] * 7 + [p]
-    lib.s1_bwd_launch.argtypes = [p] * 16 + [i] * 8 + [p]
+    lib.s1_bwd_launch.argtypes = [p] * 16 + [i] * 9 + [p]
     lib.s1_fwd_launch.restype = lib.s1_bwd_launch.restype = i
+    lib.s1_fwd_tiles.argtypes = [i, i, p]
+    lib.s1_fwd_tiles.restype = None
     # S1's tensor-core probe: A, B, C, d_mma, d_fma, cases, m16n8k4, the
     # stream; the FP64 rate kernel: steps, blocks, kind, out, the stream.
     lib.s1_dmma_probe.argtypes = [p] * 5 + [i, i, p]
     lib.s1_fp64_rate.argtypes = [i, i, i, p, p]
     lib.s1_dmma_probe.restype = lib.s1_fp64_rate.restype = i
     for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block", "k3_max_asph", "p2_max_kw",
-                 "p2_dpsf_max_kw", "p2_fft_max_len", "p2_fft_launches", "s1_max_ny",
-                 "s1_max_nx", "s1_chunk"):
+                 "p2_dpsf_max_kw", "p2_fft_max_len", "p2_fft_launches", "s1_chunk"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     for name in ("k1_fwd_specialized", "k2_fwd_specialized", "k2_bwd_specialized",

@@ -52,7 +52,8 @@ P2_LAUNCHES = 0
 #: that follows each is not counted.
 P2_DPSF_LAUNCHES = 0
 #: Launches of P2's FFT route (``csrc/svola_fft.cu``; the forward, and
-#: d/dpatch in a backward): three kernels a call, each counted.
+#: d/dpatch in a backward): three kernels a call, each counted; a patch
+#: longer than ``P2_FFT_TILE`` takes a call per sub-patch (``fft_tiles``).
 P2_FFT_LAUNCHES = 0
 #: Launches of the FFT route's d/dpsf: the same three kernels a call.
 P2_DPSF_FFT_LAUNCHES = 0
@@ -73,6 +74,11 @@ P2_DPSF_FFT_MIN_KW = 23
 #: The FFT route's transform lengths (``fft_len``): 2^a 3^b 5^c, 16 to 4096
 #: points.
 P2_FFT_MIN_LEN, P2_FFT_MAX_LEN = 16, 4096
+#: The longest patch side one call of the FFT route takes: a longer patch is
+#: cut into overlapping sub-patches no longer than this (``fft_tiles``), each
+#: through the route's kernels (or plain versions) on its own. At most
+#: ``P2_FFT_MAX_LEN``; the tests lower it.
+P2_FFT_TILE = P2_FFT_MAX_LEN
 
 
 def _window(kind: str, n: int) -> np.ndarray:
@@ -411,16 +417,32 @@ def _fft_route(patches, second, conj_b: bool, row0: int, n_out: int, t0: int, nt
     return _fft_rows_inv(spec, lw, tw_w, fft_scale(lh, lw), t0, nt, flip)
 
 
+def _fft_conv_one(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
+    """One call of the FFT route's forward, plain: see
+    :func:`svola_patch_conv_fft_reference`."""
+    _, ph, pw, _ = patches.shape
+    kh, kw = psfs.shape[1:3]
+    return _fft_route(patches, psfs, False, kh - 1, ph - kh + 1, kw - 1, pw - kw + 1, False)
+
+
+def _fft_dpsf_one(patches: torch.Tensor, cotangent: torch.Tensor,
+                  kernel_hw: Tuple[int, int]) -> torch.Tensor:
+    """One call of the FFT route's d/dpsf, plain: see
+    :func:`svola_patch_conv_dpsf_fft_reference`."""
+    kh, kw = kernel_hw
+    return _fft_route(patches, cotangent, True, 0, kh, 0, kw, True)
+
+
 def svola_patch_conv_fft_reference(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
     """Plain version of P2's FFT route (``csrc/svola_fft.cu``): the valid
     convolution of each patch with its PSF, (P, ph, pw, C) and (P, kh, kw,
     C) -> (P, ph - kh + 1, pw - kw + 1, C), as the circular convolution at
     lengths Lh = fft_len(ph), Lw = fft_len(pw) (the wrap never reaches rows
     [kh-1, ph) and columns [kw-1, pw), which are kept), scaled by 1/(Lh Lw);
-    the kernels' three passes in their arithmetic."""
-    _, ph, pw, _ = patches.shape
-    kh, kw = psfs.shape[1:3]
-    return _fft_route(patches, psfs, False, kh - 1, ph - kh + 1, kw - 1, pw - kw + 1, False)
+    the kernels' three passes in their arithmetic. A patch longer than
+    ``P2_FFT_TILE`` is cut as the kernels' calls are (``fft_tiles``), each
+    sub-patch's valid region written in place."""
+    return _fft_conv_tiled(_fft_conv_one, patches, psfs)
 
 
 def svola_patch_conv_dpsf_fft_reference(patches: torch.Tensor, cotangent: torch.Tensor,
@@ -429,9 +451,10 @@ def svola_patch_conv_dpsf_fft_reference(patches: torch.Tensor, cotangent: torch.
     corr[s, t] = sum_ij g[i, j] patch[i+s, j+t] of each patch with the
     cotangent at the forward's lengths (lags s < kh, t < kw do not wrap),
     dpsf[u, v] = corr[kh-1-u, kw-1-v]; the kernels' passes in their
-    arithmetic."""
-    kh, kw = kernel_hw
-    return _fft_route(patches, cotangent, True, 0, kh, 0, kw, True)
+    arithmetic. A patch longer than ``P2_FFT_TILE`` is cut as the forward's
+    (``fft_tiles``), the sub-patches' results added in float32 in row-major
+    order of the pieces."""
+    return _fft_dpsf_tiled(_fft_dpsf_one, patches, cotangent, kernel_hw)
 
 
 #: The widest PSF, in either axis, that the direct kernels take (``MAX_K``
@@ -441,6 +464,60 @@ def svola_patch_conv_dpsf_fft_reference(patches: torch.Tensor, cotangent: torch.
 P2_DIRECT_MAX_KW, P2_DPSF_DIRECT_MAX_KW = 32, 22
 
 
+def fft_tiles(n: int, k: int) -> Tuple[Tuple[int, int], ...]:
+    """The FFT route's cut of one patch axis of n pixels for a PSF of k taps
+    (overlap-save): ((first output pixel, output pixels), ...). A patch no
+    longer than ``P2_FFT_TILE``, or a PSF longer than it, is one piece;
+    otherwise the n - k + 1 outputs fall into the fewest equal runs (the
+    last shorter) whose sub-patches, the run and the k - 1 pixels after it,
+    are at most ``P2_FFT_TILE`` long. Sub-patch i starts at its first output
+    pixel, so neighbours overlap by k - 1 pixels."""
+    n_out = n - k + 1
+    if n <= P2_FFT_TILE or k > P2_FFT_TILE:
+        return ((0, n_out),)
+    size = -(-n_out // -(-n_out // (P2_FFT_TILE - k + 1)))
+    return tuple((o, min(size, n_out - o)) for o in range(0, n_out, size))
+
+
+def _fft_pieces(patches: torch.Tensor, kernel_hw: Tuple[int, int]):
+    """The sub-patches of ``fft_tiles`` in row-major order: ((rows of output,
+    columns of output), the contiguous sub-patch)."""
+    kh, kw = kernel_hw
+    for r0, nr in fft_tiles(patches.shape[1], kh):
+        for c0, nc in fft_tiles(patches.shape[2], kw):
+            sub = patches[:, r0:r0 + nr + kh - 1, c0:c0 + nc + kw - 1]
+            yield (slice(r0, r0 + nr), slice(c0, c0 + nc)), sub.contiguous()
+
+
+def _fft_conv_tiled(conv, patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
+    """P2's FFT route (``conv``: the kernels or the plain version) on patches
+    cut by ``fft_tiles``: each sub-patch's valid convolution written in
+    place."""
+    P, ph, pw, C = patches.shape
+    kh, kw = psfs.shape[1:3]
+    if len(fft_tiles(ph, kh)) == len(fft_tiles(pw, kw)) == 1:
+        return conv(patches, psfs)
+    out = patches.new_empty((P, ph - kh + 1, pw - kw + 1, C))
+    for (rows, cols), sub in _fft_pieces(patches, (kh, kw)):
+        out[:, rows, cols] = conv(sub, psfs)
+    return out
+
+
+def _fft_dpsf_tiled(corr, patches: torch.Tensor, cotangent: torch.Tensor,
+                    kernel_hw: Tuple[int, int]) -> torch.Tensor:
+    """The FFT route's d/dpsf (``corr``: the kernels or the plain version) on
+    patches cut by ``fft_tiles``: the sub-patches' correlations with their
+    parts of the cotangent, added in row-major order of the pieces."""
+    kh, kw = kernel_hw
+    if len(fft_tiles(patches.shape[1], kh)) == len(fft_tiles(patches.shape[2], kw)) == 1:
+        return corr(patches, cotangent, kernel_hw)
+    total = None
+    for (rows, cols), sub in _fft_pieces(patches, kernel_hw):
+        d = corr(sub, cotangent[:, rows, cols].contiguous(), kernel_hw)
+        total = d if total is None else total + d
+    return total
+
+
 def p2_max_kw(adjoint: bool = False) -> int:
     """The widest PSF, in either axis, that the direct kernels take (the C
     functions ``p2_max_kw`` and ``p2_dpsf_max_kw`` return the same)."""
@@ -448,12 +525,13 @@ def p2_max_kw(adjoint: bool = False) -> int:
 
 
 def p2_argument_error(patches_shape, psfs_shape, adjoint: bool = False):
-    """Why P2 (or, with ``adjoint``, its d/dpsf) would refuse patches and
-    PSFs of these shapes, or None: the checks of the launchers in
-    ``csrc/svola_*.cu`` of the route the shapes take, with no library
+    """Why one launch of P2 (or, with ``adjoint``, its d/dpsf) would refuse
+    patches and PSFs of these shapes, or None: the checks of the launchers
+    in ``csrc/svola_*.cu`` of the route the shapes take, with no library
     needed. The direct kernels take every PSF narrower than the FFT route's
-    threshold; the FFT route any wider PSF up to the patch, on patches up to
-    ``P2_FFT_MAX_LEN`` pixels a side."""
+    threshold; one launch of the FFT route any wider PSF up to the patch, on
+    patches up to ``P2_FFT_MAX_LEN`` pixels a side (``svola_patch_conv``
+    cuts longer patches first, ``fft_tiles``)."""
     P, ph, pw, C = patches_shape
     if tuple(psfs_shape[:1]) + tuple(psfs_shape[3:]) != (P, C) or len(psfs_shape) != 4:
         return (f"psfs {tuple(psfs_shape)} must be (P, kh, kw, C) with (P, C) = {(P, C)} of "
@@ -570,8 +648,9 @@ def _p2(patches: torch.Tensor, psfs: torch.Tensor) -> torch.Tensor:
     if patches.device.type == "cpu":
         return (svola_patch_conv_fft_reference if fft else svola_patch_conv_reference)(
             patches, psfs)
-    return _launch_fft(patches, psfs, psfs.shape[1:3], False) if fft else _launch_p2(patches,
-                                                                                      psfs)
+    if not fft:
+        return _launch_p2(patches, psfs)
+    return _fft_conv_tiled(lambda p, k: _launch_fft(p, k, k.shape[1:3], False), patches, psfs)
 
 
 def _p2_dpsf(patches: torch.Tensor, cotangent: torch.Tensor,
@@ -581,8 +660,10 @@ def _p2_dpsf(patches: torch.Tensor, cotangent: torch.Tensor,
     if patches.device.type == "cpu":
         return (svola_patch_conv_dpsf_fft_reference if fft else svola_patch_conv_dpsf_reference)(
             patches, cotangent, kernel_hw)
-    return (_launch_fft(patches, cotangent, kernel_hw, True) if fft
-            else _launch_p2_dpsf(patches, cotangent, kernel_hw))
+    if not fft:
+        return _launch_p2_dpsf(patches, cotangent, kernel_hw)
+    return _fft_dpsf_tiled(lambda p, g, k: _launch_fft(p, g, k, True), patches, cotangent,
+                           kernel_hw)
 
 
 class _P2(torch.autograd.Function):
@@ -1068,16 +1149,23 @@ def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
 def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Resize (N, H, W, C) as ``jax.image.resize(method="linear")`` does
     (antialiased when downscaling): the per-axis weight matrices of
-    :func:`_resize_weights`, applied as two small elementwise products (an
-    axis whose size does not change is left as it is)."""
+    :func:`_resize_weights`, each contracted over its axis by one matrix
+    product, (out, in) times the image's (in, rest) rows, so that neither
+    the product nor its gradient holds more than the image and the result
+    (an axis whose size does not change is left as it is). On CUDA tensors
+    the products must run in full float32: with
+    ``torch.backends.cuda.matmul.allow_tf32`` set this raises."""
     n, h, w, c = img.shape
     out_h, out_w = (int(v) for v in out_hw)
+    if img.is_cuda and torch.backends.cuda.matmul.allow_tf32 and (out_h, out_w) != (h, w):
+        raise RuntimeError("resize_bilinear needs full float32 matrix products: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
     if out_h != h:
-        wh = torch.as_tensor(_resize_weights(h, out_h), dtype=img.dtype, device=img.device)
-        img = torch.sum(img[:, :, None, :, :] * wh[None, :, :, None, None], dim=1)
+        wh = torch.as_tensor(_resize_weights(h, out_h).T, dtype=img.dtype, device=img.device)
+        img = torch.matmul(wh, img.reshape(n, h, w * c)).reshape(n, out_h, w, c)
     if out_w != w:
-        ww = torch.as_tensor(_resize_weights(w, out_w), dtype=img.dtype, device=img.device)
-        img = torch.sum(img[:, :, :, None, :] * ww[None, None, :, :, None], dim=2)
+        ww = torch.as_tensor(_resize_weights(w, out_w).T, dtype=img.dtype, device=img.device)
+        img = torch.matmul(ww, img.reshape(n * out_h, w, c)).reshape(n, out_h, out_w, c)
     return img
 
 

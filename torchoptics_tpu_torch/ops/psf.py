@@ -46,9 +46,11 @@ SPLAT_SLOTS = 132 * 2
 #: Column tiles of 8 bins a consumer warp of S1's adjoint holds: the groups
 #: of :func:`grouped_sum`.
 SPLAT_GROUP_TILES = 5
-#: The largest half grid S1 takes: n_y rows and n_x/2 columns (a PSF grid up
-#: to 129 x 129 or 129 x 130).
-SPLAT_MAX_NY, SPLAT_MAX_NX = 129, 65
+#: The largest half grid (n_y rows, n_x/2 columns) on which S1's adjoint
+#: runs its resident kernel, which holds the whole cotangent in shared
+#: memory; larger grids take its tiled kernel (:func:`splat_bwd_tiled`). The
+#: forward tiles any grid itself. Both sum in the same order.
+SPLAT_RESIDENT_NY, SPLAT_RESIDENT_NX = 129, 65
 
 
 def splat_span(n_rays: int, n_pairs: int) -> int:
@@ -64,6 +66,14 @@ def splat_span(n_rays: int, n_pairs: int) -> int:
     n_spans = max(1, SPLAT_SLOTS // max(1, int(n_pairs)))
     per = -(-int(n_rays) // n_spans)
     return max(1, -(-per // SPLAT_CHUNK)) * SPLAT_CHUNK
+
+
+def splat_bwd_tiled(ny: int, nx: int) -> bool:
+    """Whether S1's adjoint runs its tiled kernel on an ny x nx half grid:
+    above ``SPLAT_RESIDENT_NY`` x ``SPLAT_RESIDENT_NX`` (the resident
+    kernel's cotangent would outgrow a block's shared memory). The two give
+    the same bits; a function of the shape alone."""
+    return ny > SPLAT_RESIDENT_NY or nx > SPLAT_RESIDENT_NX
 
 
 def _gauss(v: torch.Tensor, centres: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
@@ -331,15 +341,15 @@ def dmma_probe(seed: int = 0) -> dict:
 def splat_argument_error(x_shape, gx_shape, gy_shape):
     """Why S1 would refuse rays of ``x_shape`` (g, C, R) on a half grid of
     gx (g, n_x/2) and gy (g, n_y), or None: the launchers' checks in
-    ``csrc/psf_splat_*.cu``, with no library needed."""
+    ``csrc/psf_splat_*.cu``, with no library needed. Any grid of at least
+    one bin each way is taken."""
     if len(x_shape) != 3 or len(gx_shape) != 2 or len(gy_shape) != 2 or not (
             gx_shape[0] == gy_shape[0] == x_shape[0]):
         return (f"S1 takes rays (g, C, R) and grids (g, n_x/2), (g, n_y); got {tuple(x_shape)}, "
                 f"{tuple(gx_shape)}, {tuple(gy_shape)}")
     ny, nx = gy_shape[1], gx_shape[1]
-    if not (1 <= ny <= SPLAT_MAX_NY and 1 <= nx <= SPLAT_MAX_NX):
-        return (f"S1 takes half grids of 1 to {SPLAT_MAX_NY} rows and 1 to {SPLAT_MAX_NX} "
-                f"columns; got {ny} x {nx}")
+    if ny < 1 or nx < 1:
+        return f"S1 takes half grids of at least one row and one column; got {ny} x {nx}"
     return None
 
 
@@ -395,7 +405,10 @@ def _launch_splat(x, y, gx, gy, sigma_x, sigma_y, weights):
     return out
 
 
-def _launch_splat_bwd(x, y, gx, gy, sigma_x, sigma_y, weights, cotangent, bins, weights_grad):
+def _launch_splat_bwd(x, y, gx, gy, sigma_x, sigma_y, weights, cotangent, bins, weights_grad,
+                      tiled: Optional[bool] = None):
+    """S1's adjoint on CUDA tensors, by the kernel :func:`splat_bwd_tiled`
+    picks (``tiled`` forces one)."""
     global SPLAT_BWD_LAUNCHES
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
@@ -412,15 +425,17 @@ def _launch_splat_bwd(x, y, gx, gy, sigma_x, sigma_y, weights, cotangent, bins, 
     dx, dy = new(g, C, R), new(g, C, R)
     dw = new(g, C, R) if weights_grad else None
     dgx, dgy, dsx, dsy = (new(g, nx), new(g, ny), new(g), new(g)) if bins else (None,) * 4
-    partials = (torch.empty(g * C * n_spans * 2 * (nx + ny), dtype=torch.float64,
+    partials = (torch.empty(g * (C * n_spans * 2 + 1) * (nx + ny), dtype=torch.float64,
                             device=x.device) if bins else None)
+    if tiled is None:
+        tiled = splat_bwd_tiled(ny, nx)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.s1_bwd_launch(
             x.data_ptr(), y.data_ptr(), gx.data_ptr(), gy.data_ptr(), sigma_x.data_ptr(),
             sigma_y.data_ptr(), _ptr(weights), cotangent.data_ptr(), dx.data_ptr(),
             dy.data_ptr(), _ptr(dw), _ptr(partials), _ptr(dgx), _ptr(dgy), _ptr(dsx), _ptr(dsy),
-            g, C, R, ny, nx, span, int(x.dtype == torch.float64), int(bins), stream)
+            g, C, R, ny, nx, span, int(x.dtype == torch.float64), int(bins), int(tiled), stream)
     if err != 0:
         raise RuntimeError(f"S1's adjoint launch failed: {lib.k1_error_string(err).decode()}")
     SPLAT_BWD_LAUNCHES += 1 if g * C * R else 0
