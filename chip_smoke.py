@@ -208,7 +208,7 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     d/d(c, t) at 1448^2 (K = 33, the FFT route both ways; config 5's
     deterministic PSF bundle) held against the CPU's; then 2 steps at
     psf_shape (257, 257) (K = 187; S1 over a 257 x 129 half grid, its
-    adjoint the tiled kernel), the same launches a step, loss and
+    adjoint the windowed kernel), the same launches a step, loss and
     gradients finite.
 40. (after 36) the analysis layer at the README's tolerance width, this
     slice's main path (``analysis.py``, ``ops/metrics.py``,
@@ -276,7 +276,10 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     float64, rays no multiple of the chunk, half grids above the former
     ceiling of 129 x 65 (``SPLAT_WIDE``: 130 x 65 to 513 x 257, 300 x 7 and
     7 x 300, float32 and float64, with and without weights, per-bin sums
-    and d/dw; the tiled adjoint forced on two grids below it) and the
+    and d/dw; the windowed adjoint forced on two grids below it; at 257 x
+    129 rays at the windows' edges, inf, NaN and off-grid rays, a NaN and an
+    inf in a cotangent, an inf weight, sigma of 3 bins, descending centres)
+    and the
     default configuration's splat at psf_shape (257, 257); ``compute_psf``
     on CUDA tensors under grad launches S1 both ways and no plain version;
     S1, its plain versions and the PyTorch contractions (TF32 off) timed at
@@ -318,7 +321,9 @@ before that carries the kernels' numbers.
                                           # and P2 and d/dpsf by each tree's
                                           # route at the wide ones, and S1
                                           # both ways at the default
-                                          # configuration's splat beside its
+                                          # configuration's splat at psf 65
+                                          # (the adjoint's windowed kernel
+                                          # also forced) and 257 beside its
                                           # PyTorch contractions, of each
                                           # unpacked tree and of this
                                           # checkout, timed in turns (trees,
@@ -5032,15 +5037,16 @@ def ptxas_summary(path):
                           "partials_reduce", "p2_svola_kernel", "p2_dpsf_kernel",
                           "p2_dpsf_reduce", "fft_rows_fwd", "fft_cols", "fft_rows_inv",
                           "p1_chain_kernel", "s1_fwd_kernel", "s1_fwd_reduce", "s1_bwd_kernel",
-                          "s1_bwd_tiled_kernel", "s1_bwd_bins"):
+                          "s1_bwd_window_kernel", "s1_bwd_bins"):
                 if short in raw:
                     # The template arguments of the mangled name: I L<type><value>E ... E,
-                    # or a type and perhaps a bool (S1's IfE, IdLb1EE).
+                    # or a type and perhaps bools (S1's IfE, IdLb1EE, IfLb0ELb1EE).
                     tail = raw[raw.index(short) + len(short):]
                     args = re.match(r"I((?:L[a-z]n?\d+E)+)E", tail)
-                    typed = re.match(r"I([fd])(?:Lb([01])E)?E", tail)
-                    kind = ("<" + {"f": "float", "d": "double"}[typed.group(1)]
-                            + {"0": ",false", "1": ",true", None: ""}[typed.group(2)] + ">"
+                    typed = re.match(r"I([fd])((?:Lb[01]E)*)E", tail)
+                    kind = ("<" + ",".join([{"f": "float", "d": "double"}[typed.group(1)]] + [
+                        "true" if b == "1" else "false"
+                        for b in re.findall(r"Lb([01])E", typed.group(2))]) + ">"
                             if typed else "")
                     name = short + ("<" + ",".join(
                         ("-" if neg else "") + v
@@ -5152,7 +5158,9 @@ def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
     the Cooke and aspheric Cooke populations; then K2b's splits
     (``k2_splits``), P2 at four render shapes (``p2_times``) and S1 forward
     and adjoint at the default configuration's splat with its PyTorch
-    contractions (``s1_times``); of these, the ``families`` named
+    contractions (``s1_times``; at psf 65 with the adjoint's windowed
+    kernel forced too, and at psf 257, keys ``*_257``); of these, the
+    ``families`` named
     (``KERNEL_FAMILIES``). The port is imported from
     the tree at ``root`` and its kernels built there (the build's seconds
     reported where it compiled)."""
@@ -5182,7 +5190,10 @@ def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
     if "s1" in families:
         from torchoptics_tpu_torch.ops import psf
         out["ms"].update(s1_times(torch, psf, default_splat_args(torch, zoo, simulator, imaging,
-                                                                 psf)))
+                                                                 psf), forced=True))
+        at_257 = s1_times(torch, psf, default_splat_args(torch, zoo, simulator, imaging, psf,
+                                                         (257, 257)))
+        out["ms"].update({f"{k}_257": v for k, v in at_257.items()})
     return out
 
 
@@ -6387,10 +6398,15 @@ TPU_S1 = ("torchoptics_tpu/ops/psf.py:75 (the splat's broadcast, which XLA fuses
           "over rays; no Pallas kernel)")
 #: Half grids above S1's former ceiling (129 x 65), and both adjoint kernels
 #: on one grid: {label: (g, C, R, n_y, n_x/2, float64, weights, per-bin
-#: sums, d/dw, the adjoint's kernel (None: ``psf.splat_bwd_tiled``'s; True:
-#: the tiled one forced))}; seeded spots spread over the grid
-#: (``splat_wide_args``). 66 pairs cut into 4 spans of 192, 192, 192 and 124
-#: rays, 3 steps of the tiled adjoint a span, the last one short.
+#: sums, d/dw, the adjoint's kernel (None: ``psf.splat_bwd_windowed``'s;
+#: True: the windowed one forced)[, the inputs' variant])}; seeded spots
+#: spread over the grid (``splat_wide_args``, which also makes the
+#: variants: rays at the windows' edges, an inf and a NaN ray, rays off the
+#: grid, an inf weight, sigma of 3 bins, descending centres; the cotangent's
+#: NaN and inf: ``SPLAT_COT_POKES``). 66 pairs cut into 4 spans of 192, 192,
+#: 192 and 124 rays. The last three grids are past what the windowed
+#: adjoint can stage in shared memory: centres read from global memory, and
+#: the per-bin sums' term tile in chunks of bins.
 SPLAT_WIDE = {
     "130 x 65": (2, 1, 1000, 130, 65, False, False, False, False, None),
     "129 x 66, weights, d/dw": (2, 1, 1000, 129, 66, False, True, False, True, None),
@@ -6400,11 +6416,38 @@ SPLAT_WIDE = {
     "513 x 257, per-bin sums": (1, 2, 2000, 513, 257, False, False, True, False, None),
     "300 x 7, float64": (2, 3, 700, 300, 7, True, False, False, False, None),
     "7 x 300, weights, per-bin sums, d/dw": (22, 3, 700, 7, 300, False, True, True, True, None),
-    "65 x 33 on the tiled adjoint, weights, per-bin sums, d/dw": (2, 3, 700, 65, 33, False, True,
-                                                                   True, True, True),
-    "129 x 65 on the tiled adjoint, float64": (2, 2, 1000, 129, 65, True, False, False, False,
-                                               True),
+    "65 x 33 on the windowed adjoint, weights, per-bin sums, d/dw": (
+        2, 3, 700, 65, 33, False, True, True, True, True),
+    "129 x 65 on the windowed adjoint, float64": (2, 2, 1000, 129, 65, True, False, False, False,
+                                                  True),
+    "257 x 129, rays at the windows' edges": (2, 3, 1000, 257, 129, False, False, False, False,
+                                              None, "edges"),
+    "257 x 129, float64, rays at the windows' edges, per-bin sums, d/dw": (
+        2, 2, 1000, 257, 129, True, True, True, True, None, "edges"),
+    "257 x 129, an inf ray and a NaN ray": (2, 3, 700, 257, 129, False, False, False, False, None,
+                                            "inf and NaN rays"),
+    "257 x 129, a NaN and an inf in a cotangent": (2, 2, 256, 257, 129, False, False, False,
+                                                   False, None),
+    "257 x 129, an inf weight, d/dw": (2, 2, 700, 257, 129, False, True, False, True, None,
+                                       "inf weight"),
+    "257 x 129, rays off the grid, per-bin sums": (2, 3, 700, 257, 129, False, False, True,
+                                                   False, None, "off the grid"),
+    "257 x 129, sigma of 3 bins, weights, d/dw": (2, 2, 700, 257, 129, False, True, False, True,
+                                                  None, "sigma of 3 bins"),
+    "257 x 129, descending centres": (2, 2, 256, 257, 129, False, False, False, False, None,
+                                      "descending centres"),
+    "7 x 60000, the centres beyond shared memory": (1, 1, 100, 7, 60000, False, False, False,
+                                                    False, None),
+    "9000 x 7, per-bin sums in chunks, d/dw, an inf ray and a NaN ray": (
+        2, 3, 300, 9000, 7, False, True, True, True, None, "inf and NaN rays"),
+    "7 x 30000, float64, per-bin sums in chunks, the centres beyond shared memory": (
+        1, 1, 100, 7, 30000, True, False, True, False, None),
 }
+#: Entries a case's cotangent gets before the adjoint runs: {case label:
+#: ((index, value), ...)}: one pair's cotangent with a NaN and an inf, so
+#: that its rays take the whole grid.
+SPLAT_COT_POKES = {"half grid 257 x 129, a NaN and an inf in a cotangent": (
+    ((0, 1, 40, 20), float("nan")), ((0, 1, 200, 100), float("inf")))}
 #: The default configuration's splat at psf_shape (257, 257), the timed one.
 SPLAT_257 = "default config at psf 257 (21 x 3 pairs, 257 x 129, 65,536 rays)"
 # Phase 43's cases (``splat_cases``), in order.
@@ -6441,30 +6484,65 @@ def seeded_spots(torch, shape, seed, dtype=None, scale=0.02):
             torch.tensor(y, dtype=dtype, device="cuda"))
 
 
-def splat_wide_args(torch, g, C, R, ny, nx, f64, weights, seed):
+def splat_wide_args(torch, g, C, R, ny, nx, f64, weights, seed, variant=None):
     """S1's arguments on an ny x nx half grid at a 4 um pitch: seeded spots
     (x about 0 with a third of the half grid's width, y about the grid's
     centre with a quarter of its height) and, with ``weights``, uniform
-    weights in [0, 1); float32, or float64 with ``f64``."""
+    weights in [0, 1); float32, or float64 with ``f64``. ``variant``:
+    "edges" puts each ray a window's reach (``psf.SPLAT_Q_MAX``) from a
+    random bin each way, moved by -3 to 3 of the type's steps, so that bins
+    fall just inside and just outside the windows; "inf and NaN rays" an
+    inf x and a NaN y; "off the grid" a third of the rays 1 mm right and a
+    third 1 mm down (empty windows); "inf weight" one weight inf; "sigma of
+    3 bins" sigma at 3 bins (wide windows); "descending centres" x's
+    centres reversed."""
     rng = np.random.default_rng(seed)
     inc = 4e-3
-    t = lambda a: torch.tensor(a, dtype=torch.float64 if f64 else torch.float32, device="cuda")
-    sigma = t(np.full(g, inc / 2))
-    return (t(rng.normal(0.0, nx * inc / 3, (g, C, R))), t(rng.normal(0.0, ny * inc / 4, (g, C, R))),
-            t(np.tile(np.arange(nx) * inc, (g, 1))),
-            t(np.tile((np.arange(ny) + 0.5 - ny / 2) * inc, (g, 1))), sigma, sigma.clone(),
-            t(rng.uniform(0.0, 1.0, (g, C, R))) if weights else None)
+    dtype = torch.float64 if f64 else torch.float32
+    t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")
+    sigma = t(np.full(g, 3 * inc if variant == "sigma of 3 bins" else inc / 2))
+    x = rng.normal(0.0, nx * inc / 3, (g, C, R))
+    y = rng.normal(0.0, ny * inc / 4, (g, C, R))
+    gx = np.tile(np.arange(nx) * inc, (g, 1))
+    gy = np.tile((np.arange(ny) + 0.5 - ny / 2) * inc, (g, 1))
+    w = rng.uniform(0.0, 1.0, (g, C, R)) if weights else None
+    if variant == "edges":
+        eps = float(torch.finfo(dtype).eps)
+        for v, c in ((x, gx), (y, gy)):
+            reach = np.sqrt(psf_q_max(f64) * (inc / 2) ** 2)
+            b = rng.integers(0, c.shape[1], v.shape)
+            sign = rng.choice([-1.0, 1.0], v.shape)
+            steps = rng.integers(-3, 4, v.shape)
+            v[...] = c[0][b] + sign * reach * (1.0 + steps * eps)
+    elif variant == "inf and NaN rays":
+        x[0, 0, 5] = np.inf
+        y[1, 2, 9] = np.nan
+    elif variant == "off the grid":
+        x[..., ::3] += 1.0
+        y[..., 1::3] -= 1.0
+    elif variant == "inf weight":
+        w[0, 1, 3] = np.inf
+    elif variant == "descending centres":
+        gx = gx[:, ::-1].copy()
+    return (t(x), t(y), t(gx), t(gy), sigma, sigma.clone(), None if w is None else t(w))
+
+
+def psf_q_max(f64):
+    """The windowed adjoint's threshold (``psf.SPLAT_Q_MAX``) of the type."""
+    from torchoptics_tpu_torch.ops import psf
+    import torch
+    return psf.SPLAT_Q_MAX[torch.float64 if f64 else torch.float32]
 
 
 def splat_cases(torch, zoo, simulator, imaging, psf):
-    """S1's inputs, {label: (args, bins, weights_grad, tiled)}: the default
+    """S1's inputs, {label: (args, bins, weights_grad, windowed)}: the default
     configuration's own splat (the double-Gauss traced on K1: 21 fields x 3
     channels, 65 x 33 half grid, 65,536 rays), and seeded ones: W = 4 (one-hot
     weights, d/dw too), an even and a non-square grid, the auto extent
     (increment=None: d/dgx, d/dgy, d/dsigma), a NaN ray, an inf ray,
     float64, rays no multiple of the chunk, the grids of ``SPLAT_WIDE``, and
-    the default configuration's splat at psf_shape (257, 257). ``tiled``:
-    the adjoint's kernel (None: ``psf.splat_bwd_tiled``'s)."""
+    the default configuration's splat at psf_shape (257, 257). ``windowed``:
+    the adjoint's kernel (None: ``psf.splat_bwd_windowed``'s)."""
     cases = {"default config (21 x 3 pairs, 65 x 33, 65,536 rays)": (
         default_splat_args(torch, zoo, simulator, imaging, psf), False, False)}
     x, y = seeded_spots(torch, (1, 9, 2048, 4), 1)
@@ -6494,10 +6572,10 @@ def splat_cases(torch, zoo, simulator, imaging, psf):
     _, args = capture_splat(torch, psf, lambda: psf.compute_psf(x, y, (17, 17), 5e-3))
     cases["1,037 rays (no multiple of the chunk)"] = (args, False, False)
     cases = {k: v + (None,) for k, v in cases.items()}
-    for n, (label, (g, C, R, ny, nx, f64, weights, bins, dw, tiled)) in enumerate(
+    for n, (label, (g, C, R, ny, nx, f64, weights, bins, dw, windowed, *variant)) in enumerate(
             SPLAT_WIDE.items()):
         cases[f"half grid {label}"] = (splat_wide_args(torch, g, C, R, ny, nx, f64, weights,
-                                                       200 + n), bins, dw, tiled)
+                                                       200 + n, *variant), bins, dw, windowed)
     cases[SPLAT_257] = (default_splat_args(torch, zoo, simulator, imaging, psf, (257, 257)),
                         False, False, None)
     check(tuple(cases) == SPLAT_CASES, f"phase 43's cases are SPLAT_CASES: {tuple(cases)}")
@@ -6514,16 +6592,19 @@ def bits_gap(torch, got, want):
     return same_bits(got, want), gap, int(diff.sum())
 
 
-def splat_compare(torch, psf, label, args, bins, weights_grad, seed, tiled=None):
-    """S1 forward and adjoint (by the kernel ``tiled`` names, None: the
+def splat_compare(torch, psf, label, args, bins, weights_grad, seed, windowed=None):
+    """S1 forward and adjoint (by the kernel ``windowed`` names, None: the
     route's) against their plain versions on the card, the counts set to 0
-    before and read after. Returns {output: (same, gap, n_diff)} and the
+    before and read after; the cotangent seeded, with the case's
+    ``SPLAT_COT_POKES``. Returns {output: (same, gap, n_diff)} and the
     launches (forward, adjoint)."""
     psf.SPLAT_LAUNCHES = psf.SPLAT_BWD_LAUNCHES = 0
     got = psf._launch_splat(*args)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cot = torch.randn(got.shape, generator=gen, device="cuda", dtype=got.dtype)
-    got_b = psf._launch_splat_bwd(*args, cot, bins, weights_grad, tiled)
+    for index, value in SPLAT_COT_POKES.get(label, ()):
+        cot[index] = value
+    got_b = psf._launch_splat_bwd(*args, cot, bins, weights_grad, windowed)
     torch.cuda.synchronize()
     launches = (psf.SPLAT_LAUNCHES, psf.SPLAT_BWD_LAUNCHES)
     want = psf.splat_reference(*args)
@@ -6535,7 +6616,8 @@ def splat_compare(torch, psf, label, args, bins, weights_grad, seed, tiled=None)
             out[name] = bits_gap(torch, a, b)
     x = args[0]
     ny, nx = args[3].shape[1], args[2].shape[1]
-    adjoint = "tiled" if (psf.splat_bwd_tiled(ny, nx) if tiled is None else tiled) else "resident"
+    adjoint = ("windowed" if (psf.splat_bwd_windowed(ny, nx) if windowed is None else windowed)
+               else "resident")
     print(f"S1 {label}: rays {tuple(x.shape)} {str(x.dtype)[6:]}, half grid {ny} x {nx}, "
           f"weights {args[6] is not None}, {adjoint} adjoint: "
           + "; ".join(f"{k} bit-identical={v[0]} (max |diff| {v[1]:.3e}, {v[2]} differ)"
@@ -6565,6 +6647,51 @@ def s1_bound(args, backward, bins=False):
     else:
         ops = 2 * products + 6 * factors + (pairs * R * ny if w is not None else 0)
         nbytes = b * (rays_in + grids + pairs * ny * nx)
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops,
+            nbytes)
+
+
+def splat_windows(torch, psf, args):
+    """The windowed adjoint's windows on ``args`` (``psf.splat_window``, the
+    kernel's rule, pair by pair on the card): the mean |Wx|, |Wy| and |Wx| x
+    |Wy| over the rays, their sums and the share of empty windows."""
+    x, y, gx, gy, sx, sy, w = args
+    g, C, R = x.shape
+    tot = {"wx": 0.0, "wy": 0.0, "wxy": 0.0, "empty": 0.0}
+    for i in range(g):
+        for c in range(C):
+            lx, hx = psf.splat_window(x[i, c], gx[i], sx[i] * sx[i])
+            ly, hy = psf.splat_window(y[i, c], gy[i], sy[i] * sy[i])
+            nwx, nwy = (hx - lx + 1).clamp(min=0).double(), (hy - ly + 1).clamp(min=0).double()
+            tot["wx"] += float(nwx.sum())
+            tot["wy"] += float(nwy.sum())
+            tot["wxy"] += float((nwx * nwy).sum())
+            tot["empty"] += float(((nwx * nwy) == 0).sum())
+    n = g * C * R
+    return {"rays": n, "sum_wx": tot["wx"], "sum_wy": tot["wy"], "sum_wxy": tot["wxy"],
+            "mean_wx": tot["wx"] / n, "mean_wy": tot["wy"] / n, "mean_wxy": tot["wxy"] / n,
+            "empty_share": tot["empty"] / n}
+
+
+def s1_window_bound(args, windows, backward=True):
+    """(bound_ms, bound_by, operations, bytes) of S1 forward or its adjoint
+    (no d/dw, no bins) on ``args``, summed over each ray's windows alone
+    (``splat_windows``), since every factor outside them is 0 and no
+    function needs its products: the adjoint's A and B two products and two
+    sums a window bin, each factor 6 operations and each term 6, a ray's
+    windows' bins of either axis; the forward's product and sum a window
+    bin, 6 operations a factor, the weight's product a ray and row of its
+    window; the bytes as ``s1_bound``'s (every input read once, the outputs
+    written once). This is the kernels line's bound; ``s1_bound``'s, every
+    bin of every ray, stands beside it as the dense bound."""
+    x, y, gx, gy, sx, sy, w = args
+    if backward:
+        ops = 4 * windows["sum_wxy"] + 12 * (windows["sum_wx"] + windows["sum_wy"])
+    else:
+        ops = (2 * windows["sum_wxy"] + 6 * (windows["sum_wx"] + windows["sum_wy"])
+               + (windows["sum_wy"] if w is not None else 0))
+    nbytes = s1_bound(args, backward)[3]
     t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops,
             nbytes)
@@ -6723,16 +6850,20 @@ def default_splat_args(torch, zoo, simulator, imaging, psf, psf_shape=(65, 65)):
         return capture_splat(torch, psf, lambda: imaging.sample_optics_model(specs, lens, cfg))[1]
 
 
-def s1_times(torch, psf, args, plain=False):
+def s1_times(torch, psf, args, plain=False, forced=False):
     """S1 forward and adjoint (as the main path calls it: no d/dw, no per-bin
     sums) on ``args``, CUDA events (``auto_ms``), with the PyTorch
-    contractions of ``splat_library`` timed in the same process and, with
-    ``plain``, the plain versions. Returns {key: ms}."""
+    contractions of ``splat_library`` timed in the same process, with
+    ``forced`` the adjoint's windowed kernel forced (``s1_bwd_windowed``),
+    and with ``plain`` the plain versions. Returns {key: ms}."""
     gen = torch.Generator(device="cuda").manual_seed(43)
     half = psf._launch_splat(*args)
     cot = torch.randn(half.shape, generator=gen, device="cuda", dtype=half.dtype)
     ms = {"s1_fwd": auto_ms(torch, lambda: psf._launch_splat(*args)),
           "s1_bwd": auto_ms(torch, lambda: psf._launch_splat_bwd(*args, cot, False, False))}
+    if forced:
+        ms["s1_bwd_windowed"] = auto_ms(torch, lambda: psf._launch_splat_bwd(*args, cot, False,
+                                                                              False, True))
     library = splat_library(torch, args, cot)
     ms.update(s1_fwd_einsum=library["fwd"], s1_bwd_contractions=library["bwd"])
     if plain:
@@ -6796,6 +6927,16 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
               for v in labels.values()),
           "S1's tensor-core probe: every mma.sync .f64 result bit for bit the fma chain in k "
           "order (the route S1's float32 products take)")
+    zeros = psf.exp_zero_probe()
+    print("S1 window threshold probe (exp(-q / 2) == 0 for every q above q_max): "
+          + "; ".join(f"{k}: q_max {v['q_max']}, {v['checked']} q's checked, {v['nonzero']} not 0"
+                      + (f" (least {v['least']!r})" if v["nonzero"] else "")
+                      for k, v in zeros.items()), flush=True)
+    check(all(v["nonzero"] == 0 and v["q_max"] == psf.SPLAT_Q_MAX[
+        torch.float64 if k.startswith("float64") else torch.float32] for k, v in zeros.items()),
+          "S1's windowed adjoint: every factor above q_max is 0 on the card (every float32 q; "
+          "of float64 q every double in (q_max, q_max + 1], 2^26 spread, the binades' end "
+          "points), q_max as psf.SPLAT_Q_MAX")
     rates = fp64_rates(torch, _kernels.load())
     print("FP64 rates (TFLOP/s, psf_splat_probe.cu): "
           + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()) + f"; card: {card}", flush=True)
@@ -6804,8 +6945,9 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
             print(f"S1 ptxas: {line}", flush=True)
     cases = splat_cases(torch, zoo, simulator, imaging, psf)
     results, worst = {}, {"fwd": 0.0, "bwd": 0.0}
-    for n, (label, (args, bins, weights_grad, tiled)) in enumerate(cases.items()):
-        out, launches = splat_compare(torch, psf, label, args, bins, weights_grad, 100 + n, tiled)
+    for n, (label, (args, bins, weights_grad, windowed)) in enumerate(cases.items()):
+        out, launches = splat_compare(torch, psf, label, args, bins, weights_grad, 100 + n,
+                                      windowed)
         results[label] = (out, launches)
         worst["fwd"] = max(worst["fwd"], out["half"][1])
         worst["bwd"] = max([worst["bwd"]] + [v[1] for k, v in out.items() if k != "half"])
@@ -6833,23 +6975,34 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
           f"adjoint) {launches} (expected (1, 1)), no plain version ran, gradients finite")
 
     args = cases["default config (21 x 3 pairs, 65 x 33, 65,536 rays)"][0]
-    ms = s1_times(torch, psf, args, plain=True)
+    ms = s1_times(torch, psf, args, plain=True, forced=True)
     library = {"fwd": ms["s1_fwd_einsum"], "bwd": ms["s1_bwd_contractions"]}
-    bounds = {"fwd": s1_bound(args, False), "bwd": s1_bound(args, True)}
+    windows = {"65": splat_windows(torch, psf, args)}
+    bounds = {"fwd": s1_window_bound(args, windows["65"], False),
+              "bwd": s1_window_bound(args, windows["65"]),
+              "fwd_dense": s1_bound(args, False), "bwd_dense": s1_bound(args, True)}
     g, C, R = args[0].shape
     span = psf.splat_span(R, g * C)
     workspace = g * C * -(-R // span) * args[3].shape[1] * args[2].shape[1] * 8
     for what in ("fwd", "bwd"):
-        b, t = bounds[what], ms[f"s1_{what}"]
+        b, d, t = bounds[what], bounds[f"{what}_dense"], ms[f"s1_{what}"]
         print(f"time S1 {'forward' if what == 'fwd' else 'adjoint'} at the default "
               f"configuration's splat {tuple(args[0].shape)} on 65 x 33: {t:.4f} ms (plain "
               f"{ms[f'plain_{what}']:.2f} ms; PyTorch contractions {library[what]:.4f} ms, TF32 "
-              f"off); bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations, {b[3] / 1e6:.2f} MB), "
-              f"{b[0] / t:.3f} of it reached; forward workspace {workspace / 1e6:.1f} MB; "
-              f"card: {card}", flush=True)
+              f"off); window bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations, "
+              f"{b[3] / 1e6:.2f} MB), {b[0] / t:.4f} of it reached; dense bound {d[0]:.4f} ms "
+              f"({d[2]:.3e} operations), {d[0] / t:.3f} of it reached; forward workspace "
+              f"{workspace / 1e6:.1f} MB; card: {card}", flush=True)
+    print(f"time S1 adjoint at the default configuration's splat on 65 x 33, the windowed "
+          f"kernel forced: {ms['s1_bwd_windowed']:.4f} ms (the resident kernel "
+          f"{ms['s1_bwd']:.4f} ms), {bounds['bwd'][0] / ms['s1_bwd_windowed']:.4f} of the window "
+          f"bound reached; windows: mean |Wx| {windows['65']['mean_wx']:.3f}, |Wy| "
+          f"{windows['65']['mean_wy']:.3f}, |Wx| x |Wy| {windows['65']['mean_wxy']:.3f} bins a "
+          f"ray, {windows['65']['empty_share']:.4f} of the rays empty; card: {card}", flush=True)
     # The default configuration's splat at psf_shape (257, 257): the forward's
-    # tiles, the tiled adjoint; S1 and the PyTorch contractions by CUDA
-    # events, the plain versions one host-clock run each.
+    # tiles, the windowed adjoint; S1 and the PyTorch contractions by CUDA
+    # events, the plain versions one host-clock run each; the windows' sizes
+    # and the window bound.
     args = cases[SPLAT_257][0]
     tiles = (ctypes.c_int * 4)()
     _kernels.load().s1_fwd_tiles(args[3].shape[1], args[2].shape[1], tiles)
@@ -6861,16 +7014,24 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
     ms257["plain_bwd"] = host_ms(torch, lambda: psf.splat_backward_reference(*args, cot),
                                  runs=1, warmup=0)
     del half, cot
-    bounds257 = {"fwd": s1_bound(args, False), "bwd": s1_bound(args, True)}
+    windows["257"] = splat_windows(torch, psf, args)
+    bounds257 = {"fwd": s1_window_bound(args, windows["257"], False),
+                 "bwd": s1_window_bound(args, windows["257"]),
+                 "fwd_dense": s1_bound(args, False), "bwd_dense": s1_bound(args, True)}
     for what in ("fwd", "bwd"):
-        b, t = bounds257[what], ms257[f"s1_{what}"]
+        b, d, t = bounds257[what], bounds257[f"{what}_dense"], ms257[f"s1_{what}"]
         lib_ms = ms257["s1_fwd_einsum" if what == "fwd" else "s1_bwd_contractions"]
-        print(f"time S1 {'forward' if what == 'fwd' else 'adjoint (tiled kernel)'} at the "
+        print(f"time S1 {'forward' if what == 'fwd' else 'adjoint (windowed kernel)'} at the "
               f"default configuration's splat at psf 257 {tuple(args[0].shape)} on 257 x 129 "
               f"(forward tiles {list(tiles)}: rows, columns, down, across): {t:.4f} ms (plain "
               f"{ms257[f'plain_{what}']:.1f} ms, one run; PyTorch contractions {lib_ms:.4f} ms, "
-              f"TF32 off); bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations, "
-              f"{b[3] / 1e6:.2f} MB), {b[0] / t:.3f} of it reached; card: {card}", flush=True)
+              f"TF32 off); window bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations, "
+              f"{b[3] / 1e6:.2f} MB), {b[0] / t:.4f} of it reached; dense bound {d[0]:.4f} ms "
+              f"({d[2]:.3e} operations), {d[0] / t:.3f} of it reached; card: {card}", flush=True)
+    w257 = windows["257"]
+    print(f"S1's windows at psf 257: mean |Wx| {w257['mean_wx']:.3f}, |Wy| "
+          f"{w257['mean_wy']:.3f}, |Wx| x |Wy| {w257['mean_wxy']:.3f} bins a ray, "
+          f"{w257['empty_share']:.4f} of the rays empty; card: {card}", flush=True)
     memory = {label: splat_memory(torch, card, profiled, px, psf_shape, step)
               for label, px, psf_shape, step in SPLAT_MEMORY_RUNS}
     wide = memory["2048^2 at psf 257"]
@@ -6886,6 +7047,7 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
     return {"results": results, "worst": worst, "ms": ms, "library": library,
             "bounds": bounds, "workspace_bytes": workspace, "memory": memory, "probe": probe,
             "fp64_tflops": rates, "ms_257": ms257, "bounds_257": bounds257,
+            "windows": windows, "exp_zero_probe": zeros,
             "tiles_257": list(tiles)}
 
 
@@ -6893,19 +7055,27 @@ def s1_entries(splat, train_launches, resources=(), train_launches_257=(None, No
     """S1's entries of the kernels line: forward (``s1_fwd``) and adjoint
     (``s1_bwd``) at the default configuration's splat, ``launches`` counting
     the main path's run (phase 39's image-loss steps at the default
-    configuration); ``half_grid_257``: the same numbers at psf_shape (257,
+    configuration), ``bound_ms`` the work of the rays' windows
+    (``s1_window_bound``) and ``bound_ms_dense`` that of every bin
+    (``s1_bound``); ``half_grid_257``: the same numbers at psf_shape (257,
     257), its launches those of phase 39's steps there."""
     out = []
+
+    def bound_keys(bounds, what, t):
+        b, d = bounds[what], bounds[f"{what}_dense"]
+        return {"bound_ms": b[0], "bound_by": b[1], "bound_share": b[0] / t,
+                "bound_ms_dense": d[0], "bound_by_dense": d[1], "bound_share_dense": d[0] / t}
+
     for what, source in (("fwd", S1_FWD_SOURCE), ("bwd", S1_BWD_SOURCE)):
-        b = splat["bounds"][what]
+        ms, ms257 = splat["ms"][f"s1_{what}"], splat["ms_257"][f"s1_{what}"]
         out.append({
             "name": f"s1_{what}", "route": "cuda", "source": source, "replaces": TPU_S1,
             "launches": train_launches[0 if what == "fwd" else 1],
-            "max_abs_err": splat["worst"][what], "ms": splat["ms"][f"s1_{what}"],
-            "plain_ms": splat["ms"][f"plain_{what}"], "bound_ms": b[0], "bound_by": b[1],
+            "max_abs_err": splat["worst"][what], "ms": ms,
+            "plain_ms": splat["ms"][f"plain_{what}"], **bound_keys(splat["bounds"], what, ms),
             "library_ms": splat["library"]["fwd"] if what == "fwd" else None,
             "library_ms_contractions": splat["library"][what],
-            "bound_share": b[0] / splat["ms"][f"s1_{what}"],
+            "windows": splat["windows"]["65"],
             "products": "float32: FP64 tensor cores (mma.sync m16n8k4); float64: separate "
                         "double multiplies and adds",
             "tensor_core_probe_differ": {shape: sum(v["differ"] for v in labels.values())
@@ -6918,20 +7088,28 @@ def s1_entries(splat, train_launches, resources=(), train_launches_257=(None, No
                                     if not k.endswith("_groups_ms")},
             "memory_runs": {label: {k: v for k, v in m.items() if not k.endswith("_groups_ms")}
                             for label, m in splat["memory"].items()},
+            **({} if what == "fwd" else {
+                "ms_windowed_forced": splat["ms"]["s1_bwd_windowed"],
+                "bound_share_windowed_forced": splat["bounds"]["bwd"][0]
+                / splat["ms"]["s1_bwd_windowed"]}),
             "half_grid_257": {
                 "launches": train_launches_257[0 if what == "fwd" else 1],
-                "ms": splat["ms_257"][f"s1_{what}"], "plain_ms": splat["ms_257"][f"plain_{what}"],
-                "bound_ms": splat["bounds_257"][what][0], "bound_by": splat["bounds_257"][what][1],
+                "ms": ms257, "plain_ms": splat["ms_257"][f"plain_{what}"],
+                **bound_keys(splat["bounds_257"], what, ms257),
                 "library_ms": splat["ms_257"]["s1_fwd_einsum" if what == "fwd"
                                               else "s1_bwd_contractions"],
-                "bound_share": splat["bounds_257"][what][0] / splat["ms_257"][f"s1_{what}"],
-                **({"tiles": splat["tiles_257"]} if what == "fwd" else {"kernel": "tiled"})}})
+                "windows": splat["windows"]["257"],
+                **({"tiles": splat["tiles_257"]} if what == "fwd" else {
+                    "kernel": "s1_bwd_window_kernel",
+                    "exp_zero_probe": splat["exp_zero_probe"]})}})
         # The main path's kernel's registers and spills (float32; the adjoint
-        # without d/dw and the per-bin sums), from -Xptxas -v.
+        # without d/dw and the per-bin sums, the windowed one with its centres
+        # in shared memory), from -Xptxas -v.
         for line in resources:
-            for prefix, key in (("", ""), ("tiled_", "half_grid_257")):
+            for prefix, key in (("", ""), ("window_", "half_grid_257")):
                 if line.startswith(f"s1_{what}_{prefix}kernel<float"
-                                   + (">" if what == "fwd" else ",false>")):
+                                   + (">" if what == "fwd" else ",false,true>" if prefix
+                                      else ",false>")):
                     entry = out[-1][key] if key else out[-1]
                     entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
                     entry["spill_bytes"] = [int(v) for v in re.findall(

@@ -42,10 +42,12 @@ their routes' plain versions, the direct d/dpsf kernel alone at K = 1 to 22,
 and a backward launches d/dpatch only when the patches need it;
 S1, the PSF splat, forward and adjoint bit for bit with their plain
 versions on ``chip_smoke.SPLAT_CASES`` (the default configuration's own
-splat included, and half grids up to 513 x 257 above the former ceiling),
-one launch each a call, ``compute_psf`` on CUDA tensors launching S1 both
-ways and never a plain version (at a 257 x 257 grid too), and S1's
-tensor-core probe (mma.sync .f64 rounding as the fma chain in k order);
+splat included, and half grids up to 513 x 257 above the former ceiling,
+with the windowed adjoint's edge, non-finite, off-grid and wide-window
+cases), one launch each a call, ``compute_psf`` on CUDA tensors launching
+S1 both ways and never a plain version (at a 257 x 257 grid too), S1's
+tensor-core probe (mma.sync .f64 rounding as the fma chain in k order) and
+the windowed adjoint's threshold probe (every factor above q_max is 0);
 P2's FFT route cut into sub-patches bit for bit with its plain version;
 ``resize_bilinear``'s matrix products against the CPU; P1's chains:
 sqrt and div bit for bit with their plain versions, fma within one float32
@@ -1774,15 +1776,37 @@ def test_s1_matches_plain_versions(cuda, splat_cases, label):
     is; one launch of each. Among the cases the half grids of
     ``chip_smoke.SPLAT_WIDE`` above the former ceiling of 129 x 65 (130 x
     65, 129 x 66, 257 x 129, 513 x 257, 300 x 7, 7 x 300: the forward's
-    tiles, the tiled adjoint; float32 and float64, with and without weights,
-    per-bin sums and d/dw), the tiled adjoint on two grids below it, and the
+    tiles, the windowed adjoint; float32 and float64, with and without
+    weights, per-bin sums and d/dw; at 257 x 129 rays at the windows' edges,
+    an inf and a NaN ray, a NaN and an inf in a cotangent, an inf weight,
+    rays off the grid, sigma of 3 bins, descending centres; 7 x 60000, 9000 x
+    7 and 7 x 30000, past what the windowed adjoint stages in shared memory:
+    the centres read from global memory, the per-bin sums in chunks of
+    bins), the windowed adjoint forced on two grids below it, and the
     default configuration's splat at psf 257."""
     from torchoptics_tpu_torch.ops import psf
-    args, bins, weights_grad, tiled = splat_cases[label]
+    args, bins, weights_grad, windowed = splat_cases[label]
     out, launches = chip_smoke.splat_compare(torch, psf, label, args, bins, weights_grad,
-                                             chip_smoke.SPLAT_CASES.index(label), tiled)
+                                             chip_smoke.SPLAT_CASES.index(label), windowed)
     assert launches == (1, 1)
     assert all(v[0] for v in out.values()), out
+
+
+def test_s1_window_threshold_probe(cuda):
+    """The windowed adjoint skips the bins whose q exceeds ``SPLAT_Q_MAX``,
+    which is exact only if the card's exp gives 0 for every factor there:
+    every float32 q above it and +inf; of float64 q every double in (q_max,
+    q_max + 1], 2^26 spread up to +inf and the binades' end points
+    (``psf.exp_zero_probe``); the library's q_max is psf's."""
+    from torchoptics_tpu_torch.ops import psf
+    probe = psf.exp_zero_probe()
+    least = {"float32": 10 ** 9, "float64 band": 2 ** 42, "float64 spread": 2 ** 26,
+             "float64 binade ends": 16 * 1013}
+    assert set(probe) == set(least)
+    for label, v in probe.items():
+        dtype = torch.float64 if label.startswith("float64") else torch.float32
+        assert v["nonzero"] == 0 and v["q_max"] == psf.SPLAT_Q_MAX[dtype], (label, v)
+        assert v["checked"] > least[label], (label, v)
 
 
 def test_s1_tensor_core_probe(cuda):
@@ -1802,7 +1826,7 @@ def test_s1_tensor_core_probe(cuda):
 
 def test_compute_psf_at_psf_257_launches_s1_once_each_way(cuda, monkeypatch):
     """``compute_psf`` on CUDA tensors under grad at a 257 x 257 grid (half
-    grid 257 x 129: the forward's tiles, the tiled adjoint), a fixed pitch:
+    grid 257 x 129: the forward's tiles, the windowed adjoint), a fixed pitch:
     S1 launches once forward and once backward, never a plain version, the
     gradients finite; the forward's tiles are 144 x 80 bins at most."""
     import ctypes
@@ -1849,6 +1873,31 @@ def test_resize_contractions_match_the_cpu_and_refuse_tf32(cuda, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="allow_tf32"):
         image.resize_bilinear(torch.ones((1, 5, 5, 3), device=cuda), (3, 3))
+
+
+def test_interpolate_psfs_matches_the_cpu_and_refuses_tf32(cuda, monkeypatch):
+    """``interpolate_psfs``' matrix product over the fields on the card
+    against the CPU (21 fields' 65 x 65 x 3 PSFs blended into 81 patches,
+    and the gradient of a seeded weighting) within 1e-5 of the largest
+    entry (float32 sums of up to 81 terms in another order); with TF32
+    allowed for matrix products it raises."""
+    from torchoptics_tpu_torch.ops import image
+    rng = np.random.default_rng(67)
+    x_map = np.linspace(-0.8, 0.8, 90, dtype=np.float32)
+    field_map = np.sqrt(x_map[None, :] ** 2 + x_map[:, None] ** 2)
+    psfs = rng.uniform(0.0, 1.0, (21, 65, 65, 3)).astype(np.float32)
+    cot = rng.normal(size=(81, 65, 65, 3)).astype(np.float32)
+    got, want = [], []
+    for device, out in ((cuda, got), ("cpu", want)):
+        t = torch.tensor(psfs, device=device, requires_grad=True)
+        y = image.interpolate_psfs(t, field_map, (9, 9))
+        out += [y.detach().cpu(), torch.autograd.grad(y, t, torch.tensor(cot, device=device))[
+            0].cpu()]
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        image.interpolate_psfs(torch.ones((3, 5, 5, 3), device=cuda), field_map, (2, 2))
 
 
 @pytest.mark.parametrize("kh,kw", [(23, 23), (33, 25)])

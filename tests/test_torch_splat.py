@@ -153,7 +153,7 @@ def test_splat_above_the_resident_grid_matches_jax(n_bins, weighted):
     got = psf.compute_psf(*leaves[:2], y_target=leaves[2],
                           weights=None if w is None else torch.tensor(w), **kw)
     assert got[3].shape == (2, 3, n_bins[1], n_bins[0])
-    assert psf.splat_bwd_tiled(n_bins[1], n_bins[0] // 2 + 1)
+    assert psf.splat_bwd_windowed(n_bins[1], n_bins[0] // 2 + 1)
     _assert_close(got, want)
     got_g = torch.autograd.grad((got[3] * torch.tensor(weight)).sum(), leaves)
     for g, wg in zip(got_g, want_g):
@@ -188,10 +188,10 @@ def test_splat_refuses_other_devices_and_grids():
     assert psf.splat_argument_error((1, 1, 4), (1, 0), (1, 3))
     assert psf.splat_argument_error((1, 1, 4), (2, 2), (1, 3))
     # No ceiling on the grid: a 513 x 513 PSF's half grid is taken, and its
-    # adjoint runs the tiled kernel.
+    # adjoint runs the windowed kernel.
     assert psf.splat_argument_error((1, 1, 4), (1, 257), (1, 513)) is None
-    assert psf.splat_bwd_tiled(513, 257) and psf.splat_bwd_tiled(130, 65)
-    assert not psf.splat_bwd_tiled(psf.SPLAT_RESIDENT_NY, psf.SPLAT_RESIDENT_NX)
+    assert psf.splat_bwd_windowed(513, 257) and psf.splat_bwd_windowed(130, 65)
+    assert not psf.splat_bwd_windowed(psf.SPLAT_RESIDENT_NY, psf.SPLAT_RESIDENT_NX)
 
 
 def test_plain_splat_order_is_the_documented_one():
@@ -286,3 +286,115 @@ def test_dmma_probe_cases_tell_the_roundings_apart():
         assert np.array_equal(chain.view(np.int64), want.view(np.int64)), label
         for name, v in models.items():
             assert (v.view(np.int64) != chain.view(np.int64)).any(), (label, name)
+
+
+def _window_axis(n, pitch, dtype, centred):
+    """Centres of one axis of a half grid at ``pitch`` (compute_psf's
+    aranges) and sigma^2 at half a bin, in ``dtype``."""
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
+    c = (t(np.arange(n)) + 0.5 - n / 2) * pitch if centred else t(np.arange(n)) * pitch
+    sigma = t(pitch) / 2
+    return c, sigma * sigma
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_splat_window_holds_every_nonzero_factor(dtype):
+    """The windowed adjoint's rule (``psf.splat_window``, the kernel's in
+    ``csrc/psf_splat_bwd.cu``): on a 65-bin axis at sigma half a bin, for
+    seeded rays over and beyond the grid and rays placed at the threshold
+    (q just below, at and above ``SPLAT_Q_MAX`` from a bin, in the type's
+    steps), ``_gauss`` is exactly 0 outside each ray's window and every
+    window is an interval of q <= q_max: at most 15 bins in float32, 39 in
+    float64; non-finite rays and descending centres take the whole axis."""
+    c, s2 = _window_axis(65, 4e-3, dtype, True)
+    rng = np.random.default_rng(41)
+    edge = torch.sqrt(torch.tensor(psf.SPLAT_Q_MAX[dtype], dtype=dtype) * s2)
+    near = torch.stack([c[b] + sign * edge for b in (0, 5, 32, 64) for sign in (-1.0, 1.0)])
+    steps = torch.tensor(np.arange(-3, 4), dtype=dtype) * (torch.finfo(dtype).eps * edge)
+    v = torch.cat([torch.tensor(rng.uniform(-0.09, 0.09, 200), dtype=dtype),
+                   (near[:, None] + steps[None, :]).reshape(-1),
+                   torch.tensor([0.5, -0.5, float("nan"), float("inf")], dtype=dtype)])
+    lo, hi = psf.splat_window(v, c, s2)
+    e = psf._gauss(v[:, None], c[None, :], s2)
+    b = torch.arange(65)[None, :]
+    outside = (b < lo[:, None]) | (b > hi[:, None])
+    finite = torch.isfinite(v)
+    assert bool((e[finite][outside[finite]] == 0).all())
+    d = v[:, None] - c[None, :]
+    q = (d * d) / s2
+    assert bool((q[finite][~outside[finite]] <= psf.SPLAT_Q_MAX[dtype]).all())
+    widest = int((hi - lo + 1)[finite].max())
+    assert widest == (15 if dtype == torch.float32 else 39)
+    assert (lo[~finite] == 0).all() and (hi[~finite] == 64).all()
+    assert int((hi - lo + 1)[-4:-2].max()) == 0          # off the grid: empty windows
+    # At the threshold some windows end exactly one bin short of a factor's
+    # q above q_max, whose factor is 0 nonetheless.
+    assert bool(((q > psf.SPLAT_Q_MAX[dtype]) & (q < psf.SPLAT_Q_MAX[dtype] * 1.001)).any())
+    lo_d, hi_d = psf.splat_window(v[:5], c.flip(0), s2)
+    assert (lo_d == 0).all() and (hi_d == 64).all()
+
+
+def _grouped_over(terms):
+    """grouped_sum's order over a ray's terms {bin: term} at the window's
+    bins alone: groups (b // 40, (b // 2) % 4) in order, each from 0.0."""
+    total = 0.0
+    for group in sorted({(b // 40, (b // 2) % 4) for b in terms}):
+        s = 0.0
+        for b in sorted(terms):
+            if (b // 40, (b // 2) % 4) == group:
+                s = s + terms[b]
+        total = total + s
+    return total
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_splat_adjoint_over_windows_is_the_plain_version(dtype):
+    """The windowed kernel's arithmetic in numpy: each ray's A, B and terms
+    summed over its windows alone (``splat_window``), in the documented
+    order, give ``splat_backward_reference``'s d/dx, d/dy and d/dw bit for
+    bit on a 33 x 17 half grid at sigma half a bin, with weights: 2 pairs of
+    70 rays, some off the grid (empty windows: d/dx -0.0)."""
+    rng = np.random.default_rng(43)
+    ny, nx, pitch = 33, 17, 4e-3
+    cy, s2y = _window_axis(ny, pitch, dtype, True)
+    cx, s2x = _window_axis(nx, pitch, dtype, False)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
+    x = t(rng.normal(0.0, nx * pitch / 3, (1, 2, 70)))
+    y = t(rng.normal(0.0, ny * pitch / 4, (1, 2, 70)))
+    x[0, 0, :3] = t([0.3, -0.3, 0.2])
+    w = t(rng.uniform(0.0, 1.0, (1, 2, 70)))
+    cot = t(rng.normal(size=(1, 2, ny, nx)))
+    sigma_x, sigma_y = torch.sqrt(s2x)[None], torch.sqrt(s2y)[None]
+    s2x, s2y = sigma_x * sigma_x, sigma_y * sigma_y
+    dx, dy, *_, dw = psf.splat_backward_reference(x, y, cx[None], cy[None], sigma_x, sigma_y, w,
+                                                  cot, weights_grad=True)
+    inv2x = 1.0 / (float(sigma_x[0]) * float(sigma_x[0]))
+    inv2y = 1.0 / (float(sigma_y[0]) * float(sigma_y[0]))
+    G = cot.double().numpy()[0]
+    empty = 0
+    for ch in range(2):
+        xlo, xhi = psf.splat_window(x[0, ch], cx, s2x[0])
+        ylo, yhi = psf.splat_window(y[0, ch], cy, s2y[0])
+        ex = psf._gauss(x[0, ch][:, None], cx[None], s2x[0]).double().numpy()
+        ey = psf._gauss(y[0, ch][:, None], cy[None], s2y[0]).double().numpy()
+        for r in range(70):
+            wx, wy = range(int(xlo[r]), int(xhi[r]) + 1), range(int(ylo[r]), int(yhi[r]) + 1)
+            xd, yd, wd = (float(a[0, ch, r]) for a in (x, y, w))
+            tx, ty, be = {}, {}, {}
+            for ix in wx:
+                a = 0.0
+                for iy in wy:
+                    a = a + ey[r, iy] * G[ch, iy, ix]
+                tx[ix] = ((a * ex[r, ix]) * ((xd - float(cx[ix])) * inv2x)) * wd
+            for iy in wy:
+                b = 0.0
+                for ix in wx:
+                    b = b + ex[r, ix] * G[ch, iy, ix]
+                be[iy] = b * ey[r, iy]
+                ty[iy] = (be[iy] * ((yd - float(cy[iy])) * inv2y)) * wd
+            empty += not tx
+            want = [-_grouped_over(tx), -_grouped_over(ty), _grouped_over(be)]
+            got = [float(a[0, ch, r]) for a in (dx, dy, dw)]
+            want = [float(torch.tensor(v, dtype=torch.float64).to(dtype)) for v in want]
+            assert np.array_equal(np.array(got).view(np.int64), np.array(want).view(np.int64))
+    assert empty >= 3 and np.signbit(float(dx[0, 0, 0]))

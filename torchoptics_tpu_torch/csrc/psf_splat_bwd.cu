@@ -60,26 +60,76 @@
 //
 // That resident kernel holds the whole cotangent and a ray's factors of
 // every bin in shared memory, which caps its grid (ops/psf.py
-// splat_bwd_tiled: half grids up to 129 x 65 take it). Larger grids take
-// the tiled kernel (s1_bwd_tiled_kernel), the same sums in the same order
-// with shared memory of a fixed size:
-// - A block is one side of one (pair, span): side 0 the A products and
-//   d/dx (the "out" bins are x's, k runs over y's), side 1 the B products,
-//   d/dy and d/dw (out over y, k over x, G read transposed).
-// - Per step of TKR rays, the side's out bins go in sets of TNJ groups of
-//   40 (TKR / 16 x TNJ tasks, one a consumer warp), and for each set k runs
-//   over chunks of TKC bins: a stage is one chunk's factors fk[ray][k], its
-//   rows of the cotangent (doubles), and on the set's last chunk the out
-//   bins' factors fo and the rays. The products chain over the chunks in k
-//   order in the warps' registers, so A and B round as in the resident
-//   kernel; factors are recomputed for every set.
-// - A ray's group sums of a set go to shared memory; one thread a ray adds
-//   them, in (j, t) order, to the ray's running sum, which after the last
-//   set is d/dx (or d/dy, d/dw): the sums of grouped_sum in its order.
-//   With bins, one thread a bin adds the step's terms to its span sum, kept
-//   in the scratch row the second pass reads.
+// splat_bwd_windowed: half grids up to 129 x 65 take it). Larger grids take
+// the windowed kernel (s1_bwd_window_kernel), which sums each ray only over
+// the bins its factors reach and gives the same bits:
+//
+// Why a window is exact. compute_psf sets sigma to half a bin, and a factor
+// exp_t(-q / 2), q = ((v - c)^2) / sigma^2, is exactly +0 once q > q_max
+// (psf_splat.cuh: 210 for float32, 14.5 sigma or 7.2 bins, so at most 15
+// bins an axis; 1500 for float64, 19.4 bins). The plain version adds the
+// other bins' terms as they are: A's G ey and B's G ex are +-0 there, as
+// are the terms ((A ex) q) w, B ey and, with bins, t (v - c) / sigma,
+// provided G, A, B, q and w are finite; a sum that starts at +0.0 is never
+// -0.0, and adding +-0 to it changes nothing. So the window's sums are the
+// plain version's bits when all of these hold, each checked:
+// - q_max: exp_t(-q / 2) == 0 for every q > q_max on the card. float32:
+//   every float above it is probed (psf_splat_probe.cu). float64: nvcc's
+//   exp returns +0 by a branch for every argument a <= -745 (psf_splat.cuh),
+//   and -q / 2 < -750; the probe checks every double in (1500, 1501], the
+//   binades' end points and 2^26 q spread up to +inf.
+// - A window [lo, hi] holds every bin with q <= q_max: q is monotone in a
+//   bin's distance when the centres ascend (each operation rounds
+//   monotonically), so the bins with q <= q_max are one interval. It is
+//   guessed from the ends' spacing and confirmed at the bins just outside:
+//   c[lo - 1] <= v with q > q_max puts every bin left of it out too, and
+//   the right alike; a side whose guess fails is found by bisection. The
+//   window may be wider than needed; a wider window changes no bit.
+// - The whole grid (no window) for every ray of a block whose grid has a
+//   non-finite or descending centre, or a sigma whose sigma^2 (in the
+//   inputs' type) is not finite and positive or whose 1 / sigma^2 or 1 /
+//   sigma (double) is not finite; or whose pair's cotangent has an entry
+//   that is not finite (or, for float64, not below 2^960, so that A and B
+//   cannot overflow); and for a ray whose x, y or w is not finite, or
+//   whose (v - c) / sigma^2 is not finite at an end of either axis (then
+//   at no bin between, by monotony). Those rays sum over every bin in the
+//   same order, so NaN and inf come out as the plain version's.
+// - Order: A and B in index order from 0.0 over the window (float32: the
+//   products exact in double, one fused multiply-add; float64: separate
+//   multiplies and adds); d/dx, d/dy and d/dw by grouped_sum's groups (j,
+//   t) in that order (Grouped); an empty window gives -(+0.0) = -0.0 for
+//   d/dx and d/dy, as the plain version does.
+//
+// Design: one thread a ray, 512 a block; a block is a part of a span (a
+// whole span with bins, whose per-bin sums run in ray order), the parts cut
+// so that the card gets ~8 waves. The block stages the centres and, where
+// it fits (float32 up to ~220 KB: 257 x 129 is 133 KB), the pair's
+// cotangent in shared memory; else it reads them through L1/L2, so no grid
+// is refused. Where a ray's x window fits one frame of 16 bins (always at
+// sigma = half a bin in float32), both sides run in one sweep: the frame's
+// ex and A in registers, each row of the y window read once, B summed
+// across the frame and its term added straight away. Other rays run the
+// two sides apart in frames of 16 out bins (side), the other axis's factors
+// recomputed per frame. With bins, each step's terms go to a zeroed tile in
+// shared memory, which one thread a bin sums in ray order onto the span's
+// sums in its scratch row; where a tile of every bin does not fit at 32
+// rays a step, the bins (x's, then y's) are taken in chunks of a tile's
+// width, a pass over the span's rays each: a later pass runs only the rays
+// whose windows reach its bins, and only the first writes d/dx, d/dy, d/dw.
+//
+// What bounds it at psf 257 (63 pairs, 257 x 129, 65,536 rays, at most 15
+// x 15 bins a ray): ~480 FP64 multiply-adds and 240 cotangent reads (each a
+// float-to-double conversion) a ray, ~2e9 multiply-adds in all: 0.12 ms at
+// the DFMA rate; the conversions (16 an SM a clock) 0.27 ms; the bytes
+// (x, y, the cotangent once, d/dx, d/dy) 0.03 ms. Measured on an H100 80GB
+// HBM3 at 700 W: 0.89 ms, against 18.0 ms for its two contractions by
+// torch.einsum; latency holds it: 256 threads a block (no spills at 255
+// registers, half the warps) took 1.29x as long, the cotangent read through
+// L1 instead of staged 1.18x, the two sides apart for every ray 1.53x.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "psf_splat.cuh"
 
@@ -339,275 +389,408 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) s1_bwd_kernel(
   }
 }
 
-// The tiled kernel's shape: TKR rays a step, out bins in sets of TNJ groups
-// of 40, k in chunks of TKC bins; one consumer warp a task.
-constexpr int TKR = 64;
-constexpr int TKC = 32;
-constexpr int TNJ = 2;
-constexpr int T_CONSUMERS = TKR / 16 * TNJ;
-constexpr int T_PRODUCERS = PRODUCER_WARPS * 32;
-constexpr int T_THREADS = 32 * T_CONSUMERS + T_PRODUCERS;
-// A producer thread's values of a stage's cotangent chunk.
-constexpr int G_PER = TKC * 8 * NW * TNJ / T_PRODUCERS;
-static_assert(G_PER * T_PRODUCERS == TKC * 8 * NW * TNJ, "the chunk splits evenly");
+// The windowed kernel's shape: one ray a thread, W_THREADS threads a block
+// (at least W_MIN_THREADS with bins); a frame is WF consecutive bins of one
+// axis, held in registers.
+constexpr int WF = 16;
+constexpr int W_THREADS = 512;
+constexpr int W_MIN_THREADS = 32;
+// Blocks the launcher aims for where rays may be cut finer than spans (no
+// per-bin sums): eight waves of one block an SM on an H100.
+constexpr int W_TARGET_BLOCKS = 132 * 8;
 
-// The tiled kernel's shared memory, in doubles: the ring of stages (fk
-// [TKR][pk], fo [TKR][po], the cotangent's chunk [TKC][po], the rays' x, y,
-// w), the sets' group sums (two buffers), the running sums, and with bins
-// the terms of a set (two buffers).
-struct TiledLayout {
-  int pk, po, pp;
-  size_t fo, gc, rays, stage, part, part_size, run, terms, total;
-
-  __host__ __device__ TiledLayout(int stages, bool with_dw, bool bins) {
-    pk = s1::pitch(TKC);
-    po = s1::pitch(8 * NW * TNJ);
-    pp = 4 * TNJ + 1;
-    fo = (size_t)TKR * pk;
-    gc = fo + (size_t)TKR * po;
-    rays = gc + (size_t)TKC * po;
-    stage = rays + 3 * TKR;
-    part = stage * stages;
-    part_size = (size_t)TKR * pp * (with_dw ? 2 : 1);
-    run = part + 2 * part_size;
-    terms = run + 2 * TKR;
-    total = terms + (bins ? 2 * (size_t)TKR * 8 * NW * TNJ : 0);
-  }
-
-  size_t bytes() const { return sizeof(double) * total; }
-};
-
-int tiled_stages(bool with_dw, bool bins) {
-  for (int s = s1::MAX_STAGES; s >= 1; --s)
-    if (TiledLayout(s, with_dw, bins).bytes() <= s1::SMEM_MAX) return s;
-  return 0;
+// acc + a * b as the plain version takes it: for float32 inputs the product
+// is exact in double, so one fused multiply-add rounds alike; for float64
+// the product and the sum apart.
+template <typename T>
+__device__ inline double prod_add(double acc, double a, double b) {
+  if constexpr (sizeof(T) == 4)
+    return fma(a, b, acc);
+  else
+    return s1::madd(a, b, acc);
 }
 
-// Block b = (pair * n_spans + span) * 2 + side. dw null: no d/dw; sums
-// null: no bins (then FULL is false, as in the resident kernel).
+// grouped_sum's two levels (ops/psf.py) for terms that arrive in ascending
+// bin order: group (j, t) of bin b is j = b / 40, t = (b / 2) % 4; each
+// group's running sum from 0.0, the groups of j added onto the total in t
+// order once a bin of a later j arrives, and at the end. A group no term
+// reached sums to +0.0, which changes no total (a sum from 0.0 is never
+// -0.0), so only the groups of the bins added need to be visited.
+struct Grouped {
+  double g0 = 0.0, g1 = 0.0, g2 = 0.0, g3 = 0.0, total = 0.0;
+  int j = 0;
+
+  __device__ void flush() {
+    total = (((total + g0) + g1) + g2) + g3;
+    g0 = g1 = g2 = g3 = 0.0;
+  }
+  __device__ void add(int b, double v) {
+    const int jb = b / 40;
+    if (jb != j) {
+      flush();
+      j = jb;
+    }
+    const int t = (b >> 1) & 3;
+    g0 = t == 0 ? g0 + v : g0;
+    g1 = t == 1 ? g1 + v : g1;
+    g2 = t == 2 ? g2 + v : g2;
+    g3 = t == 3 ? g3 + v : g3;
+  }
+  __device__ double finish() {
+    flush();
+    return total;
+  }
+};
+
+// One axis of a block's grid: the centres (shared memory), their count,
+// the type's sigma^2 and the double 1 / sigma^2, 1 / sigma of the terms;
+// c0, inv_h and reach: the guess of a window from the spacing of the ends
+// (windows are taken only on a ruled grid: the kernel's checks).
+template <typename T>
+struct Axis {
+  const T* c;
+  int n;
+  T s2;
+  double inv2, inv1;
+  float c0, inv_h, reach;
+};
+
+// The window [lo, hi] of value v on a ruled axis: every bin outside it has
+// q > q_max (so a factor of +0). A guess from the spacing, confirmed at the
+// bins just outside: if c[lo - 1] <= v, every bin left of lo - 1 lies
+// farther (q is monotone in the distance, the centres ascending), so q >
+// q_max there confirms the left side; the right alike. A side whose guess
+// fails is found by bisection of the same predicates.
+template <typename T>
+__device__ inline void window(const Axis<T>& a, T v, int& lo, int& hi) {
+  const T qm = s1::q_max<T>();
+  const float u = ((float)v - a.c0) * a.inv_h;
+  lo = (int)fminf(fmaxf(ceilf(u - a.reach), 0.0f), (float)a.n);
+  hi = (int)fminf(fmaxf(floorf(u + a.reach), -1.0f), (float)(a.n - 1));
+  // Left: the first bin b with c[b] > v or q(b) <= q_max (false, then true).
+  if (lo > 0 && !(a.c[lo - 1] <= v && s1::q_of(v, a.c[lo - 1], a.s2) > qm)) {
+    int b0 = 0, b1 = a.n;
+    while (b0 < b1) {
+      const int m = (b0 + b1) >> 1;
+      if (a.c[m] > v || s1::q_of(v, a.c[m], a.s2) <= qm)
+        b1 = m;
+      else
+        b0 = m + 1;
+    }
+    lo = b0;
+  }
+  // Right: the first bin b with c[b] > v and q(b) > q_max, less one.
+  if (hi < a.n - 1 && !(a.c[hi + 1] >= v && s1::q_of(v, a.c[hi + 1], a.s2) > qm)) {
+    int b0 = 0, b1 = a.n;
+    while (b0 < b1) {
+      const int m = (b0 + b1) >> 1;
+      if (a.c[m] > v && s1::q_of(v, a.c[m], a.s2) > qm)
+        b1 = m;
+      else
+        b0 = m + 1;
+    }
+    hi = b0 - 1;
+  }
+}
+
+template <typename T>
+__device__ inline double factor(T v, T c, T s2) {
+  return (double)s1::factor_of_q(s1::q_of(v, c, s2));
+}
+
+// A ray's row of the bins' term tile: bins [lo, hi) of one axis, bin b at
+// row[b - lo]; row null: no bins.
+struct TermRow {
+  double* row = nullptr;
+  int lo = 0, hi = 0;
+
+  __device__ void put(int b, double v) const {
+    if (row && b >= lo && b < hi) row[b - lo] = v;
+  }
+};
+
+// One side of a ray's adjoint over its windows: the "out" axis ao in frames
+// of WF bins over [olo, ohi], each frame's sums acc[b] = sum over the k
+// bins [klo, khi] of G(b, k) f_k, G(b, k) = G[b so + k sk] (the out index
+// clamped into the grid; a slot outside the window is never used). Side x:
+// acc = A, the terms tx = ((A ex) qx) w into `out`; side y: acc = B, ty =
+// ((B ey) qy) w into `out`, B ey into `outw` (FULL). Each term is also
+// put into `terms` (the per-bin sums' tile row).
 template <typename T, bool FULL>
-__global__ void __launch_bounds__(T_THREADS, 1) s1_bwd_tiled_kernel(
+__device__ void side(const T* G, int so, int sk, const Axis<T>& ao, const Axis<T>& ak, T vo,
+                     T vk, double vod, double wd, int olo, int ohi, int klo, int khi,
+                     Grouped& out, Grouped& outw, const TermRow& terms) {
+  for (int f0 = olo & ~1; f0 <= ohi; f0 += WF) {
+    double fo[WF], acc[WF];
+#pragma unroll
+    for (int k = 0; k < WF; ++k) {
+      const int b = f0 + k;
+      fo[k] = b >= olo && b <= ohi ? factor(vo, ao.c[b], ao.s2) : 0.0;
+      acc[k] = 0.0;
+    }
+    for (int kk = klo; kk <= khi; ++kk) {
+      const double fk = factor(vk, ak.c[kk], ak.s2);
+      const T* row = G + (size_t)kk * sk;
+#pragma unroll
+      for (int k = 0; k < WF; ++k)
+        acc[k] = prod_add<T>(acc[k], (double)row[(size_t)min(f0 + k, ao.n - 1) * so], fk);
+    }
+#pragma unroll
+    for (int k = 0; k < WF; ++k) {
+      const int b = f0 + k;
+      const bool in = b >= olo && b <= ohi;
+      const double prod = acc[k] * fo[k];
+      const double t = (prod * ((vod - (double)ao.c[in ? b : 0]) * ao.inv2)) * wd;
+      out.add(b, in ? t : 0.0);
+      if constexpr (FULL) {
+        outw.add(b, in ? prod : 0.0);
+        if (in) terms.put(b, t);
+      }
+    }
+  }
+}
+
+// The shared memory of a windowed block, in bytes from its start: with
+// bins, the step's terms (kr rows of tb bins, doubles, zeroed) and its
+// rays' x and y (doubles); with cen_shared, the centres (ny of y's, nx of
+// x's, in the inputs' type); with g_shared, the pair's cotangent (ny x nx,
+// the inputs' type).
+struct WinLayout {
+  size_t tile, rays, cen, g, total;
+
+  __host__ __device__ WinLayout(int ny, int nx, int kr, int tb, bool bins, bool cen_shared,
+                                bool g_shared, int tsize) {
+    tile = 0;
+    rays = tile + (bins ? (size_t)kr * tb * 8 : 0);
+    cen = rays + (bins ? 2 * (size_t)kr * 8 : 0);
+    g = cen + (cen_shared ? (((size_t)(nx + ny) * tsize + 15) & ~(size_t)15) : 0);
+    total = g + (g_shared ? (size_t)ny * nx * tsize : 0);
+  }
+};
+
+// Block b = (pair * n_spans + span) * n_parts + part: a part of a span's
+// rays (a whole span with bins), kr rays a step, one a thread. dw null: no
+// d/dw; sums null: no bins (FULL: either is asked for); then the span's
+// per-bin sums go to its row of `sums`, tb bins a pass. CEN: the centres
+// staged in shared memory (a template argument, so that their loads are
+// shared-memory loads), else read from global memory.
+template <typename T, bool FULL, bool CEN>
+__global__ void __launch_bounds__(W_THREADS, 1) s1_bwd_window_kernel(
     const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ gx,
     const T* __restrict__ gy, const T* __restrict__ sx, const T* __restrict__ sy,
     const T* __restrict__ w, const T* __restrict__ cot, T* __restrict__ dx, T* __restrict__ dy,
     T* __restrict__ dw, double* __restrict__ sums, int n_ch, int n_rays, int ny, int nx,
-    int span, int n_spans, int n_stages) {
+    int span, int n_spans, int n_parts, int tb, int g_shared) {
   extern __shared__ double smem[];
-  const bool is_a = (blockIdx.x & 1) == 0;
-  const bool with_dw = FULL && !is_a && dw != nullptr;
+  char* base_b = reinterpret_cast<char*>(smem);
+  const bool with_dw = FULL && dw != nullptr;
   const bool bins = FULL && sums != nullptr;
-  const TiledLayout L(n_stages, FULL && dw != nullptr, bins);
-  const int block = blockIdx.x >> 1;
+  const int kr = blockDim.x, tid = threadIdx.x;
+  const WinLayout L(ny, nx, kr, tb, bins, CEN, g_shared != 0, (int)sizeof(T));
+  const int part = blockIdx.x % n_parts;
+  const int block = blockIdx.x / n_parts;
   const int pair = block / n_spans;
   const int g = pair / n_ch;
-  const int r0 = (block - pair * n_spans) * span;
-  const int r_end = min(r0 + span, n_rays);
-  const int n_steps = s1::cdiv(r_end - r0, TKR);
-  const int n_out = is_a ? nx : ny, n_k = is_a ? ny : nx;
-  const int n_sets = s1::cdiv(n_out, 8 * NW * TNJ);
-  const int n_chunks = s1::cdiv(n_k, TKC);
-  const int per_step = n_sets * n_chunks;
-  const int total = n_steps * per_step;
+  const int s0 = (block - pair * n_spans) * span;
+  const int s_end = min(s0 + span, n_rays);
+  const int per = s1::cdiv(s1::cdiv(s_end - s0, n_parts), kr) * kr;
+  const int r0 = s0 + part * per;
+  const int r_end = min(r0 + per, s_end);
+  if (r0 >= r_end) return;  // the whole block: a part past its span's end
   const size_t base = (size_t)pair * n_rays;
-  const T* gxp = gx + (size_t)g * nx;
-  const T* gyp = gy + (size_t)g * ny;
   const T* cp = cot + (size_t)pair * ny * nx;
-  const int tid = threadIdx.x;
-  const int threads = blockDim.x;
-  const int warp = tid >> 5;
 
-  if (warp >= T_CONSUMERS) {
-    const T s2x = sx[g] * sx[g];
-    const T s2y = sy[g] * sy[g];
-    const int pt = tid - 32 * T_CONSUMERS, n_prod = threads - 32 * T_CONSUMERS;
-    const s1::ProducerMap map(pt, n_prod, TKR);
-    const T* xp = x + base;
-    const T* yp = y + base;
-    const T* wp = w ? w + base : nullptr;
-    s1::Quad<T> quad, next;
-    quad.load(xp, yp, wp, r0 + 4 * map.rg, r_end);
-    // This thread's values of a stage's cotangent chunk: gc[k][o] = G[k][o]
-    // (A) or G[o][k] (B), zero past the grid; consecutive threads read
-    // consecutive columns of G. Loaded a stage ahead, so that their latency
-    // hides behind a stage's factors.
-    T g_now[G_PER], g_next[G_PER];
-    auto load_g = [&](int idx, T (&g)[G_PER]) {
-      const int set = idx / n_chunks % n_sets, c = idx % n_chunks;
-      const int k0 = c * TKC, klen = min(TKC, n_k - k0);
-      const int o0 = set * 8 * NW * TNJ, olen = min(8 * NW * TNJ, n_out - o0);
-#pragma unroll
-      for (int j = 0; j < G_PER; ++j) {
-        const int e = pt + j * T_PRODUCERS;
-        const int kk = is_a ? e / (8 * NW * TNJ) : e % TKC;
-        const int oo = is_a ? e % (8 * NW * TNJ) : e / TKC;
-        const size_t at = is_a ? (size_t)(k0 + kk) * nx + o0 + oo
-                               : (size_t)(o0 + oo) * nx + k0 + kk;
-        g[j] = kk < klen && oo < olen ? cp[at] : T(0);
-      }
-    };
-    load_g(0, g_now);
-    for (int idx = 0; idx < total; ++idx) {
-      const int i = idx / per_step, set = idx / n_chunks - i * n_sets;
-      const int c = idx - (idx / n_chunks) * n_chunks;
-      const int s = idx % n_stages;
-      if (idx > 0 && idx % per_step == 0) quad = next;
-      if (idx % per_step == 0 && i + 1 < n_steps)
-        next.load(xp, yp, wp, r0 + (i + 1) * TKR + 4 * map.rg, r_end);
-      if (idx + 1 < total) load_g(idx + 1, g_next);
-      const int k0 = c * TKC, klen = min(TKC, n_k - k0);
-      const int o0 = set * 8 * NW * TNJ, olen = min(8 * NW * TNJ, n_out - o0);
-      const bool last = c == n_chunks - 1;
-      if (idx >= n_stages) s1::bar_sync(s1::BAR_EMPTY + s, threads);
-      double* st = smem + s * L.stage;
-      double* fk = st;
-      double* fo = st + L.fo;
-      double* gc = st + L.gc;
-      // This chunk's factors (and on the set's last chunk the out bins'):
-      // y's bins first, then x's.
-      if (is_a)
-        s1::stage_factors<T>(map, quad, gyp + k0, gxp + o0, s2x, s2y, klen, last ? olen : 0,
-                             false, fk, L.pk, fo, L.po);
-      else
-        s1::stage_factors<T>(map, quad, gyp + o0, gxp + k0, s2x, s2y, last ? olen : 0, klen,
-                             false, fo, L.po, fk, L.pk);
-      // Zero factors past the chunk's bins (a stage keeps an earlier
-      // chunk's): the products read them up to a whole k-step.
-      for (int e = pt; e < TKR * (TKC - klen); e += n_prod) {
-        const int r = e / (TKC - klen);
-        fk[r * L.pk + klen + (e - r * (TKC - klen))] = 0.0;
-      }
-#pragma unroll
-      for (int j = 0; j < G_PER; ++j) {
-        const int e = pt + j * T_PRODUCERS;
-        const int kk = is_a ? e / (8 * NW * TNJ) : e % TKC;
-        const int oo = is_a ? e % (8 * NW * TNJ) : e / TKC;
-        gc[kk * L.po + oo] = (double)g_now[j];
-        g_now[j] = g_next[j];
-      }
-      if (last && map.q == 0) {
-        double* rays = st + L.rays;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool ok = j < quad.n_valid;
-          rays[4 * map.rg + j] = ok ? (double)quad.x[j] : 0.0;
-          rays[TKR + 4 * map.rg + j] = ok ? (double)quad.y[j] : 0.0;
-          rays[2 * TKR + 4 * map.rg + j] = ok ? (double)quad.w[j] : 1.0;
-        }
-      }
-      s1::bar_arrive(s1::BAR_FULL + s, threads);
-    }
-    return;
+  const T* cy = gy + (size_t)g * ny;
+  const T* cx = gx + (size_t)g * nx;
+  if constexpr (CEN) {
+    T* sc = reinterpret_cast<T*>(base_b + L.cen);
+    for (int k = tid; k < ny + nx; k += kr) sc[k] = k < ny ? cy[k] : cx[k - ny];
+    cy = sc;
+    cx = sc + ny;
   }
+  // The pair's cotangent: staged where it fits; either way every entry must
+  // be finite (and, for float64, below 2^960, so that A and B stay finite)
+  // for any window to be taken.
+  const T* G = cp;
+  bool fine = true;
+  if (g_shared) {
+    T* sG = reinterpret_cast<T*>(base_b + L.g);
+    for (int k = tid; k < ny * nx; k += kr) {
+      const T v = cp[k];
+      sG[k] = v;
+      fine = fine && fabs((double)v) < 0x1p960;
+    }
+    G = sG;
+  } else {
+    for (int k = tid; k < ny * nx; k += kr) fine = fine && fabs((double)cp[k]) < 0x1p960;
+  }
+  if (bins) {
+    double* zero = reinterpret_cast<double*>(base_b + L.tile);
+    const size_t n_zero = (size_t)kr * tb;
+    for (size_t k = tid; k < n_zero; k += kr) zero[k] = 0.0;
+  }
+  __syncthreads();
+  // The centres finite and ascending, each axis.
+  bool asc_y = true, asc_x = true;
+  for (int k = tid; k < ny + nx; k += kr) {
+    const bool is_y = k < ny;
+    const T* c = is_y ? cy : cx;
+    const int b = is_y ? k : k - ny;
+    const int n = is_y ? ny : nx;
+    const bool ok = isfinite(c[b]) && (b + 1 == n || c[b] <= c[b + 1]);
+    asc_y = asc_y && (ok || !is_y);
+    asc_x = asc_x && (ok || is_y);
+  }
+  fine = __syncthreads_and(fine);
+  asc_y = __syncthreads_and(asc_y);
+  asc_x = __syncthreads_and(asc_x);
 
-  const double sd = (double)(is_a ? sx[g] : sy[g]);
-  const double inv2 = 1.0 / (sd * sd), inv1 = 1.0 / sd;
-  const T* cen = is_a ? gxp : gyp;
-  T* out = is_a ? dx : dy;
-  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-  const int n_cons = 32 * T_CONSUMERS;
-  const int mg = warp / TNJ, jj = warp - mg * TNJ;
-  const int ray0 = 16 * mg;
-  double* run = smem + L.run;
-  // The per-bin span sums' rows: gx and sx (A), or gy and sy (B).
-  double* bsum = bins ? sums + (size_t)block * 2 * (nx + ny) + (is_a ? 0 : 2 * nx) : nullptr;
-  // Thread t < TKR keeps ray t's running sums (as in the finalisation).
-  for (int r = tid; r < TKR; r += n_cons) run[r] = run[TKR + r] = 0.0;
-  int idx = 0;
-  for (int i = 0; i < n_steps; ++i) {
-    const int c0 = r0 + i * TKR;
-    const int n_valid = min(TKR, r_end - c0);
-    for (int set = 0; set < n_sets; ++set) {
-      const int o0 = set * 8 * NW * TNJ;
-      const bool live = o0 + 8 * NW * jj < n_out;
-      double acc[NW][4];
+  auto make_axis = [&](const T* c, int n, T sigma) {
+    Axis<T> a;
+    a.c = c;
+    a.n = n;
+    a.s2 = sigma * sigma;
+    const double sd = (double)sigma;
+    a.inv2 = 1.0 / (sd * sd);
+    a.inv1 = 1.0 / sd;
+    a.c0 = (float)c[0];
+    a.inv_h = n > 1 ? (float)(n - 1) / ((float)c[n - 1] - a.c0) : 0.0f;
+    a.reach = (float)sqrt((double)s1::q_max<T>() * (double)a.s2) * a.inv_h * 1.0001f;
+    return a;
+  };
+  const Axis<T> ay = make_axis(cy, ny, sy[g]);
+  const Axis<T> ax = make_axis(cx, nx, sx[g]);
+  // Windows need a finite, positive sigma^2 and finite 1 / sigma^2, 1 / sigma
+  // (so that q and the terms' factors are never NaN), ascending centres and
+  // a fine cotangent; else every ray takes the whole grid.
+  auto sig_ok = [](const Axis<T>& a) {
+    return isfinite(a.s2) && a.s2 > T(0) && isfinite(a.inv2) && isfinite(a.inv1);
+  };
+  const bool ruled = fine && asc_y && asc_x && sig_ok(ay) && sig_ok(ax);
+  double* tile = reinterpret_cast<double*>(base_b + L.tile);
+  double* RX = reinterpret_cast<double*>(base_b + L.rays);
+  double* RY = RX + kr;
+  double* span_sums = bins ? sums + (size_t)block * 2 * (nx + ny) : nullptr;
+
+  // Without bins one pass; with bins a pass a chunk [t0, t1) of the bins
+  // x's then y's (t < nx: x bin t, else y bin t - nx).
+  const int n_chunks = bins ? s1::cdiv(nx + ny, tb) : 1;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int t0 = ch * tb, t1 = min(t0 + tb, nx + ny);
+    for (int c0 = r0; c0 < r_end; c0 += kr) {
+      const int r = c0 + tid;
+      if (r < r_end) {
+        const T xv = x[base + r], yv = y[base + r];
+        const T wv = w ? w[base + r] : T(1);
+        const double xd = (double)xv, yd = (double)yv, wd = (double)wv;
+        // A ray takes windows only if x, y, w are finite and its terms'
+        // factor (v - c) / sigma^2 is finite at both ends of each axis (then
+        // at every bin between): then a bin outside a window adds only +-0
+        // terms.
+        bool nice = ruled && isfinite(xv) && isfinite(yv) && isfinite(wv);
+        if (nice) {
+          const double e[4] = {(xd - (double)cx[0]) * ax.inv2, (xd - (double)cx[nx - 1]) * ax.inv2,
+                               (yd - (double)cy[0]) * ay.inv2, (yd - (double)cy[ny - 1]) * ay.inv2};
+          nice = isfinite(e[0]) && isfinite(e[1]) && isfinite(e[2]) && isfinite(e[3]);
+        }
+        int xlo = 0, xhi = nx - 1, ylo = 0, yhi = ny - 1;
+        if (nice) {
+          window(ax, xv, xlo, xhi);
+          window(ay, yv, ylo, yhi);
+        }
+        TermRow trx, try_;
+        if (bins) {
+          RX[tid] = xd;
+          RY[tid] = yd;
+          trx = {tile + (size_t)tid * tb, t0, min(t1, nx)};
+          try_ = {tile + (size_t)tid * tb, t0 - nx, t1 - nx};
+        }
+        // A later chunk runs only the rays with a term among its bins.
+        const bool some = xlo <= xhi && ylo <= yhi;
+        const bool run = ch == 0 || (some && ((max(xlo, trx.lo) < min(xhi + 1, trx.hi)) ||
+                                              (max(ylo, try_.lo) < min(yhi + 1, try_.hi))));
+        Grouped gxs, gys, gws;
+        const int f0 = xlo & ~1;
+        if (!run || (nice && !some)) {
+          // An empty window: every A and B is +0, every term +-0; the sums
+          // stay +0.0 (d/dx and d/dy -0.0).
+        } else if (nice && xhi - f0 < WF) {
+          // Both sides in one sweep: the x window in one frame, A over its
+          // slots and B summed across them (a slot outside the window has ex
+          // = +0 and a finite G: +-0, no change), row by row of the y window.
+          double ex[WF], A[WF];
 #pragma unroll
-      for (int n = 0; n < NW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0;
-      int s = 0;
-      for (int c = 0; c < n_chunks; ++c, ++idx) {
-        s = idx % n_stages;
-        s1::bar_sync(s1::BAR_FULL + s, threads);
-        const double* st = smem + s * L.stage;
-        const int klen = min(TKC, n_k - c * TKC);
-        // A(m, k) = fk[ray m][k], B(k, n) = gc[k][n].
-        if (live)
-          s1::mma_chain<T>(acc, st + ray0 * L.pk, L.pk, 1, st + L.gc + 8 * NW * jj, L.po, 1,
-                           sizeof(T) == 4 ? 4 * s1::cdiv(klen, 4) : klen, lane);
-        if (c + 1 < n_chunks && idx + n_stages < total) s1::bar_arrive(s1::BAR_EMPTY + s, threads);
-      }
-      const double* st = smem + s * L.stage;
-      const double* fo = st + L.fo;
-      const double* rays = st + L.rays;
-      const int par = (i * n_sets + set) & 1;
-      double* P = smem + L.part + par * L.part_size;
-      double* PW = P + (size_t)TKR * L.pp;
-      double* TB = smem + L.terms + (size_t)par * TKR * 8 * NW * TNJ;
-      // The terms and this thread's group sums, as in the resident kernel.
+          for (int k = 0; k < WF; ++k) {
+            const int b = f0 + k;
+            ex[k] = b >= xlo && b <= xhi ? factor(xv, cx[b], ax.s2) : 0.0;
+            A[k] = 0.0;
+          }
+          for (int iy = ylo; iy <= yhi; ++iy) {
+            const double ey = factor(yv, cy[iy], ay.s2);
+            const T* row = G + (size_t)iy * nx;
+            double B = 0.0;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int ray = ray0 + 8 * h + gid;
-        const double wd = rays[2 * TKR + ray];
-        const double vd = rays[(is_a ? 0 : TKR) + ray];
-        double sum = 0.0, sum_w = 0.0;
-#pragma unroll
-        for (int n = 0; n < NW; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int bl = 8 * (NW * jj + n) + 2 * tig + e;
-            const bool ok = o0 + bl < n_out;
-            const int bc = ok ? bl : 0;
-            const double prod = acc[n][2 * h + e] * fo[ray * L.po + bc];
-            const double t = (prod * ((vd - (double)cen[o0 + bc]) * inv2)) * wd;
-            sum = sum + (ok ? t : 0.0);
+            for (int k = 0; k < WF; ++k) {
+              const double gv = (double)row[min(f0 + k, nx - 1)];
+              A[k] = prod_add<T>(A[k], gv, ey);
+              B = prod_add<T>(B, gv, ex[k]);
+            }
+            const double be = B * ey;
+            const double t = (be * ((yd - (double)cy[iy]) * ay.inv2)) * wd;
+            gys.add(iy, t);
             if constexpr (FULL) {
-              sum_w = sum_w + (ok ? prod : 0.0);
-              if (bins && ok) TB[ray * 8 * NW * TNJ + bl] = t;
+              gws.add(iy, be);
+              try_.put(iy, t);
             }
           }
-        P[ray * L.pp + 4 * jj + tig] = sum;
-        if constexpr (FULL)
-          if (with_dw) PW[ray * L.pp + 4 * jj + tig] = sum_w;
-      }
-      s1::bar_sync(s1::BAR_CONSUMERS, n_cons);
-      // One thread a ray: the set's group sums in order onto the running
-      // sums, the outputs after the last set; with bins, one thread a bin.
-      const int n_q = 4 * min(TNJ, s1::cdiv(n_out - o0, 8 * NW));
-      const int olen = min(8 * NW * TNJ, n_out - o0);
-      const int n_fin = TKR + (bins ? olen : 0);
-      for (int t = tid; t < n_fin; t += n_cons) {
-        if (t < TKR) {
-          if (t < n_valid) {
-            double a = run[t];
-            for (int q = 0; q < n_q; ++q) a = a + P[t * L.pp + q];
-            double b = 0.0;
+#pragma unroll
+          for (int k = 0; k < WF; ++k) {
+            const int b = f0 + k;
+            const bool in = b >= xlo && b <= xhi;
+            const double t = ((A[k] * ex[k]) * ((xd - (double)cx[in ? b : 0]) * ax.inv2)) * wd;
+            gxs.add(b, in ? t : 0.0);
             if constexpr (FULL)
-              if (with_dw) {
-                b = run[TKR + t];
-                for (int q = 0; q < n_q; ++q) b = b + PW[t * L.pp + q];
-              }
-            if (set + 1 < n_sets) {
-              run[t] = a;
-              if (with_dw) run[TKR + t] = b;
-            } else {
-              out[base + c0 + t] = (T)(-a);
-              if constexpr (FULL)
-                if (with_dw) dw[base + c0 + t] = (T)b;
-              run[t] = run[TKR + t] = 0.0;
-            }
+              if (in) trx.put(b, t);
           }
-        } else if constexpr (FULL) {
-          const int bl = t - TKR, b = o0 + bl;
-          const double cb = (double)cen[b];
-          double a = i == 0 ? 0.0 : bsum[b], v = i == 0 ? 0.0 : bsum[n_out + b];
-          for (int r = 0; r < n_valid; ++r) {
-            const double tt = TB[r * 8 * NW * TNJ + bl];
-            a = a + tt;
-            v = v + tt * ((rays[(is_a ? 0 : TKR) + r] - cb) * inv1);
-          }
-          bsum[b] = a;
-          bsum[n_out + b] = v;
+        } else {
+          Grouped unused;
+          side<T, FULL>(G, 1, nx, ax, ay, xv, yv, xd, wd, xlo, xhi, ylo, yhi, gxs, unused, trx);
+          side<T, FULL>(G, nx, 1, ay, ax, yv, xv, yd, wd, ylo, yhi, xlo, xhi, gys, gws, try_);
+        }
+        if (ch == 0) {
+          dx[base + r] = (T)(-gxs.finish());
+          dy[base + r] = (T)(-gys.finish());
+          if constexpr (FULL)
+            if (with_dw) dw[base + r] = (T)gws.finish();
         }
       }
-      if (idx - 1 + n_stages < total) s1::bar_arrive(s1::BAR_EMPTY + s, threads);
+      if (bins) {
+        // One thread a bin of the chunk: the step's terms in ray order onto
+        // the span's sums (from 0.0 at its first step), the tile zeroed
+        // behind.
+        __syncthreads();
+        const int n_valid = min(kr, r_end - c0);
+        for (int t = t0 + tid; t < t1; t += kr) {
+          const bool is_x = t < nx;
+          const int b = is_x ? t : t - nx;
+          const int n = is_x ? nx : ny;
+          double* col = tile + (t - t0);
+          const double* rv = is_x ? RX : RY;
+          const double cb = (double)(is_x ? cx[b] : cy[b]);
+          const double inv1 = is_x ? ax.inv1 : ay.inv1;
+          double* s = span_sums + (is_x ? 0 : 2 * nx);
+          double a = c0 == r0 ? 0.0 : s[b], v = c0 == r0 ? 0.0 : s[n + b];
+          for (int rr = 0; rr < n_valid; ++rr) {
+            const double tt = col[(size_t)rr * tb];
+            a = a + tt;
+            v = v + tt * ((rv[rr] - cb) * inv1);
+            col[(size_t)rr * tb] = 0.0;
+          }
+          s[b] = a;
+          s[n + b] = v;
+        }
+        __syncthreads();
+      }
     }
   }
 }
@@ -657,29 +840,57 @@ template <typename T>
 cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy, const void* sx,
                    const void* sy, const void* w, const void* cot, void* dx, void* dy, void* dw,
                    double* sums, void* dgx, void* dgy, void* dsx, void* dsy, int n_grids,
-                   int n_ch, int n_rays, int ny, int nx, int span, bool tiled,
+                   int n_ch, int n_rays, int ny, int nx, int span, bool windowed,
                    cudaStream_t stream) {
   const bool with_dw = dw != nullptr, bins = sums != nullptr, full = with_dw || bins;
   int kr = 0, stages = 0;
-  if (!tiled) step_plan(ny, nx, with_dw, bins, kr, stages);
-  tiled = tiled || kr == 0;
-  if (tiled) stages = tiled_stages(with_dw, bins);
-  if (stages == 0) return cudaErrorInvalidValue;
+  if (!windowed) step_plan(ny, nx, with_dw, bins, kr, stages);
+  windowed = windowed || kr == 0;
   const int n_spans = (n_rays + span - 1) / span;
-  const long long blocks = (long long)n_grids * n_ch * n_spans * (tiled ? 2 : 1);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long spans = (long long)n_grids * n_ch * n_spans;
   cudaError_t err = cudaSuccess;
-  if (blocks > 0 && tiled) {
-    const size_t smem = TiledLayout(stages, with_dw, bins).bytes();
-    auto kernel = full ? s1_bwd_tiled_kernel<T, true> : s1_bwd_tiled_kernel<T, false>;
+  if (spans > 0 && windowed) {
+    // The most threads (rays a step) whose layout fits, the centres and then
+    // the cotangent staged where they fit; with bins a tile of every bin,
+    // down to W_MIN_THREADS, else W_MIN_THREADS and the widest tile that
+    // fits. Without bins the layout does not depend on the threads, and
+    // with nothing staged it is empty: every grid launches.
+    const int n_bins = nx + ny, ts = (int)sizeof(T);
+    int threads = 0, tb = bins ? n_bins : 0;
+    bool cen_shared = false, g_shared = false;
+    for (int t = W_THREADS; t >= W_MIN_THREADS && threads == 0; t /= 2)
+      for (int o = 0; o < 3; ++o)
+        if (WinLayout(ny, nx, t, tb, bins, o < 2, o == 0, ts).total <= s1::SMEM_MAX) {
+          threads = t;
+          cen_shared = o < 2;
+          g_shared = o == 0;
+          break;
+        }
+    if (threads == 0) {
+      threads = W_MIN_THREADS;
+      cen_shared = WinLayout(ny, nx, threads, 64, bins, true, false, ts).total <= s1::SMEM_MAX;
+      const size_t rest = WinLayout(ny, nx, threads, 0, bins, cen_shared, false, ts).total;
+      tb = (int)((s1::SMEM_MAX - rest) / ((size_t)threads * 8));
+    }
+    // Without bins a span's rays may be cut into parts of whole steps.
+    const long long want = (W_TARGET_BLOCKS + spans - 1) / spans;
+    const int n_parts = bins ? 1 : (int)std::min<long long>(want, (span + threads - 1) / threads);
+    const long long blocks = spans * n_parts;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    const size_t smem = WinLayout(ny, nx, threads, tb, bins, cen_shared, g_shared, ts).total;
+    auto kernel = full ? (cen_shared ? s1_bwd_window_kernel<T, true, true>
+                                     : s1_bwd_window_kernel<T, true, false>)
+                       : (cen_shared ? s1_bwd_window_kernel<T, false, true>
+                                     : s1_bwd_window_kernel<T, false, false>);
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<(unsigned)blocks, T_THREADS, smem, stream>>>(
+    kernel<<<(unsigned)blocks, threads, smem, stream>>>(
         (const T*)x, (const T*)y, (const T*)gx, (const T*)gy, (const T*)sx, (const T*)sy,
         (const T*)w, (const T*)cot, (T*)dx, (T*)dy, (T*)dw, sums, n_ch, n_rays, ny, nx, span,
-        n_spans, stages);
+        n_spans, n_parts, tb, (int)g_shared);
     err = cudaGetLastError();
-  } else if (blocks > 0) {
+  } else if (spans > 0) {
+    if (spans > 0x7fffffffLL) return cudaErrorInvalidValue;
     const BwdLayout L(ny, nx, kr, stages, with_dw, bins);
     const size_t smem = L.bytes();
     auto kernel = full ? s1_bwd_kernel<T, true> : s1_bwd_kernel<T, false>;
@@ -687,7 +898,7 @@ cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy,
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return err;
     }
-    kernel<<<(unsigned)blocks, (L.consumers + PRODUCER_WARPS) * 32, smem, stream>>>(
+    kernel<<<(unsigned)spans, (L.consumers + PRODUCER_WARPS) * 32, smem, stream>>>(
         (const T*)x, (const T*)y, (const T*)gx, (const T*)gy, (const T*)sx, (const T*)sy,
         (const T*)w, (const T*)cot, (T*)dx, (T*)dy, (T*)dw, sums, n_ch, n_rays, ny, nx, span,
         n_spans, kr, stages);
@@ -714,13 +925,13 @@ extern "C" {
 // sums n_grids * (n_ch * ceil(n_rays / span) * 2 + 1) * (nx + ny) doubles of
 // scratch, dgx (n_grids, nx), dgy (n_grids, ny), dsx, dsy (n_grids,), and a
 // second launch; without, those are null. Of the inputs' type (float32, or
-// float64 with `dbl`), contiguous. `tiled`: the tiled kernel, which any grid
-// takes (ops/psf.py splat_bwd_tiled); else the resident one, or the tiled
-// where the resident layout does not fit.
+// float64 with `dbl`), contiguous. `windowed`: the windowed kernel, which
+// any grid takes (ops/psf.py splat_bwd_windowed); else the resident one, or
+// the windowed where the resident layout does not fit.
 int s1_bwd_launch(const void* x, const void* y, const void* gx, const void* gy, const void* sx,
                   const void* sy, const void* w, const void* cot, void* dx, void* dy, void* dw,
                   double* sums, void* dgx, void* dgy, void* dsx, void* dsy, int n_grids,
-                  int n_ch, int n_rays, int ny, int nx, int span, int dbl, int bins, int tiled,
+                  int n_ch, int n_rays, int ny, int nx, int span, int dbl, int bins, int windowed,
                   void* stream) {
   if (n_grids < 0 || n_ch < 0 || n_rays < 0 || ny < 1 || nx < 1 || span < s1::CHUNK ||
       span % s1::CHUNK != 0 || (bins && !(sums && dgx && dgy && dsx && dsy)))
@@ -728,9 +939,9 @@ int s1_bwd_launch(const void* x, const void* y, const void* gx, const void* gy, 
   if (!bins) sums = nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dbl ? launch<double>(x, y, gx, gy, sx, sy, w, cot, dx, dy, dw, sums, dgx, dgy,
-                                    dsx, dsy, n_grids, n_ch, n_rays, ny, nx, span, tiled != 0, s)
+                                    dsx, dsy, n_grids, n_ch, n_rays, ny, nx, span, windowed != 0, s)
                    : launch<float>(x, y, gx, gy, sx, sy, w, cot, dx, dy, dw, sums, dgx, dgy,
-                                   dsx, dsy, n_grids, n_ch, n_rays, ny, nx, span, tiled != 0, s));
+                                   dsx, dsy, n_grids, n_ch, n_rays, ny, nx, span, windowed != 0, s));
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-// Kernel S1's probe of the FP64 tensor cores' rounding, and the card's FP64
-// rates (ops/psf.py: dmma_probe, fp64_rate).
+// Kernel S1's probe of the FP64 tensor cores' rounding, the card's FP64
+// rates (ops/psf.py: dmma_probe, fp64_rate), and the probe of the adjoint's
+// window threshold (ops/psf.py: exp_zero_probe).
 //
 // S1 (psf_splat_fwd.cu, psf_splat_bwd.cu) is bit-identical to its plain
 // PyTorch version, which sums in float64 in a fixed order. Its float32
@@ -23,6 +24,8 @@
 // 66, which is why S1 runs m16n8k4).
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 #include "psf_splat.cuh"
 
@@ -95,6 +98,73 @@ __global__ void s1_fp64_rate_kernel(int iters, int kind, double* __restrict__ ou
   out[blockIdx.x * (size_t)blockDim.x + threadIdx.x] = s;
 }
 
+
+// The window threshold's probe: counts the q above s1::q_max<T>() whose
+// factor s1::factor_of_q(q) is not 0 into out[0], and keeps the least such
+// q's bits in out[1]. Sample i < n is the q of bits first + i * stride, or
+// with `edges` (float64) the binades' end points: the last 8 doubles of
+// [2^10, 2^11), then the first 8 and the last 8 of each binade from 2^11 to
+// the last finite double; sample n is +inf (inf_bits).
+template <typename T, typename U>
+__global__ void s1_exp_zero_kernel(U first, U stride, unsigned long long n, U inf_bits, int edges,
+                                   unsigned long long* __restrict__ out) {
+  unsigned long long bad = 0, least = ~0ull;
+  const unsigned long long step = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+       i <= n; i += step) {
+    U bits = (U)(first + (U)i * stride);
+    if (edges) {
+      const unsigned long long e = (i + 8) / 16 + 1033, k = (i + 8) % 16;
+      bits = (U)(k < 8 ? (e << 52) + k : ((e + 1) << 52) - 1 - (k - 8));
+    }
+    if (i == n) bits = inf_bits;
+    T q;
+    memcpy(&q, &bits, sizeof(T));
+    if (s1::factor_of_q(q) != T(0)) {
+      ++bad;
+      least = (unsigned long long)bits < least ? (unsigned long long)bits : least;
+    }
+  }
+  if (bad) {
+    atomicAdd(out, bad);
+    atomicMin(out + 1, least);
+  }
+}
+
+// The float64 probe's kinds (s1_exp_zero_probe): every double in (q_max,
+// q_max + 1], 2^26 spread evenly from q_max up to +inf, and the binades'
+// end points from [2^10, 2^11)'s last 8 to the last finite double.
+enum ExpZeroKind { BAND = 0, SPREAD = 1, EDGES = 2 };
+
+void exp_zero_samples(int dbl, int kind, unsigned long long& first, unsigned long long& stride,
+                      unsigned long long& n) {
+  if (!dbl) {
+    const float qm = s1::q_max<float>();
+    unsigned int bits;
+    memcpy(&bits, &qm, 4);
+    first = bits + 1ull;
+    stride = 1;
+    n = 0x7f800000ull - first;
+    return;
+  }
+  const double qm = s1::q_max<double>(), top = qm + 1.0;
+  unsigned long long bits, top_bits;
+  memcpy(&bits, &qm, 8);
+  memcpy(&top_bits, &top, 8);
+  first = bits + 1;
+  stride = 1;
+  if (kind == BAND) {
+    n = top_bits - bits;
+  } else if (kind == SPREAD) {
+    n = 1ull << 26;
+    stride = (0x7ff0000000000000ull - first) / n;
+  } else {
+    // The last 8 of [2^10, 2^11), then 16 end points of each binade 2^11 ..
+    // 2^1023 (biased exponents 1034 .. 2046).
+    n = 8 + (2046 - 1034 + 1) * 16;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -119,5 +189,33 @@ int s1_fp64_rate(int iters, int blocks, int kind, double* out, void* stream) {
   s1_fp64_rate_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(iters, kind, out);
   return (int)cudaGetLastError();
 }
+
+// The window threshold's probe (s1_exp_zero_kernel): float32 (dbl 0) every
+// float above q_max and +inf; float64 (dbl 1) by `kind` (ExpZeroKind):
+// every double in (q_max, q_max + 1] (2^42 of them), 2^26 spread evenly up
+// to +inf, or the binades' end points, and +inf. out: 2 unsigned 64-bit
+// values on the card, {0, ~0} before the call. Returns cudaGetLastError();
+// s1_exp_zero_samples gives the q's checked.
+unsigned long long s1_exp_zero_samples(int dbl, int kind) {
+  unsigned long long first, stride, n;
+  exp_zero_samples(dbl, kind, first, stride, n);
+  return n + 1;
+}
+
+int s1_exp_zero_probe(int dbl, int kind, unsigned long long* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long first, stride, n;
+  exp_zero_samples(dbl, kind, first, stride, n);
+  if (dbl)
+    s1_exp_zero_kernel<double, unsigned long long><<<132 * 16, 256, 0, s>>>(
+        first, stride, n, 0x7ff0000000000000ull, kind == EDGES, out);
+  else
+    s1_exp_zero_kernel<float, unsigned int><<<132 * 16, 256, 0, s>>>(
+        (unsigned int)first, 1u, n, 0x7f800000u, 0, out);
+  return (int)cudaGetLastError();
+}
+
+// S1's window threshold q_max (psf_splat.cuh), float32 or float64.
+double s1_q_max(int dbl) { return dbl ? s1::q_max<double>() : (double)s1::q_max<float>(); }
 
 }  // extern "C"

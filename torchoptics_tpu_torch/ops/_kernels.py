@@ -148,7 +148,7 @@ def load() -> ctypes.CDLL:
     # partials, out, n_grids, n_ch, n_rays, n_y, n_x, span, float64, the
     # stream; its adjoint: the same inputs, the cotangent, dx, dy, dweights
     # (or null), the bins' partials, dgx, dgy, dsigma_x, dsigma_y (null
-    # without bins), the sizes, float64, bins, tiled, the stream; the
+    # without bins), the sizes, float64, bins, windowed, the stream; the
     # forward's tiles of a half grid: n_y, n_x, where to write (tile rows,
     # tile columns, tiles down, tiles across).
     lib.s1_fwd_launch.argtypes = [p] * 9 + [i] * 7 + [p]
@@ -161,6 +161,14 @@ def load() -> ctypes.CDLL:
     lib.s1_dmma_probe.argtypes = [p] * 5 + [i, i, p]
     lib.s1_fp64_rate.argtypes = [i, i, i, p, p]
     lib.s1_dmma_probe.restype = lib.s1_fp64_rate.restype = i
+    # The adjoint's window threshold: its probe (float64, kind, out, the
+    # stream), the q's it checks, q_max itself.
+    lib.s1_exp_zero_probe.argtypes = [i, i, p, p]
+    lib.s1_exp_zero_probe.restype = i
+    lib.s1_exp_zero_samples.argtypes = [i, i]
+    lib.s1_exp_zero_samples.restype = ctypes.c_ulonglong
+    lib.s1_q_max.argtypes = [i]
+    lib.s1_q_max.restype = ctypes.c_double
     for name in ("k1_max_surf", "k1_max_w", "k1_bwd_block", "k3_max_asph", "p2_max_kw",
                  "p2_dpsf_max_kw", "p2_fft_max_len", "p2_fft_launches", "s1_chunk"):
         getattr(lib, name).argtypes = []

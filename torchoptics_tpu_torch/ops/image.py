@@ -1085,11 +1085,20 @@ def get_psf_weights(grid_h: int, grid_w: int, field_map: np.ndarray,
 
 def interpolate_psfs(sampled_psfs: torch.Tensor, field_map: np.ndarray,
                      psf_grid_shape: Tuple[int, int]) -> torch.Tensor:
-    """Blend per-field PSFs (F, ph, pw, C) into per-patch PSFs (N, ph, pw, C)."""
+    """Blend per-field PSFs (F, ph, pw, C) into per-patch PSFs (N, ph, pw, C):
+    one matrix product of the (N, F) weights and the fields' PSFs as (F, ph
+    pw C) rows, so that neither it nor its gradient holds the (N, F, ph, pw,
+    C) broadcast. On CUDA tensors the product must run in full float32: with
+    ``torch.backends.cuda.matmul.allow_tf32`` set this raises."""
+    if sampled_psfs.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("interpolate_psfs needs full float32 matrix products: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
     gh, gw = psf_grid_shape
-    w = torch.as_tensor(get_psf_weights(gh, gw, field_map, sampled_psfs.shape[0]),
+    n_fields = sampled_psfs.shape[0]
+    w = torch.as_tensor(get_psf_weights(gh, gw, field_map, n_fields),
                         dtype=sampled_psfs.dtype, device=sampled_psfs.device)
-    return torch.sum(w[..., None, None, None] * sampled_psfs, dim=1)
+    out = torch.matmul(w, sampled_psfs.reshape(n_fields, -1))
+    return out.reshape((w.shape[0],) + tuple(sampled_psfs.shape[1:]))
 
 
 def rotate_image_bilinear(img: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:

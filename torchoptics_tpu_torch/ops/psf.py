@@ -48,9 +48,15 @@ SPLAT_SLOTS = 132 * 2
 SPLAT_GROUP_TILES = 5
 #: The largest half grid (n_y rows, n_x/2 columns) on which S1's adjoint
 #: runs its resident kernel, which holds the whole cotangent in shared
-#: memory; larger grids take its tiled kernel (:func:`splat_bwd_tiled`). The
-#: forward tiles any grid itself. Both sum in the same order.
+#: memory; larger grids take its windowed kernel (:func:`splat_bwd_windowed`).
+#: The forward tiles any grid itself. Both give the plain version's bits.
 SPLAT_RESIDENT_NY, SPLAT_RESIDENT_NX = 129, 65
+#: The windowed adjoint's threshold (``csrc/psf_splat.cuh`` ``q_max``): a
+#: factor exp(-q / 2) of q = ((v - c)^2) / sigma^2 above it is exactly 0
+#: (``exp_zero_probe`` checks the card's exp; 210 is 14.5 sigma, 7.2 bins at
+#: compute_psf's sigma of half a bin; 1500, 19.4 bins, is past the card's
+#: exp's cut-off of -745 to +0, ``csrc/psf_splat.cuh``).
+SPLAT_Q_MAX = {torch.float32: 210.0, torch.float64: 1500.0}
 
 
 def splat_span(n_rays: int, n_pairs: int) -> int:
@@ -68,12 +74,38 @@ def splat_span(n_rays: int, n_pairs: int) -> int:
     return max(1, -(-per // SPLAT_CHUNK)) * SPLAT_CHUNK
 
 
-def splat_bwd_tiled(ny: int, nx: int) -> bool:
-    """Whether S1's adjoint runs its tiled kernel on an ny x nx half grid:
+def splat_bwd_windowed(ny: int, nx: int) -> bool:
+    """Whether S1's adjoint runs its windowed kernel on an ny x nx half grid:
     above ``SPLAT_RESIDENT_NY`` x ``SPLAT_RESIDENT_NX`` (the resident
     kernel's cotangent would outgrow a block's shared memory). The two give
     the same bits; a function of the shape alone."""
     return ny > SPLAT_RESIDENT_NY or nx > SPLAT_RESIDENT_NX
+
+
+def splat_window(v: torch.Tensor, centres: torch.Tensor, s2: torch.Tensor):
+    """The window rule of S1's windowed adjoint on one axis, for the tests
+    (nothing on the main path calls it): v (R,) the rays' coordinates,
+    centres (n,), s2 = sigma * sigma, all of one type. A ray's window is the
+    bins [lo, hi] whose q = ((v - c)^2) / s2 (in that type, as
+    :func:`_gauss` takes it) is at most ``SPLAT_Q_MAX``, an interval when
+    the centres ascend; outside it every factor is exactly 0. The whole axis
+    where the centres are not finite and ascending, s2 is not finite and
+    positive, or v is not finite (the kernel then takes the whole grid, and
+    also for the other cases its header names). Returns (lo, hi), int64
+    (R,); an empty window has hi = lo - 1."""
+    n = centres.shape[-1]
+    d = v[:, None] - centres[None, :]
+    inside = (d * d) / s2 <= SPLAT_Q_MAX[v.dtype]
+    first = inside.to(torch.int64).argmax(dim=1)
+    last = n - 1 - inside.flip(1).to(torch.int64).argmax(dim=1)
+    some = inside.any(dim=1)
+    lo = torch.where(some, first, torch.zeros_like(first))
+    hi = torch.where(some, last, torch.full_like(last, -1))
+    ruled = (bool(torch.isfinite(centres).all()) and bool((centres[1:] >= centres[:-1]).all())
+             and bool(torch.isfinite(s2)) and float(s2) > 0)
+    whole = ~torch.isfinite(v) | (not ruled)
+    return (torch.where(whole, torch.zeros_like(lo), lo),
+            torch.where(whole, torch.full_like(hi, n - 1), hi))
 
 
 def _gauss(v: torch.Tensor, centres: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
@@ -338,6 +370,37 @@ def dmma_probe(seed: int = 0) -> dict:
     return out
 
 
+def exp_zero_probe() -> dict:
+    """Run the windowed adjoint's threshold probe on the card
+    (``csrc/psf_splat_probe.cu``): the factor exp(-q / 2) of every float32
+    q above ``SPLAT_Q_MAX`` (and +inf); of float64 q, every double in
+    (q_max, q_max + 1], 2^26 spread up to +inf, and the binades' end points
+    up to the last finite double (and +inf). Returns {"float32" | "float64
+    band" | "float64 spread" | "float64 binade ends": {"q_max": the
+    library's, "checked": q's, "nonzero": factors that are not 0, "least":
+    the least such q or None}}; every "nonzero" is 0 when the windows are
+    exact."""
+    from torchoptics_tpu_torch.ops import _kernels
+    lib = _kernels.load()
+    out = {}
+    for label, dbl, kind in (("float32", 0, 0), ("float64 band", 1, 0), ("float64 spread", 1, 1),
+                             ("float64 binade ends", 1, 2)):
+        res = torch.tensor([0, -1], dtype=torch.int64, device="cuda")
+        err = lib.s1_exp_zero_probe(dbl, kind, res.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"S1's window threshold probe failed: "
+                               f"{lib.k1_error_string(err).decode()}")
+        bad, least = (int(v) for v in res.cpu().numpy().view(np.uint64))
+        q = None
+        if bad:
+            q = float(np.array([least], np.uint64).view(np.float64)[0] if dbl
+                      else np.array([least], np.uint32).view(np.float32)[0])
+        out[label] = {"q_max": lib.s1_q_max(dbl), "checked": int(lib.s1_exp_zero_samples(
+            dbl, kind)), "nonzero": bad, "least": q}
+    return out
+
+
 def splat_argument_error(x_shape, gx_shape, gy_shape):
     """Why S1 would refuse rays of ``x_shape`` (g, C, R) on a half grid of
     gx (g, n_x/2) and gy (g, n_y), or None: the launchers' checks in
@@ -406,9 +469,9 @@ def _launch_splat(x, y, gx, gy, sigma_x, sigma_y, weights):
 
 
 def _launch_splat_bwd(x, y, gx, gy, sigma_x, sigma_y, weights, cotangent, bins, weights_grad,
-                      tiled: Optional[bool] = None):
-    """S1's adjoint on CUDA tensors, by the kernel :func:`splat_bwd_tiled`
-    picks (``tiled`` forces one)."""
+                      windowed: Optional[bool] = None):
+    """S1's adjoint on CUDA tensors, by the kernel :func:`splat_bwd_windowed`
+    picks (``windowed`` forces one)."""
     global SPLAT_BWD_LAUNCHES
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
@@ -427,15 +490,16 @@ def _launch_splat_bwd(x, y, gx, gy, sigma_x, sigma_y, weights, cotangent, bins, 
     dgx, dgy, dsx, dsy = (new(g, nx), new(g, ny), new(g), new(g)) if bins else (None,) * 4
     partials = (torch.empty(g * (C * n_spans * 2 + 1) * (nx + ny), dtype=torch.float64,
                             device=x.device) if bins else None)
-    if tiled is None:
-        tiled = splat_bwd_tiled(ny, nx)
+    if windowed is None:
+        windowed = splat_bwd_windowed(ny, nx)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.s1_bwd_launch(
             x.data_ptr(), y.data_ptr(), gx.data_ptr(), gy.data_ptr(), sigma_x.data_ptr(),
             sigma_y.data_ptr(), _ptr(weights), cotangent.data_ptr(), dx.data_ptr(),
             dy.data_ptr(), _ptr(dw), _ptr(partials), _ptr(dgx), _ptr(dgy), _ptr(dsx), _ptr(dsy),
-            g, C, R, ny, nx, span, int(x.dtype == torch.float64), int(bins), int(tiled), stream)
+            g, C, R, ny, nx, span, int(x.dtype == torch.float64), int(bins), int(windowed),
+            stream)
     if err != 0:
         raise RuntimeError(f"S1's adjoint launch failed: {lib.k1_error_string(err).decode()}")
     SPLAT_BWD_LAUNCHES += 1 if g * C * R else 0
