@@ -208,7 +208,7 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     d/d(c, t) at 1448^2 (K = 33, the FFT route both ways; config 5's
     deterministic PSF bundle) held against the CPU's; then 2 steps at
     psf_shape (257, 257) (K = 187; S1 over a 257 x 129 half grid, its
-    adjoint the windowed kernel), the same launches a step, loss and
+    forward the windowed kernels), the same launches a step, loss and
     gradients finite.
 40. (after 36) the analysis layer at the README's tolerance width, this
     slice's main path (``analysis.py``, ``ops/metrics.py``,
@@ -271,15 +271,16 @@ hand-written CUDA kernel on them against its plain PyTorch version:
     plain versions, bit for bit, one launch each a call: on the default
     configuration's own splat (the double-Gauss traced on K1: 21 fields x 3
     channels, a 65 x 33 half grid, 65,536 rays), W = 4 with one-hot weights
-    (d/dweights too), an even and a non-square grid, the auto extent
-    (increment=None: d/dgx, d/dgy, d/dsigma), a NaN ray, an inf ray,
-    float64, rays no multiple of the chunk, half grids above the former
+    (d/dweights too; also at psf 257), an even and a non-square grid, the
+    auto extent (increment=None: d/dgx, d/dgy, d/dsigma), a NaN ray, an inf
+    ray, float64, rays no multiple of the chunk, half grids above the former
     ceiling of 129 x 65 (``SPLAT_WIDE``: 130 x 65 to 513 x 257, 300 x 7 and
     7 x 300, float32 and float64, with and without weights, per-bin sums
-    and d/dw; the windowed adjoint forced on two grids below it; at 257 x
-    129 rays at the windows' edges, inf, NaN and off-grid rays, a NaN and an
-    inf in a cotangent, an inf weight, sigma of 3 bins, descending centres)
-    and the
+    and d/dw; the windowed forward forced at 65 x 33, where the dense one
+    runs, and the dense one at 257 x 129; at 257 x 129 rays at the windows'
+    edges, inf, NaN and off-grid rays, a NaN and an inf in a cotangent, an
+    inf weight, sigma of 3 bins, descending centres, a hot spot, windows
+    ending at the forward's tiles' edges, sigma of the grid) and the
     default configuration's splat at psf_shape (257, 257); ``compute_psf``
     on CUDA tensors under grad launches S1 both ways and no plain version;
     S1, its plain versions and the PyTorch contractions (TF32 off) timed at
@@ -322,9 +323,11 @@ before that carries the kernels' numbers.
                                           # route at the wide ones, and S1
                                           # both ways at the default
                                           # configuration's splat at psf 65
-                                          # (the adjoint's windowed kernel
-                                          # also forced) and 257 beside its
-                                          # PyTorch contractions, of each
+                                          # and 257 beside its PyTorch
+                                          # contractions, and the adjoint's
+                                          # instantiations at psf 65 and
+                                          # 129 (S1_BWD_VARIANTS), each on
+                                          # its tree's route, of each
                                           # unpacked tree and of this
                                           # checkout, timed in turns (trees,
                                           # this, this, trees in reverse; no
@@ -351,6 +354,12 @@ before that carries the kernels' numbers.
                                           # line)
     python3 chip_smoke.py --splat         # instead: phase 43 alone (no
                                           # result line)
+    python3 chip_smoke.py --s1-crossover  # instead: S1 forward's dense
+                                          # and windowed kernels forced, in
+                                          # turns, at the default
+                                          # configuration's splat at each
+                                          # psf size of S1_CROSSOVER_SIZES
+                                          # (no result line)
     python3 chip_smoke.py --splat-memory TREE...  # instead: phase 43's
                                           # memory, walls and profile of
                                           # SPLAT_MEMORY_RUNS (2048^2 render
@@ -5036,8 +5045,9 @@ def ptxas_summary(path):
                           "k3_fwd_kernel", "k3_bwd_kernel", "k4_fwd_kernel", "k4_bwd_kernel",
                           "partials_reduce", "p2_svola_kernel", "p2_dpsf_kernel",
                           "p2_dpsf_reduce", "fft_rows_fwd", "fft_cols", "fft_rows_inv",
-                          "p1_chain_kernel", "s1_fwd_kernel", "s1_fwd_reduce", "s1_bwd_kernel",
-                          "s1_bwd_window_kernel", "s1_bwd_bins"):
+                          "p1_chain_kernel", "s1_fwd_kernel", "s1_fwd_window_kernel",
+                          "s1_fwd_band_kernel", "s1_fwd_reduce", "s1_bwd_window_kernel",
+                          "s1_bwd_bins"):
                 if short in raw:
                     # The template arguments of the mangled name: I L<type><value>E ... E,
                     # or a type and perhaps bools (S1's IfE, IdLb1EE, IfLb0ELb1EE).
@@ -5158,9 +5168,9 @@ def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
     the Cooke and aspheric Cooke populations; then K2b's splits
     (``k2_splits``), P2 at four render shapes (``p2_times``) and S1 forward
     and adjoint at the default configuration's splat with its PyTorch
-    contractions (``s1_times``; at psf 65 with the adjoint's windowed
-    kernel forced too, and at psf 257, keys ``*_257``); of these, the
-    ``families`` named
+    contractions (``s1_times``; at psf 65, and at psf 257, keys
+    ``*_257``) and the adjoint's instantiations (``s1_bwd_variants``); of
+    these, the ``families`` named
     (``KERNEL_FAMILIES``). The port is imported from
     the tree at ``root`` and its kernels built there (the build's seconds
     reported where it compiled)."""
@@ -5189,11 +5199,14 @@ def kernel_times(torch, root, card, families=KERNEL_FAMILIES):
         out["ms"].update(p2_times(torch, zoo, simulator, imaging, image))
     if "s1" in families:
         from torchoptics_tpu_torch.ops import psf
-        out["ms"].update(s1_times(torch, psf, default_splat_args(torch, zoo, simulator, imaging,
-                                                                 psf), forced=True))
-        at_257 = s1_times(torch, psf, default_splat_args(torch, zoo, simulator, imaging, psf,
-                                                         (257, 257)))
+        args = default_splat_args(torch, zoo, simulator, imaging, psf)
+        out["ms"].update(s1_times(torch, psf, args))
+        out["ms"].update(s1_fwd_split(torch, psf, args))
+        out["ms"].update(s1_bwd_variants(torch, zoo, simulator, imaging, psf))
+        args = default_splat_args(torch, zoo, simulator, imaging, psf, (257, 257))
+        at_257 = s1_times(torch, psf, args)
         out["ms"].update({f"{k}_257": v for k, v in at_257.items()})
+        out["ms"].update({f"{k}_257": v for k, v in s1_fwd_split(torch, psf, args).items()})
     return out
 
 
@@ -5309,13 +5322,16 @@ def kernel_turns(trees, card, families=KERNEL_FAMILIES):
         print(json.dumps(run), flush=True)
         runs.append(run)
     table = {}
-    for key in runs[0]["ms"]:
+    for key in dict.fromkeys(k for run in runs for k in run["ms"]):
+        # A key some trees lack (a kernel only their route launches) is
+        # kept for the trees that time it.
         per_tree = collections.defaultdict(list)
         for run in runs:
-            per_tree[run["root"]].append(run["ms"][key])
+            if key in run["ms"]:
+                per_tree[run["root"]].append(run["ms"][key])
         med = {root: statistics.median(v) for root, v in per_tree.items()}
         table[key] = {"runs": dict(per_tree), "median": med,
-                      "ratio_to": {root: med[here] / m if m else None
+                      "ratio_to": {root: med[here] / m if m and here in med else None
                                    for root, m in med.items() if root != here}}
     return {"card": card, "this": here, "build_s": build_s, "sass": sass, "kernels": table}
 
@@ -6396,17 +6412,19 @@ S1_FWD_SOURCE = "torchoptics_tpu_torch/csrc/psf_splat_fwd.cu"
 S1_BWD_SOURCE = "torchoptics_tpu_torch/csrc/psf_splat_bwd.cu"
 TPU_S1 = ("torchoptics_tpu/ops/psf.py:75 (the splat's broadcast, which XLA fuses into its sum "
           "over rays; no Pallas kernel)")
-#: Half grids above S1's former ceiling (129 x 65), and both adjoint kernels
+#: Half grids above S1's former ceiling (129 x 65), and both forward routes
 #: on one grid: {label: (g, C, R, n_y, n_x/2, float64, weights, per-bin
-#: sums, d/dw, the adjoint's kernel (None: ``psf.splat_bwd_windowed``'s;
-#: True: the windowed one forced)[, the inputs' variant])}; seeded spots
+#: sums, d/dw, the forward's route (None: ``psf.splat_fwd_windowed``'s;
+#: True: the windowed kernels forced; False: the dense kernel)[, the
+#: inputs' variant])}; seeded spots
 #: spread over the grid (``splat_wide_args``, which also makes the
 #: variants: rays at the windows' edges, an inf and a NaN ray, rays off the
-#: grid, an inf weight, sigma of 3 bins, descending centres; the cotangent's
-#: NaN and inf: ``SPLAT_COT_POKES``). 66 pairs cut into 4 spans of 192, 192,
-#: 192 and 124 rays. The last three grids are past what the windowed
-#: adjoint can stage in shared memory: centres read from global memory, and
-#: the per-bin sums' term tile in chunks of bins.
+#: grid, an inf weight, sigma of 3 bins, descending centres, a hot spot,
+#: windows ending at the forward's tiles' edges, sigma of the grid; the
+#: cotangent's NaN and inf: ``SPLAT_COT_POKES``). 66 pairs cut into 4 spans
+#: of 192, 192, 192 and 124 rays. The last three grids are past what the
+#: adjoint can stage in shared memory: centres read from global
+#: memory, and the per-bin sums' term tile in chunks of bins.
 SPLAT_WIDE = {
     "130 x 65": (2, 1, 1000, 130, 65, False, False, False, False, None),
     "129 x 66, weights, d/dw": (2, 1, 1000, 129, 66, False, True, False, True, None),
@@ -6416,10 +6434,12 @@ SPLAT_WIDE = {
     "513 x 257, per-bin sums": (1, 2, 2000, 513, 257, False, False, True, False, None),
     "300 x 7, float64": (2, 3, 700, 300, 7, True, False, False, False, None),
     "7 x 300, weights, per-bin sums, d/dw": (22, 3, 700, 7, 300, False, True, True, True, None),
-    "65 x 33 on the windowed adjoint, weights, per-bin sums, d/dw": (
+    "65 x 33 on the windowed forward, weights, per-bin sums, d/dw": (
         2, 3, 700, 65, 33, False, True, True, True, True),
-    "129 x 65 on the windowed adjoint, float64": (2, 2, 1000, 129, 65, True, False, False, False,
-                                                  True),
+    "65 x 33 on the windowed forward, float64": (2, 2, 1000, 65, 33, True, False, False, False,
+                                                 True),
+    "257 x 129 on the dense forward, weights, an inf ray and a NaN ray": (
+        2, 3, 700, 257, 129, False, True, False, False, False, "inf and NaN rays"),
     "257 x 129, rays at the windows' edges": (2, 3, 1000, 257, 129, False, False, False, False,
                                               None, "edges"),
     "257 x 129, float64, rays at the windows' edges, per-bin sums, d/dw": (
@@ -6438,6 +6458,14 @@ SPLAT_WIDE = {
                                       "descending centres"),
     "7 x 60000, the centres beyond shared memory": (1, 1, 100, 7, 60000, False, False, False,
                                                     False, None),
+    "257 x 129, a hot spot (each pair's rays in one bin), weights": (
+        2, 3, 2000, 257, 129, False, True, False, False, None, "hot spot"),
+    "257 x 129, windows ending at the forward's tiles' edges": (
+        2, 3, 1000, 257, 129, False, False, False, False, None, "tile edges"),
+    "257 x 129, float64, windows ending at the forward's tiles' edges, weights": (
+        2, 2, 1000, 257, 129, True, True, False, False, None, "tile edges"),
+    "257 x 129, sigma of the grid (every window the whole grid), d/dw": (
+        2, 2, 500, 257, 129, False, True, False, True, None, "sigma of the grid"),
     "9000 x 7, per-bin sums in chunks, d/dw, an inf ray and a NaN ray": (
         2, 3, 300, 9000, 7, False, True, True, True, None, "inf and NaN rays"),
     "7 x 30000, float64, per-bin sums in chunks, the centres beyond shared memory": (
@@ -6452,8 +6480,8 @@ SPLAT_COT_POKES = {"half grid 257 x 129, a NaN and an inf in a cotangent": (
 SPLAT_257 = "default config at psf 257 (21 x 3 pairs, 257 x 129, 65,536 rays)"
 # Phase 43's cases (``splat_cases``), in order.
 SPLAT_CASES = (("default config (21 x 3 pairs, 65 x 33, 65,536 rays)", "W = 4, one-hot weights",
-                "even grid 48 x 64", "non-square grid 33 x 65", "auto extent (increment=None)",
-                "a NaN ray", "an inf ray", "float64", "1,037 rays (no multiple of the chunk)")
+                "W = 4, one-hot weights, 257 x 129", "even grid 48 x 64", "non-square grid 33 x 65",
+                "auto extent (increment=None)", "a NaN ray", "an inf ray", "float64", "1,037 rays (no multiple of the chunk)")
                + tuple(f"half grid {k}" for k in SPLAT_WIDE) + (SPLAT_257,))
 
 
@@ -6495,12 +6523,18 @@ def splat_wide_args(torch, g, C, R, ny, nx, f64, weights, seed, variant=None):
     inf x and a NaN y; "off the grid" a third of the rays 1 mm right and a
     third 1 mm down (empty windows); "inf weight" one weight inf; "sigma of
     3 bins" sigma at 3 bins (wide windows); "descending centres" x's
-    centres reversed."""
+    centres reversed; "hot spot" each pair's rays within one bin (a third
+    of the weights 0); "tile edges" each ray's windows ending at a multiple
+    of 8 bins each way (``psf.SPLAT_Q_MAX``'s reach from it, moved by -3 to
+    3 of the type's steps: the forward's bands of 16 rows and tiles of 16
+    columns, and their halves); "sigma of the grid" sigma at the grid's
+    height (every window the whole grid)."""
     rng = np.random.default_rng(seed)
     inc = 4e-3
     dtype = torch.float64 if f64 else torch.float32
     t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")
-    sigma = t(np.full(g, 3 * inc if variant == "sigma of 3 bins" else inc / 2))
+    sigma = t(np.full(g, {"sigma of 3 bins": 3 * inc, "sigma of the grid": ny * inc}.get(
+        variant, inc / 2)))
     x = rng.normal(0.0, nx * inc / 3, (g, C, R))
     y = rng.normal(0.0, ny * inc / 4, (g, C, R))
     gx = np.tile(np.arange(nx) * inc, (g, 1))
@@ -6514,6 +6548,20 @@ def splat_wide_args(torch, g, C, R, ny, nx, f64, weights, seed, variant=None):
             sign = rng.choice([-1.0, 1.0], v.shape)
             steps = rng.integers(-3, 4, v.shape)
             v[...] = c[0][b] + sign * reach * (1.0 + steps * eps)
+    elif variant == "hot spot":
+        x[...] = gx[0][nx // 3] + rng.uniform(-0.4, 0.4, (g, C, R)) * inc
+        y[...] = gy[0][ny // 2] + rng.uniform(-0.4, 0.4, (g, C, R)) * inc
+        w[..., ::3] = 0.0
+    elif variant == "tile edges":
+        eps = float(torch.finfo(dtype).eps)
+        reach = np.sqrt(psf_q_max(f64) * (inc / 2) ** 2)
+        for v, c in ((x, gx), (y, gy)):
+            # A window's first bin at 8 k (a reach above it) or its last at
+            # 8 k - 1 (a reach below).
+            sign = rng.choice([-1.0, 1.0], v.shape)
+            edge = 8 * rng.integers(0, c.shape[1] // 8 + 1, v.shape) - (sign < 0)
+            v[...] = c[0][0] + edge * inc + sign * reach * (
+                1.0 + rng.integers(-3, 4, v.shape) * eps)
     elif variant == "inf and NaN rays":
         x[0, 0, 5] = np.inf
         y[1, 2, 9] = np.nan
@@ -6528,7 +6576,7 @@ def splat_wide_args(torch, g, C, R, ny, nx, f64, weights, seed, variant=None):
 
 
 def psf_q_max(f64):
-    """The windowed adjoint's threshold (``psf.SPLAT_Q_MAX``) of the type."""
+    """S1's windows' threshold (``psf.SPLAT_Q_MAX``) of the type."""
     from torchoptics_tpu_torch.ops import psf
     import torch
     return psf.SPLAT_Q_MAX[torch.float64 if f64 else torch.float32]
@@ -6538,17 +6586,20 @@ def splat_cases(torch, zoo, simulator, imaging, psf):
     """S1's inputs, {label: (args, bins, weights_grad, windowed)}: the default
     configuration's own splat (the double-Gauss traced on K1: 21 fields x 3
     channels, 65 x 33 half grid, 65,536 rays), and seeded ones: W = 4 (one-hot
-    weights, d/dw too), an even and a non-square grid, the auto extent
+    weights, d/dw too; also at psf 257, where two thirds of the pair-rays
+    weigh 0), an even and a non-square grid, the auto extent
     (increment=None: d/dgx, d/dgy, d/dsigma), a NaN ray, an inf ray,
     float64, rays no multiple of the chunk, the grids of ``SPLAT_WIDE``, and
     the default configuration's splat at psf_shape (257, 257). ``windowed``:
-    the adjoint's kernel (None: ``psf.splat_bwd_windowed``'s)."""
+    the forward's route (None: ``psf.splat_fwd_windowed``'s)."""
     cases = {"default config (21 x 3 pairs, 65 x 33, 65,536 rays)": (
         default_splat_args(torch, zoo, simulator, imaging, psf), False, False)}
     x, y = seeded_spots(torch, (1, 9, 2048, 4), 1)
     yc = torch.linspace(0.45, 0.55, 9, device="cuda")
     _, args = capture_splat(torch, psf, lambda: psf.sample_psfs(x, y, yc, (65, 65), 4e-3))
     cases["W = 4, one-hot weights"] = (args, False, True)
+    _, args = capture_splat(torch, psf, lambda: psf.sample_psfs(x, y, yc, (257, 257), 1e-3))
+    cases["W = 4, one-hot weights, 257 x 129"] = (args, False, True)
     for label, n_bins, seed in (("even grid 48 x 64", (48, 64), 2),
                                 ("non-square grid 33 x 65", (33, 65), 3)):
         x, y = seeded_spots(torch, (2, 5, 3, 3000), seed)
@@ -6593,18 +6644,18 @@ def bits_gap(torch, got, want):
 
 
 def splat_compare(torch, psf, label, args, bins, weights_grad, seed, windowed=None):
-    """S1 forward and adjoint (by the kernel ``windowed`` names, None: the
-    route's) against their plain versions on the card, the counts set to 0
+    """S1 forward (on the route ``windowed`` names, None: the rule's) and
+    adjoint against their plain versions on the card, the counts set to 0
     before and read after; the cotangent seeded, with the case's
     ``SPLAT_COT_POKES``. Returns {output: (same, gap, n_diff)} and the
     launches (forward, adjoint)."""
     psf.SPLAT_LAUNCHES = psf.SPLAT_BWD_LAUNCHES = 0
-    got = psf._launch_splat(*args)
+    got = psf._launch_splat(*args, windowed=windowed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cot = torch.randn(got.shape, generator=gen, device="cuda", dtype=got.dtype)
     for index, value in SPLAT_COT_POKES.get(label, ()):
         cot[index] = value
-    got_b = psf._launch_splat_bwd(*args, cot, bins, weights_grad, windowed)
+    got_b = psf._launch_splat_bwd(*args, cot, bins, weights_grad)
     torch.cuda.synchronize()
     launches = (psf.SPLAT_LAUNCHES, psf.SPLAT_BWD_LAUNCHES)
     want = psf.splat_reference(*args)
@@ -6616,10 +6667,11 @@ def splat_compare(torch, psf, label, args, bins, weights_grad, seed, windowed=No
             out[name] = bits_gap(torch, a, b)
     x = args[0]
     ny, nx = args[3].shape[1], args[2].shape[1]
-    adjoint = ("windowed" if (psf.splat_bwd_windowed(ny, nx) if windowed is None else windowed)
-               else "resident")
+    if windowed is None:
+        windowed = psf.splat_fwd_windowed(ny, nx)
+    forward = "windowed" if windowed else "dense"
     print(f"S1 {label}: rays {tuple(x.shape)} {str(x.dtype)[6:]}, half grid {ny} x {nx}, "
-          f"weights {args[6] is not None}, {adjoint} adjoint: "
+          f"weights {args[6] is not None}, {forward} forward: "
           + "; ".join(f"{k} bit-identical={v[0]} (max |diff| {v[1]:.3e}, {v[2]} differ)"
                       for k, v in out.items())
           + f"; launches (forward, adjoint) {launches}", flush=True)
@@ -6653,7 +6705,7 @@ def s1_bound(args, backward, bins=False):
 
 
 def splat_windows(torch, psf, args):
-    """The windowed adjoint's windows on ``args`` (``psf.splat_window``, the
+    """S1's windows on ``args`` (``psf.splat_window``, the
     kernel's rule, pair by pair on the card): the mean |Wx|, |Wy| and |Wx| x
     |Wy| over the rays, their sums and the share of empty windows."""
     x, y, gx, gy, sx, sy, w = args
@@ -6840,6 +6892,20 @@ def splat_memory_turns(trees, card):
     return out
 
 
+def s1_fwd_workspace(psf, args):
+    """The bytes of S1 forward's scratch on ``args`` on its route: a double
+    for each (pair, span, bin), and on the windowed route the windows'
+    int32s (``s1_fwd_window_ints``: 16 bytes a ray and a flag a pair, span
+    and band of rows)."""
+    from torchoptics_tpu_torch.ops import _kernels
+    g, C, R = args[0].shape
+    ny, nx = args[3].shape[1], args[2].shape[1]
+    n_spans = -(-R // psf.splat_span(R, g * C))
+    ints = (_kernels.load().s1_fwd_window_ints(g * C, R, n_spans, ny)
+            if psf.splat_fwd_windowed(ny, nx) else 0)
+    return g * C * n_spans * ny * nx * 8 + 4 * ints
+
+
 def default_splat_args(torch, zoo, simulator, imaging, psf, psf_shape=(65, 65)):
     """The default configuration's own splat: the arguments of ``psf.splat``
     in a render of the double-Gauss traced on K1 (21 fields x 3 channels, a
@@ -6850,20 +6916,16 @@ def default_splat_args(torch, zoo, simulator, imaging, psf, psf_shape=(65, 65)):
         return capture_splat(torch, psf, lambda: imaging.sample_optics_model(specs, lens, cfg))[1]
 
 
-def s1_times(torch, psf, args, plain=False, forced=False):
+def s1_times(torch, psf, args, plain=False):
     """S1 forward and adjoint (as the main path calls it: no d/dw, no per-bin
     sums) on ``args``, CUDA events (``auto_ms``), with the PyTorch
-    contractions of ``splat_library`` timed in the same process, with
-    ``forced`` the adjoint's windowed kernel forced (``s1_bwd_windowed``),
-    and with ``plain`` the plain versions. Returns {key: ms}."""
+    contractions of ``splat_library`` timed in the same process, and with
+    ``plain`` the plain versions. Returns {key: ms}."""
     gen = torch.Generator(device="cuda").manual_seed(43)
     half = psf._launch_splat(*args)
     cot = torch.randn(half.shape, generator=gen, device="cuda", dtype=half.dtype)
     ms = {"s1_fwd": auto_ms(torch, lambda: psf._launch_splat(*args)),
           "s1_bwd": auto_ms(torch, lambda: psf._launch_splat_bwd(*args, cot, False, False))}
-    if forced:
-        ms["s1_bwd_windowed"] = auto_ms(torch, lambda: psf._launch_splat_bwd(*args, cot, False,
-                                                                              False, True))
     library = splat_library(torch, args, cot)
     ms.update(s1_fwd_einsum=library["fwd"], s1_bwd_contractions=library["bwd"])
     if plain:
@@ -6871,6 +6933,101 @@ def s1_times(torch, psf, args, plain=False, forced=False):
         ms["plain_bwd"] = auto_ms(torch, lambda: psf.splat_backward_reference(*args, cot),
                                   budget_ms=300.0)
     return ms
+
+
+#: The kernels of S1's forward launch that ``s1_fwd_split`` reads, each a key
+#: of its own (a call launches those of its route: the dense kernel, or the
+#: window and band kernels; then the second pass).
+S1_FWD_KERNELS = ("s1_fwd_window_kernel", "s1_fwd_band_kernel", "s1_fwd_kernel",
+                  "s1_fwd_reduce")
+
+
+def s1_fwd_split(torch, psf, args, calls=10):
+    """Each kernel of S1 forward's launch on ``args``: its device time
+    (torch.profiler) a call, over ``calls`` calls after one. Returns
+    {kernel: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+    psf._launch_splat(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            psf._launch_splat(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        name = next((k for k in S1_FWD_KERNELS if f"{k}<" in ev.key or f"{k}I" in ev.key), None)
+        if name and dev_us:
+            out[name] = out.get(name, 0.0) + dev_us / 1e3 / calls
+    return out
+
+
+#: S1's adjoint's instantiations that ``s1_bwd_variants`` times: {name:
+#: (float64, weights with d/dw and per-bin sums)}: the main path's
+#: (float32, neither), ``full`` (the kernels' FULL instantiation) and
+#: float64.
+S1_BWD_VARIANTS = {"main": (False, False), "full": (False, True), "f64": (True, False)}
+
+
+def s1_bwd_variants(torch, zoo, simulator, imaging, psf, sizes=(65, 129)):
+    """S1's adjoint at the default configuration's splat at each psf size of
+    ``sizes`` (half grids 65 x 33 and 129 x 65) in each instantiation of
+    ``S1_BWD_VARIANTS`` (``full``: seeded uniform weights), on the tree's
+    route, CUDA events (``auto_ms``), keys ``s1_bwd_<size>_<variant>``.
+    Returns {key: ms}."""
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    ms = {}
+    for size in sizes:
+        base = default_splat_args(torch, zoo, simulator, imaging, psf, (size, size))
+        for name, (f64, full) in S1_BWD_VARIANTS.items():
+            args = [None if a is None else (a.double() if f64 else a) for a in base]
+            if full:
+                args[6] = torch.rand(args[0].shape, generator=gen, device="cuda",
+                                     dtype=args[0].dtype)
+            half = psf._launch_splat(*args)
+            cot = torch.randn(half.shape, generator=gen, device="cuda", dtype=half.dtype)
+            ms[f"s1_bwd_{size}_{name}"] = auto_ms(
+                torch, lambda: psf._launch_splat_bwd(*args, cot, full, full))
+            del half, cot
+    return ms
+
+
+#: The psf sizes (half grids n x (n + 1) / 2) at which ``s1_crossover``
+#: times S1 forward's two routes.
+S1_CROSSOVER_SIZES = (65, 73, 81, 89, 97, 129, 257)
+
+
+def s1_crossover(torch, zoo, simulator, imaging, psf, card, turns=4):
+    """S1 forward's dense kernel and windowed kernels, each forced, at the
+    default configuration's splat at each psf size of ``S1_CROSSOVER_SIZES``:
+    CUDA events (``auto_ms``), dense and windowed alternating ``turns``
+    times each (dense first on even turns), both bit for bit with each
+    other. Returns {size: {"bins", "rule", "dense", "windowed"}} (the times
+    of each turn, ms) with the card."""
+    out = {"card": card, "dense_bins": psf.SPLAT_DENSE_BINS}
+    for size in S1_CROSSOVER_SIZES:
+        args = default_splat_args(torch, zoo, simulator, imaging, psf, (size, size))
+        ny, nx = args[3].shape[1], args[2].shape[1]
+        runs = {True: lambda: psf._launch_splat(*args, windowed=True),
+                False: lambda: psf._launch_splat(*args, windowed=False)}
+        same = same_bits(runs[True](), runs[False]())
+        times = {"dense": [], "windowed": []}
+        for turn in range(turns):
+            for windowed in ((False, True) if turn % 2 == 0 else (True, False)):
+                times["windowed" if windowed else "dense"].append(auto_ms(torch, runs[windowed]))
+        row = {"half_grid": [ny, nx], "bins": ny * nx,
+               "rule": "windowed" if psf.splat_fwd_windowed(ny, nx) else "dense",
+               "bit_identical": same, **times}
+        out[str(size)] = row
+        print(f"S1 forward at psf {size} (half grid {ny} x {nx}, {ny * nx} bins): dense "
+              f"{[round(t, 4) for t in times['dense']]} ms, windowed "
+              f"{[round(t, 4) for t in times['windowed']]} ms, the rule's route {row['rule']}, "
+              f"bit-identical {same}; card: {card}", flush=True)
+        check(same, f"S1 forward's two routes bit for bit at psf {size}")
+        del args
+    return out
 
 
 #: The FP64 rate kernel's kinds (csrc/psf_splat_probe.cu) and the
@@ -6934,7 +7091,7 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
                       for k, v in zeros.items()), flush=True)
     check(all(v["nonzero"] == 0 and v["q_max"] == psf.SPLAT_Q_MAX[
         torch.float64 if k.startswith("float64") else torch.float32] for k, v in zeros.items()),
-          "S1's windowed adjoint: every factor above q_max is 0 on the card (every float32 q; "
+          "S1's windows: every factor above q_max is 0 on the card (every float32 q; "
           "of float64 q every double in (q_max, q_max + 1], 2^26 spread, the binades' end "
           "points), q_max as psf.SPLAT_Q_MAX")
     rates = fp64_rates(torch, _kernels.load())
@@ -6975,15 +7132,14 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
           f"adjoint) {launches} (expected (1, 1)), no plain version ran, gradients finite")
 
     args = cases["default config (21 x 3 pairs, 65 x 33, 65,536 rays)"][0]
-    ms = s1_times(torch, psf, args, plain=True, forced=True)
+    ms = s1_times(torch, psf, args, plain=True)
+    splits = {"65": s1_fwd_split(torch, psf, args)}
     library = {"fwd": ms["s1_fwd_einsum"], "bwd": ms["s1_bwd_contractions"]}
     windows = {"65": splat_windows(torch, psf, args)}
     bounds = {"fwd": s1_window_bound(args, windows["65"], False),
               "bwd": s1_window_bound(args, windows["65"]),
               "fwd_dense": s1_bound(args, False), "bwd_dense": s1_bound(args, True)}
-    g, C, R = args[0].shape
-    span = psf.splat_span(R, g * C)
-    workspace = g * C * -(-R // span) * args[3].shape[1] * args[2].shape[1] * 8
+    workspace = s1_fwd_workspace(psf, args)
     for what in ("fwd", "bwd"):
         b, d, t = bounds[what], bounds[f"{what}_dense"], ms[f"s1_{what}"]
         print(f"time S1 {'forward' if what == 'fwd' else 'adjoint'} at the default "
@@ -6993,20 +7149,23 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
               f"{b[3] / 1e6:.2f} MB), {b[0] / t:.4f} of it reached; dense bound {d[0]:.4f} ms "
               f"({d[2]:.3e} operations), {d[0] / t:.3f} of it reached; forward workspace "
               f"{workspace / 1e6:.1f} MB; card: {card}", flush=True)
-    print(f"time S1 adjoint at the default configuration's splat on 65 x 33, the windowed "
-          f"kernel forced: {ms['s1_bwd_windowed']:.4f} ms (the resident kernel "
-          f"{ms['s1_bwd']:.4f} ms), {bounds['bwd'][0] / ms['s1_bwd_windowed']:.4f} of the window "
-          f"bound reached; windows: mean |Wx| {windows['65']['mean_wx']:.3f}, |Wy| "
-          f"{windows['65']['mean_wy']:.3f}, |Wx| x |Wy| {windows['65']['mean_wxy']:.3f} bins a "
-          f"ray, {windows['65']['empty_share']:.4f} of the rays empty; card: {card}", flush=True)
+    print(f"S1's windows at the default configuration's splat on 65 x 33: mean |Wx| "
+          f"{windows['65']['mean_wx']:.3f}, |Wy| {windows['65']['mean_wy']:.3f}, |Wx| x |Wy| "
+          f"{windows['65']['mean_wxy']:.3f} bins a ray, {windows['65']['empty_share']:.4f} of the "
+          f"rays empty; card: {card}", flush=True)
     # The default configuration's splat at psf_shape (257, 257): the forward's
-    # tiles, the windowed adjoint; S1 and the PyTorch contractions by CUDA
-    # events, the plain versions one host-clock run each; the windows' sizes
-    # and the window bound.
+    # tiles; S1 and the PyTorch contractions by CUDA events, the plain
+    # versions one host-clock run each; the windows' sizes and the window
+    # bound.
     args = cases[SPLAT_257][0]
     tiles = (ctypes.c_int * 4)()
-    _kernels.load().s1_fwd_tiles(args[3].shape[1], args[2].shape[1], tiles)
+    _kernels.load().s1_fwd_tiles(args[3].shape[1], args[2].shape[1],
+                                 int(psf.splat_fwd_windowed(args[3].shape[1], args[2].shape[1])),
+                                 tiles)
     ms257 = s1_times(torch, psf, args)
+    splits["257"] = s1_fwd_split(torch, psf, args)
+    print(f"S1 forward's kernels (torch.profiler, ms a call): at 65 x 33 {splits['65']}, at "
+          f"257 x 129 {splits['257']}; card: {card}", flush=True)
     half = psf._launch_splat(*args)
     cot = torch.randn(half.shape, generator=torch.Generator(device="cuda").manual_seed(257),
                       device="cuda")
@@ -7021,9 +7180,10 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
     for what in ("fwd", "bwd"):
         b, d, t = bounds257[what], bounds257[f"{what}_dense"], ms257[f"s1_{what}"]
         lib_ms = ms257["s1_fwd_einsum" if what == "fwd" else "s1_bwd_contractions"]
-        print(f"time S1 {'forward' if what == 'fwd' else 'adjoint (windowed kernel)'} at the "
+        print(f"time S1 {'forward' if what == 'fwd' else 'adjoint'} at the "
               f"default configuration's splat at psf 257 {tuple(args[0].shape)} on 257 x 129 "
-              f"(forward tiles {list(tiles)}: rows, columns, down, across): {t:.4f} ms (plain "
+              f"(forward tiles {list(tiles)}: rows, columns, down, across; forward workspace "
+              f"{s1_fwd_workspace(psf, args) / 1e6:.1f} MB): {t:.4f} ms (plain "
               f"{ms257[f'plain_{what}']:.1f} ms, one run; PyTorch contractions {lib_ms:.4f} ms, "
               f"TF32 off); window bound {b[0]:.4f} ms by {b[1]} ({b[2]:.3e} operations, "
               f"{b[3] / 1e6:.2f} MB), {b[0] / t:.4f} of it reached; dense bound {d[0]:.4f} ms "
@@ -7048,7 +7208,8 @@ def phase_splat(torch, zoo, simulator, imaging, psf, card, profiled=True):
             "bounds": bounds, "workspace_bytes": workspace, "memory": memory, "probe": probe,
             "fp64_tflops": rates, "ms_257": ms257, "bounds_257": bounds257,
             "windows": windows, "exp_zero_probe": zeros,
-            "tiles_257": list(tiles)}
+            "tiles_257": list(tiles), "workspace_bytes_257": s1_fwd_workspace(psf, args),
+            "fwd_kernel_ms": splits}
 
 
 def s1_entries(splat, train_launches, resources=(), train_launches_257=(None, None)):
@@ -7082,16 +7243,13 @@ def s1_entries(splat, train_launches, resources=(), train_launches_257=(None, No
                                          for shape, labels in splat["probe"].items()},
             "fp64_tflops": splat["fp64_tflops"],
             "workspace_bytes": splat["workspace_bytes"] if what == "fwd" else 0,
+            **({"kernel_ms": splat["fwd_kernel_ms"]["65"]} if what == "fwd" else {}),
             "cases_bit_identical": {label: all(v[0] for v in out_.values())
                                     for label, (out_, _) in splat["results"].items()},
             "default_2048_memory": {k: v for k, v in splat["memory"]["2048^2 at psf 65"].items()
                                     if not k.endswith("_groups_ms")},
             "memory_runs": {label: {k: v for k, v in m.items() if not k.endswith("_groups_ms")}
                             for label, m in splat["memory"].items()},
-            **({} if what == "fwd" else {
-                "ms_windowed_forced": splat["ms"]["s1_bwd_windowed"],
-                "bound_share_windowed_forced": splat["bounds"]["bwd"][0]
-                / splat["ms"]["s1_bwd_windowed"]}),
             "half_grid_257": {
                 "launches": train_launches_257[0 if what == "fwd" else 1],
                 "ms": ms257, "plain_ms": splat["ms_257"][f"plain_{what}"],
@@ -7099,21 +7257,27 @@ def s1_entries(splat, train_launches, resources=(), train_launches_257=(None, No
                 "library_ms": splat["ms_257"]["s1_fwd_einsum" if what == "fwd"
                                               else "s1_bwd_contractions"],
                 "windows": splat["windows"]["257"],
-                **({"tiles": splat["tiles_257"]} if what == "fwd" else {
-                    "kernel": "s1_bwd_window_kernel",
+                **({"tiles": splat["tiles_257"],
+                    "workspace_bytes": splat["workspace_bytes_257"],
+                    "kernel_ms": splat["fwd_kernel_ms"]["257"]} if what == "fwd" else {
                     "exp_zero_probe": splat["exp_zero_probe"]})}})
-        # The main path's kernel's registers and spills (float32; the adjoint
-        # without d/dw and the per-bin sums, the windowed one with its centres
-        # in shared memory), from -Xptxas -v.
+        # The main path's kernels' registers, stack and spills (float32; the
+        # forward's dense kernel, which the default grid runs, and its
+        # windowed route's window and band kernels; the adjoint without d/dw
+        # and the per-bin sums, its centres in shared memory), from -Xptxas
+        # -v.
+        names = ({"kernel": "s1_fwd_kernel<float>", "window_kernel": "s1_fwd_window_kernel<float>",
+                  "band_kernel": "s1_fwd_band_kernel<float>"}
+                 if what == "fwd" else {"kernel": "s1_bwd_window_kernel<float,false,true>"})
         for line in resources:
-            for prefix, key in (("", ""), ("window_", "half_grid_257")):
-                if line.startswith(f"s1_{what}_{prefix}kernel<float"
-                                   + (">" if what == "fwd" else ",false,true>" if prefix
-                                      else ",false>")):
-                    entry = out[-1][key] if key else out[-1]
-                    entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
-                    entry["spill_bytes"] = [int(v) for v in re.findall(
-                        r"(\d+) bytes spill (?:stores|loads)", line)]
+            for key, name in names.items():
+                if line.startswith(name):
+                    out[-1][f"{key}_resources"] = {
+                        "registers": int(re.search(r"Used (\d+) registers", line).group(1)),
+                        "stack_bytes": int(re.search(r"(\d+) bytes stack frame", line).group(1))
+                        if "stack frame" in line else 0,
+                        "spill_bytes": [int(v) for v in re.findall(
+                            r"(\d+) bytes spill (?:stores|loads)", line)]}
     return out
 
 
@@ -7211,6 +7375,10 @@ def main():
         return 0
     if "--examples" in sys.argv[1:]:
         phase_examples(torch, card, verbose=True)
+        return 0
+    if "--s1-crossover" in sys.argv[1:]:
+        print(json.dumps({"s1_crossover": s1_crossover(torch, zoo, simulator, imaging, psf,
+                                                       card)}))
         return 0
     if "--splat" in sys.argv[1:]:
         splat = phase_splat(torch, zoo, simulator, imaging, psf, card)

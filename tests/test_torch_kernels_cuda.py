@@ -43,11 +43,12 @@ and a backward launches d/dpatch only when the patches need it;
 S1, the PSF splat, forward and adjoint bit for bit with their plain
 versions on ``chip_smoke.SPLAT_CASES`` (the default configuration's own
 splat included, and half grids up to 513 x 257 above the former ceiling,
-with the windowed adjoint's edge, non-finite, off-grid and wide-window
-cases), one launch each a call, ``compute_psf`` on CUDA tensors launching
-S1 both ways and never a plain version (at a 257 x 257 grid too), S1's
-tensor-core probe (mma.sync .f64 rounding as the fma chain in k order) and
-the windowed adjoint's threshold probe (every factor above q_max is 0);
+with the windows' edge, non-finite, off-grid and wide-window cases, and
+both forward routes forced off their grids), one launch each a call,
+``compute_psf`` on CUDA tensors launching S1 both ways and never a plain
+version (at a 257 x 257 grid too), S1's tensor-core probe (mma.sync .f64
+rounding as the fma chain in k order) and the windows' threshold probe
+(every factor above q_max is 0);
 P2's FFT route cut into sub-patches bit for bit with its plain version;
 ``resize_bilinear``'s matrix products against the CPU; P1's chains:
 sqrt and div bit for bit with their plain versions, fma within one float32
@@ -1776,14 +1777,16 @@ def test_s1_matches_plain_versions(cuda, splat_cases, label):
     is; one launch of each. Among the cases the half grids of
     ``chip_smoke.SPLAT_WIDE`` above the former ceiling of 129 x 65 (130 x
     65, 129 x 66, 257 x 129, 513 x 257, 300 x 7, 7 x 300: the forward's
-    tiles, the windowed adjoint; float32 and float64, with and without
-    weights, per-bin sums and d/dw; at 257 x 129 rays at the windows' edges,
+    windowed kernels or its dense kernel's tiles; float32 and float64, with
+    and without weights, per-bin sums and d/dw; at 257 x 129 rays at the windows' edges,
     an inf and a NaN ray, a NaN and an inf in a cotangent, an inf weight,
-    rays off the grid, sigma of 3 bins, descending centres; 7 x 60000, 9000 x
-    7 and 7 x 30000, past what the windowed adjoint stages in shared memory:
-    the centres read from global memory, the per-bin sums in chunks of
-    bins), the windowed adjoint forced on two grids below it, and the
-    default configuration's splat at psf 257."""
+    rays off the grid, sigma of 3 bins, descending centres, a hot spot,
+    windows ending at the forward's tiles' edges, sigma of the grid; 7 x
+    60000, 9000 x 7 and 7 x 30000, past what the adjoint stages in shared
+    memory: the centres read from global memory, the per-bin sums in chunks
+    of bins), the windowed forward forced at 65 x 33 (the dense kernel's
+    grid) and the dense one at 257 x 129, W = 4's one-hot weights at psf
+    257, and the default configuration's splat at psf 257."""
     from torchoptics_tpu_torch.ops import psf
     args, bins, weights_grad, windowed = splat_cases[label]
     out, launches = chip_smoke.splat_compare(torch, psf, label, args, bins, weights_grad,
@@ -1793,7 +1796,7 @@ def test_s1_matches_plain_versions(cuda, splat_cases, label):
 
 
 def test_s1_window_threshold_probe(cuda):
-    """The windowed adjoint skips the bins whose q exceeds ``SPLAT_Q_MAX``,
+    """S1's windows skip the bins whose q exceeds ``SPLAT_Q_MAX``,
     which is exact only if the card's exp gives 0 for every factor there:
     every float32 q above it and +inf; of float64 q every double in (q_max,
     q_max + 1], 2^26 spread up to +inf and the binades' end points
@@ -1826,13 +1829,17 @@ def test_s1_tensor_core_probe(cuda):
 
 def test_compute_psf_at_psf_257_launches_s1_once_each_way(cuda, monkeypatch):
     """``compute_psf`` on CUDA tensors under grad at a 257 x 257 grid (half
-    grid 257 x 129: the forward's tiles, the windowed adjoint), a fixed pitch:
-    S1 launches once forward and once backward, never a plain version, the
-    gradients finite; the forward's tiles are 144 x 80 bins at most."""
+    grid 257 x 129: the forward's windowed kernels), a fixed pitch: S1
+    launches once forward and once backward, never a plain version, the
+    gradients finite; the windowed forward's tiles are 16 x 16 bins, 17 x 9
+    of them (the dense kernel's would be 144 x 80, 2 x 2)."""
     import ctypes
     from torchoptics_tpu_torch.ops import _kernels, psf
+    assert psf.splat_fwd_windowed(257, 129)
     tiles = (ctypes.c_int * 4)()
-    _kernels.load().s1_fwd_tiles(257, 129, tiles)
+    _kernels.load().s1_fwd_tiles(257, 129, 1, tiles)
+    assert list(tiles) == [16, 16, 17, 9]
+    _kernels.load().s1_fwd_tiles(257, 129, 0, tiles)
     assert list(tiles) == [144, 80, 2, 2]
 
     def refuse(*_):
@@ -1951,7 +1958,7 @@ def test_compute_psf_launches_s1_and_no_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert (psf.SPLAT_LAUNCHES, psf.SPLAT_BWD_LAUNCHES) == (1, 1)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
-    wide = psf.compute_psf(x.detach(), y.detach(), (2 * psf.SPLAT_RESIDENT_NX + 2, 9), 1e-3)[3]
+    wide = psf.compute_psf(x.detach(), y.detach(), (132, 9), 1e-3)[3]
     assert wide.shape == (8, 3, 9, 132) and bool(torch.isfinite(wide).all())
     with pytest.raises(ValueError, match="contiguous"):
         psf._launch_splat(x.detach(), y.detach().double(), *[torch.zeros((2, n), device=cuda)

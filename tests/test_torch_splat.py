@@ -13,6 +13,10 @@ centres and widths) against ``jax.grad``, within 1e-4 of each gradient's
 largest magnitude in float32 and 1e-12 in float64 (measured: 3.8e-7 at a
 fixed pitch, 1.5e-5 with the auto extent; 1.2e-14 in float64);
 ``_Splat`` under ``torch.autograd.gradcheck`` in float64, every input.
+The kernels' windows against the plain versions, bit for bit: the
+adjoint's and the forward's arithmetic summed over each ray's windows
+alone (``splat_window``, ``splat_over_windows``), the forward's route, and
+the forward's branch-free float32 quotient.
 """
 
 import jax
@@ -130,8 +134,8 @@ def test_splat_adjoint_matches_jax_grad(n_bins, increment, y_target, dtype):
 
 @pytest.mark.parametrize("n_bins,weighted", [((257, 257), False), ((131, 260), True)])
 def test_splat_above_the_resident_grid_matches_jax(n_bins, weighted):
-    """PSF grids whose half grids (257 x 129, 260 x 66) are above the
-    adjoint's resident kernel and S1's former ceiling (129 x 65), on 2 grids
+    """PSF grids whose half grids (257 x 129, 260 x 66) are above S1's
+    former ceiling (129 x 65) and its forward's dense grids, on 2 grids
     x 3 channels x 80 rays, one case with random weights: ``compute_psf``'s
     outputs and the gradients of a seeded weighting of the kernels with
     respect to x, y and y_target, through the plain splat and its adjoint,
@@ -153,7 +157,7 @@ def test_splat_above_the_resident_grid_matches_jax(n_bins, weighted):
     got = psf.compute_psf(*leaves[:2], y_target=leaves[2],
                           weights=None if w is None else torch.tensor(w), **kw)
     assert got[3].shape == (2, 3, n_bins[1], n_bins[0])
-    assert psf.splat_bwd_windowed(n_bins[1], n_bins[0] // 2 + 1)
+    assert psf.splat_fwd_windowed(n_bins[1], n_bins[0] // 2 + 1)
     _assert_close(got, want)
     got_g = torch.autograd.grad((got[3] * torch.tensor(weight)).sum(), leaves)
     for g, wg in zip(got_g, want_g):
@@ -188,10 +192,10 @@ def test_splat_refuses_other_devices_and_grids():
     assert psf.splat_argument_error((1, 1, 4), (1, 0), (1, 3))
     assert psf.splat_argument_error((1, 1, 4), (2, 2), (1, 3))
     # No ceiling on the grid: a 513 x 513 PSF's half grid is taken, and its
-    # adjoint runs the windowed kernel.
+    # forward runs the windowed kernels; the default 65 x 33 the dense one.
     assert psf.splat_argument_error((1, 1, 4), (1, 257), (1, 513)) is None
-    assert psf.splat_bwd_windowed(513, 257) and psf.splat_bwd_windowed(130, 65)
-    assert not psf.splat_bwd_windowed(psf.SPLAT_RESIDENT_NY, psf.SPLAT_RESIDENT_NX)
+    assert psf.splat_fwd_windowed(513, 257) and psf.splat_fwd_windowed(130, 65)
+    assert not psf.splat_fwd_windowed(65, 33)
 
 
 def test_plain_splat_order_is_the_documented_one():
@@ -398,3 +402,108 @@ def test_splat_adjoint_over_windows_is_the_plain_version(dtype):
             want = [float(torch.tensor(v, dtype=torch.float64).to(dtype)) for v in want]
             assert np.array_equal(np.array(got).view(np.int64), np.array(want).view(np.int64))
     assert empty >= 3 and np.signbit(float(dx[0, 0, 0]))
+
+
+@pytest.mark.parametrize("ny,nx,windowed", [
+    (65, 33, False), (5, 3, False), (33, 65, False), (1, psf.SPLAT_DENSE_BINS, False),
+    (psf.SPLAT_DENSE_BINS, 1, False), (1, psf.SPLAT_DENSE_BINS + 1, True), (129, 65, True),
+    (257, 129, True), (7, 60000, True)])
+def test_splat_forward_route(ny, nx, windowed):
+    """S1's forward's route (``splat_fwd_windowed``): the dense kernel on
+    half grids of at most ``SPLAT_DENSE_BINS`` bins (the default 65 x 33
+    among them), the windowed kernels above, whatever the grid's aspect."""
+    assert psf.splat_fwd_windowed(ny, nx) == windowed
+
+
+def _fwd_window_case(case, dtype):
+    """S1's inputs for the windowed forward's twin: 2 grids x 2 channels x 70
+    rays on a 33 x 17 half grid at a 4e-3 pitch, sigma half a bin, seeded
+    rays over the grid, with weights. ``case``: "edges" puts every ray a
+    window's reach from a random bin each way, moved by -3 to 3 of the
+    type's steps; "non-finite" a NaN x, an inf y and an inf weight (each in
+    its own pair); "zero weights" a third of the weights 0 (the W = 4
+    one-hot case) and a third of the rays off the grid; "descending" the
+    second grid's x centres reversed; "sigma 3 bins" sigma at 3 bins."""
+    rng = np.random.default_rng(47)
+    g, C, R, ny, nx, pitch = 2, 2, 70, 33, 17, 4e-3
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
+    gx = np.tile(np.arange(nx) * pitch, (g, 1))
+    gy = np.tile((np.arange(ny) + 0.5 - ny / 2) * pitch, (g, 1))
+    x = rng.normal(0.0, nx * pitch / 3, (g, C, R))
+    y = rng.normal(0.0, ny * pitch / 4, (g, C, R))
+    w = rng.uniform(0.0, 1.0, (g, C, R))
+    sigma = np.full(g, 3 * pitch if case == "sigma 3 bins" else pitch / 2)
+    if case == "edges":
+        reach = np.sqrt(psf.SPLAT_Q_MAX[dtype] * (pitch / 2) ** 2)
+        eps = float(torch.finfo(dtype).eps)
+        for v, c in ((x, gx), (y, gy)):
+            b = rng.integers(0, c.shape[1], v.shape)
+            v[...] = c[0][b] + rng.choice([-1.0, 1.0], v.shape) * reach * (
+                1.0 + rng.integers(-3, 4, v.shape) * eps)
+    elif case == "non-finite":
+        x[0, 0, 5], y[0, 1, 9], w[1, 0, 3] = np.nan, np.inf, np.inf
+    elif case == "zero weights":
+        w[..., ::3] = 0.0
+        x[..., 1::3] += 1.0
+    elif case == "descending":
+        gx[1] = gx[1, ::-1]
+    return t(x), t(y), t(gx), t(gy), t(sigma), t(sigma), t(w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["edges", "non-finite", "zero weights", "descending",
+                                  "sigma 3 bins"])
+def test_splat_over_windows_is_the_plain_version(case, dtype):
+    """The windowed forward's arithmetic (``splat_over_windows``: each bin
+    summed only over the rays whose windows hold it, span by span in ray
+    order; non-finite rays, weights and unruled grids over the whole grid;
+    zero weights and empty windows nowhere) gives ``splat_reference``'s bits
+    on rays at the windows' edges, NaN and inf rays and an inf weight, zero
+    weights with rays off the grid, descending centres and sigma of 3 bins;
+    spans of 32 rays (the last 6 long)."""
+    args = _fwd_window_case(case, dtype)
+    assert psf.splat_span(70, 4) == 32
+    got = psf.splat_over_windows(*args)
+    want = psf.splat_reference(*args)
+    assert got.dtype == dtype and bool(torch.isfinite(want).any())
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    assert bool(same.all()), int((~same).sum())
+    if case == "non-finite":
+        # The NaN ray's pair is NaN everywhere, the inf weight's where a
+        # factor is 0; the inf ray's factors are 0.
+        assert bool(torch.isnan(want[0, 0]).all()) and bool(torch.isnan(want[1, 0]).any())
+        assert not bool(torch.isnan(want[0, 1]).any())
+    if case == "edges":
+        # Some bins sit just outside a window (q just above q_max), their
+        # factor 0 nonetheless.
+        x, gx, s2 = args[0], args[2], args[4] * args[4]
+        d = x[..., None] - gx[:, None, None, :]
+        q = (d * d) / s2[:, None, None, None]
+        assert bool(((q > psf.SPLAT_Q_MAX[dtype]) & (q < psf.SPLAT_Q_MAX[dtype] * 1.001)).any())
+
+
+@pytest.mark.parametrize("spread", ["the splat's range", "every exponent"])
+def test_float32_quotient_from_a_double_reciprocal(spread):
+    """S1 forward's float32 factor takes q = (d * d) / s2 as
+    RN_float((double)(d * d) * RN_double(1 / (double)s2)) (``csrc/
+    psf_splat.cuh`` ``factor_rcp``, free of the IEEE division's branch): the
+    same float as the IEEE float32 division, bit for bit, on 2^21 seeded
+    pairs (d and sigma near the splat's scales, or any exponent from
+    subnormal to huge) and on 0, subnormals, inf and NaN in either place."""
+    rng = np.random.default_rng(53)
+    n = 1 << 21
+    if spread == "every exponent":
+        a = (rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-149, 128, n)).astype(np.float32)
+        b = (rng.uniform(1.0, 2.0, n) * 2.0 ** rng.integers(-149, 128, n)).astype(np.float32)
+    else:
+        d = rng.normal(0.0, 0.05, n).astype(np.float32)
+        a = d * d
+        b = np.square(rng.uniform(1e-4, 1e-2, n).astype(np.float32))
+    special = np.array([0.0, 1e-45, 3e-39, 1.0, 3e38, np.inf, np.nan], dtype=np.float32)
+    a = np.concatenate([a, np.repeat(special, special.size)])
+    b = np.concatenate([b, np.tile(special, special.size)])
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        want = a / b
+        got = (a.astype(np.float64) * (1.0 / b.astype(np.float64))).astype(np.float32)
+    same = (got.view(np.int32) == want.view(np.int32)) | (np.isnan(got) & np.isnan(want))
+    assert bool(same.all()), int((~same).sum())

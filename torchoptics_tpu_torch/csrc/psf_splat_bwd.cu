@@ -5,7 +5,7 @@
 // No Pallas kernel is replaced: XLA differentiates the JAX package's fused
 // broadcast (torchoptics_tpu/ops/psf.py:75-86). The forward sums ex[r, ix] *
 // ey[r, iy] * w[r] over the rays r of each (grid, channel) pair. Per ray, in
-// double, with ex and ey recomputed as the forward takes them (s1::gauss4;
+// double, with ex and ey recomputed as the forward takes them (s1::factor;
 // ey without the weight):
 //
 //   A[ix] = sum_iy G[iy, ix] ey[iy],   B[iy] = sum_ix G[iy, ix] ex[ix]
@@ -24,45 +24,12 @@
 // PyTorch version is ops/psf.py:splat_backward_reference; the two agree bit
 // for bit.
 //
-// What bounds it on an H100, at the default configuration (63 pairs, a 65 x
-// 33 half grid, 65,536 rays): A and B are 2 x 8.86e9 products and sums,
-// with the factors and the terms 4.03e10 operations, 0.60 ms at 67
-// TFLOP/s; the bytes (x, y, the cotangent read once, d/dx and d/dy written
-// once) take 0.02 ms. Operations bound it; here the products outweigh the
-// factors (5,600 multiply-adds a ray after padding, against the same 98
-// factors as the forward's), and the fragments they read from shared
-// memory come close to its bandwidth.
-//
-// Design, per (pair, span) block, a step of `kr` rays (64 where the layout
-// fits), warp-specialised as the forward:
-// - The cotangent staged once as doubles, in one layout (G[iy][ix], zero
-//   padded to whole k-steps and whole groups of tiles, 28 KB at 65 x 33): A
-//   reads it as B-fragments G[k][n], B as G^T, both free of bank conflicts
-//   at an odd-multiple-of-4 pitch. One block an SM (~210 KB with a ring of
-//   3 stages), 12 consumer and 8 producer warps.
-// - Products on the FP64 tensor cores for float32 inputs (mma.sync m16n8k4,
-//   s1::mma_chain; M = 16 rays, N = 8 bins, K = the other axis's bins in
-//   index order, zero padding past n_y and n_x changing no sum), separate
-//   double multiplies and adds for float64. A task is one product's 16 rays
-//   by NW column tiles: per 16 rays one A task (5 tiles x 17 k-steps) and
-//   two B tasks (5 tiles x 9 k-steps each, the last tile zero) at the
-//   default grid, dealt so that each SM sub-partition gets one of each kind.
-// - Fused epilogue: each thread forms its tiles' terms tx (or ty and B ey)
-//   in registers and sums its own bins in index order, branch-free; the
-//   partials go to shared memory, one per (ray, group). After one consumer
-//   barrier a ray's d/dx adds 4 group partials, d/dy 8 (at most 8 and 16),
-//   one thread a ray; with `bins`, one thread a bin carries the span's
-//   per-bin sums. d/dw and the per-bin sums live in their own instantiation
-//   (FULL), so the main path's kernel carries none of their code.
-// - Producer warps compute the next stage's factors (s1::stage_factors)
-//   while the consumers run this one; named barriers: two a step for the
-//   consumers (the stage's FULL, their own), none for the whole block.
-//
-// That resident kernel holds the whole cotangent and a ray's factors of
-// every bin in shared memory, which caps its grid (ops/psf.py
-// splat_bwd_windowed: half grids up to 129 x 65 take it). Larger grids take
-// the windowed kernel (s1_bwd_window_kernel), which sums each ray only over
-// the bins its factors reach and gives the same bits:
+// One kernel gives those bits on every grid and call (s1_bwd_window_kernel,
+// below): it sums each ray only over the bins its factors reach. A kernel
+// holding the whole cotangent and every bin's factors in shared memory is
+// 2.5x slower on the main path's call at the default 65 x 33 grid and
+// faster only on calls no step makes there (d/dw or the per-bin sums, 4 %;
+// float64, 14 %; PERF.md), so there is no second kernel.
 //
 // Why a window is exact. compute_psf sets sigma to half a bin, and a factor
 // exp_t(-q / 2), q = ((v - c)^2) / sigma^2, is exactly +0 once q > q_max
@@ -125,7 +92,8 @@
 // HBM3 at 700 W: 0.89 ms, against 18.0 ms for its two contractions by
 // torch.einsum; latency holds it: 256 threads a block (no spills at 255
 // registers, half the warps) took 1.29x as long, the cotangent read through
-// L1 instead of staged 1.18x, the two sides apart for every ray 1.53x.
+// L1 instead of staged 1.18x, the two sides apart for every ray 1.53x. At
+// the default 65 x 33 grid it takes 0.81-0.83 ms, and 0.86 at 129 x 65.
 
 #include <cuda_runtime.h>
 
@@ -135,259 +103,9 @@
 
 namespace {
 
-using s1::NW;
-
-constexpr int PRODUCER_WARPS = 8;
-constexpr int MAX_CONSUMERS = 12;
-constexpr int MAX_THREADS = (MAX_CONSUMERS + PRODUCER_WARPS) * 32;
-
-// A block's shared memory, in doubles, for an ny x nx half grid at kr rays
-// a step and `stages` stages.
-struct BwdLayout {
-  int ka, kb, ja, jb, gxn, gyn, ppx, ppy, pg, g_rows, pe, px, tasks, consumers;
-  size_t gxs, gys, tcen, sums, part, part_size, tx, ty, stage0, stage, total;
-
-  __host__ __device__ BwdLayout(int ny, int nx, int kr, int stages, bool with_dw, bool bins) {
-    ka = s1::cdiv(ny, 4);           // A's k-steps (over iy)
-    kb = s1::cdiv(nx, 4);           // B's k-steps (over ix)
-    ja = s1::cdiv(nx, 8 * NW);      // A's groups of NW column tiles (ix)
-    jb = s1::cdiv(ny, 8 * NW);      // B's (iy)
-    gxn = 4 * ja;  // a ray's groups of x bins, and of y bins
-    gyn = 4 * jb;
-    ppx = gxn | 1;
-    ppy = gyn | 1;
-    // G padded with zeros to whole groups of tiles and whole k-steps.
-    pg = s1::pitch(4 * kb > 8 * NW * ja ? 4 * kb : 8 * NW * ja);
-    g_rows = 4 * ka > 8 * NW * jb ? 4 * ka : 8 * NW * jb;
-    pe = s1::pitch(4 * ka);
-    px = s1::pitch(4 * kb);
-    tasks = (kr / 16) * (ja + jb);
-    consumers = tasks < MAX_CONSUMERS ? tasks : MAX_CONSUMERS;
-    gys = (size_t)g_rows * pg;                    // the grid's centres in double, gy's
-    gxs = gys + ny;                               // first, and in the inputs' type
-    tcen = gxs + nx;
-    sums = tcen + ny + nx;                        // the span's bin sums: gx, sx, gy, sy
-    part = sums + (bins ? 2 * (size_t)(nx + ny) : 0);
-    part_size = (size_t)kr * (ppx + ppy + (with_dw ? ppy : 0));  // a step's partials
-    tx = part + 2 * part_size;                    // bins: tx[2][kr][nx], ty[2][kr][ny]
-    ty = tx + (bins ? 2 * (size_t)kr * nx : 0);
-    stage0 = ty + (bins ? 2 * (size_t)kr * ny : 0);
-    stage = (size_t)kr * (pe + px + 3);           // ey[kr][pe], ex[kr][px], x, y, w
-    total = stage0 + stages * stage;
-  }
-
-  size_t bytes() const { return sizeof(double) * total; }
-};
-
-// The most rays a step (64, 32 or 16) and then the most stages whose layout
-// fits a block's shared memory; {0, 0} if none does.
-void step_plan(int ny, int nx, bool with_dw, bool bins, int& kr, int& stages) {
-  for (kr = 64; kr >= 16; kr /= 2)
-    for (stages = s1::MAX_STAGES; stages >= 1; --stages)
-      if (BwdLayout(ny, nx, kr, stages, with_dw, bins).bytes() <= s1::SMEM_MAX) return;
-  kr = stages = 0;
-}
-
-// Block b = pair * n_spans + span. dw null: no d/dw; sums null: no bins.
-// FULL: either is asked for (the main path asks for neither).
-template <typename T, bool FULL>
-__global__ void __launch_bounds__(MAX_THREADS, 1) s1_bwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ gx,
-    const T* __restrict__ gy, const T* __restrict__ sx, const T* __restrict__ sy,
-    const T* __restrict__ w, const T* __restrict__ cot, T* __restrict__ dx, T* __restrict__ dy,
-    T* __restrict__ dw, double* __restrict__ sums, int n_ch, int n_rays, int ny, int nx,
-    int span, int n_spans, int kr, int n_stages) {
-  extern __shared__ double smem[];
-  const bool with_dw = FULL && dw != nullptr;
-  const bool bins = FULL && sums != nullptr;
-  const BwdLayout L(ny, nx, kr, n_stages, with_dw, bins);
-  double* sG = smem;
-  double* sGX = smem + L.gxs;
-  double* sGY = smem + L.gys;
-  double* sSum = smem + L.sums;
-  const int pair = blockIdx.x / n_spans;
-  const int g = pair / n_ch;
-  const int r0 = (blockIdx.x - pair * n_spans) * span;
-  const int r_end = min(r0 + span, n_rays);
-  const int n_steps = s1::cdiv(r_end - r0, kr);
-  const size_t base = (size_t)pair * n_rays;
-  const T* gxp = gx + (size_t)g * nx;
-  const T* gyp = gy + (size_t)g * ny;
-  const int tid = threadIdx.x;
-  const int threads = blockDim.x;
-
-  const T* cp = cot + (size_t)pair * ny * nx;
-  for (int k = tid; k < L.g_rows * L.pg; k += threads) {
-    const int iy = k / L.pg, ix = k - iy * L.pg;
-    sG[k] = iy < ny && ix < nx ? (double)cp[iy * nx + ix] : 0.0;
-  }
-  T* tcen = reinterpret_cast<T*>(smem + L.tcen);
-  for (int k = tid; k < ny + nx; k += threads) {
-    tcen[k] = k < ny ? gyp[k] : gxp[k - ny];
-    sGY[k] = (double)tcen[k];  // sGX = sGY + ny
-  }
-  if (bins)
-    for (int k = tid; k < 2 * (nx + ny); k += threads) sSum[k] = 0.0;
-  // The stages zeroed once: their padding columns stay zero.
-  for (size_t k = L.stage0 + tid; k < L.total; k += threads) smem[k] = 0.0;
-  __syncthreads();
-
-  const int warp = tid >> 5;
-  if (warp >= L.consumers) {
-    const T s2x = sx[g] * sx[g];
-    const T s2y = sy[g] * sy[g];
-    const s1::ProducerMap map(tid - 32 * L.consumers, threads - 32 * L.consumers, kr);
-    const T* xp = x + base;
-    const T* yp = y + base;
-    const T* wp = w ? w + base : nullptr;
-    s1::Quad<T> quad, next;
-    quad.load(xp, yp, wp, r0 + 4 * map.rg, r_end);
-    for (int i = 0; i < n_steps; ++i) {
-      const int s = i % n_stages;
-      if (i + 1 < n_steps) next.load(xp, yp, wp, r0 + (i + 1) * kr + 4 * map.rg, r_end);
-      if (i >= n_stages) s1::bar_sync(s1::BAR_EMPTY + s, threads);
-      double* E = smem + L.stage0 + s * L.stage;
-      double* X = E + (size_t)kr * L.pe;
-      double* XR = X + (size_t)kr * L.px;
-      s1::stage_factors<T>(map, quad, tcen, tcen + ny, s2x, s2y, ny, nx, false, E, L.pe, X,
-                           L.px);
-      if (map.q == 0) {
-        // The group's rays in double for the terms: x, y, w (1 without weights).
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool ok = j < quad.n_valid;
-          XR[4 * map.rg + j] = ok ? (double)quad.x[j] : 0.0;
-          XR[kr + 4 * map.rg + j] = ok ? (double)quad.y[j] : 0.0;
-          XR[2 * kr + 4 * map.rg + j] = ok ? (double)quad.w[j] : 1.0;
-        }
-      }
-      s1::bar_arrive(s1::BAR_FULL + s, threads);
-      quad = next;
-    }
-    return;
-  }
-
-  const double sxd = (double)sx[g], syd = (double)sy[g];
-  const double inv2x = 1.0 / (sxd * sxd), inv2y = 1.0 / (syd * syd);
-  const double inv1x = 1.0 / sxd, inv1y = 1.0 / syd;
-  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-  const int n_cons = 32 * L.consumers;
-  for (int i = 0; i < n_steps; ++i) {
-    const int s = i % n_stages, par = i & 1;
-    const int c0 = r0 + i * kr;
-    const int n_valid = min(kr, r_end - c0);
-    s1::bar_sync(s1::BAR_FULL + s, threads);
-    const double* E = smem + L.stage0 + s * L.stage;
-    const double* X = E + (size_t)kr * L.pe;
-    const double* XR = X + (size_t)kr * L.px;
-    const double* YR = XR + kr;
-    const double* WR = YR + kr;
-    double* PX = smem + L.part + par * L.part_size;
-    double* PY = PX + (size_t)kr * L.ppx;
-    double* PW = PY + (size_t)kr * L.ppy;
-    double* TX = smem + L.tx + (size_t)par * kr * nx;
-    double* TY = smem + L.ty + (size_t)par * kr * ny;
-    for (int task = warp; task < L.tasks; task += L.consumers) {
-      const int mg = task / (L.ja + L.jb), kind = task - mg * (L.ja + L.jb);
-      const bool is_a = kind < L.ja;
-      const int j = is_a ? kind : kind - L.ja;
-      const int ray0 = 16 * mg;
-      // acc[n] = rays ray0 + gid (+ 8) by bins 8 (NW j + n) + 2 tig (+ 1).
-      double acc[NW][4];
-#pragma unroll
-      for (int n = 0; n < NW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0;
-      if (is_a)  // A(m, k) = ey[ray m][iy k], B(k, n) = G[iy k][ix n]
-        s1::mma_chain<T>(acc, E + ray0 * L.pe, L.pe, 1, sG + 8 * NW * j, L.pg, 1,
-                         sizeof(T) == 4 ? 4 * L.ka : ny, lane);
-      else       // A(m, k) = ex[ray m][ix k], B(k, n) = G[iy n][ix k]
-        s1::mma_chain<T>(acc, X + ray0 * L.px, L.px, 1, sG + 8 * NW * j * L.pg, 1, L.pg,
-                         sizeof(T) == 4 ? 4 * L.kb : nx, lane);
-      // The terms, ((acc f) q) w, f the factor and q = (v - centre) / sigma^2
-      // (w = 1 without weights: exact), and this thread's group sums over its
-      // bins in index order. A bin past the grid adds 0.0, which changes no
-      // sum (a sum from 0.0 is never -0.0).
-      const int nb = is_a ? nx : ny;
-      const double* cen = is_a ? sGX : sGY;
-      const double inv2 = is_a ? inv2x : inv2y;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int ray = ray0 + 8 * h + gid;
-        const double wd = WR[ray];
-        const double vd = (is_a ? XR : YR)[ray];
-        const double* f = is_a ? X + ray * L.px : E + ray * L.pe;
-        double sum = 0.0, sum_w = 0.0;
-#pragma unroll
-        for (int n = 0; n < NW; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int b = 8 * (NW * j + n) + 2 * tig + e;
-            const bool ok = b < nb;
-            const int bc = ok ? b : 0;
-            const double prod = acc[n][2 * h + e] * f[bc];
-            const double t = (prod * ((vd - cen[bc]) * inv2)) * wd;
-            sum = sum + (ok ? t : 0.0);
-            if constexpr (FULL) {
-              sum_w = sum_w + (ok ? prod : 0.0);
-              if (bins && ok) (is_a ? TX + ray * nx : TY + ray * ny)[b] = t;
-            }
-          }
-        (is_a ? PX + ray * L.ppx : PY + ray * L.ppy)[4 * j + tig] = sum;
-        if constexpr (FULL)
-          if (with_dw && !is_a) PW[ray * L.ppy + 4 * j + tig] = sum_w;
-      }
-    }
-    s1::bar_sync(s1::BAR_CONSUMERS, n_cons);
-    // One thread a ray: d/dx, or d/dy and d/dw, from the group partials in
-    // order; with bins, one thread a bin.
-    const int n_fin = 2 * kr + (bins ? nx + ny : 0);
-    for (int t = tid; t < n_fin; t += n_cons) {
-      if (t < 2 * kr) {
-        const bool is_x = t < kr;
-        const int r = is_x ? t : t - kr;
-        if (r < n_valid) {
-          const int n_g = is_x ? L.gxn : L.gyn;
-          const double* src = is_x ? PX + r * L.ppx : PY + r * L.ppy;
-          double s_ = 0.0;
-          for (int q = 0; q < n_g; ++q) s_ = s_ + src[q];
-          (is_x ? dx : dy)[base + c0 + r] = (T)(-s_);
-          if constexpr (FULL)
-            if (with_dw && !is_x) {
-              double sw = 0.0;
-              for (int q = 0; q < n_g; ++q) sw = sw + PW[r * L.ppy + q];
-              dw[base + c0 + r] = (T)sw;
-            }
-        }
-      } else if (!FULL) {
-      } else if (t < 2 * kr + nx) {
-        const int ix = t - 2 * kr;
-        double a = sSum[ix], v = sSum[nx + ix];
-        for (int r = 0; r < n_valid; ++r) {
-          const double tt = TX[r * nx + ix];
-          a = a + tt;
-          v = v + tt * ((XR[r] - sGX[ix]) * inv1x);
-        }
-        sSum[ix] = a;
-        sSum[nx + ix] = v;
-      } else {
-        const int iy = t - 2 * kr - nx;
-        double a = sSum[2 * nx + iy], v = sSum[2 * nx + ny + iy];
-        for (int r = 0; r < n_valid; ++r) {
-          const double tt = TY[r * ny + iy];
-          a = a + tt;
-          v = v + tt * ((YR[r] - sGY[iy]) * inv1y);
-        }
-        sSum[2 * nx + iy] = a;
-        sSum[2 * nx + ny + iy] = v;
-      }
-    }
-    if (i + n_stages < n_steps) s1::bar_arrive(s1::BAR_EMPTY + s, threads);
-  }
-  if (FULL && bins) {
-    s1::bar_sync(s1::BAR_CONSUMERS, n_cons);
-    double* dst = sums + (size_t)blockIdx.x * 2 * (nx + ny);
-    for (int k = tid; k < 2 * (nx + ny); k += n_cons) dst[k] = sSum[k];
-  }
-}
+using s1::Axis;
+using s1::factor;
+using s1::window;
 
 // The windowed kernel's shape: one ray a thread, W_THREADS threads a block
 // (at least W_MIN_THREADS with bins); a frame is WF consecutive bins of one
@@ -441,62 +159,6 @@ struct Grouped {
     return total;
   }
 };
-
-// One axis of a block's grid: the centres (shared memory), their count,
-// the type's sigma^2 and the double 1 / sigma^2, 1 / sigma of the terms;
-// c0, inv_h and reach: the guess of a window from the spacing of the ends
-// (windows are taken only on a ruled grid: the kernel's checks).
-template <typename T>
-struct Axis {
-  const T* c;
-  int n;
-  T s2;
-  double inv2, inv1;
-  float c0, inv_h, reach;
-};
-
-// The window [lo, hi] of value v on a ruled axis: every bin outside it has
-// q > q_max (so a factor of +0). A guess from the spacing, confirmed at the
-// bins just outside: if c[lo - 1] <= v, every bin left of lo - 1 lies
-// farther (q is monotone in the distance, the centres ascending), so q >
-// q_max there confirms the left side; the right alike. A side whose guess
-// fails is found by bisection of the same predicates.
-template <typename T>
-__device__ inline void window(const Axis<T>& a, T v, int& lo, int& hi) {
-  const T qm = s1::q_max<T>();
-  const float u = ((float)v - a.c0) * a.inv_h;
-  lo = (int)fminf(fmaxf(ceilf(u - a.reach), 0.0f), (float)a.n);
-  hi = (int)fminf(fmaxf(floorf(u + a.reach), -1.0f), (float)(a.n - 1));
-  // Left: the first bin b with c[b] > v or q(b) <= q_max (false, then true).
-  if (lo > 0 && !(a.c[lo - 1] <= v && s1::q_of(v, a.c[lo - 1], a.s2) > qm)) {
-    int b0 = 0, b1 = a.n;
-    while (b0 < b1) {
-      const int m = (b0 + b1) >> 1;
-      if (a.c[m] > v || s1::q_of(v, a.c[m], a.s2) <= qm)
-        b1 = m;
-      else
-        b0 = m + 1;
-    }
-    lo = b0;
-  }
-  // Right: the first bin b with c[b] > v and q(b) > q_max, less one.
-  if (hi < a.n - 1 && !(a.c[hi + 1] >= v && s1::q_of(v, a.c[hi + 1], a.s2) > qm)) {
-    int b0 = 0, b1 = a.n;
-    while (b0 < b1) {
-      const int m = (b0 + b1) >> 1;
-      if (a.c[m] > v && s1::q_of(v, a.c[m], a.s2) > qm)
-        b1 = m;
-      else
-        b0 = m + 1;
-    }
-    hi = b0 - 1;
-  }
-}
-
-template <typename T>
-__device__ inline double factor(T v, T c, T s2) {
-  return (double)s1::factor_of_q(s1::q_of(v, c, s2));
-}
 
 // A ray's row of the bins' term tile: bins [lo, hi) of one axis, bin b at
 // row[b - lo]; row null: no bins.
@@ -630,43 +292,19 @@ __global__ void __launch_bounds__(W_THREADS, 1) s1_bwd_window_kernel(
     for (size_t k = tid; k < n_zero; k += kr) zero[k] = 0.0;
   }
   __syncthreads();
-  // The centres finite and ascending, each axis.
-  bool asc_y = true, asc_x = true;
-  for (int k = tid; k < ny + nx; k += kr) {
-    const bool is_y = k < ny;
-    const T* c = is_y ? cy : cx;
-    const int b = is_y ? k : k - ny;
-    const int n = is_y ? ny : nx;
-    const bool ok = isfinite(c[b]) && (b + 1 == n || c[b] <= c[b + 1]);
-    asc_y = asc_y && (ok || !is_y);
-    asc_x = asc_x && (ok || is_y);
-  }
   fine = __syncthreads_and(fine);
-  asc_y = __syncthreads_and(asc_y);
-  asc_x = __syncthreads_and(asc_x);
-
-  auto make_axis = [&](const T* c, int n, T sigma) {
-    Axis<T> a;
-    a.c = c;
-    a.n = n;
-    a.s2 = sigma * sigma;
-    const double sd = (double)sigma;
-    a.inv2 = 1.0 / (sd * sd);
-    a.inv1 = 1.0 / sd;
-    a.c0 = (float)c[0];
-    a.inv_h = n > 1 ? (float)(n - 1) / ((float)c[n - 1] - a.c0) : 0.0f;
-    a.reach = (float)sqrt((double)s1::q_max<T>() * (double)a.s2) * a.inv_h * 1.0001f;
-    return a;
-  };
-  const Axis<T> ay = make_axis(cy, ny, sy[g]);
-  const Axis<T> ax = make_axis(cx, nx, sx[g]);
+  // The centres finite and ascending, each axis.
+  const bool asc =
+      __syncthreads_and(s1::ascending(cy, ny, tid, kr) && s1::ascending(cx, nx, tid, kr));
+  const Axis<T> ay = s1::make_axis(cy, ny, sy[g]);
+  const Axis<T> ax = s1::make_axis(cx, nx, sx[g]);
   // Windows need a finite, positive sigma^2 and finite 1 / sigma^2, 1 / sigma
   // (so that q and the terms' factors are never NaN), ascending centres and
   // a fine cotangent; else every ray takes the whole grid.
   auto sig_ok = [](const Axis<T>& a) {
-    return isfinite(a.s2) && a.s2 > T(0) && isfinite(a.inv2) && isfinite(a.inv1);
+    return s1::sigma_ok(a) && isfinite(a.inv2) && isfinite(a.inv1);
   };
-  const bool ruled = fine && asc_y && asc_x && sig_ok(ay) && sig_ok(ax);
+  const bool ruled = fine && asc && sig_ok(ay) && sig_ok(ax);
   double* tile = reinterpret_cast<double*>(base_b + L.tile);
   double* RX = reinterpret_cast<double*>(base_b + L.rays);
   double* RY = RX + kr;
@@ -840,16 +478,12 @@ template <typename T>
 cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy, const void* sx,
                    const void* sy, const void* w, const void* cot, void* dx, void* dy, void* dw,
                    double* sums, void* dgx, void* dgy, void* dsx, void* dsy, int n_grids,
-                   int n_ch, int n_rays, int ny, int nx, int span, bool windowed,
-                   cudaStream_t stream) {
-  const bool with_dw = dw != nullptr, bins = sums != nullptr, full = with_dw || bins;
-  int kr = 0, stages = 0;
-  if (!windowed) step_plan(ny, nx, with_dw, bins, kr, stages);
-  windowed = windowed || kr == 0;
+                   int n_ch, int n_rays, int ny, int nx, int span, cudaStream_t stream) {
+  const bool bins = sums != nullptr, full = dw != nullptr || bins;
   const int n_spans = (n_rays + span - 1) / span;
   const long long spans = (long long)n_grids * n_ch * n_spans;
   cudaError_t err = cudaSuccess;
-  if (spans > 0 && windowed) {
+  if (spans > 0) {
     // The most threads (rays a step) whose layout fits, the centres and then
     // the cotangent staged where they fit; with bins a tile of every bin,
     // down to W_MIN_THREADS, else W_MIN_THREADS and the widest tile that
@@ -889,20 +523,6 @@ cudaError_t launch(const void* x, const void* y, const void* gx, const void* gy,
         (const T*)w, (const T*)cot, (T*)dx, (T*)dy, (T*)dw, sums, n_ch, n_rays, ny, nx, span,
         n_spans, n_parts, tb, (int)g_shared);
     err = cudaGetLastError();
-  } else if (spans > 0) {
-    if (spans > 0x7fffffffLL) return cudaErrorInvalidValue;
-    const BwdLayout L(ny, nx, kr, stages, with_dw, bins);
-    const size_t smem = L.bytes();
-    auto kernel = full ? s1_bwd_kernel<T, true> : s1_bwd_kernel<T, false>;
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-    }
-    kernel<<<(unsigned)spans, (L.consumers + PRODUCER_WARPS) * 32, smem, stream>>>(
-        (const T*)x, (const T*)y, (const T*)gx, (const T*)gy, (const T*)sx, (const T*)sy,
-        (const T*)w, (const T*)cot, (T*)dx, (T*)dy, (T*)dw, sums, n_ch, n_rays, ny, nx, span,
-        n_spans, kr, stages);
-    err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
   if (sums && n_grids > 0) {
@@ -925,23 +545,20 @@ extern "C" {
 // sums n_grids * (n_ch * ceil(n_rays / span) * 2 + 1) * (nx + ny) doubles of
 // scratch, dgx (n_grids, nx), dgy (n_grids, ny), dsx, dsy (n_grids,), and a
 // second launch; without, those are null. Of the inputs' type (float32, or
-// float64 with `dbl`), contiguous. `windowed`: the windowed kernel, which
-// any grid takes (ops/psf.py splat_bwd_windowed); else the resident one, or
-// the windowed where the resident layout does not fit.
+// float64 with `dbl`), contiguous.
 int s1_bwd_launch(const void* x, const void* y, const void* gx, const void* gy, const void* sx,
                   const void* sy, const void* w, const void* cot, void* dx, void* dy, void* dw,
                   double* sums, void* dgx, void* dgy, void* dsx, void* dsy, int n_grids,
-                  int n_ch, int n_rays, int ny, int nx, int span, int dbl, int bins, int windowed,
-                  void* stream) {
+                  int n_ch, int n_rays, int ny, int nx, int span, int dbl, int bins, void* stream) {
   if (n_grids < 0 || n_ch < 0 || n_rays < 0 || ny < 1 || nx < 1 || span < s1::CHUNK ||
       span % s1::CHUNK != 0 || (bins && !(sums && dgx && dgy && dsx && dsy)))
     return (int)cudaErrorInvalidValue;
   if (!bins) sums = nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(dbl ? launch<double>(x, y, gx, gy, sx, sy, w, cot, dx, dy, dw, sums, dgx, dgy,
-                                    dsx, dsy, n_grids, n_ch, n_rays, ny, nx, span, windowed != 0, s)
+                                    dsx, dsy, n_grids, n_ch, n_rays, ny, nx, span, s)
                    : launch<float>(x, y, gx, gy, sx, sy, w, cot, dx, dy, dw, sums, dgx, dgy,
-                                   dsx, dsy, n_grids, n_ch, n_rays, ny, nx, span, windowed != 0, s));
+                                   dsx, dsy, n_grids, n_ch, n_rays, ny, nx, span, s));
 }
 
 }  // extern "C"

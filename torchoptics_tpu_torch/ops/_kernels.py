@@ -145,17 +145,20 @@ def load() -> ctypes.CDLL:
     lib.p1_chain_launch.argtypes = [p, p, f, f, i, i, i, p, p]
     lib.p2_svola_launch.restype = lib.p2_dpsf_launch.restype = lib.p1_chain_launch.restype = i
     # S1, the PSF splat: x, y, gx, gy, sigma_x, sigma_y, weights (or null),
-    # partials, out, n_grids, n_ch, n_rays, n_y, n_x, span, float64, the
-    # stream; its adjoint: the same inputs, the cotangent, dx, dy, dweights
-    # (or null), the bins' partials, dgx, dgy, dsigma_x, dsigma_y (null
-    # without bins), the sizes, float64, bins, windowed, the stream; the
-    # forward's tiles of a half grid: n_y, n_x, where to write (tile rows,
-    # tile columns, tiles down, tiles across).
-    lib.s1_fwd_launch.argtypes = [p] * 9 + [i] * 7 + [p]
-    lib.s1_bwd_launch.argtypes = [p] * 16 + [i] * 9 + [p]
+    # partials, windows (or null), out, n_grids, n_ch, n_rays, n_y, n_x,
+    # span, float64, windowed, the stream; its adjoint: the same inputs, the
+    # cotangent, dx, dy, dweights (or null), the bins' partials, dgx, dgy,
+    # dsigma_x, dsigma_y (null without bins), the sizes, float64, bins, the
+    # stream; the forward's tiles of a half grid: n_y, n_x, windowed, where
+    # to write (tile rows, tile columns, tiles down, tiles across).
+    lib.s1_fwd_launch.argtypes = [p] * 10 + [i] * 8 + [p]
+    lib.s1_bwd_launch.argtypes = [p] * 16 + [i] * 8 + [p]
     lib.s1_fwd_launch.restype = lib.s1_bwd_launch.restype = i
-    lib.s1_fwd_tiles.argtypes = [i, i, p]
+    lib.s1_fwd_tiles.argtypes = [i, i, i, p]
     lib.s1_fwd_tiles.restype = None
+    # The windowed forward's scratch, int32s: n_pairs, n_rays, n_spans, n_y.
+    lib.s1_fwd_window_ints.argtypes = [ctypes.c_longlong, i, i, i]
+    lib.s1_fwd_window_ints.restype = ctypes.c_longlong
     # S1's tensor-core probe: A, B, C, d_mma, d_fma, cases, m16n8k4, the
     # stream; the FP64 rate kernel: steps, blocks, kind, out, the stream.
     lib.s1_dmma_probe.argtypes = [p] * 5 + [i, i, p]

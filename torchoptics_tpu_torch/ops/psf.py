@@ -37,25 +37,27 @@ SPLAT_LAUNCHES = 0
 #: gradient, is not counted).
 SPLAT_BWD_LAUNCHES = 0
 
-#: Rays a stage of S1's forward holds; a span is a multiple of it.
+#: Rays a stage of S1's dense forward holds; a span is a multiple of it.
 SPLAT_CHUNK = 32
-#: The blocks of S1's forward an H100 holds at once: 132 SMs, two blocks each
-#: (at the default configuration's grid). :func:`splat_span` sizes the spans
-#: to fill them.
+#: The blocks of S1's dense forward an H100 holds at once: 132 SMs, two
+#: blocks each (at the default configuration's grid). :func:`splat_span`
+#: sizes the spans to fill them.
 SPLAT_SLOTS = 132 * 2
-#: Column tiles of 8 bins a consumer warp of S1's adjoint holds: the groups
-#: of :func:`grouped_sum`.
+#: The groups of :func:`grouped_sum`: column tiles of 8 bins, this many a
+#: group (S1's adjoint sums a ray's terms by them).
 SPLAT_GROUP_TILES = 5
-#: The largest half grid (n_y rows, n_x/2 columns) on which S1's adjoint
-#: runs its resident kernel, which holds the whole cotangent in shared
-#: memory; larger grids take its windowed kernel (:func:`splat_bwd_windowed`).
-#: The forward tiles any grid itself. Both give the plain version's bits.
-SPLAT_RESIDENT_NY, SPLAT_RESIDENT_NX = 129, 65
-#: The windowed adjoint's threshold (``csrc/psf_splat.cuh`` ``q_max``): a
-#: factor exp(-q / 2) of q = ((v - c)^2) / sigma^2 above it is exactly 0
+#: The most bins (n_y x n_x/2) of a half grid on which S1's forward runs its
+#: dense kernel (every ray's term at every bin); larger grids take its
+#: windowed kernels (:func:`splat_fwd_windowed`). Both give the plain
+#: version's bits; the crossover was measured on an H100 (PERF.md,
+#: ``chip_smoke.py --s1-crossover``).
+SPLAT_DENSE_BINS = 3000
+#: The windows' threshold (``csrc/psf_splat.cuh`` ``q_max``): a factor
+#: exp(-q / 2) of q = ((v - c)^2) / sigma^2 above it is exactly 0
 #: (``exp_zero_probe`` checks the card's exp; 210 is 14.5 sigma, 7.2 bins at
 #: compute_psf's sigma of half a bin; 1500, 19.4 bins, is past the card's
-#: exp's cut-off of -745 to +0, ``csrc/psf_splat.cuh``).
+#: exp's cut-off of -745 to +0, ``csrc/psf_splat.cuh``). S1's adjoint and
+#: its windowed forward sum each ray only over the bins of its windows.
 SPLAT_Q_MAX = {torch.float32: 210.0, torch.float64: 1500.0}
 
 
@@ -74,24 +76,30 @@ def splat_span(n_rays: int, n_pairs: int) -> int:
     return max(1, -(-per // SPLAT_CHUNK)) * SPLAT_CHUNK
 
 
-def splat_bwd_windowed(ny: int, nx: int) -> bool:
-    """Whether S1's adjoint runs its windowed kernel on an ny x nx half grid:
-    above ``SPLAT_RESIDENT_NY`` x ``SPLAT_RESIDENT_NX`` (the resident
-    kernel's cotangent would outgrow a block's shared memory). The two give
-    the same bits; a function of the shape alone."""
-    return ny > SPLAT_RESIDENT_NY or nx > SPLAT_RESIDENT_NX
+def splat_fwd_windowed(ny: int, nx: int) -> bool:
+    """Whether S1's forward runs its windowed kernels on an ny x nx half
+    grid: above ``SPLAT_DENSE_BINS`` bins; else its dense kernel. The two
+    give the same bits; a function of the shape alone."""
+    return ny * nx > SPLAT_DENSE_BINS
+
+
+def _ruled(centres: torch.Tensor, s2: torch.Tensor) -> bool:
+    """Whether S1 takes windows on an axis: its centres finite and ascending
+    and s2 = sigma * sigma finite and positive."""
+    return (bool(torch.isfinite(centres).all()) and bool((centres[1:] >= centres[:-1]).all())
+            and bool(torch.isfinite(s2)) and float(s2) > 0)
 
 
 def splat_window(v: torch.Tensor, centres: torch.Tensor, s2: torch.Tensor):
-    """The window rule of S1's windowed adjoint on one axis, for the tests
-    (nothing on the main path calls it): v (R,) the rays' coordinates,
-    centres (n,), s2 = sigma * sigma, all of one type. A ray's window is the
-    bins [lo, hi] whose q = ((v - c)^2) / s2 (in that type, as
+    """The window rule of S1's windowed forward and adjoint on one axis, for
+    the tests (nothing on the main path calls it): v (R,) the rays'
+    coordinates, centres (n,), s2 = sigma * sigma, all of one type. A ray's
+    window is the bins [lo, hi] whose q = ((v - c)^2) / s2 (in that type, as
     :func:`_gauss` takes it) is at most ``SPLAT_Q_MAX``, an interval when
     the centres ascend; outside it every factor is exactly 0. The whole axis
     where the centres are not finite and ascending, s2 is not finite and
-    positive, or v is not finite (the kernel then takes the whole grid, and
-    also for the other cases its header names). Returns (lo, hi), int64
+    positive, or v is not finite (the kernels then take the whole grid, and
+    also for the other cases their headers name). Returns (lo, hi), int64
     (R,); an empty window has hi = lo - 1."""
     n = centres.shape[-1]
     d = v[:, None] - centres[None, :]
@@ -101,11 +109,52 @@ def splat_window(v: torch.Tensor, centres: torch.Tensor, s2: torch.Tensor):
     some = inside.any(dim=1)
     lo = torch.where(some, first, torch.zeros_like(first))
     hi = torch.where(some, last, torch.full_like(last, -1))
-    ruled = (bool(torch.isfinite(centres).all()) and bool((centres[1:] >= centres[:-1]).all())
-             and bool(torch.isfinite(s2)) and float(s2) > 0)
-    whole = ~torch.isfinite(v) | (not ruled)
+    whole = ~torch.isfinite(v) | (not _ruled(centres, s2))
     return (torch.where(whole, torch.zeros_like(lo), lo),
             torch.where(whole, torch.full_like(hi, n - 1), hi))
+
+
+def splat_over_windows(x: torch.Tensor, y: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
+                       sigma_x: torch.Tensor, sigma_y: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain twin of S1's windowed forward, for the tests (nothing on the
+    main path calls it): each bin's span sum taken only over the rays whose
+    windows (:func:`splat_window`, each axis) hold it, in ray order from 0.0
+    in float64, then the spans in order, rounded once. A ray whose x, y or
+    weight is not finite, and every ray of a grid whose centres or sigma^2
+    are not ruled on either axis, takes the whole grid; a ray of zero weight
+    or an empty window none. Arguments as :func:`splat_reference`'s, whose
+    bits it gives: the terms it leaves out are +-0."""
+    g, C, R = x.shape
+    ny, nx = gy.shape[1], gx.shape[1]
+    span = splat_span(R, g * C)
+    out = torch.zeros((g, C, ny, nx), dtype=torch.float64)
+    for i in range(g):
+        s2x, s2y = sigma_x[i] * sigma_x[i], sigma_y[i] * sigma_y[i]
+        ruled = _ruled(gx[i], s2x) and _ruled(gy[i], s2y)
+        for c in range(C):
+            xs, ys = x[i, c], y[i, c]
+            w = torch.ones_like(xs) if weights is None else weights[i, c]
+            xlo, xhi = splat_window(xs, gx[i], s2x)
+            ylo, yhi = splat_window(ys, gy[i], s2y)
+            whole = ~(torch.isfinite(xs) & torch.isfinite(ys) & torch.isfinite(w)) | (not ruled)
+            xlo, ylo = (torch.where(whole, 0, a) for a in (xlo, ylo))
+            xhi, yhi = torch.where(whole, nx - 1, xhi), torch.where(whole, ny - 1, yhi)
+            none = ~whole & ((w == 0) | (xlo > xhi) | (ylo > yhi))
+            for r0 in range(0, R, span):
+                acc = torch.zeros((ny, nx), dtype=torch.float64)
+                for r in range(r0, min(R, r0 + span)):
+                    if none[r]:
+                        continue
+                    rows = slice(int(ylo[r]), int(yhi[r]) + 1)
+                    cols = slice(int(xlo[r]), int(xhi[r]) + 1)
+                    ex = _gauss(xs[r], gx[i, cols], s2x)
+                    eyw = _gauss(ys[r], gy[i, rows], s2y)
+                    if weights is not None:
+                        eyw = eyw * w[r]
+                    acc[rows, cols] += eyw.double()[:, None] * ex.double()[None, :]
+                out[i, c] += acc
+    return out.to(x.dtype)
 
 
 def _gauss(v: torch.Tensor, centres: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
@@ -371,7 +420,7 @@ def dmma_probe(seed: int = 0) -> dict:
 
 
 def exp_zero_probe() -> dict:
-    """Run the windowed adjoint's threshold probe on the card
+    """Run S1's windows' threshold probe on the card
     (``csrc/psf_splat_probe.cu``): the factor exp(-q / 2) of every float32
     q above ``SPLAT_Q_MAX`` (and +inf); of float64 q, every double in
     (q_max, q_max + 1], 2^26 spread up to +inf, and the binades' end points
@@ -444,7 +493,9 @@ def _ptr(a: Optional[torch.Tensor]):
     return None if a is None else a.data_ptr()
 
 
-def _launch_splat(x, y, gx, gy, sigma_x, sigma_y, weights):
+def _launch_splat(x, y, gx, gy, sigma_x, sigma_y, weights, windowed: Optional[bool] = None):
+    """S1's forward on CUDA tensors, by the route :func:`splat_fwd_windowed`
+    picks (``windowed`` forces one)."""
     global SPLAT_LAUNCHES
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
@@ -454,24 +505,30 @@ def _launch_splat(x, y, gx, gy, sigma_x, sigma_y, weights):
     ny, nx = gy.shape[1], gx.shape[1]
     span = splat_span(R, g * C)
     n_spans = -(-R // span)
+    if windowed is None:
+        windowed = splat_fwd_windowed(ny, nx)
+    # Scratch: each (pair, span, bin)'s sum, and on the windowed route each
+    # ray's windows (rows and columns, [lo, hi] each) with each (pair, span,
+    # band of rows)'s flag.
     partials = torch.empty(g * C * n_spans * ny * nx, dtype=torch.float64, device=x.device)
+    windows = (torch.empty(lib.s1_fwd_window_ints(g * C, R, n_spans, ny), dtype=torch.int32,
+                           device=x.device) if windowed else None)
     out = torch.empty((g, C, ny, nx), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.s1_fwd_launch(x.data_ptr(), y.data_ptr(), gx.data_ptr(), gy.data_ptr(),
                                 sigma_x.data_ptr(), sigma_y.data_ptr(), _ptr(weights),
-                                partials.data_ptr(), out.data_ptr(), g, C, R, ny, nx, span,
-                                int(x.dtype == torch.float64), stream)
+                                partials.data_ptr(), _ptr(windows), out.data_ptr(), g, C, R,
+                                ny, nx, span, int(x.dtype == torch.float64), int(windowed),
+                                stream)
     if err != 0:
         raise RuntimeError(f"S1 (PSF splat) launch failed: {lib.k1_error_string(err).decode()}")
     SPLAT_LAUNCHES += 1 if g * C * R else 0
     return out
 
 
-def _launch_splat_bwd(x, y, gx, gy, sigma_x, sigma_y, weights, cotangent, bins, weights_grad,
-                      windowed: Optional[bool] = None):
-    """S1's adjoint on CUDA tensors, by the kernel :func:`splat_bwd_windowed`
-    picks (``windowed`` forces one)."""
+def _launch_splat_bwd(x, y, gx, gy, sigma_x, sigma_y, weights, cotangent, bins, weights_grad):
+    """S1's adjoint on CUDA tensors (its windowed kernel, on every grid)."""
     global SPLAT_BWD_LAUNCHES
     from torchoptics_tpu_torch.ops import _kernels
     lib = _kernels.load()
@@ -490,16 +547,13 @@ def _launch_splat_bwd(x, y, gx, gy, sigma_x, sigma_y, weights, cotangent, bins, 
     dgx, dgy, dsx, dsy = (new(g, nx), new(g, ny), new(g), new(g)) if bins else (None,) * 4
     partials = (torch.empty(g * (C * n_spans * 2 + 1) * (nx + ny), dtype=torch.float64,
                             device=x.device) if bins else None)
-    if windowed is None:
-        windowed = splat_bwd_windowed(ny, nx)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.s1_bwd_launch(
             x.data_ptr(), y.data_ptr(), gx.data_ptr(), gy.data_ptr(), sigma_x.data_ptr(),
             sigma_y.data_ptr(), _ptr(weights), cotangent.data_ptr(), dx.data_ptr(),
             dy.data_ptr(), _ptr(dw), _ptr(partials), _ptr(dgx), _ptr(dgy), _ptr(dsx), _ptr(dsy),
-            g, C, R, ny, nx, span, int(x.dtype == torch.float64), int(bins), int(windowed),
-            stream)
+            g, C, R, ny, nx, span, int(x.dtype == torch.float64), int(bins), stream)
     if err != 0:
         raise RuntimeError(f"S1's adjoint launch failed: {lib.k1_error_string(err).decode()}")
     SPLAT_BWD_LAUNCHES += 1 if g * C * R else 0
